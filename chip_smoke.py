@@ -10,11 +10,14 @@ Phases (any failure raises and the script exits non-zero):
 2. build the hand-written kernels from ``cpt_tpu_torch/csrc`` (nvcc);
 3. hold each kernel (K1 grouped conv, K2 RoIAlign, K3 attention block and
    its attention core alone, K4 FFN block) in bf16 against its plain
-   PyTorch version in f32 on the same inputs, at the main path's shapes,
-   and time the kernel and the plain version in bf16 with CUDA events;
+   PyTorch version in f32 on the same inputs, and K5 (greedy NMS) against
+   its plain version exactly on the same f32 inputs, at the main paths'
+   shapes, and time each kernel and its plain version with CUDA events;
 4. at full width (VinVL X152-C4 + Oscar-base, random weights from a seed in
    the reference layouts) answer 3 grounding requests through
-   ``cpt_predict.predict`` and check that every kernel ran on that path.
+   ``cpt_predict.predict`` with given candidates, then 3 ``--detect``
+   requests whose candidates the detector proposes, and check that every
+   kernel of each path ran on it.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``.
@@ -46,6 +49,8 @@ KERNELS = {
            "cpt_tpu/ops/fused_attention.py:121"),
     "K4": ("fused_ffn", "cpt_tpu_torch/csrc/gemm.cu",
            "cpt_tpu/ops/fused_ffn.py:113"),
+    "K5": ("nms_pallas", "cpt_tpu_torch/csrc/nms.cu",
+           "cpt_tpu/ops/nms_pallas.py:92"),
 }
 
 
@@ -222,15 +227,117 @@ def check_kernels(rows: list) -> dict:
                 lambda: fused_ffn(*args, approximate=approx),
                 lambda: reference_ffn(*args, 1e-12, approx),
                 lambda: reference_ffn(*f32(args), 1e-12, approx), rows)
+    check_nms(rows)
     return {k: [r for r in rows if r["kernel"].split()[0] == k]
             for k in KERNELS}
 
 
-def run_requests(counters) -> dict:
-    """Full-width requests through ``cpt_predict.predict``."""
+def nms_with_fault(boxes, scores, valid, thr, max_out, fault):
+    """The plain greedy loop of ``ops/nms.py`` with one named fault:
+    ``ge`` suppresses at IoU >= thr, ``ties_high`` breaks score ties to the
+    higher index, ``no_valid`` ignores the validity mask."""
     import torch
 
-    from cpt_tpu_torch.data.refcoco import tsv_region_features
+    from cpt_tpu_torch.ops.nms import NEG_INF, _iou_row
+
+    if fault == "no_valid":
+        valid = torch.ones_like(valid)
+    live = torch.where(valid, scores, NEG_INF)
+    b, k = scores.shape
+    rows = torch.arange(b, device=boxes.device)
+    out_idx = torch.zeros((b, max_out), dtype=torch.int32, device=boxes.device)
+    out_keep = torch.zeros((b, max_out), dtype=torch.bool, device=boxes.device)
+    for i in range(max_out):
+        pick = (k - 1 - torch.argmax(live.flip(1), dim=1) if fault == "ties_high"
+                else torch.argmax(live, dim=1))
+        ok = live[rows, pick] > NEG_INF / 2
+        iou = _iou_row(boxes[rows, pick], boxes, 0.0)
+        hit = iou >= thr if fault == "ge" else iou > thr
+        live = torch.where(ok[:, None] & hit, NEG_INF, live)
+        live[rows, pick] = NEG_INF
+        out_idx[:, i] = torch.where(ok, pick, 0).to(torch.int32)
+        out_keep[:, i] = ok
+    return out_idx, out_keep
+
+
+def check_nms(rows: list) -> None:
+    """K5 against the plain ``nms_padded`` on the card, on the same f32
+    inputs, at the RPN, fast-filter and batched per-class shapes. The check
+    is exact equality of ``keep`` and of the kept indices. The inputs have
+    many tied scores and planted pairs at IoU exactly equal to the
+    threshold, and a fifth of the boxes invalid, so a ``>=`` for ``>``,
+    ties broken to the higher index and an ignored mask each change the
+    result; the check asserts that they do."""
+    import torch
+
+    from cpt_tpu_torch.ops.nms import nms_padded
+    from cpt_tpu_torch.ops.nms_pallas import nms_pallas
+
+    dev = torch.device("cuda")
+    for b, k, max_out, thr in [(1, 6000, 300, 0.7), (1, 300, 100, 0.5),
+                               (1594, 300, 32, 0.5)]:
+        rng = np.random.RandomState(k + b)
+        xy = rng.uniform(0, 900, (b, k, 2))
+        wh = rng.uniform(8, 300, (b, k, 2))
+        boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        # 21 score levels, so ties are everywhere (sigmoid scores of a
+        # randomly initialised RPN saturate at 1.0 just so)
+        scores = (rng.randint(0, 21, (b, k)) / 20).astype(np.float32)
+        valid = rng.rand(b, k) > 0.2
+        # pairs [x, y, x+10, y+10] / [x, y, x+10, y+10·thr] clear of the
+        # random boxes: exclusive IoU exactly thr, both at the top score
+        for p in range(8):
+            x0, y0 = 1300.0 + 20 * p, 1300.0
+            boxes[:, 2 * p] = [x0, y0, x0 + 10, y0 + 10]
+            boxes[:, 2 * p + 1] = [x0, y0, x0 + 10, y0 + 10 * thr]
+            scores[:, 2 * p:2 * p + 2] = 1.0
+            valid[:, 2 * p:2 * p + 2] = True
+        bx, sc, va = (torch.from_numpy(a).to(dev) for a in (boxes, scores, valid))
+        squeeze = b == 1
+        args = ((bx[0], sc[0], va[0]) if squeeze else (bx, sc, va))
+        label = (f"boxes=[{k},4] max_out={max_out} thr={thr}" if squeeze else
+                 f"boxes=[{b},{k},4] max_out={max_out} thr={thr}")
+
+        def flat(out):
+            idx, keep = out
+            return idx.reshape(b, -1), keep.reshape(b, -1)
+
+        got_idx, got_keep = flat(nms_pallas(*args, thr, max_out))
+        want_idx, want_keep = flat(nms_padded(*args, thr, max_out))
+        torch.cuda.synchronize()
+        err = float((got_idx - want_idx).abs().max())
+        same = (torch.equal(got_keep, want_keep)
+                and torch.equal(got_idx[got_keep], want_idx[want_keep]))
+
+        def differs(out):
+            idx, keep = out
+            return not (torch.equal(keep, want_keep)
+                        and torch.equal(idx[keep], want_idx[want_keep]))
+
+        faults = {f: differs(nms_with_fault(bx, sc, va, thr, max_out, f))
+                  for f in ("ge", "ties_high", "no_valid")}
+        ms = cuda_ms(lambda: nms_pallas(*args, thr, max_out))
+        plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out), reps=3,
+                           warmup=1)
+        kept = int(want_keep.sum())
+        rows.append({"kernel": "K5", "shape": label, "max_abs_err": err,
+                     "tol": 0.0, "exact": same, "kept": kept, "ms": ms,
+                     "plain_ms": plain_ms, "faults_differ": faults})
+        print(f"K5 {label}: exact={same} max_abs_idx_err={err:.0f} "
+              f"kept={kept} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"faults differ: {faults}", flush=True)
+        if not same:
+            raise AssertionError(f"K5 {label}: kernel differs from plain")
+        caught = [f for f, d in faults.items() if not d]
+        if caught:
+            raise AssertionError(f"K5 {label}: the check would pass {caught}")
+
+
+def build_resident():
+    """VinVL X152-C4 + Oscar-base at full width, random weights from seed 0
+    in the reference layouts, resident on the card."""
+    import torch
+
     from cpt_tpu_torch.tools import cpt_predict as cp
 
     t0 = time.perf_counter()
@@ -240,6 +347,16 @@ def run_requests(counters) -> dict:
     print(f"full-width models resident in {setup_s:.1f} s "
           f"(X152-C4 detector, Oscar-base 12x768, vocab "
           f"{res.bert_cfg.vocab_size})", flush=True)
+    return res, setup_s
+
+
+def run_requests(res, counters) -> dict:
+    """Full-width grounding requests with given candidates
+    (``cpt_predict.predict`` with dets)."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import tsv_region_features
+    from cpt_tpu_torch.tools import cpt_predict as cp
 
     rng = np.random.RandomState(2024)
 
@@ -279,11 +396,94 @@ def run_requests(counters) -> dict:
     copies = sum(r["candidates"] for r in reqs)
     print(f"copies/s over the 3 requests: {copies / total:.2f}; launches "
           f"{launches}", flush=True)
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k, n in launches.items() if n <= 0 and k != "K5"]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return {"setup_s": setup_s, "warmup_ms": cold_s * 1e3, "requests": reqs,
+    return {"warmup_ms": cold_s * 1e3, "requests": reqs,
             "copies_per_s": copies / total, "launches": launches}
+
+
+def run_detect_requests(res, counters) -> dict:
+    """Full-width ``--detect`` requests: ``cpt_predict.predict`` without
+    dets, so the detector proposes the candidates (RPN → K5 → box head on
+    K2/K1 → ``NMS_FILTER`` 2 on K5 → ``conf`` 0), then grounds them. The
+    detect step is timed and its launches counted by wrapping
+    ``Resident.detect``."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import tsv_region_features
+    from cpt_tpu_torch.tools import cpt_predict as cp
+
+    rng = np.random.RandomState(2025)
+    step: dict = {}
+    detect = res.detect
+
+    def timed_detect(image, conf):
+        before = {k: fn.launches for k, fn in counters.items()}
+        t = time.perf_counter()
+        out = detect(image, conf)
+        step["ms"] = (time.perf_counter() - t) * 1e3
+        step["candidates"] = [[float(v) for v in b] for b in out[0]]
+        step["launches"] = {k: fn.launches - before[k]
+                            for k, fn in counters.items()}
+        return out
+
+    res.detect = timed_detect
+
+    def answer(img, wd):
+        t = time.perf_counter()
+        box = cp.predict(res, img, "the person on the left", None,
+                         workdir=wd, conf=0.0)
+        torch.cuda.synchronize()
+        return box, time.perf_counter() - t
+
+    def image():
+        return rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            _, cold_s = answer(image(), wd)
+            print(f"warm-up detect request: {cold_s * 1e3:.1f} ms", flush=True)
+            for fn in counters.values():
+                fn.launches = 0
+            reqs = []
+            for _ in range(3):
+                before = {k: fn.launches for k, fn in counters.items()}
+                box, sec = answer(image(), wd)
+                n_k5 = counters["K5"].launches - before["K5"]
+                feats = tsv_region_features(f"{wd}/predictions.tsv")
+                n_cand = len(step["candidates"])
+                if box not in step["candidates"]:
+                    raise AssertionError(f"predicted {box} is not a detected "
+                                         f"candidate")
+                if (n_cand < 2 or feats.shape != (n_cand, n_cand, 2054)
+                        or not np.isfinite(feats).all()):
+                    raise AssertionError(f"{n_cand} candidates, features "
+                                         f"{feats.shape}")
+                det_l = step["launches"]
+                if n_k5 < 2 or det_l["K1"] <= 0 or det_l["K2"] <= 0:
+                    raise AssertionError(f"detect step launches {det_l}, K5 "
+                                         f"{n_k5} in the request")
+                reqs.append({"candidates": n_cand, "ms": sec * 1e3,
+                             "detect_ms": step["ms"],
+                             "ground_ms": sec * 1e3 - step["ms"],
+                             "detect_launches": det_l, "k5_launches": n_k5,
+                             "box": box})
+                print(f"detect request {len(reqs)} (480x640 image, 1024x1024 "
+                      f"detect canvas, conf 0): {sec * 1e3:.1f} ms = detect "
+                      f"{step['ms']:.1f} + ground {sec * 1e3 - step['ms']:.1f}"
+                      f"; {n_cand} candidates; detect-step launches K1 "
+                      f"{det_l['K1']} K2 {det_l['K2']} K5 {det_l['K5']}",
+                      flush=True)
+            launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        res.detect = detect
+    print(f"launches over the 3 detect requests: {launches}", flush=True)
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the detect path: "
+                             f"{missing}")
+    return {"warmup_ms": cold_s * 1e3, "requests": reqs, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -308,6 +508,7 @@ def main(argv=None) -> int:
     from cpt_tpu_torch.ops.fused_attention import fused_attention_block
     from cpt_tpu_torch.ops.fused_ffn import fused_ffn
     from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
+    from cpt_tpu_torch.ops.nms_pallas import nms_pallas
     from cpt_tpu_torch.ops.roi_align_pallas import batched_roi_align
 
     build.lib()
@@ -317,18 +518,23 @@ def main(argv=None) -> int:
     rows: list = []
     per_kernel = check_kernels(rows)
     counters = {"K1": grouped_conv3x3, "K2": batched_roi_align,
-                "K3": fused_attention_block, "K4": fused_ffn}
-    e2e = run_requests(counters)
+                "K3": fused_attention_block, "K4": fused_ffn,
+                "K5": nms_pallas}
+    res, setup_s = build_resident()
+    e2e = {"setup_s": setup_s, "ground": run_requests(res, counters),
+           "detect": run_detect_requests(res, counters)}
 
     # headline shape per kernel for the summary line: the most frequent
-    # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu)
-    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0}
+    # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
+    # NMS); launches over both paths, each counted from 0 around its run
+    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0}
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
         summary.append({"name": f"{k} {fn_name}", "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": e2e["launches"][k],
+                        "launches": (e2e["ground"]["launches"][k]
+                                     + e2e["detect"]["launches"][k]),
                         "max_abs_err": max(x["max_abs_err"] for x in per_kernel[k]),
                         "ms": r["ms"], "plain_ms": r["plain_ms"]})
     if args.json:

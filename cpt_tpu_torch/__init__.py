@@ -5,12 +5,16 @@ obvious JAX counterpart that its tests hold it against:
 
   csrc/        hand-written CUDA kernels (sm_90a) for the TPU's Pallas kernels
   kernels/     nvcc + ctypes build of csrc/, dispatch rule, GEMM launchers
-  ops/         prompt rendering, RoIAlign, grouped conv, fused BERT blocks
-  structures/  host-side box helpers
-  models/      the VinVL X152-C4 detector (force-boxes mode) and Oscar BERT
-  engine/      colored-copy extraction and color-word scoring
+  ops/         prompt rendering, RoIAlign, grouped conv, fused BERT blocks,
+               greedy NMS
+  structures/  box helpers and box decoding
+  models/      the VinVL X152-C4 detector (force-boxes and RPN modes) and
+               Oscar BERT
+  engine/      colored-copy extraction, RPN-mode detection, color-word
+               scoring
   data/        the RefCOCO stage-2 dataset
-  tools/       the one-shot grounding entry point (cpt_predict)
+  tools/       the one-shot grounding entry point (cpt_predict, with
+               --dets or --detect) and the detector demo's run_detector
 
 Public functions keep the JAX package's layouts: NHWC feature maps,
 [B, S, H] hidden states, inclusive xyxy boxes.

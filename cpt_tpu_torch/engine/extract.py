@@ -1,6 +1,7 @@
 """Stage-1 feature extraction: image → colored copies → detector →
 ``predictions.tsv`` (port of the full, single-device path of
-``cpt_tpu/engine/extract.py``).
+``cpt_tpu/engine/extract.py``), and RPN-mode detection
+(:func:`make_detect_fn`).
 
 The base image is uploaded once per query; all candidate-region copies are
 rendered on the device (``ops/render``) and run through the detector in
@@ -71,6 +72,25 @@ def make_extract_fn(model: AttrRCNN, cfg: DetectorConfig):
         feats = torch.where(copy_valid[:, None, None], feats,
                             torch.zeros_like(feats))
         return feats, out["labels"], out["scores"]
+
+    return fn
+
+
+def make_detect_fn(model: AttrRCNN, cfg: DetectorConfig, *,
+                   with_attributes: bool = True):
+    """RPN-mode detection + region features on one canvas (the reference's
+    generic ``engine/inference.py`` path): ``fn(image_u8 [H, W, 3],
+    anchors, hw)`` → (feats [D, 2054], boxes, labels, scores, valid,
+    attr_logits or None), ``D = detections_per_img`` slots."""
+
+    @torch.inference_mode()
+    def fn(image_u8, anchors, hw):
+        x = to_detector_input(image_u8, cfg.input.pixel_mean, dtype=model.dtype)
+        out = model(x, hw, anchors, with_attributes)
+        feats = region_features_2054(out["box_features"].float(),
+                                     out["boxes"], hw)
+        return (feats, out["boxes"], out["labels"], out["scores"],
+                out["valid"], out.get("attr_logits"))
 
     return fn
 

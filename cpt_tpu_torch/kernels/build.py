@@ -1,15 +1,18 @@
 """Build, load and dispatch the port's CUDA kernels.
 
-The sources in ``cpt_tpu_torch/csrc/*.cu`` are compiled on first use with
+The sources in ``cpt_tpu_torch/csrc/*.cu`` are compiled on first use, one
+process per source, all at once,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/cpt_tpu_torch/libcpt_kernels-<hash>.so
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c <source>.cu
 
-into ``build/cpt_tpu_torch/`` at the repository root (git ignores it), and
-loaded with ``ctypes``. The library name carries a hash of the sources and
-flags, so an edited source is never served from a stale build. Every entry
-point takes its pointers and the stream as ``c_void_p`` and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero status.
+and linked with ``nvcc -shared`` into
+``build/cpt_tpu_torch/libcpt_kernels-<hash>.so`` at the repository root
+(git ignores it), then loaded with ``ctypes``. The library name carries a
+hash of the sources and flags, so an edited source is never served from a
+stale build. Every entry point takes its pointers and the stream as
+``c_void_p`` and returns ``cudaGetLastError()``; :func:`check` raises on a
+non-zero status.
 
 Dispatch rule shared by every kernel wrapper (:func:`uses_kernel`): a tensor
 on the CPU takes the wrapper's plain PyTorch version; a tensor on a CUDA
@@ -32,7 +35,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
@@ -48,6 +52,11 @@ SIGNATURES = {
     "cpt_attention": ([_P] * 3 + [_I] * 4 + [_F, _P], _I),
     # S, head_dim
     "cpt_attention_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    # boxes, scores, valid, out_idx, out_keep, B, K, max_out, iou_threshold,
+    # iou_offset, stream
+    "cpt_nms": ([_P] * 5 + [_I] * 3 + [_F, _F, _P], _I),
+    # K
+    "cpt_nms_smem_bytes": ([_I], ctypes.c_longlong),
 }
 
 
@@ -65,7 +74,7 @@ def nvcc_path() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -73,20 +82,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a build of the current sources exists.
-    The compiler's output (``-Xptxas=-v``: registers, shared memory and
-    spills per kernel) goes to ``build.log`` beside the library."""
+    """Compile the kernels unless a build of the current sources exists:
+    one ``nvcc -c`` per source, all started together, then one link. The
+    compilers' output (``-Xptxas=-v``: registers, shared memory and spills
+    per kernel) goes to ``build.log`` beside the library."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs, procs, log = [], [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text}")
+    if not failed:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 

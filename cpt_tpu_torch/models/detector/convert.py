@@ -5,11 +5,12 @@ Two sources:
 
 * :func:`state_from_reference` — the reference ``.pth`` layout
   (maskrcnn_benchmark names ``backbone.body.*``, ``rpn.head.*``,
-  ``roi_heads.box.*``), loaded natively: OIHW conv weights stay OIHW, the
-  grouped 3×3 becomes HWIO for kernel K1, FrozenBatchNorm's running stats
-  fold into ``(scale, bias)`` with eps 0 (reference
-  ``layers/batch_norm.py:24-27``), linears keep [out, in]. Attribute-head
-  keys are ignored (that head is not ported yet).
+  ``roi_heads.box.*``, ``attribute.*``), loaded natively: OIHW conv weights
+  stay OIHW, the grouped 3×3 becomes HWIO for kernel K1, FrozenBatchNorm's
+  running stats fold into ``(scale, bias)`` with eps 0 (reference
+  ``layers/batch_norm.py:24-27``), linears keep [out, in], the class
+  embedding is copied. The attribute head maps when the checkpoint has it
+  (as in the JAX converter).
 * :func:`params_from_jax` — the JAX package's detector parameter tree
   (numpy leaves), for holding the two packages against each other.
 """
@@ -36,15 +37,21 @@ def _fold_bn(sd: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]
             "bias": (sd[prefix + ".bias"] - mean * scale).astype(np.float32)}
 
 
-def _stage_names(cfg: DetectorConfig):
+ATTR_KEY = "attribute.predictor.attr_score.weight"
+
+
+def _stage_names(cfg: DetectorConfig, with_attributes: bool):
     """(port prefix, reference prefix, block count) for every ResNet stage."""
     n = len(cfg.backbone.stage_blocks)
     for i, blocks in enumerate(cfg.backbone.stage_blocks):
         yield f"backbone.layer{i + 1}", f"backbone.body.layer{i + 1}", blocks
     head = f"layer{n + 1}"
-    yield (f"box_extractor.head.{head}",
-           f"roi_heads.box.feature_extractor.head.{head}",
-           cfg.backbone.head_blocks)
+    heads = [("box_extractor", "roi_heads.box.feature_extractor")]
+    if with_attributes:
+        heads.append(("attr_extractor", "attribute.feature_extractor"))
+    for port, ref in heads:
+        yield (f"{port}.head.{head}", f"{ref}.head.{head}",
+               cfg.backbone.head_blocks)
 
 
 def state_from_reference(sd: Mapping[str, Any], cfg: DetectorConfig
@@ -56,7 +63,7 @@ def state_from_reference(sd: Mapping[str, Any], cfg: DetectorConfig
         "backbone.stem.conv1.weight": sd["backbone.body.stem.conv1.weight"]}
     for k, v in _fold_bn(sd, "backbone.body.stem.bn1").items():
         out[f"backbone.stem.bn1.{k}"] = v
-    for port, ref, blocks in _stage_names(cfg):
+    for port, ref, blocks in _stage_names(cfg, ATTR_KEY in sd):
         for j in range(blocks):
             p, r = f"{port}.block_{j}", f"{ref}.{j}"
             out[f"{p}.conv1.weight"] = sd[f"{r}.conv1.weight"]
@@ -77,6 +84,13 @@ def state_from_reference(sd: Mapping[str, Any], cfg: DetectorConfig
         for part in ("weight", "bias"):
             out[f"box_predictor.{name}.{part}"] = \
                 sd[f"roi_heads.box.predictor.{name}.{part}"]
+    if ATTR_KEY in sd:
+        out["attr_predictor.cls_embedding.weight"] = \
+            sd["attribute.predictor.cls_embedding.weight"]
+        for name in ("fc_attr", "attr_score"):
+            for part in ("weight", "bias"):
+                out[f"attr_predictor.{name}.{part}"] = \
+                    sd[f"attribute.predictor.{name}.{part}"]
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}
 
@@ -102,8 +116,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
     n = len(cfg.backbone.stage_blocks)
     stages = [(f"backbone.layer{i + 1}", bb[f"layer{i + 1}"]) for i in range(n)]
     head = f"layer{n + 1}"
-    stages.append((f"box_extractor.head.{head}",
-                   t["box_extractor"]["head"][head]))
+    for name in ("box_extractor", "attr_extractor"):
+        if name in t:
+            stages.append((f"{name}.head.{head}", t[name]["head"][head]))
     for port, node in stages:
         for bname, blk in node.items():
             p = f"{port}.{bname}"
@@ -123,6 +138,13 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
     for name in ("cls_score", "bbox_pred"):
         out[f"box_predictor.{name}.weight"] = _np(pred[name]["kernel"]).T
         out[f"box_predictor.{name}.bias"] = _np(pred[name]["bias"])
+    if "attr_predictor" in t:
+        attr = t["attr_predictor"]
+        out["attr_predictor.cls_embedding.weight"] = _np(
+            attr["cls_embedding"]["embedding"])
+        for name in ("fc_attr", "attr_score"):
+            out[f"attr_predictor.{name}.weight"] = _np(attr[name]["kernel"]).T
+            out[f"attr_predictor.{name}.bias"] = _np(attr[name]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}
 

@@ -1,4 +1,4 @@
-"""Host-side box helpers (port of the host functions of
+"""Box helpers (port of the host functions and ``decode_boxes`` of
 ``cpt_tpu/structures/boxes.py``).
 
 Boxes are inclusive pixel xyxy with ``TO_REMOVE = 1`` (widths are
@@ -6,7 +6,10 @@ Boxes are inclusive pixel xyxy with ``TO_REMOVE = 1`` (widths are
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
+import torch
 
 TO_REMOVE = 1.0  # reference's +1 box-width convention
 
@@ -21,6 +24,36 @@ def xywh_iou(a, b) -> float:
     inter = iw * ih
     union = a[2] * a[3] + b[2] * b[3] - inter
     return inter / union if union > 0 else 0.0
+
+
+def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,
+                 weights: Tuple[float, float, float, float],
+                 bbox_xform_clip: float = 4.135166556742356,  # log(1000/16)
+                 ) -> torch.Tensor:
+    """Faster-RCNN box decoding (reference ``modeling/box_coder.py:67-95``).
+
+    ``deltas`` (..., N, 4*k) · ``anchors`` (..., N, 4) → (..., N, 4*k) xyxy,
+    inclusive corners (``x2 = cx + w/2 - 1``)."""
+    w = anchors[..., 2] - anchors[..., 0] + TO_REMOVE
+    h = anchors[..., 3] - anchors[..., 1] + TO_REMOVE
+    cx = anchors[..., 0] + 0.5 * w
+    cy = anchors[..., 1] + 0.5 * h
+
+    wx, wy, ww, wh = weights
+    dx = deltas[..., 0::4] / wx
+    dy = deltas[..., 1::4] / wy
+    dw = torch.clamp(deltas[..., 2::4] / ww, max=bbox_xform_clip)
+    dh = torch.clamp(deltas[..., 3::4] / wh, max=bbox_xform_clip)
+
+    pred_cx = dx * w[..., None] + cx[..., None]
+    pred_cy = dy * h[..., None] + cy[..., None]
+    pred_w = torch.exp(dw) * w[..., None]
+    pred_h = torch.exp(dh) * h[..., None]
+
+    out = torch.stack([pred_cx - 0.5 * pred_w, pred_cy - 0.5 * pred_h,
+                       pred_cx + 0.5 * pred_w - TO_REMOVE,
+                       pred_cy + 0.5 * pred_h - TO_REMOVE], dim=-1)
+    return out.reshape(*deltas.shape[:-1], -1)
 
 
 def pad_boxes(xyxy, max_boxes: int):

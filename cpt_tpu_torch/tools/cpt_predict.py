@@ -1,6 +1,9 @@
 """One-shot CPT grounding: image + referring expression → predicted box
-(port of ``cpt_tpu/tools/cpt_predict.py``, ``--dets`` mode).
+(port of ``cpt_tpu/tools/cpt_predict.py``).
 
+The candidates are given (``--dets``) or proposed by the detector itself
+(``--detect``: VinVL X152-C4 in RPN mode on the padded canvas, the
+``NMS_FILTER`` post-processor, then the ``--conf`` filter; ``tools/demo.py``).
 Stage 1 paints one colored copy of the image per candidate box and runs
 VinVL X152-C4 in force-boxes mode over the copies (``engine/extract.py``),
 writing ``predictions.tsv``; stage 2 reads it back and scores color words
@@ -14,6 +17,7 @@ RGB array. ``main()`` wraps it for the command line:
       --caption "the dog on the left" --dets '[[10,20,120,200],...]' \\
       --checkpoint vinvl_vg_x152c4.pth --oscar_checkpoint pytorch_model.bin \\
       --vocab vocab.txt --out overlay.png
+  (--detect [--conf 0.5] proposes the candidates instead of --dets.)
 
 Without checkpoints the weights are random, drawn from ``--seed`` in the
 reference layouts.
@@ -25,6 +29,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -35,12 +40,14 @@ from cpt_tpu.models.detector.config import DetectorConfig
 from cpt_tpu.utils.tokenization import BertTokenizer
 from cpt_tpu_torch.data.refcoco import (RefcocoCPTData, det_json_for_stage2,
                                         iter_eval_batches)
-from cpt_tpu_torch.engine.extract import Extractor, refcoco_task
+from cpt_tpu_torch.engine.extract import (Extractor, make_detect_fn,
+                                          refcoco_task)
 from cpt_tpu_torch.engine.scoring import (make_mlm_at_mask_fn,
                                           refcoco_collect_scores,
                                           refcoco_evaluate, run_mlm_batch)
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+from cpt_tpu_torch.tools.demo import canvas_anchors, run_detector
 
 SCORE_BATCH = 16   # sequences per scoring batch (the JAX tool's batch_size)
 
@@ -68,8 +75,11 @@ def bert_config(hidden_size: Optional[int] = None,
 
 class Resident:
     """Both stages resident on ``device``: the detector behind an
-    :class:`Extractor`, and ``REC_MLM_CPT``. State dicts are in the port's
-    layout (``models/detector/convert.py``, ``utils/convert.py``)."""
+    :class:`Extractor` (force-boxes) and an RPN-mode detect function, and
+    ``REC_MLM_CPT``. State dicts are in the port's layout
+    (``models/detector/convert.py``, ``utils/convert.py``); a detector
+    checkpoint without the attribute head loads (that head is not run
+    here)."""
 
     def __init__(self, det_cfg: DetectorConfig, det_state: dict,
                  bert_cfg: BertConfig, bert_state: dict,
@@ -77,24 +87,58 @@ class Resident:
         with torch.device(device):
             self.detector = AttrRCNN(det_cfg, dtype).eval()
             self.oscar = REC_MLM_CPT(bert_cfg, dtype).eval()
-        self.detector.load_state_dict(det_state)
+        missing, unexpected = self.detector.load_state_dict(det_state,
+                                                            strict=False)
+        missing = [k for k in missing
+                   if not k.startswith(("attr_extractor.", "attr_predictor."))]
+        if missing or unexpected:
+            raise RuntimeError(f"detector state: missing {missing}, "
+                               f"unexpected {unexpected}")
         self.oscar.load_state_dict(bert_state)
         self.det_cfg = det_cfg
         self.bert_cfg = bert_cfg
         self.tokenizer = tokenizer
+        self.device = torch.device(device)
         self.extractor = Extractor(self.detector, det_cfg,
                                    copies_per_chunk=None)
+        self.detect_fn = make_detect_fn(self.detector, det_cfg,
+                                        with_attributes=False)
+        self.anchors = canvas_anchors(det_cfg, self.device)
+        self.detect_seconds = 0.0
+
+    def detect(self, image_rgb: np.ndarray, conf: float):
+        """RPN-mode detection on the image's canvas → (boxes, labels,
+        scores) numpy above ``conf``, by descending score."""
+        t0 = time.perf_counter()
+        out = run_detector(self.detect_fn, self.anchors, self.det_cfg,
+                           np.asarray(image_rgb, np.uint8), conf)
+        self.detect_seconds += time.perf_counter() - t0
+        return out
+
+
+def detect_candidates(res: Resident, image_rgb: np.ndarray,
+                      conf: float) -> List[List[float]]:
+    """The detector's boxes above ``conf`` as candidate lists; raises
+    ``ValueError`` when there are none."""
+    boxes, _labels, _scores = res.detect(image_rgb, conf)
+    if not len(boxes):
+        raise ValueError(f"the detector proposed no boxes above conf {conf}")
+    return [[float(v) for v in b] for b in boxes]
 
 
 def predict(res: Resident, image_rgb: np.ndarray, caption: str,
-            dets_xyxy: Sequence[Sequence[float]],
-            workdir: Optional[str] = None) -> List[float]:
+            dets_xyxy: Optional[Sequence[Sequence[float]]] = None,
+            workdir: Optional[str] = None, conf: float = 0.5) -> List[float]:
     """→ the candidate box (inclusive xyxy) the caption refers to.
 
-    Builds the RefCOCO task straight from the array, writes the
-    ``predictions.tsv`` interchange (and its ann/det jsons) into
-    ``workdir`` (a temporary directory when None), reads it back for
-    stage 2, and returns the best-scoring candidate."""
+    Without ``dets_xyxy`` the detector proposes the candidates
+    (:meth:`Resident.detect`, above ``conf``). Builds the RefCOCO task
+    straight from the array, writes the ``predictions.tsv`` interchange
+    (and its ann/det jsons) into ``workdir`` (a temporary directory when
+    None), reads it back for stage 2, and returns the best-scoring
+    candidate."""
+    if dets_xyxy is None:
+        dets_xyxy = detect_candidates(res, image_rgb, conf)
     c = res.det_cfg.input
     img = np.ascontiguousarray(np.asarray(image_rgb, np.uint8)[: c.pad_h, : c.pad_w])
     with tempfile.TemporaryDirectory(prefix="cpt_predict_") as tmp:
@@ -154,9 +198,13 @@ def build_args():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--image", required=True)
     p.add_argument("--caption", required=True)
-    p.add_argument("--dets", required=True,
+    p.add_argument("--dets", default=None,
                    help="json [[x1,y1,x2,y2], ...] candidate boxes "
-                        "(inclusive xyxy)")
+                        "(inclusive xyxy); omit with --detect")
+    p.add_argument("--detect", action="store_true",
+                   help="propose the candidates with the detector (RPN mode)")
+    p.add_argument("--conf", type=float, default=0.5,
+                   help="--detect keeps detections scoring above this")
     p.add_argument("--checkpoint", default=None,
                    help="vinvl_vg_x152c4.pth (reference layout)")
     p.add_argument("--oscar_checkpoint", default=None,
@@ -216,12 +264,15 @@ def main(argv=None) -> List[float]:
     args = build_args().parse_args(argv)
     from PIL import Image
 
+    if not (args.detect or args.dets):
+        raise SystemExit("--dets or --detect required")
     img = np.asarray(Image.open(args.image).convert("RGB"))
-    dets = json.loads(args.dets)
     res = build_resident(
         args.device, torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         args.tiny, args.checkpoint, args.oscar_checkpoint, args.vocab,
         args.seed, args.hidden_size, args.num_hidden_layers)
+    dets = (detect_candidates(res, img, args.conf) if args.detect
+            else json.loads(args.dets))
     pred = predict(res, img, args.caption, dets, workdir=args.workdir)
     print(json.dumps({"caption": args.caption, "pred_box": pred,
                       "candidates": len(dets)}))

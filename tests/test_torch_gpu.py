@@ -14,6 +14,8 @@ from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
                                                reference_attention_block,
                                                reference_attention_core)
 from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
+from cpt_tpu_torch.ops.nms import nms_padded
+from cpt_tpu_torch.ops.nms_pallas import nms_pallas
 from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
                                             reference_grouped_conv3x3)
 from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
@@ -185,3 +187,54 @@ def test_launch_counters_count_launches(dev):
     batched_roi_align(feats, torch.tensor([[0.0, 0, 30, 30]], device=dev),
                       1 / 16.0, 2, 0, 8)
     assert batched_roi_align.launches == before + 1
+
+
+def _nms_inputs(dev, b, k, thr, seed):
+    """Boxes with 9 score levels (ties everywhere), a fifth invalid, and a
+    planted pair at IoU exactly ``thr`` at the top score."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, k) if b else (k,)
+    xy = torch.rand(*shape, 2, generator=g, device=dev) * 400
+    wh = torch.rand(*shape, 2, generator=g, device=dev) * 150 + 4
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.randint(0, 9, shape, generator=g, device=dev) / 8.0
+    valid = torch.rand(*shape, generator=g, device=dev) > 0.2
+    boxes[..., 0, :] = torch.tensor([900.0, 900, 910, 910], device=dev)
+    boxes[..., 1, :] = torch.tensor([900.0, 900, 910, 900 + 10 * thr],
+                                    device=dev)
+    scores[..., :2] = 1.0
+    valid[..., :2] = True
+    return boxes, scores, valid
+
+
+@pytest.mark.parametrize("b,k,max_out,thr,offset", [
+    (None, 300, 100, 0.5, 0.0), (None, 2000, 300, 0.7, 0.0),
+    (None, 257, 300, 0.3, 1.0), (9, 300, 32, 0.5, 0.0), (5, 40, 40, 0.3, 0.0)])
+def test_nms_kernel_matches_plain(dev, b, k, max_out, thr, offset):
+    """K5 equals the plain loop exactly, slot for slot, on the same f32
+    inputs (ties, invalid slots, an exact-threshold pair, K not a multiple
+    of the block, max_out above the number of survivors)."""
+    boxes, scores, valid = _nms_inputs(dev, b, k, thr, seed=k)
+    got = nms_pallas(boxes, scores, valid, thr, max_out, offset)
+    want = nms_padded(boxes, scores, valid, thr, max_out, offset)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+def test_nms_kernel_ties_and_one_launch_per_batch(dev):
+    boxes = torch.tensor([[0.0, 0, 10, 10]], device=dev).repeat(4, 1)
+    boxes += torch.arange(4, device=dev)[:, None] * 50.0       # disjoint
+    scores = torch.tensor([0.5, 0.9, 0.9, 0.9], device=dev)
+    before = nms_pallas.launches
+    idx, keep = nms_pallas(boxes[None].repeat(3, 1, 1), scores[None].repeat(3, 1),
+                           torch.ones(3, 4, dtype=torch.bool, device=dev), 0.5, 4)
+    assert nms_pallas.launches == before + 1
+    assert idx.tolist() == [[1, 2, 3, 0]] * 3 and keep.all()
+
+
+def test_nms_kernel_rejects_k_too_large(dev):
+    k = 10000            # 240 KB of boxes, areas and scores: above a block's
+    with pytest.raises(ValueError, match="shared"):
+        nms_pallas(torch.zeros(k, 4, device=dev), torch.zeros(k, device=dev),
+                   torch.ones(k, dtype=torch.bool, device=dev), 0.5, 10)

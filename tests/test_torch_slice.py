@@ -99,7 +99,8 @@ def test_slice_picks_the_same_box(slice_case):
 
 def test_port_runs_without_jax(tmp_path):
     """``import cpt_tpu_torch`` and the tiny slice through the CLI entry
-    point, in a fresh interpreter where importing jax or flax fails."""
+    point, with ``--dets`` and with ``--detect``, in a fresh interpreter
+    where importing jax or flax fails."""
     from PIL import Image
 
     Image.fromarray(np.random.RandomState(0).randint(
@@ -117,6 +118,11 @@ pred = main(["--image", {str(tmp_path / 'photo.png')!r}, "--caption", "a dog",
              "--device", "cpu", "--dtype", "float32", "--hidden_size", "32",
              "--num_hidden_layers", "2", "--out", {str(tmp_path / 'o.png')!r}])
 assert pred in ([2, 2, 20, 30], [22, 4, 50, 36]), pred
+pred = main(["--image", {str(tmp_path / 'photo.png')!r}, "--caption", "a dog",
+             "--detect", "--conf", "0", "--tiny", "--device", "cpu",
+             "--dtype", "float32", "--hidden_size", "32",
+             "--num_hidden_layers", "2"])
+assert len(pred) == 4 and all(0 <= v < 56 for v in pred), pred
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
 print("OK")
 """
@@ -134,7 +140,7 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = {p.name for p in build.sources()}
     assert {"grouped_conv.cu", "roi_align.cu", "gemm.cu",
-            "attention.cu"} <= names
+            "attention.cu", "nms.cu"} <= names
     assert build.library_path().name.startswith("libcpt_kernels-")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc_path", lambda: "false")
