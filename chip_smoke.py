@@ -9,15 +9,23 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``cpt_tpu_torch/csrc`` (nvcc);
 3. hold each kernel (K1 grouped conv, K2 RoIAlign, K3 attention block and
-   its attention core alone, K4 FFN block) in bf16 against its plain
-   PyTorch version in f32 on the same inputs, and K5 (greedy NMS) against
-   its plain version exactly on the same f32 inputs, at the main paths'
-   shapes, and time each kernel and its plain version with CUDA events;
+   its attention core alone, K4 FFN block, K6 flash attention) in bf16
+   against its plain PyTorch version in f32 on the same inputs, and K5
+   (greedy NMS) against its plain version exactly on the same f32 inputs,
+   at the main paths' shapes; time each kernel, its plain version and, where
+   one PyTorch call computes the same function, that call (a yardstick the
+   port never calls) with CUDA events, and compute each one's bound (the
+   least time for its bytes and operations at the card's published peaks);
 4. at full width (VinVL X152-C4 + Oscar-base, random weights from a seed in
    the reference layouts) answer 3 grounding requests through
    ``cpt_predict.predict`` with given candidates, then 3 ``--detect``
-   requests whose candidates the detector proposes, and check that every
-   kernel of each path ran on it.
+   requests whose candidates the detector proposes, then the 3 grounding
+   requests again with an Oscar-base built with ``attention_impl="flash"``
+   beside the same detector (same boxes, scores within tolerance, K6 12
+   launches a scoring batch, K3 none), then one long-context
+   ``BertImgModel`` forward under ``"flash"`` (batch 4, 70 text tokens + 950
+   regions) against the einsum path in f32; check that every kernel of each
+   path ran on it.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``.
@@ -25,6 +33,8 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -38,7 +48,23 @@ import numpy as np
 # reference's largest magnitude. bf16 keeps 8 bits (relative rounding
 # 2^-9 ≈ 0.2%); K1/K2 round once (the output), the attention core twice
 # (probabilities, context), K3/K4 three to four times.
-TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 2e-2, "K3 core": 1e-2, "K4": 2e-2}
+TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 2e-2, "K3 core": 1e-2, "K4": 2e-2,
+       "K6": 1e-2}
+# Full-width request checks, as a fraction of the reference's largest
+# magnitude. The long-context flash forward (bf16) against the einsum path
+# (f32): twelve layers of bf16 rounding (2^-9 each, several per layer).
+# Candidate scores (bf16 paths against each other and against the einsum
+# path in f32): a score is the reference's ratio of two raw MLM logits,
+# logit[color] / logit["none"], and with these weights the logits are
+# ~0.5 in size while twelve bf16 layers leave each with an error of a few
+# hundredths (0.036-0.042 at full width on the CPU, for the "auto", flash
+# and einsum paths alike), so a ratio moves by up to ~15%.
+SCORE_TOL = 0.15
+LONG_TOL = 5e-2
+
+# One H100 SXM's published peaks (dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
 
 KERNELS = {
     "K1": ("grouped_conv3x3", "cpt_tpu_torch/csrc/grouped_conv.cu",
@@ -51,7 +77,21 @@ KERNELS = {
            "cpt_tpu/ops/fused_ffn.py:113"),
     "K5": ("nms_pallas", "cpt_tpu_torch/csrc/nms.cu",
            "cpt_tpu/ops/nms_pallas.py:92"),
+    "K6": ("flash_mha", "cpt_tpu_torch/csrc/flash_attention.cu",
+           "cpt_tpu/ops/attention.py:70"),
 }
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its peak for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -71,13 +111,17 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def compare(name: str, label: str, kernel, plain, exact, rows: list,
-            faults: dict | None = None) -> None:
+            faults: dict | None = None, work: tuple = (0, 0, BF16_OPS_S),
+            library=None) -> None:
     """Check the kernel's max |Δ| against ``exact()`` (the plain version in
-    f32 on the same inputs) within the tolerance, then time the kernel and
-    ``plain()`` (the plain version in the kernel's dtype) over their own
+    f32 on the same inputs) within the tolerance, then time the kernel,
+    ``plain()`` (the plain version in the kernel's dtype) and ``library()``
+    (one PyTorch call computing the same function, or None) over their own
     loops of launches. ``faults`` maps a named fault (uniform attention, a
     dropped mask, ...) to the reference computed with that fault: each must
-    miss the tolerance, which shows the check can fail."""
+    miss the tolerance, which shows the check can fail. ``work`` is
+    (bytes moved, operations, peak operations/s of their type) for the
+    bound."""
     import torch
 
     got = kernel()
@@ -92,14 +136,20 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
     fault_errs = {f: float((fn().float() - want).abs().max())
                   for f, fn in (faults or {}).items()}
     ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    library_ms = None if library is None else cuda_ms(library)
+    bound_ms, bound_by = bound(*work)
     rows.append({"kernel": name, "shape": label, "max_abs_err": err,
                  "tol": tol, "max_abs_ref": scale, "ms": ms,
-                 "plain_ms": plain_ms, "fault_errs": fault_errs})
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "fault_errs": fault_errs})
     faults_txt = "".join(f" {f}={e:.3e} ({e / tol:.1f}x tol)"
                          for f, e in fault_errs.items())
+    lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
     print(f"{name} {label}: max_abs_err={err:.3e} tol={tol:.3e} "
           f"({tol / max(err, 1e-30):.1f}x err) ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f}{faults_txt}", flush=True)
+          f"plain_ms={plain_ms:.4f}{lib_txt} bound_ms={bound_ms:.4f} "
+          f"({bound_by}){faults_txt}", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
     caught = [f for f, e in fault_errs.items() if not e > tol]
@@ -109,6 +159,7 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
 
 def check_kernels(rows: list) -> dict:
     import torch
+    import torch.nn.functional as F
 
     from cpt_tpu_torch.kernels.gemm import attention_core
     from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
@@ -143,12 +194,19 @@ def check_kernels(rows: list) -> dict:
         wt = randn(3, 3, c // groups, c, scale=0.05)
         s = torch.rand(c, generator=g, device=dev) + 0.5
         b = randn(c, scale=0.1, dtype=torch.float32)
+        out_px = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+        w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+        x_nchw = x.permute(0, 3, 1, 2)       # channels-last NCHW view
         compare("K1", f"x=[{n},{h},{w},{c}] cpg={c // groups} stride={stride}",
                 lambda: grouped_conv3x3(x, wt, s, b, groups, stride, True),
                 lambda: reference_grouped_conv3x3(x, wt, s, b, groups, stride,
                                                   True),
                 lambda: reference_grouped_conv3x3(x.float(), wt.float(), s, b,
-                                                  groups, stride, True), rows)
+                                                  groups, stride, True), rows,
+                work=(nbytes(x, wt, s, b) + out_px * c * 2,
+                      2 * out_px * c * 9 * (c // groups), BF16_OPS_S),
+                library=lambda: F.conv2d(x_nchw, w_oihw, stride=stride,
+                                         padding=1, groups=groups))
 
     # K2 on the C4 map of 8 copies at 640×1024; the first RoI is wider
     # than the canvas so its grid hits the 8-sample cap
@@ -160,12 +218,18 @@ def check_kernels(rows: list) -> dict:
         rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
         rois[0] = [-300.0, -200.0, 1500.0, 1000.0]
         rois_t = torch.from_numpy(rois).to(dev)
+        # adaptive grid: ceil(bin) samples a side, capped at 8; each sample
+        # is 4 bilinear taps (a multiply-add each) for every channel
+        bins = np.maximum((rois[:, 2:] - rois[:, :2]) / 16.0, 1.0) / 14
+        samples = np.clip(np.ceil(bins), 1, 8).prod(1).sum()
         compare("K2", f"feats=[8,40,64,1024] rois={n_rois}",
                 lambda: batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8),
                 lambda: batched_roi_align_plain(feats, rois_t, 1 / 16.0, 14,
                                                 0, 8),
                 lambda: batched_roi_align_plain(feats.float(), rois_t,
-                                                1 / 16.0, 14, 0, 8), rows)
+                                                1 / 16.0, 14, 0, 8), rows,
+                work=(nbytes(feats, rois_t) + 8 * n_rois * 14 * 14 * 1024 * 2,
+                      8 * 1024 * 14 * 14 * samples * 4 * 2, F32_OPS_S))
 
     # K3 at the scoring shape: 16 sequences of 70 text + 50 region slots,
     # and S = 128; the last sequence has every key masked. The projections
@@ -194,10 +258,14 @@ def check_kernels(rows: list) -> dict:
             return lambda: reference_attention_block(*a, num_heads=heads,
                                                      eps=1e-12)
 
+        tokens = 16 * s_len
         compare("K3", f"x=[16,{s_len},768] heads=12",
                 lambda: fused_attention_block(*args, heads, 1e-12),
                 block_ref(args), block_ref(f32(args)), rows,
-                {"uniform": block_ref(no_q), "no_mask": block_ref(no_mask)})
+                {"uniform": block_ref(no_q), "no_mask": block_ref(no_mask)},
+                work=(nbytes(*args) + nbytes(x),
+                      2 * tokens * hdim * 4 * hdim + 4 * tokens * s_len * hdim,
+                      BF16_OPS_S))
 
         # the attention core alone on a packed projection with std 1.5
         qkv = randn(16, s_len, 3 * hdim, scale=1.5)
@@ -207,12 +275,19 @@ def check_kernels(rows: list) -> dict:
         def core_ref(q, bias, sc):
             return lambda: reference_attention_core(q, bias, heads, sc)
 
+        qh, kh, vh = qkv.view(16, s_len, 3, heads, 64).unbind(2)
+        kb_mask = kb[:, None, None, :].to(bf)
         compare("K3 core", f"qkv=[16,{s_len},2304] heads=12",
                 lambda: attention_core(qkv, kb, heads, scale),
                 core_ref(qkv, kb, scale), core_ref(qkv, kb, scale), rows,
                 {"uniform": core_ref(qkv_no_q, kb, scale),
                  "no_mask": core_ref(qkv, torch.zeros_like(kb), scale),
-                 "no_scale": core_ref(qkv, kb, 1.0)})
+                 "no_scale": core_ref(qkv, kb, 1.0)},
+                work=(nbytes(qkv, kb) + tokens * hdim * 2,
+                      4 * tokens * s_len * hdim, BF16_OPS_S),
+                library=lambda: F.scaled_dot_product_attention(
+                    qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                    attn_mask=kb_mask, scale=scale))
 
     # K4 on 8 sequences × 120 slots
     x = randn(960, hdim, scale=0.5)
@@ -226,8 +301,11 @@ def check_kernels(rows: list) -> dict:
         compare("K4", f"x=[960,768] F=3072 gelu={'tanh' if approx else 'erf'}",
                 lambda: fused_ffn(*args, approximate=approx),
                 lambda: reference_ffn(*args, 1e-12, approx),
-                lambda: reference_ffn(*f32(args), 1e-12, approx), rows)
+                lambda: reference_ffn(*f32(args), 1e-12, approx), rows,
+                work=(nbytes(*args) + nbytes(x), 4 * 960 * hdim * 3072,
+                      BF16_OPS_S))
     check_nms(rows)
+    check_flash(rows)
     return {k: [r for r in rows if r["kernel"].split()[0] == k]
             for k in KERNELS}
 
@@ -320,17 +398,71 @@ def check_nms(rows: list) -> None:
         plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out), reps=3,
                            warmup=1)
         kept = int(want_keep.sum())
+        # each kept box is scored against all K boxes of its problem: an
+        # IoU is ~12 f32 operations (areas, intersection, union, divide)
+        bound_ms, bound_by = bound(nbytes(bx, sc, va) + b * max_out * 5,
+                                   kept * k * 12, F32_OPS_S)
         rows.append({"kernel": "K5", "shape": label, "max_abs_err": err,
                      "tol": 0.0, "exact": same, "kept": kept, "ms": ms,
-                     "plain_ms": plain_ms, "faults_differ": faults})
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "faults_differ": faults})
         print(f"K5 {label}: exact={same} max_abs_idx_err={err:.0f} "
               f"kept={kept} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"faults differ: {faults}", flush=True)
+              f"bound_ms={bound_ms:.5f} ({bound_by}) faults differ: {faults}",
+              flush=True)
         if not same:
             raise AssertionError(f"K5 {label}: kernel differs from plain")
         caught = [f for f, d in faults.items() if not d]
         if caught:
             raise AssertionError(f"K5 {label}: the check would pass {caught}")
+
+
+def check_flash(rows: list) -> None:
+    """K6 at the serving shape (16 sequences of 70 text + 50 region slots,
+    a 0/−10000 key bias with ~20% of keys masked and the last sequence fully
+    masked), with a finite [4, 1, 512, 512] bias of std 4, and at long
+    context (S = 2048, key bias). q is drawn so the scores have std ≈ 2.
+    Named faults: uniform attention (q dropped), a dropped bias, a dropped
+    scale and, where the bias is finite, the bias added after the scale
+    (the einsum order; a 0/−10000 mask masks in either order)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.ops.attention import flash_mha, reference_flash_mha
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    for b, h, s_len, bias in [(16, 12, 120, "key"), (4, 12, 512, "3d"),
+                              (2, 12, 2048, "key")]:
+        q, k, v = (torch.randn(b, h, s_len, 64, generator=g, device=dev)
+                   for _ in range(3))
+        q, k, v = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16()
+        if bias == "key":
+            kb = torch.where(torch.rand(b, 1, 1, s_len, generator=g,
+                                        device=dev) > 0.2, 0.0, -10000.0)
+            kb[-1] = -10000.0
+        else:
+            kb = torch.randn(b, 1, s_len, s_len, generator=g, device=dev) * 4
+        scale = 0.125
+        qf, kf, vf = q.float(), k.float(), v.float()
+
+        def plain(qq, kk, vv, bb, sc=scale):
+            return lambda: reference_flash_mha(qq, kk, vv, bb, sm_scale=sc)
+
+        faults = {"uniform": plain(qf * 0, kf, vf, kb),
+                  "no_bias": plain(qf, kf, vf, None),
+                  "no_scale": plain(qf, kf, vf, kb, 1.0)}
+        if bias == "3d":
+            faults["bias_after_scale"] = plain(qf, kf, vf, kb / scale)
+        mask = (kb * scale).bfloat16()
+        compare("K6", f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}",
+                lambda: flash_mha(q, k, v, kb, sm_scale=scale),
+                plain(q, k, v, kb), plain(qf, kf, vf, kb), rows, faults,
+                work=(nbytes(q, k, v, kb) + nbytes(q),
+                      4 * b * h * s_len * s_len * 64, BF16_OPS_S),
+                library=lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale))
 
 
 def build_resident():
@@ -350,12 +482,19 @@ def build_resident():
     return res, setup_s
 
 
-def run_requests(res, counters) -> dict:
+def run_requests(res, counters, idle=("K5", "K6"), oracle=None) -> dict:
     """Full-width grounding requests with given candidates
-    (``cpt_predict.predict`` with dets)."""
+    (``cpt_predict.predict`` with dets): a warm-up, then 8, 8 and 16
+    candidates, each in its own work directory; then each request's
+    candidate scores (and, given ``oracle``, that resident's scores of the
+    same features) and scoring-batch count are read back from its
+    interchange files, after the launch counts are taken. The kernels in
+    ``idle`` must not launch; every other counted kernel must."""
     import torch
 
-    from cpt_tpu_torch.data.refcoco import tsv_region_features
+    from cpt_tpu_torch.data.refcoco import (RefcocoCPTData,
+                                            iter_eval_batches,
+                                            tsv_region_features)
     from cpt_tpu_torch.tools import cpt_predict as cp
 
     rng = np.random.RandomState(2024)
@@ -373,34 +512,165 @@ def run_requests(res, counters) -> dict:
         torch.cuda.synchronize()
         return box, time.perf_counter() - t
 
-    with tempfile.TemporaryDirectory() as wd:
-        _, cold_s = answer(*request(8), wd)
-        print(f"warm-up request (8 candidates): {cold_s * 1e3:.1f} ms",
+    def scoring_batches(wd):
+        data = RefcocoCPTData(f"{wd}/predictions.tsv", f"{wd}/ann.json",
+                              f"{wd}/stage2_det.json", res.tokenizer,
+                              img_feat_dim=res.bert_cfg.img_feature_dim)
+        n = sum(1 for _ in iter_eval_batches(data, cp.SCORE_BATCH))
+        data.tsv.close()
+        return n
+
+    with tempfile.TemporaryDirectory() as root:
+        _, cold_s = answer(*request(8), f"{root}/warmup")
+        print(f"warm-up request (8 candidates, attention_impl="
+              f"{res.bert_cfg.attention_impl!r}): {cold_s * 1e3:.1f} ms",
               flush=True)
         for fn in counters.values():
             fn.launches = 0
         reqs = []
         for n_dets in (8, 8, 16):
             img, dets = request(n_dets)
+            wd = f"{root}/request{len(reqs)}"
             box, sec = answer(img, dets, wd)
             feats = tsv_region_features(f"{wd}/predictions.tsv")
             if box not in dets:
                 raise AssertionError(f"predicted {box} is not a candidate")
             if feats.shape != (n_dets, n_dets, 2054) or not np.isfinite(feats).all():
                 raise AssertionError(f"bad features {feats.shape}")
-            reqs.append({"candidates": n_dets, "ms": sec * 1e3, "box": box})
+            reqs.append({"candidates": n_dets, "ms": sec * 1e3, "box": box,
+                         "dets": dets, "workdir": wd})
             print(f"request {len(reqs)} ({n_dets} candidates, 480x640 image, "
                   f"640x1024 canvas): {sec * 1e3:.1f} ms", flush=True)
         launches = {k: fn.launches for k, fn in counters.items()}
+        for r in reqs:
+            wd = r.pop("workdir")
+            r["scores"] = cp.candidate_scores(res, wd)
+            if oracle is not None:
+                r["scores_f32"] = cp.candidate_scores(oracle, wd)
+            r["scoring_batches"] = scoring_batches(wd)
     total = sum(r["ms"] for r in reqs) / 1e3
     copies = sum(r["candidates"] for r in reqs)
     print(f"copies/s over the 3 requests: {copies / total:.2f}; launches "
           f"{launches}", flush=True)
-    missing = [k for k, n in launches.items() if n <= 0 and k != "K5"]
+    missing = [k for k, n in launches.items() if n <= 0 and k not in idle]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    busy = [k for k in idle if launches[k] != 0]
+    if busy:
+        raise AssertionError(f"kernels {busy} launched off their path: "
+                             f"{launches}")
     return {"warmup_ms": cold_s * 1e3, "requests": reqs,
             "copies_per_s": copies / total, "launches": launches}
+
+
+def rebuilt_scorer(res, dtype, **config_changes):
+    """``res`` with its detector shared and its Oscar-base rebuilt with
+    ``config_changes`` in ``dtype``, loaded from the same weights (the
+    flash resident is what ``cpt_predict.build_resident(...,
+    attention_impl="flash")`` builds)."""
+    import torch
+
+    from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+
+    out = copy.copy(res)
+    out.bert_cfg = dataclasses.replace(res.bert_cfg, **config_changes)
+    with torch.device(res.device):
+        out.oscar = REC_MLM_CPT(out.bert_cfg, dtype).eval()
+    out.oscar.load_state_dict(res.oscar.state_dict())
+    return out
+
+
+def check_flash_requests(auto: dict, flash: dict) -> None:
+    """The flash path answers each request as the "auto" path does: K6
+    launched 12 times (one a layer) for each scoring batch, K4 as often, K3
+    never; candidate scores within SCORE_TOL of the largest, both against
+    the "auto" path's and against the f32 einsum path's on the same
+    features; the same box, unless the "auto" path's own top two scores
+    are within that tolerance of each other (a tie at bf16 resolution),
+    where the flash path's pick must score within it of the top."""
+    n_layers = 12
+    batches = sum(r["scoring_batches"] for r in flash["requests"])
+    want = {"K6": n_layers * batches, "K4": n_layers * batches, "K3": 0}
+    got = {k: flash["launches"][k] for k in want}
+    print(f"flash requests: {batches} scoring batches, launches {got} "
+          f"(want {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"flash path launches {got}, want {want}")
+    for i, (a, f) in enumerate(zip(auto["requests"], flash["requests"])):
+        sa, sf, s32 = (np.asarray(x) for x in (a["scores"], f["scores"],
+                                               f["scores_f32"]))
+        tol = SCORE_TOL * float(np.abs(sa).max())
+        errs = {"flash-auto": float(np.abs(sf - sa).max()),
+                "flash-f32": float(np.abs(sf - s32).max()),
+                "auto-f32": float(np.abs(sa - s32).max())}
+        gap = float(np.diff(np.sort(sa)[-2:])[0])
+        tie = gap <= tol
+        f.update(score_errs=errs, score_tol=tol, auto_top2_gap=gap)
+        print(f"flash request {i + 1}: box {f['box']} (auto {a['box']}; auto "
+              f"top-2 gap {gap:.3e}{', a tie' if tie else ''}); max |score "
+              f"diff| " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (tol {tol:.3e}, max score {np.abs(sa).max():.4f})",
+              flush=True)
+        # scores follow the candidates' order (copy i paints candidate i)
+        same_box = (f["box"] == a["box"] if not tie
+                    else sa[f["dets"].index(f["box"])] >= sa.max() - tol)
+        if not same_box or not max(errs["flash-auto"], errs["flash-f32"]) <= tol:
+            raise AssertionError(f"flash request {i + 1} differs from auto")
+
+
+def run_long_context(flash_res, oracle) -> dict:
+    """One full-width ``BertImgModel`` forward under ``"flash"``: batch 4,
+    70 text tokens + 950 regions (S = 1020), some keys masked, against the
+    einsum path in f32 (``oracle``'s) on the same weights. K6 launches once
+    a layer."""
+    import torch
+
+    from cpt_tpu_torch.ops.attention import flash_mha
+
+    bert, ref = flash_res.oscar.bert, oracle.oscar.bert
+    cfg = flash_res.bert_cfg
+    rng = np.random.RandomState(31)
+    b, t, r = 4, 70, 950
+    ids = rng.randint(1000, cfg.vocab_size, (b, t))
+    ids[:, 0] = 101
+    mask = np.zeros((b, t + r), np.int64)
+    for i, (nt, nr) in enumerate([(70, 950), (40, 900), (25, 600), (12, 300)]):
+        mask[i, :nt] = 1
+        mask[i, t:t + nr] = 1
+    feats = (rng.rand(b, r, cfg.img_feature_dim) * 2).astype(np.float32)
+    dev = torch.device("cuda")
+    ids_t, mask_t = (torch.from_numpy(a).to(dev) for a in (ids, mask))
+    feats_t = torch.from_numpy(feats).to(dev)
+    seg = torch.zeros_like(ids_t)
+
+    def forward(model):
+        t0 = time.perf_counter()
+        out, _ = model(ids_t, seg, mask_t, img_feats=feats_t)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with torch.inference_mode():
+        forward(bert)
+        forward(ref)
+        before = flash_mha.launches
+        got, ms = forward(bert)
+        launches = flash_mha.launches - before
+        want, ref_ms = forward(ref)
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all() or got.shape != (b, t + r, 768):
+        raise AssertionError(f"long-context output {tuple(got.shape)} "
+                             f"or non-finite")
+    err = float((got - want).abs().max())
+    tol = LONG_TOL * float(want.abs().max())
+    print(f"long-context forward (batch 4, 70 text + 950 regions, 12x768, "
+          f"flash, bf16): {ms:.2f} ms, K6 launches {launches}; einsum f32 "
+          f"{ref_ms:.2f} ms; max_abs_err {err:.3e} (tol {tol:.3e})",
+          flush=True)
+    if launches != cfg.num_hidden_layers or not err <= tol:
+        raise AssertionError(f"long-context flash forward: launches "
+                             f"{launches}, err {err} > {tol}")
+    return {"ms": ms, "einsum_f32_ms": ref_ms, "max_abs_err": err,
+            "tol": tol, "launches": launches}
 
 
 def run_detect_requests(res, counters) -> dict:
@@ -479,10 +749,10 @@ def run_detect_requests(res, counters) -> dict:
     finally:
         res.detect = detect
     print(f"launches over the 3 detect requests: {launches}", flush=True)
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
+    missing = [k for k, n in launches.items() if n <= 0 and k != "K6"]
+    if missing or launches["K6"]:
         raise AssertionError(f"kernels not launched on the detect path: "
-                             f"{missing}")
+                             f"{missing}, or K6 launched: {launches}")
     return {"warmup_ms": cold_s * 1e3, "requests": reqs, "launches": launches}
 
 
@@ -505,6 +775,7 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     from cpt_tpu_torch.kernels import build
+    from cpt_tpu_torch.ops.attention import flash_mha
     from cpt_tpu_torch.ops.fused_attention import fused_attention_block
     from cpt_tpu_torch.ops.fused_ffn import fused_ffn
     from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
@@ -519,24 +790,34 @@ def main(argv=None) -> int:
     per_kernel = check_kernels(rows)
     counters = {"K1": grouped_conv3x3, "K2": batched_roi_align,
                 "K3": fused_attention_block, "K4": fused_ffn,
-                "K5": nms_pallas}
+                "K5": nms_pallas, "K6": flash_mha}
     res, setup_s = build_resident()
     e2e = {"setup_s": setup_s, "ground": run_requests(res, counters),
            "detect": run_detect_requests(res, counters)}
+    flash = rebuilt_scorer(res, torch.bfloat16, attention_impl="flash")
+    oracle = rebuilt_scorer(res, torch.float32, attention_impl="einsum",
+                            ffn_impl="dense")
+    e2e["flash_ground"] = run_requests(flash, counters, idle=("K3", "K5"),
+                                       oracle=oracle)
+    check_flash_requests(e2e["ground"], e2e["flash_ground"])
+    e2e["long_context"] = run_long_context(flash, oracle)
 
     # headline shape per kernel for the summary line: the most frequent
     # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
-    # NMS); launches over both paths, each counted from 0 around its run
-    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0}
+    # NMS; the serving shape); launches over the three request paths, each
+    # counted from 0 around its run
+    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+    paths = ("ground", "detect", "flash_ground")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
         summary.append({"name": f"{k} {fn_name}", "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": (e2e["ground"]["launches"][k]
-                                     + e2e["detect"]["launches"][k]),
+                        "launches": sum(e2e[p]["launches"][k] for p in paths),
                         "max_abs_err": max(x["max_abs_err"] for x in per_kernel[k]),
-                        "ms": r["ms"], "plain_ms": r["plain_ms"]})
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,

@@ -1,5 +1,5 @@
 """RefCOCO CPT grounding dataset, stage 2 (the evaluation half of
-``cpt_tpu/data/refcoco.py``, without its jax import).
+``cpt_tpu/data/refcoco.py``).
 
 Reads the stage-1 interchange TSV (``predictions.tsv``: one row per query,
 json payload ``[objects, caption, colors, rect_lists]``), the annotation
@@ -20,10 +20,10 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from cpt_tpu.data import prompts
-from cpt_tpu.data.tensorize import TensorizedBatch, TensorizedSeq, stack_batch, tensorize_pair
-from cpt_tpu.utils.tokenization import BertTokenizer
-from cpt_tpu.utils.tsv import TSVFile, decode_feature
+from cpt_tpu_torch.data import prompts
+from cpt_tpu_torch.data.tensorize import TensorizedBatch, TensorizedSeq, stack_batch, tensorize_pair
+from cpt_tpu_torch.utils.tokenization import BertTokenizer
+from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
 
 
 @dataclasses.dataclass

@@ -18,11 +18,11 @@ from typing import Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from cpt_tpu.models.detector.config import DetectorConfig
-from cpt_tpu.utils.tsv import encode_feature, tsv_writer
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN, region_features_2054
+from cpt_tpu_torch.models.detector.config import DetectorConfig
 from cpt_tpu_torch.ops.render import paste_rects, to_detector_input
 from cpt_tpu_torch.structures.boxes import pad_boxes
+from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
 
 @dataclasses.dataclass

@@ -14,9 +14,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from cpt_tpu.utils.tokenization import BertTokenizer
 from cpt_tpu_torch.data.refcoco import FlatBatch, RefcocoCPTData, iter_eval_batches
 from cpt_tpu_torch.structures.boxes import xywh_iou
+from cpt_tpu_torch.utils.tokenization import BertTokenizer
 
 
 def make_mlm_at_mask_fn(model) -> Callable:

@@ -57,6 +57,9 @@ SIGNATURES = {
     "cpt_nms": ([_P] * 5 + [_I] * 3 + [_F, _F, _P], _I),
     # K
     "cpt_nms_smem_bytes": ([_I], ctypes.c_longlong),
+    # q, k, v, bias (or NULL), out, strides[16], B, H, S, D, scale, stream
+    "cpt_flash_attention": ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+                            + [_I] * 4 + [_F, _P], _I),
 }
 
 

@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from cpt_tpu.config.bert import BertConfig
+from cpt_tpu_torch.config.bert import BertConfig
 from cpt_tpu_torch.models.bert.model import (ACT, BertImgModel, Dense,
                                              LayerNorm, _param)
 

@@ -12,7 +12,10 @@ no head mask, no active dropout and a key-only (2-D) mask; for K4 no active
 dropout and a gelu activation. Unlike the TPU gate, S and H need not be
 multiples of 128 (the kernels mask the ragged edge). Otherwise the layer
 takes the plain einsum/dense path, whose LayerNorm uses ``E[y²]−μ²`` like
-the JAX model path.
+the JAX model path. Under ``attention_impl="flash"`` the layer never takes
+K3: ``BertSelfAttention`` sends its attention core to kernel K6
+(``ops/attention.py``) as the JAX module does (no KV history, no head
+mask, no active probability dropout), with the projections as matmuls.
 
 Layouts follow the JAX parameter tree: ``wqkv [H, 3H]`` (columns
 ``[q|k|v]``, head-major), ``wo [H, H]``, dense kernels ``[in, out]``.
@@ -27,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cpt_tpu.config.bert import BertConfig
+from cpt_tpu_torch.config.bert import BertConfig
+from cpt_tpu_torch.ops.attention import flash_mha
 from cpt_tpu_torch.ops.fused_attention import fused_attention_block
 from cpt_tpu_torch.ops.fused_ffn import fused_ffn
 
@@ -113,9 +117,9 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
-    """Joint self-attention parameters (fused QKV) and its plain einsum
-    path, with optional KV history (keys/values over ``[history, hidden]``,
-    queries over ``hidden``) and head mask."""
+    """Joint self-attention parameters (fused QKV), its flash path (K6) and
+    its plain einsum path, with optional KV history (keys/values over
+    ``[history, hidden]``, queries over ``hidden``) and head mask."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype):
         super().__init__()
@@ -142,6 +146,16 @@ class BertSelfAttention(nn.Module):
                 b, history_state.shape[1], 3, nh, hd)
             k = torch.cat([hist[:, :, 1], k], dim=1)
             v = torch.cat([hist[:, :, 2], v], dim=1)
+        if (c.attention_impl == "flash" and history_state is None
+                and head_mask is None
+                and (not self.training or c.attention_probs_dropout_prob == 0.0)):
+            # [B, S, H, D] views → [B, H, S, D]; the bias broadcasts over
+            # heads and rows
+            ctx = flash_mha(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), attn_bias,
+                            sm_scale=1.0 / float(hd) ** 0.5)
+            ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
+            return ctx @ self.wo + self.bo.to(dt)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
             float(hd) ** 0.5, dtype=dt)
         scores = scores + attn_bias
@@ -169,10 +183,6 @@ class BertLayer(nn.Module):
                 history_state: Optional[torch.Tensor] = None,
                 head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.config
-        if c.attention_impl == "flash":
-            raise NotImplementedError(
-                "attention_impl='flash' (the TPU flash-attention kernel) is "
-                "not ported yet")
         dropout_h = c.hidden_dropout_prob > 0.0 and self.training
         dropout_a = c.attention_probs_dropout_prob > 0.0 and self.training
         key_bias_only = attn_bias.dim() == 4 and attn_bias.shape[2] == 1

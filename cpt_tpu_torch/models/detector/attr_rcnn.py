@@ -20,7 +20,7 @@ from typing import Dict, Sequence, Union
 import torch
 from torch import nn
 
-from cpt_tpu.models.detector.config import DetectorConfig
+from cpt_tpu_torch.models.detector.config import DetectorConfig
 from cpt_tpu_torch.models.detector.heads import (AttributePredictor,
                                                  BoxFeatureExtractor,
                                                  FastRCNNPredictor,

@@ -13,6 +13,9 @@ Two sources:
   (as in the JAX converter).
 * :func:`params_from_jax` — the JAX package's detector parameter tree
   (numpy leaves), for holding the two packages against each other.
+
+:func:`random_vinvl_state_dict` draws random weights in the reference
+layout from a seed (the serving path without a checkpoint).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from cpt_tpu.models.detector.config import DetectorConfig
+from cpt_tpu_torch.models.detector.config import DetectorConfig
 
 
 def _np(v) -> np.ndarray:
@@ -156,3 +159,81 @@ def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(blob, dict) and isinstance(blob.get("model"), dict):
         blob = blob["model"]
     return blob
+
+
+def random_vinvl_state_dict(cfg: DetectorConfig, seed: int = 0
+                            ) -> Dict[str, np.ndarray]:
+    """Random state dict in the exact VinVL ``.pth`` key layout (maskrcnn
+    naming, raw FrozenBN running stats), drawn from ``seed`` with numpy:
+    the same arrays as the JAX package's ``random_vinvl_state_dict``."""
+    rng = np.random.RandomState(seed)
+    sd: Dict[str, np.ndarray] = {}
+
+    def r(*shape):
+        return (rng.randn(*shape) * 0.05).astype(np.float32)
+
+    def bn(prefix, n):
+        sd[f"{prefix}.weight"] = (rng.rand(n) * 0.5 + 0.75).astype(np.float32)
+        sd[f"{prefix}.bias"] = r(n)
+        sd[f"{prefix}.running_mean"] = r(n)
+        sd[f"{prefix}.running_var"] = (rng.rand(n) + 0.5).astype(np.float32)
+
+    def bottleneck(prefix, cin, cb, cout, groups):
+        sd[f"{prefix}.conv1.weight"] = r(cb, cin, 1, 1)
+        bn(f"{prefix}.bn1", cb)
+        sd[f"{prefix}.conv2.weight"] = r(cb, cb // groups, 3, 3)
+        bn(f"{prefix}.bn2", cb)
+        sd[f"{prefix}.conv3.weight"] = r(cout, cb, 1, 1)
+        bn(f"{prefix}.bn3", cout)
+        if cin != cout:
+            sd[f"{prefix}.downsample.0.weight"] = r(cout, cin, 1, 1)
+            bn(f"{prefix}.downsample.1", cout)
+
+    def stage(prefix, cin, cb, cout, blocks, groups):
+        for j in range(blocks):
+            bottleneck(f"{prefix}.{j}", cin if j == 0 else cout, cb, cout,
+                       groups)
+
+    bb = cfg.backbone
+    sd["backbone.body.stem.conv1.weight"] = r(bb.stem_out_channels, 3, 7, 7)
+    bn("backbone.body.stem.bn1", bb.stem_out_channels)
+    cin = bb.stem_out_channels
+    for i, blocks in enumerate(bb.stage_blocks):
+        f = 2 ** i
+        stage(f"backbone.body.layer{i + 1}", cin,
+              bb.stage2_bottleneck_channels * f, bb.res2_out_channels * f,
+              blocks, bb.num_groups)
+        cin = bb.res2_out_channels * f
+
+    fs = 2 ** len(bb.stage_blocks)
+    layer = f"layer{len(bb.stage_blocks) + 1}"
+    for prefix in ("roi_heads.box.feature_extractor",
+                   "attribute.feature_extractor"):
+        stage(f"{prefix}.head.{layer}", cin,
+              bb.stage2_bottleneck_channels * fs, bb.res2_out_channels * fs,
+              bb.head_blocks, bb.num_groups)
+    c5 = bb.res2_out_channels * fs
+
+    a = cfg.rpn.num_anchors
+    sd["rpn.head.conv.weight"] = r(cin, cin, 3, 3)
+    sd["rpn.head.conv.bias"] = r(cin)
+    sd["rpn.head.cls_logits.weight"] = r(a, cin, 1, 1)
+    sd["rpn.head.cls_logits.bias"] = r(a)
+    sd["rpn.head.bbox_pred.weight"] = r(a * 4, cin, 1, 1)
+    sd["rpn.head.bbox_pred.bias"] = r(a * 4)
+
+    nc = cfg.roi_heads.num_classes
+    sd["roi_heads.box.predictor.cls_score.weight"] = r(nc, c5)
+    sd["roi_heads.box.predictor.cls_score.bias"] = r(nc)
+    sd["roi_heads.box.predictor.bbox_pred.weight"] = r(nc * 4, c5)
+    sd["roi_heads.box.predictor.bbox_pred.bias"] = r(nc * 4)
+
+    at = cfg.attributes
+    sd["attribute.predictor.cls_embedding.weight"] = r(nc, at.cls_emd_dim)
+    sd["attribute.predictor.fc_attr.weight"] = r(at.attr_emd_dim,
+                                                 c5 + at.cls_emd_dim)
+    sd["attribute.predictor.fc_attr.bias"] = r(at.attr_emd_dim)
+    sd["attribute.predictor.attr_score.weight"] = r(at.num_attributes,
+                                                    at.attr_emd_dim)
+    sd["attribute.predictor.attr_score.bias"] = r(at.num_attributes)
+    return sd

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cpt_tpu.models.detector.config import BackboneConfig
+from cpt_tpu_torch.models.detector.config import BackboneConfig
 from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
 
 

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from cpt_tpu.models.detector.config import RPNConfig
+from cpt_tpu_torch.models.detector.config import RPNConfig
 from cpt_tpu_torch.ops.nms_pallas import nms_pallas
 from cpt_tpu_torch.structures.boxes import decode_boxes
 

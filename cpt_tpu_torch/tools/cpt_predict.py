@@ -35,9 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from cpt_tpu.config.bert import OSCAR_BASE, BertConfig
-from cpt_tpu.models.detector.config import DetectorConfig
-from cpt_tpu.utils.tokenization import BertTokenizer
+from cpt_tpu_torch.config.bert import OSCAR_BASE, BertConfig
 from cpt_tpu_torch.data.refcoco import (RefcocoCPTData, det_json_for_stage2,
                                         iter_eval_batches)
 from cpt_tpu_torch.engine.extract import (Extractor, make_detect_fn,
@@ -46,8 +44,13 @@ from cpt_tpu_torch.engine.scoring import (make_mlm_at_mask_fn,
                                           refcoco_collect_scores,
                                           refcoco_evaluate, run_mlm_batch)
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+from cpt_tpu_torch.models.detector.config import (VINVL_X152C4, DetectorConfig,
+                                                  tiny_detector_config)
 from cpt_tpu_torch.tools.demo import canvas_anchors, run_detector
+from cpt_tpu_torch.utils import convert as bconv
+from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 SCORE_BATCH = 16   # sequences per scoring batch (the JAX tool's batch_size)
 
@@ -59,10 +62,14 @@ def region_feature_dim(det_cfg: DetectorConfig) -> int:
 
 def bert_config(hidden_size: Optional[int] = None,
                 num_hidden_layers: Optional[int] = None,
-                img_feature_dim: int = 2054) -> BertConfig:
+                img_feature_dim: int = 2054,
+                attention_impl: str = "auto") -> BertConfig:
     """Oscar-base with the tool's size overrides (narrow widths get
-    hidden/16 heads and a 4× FFN, as the JAX tools do)."""
-    kw = {"img_feature_dim": img_feature_dim}
+    hidden/16 heads and a 4× FFN, as the JAX tools do) and attention
+    backend (``"flash"``: every layer's attention core through kernel K6,
+    as ``dataclasses.replace(OSCAR_BASE, attention_impl="flash")`` does in
+    the JAX package)."""
+    kw = {"img_feature_dim": img_feature_dim, "attention_impl": attention_impl}
     if num_hidden_layers is not None:
         kw["num_hidden_layers"] = num_hidden_layers
     if hidden_size is not None:
@@ -230,30 +237,25 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
                    oscar_checkpoint: Optional[str] = None,
                    vocab: Optional[str] = None, seed: int = 0,
                    hidden_size: Optional[int] = None,
-                   num_hidden_layers: Optional[int] = None) -> Resident:
+                   num_hidden_layers: Optional[int] = None,
+                   attention_impl: str = "auto") -> Resident:
     """Both models from reference-layout checkpoints, or from random
     reference-layout state dicts drawn from ``seed`` when a checkpoint is
-    not given (VinVL X152-C4 and Oscar-base at full width unless ``tiny``)."""
-    from cpt_tpu.models.detector.config import VINVL_X152C4, tiny_detector_config
-    from cpt_tpu.models.detector.convert import random_vinvl_state_dict
-    from cpt_tpu.utils.convert import random_oscar_state_dict
-    from cpt_tpu.utils.tokenization import toy_vocab
-    from cpt_tpu_torch.models.detector import convert as dconv
-    from cpt_tpu_torch.utils import convert as bconv
-
+    not given (VinVL X152-C4 and Oscar-base at full width unless ``tiny``).
+    ``attention_impl`` picks Oscar's attention backend (:func:`bert_config`)."""
     det_cfg = tiny_detector_config() if tiny else VINVL_X152C4
     bert_cfg = bert_config(hidden_size, num_hidden_layers,
-                           region_feature_dim(det_cfg))
+                           region_feature_dim(det_cfg), attention_impl)
     if checkpoint:
         det_sd = dconv.load_torch_file(checkpoint)
     else:
         print("WARNING: random detector weights (no --checkpoint)")
-        det_sd = random_vinvl_state_dict(det_cfg, seed=seed)
+        det_sd = dconv.random_vinvl_state_dict(det_cfg, seed=seed)
     if oscar_checkpoint:
         bert_sd = dconv.load_torch_file(oscar_checkpoint)
     else:
         print("WARNING: random Oscar weights (no --oscar_checkpoint)")
-        bert_sd = random_oscar_state_dict(bert_cfg, seed=seed)
+        bert_sd = bconv.random_oscar_state_dict(bert_cfg, seed=seed)
     tokenizer = BertTokenizer(vocab if vocab else toy_vocab())
     return Resident(det_cfg, dconv.state_from_reference(det_sd, det_cfg),
                     bert_cfg, bconv.state_from_reference(bert_sd, bert_cfg),

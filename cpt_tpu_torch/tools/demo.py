@@ -15,7 +15,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from cpt_tpu.models.detector.config import DetectorConfig
+from cpt_tpu_torch.models.detector.config import DetectorConfig
 from cpt_tpu_torch.models.detector.rpn import grid_anchors
 
 

@@ -9,6 +9,9 @@
   embedding table), as ``convert_bert_state_dict`` +
   ``params_for_task(..., "rec_mlm_cpt")`` do.
 * :func:`params_from_jax` — the JAX ``REC_MLM_CPT`` parameter tree.
+
+:func:`random_oscar_state_dict` draws random weights in the reference
+layout from a seed (the serving path without a checkpoint).
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from cpt_tpu.config.bert import BertConfig
+from cpt_tpu_torch.config.bert import BertConfig
 
 
 def _np(v) -> np.ndarray:
@@ -128,3 +131,55 @@ def params_from_jax(tree: Mapping[str, Any], config: BertConfig
             out[p + f"{name}.kernel"] = _np(layer[name]["kernel"])
             out[p + f"{name}.bias"] = _np(layer[name]["bias"])
     return _tensors(out)
+
+
+def random_oscar_state_dict(config: BertConfig, seed: int = 0
+                            ) -> Dict[str, np.ndarray]:
+    """Random state dict in the Oscar ``pytorch_model.bin`` key layout
+    (``bert.*`` BertImgModel + ``cls.*`` pretraining heads), drawn from
+    ``seed`` with numpy: the same arrays as the JAX package's
+    ``random_oscar_state_dict``."""
+    rng = np.random.RandomState(seed)
+    c = config
+    h, im, vs = c.hidden_size, c.intermediate_size, c.vocab_size
+
+    def r(*shape):
+        return (rng.randn(*shape) * 0.02).astype(np.float32)
+
+    sd: Dict[str, np.ndarray] = {
+        "bert.embeddings.word_embeddings.weight": r(vs, h),
+        "bert.embeddings.position_embeddings.weight":
+            r(c.max_position_embeddings, h),
+        "bert.embeddings.token_type_embeddings.weight":
+            r(c.type_vocab_size, h),
+        "bert.embeddings.LayerNorm.weight": np.ones(h, np.float32),
+        "bert.embeddings.LayerNorm.bias": r(h),
+        "bert.pooler.dense.weight": r(h, h),
+        "bert.pooler.dense.bias": r(h),
+        "bert.img_embedding.weight": r(h, c.img_feature_dim),
+        "bert.img_embedding.bias": r(h),
+        "cls.predictions.transform.dense.weight": r(h, h),
+        "cls.predictions.transform.dense.bias": r(h),
+        "cls.predictions.transform.LayerNorm.weight": np.ones(h, np.float32),
+        "cls.predictions.transform.LayerNorm.bias": r(h),
+        "cls.predictions.bias": r(vs),
+        "cls.predictions.decoder.weight": r(vs, h),
+        "cls.seq_relationship.weight": r(2, h),
+        "cls.seq_relationship.bias": r(2),
+    }
+    for i in range(c.num_hidden_layers):
+        pre = f"bert.encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            sd[pre + f"attention.self.{n}.weight"] = r(h, h)
+            sd[pre + f"attention.self.{n}.bias"] = r(h)
+        sd[pre + "attention.output.dense.weight"] = r(h, h)
+        sd[pre + "attention.output.dense.bias"] = r(h)
+        sd[pre + "attention.output.LayerNorm.weight"] = np.ones(h, np.float32)
+        sd[pre + "attention.output.LayerNorm.bias"] = r(h)
+        sd[pre + "intermediate.dense.weight"] = r(im, h)
+        sd[pre + "intermediate.dense.bias"] = r(im)
+        sd[pre + "output.dense.weight"] = r(h, im)
+        sd[pre + "output.dense.bias"] = r(h)
+        sd[pre + "output.LayerNorm.weight"] = np.ones(h, np.float32)
+        sd[pre + "output.LayerNorm.bias"] = r(h)
+    return sd

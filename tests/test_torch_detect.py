@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from cpt_tpu.config.bert import tiny_bert_config
+from cpt_tpu.config.bert import tiny_bert_config as jax_tiny_bert_config
 from cpt_tpu.data.refcoco import RefcocoCPTData as JaxData
 from cpt_tpu.engine import extract as jext
 from cpt_tpu.engine import scoring as jscore
@@ -22,7 +22,8 @@ from cpt_tpu.models.bert.heads import REC_MLM_CPT as JaxRec
 from cpt_tpu.models.detector import heads as jheads
 from cpt_tpu.models.detector import rpn as jrpn
 from cpt_tpu.models.detector.attr_rcnn import AttrRCNN as JaxRCNN
-from cpt_tpu.models.detector.config import tiny_detector_config
+from cpt_tpu.models.detector.config import \
+    tiny_detector_config as jax_tiny_detector_config
 from cpt_tpu.models.detector.convert import (convert_detector_state_dict,
                                              random_vinvl_state_dict)
 from cpt_tpu.ops.nms import nms_padded as jax_nms
@@ -30,11 +31,14 @@ from cpt_tpu.ops.nms_pallas import nms_pallas as jax_nms_pallas
 from cpt_tpu.structures.boxes import decode_boxes as jax_decode
 from cpt_tpu.tools.validate_checkpoints import det_json_for_stage2
 from cpt_tpu.utils import convert as jconv
-from cpt_tpu.utils.tokenization import BertTokenizer, toy_vocab
+from cpt_tpu.utils.tokenization import BertTokenizer as JaxTokenizer
+from cpt_tpu.utils.tokenization import toy_vocab as jax_toy_vocab
+from cpt_tpu_torch.config.bert import tiny_bert_config
 from cpt_tpu_torch.data.refcoco import tsv_region_features
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector import heads
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+from cpt_tpu_torch.models.detector.config import tiny_detector_config
 from cpt_tpu_torch.models.detector.rpn import (cell_anchors, grid_anchors,
                                                select_proposals)
 from cpt_tpu_torch.ops.nms import nms_indices_list, nms_padded
@@ -42,6 +46,7 @@ from cpt_tpu_torch.ops.nms_pallas import nms_pallas
 from cpt_tpu_torch.structures.boxes import decode_boxes
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.utils import convert as bconv
+from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 # f32 through the same formulas in another framework: summation-order and
 # exp/log rounding noise only (box coordinates are O(100) pixels)
@@ -144,12 +149,12 @@ def test_nms_indices_list_and_cpu_dispatch():
 
 
 def test_anchors_and_decode_match_jax():
-    cfg = tiny_detector_config().rpn
+    cfg, jcfg = tiny_detector_config().rpn, jax_tiny_detector_config().rpn
     np.testing.assert_array_equal(
         cell_anchors(16, (32, 64, 128, 256, 512), (0.5, 1.0, 2.0)),
         jrpn.cell_anchors(16, (32, 64, 128, 256, 512), (0.5, 1.0, 2.0)))
     np.testing.assert_array_equal(grid_anchors(cfg, 5, 7),
-                                  jrpn.grid_anchors(cfg, 5, 7))
+                                  jrpn.grid_anchors(jcfg, 5, 7))
     rng = np.random.RandomState(6)
     anchors = grid_anchors(cfg, 3, 4)
     deltas = (rng.randn(len(anchors), 12) * 2).astype(np.float32)
@@ -163,7 +168,7 @@ def test_anchors_and_decode_match_jax():
 
 
 def test_select_proposals_matches_jax():
-    cfg = tiny_detector_config().rpn
+    cfg, jcfg = tiny_detector_config().rpn, jax_tiny_detector_config().rpn
     rng = np.random.RandomState(7)
     h, w, a = 4, 5, cfg.num_anchors
     logits = (rng.randn(h, w, a) * 2).astype(np.float32)
@@ -171,7 +176,7 @@ def test_select_proposals_matches_jax():
     deltas = (rng.randn(h, w, 4 * a) * 0.3).astype(np.float32)
     anchors = grid_anchors(cfg, h, w)
     hw = (60, 75)
-    want = jrpn.select_proposals(cfg, jnp.asarray(logits), jnp.asarray(deltas),
+    want = jrpn.select_proposals(jcfg, jnp.asarray(logits), jnp.asarray(deltas),
                                  jnp.asarray(anchors), jnp.asarray(hw))
     got = select_proposals(cfg, torch.from_numpy(logits),
                            torch.from_numpy(deltas), torch.from_numpy(anchors),
@@ -194,7 +199,7 @@ def head_inputs():
                                1).astype(np.float32)
     valid = np.ones(n, bool)
     valid[5] = False
-    return cfg, (np.float32(rng.randn(n, c) * 2.5),
+    return (jax_tiny_detector_config(), cfg), (np.float32(rng.randn(n, c) * 2.5),
                  np.float32(rng.randn(n, 4 * c) * 0.5),
                  np.float32(rng.randn(n, 16)), proposals, valid)
 
@@ -203,9 +208,9 @@ def head_inputs():
                                   "postprocess_per_class_with_retry",
                                   "postprocess_peter"])
 def test_postprocess_matches_jax(head_inputs, name):
-    cfg, inputs = head_inputs
+    (jcfg, cfg), inputs = head_inputs
     hw = (56, 61)
-    want = getattr(jheads, name)(cfg, *map(jnp.asarray, inputs),
+    want = getattr(jheads, name)(jcfg, *map(jnp.asarray, inputs),
                                  jnp.asarray(hw))
     got = getattr(heads, name)(cfg, *map(torch.from_numpy, inputs), hw)
     assert got.keys() == want.keys()
@@ -220,20 +225,20 @@ def test_postprocess_matches_jax(head_inputs, name):
 
 @pytest.fixture(scope="module")
 def rpn_case():
-    cfg = tiny_detector_config()
-    sd = random_vinvl_state_dict(cfg, seed=3)
+    jcfg, cfg = jax_tiny_detector_config(), tiny_detector_config()
+    sd = random_vinvl_state_dict(jcfg, seed=3)
     # spread the class scores, so that some clear the per-class filter's
     # 0.2 threshold (the seeded weights leave them near uniform)
     sd["roi_heads.box.predictor.cls_score.weight"] *= 40
     rng = np.random.RandomState(0)
     image = (rng.rand(64, 64, 3) * 255 - 120).astype(np.float32)
-    return cfg, sd, image, (60, 62), grid_anchors(cfg.rpn, 4, 4)
+    return (jcfg, cfg), sd, image, (60, 62), grid_anchors(cfg.rpn, 4, 4)
 
 
 def test_detector_weights_both_ways_with_attributes(rpn_case):
-    cfg, sd, _, _, _ = rpn_case
+    (jcfg, cfg), sd, _, _, _ = rpn_case
     a = dconv.state_from_reference(sd, cfg)
-    b = dconv.params_from_jax({"params": convert_detector_state_dict(sd, cfg)},
+    b = dconv.params_from_jax({"params": convert_detector_state_dict(sd, jcfg)},
                               cfg)
     assert a.keys() == b.keys()
     assert "attr_predictor.cls_embedding.weight" in a
@@ -248,14 +253,14 @@ def test_attr_rcnn_rpn_mode_matches_jax(rpn_case, nms_filter, with_attributes):
     """``AttrRCNN`` in RPN mode against JAX ``AttrRCNN.apply(...,
     anchors=...)`` from the same reference-layout weights: boxes, scores
     and features within TOL, labels and valid exact."""
-    cfg, sd, image, hw, anchors = rpn_case
-    cfg = dataclasses.replace(cfg, roi_heads=dataclasses.replace(
-        cfg.roi_heads, nms_filter=nms_filter))
-    model = JaxRCNN(cfg, dtype=jnp.float32)
+    (jcfg, cfg), sd, image, hw, anchors = rpn_case
+    jcfg, cfg = (dataclasses.replace(c, roi_heads=dataclasses.replace(
+        c.roi_heads, nms_filter=nms_filter)) for c in (jcfg, cfg))
+    model = JaxRCNN(jcfg, dtype=jnp.float32)
     want = jax.jit(lambda p, x, s: model.apply(
         p, x, s, anchors=jnp.asarray(anchors),
         with_attributes=with_attributes))(
-        {"params": convert_detector_state_dict(sd, cfg)}, jnp.asarray(image),
+        {"params": convert_detector_state_dict(sd, jcfg)}, jnp.asarray(image),
         jnp.asarray(hw))
     port = AttrRCNN(cfg, torch.float32).eval()
     port.load_state_dict(dconv.state_from_reference(sd, cfg))
@@ -284,40 +289,43 @@ def detect_slice(tmp_path_factory):
     det_cfg = tiny_detector_config()
     bert_cfg = tiny_bert_config(
         vocab_size=160, img_feature_dim=cpt_predict.region_feature_dim(det_cfg))
-    det_sd = random_vinvl_state_dict(det_cfg, seed=21)
-    bert_sd = jconv.random_oscar_state_dict(bert_cfg, seed=22)
+    jdet_cfg = jax_tiny_detector_config()
+    jbert_cfg = jax_tiny_bert_config(vocab_size=160,
+                                     img_feature_dim=bert_cfg.img_feature_dim)
+    det_sd = random_vinvl_state_dict(jdet_cfg, seed=21)
+    bert_sd = jconv.random_oscar_state_dict(jbert_cfg, seed=22)
     img = np.random.RandomState(23).randint(0, 256, (48, 60, 3)).astype(np.uint8)
-    tok = BertTokenizer(toy_vocab())
+    jtok = JaxTokenizer(jax_toy_vocab())
 
-    det = JaxRCNN(det_cfg, dtype=jnp.float32)
-    params = {"params": convert_detector_state_dict(det_sd, det_cfg)}
+    det = JaxRCNN(jdet_cfg, dtype=jnp.float32)
+    params = {"params": convert_detector_state_dict(det_sd, jdet_cfg)}
     canvas = np.zeros((64, 64, 3), np.uint8)
     canvas[:48, :60] = img
     _, boxes, _, scores, valid, _ = jext.make_detect_fn(
-        det, det_cfg, with_attributes=False)(
-        params, jnp.asarray(canvas), jnp.asarray(jrpn.grid_anchors(det_cfg.rpn, 4, 4)),
+        det, jdet_cfg, with_attributes=False)(
+        params, jnp.asarray(canvas), jnp.asarray(jrpn.grid_anchors(jdet_cfg.rpn, 4, 4)),
         jnp.asarray([48, 60], jnp.int32))
     boxes, scores = np.asarray(boxes), np.asarray(scores)
     keep = np.asarray(valid) & (scores > 0.0)
     dets = boxes[keep][np.argsort(-scores[keep])]
 
     wd = tmp_path_factory.mktemp("jax_detect")
-    ex = jext.Extractor(det, params, det_cfg, copies_per_chunk=None)
+    ex = jext.Extractor(det, params, jdet_cfg, copies_per_chunk=None)
     tsv = str(wd / "predictions.tsv")
     ex.run([jext.refcoco_task("q0", img, img.shape[:2], dets, CAPTION)], tsv)
     json.dump([{"id": "q0", "caption": CAPTION}], open(wd / "ann.json", "w"))
     det_json_for_stage2(tsv, str(wd / "det.json"))
-    data = JaxData(tsv, str(wd / "ann.json"), str(wd / "det.json"), tok,
-                   img_feat_dim=bert_cfg.img_feature_dim)
+    data = JaxData(tsv, str(wd / "ann.json"), str(wd / "det.json"), jtok,
+                   img_feat_dim=jbert_cfg.img_feature_dim)
     _, preds = jscore.refcoco_evaluate(
-        JaxRec(bert_cfg, dtype=jnp.float32),
+        JaxRec(jbert_cfg, dtype=jnp.float32),
         {"params": jconv.params_for_task(
-            jconv.convert_bert_state_dict(bert_sd, bert_cfg), "rec_mlm_cpt")},
-        data, tok, batch_size=16)
+            jconv.convert_bert_state_dict(bert_sd, jbert_cfg), "rec_mlm_cpt")},
+        data, jtok, batch_size=16)
 
     res = cpt_predict.Resident(
         det_cfg, dconv.state_from_reference(det_sd, det_cfg), bert_cfg,
-        bconv.state_from_reference(bert_sd, bert_cfg), tok,
+        bconv.state_from_reference(bert_sd, bert_cfg), BertTokenizer(toy_vocab()),
         torch.device("cpu"), torch.float32)
     pwd = tmp_path_factory.mktemp("port_detect")
     box = cpt_predict.predict(res, img, CAPTION, None, workdir=str(pwd),

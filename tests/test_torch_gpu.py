@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from cpt_tpu_torch.kernels.gemm import attention_core
+from cpt_tpu_torch.ops.attention import flash_mha, reference_flash_mha
 from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
                                                reference_attention_block,
                                                reference_attention_core)
@@ -238,3 +239,83 @@ def test_nms_kernel_rejects_k_too_large(dev):
     with pytest.raises(ValueError, match="shared"):
         nms_pallas(torch.zeros(k, 4, device=dev), torch.zeros(k, device=dev),
                    torch.ones(k, dtype=torch.bool, device=dev), 0.5, 10)
+
+
+def _flash_inputs(dev, b, h, s, d, bias, seed):
+    """q/k/v [b, h, s, d] bf16 with scores of std ≈ 2, and a bias: a
+    0/−10000 key bias [b, 1, 1, s] (~20% masked, the last sequence fully
+    masked), a finite [b, 1, s, s] bias of std 4, or none."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=dev) for _ in range(3))
+    q = (q * 2).bfloat16()
+    if bias == "key":
+        kb = torch.where(torch.rand(b, 1, 1, s, generator=g, device=dev) > 0.2,
+                         0.0, -10000.0)
+        kb[-1] = -10000.0
+    elif bias == "3d":
+        kb = torch.randn(b, 1, s, s, generator=g, device=dev) * 4
+    else:
+        kb = None
+    return q, k.bfloat16(), v.bfloat16(), kb
+
+
+@pytest.mark.parametrize("b,h,s,d,bias", [
+    (16, 12, 120, 64, "key"), (4, 12, 512, 64, "3d"), (2, 12, 2048, 64, "key"),
+    (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None)])
+def test_flash_kernel(dev, b, h, s, d, bias):
+    """K6 in bf16 against its plain version in f32 on the same inputs: the
+    three main-path shapes and ragged S at head_dim 32/64/128. Uniform
+    attention, a dropped bias and a dropped scale miss the tolerance, and
+    so does the bias added after the scale where the bias is finite (a
+    0/−10000 mask masks in either order)."""
+    q, k, v, kb = _flash_inputs(dev, b, h, s, d, bias, seed=s)
+    scale = d ** -0.5
+    got = flash_mha(q, k, v, kb, sm_scale=scale)
+    assert got.shape == (b, h, s, d) and got.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = reference_flash_mha(qf, kf, vf, kb, sm_scale=scale)
+    _close(got, want, 1e-2)
+    faults = {"uniform": reference_flash_mha(qf * 0, kf, vf, kb,
+                                             sm_scale=scale),
+              "no_scale": reference_flash_mha(qf, kf, vf, kb, sm_scale=1.0)}
+    if kb is not None:
+        faults["no_bias"] = reference_flash_mha(qf, kf, vf, sm_scale=scale)
+    if bias == "3d":
+        faults["bias_after_scale"] = reference_flash_mha(qf, kf, vf, kb / scale,
+                                                         sm_scale=scale)
+    assert _attn_faults_missed(want, faults, 1e-2) == []
+
+
+def test_flash_kernel_takes_strided_views(dev):
+    """q/k/v as the model passes them (head-transposed views of one packed
+    projection) and a misaligned copy give the same result as contiguous
+    tensors; the output is a [B, H, S, D] view of a [B, S, H, D] buffer."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    b, s, h, d = 2, 77, 3, 64
+    proj = torch.randn(b, s, 3, h, d, generator=g, device=dev).bfloat16()
+    q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    kb = torch.where(torch.rand(b, 1, 1, s, generator=g, device=dev) > 0.2,
+                     0.0, -10000.0).bfloat16()
+    want = flash_mha(q.contiguous(), k.contiguous(), v.contiguous(), kb,
+                     sm_scale=0.125)
+    assert torch.equal(flash_mha(q, k, v, kb, sm_scale=0.125), want)
+    assert torch.equal(flash_mha(_misaligned(q.contiguous()), k, v, kb,
+                                 sm_scale=0.125), want)
+    assert want.transpose(1, 2).is_contiguous()
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 2, 16, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_mha(q, q, q, sm_scale=0.125)
+    q = torch.zeros(1, 2, 16, 48, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_mha(q, q, q, sm_scale=0.125)
+
+
+def test_flash_launch_counter_counts(dev):
+    q = torch.zeros(2, 2, 70, 64, device=dev, dtype=torch.bfloat16)
+    before = flash_mha.launches
+    flash_mha(q, q, q, torch.zeros(2, 1, 1, 70, device=dev), sm_scale=0.125)
+    assert flash_mha.launches == before + 1

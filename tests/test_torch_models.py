@@ -11,14 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from cpt_tpu.config.bert import tiny_bert_config
+from cpt_tpu.config import bert as jbert_cfg
 from cpt_tpu.models.bert.heads import REC_MLM_CPT as JaxRec
+from cpt_tpu.models.detector import config as jdet_cfg
 from cpt_tpu.models.detector.attr_rcnn import AttrRCNN as JaxRCNN
-from cpt_tpu.models.detector.config import tiny_detector_config
 from cpt_tpu.models.detector.convert import (convert_detector_state_dict,
                                              random_vinvl_state_dict)
 from cpt_tpu.utils import convert as jconv
+from cpt_tpu_torch.config import bert as bert_cfg
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+from cpt_tpu_torch.models.detector import config as det_cfg
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.utils import convert as bconv
@@ -33,14 +35,20 @@ def _same_state(a, b):
         np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
 
 
+def _chunked(config_module):
+    """The tiny detector config with 4-slot head chunks, built from one
+    package's own config module."""
+    cfg = config_module.tiny_detector_config()
+    return dataclasses.replace(cfg, roi_heads=dataclasses.replace(
+        cfg.roi_heads, head_chunk=4))
+
+
 @pytest.fixture(scope="module")
 def detector_case():
-    cfg = dataclasses.replace(tiny_detector_config(),
-                              roi_heads=dataclasses.replace(
-                                  tiny_detector_config().roi_heads,
-                                  head_chunk=4))
-    sd = random_vinvl_state_dict(cfg, seed=3)
-    jparams = {"params": convert_detector_state_dict(sd, cfg)}
+    jcfg, cfg = _chunked(jdet_cfg), _chunked(det_cfg)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    sd = random_vinvl_state_dict(jcfg, seed=3)
+    jparams = {"params": convert_detector_state_dict(sd, jcfg)}
     rng = np.random.RandomState(0)
     images = (rng.rand(3, 64, 64, 3) * 255 - 120).astype(np.float32)
     boxes = np.asarray([[2, 3, 40, 50], [10, 10, 60, 30], [0, 0, 63, 63],
@@ -48,7 +56,7 @@ def detector_case():
                         [20, 20, 52, 61], [0, 0, 0, 0]], np.float32)
     valid = np.asarray([True] * 7 + [False])
     hw = np.asarray([60, 62], np.int32)
-    model = JaxRCNN(cfg, dtype=jnp.float32)
+    model = JaxRCNN(jcfg, dtype=jnp.float32)
     out = jax.jit(lambda p, *a: model.apply(p, *a,
                                             method=model.forward_batch_force))(
         jparams, jnp.asarray(images), jnp.asarray(hw), jnp.asarray(boxes),
@@ -79,10 +87,12 @@ def test_detector_forward_batch_force_matches(detector_case):
 
 @pytest.fixture(scope="module")
 def bert_case():
-    cfg = tiny_bert_config(vocab_size=160, img_feature_dim=20)
-    sd = jconv.random_oscar_state_dict(cfg, seed=5)
+    jcfg = jbert_cfg.tiny_bert_config(vocab_size=160, img_feature_dim=20)
+    cfg = bert_cfg.tiny_bert_config(vocab_size=160, img_feature_dim=20)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    sd = jconv.random_oscar_state_dict(jcfg, seed=5)
     jparams = {"params": jconv.params_for_task(
-        jconv.convert_bert_state_dict(sd, cfg), "rec_mlm_cpt")}
+        jconv.convert_bert_state_dict(sd, jcfg), "rec_mlm_cpt")}
     rng = np.random.RandomState(1)
     n, t, r = 4, 14, 6
     ids = rng.randint(1, 160, (n, t)).astype(np.int32)
@@ -92,15 +102,15 @@ def bert_case():
     mask[2, t + 3:] = 0
     feats = rng.randn(n, r, 20).astype(np.float32)
     pos = np.asarray([3, 0, 7, 13], np.int32)
-    model = JaxRec(cfg, dtype=jnp.float32)
+    model = JaxRec(jcfg, dtype=jnp.float32)
     _, logits = jax.jit(lambda p, *a: model.apply(p, *a[:3], img_feats=a[3],
                                                   mask_pos=a[4]))(
         jparams, *map(jnp.asarray, (ids, seg, mask, feats, pos)))
-    return cfg, sd, jparams, (ids, seg, mask, feats, pos), np.asarray(logits)
+    return (jcfg, cfg), sd, jparams, (ids, seg, mask, feats, pos), np.asarray(logits)
 
 
 def test_bert_weights_both_ways(bert_case):
-    cfg, sd, jparams, _, _ = bert_case
+    (_, cfg), sd, jparams, _, _ = bert_case
     _same_state(bconv.state_from_reference(sd, cfg),
                 bconv.params_from_jax(jparams, cfg))
 
@@ -109,7 +119,7 @@ def test_bert_weights_both_ways(bert_case):
 def test_rec_mlm_cpt_mask_pos_matches(bert_case, impl):
     """``auto`` routes every layer through the K3/K4 wrappers; ``einsum``
     takes the plain einsum/dense path."""
-    cfg, sd, _, inputs, want = bert_case
+    (_, cfg), sd, _, inputs, want = bert_case
     cfg = dataclasses.replace(cfg, attention_impl=impl,
                               ffn_impl="dense" if impl == "einsum" else "auto")
     model = REC_MLM_CPT(cfg, torch.float32).eval()
@@ -129,7 +139,7 @@ def test_bert_img_model_einsum_path_matches(bert_case, case):
     from cpt_tpu.models.bert.model import BertImgModel as JaxBert
     from cpt_tpu_torch.models.bert.model import BertImgModel
 
-    cfg, sd, jparams, (ids, seg, mask, feats, _), _ = bert_case
+    (jcfg, cfg), sd, jparams, (ids, seg, mask, feats, _), _ = bert_case
     rng = np.random.RandomState(9)
     n, s = mask.shape
     kw = {}
@@ -145,7 +155,7 @@ def test_bert_img_model_einsum_path_matches(bert_case, case):
                                 for _ in range(cfg.num_hidden_layers)]
         # keys are [history, sequence]: the mask covers both
         mask = np.concatenate([np.ones((n, 3), np.int32), mask], 1)
-    jbert = JaxBert(cfg, dtype=jnp.float32)
+    jbert = JaxBert(jcfg, dtype=jnp.float32)
     want, _ = jbert.apply({"params": jparams["params"]["bert"]},
                           *map(jnp.asarray, (ids, seg, mask)),
                           img_feats=jnp.asarray(feats),

@@ -14,23 +14,28 @@ import numpy as np
 import pytest
 import torch
 
-from cpt_tpu.config.bert import tiny_bert_config
+from cpt_tpu.config.bert import tiny_bert_config as jax_tiny_bert_config
 from cpt_tpu.data.refcoco import RefcocoCPTData as JaxData
 from cpt_tpu.engine import extract as jext
 from cpt_tpu.engine import scoring as jscore
 from cpt_tpu.models.bert.heads import REC_MLM_CPT as JaxRec
 from cpt_tpu.models.detector.attr_rcnn import AttrRCNN as JaxRCNN
-from cpt_tpu.models.detector.config import tiny_detector_config
+from cpt_tpu.models.detector.config import \
+    tiny_detector_config as jax_tiny_detector_config
 from cpt_tpu.models.detector.convert import (convert_detector_state_dict,
                                              random_vinvl_state_dict)
 from cpt_tpu.tools.validate_checkpoints import det_json_for_stage2
 from cpt_tpu.utils import convert as jconv
-from cpt_tpu.utils.tokenization import BertTokenizer, toy_vocab
+from cpt_tpu.utils.tokenization import BertTokenizer as JaxTokenizer
+from cpt_tpu.utils.tokenization import toy_vocab as jax_toy_vocab
+from cpt_tpu_torch.config.bert import tiny_bert_config
 from cpt_tpu_torch.data.refcoco import tsv_region_features
 from cpt_tpu_torch.kernels import build
 from cpt_tpu_torch.models.detector import convert as dconv
+from cpt_tpu_torch.models.detector.config import tiny_detector_config
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.utils import convert as bconv
+from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAPTION = "the woman on the left"
@@ -40,41 +45,46 @@ DETS = [[4, 4, 30, 30], [32, 8, 58, 40], [1, 20, 20, 55], [25, 30, 60, 52],
 
 @pytest.fixture(scope="module")
 def slice_case(tmp_path_factory):
+    # each package gets its own configs and tokenizer; the weights are one
+    # reference-layout state dict
     det_cfg = tiny_detector_config()
     bert_cfg = tiny_bert_config(
         vocab_size=160, img_feature_dim=cpt_predict.region_feature_dim(det_cfg))
-    det_sd = random_vinvl_state_dict(det_cfg, seed=11)
-    bert_sd = jconv.random_oscar_state_dict(bert_cfg, seed=12)
+    jdet_cfg = jax_tiny_detector_config()
+    jbert_cfg = jax_tiny_bert_config(vocab_size=160,
+                                     img_feature_dim=bert_cfg.img_feature_dim)
+    det_sd = random_vinvl_state_dict(jdet_cfg, seed=11)
+    bert_sd = jconv.random_oscar_state_dict(jbert_cfg, seed=12)
     img = np.random.RandomState(13).randint(0, 256, (48, 60, 3)).astype(np.uint8)
-    tok = BertTokenizer(toy_vocab())
+    jtok = JaxTokenizer(jax_toy_vocab())
 
     # JAX package: stage 1 through its Extractor, stage 2 through its scoring
     wd = tmp_path_factory.mktemp("jax")
-    det = JaxRCNN(det_cfg, dtype=jnp.float32)
+    det = JaxRCNN(jdet_cfg, dtype=jnp.float32)
     ex = jext.Extractor(det, {"params": convert_detector_state_dict(det_sd,
-                                                                    det_cfg)},
-                        det_cfg, copies_per_chunk=None)
+                                                                    jdet_cfg)},
+                        jdet_cfg, copies_per_chunk=None)
     tsv = str(wd / "predictions.tsv")
     ex.run([jext.refcoco_task("q0", img, img.shape[:2], DETS, CAPTION)], tsv)
     json.dump([{"id": "q0", "caption": CAPTION}], open(wd / "ann.json", "w"))
     det_json_for_stage2(tsv, str(wd / "det.json"))
-    data = JaxData(tsv, str(wd / "ann.json"), str(wd / "det.json"), tok,
-                   img_feat_dim=bert_cfg.img_feature_dim)
-    rec = JaxRec(bert_cfg, dtype=jnp.float32)
+    data = JaxData(tsv, str(wd / "ann.json"), str(wd / "det.json"), jtok,
+                   img_feat_dim=jbert_cfg.img_feature_dim)
+    rec = JaxRec(jbert_cfg, dtype=jnp.float32)
     params = {"params": jconv.params_for_task(
-        jconv.convert_bert_state_dict(bert_sd, bert_cfg), "rec_mlm_cpt")}
-    _, preds = jscore.refcoco_evaluate(rec, params, data, tok, batch_size=16)
+        jconv.convert_bert_state_dict(bert_sd, jbert_cfg), "rec_mlm_cpt")}
+    _, preds = jscore.refcoco_evaluate(rec, params, data, jtok, batch_size=16)
     fn = jscore.make_mlm_at_mask_fn(rec)
     (batch, _), = jscore.iter_eval_batches(data, 16)
     scores = jscore.refcoco_collect_scores(
-        jscore.run_mlm_batch(fn, params, batch), batch, tok)[0][0]
+        jscore.run_mlm_batch(fn, params, batch), batch, jtok)[0][0]
     jax_out = {"feats": tsv_region_features(tsv), "box": preds["q0"], "scores": scores}
 
     # the port, from the same reference-layout weights
     res = cpt_predict.Resident(
         det_cfg, dconv.state_from_reference(det_sd, det_cfg), bert_cfg,
-        bconv.state_from_reference(bert_sd, bert_cfg), tok,
-        torch.device("cpu"), torch.float32)
+        bconv.state_from_reference(bert_sd, bert_cfg),
+        BertTokenizer(toy_vocab()), torch.device("cpu"), torch.float32)
     pwd = tmp_path_factory.mktemp("port")
     box = cpt_predict.predict(res, img, CAPTION, DETS, workdir=str(pwd))
     return jax_out, res, pwd, box
@@ -100,7 +110,7 @@ def test_slice_picks_the_same_box(slice_case):
 def test_port_runs_without_jax(tmp_path):
     """``import cpt_tpu_torch`` and the tiny slice through the CLI entry
     point, with ``--dets`` and with ``--detect``, in a fresh interpreter
-    where importing jax or flax fails."""
+    where importing jax, flax or the JAX package fails."""
     from PIL import Image
 
     Image.fromarray(np.random.RandomState(0).randint(
@@ -109,6 +119,7 @@ def test_port_runs_without_jax(tmp_path):
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["cpt_tpu"] = None
 import pkgutil, importlib, cpt_tpu_torch
 for m in pkgutil.walk_packages(cpt_tpu_torch.__path__, "cpt_tpu_torch."):
     importlib.import_module(m.name)
@@ -123,7 +134,8 @@ pred = main(["--image", {str(tmp_path / 'photo.png')!r}, "--caption", "a dog",
              "--dtype", "float32", "--hidden_size", "32",
              "--num_hidden_layers", "2"])
 assert len(pred) == 4 and all(0 <= v < 56 for v in pred), pred
-assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
+assert not [k for k, v in sys.modules.items()
+            if v is not None and k.split(".")[0] in ("jax", "flax", "cpt_tpu")]
 print("OK")
 """
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -140,7 +152,7 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     names = {p.name for p in build.sources()}
     assert {"grouped_conv.cu", "roi_align.cu", "gemm.cu",
-            "attention.cu", "nms.cu"} <= names
+            "attention.cu", "nms.cu", "flash_attention.cu"} <= names
     assert build.library_path().name.startswith("libcpt_kernels-")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc_path", lambda: "false")
