@@ -9,13 +9,14 @@ Phases (any failure raises and the script exits non-zero):
 1. print the card's name and power limit (``nvidia-smi``);
 2. build the hand-written kernels from ``cpt_tpu_torch/csrc`` (nvcc);
 3. hold each kernel (K1 grouped conv, K2 RoIAlign, K3 attention block and
-   its attention core alone, K4 FFN block, K6 flash attention) in bf16
-   against its plain PyTorch version in f32 on the same inputs, and K5
-   (greedy NMS) against its plain version exactly on the same f32 inputs,
-   at the main paths' shapes; time each kernel, its plain version and, where
-   one PyTorch call computes the same function, that call (a yardstick the
-   port never calls) with CUDA events, and compute each one's bound (the
-   least time for its bytes and operations at the card's published peaks);
+   its attention core alone, K4 FFN block, K6 flash attention, K6b/K6c its
+   backward) in bf16 against its plain PyTorch version in f32 on the same
+   inputs, and K5 (greedy NMS) against its plain version exactly on the
+   same f32 inputs, at the main paths' shapes; time each kernel, its plain
+   version and, where one PyTorch call computes the same function, that
+   call (a yardstick the port never calls) with CUDA events, and compute
+   each one's bound (the least time for its bytes and operations at the
+   card's published peaks);
 4. at full width (VinVL X152-C4 + Oscar-base, random weights from a seed in
    the reference layouts) answer 3 grounding requests through
    ``cpt_predict.predict`` with given candidates, then 3 ``--detect``
@@ -25,7 +26,15 @@ Phases (any failure raises and the script exits non-zero):
    launches a scoring batch, K3 none), then one long-context
    ``BertImgModel`` forward under ``"flash"`` (batch 4, 70 text tokens + 950
    regions) against the einsum path in f32; check that every kernel of each
-   path ran on it.
+   path ran on it;
+5. few-shot prompt tuning at full width: extract stage-1 features of 16
+   grounding queries with the resident detector, then train Oscar-base
+   under ``attention_impl="flash"`` (attention dropout 0, hidden dropout
+   0.1) through ``refcoco_cpt.train`` for 20 steps of batch 32 (K6, K6b and
+   K6c 12 launches a step, K3 and K4 none); hold one step's gradients and a
+   10-step loss curve (dropout off) against the f32 einsum path; then 3
+   deterministic steps under ``"auto"`` (K3 and K4 12 a step, their
+   backward the plain VJP).
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``.
@@ -50,6 +59,9 @@ import numpy as np
 # (probabilities, context), K3/K4 three to four times.
 TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 2e-2, "K3 core": 1e-2, "K4": 2e-2,
        "K6": 1e-2}
+# K6b/K6c: of each gradient's largest magnitude; bf16 rounds p and ds before
+# three products, and dq, dk, dv once more
+BWD_TOL = 2e-2
 # Full-width request checks, as a fraction of the reference's largest
 # magnitude. The long-context flash forward (bf16) against the einsum path
 # (f32): twelve layers of bf16 rounding (2^-9 each, several per layer).
@@ -58,9 +70,27 @@ TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 2e-2, "K3 core": 1e-2, "K4": 2e-2,
 # logit[color] / logit["none"], and with these weights the logits are
 # ~0.5 in size while twelve bf16 layers leave each with an error of a few
 # hundredths (0.036-0.042 at full width on the CPU, for the "auto", flash
-# and einsum paths alike), so a ratio moves by up to ~15%.
+# and einsum paths alike), so a ratio moves by up to ~15%. The f32 path
+# runs on the matrices and tables rounded to bf16, as the bf16 paths
+# compute with them (``rebuilt_scorer``).
 SCORE_TOL = 0.15
 LONG_TOL = 5e-2
+# Phase 5, one step's gradients (flash path in bf16 against the einsum path
+# in f32, same weights and batch, dropout off), as the largest per-tensor
+# ‖g − g_f32‖ / ‖g_f32‖, on grad_gap's synthetic batch (32 sequences, seed
+# 0) and the resident's weights. Derived from the plain path's own
+# bf16-vs-f32 gap at full width on the CPU (`python -m
+# cpt_tpu_torch.tools.grad_gap --batch 32 --seed 0`, and `--seed 1`):
+# 1.243e-2 and 1.411e-2; the flash path there sits at 1.246e-2 and
+# 1.371e-2, the flash path with K6b's dK zeroed at 0.106 and 0.113. 4e-2
+# is 2.8x the larger plain gap and 2.6x below the fault's.
+GRAD_TOL = 4e-2
+# Phase 5, losses of 10 deterministic AdamW steps (lr 2.5e-5, one warmup
+# step) on grad_gap's two synthetic batches, flash bf16 against einsum f32,
+# in nats. The same CPU run: the losses fall from 10.81 to 3.39 and the
+# plain path in bf16 stays within 7.6e-3 of the f32 path at every step
+# (the flash path within 8.1e-3). 2.5e-2 is 3.3x the plain gap.
+LOSS_TOL = 2.5e-2
 
 # One H100 SXM's published peaks (dense): HBM bytes/s, bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -79,6 +109,10 @@ KERNELS = {
            "cpt_tpu/ops/nms_pallas.py:92"),
     "K6": ("flash_mha", "cpt_tpu_torch/csrc/flash_attention.cu",
            "cpt_tpu/ops/attention.py:70"),
+    "K6b": ("flash_mha_bwd_dkv", "cpt_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
+    "K6c": ("flash_mha_bwd_dq", "cpt_tpu_torch/csrc/flash_attention_bwd.cu",
+            "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
 }
 
 
@@ -306,6 +340,7 @@ def check_kernels(rows: list) -> dict:
                       BF16_OPS_S))
     check_nms(rows)
     check_flash(rows)
+    check_flash_bwd(rows)
     return {k: [r for r in rows if r["kernel"].split()[0] == k]
             for k in KERNELS}
 
@@ -465,6 +500,122 @@ def check_flash(rows: list) -> None:
                     q, k, v, attn_mask=mask, scale=scale))
 
 
+def flash_bwd_with_fault(q, k, v, bias, do, scale, fault=None):
+    """(dq, dk, dv) of softmax((q·kᵀ + bias)·scale)·v in f32 by the
+    library's backward formula, with one named fault: ``no_di`` drops di
+    (``ds = dp·p``), ``ds_unscaled`` leaves ds unscaled, ``no_l`` leaves p
+    undivided by l, ``bias_after_scale`` adds the bias after the scale."""
+    import torch
+
+    if fault == "bias_after_scale":
+        bias = bias / scale
+    s = (torch.einsum("bhqd,bhkd->bhqk", q, k) + bias) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p_true = e / e.sum(-1, keepdim=True)
+    p = e if fault == "no_l" else p_true
+    o = torch.einsum("bhqk,bhkd->bhqd", p_true, v)
+    di = 0.0 if fault == "no_di" else (o * do).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, v)
+    ds = (dp - di) * p * (1.0 if fault == "ds_unscaled" else scale)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k),
+            torch.einsum("bhqk,bhqd->bhkd", ds, q),
+            torch.einsum("bhqk,bhqd->bhkd", p, do))
+
+
+def check_flash_bwd(rows: list) -> None:
+    """K6b and K6c: ``torch.autograd.grad`` of ``flash_mha`` in bf16 (K6
+    with row stats, di, K6b, K6c) against ``reference_flash_mha_bwd`` in f32
+    on the same inputs, each of dq, dk, dv within BWD_TOL of its scale, at
+    the training shape (32 sequences of 70 text + 50 region slots, a key
+    bias with ~20% of keys masked and the last sequence fully masked), with
+    a finite [4, 1, 512, 512] bias of std 4, and at S = 2048; q is drawn so
+    the scores have std ≈ 2. Named faults (di dropped, ds unscaled, p not
+    divided by l and, at the finite bias, the bias after the scale) must
+    miss. Then each kernel alone, its plain version and SDPA's backward
+    (the whole dq, dk, dv; graph built outside the loop) are timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
+                                             flash_mha_bwd_dkv_plain,
+                                             flash_mha_bwd_dq,
+                                             flash_mha_bwd_dq_plain,
+                                             flash_mha_fwd,
+                                             reference_flash_mha_bwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    for b, h, s_len, bias in [(32, 12, 120, "key"), (4, 12, 512, "3d"),
+                              (2, 12, 2048, "key")]:
+        q, k, v, do = (torch.randn(b, h, s_len, 64, generator=g, device=dev)
+                       for _ in range(4))
+        q, k, v, do = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16(), do.bfloat16()
+        if bias == "key":
+            kb = torch.where(torch.rand(b, 1, 1, s_len, generator=g,
+                                        device=dev) > 0.2, 0.0, -10000.0)
+            kb[-1] = -10000.0
+        else:
+            kb = torch.randn(b, 1, s_len, s_len, generator=g, device=dev) * 4
+        scale = 0.125
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(flash_mha(*leaves, kb, sm_scale=scale),
+                                  leaves, do)
+        f32 = [t.float() for t in (q, k, v, do)]
+        want = reference_flash_mha_bwd(*f32[:3], kb, f32[3], sm_scale=scale)
+        torch.cuda.synchronize()
+        tols = [BWD_TOL * max(float(w.abs().max()), 1e-3) for w in want]
+        errs = [float((x.float() - w).abs().max()) for x, w in zip(got, want)]
+        if not all(torch.isfinite(x).all() for x in got):
+            raise AssertionError(f"K6b/K6c {b},{h},{s_len}: non-finite gradient")
+        faults = ["no_di", "ds_unscaled", "no_l"] + (
+            ["bias_after_scale"] if bias == "3d" else [])
+        fault_miss = {}
+        for f in faults:
+            fx = flash_bwd_with_fault(*f32[:3], kb, f32[3], scale, f)
+            fault_miss[f] = max(float((x - w).abs().max()) / t
+                                for x, w, t in zip(fx, want, tols))
+        o, m, l = flash_mha_fwd(q, k, v, kb, sm_scale=scale, stats=True)
+        di = (o.float() * do.float()).sum(-1).contiguous()
+        args = (q, k, v, kb, do, m, l, di)
+        sdpa = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*sdpa, attn_mask=(kb * scale).bfloat16(),
+                                             scale=scale)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(out, sdpa, do,
+                                                         retain_graph=True))
+        label = f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}"
+        sq = b * h * s_len * s_len * 64
+        in_bytes = nbytes(q, k, v, do, m, l, di, kb)
+        whole_ms, whole_by = bound(in_bytes + nbytes(o) + 3 * nbytes(q),
+                                   10 * sq, BF16_OPS_S)
+        for name, kernel, plain, outs, ops, (lo, hi) in (
+                ("K6b", flash_mha_bwd_dkv, flash_mha_bwd_dkv_plain, 2, 8 * sq, (1, 3)),
+                ("K6c", flash_mha_bwd_dq, flash_mha_bwd_dq_plain, 1, 6 * sq, (0, 1))):
+            ms = cuda_ms(lambda: kernel(*args, sm_scale=scale))
+            plain_ms = cuda_ms(lambda: plain(*args, scale))
+            bound_ms, bound_by = bound(in_bytes + outs * nbytes(q), ops, BF16_OPS_S)
+            rows.append({"kernel": name, "shape": label,
+                         "max_abs_err": max(errs[lo:hi]), "errs": errs[lo:hi],
+                         "tols": tols[lo:hi], "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "fault_miss": fault_miss,
+                         "backward_bound_ms": whole_ms})
+        print(f"K6b/K6c {label}: dq/dk/dv err " + "/".join(f"{e:.3e}" for e in errs)
+              + " tol " + "/".join(f"{t:.3e}" for t in tols) + "; K6b ms="
+              f"{rows[-2]['ms']:.4f} plain_ms={rows[-2]['plain_ms']:.4f} "
+              f"bound_ms={rows[-2]['bound_ms']:.4f} ({rows[-2]['bound_by']}); "
+              f"K6c ms={rows[-1]['ms']:.4f} plain_ms={rows[-1]['plain_ms']:.4f} "
+              f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}); "
+              f"SDPA backward library_ms={library_ms:.4f}; whole-backward bound "
+              f"{whole_ms:.4f} ms ({whole_by}); faults miss by "
+              + ", ".join(f"{f} {x:.1f}x" for f, x in fault_miss.items()),
+              flush=True)
+        if not all(e <= t for e, t in zip(errs, tols)):
+            raise AssertionError(f"K6b/K6c {label}: errors {errs} > {tols}")
+        caught = [f for f, x in fault_miss.items() if not x > 1.0]
+        if caught:
+            raise AssertionError(f"K6b/K6c {label}: the check would pass {caught}")
+
+
 def build_resident():
     """VinVL X152-C4 + Oscar-base at full width, random weights from seed 0
     in the reference layouts, resident on the card."""
@@ -482,7 +633,8 @@ def build_resident():
     return res, setup_s
 
 
-def run_requests(res, counters, idle=("K5", "K6"), oracle=None) -> dict:
+def run_requests(res, counters, idle=("K5", "K6", "K6b", "K6c"),
+                 oracle=None) -> dict:
     """Full-width grounding requests with given candidates
     (``cpt_predict.predict`` with dets): a warm-up, then 8, 8 and 16
     candidates, each in its own work directory; then each request's
@@ -565,9 +717,12 @@ def run_requests(res, counters, idle=("K5", "K6"), oracle=None) -> dict:
 
 def rebuilt_scorer(res, dtype, **config_changes):
     """``res`` with its detector shared and its Oscar-base rebuilt with
-    ``config_changes`` in ``dtype``, loaded from the same weights (the
-    flash resident is what ``cpt_predict.build_resident(...,
-    attention_impl="flash")`` builds)."""
+    ``config_changes`` in ``dtype``, loaded with the weights ``res``
+    computes with: its matrices and tables rounded to its compute dtype
+    (the vectors, biases and LayerNorm parameters, stay f32: K3 and K4 and
+    every LayerNorm read them so), so an f32 rebuild is the f32 path on the
+    bf16 model's weights (the flash resident is what
+    ``cpt_predict.build_resident(..., attention_impl="flash")`` builds)."""
     import torch
 
     from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
@@ -576,7 +731,9 @@ def rebuilt_scorer(res, dtype, **config_changes):
     out.bert_cfg = dataclasses.replace(res.bert_cfg, **config_changes)
     with torch.device(res.device):
         out.oscar = REC_MLM_CPT(out.bert_cfg, dtype).eval()
-    out.oscar.load_state_dict(res.oscar.state_dict())
+    out.oscar.load_state_dict({
+        k: v.to(res.oscar.dtype).float() if v.dim() > 1 else v
+        for k, v in res.oscar.state_dict().items()})
     return out
 
 
@@ -749,11 +906,276 @@ def run_detect_requests(res, counters) -> dict:
     finally:
         res.detect = detect
     print(f"launches over the 3 detect requests: {launches}", flush=True)
-    missing = [k for k, n in launches.items() if n <= 0 and k != "K6"]
-    if missing or launches["K6"]:
+    flash = ("K6", "K6b", "K6c")
+    missing = [k for k, n in launches.items() if n <= 0 and k not in flash]
+    if missing or any(launches[k] for k in flash):
         raise AssertionError(f"kernels not launched on the detect path: "
-                             f"{missing}, or K6 launched: {launches}")
+                             f"{missing}, or K6/K6b/K6c launched: {launches}")
     return {"warmup_ms": cold_s * 1e3, "requests": reqs, "launches": launches}
+
+
+CAPTIONS = ("the person on the left", "a dog near the car", "the red chair",
+            "man holding an umbrella")
+
+
+def training_data(res, root: str, n_queries: int = 16, n_cands: int = 4):
+    """Stage-1 features of ``n_queries`` grounding queries (a 480x640 image
+    and ``n_cands`` candidate boxes each; the gt box is candidate
+    ``i % n_cands``), extracted by the resident detector into
+    ``predictions.tsv`` with its ann and od-label jsons → (RefcocoCPTData,
+    their paths, extraction seconds)."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import RefcocoCPTData, det_json_for_stage2
+    from cpt_tpu_torch.engine.extract import refcoco_task
+
+    rng = np.random.RandomState(2026)
+    tasks, anns = [], []
+    for i in range(n_queries):
+        img = rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+        xy = rng.uniform(0, 400, (n_cands, 2))
+        wh = rng.uniform(24, 240, (n_cands, 2))
+        boxes = np.round(np.concatenate([xy, np.minimum(xy + wh, [639, 479])], 1))
+        x1, y1, x2, y2 = boxes[i % n_cands].tolist()
+        caption = CAPTIONS[i % len(CAPTIONS)]
+        tasks.append(refcoco_task(f"q{i}", img, img.shape[:2], boxes, caption))
+        anns.append({"id": f"q{i}", "caption": caption, "height": 480,
+                     "bbox": [x1, y1, x2 - x1 + 1, y2 - y1 + 1]})
+    paths = {k: f"{root}/{v}" for k, v in (("data_file", "predictions.tsv"),
+                                           ("ann_file", "ann.json"),
+                                           ("det_file", "stage2_det.json"))}
+    t0 = time.perf_counter()
+    res.extractor.run(tasks, paths["data_file"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    with open(paths["ann_file"], "w") as f:
+        json.dump(anns, f)
+    det_json_for_stage2(paths["data_file"], paths["det_file"])
+    data = RefcocoCPTData(paths["data_file"], paths["ann_file"],
+                          paths["det_file"], res.tokenizer,
+                          img_feat_dim=res.bert_cfg.img_feature_dim)
+    return data, paths, extract_s
+
+
+KERNEL_GROUPS = (("K6b", ("flash_bwd_dkv",)), ("K6c", ("flash_bwd_dq",)),
+                 ("K6", ("flash_attention_kernel",)),
+                 ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
+                 ("elementwise / reduce", ("elementwise", "vectorized", "reduce",
+                                          "foreach", "multi_tensor")))
+
+
+def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
+    """Where a prompt-tuning step's time goes: ``reps`` steps timed on the
+    host clock (the optimizer's update timed alone, between two
+    synchronisations), then ``reps`` steps under ``torch.profiler`` (device
+    kernels only) grouped by kernel family."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpt_tpu_torch.engine import train as train_lib
+
+    tx = train_lib.build_optimizer(model, train_lib.OptimConfig(warmup_steps=0))
+    state = train_lib.create_train_state(model, tx)
+    step = train_lib.make_mlm_train_step(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    real, opt_ms = tx.update, []
+
+    def timed_update(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real(*a)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t) * 1e3)
+
+    for _ in range(2):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    tx.update = timed_update
+    for _ in range(reps):
+        step(state, batch, gen)
+    tx.update = real
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / reps)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for key, ms in kernels:
+        low = key.lower()
+        name = next((n for n, pats in KERNEL_GROUPS if any(x in low for x in pats)),
+                    "other")
+        groups[name] += ms
+    busy = sum(ms for _, ms in kernels)
+    top = sorted(kernels, key=lambda kv: -kv[1])[:8]
+    print(f"phase 5 step breakdown (batch of {batch[0].shape[0]}, flash, bf16): "
+          f"{step_ms:.2f} ms/step on the host clock; optimizer update alone "
+          f"{np.mean(opt_ms):.2f} ms; device kernels {busy:.2f} ms/step (busy "
+          f"share {busy / step_ms:.3f}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items())
+          + "; top kernels: " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in top),
+          flush=True)
+    return {"step_ms": step_ms, "optimizer_ms": float(np.mean(opt_ms)),
+            "device_ms": busy, "groups": groups, "top": top}
+
+
+def run_training(res, counters) -> dict:
+    """Phase 5. Prompt tuning through ``refcoco_cpt.train`` (the tool's
+    defaults: batch 32, AdamW lr 2.5e-5, weight decay 0.05, warmup 10%,
+    20 epochs of the 16 queries' 32 sampled copies = 20 steps) of
+    Oscar-base under "flash" with attention dropout 0 in bf16, counting
+    each step's launches and profiling a step; then, on the same initial
+    weights and ``grad_gap``'s synthetic batches (those the tolerances were
+    derived on), one step's gradients and 10 deterministic steps' losses
+    against the einsum path in f32 (with K6b's dK zeroed as the fault the
+    gradient check must catch); then 3 deterministic steps under "auto"."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import iter_train_batches
+    from cpt_tpu_torch.engine import train as train_lib
+    from cpt_tpu_torch.ops import fused_attention, fused_ffn
+    from cpt_tpu_torch.tools import grad_gap, refcoco_cpt
+
+    dev, cfg = res.device, res.bert_cfg
+    init = {k: v.clone() for k, v in res.oscar.state_dict().items()}
+    with tempfile.TemporaryDirectory() as root:
+        data, paths, extract_s = training_data(res, root)
+        print(f"phase 5: stage-1 features of {len(data)} queries extracted in "
+              f"{extract_s * 1e3:.1f} ms", flush=True)
+        args = refcoco_cpt.build_args().parse_args(
+            ["--train_data_file", paths["data_file"]]
+            + [x for k, v in paths.items() for x in (f"--{k}", v)])
+        model = grad_gap.build(init, cfg, torch.bfloat16, dev, **grad_gap.FLASH)
+        steps = []
+        mark = [time.perf_counter(), {k: 0 for k in counters}]
+
+        def on_step(step, loss):
+            now = time.perf_counter()
+            seen = {k: fn.launches for k, fn in counters.items()}
+            steps.append({"step": step, "loss": loss, "ms": (now - mark[0]) * 1e3,
+                          "launches": {k: seen[k] - mark[1][k] for k in seen}})
+            mark[:] = [now, seen]
+
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = mark[0] = time.perf_counter()
+        losses = refcoco_cpt.train(model, data, args, dev, on_step)
+        train_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        batches = [train_lib.batch_arrays_mlm(
+            next(iter_train_batches(data, args.per_gpu_train_batch_size, seed)), dev)
+            for seed in (0, 1)]
+        data.tsv.close()
+    n_seq = args.per_gpu_train_batch_size
+    steady = [st["ms"] for st in steps[1:]]
+    print(f"phase 5: {len(losses)} steps of batch {n_seq} (flash, bf16) in "
+          f"{train_s:.2f} s; ms/step {np.mean(steady):.2f} after the first "
+          f"({steps[0]['ms']:.1f}); {n_seq * len(steady) / (sum(steady) / 1e3):.1f}"
+          f" sequences/s; losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+          f"{launches}", flush=True)
+    want = {"K6": 12, "K6b": 12, "K6c": 12, "K3": 0, "K4": 0}
+    bad = [st for st in steps if any(st["launches"][k] != n for k, n in want.items())]
+    if len(losses) < 20 or not np.isfinite(losses).all() or bad:
+        raise AssertionError(f"phase 5 training: {len(losses)} losses "
+                             f"{losses}; steps off their launch counts: {bad[:2]}")
+    breakdown = profile_train_step(model, batches[0], dev)
+    del model
+
+    # one step's gradients, dropout off, against the f32 einsum path, on
+    # the batch GRAD_TOL was derived on (grad_gap's synthetic batch 32,
+    # seed 0; these are its weights too). On a batch of the random
+    # detector's features the per-tensor gap measures nothing: there layer
+    # 0's qkv bias gets an f32 gradient orders of magnitude below the bf16
+    # paths' rounding noise, for the plain path in bf16 as for the flash one.
+    oracle = grad_gap.build(init, cfg, torch.float32, dev, **grad_gap.PLAIN)
+    flash = grad_gap.build(init, cfg, torch.bfloat16, dev, **grad_gap.FLASH)
+    plain16 = grad_gap.build(init, cfg, torch.bfloat16, dev, **grad_gap.PLAIN)
+    synth = grad_gap.synthetic_batch(cfg, n_seq, 0, dev)
+    _, ref = grad_gap.step_grads(oracle, synth)
+    gaps = {"flash": grad_gap.gap(grad_gap.step_grads(flash, synth)[1], ref),
+            "plain_bf16": grad_gap.gap(grad_gap.step_grads(plain16, synth)[1], ref)}
+    with grad_gap.zeroed_dk():
+        gaps["flash_dk_zeroed"] = grad_gap.gap(
+            grad_gap.step_grads(flash, synth)[1], ref)
+    del ref, plain16
+    print("phase 5 gradients vs f32 einsum (largest per-tensor relative L2): "
+          + ", ".join(f"{k} {v[0]:.4e} ({v[1]})" for k, v in gaps.items())
+          + f"; tol {GRAD_TOL}", flush=True)
+    if not gaps["flash"][0] <= GRAD_TOL < gaps["flash_dk_zeroed"][0]:
+        raise AssertionError(f"phase 5 gradient check: {gaps}")
+
+    # 10 deterministic steps on two fixed batches (the derivation's two
+    # synthetic batches), flash bf16 vs einsum f32
+    synth2 = [synth, grad_gap.synthetic_batch(cfg, n_seq, 1, dev)]
+    curves = {"flash_bf16": grad_gap.loss_curve(flash, synth2, 10),
+              "einsum_f32": grad_gap.loss_curve(oracle, synth2, 10)}
+    loss_gap = float(np.abs(np.subtract(*curves.values())).max())
+    print(f"phase 5 losses over 10 deterministic steps: flash bf16 "
+          f"{curves['flash_bf16'][0]:.4f} -> {curves['flash_bf16'][-1]:.4f}, "
+          f"einsum f32 {curves['einsum_f32'][0]:.4f} -> "
+          f"{curves['einsum_f32'][-1]:.4f}; max gap {loss_gap:.3e} "
+          f"(tol {LOSS_TOL})", flush=True)
+    if not loss_gap <= LOSS_TOL:
+        raise AssertionError(f"phase 5 loss curves differ: {curves}")
+    del oracle, flash
+
+    # 3 deterministic steps under "auto": K3 and K4 forward, plain VJPs back
+    auto = grad_gap.build(init, cfg, torch.bfloat16, dev)
+    vjps = {"K3": 0, "K4": 0}
+
+    def counting(module, key):
+        real = module.plain_vjp
+
+        def wrapped(*a, **kw):
+            vjps[key] += 1
+            return real(*a, **kw)
+        return real, wrapped
+
+    patched = [(m, *counting(m, k)) for m, k in ((fused_attention, "K3"),
+                                                 (fused_ffn, "K4"))]
+    tx = train_lib.build_optimizer(auto, train_lib.OptimConfig(warmup_steps=0))
+    state = train_lib.create_train_state(auto, tx)
+    step = train_lib.make_mlm_train_step(auto, tx, dropout=False)
+    step(state, batches[0])                                  # warm-up
+    torch.cuda.synchronize()
+    try:
+        for m, _, wrapped in patched:
+            m.plain_vjp = wrapped
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        auto_losses = [float(step(state, batches[i % 2])[1]) for i in range(3)]
+        auto_s = time.perf_counter() - t0
+    finally:
+        for m, real, _ in patched:
+            m.plain_vjp = real
+    auto_launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"phase 5 deterministic steps under 'auto': {auto_s / 3 * 1e3:.2f} "
+          f"ms/step, {3 * n_seq / auto_s:.1f} sequences/s; losses "
+          f"{auto_losses}; launches {auto_launches}; plain VJPs {vjps}",
+          flush=True)
+    if (auto_launches["K3"] != 36 or auto_launches["K4"] != 36
+            or auto_launches["K6"] or vjps != {"K3": 36, "K4": 36}
+            or not np.isfinite(auto_losses).all()):
+        raise AssertionError(f"phase 5 'auto' steps: launches {auto_launches}, "
+                             f"plain VJPs {vjps}")
+    return {"train": {"extract_ms": extract_s * 1e3, "seconds": train_s,
+                      "losses": losses, "steps": steps, "launches": launches,
+                      "ms_per_step": float(np.mean(steady)),
+                      "sequences_per_s": n_seq * len(steady) / (sum(steady) / 1e3)},
+            "step_breakdown": breakdown, "gradient_gaps": gaps,
+            "loss_curves": curves, "loss_gap": loss_gap,
+            "auto_train": {"ms_per_step": auto_s / 3 * 1e3,
+                           "sequences_per_s": 3 * n_seq / auto_s,
+                           "losses": auto_losses, "launches": auto_launches,
+                           "plain_vjps": vjps}}
 
 
 def main(argv=None) -> int:
@@ -775,7 +1197,8 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     from cpt_tpu_torch.kernels import build
-    from cpt_tpu_torch.ops.attention import flash_mha
+    from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
+                                             flash_mha_bwd_dq)
     from cpt_tpu_torch.ops.fused_attention import fused_attention_block
     from cpt_tpu_torch.ops.fused_ffn import fused_ffn
     from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
@@ -790,24 +1213,29 @@ def main(argv=None) -> int:
     per_kernel = check_kernels(rows)
     counters = {"K1": grouped_conv3x3, "K2": batched_roi_align,
                 "K3": fused_attention_block, "K4": fused_ffn,
-                "K5": nms_pallas, "K6": flash_mha}
+                "K5": nms_pallas, "K6": flash_mha, "K6b": flash_mha_bwd_dkv,
+                "K6c": flash_mha_bwd_dq}
     res, setup_s = build_resident()
     e2e = {"setup_s": setup_s, "ground": run_requests(res, counters),
            "detect": run_detect_requests(res, counters)}
     flash = rebuilt_scorer(res, torch.bfloat16, attention_impl="flash")
     oracle = rebuilt_scorer(res, torch.float32, attention_impl="einsum",
                             ffn_impl="dense")
-    e2e["flash_ground"] = run_requests(flash, counters, idle=("K3", "K5"),
+    e2e["flash_ground"] = run_requests(flash, counters,
+                                       idle=("K3", "K5", "K6b", "K6c"),
                                        oracle=oracle)
     check_flash_requests(e2e["ground"], e2e["flash_ground"])
     e2e["long_context"] = run_long_context(flash, oracle)
+    del flash, oracle
+    e2e.update(run_training(res, counters))
 
     # headline shape per kernel for the summary line: the most frequent
     # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
-    # NMS; the serving shape); launches over the three request paths, each
-    # counted from 0 around its run
-    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0}
-    paths = ("ground", "detect", "flash_ground")
+    # NMS; the serving shape; the training shape); launches over the
+    # request and training paths, each counted from 0 around its run
+    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+                "K6b": 0, "K6c": 0}
+    paths = ("ground", "detect", "flash_ground", "train", "auto_train")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]

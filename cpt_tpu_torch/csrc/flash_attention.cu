@@ -24,20 +24,20 @@
 // (online softmax), and each thread accumulates a 4-row x D/8 slice of the
 // output in registers, rescaled by exp(m_old - m_new) per tile. Shared
 // memory does not grow with S. A row whose sum is 0 (every score -inf)
-// yields 0, as the library's l_next_inv_safe guard.
-#include "common.cuh"
+// yields 0, as the library's l_next_inv_safe guard. For training it also
+// writes each row's final max m and sum l (the library's save_residuals
+// outputs), from which K6b and K6c recompute the probabilities.
+#include "flash_tiles.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per staged tile
-constexpr int kThreads = 128;  // 16 row groups x 8 column groups
-constexpr int kColGroups = 8;
-constexpr int kRows = 4;       // query rows per thread
-static_assert(kBQ == kBK && kBQ == (kThreads / kColGroups) * kRows,
-              "stage_tile stages 64-row tiles; 16 row groups of 4 rows cover the query tile");
+using cpt::flash::kColGroups;
+using cpt::flash::kRows;
+using cpt::flash::kThreads;
+constexpr int kBQ = cpt::flash::kTile;  // query rows per block
+constexpr int kBK = cpt::flash::kTile;  // keys per staged tile
 
 struct FlashArgs {
   const cpt::bf16* q;
@@ -45,9 +45,11 @@ struct FlashArgs {
   const cpt::bf16* v;
   const cpt::bf16* bias;  // nullptr: no bias
   cpt::bf16* out;
+  float* m_out;           // [B, H, S] row max of the scaled scores, or nullptr
+  float* l_out;           // [B, H, S] row sum of exp(s - m), or nullptr
   long long sq[3], sk[3], sv[3], so[3];  // element strides of batch, head, row
   long long sbias[4];                    // batch, head, query, key (0 = broadcast)
-  int S;
+  int H, S;
   float scale;
 };
 
@@ -58,29 +60,6 @@ struct Layout {
   static constexpr int PLD = kBK + 1;  // distinct banks
   static constexpr size_t floats = kBQ * QLD + kBK * KLD + kBK * D + kBQ * PLD + 3 * kBQ;
 };
-
-// rows [row0, row0 + 64) of one (batch, head) slice → f32 shared tile with
-// leading dimension ld; rows at or past S are zero. Global rows are 16-byte
-// aligned (checked by the wrapper), so each thread loads 8 bf16 at a time.
-template <int D>
-__device__ __forceinline__ void stage_tile(const cpt::bf16* __restrict__ base, long long row_stride,
-                                           int row0, int S, float* __restrict__ dst, int ld) {
-  constexpr int kVec = D / 8;
-  for (int i = threadIdx.x; i < kBQ * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      raw = *reinterpret_cast<const uint4*>(base + (row0 + r) * row_stride + c);
-    const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    float* d = dst + r * ld + c;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(pairs[e]);
-      d[2 * e] = f.x;
-      d[2 * e + 1] = f.y;
-    }
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const FlashArgs a) {
@@ -99,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const FlashAr
   const int rg = threadIdx.x / kColGroups, cg = threadIdx.x % kColGroups;
   const int r0 = rg * kRows;  // this thread's first query row in the tile
 
-  stage_tile<D>(a.q + b * a.sq[0] + h * a.sq[1], a.sq[2], q0, S, Qs, L::QLD);
+  cpt::flash::stage_tile<D>(a.q + b * a.sq[0] + h * a.sq[1], a.sq[2], q0, S, Qs, L::QLD);
   if (threadIdx.x < kBQ) {
     row_m[threadIdx.x] = -INFINITY;
     row_l[threadIdx.x] = 0.f;
@@ -117,28 +96,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const FlashAr
 
   for (int k0 = 0; k0 < S; k0 += kBK) {
     __syncthreads();  // the previous tile's readers are done
-    stage_tile<D>(kb, a.sk[2], k0, S, Ks, L::KLD);
-    stage_tile<D>(vb, a.sv[2], k0, S, Vs, D);
+    cpt::flash::stage_tile<D>(kb, a.sk[2], k0, S, Ks, L::KLD);
+    cpt::flash::stage_tile<D>(vb, a.sv[2], k0, S, Vs, D);
     __syncthreads();
 
     // scores of rows r0..r0+3 against keys cg, cg + 8, ..., cg + 56
     float s[kRows][8];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[8];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(r0 + i) * L::QLD + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(cg + 8 * j) * L::KLD + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    cpt::flash::dot_tile<D>(Qs, L::QLD, Ks, L::KLD, r0, cg, s);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int qi = q0 + r0 + i;
@@ -207,6 +171,14 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(const FlashAr
     }
   }
 
+  // the row stats the backward recomputes probabilities from (the last
+  // softmax phase ended in a barrier, so row_m / row_l are final)
+  if (a.m_out != nullptr && threadIdx.x < kBQ && q0 + threadIdx.x < S) {
+    const long long at = (static_cast<long long>(b) * a.H + h) * S + q0 + threadIdx.x;
+    const float m = row_m[threadIdx.x];
+    a.m_out[at] = m == -INFINITY ? 0.f : m;
+    a.l_out[at] = row_l[threadIdx.x];
+  }
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + r0 + i;
@@ -236,17 +208,21 @@ int launch(const FlashArgs& a, int B, int H, cudaStream_t stream) {
 // q, k, v [B, H, S, D] bf16 and out [B, H, S, D] bf16 given by pointer and
 // element strides (batch, head, row; the last dim contiguous, rows 16-byte
 // aligned for q/k/v); bias bf16 broadcast to [B, H, S, S] by its four
-// strides, or null. strides: q[3], k[3], v[3], out[3], bias[4].
-// D must be 32, 64 or 128.
+// strides, or null. m_out, l_out: contiguous f32 [B, H, S] for the row max
+// (0 where every score is -inf) and row sum, both null on the serving path.
+// strides: q[3], k[3], v[3], out[3], bias[4]. D must be 32, 64 or 128.
 CPT_EXPORT int cpt_flash_attention(const void* q, const void* k, const void* v, const void* bias,
-                                   void* out, const long long* strides, int B, int H, int S,
-                                   int D, float scale, void* stream) {
+                                   void* out, void* m_out, void* l_out,
+                                   const long long* strides, int B, int H, int S, int D,
+                                   float scale, void* stream) {
   FlashArgs a;
   a.q = static_cast<const cpt::bf16*>(q);
   a.k = static_cast<const cpt::bf16*>(k);
   a.v = static_cast<const cpt::bf16*>(v);
   a.bias = static_cast<const cpt::bf16*>(bias);
   a.out = static_cast<cpt::bf16*>(out);
+  a.m_out = static_cast<float*>(m_out);
+  a.l_out = static_cast<float*>(l_out);
   for (int i = 0; i < 3; ++i) {
     a.sq[i] = strides[i];
     a.sk[i] = strides[3 + i];
@@ -254,6 +230,7 @@ CPT_EXPORT int cpt_flash_attention(const void* q, const void* k, const void* v, 
     a.so[i] = strides[9 + i];
   }
   for (int i = 0; i < 4; ++i) a.sbias[i] = strides[12 + i];
+  a.H = H;
   a.S = S;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

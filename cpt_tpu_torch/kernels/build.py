@@ -17,7 +17,10 @@ non-zero status.
 Dispatch rule shared by every kernel wrapper (:func:`uses_kernel`): a tensor
 on the CPU takes the wrapper's plain PyTorch version; a tensor on a CUDA
 device of compute capability (9, 0) takes the kernel; anything else raises.
-There is no fallback from a failed build or launch.
+There is no fallback from a failed build or launch: each raises
+:class:`KernelError`, which is not a ``RuntimeError``, so a caller that skips
+a batch on ``RuntimeError`` (as ``tools/refcoco_cpt.train`` does) does not
+swallow it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,11 @@ from typing import Optional
 
 import torch
 
+
+class KernelError(Exception):
+    """A kernel could not be built, dispatched or launched."""
+
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # x, w, scale, bias, out, N, H, W, C, cpg, stride, relu, stream
     "cpt_grouped_conv3x3": ([_P] * 5 + [_I] * 7 + [_P], _I),
@@ -57,9 +66,15 @@ SIGNATURES = {
     "cpt_nms": ([_P] * 5 + [_I] * 3 + [_F, _F, _P], _I),
     # K
     "cpt_nms_smem_bytes": ([_I], ctypes.c_longlong),
-    # q, k, v, bias (or NULL), out, strides[16], B, H, S, D, scale, stream
-    "cpt_flash_attention": ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-                            + [_I] * 4 + [_F, _P], _I),
+    # q, k, v, bias (or NULL), out, m_out, l_out (or NULL), strides[16],
+    # B, H, S, D, scale, stream
+    "cpt_flash_attention": ([_P] * 7 + [_LL] + [_I] * 4 + [_F, _P], _I),
+    # q, k, v, bias (or NULL), dout, m, l, di, dk, dv, strides[25],
+    # B, H, S, D, scale, stream
+    "cpt_flash_attention_bwd_dkv": ([_P] * 10 + [_LL] + [_I] * 4 + [_F, _P], _I),
+    # q, k, v, bias (or NULL), dout, m, l, di, dq, strides[25],
+    # B, H, S, D, scale, stream
+    "cpt_flash_attention_bwd_dq": ([_P] * 9 + [_LL] + [_I] * 4 + [_F, _P], _I),
 }
 
 
@@ -71,8 +86,8 @@ def nvcc_path() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
     if not CUDA_HOME:
-        raise RuntimeError("no CUDA toolkit found (nvcc is needed to build "
-                           "the cpt_tpu_torch kernels)")
+        raise KernelError("no CUDA toolkit found (nvcc is needed to build "
+                          "the cpt_tpu_torch kernels)")
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
@@ -120,7 +135,7 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     (BUILD_DIR / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError("nvcc failed " + "\n".join(failed))
+        raise KernelError("nvcc failed " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -159,10 +174,10 @@ def uses_kernel(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     if t.device.type != "cuda":
-        raise RuntimeError(f"cpt_tpu_torch kernels run on CUDA; got {t.device}")
+        raise KernelError(f"cpt_tpu_torch kernels run on CUDA; got {t.device}")
     cap = torch.cuda.get_device_capability(t.device)
     if cap != (9, 0):
-        raise RuntimeError(
+        raise KernelError(
             f"cpt_tpu_torch kernels are built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(t.device)} has capability {cap}")
     return True
@@ -191,4 +206,4 @@ def stream(t: torch.Tensor) -> int:
 
 def check(status: int, name: str) -> None:
     if status != 0:
-        raise RuntimeError(f"{name}: CUDA error {status} at launch")
+        raise KernelError(f"{name}: CUDA error {status} at launch")

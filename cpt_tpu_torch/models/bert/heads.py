@@ -1,7 +1,11 @@
 """The masked-LM head and ``REC_MLM_CPT`` (port of the RefCOCO scoring
 model of ``cpt_tpu/models/bert/heads.py``).
 
-The decoder is tied to the word-embedding table, read at call time.
+The decoder is tied to the word-embedding table, read at call time and
+cast to the compute dtype there (separately from the embedding lookup,
+as in JAX), so autograd sums the two gradient contributions into the one
+f32 table. Losses use −1 as the ignore index
+(``CrossEntropyLoss(ignore_index=-1)``).
 """
 from __future__ import annotations
 
@@ -13,6 +17,18 @@ from torch import nn
 from cpt_tpu_torch.config.bert import BertConfig
 from cpt_tpu_torch.models.bert.model import (ACT, BertImgModel, Dense,
                                              LayerNorm, _param)
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
+                               ignore_index: int = -1) -> torch.Tensor:
+    """Mean f32 cross entropy over the positions whose label is not
+    ``ignore_index`` (0 when there are none)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp(min=1)
 
 
 class BertPredictionHeadTransform(nn.Module):
@@ -32,7 +48,7 @@ class BertLMPredictionHead(nn.Module):
     def __init__(self, config: BertConfig, dtype: torch.dtype):
         super().__init__()
         self.transform = BertPredictionHeadTransform(config, dtype)
-        self.bias = _param(config.vocab_size, dtype=torch.float32)
+        self.bias = _param(config.vocab_size)
 
     def forward(self, hidden: torch.Tensor, word_embedding_table: torch.Tensor
                 ) -> torch.Tensor:
@@ -52,13 +68,18 @@ class REC_MLM_CPT(nn.Module):
         self.mlm_head = BertLMPredictionHead(config, dtype)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
-                img_feats=None, mask_pos: Optional[torch.Tensor] = None):
+                img_feats=None, masked_lm_labels=None,
+                mask_pos: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """``mask_pos`` [N] or [N, k]: the MLM head (including the vocab
         projection) runs only on the hidden states gathered there — the
-        same math as full scoring at those positions. → (None, logits); the
-        first slot is the training loss in the JAX model, not ported."""
+        same math as full scoring at those positions — and returns
+        (None, logits). Otherwise → (loss, logits) over every position,
+        the loss the masked-LM cross entropy against ``masked_lm_labels``
+        [N, S] (−1 ignored), or None without labels. ``generator`` feeds
+        dropout in training mode."""
         seq, _ = self.bert(input_ids, token_type_ids, attention_mask,
-                           img_feats=img_feats)
+                           img_feats=img_feats, generator=generator)
         table = self.bert.embeddings.word_embeddings
         if mask_pos is not None:
             idx = (mask_pos[:, None] if mask_pos.dim() == 1 else mask_pos).long()
@@ -68,4 +89,7 @@ class REC_MLM_CPT(nn.Module):
             if mask_pos.dim() == 1:
                 logits = logits[:, 0]
             return None, logits
-        return None, self.mlm_head(seq, table)
+        logits = self.mlm_head(seq, table)
+        if masked_lm_labels is None:
+            return None, logits
+        return cross_entropy_ignore_index(logits, masked_lm_labels), logits

@@ -19,8 +19,12 @@ mask, no active probability dropout), with the projections as matmuls.
 
 Layouts follow the JAX parameter tree: ``wqkv [H, 3H]`` (columns
 ``[q|k|v]``, head-major), ``wo [H, H]``, dense kernels ``[in, out]``.
-Matmul weights and embedding tables live in the model dtype; biases and
-LayerNorm parameters in f32 (cast at use, as the JAX modules do).
+Every parameter is f32 and trainable, and is cast to the module's compute
+dtype where it is used, as the JAX modules do (``nn.Embed``/``nn.Dense``
+with ``dtype``, the ``astype(dt)`` of the attention and FFN weights).
+Dropout is active in training mode (``model.train()``, JAX's
+``deterministic=False``) and draws its masks from the ``torch.Generator``
+passed to ``forward`` (``generator=``), never from the global RNG.
 """
 from __future__ import annotations
 
@@ -62,22 +66,44 @@ def layer_norm_fast(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return ((y - mu) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
-def _param(*shape, dtype) -> nn.Parameter:
-    return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
+def _param(*shape) -> nn.Parameter:
+    """An f32 parameter (filled by ``load_state_dict``)."""
+    return nn.Parameter(torch.empty(*shape, dtype=torch.float32))
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training mode keep each element with
+    probability ``1 − rate`` and scale it by ``1 / (1 − rate)``; the keep
+    mask comes from ``generator``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode draws from the train "
+                             "step's torch.Generator; none was passed")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class Dense(nn.Module):
-    """``x·kernel + bias`` with ``kernel [in, out]`` in the model dtype and an
-    f32 bias cast to it (flax ``nn.Dense(dtype=...)`` semantics)."""
+    """``x·kernel + bias`` with ``kernel [in, out]`` and ``bias`` f32, both
+    cast to the compute dtype (flax ``nn.Dense(dtype=...)`` semantics)."""
 
     def __init__(self, fin: int, fout: int, dtype: torch.dtype):
         super().__init__()
-        self.kernel = _param(fin, fout, dtype=dtype)
-        self.bias = _param(fout, dtype=torch.float32)
+        self.dtype = dtype
+        self.kernel = _param(fin, fout)
+        self.bias = _param(fout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.kernel.dtype
-        return x.to(dt) @ self.kernel + self.bias.to(dt)
+        dt = self.dtype
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -85,8 +111,8 @@ class LayerNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float):
         super().__init__()
-        self.scale = _param(dim, dtype=torch.float32)
-        self.bias = _param(dim, dtype=torch.float32)
+        self.scale = _param(dim)
+        self.bias = _param(dim)
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -97,23 +123,25 @@ class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig, dtype: torch.dtype):
         super().__init__()
         c = config
-        self.word_embeddings = _param(c.vocab_size, c.hidden_size, dtype=dtype)
+        self.dtype = dtype
+        self.word_embeddings = _param(c.vocab_size, c.hidden_size)
         self.position_embeddings = _param(c.max_position_embeddings,
-                                          c.hidden_size, dtype=dtype)
-        self.token_type_embeddings = _param(c.type_vocab_size, c.hidden_size,
-                                            dtype=dtype)
+                                          c.hidden_size)
+        self.token_type_embeddings = _param(c.type_vocab_size, c.hidden_size)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids: torch.Tensor, token_type_ids: torch.Tensor,
-                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                position_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)[None, :]
-        x = (self.word_embeddings[input_ids]
-             + self.position_embeddings[position_ids]
-             + self.token_type_embeddings[token_type_ids])
-        return self.dropout(self.LayerNorm(x))
+        dt = self.dtype
+        x = (self.word_embeddings[input_ids].to(dt)
+             + self.position_embeddings[position_ids].to(dt)
+             + self.token_type_embeddings[token_type_ids].to(dt))
+        return self.dropout(self.LayerNorm(x), generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -125,24 +153,26 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         h = config.hidden_size
         self.config = config
-        self.wqkv = _param(h, 3 * h, dtype=dtype)
-        self.bqkv = _param(3 * h, dtype=torch.float32)
-        self.wo = _param(h, h, dtype=dtype)
-        self.bo = _param(h, dtype=torch.float32)
-        self.probs_dropout = nn.Dropout(config.attention_probs_dropout_prob)
+        self.dtype = dtype
+        self.wqkv = _param(h, 3 * h)
+        self.bqkv = _param(3 * h)
+        self.wo = _param(h, h)
+        self.bo = _param(h)
+        self.probs_dropout = Dropout(config.attention_probs_dropout_prob)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 history_state: Optional[torch.Tensor] = None,
-                head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                head_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.config
         nh, hd = c.num_attention_heads, c.head_dim
-        dt = self.wqkv.dtype
+        dt = self.dtype
         b, s, _ = hidden.shape
-        bq = self.bqkv.to(dt)
-        proj = (hidden @ self.wqkv + bq).reshape(b, s, 3, nh, hd)
+        wqkv, bq, wo = self.wqkv.to(dt), self.bqkv.to(dt), self.wo.to(dt)
+        proj = (hidden @ wqkv + bq).reshape(b, s, 3, nh, hd)
         q, k, v = proj[:, :, 0], proj[:, :, 1], proj[:, :, 2]
         if history_state is not None:
-            hist = (history_state @ self.wqkv + bq).reshape(
+            hist = (history_state @ wqkv + bq).reshape(
                 b, history_state.shape[1], 3, nh, hd)
             k = torch.cat([hist[:, :, 1], k], dim=1)
             v = torch.cat([hist[:, :, 2], v], dim=1)
@@ -155,16 +185,16 @@ class BertSelfAttention(nn.Module):
                             v.transpose(1, 2), attn_bias,
                             sm_scale=1.0 / float(hd) ** 0.5)
             ctx = ctx.transpose(1, 2).reshape(b, s, nh * hd)
-            return ctx @ self.wo + self.bo.to(dt)
+            return ctx @ wo + self.bo.to(dt)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / torch.tensor(
             float(hd) ** 0.5, dtype=dt)
         scores = scores + attn_bias
         probs = torch.softmax(scores.float(), dim=-1).to(dt)
-        probs = self.probs_dropout(probs)
+        probs = self.probs_dropout(probs, generator)
         if head_mask is not None:
             probs = probs * head_mask
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, nh * hd)
-        return ctx @ self.wo + self.bo.to(dt)
+        return ctx @ wo + self.bo.to(dt)
 
 
 class BertLayer(nn.Module):
@@ -177,11 +207,12 @@ class BertLayer(nn.Module):
         self.intermediate = Dense(c.hidden_size, c.intermediate_size, dtype)
         self.output = Dense(c.intermediate_size, c.hidden_size, dtype)
         self.output_LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 history_state: Optional[torch.Tensor] = None,
-                head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                head_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.config
         dropout_h = c.hidden_dropout_prob > 0.0 and self.training
         dropout_a = c.attention_probs_dropout_prob > 0.0 and self.training
@@ -197,7 +228,7 @@ class BertLayer(nn.Module):
                 c.num_attention_heads, c.layer_norm_eps)
         else:
             attn_out = self.dropout(attn(hidden, attn_bias, history_state,
-                                         head_mask))
+                                         head_mask, generator), generator)
             hidden = layer_norm_fast(hidden + attn_out, ln_a.scale, ln_a.bias,
                                      c.layer_norm_eps)
 
@@ -210,7 +241,7 @@ class BertLayer(nn.Module):
                              eps=c.layer_norm_eps,
                              approximate=c.hidden_act == "gelu_new")
         inter = ACT[c.hidden_act](self.intermediate(hidden))
-        out = self.dropout(self.output(inter))
+        out = self.dropout(self.output(inter), generator)
         return layer_norm_fast(hidden + out, ln.scale, ln.bias, c.layer_norm_eps)
 
 
@@ -220,11 +251,12 @@ class BertEncoder(nn.Module):
         self.layer = nn.ModuleList(BertLayer(config, dtype)
                                    for _ in range(config.num_hidden_layers))
 
-    def forward(self, hidden, attn_bias, history_states=None, head_mask=None):
+    def forward(self, hidden, attn_bias, history_states=None, head_mask=None,
+                generator=None):
         for i, layer in enumerate(self.layer):
             hs = None if history_states is None else history_states[i]
             hm = None if head_mask is None else head_mask[i]
-            hidden = layer(hidden, attn_bias, hs, hm)
+            hidden = layer(hidden, attn_bias, hs, hm, generator)
         return hidden
 
 
@@ -254,12 +286,12 @@ class BertImgModel(nn.Module):
         self.img_embedding = Dense(c.img_feature_dim, c.hidden_size, dtype)
         self.img_LayerNorm = (LayerNorm(c.hidden_size, c.img_layer_norm_eps)
                               if c.use_img_layernorm else None)
-        self.img_dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.img_dropout = Dropout(c.hidden_dropout_prob)
         self.encoder = BertEncoder(c, dtype)
         self.pooler = BertPooler(c, dtype)
 
     def embed(self, input_ids, token_type_ids=None, attention_mask=None,
-              position_ids=None, img_feats=None
+              position_ids=None, img_feats=None, generator=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """→ (embeddings ⊕ projected image features, additive attention
         bias): everything before the encoder stack."""
@@ -271,18 +303,21 @@ class BertImgModel(nn.Module):
                 (input_ids.shape[0], input_ids.shape[1] + n_img),
                 dtype=input_ids.dtype, device=input_ids.device)
         attn_bias = extend_attention_mask(attention_mask, self.dtype)
-        emb = self.embeddings(input_ids, token_type_ids, position_ids)
+        emb = self.embeddings(input_ids, token_type_ids, position_ids,
+                              generator)
         if img_feats is not None:
             img_emb = self.img_embedding(img_feats)
             if self.img_LayerNorm is not None:
                 img_emb = self.img_LayerNorm(img_emb)
-            emb = torch.cat([emb, self.img_dropout(img_emb)], dim=1)
+            emb = torch.cat([emb, self.img_dropout(img_emb, generator)], dim=1)
         return emb, attn_bias
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,
                 position_ids=None, img_feats=None, history_states=None,
-                head_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                head_mask=None, generator=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         emb, attn_bias = self.embed(input_ids, token_type_ids, attention_mask,
-                                    position_ids, img_feats)
-        seq = self.encoder(emb, attn_bias, history_states, head_mask)
+                                    position_ids, img_feats, generator)
+        seq = self.encoder(emb, attn_bias, history_states, head_mask,
+                           generator)
         return seq, self.pooler(seq)

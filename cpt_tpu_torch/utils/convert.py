@@ -8,14 +8,17 @@
   ``cls.predictions.decoder.weight`` is dropped (the head reads the
   embedding table), as ``convert_bert_state_dict`` +
   ``params_for_task(..., "rec_mlm_cpt")`` do.
-* :func:`params_from_jax` — the JAX ``REC_MLM_CPT`` parameter tree.
+* :func:`params_from_jax` — the JAX ``REC_MLM_CPT`` parameter tree, by
+  :func:`jax_paths` (each port parameter's path in that tree).
 
 :func:`random_oscar_state_dict` draws random weights in the reference
 layout from a seed (the serving path without a checkpoint).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import functools
+import operator
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +31,7 @@ def _np(v) -> np.ndarray:
 
 
 def _tensors(d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return {k: torch.from_numpy(np.array(v, np.float32))
             for k, v in d.items()}
 
 
@@ -86,50 +89,61 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig
     return _tensors(out)
 
 
-def params_from_jax(tree: Mapping[str, Any], config: BertConfig
-                    ) -> Dict[str, torch.Tensor]:
-    """JAX ``REC_MLM_CPT`` params (``{"params": ...}`` or the inner tree) →
-    port state dict."""
-    t = tree.get("params", tree)
+def jax_paths(config: BertConfig) -> Dict[str, Tuple[str, ...]]:
+    """Port state-dict name → the path of the same parameter in the JAX
+    ``REC_MLM_CPT`` tree (what optax masks and ``freeze_params`` see)."""
     c = config
-    h = c.hidden_size
-    b, m = t["bert"], t["mlm_head"]
-    emb = b["embeddings"]
-    out: Dict[str, np.ndarray] = {
-        "bert.embeddings.word_embeddings": _np(emb["word_embeddings"]["embedding"]),
+    paths = {
+        "bert.embeddings.word_embeddings": ("bert", "embeddings", "word_embeddings", "embedding"),
         "bert.embeddings.position_embeddings":
-            _np(emb["position_embeddings"]["embedding"]),
+            ("bert", "embeddings", "position_embeddings", "embedding"),
         "bert.embeddings.token_type_embeddings":
-            _np(emb["token_type_embeddings"]["embedding"]),
-        "bert.embeddings.LayerNorm.scale": _np(emb["LayerNorm"]["scale"]),
-        "bert.embeddings.LayerNorm.bias": _np(emb["LayerNorm"]["bias"]),
-        "bert.img_embedding.kernel": _np(b["img_embedding"]["kernel"]),
-        "bert.img_embedding.bias": _np(b["img_embedding"]["bias"]),
-        "bert.pooler.dense.kernel": _np(b["pooler"]["dense"]["kernel"]),
-        "bert.pooler.dense.bias": _np(b["pooler"]["dense"]["bias"]),
-        "mlm_head.transform.dense.kernel": _np(m["transform"]["dense"]["kernel"]),
-        "mlm_head.transform.dense.bias": _np(m["transform"]["dense"]["bias"]),
-        "mlm_head.transform.LayerNorm.scale": _np(m["transform"]["LayerNorm"]["scale"]),
-        "mlm_head.transform.LayerNorm.bias": _np(m["transform"]["LayerNorm"]["bias"]),
-        "mlm_head.bias": _np(m["bias"]),
+            ("bert", "embeddings", "token_type_embeddings", "embedding"),
+        "bert.embeddings.LayerNorm.scale": ("bert", "embeddings", "LayerNorm", "scale"),
+        "bert.embeddings.LayerNorm.bias": ("bert", "embeddings", "LayerNorm", "bias"),
+        "bert.img_embedding.kernel": ("bert", "img_embedding", "kernel"),
+        "bert.img_embedding.bias": ("bert", "img_embedding", "bias"),
+        "bert.pooler.dense.kernel": ("bert", "pooler", "dense", "kernel"),
+        "bert.pooler.dense.bias": ("bert", "pooler", "dense", "bias"),
+        "mlm_head.transform.dense.kernel": ("mlm_head", "transform", "dense", "kernel"),
+        "mlm_head.transform.dense.bias": ("mlm_head", "transform", "dense", "bias"),
+        "mlm_head.transform.LayerNorm.scale": ("mlm_head", "transform", "LayerNorm", "scale"),
+        "mlm_head.transform.LayerNorm.bias": ("mlm_head", "transform", "LayerNorm", "bias"),
+        "mlm_head.bias": ("mlm_head", "bias"),
     }
     if c.use_img_layernorm:
-        out["bert.img_LayerNorm.scale"] = _np(b["img_LayerNorm"]["scale"])
-        out["bert.img_LayerNorm.bias"] = _np(b["img_LayerNorm"]["bias"])
+        paths["bert.img_LayerNorm.scale"] = ("bert", "img_LayerNorm", "scale")
+        paths["bert.img_LayerNorm.bias"] = ("bert", "img_LayerNorm", "bias")
     for i in range(c.num_hidden_layers):
-        layer = b["encoder"][f"layer_{i}"]
-        att = layer["attention"]
-        p = f"bert.encoder.layer.{i}."
-        out[p + "attention.wqkv"] = _np(att["qkv"]["kernel"]).reshape(h, 3 * h)
-        out[p + "attention.bqkv"] = _np(att["qkv"]["bias"]).reshape(3 * h)
-        out[p + "attention.wo"] = _np(att["out"]["kernel"]).reshape(h, h)
-        out[p + "attention.bo"] = _np(att["out"]["bias"])
+        p, j = f"bert.encoder.layer.{i}.", ("bert", "encoder", f"layer_{i}")
+        paths[p + "attention.wqkv"] = j + ("attention", "qkv", "kernel")
+        paths[p + "attention.bqkv"] = j + ("attention", "qkv", "bias")
+        paths[p + "attention.wo"] = j + ("attention", "out", "kernel")
+        paths[p + "attention.bo"] = j + ("attention", "out", "bias")
         for name in ("attention_out_LayerNorm", "output_LayerNorm"):
-            out[p + f"{name}.scale"] = _np(layer[name]["scale"])
-            out[p + f"{name}.bias"] = _np(layer[name]["bias"])
+            paths[p + f"{name}.scale"] = j + (name, "scale")
+            paths[p + f"{name}.bias"] = j + (name, "bias")
         for name in ("intermediate", "output"):
-            out[p + f"{name}.kernel"] = _np(layer[name]["kernel"])
-            out[p + f"{name}.bias"] = _np(layer[name]["bias"])
+            paths[p + f"{name}.kernel"] = j + (name, "kernel")
+            paths[p + f"{name}.bias"] = j + (name, "bias")
+    return paths
+
+
+def params_from_jax(tree: Mapping[str, Any], config: BertConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``REC_MLM_CPT`` params (``{"params": ...}`` or the inner tree),
+    or any tree of that structure (gradients, optimizer moments) → port
+    state dict. The attention's ``[H, 3, heads, D]`` / ``[heads, D, H]``
+    kernels and ``[3, heads, D]`` bias flatten to the port's 2-D / 1-D."""
+    t = tree.get("params", tree)
+    h = config.hidden_size
+    flat = {"attention.wqkv": (h, 3 * h), "attention.bqkv": (3 * h,),
+            "attention.wo": (h, h)}
+    out: Dict[str, np.ndarray] = {}
+    for name, path in jax_paths(config).items():
+        a = _np(functools.reduce(operator.getitem, path, t))
+        shape = flat.get(name.split(".", 4)[-1])
+        out[name] = a.reshape(shape) if shape else a
     return _tensors(out)
 
 

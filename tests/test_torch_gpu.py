@@ -4,13 +4,18 @@ card, at small shapes that exercise the ragged edges (odd widths, stride
 
 These need the card: they skip where CUDA is unavailable. On the card:
 
-    python -m pytest -m gpu tests/test_torch_gpu.py -q
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
+import dataclasses
+
 import pytest
 import torch
 
 from cpt_tpu_torch.kernels.gemm import attention_core
-from cpt_tpu_torch.ops.attention import flash_mha, reference_flash_mha
+from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
+                                         flash_mha_bwd_dq, flash_mha_fwd,
+                                         reference_flash_mha,
+                                         reference_flash_mha_bwd)
 from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
                                                reference_attention_block,
                                                reference_attention_core)
@@ -319,3 +324,76 @@ def test_flash_launch_counter_counts(dev):
     before = flash_mha.launches
     flash_mha(q, q, q, torch.zeros(2, 1, 1, 70, device=dev), sm_scale=0.125)
     assert flash_mha.launches == before + 1
+
+
+@pytest.mark.parametrize("b,h,s,d,bias", [
+    (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None)])
+def test_flash_backward_kernels(dev, b, h, s, d, bias):
+    """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
+    against the plain backward in f32 on the same inputs, within 2e-2 of
+    each gradient's scale; dropping di or the 1/l normalisation misses."""
+    q, k, v, kb = _flash_inputs(dev, b, h, s, d, bias, seed=s + 1)
+    g = torch.Generator(device=dev).manual_seed(s)
+    do = torch.randn(b, h, s, d, generator=g, device=dev).bfloat16()
+    scale = d ** -0.5
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_mha_bwd_dkv.launches, flash_mha_bwd_dq.launches)
+    got = torch.autograd.grad(flash_mha(*leaves, kb, sm_scale=scale), leaves, do)
+    assert (flash_mha_bwd_dkv.launches, flash_mha_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    want = reference_flash_mha_bwd(qf, kf, vf, kb, dof, sm_scale=scale)
+    for got_i, want_i in zip(got, want):
+        assert got_i.dtype == torch.bfloat16 and got_i.shape == (b, h, s, d)
+        _close(got_i, want_i, 2e-2)
+    # the faults through the plain versions (CPU tensors take them)
+    cpu = [None if t is None else t.cpu() for t in (qf, kf, vf, kb, dof)]
+    o, m, l = flash_mha_fwd(*cpu[:4], sm_scale=scale, stats=True)
+    di = (o * cpu[4]).sum(-1)
+    no_di = flash_mha_bwd_dq(*cpu, m, l, torch.zeros_like(di), sm_scale=scale)
+    no_l = flash_mha_bwd_dq(*cpu, m, torch.ones_like(l), di, sm_scale=scale)
+    assert _attn_faults_missed(want[0].cpu(), {"no_di": no_di, "no_l": no_l},
+                               2e-2) == []
+
+
+def test_flash_backward_rejects_a_bias_gradient(dev):
+    q = torch.zeros(1, 2, 16, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    bias = torch.zeros(1, 1, 1, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bias gradient"):
+        torch.autograd.grad(flash_mha(q, q, q, bias, sm_scale=0.125).sum(), q)
+
+
+def test_flash_train_step_launches(dev):
+    """One full-width prompt-tuning step (Oscar-base under "flash" with
+    attention dropout 0, batch 4 of 70 text + 50 region slots): K6, K6b and
+    K6c launch once a layer, K3 and K4 not at all (hidden dropout is on),
+    and the loss is finite."""
+    from cpt_tpu_torch.config.bert import OSCAR_BASE
+    from cpt_tpu_torch.engine import train
+    from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+    from cpt_tpu_torch.utils import convert
+
+    cfg = dataclasses.replace(OSCAR_BASE, attention_impl="flash",
+                              attention_probs_dropout_prob=0.0)
+    with torch.device(dev):
+        model = REC_MLM_CPT(cfg, torch.bfloat16)
+    model.load_state_dict(convert.state_from_reference(
+        convert.random_oscar_state_dict(cfg, seed=0), cfg))
+    g = torch.Generator(device=dev).manual_seed(0)
+    ids = torch.randint(1000, 30000, (4, 70), generator=g, device=dev)
+    mask = torch.ones(4, 120, dtype=torch.long, device=dev)
+    mask[1, 60:70] = 0
+    feats = torch.rand(4, 50, 2054, generator=g, device=dev)
+    batch = (ids, torch.zeros_like(ids), mask, feats,
+             torch.tensor([5, 9, 3, 7], device=dev),
+             torch.tensor([2417, 3904, -1, 2417], device=dev))
+    tx = train.build_optimizer(model, train.OptimConfig(warmup_steps=0))
+    step = train.make_mlm_train_step(model, tx)
+    counters = (flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq,
+                fused_attention_block, fused_ffn)
+    before = [fn.launches for fn in counters]
+    _, loss = step(train.create_train_state(model, tx), batch, g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [12, 12, 12, 0, 0]

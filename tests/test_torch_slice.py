@@ -156,11 +156,11 @@ def test_build_command_targets_hopper(monkeypatch, tmp_path):
     assert build.library_path().name.startswith("libcpt_kernels-")
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(build, "nvcc_path", lambda: "false")
-    with pytest.raises(RuntimeError, match="nvcc failed"):
+    with pytest.raises(build.KernelError, match="nvcc failed"):
         build.build()
 
 
 def test_dispatch_rule():
     assert build.uses_kernel(torch.zeros(1)) is False
-    with pytest.raises(RuntimeError):
+    with pytest.raises(build.KernelError):
         build.uses_kernel(torch.zeros(1, device="meta"))
