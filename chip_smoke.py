@@ -34,7 +34,16 @@ Phases (any failure raises and the script exits non-zero):
    K6c 12 launches a step, K3 and K4 none); hold one step's gradients and a
    10-step loss curve (dropout off) against the f32 einsum path; then 3
    deterministic steps under ``"auto"`` (K3 and K4 12 a step, their
-   backward the plain VJP).
+   backward the plain VJP);
+6. W8A8 int8: K1q (the int8 grouped conv) at three of K1's shapes and K7
+   (the fused W8A8 FFN of ``bench_int8.py``'s study, M 16384, tm 1024)
+   against their plain versions, with named faults that must miss, K7's
+   cosine against K4 and bench_int8's ``xla_int8`` composition (two
+   ``torch._int_mm`` calls) as its yardstick; then
+   ``tools/extract_features --synthetic 4 --precision int8`` (and
+   ``int8:<s>``) at full width (K1q 50 launches a chunk, K1 none), its
+   features against the same run with the int8 ops swapped for their plain
+   versions, and its copies/s and features against ``--precision bf16``.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``.
@@ -80,7 +89,8 @@ LONG_TOL = 5e-2
 # ‖g − g_f32‖ / ‖g_f32‖, on grad_gap's synthetic batch (32 sequences, seed
 # 0) and the resident's weights. Derived from the plain path's own
 # bf16-vs-f32 gap at full width on the CPU (`python -m
-# cpt_tpu_torch.tools.grad_gap --batch 32 --seed 0`, and `--seed 1`):
+# cpt_tpu_torch.tools.grad_gap --device cpu --batch 32 --seed 0`, and
+# `--seed 1`):
 # 1.243e-2 and 1.411e-2; the flash path there sits at 1.246e-2 and
 # 1.371e-2, the flash path with K6b's dK zeroed at 0.106 and 0.113. 4e-2
 # is 2.8x the larger plain gap and 2.6x below the fault's.
@@ -92,9 +102,31 @@ GRAD_TOL = 4e-2
 # (the flash path within 8.1e-3). 2.5e-2 is 3.3x the plain gap.
 LOSS_TOL = 2.5e-2
 
+# Phase 6. K1q (int8 in, bf16 out) against its plain version in f32 on the
+# same int8 inputs: both sum exactly and round the f32 epilogue the same
+# way, so only the bf16 store differs (at most 2^-8 of a value). K7 (bf16)
+# against its plain version in f32: h and both quantizations agree bit for
+# bit, the LayerNorm's sums differ in order and the output rounds once to
+# bf16; an h code flipped at a tie moves its row by ~1.6e-3 of scale.
+TOL.update({"K1q": 1e-2, "K7": 1e-2})
+# The full-width int8 extraction (bf16 activations) against the same run
+# with the int8 ops swapped for their plain versions, as max |Δ pooled
+# feature| / max |pooled feature|. The two compute the same integers and
+# round the same f32 epilogues in the same order, so they must agree bit
+# for bit. No looser tolerance would mean anything: rounding every epilogue
+# y·m + b once (a fused multiply-add) instead of twice, one ulp, flips
+# quantization ties that cascade through the 50 quantized blocks and moves
+# the features by 1.4493e-2 of the largest, 60% of what bf16 in place of
+# int8 moves them (2.4155e-2): `python -m cpt_tpu_torch.tools.int8_gap` on
+# the H100 (4 queries; on the CPU in f32, `--device cpu --synthetic 1`:
+# 1.0246e-2 and 1.9619e-2).
+INT8_FEATURE_TOL = 0.0
+INT8_STATIC_SCALE = 0.05   # the pinned activation scale of the int8:<s> run
+
 # One H100 SXM's published peaks (dense): HBM bytes/s, bf16 tensor-core
-# FLOP/s, f32 FLOP/s outside the tensor cores.
+# FLOP/s, f32 FLOP/s outside the tensor cores, int8 tensor-core OP/s.
 HBM_BYTES_S, BF16_OPS_S, F32_OPS_S = 3.35e12, 989e12, 67e12
+INT8_OPS_S = 1979e12
 
 KERNELS = {
     "K1": ("grouped_conv3x3", "cpt_tpu_torch/csrc/grouped_conv.cu",
@@ -113,6 +145,10 @@ KERNELS = {
             "jax/experimental/pallas/ops/tpu/flash_attention.py:1121"),
     "K6c": ("flash_mha_bwd_dq", "cpt_tpu_torch/csrc/flash_attention_bwd.cu",
             "jax/experimental/pallas/ops/tpu/flash_attention.py:1456"),
+    # no Pallas kernel: the JAX package runs the int8 grouped conv in XLA
+    "K1q": ("grouped_conv3x3_int8", "cpt_tpu_torch/csrc/grouped_conv.cu",
+            "cpt_tpu/models/detector/resnet.py:176"),
+    "K7": ("ffn_int8", "cpt_tpu_torch/csrc/ffn_int8.cu", "bench_int8.py:225"),
 }
 
 
@@ -341,6 +377,8 @@ def check_kernels(rows: list) -> dict:
     check_nms(rows)
     check_flash(rows)
     check_flash_bwd(rows)
+    check_k1q(rows)
+    check_k7(rows)
     return {k: [r for r in rows if r["kernel"].split()[0] == k]
             for k in KERNELS}
 
@@ -616,6 +654,302 @@ def check_flash_bwd(rows: list) -> None:
             raise AssertionError(f"K6b/K6c {label}: the check would pass {caught}")
 
 
+def check_k1q(rows: list) -> None:
+    """K1q at three of K1's shapes (the stage-2 blocks' cpg 8, the stage-3
+    blocks' [8,40,64,1024] cpg 32, stage 5's stride 2 cpg 64) on int8
+    inputs quantized from a ReLU'd bf16 map and f32 weights whose channels'
+    ranges spread 8× (the BN scale evens their outputs out again, as a
+    trained BN does). Named faults: the activation scale dropped from the
+    dequant, and weight scales per tensor instead of per channel. K1 in
+    bf16 on the same map and weights is timed beside it."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
+                                                grouped_conv3x3_int8,
+                                                reference_grouped_conv3x3_int8)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    groups = 32
+    for n, h, w, c, stride in [(8, 160, 256, 256, 1), (8, 40, 64, 1024, 1),
+                               (64, 14, 14, 2048, 2)]:
+        cpg = c // groups
+        x = torch.relu(torch.randn(n, h, w, c, generator=g, device=dev)).bfloat16()
+        spread = torch.exp2(torch.rand(c, generator=g, device=dev) * 3)
+        wt = torch.randn(3, 3, cpg, c, generator=g, device=dev) * 0.05 * spread
+        bn_s = (torch.rand(c, generator=g, device=dev) + 0.5) / spread
+        bn_b = torch.randn(c, generator=g, device=dev) * 0.1
+        qx, qw = quant.quant_act(x), quant.quant_weight(wt, (0, 1, 2))
+        qt = quant.quant_weight(wt, (0, 1, 2, 3))
+        m = qx.scale * qw.scale * bn_s
+
+        def plain(wq, mm, dtype=torch.float32):
+            return lambda: reference_grouped_conv3x3_int8(
+                qx.data, wq, mm, bn_b, groups, stride, True, dtype)
+
+        out_px = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
+        compare("K1q", f"x=[{n},{h},{w},{c}] cpg={cpg} stride={stride}",
+                lambda: grouped_conv3x3_int8(qx.data, qw.data, m, bn_b, groups,
+                                             stride, True),
+                plain(qw.data, m, torch.bfloat16), plain(qw.data, m), rows,
+                {"no_act_scale": plain(qw.data, qw.scale * bn_s),
+                 "per_tensor_w_scale": plain(qt.data, qx.scale * qt.scale.expand(c)
+                                             * bn_s)},
+                work=(nbytes(qx.data, qw.data, m, bn_b) + out_px * c * 2,
+                      2 * out_px * c * 9 * cpg, INT8_OPS_S))
+        w16 = wt.bfloat16()
+        rows[-1]["k1_bf16_ms"] = cuda_ms(lambda: grouped_conv3x3(
+            x, w16, bn_s, bn_b, groups, stride, True))
+        print(f"  K1 in bf16 on the same map: {rows[-1]['k1_bf16_ms']:.4f} ms",
+              flush=True)
+
+
+def ffn_int8_with_fault(x, w1, b1, w2, b2, gamma, beta, tm, fault=None):
+    """K7's function in f32 from the f32 weights (dequantized int8 values;
+    float64 products), with one named fault: ``per_tensor_scale`` (one x
+    and one h scale for all of M), ``per_row_weight_scale`` (the weights
+    quantized per row, not per column) or ``no_residual``."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+
+    m, h = x.shape
+    t = m if fault == "per_tensor_scale" else tm
+    rows = fault == "per_row_weight_scale"
+
+    def dequant_w(w):
+        q = quant.quant_weight(w, (1,) if rows else (0,))
+        return q.data.double() * (q.scale[:, None] if rows else q.scale).double()
+
+    def dequant_tiles(v):
+        return torch.stack([q.data.double() * q.scale.double()
+                            for q in map(quant.quant_act, v)])
+
+    xf = x.float().reshape(m // t, t, h)
+    hid = quant.gelu_poly((dequant_tiles(xf) @ dequant_w(w1)).float() + b1)
+    y = (dequant_tiles(hid) @ dequant_w(w2)).float() + b2
+    if fault != "no_residual":
+        y = y + xf
+    mu = y.mean(-1, keepdim=True)
+    var = torch.square(y - mu).mean(-1, keepdim=True)
+    return ((y - mu) * torch.rsqrt(var + 1e-12) * gamma + beta).reshape(m, h)
+
+
+def xla_int8_ffn(x, q1, b1, q2, b2, gamma, beta):
+    """The yardstick: ``bench_int8.py``'s ``xla_int8`` composition (per-tensor
+    activation scales, exact-erf gelu, ``E[y²]−μ²`` LayerNorm) as two
+    ``torch._int_mm`` calls with PyTorch ops between them."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.ops.quant import int8_matmul, quant_act
+
+    inter = int8_matmul(quant_act(x), q1, b1, torch.float32)
+    inter = F.gelu(inter).bfloat16()
+    y = int8_matmul(quant_act(inter), q2, b2, torch.float32) + x.float()
+    mu = y.mean(-1, keepdim=True)
+    var = (y * y).mean(-1, keepdim=True) - mu * mu
+    return ((y - mu) * torch.rsqrt(var + 1e-12) * gamma + beta).bfloat16()
+
+
+def check_k7(rows: list) -> None:
+    """K7 at the study's shape (M 16384 = 128 sequences × 128 tokens, tm
+    1024, 768 → 3072 → 768), first on inputs drawn as the study draws them
+    (x ~ N(0, 0.5²) in bf16, weights ~ N(0, 0.02²), zero biases, γ 1, β 0):
+    against its plain version, with K4 and the yardstick timed at the same
+    shape. Then on inputs whose tiles' ranges differ 8× (0.5 and 4.0) and
+    whose weight columns' ranges spread 8×, with nonzero biases: against
+    the plain version, and three named faults must miss."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+    from cpt_tpu_torch.ops.fused_ffn import fused_ffn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    m, h, f, tm = 16384, 768, 3072, 1024
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    for inputs in ("study", "faults"):
+        if inputs == "study":
+            x = r(m, h, scale=0.5).bfloat16()
+            w1, w2 = r(h, f, scale=0.02), r(f, h, scale=0.02)
+            b1, b2 = torch.zeros(f, device=dev), torch.zeros(h, device=dev)
+            gamma, beta = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+        else:
+            tiles = torch.tensor([0.5, 4.0], device=dev).repeat(m // tm // 2)
+            x = (r(m, h) * tiles.repeat_interleave(tm)[:, None]).bfloat16()
+            spread = torch.exp2(torch.rand(f + h, generator=g, device=dev) * 3)
+            w1, w2 = r(h, f, scale=0.02) * spread[:f], r(f, h, scale=0.02) * spread[f:]
+            b1, b2 = r(f, scale=0.1), r(h, scale=0.1)
+            gamma = torch.rand(h, generator=g, device=dev) + 0.5
+            beta = r(h, scale=0.1)
+        q1, q2 = quant.quant_ffn_weights(w1), quant.quant_ffn_weights(w2)
+        args = (x, q1.data, q1.scale, b1, q2.data, q2.scale, b2, gamma, beta)
+        faults = None
+        if inputs == "faults":
+            faults = {fault: (lambda fault=fault: ffn_int8_with_fault(
+                x, w1, b1, w2, b2, gamma, beta, tm, fault))
+                for fault in ("per_tensor_scale", "per_row_weight_scale",
+                              "no_residual")}
+        compare("K7", f"x=[{m},{h}] F={f} tm={tm} ({inputs} inputs)",
+                lambda: quant.ffn_int8(*args, tm),
+                lambda: quant.reference_ffn_int8(*args, tm),
+                lambda: quant.reference_ffn_int8(x.float(), *args[1:], tm),
+                rows, faults,
+                work=(nbytes(*args) + nbytes(x), 4 * m * h * f, INT8_OPS_S))
+        if inputs != "study":
+            continue
+        w1h, w2h = w1.bfloat16(), w2.bfloat16()
+        cm = [quant.QuantTensor(q.data.t().contiguous().t(), q.scale)
+              for q in (q1, q2)]                 # _int_mm's column-major B
+        extra = {"k4_ms": cuda_ms(lambda: fused_ffn(x, w1h, b1, w2h, b2, gamma, beta)),
+                 "yardstick_ms": cuda_ms(lambda: xla_int8_ffn(
+                     x, cm[0], b1, cm[1], b2, gamma, beta)),
+                 "k4_bound_ms": bound(nbytes(x, w1h, w2h, b1, b2, gamma, beta)
+                                      + nbytes(x), 4 * m * h * f, BF16_OPS_S)[0]}
+        rows[-1].update(extra)
+        print(f"  at this shape: K4 (bf16) {extra['k4_ms']:.4f} ms (bound "
+              f"{extra['k4_bound_ms']:.4f}); xla_int8 yardstick (two "
+              f"torch._int_mm) {extra['yardstick_ms']:.4f} ms", flush=True)
+
+
+def run_ffn_study(counters) -> dict:
+    """Phase 6, K7's path: ``bench_int8.py``'s ``ffn_pallas`` study on the
+    card. Its inputs (numpy seed 0: x ~ N(0, 0.5²) [16384, 768] in bf16,
+    w1, w2 ~ N(0, 0.02²), zero biases, γ 1, β 0), its weights quantized as
+    its ``qw`` does, one forward of K7 at tm 1024 (counted), and its check:
+    the cosine of K7's output against K4's (the bf16 fused FFN) on the same
+    x and f32 weights."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+    from cpt_tpu_torch.ops.fused_ffn import fused_ffn
+
+    m, h, f = 128 * 128, 768, 3072
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(m, h).astype(np.float32) * 0.5).to(dev).bfloat16()
+    w1 = torch.from_numpy(rng.randn(h, f).astype(np.float32) * 0.02).to(dev)
+    w2 = torch.from_numpy(rng.randn(f, h).astype(np.float32) * 0.02).to(dev)
+    b1, b2 = torch.zeros(f, device=dev), torch.zeros(h, device=dev)
+    gamma, beta = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+    (w1q, s1), (w2q, s2) = quant.quant_ffn_weights(w1), quant.quant_ffn_weights(w2)
+    ref = fused_ffn(x, w1, b1, w2, b2, gamma, beta).float().flatten()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    got = quant.ffn_int8(x, w1q, s1, b1, w2q, s2, b2, gamma, beta, 1024)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    got = got.float().flatten()
+    cos = float(ref @ got / (ref.norm() * got.norm() + 1e-9))
+    print(f"K7 study (bench_int8.py ffn_pallas: M {m}, tm 1024): cos vs K4 "
+          f"{cos:.6f}; launches {launches}", flush=True)
+    if (launches["K7"] != 1 or not torch.isfinite(got).all()
+            or got.numel() != m * h or not cos > 0.999):
+        raise AssertionError(f"K7 study: launches {launches}, cos {cos}")
+    return {"cos_vs_k4": cos, "launches": launches}
+
+
+def run_int8_extraction(counters) -> dict:
+    """Phase 6, the int8 extraction path at full width:
+    ``tools/extract_features --synthetic 4 --copies_per_chunk 4`` (VinVL
+    X152-C4, random weights from seed 0, 1024×1024 canvases, 3 candidates
+    each: 4 chunks of 3 copies and a padding copy) at ``--precision int8``,
+    then ``int8:<s>``: K1q 50 launches a chunk (47 body blocks + 3 stage-5
+    blocks), K1 none, K2 at least one, finite features. Then the int8 run
+    again with its int8 ops swapped for their plain versions (patched here;
+    the package has no switch for it): the features within
+    INT8_FEATURE_TOL. Then ``--precision bf16`` on the same tasks: its
+    copies/s and the cosine between its features and the int8 ones,
+    printed, not gated. Last, int8 and bf16 once more under
+    ``torch.profiler``: device time per chunk by kernel family."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpt_tpu_torch.ops import grouped_conv, quant
+    from cpt_tpu_torch.tools import extract_features, int8_gap
+
+    chunks = 4
+
+    def plain_dense(xq, wq, stride, padding):
+        return grouped_conv.exact_conv(xq, wq, stride, padding)
+
+    def extract(root, precision, plain=False, profiled=False):
+        path = (f"{root}/{precision.replace(':', '_')}{'_plain' if plain else ''}"
+                f"{'_profiled' if profiled else ''}.tsv")
+        real = quant.grouped_conv3x3_int8, quant.int_mm_conv
+        if plain:
+            quant.grouped_conv3x3_int8 = grouped_conv.reference_grouped_conv3x3_int8
+            quant.int_mm_conv = plain_dense
+        for fn in counters.values():
+            fn.launches = 0
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if profiled else contextlib.nullcontext())
+        try:
+            with prof:
+                info = extract_features.main(["--synthetic", "4", "--copies_per_chunk",
+                                              str(chunks), "--precision", precision,
+                                              "--output", path])
+                torch.cuda.synchronize()
+        finally:
+            quant.grouped_conv3x3_int8, quant.int_mm_conv = real
+        if profiled:
+            groups, busy, top = device_groups(prof, chunks, EXTRACT_GROUPS)
+            wall = info["seconds"] * 1e3 / chunks
+            print(f"--precision {precision} under torch.profiler, per chunk of "
+                  f"{chunks} copies: {wall:.2f} ms on the host clock, device "
+                  f"kernels {busy:.2f} ms (busy share {busy / wall:.3f}): "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in groups.items())
+                  + "; top: " + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top),
+                  flush=True)
+            return {"chunk_ms": wall, "device_ms": busy, "groups": groups,
+                    "top": top}
+        launches = {k: fn.launches for k, fn in counters.items()}
+        print(f"extract_features --precision {precision}"
+              f"{' (int8 ops plain)' if plain else ''}: {info['copies']} copies "
+              f"in {info['seconds'] * 1e3:.1f} ms, {info['copies_per_s']:.2f} "
+              f"copies/s; launches {launches}", flush=True)
+        return {"precision": precision, "copies_per_s": info["copies_per_s"],
+                "seconds": info["seconds"], "launches": launches,
+                "feats": int8_gap.tsv_features(path)}
+
+    with tempfile.TemporaryDirectory() as root:
+        runs = {"int8": extract(root, "int8"),
+                "int8_static": extract(root, f"int8:{INT8_STATIC_SCALE}"),
+                "int8_plain": extract(root, "int8", plain=True),
+                "bf16": extract(root, "bf16")}
+        breakdown = {p: extract(root, p, profiled=True) for p in ("int8", "bf16")}
+    for name in ("int8", "int8_static"):
+        got = runs[name]["launches"]
+        if (got["K1q"] != 50 * chunks or got["K1"] != 0 or got["K2"] < 1
+                or not np.isfinite(runs[name]["feats"]).all()):
+            raise AssertionError(f"{name} extraction: launches {got}")
+    feats = runs["int8"]["feats"]
+    scale = float(np.abs(feats).max())
+    gap = float(np.abs(feats - runs["int8_plain"]["feats"]).max()) / scale
+    bf16 = runs["bf16"]["feats"].ravel()
+    cos = float(feats.ravel() @ bf16 / (np.linalg.norm(feats) * np.linalg.norm(bf16)))
+    print(f"int8 features: {feats.shape[0]} regions; vs the plain int8 ops "
+          f"max |Δ| / max |feature| {gap:.4e} (tol {INT8_FEATURE_TOL}); cosine "
+          f"vs bf16 {cos:.6f}; copies/s int8 {runs['int8']['copies_per_s']:.2f}, "
+          f"int8:{INT8_STATIC_SCALE} {runs['int8_static']['copies_per_s']:.2f}, "
+          f"bf16 {runs['bf16']['copies_per_s']:.2f}", flush=True)
+    if not gap <= INT8_FEATURE_TOL:
+        raise AssertionError(f"int8 features differ from the plain int8 ops: {gap}")
+    for r in runs.values():
+        del r["feats"]
+    runs["int8"].update(plain_gap=gap, cos_vs_bf16=cos)
+    runs["extract_breakdown"] = breakdown
+    return runs
+
+
 def build_resident():
     """VinVL X152-C4 + Oscar-base at full width, random weights from seed 0
     in the reference layouts, resident on the card."""
@@ -633,7 +967,7 @@ def build_resident():
     return res, setup_s
 
 
-def run_requests(res, counters, idle=("K5", "K6", "K6b", "K6c"),
+def run_requests(res, counters, idle=("K5", "K6", "K6b", "K6c", "K1q", "K7"),
                  oracle=None) -> dict:
     """Full-width grounding requests with given candidates
     (``cpt_predict.predict`` with dets): a warm-up, then 8, 8 and 16
@@ -906,11 +1240,11 @@ def run_detect_requests(res, counters) -> dict:
     finally:
         res.detect = detect
     print(f"launches over the 3 detect requests: {launches}", flush=True)
-    flash = ("K6", "K6b", "K6c")
-    missing = [k for k, n in launches.items() if n <= 0 and k not in flash]
-    if missing or any(launches[k] for k in flash):
+    idle = ("K6", "K6b", "K6c", "K1q", "K7")
+    missing = [k for k, n in launches.items() if n <= 0 and k not in idle]
+    if missing or any(launches[k] for k in idle):
         raise AssertionError(f"kernels not launched on the detect path: "
-                             f"{missing}, or K6/K6b/K6c launched: {launches}")
+                             f"{missing}, or {idle} launched: {launches}")
     return {"warmup_ms": cold_s * 1e3, "requests": reqs, "launches": launches}
 
 
@@ -957,11 +1291,36 @@ def training_data(res, root: str, n_queries: int = 16, n_cands: int = 4):
     return data, paths, extract_s
 
 
+EXTRACT_GROUPS = (("K1q", ("grouped_conv3x3_int8",)), ("K1", ("grouped_conv3x3_kernel",)),
+                  ("K2", ("roi_align",)),
+                  ("GEMM / conv (cuBLAS, cuDNN)", ("gemm", "nvjet", "cutlass", "xmma",
+                                                   "sm90", "conv", "implicit")),
+                  ("elementwise / reduce", ("elementwise", "vectorized", "reduce",
+                                           "cat", "pad", "index")))
 KERNEL_GROUPS = (("K6b", ("flash_bwd_dkv",)), ("K6c", ("flash_bwd_dq",)),
                  ("K6", ("flash_attention_kernel",)),
                  ("GEMM (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
                  ("elementwise / reduce", ("elementwise", "vectorized", "reduce",
                                           "foreach", "multi_tensor")))
+
+
+def device_groups(prof, reps: int, kernel_groups) -> tuple:
+    """A ``torch.profiler`` run's device kernels (copies left out) per
+    repetition, summed by family ((name, name patterns) pairs; the rest is
+    "other") → (ms by family, busy ms, the top 8 kernels)."""
+    from torch.autograd import DeviceType
+
+    kernels = [(e.key, e.self_device_time_total / 1e3 / reps)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset"))]
+    groups = {name: 0.0 for name, _ in kernel_groups}
+    groups["other"] = 0.0
+    for key, ms in kernels:
+        low = key.lower()
+        name = next((n for n, pats in kernel_groups if any(x in low for x in pats)),
+                    "other")
+        groups[name] += ms
+    return groups, sum(ms for _, ms in kernels), sorted(kernels, key=lambda kv: -kv[1])[:8]
 
 
 def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
@@ -970,7 +1329,6 @@ def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
     synchronisations), then ``reps`` steps under ``torch.profiler`` (device
     kernels only) grouped by kernel family."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from cpt_tpu_torch.engine import train as train_lib
@@ -1004,17 +1362,7 @@ def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
         for _ in range(reps):
             step(state, batch, gen)
         torch.cuda.synchronize()
-    kernels = [(e.key, e.self_device_time_total / 1e3 / reps)
-               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other"] = 0.0
-    for key, ms in kernels:
-        low = key.lower()
-        name = next((n for n, pats in KERNEL_GROUPS if any(x in low for x in pats)),
-                    "other")
-        groups[name] += ms
-    busy = sum(ms for _, ms in kernels)
-    top = sorted(kernels, key=lambda kv: -kv[1])[:8]
+    groups, busy, top = device_groups(prof, reps, KERNEL_GROUPS)
     print(f"phase 5 step breakdown (batch of {batch[0].shape[0]}, flash, bf16): "
           f"{step_ms:.2f} ms/step on the host clock; optimizer update alone "
           f"{np.mean(opt_ms):.2f} ms; device kernels {busy:.2f} ms/step (busy "
@@ -1201,8 +1549,10 @@ def main(argv=None) -> int:
                                              flash_mha_bwd_dq)
     from cpt_tpu_torch.ops.fused_attention import fused_attention_block
     from cpt_tpu_torch.ops.fused_ffn import fused_ffn
-    from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
+    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
+                                                grouped_conv3x3_int8)
     from cpt_tpu_torch.ops.nms_pallas import nms_pallas
+    from cpt_tpu_torch.ops.quant import ffn_int8
     from cpt_tpu_torch.ops.roi_align_pallas import batched_roi_align
 
     build.lib()
@@ -1214,7 +1564,8 @@ def main(argv=None) -> int:
     counters = {"K1": grouped_conv3x3, "K2": batched_roi_align,
                 "K3": fused_attention_block, "K4": fused_ffn,
                 "K5": nms_pallas, "K6": flash_mha, "K6b": flash_mha_bwd_dkv,
-                "K6c": flash_mha_bwd_dq}
+                "K6c": flash_mha_bwd_dq, "K1q": grouped_conv3x3_int8,
+                "K7": ffn_int8}
     res, setup_s = build_resident()
     e2e = {"setup_s": setup_s, "ground": run_requests(res, counters),
            "detect": run_detect_requests(res, counters)}
@@ -1222,20 +1573,26 @@ def main(argv=None) -> int:
     oracle = rebuilt_scorer(res, torch.float32, attention_impl="einsum",
                             ffn_impl="dense")
     e2e["flash_ground"] = run_requests(flash, counters,
-                                       idle=("K3", "K5", "K6b", "K6c"),
+                                       idle=("K3", "K5", "K6b", "K6c", "K1q",
+                                             "K7"),
                                        oracle=oracle)
     check_flash_requests(e2e["ground"], e2e["flash_ground"])
     e2e["long_context"] = run_long_context(flash, oracle)
     del flash, oracle
     e2e.update(run_training(res, counters))
+    del res
+    e2e["ffn_study"] = run_ffn_study(counters)
+    e2e.update(run_int8_extraction(counters))
 
     # headline shape per kernel for the summary line: the most frequent
     # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
-    # NMS; the serving shape; the training shape); launches over the
-    # request and training paths, each counted from 0 around its run
+    # NMS; the serving shape; the training shape; K1q's layer3 blocks; K7
+    # on the study's inputs); launches over the request, training, study
+    # and int8 extraction paths, each counted from 0 around its run
     headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-                "K6b": 0, "K6c": 0}
-    paths = ("ground", "detect", "flash_ground", "train", "auto_train")
+                "K6b": 0, "K6c": 0, "K1q": 1, "K7": 0}
+    paths = ("ground", "detect", "flash_ground", "train", "auto_train",
+             "ffn_study", "int8", "int8_static")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]

@@ -5,8 +5,9 @@ obvious JAX counterpart that its tests hold it against:
 
   csrc/        hand-written CUDA kernels (sm_90a) for the TPU's Pallas kernels
   kernels/     nvcc + ctypes build of csrc/, dispatch rule, GEMM launchers
-  ops/         prompt rendering, RoIAlign, grouped conv, fused BERT blocks,
-               greedy NMS, flash attention and its backward
+  ops/         prompt rendering, RoIAlign, grouped conv (bf16 and int8),
+               fused BERT blocks, greedy NMS, flash attention and its
+               backward, W8A8 quantization and the fused int8 FFN
   structures/  box helpers and box decoding
   models/      the VinVL X152-C4 detector (force-boxes and RPN modes) and
                Oscar BERT
@@ -16,7 +17,9 @@ obvious JAX counterpart that its tests hold it against:
   tools/       the one-shot grounding entry point (cpt_predict, with
                --dets or --detect), the detector demo's run_detector, the
                RefCOCO CPT tool (refcoco_cpt: zero-shot eval, few-shot
-               prompt tuning) and grad_gap (bf16/flash gradient gaps)
+               prompt tuning), the RefCOCO stage-1 extraction driver
+               (extract_features, bf16 or W8A8 int8), grad_gap (bf16/flash
+               gradient gaps) and int8_gap (int8 feature gaps)
 
 Public functions keep the JAX package's layouts: NHWC feature maps,
 [B, S, H] hidden states, inclusive xyxy boxes.

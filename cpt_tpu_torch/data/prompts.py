@@ -10,9 +10,12 @@ zero-shot template variants (``refcoco_zsl_cpt_dataset.py``).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 NONE_TOKEN = "none"
+# the RefCOCO paint color: one red, alpha 127 (refcocodataset.py:216)
+REFCOCO_COLORS: List[Tuple[str, Tuple[int, int, int, int]]] = [
+    ("red", (240, 0, 30, 127))]
 
 
 def refcoco_fsl_prompt(caption: str) -> str:

@@ -1,8 +1,10 @@
 """Detector configuration — VinVL ResNeXt-152-C4 defaults (the port's copy
 of ``cpt_tpu/models/detector/config.py``: the same fields, defaults and
-presets). ``grouped_conv_impl``, ``precision`` and ``pooler_impl`` choose
-among the JAX package's backends; the port reads none of them (its grouped
-3x3 is always K1, its pooling always K2, its precision the model dtype).
+presets). ``grouped_conv_impl`` and ``pooler_impl`` choose among the JAX
+package's backends; the port reads neither (its grouped 3x3 is always K1,
+its pooling always K2). ``precision`` is read as in the JAX package: "bf16"
+runs the conv body in the model dtype, "int8" / "int8:<s>" in W8A8
+(``models/detector/resnet.py``, ``ops/quant.py``).
 
 Condenses the reference's yacs tree (``maskrcnn_benchmark/config/defaults.py``
 ⊕ ``scene_graph_benchmark/config/sg_defaults.py`` ⊕
@@ -29,7 +31,8 @@ class BackboneConfig:
     out_channels: int = 1024                      # BACKBONE_OUT_CHANNELS
     # the JAX package's grouped 3x3 backend ("xla" | "pallas" | "auto")
     grouped_conv_impl: str = "xla"
-    # the JAX package's conv-body precision ("bf16" | "int8" | "int8:<s>")
+    # conv-body precision: "bf16" (the model dtype) | "int8" (W8A8, dynamic
+    # activation scales) | "int8:<s>" (W8A8, activation scale pinned to s)
     precision: str = "bf16"
 
     @property

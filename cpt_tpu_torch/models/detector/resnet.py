@@ -11,6 +11,16 @@ to XLA.
 Activations are NHWC; dense conv weights are PyTorch OIHW, the grouped
 weight is HWIO ``[3, 3, C//G, C]`` (the kernel's layout). Weights live in
 the model dtype, the folded BN pairs in f32.
+
+``BackboneConfig.precision`` picks the conv body's arithmetic, as in the JAX
+package: ``"bf16"`` (the model dtype), or W8A8 int8 (``"int8"``, dynamic
+per-tensor activation scales; ``"int8:<s>"``, the scale pinned to s) through
+``ops/quant.py``: the grouped 3×3 on kernel K1q, the dense convs through
+``torch._int_mm``. An int8 conv quantizes its weight once, per output
+channel, from the tensor its state dict is loaded from (the f32 reference
+weights; never the model-dtype copy, whose rounding would move amax/127),
+and keeps the int8 weight and its f32 scales beside the unchanged
+parameter: the state dict's keys are the bf16 model's.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from torch import nn
 
 from cpt_tpu_torch.models.detector.config import BackboneConfig
 from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
+from cpt_tpu_torch.ops.quant import (QuantTensor, int8_conv, is_int8,
+                                     quant_act, quant_weight, static_scale)
 
 
 def _frozen(*shape, dtype) -> nn.Parameter:
@@ -41,30 +53,82 @@ class FrozenBN(nn.Module):
         return x * self.scale.to(x.dtype) + self.bias.to(x.dtype)
 
 
-class Conv2d(nn.Module):
-    """Bias-free NHWC convolution with an OIHW weight."""
+class _Quantized(nn.Module):
+    """A conv weight that, when ``quantized``, also holds its int8 copy and
+    per-output-channel scales (non-persistent buffers), quantized from the
+    state dict's own tensor at load. ``_to_hwio`` maps the parameter's
+    layout to HWIO; ``_store`` is the int8 buffer's layout (a permutation
+    of HWIO that :attr:`qweight` undoes)."""
+
+    _to_hwio = (0, 1, 2, 3)
+    _store = (0, 1, 2, 3)
+
+    def _init_quant(self, quantized: bool) -> None:
+        if quantized:
+            hwio = tuple(self.weight.shape[i] for i in self._to_hwio)
+            self.register_buffer("qdata", torch.zeros(
+                [hwio[i] for i in self._store], dtype=torch.int8),
+                persistent=False)
+            self.register_buffer("qscale", torch.ones(hwio[3]),
+                                 persistent=False)
+        else:
+            self.qdata = None
+
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        super()._load_from_state_dict(state_dict, prefix, *args)
+        w = state_dict.get(prefix + "weight")
+        if self.qdata is not None and w is not None:
+            q = quant_weight(w.permute(*self._to_hwio), (0, 1, 2))
+            with torch.no_grad():
+                self.qdata.copy_(q.data.permute(*self._store))
+                self.qscale.copy_(q.scale)
+
+    @property
+    def qweight(self) -> QuantTensor:
+        """The int8 HWIO weight (a view of the stored layout) and its scales."""
+        inverse = [self._store.index(i) for i in range(4)]
+        return QuantTensor(self.qdata.permute(*inverse), self.qscale)
+
+
+class Conv2d(_Quantized):
+    """Bias-free NHWC convolution with an OIHW weight. Quantized, its int8
+    weight is stored OHWI, so that the HWIO view flattens to the
+    column-major [K, Cout] operand ``torch._int_mm`` takes."""
+
+    _to_hwio = (2, 3, 1, 0)
+    _store = (3, 0, 1, 2)
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quantized: bool = False):
         super().__init__()
         self.weight = _frozen(cout, cin, kernel, kernel, dtype=dtype)
         self.stride = stride
         self.padding = (kernel - 1) // 2
+        self._init_quant(quantized)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, stride=self.stride,
                      padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
+    def int8(self, qx: QuantTensor, bn: "FrozenBN", relu: bool,
+             out_dtype: torch.dtype) -> torch.Tensor:
+        """The conv on a quantized input, with the dequant, ``bn`` and ReLU
+        in its epilogue."""
+        return int8_conv(qx, self.qweight, self.stride, self.padding, 1,
+                         bn.scale, bn.bias, relu, out_dtype)
 
-class GroupedConv3x3(nn.Module):
+
+class GroupedConv3x3(_Quantized):
     """Grouped 3×3 weight in HWIO ``[3, 3, C//groups, C]`` (no forward of its
-    own: the bottleneck calls K1 with it and the following BN pair)."""
+    own: the bottleneck calls K1, or K1q on its int8 copy, with it and the
+    following BN pair)."""
 
     def __init__(self, channels: int, groups: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quantized: bool = False):
         super().__init__()
         self.weight = _frozen(3, 3, channels // groups, channels, dtype=dtype)
+        self._init_quant(quantized)
 
 
 class Bottleneck(nn.Module):
@@ -72,25 +136,30 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_channels: int, bottleneck_channels: int,
                  out_channels: int, num_groups: int, stride: int,
-                 stride_in_1x1: bool, dtype: torch.dtype = torch.float32):
+                 stride_in_1x1: bool, dtype: torch.dtype = torch.float32,
+                 precision: str = "bf16"):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        q = self.quantized = is_int8(precision)
+        self.act_scale = static_scale(precision)
         self.num_groups = num_groups
         self.stride3 = s3
         if in_channels != out_channels:
             self.downsample_conv = Conv2d(in_channels, out_channels, 1, stride,
-                                          dtype)
+                                          dtype, q)
             self.downsample_bn = FrozenBN(out_channels)
         else:
             self.downsample_conv = None
-        self.conv1 = Conv2d(in_channels, bottleneck_channels, 1, s1, dtype)
+        self.conv1 = Conv2d(in_channels, bottleneck_channels, 1, s1, dtype, q)
         self.bn1 = FrozenBN(bottleneck_channels)
-        self.conv2 = GroupedConv3x3(bottleneck_channels, num_groups, dtype)
+        self.conv2 = GroupedConv3x3(bottleneck_channels, num_groups, dtype, q)
         self.bn2 = FrozenBN(bottleneck_channels)
-        self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, 1, dtype)
+        self.conv3 = Conv2d(bottleneck_channels, out_channels, 1, 1, dtype, q)
         self.bn3 = FrozenBN(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quantized:
+            return self._int8(x)
         identity = x
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
@@ -101,15 +170,39 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         return torch.relu(out + identity)
 
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:
+        """W8A8 (JAX ``Bottleneck._int8``): x quantized once for conv1 and
+        the downsample; the identity of a block without one is x itself;
+        the residual add and the last ReLU stay in x's dtype."""
+        sc, dt = self.act_scale, x.dtype
+        qx = quant_act(x, sc)
+        identity = x
+        if self.downsample_conv is not None:
+            identity = self.downsample_conv.int8(qx, self.downsample_bn,
+                                                 False, dt)
+        out = self.conv1.int8(qx, self.bn1, True, dt)
+        out = int8_conv(quant_act(out, sc), self.conv2.qweight, self.stride3,
+                        1, self.num_groups, self.bn2.scale, self.bn2.bias,
+                        True, dt)
+        out = self.conv3.int8(quant_act(out, sc), self.bn3, False, dt)
+        return torch.relu(out + identity)
+
 
 class Stem(nn.Module):
-    def __init__(self, out_channels: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, out_channels: int, dtype: torch.dtype = torch.float32,
+                 precision: str = "bf16"):
         super().__init__()
-        self.conv1 = Conv2d(3, out_channels, 7, 2, dtype)
+        self.quantized = is_int8(precision)
+        self.act_scale = static_scale(precision)
+        self.conv1 = Conv2d(3, out_channels, 7, 2, dtype, self.quantized)
         self.bn1 = FrozenBN(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        if self.quantized:
+            x = self.conv1.int8(quant_act(x, self.act_scale), self.bn1, True,
+                                x.dtype)
+        else:
+            x = torch.relu(self.bn1(self.conv1(x)))
         # 3×3/2 maxpool, pad 1 with -inf (torch's max_pool2d padding)
         x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1)
         return x.permute(0, 2, 3, 1)
@@ -117,14 +210,15 @@ class Stem(nn.Module):
 
 def make_stage(block_count: int, in_channels: int, bottleneck_channels: int,
                out_channels: int, num_groups: int, first_stride: int,
-               stride_in_1x1: bool, dtype: torch.dtype) -> nn.Sequential:
+               stride_in_1x1: bool, dtype: torch.dtype,
+               precision: str = "bf16") -> nn.Sequential:
     """Blocks named ``block_{i}`` like the JAX parameter tree."""
     blocks = OrderedDict()
     for i in range(block_count):
         blocks[f"block_{i}"] = Bottleneck(
             in_channels if i == 0 else out_channels, bottleneck_channels,
             out_channels, num_groups, first_stride if i == 0 else 1,
-            stride_in_1x1, dtype)
+            stride_in_1x1, dtype, precision)
     return nn.Sequential(blocks)
 
 
@@ -134,7 +228,7 @@ class ResNetC4(nn.Module):
     def __init__(self, config: BackboneConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = config
-        self.stem = Stem(c.stem_out_channels, dtype)
+        self.stem = Stem(c.stem_out_channels, dtype, c.precision)
         cin = c.stem_out_channels
         self.stage_names = []
         for i, blocks in enumerate(c.stage_blocks):
@@ -143,7 +237,7 @@ class ResNetC4(nn.Module):
             self.add_module(name, make_stage(
                 blocks, cin, c.stage2_bottleneck_channels * factor,
                 c.res2_out_channels * factor, c.num_groups,
-                1 if i == 0 else 2, c.stride_in_1x1, dtype))
+                1 if i == 0 else 2, c.stride_in_1x1, dtype, c.precision))
             self.stage_names.append(name)
             cin = c.res2_out_channels * factor
 
@@ -168,7 +262,7 @@ class ResNetC5Head(nn.Module):
             c.head_blocks, c.res2_out_channels * factor // 2,
             c.stage2_bottleneck_channels * factor,
             c.res2_out_channels * factor, c.num_groups, 2, c.stride_in_1x1,
-            dtype))
+            dtype, c.precision))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, self.stage_name)(x)

@@ -9,6 +9,14 @@ and ReLU in the input dtype, as the JAX XLA path computes them). The kernel
 keeps the affine and ReLU in its f32 epilogue, so in bf16 the two agree to
 bf16 tolerance.
 
+K1q, ``grouped_conv3x3_int8``, is the same conv on int8 inputs for the W8A8
+path (``ops/quant.py``: the JAX package runs it as an XLA int8 conv, so it
+has no Pallas counterpart, and PyTorch has no int8 grouped conv on CUDA): on
+a Hopper card it launches ``cpt_grouped_conv3x3_int8`` of the same source,
+exact int32 sums and an f32 epilogue; its plain version is
+:func:`reference_grouped_conv3x3_int8`. Both compute the epilogue
+``y·scale + bias`` as two roundings, so they agree bit for bit.
+
 Layouts are the JAX package's: x NHWC, weights HWIO ``[3, 3, C//G, C]``.
 """
 from __future__ import annotations
@@ -76,3 +84,77 @@ def grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
 
 
 grouped_conv3x3.launches = 0
+
+
+def exact_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+               padding: int, groups: int = 1) -> torch.Tensor:
+    """xq int8 NHWC ⊛ wq int8 HWIO computed exactly (a float64 conv of the
+    integer values: every product and partial sum is an integer below
+    2^53), → f32 NHWC, the integer sum rounded to f32 once as an int32
+    ``astype(float32)`` rounds it. cuDNN is kept out: its transform
+    algorithms are not exact."""
+    with torch.backends.cudnn.flags(enabled=False):
+        y = F.conv2d(xq.permute(0, 3, 1, 2).double(),
+                     wq.permute(3, 2, 0, 1).double(), stride=stride,
+                     padding=padding, groups=groups)
+    return y.permute(0, 2, 3, 1).float()
+
+
+def reference_grouped_conv3x3_int8(xq: torch.Tensor, w33q: torch.Tensor,
+                                   scale: torch.Tensor, bias: torch.Tensor,
+                                   groups: int, stride: int = 1,
+                                   relu: bool = False,
+                                   out_dtype: torch.dtype = torch.bfloat16
+                                   ) -> torch.Tensor:
+    """Plain version of K1q: the exact grouped conv, then ``y·scale +
+    bias`` in f32, ReLU, cast."""
+    y = exact_conv(xq, w33q, stride, 1, groups) * scale.float() + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(out_dtype)
+
+
+def grouped_conv3x3_int8(xq: torch.Tensor, w33q: torch.Tensor,
+                         scale: torch.Tensor, bias: torch.Tensor,
+                         groups: int = 32, stride: int = 1,
+                         relu: bool = False,
+                         out_dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """K1q: int8 grouped 3×3 conv, pad 1, stride 1 or 2, NHWC, with the
+    f32 epilogue ``y·scale[c] + bias[c]`` (+ ReLU). xq int8 [N, H, W, C],
+    w33q int8 [3, 3, C//groups, C]; scale f32 [C] is the whole dequant
+    multiplier ``(s_x·s_w[c])·bn_scale[c]``, bias f32 [C]. The kernel writes
+    bf16."""
+    if not uses_kernel(xq):
+        return reference_grouped_conv3x3_int8(xq, w33q, scale, bias, groups,
+                                              stride, relu, out_dtype)
+    n, h, w, c = xq.shape
+    cpg = c // groups
+    cb = min(c, 128)
+    if (stride not in (1, 2) or c % groups or c % 16 or c % cb or cb % cpg
+            or cpg % 4):
+        raise ValueError(f"int8 grouped conv kernel takes stride 1|2 and "
+                         f"groups of a multiple of 4 channels that tile "
+                         f"128-channel slices of a multiple of 16; got C={c}, "
+                         f"groups={groups}, stride={stride}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the int8 grouped conv kernel writes bf16, not "
+                        f"{out_dtype}")
+    xq = aligned16(require(xq, "xq", torch.int8))
+    w33q = aligned16(require(w33q, "w33q", torch.int8, (3, 3, cpg, c)))
+    scale = require(scale.float(), "scale", torch.float32, (c,))
+    bias = require(bias.float(), "bias", torch.float32, (c,))
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=xq.device)
+    if out.numel() == 0:
+        return out
+    check(lib().cpt_grouped_conv3x3_int8(xq.data_ptr(), w33q.data_ptr(),
+                                         scale.data_ptr(), bias.data_ptr(),
+                                         out.data_ptr(), n, h, w, c, cpg,
+                                         stride, int(relu), stream(xq)),
+          "cpt_grouped_conv3x3_int8")
+    grouped_conv3x3_int8.launches += 1
+    return out
+
+
+grouped_conv3x3_int8.launches = 0

@@ -2,7 +2,7 @@
 model variants (attention backend × compute dtype) on the same weights and
 batches.
 
-    python -m cpt_tpu_torch.tools.grad_gap [--batch 4] [--steps 10] [--device cpu]
+    python -m cpt_tpu_torch.tools.grad_gap [--batch 4] [--steps 10] [--device cuda|cpu]
 
 Builds Oscar-base at full width (12 × 768, vocab 30522) from seeded random
 Oscar-layout weights and synthetic batches (70 text + 50 region slots, some
@@ -127,7 +127,9 @@ def main(argv=None) -> Dict[str, Tuple[float, str]]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=10,
                    help="loss-curve steps (0: gradients only)")
-    p.add_argument("--device", default="cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cpu runs every kernel's plain version (the "
+                        "derivation chip_smoke.py cites ran so)")
     args = p.parse_args(argv)
     cfg = OSCAR_BASE
     state = convert.state_from_reference(

@@ -397,3 +397,114 @@ def test_flash_train_step_launches(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert [fn.launches - n for fn, n in zip(counters, before)] == [12, 12, 12, 0, 0]
+
+
+# --- the W8A8 path: K1q, the _int_mm route, K7 -----------------------------------
+
+def _int8(g, dev, *shape):
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("n,h,w,c,groups,stride", [
+    (2, 9, 13, 256, 32, 1), (2, 9, 13, 256, 32, 2), (3, 14, 14, 128, 2, 2),
+    (1, 5, 7, 64, 16, 1), (2, 10, 10, 1024, 32, 2)])
+def test_grouped_conv_int8_kernel(dev, n, h, w, c, groups, stride):
+    """K1q against its plain version on the same int8 inputs: exact sums
+    and the same two-rounding epilogue, so equal bit for bit."""
+    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3_int8,
+                                                reference_grouped_conv3x3_int8)
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    xq, wq = _int8(g, dev, n, h, w, c), _int8(g, dev, 3, 3, c // groups, c)
+    scale = torch.rand(c, generator=g, device=dev) * 1e-3
+    bias = torch.randn(c, generator=g, device=dev)
+    before = grouped_conv3x3_int8.launches
+    got = grouped_conv3x3_int8(xq, wq, scale, bias, groups, stride, True)
+    assert grouped_conv3x3_int8.launches == before + 1
+    want = reference_grouped_conv3x3_int8(xq, wq, scale, bias, groups, stride,
+                                          True)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    # a dropped activation-scale factor, or the weights' channels swapped
+    # within their groups, would not pass
+    assert not torch.equal(got, reference_grouped_conv3x3_int8(
+        xq, wq.flip(3), scale, bias, groups, stride, True))
+
+
+def test_grouped_conv_int8_rejects(dev):
+    from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3_int8
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    ones = torch.ones(8, device=dev)
+    with pytest.raises(ValueError):
+        grouped_conv3x3_int8(_int8(g, dev, 1, 4, 4, 8), _int8(g, dev, 3, 3, 4, 8),
+                             ones, ones, 2)
+    ones = torch.ones(64, device=dev)
+    with pytest.raises(TypeError):
+        grouped_conv3x3_int8(_int8(g, dev, 1, 4, 4, 64), _int8(g, dev, 3, 3, 4, 64),
+                             ones, ones, 16, out_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kernel,cin,cout,stride,padding", [
+    (1, 256, 64, 1, 0), (1, 512, 1024, 2, 0), (7, 3, 64, 2, 3)])
+def test_int8_conv_dense_route(dev, kernel, cin, cout, stride, padding):
+    """``int8_conv``'s card route (``torch._int_mm``; the stem with K padded
+    to 152) equals the exact conv bit for bit."""
+    from cpt_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(2, 24, 20, cin, generator=g, device=dev).bfloat16()
+    w = torch.randn(kernel, kernel, cin, cout, generator=g, device=dev) * 0.05
+    s = torch.rand(cout, generator=g, device=dev) + 0.5
+    b = torch.randn(cout, generator=g, device=dev)
+    qx = quant.quant_act(x)
+    got = quant.int8_conv(qx, w, stride, padding, 1, s, b, True)
+    cpu = quant.int8_conv(quant.QuantTensor(qx.data.cpu(), qx.scale.cpu()),
+                          w.cpu(), stride, padding, 1, s.cpu(), b.cpu(), True)
+    assert torch.equal(got.cpu(), cpu)
+    with pytest.raises(ValueError, match="M > 16"):
+        quant.int8_conv(quant.quant_act(x[:1, :4, :4]), w, 1, padding, 1)
+
+
+def _k7_args(dev, m, h, f, seed):
+    from cpt_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    x = (r(m, h) * torch.linspace(0.5, 4.0, m, device=dev)[:, None]).bfloat16()
+    q1 = quant.quant_ffn_weights(r(h, f, scale=0.05))
+    q2 = quant.quant_ffn_weights(r(f, h, scale=0.05))
+    return (x, q1.data, q1.scale, r(f, scale=0.1), q2.data, q2.scale,
+            r(h, scale=0.1), torch.rand(h, generator=g, device=dev) + 0.5,
+            r(h, scale=0.1))
+
+
+@pytest.mark.parametrize("m,h,f,tm", [(256, 128, 512, 128), (512, 256, 1024, 256),
+                                      (1024, 768, 3072, 512)])
+def test_ffn_int8_kernel(dev, m, h, f, tm):
+    """K7 in bf16 against its plain version in f32 on the same inputs."""
+    from cpt_tpu_torch.ops import quant
+
+    args = _k7_args(dev, m, h, f, m)
+    before = quant.ffn_int8.launches
+    got = quant.ffn_int8(*args, tm)
+    assert quant.ffn_int8.launches == before + 1
+    want = quant.reference_ffn_int8(args[0].float(), *args[1:], tm)
+    _close(got, want, 1e-2)
+    # one scale for all of M (x's rows range 0.5x..4x) would not pass
+    whole = quant.reference_ffn_int8(args[0].float(), *args[1:], m)
+    assert _attn_faults_missed(want, {"whole": whole}, 1e-2) == []
+
+
+def test_ffn_int8_rejects(dev):
+    from cpt_tpu_torch.ops import quant
+
+    args = _k7_args(dev, 256, 128, 512, 3)
+    with pytest.raises(ValueError):
+        quant.ffn_int8(*args, 64)                      # tm % 128
+    wide = _k7_args(dev, 256, 512, 512, 4)
+    with pytest.raises(ValueError):
+        quant.ffn_int8(*wide, 128)                     # H not instantiated
