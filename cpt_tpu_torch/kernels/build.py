@@ -51,6 +51,8 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 SIGNATURES = {
     # x, w, scale, bias, out, N, H, W, C, cpg, stride, relu, stream
     "cpt_grouped_conv3x3": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    # K1's tensor-core path: the same arguments
+    "cpt_grouped_conv3x3_mma": ([_P] * 5 + [_I] * 7 + [_P], _I),
     # K1q, the int8 grouped conv: x, w, scale, bias, out, N, H, W, C, cpg,
     # stride, relu, stream
     "cpt_grouped_conv3x3_int8": ([_P] * 5 + [_I] * 7 + [_P], _I),

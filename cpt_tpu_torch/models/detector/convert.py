@@ -16,15 +16,22 @@ Two sources:
 
 :func:`random_vinvl_state_dict` draws random weights in the reference
 layout from a seed (the serving path without a checkpoint).
+:func:`load_vinvl_checkpoint` loads every checkpoint the JAX package loads:
+a ``.pth`` state dict (suffix-aligned when its keys carry another nesting,
+such as a ``module.`` DDP wrapper) or a legacy Detectron/Caffe2 ``.pkl``
+blob file (:func:`load_caffe2_pickle`, :func:`rename_c2_keys`).
 """
 from __future__ import annotations
 
+import pickle
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from cpt_tpu_torch.models.detector.config import DetectorConfig
+from cpt_tpu_torch.utils.convert import align_state_dict
 
 
 def _np(v) -> np.ndarray:
@@ -159,6 +166,87 @@ def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(blob, dict) and isinstance(blob.get("model"), dict):
         blob = blob["model"]
     return blob
+
+
+def load_vinvl_checkpoint(path: str, cfg: DetectorConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """A VinVL checkpoint → port state dict, as
+    ``cpt_tpu/models/detector/convert.py::load_vinvl_checkpoint`` loads
+    it: a ``.pkl`` Detectron/Caffe2 blob file through
+    :func:`load_caffe2_pickle`; a ``.pth`` state dict as it is or, where its
+    keys carry another nesting (a ``module.`` DDP wrapper), suffix-aligned
+    onto the VinVL layout first (reference ``model_serialization.py:35``)."""
+    if path.endswith(".pkl"):
+        return load_caffe2_pickle(path, cfg)
+    sd = load_torch_file(path)
+    try:
+        return state_from_reference(sd, cfg)
+    except KeyError:
+        return state_from_reference(
+            align_state_dict(sd, random_vinvl_state_dict(cfg)), cfg)
+
+
+def rename_c2_keys(keys) -> Dict[str, str]:
+    """Caffe2/Detectron blob names → maskrcnn-benchmark torch names (a copy
+    of ``cpt_tpu/models/detector/convert.py::rename_c2_keys``, the
+    reference's ``c2_model_loading.py:13-62`` chain): underscores to dots
+    with the weight/bias/bn fixups, res{N} stages to torchvision
+    layer{N-1}, branch2{a,b,c} to conv1/2/3, branch1 to the downsample
+    pair, and the RPN head names. Returns {c2_key: torch_key}."""
+    chain = [
+        ("_", "."), (".w", ".weight"), (".bn", "_bn"), (".b", ".bias"),
+        ("_bn.s", "_bn.scale"), (".biasranch", ".branch"),
+        ("bbox.pred", "bbox_pred"), ("cls.score", "cls_score"),
+        ("res.conv1_", "conv1_"), (".biasbox", ".bbox"),
+        ("conv.rpn", "rpn.conv"), ("rpn.bbox.pred", "rpn.bbox_pred"),
+        ("rpn.cls.logits", "rpn.cls_logits"),
+        ("_bn.scale", "_bn.weight"), ("conv1_bn.", "bn1."),
+        ("res2.", "layer1."), ("res3.", "layer2."), ("res4.", "layer3."),
+        ("res5.", "layer4."),
+        (".branch2a.", ".conv1."), (".branch2a_bn.", ".bn1."),
+        (".branch2b.", ".conv2."), (".branch2b_bn.", ".bn2."),
+        (".branch2c.", ".conv3."), (".branch2c_bn.", ".bn3."),
+        (".branch1.", ".downsample.0."), (".branch1_bn.", ".downsample.1."),
+        ("rpn.", "rpn.head."),
+    ]
+    out = {}
+    for orig in keys:
+        k = "fc1000_w" if orig == "pred_w" else (
+            "fc1000_b" if orig == "pred_b" else orig)
+        for a, b in chain:
+            k = k.replace(a, b)
+        out[orig] = k
+    return out
+
+
+def load_caffe2_pickle(path: str, cfg: DetectorConfig
+                       ) -> Dict[str, torch.Tensor]:
+    """Legacy Detectron/Caffe2 ``.pkl`` checkpoint → port state dict (as
+    ``cpt_tpu/models/detector/convert.py::load_caffe2_pickle``; reference
+    ``c2_model_loading.py::load_c2_format``). Caffe2's AffineChannel has no
+    running stats, so each ``*_bn`` gets identity stats (mean 0, var 1)
+    before the frozen-BN fold; heads the blob file lacks keep the weights
+    of ``random_vinvl_state_dict(cfg)`` (reference
+    ``skip_unmatched_layers``)."""
+    with open(path, "rb") as f:
+        blobs = pickle.load(f, encoding="latin1")
+    if "blobs" in blobs:
+        blobs = blobs["blobs"]
+    blobs = {k: v for k, v in blobs.items()
+             if "momentum" not in k and isinstance(v, np.ndarray)}
+    renamed = {tk: np.asarray(blobs[c2k])
+               for c2k, tk in rename_c2_keys(blobs.keys()).items()}
+    # identity running stats for every affine-only BN (bn1/2/3, the stem
+    # bn1, downsample.1)
+    bn_pat = re.compile(r"(\.bn\d|\.downsample\.1|^bn1)\.weight$")
+    for k in list(renamed):
+        if bn_pat.search(k):
+            base = k[: -len(".weight")]
+            renamed.setdefault(base + ".running_mean", np.zeros_like(renamed[k]))
+            renamed.setdefault(base + ".running_var", np.ones_like(renamed[k]))
+    base_sd = random_vinvl_state_dict(cfg)
+    base_sd.update(align_state_dict(renamed, base_sd))
+    return state_from_reference(base_sd, cfg)
 
 
 def random_vinvl_state_dict(cfg: DetectorConfig, seed: int = 0

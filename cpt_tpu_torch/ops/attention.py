@@ -33,7 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from cpt_tpu_torch.kernels.build import check, lib, require, stream, uses_kernel
+from cpt_tpu_torch.kernels.build import (KernelError, check, lib, require,
+                                         stream, uses_kernel)
 
 HEAD_DIMS = (32, 64, 128)
 
@@ -263,7 +264,10 @@ class _FlashMHA(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, o, m, l = ctx.saved_tensors
         if ctx.needs_input_grad[3]:
-            raise NotImplementedError(
+            # KernelError, not NotImplementedError (a RuntimeError): the
+            # training loop of tools/refcoco_cpt skips batches that raise a
+            # RuntimeError
+            raise KernelError(
                 "flash_mha: the bias gradient is not computed (the bias is a "
                 "mask on every model path)")
         di = _row_dot(o, do)

@@ -3,7 +3,9 @@ of ``cpt_tpu/ops/grouped_conv.py``).
 
 ``grouped_conv3x3`` covers both TPU kernels, ``grouped_conv3x3_sd`` (stride
 1) and ``grouped_conv3x3`` (stride 1 or 2): on a Hopper card it launches
-``csrc/grouped_conv.cu``; on the CPU it runs the plain version,
+one of two kernels of ``csrc/grouped_conv.cu``, chosen by :func:`conv_path`
+(the tensor-core implicit GEMM, ``"mma"``, or the CUDA-core direct sum,
+``"simt"``); on the CPU it runs the plain version,
 :func:`reference_grouped_conv3x3` (``F.conv2d(groups=G)`` then the affine
 and ReLU in the input dtype, as the JAX XLA path computes them). The kernel
 keeps the affine and ReLU in its f32 epilogue, so in bf16 the two agree to
@@ -46,6 +48,21 @@ def reference_grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
     return y
 
 
+MMA_CPG = (8, 16, 32, 64)
+
+
+def conv_path(c: int, cpg: int) -> str:
+    """The dispatch rule between K1's two kernels: the tensor-core implicit
+    GEMM (``"mma"``) takes every shape it can (cpg 8, 16, 32 or 64, C a
+    multiple of its 64-channel slice), which is every X152 shape; on the
+    H100 it is 4-12× faster there than the CUDA-core kernel (PERF.md §6).
+    The CUDA-core kernel (``"simt"``) stays only because it is the one
+    kernel for the rest (cpg 4, as in a ResNeXt 32×4d, or C not a multiple
+    of 64, as in ``tiny_detector_config``; cpg a multiple of 4 that tiles
+    128-channel slices), not because it wins at any shape."""
+    return "mma" if cpg in MMA_CPG and c % 64 == 0 else "simt"
+
+
 def grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
                     scale: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None, groups: int = 32,
@@ -55,16 +72,39 @@ def grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
     if not uses_kernel(x):
         return reference_grouped_conv3x3(x, w33, scale, bias, groups, stride,
                                          relu)
+    c = x.shape[-1]
+    return launch_grouped_conv3x3(conv_path(c, c // groups), x, w33, scale,
+                                  bias, groups, stride, relu)
+
+
+_ENTRY = {"mma": "cpt_grouped_conv3x3_mma", "simt": "cpt_grouped_conv3x3"}
+
+
+def launch_grouped_conv3x3(path: str, x: torch.Tensor, w33: torch.Tensor,
+                           scale: Optional[torch.Tensor],
+                           bias: Optional[torch.Tensor], groups: int,
+                           stride: int, relu: bool) -> torch.Tensor:
+    """Launch K1's ``path`` kernel (``"mma"`` or ``"simt"``) on CUDA
+    tensors. :func:`grouped_conv3x3` passes :func:`conv_path`'s choice;
+    ``chip_smoke.py`` times the other path through this too. Each launch
+    counts in ``grouped_conv3x3.launches`` and ``.path_launches[path]``."""
     n, h, w, c = x.shape
     cpg = c // groups
     cb = min(c, 128)
-    if (stride not in (1, 2) or c % groups or c % 8 or c % cb or cb % cpg
-            or cpg % 4):
+    if stride not in (1, 2) or c % groups:
+        raise ValueError(f"grouped conv kernel takes stride 1|2 and C a "
+                         f"multiple of groups; got C={c}, groups={groups}, "
+                         f"stride={stride}")
+    if path == "mma" and (cpg not in MMA_CPG or c % 64):
+        raise ValueError(f"the tensor-core grouped conv takes cpg in "
+                         f"{MMA_CPG} and C a multiple of 64; got C={c}, "
+                         f"groups={groups}")
+    if path == "simt" and (c % 8 or c % cb or cb % cpg or cpg % 4):
         raise ValueError(f"grouped conv kernel takes stride 1|2 and groups "
                          f"of a multiple of 4 channels that tile 128-channel "
                          f"slices; got C={c}, groups={groups}, stride={stride}")
     x = aligned16(require(x, "x", torch.bfloat16))
-    w33 = require(w33, "w33", torch.bfloat16, (3, 3, cpg, c))
+    w33 = aligned16(require(w33, "w33", torch.bfloat16, (3, 3, cpg, c)))
     if scale is None:
         scale = torch.ones(c, dtype=torch.float32, device=x.device)
         bias = torch.zeros(c, dtype=torch.float32, device=x.device)
@@ -74,16 +114,18 @@ def grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
     out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
-    check(lib().cpt_grouped_conv3x3(x.data_ptr(), w33.data_ptr(),
-                                    scale.data_ptr(), bias.data_ptr(),
-                                    out.data_ptr(), n, h, w, c, cpg, stride,
-                                    int(relu), stream(x)),
-          "cpt_grouped_conv3x3")
+    entry = _ENTRY[path]
+    check(getattr(lib(), entry)(x.data_ptr(), w33.data_ptr(),
+                                scale.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), n, h, w, c, cpg, stride,
+                                int(relu), stream(x)), entry)
     grouped_conv3x3.launches += 1
+    grouped_conv3x3.path_launches[path] += 1
     return out
 
 
 grouped_conv3x3.launches = 0
+grouped_conv3x3.path_launches = {"mma": 0, "simt": 0}
 
 
 def exact_conv(xq: torch.Tensor, wq: torch.Tensor, stride: int,

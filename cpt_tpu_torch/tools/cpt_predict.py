@@ -213,9 +213,11 @@ def build_args():
     p.add_argument("--conf", type=float, default=0.5,
                    help="--detect keeps detections scoring above this")
     p.add_argument("--checkpoint", default=None,
-                   help="vinvl_vg_x152c4.pth (reference layout)")
+                   help="vinvl_vg_x152c4.pth (reference layout, a "
+                        "'module.'-wrapped one too) or a Detectron .pkl")
     p.add_argument("--oscar_checkpoint", default=None,
-                   help="Oscar pretrained_base pytorch_model.bin")
+                   help="Oscar pretrained_base pytorch_model.bin (a "
+                        "'module.'-wrapped one too)")
     p.add_argument("--vocab", default=None)
     p.add_argument("--out", default=None, help="overlay PNG path")
     p.add_argument("--workdir", default=None,
@@ -247,17 +249,18 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
     bert_cfg = bert_config(hidden_size, num_hidden_layers,
                            region_feature_dim(det_cfg), attention_impl)
     if checkpoint:
-        det_sd = dconv.load_torch_file(checkpoint)
+        det_state = dconv.load_vinvl_checkpoint(checkpoint, det_cfg)
     else:
         print("WARNING: random detector weights (no --checkpoint)")
-        det_sd = dconv.random_vinvl_state_dict(det_cfg, seed=seed)
+        det_state = dconv.state_from_reference(
+            dconv.random_vinvl_state_dict(det_cfg, seed=seed), det_cfg)
     if oscar_checkpoint:
         bert_sd = dconv.load_torch_file(oscar_checkpoint)
     else:
         print("WARNING: random Oscar weights (no --oscar_checkpoint)")
         bert_sd = bconv.random_oscar_state_dict(bert_cfg, seed=seed)
     tokenizer = BertTokenizer(vocab if vocab else toy_vocab())
-    return Resident(det_cfg, dconv.state_from_reference(det_sd, det_cfg),
+    return Resident(det_cfg, det_state,
                     bert_cfg, bconv.state_from_reference(bert_sd, bert_cfg),
                     tokenizer, torch.device(device), dtype)
 

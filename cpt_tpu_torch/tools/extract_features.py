@@ -65,7 +65,8 @@ def build_args():
     p.add_argument("--det_file", default=None)
     p.add_argument("--image_root", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="vinvl_vg_x152c4.pth (reference layout)")
+                   help="vinvl_vg_x152c4.pth (reference layout, a "
+                        "'module.'-wrapped one too) or a Detectron .pkl")
     p.add_argument("--output", required=True, help="predictions.tsv path")
     p.add_argument("--total_step", type=int, default=None)
     p.add_argument("--cur_step", type=int, default=None)
@@ -202,15 +203,15 @@ def detector_config(args):
 def build_detector(cfg, args) -> AttrRCNN:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     if args.checkpoint:
-        sd = dconv.load_torch_file(args.checkpoint)
+        state = dconv.load_vinvl_checkpoint(args.checkpoint, cfg)
         print(f"loaded {args.checkpoint}")
     else:
         print("WARNING: random detector weights (no --checkpoint)")
-        sd = dconv.random_vinvl_state_dict(cfg, seed=args.seed)
+        state = dconv.state_from_reference(
+            dconv.random_vinvl_state_dict(cfg, seed=args.seed), cfg)
     with torch.device(args.device):
         model = AttrRCNN(cfg, dtype).eval()
-    missing, unexpected = model.load_state_dict(
-        dconv.state_from_reference(sd, cfg), strict=False)
+    missing, unexpected = model.load_state_dict(state, strict=False)
     missing = [k for k in missing
                if not k.startswith(("attr_extractor.", "attr_predictor."))]
     if missing or unexpected:

@@ -50,7 +50,8 @@ def build_args():
     p.add_argument("--vocab", default=None,
                    help="vocab.txt (bert-base-uncased); toy vocab if omitted")
     p.add_argument("--checkpoint", default=None,
-                   help="Oscar pytorch_model.bin (random weights if omitted)")
+                   help="Oscar pytorch_model.bin, a 'module.'-wrapped one too "
+                        "(random weights if omitted)")
     p.add_argument("--output", default=None, help="predictions json out")
     p.add_argument("--txt_seq_len", type=int, default=70)
     p.add_argument("--img_seq_len", type=int, default=50)

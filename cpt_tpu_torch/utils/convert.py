@@ -13,6 +13,10 @@
 
 :func:`random_oscar_state_dict` draws random weights in the reference
 layout from a seed (the serving path without a checkpoint).
+:func:`align_state_dict` suffix-aligns a checkpoint whose keys carry
+another nesting (a ``module.`` DDP wrapper, a bare ``BertModel``) onto the
+reference layout; :func:`state_from_reference` falls back to it, as the
+JAX converter does.
 """
 from __future__ import annotations
 
@@ -39,6 +43,10 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig
                          ) -> Dict[str, torch.Tensor]:
     """``BertImgForPreTraining`` state dict → port ``REC_MLM_CPT`` state dict."""
     sd = {k: _np(v) for k, v in sd.items()}
+    if "bert.embeddings.word_embeddings.weight" not in sd:
+        # another nesting (e.g. a "module." DDP wrapper): suffix-align onto
+        # the canonical Oscar layout (cpt_tpu/utils/convert.py:116-123)
+        sd = align_state_dict(sd, random_oscar_state_dict(config))
     if "bert.embeddings.word_embeddings.weight" not in sd:
         raise KeyError("expected the Oscar pytorch_model.bin layout "
                        "(bert.* and cls.predictions.* keys)")
@@ -197,3 +205,37 @@ def random_oscar_state_dict(config: BertConfig, seed: int = 0
         sd[pre + "output.LayerNorm.weight"] = np.ones(h, np.float32)
         sd[pre + "output.LayerNorm.bias"] = r(h)
     return sd
+
+
+def align_state_dict(loaded: Mapping[str, Any], expected: Mapping[str, Any]
+                     ) -> Dict[str, np.ndarray]:
+    """Suffix-match checkpoint keys onto the converter's expected names
+    (reference ``model_serialization.py:35-100``
+    align_and_update_state_dicts; a copy of
+    ``cpt_tpu/utils/convert.py::align_state_dict``).
+
+    For each expected key, pick the loaded key related by suffix, in either
+    direction (model keys with extra nesting, or checkpoint keys with a
+    ``module.``/``model.`` prefix), preferring an exact match, then the
+    longest common suffix. Shape-mismatched picks are skipped, so heads the
+    checkpoint does not have keep their initialization."""
+    out: Dict[str, np.ndarray] = {}
+    loaded_keys = list(loaded.keys())
+    for ek, ev in expected.items():
+        best, best_len = None, -1
+        for lk in loaded_keys:
+            if lk == ek:
+                best, best_len = lk, 1 << 30
+                break
+            if lk.endswith("." + ek) or ek.endswith("." + lk):
+                score = min(len(lk), len(ek))
+                if score > best_len:
+                    best, best_len = lk, score
+        if best is None:
+            continue
+        v = _np(loaded[best])
+        eshape = getattr(ev, "shape", None)
+        if eshape is not None and tuple(v.shape) != tuple(eshape):
+            continue
+        out[ek] = v
+    return out

@@ -47,6 +47,9 @@ from cpt_tpu_torch.structures.boxes import decode_boxes
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
+from test_torch_watchdog import guards
+
+guard_module, guard_case = guards(120)
 
 # f32 through the same formulas in another framework: summation-order and
 # exp/log rounding noise only (box coordinates are O(100) pixels)

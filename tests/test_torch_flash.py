@@ -23,6 +23,9 @@ from cpt_tpu_torch.models.bert.model import BertImgModel
 from cpt_tpu_torch.ops.attention import einsum_mha, flash_mha
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.utils import convert as bconv
+from test_torch_watchdog import guards, run_interpret
+
+guard_module, guard_case = guards(120)
 
 # f32 through the same formulas: summation-order noise only (outputs O(1))
 ATOL = 1e-5
@@ -52,9 +55,8 @@ def test_flash_mha_matches_jax(s, bias):
     """S = 120 and 200 pad to one and two 128-blocks in the JAX wrapper."""
     q, k, v, b = _qkv_bias(s, bias)
     scale = 1.0 / 32 ** 0.5
-    want = np.asarray(jattn.flash_mha(
-        *map(jnp.asarray, (q, k, v)), None if b is None else jnp.asarray(b),
-        sm_scale=scale))
+    want = run_interpret(lambda *a: jattn.flash_mha(*a, sm_scale=scale),
+                         q, k, v, b)
     tq, tk, tv = map(torch.from_numpy, (q, k, v))
     tb = None if b is None else torch.from_numpy(b)
     got = flash_mha(tq, tk, tv, tb, sm_scale=scale)
@@ -158,10 +160,13 @@ def test_bert_img_model_flash_cases_match_jax(flash_case, case):
         kw["head_mask"] = rng.rand(cfg.num_hidden_layers, 1,
                                    cfg.num_attention_heads, 1, 1
                                    ).astype(np.float32)
-    want, _ = JaxBert(jcfg, dtype=jnp.float32).apply(
-        {"params": jparams["params"]["bert"]},
-        *map(jnp.asarray, (ids, seg, mask)), img_feats=jnp.asarray(feats),
-        **{k: jnp.asarray(v) for k, v in kw.items()})
+    jmodel = JaxBert(jcfg, dtype=jnp.float32)
+    names = ["img_feats", *kw]
+    want, _ = run_interpret(
+        lambda p, i, sg, m, *rest: jmodel.apply(p, i, sg, m,
+                                                **dict(zip(names, rest))),
+        {"params": jparams["params"]["bert"]}, ids, seg, mask, feats,
+        *kw.values())
     model = BertImgModel(cfg, torch.float32).eval()
     state = bconv.state_from_reference(sd, cfg)
     model.load_state_dict({k[len("bert."):]: v for k, v in state.items()

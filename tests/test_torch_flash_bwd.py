@@ -4,17 +4,19 @@ backward and ``flash_mha``'s autograd against ``jax.vjp`` through the JAX
 backward kernels run in interpret mode on the CPU) in f32. Shapes stay
 tiny: interpret mode costs seconds per call."""
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from cpt_tpu.ops import attention as jattn
+from cpt_tpu_torch.kernels.build import KernelError
 from cpt_tpu_torch.ops import attention
 from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
                                          flash_mha_bwd_dq, flash_mha_fwd,
                                          reference_flash_mha_bwd)
+from test_torch_watchdog import guards, run_interpret
+
+guard_module, guard_case = guards(120)
 
 # f32 through the same formulas: summation-order noise only (gradients O(1))
 ATOL = 1e-5
@@ -42,12 +44,12 @@ def _inputs(s, bias, seed=0, d=32):
 def _jax_grads(q, k, v, do, b, scale):
     """(dq, dk, dv) of the JAX ``flash_mha``; ``jax.vjp`` runs inside the
     interpret-mode context so that the backward kernels run there too."""
-    with pltpu.force_tpu_interpret_mode():
-        _, vjp = jax.vjp(
-            lambda q_, k_, v_: jattn.flash_mha(q_, k_, v_, jnp.asarray(b),
-                                               sm_scale=scale),
-            *map(jnp.asarray, (q, k, v)))
-        return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+    def grads(q_, k_, v_, do_, b_):
+        _, vjp = jax.vjp(lambda *a: jattn.flash_mha(*a, b_, sm_scale=scale),
+                         q_, k_, v_)
+        return vjp(do_)
+
+    return list(run_interpret(grads, q, k, v, do, b))
 
 
 @pytest.mark.parametrize("s,d,bias", [(40, 32, "3d"), (130, 64, "key")])
@@ -118,9 +120,10 @@ def test_flash_backward_guards_and_bias_gradient():
                                       leaves, do_dead)
     assert torch.allclose(dk2, dk) and torch.allclose(dv2, dv)
     bias = torch.zeros(2, 1, 1, 9, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bias gradient"):
+    with pytest.raises(KernelError, match="bias gradient"):
         torch.autograd.grad(flash_mha(*leaves, bias, sm_scale=0.5).sum(),
                             leaves)
+    assert not issubclass(KernelError, RuntimeError)
 
 
 def test_flash_serving_path_keeps_no_graph():

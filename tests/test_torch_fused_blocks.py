@@ -6,7 +6,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from cpt_tpu.ops import fused_attention as jfa
 from cpt_tpu.ops import fused_ffn as jff
@@ -14,6 +13,9 @@ from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
                                                layer_norm_f32,
                                                reference_attention_core)
 from cpt_tpu_torch.ops.fused_ffn import fused_ffn
+from test_torch_watchdog import guards, run_interpret
+
+guard_module, guard_case = guards(120)
 
 # f32 CPU: the kernels and references differ only in summation order
 F32_TOL = dict(atol=3e-5, rtol=3e-5)
@@ -37,8 +39,8 @@ def test_attention_block_matches_kernel_and_reference(s):
     args = _attn_inputs(3, s, 64, seed=s)
     got = fused_attention_block(*map(torch.from_numpy, args), 4, 1e-12).numpy()
     jargs = list(map(jnp.asarray, args))
-    with pltpu.force_tpu_interpret_mode():
-        kern = jfa.fused_attention_block(*jargs, 4, 1e-12, 1)
+    kern = run_interpret(lambda *a: jfa.fused_attention_block(*a, 4, 1e-12, 1),
+                         *jargs)
     ref = jfa.reference_attention_block(*jargs, num_heads=4, eps=1e-12)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, np.asarray(kern), **F32_TOL)
@@ -78,8 +80,8 @@ def test_ffn_matches_kernel_and_reference(approximate):
     got = fused_ffn(*map(torch.from_numpy, args),
                     approximate=approximate).numpy()
     jargs = list(map(jnp.asarray, args))
-    with pltpu.force_tpu_interpret_mode():
-        kern = jff.fused_ffn(*jargs, approximate=approximate)
+    kern = run_interpret(lambda *a: jff.fused_ffn(*a, approximate=approximate),
+                         *jargs)
     ref = jff._reference_ffn(*jargs, 1e-12, approximate)
     # the Pallas kernel's erf is the A&S polynomial (|err| <= 5e-7)
     np.testing.assert_allclose(got, np.asarray(kern), **F32_TOL)

@@ -11,6 +11,7 @@ import dataclasses
 import pytest
 import torch
 
+from cpt_tpu_torch.kernels.build import KernelError
 from cpt_tpu_torch.kernels.gemm import attention_core
 from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
                                          flash_mha_bwd_dq, flash_mha_fwd,
@@ -22,7 +23,8 @@ from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
 from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
 from cpt_tpu_torch.ops.nms import nms_padded
 from cpt_tpu_torch.ops.nms_pallas import nms_pallas
-from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
+from cpt_tpu_torch.ops.grouped_conv import (conv_path, grouped_conv3x3,
+                                            launch_grouped_conv3x3,
                                             reference_grouped_conv3x3)
 from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
                                                 batched_roi_align_plain)
@@ -156,6 +158,70 @@ def test_ffn_kernel(dev, approximate):
     got = fused_ffn(*args, approximate=approximate)
     want = reference_ffn(*[a.float() for a in args], 1e-12, approximate)
     _close(got, want, 3e-2)
+
+
+def _conv_case(dev, n, h, w, c, cpg, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn(n, h, w, c, generator=g, device=dev)).bfloat16()
+    tap_mean = torch.linspace(-0.03, 0.03, 9, device=dev).view(3, 3, 1, 1)
+    wt = (torch.randn(3, 3, cpg, c, generator=g, device=dev) * 0.05
+          + tap_mean).bfloat16()
+    s = torch.rand(c, generator=g, device=dev) + 0.5
+    b = torch.randn(c, generator=g, device=dev) * 0.5
+    return x, wt, s, b
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("n,h,w,c,cpg", [
+    (2, 19, 37, 128, 8), (2, 19, 37, 128, 16), (2, 19, 37, 128, 32),
+    (2, 19, 37, 128, 64), (1, 7, 7, 256, 64), (1, 5, 9, 64, 8),
+    (3, 33, 17, 192, 16)])
+def test_grouped_conv_mma_path(dev, n, h, w, c, cpg, stride):
+    """K1's tensor-core path at cpg 8, 16, 32 and 64, stride 1 and 2, on
+    ragged maps (H and W not multiples of the 8x16, 4x16 or 8x8 tiles, W
+    odd, N = 1, maps of at most 64 output pixels) with several groups in a
+    64-channel slice; counted on its path; and a wrong-group fault (x's
+    group axis rolled) misses the tolerance."""
+    groups = c // cpg
+    assert conv_path(c, cpg) == "mma"
+    x, wt, s, b = _conv_case(dev, n, h, w, c, cpg)
+    before = dict(grouped_conv3x3.path_launches)
+    total = grouped_conv3x3.launches
+    got = grouped_conv3x3(x, wt, s, b, groups, stride, True)
+    assert grouped_conv3x3.launches == total + 1
+    assert grouped_conv3x3.path_launches == {"mma": before["mma"] + 1,
+                                             "simt": before["simt"]}
+    want = reference_grouped_conv3x3(x.float(), wt.float(), s, b, groups,
+                                     stride, True)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _close(got, want, 1e-2)
+    wrong = reference_grouped_conv3x3(
+        x.float().view(n, h, w, groups, cpg).roll(1, 3).view(n, h, w, c),
+        wt.float(), s, b, groups, stride, True)
+    assert float((wrong - want).abs().max()) > 3e-2 * float(want.abs().max())
+
+
+def test_grouped_conv_paths_agree_and_count(dev):
+    """Both of K1's kernels on the same X152-like inputs agree within the
+    tolerance, each counted on its own path; the rule sends cpg 4 to the
+    CUDA-core kernel and the tensor-core kernel refuses it."""
+    x, wt, s, b = _conv_case(dev, 2, 20, 24, 256, 32, seed=1)
+    want = reference_grouped_conv3x3(x.float(), wt.float(), s, b, 8, 2, True)
+    before = dict(grouped_conv3x3.path_launches)
+    for path in ("mma", "simt"):
+        _close(launch_grouped_conv3x3(path, x, wt, s, b, 8, 2, True), want, 1e-2)
+    assert grouped_conv3x3.path_launches == {k: v + 1 for k, v in before.items()}
+    assert conv_path(16, 4) == "simt" and conv_path(2048, 64) == "mma"
+    with pytest.raises(ValueError, match="tensor-core"):
+        launch_grouped_conv3x3("mma", x[..., :16], wt[:, :, :4, :16], None,
+                               None, 4, 1, False)
+
+
+def test_grouped_conv_mma_takes_misaligned_views(dev):
+    x, wt, s, b = _conv_case(dev, 2, 11, 13, 128, 32, seed=2)
+    assert torch.equal(grouped_conv3x3(_misaligned(x), _misaligned(wt), s, b, 4,
+                                       1, True),
+                       grouped_conv3x3(x, wt, s, b, 4, 1, True))
 
 
 def test_non_bf16_input_raises(dev):
@@ -360,7 +426,7 @@ def test_flash_backward_rejects_a_bias_gradient(dev):
     q = torch.zeros(1, 2, 16, 64, device=dev, dtype=torch.bfloat16,
                     requires_grad=True)
     bias = torch.zeros(1, 1, 1, 16, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="bias gradient"):
+    with pytest.raises(KernelError, match="bias gradient"):
         torch.autograd.grad(flash_mha(q, q, q, bias, sm_scale=0.125).sum(), q)
 
 

@@ -28,6 +28,9 @@ from cpt_tpu_torch.models.detector.convert import random_vinvl_state_dict
 from cpt_tpu_torch.utils import tokenization as tok
 from cpt_tpu_torch.utils import tsv
 from cpt_tpu_torch.utils.convert import random_oscar_state_dict
+from test_torch_watchdog import guards
+
+guard_module, guard_case = guards(150)
 
 REPO = Path(__file__).resolve().parent.parent
 CAPTIONS = ["The woman on the left.", "a dog, and a cat?", "what's RED",
@@ -72,7 +75,8 @@ def _foreign_imports(path: Path):
 
 
 def test_no_source_of_the_port_imports_jax_or_cpt_tpu(tmp_path):
-    files = sorted((REPO / "cpt_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "cpt_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "chip_e2e.py"]
     assert len(files) > 30
     found = {str(f.relative_to(REPO)): list(_foreign_imports(f)) for f in files}
     assert {f: v for f, v in found.items() if v} == {}
@@ -197,3 +201,27 @@ def test_random_state_dicts_copy(seed):
     kw = dict(vocab_size=150, img_feature_dim=22)
     _same_arrays(random_oscar_state_dict(bert_cfg.tiny_bert_config(**kw), seed),
                  jax_oscar(jbert_cfg.tiny_bert_config(**kw), seed))
+
+
+def test_checkpoint_loader_copies():
+    """The port's copies of ``rename_c2_keys`` and ``align_state_dict`` give
+    the JAX package's mapping on the same keys."""
+    from cpt_tpu.models.detector.convert import rename_c2_keys as jrename
+    from cpt_tpu.utils.convert import align_state_dict as jalign
+    from cpt_tpu_torch.models.detector.convert import rename_c2_keys
+    from cpt_tpu_torch.utils.convert import align_state_dict
+
+    keys = ["conv1_w", "res_conv1_bn_s", "res_conv1_bn_b", "res2_0_branch2a_w",
+            "res2_0_branch2b_bn_s", "res3_2_branch2c_bn_b", "res4_7_branch1_w",
+            "res5_1_branch1_bn_s", "conv_rpn_w", "conv_rpn_b",
+            "rpn_cls_logits_w", "rpn_bbox_pred_b", "cls_score_w",
+            "bbox_pred_b", "pred_w", "pred_b", "fc6_w"]
+    assert rename_c2_keys(keys) == jrename(keys)
+    expected = {"bert.a.weight": np.zeros((2, 2)), "b.weight": np.zeros(3),
+                "c.bias": np.zeros(4), "head.layer4.0.conv1.weight": np.zeros(1)}
+    loaded = {"module.bert.a.weight": np.ones((2, 2)), "b.weight": np.ones(5),
+              "x.c.bias": np.full(4, 2.0), "layer4.0.conv1.weight": np.ones(1),
+              "conv1.weight": np.full(1, 3.0)}
+    _same_arrays(align_state_dict(loaded, expected), jalign(loaded, expected))
+    assert sorted(align_state_dict(loaded, expected)) == [
+        "bert.a.weight", "c.bias", "head.layer4.0.conv1.weight"]

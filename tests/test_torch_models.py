@@ -24,6 +24,9 @@ from cpt_tpu_torch.models.detector import config as det_cfg
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.utils import convert as bconv
+from test_torch_watchdog import guards
+
+guard_module, guard_case = guards(120)
 
 # f32 on the CPU through a whole tiny network: summation-order noise only
 TOL = dict(atol=2e-4, rtol=2e-4)

@@ -6,7 +6,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 import cpt_tpu.ops.roi_align_pallas as RP
 from cpt_tpu.ops import grouped_conv as jgc
@@ -16,6 +15,9 @@ from cpt_tpu_torch.ops import render
 from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
 from cpt_tpu_torch.ops.roi_align import interp_matrices, roi_align
 from cpt_tpu_torch.ops.roi_align_pallas import batched_roi_align
+from test_torch_watchdog import guards, run_interpret
+
+guard_module, guard_case = guards(120)
 
 # f32 CPU comparisons: the two frameworks sum in different orders
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -93,12 +95,10 @@ def _port_conv(x, w, s, b, g, stride, relu=True):
 def test_grouped_conv_matches_sd_kernel(cpg):
     """K1 (stride 1) vs the slice-dense Pallas kernel in interpret mode."""
     x, w, s, b = _conv_inputs(2, 8, 8, 128, 128 // cpg, seed=cpg)
-    with pltpu.force_tpu_interpret_mode():
-        want = jgc.grouped_conv3x3_sd(jnp.asarray(x), jnp.asarray(w),
-                                      jnp.asarray(s), jnp.asarray(b),
-                                      128 // cpg, True)
+    want = run_interpret(lambda *a: jgc.grouped_conv3x3_sd(*a, 128 // cpg, True),
+                         x, w, s, b)
     np.testing.assert_allclose(_port_conv(x, w, s, b, 128 // cpg, 1),
-                               np.asarray(want), **F32_TOL)
+                               want, **F32_TOL)
 
 
 @pytest.mark.parametrize("h,w,ch,g", [(9, 12, 64, 8), (16, 16, 32, 4)])
@@ -107,11 +107,10 @@ def test_grouped_conv_stride2_matches_kernel(h, w, ch, g):
     kernel in interpret mode and the XLA reference."""
     x, wt, s, b = _conv_inputs(1, h, w, ch, g, seed=h)
     args = (jnp.asarray(x), jnp.asarray(wt), jnp.asarray(s), jnp.asarray(b))
-    with pltpu.force_tpu_interpret_mode():
-        want = jgc.grouped_conv3x3(*args, g, 2, True)
+    want = run_interpret(lambda *a: jgc.grouped_conv3x3(*a, g, 2, True), *args)
     ref = jgc.reference_grouped_conv3x3(*args, g, 2, True)
     got = _port_conv(x, wt, s, b, g, 2)
-    np.testing.assert_allclose(got, np.asarray(want), **F32_TOL)
+    np.testing.assert_allclose(got, want, **F32_TOL)
     np.testing.assert_allclose(got, np.asarray(ref), **F32_TOL)
 
 
@@ -174,3 +173,34 @@ def test_roi_align_single_map_bf16_matches_xla():
     got = roi_align(torch.from_numpy(feats).bfloat16(), torch.from_numpy(rois),
                     spatial_scale=1 / 16.0, pooled=4, sampling=0).float().numpy()
     np.testing.assert_allclose(got, want, atol=2 * 2 ** -8 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("h,w,c,groups,stride", [
+    (10, 12, 64, 8, 1), (10, 12, 64, 8, 2), (9, 7, 128, 4, 2),
+    (6, 8, 128, 2, 1)])
+def test_grouped_conv_named_faults_miss(h, w, c, groups, stride):
+    """The faults ``chip_smoke.py`` holds K1 to (neighbouring group, taps
+    transposed, bias dropped, at stride 2 the grid one pixel off), on
+    inputs drawn as it draws them, each miss the plain version by more
+    than K1's tolerance, so a kernel with that slip would fail the check."""
+    import chip_smoke
+
+    rng = np.random.RandomState(h + c + stride)
+    x = np.maximum(rng.randn(2, h, w, c), 0).astype(np.float32)
+    tap_mean = np.linspace(-0.03, 0.03, 9).reshape(3, 3, 1, 1)
+    wt = (rng.randn(3, 3, c // groups, c) * 0.05 + tap_mean).astype(np.float32)
+    s = (rng.rand(c) + 0.5).astype(np.float32)
+    b = (rng.randn(c) * 0.5).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, wt, s, b)]
+    want = _port_conv(x, wt, s, b, groups, stride)
+    tol = chip_smoke.TOL["K1"] * np.abs(want).max()
+    faults = chip_smoke.k1_faults(*args, groups, stride)
+    assert sorted(faults) == sorted(["neighbour_group", "taps_transposed",
+                                     "no_bias"] + ["grid_shifted"] * (stride == 2))
+    for name, fault in faults.items():
+        got = fault().numpy()
+        assert got.shape == want.shape, name
+        assert np.abs(got - want).max() > 3 * tol, name
+    if stride == 2:   # the unshifted grid is the stride-2 output itself
+        full = _port_conv(x, wt, s, b, groups, 1)
+        np.testing.assert_allclose(full[:, ::2, ::2], want, **F32_TOL)

@@ -41,9 +41,11 @@ from cpt_tpu_torch.ops import quant
 from cpt_tpu_torch.ops.grouped_conv import (exact_conv,
                                             reference_grouped_conv3x3_int8)
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+from test_torch_watchdog import guards, run_interpret
 
 REPO = Path(__file__).resolve().parent.parent
 PRECISIONS = ["int8", "int8:0.05"]
+guard_module, guard_case = guards(300)
 
 
 def _rel(got, want) -> float:
@@ -180,8 +182,8 @@ def _cfg(module, precision):
         roi_heads=dataclasses.replace(c.roi_heads, head_chunk=4))
 
 
-@pytest.fixture(scope="module")
-def fixture():
+@functools.lru_cache(maxsize=None)
+def _inputs():
     sd = random_vinvl_state_dict(jdet_cfg.tiny_detector_config(), seed=3)
     rng = np.random.RandomState(0)
     images = (rng.rand(3, 64, 64, 3) * 255 - 120).astype(np.float32)
@@ -192,7 +194,17 @@ def fixture():
     return sd, images, boxes, valid
 
 
-def _jax_force(sd, precision, images, boxes, valid):
+@pytest.fixture(scope="module")
+def fixture():
+    return _inputs()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_force(precision):
+    """The jitted JAX force-boxes forward of the tiny detector on
+    :func:`_inputs`, once per precision for the whole module (called from
+    the cases, so each first call runs under its case's watchdog)."""
+    sd, images, boxes, valid = _inputs()
     jcfg = _cfg(jdet_cfg, precision)
     model = JaxRCNN(jcfg, dtype=jnp.float32)
     params = {"params": convert_detector_state_dict(sd, jcfg)}
@@ -233,7 +245,7 @@ def test_resnet_c4_int8_matches(fixture, precision):
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_force_boxes_int8_matches(fixture, precision):
     sd, images, boxes, valid = fixture
-    want = _jax_force(sd, precision, images, boxes, valid)
+    want = _jax_force(precision)
     got = _port_force(sd, precision, images, boxes, valid)
     for k in ("box_features", "scores", "scores_all"):
         assert _rel(got[k], want[k]) <= 1e-5, k
@@ -247,7 +259,7 @@ def test_precision_is_honoured(fixture):
     sd, images, boxes, valid = fixture
     int8 = _port_force(sd, "int8", images, boxes, valid)["box_features"]
     bf16 = _port_force(sd, "bf16", images, boxes, valid)["box_features"]
-    want = _jax_force(sd, "int8", images, boxes, valid)["box_features"]
+    want = _jax_force("int8")["box_features"]
     assert _rel(bf16, want) > 100 * 1e-5
     assert _rel(int8, want) <= 1e-5
 
@@ -331,10 +343,8 @@ def test_ffn_int8_plain_matches_the_pallas_kernel(tm):
         got = quant.quant_ffn_weights(_t(w))
         np.testing.assert_array_equal(got.data.numpy(), np.asarray(wq))
         np.testing.assert_array_equal(got.scale.numpy(), np.asarray(s))
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(ns["ffn_int8"](jnp.asarray(x), w1q, s1, jnp.asarray(b1),
-                                         w2q, s2, jnp.asarray(b2),
-                                         jnp.asarray(gamma), jnp.asarray(beta), tm))
+    want = run_interpret(lambda *a: ns["ffn_int8"](*a, tm), x, w1q, s1, b1, w2q,
+                         s2, b2, gamma, beta)
     args = [_t(a) for a in (x, np.asarray(w1q), np.asarray(s1), b1,
                             np.asarray(w2q), np.asarray(s2), b2, gamma, beta)]
     got = quant.ffn_int8(*args, tm).numpy()

@@ -36,6 +36,9 @@ from cpt_tpu_torch.models.detector.config import tiny_detector_config
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
+from test_torch_watchdog import guards
+
+guard_module, guard_case = guards(300)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAPTION = "the woman on the left"

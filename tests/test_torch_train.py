@@ -13,7 +13,6 @@ import numpy as np
 import optax
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 from cpt_tpu.config.bert import tiny_bert_config as jax_tiny_bert_config
 from cpt_tpu.data import refcoco as jrefcoco
@@ -30,12 +29,15 @@ from cpt_tpu_torch.data import refcoco
 from cpt_tpu_torch.engine import train
 from cpt_tpu_torch.kernels.build import KernelError
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
-from cpt_tpu_torch.models.bert.model import Dropout
+from cpt_tpu_torch.models.bert.model import BertImgModel, Dropout
 from cpt_tpu_torch.ops.fused_attention import fused_attention_block
 from cpt_tpu_torch.ops.fused_ffn import fused_ffn
 from cpt_tpu_torch.tools import refcoco_cpt
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils import tokenization as tok
+from test_torch_watchdog import guards, run_interpret
+
+guard_module, guard_case = guards(300)
 
 # a tiny network in f32, gradients against JAX's: summation-order noise
 # relative to each tensor's largest gradient
@@ -72,9 +74,11 @@ def test_fused_block_grads_match_jax_vjp(block):
         pfn = lambda *a: fused_ffn(*a, 1e-12, False)
         n_diff = 7
     g = r(b, s, h)
-    with pltpu.force_tpu_interpret_mode():
-        want_out, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
-        want = vjp(jnp.asarray(g))
+    def out_and_grads(g_, *a):
+        out, vjp = jax.vjp(jfn, *a)
+        return out, vjp(g_)
+
+    want_out, want = run_interpret(out_and_grads, g, *args)
     leaves = [_t(a).requires_grad_(i < n_diff) for i, a in enumerate(args)]
     out = pfn(*leaves)
     assert out.grad_fn is not None
@@ -135,8 +139,7 @@ def test_rec_mlm_cpt_loss_and_grads_match_jax(train_case, attention_impl):
         from cpt_tpu.models.bert.heads import cross_entropy_ignore_index
         return cross_entropy_ignore_index(at_mask, jnp.asarray(labels))
 
-    with pltpu.force_tpu_interpret_mode():
-        want_loss, want_grads = jax.value_and_grad(loss_fn)(jparams)
+    want_loss, want_grads = run_interpret(jax.value_and_grad(loss_fn), jparams)
     want = bconv.params_from_jax(want_grads, port.config)
     port.eval()
     _, at_mask = port(*map(_t, (ids, seg, mask)), img_feats=_t(feats),
@@ -379,20 +382,38 @@ def test_tool_trains_then_evaluates(fixture_paths, monkeypatch):
         refcoco_cpt.main(_tool_args(fixture_paths) + ["--dp", "2"])
 
 
-@pytest.mark.parametrize("fault", [RuntimeError, KernelError])
+@pytest.mark.parametrize("fault", [RuntimeError, KernelError, "bias_grad"])
 def test_batch_skip_does_not_swallow_kernel_faults(fixture_paths, monkeypatch,
                                                    fault):
     """``refcoco_cpt.train`` skips a batch that raises RuntimeError (as the
-    reference does); a kernel fault is not a RuntimeError and ends the run."""
+    reference does); a kernel fault is not a RuntimeError and ends the run.
+    ``bias_grad``: a real step under ``attention_impl="flash"`` whose
+    attention bias needs a gradient reaches ``flash_mha``'s gate, which
+    must stop the tool instead of letting it skip every batch."""
+    argv = _tool_args(fixture_paths) + [
+        "--train_data_file", fixture_paths["data_file"],
+        "--num_train_epochs", "1", "--per_gpu_train_batch_size", "4"]
+    if fault == "bias_grad":
+        config = refcoco_cpt.model_config
+        embed = BertImgModel.embed
+
+        def leaf_bias(self, *a, **kw):
+            emb, bias = embed(self, *a, **kw)
+            return emb, bias.detach().requires_grad_(self.training)
+
+        monkeypatch.setattr(refcoco_cpt, "model_config", lambda args: dataclasses.replace(
+            config(args), attention_impl="flash", attention_probs_dropout_prob=0.0))
+        monkeypatch.setattr(BertImgModel, "embed", leaf_bias)
+        with pytest.raises(KernelError, match="bias gradient"):
+            refcoco_cpt.main(argv)
+        return
+
     def failing_step(*a, **kw):
         def step(*args):
             raise fault("injected")
         return step
 
     monkeypatch.setattr(refcoco_cpt.train_lib, "make_mlm_train_step", failing_step)
-    argv = _tool_args(fixture_paths) + [
-        "--train_data_file", fixture_paths["data_file"],
-        "--num_train_epochs", "1", "--per_gpu_train_batch_size", "4"]
     if fault is KernelError:
         with pytest.raises(KernelError, match="injected"):
             refcoco_cpt.main(argv)
