@@ -9,7 +9,9 @@ commits are timed by one script on one card.
 parent commit, unpacked with ``git archive``); without it, this one's. The
 run times K1 at ``chip_smoke.py``'s seven X152 shapes through the package's
 ``grouped_conv3x3`` (CUDA events, on the path its dispatch rule picks, with
-its error against the plain version in f32), then phase 4's 3 grounding
+its error against the plain version in f32), K3's attention core and K6 at
+chip_smoke's five attention shapes by device time beside SDPA's, then phase
+4's 3 grounding
 requests and 3 ``--detect`` requests (one of each under
 ``torch.profiler``), then ``tools/extract_features --synthetic 4
 --copies_per_chunk 4 --precision bf16`` (the second of two runs), and
@@ -54,6 +56,71 @@ def time_k1() -> list:
     return rows
 
 
+def time_attention() -> list:
+    """K3's core (``attention_core``) at ``[16,12,120,64]`` and
+    ``[16,12,128,64]`` and K6 (``flash_mha``) at ``[16,12,120,64]`` with a
+    key bias, ``[4,12,512,64]`` with a 3-D bias and ``[2,12,2048,64]`` with
+    a key bias, on chip_smoke's kinds of inputs: the kernel's device time
+    (``cs.device_ms``, 10 launches), its CUDA-event mean of back-to-back
+    launches, SDPA's device time on the same inputs, and max |Δ| / max |ref|
+    against the plain version in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.kernels.gemm import attention_core
+    from cpt_tpu_torch.ops.attention import flash_mha, reference_flash_mha
+    from cpt_tpu_torch.ops.fused_attention import reference_attention_core
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+
+    def keys(b, s_len):
+        kb = torch.where(torch.rand(b, s_len, generator=g, device="cuda") > 0.2,
+                         0.0, -10000.0)
+        kb[-1] = -10000.0
+        return kb
+
+    def row(label, kernel, name, plain, sdpa):
+        got, want = kernel().float(), plain()
+        err = float((got - want).abs().max() / want.abs().max())
+        dev_ms, how = cs.device_ms(kernel, name)
+        sdpa_ms, _ = cs.device_ms(sdpa)
+        rows.append({"shape": label, "device_ms": dev_ms, "timed_by": how,
+                     "ms": cs.cuda_ms(kernel), "sdpa_device_ms": sdpa_ms,
+                     "rel_err": err})
+        print(f"{label}: device {dev_ms:.4f} ms ({how}), back-to-back "
+              f"{rows[-1]['ms']:.4f} ms, SDPA device {sdpa_ms:.4f} ms, max |Δ| "
+              f"/ max |ref| {err:.3e}", flush=True)
+
+    for s_len in (120, 128):
+        qkv = (torch.randn(16, s_len, 2304, generator=g, device="cuda") * 1.5
+               ).bfloat16()
+        kb = keys(16, s_len)
+        qh, kh, vh = (t.transpose(1, 2) for t in
+                      qkv.view(16, s_len, 3, 12, 64).unbind(2))
+        mask = kb[:, None, None, :].bfloat16()
+        row(f"K3 core qkv=[16,{s_len},2304]",
+            lambda: attention_core(qkv, kb, 12, 0.125), "attention_kernel",
+            lambda: reference_attention_core(qkv, kb, 12, 0.125),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                   scale=0.125))
+    for b, s_len, bias in ((16, 120, "key"), (4, 512, "3d"), (2, 2048, "key")):
+        q, k, v = (torch.randn(b, 12, s_len, 64, generator=g, device="cuda")
+                   for _ in range(3))
+        q, k, v = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16()
+        kb = (keys(b, s_len)[:, None, None, :] if bias == "key" else
+              torch.randn(b, 1, s_len, s_len, generator=g, device="cuda") * 4)
+        mask = (kb * 0.125).bfloat16()
+        row(f"K6 q=[{b},12,{s_len},64] bias={list(kb.shape)}",
+            lambda: flash_mha(q, k, v, kb, sm_scale=0.125),
+            "flash_attention_kernel",
+            lambda: reference_flash_mha(q.float(), k.float(), v.float(), kb,
+                                        sm_scale=0.125),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                   scale=0.125))
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--package", default=None,
@@ -85,7 +152,8 @@ def main(argv=None) -> int:
         # one path
         cs.k1_paths = lambda counters, launches, where: {}
 
-    out = {"card": smi, "package": package, "k1": time_k1()}
+    out = {"card": smi, "package": package, "k1": time_k1(),
+           "attention": time_attention()}
     res, _ = cs.build_resident()
     out["ground"] = cs.run_requests(res, counters, profile=True)
     out["detect"] = cs.run_detect_requests(res, counters)
@@ -104,6 +172,8 @@ def main(argv=None) -> int:
     print(f"extract_features --precision bf16: {info['copies']} copies, "
           f"{info['copies_per_s']:.2f} copies/s; launches {launches}", flush=True)
     summary = {"k1_ms": [r["ms"] for r in out["k1"]],
+               "attention_device_ms": [r["device_ms"] for r in out["attention"]],
+               "sdpa_device_ms": [r["sdpa_device_ms"] for r in out["attention"]],
                "ground_ms": [r["ms"] for r in out["ground"]["requests"]],
                "ground_copies_per_s": out["ground"]["copies_per_s"],
                "detect_step_ms": [r["detect_ms"] for r in out["detect"]["requests"]],

@@ -14,7 +14,10 @@ Phases (any failure raises and the script exits non-zero):
    inputs, and K5 (greedy NMS) against its plain version exactly on the
    same f32 inputs, at the main paths' shapes; time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
-   call (a yardstick the port never calls) with CUDA events, and compute
+   call (a yardstick the port never calls) with CUDA events (K3's core, K6
+   and their SDPA yardsticks also by device time under ``torch.profiler``,
+   with named faults of an unmasked ragged edge and an unrescaled running
+   accumulator), and compute
    each one's bound (the least time for its bytes and operations at the
    card's published peaks); K1 at its seven X152 shapes on the path its
    dispatch rule names (the tensor-core kernel), with named faults (a
@@ -28,8 +31,9 @@ Phases (any failure raises and the script exits non-zero):
    beside the same detector (same boxes, scores within SCORE_TOL of the
    "auto" path's and of the f32 path's, two named faults missing it, K6 12
    launches a scoring batch, K3 none), then one long-context
-   ``BertImgModel`` forward under ``"flash"`` (batch 4, 70 text tokens + 950
-   regions) against the einsum path in f32; check that every kernel of each
+   ``BertImgModel`` forward under ``"flash"`` and one under ``"auto"``
+   (batch 4, 70 text tokens + 950 regions; K6, then K3, 12 launches) against
+   the einsum path in f32; check that every kernel of each
    path ran on it, K1 on the path its rule names; profile one 16-candidate
    grounding request and one detect step with ``torch.profiler``;
 5. few-shot prompt tuning at full width: extract stage-1 features of 16
@@ -194,6 +198,107 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, match: str | None = None, reps: int = 10,
+              warmup: int = 2) -> tuple:
+    """(ms, method): the device time of one call of ``fn``, the mean over
+    ``reps`` launches of the device durations that ``torch.profiler`` (CUDA
+    activity) records, summed over the kernels whose name holds ``match``
+    (every kernel without it; copies and fills left out). Unlike
+    :func:`cuda_ms`, it holds no host time between launches, which bounds a
+    mean over back-to-back launches of a kernel shorter than its wrapper's
+    host work. If the trace holds no device time, it says so and times a
+    CUDA graph of the ``reps`` calls with CUDA events instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))
+                and (match is None or match in e.key))
+    if total > 0:
+        return total / 1e3 / reps, "profiler"
+    print(f"torch.profiler recorded no device time (kernel {match!r}): "
+          f"timing a CUDA graph of {reps} calls", flush=True)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "cuda graph"
+
+
+# Named faults of the attention tiles (K3's core, K6), as plain emulations in
+# f32: ``edge_unmasked``, the keys from S up to the next multiple of 64 enter
+# with score 0 and zero V (an unmasked ragged edge); ``no_rescale``, K6's
+# running accumulator is not rescaled by exp(m_old − m_new) when a 64-key
+# tile raises the row max (the running sum is).
+def pad_keys(t, dim: int, n: int):
+    """``t`` with ``n`` zero rows appended along ``dim``."""
+    import torch
+
+    shape = list(t.shape)
+    shape[dim] = n
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def core_edge_unmasked(qkv, kb, heads: int, scale: float):
+    from cpt_tpu_torch.ops.fused_attention import reference_attention_core
+
+    s = qkv.shape[1]
+    pad = -s % 64
+    return reference_attention_core(pad_keys(qkv, 1, pad), pad_keys(kb, 1, pad),
+                                    heads, scale)[:, :s]
+
+
+def flash_edge_unmasked(q, k, v, kb, scale: float):
+    from cpt_tpu_torch.ops.attention import reference_flash_mha
+
+    s = q.shape[2]
+    pad = -s % 64
+    kb = pad_keys(kb, 3, pad)
+    if kb.shape[2] > 1:
+        kb = pad_keys(kb, 2, pad)
+    return reference_flash_mha(*(pad_keys(t, 2, pad) for t in (q, k, v)), kb,
+                               sm_scale=scale)[:, :, :s]
+
+
+def flash_no_rescale(q, k, v, bias, scale: float):
+    import torch
+
+    s = (torch.einsum("bhqd,bhkd->bhqk", q, k) + bias) * scale
+    m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, s.shape[-1], 64):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1))
+        p = torch.exp(st - m_new[..., None])
+        l = l * torch.exp(m - m_new) + p.sum(-1)
+        acc = acc + p @ v[:, :, k0:k0 + 64]
+        m = m_new
+    return acc / l[..., None]
+
+
 # K1's shapes: the X152 grouped 3×3 of every stage for 8 copies on the
 # 640×1024 canvas (stage 5: 8 copies × 8 RoIs), 32 groups
 K1_SHAPES = [(8, 160, 256, 256, 1), (8, 160, 256, 512, 2), (8, 80, 128, 512, 1),
@@ -277,7 +382,7 @@ def k1_paths(counters, launches: dict, where: str) -> dict:
 
 def compare(name: str, label: str, kernel, plain, exact, rows: list,
             faults: dict | None = None, work: tuple = (0, 0, BF16_OPS_S),
-            library=None) -> None:
+            library=None, device: str | None = None) -> None:
     """Check the kernel's max |Δ| against ``exact()`` (the plain version in
     f32 on the same inputs) within the tolerance, then time the kernel,
     ``plain()`` (the plain version in the kernel's dtype) and ``library()``
@@ -286,7 +391,8 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
     dropped mask, ...) to the reference computed with that fault: each must
     miss the tolerance, which shows the check can fail. ``work`` is
     (bytes moved, operations, peak operations/s of their type) for the
-    bound."""
+    bound. Given ``device`` (the kernel's name), the kernel and ``library``
+    are also timed by device time (:func:`device_ms`)."""
     import torch
 
     got = kernel()
@@ -308,13 +414,21 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
                  "plain_ms": plain_ms, "library_ms": library_ms,
                  "bound_ms": bound_ms, "bound_by": bound_by,
                  "fault_errs": fault_errs})
+    dev_txt = ""
+    if device is not None:
+        rows[-1]["device_ms"], how = device_ms(kernel, device)
+        dev_txt = f" device_ms={rows[-1]['device_ms']:.4f}"
+        if library is not None:
+            rows[-1]["library_device_ms"], _ = device_ms(library)
+            dev_txt += f" library_device_ms={rows[-1]['library_device_ms']:.4f}"
+        dev_txt += f" (device time by {how})"
     faults_txt = "".join(f" {f}={e:.3e} ({e / tol:.1f}x tol)"
                          for f, e in fault_errs.items())
     lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
     print(f"{name} {label}: max_abs_err={err:.3e} tol={tol:.3e} "
           f"({tol / max(err, 1e-30):.1f}x err) ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f}{lib_txt} bound_ms={bound_ms:.4f} "
-          f"({bound_by}){faults_txt}", flush=True)
+          f"({bound_by}){dev_txt}{faults_txt}", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
     caught = [f for f, e in fault_errs.items() if not e > tol]
@@ -445,17 +559,22 @@ def check_kernels(rows: list) -> dict:
 
         qh, kh, vh = qkv.view(16, s_len, 3, heads, 64).unbind(2)
         kb_mask = kb[:, None, None, :].to(bf)
+        core_faults = {"uniform": core_ref(qkv_no_q, kb, scale),
+                       "no_mask": core_ref(qkv, torch.zeros_like(kb), scale),
+                       "no_scale": core_ref(qkv, kb, 1.0)}
+        if s_len % 64:
+            core_faults["edge_unmasked"] = lambda: core_edge_unmasked(
+                qkv, kb, heads, scale)
         compare("K3 core", f"qkv=[16,{s_len},2304] heads=12",
                 lambda: attention_core(qkv, kb, heads, scale),
                 core_ref(qkv, kb, scale), core_ref(qkv, kb, scale), rows,
-                {"uniform": core_ref(qkv_no_q, kb, scale),
-                 "no_mask": core_ref(qkv, torch.zeros_like(kb), scale),
-                 "no_scale": core_ref(qkv, kb, 1.0)},
+                core_faults,
                 work=(nbytes(qkv, kb) + tokens * hdim * 2,
                       4 * tokens * s_len * hdim, BF16_OPS_S),
                 library=lambda: F.scaled_dot_product_attention(
                     qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
-                    attn_mask=kb_mask, scale=scale))
+                    attn_mask=kb_mask, scale=scale),
+                device="attention_kernel")
 
     # K4 on 8 sequences × 120 slots
     x = randn(960, hdim, scale=0.5)
@@ -595,8 +714,10 @@ def check_flash(rows: list) -> None:
     masked), with a finite [4, 1, 512, 512] bias of std 4, and at long
     context (S = 2048, key bias). q is drawn so the scores have std ≈ 2.
     Named faults: uniform attention (q dropped), a dropped bias, a dropped
-    scale and, where the bias is finite, the bias added after the scale
-    (the einsum order; a 0/−10000 mask masks in either order)."""
+    scale, where the bias is finite the bias added after the scale (the
+    einsum order; a 0/−10000 mask masks in either order), at S = 120 the
+    keys past S unmasked (``edge_unmasked``) and at S = 2048 the running
+    accumulator not rescaled (``no_rescale``)."""
     import torch
     import torch.nn.functional as F
 
@@ -626,6 +747,11 @@ def check_flash(rows: list) -> None:
                   "no_scale": plain(qf, kf, vf, kb, 1.0)}
         if bias == "3d":
             faults["bias_after_scale"] = plain(qf, kf, vf, kb / scale)
+        if bias == "key" and s_len % 64:
+            faults["edge_unmasked"] = lambda: flash_edge_unmasked(qf, kf, vf, kb,
+                                                                  scale)
+        if s_len >= 2048:
+            faults["no_rescale"] = lambda: flash_no_rescale(qf, kf, vf, kb, scale)
         mask = (kb * scale).bfloat16()
         compare("K6", f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}",
                 lambda: flash_mha(q, k, v, kb, sm_scale=scale),
@@ -633,7 +759,8 @@ def check_flash(rows: list) -> None:
                 work=(nbytes(q, k, v, kb) + nbytes(q),
                       4 * b * h * s_len * s_len * 64, BF16_OPS_S),
                 library=lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale))
+                    q, k, v, attn_mask=mask, scale=scale),
+                device="flash_attention_kernel")
 
 
 def flash_bwd_with_fault(q, k, v, bias, do, scale, fault=None):
@@ -1251,16 +1378,18 @@ def check_flash_requests(auto: dict, flash: dict) -> None:
                                  f"would pass {caught}")
 
 
-def run_long_context(flash_res, oracle) -> dict:
-    """One full-width ``BertImgModel`` forward under ``"flash"``: batch 4,
-    70 text tokens + 950 regions (S = 1020), some keys masked, against the
-    einsum path in f32 (``oracle``'s) on the same weights. K6 launches once
-    a layer."""
+def run_long_context(flash_res, oracle, auto_res) -> dict:
+    """One full-width ``BertImgModel`` forward under ``"flash"`` and one
+    under ``"auto"`` (the fused blocks; K3's core at S = 1020, which it
+    once refused): batch 4, 70 text tokens + 950 regions (S = 1020), some
+    keys masked, each against the einsum path in f32 (``oracle``'s) on the
+    same weights. K6 launches once a layer under "flash", K3 once a layer
+    under "auto"."""
     import torch
 
     from cpt_tpu_torch.ops.attention import flash_mha
+    from cpt_tpu_torch.ops.fused_attention import fused_attention_block
 
-    bert, ref = flash_res.oscar.bert, oracle.oscar.bert
     cfg = flash_res.bert_cfg
     rng = np.random.RandomState(31)
     b, t, r = 4, 70, 950
@@ -1282,28 +1411,34 @@ def run_long_context(flash_res, oracle) -> dict:
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
+    out = {}
     with torch.inference_mode():
-        forward(bert)
-        forward(ref)
-        before = flash_mha.launches
-        got, ms = forward(bert)
-        launches = flash_mha.launches - before
-        want, ref_ms = forward(ref)
-    got, want = got.float(), want.float()
-    if not torch.isfinite(got).all() or got.shape != (b, t + r, 768):
-        raise AssertionError(f"long-context output {tuple(got.shape)} "
-                             f"or non-finite")
-    err = float((got - want).abs().max())
-    tol = LONG_TOL * float(want.abs().max())
-    print(f"long-context forward (batch 4, 70 text + 950 regions, 12x768, "
-          f"flash, bf16): {ms:.2f} ms, K6 launches {launches}; einsum f32 "
-          f"{ref_ms:.2f} ms; max_abs_err {err:.3e} (tol {tol:.3e})",
-          flush=True)
-    if launches != cfg.num_hidden_layers or not err <= tol:
-        raise AssertionError(f"long-context flash forward: launches "
-                             f"{launches}, err {err} > {tol}")
-    return {"ms": ms, "einsum_f32_ms": ref_ms, "max_abs_err": err,
-            "tol": tol, "launches": launches}
+        want, ref_ms = forward(oracle.oscar.bert)
+        want, ref_ms = forward(oracle.oscar.bert)
+        for impl, res, kernel in (("flash", flash_res, flash_mha),
+                                  ("auto", auto_res, fused_attention_block)):
+            forward(res.oscar.bert)
+            before = kernel.launches
+            got, ms = forward(res.oscar.bert)
+            launches = kernel.launches - before
+            got = got.float()
+            if not torch.isfinite(got).all() or got.shape != (b, t + r, 768):
+                raise AssertionError(f"long-context {impl} output "
+                                     f"{tuple(got.shape)} or non-finite")
+            err = float((got - want.float()).abs().max())
+            tol = LONG_TOL * float(want.float().abs().max())
+            name = "K6" if impl == "flash" else "K3"
+            print(f"long-context forward (batch 4, 70 text + 950 regions, "
+                  f"12x768, {impl}, bf16): {ms:.2f} ms, {name} launches "
+                  f"{launches}; einsum f32 {ref_ms:.2f} ms; max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e})", flush=True)
+            if launches != cfg.num_hidden_layers or not err <= tol:
+                raise AssertionError(f"long-context {impl} forward: {name} "
+                                     f"launches {launches}, err {err} > {tol}")
+            out[impl] = {"ms": ms, "max_abs_err": err, "tol": tol,
+                         "launches": launches}
+    out["einsum_f32_ms"] = ref_ms
+    return out
 
 
 def run_detect_requests(res, counters) -> dict:
@@ -1761,7 +1896,7 @@ def main(argv=None) -> int:
                                              "K7"),
                                        oracle=oracle)
     check_flash_requests(e2e["ground"], e2e["flash_ground"])
-    e2e["long_context"] = run_long_context(flash, oracle)
+    e2e["long_context"] = run_long_context(flash, oracle, res)
     del flash, oracle
     e2e.update(run_training(res, counters))
     del res
@@ -1772,7 +1907,9 @@ def main(argv=None) -> int:
     # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
     # NMS; the serving shape; the training shape; K1q's layer3 blocks; K7
     # on the study's inputs); launches over the request, training, study
-    # and int8 extraction paths, each counted from 0 around its run
+    # and int8 extraction paths, each counted from 0 around its run; K6's
+    # ms and library_ms are device times (a mean of back-to-back launches
+    # times the host at its size)
     headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
                 "K6b": 0, "K6c": 0, "K1q": 1, "K7": 0}
     paths = ("ground", "detect", "flash_ground", "train", "auto_train",
@@ -1784,9 +1921,11 @@ def main(argv=None) -> int:
                         "source": src, "replaces": replaces,
                         "launches": sum(e2e[p]["launches"][k] for p in paths),
                         "max_abs_err": max(x["max_abs_err"] for x in per_kernel[k]),
-                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "ms": r.get("device_ms", r["ms"]),
+                        "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r.get("library_device_ms",
+                                            r["library_ms"])})
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,

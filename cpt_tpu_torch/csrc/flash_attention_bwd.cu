@@ -9,8 +9,9 @@
 // flash attention (jax.experimental.pallas.ops.tpu.flash_attention,
 // _flash_attention_bwd_dkv and _flash_attention_bwd_dq), with their
 // numerics: the bias (bf16) added before the scale, f32 scores and
-// accumulators, p multiplied by 1/l, p rounded to bf16 before p^T do and ds
-// rounded to bf16 before ds^T q and ds k. The TPU wrapper pads S to 128 with
+// accumulators, p multiplied by 1/l (its exponent clamped at 0: see
+// flash_tiles.cuh), p rounded to bf16 before p^T do and ds rounded to bf16
+// before ds^T q and ds k. The TPU wrapper pads S to 128 with
 // -1e9 keys; here the ragged edge is masked by index. ds itself (the bias
 // gradient) is not written: no model path asks for it.
 //
@@ -19,10 +20,11 @@
 // and walks the query tiles, accumulating dK and dV for its keys in
 // registers; K6c: one block per (batch, head, 64-query tile) stages its Q and
 // dO tiles once and walks the key tiles, accumulating dQ. Both recompute the
-// scores with the forward's dot_tile (flash_tiles.cuh). What bounds them: at
-// the training shape ([32, 12, 120, 64]) latency and the CUDA cores' f32
-// rate (each kernel recomputes q k^T and do v^T); tensor cores are a later
-// change.
+// scores on CUDA cores with dot_tile (flash_tiles.cuh), which sums them in
+// another order than the forward's tensor cores (a few ulps; see there).
+// What bounds them: at the training shape ([32, 12, 120, 64]) latency and the
+// CUDA cores' f32 rate (each kernel recomputes q k^T and do v^T); tensor
+// cores are a later change.
 #include "flash_tiles.cuh"
 
 #include <math.h>
@@ -105,8 +107,10 @@ __device__ __forceinline__ void probs_and_dscores(const BwdArgs& a, const cpt::b
       if (kj < a.S && il != 0.f) {  // il is 0 past S and where l == 0
         x = p[i][j];
         if (bias != nullptr) x += __bfloat162float(bias[qi * a.sbias[2] + kj * a.sbias[3]]);
-        // the scaled score rounded as the forward stored it (no fma with -m)
-        x = expf(__fmul_rn(x, a.scale) - m) * il;
+        // the scaled score, no fma with -m; the exponent clamped at 0
+        // (p <= 1 / l): the forward's tensor-core max may sit an ulp below
+        // this recomputed score (flash_tiles.cuh)
+        x = expf(fminf(__fmul_rn(x, a.scale) - m, 0.f)) * il;
       }
       p[i][j] = x;
       ds[i][j] = (dp[i][j] - di) * x * a.scale;

@@ -1,13 +1,21 @@
-// Tiles shared by the flash-attention forward (K6, flash_attention.cu) and its
-// two backward kernels (K6b dK/dV and K6c dQ, flash_attention_bwd.cu).
+// Tiles of the flash-attention backward kernels (K6b dK/dV and K6c dQ,
+// flash_attention_bwd.cu), which run on CUDA cores.
 //
 // A block of 128 threads works on a 64-query x 64-key tile: thread t owns the
 // 4 x 8 micro-tile of query rows 4 * (t / 8) .. + 3 and keys t % 8, t % 8 + 8,
 // ..., t % 8 + 56. Tiles are staged in shared memory as f32 with odd row
 // strides (D + 1, 64 + 1), so a warp reading one column of 4 or 8 rows hits
-// distinct banks. The backward recomputes the forward's scores with the same
-// dot_tile (d ascending, one fmaf chain per score), so they are bit for bit the
-// scores whose row max the forward saved.
+// distinct banks. The backward recomputes the scores with dot_tile (d
+// ascending, one fmaf chain per score). The forward (K6, mma_attention.cuh)
+// sums them on tensor cores in another order, so a recomputed score may
+// differ from the forward's by a few ulps and exceed the row max m that the
+// forward saved by as much. The backward clamps the exponent of
+// p = exp(s * scale - m) / l at 0: at scores of ordinary size the clamp
+// moves p by a relative few 1e-7, far below the bf16 rounding of p (2^-9)
+// that follows, and at scores of 1e17 (which a random detector's features
+// give layer 0) an ulp of excess would overflow exp() and turn the
+// gradients to NaN. What bounds them is the CUDA cores' f32 rate; moving
+// them onto the forward's mma.sync fragments is a later change.
 #pragma once
 
 #include "common.cuh"

@@ -10,9 +10,11 @@ before the scale, unlike :func:`einsum_mha`), softmax in f32 with the
 unnormalised probabilities rounded to ``v.dtype`` before P·V, f32
 accumulation, the output in ``q.dtype``.
 
-On a Hopper card it launches ``csrc/flash_attention.cu`` (online softmax
-over 64-key tiles, the ragged edge masked by index, the bias read through
-its strides); on the CPU it runs the plain version. The output is a
+On a Hopper card it launches ``csrc/flash_attention.cu``, the tensor-core
+tile of ``csrc/mma_attention.cuh`` (Q·Kᵀ and P·V on ``mma.sync``, online
+softmax over 64-key tiles streamed through a ``cp.async`` ring, P in
+registers, the ragged edge masked by index, the bias read through its
+strides); on the CPU it runs the plain version. The output is a
 ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so the model's
 transpose back to ``[B, S, H·D]`` is free.
 
@@ -65,12 +67,15 @@ def reference_flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _probs_dscores(q, k, v, bias, do, m, l, di, sm_scale):
     """The library backward's ``p = exp((q·kᵀ + bias)·scale − m) · (1/l)``
-    (0 where l == 0) and ``ds = (do·vᵀ − di)·p·scale``, [B, H, S, S] f32."""
+    (0 where l == 0) and ``ds = (do·vᵀ − di)·p·scale``, [B, H, S, S] f32.
+    As in K6b/K6c the exponent is clamped at 0: a row max ``m`` from
+    another summation order than these scores' may sit an ulp below them,
+    which at scores of 1e17 would overflow ``exp``."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     if bias is not None:
         s = s + bias.to(q.dtype).float()
     inv_l = torch.where(l == 0, 0.0, 1.0 / l)
-    p = torch.exp(s * sm_scale - m[..., None]) * inv_l[..., None]
+    p = torch.exp((s * sm_scale - m[..., None]).clamp(max=0.0)) * inv_l[..., None]
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     return p, (dp - di[..., None]) * p * sm_scale
 
@@ -146,12 +151,15 @@ def _check_qkv(q, k, v, *more) -> None:
 
 def _bias_arg(bias, q):
     """(tensor, pointer, four strides) of the bias broadcast to
-    [B, H, S, S] in ``q.dtype`` (None, None, zeros without a bias); the
+    [B, H, S, S] in ``q.dtype`` (None, None, zeros without a bias), keys
+    contiguous (a bias broadcast along the keys is materialised); the
     caller holds the tensor while the kernel reads it."""
     if bias is None:
         return None, None, [0, 0, 0, 0]
     b, h, s, _ = q.shape
     bias = torch.broadcast_to(bias.to(q.dtype), (b, h, s, s))
+    if bias.stride(-1) != 1:
+        bias = bias.contiguous()
     return bias, bias.data_ptr(), list(bias.stride())
 
 

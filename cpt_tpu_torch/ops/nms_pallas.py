@@ -14,8 +14,8 @@ from typing import Tuple
 
 import torch
 
-from cpt_tpu_torch.kernels.build import check, lib, require, stream, uses_kernel
-from cpt_tpu_torch.kernels.gemm import HOPPER_SMEM_PER_BLOCK
+from cpt_tpu_torch.kernels.build import (HOPPER_SMEM_PER_BLOCK, check, lib,
+                                         require, stream, uses_kernel)
 from cpt_tpu_torch.ops.nms import nms_padded
 
 # the kernel's static shared scratch (per-warp argmax) stays under 1 KB

@@ -119,10 +119,69 @@ def test_attention_kernel(dev, s_len):
     assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
-@pytest.mark.parametrize("s_len", [37, 120])
+# Sequence lengths around the attention tiles' 64-row and 64-key edges, up
+# to the long-context 70 text + 950 region slots
+EDGE_S = [1, 15, 16, 17, 37, 63, 64, 65, 120, 127, 128, 129, 200, 1020]
+
+
+def _pad_keys(t, dim, n):
+    """``t`` with ``n`` zero rows appended along ``dim``."""
+    shape = list(t.shape)
+    shape[dim] = n
+    return torch.cat([t, t.new_zeros(shape)], dim)
+
+
+def _core_edge_unmasked(qkv, kb, heads, scale):
+    """The attention core's fault ``edge_unmasked``: the keys from S up to
+    the next multiple of 64 enter with score 0 and zero V."""
+    s = qkv.shape[1]
+    pad = -s % 64
+    return reference_attention_core(_pad_keys(qkv, 1, pad), _pad_keys(kb, 1, pad),
+                                    heads, scale)[:, :s]
+
+
+def _flash_edge_unmasked(q, k, v, kb, scale):
+    """K6's fault ``edge_unmasked`` (see :func:`_core_edge_unmasked`)."""
+    s = q.shape[2]
+    pad = -s % 64
+    kb = _pad_keys(kb, 3, pad)
+    if kb.shape[2] > 1:
+        kb = _pad_keys(kb, 2, pad)
+    return reference_flash_mha(*(_pad_keys(t, 2, pad) for t in (q, k, v)), kb,
+                               sm_scale=scale)[:, :, :s]
+
+
+def _flash_no_rescale(q, k, v, bias, scale):
+    """K6's fault ``no_rescale``: the online softmax over 64-key tiles with
+    the running accumulator not rescaled by exp(m_old − m_new) when the
+    row max rises (the running sum is)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    if bias is not None:
+        s = s + bias
+    s = s * scale
+    m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, s.shape[-1], 64):
+        st = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, st.amax(-1))
+        p = torch.exp(st - m_new[..., None])
+        l = l * torch.exp(m - m_new) + p.sum(-1)
+        acc = acc + p @ v[:, :, k0:k0 + 64]
+        m = m_new
+    return acc / l[..., None]
+
+
+@pytest.mark.parametrize("s_len", EDGE_S)
 def test_attention_core_kernel(dev, s_len):
     """The attention core alone against softmax(QKᵀ·scale + key_bias)·V in
-    f32 on the same packed projection (std 1.5, so scores have std ≈ 2)."""
+    f32 on the same packed projection (std 1.5, so scores have std ≈ 2), at
+    S on both sides of the 64-row and 64-key tile edges and at the
+    long-context 1020 (the kernel once refused S ≥ 815), the last sequence
+    fully masked. Uniform attention, a dropped mask and a dropped scale miss
+    the tolerance (from S = 32, where a softmax has room to differ), and so
+    do keys past S that enter unmasked (``edge_unmasked``, wherever S is not
+    a multiple of 64: the fully masked sequence's −1e4 scores lose to them)."""
     g = torch.Generator(device=dev).manual_seed(4)
     b, h, heads = 3, 256, 4
     scale = 1.0 / (h // heads) ** 0.5
@@ -135,12 +194,16 @@ def test_attention_core_kernel(dev, s_len):
     assert got.shape == (b, s_len, h) and got.dtype == torch.bfloat16
     want = reference_attention_core(qkv, kb, heads, scale)
     _close(got, want, 1e-2)
-    no_q = qkv.clone()
-    no_q[..., :h] = 0
-    faults = {"uniform": reference_attention_core(no_q, kb, heads, scale),
-              "no_mask": reference_attention_core(qkv, torch.zeros_like(kb),
-                                                  heads, scale),
-              "no_scale": reference_attention_core(qkv, kb, heads, 1.0)}
+    faults = {}
+    if s_len >= 32:
+        no_q = qkv.clone()
+        no_q[..., :h] = 0
+        faults = {"uniform": reference_attention_core(no_q, kb, heads, scale),
+                  "no_mask": reference_attention_core(qkv, torch.zeros_like(kb),
+                                                      heads, scale),
+                  "no_scale": reference_attention_core(qkv, kb, heads, 1.0)}
+    if s_len % 64:
+        faults["edge_unmasked"] = _core_edge_unmasked(qkv, kb, heads, scale)
     assert _attn_faults_missed(want, faults, 1e-2) == []
 
 
@@ -354,22 +417,52 @@ def test_flash_kernel(dev, b, h, s, d, bias):
     if bias == "3d":
         faults["bias_after_scale"] = reference_flash_mha(qf, kf, vf, kb / scale,
                                                          sm_scale=scale)
+    if bias == "key" and s % 64:
+        faults["edge_unmasked"] = _flash_edge_unmasked(qf, kf, vf, kb, scale)
+    if s >= 2048:
+        faults["no_rescale"] = _flash_no_rescale(qf, kf, vf, kb, scale)
     assert _attn_faults_missed(want, faults, 1e-2) == []
 
 
-def test_flash_kernel_takes_strided_views(dev):
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", EDGE_S)
+def test_flash_kernel_ragged_edges(dev, s, d):
+    """K6 against its plain version in f32 at S on both sides of the tile
+    edges and at 1020, at each head dim: a key bias with the last sequence
+    fully masked at odd S (keys past S entering unmasked then miss the
+    tolerance), a finite [b, 1, S, S] bias at even S."""
+    bias = "key" if s % 2 else "3d"
+    q, k, v, kb = _flash_inputs(dev, 2, 2, s, d, bias, seed=s + d)
+    scale = d ** -0.5
+    got = flash_mha(q, k, v, kb, sm_scale=scale)
+    assert got.shape == (2, 2, s, d) and got.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = reference_flash_mha(qf, kf, vf, kb, sm_scale=scale)
+    _close(got, want, 1e-2)
+    if bias == "key" and s % 64:
+        assert _attn_faults_missed(want, {"edge_unmasked": _flash_edge_unmasked(
+            qf, kf, vf, kb, scale)}, 1e-2) == []
+
+
+@pytest.mark.parametrize("s,d", [(77, 64), (5, 32), (1020, 128)])
+def test_flash_kernel_takes_strided_views(dev, s, d):
     """q/k/v as the model passes them (head-transposed views of one packed
     projection) and a misaligned copy give the same result as contiguous
-    tensors; the output is a [B, H, S, D] view of a [B, S, H, D] buffer."""
+    tensors, within tolerance of the plain version with the last sequence
+    fully masked; the output is a [B, H, S, D] view of a [B, S, H, D]
+    buffer."""
     g = torch.Generator(device=dev).manual_seed(7)
-    b, s, h, d = 2, 77, 3, 64
+    b, h = 2, 3
     proj = torch.randn(b, s, 3, h, d, generator=g, device=dev).bfloat16()
     q, k, v = (proj[:, :, i].transpose(1, 2) for i in range(3))
     assert not q.is_contiguous()
     kb = torch.where(torch.rand(b, 1, 1, s, generator=g, device=dev) > 0.2,
                      0.0, -10000.0).bfloat16()
+    kb[-1] = -10000.0
     want = flash_mha(q.contiguous(), k.contiguous(), v.contiguous(), kb,
                      sm_scale=0.125)
+    _close(want, reference_flash_mha(q.float(), k.float(), v.float(), kb,
+                                     sm_scale=0.125), 1e-2)
     assert torch.equal(flash_mha(q, k, v, kb, sm_scale=0.125), want)
     assert torch.equal(flash_mha(_misaligned(q.contiguous()), k, v, kb,
                                  sm_scale=0.125), want)
@@ -420,6 +513,22 @@ def test_flash_backward_kernels(dev, b, h, s, d, bias):
     no_l = flash_mha_bwd_dq(*cpu, m, torch.ones_like(l), di, sm_scale=scale)
     assert _attn_faults_missed(want[0].cpu(), {"no_di": no_di, "no_l": no_l},
                                2e-2) == []
+
+
+def test_flash_backward_finite_at_huge_scores(dev):
+    """Scores of ~1e17, as layer 0 of Oscar-base gets them from a random
+    detector's features: K6b/K6c recompute the scores in another order
+    than K6's tensor cores, and an ulp of excess over the saved row max
+    must not overflow exp(); every gradient stays finite."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = ((torch.randn(2, 3, 120, 64, generator=g, device=dev) * 3e8
+                ).bfloat16().requires_grad_() for _ in range(3))
+    do = (torch.randn(2, 3, 120, 64, generator=g, device=dev) * 1e-11).bfloat16()
+    kb = torch.where(torch.rand(2, 1, 1, 120, generator=g, device=dev) > 0.2,
+                     0.0, -10000.0)
+    grads = torch.autograd.grad(flash_mha(q, k, v, kb, sm_scale=0.125),
+                                (q, k, v), do)
+    assert all(torch.isfinite(t).all() for t in grads)
 
 
 def test_flash_backward_rejects_a_bias_gradient(dev):

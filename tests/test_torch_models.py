@@ -176,3 +176,48 @@ def test_bert_img_model_einsum_path_matches(bert_case, case):
                        torch.from_numpy(mask), img_feats=torch.from_numpy(feats),
                        **tkw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_bert_img_model_auto_long_sequence_matches(bert_case, monkeypatch):
+    """``"auto"`` at a length the card's attention core once refused (it
+    staged whole heads in shared memory and raised from S = 815): 14 text
+    tokens + 806 regions (S = 820), text and region keys masked. The port's
+    gate sends every layer to ``fused_attention_block`` (its plain version
+    here); the JAX package's gate runs its einsum path at this S (not a
+    multiple of 128). ``BertImgModel`` against the JAX module in f32."""
+    from cpt_tpu.models.bert.model import BertImgModel as JaxBert
+    from cpt_tpu_torch.models.bert import model as port_model
+
+    (jcfg, cfg), sd, jparams, _, _ = bert_case
+    rng = np.random.RandomState(12)
+    n, t, r = 2, 14, 806
+    ids = rng.randint(1, 160, (n, t)).astype(np.int32)
+    seg = np.zeros((n, t), np.int32)
+    mask = np.ones((n, t + r), np.int32)
+    mask[0, t + 700:] = 0
+    mask[1, 9:t] = 0
+    mask[1, t + 300:] = 0
+    feats = rng.randn(n, r, 20).astype(np.float32)
+    want, _ = JaxBert(jcfg, dtype=jnp.float32).apply(
+        {"params": jparams["params"]["bert"]},
+        *map(jnp.asarray, (ids, seg, mask)), img_feats=jnp.asarray(feats))
+
+    calls = []
+    real = port_model.fused_attention_block
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_model, "fused_attention_block", spy)
+    cfg = dataclasses.replace(cfg, attention_impl="auto", ffn_impl="auto")
+    model = port_model.BertImgModel(cfg, torch.float32).eval()
+    state = bconv.state_from_reference(sd, cfg)
+    model.load_state_dict({k[len("bert."):]: v for k, v in state.items()
+                           if k.startswith("bert.")})
+    with torch.inference_mode():
+        got, _ = model(*map(torch.from_numpy, (ids, seg, mask)),
+                       img_feats=torch.from_numpy(feats))
+    assert calls == [(n, t + r, cfg.hidden_size)] * cfg.num_hidden_layers
+    assert got.shape == (n, t + r, cfg.hidden_size)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
