@@ -10,7 +10,9 @@ parent commit, unpacked with ``git archive``); without it, this one's. The
 run times K1 at ``chip_smoke.py``'s seven X152 shapes through the package's
 ``grouped_conv3x3`` (CUDA events, on the path its dispatch rule picks, with
 its error against the plain version in f32), K3's attention core and K6 at
-chip_smoke's five attention shapes by device time beside SDPA's, then phase
+chip_smoke's five attention shapes by device time beside SDPA's, K6b and
+K6c at chip_smoke's three backward shapes by device time beside SDPA's
+backward, then phase
 4's 3 grounding
 requests and 3 ``--detect`` requests (one of each under
 ``torch.profiler``), then ``tools/extract_features --synthetic 4
@@ -121,6 +123,63 @@ def time_attention() -> list:
     return rows
 
 
+def time_flash_bwd() -> list:
+    """K6b (``flash_mha_bwd_dkv``) and K6c (``flash_mha_bwd_dq``) at
+    ``[32,12,120,64]`` with a key bias (the training shape),
+    ``[4,12,512,64]`` with a 3-D bias and ``[2,12,2048,64]`` with a key
+    bias, on chip_smoke's kinds of inputs, through the public wrappers
+    only (so a parent checkout's kernels are timed the same way): each
+    kernel's device time (``cs.device_ms``, 10 launches), SDPA's whole
+    backward (dq, dk, dv) by device time on the same inputs, and each
+    gradient's max |Δ| / max |ref| against the plain backward in f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.ops.attention import (flash_mha_bwd_dkv,
+                                             flash_mha_bwd_dq, flash_mha_fwd,
+                                             reference_flash_mha_bwd)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for b, s_len, bias in ((32, 120, "key"), (4, 512, "3d"), (2, 2048, "key")):
+        q, k, v, do = (torch.randn(b, 12, s_len, 64, generator=g, device="cuda")
+                       for _ in range(4))
+        q, k, v, do = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16(), do.bfloat16()
+        if bias == "key":
+            kb = torch.where(torch.rand(b, 1, 1, s_len, generator=g,
+                                        device="cuda") > 0.2, 0.0, -10000.0)
+            kb[-1] = -10000.0
+        else:
+            kb = torch.randn(b, 1, s_len, s_len, generator=g, device="cuda") * 4
+        o, m, l = flash_mha_fwd(q, k, v, kb, sm_scale=0.125, stats=True)
+        di = (o.float() * do.float()).sum(-1).contiguous()
+        args = (q, k, v, kb, do, m, l, di)
+        dk, dv = flash_mha_bwd_dkv(*args, sm_scale=0.125)
+        dq = flash_mha_bwd_dq(*args, sm_scale=0.125)
+        want = reference_flash_mha_bwd(q.float(), k.float(), v.float(), kb,
+                                       do.float(), sm_scale=0.125)
+        errs = [float((x.float() - w).abs().max() / w.abs().max())
+                for x, w in zip((dq, dk, dv), want)]
+        dkv_ms, how = cs.device_ms(lambda: flash_mha_bwd_dkv(*args, sm_scale=0.125),
+                                   "flash_bwd_dkv")
+        dq_ms, _ = cs.device_ms(lambda: flash_mha_bwd_dq(*args, sm_scale=0.125),
+                                "flash_bwd_dq")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=(kb * 0.125).bfloat16(),
+                                             scale=0.125)
+        sdpa_ms, _ = cs.device_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                                              retain_graph=True))
+        label = f"K6b/K6c q=[{b},12,{s_len},64] bias={list(kb.shape)}"
+        rows.append({"shape": label, "dkv_device_ms": dkv_ms, "dq_device_ms": dq_ms,
+                     "timed_by": how, "sdpa_bwd_device_ms": sdpa_ms,
+                     "rel_err": errs})
+        print(f"{label}: K6b device {dkv_ms:.4f} ms, K6c device {dq_ms:.4f} ms "
+              f"({how}), sum {dkv_ms + dq_ms:.4f}; SDPA backward device "
+              f"{sdpa_ms:.4f} ms; dq/dk/dv max |Δ| / max |ref| "
+              + "/".join(f"{e:.3e}" for e in errs), flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--package", default=None,
@@ -153,7 +212,7 @@ def main(argv=None) -> int:
         cs.k1_paths = lambda counters, launches, where: {}
 
     out = {"card": smi, "package": package, "k1": time_k1(),
-           "attention": time_attention()}
+           "attention": time_attention(), "flash_bwd": time_flash_bwd()}
     res, _ = cs.build_resident()
     out["ground"] = cs.run_requests(res, counters, profile=True)
     out["detect"] = cs.run_detect_requests(res, counters)
@@ -174,6 +233,10 @@ def main(argv=None) -> int:
     summary = {"k1_ms": [r["ms"] for r in out["k1"]],
                "attention_device_ms": [r["device_ms"] for r in out["attention"]],
                "sdpa_device_ms": [r["sdpa_device_ms"] for r in out["attention"]],
+               "flash_bwd_device_ms": [[r["dkv_device_ms"], r["dq_device_ms"]]
+                                       for r in out["flash_bwd"]],
+               "sdpa_bwd_device_ms": [r["sdpa_bwd_device_ms"]
+                                      for r in out["flash_bwd"]],
                "ground_ms": [r["ms"] for r in out["ground"]["requests"]],
                "ground_copies_per_s": out["ground"]["copies_per_s"],
                "detect_step_ms": [r["detect_ms"] for r in out["detect"]["requests"]],

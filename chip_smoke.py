@@ -14,10 +14,12 @@ Phases (any failure raises and the script exits non-zero):
    inputs, and K5 (greedy NMS) against its plain version exactly on the
    same f32 inputs, at the main paths' shapes; time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
-   call (a yardstick the port never calls) with CUDA events (K3's core, K6
-   and their SDPA yardsticks also by device time under ``torch.profiler``,
-   with named faults of an unmasked ragged edge and an unrescaled running
-   accumulator), and compute
+   call (a yardstick the port never calls) with CUDA events (K3's core, K6,
+   K6b, K6c and their SDPA yardsticks also by device time under
+   ``torch.profiler``, with named faults of an unmasked ragged edge and an
+   unrescaled running accumulator, and for the backward a dropped di, an
+   unscaled ds, p not divided by l, the bias after the scale and the bias
+   read transposed), and compute
    each one's bound (the least time for its bytes and operations at the
    card's published peaks); K1 at its seven X152 shapes on the path its
    dispatch rule names (the tensor-core kernel), with named faults (a
@@ -767,11 +769,15 @@ def flash_bwd_with_fault(q, k, v, bias, do, scale, fault=None):
     """(dq, dk, dv) of softmax((q·kᵀ + bias)·scale)·v in f32 by the
     library's backward formula, with one named fault: ``no_di`` drops di
     (``ds = dp·p``), ``ds_unscaled`` leaves ds unscaled, ``no_l`` leaves p
-    undivided by l, ``bias_after_scale`` adds the bias after the scale."""
+    undivided by l, ``bias_after_scale`` adds the bias after the scale,
+    ``bias_transposed`` reads bias[q][k] at [k][q] (K6b's transposed
+    scores with the bias read by row for column)."""
     import torch
 
     if fault == "bias_after_scale":
         bias = bias / scale
+    if fault == "bias_transposed":
+        bias = bias.transpose(-1, -2)
     s = (torch.einsum("bhqd,bhkd->bhqk", q, k) + bias) * scale
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p_true = e / e.sum(-1, keepdim=True)
@@ -793,9 +799,11 @@ def check_flash_bwd(rows: list) -> None:
     bias with ~20% of keys masked and the last sequence fully masked), with
     a finite [4, 1, 512, 512] bias of std 4, and at S = 2048; q is drawn so
     the scores have std ≈ 2. Named faults (di dropped, ds unscaled, p not
-    divided by l and, at the finite bias, the bias after the scale) must
-    miss. Then each kernel alone, its plain version and SDPA's backward
-    (the whole dq, dk, dv; graph built outside the loop) are timed."""
+    divided by l and, at the finite bias, the bias after the scale and the
+    bias read transposed) must miss. Then each kernel alone, its plain
+    version and SDPA's backward (the whole dq, dk, dv; graph built outside
+    the loop) are timed as back-to-back means (:func:`cuda_ms`), and each
+    kernel and SDPA's backward also by device time (:func:`device_ms`)."""
     import torch
     import torch.nn.functional as F
 
@@ -831,7 +839,7 @@ def check_flash_bwd(rows: list) -> None:
         if not all(torch.isfinite(x).all() for x in got):
             raise AssertionError(f"K6b/K6c {b},{h},{s_len}: non-finite gradient")
         faults = ["no_di", "ds_unscaled", "no_l"] + (
-            ["bias_after_scale"] if bias == "3d" else [])
+            ["bias_after_scale", "bias_transposed"] if bias == "3d" else [])
         fault_miss = {}
         for f in faults:
             fx = flash_bwd_with_fault(*f32[:3], kb, f32[3], scale, f)
@@ -843,32 +851,43 @@ def check_flash_bwd(rows: list) -> None:
         sdpa = [t.clone().requires_grad_() for t in (q, k, v)]
         out = F.scaled_dot_product_attention(*sdpa, attn_mask=(kb * scale).bfloat16(),
                                              scale=scale)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(out, sdpa, do,
-                                                         retain_graph=True))
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out, sdpa, do, retain_graph=True)
+
+        library_ms = cuda_ms(sdpa_bwd)
+        library_dev, _ = device_ms(sdpa_bwd)
         label = f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}"
         sq = b * h * s_len * s_len * 64
         in_bytes = nbytes(q, k, v, do, m, l, di, kb)
         whole_ms, whole_by = bound(in_bytes + nbytes(o) + 3 * nbytes(q),
                                    10 * sq, BF16_OPS_S)
-        for name, kernel, plain, outs, ops, (lo, hi) in (
-                ("K6b", flash_mha_bwd_dkv, flash_mha_bwd_dkv_plain, 2, 8 * sq, (1, 3)),
-                ("K6c", flash_mha_bwd_dq, flash_mha_bwd_dq_plain, 1, 6 * sq, (0, 1))):
+        for name, kernel, plain, outs, ops, (lo, hi), match in (
+                ("K6b", flash_mha_bwd_dkv, flash_mha_bwd_dkv_plain, 2, 8 * sq, (1, 3),
+                 "flash_bwd_dkv"),
+                ("K6c", flash_mha_bwd_dq, flash_mha_bwd_dq_plain, 1, 6 * sq, (0, 1),
+                 "flash_bwd_dq")):
             ms = cuda_ms(lambda: kernel(*args, sm_scale=scale))
+            dev_ms, how = device_ms(lambda: kernel(*args, sm_scale=scale), match)
             plain_ms = cuda_ms(lambda: plain(*args, scale))
             bound_ms, bound_by = bound(in_bytes + outs * nbytes(q), ops, BF16_OPS_S)
             rows.append({"kernel": name, "shape": label,
                          "max_abs_err": max(errs[lo:hi]), "errs": errs[lo:hi],
-                         "tols": tols[lo:hi], "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "fault_miss": fault_miss,
-                         "backward_bound_ms": whole_ms})
+                         "tols": tols[lo:hi], "ms": ms, "device_ms": dev_ms,
+                         "timed_by": how, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "library_device_ms": library_dev,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "fault_miss": fault_miss, "backward_bound_ms": whole_ms})
+        kb_row, kc_row = rows[-2], rows[-1]
         print(f"K6b/K6c {label}: dq/dk/dv err " + "/".join(f"{e:.3e}" for e in errs)
-              + " tol " + "/".join(f"{t:.3e}" for t in tols) + "; K6b ms="
-              f"{rows[-2]['ms']:.4f} plain_ms={rows[-2]['plain_ms']:.4f} "
-              f"bound_ms={rows[-2]['bound_ms']:.4f} ({rows[-2]['bound_by']}); "
-              f"K6c ms={rows[-1]['ms']:.4f} plain_ms={rows[-1]['plain_ms']:.4f} "
-              f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}); "
-              f"SDPA backward library_ms={library_ms:.4f}; whole-backward bound "
+              + " tol " + "/".join(f"{t:.3e}" for t in tols) + "; K6b device_ms="
+              f"{kb_row['device_ms']:.4f} ms={kb_row['ms']:.4f} "
+              f"plain_ms={kb_row['plain_ms']:.4f} bound_ms={kb_row['bound_ms']:.4f} "
+              f"({kb_row['bound_by']}); K6c device_ms={kc_row['device_ms']:.4f} "
+              f"ms={kc_row['ms']:.4f} plain_ms={kc_row['plain_ms']:.4f} "
+              f"bound_ms={kc_row['bound_ms']:.4f} ({kc_row['bound_by']}); device "
+              f"time by {kc_row['timed_by']}; SDPA backward library_device_ms="
+              f"{library_dev:.4f} library_ms={library_ms:.4f}; whole-backward bound "
               f"{whole_ms:.4f} ms ({whole_by}); faults miss by "
               + ", ".join(f"{f} {x:.1f}x" for f, x in fault_miss.items()),
               flush=True)
@@ -1579,11 +1598,13 @@ EXTRACT_GROUPS = (("K1q", ("grouped_conv3x3_int8",)),
                                                    "sm90", "conv", "implicit")),
                   ("elementwise / reduce", ("elementwise", "vectorized", "reduce",
                                            "cat", "pad", "index")))
+# A kernel counts in the first family whose patterns it holds, so K6's
+# "flash_attention_kernel" comes before K3's "attention_kernel".
 REQUEST_GROUPS = (("K1", ("grouped_conv3x3_mma", "grouped_conv3x3_kernel")),
                   ("K2", ("roi_align",)), ("K5", ("nms_kernel",)),
+                  ("K6", ("flash_attention_kernel",)),
                   ("K3 / K4", ("attention_kernel", "gemm_bias_act",
                                "gemm_residual_ln")),
-                  ("K6", ("flash_attention_kernel",)),
                   ("GEMM / conv (cuBLAS, cuDNN)", ("gemm", "nvjet", "cutlass", "xmma",
                                                    "sm90", "conv", "implicit",
                                                    "cudnn")),
@@ -1597,10 +1618,19 @@ KERNEL_GROUPS = (("K6b", ("flash_bwd_dkv",)), ("K6c", ("flash_bwd_dq",)),
                                           "foreach", "multi_tensor")))
 
 
+def kernel_group(key: str, kernel_groups) -> str:
+    """The family of the device kernel named ``key``: the first of
+    ``kernel_groups`` ((name, name patterns) pairs) with a pattern in it,
+    else "other"."""
+    low = key.lower()
+    return next((n for n, pats in kernel_groups if any(x in low for x in pats)),
+                "other")
+
+
 def device_groups(prof, reps: int, kernel_groups) -> tuple:
     """A ``torch.profiler`` run's device kernels (copies left out) per
-    repetition, summed by family ((name, name patterns) pairs; the rest is
-    "other") → (ms by family, busy ms, the top 8 kernels)."""
+    repetition, summed by family (:func:`kernel_group`) → (ms by family,
+    busy ms, the top 8 kernels)."""
     from torch.autograd import DeviceType
 
     kernels = [(e.key, e.self_device_time_total / 1e3 / reps)
@@ -1609,10 +1639,7 @@ def device_groups(prof, reps: int, kernel_groups) -> tuple:
     groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     for key, ms in kernels:
-        low = key.lower()
-        name = next((n for n, pats in kernel_groups if any(x in low for x in pats)),
-                    "other")
-        groups[name] += ms
+        groups[kernel_group(key, kernel_groups)] += ms
     return groups, sum(ms for _, ms in kernels), sorted(kernels, key=lambda kv: -kv[1])[:8]
 
 

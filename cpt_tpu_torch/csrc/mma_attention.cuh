@@ -35,6 +35,8 @@
 // Ragged edges are masked by index: keys at or past S are -inf before the
 // max (their K and V rows are zero-filled, so no stale value enters), query
 // rows at or past S are computed on zeros and not stored. Nothing is padded.
+// K6b and K6c (flash_attention_bwd.cu) are built from the same pieces
+// (chunk_at, load_tile, pack_bf16, store_rows, launch).
 //
 // What bounds it: at the serving shape ([16, 12, 120, 64]) latency (a block
 // loads 40 KB and runs two key tiles; 384 blocks make one wave of 132 SMs at
@@ -147,6 +149,34 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// This warp's 16 rows of an m16 accumulator tile over D columns (acc, as
+// the fragments lay them out), row i of the lane times mul[i], rounded to
+// bf16 through the warp's own 16 rows of the swizzled tile at stage (which
+// no other warp reads), then stored as 16-byte row pieces to out: tile row r
+// goes to out row row0 + r, for rows below S.
+template <int D>
+__device__ __forceinline__ void store_rows(unsigned char* stage, const float (&acc)[D / 8][4],
+                                           const float (&mul)[2], bf16* __restrict__ out,
+                                           long long row_stride, int row0, int S) {
+  constexpr int kCPR = D / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4, col = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<unsigned*>(stage + chunk_at<D>(r0 + 8 * i, n) + col * 2) =
+          pack_bf16(acc[n][2 * i] * mul[i], acc[n][2 * i + 1] * mul[i]);
+  __syncwarp();
+#pragma unroll
+  for (int j = lane; j < 16 * kCPR; j += 32) {
+    const int r = warp * 16 + j / kCPR, c = j % kCPR;
+    if (row0 + r < S)
+      *reinterpret_cast<uint4*>(out + (row0 + r) * row_stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + chunk_at<D>(r, c));
+  }
 }
 
 // The body of one block: query rows [blockIdx.x * 64, + 64) of head
@@ -436,24 +466,8 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
     }
   }
   // o to bf16 through this warp's own 16 rows of the Q tile (which only this
-  // warp read, into its fragments), then 16-byte stores of whole rows
-  unsigned char* stage = smem;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<unsigned*>(stage + chunk_at<D>(row0 + 8 * i, n) + col * 2) =
-          pack_bf16(o[n][2 * i] * inv[i], o[n][2 * i + 1] * inv[i]);
-  __syncwarp();
-  constexpr int kCPR = D / 8;
-  bf16* ob = a.out + b * a.so[0] + h * a.so[1];
-#pragma unroll
-  for (int j = lane; j < 16 * kCPR; j += 32) {
-    const int r = warp * 16 + j / kCPR, c = j % kCPR;
-    if (q0 + r < S)
-      *reinterpret_cast<uint4*>(ob + (q0 + r) * a.so[2] + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + chunk_at<D>(r, c));
-  }
+  // warp read, into its fragments)
+  store_rows<D>(smem, o, inv, a.out + b * a.so[0] + h * a.so[1], a.so[2], q0, S);
 }
 
 // Blocks an SM should hold: 3 up to D = 64 (at most 170 registers a thread:
@@ -463,12 +477,12 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
 template <int D>
 constexpr int min_blocks() { return D <= 64 ? 3 : 2; }
 
-// Launch kernel<D> (a __global__ wrapper of attention_tile<D, MODE>) over
+// Launch kernel (a __global__ wrapper of attention_tile<D, MODE>, or one of
+// the backward's, with their own argument struct A and shared memory) over
 // (ceil(S / 64), heads, batch) blocks on the caller's stream.
-template <int D, class Kernel>
-int launch(Kernel kernel, const Args& a, int B, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {  // D = 128: opt in above the default 48 KB
+template <int D, class Kernel, class A = Args>
+int launch(Kernel kernel, const A& a, int B, cudaStream_t stream, int smem = smem_bytes<D>()) {
+  if (smem > 48 * 1024) {  // opt in above the default 48 KB
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);

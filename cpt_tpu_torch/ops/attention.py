@@ -22,10 +22,14 @@ Where q, k or v require a gradient, ``flash_mha`` is a
 ``torch.autograd.Function``, as the library's ``_flash_attention`` is a
 custom VJP: the forward also keeps each row's max ``m`` and sum ``l``; the
 backward computes ``di = Σ_d o·do`` in f32 as a torch op (as the library
-does, outside its kernels), then :func:`flash_mha_bwd_dkv` (K6b,
-``csrc/flash_attention_bwd.cu``) for dK and dV and :func:`flash_mha_bwd_dq`
-(K6c) for dQ, from ``p = exp((q·kᵀ + bias)·scale − m) / l``. On the CPU the
-same Function runs the plain forward and the plain backward. The bias
+does, outside its kernels), then :func:`flash_mha_bwd_dkv` (K6b) for dK and
+dV and :func:`flash_mha_bwd_dq` (K6c) for dQ, from
+``p = exp((q·kᵀ + bias)·scale − m) / l``. Both are tensor-core kernels in
+``csrc/flash_attention_bwd.cu`` on the forward tile's ``mma.sync``
+fragments, split as the library splits them (no atomics): K6c walks the
+key tiles for 64 query rows, K6b the query tiles for 64 keys in the
+transposed orientation, so P and dS stay in registers in both. On the CPU
+the same Function runs the plain forward and the plain backward. The bias
 gradient (the library's ``ds``) is on no model path: asking for it raises.
 """
 from __future__ import annotations

@@ -3,6 +3,8 @@ backward and ``flash_mha``'s autograd against ``jax.vjp`` through the JAX
 ``flash_mha`` (the library's TPU flash-attention custom VJP, whose
 backward kernels run in interpret mode on the CPU) in f32. Shapes stay
 tiny: interpret mode costs seconds per call."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -52,14 +54,26 @@ def _jax_grads(q, k, v, do, b, scale):
     return list(run_interpret(grads, q, k, v, do, b))
 
 
-@pytest.mark.parametrize("s,d,bias", [(40, 32, "3d"), (130, 64, "key")])
-def test_flash_backward_matches_jax(s, d, bias):
-    """Ragged S (40 pads to one 128-block in the JAX wrapper, 130 to two),
-    a finite bias and a key bias with a fully masked sequence: the plain
-    backward and the autograd Function both equal the library's VJP."""
+@functools.lru_cache(maxsize=None)
+def _case(s, d, bias):
+    """The inputs of one case and the JAX gradients on them, computed once
+    per worker (the cases that share them call this, so each case's
+    watchdog covers the interpret-mode run)."""
     q, k, v, do, b = _inputs(s, bias, d=d)
     scale = 1.0 / d ** 0.5
-    want = _jax_grads(q, k, v, do, b, scale)
+    return (q, k, v, do, b), scale, _jax_grads(q, k, v, do, b, scale)
+
+
+@pytest.mark.parametrize("s,d,bias", [(40, 32, "3d"), (130, 64, "key"),
+                                      (200, 64, "3d")])
+def test_flash_backward_matches_jax(s, d, bias):
+    """Ragged S (40 pads to one 128-block in the JAX wrapper, 130 and 200
+    to two; 200 is two 64-row query tiles and two 64-key tiles of the
+    kernels, each with a ragged edge), a finite bias (random, so
+    bias[q][k] != bias[k][q]) and a key bias with a fully masked sequence:
+    the plain backward and the autograd Function both equal the library's
+    VJP."""
+    (q, k, v, do, b), scale, want = _case(s, d, bias)
     tq, tk, tv, tdo, tb = map(torch.from_numpy, (q, k, v, do, b))
     plain = reference_flash_mha_bwd(tq, tk, tv, tb, tdo, sm_scale=scale)
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
@@ -74,6 +88,28 @@ def test_flash_backward_matches_jax(s, d, bias):
         wrong = reference_flash_mha_bwd(tq, tk, tv, tb / scale, tdo,
                                         sm_scale=scale)
         assert max(np.abs(x.numpy() - w).max() for x, w in zip(wrong, want)) > 100 * ATOL
+
+
+@pytest.mark.parametrize("fault", ["no_di", "ds_unscaled", "no_l",
+                                   "bias_after_scale", "bias_transposed"])
+def test_flash_backward_named_faults_miss(fault):
+    """Each named fault that ``chip_smoke.py`` holds K6b/K6c to (di dropped,
+    ds unscaled, p not divided by l, the bias after the scale, the bias
+    read transposed) misses the JAX gradients by more than ``BWD_TOL`` of a
+    gradient's scale at S = 200 with an asymmetric 3-D bias, so a kernel
+    with that slip would fail the card's check."""
+    import chip_smoke
+
+    (q, k, v, do, b), scale, want = _case(200, 64, "3d")
+    tq, tk, tv, tb, tdo = map(torch.from_numpy, (q, k, v, b, do))
+    # without a fault the emulation is the library's backward
+    sound = chip_smoke.flash_bwd_with_fault(tq, tk, tv, tb, tdo, scale)
+    for x, w in zip(sound, want):
+        np.testing.assert_allclose(x.numpy(), w, rtol=0, atol=1e-4)
+    got = chip_smoke.flash_bwd_with_fault(tq, tk, tv, tb, tdo, scale, fault)
+    miss = max(np.abs(x.numpy() - w).max() / (chip_smoke.BWD_TOL * np.abs(w).max())
+               for x, w in zip(got, want))
+    assert miss > 1.0, (fault, miss)
 
 
 def test_flash_backward_runs_the_two_kernel_wrappers(monkeypatch):

@@ -486,11 +486,14 @@ def test_flash_launch_counter_counts(dev):
 
 
 @pytest.mark.parametrize("b,h,s,d,bias", [
-    (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None)])
+    (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None),
+    (2, 3, 300, 64, "3d")])
 def test_flash_backward_kernels(dev, b, h, s, d, bias):
     """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
     against the plain backward in f32 on the same inputs, within 2e-2 of
-    each gradient's scale; dropping di or the 1/l normalisation misses."""
+    each gradient's scale; dropping di or the 1/l normalisation misses,
+    and so does a 3-D bias read transposed (random, so asymmetric), which
+    K6b's transposed scores would read by a slip of its indices."""
     q, k, v, kb = _flash_inputs(dev, b, h, s, d, bias, seed=s + 1)
     g = torch.Generator(device=dev).manual_seed(s)
     do = torch.randn(b, h, s, d, generator=g, device=dev).bfloat16()
@@ -513,6 +516,11 @@ def test_flash_backward_kernels(dev, b, h, s, d, bias):
     no_l = flash_mha_bwd_dq(*cpu, m, torch.ones_like(l), di, sm_scale=scale)
     assert _attn_faults_missed(want[0].cpu(), {"no_di": no_di, "no_l": no_l},
                                2e-2) == []
+    if bias == "3d":
+        swapped = reference_flash_mha_bwd(qf, kf, vf, kb.transpose(-1, -2), dof,
+                                          sm_scale=scale)
+        assert any(_attn_faults_missed(w, {"bias_transposed": x}, 2e-2) == []
+                   for x, w in zip(swapped, want))
 
 
 def test_flash_backward_finite_at_huge_scores(dev):

@@ -204,3 +204,38 @@ def test_grouped_conv_named_faults_miss(h, w, c, groups, stride):
     if stride == 2:   # the unshifted grid is the stride-2 output itself
         full = _port_conv(x, wt, s, b, groups, 1)
         np.testing.assert_allclose(full[:, ::2, ::2], want, **F32_TOL)
+
+
+@pytest.mark.parametrize("key,groups,family", [
+    ("void (anonymous namespace)::flash_attention_kernel<64>(cpt::mma_attn::Args)",
+     "REQUEST_GROUPS", "K6"),
+    ("void (anonymous namespace)::attention_kernel<64>(cpt::mma_attn::Args)",
+     "REQUEST_GROUPS", "K3 / K4"),
+    ("void (anonymous namespace)::gemm_bias_act_kernel<1>(...)", "REQUEST_GROUPS",
+     "K3 / K4"),
+    ("void (anonymous namespace)::gemm_residual_ln_kernel(...)", "REQUEST_GROUPS",
+     "K3 / K4"),
+    ("void (anonymous namespace)::grouped_conv3x3_mma_kernel<2>(...)",
+     "REQUEST_GROUPS", "K1"),
+    ("void (anonymous namespace)::roi_align_kernel(...)", "REQUEST_GROUPS", "K2"),
+    ("void (anonymous namespace)::nms_kernel(...)", "REQUEST_GROUPS", "K5"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<64>((anonymous namespace)::BwdArgs)",
+     "KERNEL_GROUPS", "K6b"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<64>((anonymous namespace)::BwdArgs)",
+     "KERNEL_GROUPS", "K6c"),
+    ("void (anonymous namespace)::flash_attention_kernel<64>(cpt::mma_attn::Args)",
+     "KERNEL_GROUPS", "K6"),
+    ("void (anonymous namespace)::grouped_conv3x3_int8_kernel<1>(...)",
+     "EXTRACT_GROUPS", "K1q"),
+    ("void (anonymous namespace)::grouped_conv3x3_mma_kernel<2>(...)",
+     "EXTRACT_GROUPS", "K1"),
+])
+def test_profile_families_classify_port_kernels(key, groups, family):
+    """``chip_smoke.device_groups`` sums each device kernel into the first
+    family one of whose patterns its name holds: each of the port's
+    kernels lands in its own family (K6's ``flash_attention_kernel`` is
+    not K3's ``attention_kernel``)."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_group(key, getattr(chip_smoke, groups)) == family
+
