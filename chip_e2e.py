@@ -10,7 +10,9 @@ parent commit, unpacked with ``git archive``); without it, this one's. The
 run times K1 at ``chip_smoke.py``'s seven X152 shapes through the package's
 ``grouped_conv3x3`` (CUDA events, on the path its dispatch rule picks, with
 its error against the plain version in f32), K3's attention core and K6 at
-chip_smoke's five attention shapes by device time beside SDPA's, K6b and
+chip_smoke's five attention shapes by device time beside SDPA's, K3's
+block and K4 at chip_smoke's shapes and the shared GEMM's epilogue (a)
+beside ``torch.addmm`` by device time (``time_blocks``), K6b and
 K6c at chip_smoke's three backward shapes by device time beside SDPA's
 backward, then phase
 4's 3 grounding
@@ -123,6 +125,68 @@ def time_attention() -> list:
     return rows
 
 
+def time_blocks() -> list:
+    """K3 (``fused_attention_block``) at ``[16,120,768]`` and
+    ``[16,128,768]``, K4 (``fused_ffn``, erf gelu) at ``[960,768]``,
+    ``[1920,768]`` (the scoring batch) and ``[1264,768]``, and the shared
+    GEMM's epilogue (a) alone (``kernels.gemm.gemm_bias_act``) at the
+    scoring batch's QKV and FFN-1 shapes beside ``torch.addmm`` (the one
+    PyTorch call that computes it), on chip_smoke's inputs (``k3_inputs``,
+    ``k4_inputs``), through the public wrappers only, so that a parent
+    checkout's kernels are timed the same way: device time of every kernel
+    of the call (``cs.device_ms``, 10 launches), the blocks' plain
+    versions in bf16 by device time too, and max |Δ| / max |ref| against
+    the plain version in f32."""
+    import torch
+
+    from cpt_tpu_torch.kernels.gemm import gemm_bias_act
+    from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
+                                                   reference_attention_block)
+    from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+
+    def row(label, kernel, exact, plain=None, library=None):
+        got, want = kernel().float(), exact().float()
+        err = float((got - want).abs().max() / want.abs().max())
+        dev_ms, how = cs.device_ms(kernel)
+        rows.append({"shape": label, "device_ms": dev_ms, "timed_by": how,
+                     "rel_err": err})
+        txt = ""
+        if plain is not None:
+            rows[-1]["plain_device_ms"], _ = cs.device_ms(plain)
+            txt += f", plain (bf16) device {rows[-1]['plain_device_ms']:.4f} ms"
+        if library is not None:
+            rows[-1]["addmm_device_ms"], _ = cs.device_ms(library)
+            txt += f", addmm device {rows[-1]['addmm_device_ms']:.4f} ms"
+        print(f"{label}: device {dev_ms:.4f} ms ({how}){txt}, max |Δ| / max "
+              f"|ref| {err:.3e}", flush=True)
+
+    for s_len in (120, 128):
+        args = cs.on_card(cs.k3_inputs(16, s_len, 768, seed=s_len), "cuda")
+        fargs = [a.float() for a in args]
+        row(f"K3 x=[16,{s_len},768]",
+            lambda: fused_attention_block(*args, 12, 1e-12),
+            lambda: reference_attention_block(*fargs, num_heads=12, eps=1e-12),
+            lambda: reference_attention_block(*args, num_heads=12, eps=1e-12))
+    for m in (960, 1920, 1264):
+        args = cs.on_card(cs.k4_inputs(m, 768, 3072, seed=m), "cuda")
+        fargs = [a.float() for a in args]
+        row(f"K4 x=[{m},768] F=3072 erf", lambda: fused_ffn(*args),
+            lambda: reference_ffn(*fargs, 1e-12, False),
+            lambda: reference_ffn(*args, 1e-12, False))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for n in (2304, 3072):
+        a = (torch.randn(1920, 768, generator=g, device="cuda") * 0.5).bfloat16()
+        w = (torch.randn(768, n, generator=g, device="cuda") * 0.03).bfloat16()
+        b = torch.randn(n, generator=g, device="cuda") * 0.5
+        b_bf = b.bfloat16()
+        row(f"GEMM (a) a=[1920,768] w=[768,{n}]", lambda: gemm_bias_act(a, w, b),
+            lambda: a.float() @ w.float() + b, library=lambda: torch.addmm(b_bf, a, w))
+    return rows
+
+
 def time_flash_bwd() -> list:
     """K6b (``flash_mha_bwd_dkv``) and K6c (``flash_mha_bwd_dq``) at
     ``[32,12,120,64]`` with a key bias (the training shape),
@@ -212,7 +276,8 @@ def main(argv=None) -> int:
         cs.k1_paths = lambda counters, launches, where: {}
 
     out = {"card": smi, "package": package, "k1": time_k1(),
-           "attention": time_attention(), "flash_bwd": time_flash_bwd()}
+           "attention": time_attention(), "blocks": time_blocks(),
+           "flash_bwd": time_flash_bwd()}
     res, _ = cs.build_resident()
     out["ground"] = cs.run_requests(res, counters, profile=True)
     out["detect"] = cs.run_detect_requests(res, counters)
@@ -233,6 +298,7 @@ def main(argv=None) -> int:
     summary = {"k1_ms": [r["ms"] for r in out["k1"]],
                "attention_device_ms": [r["device_ms"] for r in out["attention"]],
                "sdpa_device_ms": [r["sdpa_device_ms"] for r in out["attention"]],
+               "blocks_device_ms": {r["shape"]: r["device_ms"] for r in out["blocks"]},
                "flash_bwd_device_ms": [[r["dkv_device_ms"], r["dq_device_ms"]]
                                        for r in out["flash_bwd"]],
                "sdpa_bwd_device_ms": [r["sdpa_bwd_device_ms"]

@@ -7,10 +7,15 @@ Hopper card.
 Phases (any failure raises and the script exits non-zero):
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the hand-written kernels from ``cpt_tpu_torch/csrc`` (nvcc);
+2. build the hand-written kernels from ``cpt_tpu_torch/csrc`` (nvcc), and
+   check that the shared GEMM's kernels issue wgmma and TMA loads (and the
+   row-LayerNorm kernel its cluster barrier) in their SASS (cuobjdump);
 3. hold each kernel (K1 grouped conv, K2 RoIAlign, K3 attention block and
-   its attention core alone, K4 FFN block, K6 flash attention, K6b/K6c its
-   backward) in bf16 against its plain PyTorch version in f32 on the same
+   its attention core alone, K4 FFN block at 960, 1920 and 1264 rows, the
+   GEMM under both alone beside ``torch.addmm``, K6 flash attention,
+   K6b/K6c its backward; K3, K4 and the GEMM by device time too, with the
+   GEMM's named faults ``GEMM_FAULTS``) in bf16 against its plain PyTorch
+   version in f32 on the same
    inputs, and K5 (greedy NMS) against its plain version exactly on the
    same f32 inputs, at the main paths' shapes; time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
@@ -80,6 +85,8 @@ import numpy as np
 # (probabilities, context), K3/K4 three to four times.
 TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 2e-2, "K3 core": 1e-2, "K4": 2e-2,
        "K6": 1e-2}
+# The shared GEMM alone (epilogue (a)): f32 sums, one bf16 rounding.
+TOL.update({"K3 gemm": 1e-2, "K4 gemm": 1e-2})
 # K6b/K6c: of each gradient's largest magnitude; bf16 rounds p and ds before
 # three products, and dq, dk, dv once more
 BWD_TOL = 2e-2
@@ -100,7 +107,10 @@ LONG_TOL = 5e-2
 # HBM3 at 700 W read the bf16 paths' gaps to f32 between 1.4e-2 and 2.4e-2
 # with the CUDA-core K1, and every gap between 8.6e-3 and 2.481e-2 with the
 # tensor-core K1 (a bf16 K1 moves the features the scores are read from);
-# 4e-2 is 1.6x the largest. Two
+# with the wgmma GEMM under K3 and K4 every gap lies between 1.175e-2 and
+# 3.150e-2 (the flash path against f32 on the first request; the kernels
+# are deterministic, so a run reads the same); 4e-2 is 1.27x the largest.
+# Two
 # named faults of the flash path, its key mask dropped and its 1/sqrt(d)
 # scale dropped, must miss it in every run (``SCORE_FAULTS``).
 SCORE_TOL = 4e-2
@@ -153,7 +163,8 @@ KERNELS = {
            "cpt_tpu/ops/grouped_conv.py:418"),
     "K2": ("batched_roi_align", "cpt_tpu_torch/csrc/roi_align.cu",
            "cpt_tpu/ops/roi_align_pallas.py:92"),
-    "K3": ("fused_attention_block", "cpt_tpu_torch/csrc/attention.cu",
+    "K3": ("fused_attention_block",
+           "cpt_tpu_torch/csrc/gemm.cu cpt_tpu_torch/csrc/attention.cu",
            "cpt_tpu/ops/fused_attention.py:121"),
     "K4": ("fused_ffn", "cpt_tpu_torch/csrc/gemm.cu",
            "cpt_tpu/ops/fused_ffn.py:113"),
@@ -200,35 +211,45 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, match: str | None = None, reps: int = 10,
+def device_ms(fn, match: str | tuple | None = None, reps: int = 10,
               warmup: int = 2) -> tuple:
     """(ms, method): the device time of one call of ``fn``, the mean over
     ``reps`` launches of the device durations that ``torch.profiler`` (CUDA
     activity) records, summed over the kernels whose name holds ``match``
-    (every kernel without it; copies and fills left out). Unlike
+    (or any of a tuple of names; every kernel without it; copies and fills
+    left out). Unlike
     :func:`cuda_ms`, it holds no host time between launches, which bounds a
     mean over back-to-back launches of a kernel shorter than its wrapper's
-    host work. If the trace holds no device time, it says so and times a
-    CUDA graph of the ``reps`` calls with CUDA events instead."""
+    host work. A trace that holds no device time, or in which a kernel ran
+    a number of times that is not a multiple of ``reps`` (launches missing
+    from the trace), is taken again, up to three traces in all; after that
+    it says so and times a CUDA graph of the ``reps`` calls with CUDA
+    events instead."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    names = (match,) if isinstance(match, str) else match
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not e.key.startswith(("Memcpy", "Memset"))
-                and (match is None or match in e.key))
-    if total > 0:
-        return total / 1e3 / reps, "profiler"
-    print(f"torch.profiler recorded no device time (kernel {match!r}): "
-          f"timing a CUDA graph of {reps} calls", flush=True)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset"))
+                   and (names is None or any(m in e.key for m in names))]
+        total = sum(e.self_device_time_total for e in kernels)
+        if total > 0 and all(e.count % reps == 0 for e in kernels):
+            return total / 1e3 / reps, "profiler"
+        print(f"torch.profiler recorded an incomplete trace (kernel {match!r}: "
+              f"{total / 1e3:.4f} ms, launch counts "
+              f"{sorted({e.count for e in kernels})} over {reps} calls)",
+              flush=True)
+    print(f"timing a CUDA graph of {reps} calls instead", flush=True)
     graph = torch.cuda.CUDAGraph()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -299,6 +320,132 @@ def flash_no_rescale(q, k, v, bias, scale: float):
         acc = acc + p @ v[:, :, k0:k0 + 64]
         m = m_new
     return acc / l[..., None]
+
+
+# Named faults of the shared GEMM (``csrc/gemm.cu``) under K3's projections
+# and K4, as plain emulations beside the references: ``ln_slice_stats``,
+# the row LayerNorm's statistics taken per 128-column slice (the cluster's
+# exchange skipped); ``k_tail_dropped``, the last 64-deep k tile of every
+# product left out (a ring drained one stage early); ``no_residual``; and
+# ``no_bias``, the first product's bias dropped (K4's b1, K3's QKV bias).
+GEMM_FAULTS = ("ln_slice_stats", "k_tail_dropped", "no_residual", "no_bias")
+
+
+def ln_slice_stats(y, gamma, beta, eps: float):
+    """f32 LayerNorm of ``y`` whose mean and variance come from each
+    128-column slice alone."""
+    ys = y.unflatten(-1, (-1, 128))
+    mu = ys.mean(-1, keepdim=True)
+    var = (ys - mu).square().mean(-1, keepdim=True)
+    return ((ys - mu) * (var + eps).rsqrt()).flatten(-2) * gamma + beta
+
+
+def k_tail_dropped(w):
+    """``w`` [K, N] with the rows of its last 64-deep k tile zeroed."""
+    w = w.clone()
+    w[(w.shape[0] - 1) // 64 * 64:] = 0
+    return w
+
+
+def _gemm_fault_parts(fault, w_in, b_in, w_out):
+    import torch
+
+    from cpt_tpu_torch.ops.fused_attention import layer_norm_f32
+
+    if fault not in (None,) + GEMM_FAULTS:
+        raise ValueError(f"unknown GEMM fault {fault!r}")
+    if fault == "k_tail_dropped":
+        w_in, w_out = k_tail_dropped(w_in), k_tail_dropped(w_out)
+    if fault == "no_bias":
+        b_in = torch.zeros_like(b_in)
+    norm = ln_slice_stats if fault == "ln_slice_stats" else layer_norm_f32
+    return w_in, b_in, w_out, norm, fault != "no_residual"
+
+
+def ffn_with_fault(x, w1, b1, w2, b2, gamma, beta, eps: float,
+                   approximate: bool, fault=None):
+    """``reference_ffn`` (in x's dtype, f32 LayerNorm) with one of
+    ``GEMM_FAULTS``, or none."""
+    import torch.nn.functional as F
+
+    dt = x.dtype
+    w1, b1, w2, norm, residual = _gemm_fault_parts(fault, w1, b1, w2)
+    h = F.gelu(x @ w1.to(dt) + b1.to(dt),
+               approximate="tanh" if approximate else "none")
+    y = h @ w2.to(dt) + b2.to(dt)
+    if residual:
+        y = y + x
+    return norm(y.float(), gamma.float(), beta.float(), eps).to(dt)
+
+
+def attention_block_with_fault(x, wqkv, bqkv, wo, bo, gamma, beta, key_bias,
+                               heads: int, eps: float, fault=None):
+    """K3's block in f32 (the projections around ``reference_attention_core``,
+    which in f32 is ``reference_attention_block``) with one of
+    ``GEMM_FAULTS``, or none."""
+    from cpt_tpu_torch.ops.fused_attention import reference_attention_core
+
+    b, s, h = x.shape
+    x = x.float()
+    wqkv, bqkv, wo, norm, residual = _gemm_fault_parts(fault, wqkv.float(),
+                                                       bqkv.float(), wo.float())
+    qkv = x @ wqkv + bqkv
+    ctx = reference_attention_core(qkv, key_bias, heads,
+                                   1.0 / float(h // heads) ** 0.5)
+    y = ctx @ wo + bo.float()
+    if residual:
+        y = y + x
+    return norm(y, gamma.float(), beta.float(), eps)
+
+
+def slice_offsets(rng, h: int) -> np.ndarray:
+    """A mean for each 128-column slice of a row of ``h``, spread over
+    [-0.5, 0.5], so that statistics taken per slice miss the row's."""
+    means = np.linspace(-0.5, 0.5, max(h // 128, 1))
+    return np.repeat(rng.permutation(means), 128)[:h]
+
+
+def k4_inputs(m: int, h: int, f: int, seed: int) -> list:
+    """K4's inputs as f32 numpy arrays (x [m, h], w1, b1, w2, b2, gamma,
+    beta), drawn so that each of ``GEMM_FAULTS`` moves the output: weights
+    of std ~1/sqrt(fan in), a first bias of std 0.5, and a second bias
+    whose 128-column slices have different means."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(m, h) * 0.5).astype(np.float32),
+            (rng.randn(h, f) * 0.8 / h ** 0.5).astype(np.float32),
+            (rng.randn(f) * 0.5).astype(np.float32),
+            (rng.randn(f, h) * 1.6 / f ** 0.5).astype(np.float32),
+            (rng.randn(h) * 0.1 + slice_offsets(rng, h)).astype(np.float32),
+            (rng.rand(h) + 0.5).astype(np.float32),
+            (rng.randn(h) * 0.1).astype(np.float32)]
+
+
+def k3_inputs(b: int, s: int, h: int, seed: int) -> list:
+    """K3's inputs as f32 numpy arrays (x [b, s, h], wqkv, bqkv, wo, bo,
+    gamma, beta, key_bias): projections scaled so the scores spread (std
+    ≈ 2, softmax far from uniform), a QKV bias of std 0.5, an output bias
+    whose 128-column slices have different means; ~30% of the keys masked
+    and the last sequence wholly."""
+    rng = np.random.RandomState(seed)
+    kb = np.where(rng.rand(b, s) > 0.3, 0.0, -10000.0).astype(np.float32)
+    kb[-1] = -10000.0
+    return [(rng.randn(b, s, h) * 0.5).astype(np.float32),
+            (rng.randn(h, 3 * h) * 2.8 / h ** 0.5).astype(np.float32),
+            (rng.randn(3 * h) * 0.5).astype(np.float32),
+            (rng.randn(h, h) * 0.8 / h ** 0.5).astype(np.float32),
+            (rng.randn(h) * 0.1 + slice_offsets(rng, h)).astype(np.float32),
+            (rng.rand(h) + 0.5).astype(np.float32),
+            (rng.randn(h) * 0.1).astype(np.float32), kb]
+
+
+def on_card(arrays, dev) -> list:
+    """``k3_inputs`` / ``k4_inputs`` as tensors on ``dev``: the activations
+    and the two weights (positions 0, 1 and 3) bf16, the rest f32."""
+    import torch
+
+    return [torch.from_numpy(a).to(dev).to(torch.bfloat16 if i in (0, 1, 3)
+                                          else torch.float32)
+            for i, a in enumerate(arrays)]
 
 
 # K1's shapes: the X152 grouped 3×3 of every stage for 8 copies on the
@@ -442,7 +589,7 @@ def check_kernels(rows: list) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from cpt_tpu_torch.kernels.gemm import attention_core
+    from cpt_tpu_torch.kernels.gemm import attention_core, gemm_bias_act
     from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
                                                    reference_attention_block,
                                                    reference_attention_core)
@@ -518,38 +665,35 @@ def check_kernels(rows: list) -> dict:
     # K3 at the scoring shape: 16 sequences of 70 text + 50 region slots,
     # and S = 128; the last sequence has every key masked. The projections
     # are scaled so the scores spread (std ≈ 2): softmax is far from
-    # uniform, so uniform attention or a dropped mask misses the tolerance.
+    # uniform, so uniform attention or a dropped mask misses the tolerance,
+    # and so does each of the GEMM's named faults (``k3_inputs``).
     hdim, heads = 768, 12
     scale = 1.0 / (hdim // heads) ** 0.5
     for s_len in (120, 128):
-        x = randn(16, s_len, hdim, scale=0.5)
-        keep = torch.rand(16, s_len, generator=g, device=dev) > 0.3
-        keep[-1] = False
-        kb = torch.where(keep, 0.0, -10000.0).float()
-        args = [x, randn(hdim, 3 * hdim, scale=0.1),
-                randn(3 * hdim, scale=0.02, dtype=torch.float32),
-                randn(hdim, hdim, scale=0.03),
-                randn(hdim, scale=0.02, dtype=torch.float32),
-                torch.rand(hdim, generator=g, device=dev) + 0.5,
-                randn(hdim, scale=0.1, dtype=torch.float32), kb]
+        args = on_card(k3_inputs(16, s_len, hdim, seed=s_len), dev)
+        x, kb = args[0], args[7]
         no_q = f32(args)
         no_q[1][:, :hdim] = 0.0
         no_q[2][:hdim] = 0.0
         no_mask = f32(args)
         no_mask[7] = torch.zeros_like(kb)
 
-        def block_ref(a):
-            return lambda: reference_attention_block(*a, num_heads=heads,
-                                                     eps=1e-12)
+        def block_ref(a, fault=None):
+            return lambda: attention_block_with_fault(*a, heads, 1e-12, fault)
 
+        faults = {"uniform": block_ref(no_q), "no_mask": block_ref(no_mask)}
+        faults.update({f: block_ref(f32(args), f) for f in GEMM_FAULTS})
         tokens = 16 * s_len
         compare("K3", f"x=[16,{s_len},768] heads=12",
                 lambda: fused_attention_block(*args, heads, 1e-12),
-                block_ref(args), block_ref(f32(args)), rows,
-                {"uniform": block_ref(no_q), "no_mask": block_ref(no_mask)},
+                lambda: reference_attention_block(*args, num_heads=heads,
+                                                  eps=1e-12),
+                lambda: reference_attention_block(*f32(args), num_heads=heads,
+                                                  eps=1e-12), rows, faults,
                 work=(nbytes(*args) + nbytes(x),
                       2 * tokens * hdim * 4 * hdim + 4 * tokens * s_len * hdim,
-                      BF16_OPS_S))
+                      BF16_OPS_S),
+                device=("wgmma_", "attention_kernel"))
 
         # the attention core alone on a packed projection with std 1.5
         qkv = randn(16, s_len, 3 * hdim, scale=1.5)
@@ -578,21 +722,41 @@ def check_kernels(rows: list) -> dict:
                     attn_mask=kb_mask, scale=scale),
                 device="attention_kernel")
 
-    # K4 on 8 sequences × 120 slots
-    x = randn(960, hdim, scale=0.5)
-    args = (x, randn(hdim, 3072, scale=0.03),
-            randn(3072, scale=0.02, dtype=torch.float32),
-            randn(3072, hdim, scale=0.03),
-            randn(hdim, scale=0.02, dtype=torch.float32),
-            torch.rand(hdim, generator=g, device=dev) + 0.5,
-            randn(hdim, scale=0.1, dtype=torch.float32))
-    for approx in (False, True):
-        compare("K4", f"x=[960,768] F=3072 gelu={'tanh' if approx else 'erf'}",
+    # K4 on 8 sequences × 120 slots, on the scoring batch's 16 × 120 (the
+    # main path's shape) and on 16 × 79 rows (ragged at the 128- and
+    # 64-row tiles); erf gelu, and tanh once
+    for m, approx in ((960, False), (960, True), (1920, False), (1264, False)):
+        args = on_card(k4_inputs(m, hdim, 3072, seed=m), dev)
+
+        def ffn_ref(a, fault=None):
+            return lambda: ffn_with_fault(*a, 1e-12, approx, fault)
+
+        compare("K4", f"x=[{m},768] F=3072 gelu={'tanh' if approx else 'erf'}",
                 lambda: fused_ffn(*args, approximate=approx),
                 lambda: reference_ffn(*args, 1e-12, approx),
                 lambda: reference_ffn(*f32(args), 1e-12, approx), rows,
-                work=(nbytes(*args) + nbytes(x), 4 * 960 * hdim * 3072,
-                      BF16_OPS_S))
+                {f: ffn_ref(f32(args), f) for f in GEMM_FAULTS},
+                work=(nbytes(*args) + nbytes(args[0]), 4 * m * hdim * 3072,
+                      BF16_OPS_S),
+                device=("wgmma_",))
+
+    # epilogue (a) alone at the QKV and FFN-1 shapes of the scoring batch,
+    # beside torch.addmm, the one PyTorch call that computes it
+    for name, n in (("K3 gemm", 3 * hdim), ("K4 gemm", 3072)):
+        a = randn(1920, hdim, scale=0.5)
+        w = randn(hdim, n, scale=0.8 / hdim ** 0.5)
+        b = randn(n, scale=0.5, dtype=torch.float32)
+        b_bf = b.to(bf)
+        af, wf = a.float(), w.float()
+        compare(name, f"a=[1920,768] w=[768,{n}] epilogue (a)",
+                lambda: gemm_bias_act(a, w, b), lambda: a @ w + b_bf,
+                lambda: af @ wf + b, rows,
+                {"k_tail_dropped": lambda: af @ k_tail_dropped(wf) + b,
+                 "no_bias": lambda: af @ wf},
+                work=(nbytes(a, w, b) + 1920 * n * 2, 2 * 1920 * hdim * n,
+                      BF16_OPS_S),
+                library=lambda: torch.addmm(b_bf, a, w),
+                device=("wgmma_bias_act",))
     check_nms(rows)
     check_flash(rows)
     check_flash_bwd(rows)
@@ -1277,8 +1441,12 @@ def run_requests(res, counters, idle=("K5", "K6", "K6b", "K6c", "K1q", "K7"),
         breakdown = None
         if profile:
             img, dets = request(16)
+            before = {k: counters[k].launches for k in ("K3", "K4")}
             breakdown = profiled(lambda: answer(img, dets, f"{root}/profiled"),
                                  "grounding request (16 candidates)")
+            check_gemm_group(breakdown["groups"], {
+                k: counters[k].launches - n for k, n in before.items()},
+                "the profiled grounding request")
         for r in reqs:
             wd = r.pop("workdir")
             r["scores"] = cp.candidate_scores(res, wd)
@@ -1599,12 +1767,18 @@ EXTRACT_GROUPS = (("K1q", ("grouped_conv3x3_int8",)),
                   ("elementwise / reduce", ("elementwise", "vectorized", "reduce",
                                            "cat", "pad", "index")))
 # A kernel counts in the first family whose patterns it holds, so K6's
-# "flash_attention_kernel" comes before K3's "attention_kernel".
+# "flash_attention_kernel" comes before K3's "attention_kernel", and the
+# shared GEMM's kernels (``csrc/gemm.cu``: "wgmma_bias_act_kernel",
+# "wgmma_residual_ln_kernel"; "gemm_bias_act_kernel" and
+# "gemm_residual_ln_kernel" in checkouts from before them, which
+# ``chip_e2e.py --package`` times) come before cuBLAS's "gemm".
+GEMM_GROUP = "K3 / K4 GEMM"
 REQUEST_GROUPS = (("K1", ("grouped_conv3x3_mma", "grouped_conv3x3_kernel")),
                   ("K2", ("roi_align",)), ("K5", ("nms_kernel",)),
                   ("K6", ("flash_attention_kernel",)),
-                  ("K3 / K4", ("attention_kernel", "gemm_bias_act",
-                               "gemm_residual_ln")),
+                  ("K3 core", ("attention_kernel",)),
+                  (GEMM_GROUP, ("wgmma_bias_act", "wgmma_residual_ln",
+                                "gemm_bias_act_kernel", "gemm_residual_ln_kernel")),
                   ("GEMM / conv (cuBLAS, cuDNN)", ("gemm", "nvjet", "cutlass", "xmma",
                                                    "sm90", "conv", "implicit",
                                                    "cudnn")),
@@ -1661,6 +1835,19 @@ def profiled(fn, label: str) -> dict:
           + "; top: " + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top),
           flush=True)
     return {"ms": wall, "device_ms": busy, "groups": groups, "top": top}
+
+
+def check_gemm_group(groups: dict, ran: dict, where: str) -> None:
+    """Raise unless a profile's "K3 / K4 GEMM" group (and, where K3 ran,
+    its "K3 core" group) holds device time when the launch counters ``ran``
+    say that K3 or K4 launched: a kernel renamed out of its group would
+    otherwise leave the breakdown silently wrong."""
+    if (ran["K3"] or ran["K4"]) and not groups[GEMM_GROUP] > 0:
+        raise AssertionError(f"{where}: K3/K4 launched {ran} but the profile's "
+                             f"{GEMM_GROUP!r} group is empty: {groups}")
+    if ran["K3"] and not groups["K3 core"] > 0:
+        raise AssertionError(f"{where}: K3 launched {ran['K3']} times but the "
+                             f"profile's 'K3 core' group is empty: {groups}")
 
 
 def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
@@ -1864,6 +2051,37 @@ def run_training(res, counters) -> dict:
                            "plain_vjps": vjps}}
 
 
+def check_gemm_sass(build) -> dict:
+    """Counts of the Hopper instructions in the shared GEMM's kernels
+    (``csrc/gemm.cu``, the functions named "wgmma_") in the built library's
+    SASS (``cuobjdump -sass``): ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+    loads); raises unless each kernel issues both, and the row-LayerNorm
+    kernel its cluster barrier (``UCGABAR``)."""
+    from pathlib import Path
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split(":", 1)[1].strip()
+            fn = next((k for k in ("wgmma_bias_act", "wgmma_residual_ln")
+                       if k in fn), None)
+            if fn:
+                counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0, "UCGABAR": 0})
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += op in line
+    print(f"GEMM kernels' SASS (cuobjdump): {counts}", flush=True)
+    if (len(counts) != 2 or any(not c["HGMMA"] or not c["UTMALDG"]
+                                for c in counts.values())
+            or not counts["wgmma_residual_ln"]["UCGABAR"]):
+        raise AssertionError(f"the GEMM kernels issue no wgmma / TMA / "
+                             f"cluster barrier: {counts}")
+    return counts
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -1907,6 +2125,7 @@ def main(argv=None) -> int:
     build.lib()
     print(f"kernels built and loaded in {build.LIBRARY.build_seconds:.1f} s "
           f"({build.library_path().name})", flush=True)
+    gemm_sass = check_gemm_sass(build)
 
     counters = kernel_counters()
     rows: list = []
@@ -1945,7 +2164,8 @@ def main(argv=None) -> int:
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
         summary.append({"name": f"{k} {fn_name}", "route": "cuda",
-                        "source": src, "replaces": replaces,
+                        "source": src.split()[0], "sources": src.split(),
+                        "replaces": replaces,
                         "launches": sum(e2e[p]["launches"][k] for p in paths),
                         "max_abs_err": max(x["max_abs_err"] for x in per_kernel[k]),
                         "ms": r.get("device_ms", r["ms"]),
@@ -1956,6 +2176,7 @@ def main(argv=None) -> int:
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,
+                       "gemm_sass": gemm_sass,
                        "checks": rows, "requests": e2e}, f, indent=1)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

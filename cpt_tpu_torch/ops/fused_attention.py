@@ -2,11 +2,12 @@
 
 Computes ``LayerNorm(x + OutProj(softmax(QKᵀ·scale + key_bias)·V))``. On a
 Hopper card ``fused_attention_block`` chains three hand-written launches:
-the tensor-core GEMM with a bias epilogue for the QKV projection
-(``csrc/gemm.cu``), the attention core (``csrc/attention.cu``: the
+the GEMM (``csrc/gemm.cu``: TMA-fed ``wgmma``) with a bias epilogue for
+the QKV projection, the attention core (``csrc/attention.cu``: the
 tensor-core tile of ``csrc/mma_attention.cuh`` with f32 scores and f32
 softmax, any S with the ragged edge masked), and the GEMM with the
-bias + residual + row-LayerNorm epilogue for the output projection. These
+bias + residual + row-LayerNorm epilogue, on a thread-block cluster that
+owns whole rows, for the output projection. These
 replace the TPU's single ``_attn_kernel``; the [B·S, 3H] QKV and [B·S, H]
 context make one bf16 round trip through device memory each.
 

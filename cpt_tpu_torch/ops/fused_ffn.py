@@ -2,10 +2,14 @@
 
 Computes ``LayerNorm(x + gelu(x·W1 + b1)·W2 + b2)`` (erf gelu, or tanh for
 ``gelu_new``). On a Hopper card ``fused_ffn`` chains two launches of the
-hand-written tensor-core GEMM (``csrc/gemm.cu``): epilogue (b) bias + gelu
-into a bf16 [M, F] intermediate, then epilogue (c) bias + residual + row
-LayerNorm. These replace the TPU's ``_ffn_kernel``, which kept the [M, F]
-intermediate in VMEM (keeping it on chip here is a later change).
+hand-written GEMM (``csrc/gemm.cu``: TMA-fed ``wgmma``): epilogue (b)
+bias + gelu into a bf16 [M, F] intermediate, then epilogue (c) bias +
+residual + row LayerNorm on a thread-block cluster that owns whole rows.
+These replace the TPU's ``_ffn_kernel``, which kept the [M, F]
+intermediate in VMEM; here it makes one round trip through device memory
+(at the scoring batch 11.8 MB, ~7 µs at HBM rate), because keeping it on
+chip would hold a [rows, H] f32 accumulator across the F loop in every
+block and leave too few blocks to fill the card (``csrc/gemm.cu``).
 
 On the CPU it runs :func:`reference_ffn`, the JAX ``_reference_ffn``
 semantics: params cast to the input dtype, exact gelu, LayerNorm with

@@ -8,11 +8,13 @@ These need the card: they skip where CUDA is unavailable. On the card:
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from cpt_tpu_torch.kernels.build import KernelError
-from cpt_tpu_torch.kernels.gemm import attention_core
+from cpt_tpu_torch.kernels.gemm import (attention_core, gemm_bias_act,
+                                        gemm_bias_residual_ln)
 from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
                                          flash_mha_bwd_dq, flash_mha_fwd,
                                          reference_flash_mha,
@@ -89,33 +91,29 @@ def _attn_faults_missed(want, faults, frac):
 
 @pytest.mark.parametrize("s_len", [37, 120])
 def test_attention_kernel(dev, s_len):
-    """The whole sub-block, with projections scaled so the scores spread
-    (std ≈ 2): uniform attention or a dropped mask misses the tolerance."""
-    g = torch.Generator(device=dev).manual_seed(2)
-    b, h, heads = 3, 256, 4
+    """The whole sub-block on chip_smoke's kind of inputs (``k3_inputs``:
+    projections scaled so the scores spread, std ≈ 2; a QKV bias of std
+    0.5; output-bias slices with different means): uniform attention, a
+    dropped mask and each of the shared GEMM's named faults miss the
+    tolerance."""
+    import chip_smoke as cs
 
-    def r(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * scale
-
-    kb = torch.where(torch.rand(b, s_len, generator=g, device=dev) > 0.3,
-                     0.0, -10000.0)
-    kb[-1] = -10000.0
-    args = [r(b, s_len, h, scale=0.5).bfloat16(),
-            r(h, 3 * h, scale=0.18).bfloat16(), r(3 * h, scale=0.02),
-            r(h, h, scale=0.05).bfloat16(), r(h, scale=0.02),
-            torch.rand(h, generator=g, device=dev) + 0.5, r(h, scale=0.1), kb]
+    heads = 4
+    args = cs.on_card(cs.k3_inputs(3, s_len, 256, seed=s_len), dev)
     got = fused_attention_block(*args, heads, 1e-12)
     fargs = [a.float() for a in args]
     want = reference_attention_block(*fargs, num_heads=heads, eps=1e-12)
     _close(got, want, 2e-2)
     no_q = [a.clone() for a in fargs]
-    no_q[1][:, :h] = 0.0
-    no_q[2][:h] = 0.0
+    no_q[1][:, :256] = 0.0
+    no_q[2][:256] = 0.0
     faults = {"uniform": reference_attention_block(*no_q, num_heads=heads,
                                                    eps=1e-12),
               "no_mask": reference_attention_block(
-                  *fargs[:7], torch.zeros_like(kb), num_heads=heads,
+                  *fargs[:7], torch.zeros_like(fargs[7]), num_heads=heads,
                   eps=1e-12)}
+    faults.update({f: cs.attention_block_with_fault(*fargs, heads, 1e-12, f)
+                   for f in cs.GEMM_FAULTS})
     assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
@@ -209,18 +207,119 @@ def test_attention_core_kernel(dev, s_len):
 
 @pytest.mark.parametrize("approximate", [False, True])
 def test_ffn_kernel(dev, approximate):
-    g = torch.Generator(device=dev).manual_seed(3)
+    """K4 on chip_smoke's kind of inputs (``k4_inputs``), H = 256 (a
+    cluster of 2), F = 1024, 74 rows; each of the shared GEMM's named
+    faults misses the tolerance."""
+    import chip_smoke as cs
 
-    def r(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * scale
-
-    args = [r(2, 37, 256, scale=0.5).bfloat16(), r(256, 1024, scale=0.05).bfloat16(),
-            r(1024, scale=0.1), r(1024, 256, scale=0.05).bfloat16(),
-            r(256, scale=0.1), torch.rand(256, generator=g, device=dev) + 0.5,
-            r(256, scale=0.1)]
+    args = cs.on_card(cs.k4_inputs(74, 256, 1024, seed=int(approximate)), dev)
+    args[0] = args[0].view(2, 37, 256)
     got = fused_ffn(*args, approximate=approximate)
-    want = reference_ffn(*[a.float() for a in args], 1e-12, approximate)
+    fargs = [a.float() for a in args]
+    want = reference_ffn(*fargs, 1e-12, approximate)
     _close(got, want, 3e-2)
+    faults = {f: cs.ffn_with_fault(*fargs, 1e-12, approximate, f)
+              for f in cs.GEMM_FAULTS}
+    assert _attn_faults_missed(want, faults, 3e-2) == []
+
+
+# The shared GEMM (csrc/gemm.cu) at M on both sides of its 64- and 128-row
+# tiles and K on both sides of its 64-deep k tile (72: one full tile and a
+# ragged one), against f32 matmuls on the same bf16 inputs.
+GEMM_M = [1, 63, 130, 1920]
+GEMM_K = [72, 768, 3072]
+
+
+def _gemm_inputs(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = (torch.randn(m, k, generator=g, device=dev) * 0.5).bfloat16()
+    w = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).bfloat16()
+    return a, w, g
+
+
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("act", ["none", "gelu", "gelu_new"])
+def test_gemm_bias_act_kernel(dev, act, m, k):
+    """Epilogues (a) and (b) at N = 2304 (K3's QKV width), and at a ragged
+    N = 136 for K = 72; the last k tile dropped and the bias dropped miss
+    the tolerance."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+
+    n = 136 if k == 72 else 2304
+    a, w, g = _gemm_inputs(dev, m, k, n, seed=m + k)
+    b = torch.randn(n, generator=g, device=dev) * 0.5
+    got = gemm_bias_act(a, w, b, act)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+
+    def plain(wt, bias):
+        y = a.float() @ wt.float() + bias
+        if act == "none":
+            return y
+        return F.gelu(y, approximate="tanh" if act == "gelu_new" else "none")
+
+    want = plain(w, b)
+    _close(got, want, 1e-2)
+    faults = {"k_tail_dropped": plain(cs.k_tail_dropped(w.float()), b),
+              "no_bias": plain(w, torch.zeros_like(b))}
+    assert _attn_faults_missed(want, faults, 1e-2) == []
+
+
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("nf", [1, 3, 6, 8])
+def test_gemm_bias_residual_ln_kernel(dev, nf, m, k):
+    """Epilogue (c) on a cluster of nf blocks: N = 128·nf (8: Oscar-large's
+    1024), bias slices with different means; the statistics per 128-column
+    slice (nf > 1), the last k tile dropped and the residual dropped miss
+    the tolerance."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.ops.fused_attention import layer_norm_f32
+
+    n = 128 * nf
+    a, w, g = _gemm_inputs(dev, m, k, n, seed=nf * 7 + m + k)
+    b = (torch.randn(n, generator=g, device=dev) * 0.1
+         + torch.from_numpy(cs.slice_offsets(np.random.RandomState(nf), n)).float().to(dev))
+    res = (torch.randn(m, n, generator=g, device=dev) * 0.5).bfloat16()
+    gamma = torch.rand(n, generator=g, device=dev) + 0.5
+    beta = torch.randn(n, generator=g, device=dev) * 0.1
+    got = gemm_bias_residual_ln(a, w, b, res, gamma, beta, 1e-12)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+
+    def plain(wt, residual=True, norm=layer_norm_f32):
+        y = a.float() @ wt.float() + b + (res.float() if residual else 0.0)
+        return norm(y, gamma, beta, 1e-12)
+
+    want = plain(w)
+    _close(got, want, 2e-2)
+    faults = {"k_tail_dropped": plain(cs.k_tail_dropped(w.float())),
+              "no_residual": plain(w, residual=False)}
+    if nf > 1:
+        faults["ln_slice_stats"] = plain(w, norm=cs.ln_slice_stats)
+    assert _attn_faults_missed(want, faults, 2e-2) == []
+
+
+def test_gemm_refused_launch_raises(dev):
+    """The LN-GEMM's entry point returns an error for a row it cannot hold
+    on one cluster (N = 9·128: 9 blocks, over the portable 8), and the
+    wrapper's check turns it into a KernelError."""
+    from cpt_tpu_torch.kernels.build import check, lib
+
+    m, k, n = 64, 64, 9 * 128
+    a, w, _ = _gemm_inputs(dev, m, k, n, seed=0)
+    vec = torch.zeros(n, device=dev)
+    res = torch.zeros(m, n, device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(res)
+    status = lib().cpt_gemm_bias_residual_ln(
+        a.data_ptr(), w.data_ptr(), vec.data_ptr(), res.data_ptr(),
+        vec.data_ptr(), vec.data_ptr(), out.data_ptr(), m, n, k, 1e-12,
+        torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(KernelError):
+        check(status, "cpt_gemm_bias_residual_ln")
+    with pytest.raises(ValueError):
+        gemm_bias_residual_ln(a, w, vec, res, vec, vec, 1e-12)
 
 
 def _conv_case(dev, n, h, w, c, cpg, seed=0):

@@ -210,11 +210,21 @@ def test_grouped_conv_named_faults_miss(h, w, c, groups, stride):
     ("void (anonymous namespace)::flash_attention_kernel<64>(cpt::mma_attn::Args)",
      "REQUEST_GROUPS", "K6"),
     ("void (anonymous namespace)::attention_kernel<64>(cpt::mma_attn::Args)",
-     "REQUEST_GROUPS", "K3 / K4"),
-    ("void (anonymous namespace)::gemm_bias_act_kernel<1>(...)", "REQUEST_GROUPS",
-     "K3 / K4"),
-    ("void (anonymous namespace)::gemm_residual_ln_kernel(...)", "REQUEST_GROUPS",
-     "K3 / K4"),
+     "REQUEST_GROUPS", "K3 core"),
+    ("void (anonymous namespace)::wgmma_bias_act_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, const float *, __nv_bfloat16 *, int, int, int, int)",
+     "REQUEST_GROUPS", "K3 / K4 GEMM"),
+    ("void (anonymous namespace)::wgmma_residual_ln_kernel(CUtensorMap_st, "
+     "CUtensorMap_st, const float *, const __nv_bfloat16 *, const float *, "
+     "const float *, __nv_bfloat16 *, int, int, int, float)",
+     "REQUEST_GROUPS", "K3 / K4 GEMM"),
+    # the first GEMM's kernels, which chip_e2e.py times in older checkouts
+    ("void (anonymous namespace)::gemm_bias_act_kernel(...)", "REQUEST_GROUPS",
+     "K3 / K4 GEMM"),
+    ("void (anonymous namespace)::gemm_residual_ln_kernel<6>(...)", "REQUEST_GROUPS",
+     "K3 / K4 GEMM"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_warpgroupsize1x1x1",
+     "REQUEST_GROUPS", "GEMM / conv (cuBLAS, cuDNN)"),
     ("void (anonymous namespace)::grouped_conv3x3_mma_kernel<2>(...)",
      "REQUEST_GROUPS", "K1"),
     ("void (anonymous namespace)::roi_align_kernel(...)", "REQUEST_GROUPS", "K2"),
@@ -234,7 +244,8 @@ def test_profile_families_classify_port_kernels(key, groups, family):
     """``chip_smoke.device_groups`` sums each device kernel into the first
     family one of whose patterns its name holds: each of the port's
     kernels lands in its own family (K6's ``flash_attention_kernel`` is
-    not K3's ``attention_kernel``)."""
+    not K3's ``attention_kernel``; the shared GEMM's kernels are not
+    cuBLAS's "gemm")."""
     import chip_smoke
 
     assert chip_smoke.kernel_group(key, getattr(chip_smoke, groups)) == family
