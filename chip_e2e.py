@@ -14,7 +14,9 @@ chip_smoke's five attention shapes by device time beside SDPA's, K3's
 block and K4 at chip_smoke's shapes and the shared GEMM's epilogue (a)
 beside ``torch.addmm`` by device time (``time_blocks``), K6b and
 K6c at chip_smoke's three backward shapes by device time beside SDPA's
-backward, then phase
+backward, K5 at chip_smoke's NMS shapes and K2 at the request, detect-step,
+``--detect`` grounding and chip_smoke shapes by device time (``time_k5``,
+``time_k2``; K2 beside its plain version and its bound), then phase
 4's 3 grounding
 requests and 3 ``--detect`` requests (one of each under
 ``torch.profiler``), then ``tools/extract_features --synthetic 4
@@ -26,11 +28,15 @@ to see the spread of the host-clock numbers.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
+
+import numpy as np
 
 import chip_smoke as cs
 
@@ -244,6 +250,136 @@ def time_flash_bwd() -> list:
     return rows
 
 
+def kernel_split(fn, match: str, reps: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds ``match``, from
+    one ``torch.profiler`` trace of ``reps`` calls (each kernel by the word
+    of its name that holds ``match``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and match in e.key:
+            name = re.search(rf"\w*{match}\w*", e.key).group(0)
+            split[name] = split.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    return split
+
+
+def time_k5() -> list:
+    """K5 (``nms_pallas``) at ``cs.NMS_SHAPES`` on ``cs.nms_inputs``,
+    through the public wrapper only: device time of all of the call's
+    kernels (``cs.device_ms``, 10 launches; names holding "nms_"), that
+    time split by kernel (:func:`kernel_split`), and whether it equals
+    ``nms_padded`` slot for slot. Where the package has K5's two paths
+    (``launch_nms``), each path's device time and exactness too, so that
+    the dispatch rule's cutoff is read on the card."""
+    import torch
+
+    from cpt_tpu_torch.ops import nms_pallas as k5
+    from cpt_tpu_torch.ops.nms import nms_padded
+
+    rows = []
+    for b, k, max_out, thr, off, ones in cs.NMS_SHAPES:
+        bx, sc, va = (torch.from_numpy(a).cuda()
+                      for a in cs.nms_inputs(b, k, thr, off, ones, seed=k + b))
+        args = (bx[0], sc[0], va[0]) if b == 1 else (bx, sc, va)
+        got = k5.nms_pallas(*args, thr, max_out, off)
+        want = nms_padded(*args, thr, max_out, off)
+        exact = all(torch.equal(x, y) for x, y in zip(got, want))
+        dev_ms, how = cs.device_ms(
+            lambda: k5.nms_pallas(*args, thr, max_out, off), "nms_")
+        split = kernel_split(lambda: k5.nms_pallas(*args, thr, max_out, off),
+                             "nms_")
+        label = cs.nms_label(b, k, max_out, thr, off, ones)
+        rows.append({"shape": label, "device_ms": dev_ms, "timed_by": how,
+                     "kernels_ms": split, "exact": exact})
+        paths = {}
+        for path in ("block", "grid") if hasattr(k5, "launch_nms") else ():
+            def run(path=path):
+                return k5.launch_nms(path, bx, sc, va, thr, max_out, off)
+
+            want_b = nms_padded(bx, sc, va, thr, max_out, off)
+            ok = all(torch.equal(x, y) for x, y in zip(run(), want_b))
+            paths[path] = {"device_ms": cs.device_ms(run, "nms_")[0],
+                           "exact": ok}
+        if paths:
+            rows[-1].update(path=k5.nms_path(b, k), paths=paths)
+        print(f"K5 {label}: device {dev_ms:.4f} ms ({how}), by kernel "
+              + ", ".join(f"{n} {v:.4f}" for n, v in split.items())
+              + f"; exact {exact}"
+              + "".join(f"; {p} path {v['device_ms']:.4f} ms, exact "
+                        f"{v['exact']}" for p, v in paths.items()), flush=True)
+    return rows
+
+
+def time_k2() -> list:
+    """K2 (``batched_roi_align``, 14x14, adaptive grid capped at 8) at
+    ``cs.k2_shapes``, through the public wrappers only: the kernel's device
+    time (``cs.device_ms``, 10 launches), the plain version's in bf16 (3
+    launches), the bound (``cs.k2_work``: the feature pixels some RoI
+    reads, the RoIs and the output, each moved once, at 3.35 TB/s), the
+    device time of writing the output alone (a ``fill_`` of a tensor of
+    its size: the store floor the kernel sits on), and max |Δ| / max |ref|
+    against the plain version in f32."""
+    import torch
+
+    from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
+                                                    batched_roi_align_plain)
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    rows = []
+    for label, shape, rois in cs.k2_shapes():
+        feats = torch.randn(*shape, generator=g, device="cuda").bfloat16()
+        rois_t = torch.from_numpy(rois).cuda()
+        out = batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8)
+        want = batched_roi_align_plain(feats.float(), rois_t, 1 / 16.0, 14, 0, 8)
+        err = float((out.float() - want).abs().max() / want.abs().max())
+        del want
+        dev_ms, how = cs.device_ms(
+            lambda: batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            "roi_align")
+        plain_ms, _ = cs.device_ms(lambda: batched_roi_align_plain(
+            feats, rois_t, 1 / 16.0, 14, 0, 8), reps=3, warmup=1)
+        bound_ms, _ = cs.bound(*cs.k2_work(shape, rois, 1 / 16.0), cs.F32_OPS_S)
+        fill = torch.empty_like(out)
+        write_ms, _ = cs.device_ms(lambda: fill.fill_(1.0))
+        del fill
+        rows.append({"shape": f"{label}: feats={list(shape)} rois={len(rois)}",
+                     "device_ms": dev_ms, "timed_by": how,
+                     "plain_device_ms": plain_ms, "bound_ms": bound_ms,
+                     "write_device_ms": write_ms, "rel_err": err})
+        print(f"K2 {rows[-1]['shape']}: device {dev_ms:.4f} ms ({how}), plain "
+              f"(bf16) device {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_ms / dev_ms:.2f} of it), output write alone "
+              f"{write_ms:.4f} ms, max |Δ| / max |ref| "
+              f"{err:.3e}", flush=True)
+        del feats, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def record_k2_launches() -> list:
+    """Wrap the detector's calls of ``batched_roi_align`` (box head and
+    stage-5 pooling) to record each launch's (feats shape, RoI count)."""
+    from cpt_tpu_torch.models.detector import attr_rcnn, heads
+
+    seen = []
+    for mod in (attr_rcnn, heads):
+        def record(feats, rois, *args, _fn=mod.batched_roi_align, **kwargs):
+            seen.append((tuple(feats.shape), int(rois.shape[0])))
+            return _fn(feats, rois, *args, **kwargs)
+
+        mod.batched_roi_align = record
+    return seen
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--package", default=None,
@@ -277,10 +413,17 @@ def main(argv=None) -> int:
 
     out = {"card": smi, "package": package, "k1": time_k1(),
            "attention": time_attention(), "blocks": time_blocks(),
-           "flash_bwd": time_flash_bwd()}
+           "flash_bwd": time_flash_bwd(), "k5": time_k5(), "k2": time_k2()}
     res, _ = cs.build_resident()
     out["ground"] = cs.run_requests(res, counters, profile=True)
+    k2_seen = record_k2_launches()
     out["detect"] = cs.run_detect_requests(res, counters)
+    out["detect"]["k2_launch_shapes"] = [
+        [list(shape), n_rois, count]
+        for (shape, n_rois), count in collections.Counter(k2_seen).items()]
+    print("K2 launches over the --detect phase (warm-up, 3 requests, one "
+          f"profiled detect step): {out['detect']['k2_launch_shapes']}",
+          flush=True)
     del res
     with tempfile.TemporaryDirectory() as root:
         for _ in range(2):
@@ -303,6 +446,12 @@ def main(argv=None) -> int:
                                        for r in out["flash_bwd"]],
                "sdpa_bwd_device_ms": [r["sdpa_bwd_device_ms"]
                                       for r in out["flash_bwd"]],
+               "k5_device_ms": {r["shape"]: r["device_ms"] for r in out["k5"]},
+               "k5_path_device_ms": {r["shape"]: {p: v["device_ms"] for p, v in
+                                                  r.get("paths", {}).items()}
+                                     for r in out["k5"]},
+               "k2_device_ms": {r["shape"]: r["device_ms"] for r in out["k2"]},
+               "k2_launch_shapes": out["detect"]["k2_launch_shapes"],
                "ground_ms": [r["ms"] for r in out["ground"]["requests"]],
                "ground_copies_per_s": out["ground"]["copies_per_s"],
                "detect_step_ms": [r["detect_ms"] for r in out["detect"]["requests"]],

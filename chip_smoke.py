@@ -14,10 +14,12 @@ Phases (any failure raises and the script exits non-zero):
    its attention core alone, K4 FFN block at 960, 1920 and 1264 rows, the
    GEMM under both alone beside ``torch.addmm``, K6 flash attention,
    K6b/K6c its backward; K3, K4 and the GEMM by device time too, with the
-   GEMM's named faults ``GEMM_FAULTS``) in bf16 against its plain PyTorch
-   version in f32 on the same
+   GEMM's named faults ``GEMM_FAULTS``; K2 with ``K2_FAULTS``) in bf16
+   against its plain PyTorch version in f32 on the same
    inputs, and K5 (greedy NMS) against its plain version exactly on the
-   same f32 inputs, at the main paths' shapes; time each kernel, its plain
+   same f32 inputs (``NMS_SHAPES``: the RPN's, the box head's and the
+   per-class filters' shapes, with ``NMS_FAULTS`` that must change the
+   result), at the main paths' shapes; time each kernel, its plain
    version and, where one PyTorch call computes the same function, that
    call (a yardstick the port never calls) with CUDA events (K3's core, K6,
    K6b, K6c and their SDPA yardsticks also by device time under
@@ -505,6 +507,155 @@ def k1_faults(x, wt, s, b, groups: int, stride: int) -> dict:
     return faults
 
 
+# Named faults of K2 (RoIAlign), as plain emulations in f32 beside
+# ``batched_roi_align_plain``: ``aligned``, the half-pixel offset −0.5 and
+# no minimum RoI extent of 1 (torchvision's aligned=True); ``fixed_grid``, a
+# fixed 2×2 sampling grid in place of ceil(bin) capped at max_sampling (a
+# fault of the adaptive grid only); ``clamp_not_skip``, samples outside
+# [-1, size] clamped to the edge instead of dropped; ``count_in_range``, the
+# average over the in-range samples in place of sy·sx. Each shows on a RoI
+# that reaches past the map with bins of more than two samples.
+K2_FAULTS = ("aligned", "fixed_grid", "clamp_not_skip", "count_in_range")
+
+
+def _k2_axis(start, extent, size: int, pooled: int, sampling: int,
+             max_sampling: int, fault):
+    """R [N, pooled, size]: one axis's folded interpolation rows
+    (``ops/roi_align._interp_matrix`` in f32) with ``fault``."""
+    import torch
+
+    bins = (extent if fault == "aligned" else extent.clamp(min=1.0)) / pooled
+    if fault == "fixed_grid":
+        s_n, smax = torch.full_like(bins, 2.0), 2
+    elif sampling:
+        s_n, smax = torch.full_like(bins, float(sampling)), sampling
+    else:
+        s_n, smax = torch.clamp(torch.ceil(bins), 1, max_sampling), max_sampling
+    s_n = s_n[:, None, None]
+    dev = start.device
+    p_idx = torch.arange(pooled, dtype=torch.float32, device=dev)[None, :, None]
+    s_idx = torch.arange(smax, dtype=torch.float32, device=dev)[None, None, :]
+    pos = start[:, None, None] + (p_idx + (s_idx + 0.5) / s_n) * bins[:, None, None]
+    live = s_idx < s_n
+    in_range = live if fault == "clamp_not_skip" else (
+        (pos >= -1.0) & (pos <= size) & live)
+    pos = pos.clamp(0.0, size - 1)
+    low = torch.floor(pos)
+    frac = pos - low
+    low = low.to(torch.int64)
+    high = (low + 1).clamp(max=size - 1)
+    grid = torch.arange(size, device=dev)
+    rows = ((1.0 - frac) * in_range)[..., None] * (grid == low[..., None]) + (
+        frac * in_range)[..., None] * (grid == high[..., None])
+    count = (in_range.sum(2, keepdim=True).clamp(min=1).float()
+             if fault == "count_in_range" else s_n)
+    return rows.sum(dim=2) / count
+
+
+def roi_align_with_fault(feats, rois, spatial_scale: float, pooled: int = 14,
+                         sampling: int = 0, max_sampling: int = 8, fault=None):
+    """``batched_roi_align_plain`` in f32 with one of K2_FAULTS (None: the
+    plain version itself)."""
+    import torch
+
+    from cpt_tpu_torch.ops.roi_align import separable_pool
+
+    if fault not in (None,) + K2_FAULTS:
+        raise ValueError(f"unknown K2 fault {fault!r}")
+    _, h, w, _ = feats.shape
+    r = rois.float() * spatial_scale
+    if fault == "aligned":
+        r = r - 0.5
+    ry = _k2_axis(r[:, 1], r[:, 3] - r[:, 1], h, pooled, sampling,
+                  max_sampling, fault)
+    rx = _k2_axis(r[:, 0], r[:, 2] - r[:, 0], w, pooled, sampling,
+                  max_sampling, fault)
+    return separable_pool(feats.to(torch.float32), ry, rx)
+
+
+def k2_faults(feats, rois, spatial_scale: float, pooled: int, sampling: int,
+              max_sampling: int) -> dict:
+    """K2's named faults that apply to this grid (``fixed_grid`` only to
+    the adaptive one), each as a function computing it."""
+    return {f: (lambda f=f: roi_align_with_fault(
+        feats, rois, spatial_scale, pooled, sampling, max_sampling, f))
+        for f in K2_FAULTS if not (f == "fixed_grid" and sampling)}
+
+
+def k2_shapes() -> list:
+    """K2's main-path launches at scale 1/16, 14×14, adaptive grid capped
+    at 8, as (label, feats shape, rois [N, 4] numpy f32 in image pixels):
+    the 16-candidate grounding request (boxes drawn as phase 4 draws them
+    on the 480×640 image, scaled by 4/3 to the 640×1024 canvas); the
+    detect step's box head (300 proposals on the 1024×1024 canvas); one
+    launch of the ``--detect`` request's grounding (its chunk of 128
+    copies, ``head_chunk`` 32 of its 128 det slots); and 8 copies × 8 / 32
+    RoIs, the first wider than the canvas, so its grid hits the 8-sample
+    cap. The launcher picks its code by shape: one copy (the box head)
+    takes one block over all channels, the rest 128-channel slices in
+    groups of copies."""
+    rng = np.random.RandomState(7)
+
+    def boxes(n, lo, hi, size_lo, size_hi, scale=1.0):
+        xy = rng.uniform(lo, hi, (n, 2))
+        return (np.concatenate([xy, xy + rng.uniform(size_lo, size_hi, (n, 2))], 1)
+                * scale).astype(np.float32)
+
+    out = [("request", (16, 40, 64, 1024), boxes(16, 0, 400, 24, 240, 4 / 3)),
+           ("detect box head", (1, 64, 64, 1024), boxes(300, 0, 900, 8, 300)),
+           ("--detect grounding", (128, 40, 64, 1024), boxes(32, 0, 400, 24, 240,
+                                                             4 / 3))]
+    for n in (8, 32):
+        r = np.random.RandomState(n)
+        xy = r.uniform(0, 600, (n, 2))
+        rois = np.concatenate([xy, xy + r.uniform(16, 420, (n, 2))], 1).astype(
+            np.float32)
+        rois[0] = [-300.0, -200.0, 1500.0, 1000.0]
+        out.append((f"{n} RoIs", (8, 40, 64, 1024), rois))
+    return out
+
+
+def _k2_taps(start, extent, size: int, pooled: int, s) -> list:
+    """Per RoI, the indices along one axis that its folded tables read
+    (weight > 0), with the legacy rules in f32 as ``csrc/roi_align.cu``
+    folds them: start [N], extent [N], samples a side s [N]."""
+    f32 = np.float32
+    bins = np.maximum(extent, f32(1)) / f32(pooled)
+    taps = []
+    for n in range(len(start)):
+        sn = int(s[n])
+        pos = (start[n] + (np.arange(pooled, dtype=f32)[:, None]
+                           + (np.arange(sn, dtype=f32)[None] + f32(0.5)) / f32(sn))
+               * bins[n]).ravel()
+        pos = np.clip(pos[(pos >= -1) & (pos <= size)], 0, size - 1)
+        lo = np.floor(pos)
+        taps.append(np.union1d(lo, lo[pos > lo] + 1).astype(np.int64))
+    return taps
+
+
+def k2_work(shape, rois, spatial_scale: float, pooled: int = 14,
+            sampling: int = 0, max_sampling: int = 8) -> tuple:
+    """(bytes, operations) for K2's bound on feats ``shape`` [B, H, W, C]
+    bf16 and ``rois`` [N, 4] numpy f32: every feature pixel that some RoI's
+    folded tables read, read once (the union over the RoIs of their
+    rows × columns), the RoIs read and the bf16 output written once; and
+    the plain version's work, 4 bilinear taps (a multiply-add each) a
+    sample for every channel."""
+    b, h, w, c = shape
+    r = rois.astype(np.float32) * np.float32(spatial_scale)
+    ext = np.maximum(r[:, 2:] - r[:, :2], np.float32(1)) / np.float32(pooled)
+    s = (np.full(ext.shape, sampling) if sampling
+         else np.clip(np.ceil(ext), 1, max_sampling))
+    ys = _k2_taps(r[:, 1], r[:, 3] - r[:, 1], h, pooled, s[:, 1])
+    xs = _k2_taps(r[:, 0], r[:, 2] - r[:, 0], w, pooled, s[:, 0])
+    read = np.zeros((h, w), bool)
+    for y, x in zip(ys, xs):
+        read[np.ix_(y, x)] = True
+    n = len(rois)
+    n_bytes = b * int(read.sum()) * c * 2 + rois.nbytes + b * n * pooled ** 2 * c * 2
+    return n_bytes, b * c * pooled ** 2 * float(s.prod(1).sum()) * 4 * 2
+
+
 def zero_counts(counters) -> None:
     """Every counter to 0 (K1's count per path too)."""
     for fn in counters.values():
@@ -639,28 +790,24 @@ def check_kernels(rows: list) -> dict:
                                          padding=1, groups=groups))
         rows[-1]["path"] = path
 
-    # K2 on the C4 map of 8 copies at 640×1024; the first RoI is wider
-    # than the canvas so its grid hits the 8-sample cap
-    feats = randn(8, 40, 64, 1024)
-    for n_rois in (8, 32):
-        rng = np.random.RandomState(n_rois)
-        xy = rng.uniform(0, 600, (n_rois, 2))
-        wh = rng.uniform(16, 420, (n_rois, 2))
-        rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
-        rois[0] = [-300.0, -200.0, 1500.0, 1000.0]
+    # K2 at each of its main-path launches (the request, the box head's
+    # single copy, the --detect grounding chunk) and on 8 copies with a RoI
+    # wider than the canvas, so every code the launcher picks by shape is
+    # held to the plain version and to the named faults
+    for label, shape, rois in k2_shapes():
+        feats = randn(*shape)
         rois_t = torch.from_numpy(rois).to(dev)
-        # adaptive grid: ceil(bin) samples a side, capped at 8; each sample
-        # is 4 bilinear taps (a multiply-add each) for every channel
-        bins = np.maximum((rois[:, 2:] - rois[:, :2]) / 16.0, 1.0) / 14
-        samples = np.clip(np.ceil(bins), 1, 8).prod(1).sum()
-        compare("K2", f"feats=[8,40,64,1024] rois={n_rois}",
+        compare("K2", f"{label}: feats={list(shape)} rois={len(rois)}",
                 lambda: batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8),
                 lambda: batched_roi_align_plain(feats, rois_t, 1 / 16.0, 14,
                                                 0, 8),
                 lambda: batched_roi_align_plain(feats.float(), rois_t,
                                                 1 / 16.0, 14, 0, 8), rows,
-                work=(nbytes(feats, rois_t) + 8 * n_rois * 14 * 14 * 1024 * 2,
-                      8 * 1024 * 14 * 14 * samples * 4 * 2, F32_OPS_S))
+                k2_faults(feats, rois_t, 1 / 16.0, 14, 0, 8),
+                work=k2_work(shape, rois, 1 / 16.0) + (F32_OPS_S,),
+                device="roi_align")
+        del feats
+        torch.cuda.empty_cache()
 
     # K3 at the scoring shape: 16 sequences of 70 text + 50 region slots,
     # and S = 128; the last sequence has every key masked. The projections
@@ -766,14 +913,95 @@ def check_kernels(rows: list) -> dict:
             for k in KERNELS}
 
 
-def nms_with_fault(boxes, scores, valid, thr, max_out, fault):
-    """The plain greedy loop of ``ops/nms.py`` with one named fault:
-    ``ge`` suppresses at IoU >= thr, ``ties_high`` breaks score ties to the
-    higher index, ``no_valid`` ignores the validity mask."""
+# Named faults of K5 (greedy NMS): ``ge`` suppresses at IoU >= thr,
+# ``ties_high`` breaks score ties to the higher index, ``no_valid`` ignores
+# the validity mask, and ``chain`` lets a suppressed box still suppress (a
+# bitmask scan that ORs every row, not only the kept ones).
+NMS_FAULTS = ("ge", "ties_high", "no_valid", "chain")
+
+
+def nms_inputs(b: int, k: int, thr: float, offset: float = 0.0,
+               ones: bool = False, seed: int = 0) -> tuple:
+    """numpy (boxes [b, k, 4] f32, scores [b, k] f32, valid [b, k] bool):
+    random boxes on a 900×900 field at 21 score levels (all 1.0 with
+    ``ones``, as the random detector scores), a fifth invalid, and, clear of
+    them at the head of the order (score 1.0, ties broken by index, k >=
+    19), 8 pairs at IoU exactly ``thr`` under ``offset`` and a chain A, B, C
+    shifted along x with IoU(A, B) and IoU(B, C) > thr >= IoU(A, C), so that
+    C survives."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 900, (b, k, 2))
+    wh = rng.uniform(8, 300, (b, k, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = (np.ones((b, k)) if ones else rng.randint(0, 21, (b, k)) / 20
+              ).astype(np.float32)
+    valid = rng.rand(b, k) > 0.2
+    o = offset
+    # [x, y, x+10, y+10] / [x, y, x+10, y+10·thr] in widths of the
+    # convention: exclusive IoU exactly thr
+    for p in range(8):
+        x0, y0 = 1300.0 + 20 * p, 1300.0
+        boxes[:, 2 * p] = [x0, y0, x0 + 10 - o, y0 + 10 - o]
+        boxes[:, 2 * p + 1] = [x0, y0, x0 + 10 - o, y0 + 10 * thr - o]
+    # 10-wide squares shifted by d: IoU (10 − d) / (10 + d), = thr at
+    # d0 = 10 (1 − thr) / (1 + thr); d = 0.75 d0 puts A-B and B-C above it
+    # and A-C (2d) below
+    d = 7.5 * (1 - thr) / (1 + thr)
+    for q in range(3):
+        x0 = 1480.0 + q * d
+        boxes[:, 16 + q] = [x0, 1300.0, x0 + 10 - o, 1310.0 - o]
+    scores[:, :19] = 1.0
+    valid[:, :19] = True
+    return boxes, scores, valid
+
+
+def _chain_nms(boxes, scores, valid, thr, max_out, offset):
+    """The ``chain`` fault: a box is kept iff no live box before it in the
+    order (score descending, index ascending) overlaps it > thr, kept or
+    not; the first ``max_out`` kept in that order."""
+    import torch
+
+    from cpt_tpu_torch.ops.nms import NEG_INF
+
+    live = torch.where(valid, scores, NEG_INF)
+    eligible = live > NEG_INF / 2
+    b, k = scores.shape
+    order = torch.sort(-live, dim=1, stable=True).indices
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(k, device=boxes.device).expand(b, k))
+    area = (torch.clamp(boxes[..., 2] - boxes[..., 0] + offset, min=0)
+            * torch.clamp(boxes[..., 3] - boxes[..., 1] + offset, min=0))
+    lt = torch.maximum(boxes[:, :, None, :2], boxes[:, None, :, :2])
+    rb = torch.minimum(boxes[:, :, None, 2:], boxes[:, None, :, 2:])
+    wh = torch.clamp(rb - lt + offset, min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    iou = inter / torch.clamp(area[:, :, None] + area[:, None, :] - inter,
+                              min=1e-10)
+    # hit[b, j, i]: live j comes before i and overlaps it
+    hit = (eligible[:, :, None] & (rank[:, :, None] < rank[:, None, :])
+           & (iou > thr))
+    kept = eligible & ~hit.any(1)
+    ks = kept.gather(1, order)
+    slot = ks.long().cumsum(1) - 1
+    slot = torch.where(ks & (slot < max_out), slot, max_out)
+    out_idx = torch.zeros((b, max_out + 1), dtype=torch.int64,
+                          device=boxes.device).scatter_(1, slot, order)
+    out_keep = torch.zeros((b, max_out + 1), dtype=torch.bool,
+                           device=boxes.device).scatter_(1, slot, ks)
+    return out_idx[:, :max_out].to(torch.int32), out_keep[:, :max_out]
+
+
+def nms_with_fault(boxes, scores, valid, thr, max_out, fault, offset=0.0):
+    """The plain greedy loop of ``ops/nms.py`` on [B, K] problems with one
+    of NMS_FAULTS."""
     import torch
 
     from cpt_tpu_torch.ops.nms import NEG_INF, _iou_row
 
+    if fault not in NMS_FAULTS:
+        raise ValueError(f"unknown K5 fault {fault!r}")
+    if fault == "chain":
+        return _chain_nms(boxes, scores, valid, thr, max_out, offset)
     if fault == "no_valid":
         valid = torch.ones_like(valid)
     live = torch.where(valid, scores, NEG_INF)
@@ -785,7 +1013,7 @@ def nms_with_fault(boxes, scores, valid, thr, max_out, fault):
         pick = (k - 1 - torch.argmax(live.flip(1), dim=1) if fault == "ties_high"
                 else torch.argmax(live, dim=1))
         ok = live[rows, pick] > NEG_INF / 2
-        iou = _iou_row(boxes[rows, pick], boxes, 0.0)
+        iou = _iou_row(boxes[rows, pick], boxes, offset)
         hit = iou >= thr if fault == "ge" else iou > thr
         live = torch.where(ok[:, None] & hit, NEG_INF, live)
         live[rows, pick] = NEG_INF
@@ -794,50 +1022,50 @@ def nms_with_fault(boxes, scores, valid, thr, max_out, fault):
     return out_idx, out_keep
 
 
+# K5's shapes (problems, K, max_out, thr, iou_offset, scores all 1.0): the
+# RPN's 6000 → 300, the fast filter's 300 → 100 (NMS_FILTER 2), the
+# per-class filter's [1594, 300] → 32 and the "peter" filter's
+# [1594, 300] → 300 (max_out above the survivors), then the RPN's shape
+# under the legacy +1 IoU with the random detector's scores, all 1.0
+NMS_SHAPES = [(1, 6000, 300, 0.7, 0.0, False), (1, 300, 100, 0.5, 0.0, False),
+              (1594, 300, 32, 0.5, 0.0, False), (1594, 300, 300, 0.3, 0.0, False),
+              (1, 6000, 300, 0.7, 1.0, True)]
+
+
+def nms_label(b: int, k: int, max_out: int, thr: float, offset: float,
+              ones: bool) -> str:
+    shape = f"[{k},4]" if b == 1 else f"[{b},{k},4]"
+    return (f"boxes={shape} max_out={max_out} thr={thr}"
+            + (f" offset={offset:g}" if offset else "")
+            + (" scores=1" if ones else ""))
+
+
 def check_nms(rows: list) -> None:
     """K5 against the plain ``nms_padded`` on the card, on the same f32
-    inputs, at the RPN, fast-filter and batched per-class shapes. The check
-    is exact equality of ``keep`` and of the kept indices. The inputs have
-    many tied scores and planted pairs at IoU exactly equal to the
-    threshold, and a fifth of the boxes invalid, so a ``>=`` for ``>``,
-    ties broken to the higher index and an ignored mask each change the
-    result; the check asserts that they do."""
+    inputs (``nms_inputs``), at NMS_SHAPES. The check is exact equality of
+    ``keep`` and of the kept indices. The inputs have many tied scores,
+    pairs planted at IoU exactly the threshold, a suppression chain and a
+    fifth of the boxes invalid, so each of NMS_FAULTS changes the result;
+    the check asserts that it does."""
     import torch
 
     from cpt_tpu_torch.ops.nms import nms_padded
     from cpt_tpu_torch.ops.nms_pallas import nms_pallas
 
     dev = torch.device("cuda")
-    for b, k, max_out, thr in [(1, 6000, 300, 0.7), (1, 300, 100, 0.5),
-                               (1594, 300, 32, 0.5)]:
-        rng = np.random.RandomState(k + b)
-        xy = rng.uniform(0, 900, (b, k, 2))
-        wh = rng.uniform(8, 300, (b, k, 2))
-        boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-        # 21 score levels, so ties are everywhere (sigmoid scores of a
-        # randomly initialised RPN saturate at 1.0 just so)
-        scores = (rng.randint(0, 21, (b, k)) / 20).astype(np.float32)
-        valid = rng.rand(b, k) > 0.2
-        # pairs [x, y, x+10, y+10] / [x, y, x+10, y+10·thr] clear of the
-        # random boxes: exclusive IoU exactly thr, both at the top score
-        for p in range(8):
-            x0, y0 = 1300.0 + 20 * p, 1300.0
-            boxes[:, 2 * p] = [x0, y0, x0 + 10, y0 + 10]
-            boxes[:, 2 * p + 1] = [x0, y0, x0 + 10, y0 + 10 * thr]
-            scores[:, 2 * p:2 * p + 2] = 1.0
-            valid[:, 2 * p:2 * p + 2] = True
-        bx, sc, va = (torch.from_numpy(a).to(dev) for a in (boxes, scores, valid))
+    for b, k, max_out, thr, off, ones in NMS_SHAPES:
+        arrays = nms_inputs(b, k, thr, off, ones, seed=k + b)
+        bx, sc, va = (torch.from_numpy(a).to(dev) for a in arrays)
         squeeze = b == 1
         args = ((bx[0], sc[0], va[0]) if squeeze else (bx, sc, va))
-        label = (f"boxes=[{k},4] max_out={max_out} thr={thr}" if squeeze else
-                 f"boxes=[{b},{k},4] max_out={max_out} thr={thr}")
+        label = nms_label(b, k, max_out, thr, off, ones)
 
         def flat(out):
             idx, keep = out
             return idx.reshape(b, -1), keep.reshape(b, -1)
 
-        got_idx, got_keep = flat(nms_pallas(*args, thr, max_out))
-        want_idx, want_keep = flat(nms_padded(*args, thr, max_out))
+        got_idx, got_keep = flat(nms_pallas(*args, thr, max_out, off))
+        want_idx, want_keep = flat(nms_padded(*args, thr, max_out, off))
         torch.cuda.synchronize()
         err = float((got_idx - want_idx).abs().max())
         same = (torch.equal(got_keep, want_keep)
@@ -848,11 +1076,13 @@ def check_nms(rows: list) -> None:
             return not (torch.equal(keep, want_keep)
                         and torch.equal(idx[keep], want_idx[want_keep]))
 
-        faults = {f: differs(nms_with_fault(bx, sc, va, thr, max_out, f))
-                  for f in ("ge", "ties_high", "no_valid")}
-        ms = cuda_ms(lambda: nms_pallas(*args, thr, max_out))
-        plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out), reps=3,
-                           warmup=1)
+        faults = {f: differs(nms_with_fault(bx, sc, va, thr, max_out, f, off))
+                  for f in NMS_FAULTS}
+        ms = cuda_ms(lambda: nms_pallas(*args, thr, max_out, off))
+        dev_ms, how = device_ms(lambda: nms_pallas(*args, thr, max_out, off),
+                                "nms_")
+        plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out, off),
+                           reps=3, warmup=1)
         kept = int(want_keep.sum())
         # each kept box is scored against all K boxes of its problem: an
         # IoU is ~12 f32 operations (areas, intersection, union, divide)
@@ -860,13 +1090,13 @@ def check_nms(rows: list) -> None:
                                    kept * k * 12, F32_OPS_S)
         rows.append({"kernel": "K5", "shape": label, "max_abs_err": err,
                      "tol": 0.0, "exact": same, "kept": kept, "ms": ms,
-                     "plain_ms": plain_ms, "library_ms": None,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "faults_differ": faults})
+                     "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "faults_differ": faults})
         print(f"K5 {label}: exact={same} max_abs_idx_err={err:.0f} "
-              f"kept={kept} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} ({bound_by}) faults differ: {faults}",
-              flush=True)
+              f"kept={kept} ms={ms:.4f} device_ms={dev_ms:.4f} ({how}) "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+              f"faults differ: {faults}", flush=True)
         if not same:
             raise AssertionError(f"K5 {label}: kernel differs from plain")
         caught = [f for f, d in faults.items() if not d]
@@ -1771,10 +2001,12 @@ EXTRACT_GROUPS = (("K1q", ("grouped_conv3x3_int8",)),
 # shared GEMM's kernels (``csrc/gemm.cu``: "wgmma_bias_act_kernel",
 # "wgmma_residual_ln_kernel"; "gemm_bias_act_kernel" and
 # "gemm_residual_ln_kernel" in checkouts from before them, which
-# ``chip_e2e.py --package`` times) come before cuBLAS's "gemm".
+# ``chip_e2e.py --package`` times) come before cuBLAS's "gemm", and K5's
+# kernels ("nms_rank_kernel", "nms_mask_kernel", "nms_scan_kernel";
+# "nms_kernel" before them) before the elementwise family's "scan".
 GEMM_GROUP = "K3 / K4 GEMM"
 REQUEST_GROUPS = (("K1", ("grouped_conv3x3_mma", "grouped_conv3x3_kernel")),
-                  ("K2", ("roi_align",)), ("K5", ("nms_kernel",)),
+                  ("K2", ("roi_align",)), ("K5", ("nms_",)),
                   ("K6", ("flash_attention_kernel",)),
                   ("K3 core", ("attention_kernel",)),
                   (GEMM_GROUP, ("wgmma_bias_act", "wgmma_residual_ln",
@@ -2150,13 +2382,13 @@ def main(argv=None) -> int:
     e2e.update(run_int8_extraction(counters))
 
     # headline shape per kernel for the summary line: the most frequent
-    # main-path call (layer3 blocks; 32 RoIs; S=120; erf gelu; the RPN's
-    # NMS; the serving shape; the training shape; K1q's layer3 blocks; K7
+    # main-path call (layer3 blocks; the 16-candidate request's pooling;
+    # S=120; erf gelu; the RPN's NMS; the serving shape; the training shape; K1q's layer3 blocks; K7
     # on the study's inputs); launches over the request, training, study
     # and int8 extraction paths, each counted from 0 around its run; K6's
     # ms and library_ms are device times (a mean of back-to-back launches
     # times the host at its size)
-    headline = {"K1": 4, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
+    headline = {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
                 "K6b": 0, "K6c": 0, "K1q": 1, "K7": 0}
     paths = ("ground", "detect", "flash_ground", "train", "auto_train",
              "ffn_study", "int8", "int8_static")

@@ -45,7 +45,6 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cpt_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
-HOPPER_SMEM_PER_BLOCK = 232448   # opt-in dynamic shared memory of one block
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
@@ -68,11 +67,11 @@ SIGNATURES = {
     "cpt_gemm_bias_residual_ln": ([_P] * 7 + [_I] * 3 + [_F, _P], _I),
     # qkv, key_bias, ctx, B, S, H, num_heads, scale, stream
     "cpt_attention": ([_P] * 3 + [_I] * 4 + [_F, _P], _I),
-    # boxes, scores, valid, out_idx, out_keep, B, K, max_out, iou_threshold,
-    # iou_offset, stream
-    "cpt_nms": ([_P] * 5 + [_I] * 3 + [_F, _F, _P], _I),
-    # K
-    "cpt_nms_smem_bytes": ([_I], ctypes.c_longlong),
+    # boxes, scores, valid, out_idx, out_keep, scratch, B, K, max_out,
+    # one_block, iou_threshold, iou_offset, stream
+    "cpt_nms": ([_P] * 6 + [_I] * 4 + [_F, _F, _P], _I),
+    # B, K
+    "cpt_nms_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     # q, k, v, bias (or NULL), out, m_out, l_out (or NULL), strides[16],
     # B, H, S, D, scale, stream
     "cpt_flash_attention": ([_P] * 7 + [_LL] + [_I] * 4 + [_F, _P], _I),

@@ -1,9 +1,12 @@
 """K2 — batched RoIAlign (port of ``cpt_tpu/ops/roi_align_pallas.py``).
 
 ``batched_roi_align`` pools one shared RoI set over a batch of feature maps.
-On a Hopper card it launches the direct bilinear-gather kernel
-``csrc/roi_align.cu`` (which replaces the TPU's ``_pool_kernel``); on the
-CPU it runs the plain separable version, :func:`batched_roi_align_plain`.
+On a Hopper card it launches ``csrc/roi_align.cu`` (which replaces the TPU's
+``_pool_kernel``): one block per bin row of a RoI and channel slice folds
+the RoI's sample weights per distinct row and column into tables once for
+a group of copies, then each thread sums one bin's folded rows × columns of
+the separable function for the copies in turn; on the CPU it runs the plain
+separable version, :func:`batched_roi_align_plain`.
 The kernel accumulates in f32 straight through, while the plain version
 rounds its intermediate to the feature dtype (as the JAX path does), so the
 two agree to bf16 tolerance in bf16.

@@ -69,16 +69,31 @@ def test_grouped_conv_kernel(dev, n, h, w, c, groups, stride):
 
 
 @pytest.mark.parametrize("sampling", [0, 2])
-def test_roi_align_kernel(dev, sampling):
-    g = torch.Generator(device=dev).manual_seed(1)
-    feats = torch.randn(3, 11, 17, 64, generator=g, device=dev).bfloat16()
+@pytest.mark.parametrize("b,h,w,c,pooled", [
+    (3, 11, 17, 64, 7), (1, 11, 17, 64, 7), (1, 16, 16, 1024, 14),
+    (11, 11, 17, 200, 7), (101, 9, 13, 136, 7)])
+def test_roi_align_kernel(dev, b, h, w, c, pooled, sampling):
+    """K2 in bf16 against its plain version in f32, at each code its
+    launcher picks by shape: one copy (one block over all C channels; C =
+    1024 as in the detect step's box head), and B·P·16 >= 1024 (128-channel
+    slices, the last one ragged, copies in groups, an odd copy at the end).
+    The second RoI reaches past the map, so each of K2's named faults that
+    applies to the grid (``chip_smoke.k2_faults``) misses the tolerance."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(1 if b == 3 else b + c)
+    feats = torch.randn(b, h, w, c, generator=g, device=dev).bfloat16()
     rois = torch.tensor([[0, 0, 400, 300], [-50, -40, 900, 700],
                          [30.5, 20.25, 31, 21], [100, 60, 250, 170],
                          [260, 170, 280, 190]], device=dev)
-    got = batched_roi_align(feats, rois, 1 / 16.0, 7, sampling, 8)
-    want = batched_roi_align_plain(feats.float(), rois, 1 / 16.0, 7,
+    got = batched_roi_align(feats, rois, 1 / 16.0, pooled, sampling, 8)
+    want = batched_roi_align_plain(feats.float(), rois, 1 / 16.0, pooled,
                                    sampling, 8)
     _close(got, want, 1e-2)
+    faults = {f: fn() for f, fn in cs.k2_faults(feats, rois, 1 / 16.0, pooled,
+                                                 sampling, 8).items()}
+    assert len(faults) == (4 if sampling == 0 else 3)
+    assert _attn_faults_missed(want, faults, 1e-2) == []
 
 
 def _attn_faults_missed(want, faults, frac):
@@ -424,8 +439,10 @@ def test_launch_counters_count_launches(dev):
 
 
 def _nms_inputs(dev, b, k, thr, seed):
-    """Boxes with 9 score levels (ties everywhere), a fifth invalid, and a
-    planted pair at IoU exactly ``thr`` at the top score."""
+    """Boxes with 9 score levels (ties everywhere), a fifth invalid, a
+    planted pair at IoU exactly ``thr`` at the top score, and after it a
+    chain A > B > C (ties broken by index) with IoU(A, B), IoU(B, C) > thr
+    >= IoU(A, C), so that C survives."""
     g = torch.Generator(device=dev).manual_seed(seed)
     shape = (b, k) if b else (k,)
     xy = torch.rand(*shape, 2, generator=g, device=dev) * 400
@@ -436,22 +453,51 @@ def _nms_inputs(dev, b, k, thr, seed):
     boxes[..., 0, :] = torch.tensor([900.0, 900, 910, 910], device=dev)
     boxes[..., 1, :] = torch.tensor([900.0, 900, 910, 900 + 10 * thr],
                                     device=dev)
-    scores[..., :2] = 1.0
-    valid[..., :2] = True
+    d = 7.5 * (1 - thr) / (1 + thr)   # 0.75 of the shift at IoU = thr
+    for q in range(3):
+        boxes[..., 2 + q, :] = torch.tensor([950.0 + q * d, 900, 960 + q * d,
+                                             910], device=dev)
+    scores[..., :5] = 1.0
+    valid[..., :5] = True
     return boxes, scores, valid
 
 
 @pytest.mark.parametrize("b,k,max_out,thr,offset", [
     (None, 300, 100, 0.5, 0.0), (None, 2000, 300, 0.7, 0.0),
-    (None, 257, 300, 0.3, 1.0), (9, 300, 32, 0.5, 0.0), (5, 40, 40, 0.3, 0.0)])
+    (None, 257, 300, 0.3, 1.0), (9, 300, 32, 0.5, 0.0), (5, 40, 40, 0.3, 0.0),
+    (None, 10000, 300, 0.7, 0.0)])
 def test_nms_kernel_matches_plain(dev, b, k, max_out, thr, offset):
     """K5 equals the plain loop exactly, slot for slot, on the same f32
-    inputs (ties, invalid slots, an exact-threshold pair, K not a multiple
-    of the block, max_out above the number of survivors)."""
+    inputs (ties, invalid slots, an exact-threshold pair, a suppression
+    chain, K not a multiple of the 64-box chunk, max_out above the number
+    of survivors, and K = 10,000, past the mask words a chunk stages in
+    shared memory: K has no limit)."""
     boxes, scores, valid = _nms_inputs(dev, b, k, thr, seed=k)
     got = nms_pallas(boxes, scores, valid, thr, max_out, offset)
     want = nms_padded(boxes, scores, valid, thr, max_out, offset)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("path", ["block", "grid"])
+@pytest.mark.parametrize("b,k,max_out,thr", [
+    (1, 300, 100, 0.5), (7, 300, 300, 0.3), (2, 1500, 300, 0.7),
+    (1, 6000, 300, 0.7)])
+def test_nms_paths_match_plain(dev, path, b, k, max_out, thr):
+    """Each of K5's two paths equals the plain loop on both sides of the
+    dispatch rule's cutoff (``nms_path``), so the rule can move without a
+    path going unchecked; one launch a call, and the block path takes no
+    scratch."""
+    from cpt_tpu_torch.ops.nms_pallas import NMS_BLOCK_K, launch_nms, nms_path
+
+    assert nms_path(2, NMS_BLOCK_K) == "block"
+    assert nms_path(2, NMS_BLOCK_K + 1) == nms_path(1, 300) == "grid"
+    boxes, scores, valid = _nms_inputs(dev, b, k, thr, seed=k + b)
+    before = nms_pallas.launches
+    got = launch_nms(path, boxes, scores, valid, thr, max_out)
+    assert nms_pallas.launches == before + 1
+    want = nms_padded(boxes, scores, valid, thr, max_out)
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[0], want[0])
 
@@ -465,13 +511,6 @@ def test_nms_kernel_ties_and_one_launch_per_batch(dev):
                            torch.ones(3, 4, dtype=torch.bool, device=dev), 0.5, 4)
     assert nms_pallas.launches == before + 1
     assert idx.tolist() == [[1, 2, 3, 0]] * 3 and keep.all()
-
-
-def test_nms_kernel_rejects_k_too_large(dev):
-    k = 10000            # 240 KB of boxes, areas and scores: above a block's
-    with pytest.raises(ValueError, match="shared"):
-        nms_pallas(torch.zeros(k, 4, device=dev), torch.zeros(k, device=dev),
-                   torch.ones(k, dtype=torch.bool, device=dev), 0.5, 10)
 
 
 def _flash_inputs(dev, b, h, s, d, bias, seed):

@@ -229,6 +229,19 @@ def test_grouped_conv_named_faults_miss(h, w, c, groups, stride):
      "REQUEST_GROUPS", "K1"),
     ("void (anonymous namespace)::roi_align_kernel(...)", "REQUEST_GROUPS", "K2"),
     ("void (anonymous namespace)::nms_kernel(...)", "REQUEST_GROUPS", "K5"),
+    # the sorted-order bitmask NMS: its scan is not the elementwise "scan"
+    ("(anonymous namespace)::nms_rank_kernel(const float4 *, const float *, "
+     "const unsigned char *, float4 *, int *, int *, int)", "REQUEST_GROUPS", "K5"),
+    ("(anonymous namespace)::nms_mask_kernel(const float4 *, const int *, "
+     "unsigned long long *, int, int, float, float)", "REQUEST_GROUPS", "K5"),
+    ("(anonymous namespace)::nms_scan_kernel(const unsigned long long *, "
+     "const int *, const int *, int *, unsigned char *, int, int, int, int)",
+     "REQUEST_GROUPS", "K5"),
+    ("(anonymous namespace)::nms_block_kernel(const float4 *, const float *, "
+     "const unsigned char *, int *, unsigned char *, int, int, int, float, float)",
+     "REQUEST_GROUPS", "K5"),
+    ("void at::native::(anonymous namespace)::cub::DeviceScanKernel<...>",
+     "REQUEST_GROUPS", "elementwise / reduce"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<64>((anonymous namespace)::BwdArgs)",
      "KERNEL_GROUPS", "K6b"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<64>((anonymous namespace)::BwdArgs)",
