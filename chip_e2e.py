@@ -20,8 +20,12 @@ backward, K5 at chip_smoke's NMS shapes and K2 at the request, detect-step,
 4's 3 grounding
 requests and 3 ``--detect`` requests (one of each under
 ``torch.profiler``), then ``tools/extract_features --synthetic 4
---copies_per_chunk 4 --precision bf16`` (the second of two runs), and
-prints one JSON line. It checks what those functions check; ``chip_smoke.py``
+--copies_per_chunk 4 --precision bf16`` (the second of two runs), K1q at
+the seven shapes beside K1 and K7 at its study's shape beside K4 and the
+``xla_int8`` yardstick by device time (``time_k1q``, ``time_k7``), the int8
+extraction's copies/s and its chunk's profile by kernel family
+(``time_int8_extract``), and prints one JSON line. It checks what those
+functions check; ``chip_smoke.py``
 is the correctness gate. Run it in turns (parent, change, change, parent)
 to see the spread of the host-clock numbers.
 """
@@ -365,6 +369,127 @@ def time_k2() -> list:
     return rows
 
 
+def time_k1q() -> list:
+    """K1q (``grouped_conv3x3_int8``) at each of ``cs.K1_SHAPES`` on
+    ``cs.k1q_inputs`` (int8 from a ReLU'd bf16 map and per-channel weight
+    scales) beside K1 (``grouped_conv3x3``, bf16) on the same map and
+    weights, by device time (``cs.device_ms``, 10 launches), through the
+    public wrappers only, so that a parent checkout's kernels are timed the
+    same way; and whether K1q equals its plain version bit for bit."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
+                                                grouped_conv3x3_int8,
+                                                reference_grouped_conv3x3_int8)
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    k1q = []
+    for n, h, w, c, stride in cs.K1_SHAPES:
+        x, wt, bn_s, bn_b = cs.k1q_inputs(n, h, w, c, g)
+        qx, qw = quant.quant_act(x), quant.quant_weight(wt, (0, 1, 2))
+        m = qx.scale * qw.scale * bn_s
+        want = reference_grouped_conv3x3_int8(qx.data, qw.data, m, bn_b, 32,
+                                              stride, True)
+        exact = bool(torch.equal(grouped_conv3x3_int8(qx.data, qw.data, m, bn_b, 32,
+                                                      stride, True), want))
+        ms, how = cs.device_ms(lambda: grouped_conv3x3_int8(
+            qx.data, qw.data, m, bn_b, 32, stride, True), "grouped_conv3x3_int8")
+        w16 = wt.bfloat16()
+        k1_ms, _ = cs.device_ms(lambda: grouped_conv3x3(x, w16, bn_s, bn_b, 32,
+                                                        stride, True), "grouped_conv3x3")
+        k1q.append({"shape": [n, h, w, c], "stride": stride, "device_ms": ms,
+                    "timed_by": how, "k1_bf16_device_ms": k1_ms, "exact": exact})
+        print(f"K1q x=[{n},{h},{w},{c}] stride={stride}: device {ms:.4f} ms ({how}), "
+              f"K1 (bf16) device {k1_ms:.4f} ms; bit-equal to plain {exact}",
+              flush=True)
+        del x, wt, qx, qw, want
+        torch.cuda.empty_cache()
+    return k1q
+
+
+def time_k7() -> dict:
+    """K7 (``ffn_int8``) at the study's shape (M 16384, tm 1024, 768 → 3072
+    → 768, the study's kind of inputs) beside K4 (``fused_ffn``, bf16) and
+    the ``xla_int8`` yardstick, by device time (``cs.device_ms``, 10
+    launches; K7's time sums every kernel of its call, "ffn_int8_" or, in
+    older checkouts' "absmax_tiles", and is split by kernel), through
+    the public wrappers only; K7's max |Δ| / max |ref| against its plain
+    version in f32."""
+    import torch
+
+    from cpt_tpu_torch.ops import quant
+    from cpt_tpu_torch.ops.fused_ffn import fused_ffn
+
+    mm, hh, ff, tm = 16384, 768, 3072, 1024
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = (torch.randn(mm, hh, generator=g, device="cuda") * 0.5).bfloat16()
+    w1 = torch.randn(hh, ff, generator=g, device="cuda") * 0.02
+    w2 = torch.randn(ff, hh, generator=g, device="cuda") * 0.02
+    b1, b2 = torch.zeros(ff, device="cuda"), torch.zeros(hh, device="cuda")
+    gamma, beta = torch.ones(hh, device="cuda"), torch.zeros(hh, device="cuda")
+    q1, q2 = quant.quant_ffn_weights(w1), quant.quant_ffn_weights(w2)
+    args = (x, q1.data, q1.scale, b1, q2.data, q2.scale, b2, gamma, beta)
+    want = quant.reference_ffn_int8(x.float(), *args[1:], tm)
+    err = float((quant.ffn_int8(*args, tm).float() - want).abs().max()
+                / want.abs().max())
+    del want
+    k7_ms, how = cs.device_ms(lambda: quant.ffn_int8(*args, tm),
+                              ("ffn_int8_", "absmax_tiles"))
+    k7_split = {**kernel_split(lambda: quant.ffn_int8(*args, tm), "ffn_int8_"),
+                **kernel_split(lambda: quant.ffn_int8(*args, tm), "absmax_tiles")}
+    w1h, w2h = w1.bfloat16(), w2.bfloat16()
+    k4_ms, _ = cs.device_ms(lambda: fused_ffn(x, w1h, b1, w2h, b2, gamma, beta))
+    cm = [quant.QuantTensor(q.data.t().contiguous().t(), q.scale) for q in (q1, q2)]
+    yard_ms, _ = cs.device_ms(lambda: cs.xla_int8_ffn(x, cm[0], b1, cm[1], b2,
+                                                      gamma, beta))
+    k7 = {"shape": f"x=[{mm},{hh}] F={ff} tm={tm}", "device_ms": k7_ms,
+          "timed_by": how, "kernels_ms": k7_split, "k4_device_ms": k4_ms,
+          "yardstick_device_ms": yard_ms, "rel_err": err}
+    print(f"K7 {k7['shape']}: device {k7_ms:.4f} ms ({how}), by kernel "
+          + ", ".join(f"{k} {v:.4f}" for k, v in k7_split.items())
+          + f"; K4 (bf16) device {k4_ms:.4f} ms; xla_int8 yardstick device "
+          f"{yard_ms:.4f} ms; max |Δ| / max |ref| {err:.3e}", flush=True)
+    return k7
+
+
+def time_int8_extract(counters) -> dict:
+    """``tools/extract_features --synthetic 4 --copies_per_chunk 4
+    --precision int8`` (chip_smoke's phase-6 tasks): copies/s of the second
+    of two runs, then one run under ``torch.profiler``: device ms per chunk
+    by family (``cs.EXTRACT_GROUPS``: K1q, K1, K2, cuBLAS / cuDNN,
+    elementwise / reduce) and the busy share of the host clock."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cpt_tpu_torch.tools import extract_features
+
+    chunks = 4
+    with tempfile.TemporaryDirectory() as root:
+        flags = ["--synthetic", "4", "--copies_per_chunk", str(chunks),
+                 "--precision", "int8", "--output", f"{root}/int8.tsv",
+                 "--overwrite"]
+        for _ in range(2):
+            cs.zero_counts(counters)
+            info = extract_features.main(flags)
+            torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_info = extract_features.main(flags)
+            torch.cuda.synchronize()
+    groups, busy, top = cs.device_groups(prof, chunks, cs.EXTRACT_GROUPS)
+    wall = prof_info["seconds"] * 1e3 / chunks
+    print(f"extract_features --precision int8: {info['copies']} copies, "
+          f"{info['copies_per_s']:.2f} copies/s; launches {launches}; per chunk "
+          f"under torch.profiler {wall:.2f} ms on the host clock, device kernels "
+          f"{busy:.2f} ms (busy share {busy / wall:.3f}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items())
+          + "; top: " + "; ".join(f"{k[:50]} {v:.3f}" for k, v in top), flush=True)
+    return {"copies_per_s": info["copies_per_s"], "seconds": info["seconds"],
+            "launches": launches, "chunk_ms": wall, "device_ms": busy,
+            "groups": groups, "top": top}
+
+
 def record_k2_launches() -> list:
     """Wrap the detector's calls of ``batched_roi_align`` (box head and
     stage-5 pooling) to record each launch's (feats shape, RoI count)."""
@@ -413,7 +538,8 @@ def main(argv=None) -> int:
 
     out = {"card": smi, "package": package, "k1": time_k1(),
            "attention": time_attention(), "blocks": time_blocks(),
-           "flash_bwd": time_flash_bwd(), "k5": time_k5(), "k2": time_k2()}
+           "flash_bwd": time_flash_bwd(), "k5": time_k5(), "k2": time_k2(),
+           "int8": {"k1q": time_k1q(), "k7": time_k7()}}
     res, _ = cs.build_resident()
     out["ground"] = cs.run_requests(res, counters, profile=True)
     k2_seen = record_k2_launches()
@@ -438,6 +564,7 @@ def main(argv=None) -> int:
                            "seconds": info["seconds"], "launches": launches}
     print(f"extract_features --precision bf16: {info['copies']} copies, "
           f"{info['copies_per_s']:.2f} copies/s; launches {launches}", flush=True)
+    out["int8_extract"] = time_int8_extract(counters)
     summary = {"k1_ms": [r["ms"] for r in out["k1"]],
                "attention_device_ms": [r["device_ms"] for r in out["attention"]],
                "sdpa_device_ms": [r["sdpa_device_ms"] for r in out["attention"]],
@@ -457,6 +584,12 @@ def main(argv=None) -> int:
                "detect_step_ms": [r["detect_ms"] for r in out["detect"]["requests"]],
                "detect_ms": [r["ms"] for r in out["detect"]["requests"]],
                "bf16_extract_copies_per_s": info["copies_per_s"],
+               "k1q_device_ms": [r["device_ms"] for r in out["int8"]["k1q"]],
+               "k1q_k1_device_ms": [r["k1_bf16_device_ms"] for r in out["int8"]["k1q"]],
+               "k7_device_ms": out["int8"]["k7"]["device_ms"],
+               "k7_k4_device_ms": out["int8"]["k7"]["k4_device_ms"],
+               "int8_extract_copies_per_s": out["int8_extract"]["copies_per_s"],
+               "int8_extract_groups": out["int8_extract"]["groups"],
                "profiles": {k: {"ms": out[k]["profile"]["ms"],
                                 "device_ms": out[k]["profile"]["device_ms"],
                                 "groups": out[k]["profile"]["groups"]}

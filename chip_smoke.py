@@ -53,15 +53,20 @@ Phases (any failure raises and the script exits non-zero):
    10-step loss curve (dropout off) against the f32 einsum path; then 3
    deterministic steps under ``"auto"`` (K3 and K4 12 a step, their
    backward the plain VJP);
-6. W8A8 int8: K1q (the int8 grouped conv) at three of K1's shapes and K7
-   (the fused W8A8 FFN of ``bench_int8.py``'s study, M 16384, tm 1024)
-   against their plain versions, with named faults that must miss, K7's
-   cosine against K4 and bench_int8's ``xla_int8`` composition (two
-   ``torch._int_mm`` calls) as its yardstick; then
-   ``tools/extract_features --synthetic 4 --precision int8`` (and
-   ``int8:<s>``) at full width (K1q 50 launches a chunk, K1 none), its
-   features against the same run with the int8 ops swapped for their plain
-   versions, and its copies/s and features against ``--precision bf16``.
+6. W8A8 int8: K1q (the int8 grouped conv) at K1's seven X152 shapes on
+   the path its rule names (the int8 tensor-core kernel) and at
+   ``K1_SIMT_SHAPE`` (its ``__dp4a`` kernel), bit for bit against its plain
+   version in bf16 and within TOL of it in f32, with named faults that must
+   miss (``K1Q_FAULTS`` among them), by device time beside K1; K7 (the
+   fused W8A8 FFN of ``bench_int8.py``'s study, M 16384, tm 1024) against
+   its plain version with ``K7_FAULTS``, by device time (all of its
+   launches) beside K4 and bench_int8's ``xla_int8`` composition (two
+   ``torch._int_mm`` calls) as its yardstick, and its cosine against K4;
+   then ``tools/extract_features --synthetic 4 --precision int8`` (and
+   ``int8:<s>``) at full width (K1q 50 launches a chunk, all on the path
+   its rule names, K1 none), its features against the same run with the
+   int8 ops swapped for their plain versions, and its copies/s and
+   features against ``--precision bf16``.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -664,18 +669,18 @@ def zero_counts(counters) -> None:
             fn.path_launches[path] = 0
 
 
-def k1_paths(counters, launches: dict, where: str) -> dict:
-    """K1's launches per path since the counts were zeroed; raises unless
-    every one went through the path the dispatch rule names for the X152
-    shapes (``ops/grouped_conv.conv_path``)."""
+def k1_paths(counters, launches: dict, where: str, key: str = "K1") -> dict:
+    """K1's (or, with ``key`` "K1q", K1q's) launches per path since the
+    counts were zeroed; raises unless every one went through the path the
+    dispatch rule names for the X152 shapes (``ops/grouped_conv.conv_path``)."""
     from cpt_tpu_torch.ops.grouped_conv import conv_path
 
-    paths = dict(counters["K1"].path_launches)
+    paths = dict(counters[key].path_launches)
     want = {conv_path(c, c // 32) for c in (256, 512, 1024, 2048)}
-    if sum(paths[p] for p in want) != launches["K1"] or any(
+    if sum(paths[p] for p in want) != launches[key] or any(
             paths[p] for p in paths if p not in want):
-        raise AssertionError(f"{where}: K1 launches by path {paths}, "
-                             f"{launches['K1']} in all; the rule names "
+        raise AssertionError(f"{where}: {key} launches by path {paths}, "
+                             f"{launches[key]} in all; the rule names "
                              f"{sorted(want)}")
     return paths
 
@@ -1292,32 +1297,93 @@ def check_flash_bwd(rows: list) -> None:
             raise AssertionError(f"K6b/K6c {label}: the check would pass {caught}")
 
 
+# Named faults of K1q's packing of the reduction into k32 steps (k = tap ·
+# cpg + ci; cpg 8 packs four taps a step, 16 two, 32 one, 64 half of one;
+# the last step's tail is zero weights), as plain emulations on the same int8
+# inputs: ``dropped_tap_tail``, the last k32 step left out (tap 8, or its
+# second half at cpg 64: a loop one step short, or a tail mask that drops
+# data); ``stride2_column_order``, at stride 2 the centre tap (kx = 1, the
+# patch's odd columns) read one even/odd pair early (input column 2·ox − 2
+# in place of 2·ox, zero past the edge).
+K1Q_FAULTS = ("dropped_tap_tail", "stride2_column_order")
+
+
+def k1q_last_step(cpg: int) -> int:
+    """The first row k of K1q's last k32 step of the 9·cpg rows."""
+    return 32 * ((9 * cpg + 31) // 32 - 1)
+
+
+def k1q_with_fault(xq, wq, m, bias, groups: int, stride: int, fault: str):
+    """K1q's plain version in f32 (exact integer sums, ``y·m + bias``,
+    ReLU) with one of ``K1Q_FAULTS``."""
+    import torch
+    import torch.nn.functional as F
+
+    cpg, c = wq.shape[2], wq.shape[3]
+
+    def conv(xx, ww):
+        with torch.backends.cudnn.flags(enabled=False):
+            return F.conv2d(xx.permute(0, 3, 1, 2).double(),
+                            ww.permute(3, 2, 0, 1).double(), stride=stride,
+                            padding=1, groups=groups)
+
+    if fault == "dropped_tap_tail":
+        flat = wq.reshape(9 * cpg, c).clone()
+        flat[k1q_last_step(cpg):] = 0
+        y = conv(xq, flat.reshape(wq.shape))
+    elif fault == "stride2_column_order":
+        if stride != 2:
+            raise ValueError("stride2_column_order is a fault of stride 2")
+        centre = torch.zeros_like(wq)
+        centre[:, 1] = wq[:, 1]
+        shifted = F.pad(xq, (0, 0, 2, 0))[:, :, :xq.shape[2]]
+        y = conv(xq, wq - centre) + conv(shifted, centre)
+    else:
+        raise ValueError(f"unknown K1q fault {fault!r}")
+    y = y.permute(0, 2, 3, 1).float() * m.float() + bias.float()
+    return torch.relu(y)
+
+
+def k1q_inputs(n: int, h: int, w: int, c: int, g):
+    """K1q's inputs at one shape, 32 groups, drawn from generator ``g`` on
+    its device: a ReLU'd bf16 map (the bf16 K1 takes the same), f32 weights
+    whose channels' ranges spread 8× (the BN scale evens their outputs out
+    again, as a trained BN does), the BN affine."""
+    import torch
+
+    dev = g.device
+    cpg = c // 32
+    x = torch.relu(torch.randn(n, h, w, c, generator=g, device=dev)).bfloat16()
+    spread = torch.exp2(torch.rand(c, generator=g, device=dev) * 3)
+    wt = torch.randn(3, 3, cpg, c, generator=g, device=dev) * 0.05 * spread
+    bn_s = (torch.rand(c, generator=g, device=dev) + 0.5) / spread
+    bn_b = torch.randn(c, generator=g, device=dev) * 0.1
+    return x, wt, bn_s, bn_b
+
+
 def check_k1q(rows: list) -> None:
-    """K1q at three of K1's shapes (the stage-2 blocks' cpg 8, the stage-3
-    blocks' [8,40,64,1024] cpg 32, stage 5's stride 2 cpg 64) on int8
-    inputs quantized from a ReLU'd bf16 map and f32 weights whose channels'
-    ranges spread 8× (the BN scale evens their outputs out again, as a
-    trained BN does). Named faults: the activation scale dropped from the
-    dequant, and weight scales per tensor instead of per channel. K1 in
-    bf16 on the same map and weights is timed beside it."""
+    """K1q at K1's seven X152 shapes, on the path its dispatch rule names
+    (the int8 tensor-core kernel at every one), and at ``K1_SIMT_SHAPE``
+    (cpg 4: the ``__dp4a`` kernel), on int8 inputs quantized from
+    ``k1q_inputs``: bit for bit against its plain version in bf16
+    (``torch.equal``: exact sums, the same two roundings), within TOL of
+    it in f32, with named faults that must miss (the activation scale
+    dropped from the dequant, weight scales per tensor instead of per
+    channel, and ``K1Q_FAULTS``). Device time beside K1's in bf16 on the
+    same map and weights."""
     import torch
 
     from cpt_tpu_torch.ops import quant
-    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3,
+    from cpt_tpu_torch.ops.grouped_conv import (conv_path, grouped_conv3x3,
                                                 grouped_conv3x3_int8,
                                                 reference_grouped_conv3x3_int8)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     groups = 32
-    for n, h, w, c, stride in [(8, 160, 256, 256, 1), (8, 40, 64, 1024, 1),
-                               (64, 14, 14, 2048, 2)]:
+    for n, h, w, c, stride in K1_SHAPES + [K1_SIMT_SHAPE]:
         cpg = c // groups
-        x = torch.relu(torch.randn(n, h, w, c, generator=g, device=dev)).bfloat16()
-        spread = torch.exp2(torch.rand(c, generator=g, device=dev) * 3)
-        wt = torch.randn(3, 3, cpg, c, generator=g, device=dev) * 0.05 * spread
-        bn_s = (torch.rand(c, generator=g, device=dev) + 0.5) / spread
-        bn_b = torch.randn(c, generator=g, device=dev) * 0.1
+        x, wt, bn_s, bn_b = k1q_inputs(n, h, w, c, g)
         qx, qw = quant.quant_act(x), quant.quant_weight(wt, (0, 1, 2))
         qt = quant.quant_weight(wt, (0, 1, 2, 3))
         m = qx.scale * qw.scale * bn_s
@@ -1326,28 +1392,73 @@ def check_k1q(rows: list) -> None:
             return lambda: reference_grouped_conv3x3_int8(
                 qx.data, wq, mm, bn_b, groups, stride, True, dtype)
 
+        def kernel():
+            return grouped_conv3x3_int8(qx.data, qw.data, m, bn_b, groups,
+                                        stride, True)
+
+        faults = {"no_act_scale": plain(qw.data, qw.scale * bn_s),
+                  "per_tensor_w_scale": plain(qt.data, qx.scale
+                                              * qt.scale.expand(c) * bn_s)}
+        faults.update({f: (lambda f=f: k1q_with_fault(
+            qx.data, qw.data, m, bn_b, groups, stride, f))
+            for f in K1Q_FAULTS if stride == 2 or f != "stride2_column_order"})
+        path = conv_path(c, cpg)
         out_px = n * ((h - 1) // stride + 1) * ((w - 1) // stride + 1)
-        compare("K1q", f"x=[{n},{h},{w},{c}] cpg={cpg} stride={stride}",
-                lambda: grouped_conv3x3_int8(qx.data, qw.data, m, bn_b, groups,
-                                             stride, True),
-                plain(qw.data, m, torch.bfloat16), plain(qw.data, m), rows,
-                {"no_act_scale": plain(qw.data, qw.scale * bn_s),
-                 "per_tensor_w_scale": plain(qt.data, qx.scale * qt.scale.expand(c)
-                                             * bn_s)},
+        compare("K1q", f"x=[{n},{h},{w},{c}] cpg={cpg} stride={stride} "
+                f"path={path}", kernel, plain(qw.data, m, torch.bfloat16),
+                plain(qw.data, m), rows, faults,
                 work=(nbytes(qx.data, qw.data, m, bn_b) + out_px * c * 2,
-                      2 * out_px * c * 9 * cpg, INT8_OPS_S))
+                      2 * out_px * c * 9 * cpg, INT8_OPS_S),
+                device="grouped_conv3x3_int8")
+        got, want = kernel(), plain(qw.data, m, torch.bfloat16)()
+        exact = bool(torch.equal(got, want))
         w16 = wt.bfloat16()
-        rows[-1]["k1_bf16_ms"] = cuda_ms(lambda: grouped_conv3x3(
-            x, w16, bn_s, bn_b, groups, stride, True))
-        print(f"  K1 in bf16 on the same map: {rows[-1]['k1_bf16_ms']:.4f} ms",
-              flush=True)
+        k1_ms, _ = device_ms(lambda: grouped_conv3x3(x, w16, bn_s, bn_b, groups,
+                                                     stride, True),
+                             "grouped_conv3x3")
+        rows[-1].update(path=path, exact=exact, k1_bf16_device_ms=k1_ms)
+        print(f"  bit for bit against the plain version in bf16: {exact}; K1 "
+              f"in bf16 on the same map: device {k1_ms:.4f} ms", flush=True)
+        if not exact:
+            diff = int((got.float() != want.float()).sum())
+            raise AssertionError(f"K1q x=[{n},{h},{w},{c}] stride={stride}: "
+                                 f"{diff} outputs differ from the plain version")
+        del x, wt, qx, qw, qt, got, want
+        torch.cuda.empty_cache()
+
+
+K7_FAULTS = ("per_tensor_scale", "per_row_weight_scale", "no_residual",
+             "block_local_h_scale")
+K7_BLOCK = 128   # the rows and columns of h one block of K7's first product writes
+
+
+# A small shape (M, H, F, tm) at which ``k7_inputs`` shows every K7 fault:
+# 2 tiles of 2 row blocks × 8 column blocks, a cluster of 2 on the card.
+K7_FAULT_SHAPE = (512, 256, 1024, 256)
+
+
+def k7_inputs(m: int, h: int, f: int, seed: int) -> list:
+    """K7's fault inputs as numpy f32 arrays (x, w1, w2, b1, b2, gamma,
+    beta): x's first and second halves of rows at std 0.5 and 4.0, weight
+    columns whose ranges spread 8×, nonzero biases and LayerNorm
+    parameters."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(m, h) * np.repeat([0.5, 4.0], m // 2)[:, None]
+    w1 = rng.randn(h, f) * 0.05 * np.exp2(rng.uniform(0, 3, f))
+    w2 = rng.randn(f, h) * 0.05 * np.exp2(rng.uniform(0, 3, h))
+    vecs = [rng.randn(f) * 0.1, rng.randn(h) * 0.1, rng.rand(h) + 0.5,
+            rng.randn(h) * 0.1]
+    return [a.astype(np.float32) for a in (x, w1, w2, *vecs)]
 
 
 def ffn_int8_with_fault(x, w1, b1, w2, b2, gamma, beta, tm, fault=None):
     """K7's function in f32 from the f32 weights (dequantized int8 values;
-    float64 products), with one named fault: ``per_tensor_scale`` (one x
-    and one h scale for all of M), ``per_row_weight_scale`` (the weights
-    quantized per row, not per column) or ``no_residual``."""
+    float64 products), with one named fault (``K7_FAULTS``):
+    ``per_tensor_scale`` (one x and one h scale for all of M),
+    ``per_row_weight_scale`` (the weights quantized per row, not per
+    column), ``no_residual``, or ``block_local_h_scale`` (h quantized by
+    the maximum of the 128 × 128 block that wrote it, not of its [tm, F]
+    tile: a maximum that was not combined across the tile's blocks)."""
     import torch
 
     from cpt_tpu_torch.ops import quant
@@ -1364,9 +1475,17 @@ def ffn_int8_with_fault(x, w1, b1, w2, b2, gamma, beta, tm, fault=None):
         return torch.stack([q.data.double() * q.scale.double()
                             for q in map(quant.quant_act, v)])
 
+    def dequant_blocks(v):
+        b = K7_BLOCK
+        blocks = v.reshape(-1, b, v.shape[-1] // b, b).transpose(1, 2)
+        q = quant._tile_quant(blocks.reshape(-1, b, b))
+        return (q.data.double() * q.scale.double()).reshape(
+            blocks.shape).transpose(1, 2).reshape(v.shape)
+
     xf = x.float().reshape(m // t, t, h)
     hid = quant.gelu_poly((dequant_tiles(xf) @ dequant_w(w1)).float() + b1)
-    y = (dequant_tiles(hid) @ dequant_w(w2)).float() + b2
+    hd = dequant_blocks(hid) if fault == "block_local_h_scale" else dequant_tiles(hid)
+    y = (hd @ dequant_w(w2)).float() + b2
     if fault != "no_residual":
         y = y + xf
     mu = y.mean(-1, keepdim=True)
@@ -1395,10 +1514,11 @@ def check_k7(rows: list) -> None:
     """K7 at the study's shape (M 16384 = 128 sequences × 128 tokens, tm
     1024, 768 → 3072 → 768), first on inputs drawn as the study draws them
     (x ~ N(0, 0.5²) in bf16, weights ~ N(0, 0.02²), zero biases, γ 1, β 0):
-    against its plain version, with K4 and the yardstick timed at the same
-    shape. Then on inputs whose tiles' ranges differ 8× (0.5 and 4.0) and
-    whose weight columns' ranges spread 8×, with nonzero biases: against
-    the plain version, and three named faults must miss."""
+    against its plain version, by device time (all of its launches), with
+    K4 and the yardstick timed at the same shape by device time too. Then on
+    inputs whose tiles' ranges differ 8× (0.5 and 4.0) and whose weight
+    columns' ranges spread 8×, with nonzero biases: against the plain
+    version, and ``K7_FAULTS`` must miss."""
     import torch
 
     from cpt_tpu_torch.ops import quant
@@ -1430,29 +1550,30 @@ def check_k7(rows: list) -> None:
         faults = None
         if inputs == "faults":
             faults = {fault: (lambda fault=fault: ffn_int8_with_fault(
-                x, w1, b1, w2, b2, gamma, beta, tm, fault))
-                for fault in ("per_tensor_scale", "per_row_weight_scale",
-                              "no_residual")}
+                x, w1, b1, w2, b2, gamma, beta, tm, fault)) for fault in K7_FAULTS}
         compare("K7", f"x=[{m},{h}] F={f} tm={tm} ({inputs} inputs)",
                 lambda: quant.ffn_int8(*args, tm),
                 lambda: quant.reference_ffn_int8(*args, tm),
                 lambda: quant.reference_ffn_int8(x.float(), *args[1:], tm),
                 rows, faults,
-                work=(nbytes(*args) + nbytes(x), 4 * m * h * f, INT8_OPS_S))
+                work=(nbytes(*args) + nbytes(x), 4 * m * h * f, INT8_OPS_S),
+                device="ffn_int8_")
         if inputs != "study":
             continue
         w1h, w2h = w1.bfloat16(), w2.bfloat16()
         cm = [quant.QuantTensor(q.data.t().contiguous().t(), q.scale)
               for q in (q1, q2)]                 # _int_mm's column-major B
-        extra = {"k4_ms": cuda_ms(lambda: fused_ffn(x, w1h, b1, w2h, b2, gamma, beta)),
-                 "yardstick_ms": cuda_ms(lambda: xla_int8_ffn(
-                     x, cm[0], b1, cm[1], b2, gamma, beta)),
+        extra = {"k4_device_ms": device_ms(lambda: fused_ffn(
+                     x, w1h, b1, w2h, b2, gamma, beta))[0],
+                 "yardstick_device_ms": device_ms(lambda: xla_int8_ffn(
+                     x, cm[0], b1, cm[1], b2, gamma, beta))[0],
                  "k4_bound_ms": bound(nbytes(x, w1h, w2h, b1, b2, gamma, beta)
                                       + nbytes(x), 4 * m * h * f, BF16_OPS_S)[0]}
         rows[-1].update(extra)
-        print(f"  at this shape: K4 (bf16) {extra['k4_ms']:.4f} ms (bound "
-              f"{extra['k4_bound_ms']:.4f}); xla_int8 yardstick (two "
-              f"torch._int_mm) {extra['yardstick_ms']:.4f} ms", flush=True)
+        print(f"  at this shape: K4 (bf16) device {extra['k4_device_ms']:.4f} ms "
+              f"(bound {extra['k4_bound_ms']:.4f}); xla_int8 yardstick (two "
+              f"torch._int_mm) device {extra['yardstick_device_ms']:.4f} ms",
+              flush=True)
 
 
 def run_ffn_study(counters) -> dict:
@@ -1549,6 +1670,9 @@ def run_int8_extraction(counters) -> dict:
                     "top": top}
         launches = {k: fn.launches for k, fn in counters.items()}
         k1_paths(counters, launches, f"extract_features --precision {precision}")
+        if not plain:
+            k1_paths(counters, launches,
+                     f"extract_features --precision {precision}", "K1q")
         print(f"extract_features --precision {precision}"
               f"{' (int8 ops plain)' if plain else ''}: {info['copies']} copies "
               f"in {info['seconds'] * 1e3:.1f} ms, {info['copies_per_s']:.2f} "
@@ -2389,7 +2513,7 @@ def main(argv=None) -> int:
     # ms and library_ms are device times (a mean of back-to-back launches
     # times the host at its size)
     headline = {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
-                "K6b": 0, "K6c": 0, "K1q": 1, "K7": 0}
+                "K6b": 0, "K6c": 0, "K1q": 4, "K7": 0}
     paths = ("ground", "detect", "flash_ground", "train", "auto_train",
              "ffn_study", "int8", "int8_static")
     summary = []

@@ -4,44 +4,54 @@
 // with one dynamic scale per tm-row tile for x (sx) and one for the whole
 // [tm, F] tile of h (sh), per-column weight scales s1, s2, erf gelu through
 // the Abramowitz-Stegun polynomial, LayerNorm E[(y - mu)^2] in f32, and a bf16
-// store. Three launches:
-//   1. absmax_tiles: max |x| of every tm-row tile, by atomicMax on the f32's
-//      bits (the values are >= 0, so their int order is their float order);
-//   2. gemm1: x quantized by its tile's scale as it is staged, an int8 GEMM,
-//      then (acc * (sx * s1) + b1) and gelu; h is written in f32 and max |h|
-//      per tile gathered the same way;
-//   3. gemm2_ln: h quantized by its tile's scale as it is staged, an int8
-//      GEMM, then acc * (sh * s2) + b2 + x and the row LayerNorm: one block
-//      owns 32 whole rows.
+// store.
 //
 // Replaces bench_int8.py::ffn_int8 (pallas_call :225, body kern :204-220). The
 // TPU kernel held one 1024-row tile of x and its whole [tm, F] h in VMEM, so
 // both tile maxima were in-kernel reductions. On Hopper a tile spans many
-// blocks that run in no order, so each maximum takes atomics and a launch
-// boundary, and h makes one f32 round trip through device memory (201 MB at
-// M = 16384, F = 3072).
+// blocks that run in no order, so each maximum is combined across them by
+// atomics and read after a launch boundary, and h makes one f32 round trip
+// through device memory. Seven launches on the caller's stream:
+//   1. ffn_int8_absmax_kernel: max |x| of every tm-row tile (atomicMax on the
+//      f32's bits: the values are >= 0, so their int order is their order);
+//   2. ffn_int8_quantize_kernel<bf16>: xq = x quantized by its tile's scale,
+//      one true division an element, int8 [M, H];
+//   3. ffn_int8_transpose_kernel, twice: w1q [H, F] -> [F, H] and w2q [F, H]
+//      -> [H, F]. wgmma takes s8 operands K-major only (no transpose bit),
+//      and the weights arrive as the study's [K, N] matrices;
+//   4. ffn_int8_gemm1_kernel: xq . w1q on the TMA / wgmma ring of gemm.cu
+//      (one producer warp, two consumer warpgroups of m64n128k32 s8 -> s32,
+//      128 x 128 tiles, 3 stages of 128-byte k, two blocks an SM), then
+//      (acc * (sx * s1) + b1) and gelu; h is written in f32 and max |h| of
+//      the block combined into its tm-tile's maximum by atomicMax (never a
+//      block-local scale: a tile spans F / 128 x tm / 128 blocks);
+//   5. ffn_int8_quantize_kernel<float>: hq = h quantized by its tile's scale;
+//   6. ffn_int8_gemm2_ln_kernel: hq . w2q on the same ring (one consumer
+//      warpgroup, 64 x 128 per block, 3 stages) on a thread-block cluster
+//      of H / 128 blocks that own the same 64 rows, then acc * (sh * s2) + b2
+//      + x and the row LayerNorm, its sums exchanged through distributed
+//      shared memory as in gemm.cu's LN-GEMM, so no block stages more than
+//      its 128 columns of w2q.
+// Products are exact (|sum| <= 3072 * 127^2 < 2^31). Every f32 step before
+// the LayerNorm mirrors the plain version's PyTorch order with unfused
+// roundings (__fmul_rn, __fadd_rn, __fdiv_rn), so h and both quantizations
+// match it bit for bit; only the LayerNorm's sums differ in order.
 //
-// Products: mma.sync m16n8k32 s8 x s8 -> s32, exact (|sum| <= 3072 * 127^2 <
-// 2^31). Tiles: 128 x 128 (gemm1) and 32 x H (gemm2) blocks of 8 warps,
-// k-steps of 32; A is staged row-major, B transposed to [n][k] in shared
-// memory (4x4 byte blocks transposed in registers). Single-buffered, no
-// cp.async/TMA, no wgmma: a first, exact kernel. What bounds it: 4 * M * H * F
-// int8 operations (154.6 G at the study's shape) against 1,979 TOP/s dense
-// int8, i.e. 0.078 ms; mma.sync from single-buffered tiles reaches a fraction
-// of that peak. Every f32 step mirrors the plain version's PyTorch order with
-// unfused roundings (__fmul_rn, __fadd_rn, __fdiv_rn), so h and both
-// quantizations match it bit for bit; only the LayerNorm's sums differ in
-// order.
+// What bounds it: the function's bound is its 4 * M * H * F int8 operations
+// (154.6 G at the study's shape) against 1,979 TOP/s, 0.078 ms. This design
+// moves h through device memory (201 MB written, read, and 50 MB of hq
+// written and read at M = 16384, F = 3072) besides ~100 MB of x, xq and
+// out: ~0.19 ms of HBM at 3.35 TB/s, its own floor. Keeping h on chip
+// would take recomputing gemm1 inside gemm2 (1.5x the operations) or a
+// [tm, F] tile per block; see PERF.md.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBK = 32;                // k-step (bytes of int8)
-constexpr int kLdA = kBK + 16;         // A row stride in shared memory (bytes)
-constexpr int kLdB = kBK + 8;          // B row stride: conflict-free transposed stores
-constexpr int kG1M = 128, kG1N = 128;  // gemm1 block tile
-constexpr int kG2M = 32;               // gemm2 rows per block
-constexpr int kThreads = 256;
+using namespace cpt::sm90;
+
+constexpr int kThreads = 256;            // the elementwise passes
 
 __device__ __forceinline__ float tile_scale(const int* amax_bits) {
   return __fdiv_rn(fmaxf(__int_as_float(*amax_bits), 1e-8f), 127.f);
@@ -51,43 +61,9 @@ __device__ __forceinline__ int quant(float v, float s) {
   return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f));
 }
 
-__device__ __forceinline__ int pack4(int a, int b, int c, int d) {
-  return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) | (d << 24);
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The m16n8k32 A fragment of rows r0.. r0+15 from a row-major tile.
-__device__ __forceinline__ void load_a(int (&a)[4], const int8_t* As, int r0, int g, int t) {
-  a[0] = *reinterpret_cast<const int*>(As + (r0 + g) * kLdA + 4 * t);
-  a[1] = *reinterpret_cast<const int*>(As + (r0 + g + 8) * kLdA + 4 * t);
-  a[2] = *reinterpret_cast<const int*>(As + (r0 + g) * kLdA + 16 + 4 * t);
-  a[3] = *reinterpret_cast<const int*>(As + (r0 + g + 8) * kLdA + 16 + 4 * t);
-}
-
-// Rows k0..k0+31 of the row-major int8 [K, N] matrix w, columns n0 +
-// 4 * ng.. (ng < n_groups), into Bs[n][k]; the thread mapping keeps 8
-// consecutive threads on 8 k-groups, so the transposed stores hit 32 banks.
-__device__ __forceinline__ void stage_b(int8_t* Bs, const int8_t* w, int N, int k0, int n0,
-                                        int n_groups) {
-  for (int i = threadIdx.x; i < 8 * n_groups; i += kThreads) {
-    const int kg = i % 8, ng = i / 8;
-    const int8_t* src = w + static_cast<size_t>(k0 + 4 * kg) * N + n0 + 4 * ng;
-    int rows[4], cols[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      rows[r] = *reinterpret_cast<const int*>(src + static_cast<size_t>(r) * N);
-    cpt::transpose4x4_s8(rows, cols);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<int*>(Bs + (4 * ng + j) * kLdB + 4 * kg) = cols[j];
-  }
+__device__ __forceinline__ unsigned pack4(int a, int b, int c, int d) {
+  return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) |
+         (static_cast<unsigned>(d) << 24);
 }
 
 // gelu(v) = 0.5 v (1 + erf(v / sqrt 2)), erf by Abramowitz-Stegun 7.1.26, in
@@ -108,24 +84,15 @@ __device__ __forceinline__ float gelu_poly(float v) {
   return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.f, erf));
 }
 
-__device__ __forceinline__ void atomic_max_block(float v, int* dst) {
-  __shared__ float part[kThreads / 32];
-  v = cpt::warp_max(v);
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = part[0];
-    for (int i = 1; i < kThreads / 32; ++i) m = fmaxf(m, part[i]);
-    atomicMax(dst, __float_as_int(m));
-  }
-}
+// ---- the elementwise passes ---------------------------------------------------
 
-// 1. max |x| over kRows rows per block into amax[row / tm].
+// 1. max |x| over kAbsRows rows per block into amax[row / tm].
 constexpr int kAbsRows = 16;
 
 __global__ void __launch_bounds__(kThreads)
-    absmax_tiles_kernel(const cpt::bf16* __restrict__ x, int* __restrict__ amax, int H,
-                        int tm) {
+    ffn_int8_absmax_kernel(const cpt::bf16* __restrict__ x, int* __restrict__ amax, int H,
+                           int tm) {
+  __shared__ float part[kThreads / 32];
   const int r0 = blockIdx.x * kAbsRows;
   const cpt::bf16* p = x + static_cast<size_t>(r0) * H;
   float m = 0.f;
@@ -138,261 +105,457 @@ __global__ void __launch_bounds__(kThreads)
       m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
     }
   }
-  atomic_max_block(m, amax + r0 / tm);
+  m = cpt::warp_max(m);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / 32; ++i) m = fmaxf(m, part[i]);
+    atomicMax(amax + r0 / tm, __float_as_int(m));
+  }
 }
 
-// 2. h = gelu((xq . w1q) * (sx * s1) + b1), f32 [M, F]; max |h| per tile.
-// 8 warps as 2 (rows) x 4 (columns) of 64 x 32.
-__global__ void __launch_bounds__(kThreads)
-    ffn_int8_gemm1_kernel(const cpt::bf16* __restrict__ x, const int8_t* __restrict__ w1q,
-                          const float* __restrict__ s1, const float* __restrict__ b1,
-                          float* __restrict__ h, int* __restrict__ amax, int H, int F,
-                          int tm, int T) {
-  __shared__ __align__(16) int8_t As[kG1M * kLdA];
-  __shared__ __align__(16) int8_t Bs[kG1N * kLdB];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * kG1M, n0 = blockIdx.x * kG1N;
-  const int tile = m0 / tm;
-  const float sx = tile_scale(amax + tile);
-
-  int acc[4][4][4];
+__device__ __forceinline__ void load16(const cpt::bf16* p, float (&v)[16]) {
+  const uint4 raw[2] = {reinterpret_cast<const uint4*>(p)[0],
+                        reinterpret_cast<const uint4*>(p)[1]};
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(raw);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-  for (int k0 = 0; k0 < H; k0 += kBK) {
-    // A: 128 rows x 32 bf16, quantized by the tile's scale, 8 values a thread-step
-    for (int i = threadIdx.x; i < kG1M * kBK / 8; i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * H + k0 + c);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      int q[8];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 f = __bfloat1622float2(h2[k]);
-        q[2 * k] = quant(f.x, sx);
-        q[2 * k + 1] = quant(f.y, sx);
-      }
-      *reinterpret_cast<uint2*>(As + r * kLdA + c) =
-          make_uint2(pack4(q[0], q[1], q[2], q[3]), pack4(q[4], q[5], q[6], q[7]));
-    }
-    stage_b(Bs, w1q, F, k0, n0, kG1N / 4);
-    __syncthreads();
-    int a[4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) load_a(a[mt], As, wm * 64 + mt * 16, g, t);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int8_t* bp = Bs + (wn * 32 + nt * 8 + g) * kLdB;
-      const int b0 = *reinterpret_cast<const int*>(bp + 4 * t);
-      const int b1v = *reinterpret_cast<const int*>(bp + 16 + 4 * t);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1v);
-    }
-    __syncthreads();
+  for (int k = 0; k < 8; ++k) {
+    const float2 f = __bfloat1622float2(h2[k]);
+    v[2 * k] = f.x;
+    v[2 * k + 1] = f.y;
   }
+}
 
+__device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 a = reinterpret_cast<const float4*>(p)[k];
+    v[4 * k] = a.x;
+    v[4 * k + 1] = a.y;
+    v[4 * k + 2] = a.z;
+    v[4 * k + 3] = a.w;
+  }
+}
+
+// 2. and 5. dst = src quantized by the scale of its tm-row tile (amax[row /
+// tm]), 16 values a thread-step (all loads issued before the divisions);
+// cols % 16 == 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ffn_int8_quantize_kernel(const T* __restrict__ src, int8_t* __restrict__ dst,
+                             const int* __restrict__ amax, int cols, int tm, long long n16) {
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < n16;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long e = i * 16;
+    float v[16];
+    load16(src + e, v);
+    const float s = tile_scale(amax + static_cast<int>(e / cols / tm));
+    unsigned q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      q[k] = pack4(quant(v[4 * k], s), quant(v[4 * k + 1], s), quant(v[4 * k + 2], s),
+                   quant(v[4 * k + 3], s));
+    *reinterpret_cast<uint4*>(dst + e) = make_uint4(q[0], q[1], q[2], q[3]);
+  }
+}
+
+// 3. dst [C, R] = src [R, C] transposed, int8, 64 x 64 tiles; R, C % 64 == 0.
+__global__ void __launch_bounds__(kThreads)
+    ffn_int8_transpose_kernel(const int8_t* __restrict__ src, int8_t* __restrict__ dst, int R,
+                              int C) {
+  __shared__ int8_t tile[64][64 + 4];
+  const int r0 = blockIdx.y * 64, c0 = blockIdx.x * 64;
+  const int row = threadIdx.x / 4, q = threadIdx.x % 4;   // one 16-byte chunk a thread
+  const uint4 v =
+      *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + row) * C + c0 + q * 16);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int k = 0; k < 16; ++k) tile[row][q * 16 + k] = b[k];
+  __syncthreads();
+  alignas(16) int8_t o[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) o[k] = tile[q * 16 + k][row];   // dst row c0 + row
+  *reinterpret_cast<uint4*>(dst + static_cast<size_t>(c0 + row) * R + r0 + q * 16) =
+      *reinterpret_cast<const uint4*>(o);
+}
+
+// ---- the int8 ring: gemm.cu's producer / consumer mainloop on s8 tiles ------
+
+constexpr int kBK = 128;                 // k depth of a stage: one 128-byte swizzle row
+constexpr int kWgRows = 64;              // rows of one consumer warpgroup (wgmma m64)
+constexpr int kBN = 128;                 // columns of a block tile (wgmma n128)
+constexpr int kABytesPerWg = kWgRows * kBK;   // 8 KB
+constexpr int kBBytes = kBN * kBK;            // 16 KB: 128 rows (n) of 128 k bytes
+constexpr int kPitch = kBN + 8;          // LN staging pitch in bf16: conflict-free
+// Ring depths and residency: gemm1 two consumer warpgroups (128 x 128
+// tiles), 3 stages of 32 KB, two blocks an SM (96 registers); gemm2 one
+// consumer warpgroup (64 rows a block), 3 stages of 24 KB, three blocks an
+// SM (128 registers: its residual is loaded after the mainloop). Each was
+// the fastest of the variants chip_variants.py timed on the H100 at the
+// study's shape (PERF.md, section 6): gemm1 0.1716 ms against 0.1761-0.1766
+// (2 stages), 0.2453 (4 stages, one block an SM) and 0.1884-0.2219 (one
+// warpgroup, 3-4 blocks an SM); gemm2 0.1312-0.1314 against 0.1381 (4
+// stages, two blocks), 0.1622 (2 stages), 0.2510 (6 stages, one block) and
+// 0.1524-0.1785 (two warpgroups, one block).
+constexpr int kG1Wgs = 2, kG1Stages = 3, kG1MinBlocks = 2;
+constexpr int kG2Wgs = 1, kG2Stages = 3, kG2MinBlocks = 3;
+
+template <int WGS, int STAGES>
+struct Ring {
+  static constexpr int kABytes = WGS * kABytesPerWg;
+  static constexpr int kStageBytes = kABytes + kBBytes;           // a multiple of 1024
+  static constexpr int kBarOffset = STAGES * kStageBytes;
+  static constexpr int kRedOffset = kBarOffset + 2 * 8 * STAGES;  // LN partials
+  static constexpr int kSmemBytes = kRedOffset + 2 * WGS * kWgRows * 4 + 1024;  // + alignment
+  static constexpr int kThreads = WGS * 128 + 32;                 // + the producer warp
+};
+
+// Both operands K-major with the 128-byte swizzle: rows of 128 k bytes,
+// 8-row atoms 1024 bytes apart (SBO); a k32 step moves the start 32 bytes
+// along the swizzled row (+2 in the descriptor's 16-byte units).
+constexpr unsigned kDescSbo = 1024;
+
+template <int WGS, int STAGES>
+__device__ __forceinline__ void init_ring(unsigned base) {
+  typedef Ring<WGS, STAGES> R;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(base + R::kBarOffset + 8 * s, 1);                    // full: the producer
+      mbar_init(base + R::kBarOffset + 8 * (STAGES + s), 4 * WGS);  // empty: each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+}
+
+// The producer (one thread): the k tiles of rows m0.. of A ([M, K]) and rows
+// n0..n0+127 of B ([N, K]) into the ring.
+template <int WGS, int STAGES>
+__device__ __forceinline__ void produce(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                        unsigned base, int nk, int m0, int n0) {
+  typedef Ring<WGS, STAGES> R;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    if (kt >= STAGES) mbar_wait(base + R::kBarOffset + 8 * (STAGES + s), ((kt / STAGES) + 1) & 1);
+    const unsigned stage = base + s * R::kStageBytes;
+    const unsigned full = base + R::kBarOffset + 8 * s;
+    mbar_expect_tx(full, R::kABytes + kBBytes);
+    tma_load_2d(stage, map_a, full, kt * kBK, m0);
+    tma_load_2d(stage + R::kABytes, map_b, full, kt * kBK, n0);
+  }
+}
+
+// A consumer warpgroup `wg`: acc (its 64 x 128 tile) = A rows . B^T over all k.
+template <int WGS, int STAGES>
+__device__ __forceinline__ void consume(int (&acc)[64], unsigned base, int nk, int wg) {
+  typedef Ring<WGS, STAGES> R;
+  const bool leader = threadIdx.x % 32 == 0;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(base + R::kBarOffset + 8 * s, (kt / STAGES) & 1);
+    __syncwarp();
+    const unsigned stage = base + s * R::kStageBytes;
+    const uint64_t da = smem_desc(stage + wg * kABytesPerWg, 16, kDescSbo);
+    const uint64_t db = smem_desc(stage + R::kABytes, 16, kDescSbo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk) wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    wgmma_wait<1>();   // the group that read the previous stage is done
+    fence_acc(acc);
+    if (kt > 0 && leader)
+      mbar_arrive(base + R::kBarOffset + 8 * (STAGES + (kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// Accumulator fragment of wgmma m64nN: thread t of the warpgroup holds, for j
+// in 0..N/8-1, rows r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns
+// 8 j + 2 (t % 4) and + 1: acc[4j], acc[4j+1] (row r), acc[4j+2], acc[4j+3]
+// (row r + 8).
+
+// 4. h = gelu((xq . w1q) * (sx * s1) + b1), f32 [M, F]; max |h| per tile.
+__global__ void __launch_bounds__(Ring<kG1Wgs, kG1Stages>::kThreads, kG1MinBlocks)
+    ffn_int8_gemm1_kernel(const __grid_constant__ CUtensorMap map_x,
+                          const __grid_constant__ CUtensorMap map_w1,
+                          const float* __restrict__ s1, const float* __restrict__ b1,
+                          float* __restrict__ h, int* __restrict__ amax, int H, int F, int tm,
+                          int T) {
+  constexpr int WGS = kG1Wgs, STAGES = kG1Stages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const unsigned base = cpt::smem_u32(smem);
+  const int nk = (H + kBK - 1) / kBK;
+  const int m0 = blockIdx.y * WGS * kWgRows, n0 = blockIdx.x * kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_ring<WGS, STAGES>(base);
+  if (warp == 4 * WGS) {
+    if (lane == 0) produce<WGS, STAGES>(&map_x, &map_w1, base, nk, m0, n0);
+    return;
+  }
+  const int wg = warp / 4;
+  int acc[64];
+  consume<WGS, STAGES>(acc, base, nk, wg);
+
+  const int tile = m0 / tm;             // tm % 128 == 0: the block lies in one tile
+  const float sx = tile_scale(amax + tile);
+  const int r = m0 + wg * kWgRows + (warp % 4) * 16 + lane / 4;
   float hmax = 0.f;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn * 32 + nt * 8 + 2 * t;
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
     const float m0s = __fmul_rn(sx, s1[col]), m1s = __fmul_rn(sx, s1[col + 1]);
     const float bb0 = b1[col], bb1 = b1[col + 1];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mt * 16 + g + 8 * half;
-        const float v0 = gelu_poly(
-            __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), m0s), bb0));
-        const float v1 = gelu_poly(
-            __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]), m1s), bb1));
-        *reinterpret_cast<float2*>(h + static_cast<size_t>(row) * F + col) =
-            make_float2(v0, v1);
-        hmax = fmaxf(hmax, fmaxf(fabsf(v0), fabsf(v1)));
-      }
+    for (int hr = 0; hr < 2; ++hr) {
+      const float v0 =
+          gelu_poly(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hr]), m0s), bb0));
+      const float v1 =
+          gelu_poly(__fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hr + 1]), m1s), bb1));
+      *reinterpret_cast<float2*>(h + static_cast<size_t>(r + 8 * hr) * F + col) =
+          make_float2(v0, v1);
+      hmax = fmaxf(hmax, fmaxf(fabsf(v0), fabsf(v1)));
     }
   }
-  atomic_max_block(hmax, amax + T + tile);
+  // the tile's maximum combines every block of it: one atomic per warp
+  hmax = cpt::warp_max(hmax);
+  if (lane == 0) atomicMax(amax + T + tile, __float_as_int(hmax));
 }
 
-// 3. out = LayerNorm(hq . w2q * (sh * s2) + b2 + x) * gamma + beta, bf16.
-// Block: 32 rows x H = 64 * NT columns; warp w owns columns [w * 8 NT, ...).
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-    ffn_int8_gemm2_ln_kernel(const float* __restrict__ h, const int8_t* __restrict__ w2q,
+__device__ __forceinline__ void put_pair(cpt::bf16* tile, int r, int c, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(tile + r * kPitch + c) = __floats2bfloat162_rn(a, b);
+}
+
+// 6. out = LayerNorm(hq . w2q * (sh * s2) + b2 + x) * gamma + beta, bf16, on
+// a cluster of H / 128 blocks: kG2Wgs x 64 rows x one 128-column slice each.
+__global__ void __launch_bounds__(Ring<kG2Wgs, kG2Stages>::kThreads, kG2MinBlocks)
+    ffn_int8_gemm2_ln_kernel(const __grid_constant__ CUtensorMap map_hq,
+                             const __grid_constant__ CUtensorMap map_w2,
                              const float* __restrict__ s2, const float* __restrict__ b2,
-                             const cpt::bf16* __restrict__ x,
-                             const float* __restrict__ gamma,
+                             const cpt::bf16* __restrict__ x, const float* __restrict__ gamma,
                              const float* __restrict__ beta, const int* __restrict__ amax,
-                             cpt::bf16* __restrict__ out, int F, int tm, int T,
+                             cpt::bf16* __restrict__ out, int H, int F, int tm, int T,
                              float eps) {
-  constexpr int H = 64 * NT;
-  __shared__ __align__(16) int8_t As[kG2M * kLdA];
-  __shared__ __align__(16) int8_t Bs[H * kLdB];
-  __shared__ float red[kThreads / 32][kG2M];
+  constexpr int WGS = kG2Wgs, STAGES = kG2Stages, ROWS = WGS * kWgRows;
+  typedef Ring<WGS, STAGES> R;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const unsigned base = cpt::smem_u32(smem);
+  const unsigned red_sum = base + R::kRedOffset, red_sq = red_sum + ROWS * 4;
+  float* sums = reinterpret_cast<float*>(smem + R::kRedOffset);
+  float* sqs = sums + ROWS;
+  const int nk = (F + kBK - 1) / kBK;
+  const int m0 = blockIdx.y * ROWS, n0 = blockIdx.x * kBN;  // the cluster spans x
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = blockIdx.x * kG2M;
-  const float sh = tile_scale(amax + T + m0 / tm);
+  const bool consumer = warp < 4 * WGS;
+  const int wg = warp / 4;
+  init_ring<WGS, STAGES>(base);
 
-  int acc[2][NT][4];
+  const int r = warp * 16 + lane / 4;   // this thread's rows r and r + 8 (consumers)
+  float y[64];
+  if (consumer) {
+    int acc[64];
+    consume<WGS, STAGES>(acc, base, nk, wg);
+    // the residual of this thread's fragment, loaded after the mainloop so
+    // that its registers do not limit the blocks an SM
+    unsigned res[2][kBN / 8];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int hr = 0; hr < 2; ++hr)
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+      for (int j = 0; j < kBN / 8; ++j)
+        res[hr][j] = *reinterpret_cast<const unsigned*>(
+            x + static_cast<size_t>(m0 + r + 8 * hr) * H + n0 + 8 * j + 2 * (lane % 4));
+    const float sh = tile_scale(amax + T + m0 / tm);
+    float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
-
-  for (int k0 = 0; k0 < F; k0 += kBK) {
-    {  // A: 32 rows x 32 f32, quantized by the tile's scale, 4 values a thread
-      const int r = threadIdx.x / 8, c = (threadIdx.x % 8) * 4;
-      const float4 v =
-          *reinterpret_cast<const float4*>(h + static_cast<size_t>(m0 + r) * F + k0 + c);
-      *reinterpret_cast<int*>(As + r * kLdA + c) =
-          pack4(quant(v.x, sh), quant(v.y, sh), quant(v.z, sh), quant(v.w, sh));
-    }
-    stage_b(Bs, w2q, H, k0, 0, H / 4);
-    __syncthreads();
-    int a[2][4];
-    load_a(a[0], As, 0, g, t);
-    load_a(a[1], As, 16, g, t);
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane % 4);
+      const float m0s = __fmul_rn(sh, s2[c]), m1s = __fmul_rn(sh, s2[c + 1]);
+      const float bb0 = b2[c], bb1 = b2[c + 1];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int8_t* bp = Bs + (warp * NT * 8 + nt * 8 + g) * kLdB;
-      const int b0 = *reinterpret_cast<const int*>(bp + 4 * t);
-      const int b1v = *reinterpret_cast<const int*>(bp + 16 + 4 * t);
-      mma_s8(acc[0][nt], a[0], b0, b1v);
-      mma_s8(acc[1][nt], a[1], b0, b1v);
-    }
-    __syncthreads();
-  }
-
-  // this thread's rows: local (mt * 16 + half * 8 + g), index mt * 2 + half
-  float y[2][NT][4];
-  float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = warp * NT * 8 + nt * 8 + 2 * t;
-    const float m0s = __fmul_rn(sh, s2[col]), m1s = __fmul_rn(sh, s2[col + 1]);
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + mt * 16 + half * 8 + g;
-        const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            x + static_cast<size_t>(row) * H + col));
-        const float v0 = __fadd_rn(
-            __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half]), m0s), b2[col]), xr.x);
-        const float v1 = __fadd_rn(
-            __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * half + 1]), m1s), b2[col + 1]),
-            xr.y);
-        y[mt][nt][2 * half] = v0;
-        y[mt][nt][2 * half + 1] = v1;
-        part[mt * 2 + half] += v0 + v1;
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 xr = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&res[hr][j]));
+        y[4 * j + 2 * hr] = __fadd_rn(
+            __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hr]), m0s), bb0), xr.x);
+        y[4 * j + 2 * hr + 1] = __fadd_rn(
+            __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hr + 1]), m1s), bb1), xr.y);
       }
+      s0 += y[4 * j] + y[4 * j + 1];
+      s1 += y[4 * j + 2] + y[4 * j + 3];
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    if (lane % 4 == 0) {
+      sums[r] = s0;
+      sums[r + 8] = s1;
+    }
+  } else if (lane == 0) {
+    produce<WGS, STAGES>(&map_hq, &map_w2, base, nk, m0, n0);
+  }
+  __syncwarp();
+  cluster_sync();   // every block's row sums are in its shared memory
+
+  const unsigned nrank = cluster_size();
+  const float inv_n = 1.f / static_cast<float>(H);
+  float mu0 = 0.f, mu1 = 0.f;
+  if (consumer) {
+    for (unsigned q = 0; q < nrank; ++q) {
+      mu0 += ld_cluster_f32(red_sum + 4 * r, q);
+      mu1 += ld_cluster_f32(red_sum + 4 * (r + 8), q);
+    }
+    mu0 *= inv_n;
+    mu1 *= inv_n;
+    float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const float d0 = y[4 * j] - mu0, d1 = y[4 * j + 1] - mu0;
+      const float d2 = y[4 * j + 2] - mu1, d3 = y[4 * j + 3] - mu1;
+      q0 += d0 * d0 + d1 * d1;
+      q1 += d2 * d2 + d3 * d3;
+    }
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+    if (lane % 4 == 0) {
+      sqs[r] = q0;
+      sqs[r + 8] = q1;
     }
   }
-  // row sums: over the quad's 4 threads, then over the 8 warps
-  float mu[4], rstd[4];
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
-      part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
-      if (t == 0) red[warp][(i / 2) * 16 + (i % 2) * 8 + g] = part[i];
+  __syncwarp();
+  cluster_sync();   // every block's sums of squares are in its shared memory
+
+  if (consumer) {
+    float v0 = 0.f, v1 = 0.f;
+    for (unsigned q = 0; q < nrank; ++q) {
+      v0 += ld_cluster_f32(red_sq + 4 * r, q);
+      v1 += ld_cluster_f32(red_sq + 4 * (r + 8), q);
     }
-    __syncthreads();
+    cluster_arrive();   // done reading the peers; wait for them before exit
+    const float rstd0 = rsqrtf(v0 * inv_n + eps), rstd1 = rsqrtf(v1 * inv_n + eps);
+    named_barrier(1, WGS * 128);   // every consumer is done reading the ring
+    cpt::bf16* tile = reinterpret_cast<cpt::bf16*>(smem);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float s = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) s += red[w][(i / 2) * 16 + (i % 2) * 8 + g];
-      if (pass == 0)
-        mu[i] = s / H;
-      else
-        rstd[i] = rsqrtf(s / H + eps);
-      part[i] = 0.f;
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = 8 * j + 2 * (lane % 4);
+      const float g0 = gamma[n0 + c], g1 = gamma[n0 + c + 1];
+      const float e0 = beta[n0 + c], e1 = beta[n0 + c + 1];
+      put_pair(tile, r, c, (y[4 * j] - mu0) * rstd0 * g0 + e0,
+               (y[4 * j + 1] - mu0) * rstd0 * g1 + e1);
+      put_pair(tile, r + 8, c, (y[4 * j + 2] - mu1) * rstd1 * g0 + e0,
+               (y[4 * j + 3] - mu1) * rstd1 * g1 + e1);
     }
-    __syncthreads();
-    if (pass == 0) {
+    named_barrier(2, WGS * 128);
+    const int t = threadIdx.x;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float d = y[mt][nt][k] - mu[mt * 2 + k / 2];
-            part[mt * 2 + k / 2] += d * d;
-          }
+    for (int i = 0; i < ROWS * kBN / 8 / (WGS * 128); ++i) {
+      const int idx = t + WGS * 128 * i;
+      const int rr = idx / (kBN / 8), cc = (idx % (kBN / 8)) * 8;
+      *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + rr) * H + n0 + cc) =
+          *reinterpret_cast<const uint4*>(tile + rr * kPitch + cc);
     }
+  } else {
+    cluster_arrive();
   }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int col = warp * NT * 8 + nt * 8 + 2 * t;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = mt * 2 + half;
-        const int row = m0 + mt * 16 + half * 8 + g;
-        const float o0 = (y[mt][nt][2 * half] - mu[i]) * rstd[i] * gamma[col] + beta[col];
-        const float o1 =
-            (y[mt][nt][2 * half + 1] - mu[i]) * rstd[i] * gamma[col + 1] + beta[col + 1];
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * H + col) =
-            __floats2bfloat162_rn(o0, o1);
-      }
-    }
-  }
+  cluster_wait();
 }
 
-template <int NT>
-void launch_gemm2(const void* h, const void* w2q, const void* s2, const void* b2,
-                  const void* x, const void* gamma, const void* beta, const void* amax,
-                  void* out, int M, int F, int tm, int T, float eps, cudaStream_t s) {
-  ffn_int8_gemm2_ln_kernel<NT><<<M / kG2M, kThreads, 0, s>>>(
-      static_cast<const float*>(h), static_cast<const int8_t*>(w2q),
-      static_cast<const float*>(s2), static_cast<const float*>(b2),
-      static_cast<const cpt::bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const int*>(amax),
-      static_cast<cpt::bf16*>(out), F, tm, T, eps);
+int quantize(const void* src, bool bf16, void* dst, const void* amax, int rows, int cols,
+             int tm, cudaStream_t s) {
+  const long long n16 = static_cast<long long>(rows) * cols / 16;
+  const long long want = (n16 + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  if (bf16)
+    ffn_int8_quantize_kernel<cpt::bf16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const cpt::bf16*>(src), static_cast<int8_t*>(dst),
+        static_cast<const int*>(amax), cols, tm, n16);
+  else
+    ffn_int8_quantize_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(src), static_cast<int8_t*>(dst),
+        static_cast<const int*>(amax), cols, tm, n16);
+  return cpt::launch_status();
+}
+
+int transpose(const void* src, void* dst, int R, int C, cudaStream_t s) {
+  ffn_int8_transpose_kernel<<<dim3(C / 64, R / 64), kThreads, 0, s>>>(
+      static_cast<const int8_t*>(src), static_cast<int8_t*>(dst), R, C);
+  return cpt::launch_status();
 }
 
 }  // namespace
 
 // x [M, H] bf16; w1q [H, F], w2q [F, H] int8; s1, b1 [F], s2, b2, gamma, beta
-// [H] f32; h [M, F] f32 scratch; amax [2, M / tm] int32, zeroed by the
-// caller; out [M, H] bf16. The wrapper guarantees M % tm == 0, tm % 128 == 0,
-// F % 128 == 0, H / 64 in {2, 4, 12} and 16-byte aligned rows. Returns
-// cudaErrorInvalidValue for any other H.
+// [H] f32; scratch: xq [M, H], w1t [F, H], w2t [H, F], hq [M, F] int8, h
+// [M, F] f32, amax [2, M / tm] int32 (zeroed here); out [M, H] bf16. The
+// wrapper guarantees M % tm == 0, tm % 128 == 0, F % 128 == 0, H % 128 == 0,
+// H <= 1024 (a cluster of H / 128 blocks) and 16-byte aligned rows. Returns
+// cudaErrorInvalidValue for any other H, and the launch's error where the
+// card refuses the cluster.
 CPT_EXPORT int cpt_ffn_int8(const void* x, const void* w1q, const void* s1, const void* b1,
                             const void* w2q, const void* s2, const void* b2,
-                            const void* gamma, const void* beta, void* h, void* amax,
-                            void* out, int M, int H, int F, int tm, float eps,
-                            void* stream) {
+                            const void* gamma, const void* beta, void* xq, void* w1t,
+                            void* w2t, void* h, void* hq, void* amax, void* out, int M, int H,
+                            int F, int tm, float eps, void* stream) {
+  typedef Ring<kG1Wgs, kG1Stages> R1;
+  typedef Ring<kG2Wgs, kG2Stages> R2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = M / tm;
-  if (H != 128 && H != 256 && H != 768) return static_cast<int>(cudaErrorInvalidValue);
-  absmax_tiles_kernel<<<M / kAbsRows, kThreads, 0, s>>>(static_cast<const cpt::bf16*>(x),
-                                                         static_cast<int*>(amax), H, tm);
-  int err = cpt::launch_status();
-  if (err) return err;
-  ffn_int8_gemm1_kernel<<<dim3(F / kG1N, M / kG1M), kThreads, 0, s>>>(
-      static_cast<const cpt::bf16*>(x), static_cast<const int8_t*>(w1q),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
+  if (H % kBN != 0 || H / kBN > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0) return 0;
+  CUtensorMap map_x, map_w1, map_hq, map_w2;
+  int err = encode_map(&map_x, xq, M, H, kG1Wgs * kWgRows, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0) err = encode_map(&map_w1, w1t, F, H, kBN, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0)
+    err = encode_map(&map_hq, hq, M, F, kG2Wgs * kWgRows, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err == 0) err = encode_map(&map_w2, w2t, H, F, kBN, CU_TENSOR_MAP_DATA_TYPE_UINT8);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(ffn_int8_gemm1_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       R1::kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ffn_int8_gemm2_ln_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, R2::kSmemBytes);
+  if (e == cudaSuccess) e = cudaMemsetAsync(amax, 0, sizeof(int) * 2 * T, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  ffn_int8_absmax_kernel<<<M / kAbsRows, kThreads, 0, s>>>(static_cast<const cpt::bf16*>(x),
+                                                            static_cast<int*>(amax), H, tm);
+  err = cpt::launch_status();
+  if (err == 0) err = quantize(x, true, xq, amax, M, H, tm, s);
+  if (err == 0) err = transpose(w1q, w1t, H, F, s);
+  if (err == 0) err = transpose(w2q, w2t, F, H, s);
+  if (err != 0) return err;
+
+  ffn_int8_gemm1_kernel<<<dim3(F / kBN, M / (kG1Wgs * kWgRows)), R1::kThreads, R1::kSmemBytes,
+                          s>>>(
+      map_x, map_w1, static_cast<const float*>(s1), static_cast<const float*>(b1),
       static_cast<float*>(h), static_cast<int*>(amax), H, F, tm, T);
   err = cpt::launch_status();
-  if (err) return err;
-  switch (H / 64) {
-    case 2: launch_gemm2<2>(h, w2q, s2, b2, x, gamma, beta, amax, out, M, F, tm, T, eps, s); break;
-    case 4: launch_gemm2<4>(h, w2q, s2, b2, x, gamma, beta, amax, out, M, F, tm, T, eps, s); break;
-    default: launch_gemm2<12>(h, w2q, s2, b2, x, gamma, beta, amax, out, M, F, tm, T, eps, s);
-  }
+  if (err == 0) err = quantize(h, false, hq, static_cast<const int*>(amax) + T, M, F, tm, s);
+  if (err != 0) return err;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H / kBN, M / (kG2Wgs * kWgRows));
+  cfg.blockDim = dim3(R2::kThreads);
+  cfg.dynamicSmemBytes = R2::kSmemBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = H / kBN;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ffn_int8_gemm2_ln_kernel, map_hq, map_w2,
+                         static_cast<const float*>(s2), static_cast<const float*>(b2),
+                         static_cast<const cpt::bf16*>(x), static_cast<const float*>(gamma),
+                         static_cast<const float*>(beta), static_cast<const int*>(amax),
+                         static_cast<cpt::bf16*>(out), H, F, tm, T, eps);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return cpt::launch_status();
 }

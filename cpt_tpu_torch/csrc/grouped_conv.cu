@@ -59,21 +59,36 @@
 // patch as f32 and each thread runs f32 FMAs for 4 output channels x 8
 // columns. ops/grouped_conv.py::conv_path is the dispatch rule.
 //
-// K1q (cpt_grouped_conv3x3_int8, below): the same conv on int8 activations
-// and int8 weights, for the W8A8 path (ops/quant.py::int8_conv with
-// groups > 1; cpt_tpu/models/detector/resnet.py:176-179 runs it as an XLA
-// int8 conv, so it has no Pallas kernel of its own). The CUDA-core tiling,
-// but the patch is staged as int8 (4 channels a word) and each thread sums 4
-// input channels per __dp4a: exact int32 sums of 9 * cpg products. The 4
-// weights of one input channel for its 4 output channels are one 4-byte
-// load of the HWIO row; four such rows are transposed in registers (byte
-// permutes) into one word per output channel. The epilogue is y * scale[c] +
-// bias[c] with two roundings (__fmul_rn, __fadd_rn), as the plain version
-// computes it in PyTorch, then ReLU and a bf16 store. What bounds it: the
-// int8 reads and bf16 writes at X152's shapes are ~63 MB at [8,40,64,1024]
-// (~19 us of bandwidth) against 12 G int8 operations; dp4a on the CUDA cores
-// issues far below the tensor cores' int8 rate, so instruction issue bounds
-// it first.
+// K1q: the same conv on int8 activations and int8 weights, for the W8A8
+// path (ops/quant.py::int8_conv with groups > 1;
+// cpt_tpu/models/detector/resnet.py:176-179 runs it as an XLA int8 conv, so
+// it has no Pallas kernel of its own), with exact int32 sums and the plain
+// version's epilogue y * scale[c] + bias[c] in two roundings (__fmul_rn,
+// __fadd_rn), ReLU and one bf16 rounding, so it equals the plain version
+// bit for bit. Two kernels, chosen by the same rule as K1's:
+//   - cpt_grouped_conv3x3_int8_mma (cpg 8-64, C % 64 == 0: every X152
+//     shape) is K1's tensor-core tiling on mma.sync m16n8k32 s8 -> s32: a
+//     64-channel slice a block, its weights staged once, transposed to
+//     [n][k] (k = tap * cpg + ci, 16 pad bytes a row), the int8 patch in a
+//     two-stage cp.async ring of 80-byte pixels (64 channels + a pad that
+//     puts ldmatrix's eight rows in distinct banks), stride-2 columns even
+//     before odd, and the bf16 output tile staged for 16-byte stores in a
+//     buffer of its own. A k32 step is half a tap at cpg 64, a tap at 32,
+//     two at 16 and four at 8 (K 72 -> 96, the tail's weights zero).
+//     What bounds it: at [8,40,64,1024] its 63 MB of int8 reads and bf16
+//     writes take 0.019 ms at 3.35 TB/s against 12 G int8 operations
+//     (0.006 ms), and it runs at 0.042 ms on the H100 (45% of that bound,
+//     below K1's 0.055 in bf16 on the same map). At stride 2 the int8
+//     patch (47.5 KB for its two stages) leaves room for three blocks an
+//     SM at cpg 16 and 32 and two at cpg 64, by shared memory and by the
+//     registers in build.log, where K1's bf16 one (122-159 KB a block at
+//     cpg 32 and 64) leaves one.
+//   - cpt_grouped_conv3x3_int8 (the other shapes: cpg a multiple of 4
+//     that tiles 128-channel slices) is the CUDA-core kernel: the patch
+//     staged as int8, 4 input channels a __dp4a; each thread transposes 4
+//     weight rows in registers for 4 output channels. It issues at the
+//     CUDA cores' dp4a rate (0.19 ms at [8,40,64,1024], 4.6x the tensor-core
+//     kernel).
 #include <mutex>
 
 #include "common.cuh"
@@ -486,10 +501,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 constexpr int kMaxDevices = 16;
 
-// What the runtime says about one <CPG, TM> instantiation on each device,
-// asked once and not on every launch: the dynamic shared memory it is
-// opted in to, the SM count, and its resident blocks per SM for each of its
-// four patch sizes (stride 1 or 2, tiles 8 or 16 columns wide).
+// What the runtime says about one kernel instantiation on each device, asked
+// once and not on every launch: the dynamic shared memory it is opted in to,
+// the SM count, and its resident blocks per SM for each of its four patch
+// sizes (stride 1 or 2, tiles 8 or 16 columns wide).
 struct MmaLaunchCache {
   std::mutex mu;
   int opted_in[kMaxDevices] = {};
@@ -497,17 +512,13 @@ struct MmaLaunchCache {
   int per_sm[kMaxDevices][4] = {};
 };
 
-template <int CPG, int TM>
-int launch_mma(const void* x, const void* w, const void* scale, const void* bias, void* out,
-               int N, int H, int W, int C, int stride, int relu, cudaStream_t stream) {
-  static MmaLaunchCache cache;
-  auto kernel = grouped_conv3x3_mma_kernel<CPG, TM>;
-  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
-  const int tw_log2 = Wo <= 8 ? 3 : 4;
-  const int TW = 1 << tw_log2, TH = TM / TW;
-  const int PR = (TH - 1) * stride + 3, PW = (TW - 1) * stride + 3;
-  const int smem = mma_k_rows<CPG>() * kMmaCB * 2 + 2 * PR * PW * kMmaPS;
-  const int variant = (stride == 2) * 2 + (tw_log2 == 3);
+// Blocks per slice of one resident wave of `kernel` (kMmaThreads threads,
+// `smem` bytes) shared by n_slices slices, rounded down (a block more than
+// fits would run as a second wave) and at most n_tiles; 0 on success, else
+// a cudaError_t value.
+template <typename Kernel>
+int resident_blocks(Kernel kernel, MmaLaunchCache& cache, int smem, int variant, int n_slices,
+                    int n_tiles, int* per_slice) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -531,13 +542,29 @@ int launch_mma(const void* x, const void* w, const void* scale, const void* bias
     sms = cache.sms[device];
     per_sm = cache.per_sm[device][variant];
   }
+  int n = sms * per_sm / n_slices;
+  if (n < 1) n = 1;
+  *per_slice = n < n_tiles ? n : n_tiles;
+  return 0;
+}
+
+template <int CPG, int TM>
+int launch_mma(const void* x, const void* w, const void* scale, const void* bias, void* out,
+               int N, int H, int W, int C, int stride, int relu, cudaStream_t stream) {
+  static MmaLaunchCache cache;
+  auto kernel = grouped_conv3x3_mma_kernel<CPG, TM>;
+  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  const int tw_log2 = Wo <= 8 ? 3 : 4;
+  const int TW = 1 << tw_log2, TH = TM / TW;
+  const int PR = (TH - 1) * stride + 3, PW = (TW - 1) * stride + 3;
+  const int smem = mma_k_rows<CPG>() * kMmaCB * 2 + 2 * PR * PW * kMmaPS;
+  const int variant = (stride == 2) * 2 + (tw_log2 == 3);
   const int n_slices = C / kMmaCB;
   const int n_tiles = N * ((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW);
-  // one resident wave shared by the slices (rounded down: a block more
-  // than fits would run as a second wave); each block walks its run of tiles
-  int per_slice = sms * per_sm / n_slices;
-  if (per_slice < 1) per_slice = 1;
-  per_slice = per_slice < n_tiles ? per_slice : n_tiles;
+  // one resident wave shared by the slices; each block walks its run of tiles
+  int per_slice = 0;
+  const int err = resident_blocks(kernel, cache, smem, variant, n_slices, n_tiles, &per_slice);
+  if (err != 0) return err;
   kernel<<<dim3(per_slice, n_slices), kMmaThreads, smem, stream>>>(
       static_cast<const cpt::bf16*>(x), static_cast<const cpt::bf16*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
@@ -554,6 +581,277 @@ int launch_mma_cpg(int cpg, const void* x, const void* w, const void* scale, con
     case 16: return launch_mma<16, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
     case 32: return launch_mma<32, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
     case 64: return launch_mma<64, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// ---- K1q's tensor-core path -----------------------------------------------
+
+constexpr int kQPS = kMmaCB + 16;         // int8 patch bytes per pixel, 16-byte pad
+constexpr int kQOutPS = kMmaCB * 2 + 16;  // staged bf16 output bytes per pixel
+
+// Rows of K1q's weight matrix (K = 9 * cpg, k = tap * cpg + ci), padded to
+// the k32 step, and the bytes between two output channels' rows of it in
+// shared memory (16 past K: eight rows fall in distinct banks).
+template <int CPG>
+__host__ __device__ constexpr int q_k_rows() { return (9 * CPG + 31) / 32 * 32; }
+template <int CPG>
+__host__ __device__ constexpr int q_w_pitch() { return q_k_rows<CPG>() + 16; }
+
+__device__ __forceinline__ unsigned lds32(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// K1's tiling on int8: one block, the 64-channel slice blockIdx.y, output
+// tiles blockIdx.x, blockIdx.x + gridDim.x, ... of n_tiles; a tile is
+// TM >> tw_log2 rows x 1 << tw_log2 columns. Differences from K1: a k32
+// step of mma.sync m16n8k32 s8 is 32 input channels of one tap at cpg 32
+// (half a tap at 64), two taps at cpg 16 and four at cpg 8 (K 72 -> 96: the
+// tail's weights are zero and its A reads repeat tap 8); the weights are
+// staged transposed ([n][k], k contiguous: s8 B fragments are k-major and
+// sm_90 has no 8-bit ldmatrix.trans), so B comes from plain ldmatrix; at
+// cpg 8 a 16-byte ldmatrix row would span two groups, so A comes from
+// 4-byte shared loads there; the bf16 output tile has a buffer of its own
+// (a 144-byte output pixel does not fit the 80-byte patch pixel).
+template <int CPG, int TM>
+__global__ void __launch_bounds__(kMmaThreads)
+    grouped_conv3x3_int8_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                                    const float* __restrict__ scale,
+                                    const float* __restrict__ bias,
+                                    cpt::bf16* __restrict__ out, int H, int W, int C,
+                                    int stride, int Ho, int Wo, int relu, int tw_log2,
+                                    int n_tiles) {
+  constexpr int KR = q_k_rows<CPG>(), WP = q_w_pitch<CPG>();
+  constexpr int KS = KR / 32;               // k32 steps
+  constexpr int MT = TM / 32;               // m16 tiles per warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* wsm = smem;                // [64][WP]: output channel n's row of k
+  unsigned char* ost = smem + kMmaCB * WP;  // [TM][kQOutPS] bf16 output tile
+  unsigned char* patch = ost + TM * kQOutPS;  // 2 x [PR][PW] pixels of kQPS bytes
+
+  const int TW = 1 << tw_log2, TH = TM >> tw_log2;
+  const int PR = (TH - 1) * stride + 3, PW = (TW - 1) * stride + 3;
+  const int PWe = (PW + 1) >> 1;            // stride 2: even columns, then odd ones
+  const int patch_bytes = PR * PW * kQPS;
+  const int n_wt = (Wo + TW - 1) >> tw_log2, n_ht = (Ho + TH - 1) / TH;
+  const int c0 = blockIdx.y * kMmaCB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // pixel half, 16-channel quarter
+
+  // the slice's weights, transposed: a thread takes 4 rows k of the HWIO
+  // matrix x 4 output channels and writes 4 k-bytes of each channel's row;
+  // rows past 9 * cpg are zero
+  for (int i = tid; i < (KR / 4) * (kMmaCB / 4); i += kMmaThreads) {
+    const int ng = i % (kMmaCB / 4), kg = i / (kMmaCB / 4);
+    int rows[4], cols[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = 4 * kg + r;
+      rows[r] = k < 9 * CPG
+                    ? *reinterpret_cast<const int*>(w + static_cast<size_t>(k) * C + c0 + 4 * ng)
+                    : 0;
+    }
+    cpt::transpose4x4_s8(rows, cols);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<int*>(wsm + (4 * ng + j) * WP + 4 * kg) = cols[j];
+  }
+
+  // this thread's first (row, column, chunk) of a patch; the walk steps by
+  // kMmaThreads / 4 pixels (a pixel is four 16-byte chunks)
+  const int ch = tid & 3;
+  const int r_first = (tid >> 2) / PW, j_first = (tid >> 2) - r_first * PW;
+  auto stage = [&](int tile, int buf) {
+    const int wt = tile % n_wt;
+    const int ht = (tile / n_wt) % n_ht;
+    const int n = tile / (n_wt * n_ht);
+    const int iy0 = ht * TH * stride - 1, ix0 = (wt << tw_log2) * stride - 1;
+    const unsigned dst0 = cpt::smem_u32(patch + buf * patch_bytes) + ch * 16;
+    const int8_t* src0 = x + static_cast<size_t>(n) * H * W * C + c0 + ch * 16;
+    int r = r_first, j = j_first;
+    for (int pix = tid >> 2; pix < PR * PW; pix += kMmaThreads / 4) {
+      const int iy = iy0 + r, ix = ix0 + j;
+      const bool valid = iy >= 0 && iy < H && ix >= 0 && ix < W;
+      const int col = stride == 1 ? j : ((j & 1) ? PWe + (j >> 1) : (j >> 1));
+      cp_async16(dst0 + (r * PW + col) * kQPS,
+                 valid ? src0 + (static_cast<size_t>(iy) * W + ix) * C : x, valid);
+      j += kMmaThreads / 4;
+      while (j >= PW) {
+        j -= PW;
+        ++r;
+      }
+    }
+  };
+
+  // byte offset of tap t (ky, kx) from an output pixel's (0, 0) pixel; the
+  // k32 tail's taps (t > 8) read tap 8 against zero weights
+  auto tap_off = [&](int t) {
+    t = t < 9 ? t : 8;
+    const int ky = t / 3, kx = t % 3;
+    const int col = stride == 1 ? kx : (kx == 1 ? PWe : kx >> 1);
+    return (ky * PW + col) * kQPS;
+  };
+  // the first input channel (byte) of the group of each n8 tile
+  constexpr int NG = CPG >= 16 ? 1 : 2;     // groups a warp's 16 channels span
+  int gbyte[NG];
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi) gbyte[gi] = ((wn * 16 + gi * 8) / CPG) * CPG;
+  // A, cpg >= 16: ldmatrix rows, pixel (lane & 15) of each m16 tile, k
+  // half lane >> 4 (16 channels); cpg 8: rows g and g + 8, k 4t..4t+3
+  const int half = lane >> 4, g = lane >> 2, t4 = lane & 3;
+  int apix[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int p = (wm * MT + mt) * 16 + (CPG >= 16 ? (lane & 15) : g + 8 * hr);
+      const int oy = p >> tw_log2, ox = p & (TW - 1);
+      apix[mt][hr] = (oy * stride * PW + ox) * kQPS;
+    }
+  // A's offset of this lane at each k32 step
+  int aoff[KS][2];
+#pragma unroll
+  for (int kc = 0; kc < KS; ++kc) {
+    if constexpr (CPG >= 32) {
+      aoff[kc][0] = aoff[kc][1] = tap_off((kc * 32) / CPG) + (kc * 32) % CPG + half * 16;
+    } else if constexpr (CPG == 16) {
+      aoff[kc][0] = aoff[kc][1] = tap_off(2 * kc + half);
+    } else {  // cpg 8: k 4t..4t+3 is tap t / 2 of the step, k 16 + 4t.. tap 2 + t / 2
+      aoff[kc][0] = tap_off(4 * kc + (t4 >> 1)) + (t4 & 1) * 4;
+      aoff[kc][1] = tap_off(4 * kc + 2 + (t4 >> 1)) + (t4 & 1) * 4;
+    }
+  }
+  // B: ldmatrix x4 over the [n][k] rows: matrices (n8 tile 0, k 0-15),
+  // (tile 0, k 16-31), (tile 1, k 0-15), (tile 1, k 16-31)
+  const unsigned bbase = cpt::smem_u32(wsm) + (wn * 16 + (lane >> 4) * 8 + (lane & 7)) * WP +
+                         ((lane >> 3) & 1) * 16;
+
+  // the epilogue's channels: this lane's pair in each n8 tile
+  float sc[2][2], bi[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = c0 + wn * 16 + j * 8 + t4 * 2 + e;
+      sc[j][e] = scale[co];
+      bi[j][e] = bias[co];
+    }
+
+  int tile = blockIdx.x;
+  if (tile < n_tiles) stage(tile, 0);
+  cp_async_commit();
+  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    if (tile + gridDim.x < n_tiles) stage(tile + gridDim.x, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait1();  // all but the newest group: this tile's patch
+    __syncthreads();   // ... from every thread (and, at the first tile, the weights)
+
+    const unsigned pbase = cpt::smem_u32(patch + buf * patch_bytes);
+    int acc[MT][2][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+
+#pragma unroll
+    for (int kc = 0; kc < KS; ++kc) {
+      unsigned b[4];
+      ldsm_x4(bbase + kc * 32, b);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        if constexpr (CPG >= 16) {
+          ldsm_x4(pbase + apix[mt][0] + aoff[kc][0] + gbyte[0], a);
+          cpt::mma_s8(acc[mt][0], a, b[0], b[1]);
+          cpt::mma_s8(acc[mt][1], a, b[2], b[3]);
+        } else {
+#pragma unroll
+          for (int gi = 0; gi < 2; ++gi) {
+            a[0] = lds32(pbase + apix[mt][0] + aoff[kc][0] + gbyte[gi]);
+            a[1] = lds32(pbase + apix[mt][1] + aoff[kc][0] + gbyte[gi]);
+            a[2] = lds32(pbase + apix[mt][0] + aoff[kc][1] + gbyte[gi]);
+            a[3] = lds32(pbase + apix[mt][1] + aoff[kc][1] + gbyte[gi]);
+            cpt::mma_s8(acc[mt][gi], a, b[2 * gi], b[2 * gi + 1]);
+          }
+        }
+      }
+    }
+
+    // the epilogue of the plain version, y * scale + bias with two
+    // roundings, ReLU, one bf16 rounding, staged as 128-byte pixels
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = (wm * MT + mt) * 16 + g + hr * 8;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][j][hr * 2]), sc[j][0]), bi[j][0]);
+          float v1 =
+              __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][j][hr * 2 + 1]), sc[j][1]), bi[j][1]);
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(ost + p * kQOutPS + (wn * 16 + j * 8 + t4 * 2) * 2) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    __syncthreads();   // the tile is staged; every warp is done reading this patch
+    const int wt = tile % n_wt;
+    const int ht = (tile / n_wt) % n_ht;
+    const int n = tile / (n_wt * n_ht);
+#pragma unroll
+    for (int i = tid; i < TM * 8; i += kMmaThreads) {
+      const int p = i >> 3, c = i & 7;
+      const int oy = ht * TH + (p >> tw_log2), ox = (wt << tw_log2) + (p & (TW - 1));
+      if (oy < Ho && ox < Wo)
+        *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(n) * Ho + oy) * Wo + ox) * C +
+                                  c0 + c * 8) =
+            *reinterpret_cast<const uint4*>(ost + p * kQOutPS + c * 16);
+    }
+    // the next tile's __syncthreads keeps its staging after these reads
+  }
+}
+
+template <int CPG, int TM>
+int launch_int8_mma(const void* x, const void* w, const void* scale, const void* bias,
+                    void* out, int N, int H, int W, int C, int stride, int relu,
+                    cudaStream_t stream) {
+  static MmaLaunchCache cache;
+  auto kernel = grouped_conv3x3_int8_mma_kernel<CPG, TM>;
+  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  const int tw_log2 = Wo <= 8 ? 3 : 4;
+  const int TW = 1 << tw_log2, TH = TM / TW;
+  const int PR = (TH - 1) * stride + 3, PW = (TW - 1) * stride + 3;
+  const int smem = kMmaCB * q_w_pitch<CPG>() + TM * kQOutPS + 2 * PR * PW * kQPS;
+  const int variant = (stride == 2) * 2 + (tw_log2 == 3);
+  const int n_slices = C / kMmaCB;
+  const int n_tiles = N * ((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW);
+  int per_slice = 0;
+  const int err = resident_blocks(kernel, cache, smem, variant, n_slices, n_tiles, &per_slice);
+  if (err != 0) return err;
+  kernel<<<dim3(per_slice, n_slices), kMmaThreads, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<cpt::bf16*>(out), H, W, C, stride, Ho, Wo, relu, tw_log2, n_tiles);
+  return cpt::launch_status();
+}
+
+template <int TM>
+int launch_int8_mma_cpg(int cpg, const void* x, const void* w, const void* scale,
+                        const void* bias, void* out, int N, int H, int W, int C, int stride,
+                        int relu, cudaStream_t stream) {
+  switch (cpg) {
+    case 8: return launch_int8_mma<8, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
+    case 16: return launch_int8_mma<16, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
+    case 32: return launch_int8_mma<32, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
+    case 64: return launch_int8_mma<64, TM>(x, w, scale, bias, out, N, H, W, C, stride, relu, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -600,8 +898,9 @@ CPT_EXPORT int cpt_grouped_conv3x3_mma(const void* x, const void* w, const void*
   return launch_mma_cpg<128>(cpg, x, w, scale, bias, out, N, H, W, C, stride, relu, s);
 }
 
-// K1q. x [N, H, W, C] int8, w [3, 3, cpg, C] int8 (HWIO), scale/bias [C]
-// f32 (scale = the whole dequant multiplier), out [N, Ho, Wo, C] bf16. The
+// K1q's CUDA-core path. x [N, H, W, C] int8, w [3, 3, cpg, C] int8 (HWIO),
+// scale/bias [C] f32 (scale = the whole dequant multiplier), out [N, Ho, Wo,
+// C] bf16. The
 // wrapper guarantees cpg % 4 == 0, C % 16 == 0, C % CB == 0 and CB % cpg == 0
 // for CB = min(C, 128), and 16-byte aligned x and w.
 CPT_EXPORT int cpt_grouped_conv3x3_int8(const void* x, const void* w, const void* scale,
@@ -621,4 +920,20 @@ CPT_EXPORT int cpt_grouped_conv3x3_int8(const void* x, const void* w, const void
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<cpt::bf16*>(out), H, W, C, cpg, stride, Ho, Wo, relu, CB);
   return cpt::launch_status();
+}
+
+// K1q's tensor-core path. x [N, H, W, C] int8, w [3, 3, cpg, C] int8 (HWIO),
+// scale/bias [C] f32, out [N, Ho, Wo, C] bf16. The wrapper guarantees cpg in
+// {8, 16, 32, 64}, C % 64 == 0 and 16-byte aligned x and w. Tiles as K1's
+// tensor-core path: 128 output pixels at stride 1, 64 at stride 2 and on
+// maps of at most 64 output pixels.
+CPT_EXPORT int cpt_grouped_conv3x3_int8_mma(const void* x, const void* w, const void* scale,
+                                            const void* bias, void* out, int N, int H, int W,
+                                            int C, int cpg, int stride, int relu,
+                                            void* stream) {
+  const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stride == 2 || Ho * Wo <= 64)
+    return launch_int8_mma_cpg<64>(cpg, x, w, scale, bias, out, N, H, W, C, stride, relu, s);
+  return launch_int8_mma_cpg<128>(cpg, x, w, scale, bias, out, N, H, W, C, stride, relu, s);
 }

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks in PTX, first written for the shared GEMM
-// (gemm.cu) and meant for the later tensor-core kernels of the port:
-// mbarriers (init, arrive, expect_tx, a parity wait), 2-D TMA loads into
-// shared memory, wgmma (fence / commit / wait, the m64n128k16 bf16 -> f32
-// product on shared-memory descriptors with the 128-byte swizzle), named
-// and cluster barriers, distributed shared-memory loads, and the host's
-// tensor-map encoder (cuTensorMapEncodeTiled through
-// cudaGetDriverEntryPoint, so no -lcuda).
+// (gemm.cu) and used by the W8A8 FFN (ffn_int8.cu) too: mbarriers (init,
+// arrive, expect_tx, a parity wait), 2-D TMA loads into shared memory, wgmma
+// (fence / commit / wait; the m64n128k16 bf16 -> f32 and m64n128k32
+// s8 -> s32 products on shared-memory descriptors with the 128-byte
+// swizzle), named and cluster barriers, distributed shared-memory loads,
+// and the host's tensor-map encoder for bf16 and int8 matrices
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so no -lcuda).
 //
 // Conventions: shared addresses are 32-bit (cpt::smem_u32); a TMA tile and a
 // wgmma operand start on a 1024-byte boundary (the swizzle atom), see
@@ -130,6 +130,39 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 128] += A (64 x 32, K-major) . B (32 x 128, K-major), int8 in, int32
+// accumulate (exact). s8 operands have no transpose bit: both are K-major.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
@@ -186,18 +219,26 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// The tensor map of a row-major bf16 [rows, cols] matrix, loaded in boxes of
-// box_rows x 64 columns (128 bytes) with the 128-byte swizzle; out-of-bounds
-// elements load as zeros. Returns a cudaError_t value.
-inline int encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// The tensor map of a row-major [rows, cols] matrix of `type` (bf16 or int8,
+// the latter as CU_TENSOR_MAP_DATA_TYPE_UINT8: TMA moves bytes), loaded in
+// boxes of box_rows x 128 bytes (64 bf16 or 128 int8 columns) with the
+// 128-byte swizzle; out-of-bounds elements load as zeros. Returns a
+// cudaError_t value.
+inline int encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                      CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  int elem = 0;
+  if (type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) elem = 2;
+  if (type == CU_TENSOR_MAP_DATA_TYPE_UINT8) elem = 1;
+  if (elem == 0) return static_cast<int>(cudaErrorInvalidValue);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult res = encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);

@@ -53,12 +53,14 @@ SIGNATURES = {
     "cpt_grouped_conv3x3": ([_P] * 5 + [_I] * 7 + [_P], _I),
     # K1's tensor-core path: the same arguments
     "cpt_grouped_conv3x3_mma": ([_P] * 5 + [_I] * 7 + [_P], _I),
-    # K1q, the int8 grouped conv: x, w, scale, bias, out, N, H, W, C, cpg,
-    # stride, relu, stream
+    # K1q, the int8 grouped conv (CUDA-core path): x, w, scale, bias, out, N,
+    # H, W, C, cpg, stride, relu, stream
     "cpt_grouped_conv3x3_int8": ([_P] * 5 + [_I] * 7 + [_P], _I),
-    # K7, the W8A8 FFN: x, w1q, s1, b1, w2q, s2, b2, gamma, beta, h, amax,
-    # out, M, H, F, tm, eps, stream
-    "cpt_ffn_int8": ([_P] * 12 + [_I] * 4 + [_F, _P], _I),
+    # K1q's tensor-core path: the same arguments
+    "cpt_grouped_conv3x3_int8_mma": ([_P] * 5 + [_I] * 7 + [_P], _I),
+    # K7, the W8A8 FFN: x, w1q, s1, b1, w2q, s2, b2, gamma, beta, xq, w1t,
+    # w2t, h, hq, amax, out, M, H, F, tm, eps, stream
+    "cpt_ffn_int8": ([_P] * 16 + [_I] * 4 + [_F, _P], _I),
     # feats, rois, out, B, H, W, C, N, P, spatial_scale, sampling, max_sampling, stream
     "cpt_roi_align": ([_P] * 3 + [_I] * 6 + [_F, _I, _I, _P], _I),
     # a, b, bias, c, M, N, K, act, stream

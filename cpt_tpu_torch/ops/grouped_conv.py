@@ -14,8 +14,10 @@ bf16 tolerance.
 K1q, ``grouped_conv3x3_int8``, is the same conv on int8 inputs for the W8A8
 path (``ops/quant.py``: the JAX package runs it as an XLA int8 conv, so it
 has no Pallas counterpart, and PyTorch has no int8 grouped conv on CUDA): on
-a Hopper card it launches ``cpt_grouped_conv3x3_int8`` of the same source,
-exact int32 sums and an f32 epilogue; its plain version is
+a Hopper card it launches one of two kernels of the same source by the same
+rule, :func:`conv_path` (the int8 tensor-core implicit GEMM on
+``mma.sync`` m16n8k32, ``"mma"``, or the ``__dp4a`` CUDA-core kernel,
+``"simt"``), exact int32 sums and an f32 epilogue; its plain version is
 :func:`reference_grouped_conv3x3_int8`. Both compute the epilogue
 ``y·scale + bias`` as two roundings, so they agree bit for bit.
 
@@ -52,10 +54,12 @@ MMA_CPG = (8, 16, 32, 64)
 
 
 def conv_path(c: int, cpg: int) -> str:
-    """The dispatch rule between K1's two kernels: the tensor-core implicit
-    GEMM (``"mma"``) takes every shape it can (cpg 8, 16, 32 or 64, C a
-    multiple of its 64-channel slice), which is every X152 shape; on the
-    H100 it is 4-12× faster there than the CUDA-core kernel (PERF.md §6).
+    """The dispatch rule between K1's two kernels, and between K1q's: the
+    tensor-core implicit GEMM (``"mma"``) takes every shape it can (cpg 8,
+    16, 32 or 64, C a multiple of its 64-channel slice), which is every
+    X152 shape; on the H100 it is 4-12× faster there than the CUDA-core
+    kernel in bf16, and K1q's int8 one is 1.9-4.7× faster than its
+    ``__dp4a`` kernel at those shapes (PERF.md §6).
     The CUDA-core kernel (``"simt"``) stays only because it is the one
     kernel for the rest (cpg 4, as in a ResNeXt 32×4d, or C not a multiple
     of 64, as in ``tiny_detector_config``; cpg a multiple of 4 that tiles
@@ -165,16 +169,47 @@ def grouped_conv3x3_int8(xq: torch.Tensor, w33q: torch.Tensor,
     """K1q: int8 grouped 3×3 conv, pad 1, stride 1 or 2, NHWC, with the
     f32 epilogue ``y·scale[c] + bias[c]`` (+ ReLU). xq int8 [N, H, W, C],
     w33q int8 [3, 3, C//groups, C]; scale f32 [C] is the whole dequant
-    multiplier ``(s_x·s_w[c])·bn_scale[c]``, bias f32 [C]. The kernel writes
-    bf16."""
+    multiplier ``(s_x·s_w[c])·bn_scale[c]``, bias f32 [C]. The kernels
+    write bf16."""
     if not uses_kernel(xq):
         return reference_grouped_conv3x3_int8(xq, w33q, scale, bias, groups,
                                               stride, relu, out_dtype)
+    c = xq.shape[-1]
+    if c % groups:
+        raise ValueError(f"int8 grouped conv: C={c} is not a multiple of "
+                         f"groups={groups}")
+    return launch_grouped_conv3x3_int8(conv_path(c, c // groups), xq, w33q,
+                                       scale, bias, groups, stride, relu,
+                                       out_dtype)
+
+
+_ENTRY_INT8 = {"mma": "cpt_grouped_conv3x3_int8_mma",
+               "simt": "cpt_grouped_conv3x3_int8"}
+
+
+def launch_grouped_conv3x3_int8(path: str, xq: torch.Tensor,
+                                w33q: torch.Tensor, scale: torch.Tensor,
+                                bias: torch.Tensor, groups: int, stride: int,
+                                relu: bool,
+                                out_dtype: torch.dtype = torch.bfloat16
+                                ) -> torch.Tensor:
+    """Launch K1q's ``path`` kernel (``"mma"``, the int8 tensor-core
+    implicit GEMM, or ``"simt"``, the ``__dp4a`` kernel) on CUDA tensors.
+    :func:`grouped_conv3x3_int8` passes :func:`conv_path`'s choice;
+    ``chip_e2e.py`` times the other path through this too. Each launch
+    counts in ``grouped_conv3x3_int8.launches`` and ``.path_launches``."""
     n, h, w, c = xq.shape
     cpg = c // groups
     cb = min(c, 128)
-    if (stride not in (1, 2) or c % groups or c % 16 or c % cb or cb % cpg
-            or cpg % 4):
+    if stride not in (1, 2) or c % groups:
+        raise ValueError(f"int8 grouped conv kernel takes stride 1|2 and C a "
+                         f"multiple of groups; got C={c}, groups={groups}, "
+                         f"stride={stride}")
+    if path == "mma" and (cpg not in MMA_CPG or c % 64):
+        raise ValueError(f"the int8 tensor-core grouped conv takes cpg in "
+                         f"{MMA_CPG} and C a multiple of 64; got C={c}, "
+                         f"groups={groups}")
+    if path == "simt" and (c % 16 or c % cb or cb % cpg or cpg % 4):
         raise ValueError(f"int8 grouped conv kernel takes stride 1|2 and "
                          f"groups of a multiple of 4 channels that tile "
                          f"128-channel slices of a multiple of 16; got C={c}, "
@@ -190,13 +225,15 @@ def grouped_conv3x3_int8(xq: torch.Tensor, w33q: torch.Tensor,
     out = torch.empty((n, ho, wo, c), dtype=torch.bfloat16, device=xq.device)
     if out.numel() == 0:
         return out
-    check(lib().cpt_grouped_conv3x3_int8(xq.data_ptr(), w33q.data_ptr(),
-                                         scale.data_ptr(), bias.data_ptr(),
-                                         out.data_ptr(), n, h, w, c, cpg,
-                                         stride, int(relu), stream(xq)),
-          "cpt_grouped_conv3x3_int8")
+    entry = _ENTRY_INT8[path]
+    check(getattr(lib(), entry)(xq.data_ptr(), w33q.data_ptr(),
+                                scale.data_ptr(), bias.data_ptr(),
+                                out.data_ptr(), n, h, w, c, cpg, stride,
+                                int(relu), stream(xq)), entry)
     grouped_conv3x3_int8.launches += 1
+    grouped_conv3x3_int8.path_launches[path] += 1
     return out
 
 
 grouped_conv3x3_int8.launches = 0
+grouped_conv3x3_int8.path_launches = {"mma": 0, "simt": 0}

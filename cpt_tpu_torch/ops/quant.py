@@ -264,10 +264,6 @@ def reference_ffn_int8(x, w1q, s1, b1, w2q, s2, b2, gamma, beta, tm: int,
     return out.reshape(m, h).to(x.dtype)
 
 
-# the widths H that csrc/ffn_int8.cu instantiates its LayerNorm GEMM for
-_K7_WIDTHS = (128, 256, 768)
-
-
 def ffn_int8(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
              b1: torch.Tensor, w2q: torch.Tensor, s2: torch.Tensor,
              b2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -276,31 +272,41 @@ def ffn_int8(x: torch.Tensor, w1q: torch.Tensor, s1: torch.Tensor,
     activation scales. x [M, H] (bf16 on the card), w1q int8 [H, F], w2q
     int8 [F, H] (:func:`quant_ffn_weights`), s1, b1 f32 [F], s2, b2, gamma,
     beta f32 [H]; M % tm == 0. On the card: ``csrc/ffn_int8.cu``, which
-    takes tm % 128 == 0, F % 128 == 0 and H in (128, 256, 768)."""
+    takes tm % 128 == 0, F % 128 == 0 and H a multiple of 128 up to 1024
+    (its LayerNorm runs on a cluster of H / 128 blocks); the scratch it
+    needs (x and h quantized, the weights made K-major, h in f32, the tile
+    maxima) is allocated here."""
     if not uses_kernel(x):
         return reference_ffn_int8(x, w1q, s1, b1, w2q, s2, b2, gamma, beta,
                                   tm, eps)
     m, h = x.shape
     f = w1q.shape[1]
-    if m % tm or tm % 128 or f % 128 or h not in _K7_WIDTHS:
+    if m % tm or tm % 128 or f % 128 or h % 128 or h > 1024:
         raise ValueError(f"ffn_int8 kernel: M={m}, tm={tm}, H={h}, F={f} "
-                         f"outside M % tm, tm % 128, F % 128 == 0 and "
-                         f"H in {_K7_WIDTHS}")
+                         f"outside M % tm, tm % 128, F % 128, H % 128 == 0 "
+                         f"and H <= 1024")
     x = aligned16(require(x, "x", torch.bfloat16))
     w1q = aligned16(require(w1q, "w1q", torch.int8, (h, f)))
     w2q = aligned16(require(w2q, "w2q", torch.int8, (f, h)))
     vecs = [require(v.float(), name, torch.float32, (n,)) for v, name, n in (
         (s1, "s1", f), (b1, "b1", f), (s2, "s2", h), (b2, "b2", h),
         (gamma, "gamma", h), (beta, "beta", h))]
-    amax = torch.zeros(2, m // tm, dtype=torch.int32, device=x.device)
-    inter = torch.empty(m, f, dtype=torch.float32, device=x.device)
+
+    def scratch(*shape, dtype=torch.int8):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    xq, w1t, w2t, hq = scratch(m, h), scratch(f, h), scratch(h, f), scratch(m, f)
+    inter = scratch(m, f, dtype=torch.float32)
+    amax = scratch(2, m // tm, dtype=torch.int32)
     out = torch.empty_like(x)
     check(lib().cpt_ffn_int8(x.data_ptr(), w1q.data_ptr(), vecs[0].data_ptr(),
                              vecs[1].data_ptr(), w2q.data_ptr(),
                              vecs[2].data_ptr(), vecs[3].data_ptr(),
                              vecs[4].data_ptr(), vecs[5].data_ptr(),
-                             inter.data_ptr(), amax.data_ptr(), out.data_ptr(),
-                             m, h, f, tm, eps, stream(x)), "cpt_ffn_int8")
+                             xq.data_ptr(), w1t.data_ptr(), w2t.data_ptr(),
+                             inter.data_ptr(), hq.data_ptr(), amax.data_ptr(),
+                             out.data_ptr(), m, h, f, tm, eps, stream(x)),
+          "cpt_ffn_int8")
     ffn_int8.launches += 1
     return out
 

@@ -729,10 +729,19 @@ def _int8(g, dev, *shape):
 
 @pytest.mark.parametrize("n,h,w,c,groups,stride", [
     (2, 9, 13, 256, 32, 1), (2, 9, 13, 256, 32, 2), (3, 14, 14, 128, 2, 2),
-    (1, 5, 7, 64, 16, 1), (2, 10, 10, 1024, 32, 2)])
+    (1, 5, 7, 64, 16, 1), (2, 10, 10, 1024, 32, 2), (2, 19, 37, 512, 32, 1),
+    (2, 19, 37, 512, 32, 2), (3, 33, 17, 192, 12, 1), (1, 7, 7, 2048, 32, 1),
+    (2, 14, 14, 2048, 32, 2), (1, 5, 9, 64, 8, 2), (2, 20, 24, 1024, 32, 1)])
 def test_grouped_conv_int8_kernel(dev, n, h, w, c, groups, stride):
-    """K1q against its plain version on the same int8 inputs: exact sums
-    and the same two-rounding epilogue, so equal bit for bit."""
+    """K1q against its plain version on the same int8 inputs, on the path
+    the rule names (the int8 tensor-core kernel at cpg 8, 16, 32 and 64 on
+    ragged maps, maps of at most 64 output pixels and several groups in a
+    slice; the ``__dp4a`` kernel at cpg 4): exact sums and the same
+    two-rounding epilogue, so equal bit for bit. The weights' channels
+    swapped within their groups and each of ``chip_smoke.K1Q_FAULTS``
+    (the last k32 step dropped; at stride 2 the centre tap's columns read
+    one pair early) change the result."""
+    import chip_smoke as cs
     from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3_int8,
                                                 reference_grouped_conv3x3_int8)
 
@@ -740,16 +749,46 @@ def test_grouped_conv_int8_kernel(dev, n, h, w, c, groups, stride):
     xq, wq = _int8(g, dev, n, h, w, c), _int8(g, dev, 3, 3, c // groups, c)
     scale = torch.rand(c, generator=g, device=dev) * 1e-3
     bias = torch.randn(c, generator=g, device=dev)
-    before = grouped_conv3x3_int8.launches
+    path = conv_path(c, c // groups)
+    before = dict(grouped_conv3x3_int8.path_launches)
+    total = grouped_conv3x3_int8.launches
     got = grouped_conv3x3_int8(xq, wq, scale, bias, groups, stride, True)
-    assert grouped_conv3x3_int8.launches == before + 1
+    assert grouped_conv3x3_int8.launches == total + 1
+    assert grouped_conv3x3_int8.path_launches == {
+        k: v + (k == path) for k, v in before.items()}
     want = reference_grouped_conv3x3_int8(xq, wq, scale, bias, groups, stride,
                                           True)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
-    # a dropped activation-scale factor, or the weights' channels swapped
-    # within their groups, would not pass
     assert not torch.equal(got, reference_grouped_conv3x3_int8(
         xq, wq.flip(3), scale, bias, groups, stride, True))
+    for fault in cs.K1Q_FAULTS:
+        if fault == "stride2_column_order" and stride != 2:
+            continue
+        wrong = cs.k1q_with_fault(xq, wq, scale, bias, groups, stride, fault)
+        assert not torch.equal(got, wrong.bfloat16()), fault
+
+
+def test_grouped_conv_int8_paths_agree_and_count(dev):
+    """Both of K1q's kernels on the same inputs equal the plain version bit
+    for bit, each counted on its own path."""
+    from cpt_tpu_torch.ops.grouped_conv import (grouped_conv3x3_int8,
+                                                launch_grouped_conv3x3_int8,
+                                                reference_grouped_conv3x3_int8)
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    xq, wq = _int8(g, dev, 2, 20, 24, 256), _int8(g, dev, 3, 3, 8, 256)
+    scale = torch.rand(256, generator=g, device=dev) * 1e-3
+    bias = torch.randn(256, generator=g, device=dev)
+    before = dict(grouped_conv3x3_int8.path_launches)
+    for stride in (1, 2):
+        want = reference_grouped_conv3x3_int8(xq, wq, scale, bias, 32, stride, True)
+        for path in ("mma", "simt"):
+            assert torch.equal(launch_grouped_conv3x3_int8(
+                path, xq, wq, scale, bias, 32, stride, True), want), (path, stride)
+    assert grouped_conv3x3_int8.path_launches == {k: v + 2 for k, v in before.items()}
+    with pytest.raises(ValueError, match="tensor-core"):
+        launch_grouped_conv3x3_int8("mma", xq[..., :16], wq[:, :, :4, :16],
+                                    scale[:16], bias[:16], 4, 1, False)
 
 
 def test_grouped_conv_int8_rejects(dev):
@@ -804,9 +843,11 @@ def _k7_args(dev, m, h, f, seed):
 
 
 @pytest.mark.parametrize("m,h,f,tm", [(256, 128, 512, 128), (512, 256, 1024, 256),
-                                      (1024, 768, 3072, 512)])
+                                      (1024, 768, 3072, 512), (2048, 768, 3072, 1024),
+                                      (256, 1024, 384, 128)])
 def test_ffn_int8_kernel(dev, m, h, f, tm):
-    """K7 in bf16 against its plain version in f32 on the same inputs."""
+    """K7 in bf16 against its plain version in f32 on the same inputs, at
+    clusters of 1-8 blocks (H 128-1024) and tiles of 1-8 row blocks."""
     from cpt_tpu_torch.ops import quant
 
     args = _k7_args(dev, m, h, f, m)
@@ -820,12 +861,36 @@ def test_ffn_int8_kernel(dev, m, h, f, tm):
     assert _attn_faults_missed(want, {"whole": whole}, 1e-2) == []
 
 
+def test_ffn_int8_faults_miss(dev):
+    """K7 on ``chip_smoke.k7_inputs`` (tiles whose ranges differ 8×,
+    weight columns spread 8×) within 1e-2 of scale of its plain version,
+    and each of ``chip_smoke.K7_FAULTS`` misses that; the CPU test
+    ``test_torch_int8_tiles.py`` shows the same faults missing at this
+    shape and seed with the plain version."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.ops import quant
+
+    m, h, f, tm = cs.K7_FAULT_SHAPE
+    x, w1, w2, b1, b2, gamma, beta = (torch.from_numpy(a).to(dev)
+                                      for a in cs.k7_inputs(m, h, f, seed=0))
+    x = x.bfloat16()
+    q1, q2 = quant.quant_ffn_weights(w1), quant.quant_ffn_weights(w2)
+    args = (x, q1.data, q1.scale, b1, q2.data, q2.scale, b2, gamma, beta)
+    got = quant.ffn_int8(*args, tm)
+    want = quant.reference_ffn_int8(x.float(), *args[1:], tm)
+    _close(got, want, 1e-2)
+    faults = {fault: cs.ffn_int8_with_fault(x, w1, b1, w2, b2, gamma, beta, tm,
+                                            fault) for fault in cs.K7_FAULTS}
+    assert _attn_faults_missed(want, faults, 1e-2) == []
+
+
 def test_ffn_int8_rejects(dev):
     from cpt_tpu_torch.ops import quant
 
     args = _k7_args(dev, 256, 128, 512, 3)
     with pytest.raises(ValueError):
         quant.ffn_int8(*args, 64)                      # tm % 128
-    wide = _k7_args(dev, 256, 512, 512, 4)
-    with pytest.raises(ValueError):
-        quant.ffn_int8(*wide, 128)                     # H not instantiated
+    for width in (192, 1152):                          # H % 128, a cluster of 9
+        wide = _k7_args(dev, 256, width, 512, 4)
+        with pytest.raises(ValueError):
+            quant.ffn_int8(*wide, 128)
