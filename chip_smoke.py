@@ -66,7 +66,22 @@ Phases (any failure raises and the script exits non-zero):
    ``int8:<s>``) at full width (K1q 50 launches a chunk, all on the path
    its rule names, K1 none), its features against the same run with the
    int8 ops swapped for their plain versions, and its copies/s and
-   features against ``--precision bf16``.
+   features against ``--precision bf16``;
+7. the windowed path (``engine/windowed.py``) on phase 4's weights: K1 at
+   the shapes only it gives K1 (``K1_WINDOW_SHAPES``: layer1 and layer2
+   on each rung's window; ``K1_CASCADE_SHAPES``: the cascade's odd layer3
+   windows) against its plain version and its named faults, by device
+   time; a 16-candidate request through ``cpt_predict.predict`` on a
+   ``cpt_predict.Resident(windowed=True)``, two-level (every rung of the
+   ladder and the full path take copies; K1 11 launches for the base pass
+   and 50 a chunk, all on the tensor-core path), against the same request
+   on the full path: features within WINDOW_TOL, labels equal, scores
+   within SCORE_TOL, and each of WINDOW_FAULTS missing WINDOW_TOL; both
+   by host time and under ``torch.profiler``; ``extract_features
+   --synthetic 8 --windowed --copies_per_chunk 8`` with the base passes
+   batched by 8 and one a query against the full path (each warmed up,
+   then timed twice, in one order and its reverse); and one cascaded
+   two-level call against the plain one.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -75,6 +90,7 @@ end-to-end paths on one card with this script's functions.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -741,37 +757,17 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
         raise AssertionError(f"{name} {label}: the check would pass {caught}")
 
 
-def check_kernels(rows: list) -> dict:
-    import torch
+def check_k1(rows: list, shapes, g, device=None) -> None:
+    """K1 against its plain version in f32 and its named faults
+    (``k1_faults``) at each of ``shapes`` ((n, h, w, c, stride), 32 groups),
+    with ``F.conv2d(groups=32)`` as its yardstick; given ``device`` (kernel
+    name patterns), by device time too."""
     import torch.nn.functional as F
 
-    from cpt_tpu_torch.kernels.gemm import attention_core, gemm_bias_act
-    from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
-                                                   reference_attention_block,
-                                                   reference_attention_core)
-    from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
     from cpt_tpu_torch.ops.grouped_conv import (conv_path, grouped_conv3x3,
                                                 reference_grouped_conv3x3)
-    from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
-                                                    batched_roi_align_plain)
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    bf = torch.bfloat16
-
-    def randn(*shape, scale=1.0, dtype=bf):
-        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
-
-    def f32(args):
-        return [a.float() for a in args]
-
-    # K1 at the X152 bottleneck shapes of an 8-copy request on the
-    # 640×1024 canvas (stage 5 at 8 copies × 8 RoIs), on the path the
-    # dispatch rule names (the tensor-core kernel at every one of them),
-    # then at a shape that only the CUDA-core kernel takes
-    for n, h, w, c, stride in K1_SHAPES + [K1_SIMT_SHAPE]:
+    for n, h, w, c, stride in shapes:
         groups = 32
         cpg = c // groups
         x, wt, s, b = k1_inputs(n, h, w, c, g)
@@ -792,8 +788,40 @@ def check_kernels(rows: list) -> dict:
                 work=(nbytes(x, wt, s, b) + out_px * c * 2,
                       2 * out_px * c * 9 * cpg, BF16_OPS_S),
                 library=lambda: F.conv2d(x_nchw, w_oihw, stride=stride,
-                                         padding=1, groups=groups))
+                                         padding=1, groups=groups),
+                device=device)
         rows[-1]["path"] = path
+
+
+def check_kernels(rows: list) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.kernels.gemm import attention_core, gemm_bias_act
+    from cpt_tpu_torch.ops.fused_attention import (fused_attention_block,
+                                                   reference_attention_block,
+                                                   reference_attention_core)
+    from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
+    from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
+                                                    batched_roi_align_plain)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    def f32(args):
+        return [a.float() for a in args]
+
+    # K1 at the X152 bottleneck shapes of an 8-copy request on the
+    # 640×1024 canvas (stage 5 at 8 copies × 8 RoIs), on the path the
+    # dispatch rule names (the tensor-core kernel at every one of them),
+    # then at a shape that only the CUDA-core kernel takes
+    check_k1(rows, K1_SHAPES + [K1_SIMT_SHAPE], g)
 
     # K2 at each of its main-path launches (the request, the box head's
     # single copy, the --detect grounding chunk) and on 8 copies with a RoI
@@ -914,8 +942,6 @@ def check_kernels(rows: list) -> dict:
     check_flash_bwd(rows)
     check_k1q(rows)
     check_k7(rows)
-    return {k: [r for r in rows if r["kernel"].split()[0] == k]
-            for k in KERNELS}
 
 
 # Named faults of K5 (greedy NMS): ``ge`` suppresses at IoU >= thr,
@@ -2438,6 +2464,329 @@ def check_gemm_sass(build) -> dict:
     return counts
 
 
+# Phase 7, the windowed path (``engine/windowed.py``). Its window ladder,
+# as ``engine/windowed.WINDOW_LADDER`` holds it.
+WINDOW_LADDER = ((384, 512), (448, 576), (512, 640))
+# K1 at the shapes only the windowed path gives it (8 copies): on each
+# rung's window, layer1 at C 256 (a stride-4 map), layer2's first block at
+# C 512 stride 2 and its other blocks at stride 1; and the cascade's
+# dirty-region windows of layer3 at the (384, 512) rung on the 640×1024
+# canvas, [29 + 2k, 37 + 2k] for k = 1..5 (k_max is 5 there): maps ragged
+# against the kernel's 128-pixel tiles.
+K1_WINDOW_SHAPES = [shape for h, w in WINDOW_LADDER for shape in (
+    (8, h // 4, w // 4, 256, 1), (8, h // 4, w // 4, 512, 2),
+    (8, h // 8, w // 8, 512, 1))]
+K1_CASCADE_SHAPES = [(8, 29 + 2 * k, 37 + 2 * k, 1024, 1) for k in range(1, 6)]
+# The windowed path's features in bf16 against the full path's in bf16
+# (two-level exact: the same function), as max |Δ| / max |feature| over
+# the pooled dims. They may differ only where the card sums in another
+# order (cuDNN and cuBLAS pick algorithms by shape: a window against a whole
+# canvas, chunks of other sizes, a batch of 8 base maps against one). Sound runs on the H100 80GB HBM3 at 700 W read 0 in every
+# comparison of this phase (the 16-candidate request, the dataset path at
+# base_batch 8 and 1 against the full path, the cascade against the plain
+# two-level path): bit-equal. 4e-3 admits one bf16 rounding step (2^-8) of
+# the largest feature; the named faults read 1.6e-2 (no_trim), 6.9e-2
+# (paste_shifted) and 0.19 (paint_dropped) on the request, 4.1-48x above it.
+WINDOW_TOL = 4e-3
+# Named faults of the windowed path, each an emulation of a slip in
+# ``engine/windowed.paste_windows`` (patched here; the package has no switch
+# for it): ``no_trim``, the paste's trim 0, so border cells whose receptive
+# field the window cut off are pasted; ``paint_dropped``, the first copy
+# gets the unpatched base map; ``paste_shifted``, each paste lands one map
+# cell down and right (clamped into the map, as the paste clamps).
+WINDOW_FAULTS = ("no_trim", "paint_dropped", "paste_shifted")
+
+
+@contextlib.contextmanager
+def window_fault(fault: str):
+    """Run the windowed path with ``fault`` (one of WINDOW_FAULTS) in
+    ``engine/windowed.paste_windows``."""
+    from cpt_tpu_torch.engine import windowed
+
+    real = windowed.paste_windows
+
+    def faulty(base, wfeats, origins, stride, trim, window, canvas_hw):
+        if fault == "no_trim":
+            trim = 0
+        elif fault == "paste_shifted":
+            origins = origins + stride
+        out = real(base, wfeats, origins, stride, trim, window, canvas_hw)
+        if fault == "paint_dropped":
+            out[0] = base
+        return out
+
+    if fault not in WINDOW_FAULTS:
+        raise ValueError(f"unknown window fault {fault!r}")
+    windowed.paste_windows = faulty
+    try:
+        yield
+    finally:
+        windowed.paste_windows = real
+
+
+def windowed_request(rng) -> tuple:
+    """A 480×640 image and 16 candidate boxes, four drawn so that each rung
+    of WINDOW_LADDER takes one (on the 640×1024 canvas, halo 160) and one
+    reaches past every window (the full path), twelve as ``run_requests``
+    draws them."""
+    img = rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    designed = [[300, 200, 340, 240],     # 40×40: (384, 512)
+                [270, 170, 370, 270],     # 100×100, flush top: (448, 576)
+                [250, 150, 400, 300],     # 150×150: (512, 640)
+                [20, 20, 620, 460]]       # the full path
+    xy = rng.uniform(0, 400, (12, 2))
+    wh = rng.uniform(24, 240, (12, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + wh, [639, 479])], 1)
+    return img, designed + np.round(boxes).tolist()
+
+
+def tsv_labels(path: str) -> np.ndarray:
+    """The class of every (copy, det) of an extraction TSV's rows."""
+    from cpt_tpu_torch.utils.tsv import TSVFile
+
+    tsv = TSVFile(path)
+    rows = [json.loads(tsv.seek(i)[1])["objects"][0] for i in range(len(tsv))]
+    tsv.close()
+    return np.asarray([b["class"] for r in rows for copy in r for b in copy])
+
+
+def feature_gap(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def count_k1(extractor, k1, log: list) -> None:
+    """Wrap the extractor's base pass, window functions and full path so
+    that each call appends (route, K1 launches in it) to ``log``."""
+    def counted(fn, route):
+        def call(*args):
+            n0 = k1.launches
+            out = fn(*args)
+            log.append((route, k1.launches - n0))
+            return out
+        return call
+
+    extractor.base_fn = counted(extractor.base_fn, "base")
+    extractor.fn = counted(extractor.fn, "full")
+    extractor.wfns = [counted(fn, f"{h}x{w}") for fn, (h, w)
+                      in zip(extractor.wfns, extractor.windows)]
+
+
+def run_windowed(res, counters, smi: str, rows: list) -> dict:
+    """Phase 7 (see the module docstring) on the resident weights of
+    phase 4. Gathers every reading, prints it, then raises on the first
+    check that failed."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import tsv_region_features
+    from cpt_tpu_torch.engine import windowed as wnd
+    from cpt_tpu_torch.engine.extract import Extractor, refcoco_task
+    from cpt_tpu_torch.structures.boxes import pad_boxes
+    from cpt_tpu_torch.tools import cpt_predict as cp
+    from cpt_tpu_torch.tools import extract_features, int8_gap
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    check(tuple(wnd.WINDOW_LADDER) == WINDOW_LADDER, "the window ladder moved")
+    n_rows = len(rows)
+    check_k1(rows, K1_WINDOW_SHAPES + K1_CASCADE_SHAPES, g,
+             device=("grouped_conv3x3_mma",))
+    k1_rows = rows[n_rows:]
+
+    k1 = counters["K1"]
+    # the resident that ``cpt_predict.build_resident(windowed=True)`` builds,
+    # on phase 4's weights
+    wres = cp.Resident(res.det_cfg, res.detector.state_dict(), res.bert_cfg,
+                       res.oscar.state_dict(), res.tokenizer, res.device,
+                       res.detector.dtype, windowed=True)
+    ex = wres.extractor
+    check(ex.windowed_mode == "two_level", f"windowed_mode {ex.windowed_mode}")
+    log: list = []
+    count_k1(ex, k1, log)
+    rng = np.random.RandomState(77)
+
+    def answer(r, img, dets, wd):
+        t = time.perf_counter()
+        box = cp.predict(r, img, "the person on the left", dets, workdir=wd)
+        torch.cuda.synchronize()
+        return box, (time.perf_counter() - t) * 1e3
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        # the third draw of this seed puts 3 / 6 / 5 copies on the rungs and
+        # 2 on the full path; one warm-up of each path on it first
+        for _ in range(3):
+            img, dets = windowed_request(rng)
+        answer(wres, img, dets, f"{root}/warm_w")
+        answer(res, img, dets, f"{root}/warm_f")
+        log.clear()
+        before = dict(ex.route_copies)
+        zero_counts(counters)
+        box_w, ms_w = answer(wres, img, dets, f"{root}/windowed")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        paths = k1_paths(counters, launches, "the windowed request")
+        routes = {k: ex.route_copies[k] - before[k] for k in before}
+        calls = list(log)
+        zero_counts(counters)
+        box_f, ms_f = answer(res, img, dets, f"{root}/full")
+        full_launches = {k: fn.launches for k, fn in counters.items()}
+        more = [(answer(wres, img, dets, f"{root}/w{i}")[1],
+                 answer(res, img, dets, f"{root}/f{i}")[1]) for i in range(2)]
+        fw = tsv_region_features(f"{root}/windowed/predictions.tsv")[..., :-6]
+        ff = tsv_region_features(f"{root}/full/predictions.tsv")[..., :-6]
+        gap = feature_gap(fw, ff)
+        labels_equal = bool((tsv_labels(f"{root}/windowed/predictions.tsv")
+                             == tsv_labels(f"{root}/full/predictions.tsv")).all())
+        sw = cp.candidate_scores(res, f"{root}/windowed")
+        sf = cp.candidate_scores(res, f"{root}/full")
+        score_gap = float(np.abs(np.asarray(sw) - np.asarray(sf)).max())
+        fault_gaps = {}
+        for fault in WINDOW_FAULTS:
+            with window_fault(fault):
+                answer(wres, img, dets, f"{root}/{fault}")
+            fault_gaps[fault] = feature_gap(tsv_region_features(
+                f"{root}/{fault}/predictions.tsv")[..., :-6], ff)
+        prof_w = profiled(lambda: answer(wres, img, dets, f"{root}/prof_w"),
+                          "windowed request (16 candidates, two-level)")
+        prof_f = profiled(lambda: answer(res, img, dets, f"{root}/prof_f"),
+                          "full-path request (the same 16 candidates)")
+    by_route: dict = {}
+    for route, n in calls:
+        by_route.setdefault(route, []).append(n)
+    want_k1 = 11 + 50 * (len(calls) - 1)
+    print(f"phase 7 windowed request (16 candidates, 480x640 image, 640x1024 "
+          f"canvas; {smi}): copies by route {routes}; K1 launches by call "
+          f"{by_route} = {launches['K1']} (want 11 base + 50 a chunk = "
+          f"{want_k1}), by path {paths}; host ms windowed {ms_w:.1f} "
+          f"{[round(m[0], 1) for m in more]}, full {ms_f:.1f} "
+          f"{[round(m[1], 1) for m in more]}; copies/s windowed "
+          f"{16e3 / ms_w:.2f}, full {16e3 / ms_f:.2f}; feature gap "
+          f"{gap:.4e} (WINDOW_TOL {WINDOW_TOL}), labels equal {labels_equal}, "
+          f"score gap {score_gap:.4e} (SCORE_TOL {SCORE_TOL}); faults "
+          + ", ".join(f"{f} {e:.4e} ({e / WINDOW_TOL:.1f}x tol)"
+                      for f, e in fault_gaps.items()), flush=True)
+    check(all(routes[k] >= 1 for k in routes), f"a route took no copy: {routes}")
+    check(by_route.get("base") == [11] and all(
+        v == [50] * len(v) for k, v in by_route.items() if k != "base")
+        and launches["K1"] == want_k1, f"K1 launches {by_route}")
+    check(full_launches["K1"] == 50, f"full request K1 {full_launches['K1']}")
+    check(box_w in dets and box_f in dets, "a box is not a candidate")
+    check(np.isfinite(fw).all() and fw.shape == (16, 16, 2048),
+          f"windowed features {fw.shape}")
+    check(gap <= WINDOW_TOL and labels_equal and score_gap <= SCORE_TOL,
+          f"windowed vs full: gap {gap}, labels {labels_equal}, scores "
+          f"{score_gap}")
+    check(all(e > WINDOW_TOL for e in fault_gaps.values()),
+          f"a fault passes: {fault_gaps}")
+    out["request"] = {"routes": routes, "k1_by_call": by_route,
+                      "launches": launches, "full_launches": full_launches,
+                      "ms_windowed": [ms_w] + [m[0] for m in more],
+                      "ms_full": [ms_f] + [m[1] for m in more],
+                      "feature_gap": gap, "score_gap": score_gap,
+                      "labels_equal": labels_equal, "fault_gaps": fault_gaps,
+                      "profile_windowed": prof_w, "profile_full": prof_f}
+    out["launches"] = launches
+
+    # the dataset path: 8 synthetic queries (1024×1024, 3 copies each, all
+    # on the (384, 512) rung), base passes batched by 8, one a query, and
+    # the full path; each run once untimed (its shapes' first use), then
+    # timed twice, in one order and then the reverse
+    def extract(root, name, flags, base_batch=None):
+        path = f"{root}/{name}.tsv"
+        real = Extractor.RUN_BASE_BATCH
+        if base_batch is not None:
+            Extractor.RUN_BASE_BATCH = base_batch
+        zero_counts(counters)
+        try:
+            info = extract_features.main(["--synthetic", "8", "--copies_per_chunk",
+                                          "8", "--output", path] + flags)
+            torch.cuda.synchronize()
+        finally:
+            Extractor.RUN_BASE_BATCH = real
+        info["k1"] = k1.launches
+        info["feats"] = int8_gap.tsv_features(path)
+        return info
+
+    settings = {"batched": (["--windowed"], 8), "per_query": (["--windowed"], 1),
+                "full": ([], None)}
+    order = list(settings)
+    runs, rates = {}, {k: [] for k in settings}
+    with tempfile.TemporaryDirectory() as root:
+        for k in order:
+            extract(root, f"warm_{k}", *settings[k])
+        for i, k in enumerate(order + order[::-1]):
+            info = extract(root, f"{k}{i}", *settings[k])
+            rates[k].append(info["copies_per_s"])
+            check(info["k1"] == runs.setdefault(k, info)["k1"],
+                  f"dataset-path K1 launches of {k} vary")
+    data_gaps = {k: feature_gap(runs[k]["feats"], runs["full"]["feats"])
+                 for k in ("batched", "per_query")}
+    data_gaps["batched_vs_per_query"] = feature_gap(runs["batched"]["feats"],
+                                                    runs["per_query"]["feats"])
+    print(f"phase 7 dataset path (extract_features --synthetic 8 "
+          f"--copies_per_chunk 8; {smi}): copies/s after a warm-up, in the "
+          f"order {order} and then its reverse: windowed base_batch 8 "
+          f"{rates['batched']}, base_batch 1 {rates['per_query']}, full "
+          f"{rates['full']}; K1 launches "
+          f"{ {k: r['k1'] for k, r in runs.items()} } (want 411 / 488 / 400); "
+          f"routes {runs['batched'].get('route_copies')}; feature gaps "
+          + ", ".join(f"{k} {v:.4e}" for k, v in data_gaps.items()), flush=True)
+    check([runs[k]["k1"] for k in ("batched", "per_query", "full")]
+          == [411, 488, 400], "dataset-path K1 launches")
+    check(runs["batched"]["windowed_mode"] == "two_level"
+          and runs["batched"]["route_copies"] == {
+              "384x512": 24, "448x576": 0, "512x640": 0, "full": 0},
+          f"dataset routes {runs['batched'].get('route_copies')}")
+    check(all(v <= WINDOW_TOL for v in data_gaps.values()),
+          f"dataset-path gaps {data_gaps}")
+    for r in runs.values():
+        del r["feats"]
+    out["dataset"] = {"runs": runs, "copies_per_s": rates, "gaps": data_gaps}
+
+    # the cascade at the (384, 512) rung against the plain two-level path,
+    # on the copies of the windowed request that fit that rung
+    cfg = res.det_cfg
+    task = refcoco_task("q", img, img.shape[:2], dets, "c")
+    image, (h, w) = ex._canvas(task)
+    win = WINDOW_LADDER[0]
+    origins, fits = wnd.window_origins(task.copy_rects, win, (h, w), ex.halo)
+    sel = np.nonzero(fits)[0]
+    m = ex.det_bucket_for(len(dets))
+    det_boxes, det_valid = pad_boxes(task.det_boxes, m)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        task.copy_rects[sel], task.copy_rect_valid[sel],
+        task.copy_colors_rgba[sel], np.ones(len(sel), bool), det_boxes,
+        det_valid)]
+    base = wnd.make_base_early_fn(res.detector, cfg)(image)
+    got = {}
+    for cascade in (False, True):
+        fn = wnd.make_two_level_extract_fn(res.detector, cfg, window=win,
+                                           halo=ex.halo, cascade=cascade)
+        zero_counts(counters)
+        feats = fn(image, base, origins[sel], *args, task.image_hw)[0]
+        got[cascade] = (feats[..., :-6].float().cpu().numpy(), k1.launches)
+    casc_gap = feature_gap(got[True][0], got[False][0])
+    h16, w16 = h // 16, w // 16
+    k_max = min((h16 - win[0] // 16 - 5) // 2, (w16 - win[1] // 16 - 5) // 2, 35, 16)
+    print(f"phase 7 cascade at {win[0]}x{win[1]} ({len(sel)} copies, k_max "
+          f"{k_max}): gap to cascade=False {casc_gap:.4e}; K1 launches "
+          f"{got[True][1]} (cascade=False {got[False][1]})", flush=True)
+    check(casc_gap <= WINDOW_TOL and got[False][1] == 50
+          and got[True][1] == 51 + k_max and k_max >= 1,
+          f"cascade: gap {casc_gap}, launches {got[True][1]}, k_max {k_max}")
+    out["cascade"] = {"copies": int(len(sel)), "k_max": k_max,
+                      "gap": casc_gap, "launches": got[True][1]}
+    out["k1_rows"] = k1_rows
+    if failed:
+        raise AssertionError(f"phase 7: {failed}")
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -2485,7 +2834,7 @@ def main(argv=None) -> int:
 
     counters = kernel_counters()
     rows: list = []
-    per_kernel = check_kernels(rows)
+    check_kernels(rows)
     res, setup_s = build_resident()
     e2e = {"setup_s": setup_s,
            "ground": run_requests(res, counters, profile=True),
@@ -2501,9 +2850,12 @@ def main(argv=None) -> int:
     e2e["long_context"] = run_long_context(flash, oracle, res)
     del flash, oracle
     e2e.update(run_training(res, counters))
-    del res
     e2e["ffn_study"] = run_ffn_study(counters)
     e2e.update(run_int8_extraction(counters))
+    e2e["windowed"] = run_windowed(res, counters, smi, rows)
+    del res
+    per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
+                  for k in KERNELS}
 
     # headline shape per kernel for the summary line: the most frequent
     # main-path call (layer3 blocks; the 16-candidate request's pooling;
@@ -2515,7 +2867,7 @@ def main(argv=None) -> int:
     headline = {"K1": 4, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0,
                 "K6b": 0, "K6c": 0, "K1q": 4, "K7": 0}
     paths = ("ground", "detect", "flash_ground", "train", "auto_train",
-             "ffn_study", "int8", "int8_static")
+             "ffn_study", "int8", "int8_static", "windowed")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]

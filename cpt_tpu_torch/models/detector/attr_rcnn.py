@@ -46,6 +46,10 @@ class AttrRCNN(nn.Module):
         self.attr_extractor = BoxFeatureExtractor(config, dtype)
         self.attr_predictor = AttributePredictor(config, dtype)
 
+    def features(self, image: torch.Tensor) -> torch.Tensor:
+        """image [H, W, 3] (BGR255, mean-subtracted) → C4 map [h, w, C4]."""
+        return self.backbone(image[None])[0]
+
     def forward(self, image: torch.Tensor, image_hw: Sequence[int],
                 anchors: torch.Tensor, with_attributes: bool = True
                 ) -> Dict[str, torch.Tensor]:

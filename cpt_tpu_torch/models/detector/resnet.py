@@ -208,10 +208,19 @@ class Stem(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+class Stage(nn.Sequential):
+    """One stage's bottlenecks, run in order."""
+
+    def apply_block(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Block ``i`` alone: the cascaded windowed extractor
+        (``engine/windowed.py``) runs single blocks on dirty-region windows."""
+        return self[i](x)
+
+
 def make_stage(block_count: int, in_channels: int, bottleneck_channels: int,
                out_channels: int, num_groups: int, first_stride: int,
                stride_in_1x1: bool, dtype: torch.dtype,
-               precision: str = "bf16") -> nn.Sequential:
+               precision: str = "bf16") -> Stage:
     """Blocks named ``block_{i}`` like the JAX parameter tree."""
     blocks = OrderedDict()
     for i in range(block_count):
@@ -219,11 +228,16 @@ def make_stage(block_count: int, in_channels: int, bottleneck_channels: int,
             in_channels if i == 0 else out_channels, bottleneck_channels,
             out_channels, num_groups, first_stride if i == 0 else 1,
             stride_in_1x1, dtype, precision)
-    return nn.Sequential(blocks)
+    return Stage(blocks)
 
 
 class ResNetC4(nn.Module):
-    """Stem + layer1..layerN body; returns the C4 feature map (stride 16)."""
+    """Stem + layer1..layerN body; returns the C4 feature map (stride 16).
+
+    ``up_to`` / ``from_stage`` split the body at a stage boundary for the
+    two-level windowed extractor (``engine/windowed.py``): the early stages
+    run per copy on a window, the later ones on the patched map.
+    """
 
     def __init__(self, config: BackboneConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -241,11 +255,24 @@ class ResNetC4(nn.Module):
             self.stage_names.append(name)
             cin = c.res2_out_channels * factor
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stage(self, i: int) -> Stage:
+        return getattr(self, self.stage_names[i])
+
+    def up_to(self, x: torch.Tensor, n_stages: int) -> torch.Tensor:
+        """Stem + the first ``n_stages`` stages (a stride 4·2^(n-1) map)."""
         x = self.stem(x)
-        for name in self.stage_names:
+        for name in self.stage_names[:n_stages]:
             x = getattr(self, name)(x)
         return x
+
+    def from_stage(self, x: torch.Tensor, n_stages: int) -> torch.Tensor:
+        """The stages after ``up_to(x, n_stages)``."""
+        for name in self.stage_names[n_stages:]:
+            x = getattr(self, name)(x)
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.from_stage(self.up_to(x, 0), 0)
 
 
 class ResNetC5Head(nn.Module):

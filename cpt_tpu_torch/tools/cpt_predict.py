@@ -17,7 +17,8 @@ RGB array. ``main()`` wraps it for the command line:
       --caption "the dog on the left" --dets '[[10,20,120,200],...]' \\
       --checkpoint vinvl_vg_x152c4.pth --oscar_checkpoint pytorch_model.bin \\
       --vocab vocab.txt --out overlay.png
-  (--detect [--conf 0.5] proposes the candidates instead of --dets.)
+  (--detect [--conf 0.5] proposes the candidates instead of --dets;
+  --windowed extracts on the window ladder of ``engine/windowed.py``.)
 
 Without checkpoints the weights are random, drawn from ``--seed`` in the
 reference layouts.
@@ -43,6 +44,7 @@ from cpt_tpu_torch.engine.extract import (Extractor, make_detect_fn,
 from cpt_tpu_torch.engine.scoring import (make_mlm_at_mask_fn,
                                           refcoco_collect_scores,
                                           refcoco_evaluate, run_mlm_batch)
+from cpt_tpu_torch.engine.windowed import WINDOW_LADDER
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
@@ -86,11 +88,13 @@ class Resident:
     ``REC_MLM_CPT``. State dicts are in the port's layout
     (``models/detector/convert.py``, ``utils/convert.py``); a detector
     checkpoint without the attribute head loads (that head is not run
-    here)."""
+    here). ``windowed`` gives the extractor the windowed mode over
+    ``WINDOW_LADDER``."""
 
     def __init__(self, det_cfg: DetectorConfig, det_state: dict,
                  bert_cfg: BertConfig, bert_state: dict,
-                 tokenizer: BertTokenizer, device, dtype=torch.bfloat16):
+                 tokenizer: BertTokenizer, device, dtype=torch.bfloat16,
+                 windowed: bool = False):
         with torch.device(device):
             self.detector = AttrRCNN(det_cfg, dtype).eval()
             self.oscar = REC_MLM_CPT(bert_cfg, dtype).eval()
@@ -107,7 +111,8 @@ class Resident:
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.extractor = Extractor(self.detector, det_cfg,
-                                   copies_per_chunk=None)
+                                   copies_per_chunk=None, windowed=windowed,
+                                   window=WINDOW_LADDER)
         self.detect_fn = make_detect_fn(self.detector, det_cfg,
                                         with_attributes=False)
         self.anchors = canvas_anchors(det_cfg, self.device)
@@ -229,6 +234,8 @@ def build_args():
                    help="float32 runs on the CPU only (the kernels take bf16)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without checkpoints")
+    p.add_argument("--windowed", action="store_true",
+                   help="two-level windowed extraction (engine/windowed.py)")
     p.add_argument("--hidden_size", type=int, default=None)
     p.add_argument("--num_hidden_layers", type=int, default=None)
     return p
@@ -240,11 +247,13 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
                    vocab: Optional[str] = None, seed: int = 0,
                    hidden_size: Optional[int] = None,
                    num_hidden_layers: Optional[int] = None,
-                   attention_impl: str = "auto") -> Resident:
+                   attention_impl: str = "auto",
+                   windowed: bool = False) -> Resident:
     """Both models from reference-layout checkpoints, or from random
     reference-layout state dicts drawn from ``seed`` when a checkpoint is
     not given (VinVL X152-C4 and Oscar-base at full width unless ``tiny``).
-    ``attention_impl`` picks Oscar's attention backend (:func:`bert_config`)."""
+    ``attention_impl`` picks Oscar's attention backend (:func:`bert_config`);
+    ``windowed`` the extractor's windowed mode (:class:`Resident`)."""
     det_cfg = tiny_detector_config() if tiny else VINVL_X152C4
     bert_cfg = bert_config(hidden_size, num_hidden_layers,
                            region_feature_dim(det_cfg), attention_impl)
@@ -262,7 +271,7 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
     tokenizer = BertTokenizer(vocab if vocab else toy_vocab())
     return Resident(det_cfg, det_state,
                     bert_cfg, bconv.state_from_reference(bert_sd, bert_cfg),
-                    tokenizer, torch.device(device), dtype)
+                    tokenizer, torch.device(device), dtype, windowed)
 
 
 def main(argv=None) -> List[float]:
@@ -275,7 +284,8 @@ def main(argv=None) -> List[float]:
     res = build_resident(
         args.device, torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         args.tiny, args.checkpoint, args.oscar_checkpoint, args.vocab,
-        args.seed, args.hidden_size, args.num_hidden_layers)
+        args.seed, args.hidden_size, args.num_hidden_layers,
+        windowed=args.windowed)
     dets = (detect_candidates(res, img, args.conf) if args.detect
             else json.loads(args.dets))
     pred = predict(res, img, args.caption, dets, workdir=args.workdir)

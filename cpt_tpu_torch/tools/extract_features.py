@@ -10,6 +10,15 @@ force-boxes mode and writes the interchange ``predictions.tsv``:
       [--checkpoint vinvl_vg_x152c4.pth] [--precision int8|int8:<s>]
   python -m cpt_tpu_torch.tools.extract_features --synthetic 4 \\
       --output out.tsv --copies_per_chunk 4 --precision int8
+  python -m cpt_tpu_torch.tools.extract_features --synthetic 8 --windowed \\
+      --copies_per_chunk 8 --output out.tsv
+
+``--windowed`` reuses one base map per query (``engine/windowed.py``):
+each copy recomputes the backbone's first two stages only on the smallest
+window of ``--windows`` its paint fits, the rest of the copies take the
+full path. It is exact on X152 (two-level, halo 160); where the halo
+cannot make it exact the tool keeps the full path, unless
+``--allow-approximate``, which logs the measured drift on the first query.
 
 ``--precision int8`` runs the conv body in W8A8 (``ops/quant.py``; the
 grouped 3x3 on kernel K1q). Its activation scales are per tensor over a
@@ -37,6 +46,7 @@ import torch
 
 from cpt_tpu_torch.data.prompts import REFCOCO_COLORS
 from cpt_tpu_torch.engine.extract import Extractor, refcoco_task
+from cpt_tpu_torch.engine.windowed import WINDOW_LADDER
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
@@ -49,7 +59,6 @@ _UNPORTED = {
     "--config_file/--opts": "Queue 1 item 3 (the other CPT tasks)",
     "--labelmap": "Queue 1 item 3 (the other CPT tasks)",
     "SEG (rle) dets": "Queue 1 item 3 (the other CPT tasks)",
-    "--windowed": "Queue 1 item 1 (windowed extraction)",
     "--image_dir": "Queue 1 item 5 (the detect path's entry points)",
     "--dp > 1": "Queue 1 item 9 (parallelism)",
     "--shard_by_process": "Queue 1 item 9 (parallelism)",
@@ -97,6 +106,19 @@ def build_args():
                    help="TEST.IGNORE_BOX_REGRESSION")
     p.add_argument("--synthetic", type=int, default=None,
                    help="extract N synthetic queries instead of real data")
+    p.add_argument("--windowed", action="store_true",
+                   help="windowed extraction over one base map a query; "
+                        "exact where the halo covers 2x the receptive field "
+                        "of what is recomputed, else the full path unless "
+                        "--allow-approximate")
+    p.add_argument("--allow-approximate", action="store_true",
+                   dest="allow_approximate",
+                   help="keep --windowed where it is approximate (the "
+                        "drift is measured and logged on the first query)")
+    p.add_argument("--windows",
+                   default=",".join(f"{h}x{w}" for h, w in WINDOW_LADDER),
+                   help="comma-separated HxW window ladder of --windowed: "
+                        "each copy takes the smallest window its paint fits")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without --checkpoint")
@@ -105,7 +127,6 @@ def build_args():
     p.add_argument("--config_file", default=None)
     p.add_argument("--opts", nargs="*", default=None)
     p.add_argument("--labelmap", default=None)
-    p.add_argument("--windowed", action="store_true")
     p.add_argument("--image_dir", default=None)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--shard_by_process", action="store_true")
@@ -124,7 +145,6 @@ def check_ported(args) -> None:
                         ("--config_file/--opts",
                          args.config_file or args.opts is not None),
                         ("--labelmap", args.labelmap),
-                        ("--windowed", args.windowed),
                         ("--image_dir", args.image_dir),
                         ("--dp > 1", args.dp > 1),
                         ("--shard_by_process", args.shard_by_process)):
@@ -255,7 +275,9 @@ def tasks(args, cfg, color):
 
 def main(argv=None) -> dict:
     """Extract, write ``--output``; → {"output", "copies", "seconds",
-    "copies_per_s"} (e2e), or {} when the output exists."""
+    "copies_per_s" (e2e), "windowed_mode", and with ``--windowed``
+    "route_copies" (copies per window of the ladder and "full")}, or {}
+    when the output exists."""
     args = build_args().parse_args(argv)
     check_ported(args)
     if os.path.dirname(args.output):
@@ -264,16 +286,27 @@ def main(argv=None) -> dict:
         print(f"{args.output} exists; skipping (use --overwrite to redo)")
         return {}
     cfg = detector_config(args)
+    windows = [tuple(int(v) for v in w.split("x"))
+               for w in args.windows.split(",") if w]
     extractor = Extractor(build_detector(cfg, args), cfg,
-                          copies_per_chunk=args.copies_per_chunk)
+                          copies_per_chunk=args.copies_per_chunk,
+                          windowed=args.windowed, window=windows,
+                          allow_approximate=args.allow_approximate)
     t0 = time.time()
     extractor.run(tasks(args, cfg, paint_color(args)), args.output)
     dt = time.time() - t0
+    routes = (f"; {extractor.windowed_mode} windowed, copies by window "
+              f"{extractor.route_copies}" if extractor.windowed else "")
     print(f"wrote {args.output}: {extractor.n_copies} copies in {dt:.1f}s "
           f"({extractor.n_copies / max(extractor.infer_seconds, 1e-9):.2f} "
-          f"copies/s device, {extractor.n_copies / dt:.2f} copies/s e2e)")
-    return {"output": args.output, "copies": extractor.n_copies,
-            "seconds": dt, "copies_per_s": extractor.n_copies / dt}
+          f"copies/s device, {extractor.n_copies / dt:.2f} copies/s e2e)"
+          f"{routes}")
+    out = {"output": args.output, "copies": extractor.n_copies,
+           "seconds": dt, "copies_per_s": extractor.n_copies / dt,
+           "windowed_mode": extractor.windowed_mode}
+    if extractor.windowed:
+        out["route_copies"] = dict(extractor.route_copies)
+    return out
 
 
 if __name__ == "__main__":

@@ -378,6 +378,69 @@ def test_grouped_conv_mma_path(dev, n, h, w, c, cpg, stride):
     assert float((wrong - want).abs().max()) > 3e-2 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("n,h,w,c,stride", [(2, 96, 128, 512, 2),
+                                             (2, 31, 39, 1024, 1)])
+def test_grouped_conv_windowed_shapes(dev, n, h, w, c, stride):
+    """K1 at one of the windowed path's window shapes (layer2's first block
+    on the 384x512 window) and one of the cascade's odd layer3 windows,
+    with chip_smoke's inputs and named faults."""
+    import chip_smoke as cs
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x, wt, s, b = cs.k1_inputs(n, h, w, c, g)
+    want = reference_grouped_conv3x3(x.float(), wt.float(), s, b, 32, stride,
+                                     True)
+    mma = grouped_conv3x3.path_launches["mma"]
+    _close(grouped_conv3x3(x, wt, s, b, 32, stride, True), want, cs.TOL["K1"])
+    assert grouped_conv3x3.path_launches["mma"] == mma + 1
+    scale = float(want.abs().max())
+    for fault, fn in cs.k1_faults(x.float(), wt.float(), s, b, 32,
+                                  stride).items():
+        assert float((fn() - want).abs().max()) > cs.TOL["K1"] * scale, fault
+
+
+def test_windowed_extraction_matches_full_path(dev):
+    """The two-level windowed Extractor in bf16 on the card against the
+    full path at a small size (a deep tiny detector, 208x240 canvas, a
+    window ladder with one copy past every rung): features within
+    chip_smoke's WINDOW_TOL, labels equal, every route taken, and each of
+    the named faults missing the tolerance."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.engine.extract import Extractor, refcoco_task
+    from cpt_tpu_torch.models.detector import config as det_cfg
+    from cpt_tpu_torch.models.detector import convert as dconv
+    from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+
+    cfg = det_cfg.tiny_detector_config()
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, stage_blocks=(1, 1, 6)),
+        input=dataclasses.replace(cfg.input, pad_h=208, pad_w=240,
+                                  buckets=((208, 240),)))
+    with torch.device(dev):
+        model = AttrRCNN(cfg, torch.bfloat16).eval()
+    model.load_state_dict(dconv.state_from_reference(
+        dconv.random_vinvl_state_dict(cfg, seed=7), cfg), strict=False)
+    rng = np.random.RandomState(11)
+    image = rng.randint(0, 256, (208, 240, 3)).astype(np.uint8)
+    rects = np.asarray([[100, 96, 112, 108], [90, 88, 122, 124],
+                        [80, 72, 140, 128], [1, 1, 20, 20],
+                        [10, 10, 230, 200]], np.float32)
+    task = refcoco_task("q", image, (208, 240), rects, "c")
+    full = Extractor(model, cfg, copies_per_chunk=2).extract_task(task)
+    ex = Extractor(model, cfg, copies_per_chunk=2, windowed=True,
+                   window=[(96, 112), (112, 128), (128, 144)], halo=32)
+    assert ex.windowed_mode == "two_level"
+    got = ex.extract_task(task)
+    assert all(n >= 1 for n in ex.route_copies.values()), ex.route_copies
+    assert np.isfinite(got[0]).all()
+    assert cs.feature_gap(got[0], full[0]) <= cs.WINDOW_TOL
+    np.testing.assert_array_equal(got[1], full[1])
+    for fault in cs.WINDOW_FAULTS:
+        with cs.window_fault(fault):
+            bad = ex.extract_task(task)
+        assert cs.feature_gap(bad[0], full[0]) > cs.WINDOW_TOL, fault
+
+
 def test_grouped_conv_paths_agree_and_count(dev):
     """Both of K1's kernels on the same X152-like inputs agree within the
     tolerance, each counted on its own path; the rule sends cpg 4 to the

@@ -5,6 +5,7 @@ package's jax-free modules (configs, tokenizer, TSV codec, prompts,
 tensorization, random reference-layout weights) behave as the originals."""
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -225,3 +226,60 @@ def test_checkpoint_loader_copies():
     _same_arrays(align_state_dict(loaded, expected), jalign(loaded, expected))
     assert sorted(align_state_dict(loaded, expected)) == [
         "bert.a.weight", "c.bias", "head.layer4.0.conv1.weight"]
+
+
+def test_windowed_host_copies():
+    """``engine/windowed.py``'s host-side copies (receptive field, window
+    origins, mask boxes, drift) give the originals' results."""
+    from cpt_tpu.engine import windowed as jwnd
+    from cpt_tpu_torch.engine import windowed as wnd
+
+    for name in ("VINVL_X152C4", "tiny"):
+        j = (jdet_cfg.tiny_detector_config() if name == "tiny"
+             else jdet_cfg.VINVL_X152C4)
+        p = (det_cfg.tiny_detector_config() if name == "tiny"
+             else det_cfg.VINVL_X152C4)
+        for split in (None, 1, 2):
+            assert (wnd.backbone_receptive_field(p, split)
+                    == jwnd.backbone_receptive_field(j, split))
+    rng = np.random.RandomState(1)
+    xy = rng.uniform(-10, 900, (40, 3, 2))
+    rects = np.concatenate([xy, xy + rng.uniform(1, 400, (40, 3, 2))],
+                           2).astype(np.float32)
+    for window in ((384, 512), (512, 640), (640, 1024), (656, 1024)):
+        for halo in (0, 160):
+            for got, want in zip(wnd.window_origins(rects, window, (640, 1024), halo),
+                                 jwnd.window_origins(rects, window, (640, 1024), halo)):
+                np.testing.assert_array_equal(got, want)
+    masks = (rng.rand(4, 9, 11) > 0.9).astype(np.uint8)
+    masks[1] = 0
+    np.testing.assert_array_equal(wnd.mask_bboxes(masks), jwnd.mask_bboxes(masks))
+    exact = (rng.randn(3, 4, 6), rng.randint(0, 3, (3, 4)), rng.rand(3, 4))
+    approx = (exact[0] + 0.01 * rng.randn(3, 4, 6), rng.randint(0, 3, (3, 4)),
+              rng.rand(3, 4))
+    assert wnd.feature_drift(exact, approx) == jwnd.feature_drift(exact, approx)
+
+
+def test_validate_checkpoints_host_copies(tmp_path):
+    """``tools/validate_checkpoints.py``'s TSV readers give the originals'
+    results on the same TSVs."""
+    from cpt_tpu.tools import validate_checkpoints as jvck
+    from cpt_tpu_torch.tools import validate_checkpoints as vck
+
+    rng = np.random.RandomState(2)
+
+    def write(path, shift):
+        rows = []
+        for q in range(3):
+            objs = [[{"class": str(rng.randint(3)), "conf": 0.5, "rect": [0, 0, 1, 1],
+                      "feature": tsv.encode_feature(
+                          (rng.randn(7) + shift).astype(np.float32))}
+                     for _ in range(2)] for _ in range(2)]
+            rows.append((f"q{q}", json.dumps({"objects": [objs, "c", [], []]})))
+        tsv.tsv_writer(rows, str(path))
+
+    write(tmp_path / "a.tsv", 0.0)
+    write(tmp_path / "b.tsv", 0.1)
+    a, b = str(tmp_path / "a.tsv"), str(tmp_path / "b.tsv")
+    assert vck.tsv_feature_dim(a) == jvck.tsv_feature_dim(a) == 7
+    assert vck.tsv_feature_drift(a, b) == jvck.tsv_feature_drift(a, b)
