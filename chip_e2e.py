@@ -239,10 +239,17 @@ def time_flash_bwd() -> list:
         dq_ms, _ = cs.device_ms(lambda: flash_mha_bwd_dq(*args, sm_scale=0.125),
                                 "flash_bwd_dq")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=(kb * 0.125).bfloat16(),
-                                             scale=0.125)
+        # built on its own stream, where device_ms's fallback can capture
+        # the backward
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=(kb * 0.125).bfloat16(), scale=0.125)
+        torch.cuda.current_stream().wait_stream(stream)
         sdpa_ms, _ = cs.device_ms(lambda: torch.autograd.grad(out, leaves, do,
-                                                              retain_graph=True))
+                                                              retain_graph=True),
+                                  stream=stream)
         label = f"K6b/K6c q=[{b},12,{s_len},64] bias={list(kb.shape)}"
         rows.append({"shape": label, "dkv_device_ms": dkv_ms, "dq_device_ms": dq_ms,
                      "timed_by": how, "sdpa_bwd_device_ms": sdpa_ms,

@@ -14,7 +14,7 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Iterable, List, Optional, Sequence
+from typing import Callable, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -407,12 +407,16 @@ class Extractor:
         return objs
 
     def run(self, tasks: Iterable[ExtractTask], out_tsv: str,
-            base_batch: Optional[int] = None) -> None:
-        """Write one RefCOCO-layout TSV row per task; consecutive queries
-        over the same image and boxes share one device batch. On the
-        windowed path the base passes of up to ``base_batch`` (default
-        ``RUN_BASE_BATCH``) consecutive groups run as one batched call
-        (:meth:`base_maps`); 1 keeps one pass a task."""
+            base_batch: Optional[int] = None,
+            payload_fn: Optional[Callable] = None) -> None:
+        """Write one TSV row per task, its payload laid out by
+        ``payload_fn(task, boxlists)`` (default :func:`refcoco_payload`;
+        :func:`vcr_payload` for VCR); consecutive queries over the same
+        image and boxes share one device batch. On the windowed path the
+        base passes of up to ``base_batch`` (default ``RUN_BASE_BATCH``)
+        consecutive groups run as one batched call (:meth:`base_maps`); 1
+        keeps one pass a task."""
+        payload_fn = payload_fn or refcoco_payload
         max_copies = self.chunk or 64
         if base_batch is None:
             base_batch = self.RUN_BASE_BATCH if self.windowed else 1
@@ -441,8 +445,7 @@ class Extractor:
                         objs = self.boxlists_for(task, feats[at:at + n],
                                                  labels[at:at + n],
                                                  scores[at:at + n])
-                        yield [task.key,
-                               json.dumps(refcoco_payload(task, objs))]
+                        yield [task.key, json.dumps(payload_fn(task, objs))]
                         at += n
 
         tsv_writer(rows(), out_tsv)
@@ -453,6 +456,13 @@ def refcoco_payload(task: ExtractTask, objs) -> dict:
                   for rs, vs in zip(task.copy_rects, task.copy_rect_valid)]
     return {"objects": [objs, task.caption, task.copy_color_names,
                         rect_lists]}
+
+
+def vcr_payload(task: ExtractTask, objs) -> dict:
+    """VCR's row: the one copy's boxes, then [obj_colors, obj_names]
+    (what ``data/vcr.VCRCPTData.load_features`` reads)."""
+    return {"objects": [objs[0], [task.meta["obj_colors"],
+                                  task.meta["obj_names"]]]}
 
 
 def refcoco_task(key: str, image_rgb: np.ndarray, image_hw, det_boxes,

@@ -1,11 +1,13 @@
-"""Color-word scoring for RefCOCO grounding (port of the RefCOCO parts of
-``cpt_tpu/engine/scoring.py``).
+"""Color-word scoring for RefCOCO grounding and NSP candidate scoring for
+VCR (port of the RefCOCO and VCR parts of ``cpt_tpu/engine/scoring.py``).
 
 Device side: one forward returning the MLM logits at each sequence's
-[MASK]. Host side: the reference decision rule
-(``Oscar/oscar/fewshot/refcoco_cpt.py:258-315``): per copy,
-score = logits[mask, color] / logits[mask, "none"]; the argmax over all
-copies of a query picks the box; accuracy = IoU(pred, gt) > 0.5.
+[MASK], or the NSP score of each sequence. Host side: the reference
+decision rules. RefCOCO (``Oscar/oscar/fewshot/refcoco_cpt.py:258-315``):
+per copy, score = logits[mask, color] / logits[mask, "none"]; the argmax
+over all copies of a query picks the box; accuracy = IoU(pred, gt) > 0.5.
+VCR (``vcr_nsp_cpt.py``): candidate score = 1 − softmax(NSP)[1], argmax
+over a question's candidates.
 """
 from __future__ import annotations
 
@@ -34,6 +36,27 @@ def make_mlm_at_mask_fn(model) -> Callable:
                            dev(attention_mask), img_feats=dev(img_feats),
                            mask_pos=dev(mask_pos))
         return at_mask.float().cpu().numpy()
+
+    return fn
+
+
+def make_nsp_score_fn(model, head: Optional[str] = None) -> Callable:
+    """VCR candidate scorer: fn(input_ids, segment_ids, attention_mask,
+    img_feats), numpy in → float32 [N] numpy, score = 1 − softmax of the
+    NSP logits in f32 at class 1. ``head`` picks ``VCRQAR_NSPCPT``'s head."""
+    device = next(model.parameters()).device
+    kwargs = {} if head is None else {"head": head}
+
+    @torch.inference_mode()
+    def fn(input_ids, segment_ids, attention_mask, img_feats):
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        _, logits = model(dev(input_ids), dev(segment_ids),
+                          dev(attention_mask), img_feats=dev(img_feats),
+                          **kwargs)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return (1.0 - probs[:, 1]).cpu().numpy()
 
     return fn
 

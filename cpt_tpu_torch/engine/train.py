@@ -172,8 +172,9 @@ def build_optimizer(model: nn.Module, cfg: OptimConfig,
                     classifier_pred: Optional[Callable[[Tuple[str, ...]], bool]] = None
                     ) -> Optimizer:
     """AdamW (or Adamax) with the no-decay rule on each parameter's JAX path
-    and the ``lr_mul`` group of the parameters ``classifier_pred`` picks."""
-    paths = jax_paths(model.config)
+    (in the tree of the model's ``TASK``) and the ``lr_mul`` group of the
+    parameters ``classifier_pred`` picks."""
+    paths = jax_paths(model.config, model.TASK)
     return Optimizer([paths[n] for n, _ in model.named_parameters()], cfg,
                      classifier_pred)
 
@@ -230,6 +231,30 @@ def make_mlm_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True
                            img_feats=img_feats, mask_pos=mask_pos,
                            generator=generator if dropout else None)
         loss = cross_entropy_ignore_index(at_mask, labels)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        tx.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, loss.detach()
+
+    return step
+
+
+def make_nsp_train_step(model: nn.Module, tx: Optimizer, *,
+                        head: Optional[str] = None, dropout: bool = True):
+    """NSP-scoring step for ``NSPCPT`` / ``VCRQAR_NSPCPT`` (``head`` "ans"
+    or "rat" for the twin-head model): ``step(state, batch, generator)`` →
+    (state, loss), ``batch`` = (input_ids, segment_ids, attention_mask,
+    img_feats, labels [N], −1 on padded slots). The loss is the NSP cross
+    entropy; dropout as in :func:`make_mlm_train_step`."""
+    kwargs = {} if head is None else {"head": head}
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+             ) -> Tuple[TrainState, torch.Tensor]:
+        input_ids, segment_ids, attention_mask, img_feats, labels = batch
+        model.train(dropout)
+        loss, _ = model(input_ids, segment_ids, attention_mask,
+                        img_feats=img_feats, next_sentence_label=labels,
+                        generator=generator if dropout else None, **kwargs)
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         tx.update(grads, state.opt_state, state.params)
         state.step += 1

@@ -1,5 +1,8 @@
-"""The masked-LM head and ``REC_MLM_CPT`` (port of the RefCOCO scoring
-model of ``cpt_tpu/models/bert/heads.py``).
+"""The CPT task models of ``cpt_tpu/models/bert/heads.py``: the masked-LM
+head and ``REC_MLM_CPT`` (RefCOCO color-word scoring), and the NSP head
+with ``NSPCPT`` and the twin-head ``VCRQAR_NSPCPT`` (VCR candidate
+scoring). Each model's ``TASK`` names its parameter layout in
+``utils/convert.py``.
 
 The decoder is tied to the word-embedding table, read at call time and
 cast to the compute dtype there (separately from the embedding lookup,
@@ -60,6 +63,8 @@ class BertLMPredictionHead(nn.Module):
 class REC_MLM_CPT(nn.Module):
     """RefCOCO / GQA / VG CPT model: masked-LM color-word scoring."""
 
+    TASK = "rec_mlm_cpt"
+
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
@@ -93,3 +98,69 @@ class REC_MLM_CPT(nn.Module):
         if masked_lm_labels is None:
             return None, logits
         return cross_entropy_ignore_index(logits, masked_lm_labels), logits
+
+
+class SeqRelationshipHead(nn.Module):
+    """NSP head: Linear(hidden → num_classes) on the pooled [CLS] state."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype):
+        super().__init__()
+        self.dense = Dense(config.hidden_size, config.num_contrast_classes,
+                           dtype)
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.dense(pooled)
+
+
+class NSPCPT(nn.Module):
+    """VCR CPT model: the pretrained NSP head scores each candidate pair."""
+
+    TASK = "nsp_cpt"
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.bert = BertImgModel(config, dtype)
+        self.nsp_head = SeqRelationshipHead(config, dtype)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                img_feats=None, next_sentence_label=None,
+                generator: Optional[torch.Generator] = None):
+        """→ (loss, logits [N, 2]); the loss is the cross entropy against
+        ``next_sentence_label`` [N] (−1 ignored), None without labels."""
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                              img_feats=img_feats, generator=generator)
+        logits = self.nsp_head(pooled)
+        if next_sentence_label is None:
+            return None, logits
+        return cross_entropy_ignore_index(logits, next_sentence_label), logits
+
+
+class VCRQAR_NSPCPT(nn.Module):
+    """VCR q→ar: twin NSP heads, ``cls_ans`` for answers and ``cls_rat``
+    for rationales; ``head`` ("ans" or "rat") picks one per call, and only
+    that head runs."""
+
+    TASK = "vcr_qar_nsp_cpt"
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.bert = BertImgModel(config, dtype)
+        self.cls_ans = SeqRelationshipHead(config, dtype)
+        self.cls_rat = SeqRelationshipHead(config, dtype)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                img_feats=None, next_sentence_label=None, head: str = "ans",
+                generator: Optional[torch.Generator] = None):
+        heads = {"ans": self.cls_ans, "rat": self.cls_rat}
+        if head not in heads:
+            raise ValueError(f"head must be 'ans' or 'rat', got {head!r}")
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                              img_feats=img_feats, generator=generator)
+        logits = heads[head](pooled)
+        if next_sentence_label is None:
+            return None, logits
+        return cross_entropy_ignore_index(logits, next_sentence_label), logits

@@ -26,7 +26,6 @@ reference layouts.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import tempfile
@@ -36,7 +35,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from cpt_tpu_torch.config.bert import OSCAR_BASE, BertConfig
+from cpt_tpu_torch.config.bert import BertConfig
 from cpt_tpu_torch.data.refcoco import (RefcocoCPTData, det_json_for_stage2,
                                         iter_eval_batches)
 from cpt_tpu_torch.engine.extract import (Extractor, make_detect_fn,
@@ -50,6 +49,7 @@ from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.models.detector.config import (VINVL_X152C4, DetectorConfig,
                                                   tiny_detector_config)
+from cpt_tpu_torch.tools._common import model_config
 from cpt_tpu_torch.tools.demo import canvas_anchors, run_detector
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
@@ -66,20 +66,15 @@ def bert_config(hidden_size: Optional[int] = None,
                 num_hidden_layers: Optional[int] = None,
                 img_feature_dim: int = 2054,
                 attention_impl: str = "auto") -> BertConfig:
-    """Oscar-base with the tool's size overrides (narrow widths get
-    hidden/16 heads and a 4× FFN, as the JAX tools do) and attention
-    backend (``"flash"``: every layer's attention core through kernel K6,
-    as ``dataclasses.replace(OSCAR_BASE, attention_impl="flash")`` does in
-    the JAX package)."""
-    kw = {"img_feature_dim": img_feature_dim, "attention_impl": attention_impl}
-    if num_hidden_layers is not None:
-        kw["num_hidden_layers"] = num_hidden_layers
-    if hidden_size is not None:
-        kw["hidden_size"] = hidden_size
-        if hidden_size < 768:
-            kw["num_attention_heads"] = max(1, hidden_size // 16)
-            kw["intermediate_size"] = hidden_size * 4
-    return dataclasses.replace(OSCAR_BASE, **kw)
+    """Oscar-base with the tool's size overrides (``_common.model_config``:
+    narrow widths get hidden/16 heads and a 4× FFN) and attention backend
+    (``"flash"``: every layer's attention core through kernel K6, as
+    ``dataclasses.replace(OSCAR_BASE, attention_impl="flash")`` does in the
+    JAX package)."""
+    sizes = argparse.Namespace(hidden_size=hidden_size,
+                               num_hidden_layers=num_hidden_layers)
+    return model_config(sizes, img_feature_dim=img_feature_dim,
+                        attention_impl=attention_impl)
 
 
 class Resident:
@@ -89,12 +84,13 @@ class Resident:
     (``models/detector/convert.py``, ``utils/convert.py``); a detector
     checkpoint without the attribute head loads (that head is not run
     here). ``windowed`` gives the extractor the windowed mode over
-    ``WINDOW_LADDER``."""
+    ``window`` (one (h, w) or a ladder) with ``halo``."""
 
     def __init__(self, det_cfg: DetectorConfig, det_state: dict,
                  bert_cfg: BertConfig, bert_state: dict,
                  tokenizer: BertTokenizer, device, dtype=torch.bfloat16,
-                 windowed: bool = False):
+                 windowed: bool = False, window=WINDOW_LADDER,
+                 halo: int = 160):
         with torch.device(device):
             self.detector = AttrRCNN(det_cfg, dtype).eval()
             self.oscar = REC_MLM_CPT(bert_cfg, dtype).eval()
@@ -112,7 +108,7 @@ class Resident:
         self.device = torch.device(device)
         self.extractor = Extractor(self.detector, det_cfg,
                                    copies_per_chunk=None, windowed=windowed,
-                                   window=WINDOW_LADDER)
+                                   window=window, halo=halo)
         self.detect_fn = make_detect_fn(self.detector, det_cfg,
                                         with_attributes=False)
         self.anchors = canvas_anchors(det_cfg, self.device)
@@ -248,13 +244,18 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
                    hidden_size: Optional[int] = None,
                    num_hidden_layers: Optional[int] = None,
                    attention_impl: str = "auto",
-                   windowed: bool = False) -> Resident:
+                   windowed: bool = False, window=WINDOW_LADDER,
+                   halo: int = 160,
+                   det_cfg: Optional[DetectorConfig] = None) -> Resident:
     """Both models from reference-layout checkpoints, or from random
     reference-layout state dicts drawn from ``seed`` when a checkpoint is
-    not given (VinVL X152-C4 and Oscar-base at full width unless ``tiny``).
-    ``attention_impl`` picks Oscar's attention backend (:func:`bert_config`);
-    ``windowed`` the extractor's windowed mode (:class:`Resident`)."""
-    det_cfg = tiny_detector_config() if tiny else VINVL_X152C4
+    not given (VinVL X152-C4 and Oscar-base at full width unless ``tiny``;
+    ``det_cfg`` replaces the detector's config). ``attention_impl`` picks
+    Oscar's attention backend (:func:`bert_config`); ``windowed``,
+    ``window`` and ``halo`` the extractor's windowed mode
+    (:class:`Resident`)."""
+    if det_cfg is None:
+        det_cfg = tiny_detector_config() if tiny else VINVL_X152C4
     bert_cfg = bert_config(hidden_size, num_hidden_layers,
                            region_feature_dim(det_cfg), attention_impl)
     if checkpoint:
@@ -271,7 +272,8 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
     tokenizer = BertTokenizer(vocab if vocab else toy_vocab())
     return Resident(det_cfg, det_state,
                     bert_cfg, bconv.state_from_reference(bert_sd, bert_cfg),
-                    tokenizer, torch.device(device), dtype, windowed)
+                    tokenizer, torch.device(device), dtype, windowed,
+                    window, halo)
 
 
 def main(argv=None) -> List[float]:

@@ -1,13 +1,19 @@
-"""Stage-1 extraction driver for RefCOCO colorful-prompt features (port of
-the ``--task refcoco`` path of ``cpt_tpu/tools/extract_features.py``).
+"""Stage-1 extraction tool for RefCOCO and VCR colorful-prompt features
+(port of the ``--task refcoco`` and ``--task vcr`` paths of
+``cpt_tpu/tools/extract_features.py``).
 
-Loads the VinVL X152-C4 detector, paints one colored copy of the image per
-candidate box on the device, extracts 2054-d region features in
-force-boxes mode and writes the interchange ``predictions.tsv``:
+Loads the VinVL X152-C4 detector, paints colored copies of each image on
+the device (RefCOCO: one per candidate box) or on the host (VCR: the
+entities' segmentation masks in up to ``--color_d`` palette colors, one
+copy), extracts 2054-d region features in force-boxes mode and writes the
+interchange ``predictions.tsv``:
 
   python -m cpt_tpu_torch.tools.extract_features --ann_file refs.json \\
       --det_file dets.json --image_root images/ --output predictions.tsv \\
       [--checkpoint vinvl_vg_x152c4.pth] [--precision int8|int8:<s>]
+  python -m cpt_tpu_torch.tools.extract_features --task vcr \\
+      --ann_file vcr_val.json --det_file dets.json --to_mark to_mark.json \\
+      --image_root vcr1images/ --output predictions.tsv
   python -m cpt_tpu_torch.tools.extract_features --synthetic 4 \\
       --output out.tsv --copies_per_chunk 4 --precision int8
   python -m cpt_tpu_torch.tools.extract_features --synthetic 8 --windowed \\
@@ -44,8 +50,9 @@ import time
 import numpy as np
 import torch
 
-from cpt_tpu_torch.data.prompts import REFCOCO_COLORS
-from cpt_tpu_torch.engine.extract import Extractor, refcoco_task
+from cpt_tpu_torch.data.prompts import CROSS_TASK_COLORS, REFCOCO_COLORS
+from cpt_tpu_torch.engine.extract import (Extractor, refcoco_payload,
+                                          refcoco_task, vcr_payload)
 from cpt_tpu_torch.engine.windowed import WINDOW_LADDER
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
@@ -54,7 +61,7 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
 
 # flags of the JAX tool this port does not run yet → their ROADMAP.md item
 _UNPORTED = {
-    "--task other than refcoco": "Queue 1 item 3 (the other CPT tasks)",
+    "--task gqa, vg or plain": "Queue 1 item 3 (the other CPT tasks)",
     "--yaml": "Queue 1 item 3 (the other CPT tasks)",
     "--config_file/--opts": "Queue 1 item 3 (the other CPT tasks)",
     "--labelmap": "Queue 1 item 3 (the other CPT tasks)",
@@ -69,9 +76,13 @@ def build_args():
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--task", default=None,
-                   help="refcoco (the only ported task; the default)")
+                   help="refcoco (the default) or vcr: the coloring scheme "
+                        "and the TSV payload layout")
     p.add_argument("--ann_file", default=None)
     p.add_argument("--det_file", default=None)
+    p.add_argument("--to_mark", default=None,
+                   help="vcr, the reference's annot_id layout: {img_id: "
+                        "{boxes, names}} json")
     p.add_argument("--image_root", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="vinvl_vg_x152c4.pth (reference layout, a "
@@ -88,7 +99,10 @@ def build_args():
     p.add_argument("--color_rgb", default=None,
                    help="paint-color override, 'R-G-B'")
     p.add_argument("--color_d", type=int, default=None,
-                   help="paint alpha of the color override")
+                   help="refcoco: paint alpha of the color override "
+                        "(refcocodataset.py:359); vcr: number of palette "
+                        "colors painted, 0 = the uncolored 'pt' variant "
+                        "(vcrdataset.py:127)")
     p.add_argument("--copies_per_chunk", type=int, default=None,
                    help="fixed chunk size; default auto (a pixel budget)")
     p.add_argument("--resize", action="store_true",
@@ -139,8 +153,8 @@ def refuse(what: str) -> SystemExit:
 
 
 def check_ported(args) -> None:
-    for flag, asked in (("--task other than refcoco",
-                         args.task not in (None, "refcoco")),
+    for flag, asked in (("--task gqa, vg or plain",
+                         args.task not in (None, "refcoco", "vcr")),
                         ("--yaml", args.yaml),
                         ("--config_file/--opts",
                          args.config_file or args.opts is not None),
@@ -193,6 +207,17 @@ def load_image(path, pad_h, pad_w, resize_min=None, resize_max=None):
     return arr, arr.shape[:2]
 
 
+def load_task_image(args, cfg, path: str, orig_h=None):
+    """An annotation's image under ``--image_root``, resized by the
+    min/max-size rule with ``--resize`` → (array, (h, w), the scale of its
+    boxes: the resized height over ``orig_h``, 1.0 without both)."""
+    img, hw = load_image(
+        os.path.join(args.image_root, path), cfg.input.pad_h, cfg.input.pad_w,
+        resize_min=cfg.input.min_size_test if args.resize else None,
+        resize_max=cfg.input.max_size_test if args.resize else None)
+    return img, hw, hw[0] / float(orig_h) if args.resize and orig_h else 1.0
+
+
 def paint_color(args):
     """The paint color: the production red, or the --color_* override."""
     name, rgba = REFCOCO_COLORS[0]
@@ -241,8 +266,9 @@ def build_detector(cfg, args) -> AttrRCNN:
 
 
 def tasks(args, cfg, color):
-    """The RefCOCO tasks to extract: ``--synthetic`` queries (the JAX tool's
-    fixture: per-query seeds, three fixed boxes) or the annotations."""
+    """The tasks to extract: ``--synthetic`` RefCOCO queries (the JAX tool's
+    fixture: per-query seeds, three fixed boxes) or the annotations'
+    (``--task vcr``: :func:`vcr_tasks`)."""
     if args.synthetic is not None:
         for q in shard(list(range(args.synthetic)), args):
             rq = np.random.RandomState(1000 + q)
@@ -254,23 +280,81 @@ def tasks(args, cfg, color):
                                dets, f"the red thing {q}")
         return
     anns = shard_and_sample(json.load(open(args.ann_file)), args)
+    if args.task == "vcr":
+        yield from vcr_tasks(args, cfg, anns)
+        return
     det_dic = json.load(open(args.det_file))
     for ann in anns:
         name = ann["file_name"]
         rawdets = det_dic[str(int(name.replace(".jpg", "").split("_")[-1]))]
         if rawdets and isinstance(rawdets[0], dict) and "rle" in rawdets[0]:
             raise refuse("SEG (rle) dets")
-        dets = np.asarray([d["box"] for d in rawdets], np.float32)
-        dets[:, 2] = dets[:, 0] + dets[:, 2] - 1      # xywh → inclusive xyxy
-        dets[:, 3] = dets[:, 1] + dets[:, 3] - 1
-        img, hw = load_image(
-            os.path.join(args.image_root, name), cfg.input.pad_h,
-            cfg.input.pad_w,
-            resize_min=cfg.input.min_size_test if args.resize else None,
-            resize_max=cfg.input.max_size_test if args.resize else None)
-        sc = hw[0] / float(ann["height"]) if args.resize and ann.get("height") else 1.0
+        dets = xywh_to_xyxy([d["box"] for d in rawdets])
+        img, hw, sc = load_task_image(args, cfg, name, ann.get("height"))
         yield refcoco_task(str(ann["id"]), img, hw, dets * sc, ann["caption"],
                            color=color)
+
+
+def xywh_to_xyxy(dets) -> np.ndarray:
+    """[[x, y, w, h], ...] → inclusive xyxy boxes."""
+    dets = np.asarray(dets, np.float32)
+    dets[:, 2] = dets[:, 0] + dets[:, 2] - 1
+    dets[:, 3] = dets[:, 1] + dets[:, 3] - 1
+    return dets
+
+
+def _scale_poly(poly, sc):
+    # the multi-part test of rasterize_polygon: an empty first part
+    # ([[], [...]]) still marks a list of parts, not a point list
+    if len(poly) and (not len(poly[0]) or hasattr(poly[0][0], "__len__")):
+        return [_scale_poly(part, sc) for part in poly]
+    return [[float(x) * sc, float(y) * sc] for x, y, *_ in poly]
+
+
+def scale_polys(polys, sc):
+    """--resize scales the canvas and dets; the segm polygons follow, or
+    the painted masks land at original-size coordinates."""
+    if sc == 1.0:
+        return polys
+    return {k: _scale_poly(p, sc) for k, p in polys.items()}
+
+
+def vcr_tasks(args, cfg, anns):
+    """The VCR tasks of the annotations, in either layout of the JAX tool:
+    the reference's own (``annot_id``: mixed-token sentences, ``--to_mark``
+    {img_id: {boxes, names}}, [name, xyxy] dets and a per-image
+    ``<img>.json`` of segms, vcrdataset.py:139-172), or ``img_key`` records
+    that carry their entity groups, polygons and names, with xywh dets.
+    ``--color_d`` palette colors are painted (6 by default, at most the
+    palette's size: the reference fails past it, vcrdataset.py:231)."""
+    from cpt_tpu_torch.data.stage1_tasks import vcr_color_task, vcr_entity_groups
+
+    color_d = min(args.color_d if args.color_d is not None else 6,
+                  len(CROSS_TASK_COLORS))
+    det_dic = json.load(open(args.det_file))
+    to_mark = json.load(open(args.to_mark)) if args.to_mark else {}
+    for ann in anns:
+        if "annot_id" in ann:
+            img_id = ann["img_id"]
+            names = dict(enumerate(to_mark[img_id]["names"]))
+            with open(os.path.join(args.image_root, ann["img_path"].replace(
+                    ".jpg", ".json"))) as f:
+                polys = dict(enumerate(json.load(f)["segms"]))
+            vis, txt = vcr_entity_groups(ann)
+            dets = np.asarray([d[1] for d in det_dic[img_id]], np.float32)
+            img, hw, sc = load_task_image(args, cfg, ann["img_path"],
+                                          ann.get("h"))
+            yield vcr_color_task(ann["annot_id"], img, hw, dets * sc, vis,
+                                 scale_polys(polys, sc), names,
+                                 color_d=color_d, txt_entity_ids=txt)
+            continue
+        dets = xywh_to_xyxy([d["box"] for d in det_dic[ann["img_key"]]])
+        img, hw, sc = load_task_image(args, cfg, ann["img_path"], ann.get("h"))
+        polys = {int(k): v for k, v in ann["entity_polygons"].items()}
+        names = {int(k): v for k, v in ann["entity_names"].items()}
+        yield vcr_color_task(ann["img_key"], img, hw, dets * sc,
+                             ann["entity_ids"], scale_polys(polys, sc), names,
+                             color_d=color_d)
 
 
 def main(argv=None) -> dict:
@@ -293,7 +377,8 @@ def main(argv=None) -> dict:
                           windowed=args.windowed, window=windows,
                           allow_approximate=args.allow_approximate)
     t0 = time.time()
-    extractor.run(tasks(args, cfg, paint_color(args)), args.output)
+    extractor.run(tasks(args, cfg, paint_color(args)), args.output,
+                  payload_fn=vcr_payload if args.task == "vcr" else refcoco_payload)
     dt = time.time() - t0
     routes = (f"; {extractor.windowed_mode} windowed, copies by window "
               f"{extractor.route_copies}" if extractor.windowed else "")

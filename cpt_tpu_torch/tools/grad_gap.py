@@ -1,6 +1,7 @@
 """Gradient and loss-curve gaps of ``REC_MLM_CPT`` prompt tuning between
 model variants (attention backend × compute dtype) on the same weights and
-batches.
+batches. Its pieces also take ``NSPCPT`` and VCR-shaped NSP batches
+(:func:`nsp_batch`), which ``chip_smoke.py`` holds to the same gaps.
 
     python -m cpt_tpu_torch.tools.grad_gap [--batch 4] [--steps 10] [--device cuda|cpu]
 
@@ -61,20 +62,42 @@ def synthetic_batch(cfg: BertConfig, n: int, seed: int, device,
     return tuple(torch.from_numpy(a).to(device) for a in arrays)
 
 
+def nsp_batch(cfg: BertConfig, n: int, seed: int, device, text: int = 80,
+              regions: int = 60) -> Tuple[torch.Tensor, ...]:
+    """(input_ids, segment_ids, attention_mask, img_feats, labels): VCR-shaped
+    NSP sequences (a question in segment 0, then a candidate in segment 1
+    from a drawn split point), the text and regions of
+    :func:`synthetic_batch`, and one label a sequence: 0 on the first of
+    each group of 4 candidates, 1 on the others."""
+    ids, _, mask, feats, _, _ = synthetic_batch(cfg, n, seed, device, text,
+                                                regions)
+    split = np.random.RandomState(seed + 1).randint(8, 20, n)
+    seg = (torch.arange(text, device=device)[None]
+           >= torch.from_numpy(split).to(device)[:, None]) & (mask[:, :text] > 0)
+    labels = torch.from_numpy((np.arange(n) % 4 != 0).astype(np.int64))
+    return ids, seg.long(), mask, feats, labels.to(device)
+
+
 def build(state: Dict[str, torch.Tensor], cfg: BertConfig, dtype, device,
-          **config_changes) -> REC_MLM_CPT:
+          model_cls=REC_MLM_CPT, **config_changes):
     with torch.device(device):
-        model = REC_MLM_CPT(dataclasses.replace(cfg, **config_changes), dtype)
+        model = model_cls(dataclasses.replace(cfg, **config_changes), dtype)
     model.load_state_dict(state)
     return model.eval()
 
 
-def step_grads(model: REC_MLM_CPT, batch) -> Tuple[float, Dict[str, torch.Tensor]]:
-    """(loss, f32 gradient of every parameter) of one step at [MASK] with
-    dropout off; a parameter the loss does not reach gets zeros."""
-    ids, seg, mask, feats, pos, labels = batch
-    _, at_mask = model.eval()(ids, seg, mask, img_feats=feats, mask_pos=pos)
-    loss = cross_entropy_ignore_index(at_mask, labels)
+def step_grads(model, batch) -> Tuple[float, Dict[str, torch.Tensor]]:
+    """(loss, f32 gradient of every parameter) of one step with dropout off:
+    at [MASK] for ``REC_MLM_CPT``, the NSP loss for ``NSPCPT`` (batches of
+    :func:`nsp_batch`); a parameter the loss does not reach gets zeros."""
+    if model.TASK == "nsp_cpt":
+        ids, seg, mask, feats, labels = batch
+        loss, _ = model.eval()(ids, seg, mask, img_feats=feats,
+                               next_sentence_label=labels)
+    else:
+        ids, seg, mask, feats, pos, labels = batch
+        _, at_mask = model.eval()(ids, seg, mask, img_feats=feats, mask_pos=pos)
+        loss = cross_entropy_ignore_index(at_mask, labels)
     params = dict(model.named_parameters())
     grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return float(loss.detach()), {

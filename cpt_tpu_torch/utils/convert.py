@@ -1,14 +1,17 @@
-"""Oscar BERT weights → the port's ``REC_MLM_CPT`` state dict (port of
-``cpt_tpu/utils/convert.py``).
+"""Oscar BERT weights → the state dict of one of the port's CPT task models
+(port of ``cpt_tpu/utils/convert.py``). ``task`` names the model, as
+``params_for_task`` does: ``"rec_mlm_cpt"`` (``REC_MLM_CPT``, the MLM
+head), ``"nsp_cpt"`` (``NSPCPT``, the NSP head) or ``"vcr_qar_nsp_cpt"``
+(``VCRQAR_NSPCPT``, twin copies of the NSP head).
 
 * :func:`state_from_reference` — the Oscar ``pytorch_model.bin`` layout
-  (``bert.*`` + ``cls.predictions.*``), loaded natively: the three
-  ``(out, in)`` Q/K/V linears pack into one ``wqkv [H, 3H]`` (columns
-  ``[q|k|v]``), linears become ``[in, out]`` kernels, the tied
-  ``cls.predictions.decoder.weight`` is dropped (the head reads the
-  embedding table), as ``convert_bert_state_dict`` +
-  ``params_for_task(..., "rec_mlm_cpt")`` do.
-* :func:`params_from_jax` — the JAX ``REC_MLM_CPT`` parameter tree, by
+  (``bert.*`` + ``cls.predictions.*`` + ``cls.seq_relationship.*``),
+  loaded natively: the three ``(out, in)`` Q/K/V linears pack into one
+  ``wqkv [H, 3H]`` (columns ``[q|k|v]``), linears become ``[in, out]``
+  kernels, the tied ``cls.predictions.decoder.weight`` is dropped (the
+  head reads the embedding table), as ``convert_bert_state_dict`` +
+  ``params_for_task`` do.
+* :func:`params_from_jax` — the JAX task model's parameter tree, by
   :func:`jax_paths` (each port parameter's path in that tree).
 
 :func:`random_oscar_state_dict` draws random weights in the reference
@@ -39,9 +42,23 @@ def _tensors(d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in d.items()}
 
 
-def state_from_reference(sd: Mapping[str, Any], config: BertConfig
-                         ) -> Dict[str, torch.Tensor]:
-    """``BertImgForPreTraining`` state dict → port ``REC_MLM_CPT`` state dict."""
+TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt")
+# the task models' NSP heads: the one head of NSPCPT, the twin heads of
+# VCRQAR_NSPCPT (both copies of the pretrained ``cls.seq_relationship``)
+NSP_HEADS = {"rec_mlm_cpt": (), "nsp_cpt": ("nsp_head",),
+             "vcr_qar_nsp_cpt": ("cls_ans", "cls_rat")}
+
+
+def _check_task(task: str) -> None:
+    if task not in TASKS:
+        raise ValueError(f"unknown task {task!r}; one of {TASKS}")
+
+
+def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
+                         task: str = "rec_mlm_cpt") -> Dict[str, torch.Tensor]:
+    """``BertImgForPreTraining`` state dict → the port's state dict of the
+    ``task`` model."""
+    _check_task(task)
     sd = {k: _np(v) for k, v in sd.items()}
     if "bert.embeddings.word_embeddings.weight" not in sd:
         # another nesting (e.g. a "module." DDP wrapper): suffix-align onto
@@ -63,15 +80,22 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig
         "bert.img_embedding.bias": sd["bert.img_embedding.bias"],
         "bert.pooler.dense.kernel": sd["bert.pooler.dense.weight"].T,
         "bert.pooler.dense.bias": sd["bert.pooler.dense.bias"],
-        "mlm_head.transform.dense.kernel":
-            sd["cls.predictions.transform.dense.weight"].T,
-        "mlm_head.transform.dense.bias": sd["cls.predictions.transform.dense.bias"],
-        "mlm_head.transform.LayerNorm.scale":
-            sd["cls.predictions.transform.LayerNorm.weight"],
-        "mlm_head.transform.LayerNorm.bias":
-            sd["cls.predictions.transform.LayerNorm.bias"],
-        "mlm_head.bias": sd["cls.predictions.bias"],
     }
+    if task == "rec_mlm_cpt":
+        out.update({
+            "mlm_head.transform.dense.kernel":
+                sd["cls.predictions.transform.dense.weight"].T,
+            "mlm_head.transform.dense.bias":
+                sd["cls.predictions.transform.dense.bias"],
+            "mlm_head.transform.LayerNorm.scale":
+                sd["cls.predictions.transform.LayerNorm.weight"],
+            "mlm_head.transform.LayerNorm.bias":
+                sd["cls.predictions.transform.LayerNorm.bias"],
+            "mlm_head.bias": sd["cls.predictions.bias"],
+        })
+    for head in NSP_HEADS[task]:
+        out[f"{head}.dense.kernel"] = sd["cls.seq_relationship.weight"].T
+        out[f"{head}.dense.bias"] = sd["cls.seq_relationship.bias"]
     if c.use_img_layernorm:
         out["bert.img_LayerNorm.scale"] = sd["bert.LayerNorm.weight"]
         out["bert.img_LayerNorm.bias"] = sd["bert.LayerNorm.bias"]
@@ -97,9 +121,11 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig
     return _tensors(out)
 
 
-def jax_paths(config: BertConfig) -> Dict[str, Tuple[str, ...]]:
+def jax_paths(config: BertConfig, task: str = "rec_mlm_cpt"
+              ) -> Dict[str, Tuple[str, ...]]:
     """Port state-dict name → the path of the same parameter in the JAX
-    ``REC_MLM_CPT`` tree (what optax masks and ``freeze_params`` see)."""
+    ``task`` model's tree (what optax masks and ``freeze_params`` see)."""
+    _check_task(task)
     c = config
     paths = {
         "bert.embeddings.word_embeddings": ("bert", "embeddings", "word_embeddings", "embedding"),
@@ -113,12 +139,15 @@ def jax_paths(config: BertConfig) -> Dict[str, Tuple[str, ...]]:
         "bert.img_embedding.bias": ("bert", "img_embedding", "bias"),
         "bert.pooler.dense.kernel": ("bert", "pooler", "dense", "kernel"),
         "bert.pooler.dense.bias": ("bert", "pooler", "dense", "bias"),
-        "mlm_head.transform.dense.kernel": ("mlm_head", "transform", "dense", "kernel"),
-        "mlm_head.transform.dense.bias": ("mlm_head", "transform", "dense", "bias"),
-        "mlm_head.transform.LayerNorm.scale": ("mlm_head", "transform", "LayerNorm", "scale"),
-        "mlm_head.transform.LayerNorm.bias": ("mlm_head", "transform", "LayerNorm", "bias"),
-        "mlm_head.bias": ("mlm_head", "bias"),
     }
+    if task == "rec_mlm_cpt":
+        for name in ("transform.dense.kernel", "transform.dense.bias",
+                     "transform.LayerNorm.scale", "transform.LayerNorm.bias",
+                     "bias"):
+            paths[f"mlm_head.{name}"] = ("mlm_head",) + tuple(name.split("."))
+    for head in NSP_HEADS[task]:
+        for leaf in ("kernel", "bias"):
+            paths[f"{head}.dense.{leaf}"] = (head, "dense", leaf)
     if c.use_img_layernorm:
         paths["bert.img_LayerNorm.scale"] = ("bert", "img_LayerNorm", "scale")
         paths["bert.img_LayerNorm.bias"] = ("bert", "img_LayerNorm", "bias")
@@ -137,18 +166,18 @@ def jax_paths(config: BertConfig) -> Dict[str, Tuple[str, ...]]:
     return paths
 
 
-def params_from_jax(tree: Mapping[str, Any], config: BertConfig
-                    ) -> Dict[str, torch.Tensor]:
-    """JAX ``REC_MLM_CPT`` params (``{"params": ...}`` or the inner tree),
-    or any tree of that structure (gradients, optimizer moments) → port
-    state dict. The attention's ``[H, 3, heads, D]`` / ``[heads, D, H]``
+def params_from_jax(tree: Mapping[str, Any], config: BertConfig,
+                    task: str = "rec_mlm_cpt") -> Dict[str, torch.Tensor]:
+    """The JAX ``task`` model's params (``{"params": ...}`` or the inner
+    tree), or any tree of that structure (gradients, optimizer moments) →
+    port state dict. The attention's ``[H, 3, heads, D]`` / ``[heads, D, H]``
     kernels and ``[3, heads, D]`` bias flatten to the port's 2-D / 1-D."""
     t = tree.get("params", tree)
     h = config.hidden_size
     flat = {"attention.wqkv": (h, 3 * h), "attention.bqkv": (3 * h,),
             "attention.wo": (h, h)}
     out: Dict[str, np.ndarray] = {}
-    for name, path in jax_paths(config).items():
+    for name, path in jax_paths(config, task).items():
         a = _np(functools.reduce(operator.getitem, path, t))
         shape = flat.get(name.split(".", 4)[-1])
         out[name] = a.reshape(shape) if shape else a

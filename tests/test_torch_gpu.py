@@ -104,7 +104,7 @@ def _attn_faults_missed(want, faults, frac):
             if not float((f.float() - want.float()).abs().max()) > tol]
 
 
-@pytest.mark.parametrize("s_len", [37, 120])
+@pytest.mark.parametrize("s_len", [37, 78, 120, 140])
 def test_attention_kernel(dev, s_len):
     """The whole sub-block on chip_smoke's kind of inputs (``k3_inputs``:
     projections scaled so the scores spread, std ≈ 2; a QKV bias of std
@@ -132,9 +132,11 @@ def test_attention_kernel(dev, s_len):
     assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
-# Sequence lengths around the attention tiles' 64-row and 64-key edges, up
-# to the long-context 70 text + 950 region slots
-EDGE_S = [1, 15, 16, 17, 37, 63, 64, 65, 120, 127, 128, 129, 200, 1020]
+# Sequence lengths around the attention tiles' 64-row and 64-key edges, the
+# server's smallest bucket (70 text + 8 regions), VCR's 80 + 60 (the core's
+# streamed branch) and the long-context 70 text + 950 region slots
+EDGE_S = [1, 15, 16, 17, 37, 63, 64, 65, 78, 120, 127, 128, 129, 140, 200,
+          1020]
 
 
 def _pad_keys(t, dim, n):
@@ -596,7 +598,8 @@ def _flash_inputs(dev, b, h, s, d, bias, seed):
 
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (16, 12, 120, 64, "key"), (4, 12, 512, 64, "3d"), (2, 12, 2048, 64, "key"),
-    (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None)])
+    (16, 12, 140, 64, "key"), (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"),
+    (1, 2, 200, 128, None)])
 def test_flash_kernel(dev, b, h, s, d, bias):
     """K6 in bf16 against its plain version in f32 on the same inputs: the
     three main-path shapes and ragged S at head_dim 32/64/128. Uniform
@@ -688,7 +691,7 @@ def test_flash_launch_counter_counts(dev):
 
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None),
-    (2, 3, 300, 64, "3d")])
+    (2, 3, 300, 64, "3d"), (16, 12, 140, 64, "key")])
 def test_flash_backward_kernels(dev, b, h, s, d, bias):
     """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
     against the plain backward in f32 on the same inputs, within 2e-2 of

@@ -164,6 +164,15 @@ def test_prompts_and_tensorize_copy():
               "mask_pos", "valid"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert got.num_valid == want.num_valid == 2
+    # the VCR text: the palette, entity keys and textization
+    assert prompts.CROSS_TASK_COLORS == jprompts.CROSS_TASK_COLORS
+    colors, names = {"0": "red", "1_2": "blue"}, {"0": "person", "1_2": "people",
+                                                  "3": "dog"}
+    for sent in (["is", [0], "near", [2, 1], "?"], [[3], "runs"], []):
+        assert prompts.vcr_entity_key([2, 1]) == jprompts.vcr_entity_key([2, 1])
+        for colorful in (True, False):
+            assert (prompts.vcr_textize(sent, colors, names, colorful)
+                    == jprompts.vcr_textize(sent, colors, names, colorful))
 
 
 def test_tsv_copy(tmp_path):
@@ -283,3 +292,44 @@ def test_validate_checkpoints_host_copies(tmp_path):
     a, b = str(tmp_path / "a.tsv"), str(tmp_path / "b.tsv")
     assert vck.tsv_feature_dim(a) == jvck.tsv_feature_dim(a) == 7
     assert vck.tsv_feature_drift(a, b) == jvck.tsv_feature_drift(a, b)
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--hidden_size", "64"], ["--hidden_size", "1024", "--num_hidden_layers", "3"],
+    ["--model_size", "large", "--img_feature_dim", "134", "--drop_out", "0.2"],
+    ["--use_img_layernorm", "--classifier", "mlp", "--cls_hidden_scale", "3"]])
+def test_tools_common_copy(flags):
+    """``tools/_common.py``'s copies (the Oscar config from the flags, the
+    clip flag, the tokenizer, the dtype) give the originals' results."""
+    import argparse
+
+    from cpt_tpu.tools import _common as jcommon
+    from cpt_tpu_torch.tools import _common as common
+
+    def parse(m):
+        p = argparse.ArgumentParser()
+        for name in ("--hidden_size", "--num_hidden_layers", "--img_feature_dim",
+                     "--cls_hidden_scale"):
+            p.add_argument(name, type=int, default=None)
+        p.add_argument("--drop_out", type=float, default=None)
+        p.add_argument("--model_size", default="base")
+        p.add_argument("--classifier", default=None)
+        p.add_argument("--use_img_layernorm", action="store_true")
+        p.add_argument("--vocab", default=None)
+        p.add_argument("--dtype", default="float32")
+        m.add_clip_arg(p, "ref")
+        return p.parse_args(flags)
+
+    args, jargs = parse(common), parse(jcommon)
+    assert vars(args) == vars(jargs)
+    assert (dataclasses.asdict(common.model_config(args, attention_impl="flash"))
+            == dataclasses.asdict(jcommon.model_config(jargs,
+                                                       attention_impl="flash")))
+    assert common.clip_of(args) == jcommon.clip_of(jargs) == 1.0
+    args.max_grad_norm = jargs.max_grad_norm = 0.0
+    assert common.clip_of(args) is jcommon.clip_of(jargs) is None
+    assert common.build_tokenizer(args).vocab == jcommon.build_tokenizer(jargs).vocab
+    for dt in ("float32", "bfloat16"):
+        args.dtype = jargs.dtype = dt
+        assert str(common.dtype_of(args)).split(".")[-1] == jcommon.dtype_of(
+            jargs).__name__
