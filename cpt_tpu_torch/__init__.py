@@ -11,15 +11,20 @@ obvious JAX counterpart that its tests hold it against:
   structures/  box helpers and box decoding
   models/      the VinVL X152-C4 detector (force-boxes and RPN modes) and
                Oscar BERT
-  engine/      colored-copy extraction, RPN-mode detection, color-word
-               scoring, prompt-tuning training
-  data/        the RefCOCO stage-2 dataset (evaluation and training)
+  engine/      colored-copy extraction (rects or masks, full or windowed),
+               RPN-mode detection, color-word and NSP scoring,
+               prompt-tuning training, VG recall and ensembles
+  data/        stage-1 task builders and the RefCOCO, GQA, VG and VCR
+               stage-2 datasets
   tools/       the one-shot grounding entry point (cpt_predict, with
-               --dets or --detect), the detector demo's run_detector, the
-               RefCOCO CPT tool (refcoco_cpt: zero-shot eval, few-shot
-               prompt tuning), the RefCOCO stage-1 extraction driver
-               (extract_features, bf16 or W8A8 int8), grad_gap (bf16/flash
-               gradient gaps) and int8_gap (int8 feature gaps)
+               --dets or --detect), the server (serve), the detector
+               demo's run_detector, the task tools (refcoco_cpt, gqa_cpt,
+               vg_cpt, vcr_nsp_cpt: zero-shot eval, few-shot prompt
+               tuning; show_ensemble), the stage-1 extraction driver
+               (extract_features, bf16 or W8A8 int8) and its TSV helpers
+               (merge_shards, ext_objects, img_info), validate_checkpoints,
+               grad_gap (bf16/flash gradient gaps) and int8_gap (int8
+               feature gaps)
 
 Public functions keep the JAX package's layouts: NHWC feature maps,
 [B, S, H] hidden states, inclusive xyxy boxes.

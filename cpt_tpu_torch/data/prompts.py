@@ -1,18 +1,21 @@
-"""Colorful-prompt text for RefCOCO grounding and VCR (the port's copy of
-the RefCOCO and VCR parts of ``cpt_tpu/data/prompts.py``).
+"""Colorful-prompt text for RefCOCO grounding, VG relations, GQA and VCR
+(the port's copy of ``cpt_tpu/data/prompts.py`` without the soft prompt).
 
 Candidate regions are marked with semi-transparent colors and the task is
 reformulated as color-word prediction: the few-shot template
 ``"<caption> is in [MASK] color."`` with the color word prefixed to the
 colored object's od-label (reference
 ``Oscar/oscar/datasets/refcoco_fsl_cpt_dataset.py:47-66``), and the
-zero-shot template variants (``refcoco_zsl_cpt_dataset.py``). VCR names
-its entities in text by object name and paint color ("person in red",
-reference ``vcr_nsp_cpt.py:153-162``).
+zero-shot template variants (``refcoco_zsl_cpt_dataset.py``). VG asks for
+the relation of a red subject and a blue object through k = 1..3 [MASK]s
+with per-width "no relation" fillers (``vg_cpt_dataset.py:44-75``); GQA
+inserts color words into the question at the parsed entity positions
+(``gqa_cpt.py:238-250``). VCR names its entities in text by object name
+and paint color ("person in red", reference ``vcr_nsp_cpt.py:153-162``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 NONE_TOKEN = "none"
 # the RefCOCO paint color: one red, alpha 127 (refcocodataset.py:216)
@@ -28,6 +31,10 @@ CROSS_TASK_COLORS: List[Tuple[str, Tuple[int, int, int, int]]] = [
     ("purple", (155, 50, 210, 127)),
     ("green", (0, 255, 0, 127)),
 ]
+# VG's pair paint: subject red, object blue (vgdataset.py:93)
+VG_PAIR_COLORS: List[Tuple[int, int, int, int]] = [(240, 0, 30, 127),
+                                                   (0, 10, 255, 127)]
+VG_PAIR_COLOR_NAMES: Tuple[str, str] = ("red", "blue")
 
 
 def refcoco_fsl_prompt(caption: str) -> str:
@@ -67,6 +74,66 @@ def refcoco_zsl_prompt(caption: str, posi_tokens: Sequence[int],
         p = posi_tokens[0]
         return caption[:p] + "[MASK] " + caption[p:] + "."
     raise ValueError(f"unknown template {template}")
+
+
+REL_CANONICALIZE = {"has": "having", "wears": "wearing", "says": "saying"}
+VG_NA_FILLERS: Dict[int, str] = {0: "irrelevant", 1: "no relation",
+                                 2: " no relation with"}
+VG_MAX_MASK_WIDTH = 3
+
+
+def vg_subject_object_names(subj: str, obj: str,
+                            colors: Tuple[str, str] = VG_PAIR_COLOR_NAMES
+                            ) -> Tuple[str, str]:
+    return (f"{subj} in {colors[0]} color", f"{obj} in {colors[1]} color")
+
+
+def vg_prompt(subj: str, obj: str, mask_width: int,
+              colors: Tuple[str, str] = VG_PAIR_COLOR_NAMES) -> str:
+    s, o = vg_subject_object_names(subj, obj, colors)
+    return f"{s} is" + " [MASK]" * mask_width + f" a {o}"
+
+
+def vg_od_labels_with_colors(od_labels: Sequence[str], pair: Tuple[int, int],
+                             colors: Tuple[str, str] = VG_PAIR_COLOR_NAMES
+                             ) -> str:
+    def name(i: int, lbl: str) -> str:
+        if i == pair[0]:
+            return f"{colors[0]} {lbl}"
+        if i == pair[1]:
+            return f"{colors[1]} {lbl}"
+        return lbl
+
+    return " ".join(name(i, lbl) for i, lbl in enumerate(od_labels))
+
+
+def vg_filler_label_ids(rel_token_ids: Sequence[int],
+                        tokenize_fn: Callable[[str], Sequence[int]]
+                        ) -> List[List[int]]:
+    """Per-width label token lists: the true relation at its own width, the
+    "no relation" filler at the others (reference ``vg_cpt_dataset.py:71-74``)."""
+    labels = [list(tokenize_fn(VG_NA_FILLERS[i]))
+              for i in range(VG_MAX_MASK_WIDTH)]
+    labels[len(rel_token_ids) - 1] = list(rel_token_ids)
+    return labels
+
+
+def gqa_rewrite_question(question: str,
+                         positions_and_colors: Sequence[Tuple[Sequence[int], str]]
+                         ) -> str:
+    """Insert color words into the question at parsed entity end-positions.
+
+    ``positions_and_colors``: [((start, ...), color_name), ...], the stage-1
+    meta written next to the colored features; insertion is by character
+    position as the reference does it (``gqa_cpt.py:238-250``)."""
+    positions = [0] + [pc[0][0] for pc in positions_and_colors]
+    colors = [pc[1] for pc in positions_and_colors]
+    out: List[str] = []
+    for i in range(len(positions) - 1):
+        out.append(question[positions[i]:positions[i + 1]])
+        out.append(colors[i] + " ")
+    out.append(question[positions[-1]:])
+    return "".join(out)
 
 
 def vcr_entity_key(ids: Sequence[int]) -> str:

@@ -1,7 +1,19 @@
-"""Stage-1 tasks for VCR (port of the VCR part of
-``cpt_tpu/data/stage1_tasks.py``).
+"""Stage-1 task builders: each task's colored-prompt ``ExtractTask`` (port
+of ``cpt_tpu/data/stage1_tasks.py``).
 
-``vcr_color_task`` paints the segmentation masks of the entities a VCR
+* ``gqa_mark_task`` paints the parsed question entities' boxes in the
+  6-color palette, one copy a question; its meta carries the rewrite
+  positions (``gqadataset.py:107-179``; painted with inclusive extents
+  ``max(x2-x1+1, 1)``, ``Image.new('RGBA', (x2-x1+1, y2-y1+1))`` at
+  gqadataset.py:153, so its tasks set ``inclusive_paint``).
+* ``vg_pair_task`` paints the subject red and the object blue, one copy a
+  pair (``vgdataset.py:93,134-158``).
+* ``plain_task`` paints nothing (GQA's plain features, ImgDataset).
+* ``parse_gqa_marks`` grounds question words to detection boxes by class
+  name (the functional stand-in of ``other/parse_gqa/myparse.py``'s
+  output, ``to_mark.json``).
+
+VCR: ``vcr_color_task`` paints the segmentation masks of the entities a VCR
 question refers to with up to ``color_d`` palette colors, and its meta
 carries the obj_colors / obj_names dicts keyed by sorted entity lists
 (``vcrdataset.py:120-288``). It is two steps: :func:`rasterize_polygon`
@@ -16,8 +28,107 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from cpt_tpu_torch.data.prompts import CROSS_TASK_COLORS, vcr_entity_key
+from cpt_tpu_torch.data.prompts import (CROSS_TASK_COLORS, VG_PAIR_COLORS,
+                                        VG_PAIR_COLOR_NAMES, vcr_entity_key)
 from cpt_tpu_torch.engine.extract import ExtractTask
+
+
+def gqa_mark_task(q_id: str, image_rgb: np.ndarray, image_hw, det_boxes,
+                  to_mark: Sequence[Tuple[Sequence[float], Sequence[int]]],
+                  n_color: int = 1,
+                  palette=CROSS_TASK_COLORS) -> ExtractTask:
+    """``to_mark``: [[box xyxy, char_positions], ...] from the question
+    parser; up to ``n_color`` entities painted (one copy per question)."""
+    marks = list(to_mark)[:n_color]
+    k = max(len(marks), 1)
+    rects = np.zeros((1, k, 4), np.float32)
+    valid = np.zeros((1, k), bool)
+    colors = np.zeros((1, k, 4), np.uint8)
+    positions_and_colors = []
+    for i, (box, char_pos) in enumerate(marks):
+        rects[0, i] = box
+        valid[0, i] = True
+        colors[0, i] = palette[i][1]
+        positions_and_colors.append([list(np.atleast_1d(char_pos).tolist()),
+                                     palette[i][0]])
+    return ExtractTask(
+        key=str(q_id), image_rgb=image_rgb, image_hw=image_hw,
+        det_boxes=np.asarray(det_boxes, np.float32),
+        copy_rects=rects, copy_rect_valid=valid, copy_colors_rgba=colors,
+        meta={"positions_and_colors": positions_and_colors},
+        inclusive_paint=True,
+    )
+
+
+def vg_pair_task(img_name: str, image_rgb: np.ndarray, image_hw, det_boxes,
+                 subj_idx: int, obj_idx: int, subj_name: str, obj_name: str,
+                 rel_label: str, pair_colors=VG_PAIR_COLORS,
+                 color_names=VG_PAIR_COLOR_NAMES) -> ExtractTask:
+    """One copy per (subject, object) pair: subject red, object blue
+    (``vgdataset.py:134-158``); key ``<img>_<s>_<o>``."""
+    det_boxes = np.asarray(det_boxes, np.float32)
+    rects = np.stack([det_boxes[subj_idx], det_boxes[obj_idx]])[None]
+    colors = np.asarray(pair_colors, np.uint8)[None]
+    return ExtractTask(
+        key=f"{img_name}_{subj_idx}_{obj_idx}",
+        image_rgb=image_rgb, image_hw=image_hw, det_boxes=det_boxes,
+        copy_rects=rects, copy_rect_valid=np.ones((1, 2), bool),
+        copy_colors_rgba=colors,
+        meta={"subj_obj_names": [subj_name, obj_name],
+              "colors": list(color_names), "rel_label": rel_label},
+    )
+
+
+def plain_task(img_key: str, image_rgb: np.ndarray, image_hw, det_boxes
+               ) -> ExtractTask:
+    """Uncolored extraction (GQA's plain features, ImgDataset): one copy,
+    no paint."""
+    return ExtractTask(
+        key=str(img_key), image_rgb=image_rgb, image_hw=image_hw,
+        det_boxes=np.asarray(det_boxes, np.float32),
+        copy_rects=np.zeros((1, 1, 4), np.float32),
+        copy_rect_valid=np.zeros((1, 1), bool),
+        copy_colors_rgba=np.zeros((1, 1, 4), np.uint8),
+    )
+
+
+STOPWORDS = {
+    "is", "are", "the", "a", "an", "what", "which", "who", "where", "how",
+    "there", "that", "this", "of", "on", "in", "to", "and", "or", "do",
+    "does", "you", "see", "any", "color", "kind", "type",
+}
+
+
+def parse_gqa_marks(question: str, det_boxes: Sequence[Sequence[float]],
+                    det_names: Sequence[str], max_marks: int = 1
+                    ) -> List[Tuple[List[float], List[int]]]:
+    """Ground question words to detection boxes by word / class-name match
+    (a word, or the word less a plural "s", equal to a class name; stop
+    words skipped; each box once) → [[box, [end char position]], ...], the
+    layout of the reference parser's ``to_mark.json``."""
+    marks = []
+    words = question.lower().split()
+    char_pos = 0
+    positions = []
+    for wt in words:
+        positions.append(char_pos)
+        char_pos += len(wt) + 1
+    used = set()
+    for wi, word in enumerate(words):
+        stripped = word.strip("?.,")
+        if stripped in STOPWORDS:
+            continue
+        for di, name in enumerate(det_names):
+            if di in used:
+                continue
+            if stripped == name.lower() or stripped == name.lower() + "s":
+                end = positions[wi] + len(stripped)
+                marks.append(([float(v) for v in det_boxes[di]], [end]))
+                used.add(di)
+                break
+        if len(marks) >= max_marks:
+            break
+    return marks
 
 
 def rasterize_polygon(polygon, h: int, w: int) -> np.ndarray:

@@ -5,8 +5,15 @@ RPN-mode detection (:func:`make_detect_fn`).
 
 The base image is uploaded once per query; all candidate-region copies are
 rendered on the device (``ops/render``) and run through the detector in
-chunks of copies. Output rows are bit-compatible with the reference TSV
-interchange (``inference_ref.py:95-192``).
+chunks of copies. The paint variants, one per reference dataset:
+
+  * rects, one color a copy          — RefCOCO (``refcocodataset.py``)
+  * K rects with their own colors    — GQA marks, VG subject/object pairs
+  * one binary mask a copy           — RefCOCO SEG (RLE masks)
+
+Output rows are bit-compatible with the reference TSV interchange
+(``inference_ref.py:95-192``); each task's payload layout is its
+``*_payload`` function below.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Callable, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,7 +29,7 @@ import torch
 from cpt_tpu_torch.engine import windowed as wnd
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN, region_features_2054
 from cpt_tpu_torch.models.detector.config import DetectorConfig
-from cpt_tpu_torch.ops.render import paste_rects, to_detector_input
+from cpt_tpu_torch.ops.render import paste_mask, paste_rects, to_detector_input
 from cpt_tpu_torch.structures.boxes import pad_boxes
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
@@ -35,7 +42,9 @@ class ExtractTask:
 
     Each copy paints up to K rects (``copy_rects [n_copies, K, 4]`` +
     ``copy_rect_valid [n_copies, K]``) and/or one binary mask
-    (``copy_masks [n_copies, H, W]``) with per-op RGBA colors.
+    (``copy_masks [n_copies, H, W]``) with per-op RGBA colors. Rects are
+    painted ``[x1, x2)`` of the inclusive box (RefCOCO, VG), or ``[x1, x2]``
+    with ``inclusive_paint`` (GQA).
     """
 
     key: str
@@ -50,6 +59,7 @@ class ExtractTask:
     copy_mask_colors: Optional[np.ndarray] = None  # [n_copies, 4] uint8
     copy_color_names: Optional[List[List[str]]] = None
     meta: Optional[dict] = None            # task-specific payload fields
+    inclusive_paint: bool = False
 
     @property
     def n_copies(self) -> int:
@@ -62,13 +72,17 @@ class ExtractTask:
 
 def make_extract_fn(model: AttrRCNN, cfg: DetectorConfig):
     """Chunk extractor over C copies with K rects each, painted ``[x1, x2)``
-    (the RefCOCO convention). Tensors live on the model's device; ``hw`` is
-    the true (h, w)."""
+    or, with ``inclusive``, ``[x1, x2]``; given ``masks`` ([C, H, W]
+    uint8, ``mask_colors`` [C, 4]) each copy then pastes its binary mask.
+    Tensors live on the model's device; ``hw`` is the true (h, w)."""
 
     @torch.inference_mode()
     def fn(image_u8, rects, rect_valid, colors, copy_valid, dets, det_valid,
-           hw):
-        copies = paste_rects(image_u8, rects, colors, rect_valid)
+           hw, masks=None, mask_colors=None, inclusive=False):
+        copies = paste_rects(image_u8, rects, colors, rect_valid,
+                             inclusive=inclusive)
+        if masks is not None:
+            copies = paste_mask(copies, masks, mask_colors)
         x = to_detector_input(copies, cfg.input.pixel_mean, dtype=model.dtype)
         out = model.forward_batch_force(x, hw, dets, det_valid)
         feats = region_features_2054(out["box_features"].float(),
@@ -116,10 +130,13 @@ class Extractor:
     def __init__(self, model: AttrRCNN, cfg: DetectorConfig,
                  copies_per_chunk: Optional[int] = 4,
                  windowed: bool = False, window=(512, 640), halo: int = 160,
-                 allow_approximate: bool = False):
+                 allow_approximate: bool = False,
+                 labelmap: Optional[Dict[int, str]] = None):
         """``copies_per_chunk=None`` → the largest power-of-two chunk whose
         canvas pixels fit ``AUTO_CHUNK_PIXEL_BUDGET``. Class names in the
-        TSV are the label ids (no label map, as ``cpt_predict`` runs).
+        TSV are ``labelmap``'s names of the label ids, or the ids where it
+        has none (no label map, as ``cpt_predict`` runs). Each task says
+        how its copies are painted (``ExtractTask``).
 
         ``windowed=True`` reuses one base map per task (``engine/windowed``)
         for copies whose paint fits a window; ``window`` is one (h, w) or a
@@ -134,6 +151,7 @@ class Extractor:
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.chunk = copies_per_chunk
+        self.labelmap = labelmap or {}
         self.fn = make_extract_fn(model, cfg)
         self.windowed = windowed
         self.windowed_mode = None
@@ -190,6 +208,9 @@ class Extractor:
                        "to override).", halo, rf_full, rf_early)
         return None
 
+    def class_name(self, label: int) -> str:
+        return self.labelmap.get(int(label), str(int(label)))
+
     def chunk_for(self, h: int, w: int, remaining: Optional[int] = None
                   ) -> int:
         """Fixed chunk if configured, else the largest power of two fitting
@@ -237,6 +258,21 @@ class Extractor:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _masks(self, task: ExtractTask, sel, n: int, hw) -> tuple:
+        """The masks and mask colors of the copies ``sel`` of ``task`` on
+        the (h, w) canvas, ``n`` slots (padding slots paint nothing), on
+        the device → (masks [n, h, w], colors [n, 4]); (None, None) for a
+        task without masks."""
+        if task.copy_masks is None:
+            return None, None
+        h, w = hw
+        masks = np.zeros((n, h, w), np.uint8)
+        colors = np.zeros((n, 4), np.uint8)
+        tm = task.copy_masks[sel][:, :h, :w]
+        masks[: len(tm), : tm.shape[1], : tm.shape[2]] = tm
+        colors[: len(tm)] = task.copy_mask_colors[sel]
+        return self._dev(masks), self._dev(colors)
+
     def base_maps(self, tasks: Sequence[ExtractTask]) -> list:
         """The windowed base maps of several tasks, one batched backbone
         call per canvas size; feed each back through ``extract_task(task,
@@ -266,10 +302,8 @@ class Extractor:
 
         ``base``: the task's windowed base map from :meth:`base_maps`, or
         None to compute it here; the full path ignores it."""
-        if task.copy_masks is not None:
-            raise NotImplementedError(
-                "mask-painted copies (the RefCOCO SEG task) are not ported")
-        if self.windowed and task.copy_rects is not None:
+        if self.windowed and (task.copy_rects is not None
+                              or task.copy_masks is not None):
             return self._extract_task_windowed(task, base)
         m = self.det_bucket_for(len(task.det_boxes))
         dets, det_valid = pad_boxes(task.det_boxes, m)
@@ -298,7 +332,9 @@ class Extractor:
                 colors[: end - start] = task.copy_colors_rgba[start:end]
             out = self.fn(image, self._dev(rects), self._dev(rect_valid),
                           self._dev(colors), self._dev(valid), dets_d,
-                          det_valid_d, hw)
+                          det_valid_d, hw,
+                          *self._masks(task, slice(start, end), chunk, (h, w)),
+                          inclusive=task.inclusive_paint)
             # keep device tensors: the next chunk's launches queue behind
             # this one's; the host copies happen once at the end
             for buf, arr in zip(all_out, out):
@@ -340,19 +376,26 @@ class Extractor:
         image, (h, w) = self._canvas(task)
 
         n = task.n_copies
-        k = task.copy_rects.shape[1]
-        rects_all = task.copy_rects
+        has_rects = task.copy_rects is not None
+        k = task.copy_rects.shape[1] if has_rects else 1
+        rects_all = (task.copy_rects if has_rects
+                     else np.zeros((n, k, 4), np.float32))
         colors_all = (task.copy_colors_rgba
                       if task.copy_colors_rgba is not None
                       else np.zeros((n, k, 4), np.uint8))
         rv_all = (task.copy_rect_valid if task.copy_rect_valid is not None
-                  else np.ones((n, k), bool))
+                  else np.full((n, k), has_rects))
+        # the window's target: the union of the rects and the mask's extent
+        target = rects_all
+        if task.copy_masks is not None:
+            mb = wnd.mask_bboxes(task.copy_masks)
+            target = np.concatenate([target, mb], 1) if has_rects else mb
         # route each copy to the smallest window its paint fits
         n_win = len(self.windows)
         assign = np.full(n, n_win, np.int32)
         origins_per = []
         for wi, win in enumerate(self.windows):
-            org, fits = wnd.window_origins(rects_all, win, (h, w), self.halo)
+            org, fits = wnd.window_origins(target, win, (h, w), self.halo)
             origins_per.append(org)
             assign[(assign == n_win) & fits] = wi
         routes = [(np.nonzero(assign == wi)[0], wi) for wi in range(n_win + 1)]
@@ -373,12 +416,12 @@ class Extractor:
                 args = (self._dev(rects_all[sel]), self._dev(rv_all[sel]),
                         self._dev(colors_all[sel]),
                         self._dev(np.ones(chunk, bool)), dets_d, det_valid_d,
-                        hw)
+                        hw, *self._masks(task, sel, chunk, (h, w)))
                 if wi < n_win:
                     out = self.wfns[wi](image, base, origins_per[wi][sel],
-                                        *args)
+                                        *args, inclusive=task.inclusive_paint)
                 else:
-                    out = self.fn(image, *args)
+                    out = self.fn(image, *args, inclusive=task.inclusive_paint)
                 parts.append((sel, out))
                 at += chunk
         # the device outputs are read once all chunks are queued
@@ -400,7 +443,7 @@ class Extractor:
         for c in range(task.n_copies):
             objs.append([{
                 "rect": [float(v) for v in task.det_boxes[b]],
-                "class": str(int(labels[c, b])),
+                "class": self.class_name(labels[c, b]),
                 "conf": float(scores[c, b]),
                 "feature": encode_feature(feats[c, b]),
             } for b in range(n_dets)])
@@ -411,8 +454,8 @@ class Extractor:
             payload_fn: Optional[Callable] = None) -> None:
         """Write one TSV row per task, its payload laid out by
         ``payload_fn(task, boxlists)`` (default :func:`refcoco_payload`;
-        :func:`vcr_payload` for VCR); consecutive queries over the same
-        image and boxes share one device batch. On the windowed path the
+        the ``*_payload`` function of the task otherwise); consecutive
+        queries over the same image and boxes share one device batch. On the windowed path the
         base passes of up to ``base_batch`` (default ``RUN_BASE_BATCH``)
         consecutive groups run as one batched call (:meth:`base_maps`); 1
         keeps one pass a task."""
@@ -458,11 +501,31 @@ def refcoco_payload(task: ExtractTask, objs) -> dict:
                         rect_lists]}
 
 
+def gqa_payload(task: ExtractTask, objs) -> dict:
+    """GQA's row: the one copy's boxes, then [positions_and_colors] for the
+    question rewrite (what ``data/gqa.GQACPTData`` reads)."""
+    return {"objects": [objs[0], [task.meta["positions_and_colors"]]]}
+
+
 def vcr_payload(task: ExtractTask, objs) -> dict:
     """VCR's row: the one copy's boxes, then [obj_colors, obj_names]
     (what ``data/vcr.VCRCPTData.load_features`` reads)."""
     return {"objects": [objs[0], [task.meta["obj_colors"],
                                   task.meta["obj_names"]]]}
+
+
+def vg_payload(task: ExtractTask, objs) -> dict:
+    """VG's row, the reference layout [[boxlist], color names, [subject,
+    object] names, relation] (``inference_vg.py:179-181``, read by
+    ``vg_cpt_dataset.py:103-121`` and ``data/vg.VGCPTData``)."""
+    return {"objects": [[objs[0]], task.meta["colors"],
+                        task.meta["subj_obj_names"],
+                        task.meta["rel_label"]]}
+
+
+def plain_payload(task: ExtractTask, objs) -> dict:
+    """The uncolored row: the boxes alone."""
+    return {"objects": objs[0]}
 
 
 def refcoco_task(key: str, image_rgb: np.ndarray, image_hw, det_boxes,
@@ -482,6 +545,32 @@ def refcoco_task(key: str, image_rgb: np.ndarray, image_hw, det_boxes,
     )
 
 
+def refcoco_mask_task(key: str, image_rgb: np.ndarray, image_hw, det_boxes,
+                      det_masks, caption: str,
+                      color=("red", (240, 0, 30, 127))) -> ExtractTask:
+    """RefCOCO SEG: the candidates carry segmentation masks and each copy
+    paints its mask instead of its rect (``refcocodataset.py:241-247``,
+    ``"rle" in rawdets[0]``, and the ``draw_rectangles`` mask branch
+    :294-300). ``copy_rects`` keep the boxes for the payload and the
+    windowed routing, painted at alpha 0: an exact no-op under the integer
+    blend ((img·255 + 127) // 255 == img). ``det_masks``: [n, H, W] binary
+    masks (RLE decoded on the host)."""
+    name, rgba = color
+    n = len(det_boxes)
+    det_boxes = np.asarray(det_boxes, np.float32)
+    no_paint = np.asarray((rgba[0], rgba[1], rgba[2], 0), np.uint8)
+    return ExtractTask(
+        key=key, image_rgb=image_rgb, image_hw=image_hw,
+        det_boxes=det_boxes, caption=caption,
+        copy_rects=det_boxes[:, None, :],
+        copy_rect_valid=np.ones((n, 1), bool),
+        copy_colors_rgba=np.tile(no_paint, (n, 1, 1)),
+        copy_color_names=[[name]] * n,
+        copy_masks=np.asarray(det_masks, np.uint8),
+        copy_mask_colors=np.tile(np.asarray(rgba, np.uint8), (n, 1)),
+    )
+
+
 def merge_tasks(tasks: List[ExtractTask]) -> ExtractTask:
     """Concatenate the copies of several queries over the same image and
     det boxes into one task."""
@@ -494,6 +583,8 @@ def merge_tasks(tasks: List[ExtractTask]) -> ExtractTask:
             raise ValueError("grouped tasks must share the image")
         if not np.array_equal(t.det_boxes, t0.det_boxes):
             raise ValueError("grouped tasks must share det boxes")
+        if t.inclusive_paint != t0.inclusive_paint:
+            raise ValueError("grouped tasks must share the paint convention")
 
     def cat(field):
         vals = [getattr(t, field) for t in tasks]

@@ -1,13 +1,15 @@
-"""Color-word scoring for RefCOCO grounding and NSP candidate scoring for
-VCR (port of the RefCOCO and VCR parts of ``cpt_tpu/engine/scoring.py``).
+"""Color-word and NSP scoring (port of ``cpt_tpu/engine/scoring.py``
+without its multi-device paths).
 
 Device side: one forward returning the MLM logits at each sequence's
 [MASK], or the NSP score of each sequence. Host side: the reference
 decision rules. RefCOCO (``Oscar/oscar/fewshot/refcoco_cpt.py:258-315``):
 per copy, score = logits[mask, color] / logits[mask, "none"]; the argmax
 over all copies of a query picks the box; accuracy = IoU(pred, gt) > 0.5.
-VCR (``vcr_nsp_cpt.py``): candidate score = 1 − softmax(NSP)[1], argmax
-over a question's candidates.
+GQA (``gqa_cpt.py:590-614``): argmax over the answer vocabulary's first
+tokens at the mask. VCR (``vcr_nsp_cpt.py``): candidate score =
+1 − softmax(NSP)[1], argmax over a question's candidates. VG's rule
+(``vg_cpt.py:255-306``) is ``data/vg.vg_predicate_scores``.
 """
 from __future__ import annotations
 
@@ -105,3 +107,10 @@ def refcoco_evaluate(model, data: RefcocoCPTData, tokenizer: BertTokenizer,
                 n_correct += xywh_iou(pred_xywh, ex.gt_bbox) > 0.5
                 n_total += 1
     return 100.0 * n_correct / max(n_total, 1), predictions
+
+
+def gqa_answer_scores(at_mask: np.ndarray, answer_token_ids: np.ndarray
+                      ) -> np.ndarray:
+    """[N, vocab] mask logits → [N, num_answers] scores over the answer
+    vocabulary's first tokens (reference ``gqa_cpt.py:590-614``)."""
+    return at_mask[:, answer_token_ids]

@@ -34,7 +34,8 @@ import torch
 
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN, region_features_2054
 from cpt_tpu_torch.models.detector.config import DetectorConfig
-from cpt_tpu_torch.ops.render import paste_rects, to_detector_input
+from cpt_tpu_torch.ops.render import (paste_mask, paste_rects,
+                                      to_detector_input)
 
 STRIDE = 16
 # the two-level mode splits the body after the stem and this many stages
@@ -132,22 +133,22 @@ def _start(start: int, size: int, dim: int) -> int:
     return int(min(max(start, 0), dim - size))
 
 
-def _check_args(window: Tuple[int, int], with_masks: bool) -> None:
-    if with_masks:
-        raise NotImplementedError(
-            "mask-painted windowed copies are not ported yet (ROADMAP.md "
-            "Queue 1 item 3, the RefCOCO SEG task)")
+def _check_args(window: Tuple[int, int]) -> None:
     if window[0] % STRIDE or window[1] % STRIDE:
         raise ValueError(f"window {window} is not a multiple of {STRIDE}")
 
 
 def crop_and_paint(image_u8: torch.Tensor, origins: np.ndarray,
                    window: Tuple[int, int], rects: torch.Tensor,
-                   rect_valid: torch.Tensor, colors: torch.Tensor
-                   ) -> torch.Tensor:
+                   rect_valid: torch.Tensor, colors: torch.Tensor,
+                   inclusive: bool = False,
+                   masks: Optional[torch.Tensor] = None,
+                   mask_colors: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per copy, the window of the canvas at its origin with the copy's
-    rects painted ``[x1, x2)`` (the RefCOCO convention), their offsets
-    subtracted → [C, wh, ww, 3] uint8."""
+    rects painted (``[x1, x2)``, or ``[x1, x2]`` with ``inclusive``), their
+    offsets subtracted, then, given ``masks`` ([C, H, W] on the canvas), the
+    same window of the copy's mask pasted in its ``mask_colors`` [C, 4] →
+    [C, wh, ww, 3] uint8."""
     wh, ww = window
     h, w = image_u8.shape[:2]
     crops = torch.stack([
@@ -156,7 +157,16 @@ def crop_and_paint(image_u8: torch.Tensor, origins: np.ndarray,
         for oy, ox in origins])
     off = torch.as_tensor(origins[:, [1, 0, 1, 0]], dtype=torch.float32,
                           device=rects.device)
-    return paste_rects(crops, rects - off[:, None, :], colors, rect_valid)
+    crops = paste_rects(crops, rects - off[:, None, :], colors, rect_valid,
+                        inclusive=inclusive)
+    if masks is None:
+        return crops
+    mh, mw = masks.shape[1:]
+    mcrops = torch.stack([
+        masks[i, _start(oy, wh, mh):_start(oy, wh, mh) + wh,
+              _start(ox, ww, mw):_start(ox, ww, mw) + ww]
+        for i, (oy, ox) in enumerate(origins)])
+    return paste_mask(crops, mcrops, mask_colors)
 
 
 def paste_windows(base: torch.Tensor, wfeats: torch.Tensor,
@@ -223,24 +233,26 @@ def make_base_early_fn(model: AttrRCNN, cfg: DetectorConfig):
 
 def make_windowed_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
                              window: Tuple[int, int] = (384, 512),
-                             halo: int = 96,
-                             with_masks: bool = False):
+                             halo: int = 96):
     """One level: per copy, the whole backbone on its painted window, the
     trimmed window map pasted into the base C4 map, the heads on the
     patched maps. ``fn(image_u8, base_feat, origins, rects, rect_valid,
-    colors, copy_valid, dets, det_valid, hw)`` → (feats [C, M, 2054],
-    labels, scores), as ``engine/extract.make_extract_fn``. Exact when
+    colors, copy_valid, dets, det_valid, hw, masks=None, mask_colors=None,
+    inclusive=False)`` → (feats [C, M, 2054], labels, scores), as
+    ``engine/extract.make_extract_fn``; the masks ([C, H, W] on the canvas)
+    are cropped to each copy's window. Exact when
     ``halo ≥ 2·RF`` of the whole body; below it the trim falls back to
     the halo itself (the approximate mode)."""
-    _check_args(window, with_masks)
+    _check_args(window)
     rf = backbone_receptive_field(cfg)
     t = min(-(-rf // STRIDE), halo // STRIDE)
 
     @torch.inference_mode()
     def fn(image_u8, base_feat, origins, rects, rect_valid, colors,
-           copy_valid, dets, det_valid, hw):
+           copy_valid, dets, det_valid, hw, masks=None, mask_colors=None,
+           inclusive=False):
         crops = crop_and_paint(image_u8, origins, window, rects, rect_valid,
-                               colors)
+                               colors, inclusive, masks, mask_colors)
         x = to_detector_input(crops, cfg.input.pixel_mean, dtype=model.dtype)
         patched = paste_windows(base_feat, model.backbone(x), origins, STRIDE,
                                 t, window, tuple(image_u8.shape[:2]))
@@ -252,7 +264,6 @@ def make_windowed_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
 def make_two_level_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
                               window: Tuple[int, int] = (512, 640),
                               halo: int = 160,
-                              with_masks: bool = False,
                               cascade: bool = False,
                               cascade_cap: int = 16):
     """Two-level exact windowed extraction: per copy, the stem and the
@@ -270,7 +281,7 @@ def make_two_level_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
     region reaches a map dimension, or at ``cascade_cap``; the remaining
     blocks run on the whole per-copy map. Same signature and outputs as
     :func:`make_windowed_extract_fn`."""
-    _check_args(window, with_masks)
+    _check_args(window)
     wh, ww = window
     map_stride = 4 * 2 ** (SPLIT_STAGE - 1)
     rf = backbone_receptive_field(cfg, SPLIT_STAGE)
@@ -325,9 +336,10 @@ def make_two_level_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
 
     @torch.inference_mode()
     def fn(image_u8, base_feat, origins, rects, rect_valid, colors,
-           copy_valid, dets, det_valid, hw):
+           copy_valid, dets, det_valid, hw, masks=None, mask_colors=None,
+           inclusive=False):
         crops = crop_and_paint(image_u8, origins, window, rects, rect_valid,
-                               colors)
+                               colors, inclusive, masks, mask_colors)
         x = to_detector_input(crops, cfg.input.pixel_mean, dtype=model.dtype)
         early = body.up_to(x, SPLIT_STAGE)
         del crops, x

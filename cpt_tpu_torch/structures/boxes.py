@@ -1,5 +1,6 @@
 """Box helpers (port of the host functions and ``decode_boxes`` of
-``cpt_tpu/structures/boxes.py``).
+``cpt_tpu/structures/boxes.py``): the scalar IoU of the eval rules, the
+pairwise IoU of VG's pair enumeration, box decoding and padding.
 
 Boxes are inclusive pixel xyxy with ``TO_REMOVE = 1`` (widths are
 ``x2 - x1 + 1``), exactly the reference's convention.
@@ -24,6 +25,21 @@ def xywh_iou(a, b) -> float:
     inter = iw * ih
     union = a[2] * a[3] + b[2] * b[3] - inter
     return inter / union if union > 0 else 0.0
+
+
+def box_iou_np(a, b) -> np.ndarray:
+    """Pairwise IoU [N, M] of inclusive xyxy boxes (+1 widths), in numpy
+    f32: the host-side pair enumeration of VG's pickle route."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    area = lambda x: (np.maximum(x[:, 2] - x[:, 0] + TO_REMOVE, 0.0)
+                      * np.maximum(x[:, 3] - x[:, 1] + TO_REMOVE, 0.0))
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.maximum(rb - lt + TO_REMOVE, 0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter,
+                              1e-10)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,

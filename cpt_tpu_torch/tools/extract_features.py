@@ -1,12 +1,18 @@
-"""Stage-1 extraction tool for RefCOCO and VCR colorful-prompt features
-(port of the ``--task refcoco`` and ``--task vcr`` paths of
-``cpt_tpu/tools/extract_features.py``).
+"""Stage-1 extraction tool for colorful-prompt features (port of
+``cpt_tpu/tools/extract_features.py`` without its config front end, its
+RPN-mode ``--image_dir`` pass and its multi-device options).
 
-Loads the VinVL X152-C4 detector, paints colored copies of each image on
-the device (RefCOCO: one per candidate box) or on the host (VCR: the
-entities' segmentation masks in up to ``--color_d`` palette colors, one
-copy), extracts 2054-d region features in force-boxes mode and writes the
-interchange ``predictions.tsv``:
+Loads the VinVL X152-C4 detector, paints colored copies of each image,
+extracts 2054-d region features in force-boxes mode and writes the
+interchange ``predictions.tsv``. ``--task`` picks the paint and the
+payload: ``refcoco`` one copy per candidate box in red (or, where the dets
+carry ``"rle"`` masks, the SEG variant: each candidate's mask painted);
+``gqa`` one copy per question, the entity the question names (``--to_mark``
+or, without it, ``stage1_tasks.parse_gqa_marks``) painted inclusively;
+``vcr`` the entities' segmentation masks in up to ``--color_d`` palette
+colors, composited on the host; ``vg`` one copy per subject/object pair
+(subject red, object blue; a pickle ``--ann_file`` in the reference's own
+layout expands every overlapping pair); ``plain`` no paint:
 
   python -m cpt_tpu_torch.tools.extract_features --ann_file refs.json \\
       --det_file dets.json --image_root images/ --output predictions.tsv \\
@@ -14,6 +20,16 @@ interchange ``predictions.tsv``:
   python -m cpt_tpu_torch.tools.extract_features --task vcr \\
       --ann_file vcr_val.json --det_file dets.json --to_mark to_mark.json \\
       --image_root vcr1images/ --output predictions.tsv
+  python -m cpt_tpu_torch.tools.extract_features --task gqa \\
+      --yaml gqa_testdev.yaml --labelmap VG-SGG-dicts.json --output p.tsv
+  python -m cpt_tpu_torch.tools.extract_features --task vg \\
+      --ann_file vg_test.pk --vocab_file VG-SGG-dicts.json \\
+      --image_root vg/ --output predictions.tsv
+
+``--yaml`` reads a task descriptor (``ann``, ``det``, ``image_root``,
+``to_mark``, ``vocab`` keys, the reference's ``prompt_feat/data/*/yamls``
+convention; needs PyYAML); ``--labelmap`` names the detector's classes in
+the TSV (``{"idx_to_label": {...}}`` or a flat map).
   python -m cpt_tpu_torch.tools.extract_features --synthetic 4 \\
       --output out.tsv --copies_per_chunk 4 --precision int8
   python -m cpt_tpu_torch.tools.extract_features --synthetic 8 --windowed \\
@@ -51,8 +67,10 @@ import numpy as np
 import torch
 
 from cpt_tpu_torch.data.prompts import CROSS_TASK_COLORS, REFCOCO_COLORS
-from cpt_tpu_torch.engine.extract import (Extractor, refcoco_payload,
-                                          refcoco_task, vcr_payload)
+from cpt_tpu_torch.engine.extract import (Extractor, gqa_payload,
+                                          plain_payload, refcoco_mask_task,
+                                          refcoco_payload, refcoco_task,
+                                          vcr_payload, vg_payload)
 from cpt_tpu_torch.engine.windowed import WINDOW_LADDER
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
@@ -61,11 +79,7 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
 
 # flags of the JAX tool this port does not run yet → their ROADMAP.md item
 _UNPORTED = {
-    "--task gqa, vg or plain": "Queue 1 item 3 (the other CPT tasks)",
-    "--yaml": "Queue 1 item 3 (the other CPT tasks)",
     "--config_file/--opts": "Queue 1 item 3 (the other CPT tasks)",
-    "--labelmap": "Queue 1 item 3 (the other CPT tasks)",
-    "SEG (rle) dets": "Queue 1 item 3 (the other CPT tasks)",
     "--image_dir": "Queue 1 item 5 (the detect path's entry points)",
     "--dp > 1": "Queue 1 item 9 (parallelism)",
     "--shard_by_process": "Queue 1 item 9 (parallelism)",
@@ -75,15 +89,27 @@ _UNPORTED = {
 def build_args():
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--task", default=None,
-                   help="refcoco (the default) or vcr: the coloring scheme "
-                        "and the TSV payload layout")
+    p.add_argument("--task", default="refcoco",
+                   choices=["refcoco", "gqa", "vcr", "vg", "plain"],
+                   help="the coloring scheme and the TSV payload layout")
     p.add_argument("--ann_file", default=None)
     p.add_argument("--det_file", default=None)
     p.add_argument("--to_mark", default=None,
-                   help="vcr, the reference's annot_id layout: {img_id: "
-                        "{boxes, names}} json")
+                   help="gqa: parsed entity marks {q_id: [[box, positions], "
+                        "...]} (parsed from the question where a q_id has "
+                        "none); vcr, the reference's annot_id layout: "
+                        "{img_id: {boxes, names}}")
+    p.add_argument("--yaml", default=None,
+                   help="task descriptor yaml with ann / det / image_root / "
+                        "to_mark / vocab keys (the reference's "
+                        "prompt_feat/data/*/yamls convention)")
     p.add_argument("--image_root", default=None)
+    p.add_argument("--labelmap", default=None,
+                   help="class names of the detector's labels in the TSV: "
+                        "json {\"idx_to_label\": {\"1\": name}} or {\"1\": name}")
+    p.add_argument("--vocab_file", default=None,
+                   help="idx_to_label vocab json of VG's pickle annotations "
+                        "(default: the task yaml's 'vocab' entry)")
     p.add_argument("--checkpoint", default=None,
                    help="vinvl_vg_x152c4.pth (reference layout, a "
                         "'module.'-wrapped one too) or a Detectron .pkl")
@@ -137,10 +163,8 @@ def build_args():
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without --checkpoint")
     # the JAX tool's flags that are not ported: each refuses with its item
-    p.add_argument("--yaml", default=None)
     p.add_argument("--config_file", default=None)
     p.add_argument("--opts", nargs="*", default=None)
-    p.add_argument("--labelmap", default=None)
     p.add_argument("--image_dir", default=None)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--shard_by_process", action="store_true")
@@ -153,12 +177,8 @@ def refuse(what: str) -> SystemExit:
 
 
 def check_ported(args) -> None:
-    for flag, asked in (("--task gqa, vg or plain",
-                         args.task not in (None, "refcoco", "vcr")),
-                        ("--yaml", args.yaml),
-                        ("--config_file/--opts",
+    for flag, asked in (("--config_file/--opts",
                          args.config_file or args.opts is not None),
-                        ("--labelmap", args.labelmap),
                         ("--image_dir", args.image_dir),
                         ("--dp > 1", args.dp > 1),
                         ("--shard_by_process", args.shard_by_process)):
@@ -188,6 +208,38 @@ def shard_and_sample(anns, args):
         rng.shuffle(anns)
         anns = anns[: args.n_shot]
     return anns
+
+
+def apply_yaml(args) -> None:
+    """Fill ``--ann_file``, ``--det_file``, ``--image_root``, ``--to_mark``
+    and ``--vocab_file`` that are not set from the ``--yaml`` descriptor;
+    a path is taken as it is where that file exists, else under the
+    descriptor's ``ann_root`` (default its directory), the reference's
+    ``find_file_path_in_yaml`` rule (load_files.py:67-76)."""
+    import yaml
+
+    with open(args.yaml) as f:
+        desc = yaml.safe_load(f) or {}
+    root = desc.get("ann_root", os.path.dirname(args.yaml))
+
+    def resolve(p):
+        return p if os.path.isfile(str(p)) else os.path.join(root, p)
+
+    if args.vocab_file is None and "vocab" in desc:
+        args.vocab_file = resolve(desc["vocab"])
+    for key, attr in (("ann", "ann_file"), ("det", "det_file"),
+                      ("image_root", "image_root"), ("to_mark", "to_mark")):
+        if key in desc and getattr(args, attr) is None:
+            setattr(args, attr, desc[key] if key == "image_root"
+                    else resolve(desc[key]))
+
+
+def load_labelmap(path: str) -> dict:
+    """{label id: class name} from a labelmap json (the VG-SGG-dicts
+    layout's ``idx_to_label``, or a flat map)."""
+    with open(path) as f:
+        lm = json.load(f)
+    return {int(k): v for k, v in lm.get("idx_to_label", lm).items()}
 
 
 def load_image(path, pad_h, pad_w, resize_min=None, resize_max=None):
@@ -265,10 +317,23 @@ def build_detector(cfg, args) -> AttrRCNN:
     return model
 
 
-def tasks(args, cfg, color):
+def scale_mask(mask, sc):
+    """--resize scaling of a decoded binary mask (nearest, so it keeps hard
+    edges as the resized paint rects do). Needs Pillow where sc ≠ 1."""
+    if sc == 1.0:
+        return mask
+    from PIL import Image
+
+    h, w = mask.shape
+    out = Image.fromarray(mask.astype(np.uint8)).resize(
+        (int(round(w * sc)), int(round(h * sc))), Image.NEAREST)
+    return np.asarray(out)
+
+
+def tasks(args, cfg, color, det_dic: dict):
     """The tasks to extract: ``--synthetic`` RefCOCO queries (the JAX tool's
-    fixture: per-query seeds, three fixed boxes) or the annotations'
-    (``--task vcr``: :func:`vcr_tasks`)."""
+    fixture: per-query seeds, three fixed boxes) or the annotations' under
+    ``--task``, whose dets ``det_dic`` holds (``--det_file``)."""
     if args.synthetic is not None:
         for q in shard(list(range(args.synthetic)), args):
             rq = np.random.RandomState(1000 + q)
@@ -279,20 +344,118 @@ def tasks(args, cfg, color):
             yield refcoco_task(f"syn{q}", img, (cfg.input.pad_h, cfg.input.pad_w),
                                dets, f"the red thing {q}")
         return
-    anns = shard_and_sample(json.load(open(args.ann_file)), args)
-    if args.task == "vcr":
-        yield from vcr_tasks(args, cfg, anns)
+    if args.task == "vg" and args.ann_file.endswith((".pk", ".pkl", ".pickle")):
+        yield from vg_pickle_tasks(args, cfg)
         return
-    det_dic = json.load(open(args.det_file))
+    with open(args.ann_file) as f:
+        anns = shard_and_sample(json.load(f), args)
+    if args.task == "vcr":
+        yield from vcr_tasks(args, cfg, anns, det_dic)
+    elif args.task == "gqa":
+        yield from gqa_tasks(args, cfg, anns, det_dic)
+    elif args.task in ("vg", "plain"):
+        yield from vg_or_plain_tasks(args, cfg, anns, det_dic)
+    else:
+        yield from refcoco_tasks(args, cfg, anns, det_dic, color)
+
+
+def refcoco_tasks(args, cfg, anns, det_dic: dict, color):
+    """One RefCOCO task per referring expression; an image whose dets carry
+    ``"rle"`` masks gives the SEG task (:func:`refcoco_mask_task`)."""
+    from cpt_tpu_torch.utils.rle import decode
+
     for ann in anns:
         name = ann["file_name"]
         rawdets = det_dic[str(int(name.replace(".jpg", "").split("_")[-1]))]
-        if rawdets and isinstance(rawdets[0], dict) and "rle" in rawdets[0]:
-            raise refuse("SEG (rle) dets")
         dets = xywh_to_xyxy([d["box"] for d in rawdets])
         img, hw, sc = load_task_image(args, cfg, name, ann.get("height"))
+        if rawdets and isinstance(rawdets[0], dict) and "rle" in rawdets[0]:
+            masks = np.stack([scale_mask(decode(d["rle"]), sc) for d in rawdets])
+            yield refcoco_mask_task(str(ann["id"]), img, hw, dets * sc, masks,
+                                    ann["caption"], color=color)
+            continue
         yield refcoco_task(str(ann["id"]), img, hw, dets * sc, ann["caption"],
                            color=color)
+
+
+def gqa_tasks(args, cfg, anns, det_dic: dict):
+    """One GQA task per question (VQA's annotations too, which spell the
+    question id "qid", vqadataset.py:63-140): the entity of ``--to_mark``, or
+    of :func:`stage1_tasks.parse_gqa_marks` on the question and the dets'
+    class names, painted; a question with no mark is skipped."""
+    from cpt_tpu_torch.data.stage1_tasks import gqa_mark_task, parse_gqa_marks
+
+    to_mark = {}
+    if args.to_mark:
+        with open(args.to_mark) as f:
+            to_mark = json.load(f)
+    for ann in anns:
+        key = str(ann.get("img_id", ann.get("img_path")))
+        q_id = ann.get("q_id", ann.get("qid"))
+        dets = np.asarray([d[1] if isinstance(d, list) else d["box"]
+                           for d in det_dic[key]], np.float32)
+        img, hw, sc = load_task_image(args, cfg, ann["img_path"], ann.get("h"))
+        marks = to_mark.get(str(q_id))
+        if marks is None:
+            names = [d[0] if isinstance(d, list) else d["class"]
+                     for d in det_dic[key]]
+            marks = parse_gqa_marks(ann["question"], dets.tolist(), names)
+        if not marks:
+            continue
+        yield gqa_mark_task(q_id, img, hw, dets * sc, marks)
+
+
+def vg_or_plain_tasks(args, cfg, anns, det_dic: dict):
+    """``--task vg``: one pair task per annotation (its subject and object
+    indices, names and relation); ``--task plain``: one unpainted task per
+    image. Both with xywh dets."""
+    from cpt_tpu_torch.data.stage1_tasks import plain_task, vg_pair_task
+
+    for ann in anns:
+        if args.task == "vg":
+            dets = xywh_to_xyxy([d["box"] for d in det_dic[ann["img"]]])
+            img, hw, sc = load_task_image(args, cfg, ann["img_path"],
+                                          ann.get("h"))
+            yield vg_pair_task(ann["img"], img, hw, dets * sc, ann["subj_idx"],
+                               ann["obj_idx"], ann["subj_name"],
+                               ann["obj_name"], ann["rel"])
+            continue
+        key = str(ann.get("img_id", ann.get("img_path")))
+        dets = xywh_to_xyxy([d["box"] for d in det_dic[key]])
+        img, hw, sc = load_task_image(args, cfg, ann["img_path"], ann.get("h"))
+        yield plain_task(key, img, hw, dets * sc)
+
+
+def vg_pickle_tasks(args, cfg):
+    """The reference's own VG layout (vgdataset.py:25-53): a pickle of
+    {img_path, width, height, boxes xyxy [N, 4], labels [N], relations
+    [R, 3]} records and an idx_to_label ``--vocab_file``, expanded to one
+    task per overlapping pair (subject < object; inclusive +1 IoU > 0), as
+    ``process_vg_data`` does (vgdataset.py:99-115)."""
+    import pickle
+
+    from cpt_tpu_torch.data.stage1_tasks import vg_pair_task
+    from cpt_tpu_torch.structures.boxes import box_iou_np
+
+    if args.vocab_file is None:
+        raise SystemExit("--task vg with pickle annotations needs --vocab_file "
+                         "(or a task --yaml with a 'vocab' entry)")
+    with open(args.ann_file, "rb") as f:
+        records = shard_and_sample(pickle.load(f), args)
+    with open(args.vocab_file) as f:
+        names = json.load(f)["idx_to_label"]
+    for d in records:
+        boxes = np.asarray(d["boxes"], np.float32)
+        iou = box_iou_np(boxes, boxes)
+        np.fill_diagonal(iou, -1.0)
+        labels = np.asarray(d["labels"]).astype(np.int64)
+        img, hw, sc = load_task_image(args, cfg, d["img_path"], d.get("height"))
+        for s, o in zip(*np.nonzero(iou > 0)):
+            if s >= o:
+                continue
+            yield vg_pair_task(d["img_path"], img, hw, boxes * sc, int(s),
+                               int(o), names[str(int(labels[s]))],
+                               names[str(int(labels[o]))], None)
 
 
 def xywh_to_xyxy(dets) -> np.ndarray:
@@ -319,7 +482,7 @@ def scale_polys(polys, sc):
     return {k: _scale_poly(p, sc) for k, p in polys.items()}
 
 
-def vcr_tasks(args, cfg, anns):
+def vcr_tasks(args, cfg, anns, det_dic: dict):
     """The VCR tasks of the annotations, in either layout of the JAX tool:
     the reference's own (``annot_id``: mixed-token sentences, ``--to_mark``
     {img_id: {boxes, names}}, [name, xyxy] dets and a per-image
@@ -331,7 +494,6 @@ def vcr_tasks(args, cfg, anns):
 
     color_d = min(args.color_d if args.color_d is not None else 6,
                   len(CROSS_TASK_COLORS))
-    det_dic = json.load(open(args.det_file))
     to_mark = json.load(open(args.to_mark)) if args.to_mark else {}
     for ann in anns:
         if "annot_id" in ann:
@@ -364,6 +526,8 @@ def main(argv=None) -> dict:
     when the output exists."""
     args = build_args().parse_args(argv)
     check_ported(args)
+    if args.yaml and args.synthetic is None:
+        apply_yaml(args)
     if os.path.dirname(args.output):
         os.makedirs(os.path.dirname(args.output), exist_ok=True)
     if os.path.exists(args.output) and not args.overwrite:
@@ -372,13 +536,22 @@ def main(argv=None) -> dict:
     cfg = detector_config(args)
     windows = [tuple(int(v) for v in w.split("x"))
                for w in args.windows.split(",") if w]
+    det_dic = {}
+    if args.det_file and args.synthetic is None:
+        with open(args.det_file) as f:
+            det_dic = json.load(f)
     extractor = Extractor(build_detector(cfg, args), cfg,
                           copies_per_chunk=args.copies_per_chunk,
                           windowed=args.windowed, window=windows,
-                          allow_approximate=args.allow_approximate)
+                          allow_approximate=args.allow_approximate,
+                          labelmap=(load_labelmap(args.labelmap)
+                                    if args.labelmap else None))
+    payload = {"refcoco": refcoco_payload, "gqa": gqa_payload,
+               "vcr": vcr_payload, "vg": vg_payload,
+               "plain": plain_payload}[args.task]
     t0 = time.time()
-    extractor.run(tasks(args, cfg, paint_color(args)), args.output,
-                  payload_fn=vcr_payload if args.task == "vcr" else refcoco_payload)
+    extractor.run(tasks(args, cfg, paint_color(args), det_dic), args.output,
+                  payload_fn=payload)
     dt = time.time() - t0
     routes = (f"; {extractor.windowed_mode} windowed, copies by window "
               f"{extractor.route_copies}" if extractor.windowed else "")

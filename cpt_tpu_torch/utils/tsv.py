@@ -1,5 +1,5 @@
 """Seekable TSV + .lineidx IO (the port's copy of the parts of
-``cpt_tpu/utils/tsv.py`` that the grounding path uses).
+``cpt_tpu/utils/tsv.py`` that the task paths use).
 
 Bit-compatible with the reference's TSV interchange format, the only
 interface between the detector stage and the VL stage: a plain
@@ -85,6 +85,21 @@ def tsv_writer(rows: Iterable[Sequence[str]], tsv_path: str) -> None:
             pos += len(data)
     os.replace(tsv_tmp, tsv_path)
     os.replace(idx_tmp, idx_path)
+
+
+def merge_tsv_shards(shard_paths: Sequence[str], out_path: str) -> None:
+    """Concatenate per-shard TSVs (``extract_features --total_step N
+    --cur_step i`` runs) into one file with a fresh lineidx: the explicit
+    form of the reference's shard loop (``prompt_feat/tools/cnt.py``,
+    ``cmds/gqa/ext.sh``)."""
+
+    def rows():
+        for p in shard_paths:
+            with open(p, "rb") as f:
+                for line in f:
+                    yield line.decode("utf-8").rstrip("\n").split("\t")
+
+    tsv_writer(rows(), out_path)
 
 
 def encode_feature(feat: np.ndarray) -> str:

@@ -132,6 +132,35 @@ def test_attention_kernel(dev, s_len):
     assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
+@pytest.mark.parametrize("b,s_len", [(128, 90), (48, 120)])
+def test_blocks_at_the_task_batches(dev, b, s_len):
+    """K3's block and K4 at GQA's eval batch (128 × (45 + 45)) and VG's
+    (48 × (70 + 50)) at full width, on chip_smoke's inputs: within the
+    tolerance of their plain versions in f32, and the shared GEMM's named
+    faults (with uniform attention for K3) miss it."""
+    import chip_smoke as cs
+
+    heads, hdim = 12, 768
+    args = cs.on_card(cs.k3_inputs(b, s_len, hdim, seed=s_len), dev)
+    fargs = [a.float() for a in args]
+    want = reference_attention_block(*fargs, num_heads=heads, eps=1e-12)
+    _close(fused_attention_block(*args, heads, 1e-12), want, 2e-2)
+    no_q = [a.clone() for a in fargs]
+    no_q[1][:, :hdim] = 0.0
+    no_q[2][:hdim] = 0.0
+    faults = {"uniform": reference_attention_block(*no_q, num_heads=heads,
+                                                   eps=1e-12)}
+    faults.update({f: cs.attention_block_with_fault(*fargs, heads, 1e-12, f)
+                   for f in cs.GEMM_FAULTS})
+    assert _attn_faults_missed(want, faults, 2e-2) == []
+    args = cs.on_card(cs.k4_inputs(b * s_len, hdim, 3072, seed=b), dev)
+    fargs = [a.float() for a in args]
+    want = reference_ffn(*fargs, 1e-12, False)
+    _close(fused_ffn(*args), want, 2e-2)
+    assert _attn_faults_missed(want, {f: cs.ffn_with_fault(*fargs, 1e-12, False, f)
+                                      for f in cs.GEMM_FAULTS}, 2e-2) == []
+
+
 # Sequence lengths around the attention tiles' 64-row and 64-key edges, the
 # server's smallest bucket (70 text + 8 regions), VCR's 80 + 60 (the core's
 # streamed branch) and the long-context 70 text + 950 region slots
@@ -443,6 +472,58 @@ def test_windowed_extraction_matches_full_path(dev):
         assert cs.feature_gap(bad[0], full[0]) > cs.WINDOW_TOL, fault
 
 
+def test_mask_copies_on_the_card(dev):
+    """RefCOCO SEG's mask copies in bf16 on the card (a deep tiny detector,
+    208x240 canvas): the two-level windowed route equals the full path
+    within chip_smoke's WINDOW_TOL with every route taken, and the full
+    path's features equal those of the same copies composited on the host
+    (``chip_smoke.host_paint`` of the masks' blend) and run unpainted, bit
+    for bit: the device paint is exact integer math."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.engine.extract import Extractor, refcoco_mask_task
+    from cpt_tpu_torch.models.detector import config as det_cfg
+    from cpt_tpu_torch.models.detector import convert as dconv
+    from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+
+    cfg = det_cfg.tiny_detector_config()
+    cfg = dataclasses.replace(
+        cfg, backbone=dataclasses.replace(cfg.backbone, stage_blocks=(1, 1, 6)),
+        input=dataclasses.replace(cfg.input, pad_h=208, pad_w=240,
+                                  buckets=((208, 240),)))
+    with torch.device(dev):
+        model = AttrRCNN(cfg, torch.bfloat16).eval()
+    model.load_state_dict(dconv.state_from_reference(
+        dconv.random_vinvl_state_dict(cfg, seed=8), cfg), strict=False)
+    rng = np.random.RandomState(12)
+    image = rng.randint(0, 256, (208, 240, 3)).astype(np.uint8)
+    boxes = np.asarray([[100, 96, 112, 108], [90, 88, 122, 124],
+                        [80, 72, 140, 128], [1, 1, 20, 20],
+                        [10, 10, 230, 200]], np.float32)
+    masks = cs.ellipse_masks(boxes, (208, 240))
+    task = refcoco_mask_task("q", image, (208, 240), boxes, masks, "c")
+    full = Extractor(model, cfg, copies_per_chunk=5)
+    want = full.extract_task(task)
+    ex = Extractor(model, cfg, copies_per_chunk=2, windowed=True,
+                   window=[(96, 112), (112, 128), (128, 144)], halo=32)
+    got = ex.extract_task(task)
+    assert all(n >= 1 for n in ex.route_copies.values()), ex.route_copies
+    assert np.isfinite(want[0]).all()
+    assert cs.feature_gap(got[0], want[0]) <= cs.WINDOW_TOL
+    np.testing.assert_array_equal(got[1], want[1])
+    blended = []
+    for m, c in zip(masks, task.copy_mask_colors):
+        a = m.astype(np.int32)[..., None] * int(c[3])
+        blended.append(((np.asarray(c[:3], np.int32) * a
+                         + image.astype(np.int32) * (255 - a) + 127) // 255
+                        ).astype(np.uint8))
+    plain = [dataclasses.replace(task, image_rgb=b, copy_rects=task.copy_rects[:1],
+                                 copy_rect_valid=np.zeros((1, 1), bool),
+                                 copy_colors_rgba=task.copy_colors_rgba[:1],
+                                 copy_masks=None, copy_mask_colors=None)
+             for b in blended]
+    np.testing.assert_array_equal(cs.host_painted_features(full, plain), want[0])
+
+
 def test_grouped_conv_paths_agree_and_count(dev):
     """Both of K1's kernels on the same X152-like inputs agree within the
     tolerance, each counted on its own path; the rule sends cpg 4 to the
@@ -599,7 +680,7 @@ def _flash_inputs(dev, b, h, s, d, bias, seed):
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (16, 12, 120, 64, "key"), (4, 12, 512, 64, "3d"), (2, 12, 2048, 64, "key"),
     (16, 12, 140, 64, "key"), (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"),
-    (1, 2, 200, 128, None)])
+    (1, 2, 200, 128, None), (16, 12, 90, 64, "key"), (24, 12, 120, 64, "key")])
 def test_flash_kernel(dev, b, h, s, d, bias):
     """K6 in bf16 against its plain version in f32 on the same inputs: the
     three main-path shapes and ragged S at head_dim 32/64/128. Uniform
@@ -691,7 +772,8 @@ def test_flash_launch_counter_counts(dev):
 
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None),
-    (2, 3, 300, 64, "3d"), (16, 12, 140, 64, "key")])
+    (2, 3, 300, 64, "3d"), (16, 12, 140, 64, "key"), (16, 12, 90, 64, "key"),
+    (24, 12, 120, 64, "key")])
 def test_flash_backward_kernels(dev, b, h, s, d, bias):
     """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
     against the plain backward in f32 on the same inputs, within 2e-2 of

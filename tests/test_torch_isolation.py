@@ -333,3 +333,143 @@ def test_tools_common_copy(flags):
         args.dtype = jargs.dtype = dt
         assert str(common.dtype_of(args)).split(".")[-1] == jcommon.dtype_of(
             jargs).__name__
+
+
+def test_rle_copy():
+    """``utils/rle.py``: the same counts strings, masks, areas, boxes and
+    merges as the original on random and edge-case masks."""
+    from cpt_tpu.utils import rle as jrle
+    from cpt_tpu_torch.utils import rle
+
+    rng = np.random.RandomState(4)
+    masks = [(rng.rand(13, 17) > p).astype(np.uint8) for p in (0.2, 0.5, 0.97)]
+    masks += [np.zeros((5, 6), np.uint8), np.ones((4, 3), np.uint8),
+              np.zeros((0, 4), np.uint8)]
+    for m in masks:
+        for compress in (True, False):
+            code = rle.encode(m, compress)
+            assert code == jrle.encode(m, compress)
+            np.testing.assert_array_equal(rle.decode(code), jrle.decode(code))
+            np.testing.assert_array_equal(rle.decode(code), m)
+            assert rle.area(code) == jrle.area(code)
+            if m.size:
+                np.testing.assert_array_equal(rle.to_bbox(code),
+                                              jrle.to_bbox(code))
+    codes = [rle.encode(m) for m in masks[:3]]
+    for intersect in (False, True):
+        assert rle.merge(codes, intersect) == jrle.merge(codes, intersect)
+
+
+GQA_ENTRIES = {
+    "0": {"question": "Is the man that is wearing a black shirt tall?",
+          "annotations": {"question": {"2": "1", "7:9": "2"}},
+          "semantic": [{"operation": "select", "argument": "shirt (2)",
+                        "dependencies": []},
+                       {"operation": "filter color", "argument": "black",
+                        "dependencies": [0]},
+                       {"operation": "relate",
+                        "argument": "man,wearing,o (1)",
+                        "dependencies": [1]},
+                       {"operation": "verify", "argument": "tall",
+                        "dependencies": [2]}]},
+    "1": {"question": "What is on the table and the chair?",
+          "annotations": {"question": {"4": "3", "7": "4"}},
+          "semantic": [{"operation": "select", "argument": "table (3)",
+                        "dependencies": []},
+                       {"operation": "relate", "argument": "_,on,s (5)",
+                        "dependencies": [0]}]},
+    "2": {"question": "Who is holding the cup near the window?",
+          "annotations": {"question": {"4": "6", "7": "7"}},
+          "semantic": [{"operation": "select", "argument": "window (7)",
+                        "dependencies": []},
+                       {"operation": "relate", "argument": "cup,near,s (6)",
+                        "dependencies": [0]},
+                       {"operation": "relate",
+                        "argument": "person,holding,o (6)",
+                        "dependencies": [1]}]},
+}
+
+
+def test_gqa_parse_copy():
+    from cpt_tpu.data import gqa_parse as jparse
+    from cpt_tpu_torch.data import gqa_parse
+
+    for use_semantic in (True, False):
+        assert (gqa_parse.build_to_mark(GQA_ENTRIES, use_semantic)
+                == jparse.build_to_mark(GQA_ENTRIES, use_semantic))
+    for entry in GQA_ENTRIES.values():
+        assert gqa_parse.simple_parse(entry) == jparse.simple_parse(entry)
+        assert gqa_parse.gt_parse(entry) == jparse.gt_parse(entry)
+    assert gqa_parse.simple_parse(GQA_ENTRIES["0"]) == "Is the man tall?"
+
+
+def test_evaluate_copy():
+    from cpt_tpu.engine import evaluate as jevaluate
+    from cpt_tpu_torch.engine import evaluate
+
+    rng = np.random.RandomState(6)
+    preds = {f"a.jpg_{s}_{o}": rng.randn(5) for s in range(3) for o in range(3)
+             if s != o}
+    preds["a.jpg_0_1"][2] += 4.0
+    gts = [{"img_path": "a.jpg", "relations": np.asarray([[0, 1, 2], [1, 2, 3]])},
+           {"img_path": "b.jpg", "relations": np.asarray([[0, 1, 1]])}]
+    for softmax in (True, False):
+        got = evaluate.vg_recall_eval(preds, gts, apply_softmax=softmax,
+                                      num_classes=5)
+        assert got == jevaluate.vg_recall_eval(preds, gts,
+                                               apply_softmax=softmax,
+                                               num_classes=5)
+        assert got["R@20"] == 25.0
+    sweep = {4: {0: 40.0, 1: 42.5}}
+    assert evaluate.seed_sweep_report(sweep) == jevaluate.seed_sweep_report(sweep)
+    np.testing.assert_array_equal(evaluate.ensemble_logits([1.0, 2.0], [3.0, 0.0]),
+                                  jevaluate.ensemble_logits([1.0, 2.0], [3.0, 0.0]))
+    assert evaluate.imkey2pair("x_y.jpg_3_9") == jevaluate.imkey2pair("x_y.jpg_3_9")
+
+
+def test_gqa_and_vg_prompt_copies():
+    jt, pt = (m.BertTokenizer(m.toy_vocab()) for m in (jtok, tok))
+    for name in ("REL_CANONICALIZE", "VG_NA_FILLERS", "VG_MAX_MASK_WIDTH",
+                 "VG_PAIR_COLORS", "VG_PAIR_COLOR_NAMES"):
+        assert getattr(prompts, name) == getattr(jprompts, name), name
+    labels = ["man", "horse", "hat", "dog"]
+    for colors in (("red", "blue"), ("green", "purple")):
+        assert (prompts.vg_subject_object_names("man", "horse", colors)
+                == jprompts.vg_subject_object_names("man", "horse", colors))
+        for k in (1, 2, 3):
+            assert (prompts.vg_prompt("man", "horse", k, colors)
+                    == jprompts.vg_prompt("man", "horse", k, colors))
+        for pair in ((0, 1), (3, 2), (1, 1)):
+            assert (prompts.vg_od_labels_with_colors(labels, pair, colors)
+                    == jprompts.vg_od_labels_with_colors(labels, pair, colors))
+    for rel in ("on", "sitting on", "in front of"):
+        ids = pt.convert_tokens_to_ids(pt.tokenize(rel))
+        assert (prompts.vg_filler_label_ids(ids, lambda s: pt.convert_tokens_to_ids(
+            pt.tokenize(s))) == jprompts.vg_filler_label_ids(
+            ids, lambda s: jt.convert_tokens_to_ids(jt.tokenize(s))))
+    q = "Is the cup on the table next to the man?"
+    for marks in ([], [[[6], "red"]], [[[10], "blue"], [[22], "green"]]):
+        assert (prompts.gqa_rewrite_question(q, marks)
+                == jprompts.gqa_rewrite_question(q, marks))
+
+
+def test_merge_tsv_shards_and_box_iou_copies(tmp_path):
+    from cpt_tpu.structures.boxes import box_iou_np as jbox_iou_np
+    from cpt_tpu_torch.structures.boxes import box_iou_np
+
+    for i in range(3):
+        tsv.tsv_writer([(f"k{i}{j}", f"v\t{j}") for j in range(i + 1)],
+                       str(tmp_path / f"s{i}.tsv"))
+    shards = [str(tmp_path / f"s{i}.tsv") for i in (2, 0, 1)]
+    tsv.merge_tsv_shards(shards, str(tmp_path / "a.tsv"))
+    jtsv.merge_tsv_shards(shards, str(tmp_path / "b.tsv"))
+    for ext in ("tsv", "lineidx"):
+        assert ((tmp_path / f"a.{ext}").read_bytes()
+                == (tmp_path / f"b.{ext}").read_bytes())
+    assert tsv.TSVFile(str(tmp_path / "a.tsv")).seek(5) == ["k11", "v", "1"]
+    rng = np.random.RandomState(3)
+    xy = rng.uniform(0, 50, (7, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(-2, 30, (7, 2))], 1)
+    got = box_iou_np(boxes, boxes[:4])
+    np.testing.assert_array_equal(got, jbox_iou_np(boxes, boxes[:4]))
+    assert got.dtype == np.float32 and got.shape == (7, 4)

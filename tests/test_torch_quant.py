@@ -398,10 +398,11 @@ def test_extract_features_int8_matches_jax_tool(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--task", "gqa"], "item 3"), (["--dp", "2"], "item 9"),
+    (["--opts", "MODEL.X", "1"], "item 3"), (["--dp", "2"], "item 9"),
     (["--shard_by_process"], "item 9"),
-    (["--yaml", "t.yaml"], "item 3"), (["--config_file", "c.yaml"], "item 3"),
-    (["--labelmap", "l.json"], "item 3"), (["--image_dir", "d"], "item 5")])
+    (["--config_file", "c.yaml", "--opts", "A", "1"], "item 3"),
+    (["--config_file", "c.yaml"], "item 3"),
+    (["--opts"], "item 3"), (["--image_dir", "d"], "item 5")])
 def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
     from cpt_tpu_torch.tools import extract_features as tool
 
