@@ -1,4 +1,5 @@
-"""Prompt-tuning training engine (port of ``cpt_tpu/engine/train.py``).
+"""Prompt-tuning and fine-tuning training engine (port of
+``cpt_tpu/engine/train.py``).
 
 The JAX engine is an optax chain around a jitted step; here the same
 arithmetic runs eagerly on the model's f32 parameters, updated in place:
@@ -255,6 +256,29 @@ def make_nsp_train_step(model: nn.Module, tx: Optimizer, *,
         loss, _ = model(input_ids, segment_ids, attention_mask,
                         img_feats=img_feats, next_sentence_label=labels,
                         generator=generator if dropout else None, **kwargs)
+        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        tx.update(grads, state.opt_state, state.params)
+        state.step += 1
+        return state, loss.detach()
+
+    return step
+
+
+def make_cls_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True):
+    """Classifier step for ``ImageBertForSequenceClassification`` (the
+    full-finetune baselines train so): ``step(state, batch, generator)`` →
+    (state, loss), ``batch`` = (input_ids, segment_ids, attention_mask,
+    img_feats, labels); the model computes its own loss from ``labels``
+    (xe, kl or bce by its config); dropout as in
+    :func:`make_mlm_train_step`."""
+
+    def step(state: TrainState, batch, generator: Optional[torch.Generator] = None
+             ) -> Tuple[TrainState, torch.Tensor]:
+        input_ids, segment_ids, attention_mask, img_feats, labels = batch
+        model.train(dropout)
+        loss, _ = model(input_ids, segment_ids, attention_mask,
+                        img_feats=img_feats, labels=labels,
+                        generator=generator if dropout else None)
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
         tx.update(grads, state.opt_state, state.params)
         state.step += 1

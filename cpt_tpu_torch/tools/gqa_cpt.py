@@ -1,5 +1,5 @@
-"""GQA CPT tool: answer-vocabulary scoring at [MASK] and few-shot prompt
-tuning (port of the ``--model_variant cpt`` path of
+"""GQA CPT tool: answer-vocabulary scoring at [MASK], few-shot prompt
+tuning and the few-shot finetune baseline (port of
 ``cpt_tpu/tools/gqa_cpt.py``).
 
 As the reference ``Oscar/oscar/fewshot/gqa_cpt.py`` does it:
@@ -21,12 +21,20 @@ The TSVs come from ``extract_features --task plain`` and ``--task gqa``.
 Without ``--checkpoint`` the weights are random, drawn from
 ``--random_seed`` in the Oscar layout. On a CUDA device the kernels need
 bf16 (the default ``--dtype``); ``--device cpu --dtype float32`` runs the
-plain versions. ``--model_variant ft`` and ``--save_dir`` refuse: they
-wait for the rest of training (ROADMAP.md Queue 1 item 4).
+plain versions.
+
+``--model_variant ft`` is the few-shot finetune baseline (reference
+``fewshot/gqa_ft.py`` + ``modeling_gqa.py:23-76``): the raw (uncolored)
+question, the plain features, and a fresh linear classifier over the
+pooled output (``ImageBertForSequenceClassification``, drawn from
+``--random_seed``) scoring every answer label with cross entropy; only the
+encoder comes from ``--checkpoint``. ``--save_dir`` saves the final (best)
+parameters and the config (``utils/checkpoint.save_model``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pickle
 import time
@@ -38,11 +46,13 @@ import torch
 from cpt_tpu_torch.data.gqa import GQACPTData, load_gqa_examples
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import gqa_answer_scores, make_mlm_at_mask_fn
-from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+from cpt_tpu_torch.models.bert.heads import (REC_MLM_CPT,
+                                             ImageBertForSequenceClassification)
 from cpt_tpu_torch.models.detector.convert import load_torch_file
 from cpt_tpu_torch.tools._common import (add_clip_arg, build_tokenizer,
-                                         clip_of, dtype_of, model_config,
-                                         refuse_multi_process)
+                                         clip_of, dtype_of, load_or_init,
+                                         model_config, refuse_multi_process)
+from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 from cpt_tpu_torch.utils import convert as cv
 
 
@@ -79,12 +89,13 @@ def build_args():
     p.add_argument("--use_color", type=int, default=1)
     p.add_argument("--model_variant", default="cpt", choices=["cpt", "ft"],
                    help="cpt: [MASK] answer-vocab scoring (REC_MLM_CPT); "
-                        "ft: a fresh classifier (not ported yet)")
+                        "ft: fresh pooled linear classifier over answer "
+                        "labels (reference fewshot/gqa_ft.py)")
     p.add_argument("--eval_every", type=int, default=0,
                    help="epochs between val evals; keeps the best parameters "
                         "(reference best-model deepcopy, gqa_cpt.py:381-386)")
     p.add_argument("--save_dir", default=None,
-                   help="save the final parameters (not ported yet)")
+                   help="save the final (best) parameters and the config")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda")
     p.add_argument("--hidden_size", type=int, default=None)
@@ -109,19 +120,35 @@ def load_model(checkpoint: Optional[str], seed: int, cfg, device, dtype
     return model
 
 
-def evaluate(model, data: GQACPTData, batch_size: int):
+def load_ft_model(args, cfg, device, dtype, num_labels: int
+                  ) -> ImageBertForSequenceClassification:
+    """The finetune baseline on ``device``: one linear layer over the pooled
+    output, cross entropy over the ``num_labels`` answers (reference
+    modeling_gqa.py:30-35, fewshot/gqa_ft.py:430), fresh from
+    ``--random_seed``; the encoder from ``--checkpoint`` or random
+    Oscar-layout weights from the same seed."""
+    cfg = dataclasses.replace(cfg, num_labels=num_labels, classifier="linear",
+                              loss_type="xe")
+    with torch.device(device):
+        model = ImageBertForSequenceClassification(cfg, dtype)
+    return load_or_init(model, args, cfg, seed=args.random_seed).eval()
+
+
+def evaluate(model, data: GQACPTData, batch_size: int, variant: str = "cpt"):
     """→ (accuracy·100, {q_id: {"pred", "scores"}}): each batch of
     ``batch_size`` questions (the last one padded to it) scored at its
-    [MASK] over the answer vocabulary's first tokens."""
-    fn = make_mlm_at_mask_fn(model)
+    [MASK] over the answer vocabulary's first tokens (``variant`` "cpt"),
+    or by the classifier's f32 logits over the answer labels ("ft")."""
+    fn = make_mlm_at_mask_fn(model) if variant == "cpt" else _class_logits_fn(model)
     n_correct, n_total = 0, 0
     results = {}
     for start in range(0, len(data), batch_size):
         idxs = list(range(start, min(start + batch_size, len(data))))
         batch, _tokens, answers = data.batch(idxs, pad_to=batch_size)
-        scores = gqa_answer_scores(
-            fn(batch.input_ids, batch.segment_ids, batch.attention_mask,
-               batch.img_feats, batch.mask_pos), data.answer_token_ids)
+        out = fn(batch.input_ids, batch.segment_ids, batch.attention_mask,
+                 batch.img_feats, batch.mask_pos)
+        scores = (gqa_answer_scores(out, data.answer_token_ids)
+                  if variant == "cpt" else out)
         pred = scores.argmax(-1)
         for j, idx in enumerate(idxs):
             ex = data.examples[idx]
@@ -130,6 +157,23 @@ def evaluate(model, data: GQACPTData, batch_size: int):
                 n_correct += int(pred[j] == answers[j])
                 n_total += 1
     return 100.0 * n_correct / max(n_total, 1), results
+
+
+def _class_logits_fn(model):
+    """fn(input_ids, segment_ids, attention_mask, img_feats, _mask_pos),
+    numpy in → the classifier's f32 logits [N, num_labels] in numpy."""
+    device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def fn(input_ids, segment_ids, attention_mask, img_feats, _mask_pos):
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        _, logits = model(dev(input_ids), dev(segment_ids),
+                          dev(attention_mask), img_feats=dev(img_feats))
+        return logits.float().cpu().numpy()
+
+    return fn
 
 
 def train(model, data: GQACPTData, args, device,
@@ -143,7 +187,10 @@ def train(model, data: GQACPTData, args, device,
     samples in order, ``--per_gpu_train_batch_size`` a call; dropout from a
     generator seeded with ``--random_seed``. With ``--eval_every`` and
     ``val_data`` the parameters of the best val accuracy are restored at
-    the end. → each call's loss; ``on_step(step, loss)`` after each call."""
+    the end. ``--model_variant ft`` trains the classifier on the answer
+    labels (``make_cls_train_step``), the same recipe. → each call's loss;
+    ``on_step(step, loss)`` after each call."""
+    ft = args.model_variant == "ft"
     idxs = data.train_indices(args.n_sample, args.random_seed)
     if not idxs:
         print("no color-marked train examples; evaluating zero-shot only")
@@ -157,19 +204,20 @@ def train(model, data: GQACPTData, args, device,
         grad_accum_steps=accum, betas=(0.9, 0.999), max_grad_norm=clip_of(args))
     tx = train_lib.build_optimizer(model, ocfg)
     state = train_lib.create_train_state(model, tx)
-    step_fn = train_lib.make_mlm_train_step(model, tx)
+    step_fn = (train_lib.make_cls_train_step(model, tx) if ft
+               else train_lib.make_mlm_train_step(model, tx))
     generator = torch.Generator(device=device).manual_seed(args.random_seed)
     losses: List[float] = []
     best_acc, best = -1.0, None
     t0 = time.time()
     for epoch in range(args.num_train_epochs):
         for start in range(0, len(idxs), bsz):
-            b, label_tokens, _answers = data.batch(idxs[start:start + bsz],
-                                                   pad_to=bsz)
+            b, label_tokens, answers = data.batch(idxs[start:start + bsz],
+                                                  pad_to=bsz)
+            labels = ((answers,) if ft else (b.mask_pos, label_tokens))
             batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                           for a in (b.input_ids, b.segment_ids,
-                                    b.attention_mask, b.img_feats, b.mask_pos,
-                                    label_tokens))
+                                    b.attention_mask, b.img_feats) + labels)
             state, loss = step_fn(state, batch, generator)
             losses.append(float(loss))
             if on_step is not None:
@@ -180,7 +228,8 @@ def train(model, data: GQACPTData, args, device,
         if (args.eval_every and val_data is not None
                 and (epoch + 1) % args.eval_every == 0):
             model.eval()
-            acc, _ = evaluate(model, val_data, args.per_gpu_eval_batch_size)
+            acc, _ = evaluate(model, val_data, args.per_gpu_eval_batch_size,
+                              args.model_variant)
             if acc > best_acc:
                 best_acc = acc
                 best = {k: v.detach().clone()
@@ -195,26 +244,23 @@ def train(model, data: GQACPTData, args, device,
 def main(argv=None):
     refuse_multi_process("gqa_cpt")
     args = build_args().parse_args(argv)
-    if args.model_variant == "ft":
-        raise SystemExit("gqa_cpt: --model_variant ft (the fresh pooled "
-                         "classifier) is not ported yet (ROADMAP.md Queue 1 "
-                         "item 4)")
-    if args.save_dir:
-        raise SystemExit("gqa_cpt: --save_dir (utils/checkpoint.py) is not "
-                         "ported yet (ROADMAP.md Queue 1 item 4)")
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)
     cfg = model_config(args)
     with open(args.ans2label) as f:
         ans2label = json.load(f)
-    model = load_model(args.checkpoint, args.random_seed, cfg, device,
-                       dtype_of(args))
+    ft = args.model_variant == "ft"
+    if ft:         # no color marking: the raw question, plain features
+        model = load_ft_model(args, cfg, device, dtype_of(args), len(ans2label))
+    else:
+        model = load_model(args.checkpoint, args.random_seed, cfg, device,
+                           dtype_of(args))
 
     def data_of(questions, feat_file, color_file):
         return GQACPTData(feat_file, color_file, load_gqa_examples(questions),
                           ans2label, tokenizer, args.max_seq_length,
                           args.max_img_seq_length, cfg.img_feature_dim,
-                          use_color=bool(args.use_color))
+                          use_color=bool(args.use_color) and not ft)
 
     train_data = data_of(args.questions, args.img_feat_file,
                          args.color_img_feat_file)
@@ -226,8 +272,11 @@ def main(argv=None):
         train(model, train_data, args, device, val_data=val_data)
 
     acc, results = evaluate(model, val_data or train_data,
-                            args.per_gpu_eval_batch_size)
+                            args.per_gpu_eval_batch_size, args.model_variant)
     print(f"accuracy: {acc:.2f}")
+    if args.save_dir:
+        ckpt_lib.save_model(args.save_dir, model.state_dict(), model.config)
+        print(f"saved model to {args.save_dir}")
     if args.output:
         with open(args.output, "wb") as f:
             pickle.dump({"accuracy": acc, "results": results}, f)

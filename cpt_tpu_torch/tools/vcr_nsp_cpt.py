@@ -18,6 +18,11 @@ when both are.
 ``--checkpoint`` the weights are random, drawn from ``--seed`` in the Oscar
 layout. On a CUDA device the kernels need bf16 (the default ``--dtype``);
 ``--device cpu --dtype float32`` runs the plain versions.
+
+``--model_variant ft`` is the full-finetune baseline (reference
+``vcr_ft.py``): ``NSPFT`` (``VCR_QAR_NSPFT``'s twin classifiers for
+``--task qar``), fresh classifiers drawn from ``--seed`` over the encoder
+alone, scored and trained as the CPT models are.
 """
 from __future__ import annotations
 
@@ -33,12 +38,11 @@ import torch
 from cpt_tpu_torch.data.vcr import VCRCPTData, load_vcr_examples
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import make_nsp_score_fn
-from cpt_tpu_torch.models.bert.heads import NSPCPT, VCRQAR_NSPCPT
-from cpt_tpu_torch.models.detector.convert import load_torch_file
+from cpt_tpu_torch.models.bert.heads import (NSPCPT, NSPFT, VCR_QAR_NSPFT,
+                                             VCRQAR_NSPCPT)
 from cpt_tpu_torch.tools._common import (add_clip_arg, build_tokenizer,
-                                         clip_of, dtype_of, model_config,
-                                         refuse_multi_process)
-from cpt_tpu_torch.utils import convert as cv
+                                         clip_of, dtype_of, load_or_init,
+                                         model_config, refuse_multi_process)
 
 
 def build_args():
@@ -55,8 +59,8 @@ def build_args():
     p.add_argument("--task", default="qa", choices=["qa", "qar_r", "qar"],
                    help="qa: q->a; qar_r: qa->r; qar: q->ar twin heads")
     p.add_argument("--model_variant", default="cpt", choices=["cpt", "ft"],
-                   help="cpt: pretrained NSP head (NSPCPT); ft: a fresh "
-                        "classifier (not ported yet)")
+                   help="cpt: pretrained NSP head (NSPCPT); ft: fresh "
+                        "classifier (NSPFT, reference vcr_ft.py)")
     p.add_argument("--vocab", default=None)
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--output", default=None)
@@ -118,17 +122,18 @@ def load_model(args, cfg, device, dtype):
     """``NSPCPT`` (``VCRQAR_NSPCPT`` for ``--task qar``) on ``device`` from
     ``--checkpoint`` (an Oscar ``pytorch_model.bin``: the NSP head, copied
     into both twin heads) or from random Oscar-layout weights drawn from
+    ``--seed``; with ``--model_variant ft``, ``NSPFT`` (``VCR_QAR_NSPFT``)
+    with the encoder alone from there and fresh classifiers from
     ``--seed``."""
-    model_cls = VCRQAR_NSPCPT if args.task == "qar" else NSPCPT
-    if args.checkpoint:
-        sd = load_torch_file(args.checkpoint)
+    twin = args.task == "qar"
+    if args.model_variant == "ft":
+        model_cls, task = (VCR_QAR_NSPFT if twin else NSPFT), "bert_only"
     else:
-        sd = cv.random_oscar_state_dict(cfg, seed=args.seed)
-        print("WARNING: random init (no --checkpoint)")
+        model_cls = VCRQAR_NSPCPT if twin else NSPCPT
+        task = model_cls.TASK
     with torch.device(device):
-        model = model_cls(cfg, dtype).eval()
-    model.load_state_dict(cv.state_from_reference(sd, cfg, model.TASK))
-    return model
+        model = model_cls(cfg, dtype)
+    return load_or_init(model, args, cfg, task).eval()
 
 
 def train(model, data: VCRCPTData, args, device,
@@ -182,10 +187,6 @@ def train(model, data: VCRCPTData, args, device,
 def main(argv=None):
     refuse_multi_process("vcr_nsp_cpt")
     args = build_args().parse_args(argv)
-    if args.model_variant == "ft":
-        raise SystemExit("vcr_nsp_cpt: --model_variant ft (NSPFT, "
-                         "VCR_QAR_NSPFT) is not ported yet (ROADMAP.md "
-                         "Queue 1 item 4)")
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)
     cfg = model_config(args)

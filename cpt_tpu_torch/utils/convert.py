@@ -1,8 +1,12 @@
-"""Oscar BERT weights → the state dict of one of the port's CPT task models
-(port of ``cpt_tpu/utils/convert.py``). ``task`` names the model, as
-``params_for_task`` does: ``"rec_mlm_cpt"`` (``REC_MLM_CPT``, the MLM
-head), ``"nsp_cpt"`` (``NSPCPT``, the NSP head) or ``"vcr_qar_nsp_cpt"``
-(``VCRQAR_NSPCPT``, twin copies of the NSP head).
+"""Oscar BERT weights → the state dict of one of the port's task models
+(port of ``cpt_tpu/utils/convert.py``). ``task`` names the model's
+parameter layout (its ``TASK``), as ``params_for_task`` does for the CPT
+models: ``"rec_mlm_cpt"`` (``REC_MLM_CPT``, the MLM head), ``"nsp_cpt"``
+(``NSPCPT``, the NSP head) or ``"vcr_qar_nsp_cpt"`` (``VCRQAR_NSPCPT``, twin
+copies of the NSP head); the full-finetune baselines ``"rec_ft"``,
+``"nsp_ft"``, ``"vcr_qar_nsp_ft"``, ``"vg_ft"``, ``"seq_classification"``
+and ``"multiple_choice"`` take only the encoder from a checkpoint
+(``"bert_only"``, :func:`load_bert_only`) and keep their fresh heads.
 
 * :func:`state_from_reference` — the Oscar ``pytorch_model.bin`` layout
   (``bert.*`` + ``cls.predictions.*`` + ``cls.seq_relationship.*``),
@@ -42,11 +46,36 @@ def _tensors(d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in d.items()}
 
 
-TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt")
+CPT_TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt")
+FT_TASKS = ("rec_ft", "nsp_ft", "vcr_qar_nsp_ft", "vg_ft",
+            "seq_classification", "multiple_choice")
+TASKS = CPT_TASKS + FT_TASKS + ("bert_only",)
 # the task models' NSP heads: the one head of NSPCPT, the twin heads of
 # VCRQAR_NSPCPT (both copies of the pretrained ``cls.seq_relationship``)
 NSP_HEADS = {"rec_mlm_cpt": (), "nsp_cpt": ("nsp_head",),
              "vcr_qar_nsp_cpt": ("cls_ans", "cls_rat")}
+_DENSE, _LN = ("kernel", "bias"), ("scale", "bias")
+
+
+def ft_head_params(config: BertConfig, task: str) -> Dict[str, Tuple[str, ...]]:
+    """The fresh head of a full-finetune ``task``: {module: its parameter
+    leaves}, the module named as in the JAX tree (``.`` between levels)."""
+    c = config
+    mlp = c.classifier == "mlp"
+    heads = {
+        "rec_ft": {"cls_dense": _DENSE, "cls_LayerNorm": _LN, "cls_out": _DENSE},
+        "nsp_ft": {"classifier.dense": _DENSE},
+        "vcr_qar_nsp_ft": {"classifier_ans.dense": _DENSE,
+                           "classifier_rat.dense": _DENSE},
+        "vg_ft": {"classifier": _DENSE},
+        "seq_classification": {**({"cls_hidden": _DENSE} if mlp else {}),
+                               "cls_out": _DENSE},
+        "multiple_choice": {**({"cls_hidden": _DENSE} if mlp else {}),
+                            **({"cls_LayerNorm": _LN}
+                               if mlp and c.use_img_layernorm else {}),
+                            "cls_out": _DENSE},
+    }
+    return heads.get(task, {})
 
 
 def _check_task(task: str) -> None:
@@ -57,8 +86,12 @@ def _check_task(task: str) -> None:
 def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
                          task: str = "rec_mlm_cpt") -> Dict[str, torch.Tensor]:
     """``BertImgForPreTraining`` state dict → the port's state dict of the
-    ``task`` model."""
+    ``task`` model: a CPT task, or ``"bert_only"`` (the encoder alone, what
+    a full-finetune model takes from a checkpoint)."""
     _check_task(task)
+    if task in FT_TASKS:
+        raise ValueError(f"a {task} model takes the encoder alone from a "
+                         "checkpoint: task 'bert_only' (load_bert_only)")
     sd = {k: _np(v) for k, v in sd.items()}
     if "bert.embeddings.word_embeddings.weight" not in sd:
         # another nesting (e.g. a "module." DDP wrapper): suffix-align onto
@@ -93,12 +126,17 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
                 sd["cls.predictions.transform.LayerNorm.bias"],
             "mlm_head.bias": sd["cls.predictions.bias"],
         })
-    for head in NSP_HEADS[task]:
+    for head in NSP_HEADS.get(task, ()):
         out[f"{head}.dense.kernel"] = sd["cls.seq_relationship.weight"].T
         out[f"{head}.dense.bias"] = sd["cls.seq_relationship.bias"]
     if c.use_img_layernorm:
-        out["bert.img_LayerNorm.scale"] = sd["bert.LayerNorm.weight"]
-        out["bert.img_LayerNorm.bias"] = sd["bert.LayerNorm.bias"]
+        # a checkpoint without it leaves flax's init (scale 1, bias 0), as
+        # JAX's merge into the initialized tree does
+        h = c.hidden_size
+        out["bert.img_LayerNorm.scale"] = sd.get("bert.LayerNorm.weight",
+                                                 np.ones(h, np.float32))
+        out["bert.img_LayerNorm.bias"] = sd.get("bert.LayerNorm.bias",
+                                                np.zeros(h, np.float32))
     for i in range(c.num_hidden_layers):
         r = p = f"bert.encoder.layer.{i}."
         qkv = ("query", "key", "value")
@@ -145,9 +183,12 @@ def jax_paths(config: BertConfig, task: str = "rec_mlm_cpt"
                      "transform.LayerNorm.scale", "transform.LayerNorm.bias",
                      "bias"):
             paths[f"mlm_head.{name}"] = ("mlm_head",) + tuple(name.split("."))
-    for head in NSP_HEADS[task]:
+    for head in NSP_HEADS.get(task, ()):
         for leaf in ("kernel", "bias"):
             paths[f"{head}.dense.{leaf}"] = (head, "dense", leaf)
+    for module, leaves in ft_head_params(c, task).items():
+        for leaf in leaves:
+            paths[f"{module}.{leaf}"] = tuple(module.split(".")) + (leaf,)
     if c.use_img_layernorm:
         paths["bert.img_LayerNorm.scale"] = ("bert", "img_LayerNorm", "scale")
         paths["bert.img_LayerNorm.bias"] = ("bert", "img_LayerNorm", "bias")
@@ -182,6 +223,21 @@ def params_from_jax(tree: Mapping[str, Any], config: BertConfig,
         shape = flat.get(name.split(".", 4)[-1])
         out[name] = a.reshape(shape) if shape else a
     return _tensors(out)
+
+
+def load_bert_only(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load the encoder of a reference-layout state dict ``sd`` into a
+    full-finetune ``model`` and leave its fresh head as it is (JAX's
+    ``params_for_task(..., "bert_only")`` merged into the init). Raises
+    unless the parameters left unloaded are exactly the head's."""
+    cfg = model.config
+    head = set(jax_paths(cfg, model.TASK)) - set(jax_paths(cfg, "bert_only"))
+    missing, unexpected = model.load_state_dict(
+        state_from_reference(sd, cfg, "bert_only"), strict=False)
+    if set(missing) != head or unexpected:
+        raise KeyError(f"bert_only load into {model.TASK}: missing "
+                       f"{sorted(missing)}, unexpected {sorted(unexpected)}; "
+                       f"the fresh head is {sorted(head)}")
 
 
 def random_oscar_state_dict(config: BertConfig, seed: int = 0

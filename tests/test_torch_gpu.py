@@ -132,10 +132,11 @@ def test_attention_kernel(dev, s_len):
     assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
-@pytest.mark.parametrize("b,s_len", [(128, 90), (48, 120)])
+@pytest.mark.parametrize("b,s_len", [(128, 90), (48, 120), (64, 120)])
 def test_blocks_at_the_task_batches(dev, b, s_len):
-    """K3's block and K4 at GQA's eval batch (128 × (45 + 45)) and VG's
-    (48 × (70 + 50)) at full width, on chip_smoke's inputs: within the
+    """K3's block and K4 at GQA's eval batch (128 × (45 + 45)), VG's
+    (48 × (70 + 50)) and REC_FT's (64 × (70 + 50), K4 at 7,680 rows) at
+    full width, on chip_smoke's inputs: within the
     tolerance of their plain versions in f32, and the shared GEMM's named
     faults (with uniform attention for K3) miss it."""
     import chip_smoke as cs
@@ -773,7 +774,7 @@ def test_flash_launch_counter_counts(dev):
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None),
     (2, 3, 300, 64, "3d"), (16, 12, 140, 64, "key"), (16, 12, 90, 64, "key"),
-    (24, 12, 120, 64, "key")])
+    (24, 12, 120, 64, "key"), (16, 12, 120, 64, "key")])
 def test_flash_backward_kernels(dev, b, h, s, d, bias):
     """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
     against the plain backward in f32 on the same inputs, within 2e-2 of
