@@ -159,6 +159,22 @@ Phases (any failure raises and the script exits non-zero):
    --task gqa`` over shots 1 2 × seeds 0 1 (the FT variant at
    SWEEP_LAYERS), and ``fewshot_eval`` over its pickles reports as
    ``seed_sweep_report`` of its accuracies.
+12. the detector's entry points at full width (VinVL X152-C4 from the
+   reference's own yaml, random weights from seed 0, the 1024×1024
+   canvas): ``VINVL_YAML`` with refcoco_val.sh's opts (``REFCOCO_OPTS``)
+   resolves through ``load_reference_yaml`` to ``VINVL_X152C4`` field for
+   field; ``test_detector.main --config_file --opts DETECTOR_OPTS
+   --synthetic 4 --coco_eval`` (VOC mAP and COCO AP / AP50 / AP75 finite,
+   each image's detect step launching K1, K2 and K5 at least as often as
+   phase 4's detect step, every K1 launch on the path its rule names; host
+   ms per image, one step under ``torch.profiler``), once with an
+   ``--expected_results`` it meets (ok) and once with one it misses (not
+   ok); ``--attr_eval`` over a 4-image VG-TSV written by
+   ``write_detection_tsv`` (force-boxes mode: K1 and K2, no K5; attribute
+   mAP finite); ``extract_features --image_dir`` over the 4 images as
+   ``.jpg`` files of npy bytes (``npy_pillow``), each row's rects equal to
+   ``test_detector``'s detections on that image and its 2054-d features
+   finite.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -2943,25 +2959,42 @@ def serve_request(rng, n_dets: int, h: int = 600, w: int = 800) -> tuple:
 
 @contextlib.contextmanager
 def npy_pillow():
-    """A stand-in for the one Pillow call of serve's handler, the decode of
-    the request's image (``PIL.Image.open(...).convert("RGB")``), which
-    reads the image as .npy bytes (:func:`npy_b64`): the card's machine has
-    no Pillow, and with it the HTTP round trips of phase 8 run the handler
-    as it is."""
+    """A stand-in for the Pillow calls of the tools this script drives, on
+    images held as .npy bytes (:func:`npy_b64`): ``PIL.Image.open(f)`` reads
+    them (``.convert("RGB")``, ``.size``, ``np.asarray``), and
+    ``PIL.Image.fromarray(a).save(f, ...)`` writes them, whatever format is
+    asked for. The card's machine has no Pillow; with it serve's handler
+    (phase 8) and the detector tools' readers and ``write_detection_tsv``
+    (phase 12) run as they are."""
     import types
 
     pil, image = types.ModuleType("PIL"), types.ModuleType("PIL.Image")
 
     class Npy:
-        def __init__(self, f):
-            self.array = np.load(f)
+        def __init__(self, array):
+            self.array = array
+
+        @property
+        def size(self):
+            return self.array.shape[1], self.array.shape[0]
 
         def convert(self, mode):
             if mode != "RGB":
                 raise ValueError(mode)
-            return self.array
+            return self
 
-    image.open = Npy
+        def __array__(self, dtype=None, copy=None):
+            return self.array if dtype is None else self.array.astype(dtype)
+
+        def save(self, f, format=None, **kw):
+            if isinstance(f, (str, os.PathLike)):
+                with open(f, "wb") as out:
+                    np.save(out, self.array)
+            else:
+                np.save(f, self.array)
+
+    image.open = lambda f: Npy(np.load(f))
+    image.fromarray = lambda a: Npy(np.asarray(a))
     pil.Image = image
     saved = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
     sys.modules.update({"PIL": pil, "PIL.Image": image})
@@ -4877,6 +4910,354 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
     return out
 
 
+# Phase 12. The keys of the reference's sgg_configs/vgattr/vinvl_x152c4.yaml
+# that the port maps (the reference tree is not in the repository): the
+# R-152-C4 32x8d body, the RPN's and box head's test sizes, the 1595 / 525
+# VG vocabularies, the 600/1000 test sizes and VinVL's pixel means.
+VINVL_YAML = """\
+MODEL:
+  META_ARCHITECTURE: "AttrRCNN"
+  BACKBONE:
+    CONV_BODY: "R-152-C4"
+  RESNETS:
+    BACKBONE_OUT_CHANNELS: 1024
+    STRIDE_IN_1X1: False
+    NUM_GROUPS: 32
+    WIDTH_PER_GROUP: 8
+  RPN:
+    PRE_NMS_TOP_N_TEST: 6000
+    POST_NMS_TOP_N_TEST: 300
+  ROI_HEADS:
+    BATCH_SIZE_PER_IMAGE: 384
+    POSITIVE_FRACTION: 0.5
+    SCORE_THRESH: 0.2
+    DETECTIONS_PER_IMG: 100
+    MIN_DETECTIONS_PER_IMG: 10
+  ROI_BOX_HEAD:
+    NUM_CLASSES: 1595
+  ROI_ATTRIBUTE_HEAD:
+    NUM_ATTRIBUTES: 525
+    POSTPROCESS_ATTRIBUTES_THRESHOLD: 0.05
+  ATTRIBUTE_ON: True
+INPUT:
+  MIN_SIZE_TEST: 600
+  MAX_SIZE_TEST: 1000
+  PIXEL_MEAN: [103.530, 116.280, 123.675]
+DATASETS:
+  LABELMAP_FILE: "visualgenome/VG-SGG-dicts-vgoi6-clipped.json"
+  TRAIN: ("visualgenome/train_vgoi6_clipped.yaml",)
+  TEST: ("visualgenome/test_vgoi6_clipped.yaml",)
+DATALOADER:
+  NUM_WORKERS: 0
+SOLVER:
+  BASE_LR: 0.01
+  WEIGHT_DECAY: 0.0001
+  MAX_ITER: 90000
+  STEPS: (49000, 65000)
+  IMS_PER_BATCH: 8
+  CHECKPOINT_PERIOD: 10000
+TEST:
+  IMS_PER_BATCH: 8
+  SKIP_PERFORMANCE_EVAL: True
+  SAVE_PREDICTIONS: True
+  SAVE_RESULTS_TO_TSV: True
+  TSV_SAVE_SUBSET: ['rect', 'class', 'conf', 'feature']
+  GATHER_ON_CPU: True
+OUTPUT_DIR: "./output/X152C5_test"
+DATA_DIR: "./datasets"
+"""
+# the opts of every RefCOCO command of the reference (refcoco_val.sh:5-18)
+REFCOCO_OPTS = (
+    "TEST.IMS_PER_BATCH", "8",
+    "MODEL.RPN.FORCE_BOXES", "True",
+    "MODEL.ROI_BOX_HEAD.FORCE_BOXES", "True",
+    "MODEL.WEIGHT", "models/vinvl/vinvl_vg_x152c4.pth",
+    "MODEL.ROI_HEADS.NMS_FILTER", "2",
+    "MODEL.ROI_HEADS.SCORE_THRESH", "0.2",
+    "DATASETS.TEST", '("RefCoCoDataset",)',
+    "DATA_DIR", "data/refcoco/yamls/refcoco_val.yaml",
+    "MODEL.CLS_AGNOSTIC_BBOX_REG", "False",
+    "MODEL.ATTRIBUTE_ON", "True",
+    "TEST.OUTPUT_FEATURE", "True",
+    "OUTPUT_DIR", "./output/refcoco/cpt",
+)
+# the detector tools' opts: the post-processor and threshold of
+# VINVL_X152C4 (the detect step of phase 4), and the plain-image dataset
+# class of the reference's uncolored pass (cmds/gqa/_ext.sh)
+DETECTOR_OPTS = ("MODEL.ROI_HEADS.NMS_FILTER", "2",
+                 "MODEL.ROI_HEADS.SCORE_THRESH", "0.2",
+                 "DATASETS.TEST", "('ImgDataset',)")
+DETECTOR_IMAGES = 4
+DETECTOR_LABELMAP = {
+    "label_to_idx": {n: i + 1 for i, n in enumerate(
+        ("person", "dog", "car", "tree", "chair"))},
+    "attribute_to_idx": {n: i + 1 for i, n in enumerate(
+        ("red", "tall", "wooden", "white", "small", "furry"))},
+}
+
+
+def resolves_to_vinvl(ref) -> bool:
+    """The reference yaml with refcoco_val.sh's opts resolves to the port's
+    VINVL_X152C4 field for field (force-boxes extraction on, features out)."""
+    from cpt_tpu_torch.models.detector.config import VINVL_X152C4
+
+    return (all(getattr(ref.detector, part) == getattr(VINVL_X152C4, part)
+                for part in ("backbone", "rpn", "roi_heads", "attributes",
+                             "input"))
+            and ref.detector.force_boxes and ref.detector.output_feature
+            and ref.attribute_on and not ref.relation_on
+            and ref.conv_body == "R-152-C4"
+            and ref.datasets_test == ("RefCoCoDataset",))
+
+
+def detector_tsv(root: str, size: int, n: int = DETECTOR_IMAGES) -> str:
+    """A VG-TSV of ``n`` random ``size × size`` images, each with 3-6 boxes
+    of DETECTOR_LABELMAP's classes and 0-3 attributes, written by the
+    port's ``write_detection_tsv`` → its yaml."""
+    from cpt_tpu_torch.data.vg_tsv import write_detection_tsv
+
+    rng = np.random.RandomState(12)
+    names = list(DETECTOR_LABELMAP["label_to_idx"])
+    attrs = list(DETECTOR_LABELMAP["attribute_to_idx"])
+    images, labels = {}, {}
+    for i in range(n):
+        images[f"img{i}"] = rng.randint(0, 256, (size, size, 3)).astype(
+            np.uint8)
+        objects = []
+        for _ in range(rng.randint(3, 7)):
+            xy = rng.uniform(0, size * 0.7, 2)
+            wh = rng.uniform(size * 0.05, size * 0.3, 2)
+            objects.append({
+                "rect": [float(v) for v in np.concatenate([xy, xy + wh])],
+                "class": names[rng.randint(len(names))],
+                "attributes": [attrs[j] for j in rng.choice(
+                    len(attrs), rng.randint(0, 4), replace=False)]})
+        labels[f"img{i}"] = {"objects": objects}
+    return write_detection_tsv(root, "attr", images, labels, DETECTOR_LABELMAP)
+
+
+@contextlib.contextmanager
+def cached_detector_weights():
+    """Within the block, the detector tools draw their random reference-
+    layout weights once per (config, seed) instead of at every ``main``
+    (the numpy draw of X152-C4's weights dominates a tool's set-up)."""
+    from cpt_tpu_torch.models.detector import convert as dconv
+
+    real, cache = dconv.random_vinvl_state_dict, {}
+
+    def cached(cfg, seed=0):
+        if (cfg, seed) not in cache:
+            cache[cfg, seed] = real(cfg, seed)
+        return cache[cfg, seed]
+
+    dconv.random_vinvl_state_dict = cached
+    try:
+        yield
+    finally:
+        dconv.random_vinvl_state_dict = real
+
+
+@contextlib.contextmanager
+def timed_detect_steps(module, counters, steps: list):
+    """``module.make_detect_fn``'s functions record each call's host ms
+    (ending in a synchronise) and kernel launches into ``steps``."""
+    import torch
+
+    real = module.make_detect_fn
+
+    def make(*a, **kw):
+        fn = real(*a, **kw)
+
+        def step(*args):
+            before = {k: c.launches for k, c in counters.items()}
+            t = time.perf_counter()
+            out = fn(*args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t) * 1e3,
+                          "launches": {k: c.launches - before[k]
+                                       for k, c in counters.items()},
+                          "fn": fn, "args": args})
+            return out
+        return step
+
+    module.make_detect_fn = make
+    try:
+        yield
+    finally:
+        module.make_detect_fn = real
+
+
+def run_detector_tools(res, counters, detect_launches: list,
+                       tiny: bool = False) -> dict:
+    """Phase 12 (see the module docstring) through the detector tools'
+    ``main``s on phase 4's detector configuration, with their own random
+    weights (seed 0). ``detect_launches``: the launches of phase 4's detect
+    steps. ``tiny``: the tools take ``--tiny`` in place of the reference
+    yaml (a dry run of the code paths on the CPU; the launch checks fail
+    there). Gathers every reading, prints it, then raises on the first
+    check that failed."""
+    import torch
+
+    from cpt_tpu_torch.models.detector.yacs_bridge import load_reference_yaml
+    from cpt_tpu_torch.tools import cpt_predict as cp
+    from cpt_tpu_torch.tools import extract_features, test_detector
+    from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    dev = res.device.type
+    common = ["--device", dev, "--dtype",
+              "bfloat16" if res.detector.dtype == torch.bfloat16 else "float32"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root, cached_detector_weights():
+        yaml_path = f"{root}/vinvl_x152c4.yaml"
+        with open(yaml_path, "w") as f:
+            f.write(VINVL_YAML)
+        ref = load_reference_yaml(yaml_path, list(REFCOCO_OPTS))
+        check(resolves_to_vinvl(ref), "vinvl yaml + refcoco opts != "
+                                      "VINVL_X152C4")
+        cfg_flags = (["--tiny"] if tiny else
+                     ["--config_file", yaml_path, "--opts", *DETECTOR_OPTS])
+        size = (load_reference_yaml(yaml_path, list(DETECTOR_OPTS))
+                .detector.input.pad_h if not tiny else 64)
+
+        # test_detector over --synthetic images: VOC and COCO metrics, one
+        # --expected_results met
+        steps: list = []
+        zero_counts(counters)
+        meet = json.dumps([["mAP", 0.5, 0.51]])      # 0 <= mAP <= 1 meets it
+        with timed_detect_steps(test_detector, counters, steps):
+            results, ok_meet = test_detector.main(
+                cfg_flags + common + ["--synthetic", str(DETECTOR_IMAGES),
+                                      "--coco_eval", "--expected_results",
+                                      meet, "--output", f"{root}/det.pk"])
+        launches = {k: c.launches for k, c in counters.items()}
+        try:
+            paths = k1_paths(counters, launches, "test_detector")
+        except AssertionError as e:
+            paths = dict(counters["K1"].path_launches)
+            check(False, str(e))
+        with open(f"{root}/det.pk", "rb") as f:
+            preds = pickle.load(f)["predictions"]
+        want = {k: max(d[k] for d in detect_launches) if detect_launches
+                else 1 for k in ("K1", "K2", "K5")}
+        for i, st in enumerate(steps):
+            check(all(st["launches"][k] >= n for k, n in want.items()),
+                  f"test_detector image {i}: launches {st['launches']}, "
+                  f"phase 4's detect step {want}")
+        check(len(steps) == DETECTOR_IMAGES, f"{len(steps)} detect steps")
+        metrics = ("mAP", "coco_AP", "coco_AP50", "coco_AP75")
+        check(all(np.isfinite(results[m]) for m in metrics),
+              f"metrics {results}")
+        check(ok_meet is True, f"--expected_results {meet} not met")
+        check(all(len(p["boxes"]) and np.isfinite(p["boxes"]).all()
+                  and np.isfinite(p["scores"]).all() for p in preds),
+              "empty or non-finite detections")
+        profile = (profiled(lambda: steps[-1]["fn"](*steps[-1]["args"]),
+                            "test_detector's detect step")
+                   if dev == "cuda" else {})
+        ms = [st["ms"] for st in steps]
+        out["test_detector"] = {
+            "results": {m: results[m] for m in metrics}, "ok": ok_meet,
+            "ms_per_image": ms, "launches": launches, "k1_paths": paths,
+            "image_launches": [st["launches"] for st in steps],
+            "profile": profile}
+        print(f"test_detector --config_file vinvl_x152c4.yaml --opts "
+              f"{' '.join(DETECTOR_OPTS)} --synthetic {DETECTOR_IMAGES} "
+              f"--coco_eval: mAP {results['mAP']:.4f}, COCO AP "
+              f"{results['coco_AP']:.4f} AP50 {results['coco_AP50']:.4f} "
+              f"AP75 {results['coco_AP75']:.4f}; host ms per image "
+              + ", ".join(f"{x:.2f}" for x in ms)
+              + f"; launches per image {steps[-1]['launches']} (phase 4's "
+              f"detect step {want}); K1 by path {paths}", flush=True)
+
+        # the same run with an --expected_results it misses
+        miss = json.dumps([["mAP", 2.0, 0.5]])       # 1.5 < mAP < 2.5
+        _, ok_miss = test_detector.main(
+            cfg_flags + common + ["--synthetic", str(DETECTOR_IMAGES),
+                                  "--expected_results", miss])
+        check(ok_miss is False, f"--expected_results {miss} met")
+        out["expected_results"] = {"meet": ok_meet, "miss": ok_miss}
+        print(f"--expected_results {meet}: ok {ok_meet}; {miss}: ok "
+              f"{ok_miss}", flush=True)
+
+        # --attr_eval over a VG-TSV written by write_detection_tsv
+        with npy_pillow():
+            tsv_yaml = detector_tsv(f"{root}/tsv", size)
+            zero_counts(counters)
+            t = time.perf_counter()
+            attr = test_detector.main(cfg_flags + common + [
+                "--tsv", tsv_yaml, "--attr_eval"])
+            attr_s = time.perf_counter() - t
+        attr_l = {k: c.launches for k, c in counters.items()}
+        check(np.isfinite(attr["attr_mAP"])
+              and np.isfinite(attr["attr_weighted_mAP"]), f"attr {attr}")
+        check(attr_l["K1"] > 0 and attr_l["K2"] > 0 and attr_l["K5"] == 0,
+              f"attr eval launches {attr_l}")
+        out["attr_eval"] = {"attr_mAP": attr["attr_mAP"],
+                            "attr_weighted_mAP": attr["attr_weighted_mAP"],
+                            "seconds": attr_s, "launches": attr_l}
+        print(f"test_detector --attr_eval over a {DETECTOR_IMAGES}-image "
+              f"VG-TSV: attr mAP {attr['attr_mAP']:.6f} (weighted "
+              f"{attr['attr_weighted_mAP']:.6f}) in {attr_s:.2f} s "
+              f"(set-up included); launches {attr_l}", flush=True)
+
+        # extract_features --image_dir over the synthetic images as .jpg
+        # files (npy bytes): rows against test_detector's detections
+        img_dir = f"{root}/images"
+        os.makedirs(img_dir)
+        rng = np.random.RandomState(0)               # test_detector's draw
+        for i in range(DETECTOR_IMAGES):
+            with open(f"{img_dir}/syn{i}.jpg", "wb") as f:
+                np.save(f, rng.randint(0, 256, (size, size, 3)).astype(
+                    np.uint8))
+        zero_counts(counters)
+        with npy_pillow():
+            ext = extract_features.main(cfg_flags + common + [
+                "--image_dir", img_dir, "--output", f"{root}/plain.tsv"])
+        ext_l = {k: c.launches for k, c in counters.items()}
+        tsv = TSVFile(f"{root}/plain.tsv")
+        rows = [tsv.seek(i) for i in range(len(tsv))]
+        tsv.close()
+        keys = [k for k, _ in rows]
+        check(keys == [f"syn{i}" for i in range(DETECTOR_IMAGES)],
+              f"--image_dir keys {keys}")
+        gaps, feat_dim = [], cp.region_feature_dim(res.det_cfg)
+        for (_key, row), p in zip(rows, preds):
+            objs = json.loads(row)["objects"]
+            rects = np.asarray([o["rect"] for o in objs], np.float32)
+            feats = np.stack([decode_feature(o["feature"]) for o in objs])
+            same = rects.shape == p["boxes"].shape and np.array_equal(
+                rects, p["boxes"].astype(np.float32))
+            gaps.append(float(np.abs(rects - p["boxes"]).max())
+                        if rects.shape == p["boxes"].shape else np.inf)
+            check(same and feats.shape == (len(objs), feat_dim)
+                  and np.isfinite(feats).all(),
+                  f"--image_dir row {_key}: rects {rects.shape} vs "
+                  f"{p['boxes'].shape}, largest gap {gaps[-1]}")
+        check(ext_l["K1"] > 0 and ext_l["K2"] > 0 and ext_l["K5"] > 0,
+              f"--image_dir launches {ext_l}")
+        out["image_dir"] = {"images": ext.get("images"),
+                            "seconds": ext.get("seconds"),
+                            "rect_gaps": gaps, "launches": ext_l}
+        print(f"extract_features --image_dir ({DETECTOR_IMAGES} .jpg): "
+              f"{ext.get('images')} rows in {ext.get('seconds', 0):.2f} s; "
+              f"rects against test_detector's detections, largest gap "
+              f"per image {gaps}; launches {ext_l}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 12 took {phase_s:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 12: {failed}")
+    out["seconds"] = phase_s
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -4952,6 +5333,10 @@ def main(argv=None) -> int:
     ft = run_ft_baselines(res, counters, smi, rows)
     phase11_s = ft.pop("seconds")
     e2e.update(ft)
+    tools = run_detector_tools(res, counters, [
+        r["detect_launches"] for r in e2e["detect"]["requests"]])
+    phase12_s = tools.pop("seconds")
+    e2e.update(tools)
     del res
     per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
                   for k in KERNELS}
@@ -4969,7 +5354,7 @@ def main(argv=None) -> int:
              "ffn_study", "int8", "int8_static", "windowed", "serve", "vcr",
              "vcr_train", "gqa", "gqa_train", "vg", "vg_train", "seg",
              "rec_ft_train", "rec_ft", "gqa_ft_train", "gqa_ft", "vcr_ft_train",
-             "vcr_ft")
+             "vcr_ft", "test_detector", "attr_eval", "image_dir")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -4983,8 +5368,9 @@ def main(argv=None) -> int:
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r.get("library_device_ms",
                                             r["library_ms"])})
-    print(f"phase 10 took {phase10_s:.1f} s, phase 11 {phase11_s:.1f} s; the "
-          f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"phase 10 took {phase10_s:.1f} s, phase 11 {phase11_s:.1f} s, "
+          f"phase 12 {phase12_s:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,

@@ -1,14 +1,15 @@
 """Shared plumbing of the task tools (port of
 ``cpt_tpu/tools/_common.py``): the common flags, the Oscar config from the
 size flags, the optimizer and gradient-clip flags, the tokenizer and the
-compute dtype, the model's weights from a checkpoint or a seed, and the
-refusal of a multi-process launch, which waits for the parallel port.
-The detector-config front end (``--config_file`` / ``--opts``) comes with
-the config port (ROADMAP.md Queue 1 item 3)."""
+compute dtype, the model's weights from a checkpoint or a seed, the
+refusal of a multi-process launch, which waits for the parallel port, and
+the detector tools' front end to the reference's own yacs yamls
+(``--config_file`` / ``--opts``, ``models/detector/yacs_bridge``)."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 
 import torch
@@ -180,3 +181,60 @@ def refuse_multi_process(tool: str) -> None:
     if (num > 1 and coord) or env.get("CPT_MULTIHOST"):
         raise SystemExit(f"{tool}: multi-process runs are not ported yet "
                          f"(ROADMAP.md Queue 1 item 9 (parallelism))")
+
+
+def add_detector_config_args(p: argparse.ArgumentParser):
+    """--config_file / --opts: drive a detector tool from the reference's
+    own yacs yaml (prompt_feat configs / sgg_configs) unchanged."""
+    p.add_argument("--config_file", default=None,
+                   help="reference yacs yaml; resolved over the reference "
+                        "defaults as the reference tools resolve it "
+                        "(models/detector/yacs_bridge.py)")
+    p.add_argument("--opts", nargs="*", default=None,
+                   help="trailing KEY VALUE yacs overrides (the reference "
+                        "tools' --opts / cfg.merge_from_list)")
+    return p
+
+
+def apply_reference_config(parser: argparse.ArgumentParser, argv):
+    """Pre-scan ``argv`` for --config_file, resolve the yaml, and install its
+    values as ``parser``'s DEFAULTS, so explicit flags still win: the
+    reference's defaults ← yaml ← opts ← argparse precedence. A relation
+    yaml sets ``--sg`` and ``--rel_algorithm``; ``MODEL.WEIGHT`` becomes
+    ``--checkpoint`` where that file exists, as given or next to the yaml.
+    → the ``ReferenceRunConfig``, or None without --config_file."""
+    import sys
+
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    pre = argparse.ArgumentParser(add_help=False)
+    add_detector_config_args(pre)
+    known, _ = pre.parse_known_args(argv)
+    if not known.config_file:
+        return None
+    from cpt_tpu_torch.models.detector.yacs_bridge import load_reference_yaml
+
+    ref = load_reference_yaml(known.config_file, opts=known.opts)
+    cand = {
+        "base_lr": ref.solver.base_lr,
+        "max_iter": ref.solver.max_iter,
+        "steps": list(ref.solver.steps),
+        "warmup_iters": ref.solver.warmup_iters,
+        "checkpoint_period": ref.checkpoint_period,
+        "output_dir": ref.output_dir,
+    }
+    if ref.relation_on:
+        cand["rel_algorithm"] = ref.relation_algorithm
+        cand["sg"] = True
+    if ref.expected_results:
+        cand["expected_results"] = json.dumps(
+            [list(e) for e in ref.expected_results])
+    # the reference loads MODEL.WEIGHT relative to its working directory;
+    # next to the yaml is tried too, so a checked-out tree works in place
+    for root in ("", os.path.dirname(os.path.abspath(known.config_file))):
+        w = os.path.join(root, ref.weight) if root else ref.weight
+        if ref.weight and os.path.isfile(w):
+            cand["checkpoint"] = w
+            break
+    dests = {a.dest for a in parser._actions}
+    parser.set_defaults(**{k: v for k, v in cand.items() if k in dests})
+    return ref

@@ -1,6 +1,5 @@
 """Stage-1 extraction tool for colorful-prompt features (port of
-``cpt_tpu/tools/extract_features.py`` without its config front end, its
-RPN-mode ``--image_dir`` pass and its multi-device options).
+``cpt_tpu/tools/extract_features.py`` but its multi-device options).
 
 Loads the VinVL X152-C4 detector, paints colored copies of each image,
 extracts 2054-d region features in force-boxes mode and writes the
@@ -30,6 +29,30 @@ layout expands every overlapping pair); ``plain`` no paint:
 ``to_mark``, ``vocab`` keys, the reference's ``prompt_feat/data/*/yamls``
 convention; needs PyYAML); ``--labelmap`` names the detector's classes in
 the TSV (``{"idx_to_label": {...}}`` or a flat map).
+
+``--config_file`` takes the reference's own yacs yaml and ``--opts`` its
+trailing ``KEY VALUE`` overrides (``tools/_common.apply_reference_config``):
+the detector config comes from the yaml, ``DATASETS.TEST`` picks
+``--task``, ``DATA_DIR`` gives ``--yaml``, ``OUTPUT_DIR`` the output
+``<OUTPUT_DIR>/inference/<DATA_DIR stem>/predictions.tsv``, and the CPT keys
+of the opts (``N_SHOT``, ``RAND_SEED``, ``TOTAL_STEP``, ``CUR_STEP``,
+``COLOR_D``, ``COLOR_NAME``, ``COLOR_RGB``) their flags; explicit flags
+win:
+
+  python -m cpt_tpu_torch.tools.extract_features \\
+      --config_file sgg_configs/vgattr/vinvl_x152c4.yaml \\
+      --opts TEST.IGNORE_BOX_REGRESSION True MODEL.ROI_HEADS.NMS_FILTER 2 \\
+      DATASETS.TEST "('RefCoCoDataset',)" DATA_DIR refcoco_val.yaml \\
+      OUTPUT_DIR out/
+
+``--image_dir`` runs plain RPN-mode detection over every ``*.jpg`` of a
+folder (the reference's ``ImgDataset`` pass, ``cmds/gqa/_ext.sh``): one
+row a file, keyed by its stem, with each detection's rect, class, conf
+and 2054-d feature:
+
+  python -m cpt_tpu_torch.tools.extract_features --image_dir images/ \\
+      --output plain.tsv [--labelmap VG-SGG-dicts.json]
+
   python -m cpt_tpu_torch.tools.extract_features --synthetic 4 \\
       --output out.tsv --copies_per_chunk 4 --precision int8
   python -m cpt_tpu_torch.tools.extract_features --synthetic 8 --windowed \\
@@ -68,19 +91,23 @@ import torch
 
 from cpt_tpu_torch.data.prompts import CROSS_TASK_COLORS, REFCOCO_COLORS
 from cpt_tpu_torch.engine.extract import (Extractor, gqa_payload,
-                                          plain_payload, refcoco_mask_task,
-                                          refcoco_payload, refcoco_task,
-                                          vcr_payload, vg_payload)
+                                          make_detect_fn, plain_payload,
+                                          refcoco_mask_task, refcoco_payload,
+                                          refcoco_task, vcr_payload,
+                                          vg_payload)
 from cpt_tpu_torch.engine.windowed import WINDOW_LADDER
 from cpt_tpu_torch.models.detector import convert as dconv
 from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
+from cpt_tpu_torch.models.detector.rpn import grid_anchors
+from cpt_tpu_torch.tools._common import (add_detector_config_args,
+                                         apply_reference_config,
+                                         refuse_multi_process)
+from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
 # flags of the JAX tool this port does not run yet → their ROADMAP.md item
 _UNPORTED = {
-    "--config_file/--opts": "Queue 1 item 3 (the other CPT tasks)",
-    "--image_dir": "Queue 1 item 5 (the detect path's entry points)",
     "--dp > 1": "Queue 1 item 9 (parallelism)",
     "--shard_by_process": "Queue 1 item 9 (parallelism)",
 }
@@ -89,9 +116,11 @@ _UNPORTED = {
 def build_args():
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--task", default="refcoco",
+    p.add_argument("--task", default=None,
                    choices=["refcoco", "gqa", "vcr", "vg", "plain"],
-                   help="the coloring scheme and the TSV payload layout")
+                   help="the coloring scheme and the TSV payload layout "
+                        "(default refcoco, or DATASETS.TEST of "
+                        "--config_file)")
     p.add_argument("--ann_file", default=None)
     p.add_argument("--det_file", default=None)
     p.add_argument("--to_mark", default=None,
@@ -113,7 +142,9 @@ def build_args():
     p.add_argument("--checkpoint", default=None,
                    help="vinvl_vg_x152c4.pth (reference layout, a "
                         "'module.'-wrapped one too) or a Detectron .pkl")
-    p.add_argument("--output", required=True, help="predictions.tsv path")
+    p.add_argument("--output", default=None,
+                   help="predictions.tsv path (required unless "
+                        "--config_file supplies OUTPUT_DIR)")
     p.add_argument("--total_step", type=int, default=None)
     p.add_argument("--cur_step", type=int, default=None)
     p.add_argument("--overwrite", action="store_true",
@@ -159,16 +190,62 @@ def build_args():
                    default=",".join(f"{h}x{w}" for h, w in WINDOW_LADDER),
                    help="comma-separated HxW window ladder of --windowed: "
                         "each copy takes the smallest window its paint fits")
+    p.add_argument("--image_dir", default=None,
+                   help="plain RPN-mode detection and features over the "
+                        "*.jpg files of a folder, one row a file keyed by "
+                        "its stem, in sorted order")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without --checkpoint")
     # the JAX tool's flags that are not ported: each refuses with its item
-    p.add_argument("--config_file", default=None)
-    p.add_argument("--opts", nargs="*", default=None)
-    p.add_argument("--image_dir", default=None)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--shard_by_process", action="store_true")
-    return p
+    return add_detector_config_args(p)
+
+
+# the reference's dataset class (DATASETS.TEST in its cmds/ scripts) → the
+# task; VQAColorDataset shares the GQA color-marking pipeline
+# (vqadataset.py:63-140)
+_DATASET_CLASS_TO_TASK = {
+    "RefCoCoDataset": "refcoco", "GQAColorDataset": "gqa",
+    "VQAColorDataset": "gqa", "VCRColorDataset": "vcr", "VGDataset": "vg",
+    "ImgDataset": "plain",
+}
+
+
+def apply_ref_to_extract_args(args, ref):
+    """Map a resolved reference run config onto the extraction flags that
+    were not set: DATASETS.TEST → --task, DATA_DIR (a task-yaml path in
+    every cmds/ script) → --yaml, OUTPUT_DIR → the reference's
+    ``<OUTPUT_DIR>/inference/<DATA_DIR stem>/predictions.tsv``
+    (``tools/test_refcoco_net.py:38-44``), and the CPT data keys of the
+    opts (defaults.py:535-542, e.g. ``N_SHOT $NSHOT RAND_SEED $SEED COLOR_D
+    $4`` in cmds/vcr/vcr_train.sh) → their flags. → ``args``."""
+    if args.task is None and ref.datasets_test:
+        cls = ref.datasets_test[0]
+        if cls not in _DATASET_CLASS_TO_TASK:
+            raise SystemExit(
+                f"DATASETS.TEST class {cls!r} has no extraction task "
+                f"mapping (known: {sorted(_DATASET_CLASS_TO_TASK)}); "
+                "pass --task explicitly")
+        args.task = _DATASET_CLASS_TO_TASK[cls]
+    if args.yaml is None and str(ref.data_dir).endswith((".yaml", ".yml")):
+        args.yaml = ref.data_dir
+    if args.output is None and ref.output_dir:
+        stem = os.path.splitext(os.path.basename(ref.data_dir or "out"))[0]
+        args.output = os.path.join(ref.output_dir, "inference", stem,
+                                   "predictions.tsv")
+    raw = getattr(ref, "raw", None) or {}
+    for yk, attr in (("N_SHOT", "n_shot"), ("RAND_SEED", "rand_seed"),
+                     ("TOTAL_STEP", "total_step"),
+                     ("CUR_STEP", "cur_step"), ("COLOR_D", "color_d")):
+        if getattr(args, attr) is None and raw.get(yk) is not None:
+            setattr(args, attr, int(raw[yk]))
+    if args.color_name is None and raw.get("COLOR_NAME") is not None:
+        args.color_name = str(raw["COLOR_NAME"])
+    if args.color_rgb is None and raw.get("COLOR_RGB") is not None:
+        args.color_rgb = str(raw["COLOR_RGB"])
+    return args
 
 
 def refuse(what: str) -> SystemExit:
@@ -177,10 +254,7 @@ def refuse(what: str) -> SystemExit:
 
 
 def check_ported(args) -> None:
-    for flag, asked in (("--config_file/--opts",
-                         args.config_file or args.opts is not None),
-                        ("--image_dir", args.image_dir),
-                        ("--dp > 1", args.dp > 1),
+    for flag, asked in (("--dp > 1", args.dp > 1),
                         ("--shard_by_process", args.shard_by_process)):
         if asked:
             raise refuse(flag)
@@ -285,8 +359,14 @@ def paint_color(args):
     return args.color_name or name, rgb + (alpha,)
 
 
-def detector_config(args):
-    cfg = tiny_detector_config() if args.tiny else VINVL_X152C4
+def detector_config(args, ref=None):
+    """The reference yaml's detector (``ref.detector``), else the tiny
+    config or VinVL X152-C4, with ``--precision``, ``--nms_filter`` and
+    ``--ignore_box_regression`` applied."""
+    if ref is not None:
+        cfg = ref.detector
+    else:
+        cfg = tiny_detector_config() if args.tiny else VINVL_X152C4
     cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(
         cfg.backbone, precision=args.precision))
     rh = cfg.roi_heads
@@ -519,13 +599,57 @@ def vcr_tasks(args, cfg, anns, det_dic: dict):
                              color_d=color_d)
 
 
+def image_dir_rows(files, args, cfg, model, labelmap):
+    """Plain RPN-mode detection and features over image ``files`` (the
+    reference's ``ImgDataset`` pass, refcocodataset.py:21-64, through the
+    generic ``engine/inference.py`` and its NMS filters): one (stem, row) a
+    file, the row holding each detection's rect, bbox_id, class, conf and
+    base64 2054-d feature."""
+    h0, w0 = cfg.input.pad_h, cfg.input.pad_w
+    stride = cfg.rpn.anchor_stride
+    device = next(model.parameters()).device
+    anchors = torch.from_numpy(grid_anchors(cfg.rpn, h0 // stride,
+                                            w0 // stride)).to(device)
+    fn = make_detect_fn(model, cfg, with_attributes=False)
+    for path in files:
+        img, hw = load_image(
+            path, h0, w0,
+            resize_min=cfg.input.min_size_test if args.resize else None,
+            resize_max=cfg.input.max_size_test if args.resize else None)
+        canvas = np.zeros((h0, w0, 3), np.uint8)
+        canvas[: hw[0], : hw[1]] = img
+        feats, boxes, labels, scores, valid, _ = fn(
+            torch.from_numpy(canvas).to(device), anchors, hw)
+        n = int(valid.sum())
+        feats, boxes, labels, scores = (t[:n].cpu().numpy() for t in
+                                        (feats, boxes, labels, scores))
+        objects = [{"rect": [float(v) for v in boxes[i]], "bbox_id": i,
+                    "class": (labelmap or {}).get(int(labels[i]),
+                                                  str(int(labels[i]))),
+                    "conf": float(scores[i]),
+                    "feature": encode_feature(feats[i])} for i in range(n)]
+        key = os.path.splitext(os.path.basename(path))[0]
+        yield key, json.dumps({"objects": objects, "relations": None})
+
+
 def main(argv=None) -> dict:
     """Extract, write ``--output``; → {"output", "copies", "seconds",
     "copies_per_s" (e2e), "windowed_mode", and with ``--windowed``
-    "route_copies" (copies per window of the ladder and "full")}, or {}
-    when the output exists."""
-    args = build_args().parse_args(argv)
+    "route_copies" (copies per window of the ladder and "full")}; with
+    ``--image_dir`` {"output", "images", "seconds"}; {} when the output
+    exists."""
+    refuse_multi_process("extract_features")
+    parser = build_args()
+    ref = apply_reference_config(parser, argv)
+    args = parser.parse_args(argv)
     check_ported(args)
+    if ref is not None:
+        args = apply_ref_to_extract_args(args, ref)
+    if args.task is None:
+        args.task = "refcoco"
+    if args.output is None:
+        parser.error("--output is required (or --config_file with "
+                     "OUTPUT_DIR)")
     if args.yaml and args.synthetic is None:
         apply_yaml(args)
     if os.path.dirname(args.output):
@@ -533,19 +657,32 @@ def main(argv=None) -> dict:
     if os.path.exists(args.output) and not args.overwrite:
         print(f"{args.output} exists; skipping (use --overwrite to redo)")
         return {}
-    cfg = detector_config(args)
+    cfg = detector_config(args, ref)
+    model = build_detector(cfg, args)
+    labelmap = load_labelmap(args.labelmap) if args.labelmap else None
+    if args.image_dir:
+        import glob
+
+        files = shard_and_sample(
+            sorted(glob.glob(os.path.join(args.image_dir, "*.jpg"))), args)
+        t0 = time.time()
+        tsv_writer(image_dir_rows(files, args, cfg, model, labelmap),
+                   args.output)
+        dt = time.time() - t0
+        print(f"wrote {args.output}: {len(files)} images (RPN mode) in "
+              f"{dt:.1f}s")
+        return {"output": args.output, "images": len(files), "seconds": dt}
     windows = [tuple(int(v) for v in w.split("x"))
                for w in args.windows.split(",") if w]
     det_dic = {}
     if args.det_file and args.synthetic is None:
         with open(args.det_file) as f:
             det_dic = json.load(f)
-    extractor = Extractor(build_detector(cfg, args), cfg,
+    extractor = Extractor(model, cfg,
                           copies_per_chunk=args.copies_per_chunk,
                           windowed=args.windowed, window=windows,
                           allow_approximate=args.allow_approximate,
-                          labelmap=(load_labelmap(args.labelmap)
-                                    if args.labelmap else None))
+                          labelmap=labelmap)
     payload = {"refcoco": refcoco_payload, "gqa": gqa_payload,
                "vcr": vcr_payload, "vg": vg_payload,
                "plain": plain_payload}[args.task]

@@ -46,14 +46,12 @@ import torch
 from cpt_tpu_torch.data.gqa import GQACPTData, load_gqa_examples
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import gqa_answer_scores, make_mlm_at_mask_fn
-from cpt_tpu_torch.models.bert.heads import (REC_MLM_CPT,
-                                             ImageBertForSequenceClassification)
-from cpt_tpu_torch.models.detector.convert import load_torch_file
+from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
 from cpt_tpu_torch.tools._common import (add_clip_arg, build_tokenizer,
                                          clip_of, dtype_of, load_or_init,
                                          model_config, refuse_multi_process)
+from cpt_tpu_torch.tools.refcoco_cpt import load_model
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
-from cpt_tpu_torch.utils import convert as cv
 
 
 def build_args():
@@ -102,22 +100,6 @@ def build_args():
     p.add_argument("--num_hidden_layers", type=int, default=None)
     p.add_argument("--img_feature_dim", type=int, default=None)
     return p
-
-
-def load_model(checkpoint: Optional[str], seed: int, cfg, device, dtype
-               ) -> REC_MLM_CPT:
-    """``REC_MLM_CPT`` on ``device`` from ``checkpoint`` (an Oscar
-    ``pytorch_model.bin``) or, without one, from random Oscar-layout weights
-    drawn from ``seed``."""
-    if checkpoint:
-        sd = load_torch_file(checkpoint)
-    else:
-        sd = cv.random_oscar_state_dict(cfg, seed=seed)
-        print("WARNING: random init (no --checkpoint)")
-    with torch.device(device):
-        model = REC_MLM_CPT(cfg, dtype).eval()
-    model.load_state_dict(cv.state_from_reference(sd, cfg))
-    return model
 
 
 def load_ft_model(args, cfg, device, dtype, num_labels: int
@@ -253,8 +235,8 @@ def main(argv=None):
     if ft:         # no color marking: the raw question, plain features
         model = load_ft_model(args, cfg, device, dtype_of(args), len(ans2label))
     else:
-        model = load_model(args.checkpoint, args.random_seed, cfg, device,
-                           dtype_of(args))
+        model = load_model(cfg, args, device, dtype_of(args),
+                           args.random_seed).eval()
 
     def data_of(questions, feat_file, color_file):
         return GQACPTData(feat_file, color_file, load_gqa_examples(questions),

@@ -32,8 +32,7 @@ from cpt_tpu_torch.data.refcoco import RefcocoCPTData, iter_train_batches
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import refcoco_evaluate
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
-from cpt_tpu_torch.models.detector.convert import load_torch_file
-from cpt_tpu_torch.utils import convert as cv
+from cpt_tpu_torch.tools._common import load_or_init, refuse_multi_process
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 
@@ -92,20 +91,13 @@ def model_config(args) -> BertConfig:
     return dataclasses.replace(OSCAR_BASE, **overrides)
 
 
-def load_model(cfg: BertConfig, args, device, dtype) -> REC_MLM_CPT:
+def load_model(cfg: BertConfig, args, device, dtype, seed=None) -> REC_MLM_CPT:
     """``REC_MLM_CPT`` on ``device`` from ``--checkpoint`` (an Oscar
     ``pytorch_model.bin``) or from random Oscar-layout weights drawn from
-    ``--seed``."""
-    if args.checkpoint:
-        sd = load_torch_file(args.checkpoint)
-        print(f"loaded checkpoint {args.checkpoint}")
-    else:
-        sd = cv.random_oscar_state_dict(cfg, seed=args.seed)
-        print("WARNING: random init (no --checkpoint)")
+    ``seed`` (``--seed`` by default), through ``_common.load_or_init``."""
     with torch.device(device):
         model = REC_MLM_CPT(cfg, dtype)
-    model.load_state_dict(cv.state_from_reference(sd, cfg))
-    return model
+    return load_or_init(model, args, cfg, "rec_mlm_cpt", seed)
 
 
 def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
@@ -153,9 +145,11 @@ def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
 
 
 def main(argv=None):
+    refuse_multi_process("refcoco_cpt")
     args = build_args().parse_args(argv)
     if args.dp > 1:
-        raise NotImplementedError("--dp > 1: data parallelism is not ported yet")
+        raise SystemExit("refcoco_cpt: --dp > 1 is not ported yet (ROADMAP.md "
+                         "Queue 1 item 9 (parallelism))")
     device = torch.device(args.device)
     tokenizer = BertTokenizer(args.vocab if args.vocab else toy_vocab())
     cfg = model_config(args)

@@ -40,7 +40,7 @@ from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.evaluate import vg_recall_eval
 from cpt_tpu_torch.tools._common import (build_tokenizer, dtype_of,
                                          model_config, refuse_multi_process)
-from cpt_tpu_torch.tools.gqa_cpt import load_model
+from cpt_tpu_torch.tools.refcoco_cpt import load_model
 
 
 def build_args():
@@ -178,7 +178,7 @@ def main(argv=None):
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)
     cfg = model_config(args)
-    model = load_model(args.checkpoint, args.seed, cfg, device, dtype_of(args))
+    model = load_model(cfg, args, device, dtype_of(args)).eval()
     idx2pred_tokens = predicate_tokens(tokenizer, args.predicate_vocab)
     data = VGCPTData(args.feat_file, tokenizer, args.max_seq_length,
                      args.max_img_seq_length, cfg.img_feature_dim)

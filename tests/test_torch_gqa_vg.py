@@ -555,10 +555,20 @@ def test_gqa_tool_refuses_what_is_not_ported(flags, item, monkeypatch,
 
 
 def test_extract_features_refuses_the_config_front_end(tmp_path):
-    for flags in (["--config_file", "c.yaml"], ["--opts", "MODEL.X", "1"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 3"):
-            extract_features.main(["--output", str(tmp_path / "o.tsv")] + flags)
-    assert not (tmp_path / "o.tsv").exists()
+    """The config front end is ported: --config_file reads its yaml (a
+    missing one raises FileNotFoundError, as in JAX) and --opts without a
+    config file changes nothing."""
+    out = tmp_path / "o.tsv"
+    with pytest.raises(FileNotFoundError, match="c.yaml"):
+        extract_features.main(["--output", str(out), "--config_file",
+                               str(tmp_path / "c.yaml")])
+    assert not out.exists()
+    tiny = ["--tiny", "--synthetic", "1", "--device", "cpu", "--dtype",
+            "float32", "--task", "refcoco"]
+    extract_features.main(["--output", str(out), "--opts", "MODEL.X", "1"]
+                          + tiny)
+    extract_features.main(["--output", str(tmp_path / "p.tsv")] + tiny)
+    assert out.read_bytes() == (tmp_path / "p.tsv").read_bytes()
 
 
 # --- evaluation, ensembles and the small tools -------------------------------

@@ -298,7 +298,7 @@ def test_validate_checkpoints_host_copies(tmp_path):
     [], ["--hidden_size", "64"], ["--hidden_size", "1024", "--num_hidden_layers", "3"],
     ["--model_size", "large", "--img_feature_dim", "134", "--drop_out", "0.2"],
     ["--use_img_layernorm", "--classifier", "mlp", "--cls_hidden_scale", "3"]])
-def test_tools_common_copy(flags):
+def test_tools_common_copy(tmp_path, flags):
     """``tools/_common.py``'s copies (the Oscar config from the flags, the
     clip flag, the tokenizer, the dtype) give the originals' results."""
     import argparse
@@ -322,6 +322,21 @@ def test_tools_common_copy(flags):
 
     args, jargs = parse(common), parse(jcommon)
     assert vars(args) == vars(jargs)
+    # the detector-config front end: no --config_file leaves the parser as
+    # it was; with one, both install the same defaults
+    parsers = []
+    for m in (common, jcommon):
+        p = m.add_detector_config_args(argparse.ArgumentParser())
+        p.add_argument("--max_iter", type=int, default=1)
+        assert m.apply_reference_config(p, flags) is None
+        parsers.append(p)
+    assert vars(parsers[0].parse_args([])) == vars(parsers[1].parse_args([]))
+    yaml_path = tmp_path / "c.yaml"
+    yaml_path.write_text("SOLVER:\n  MAX_ITER: 9\n")
+    argv = ["--config_file", str(yaml_path)] + flags[:0]
+    got = [vars((m.apply_reference_config(p, argv), p.parse_args(argv))[1])
+           for m, p in zip((common, jcommon), parsers)]
+    assert got[0] == got[1] and got[0]["max_iter"] == 9
     assert (dataclasses.asdict(common.model_config(args, attention_impl="flash"))
             == dataclasses.asdict(jcommon.model_config(jargs,
                                                        attention_impl="flash")))
@@ -473,3 +488,58 @@ def test_merge_tsv_shards_and_box_iou_copies(tmp_path):
     got = box_iou_np(boxes, boxes[:4])
     np.testing.assert_array_equal(got, jbox_iou_np(boxes, boxes[:4]))
     assert got.dtype == np.float32 and got.shape == (7, 4)
+
+
+def _code(path: Path, names=None) -> str:
+    """The module's code without its docstrings, with the port's package
+    name read as the JAX package's: what a copy must keep of its original
+    (``names``: only these top-level definitions)."""
+    tree = ast.parse(path.read_text())
+    body = []
+    for node in tree.body:
+        if names is not None and getattr(node, "name", None) not in names:
+            continue
+        body.append(node)
+    for node in ast.walk(ast.Module(body=body, type_ignores=[])):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef, ast.Module)):
+            if (node.body and isinstance(node.body[0], ast.Expr)
+                    and isinstance(node.body[0].value, ast.Constant)
+                    and isinstance(node.body[0].value.value, str)):
+                node.body = node.body[1:] or [ast.Pass()]
+        if isinstance(node, ast.ImportFrom) and node.module:
+            node.module = node.module.replace("cpt_tpu_torch", "cpt_tpu")
+        if isinstance(node, ast.FunctionDef):
+            # PyYAML is imported where a file is read (the JAX package's
+            # config/core imports it at the top)
+            node.body = [n for n in node.body if not (
+                isinstance(n, ast.Import) and n.names[0].name == "yaml")]
+    body = [n for n in body if not (isinstance(n, ast.Expr) and isinstance(
+        getattr(n, "value", None), ast.Constant))]
+    return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+@pytest.mark.parametrize("module,names", [
+    ("engine/detection_eval.py", None), ("data/vg_tsv.py", None),
+    ("data/coco_json.py", None), ("models/detector/yacs_bridge.py", None),
+    ("tools/convert_dataset.py", None), ("engine/solver.py", {"SolverConfig"}),
+    ("config/core.py", {"merge_dict", "replace_path", "apply_overrides",
+                        "from_yaml", "to_dict", "dumps"})])
+def test_jax_free_copies_keep_the_originals_code(module, names):
+    """The port's copies of the JAX package's jax-free modules (or of the
+    named definitions) are the originals' code but for docstrings and the
+    package name: ``config/core``'s front end, ``SolverConfig``, the yacs
+    bridge and its tables, the detection evaluators and the detection
+    datasets (their behaviour against the originals' is held in
+    ``test_torch_config_front_end.py`` and ``test_torch_detector_tools.py``)."""
+    got = _code(REPO / "cpt_tpu_torch" / module, names)
+    want = _code(REPO / "cpt_tpu" / module, names)
+    assert len(want) > 500 and got == want
+
+
+def test_solver_config_copy():
+    from cpt_tpu.engine.solver import SolverConfig as JSolver
+    from cpt_tpu_torch.engine.solver import SolverConfig
+
+    assert dataclasses.asdict(SolverConfig()) == dataclasses.asdict(JSolver())
+    assert ([(f.name, f.type) for f in dataclasses.fields(SolverConfig)]
+            == [(f.name, f.type) for f in dataclasses.fields(JSolver)])

@@ -404,11 +404,34 @@ def test_extract_features_int8_matches_jax_tool(tmp_path):
     (["--config_file", "c.yaml"], "item 3"),
     (["--opts"], "item 3"), (["--image_dir", "d"], "item 5")])
 def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
+    """The multi-device flags refuse, naming Queue 1 item 9. The flags of
+    items 3 and 5 are ported and run: --config_file reads its yaml (a
+    missing one raises as in JAX), --opts without it changes nothing, and
+    --image_dir over a folder without .jpg files writes an empty TSV."""
     from cpt_tpu_torch.tools import extract_features as tool
 
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        tool.main(["--output", str(tmp_path / "o.tsv")] + flags)
-    assert not (tmp_path / "o.tsv").exists()
+    out = tmp_path / "o.tsv"
+    argv = ["--output", str(out)] + [
+        str(tmp_path / f) if f == "d" else f for f in flags]
+    if item == "item 9":
+        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+            tool.main(argv)
+        assert not out.exists()
+    elif "--config_file" in flags:
+        with pytest.raises(FileNotFoundError, match="c.yaml"):
+            tool.main(argv)
+        assert not out.exists()
+    elif item == "item 3":
+        tiny = ["--tiny", "--synthetic", "1", "--device", "cpu", "--dtype",
+                "float32", "--copies_per_chunk", "4"]
+        got = tool.main(argv + tiny)
+        assert got["copies"] == 3
+        tool.main(["--output", str(tmp_path / "plain.tsv")] + tiny)
+        assert out.read_bytes() == (tmp_path / "plain.tsv").read_bytes()
+    else:
+        (tmp_path / "d").mkdir()
+        got = tool.main(argv + ["--tiny", "--device", "cpu"])
+        assert got["images"] == 0 and out.read_text() == ""
 
 
 def test_int8_gap_tool_runs_tiny():

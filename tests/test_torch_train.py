@@ -378,7 +378,8 @@ def test_tool_trains_then_evaluates(fixture_paths, monkeypatch):
         "--num_train_epochs", "3", "--per_gpu_train_batch_size", "4"])
     assert 0.0 <= acc <= 100.0
     assert len(losses) == 9 and all(np.isfinite(losses))
-    with pytest.raises(NotImplementedError, match="--dp"):
+    with pytest.raises(SystemExit,
+                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9"):
         refcoco_cpt.main(_tool_args(fixture_paths) + ["--dp", "2"])
 
 
