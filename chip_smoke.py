@@ -175,6 +175,31 @@ Phases (any failure raises and the script exits non-zero):
    ``.jpg`` files of npy bytes (``npy_pillow``), each row's rects equal to
    ``test_detector``'s detections on that image and its 2054-d features
    finite.
+13. the Oscar classification runners at full width (Oscar-base from one
+   random reference-layout checkpoint, seed 0; heads fresh from seed 0,
+   their biases drawn from N(0, OSCAR_BIAS_STD²)) on synthetic 2054-d
+   region features (``oscar_fixture``): K3 (block and core; the core on
+   its streamed branch at S 178, ragged at 50, where an unrescaled running
+   sum, ``core_no_rescale``, must miss) at VQA's eval batch
+   ``[64,178,768]``, NLVR2's pair batch ``[128,95,768]`` and its concat
+   batch ``[64,135,768]`` (streamed, ragged at 7), K4 at 11,392, 12,160
+   and 8,640 rows, against their plain versions and named faults.
+   ``run_vqa.main`` (kl then bce by ``--adjust_loss``, 2 epochs of 2
+   steps, ``--eval_every 1`` on 64 questions, ``checkpoint-{epoch}``, 8
+   test questions' submission read back), ``run_gqa.main`` (xe, its
+   test-std rows), ``run_nlvr.main`` in pair mode (AdamW) and concat mode
+   (Adamax), ``run_retrieval.main`` over 64 caption × image pairs, the
+   re-rank of 8 candidates an image and the 3-D CL mask: every training
+   step (dropout on: no kernel) and eval call recorded (``Driven``);
+   each runner's eval within its ``OSCAR_TOL`` of an f32 einsum model on
+   the trained weights (the plain bf16 path's gap read beside it), its
+   ``OSCAR_FAULTS`` missing it and farther than ``OSCAR_FAULT_MARGIN`` ×
+   the run's own gap; K3 and K4 12 a
+   64-row eval batch, K3 none under the CL mask; scores and R@K finite;
+   host ms per step and per eval batch; a retrieval run cut at step 2
+   (``--max_steps``, ``--save_every``) and ``--resume``d, bit-equal to its
+   uninterrupted twin (or, should an op prove nondeterministic, no farther
+   from it than a second uninterrupted run).
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -408,7 +433,8 @@ def graph_ms(fn, reps: int = 10, stream=None) -> float:
 # f32: ``edge_unmasked``, the keys from S up to the next multiple of 64 enter
 # with score 0 and zero V (an unmasked ragged edge); ``no_rescale``, K6's
 # running accumulator is not rescaled by exp(m_old − m_new) when a 64-key
-# tile raises the row max (the running sum is).
+# tile raises the row max (the running sum is), or K3's core's running sum
+# in the first of its two passes is not.
 def pad_keys(t, dim: int, n: int):
     """``t`` with ``n`` zero rows appended along ``dim``."""
     import torch
@@ -425,6 +451,26 @@ def core_edge_unmasked(qkv, kb, heads: int, scale: float):
     pad = -s % 64
     return reference_attention_core(pad_keys(qkv, 1, pad), pad_keys(kb, 1, pad),
                                     heads, scale)[:, :s]
+
+
+def core_no_rescale(qkv, kb, heads: int, scale: float):
+    """K3's core in its streamed branch (S > 128) with pass 1's running sum
+    not rescaled by exp(m_old − m_new) when a 64-key tile raises the row
+    max (the fault the two-pass schedule must not have)."""
+    import torch
+
+    b, s, h3 = qkv.shape
+    q, k, v = qkv.float().reshape(b, s, 3, heads, -1).unbind(2)
+    sc = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+          + kb.float()[:, None, None, :])
+    m = torch.full(sc.shape[:-1], float("-inf"), device=sc.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, s, 64):
+        st = sc[..., k0:k0 + 64]
+        m = torch.maximum(m, st.amax(-1))
+        l = l + torch.exp(st - m[..., None]).sum(-1)
+    p = torch.exp(sc - m[..., None]) / l[..., None]
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, h3 // 3)
 
 
 def flash_edge_unmasked(q, k, v, kb, scale: float):
@@ -913,7 +959,8 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
     every key masked. The core alone runs on a packed projection of std 1.5
     beside SDPA; where S is not a multiple of 64 the keys past S entering
     unmasked (``core_edge_unmasked``) must miss too. Above S = 128 the core
-    takes its streamed two-pass branch."""
+    takes its streamed two-pass branch, where pass 1's running sum left
+    unrescaled (``core_no_rescale``) must miss as well."""
     import torch
     import torch.nn.functional as F
 
@@ -970,6 +1017,9 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
     if s_len % 64:
         core_faults["edge_unmasked"] = lambda: core_edge_unmasked(
             qkv, kb, heads, scale)
+    if s_len > 128:
+        core_faults["no_rescale"] = lambda: core_no_rescale(qkv, kb, heads,
+                                                            scale)
     compare("K3 core", f"qkv=[{b},{s_len},2304] heads=12",
             lambda: attention_core(qkv, kb, heads, scale),
             core_ref(qkv, kb, scale), core_ref(qkv, kb, scale), rows,
@@ -4439,26 +4489,39 @@ def ft_head_batch(name: str, cfg, dev, seed: int = 5) -> dict:
 
 
 class Driven:
-    """Drives a tool's ``main``: its ``train`` runs with the model's config
-    changed by ``train_changes`` (under "flash" here), each step's loss,
-    host ms and launches recorded; each call of the functions named in
-    ``evals`` records (model, args, result, host ms, launches)."""
+    """Drives a tool's ``main``: each step of its ``train`` (run with the
+    model's config changed by ``train_changes``, if any) records its loss,
+    host ms and launches; each call of the functions named in ``evals``
+    records (model, args, result, host ms, launches); ``build(model)``, if
+    given, runs on each model the tool's ``build_model`` returns. The
+    counts are zeroed just before each step and call and read just after
+    it; a step's host ms run from the end of the step or call before it."""
 
-    def __init__(self, module, evals, counters, train_changes):
+    def __init__(self, module, evals, counters, train_changes=None, build=None):
         self.module, self.evals, self.counters = module, evals, counters
-        self.train_changes = train_changes
+        self.train_changes, self.build = train_changes, build
         self.steps, self.calls, self.losses = [], [], []
-        self.train_launches = {}
+        self.model, self.train_launches, self.mark = None, {}, 0.0
 
     def launches(self) -> dict:
         return {k: fn.launches for k, fn in self.counters.items()}
 
+    def total(self) -> dict:
+        """The launches of the whole run: training's and every call's."""
+        return {k: self.train_launches.get(k, 0)
+                + sum(c["launches"][k] for c in self.calls)
+                for k in self.counters}
+
     def __enter__(self):
         mod = self.module
-        self.real = {n: getattr(mod, n) for n in ("train",) + self.evals}
+        names = ("train",) + self.evals + (("build_model",) if self.build
+                                           else ())
+        self.real = {n: getattr(mod, n) for n in names}
         mod.train = self._training(self.real["train"])
         for name in self.evals:
             setattr(mod, name, self._recording(self.real[name]))
+        if self.build:
+            mod.build_model = self._building(self.real["build_model"])
         return self
 
     def __exit__(self, *exc):
@@ -4466,23 +4529,32 @@ class Driven:
             setattr(self.module, name, fn)
         return False
 
+    def _building(self, real):
+        def build_model(*a, **kw):
+            model = real(*a, **kw)
+            self.build(model)
+            return model
+        return build_model
+
     def _training(self, real):
         def train(model, *a, **kw):
-            mark = [0.0, {}]
-
             def on_step(step, loss):
-                now, seen = time.perf_counter(), self.launches()
-                self.steps.append({"step": step, "loss": loss,
-                                   "ms": (now - mark[0]) * 1e3,
-                                   "launches": {k: seen[k] - mark[1][k]
-                                                for k in seen}})
-                mark[:] = [now, seen]
-
-            with config_changed(model, **self.train_changes):
+                self.steps.append({"step": step, "loss": loss, "ms": (
+                    time.perf_counter() - self.mark) * 1e3,
+                                   "launches": self.launches()})
                 zero_counts(self.counters)
-                mark[:] = [time.perf_counter(), self.launches()]
+                self.mark = time.perf_counter()
+
+            self.model = model
+            with (config_changed(model, **self.train_changes)
+                  if self.train_changes else contextlib.nullcontext()):
+                zero_counts(self.counters)
+                self.mark = time.perf_counter()
                 self.losses = real(model, *a, on_step=on_step, **kw)
-            self.train_launches = self.launches()
+            tail = self.launches()
+            self.train_launches = {k: n + sum(st["launches"][k]
+                                              for st in self.steps)
+                                   for k, n in tail.items()}
             return self.losses
         return train
 
@@ -4498,6 +4570,8 @@ class Driven:
             self.calls.append({"model": model, "args": a, "kw": kw,
                                "result": result, "launches": self.launches(),
                                "ms": (time.perf_counter() - t0) * 1e3})
+            zero_counts(self.counters)
+            self.mark = time.perf_counter()
             return result
         return run
 
@@ -5258,6 +5332,439 @@ def run_detector_tools(res, counters, detect_launches: list,
     return out
 
 
+# Phase 13: the Oscar classification runners (VQA, GQA, NLVR2, retrieval)
+# at full width on synthetic 2054-d region features. Named faults each
+# tolerance must see: the classifier's output bias dropped (every runner),
+# NLVR2's two choices swapped, retrieval's 3-D CL mask replaced by the 2-D
+# CLR one, and softmax column 0 read as the match score instead of column 1.
+OSCAR_FAULTS = {"vqa": ("cls_bias_dropped",), "gqa": ("cls_bias_dropped",),
+                "nlvr_pair": ("cls_bias_dropped", "choices_swapped"),
+                "nlvr_concat": ("cls_bias_dropped",),
+                "retrieval": ("cls_bias_dropped", "column_0"),
+                "retrieval_rerank": ("column_0",),
+                "retrieval_cl": ("mask_2d", "column_0")}
+# The fresh heads' biases are zero (flax's init), and a few steps at the
+# runners' learning rate move them by ~1e-4, so a dropped bias could not be
+# seen: the phase draws each classifier bias from N(0, OSCAR_BIAS_STD²)
+# (seed 0) over the head the tool built, before it trains.
+OSCAR_BIAS_STD = 0.5
+# Phase 13's tolerances, one a runner, bf16 on the card under "auto"
+# against the f32 einsum path on the same weights rounded to bf16: VQA /
+# GQA / NLVR2 logits as the largest |Δ| over the largest |logit|,
+# retrieval's match scores (in [0, 1]) as the largest |Δ|. Each is set from
+# the calibration run (H100 80GB HBM3, 700 W; phase 13 alone) as phase
+# 11's were set: at most 3× the largest sound gap of the runner's runs, and
+# the geometric mean of that gap and the smallest fault's where lower.
+# VQA: bf16 6.076e-3, the dropped bias 0.6292; 1.8e-2 (3×). GQA: 6.063e-3,
+# 0.6111; 1.8e-2. NLVR2: pair 6.442e-3, concat 2.150e-2, the swapped
+# choices 0.1077 (the dropped bias 0.6502 / 2.284); 4.8e-2, the geometric
+# mean (2.2× either way). Retrieval: full 7.512e-4, re-rank 1.857e-3, CL
+# 2.187e-4; the 2-D mask 4.009e-3, column 0 0.699-0.985, the dropped bias
+# 0.1073; 2.7e-3, the geometric mean (1.45× and 1.48×).
+OSCAR_TOL = {"vqa": 1.8e-2, "gqa": 1.8e-2, "nlvr": 4.8e-2, "retrieval": 2.7e-3}
+# Each named fault must also lie farther than this many times the run's own
+# gap: a tolerance shared by variants is set by the loosest, so the CL
+# mask's 2-D fault (4.009e-3 in the calibration) clears 2.7e-3 by 1.48×
+# only, against CL's own gap of 2.187e-4 (18×).
+OSCAR_FAULT_MARGIN = 5.0
+OSCAR_WORDS = ("man", "woman", "dog", "cat", "person", "car", "tree", "shirt",
+               "table", "chair", "horse", "bus")
+
+
+def oscar_fixture(root: str, dim: int, seed: int = 2033) -> dict:
+    """The phase's files: a predictions TSV of 16 images (``im0`` ..
+    ``im15``), 50 regions each of ``dim``-d features (ReLU-like at four
+    scales, 0.25 to 2, so that images differ for the random encoder: the
+    swapped choices and the 2-D mask move its outputs; the last 6 a box's
+    geometry) with od labels; VQA's 16 training, 64 val and 8 test
+    questions (1-3 soft labels under 1853, so GQA reads them too) and its
+    answer list; NLVR2's 16 training and 64 val statements over image
+    pairs; retrieval's one caption for each of the first 8 images and 8
+    candidates an image (every image's caption, its own first)."""
+    from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
+
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(16):
+        f = np.abs(rng.randn(50, dim)).astype(np.float32) * 0.25 * 2 ** (i % 4)
+        f[:, -6:] = rng.rand(50, 6)
+        rows.append([f"im{i}", json.dumps({"objects": [
+            {"rect": [0, 0, 10, 10], "conf": 0.9,
+             "class": OSCAR_WORDS[rng.randint(len(OSCAR_WORDS))],
+             "feature": encode_feature(x)} for x in f]})])
+    p = {"feat_file": f"{root}/oscar.tsv"}
+    tsv_writer(rows, p["feat_file"])
+
+    def dump(name, obj):
+        p[name] = f"{root}/oscar_{name}.json"
+        with open(p[name], "w") as f:
+            json.dump(obj, f)
+
+    def words(n):
+        return " ".join(OSCAR_WORDS[j] for j in rng.randint(len(OSCAR_WORDS),
+                                                             size=n))
+
+    def questions(n, first, labeled=True):
+        return [{"q_id": str(first + q), "img_id": f"im{rng.randint(16)}",
+                 "question": f"what is the {words(rng.randint(1, 8))} on the "
+                             f"left ?",
+                 **({"label_scores": {str(a): float(s) for a, s in zip(
+                     rng.choice(1853, 1 + q % 3, replace=False),
+                     rng.choice([0.3, 0.6, 0.9, 1.0], 1 + q % 3))}}
+                    if labeled else {})} for q in range(n)]
+
+    dump("vqa_train", questions(16, 0))
+    dump("vqa_val", questions(64, 1000))
+    dump("vqa_test", questions(8, 2000, labeled=False))
+    dump("label2ans", [f"answer{i}" for i in range(3129)])
+
+    def statements(n):
+        return [{"ex_id": f"e{q}", "img_left": f"im{rng.randint(16)}",
+                 "img_right": f"im{rng.randint(16)}",
+                 "statement": f"there is a {words(rng.randint(1, 6))} in the "
+                              f"left image", "label": int(rng.randint(2))}
+                for q in range(n)]
+
+    dump("nlvr_train", statements(16))
+    dump("nlvr_val", statements(64))
+    dump("captions", {f"im{i}": [f"a {words(rng.randint(2, 10))} near the "
+                                 f"{words(1)}"] for i in range(8)})
+    dump("cand", {f"im{i}": [[f"im{i}", 0]] + [[f"im{j}", 0] for j in range(8)
+                                               if j != i] for i in range(8)})
+    return p
+
+
+def draw_biases(model) -> None:
+    """``model``'s classifier biases drawn from N(0, OSCAR_BIAS_STD²), seed
+    0, over the fresh head its runner built."""
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name in ("cls_hidden", "cls_out"):
+            layer = getattr(model, name, None)
+            if layer is not None:
+                layer.bias.copy_(torch.randn(layer.bias.shape, generator=g)
+                                 * OSCAR_BIAS_STD)
+
+
+@contextlib.contextmanager
+def oscar_fault(fault: str, data):
+    """``data`` with one of phase 13's named input faults:
+    ``choices_swapped`` (NLVR2's pair batches with choice 0 and 1
+    exchanged) or ``mask_2d`` (retrieval tensorized with the 2-D CLR mask
+    in place of its 3-D one)."""
+    if fault == "choices_swapped":
+        real = data.batch
+
+        def swapped(indices, pad_to=None):
+            *arrays, labels = real(indices, pad_to=pad_to)
+            return (*(np.ascontiguousarray(a[:, ::-1]) for a in arrays), labels)
+
+        data.batch = swapped
+        try:
+            yield
+        finally:
+            del data.batch
+    elif fault == "mask_2d":
+        kind, data.att_mask_type = data.att_mask_type, "CLR"
+        try:
+            yield
+        finally:
+            data.att_mask_type = kind
+    else:
+        raise ValueError(f"unknown phase 13 fault {fault!r}")
+
+
+def cache_features(data) -> None:
+    """Memoize ``data``'s feature reads (``features_for`` / ``_feats``):
+    the comparisons after a runner's own run (the f32 model, the faults)
+    then do not decode the TSV again."""
+    import functools
+
+    for name in ("features_for", "_feats"):
+        if hasattr(data, name):
+            setattr(data, name, functools.lru_cache(maxsize=None)(
+                getattr(data, name)))
+
+
+def run_oscar_runners(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
+    """Phase 13 (see the module docstring): the four runners' ``main``s at
+    the width of ``bcfg`` (Oscar-base on the card), each from one random
+    Oscar-layout checkpoint (seed 0) with its fresh head (seed 0, biases
+    drawn by ``draw_biases``). Gathers every reading, prints it, then
+    raises on the first check that failed."""
+    import torch
+
+    from cpt_tpu_torch.tools import run_gqa, run_nlvr, run_retrieval, run_vqa
+    from cpt_tpu_torch.utils import convert as cv
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    # the kernels at the runners' eval shapes: VQA's [64, 128 + 50] and
+    # NLVR2's concat batch [64, 55 + 2 × 40] (K3's core streams S 178 and
+    # S 135 past its 64-key tiles, ragged at 50 and 7) and NLVR2's pair
+    # batch [2 × 64, 55 + 40]
+    if dev.type == "cuda":
+        for b, s_len in ((64, 178), (128, 95), (64, 135)):
+            check_k3(rows, b, s_len)
+            check_k4(rows, b * s_len)
+
+    flags = ["--device", dev.type, "--dtype",
+             "bfloat16" if dt == torch.bfloat16 else "float32", "--hidden_size",
+             str(bcfg.hidden_size), "--num_hidden_layers",
+             str(bcfg.num_hidden_layers), "--img_feature_dim",
+             str(bcfg.img_feature_dim), "--seed", "0"]
+    out = {}
+
+    def drive(module, evals, entry, argv):
+        """Run ``entry.main(argv)`` driven (``module`` is the one whose
+        functions it calls: run_gqa runs run_vqa's), its heads' biases
+        drawn; → (result, its Driven, the launches of the whole run)."""
+        with Driven(module, evals, counters, build=draw_biases) as drv:
+            result = entry.main(argv + flags)
+        return result, drv, drv.total()
+
+    def per_batch(call, n_rows, k3=12):
+        """The eval call's launches fit one batch of 64 rows: K3 ``k3`` and
+        K4 12 a batch, no other kernel."""
+        n = -(-n_rows // 64)
+        want = {k: 0 for k in counters}
+        want.update({"K3": k3 * n, "K4": 12 * n})
+        return call["launches"] == want
+
+    def steps_ok(rec, n_steps):
+        return (len(rec.steps) == n_steps
+                and all(np.isfinite(s["loss"]) for s in rec.steps)
+                and all(not any(s["launches"].values()) for s in rec.steps))
+
+    def compare(name, model, data, logits, run, scores=False):
+        """The run's eval output (logits, or retrieval's match scores) and
+        each named fault's against ``model``'s f32 einsum oracle, relative
+        to the largest logit (absolute for scores), checked against the
+        runner's OSCAR_TOL and against OSCAR_FAULT_MARGIN × the run's own
+        gap. ``run(m)`` → ``m``'s eval logits on ``data``; the dropped bias
+        and column 0 are read from the run's logits. Also read: the gap of
+        ``model`` itself on the plain bf16 path (no kernel), which tells
+        the kernels' share of the gap from bf16's."""
+        def output(x):
+            return run_retrieval.match_scores(x) if scores else x
+
+        cache_features(data)
+        kw = {"num_choices": 2} if hasattr(model, "num_choices") else {}
+        want = output(run(ft_oracle(model, **kw)))
+        with config_changed(model, attention_impl="einsum", ffn_impl="dense"):
+            plain = output(run(model))
+        bias = model.cls_out.bias.detach().float().cpu().numpy()
+        faults = {}
+        for fault in OSCAR_FAULTS[name]:
+            if fault == "cls_bias_dropped":
+                faults[fault] = output(logits - bias)
+            elif fault == "column_0":
+                faults[fault] = torch.softmax(torch.from_numpy(logits),
+                                              -1)[:, 0].numpy()
+            else:
+                with oscar_fault(fault, data):
+                    faults[fault] = output(run(model))
+        got = output(logits)
+        scale = 1.0 if scores else float(np.abs(want).max())
+        gap = float(np.abs(got - want).max()) / scale
+        faults = {f: float(np.abs(v - want).max()) / scale
+                  for f, v in faults.items()}
+        tol = OSCAR_TOL[name.split("_")[0]]
+        check(gap <= tol and got.shape == want.shape,
+              f"{name}: gap to f32 {gap} (tol {tol}), shapes {got.shape} "
+              f"{want.shape}")
+        check(all(e > max(tol, OSCAR_FAULT_MARGIN * gap)
+                  for e in faults.values()),
+              f"{name}: a fault passes {faults} (tol {tol}, gap {gap})")
+        return {"gap": gap, "plain_gap": float(np.abs(plain - want).max())
+                / scale, "fault_gaps": faults, "scale": scale, "tol": tol}
+
+    def timings(rec, final, ran):
+        return {"launches": ran, "losses": [s["loss"] for s in rec.steps],
+                "ms_per_step": rec.ms_per_step(), "eval_ms_per_batch": final["ms"]}
+
+    def step_text(rec):
+        return [(s["loss"], s["launches"]) for s in rec.steps]
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fx = oscar_fixture(root, bcfg.img_feature_dim)
+        ckpt = f"{root}/oscar.pth"
+        # at the encoder geometry the runners build from the flags
+        enc = run_vqa.model_config(run_vqa.build_args().parse_args(flags))
+        torch.save({k: torch.from_numpy(v) for k, v in cv.random_oscar_state_dict(
+            enc, seed=0).items()}, ckpt)
+        flags += ["--checkpoint", ckpt]
+        setup_s = time.perf_counter() - t0
+
+        # --- (a) VQA: 2 epochs of 2 steps (batch 8), kl then bce from epoch
+        # 1, eval on the 64 val questions after each epoch (the best kept,
+        # checkpoint-{epoch} saved) and at the end, then the 8 test
+        # questions' submission; (b) GQA (xe over 1853 answers): 1 epoch
+        # of 2 steps, eval, the test-std rows
+        vqa_common = ["--feat_file", fx["feat_file"], "--examples",
+                      fx["vqa_train"], "--val_examples", fx["vqa_val"],
+                      "--test_examples", fx["vqa_test"], "--label2ans",
+                      fx["label2ans"], "--per_gpu_train_batch_size", "8"]
+        for name, entry, extra, n_steps, n_calls, sub_name, keys in (
+                ("vqa", run_vqa, ["--num_train_epochs", "2", "--eval_every",
+                                  "1", "--loss_type", "kl", "--adjust_loss",
+                                  "--adjust_loss_epoch", "1"], 4, 4,
+                 "test2015_results.json", {"question_id", "answer"}),
+                ("gqa", run_gqa, ["--num_labels", "1853",
+                                  "--num_train_epochs", "1"], 2, 2,
+                 "submission_results.json", {"questionId", "prediction"})):
+            out_dir = f"{root}/{name}"
+            acc, rec, ran = drive(run_vqa, ("evaluate",), entry, vqa_common + [
+                "--output_dir", out_dir, "--output", f"{root}/{name}.pk"]
+                + extra)
+            model = rec.model
+            final = [c for c in rec.calls if len(c["args"][0]) == 64][-1]
+            data = final["args"][0]
+            entry_out = compare(name, model, data, final["result"][2],
+                                lambda m: run_vqa.evaluate(m, data, 64)[2])
+            with open(f"{out_dir}/{sub_name}") as f:
+                sub = json.load(f)
+            with open(f"{root}/{name}.pk", "rb") as f:
+                saved = pickle.load(f)
+            want_dir = sorted(["checkpoint-1", "checkpoint-2", sub_name]
+                              if name == "vqa" else [sub_name])
+            check(steps_ok(rec, n_steps)
+                  and model.config.loss_type == ("kl" if name == "vqa" else "xe"),
+                  f"{name} training: steps {step_text(rec)}")
+            check(len(rec.calls) == n_calls and all(
+                per_batch(c, len(c["args"][0])) for c in rec.calls),
+                  f"{name} eval launches {[c['launches'] for c in rec.calls]}")
+            check(np.isfinite(acc) and 0.0 <= acc <= 100.0
+                  and saved["accuracy"] == acc and len(saved["results"]) == 64,
+                  f"{name} score {acc}, pickle {saved.get('accuracy')}")
+            check(len(sub) == 8 and all(set(r) == keys for r in sub)
+                  and all(str(r.get("answer", r.get("prediction"))).startswith(
+                      "answer") for r in sub)
+                  and sorted(os.listdir(out_dir)) == want_dir,
+                  f"{name} submission {sub[:2]}, output dir "
+                  f"{os.listdir(out_dir)}")
+            out[name] = dict(entry_out, score=float(acc), test_rows=len(sub),
+                             **timings(rec, final, ran))
+            del model
+
+        # --- (c) NLVR2 in pair mode (AdamW) and in concat mode (Adamax): 1
+        # epoch of 2 steps, eval on 64 statements ([128, 95] and [64, 135])
+        for mode, optim in (("pair", "adamw"), ("concat", "adamax")):
+            name = f"nlvr_{mode}"
+            acc, rec, ran = drive(run_nlvr, ("evaluate",), run_nlvr, [
+                "--feat_file", fx["feat_file"], "--examples", fx["nlvr_train"],
+                "--val_examples", fx["nlvr_val"], "--pair_mode", mode,
+                "--optim", optim, "--num_train_epochs", "1",
+                "--per_gpu_train_batch_size", "8"])
+            model = rec.model
+            final = rec.calls[0]
+            data = final["args"][0]
+            entry_out = compare(name, model, data, final["result"][2],
+                                lambda m: run_nlvr.evaluate(m, data, 64)[2])
+            check(steps_ok(rec, 2), f"{name} training: steps {step_text(rec)}")
+            check(len(rec.calls) == 1 and per_batch(final, len(data))
+                  and np.isfinite(acc),
+                  f"{name} eval launches {final['launches']}, accuracy {acc}")
+            out[name] = dict(entry_out, accuracy=float(acc),
+                             **timings(rec, final, ran))
+            del model
+
+        # --- (d) retrieval: every caption x image pair of 8 images (64
+        # pairs, [64, 120]) after 4 steps of 16 pairs; the hard-negative
+        # re-rank (8 candidates an image) after 2 steps on candidate
+        # negatives; the 3-D CL mask after 2 steps (K3 none)
+        ret = ["--feat_file", fx["feat_file"], "--captions", fx["captions"],
+               "--per_gpu_train_batch_size", "16"]
+        variants = (("retrieval", ["--train_steps", "4"]),
+                    ("retrieval_rerank", ["--train_steps", "2",
+                                          "--eval_caption_index_file",
+                                          fx["cand"], "--hard_negative_training"]),
+                    ("retrieval_cl", ["--train_steps", "2", "--att_mask_type",
+                                      "CL"]))
+        twin = None
+        for name, extra in variants:
+            metrics, rec, ran = drive(run_retrieval, ("pair_logits",),
+                                      run_retrieval, ret + extra)
+            model = rec.model
+            final = rec.calls[0]
+            data, pairs = final["args"][:2]
+            entry_out = compare(
+                name, model, data, final["result"],
+                lambda m: run_retrieval.pair_logits(m, data, pairs, 64),
+                scores=True)
+            check(steps_ok(rec, int(extra[1])),
+                  f"{name} training: steps {step_text(rec)}")
+            check(len(rec.calls) == 1 and len(pairs) == 64
+                  and per_batch(final, 64, k3=0 if name == "retrieval_cl"
+                                else 12)
+                  and all(np.isfinite(v) for v in metrics.values()),
+                  f"{name} eval launches {final['launches']}, metrics "
+                  f"{metrics}, {len(pairs)} pairs")
+            out[name] = dict(entry_out, metrics={k: float(v) for k, v in
+                                                 metrics.items()},
+                             **timings(rec, final, ran))
+            if name == "retrieval":
+                twin = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+            del model
+
+        # --- (e) --save_every / --resume: the retrieval run cut at step 2,
+        # then resumed to 4, against its uninterrupted twin (d)
+        def final_params(argv):
+            with Driven(run_retrieval, (), counters, build=draw_biases) as rec:
+                run_retrieval.main(argv + flags)
+            return {k: v.detach().clone()
+                    for k, v in rec.model.state_dict().items()}
+
+        def largest_gap(a, b):
+            return max(float((a[k].float() - b[k].float()).abs().max())
+                       for k in a)
+
+        state_dir = ["--output_dir", f"{root}/ret_state"]
+        base = ret + variants[0][1]
+        final_params(base + state_dir + ["--max_steps", "2", "--save_every", "2"])
+        resumed = final_params(base + state_dir + ["--resume"])
+        bit_equal = all(torch.equal(resumed[k], twin[k]) for k in twin)
+        resume = {"bit_equal": bit_equal, "gap": largest_gap(resumed, twin)}
+        if not bit_equal:
+            # a nondeterministic op: hold the pair to two uninterrupted runs
+            resume["twin_gap"] = largest_gap(final_params(base), twin)
+        check(bit_equal or resume["gap"] <= resume["twin_gap"],
+              f"retrieval --resume against its uninterrupted twin: {resume}")
+        out["resume"] = resume
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 13 Oscar runners ({smi}) in {phase_s:.1f} s (fixture and "
+          f"checkpoint {setup_s:.1f} s): "
+          + "; ".join(
+              f"{k}: {len(v['losses'])} steps at {v['ms_per_step']:.1f} host "
+              f"ms/step (losses {v['losses'][0]:.4f} -> {v['losses'][-1]:.4f}), "
+              f"eval {v['eval_ms_per_batch']:.1f} host ms/batch, gap to f32 "
+              f"{v['gap']:.3e} (tol {v['tol']}; plain bf16 path "
+              f"{v['plain_gap']:.3e}), faults "
+              + ", ".join(f"{f} {e:.3e} ({e / v['tol']:.1f}x tol, "
+                          f"{e / v['gap']:.1f}x gap)"
+                          for f, e in v["fault_gaps"].items())
+              + ", " + ", ".join(f"{m} {x:.2f}" for m, x in (
+                  v["metrics"].items() if "metrics" in v else
+                  [("score" if "score" in v else "accuracy",
+                    v.get("score", v.get("accuracy")))]))
+              for k, v in out.items() if k != "resume")
+          + f"; resume {out['resume']}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 13: {failed}")
+    out = {f"oscar_{k}": v for k, v in out.items()}
+    out["seconds"] = phase_s
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -5337,7 +5844,11 @@ def main(argv=None) -> int:
         r["detect_launches"] for r in e2e["detect"]["requests"]])
     phase12_s = tools.pop("seconds")
     e2e.update(tools)
+    dev, dt, bcfg = res.device, res.oscar.dtype, res.bert_cfg
     del res
+    oscar = run_oscar_runners(counters, smi, rows, dev, dt, bcfg)
+    phase13_s = oscar.pop("seconds")
+    e2e.update(oscar)
     per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
                   for k in KERNELS}
 
@@ -5354,7 +5865,9 @@ def main(argv=None) -> int:
              "ffn_study", "int8", "int8_static", "windowed", "serve", "vcr",
              "vcr_train", "gqa", "gqa_train", "vg", "vg_train", "seg",
              "rec_ft_train", "rec_ft", "gqa_ft_train", "gqa_ft", "vcr_ft_train",
-             "vcr_ft", "test_detector", "attr_eval", "image_dir")
+             "vcr_ft", "test_detector", "attr_eval", "image_dir", "oscar_vqa",
+             "oscar_gqa", "oscar_nlvr_pair", "oscar_nlvr_concat",
+             "oscar_retrieval", "oscar_retrieval_rerank", "oscar_retrieval_cl")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -5369,8 +5882,8 @@ def main(argv=None) -> int:
                         "library_ms": r.get("library_device_ms",
                                             r["library_ms"])})
     print(f"phase 10 took {phase10_s:.1f} s, phase 11 {phase11_s:.1f} s, "
-          f"phase 12 {phase12_s:.1f} s; the whole run "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+          f"phase 12 {phase12_s:.1f} s, phase 13 {phase13_s:.1f} s; the whole "
+          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,

@@ -1,6 +1,7 @@
 """Host-side tensorization: prompts + region features → fixed-shape arrays
-(the port's copy of the pair-truncation path of ``cpt_tpu/data/tensorize.py``,
-the one RefCOCO grounding uses).
+(the port's copy of the pair path of ``cpt_tpu/data/tensorize.py``: the
+pair truncation RefCOCO grounding, VQA and NLVR2 use, retrieval's
+text_b-only truncation, and a pre-tokenized text_a).
 
 Reproduces the reference's sequence-pair layout exactly
 (``Oscar/oscar/datasets/refcoco_fsl_cpt_dataset.py::tokenize``, lines
@@ -39,21 +40,47 @@ def truncate_seq_pair(tokens_a: List[str], tokens_b: List[str],
 
 def tensorize_pair(tokenizer: BertTokenizer, text_a: str,
                    text_b: Optional[str], num_img_feats: int,
-                   max_seq_len: int = 70,
-                   max_img_seq_len: int = 50) -> TensorizedSeq:
-    tokens_a = tokenizer.tokenize(text_a)
+                   max_seq_len: int = 70, max_img_seq_len: int = 50,
+                   cls_segment_id: int = 0,
+                   truncation: str = "pair",
+                   tokens_a: Optional[list] = None) -> TensorizedSeq:
+    """``truncation`` picks the reference task's overflow scheme:
+    "pair" = ``_truncate_seq_pair`` longer-pops-first (VQA
+    task_utils.py:666, NLVR run_nlvr.py:146, pretrain oscar_tsv.py:680);
+    "b_only" = cap text_a at max_seq_len-2 and give text_b only the
+    remainder (retrieval's tensorize_example, run_retrieval.py:137-150 —
+    sane-regime version: its negative-bound under-truncation when
+    text_a fills the budget is a latent reference bug, we clamp to 0).
+
+    ``tokens_a`` bypasses text_a tokenization with a pre-tokenized LIST
+    that ``truncate_seq_pair`` mutates IN PLACE — NLVR's pair mode
+    tokenizes the statement once and lets each choice's truncation
+    carry over to the next (run_nlvr.py:253,263-265)."""
+    tokens_a = tokenizer.tokenize(text_a) if tokens_a is None else tokens_a
     if text_b:
         tokens_b = tokenizer.tokenize(text_b)
-        truncate_seq_pair(tokens_a, tokens_b, max_seq_len - 3)
+        if truncation == "b_only":
+            tokens_a = tokens_a[: max_seq_len - 2]
+            budget = max(0, max_seq_len - (len(tokens_a) + 2) - 1)
+            tokens_b = tokens_b[:budget]
+        else:
+            truncate_seq_pair(tokens_a, tokens_b, max_seq_len - 3)
     else:
         tokens_b = []
         tokens_a = tokens_a[: max_seq_len - 2]
 
     tokens = ["[CLS]"] + tokens_a + ["[SEP]"]
-    segments = [0] * len(tokens)
-    # the b-segment is gated on the truncated list being non-empty
-    # (reference ``if tokens_b:``)
-    if tokens_b:
+    segments = [cls_segment_id] + [0] * len(tokens_a) + [0]
+    # pair mode gates the b-segment on the truncated LIST being non-empty
+    # (reference `if tokens_b:` — task_utils.py:594, run_nlvr.py:155);
+    # retrieval appends `tokens_b + [SEP]` whenever text_b is truthy, so
+    # a caption truncated to nothing still contributes its segment-1
+    # [SEP] (run_retrieval.py:144-149) — but only while there is room:
+    # when tokens_a alone fills max_seq_len-2 the reference is in its
+    # negative-bound bug regime, and appending would overflow the fixed
+    # shape (len == max_seq_len+1); we keep the clamped no-[SEP] layout.
+    if tokens_b or (text_b and truncation == "b_only"
+                    and len(tokens) < max_seq_len):
         tokens += tokens_b + ["[SEP]"]
         segments += [1] * (len(tokens_b) + 1)
 

@@ -2,20 +2,26 @@
 ``cpt_tpu/tools/_common.py``): the common flags, the Oscar config from the
 size flags, the optimizer and gradient-clip flags, the tokenizer and the
 compute dtype, the model's weights from a checkpoint or a seed, the
-refusal of a multi-process launch, which waits for the parallel port, and
-the detector tools' front end to the reference's own yacs yamls
-(``--config_file`` / ``--opts``, ``models/detector/yacs_bridge``)."""
+refusals of a multi-process launch and of ``--dp``, which wait for the
+parallel port, the Oscar runners' step and epoch loops with their exact
+resume, and the detector tools' front end to the reference's own yacs
+yamls (``--config_file`` / ``--opts``, ``models/detector/yacs_bridge``)."""
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
 import os
+import random
+from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 
 from cpt_tpu_torch.config.bert import OSCAR_BASE, OSCAR_LARGE, BertConfig
+from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.models.detector.convert import load_torch_file
+from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 from cpt_tpu_torch.utils import convert as cv
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
@@ -181,6 +187,125 @@ def refuse_multi_process(tool: str) -> None:
     if (num > 1 and coord) or env.get("CPT_MULTIHOST"):
         raise SystemExit(f"{tool}: multi-process runs are not ported yet "
                          f"(ROADMAP.md Queue 1 item 9 (parallelism))")
+
+
+def refuse_dp(args, tool: str) -> None:
+    """Raise on ``--dp`` above 1 (the JAX tools' data-parallel mesh)."""
+    if getattr(args, "dp", 1) > 1:
+        raise SystemExit(f"{tool}: --dp > 1 is not ported yet (ROADMAP.md "
+                         f"Queue 1 item 9 (parallelism))")
+
+
+def step_generator(device, seed: int, step: int) -> torch.Generator:
+    """The dropout generator of optimizer step ``step``, seeded from
+    (``seed``, ``step``) where the JAX runners fold the step into
+    ``PRNGKey(seed)``: a resumed run draws what an uninterrupted one
+    draws."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+
+
+def restore_train_state(state_dir: str, state) -> bool:
+    """Load the train state that ``--save_every`` saved under ``state_dir``
+    (``utils/checkpoint``) into ``state``: the model's parameters in place,
+    the optimizer's moments and the step. → whether there was one."""
+    if not ckpt_lib.has_checkpoint(state_dir):
+        return False
+    saved = ckpt_lib.restore_checkpoint(state_dir, state)
+    with torch.no_grad():
+        for p, s in zip(state.params, saved.params):
+            p.copy_(s)
+    state.opt_state, state.step = saved.opt_state, saved.step
+    return True
+
+
+def on_device(device, arrays) -> tuple:
+    """numpy arrays → tensors on ``device``."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
+def last_step(args, n_steps: int) -> int:
+    """The step a run stops at: ``--max_steps`` cuts the loop of
+    ``n_steps`` steps (but not its schedule)."""
+    return min(n_steps, args.max_steps) if args.max_steps else n_steps
+
+
+def train_steps(model, args, device, n_steps: int,
+                batch_for: Callable[[int], tuple],
+                on_step: Optional[Callable[[int, float], None]] = None
+                ) -> List[float]:
+    """The JAX runners' step loop on ``make_cls_train_step``: ``--optim``
+    (AdamW unless the tool has the flag) with the stock betas (0.9, 0.999),
+    the clip of ``--max_grad_norm`` and ``--scheduler`` over ``n_steps``
+    steps; step ``it`` on ``batch_for(it)`` (tensors on ``device``), dropout
+    from ``step_generator(--seed, it)``; ``--max_steps`` cuts the loop but
+    not the schedule; ``--save_every`` / ``--resume`` keep and restore the
+    train state under ``{output_dir}/state``, so a resumed run goes on as
+    an uninterrupted one. → this run's losses; ``on_step(step, loss)``
+    after each step (and its save)."""
+    ocfg = train_lib.OptimConfig(
+        learning_rate=args.learning_rate, weight_decay=args.weight_decay,
+        warmup_steps=int(n_steps * args.warmup_ratio), num_train_steps=n_steps,
+        scheduler=args.scheduler, optim=getattr(args, "optim", "adamw"),
+        **optim_overrides(args, betas=(0.9, 0.999)))
+    tx = train_lib.build_optimizer(model, ocfg)
+    state = train_lib.create_train_state(model, tx)
+    step = train_lib.make_cls_train_step(model, tx)
+    state_dir = os.path.join(args.output_dir or "", "state")
+    if args.resume and args.output_dir and restore_train_state(state_dir, state):
+        print(f"resumed at step {state.step}")
+    losses: List[float] = []
+    for it in range(state.step, last_step(args, n_steps)):
+        state, loss = step(state, batch_for(it),
+                           step_generator(device, args.seed, it))
+        losses.append(float(loss))
+        if (args.save_every and args.output_dir
+                and state.step % args.save_every == 0):
+            ckpt_lib.save_checkpoint(state_dir, f"step{state.step}", state)
+        if on_step is not None:
+            on_step(state.step, losses[-1])
+    model.eval()
+    return losses
+
+
+def train_epochs(model, args, device, n_examples: int,
+                 batch_fn: Callable[[List[int], int], tuple],
+                 on_step: Optional[Callable[[int, float], None]] = None,
+                 begin_epoch: Optional[Callable[[int], None]] = None,
+                 end_epoch: Optional[Callable[[int, List[float]], None]] = None
+                 ) -> List[float]:
+    """The epoch loop of the JAX runners (run_vqa, run_nlvr) on
+    ``train_steps``, over (examples // batch) × epochs steps: each epoch in
+    the order a ``random.Random`` seeded from (``--seed``, epoch) shuffles
+    it, a step on ``batch_fn(indices, epoch)``. ``begin_epoch(epoch)`` runs
+    before an epoch's first step in this run, ``end_epoch(epoch, losses)``
+    after its last (or after the step ``--max_steps`` stops at). → this
+    run's losses; ``on_step(step, loss)`` after each step."""
+    bsz = args.per_gpu_train_batch_size
+    per_epoch = max(1, n_examples // bsz)
+    n_steps = per_epoch * args.num_train_epochs
+    stop_at = last_step(args, n_steps)
+    orders = {}
+    losses: List[float] = []
+
+    def batch_for(it):
+        epoch, si = divmod(it, per_epoch)
+        if epoch not in orders:
+            if begin_epoch is not None:
+                begin_epoch(epoch)
+            orders[epoch] = list(range(n_examples))
+            random.Random((args.seed + 1) * 7919 + epoch).shuffle(orders[epoch])
+        return batch_fn(orders[epoch][si * bsz:(si + 1) * bsz], epoch)
+
+    def after(step, loss):
+        losses.append(loss)
+        if on_step is not None:
+            on_step(step, loss)
+        if end_epoch is not None and (step % per_epoch == 0 or step == stop_at):
+            end_epoch((step - 1) // per_epoch, losses)
+
+    train_steps(model, args, device, n_steps, batch_for, after)
+    return losses
 
 
 def add_detector_config_args(p: argparse.ArgumentParser):

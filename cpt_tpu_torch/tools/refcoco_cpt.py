@@ -32,7 +32,8 @@ from cpt_tpu_torch.data.refcoco import RefcocoCPTData, iter_train_batches
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import refcoco_evaluate
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
-from cpt_tpu_torch.tools._common import load_or_init, refuse_multi_process
+from cpt_tpu_torch.tools._common import (load_or_init, refuse_dp,
+                                         refuse_multi_process)
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 
@@ -147,9 +148,7 @@ def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
 def main(argv=None):
     refuse_multi_process("refcoco_cpt")
     args = build_args().parse_args(argv)
-    if args.dp > 1:
-        raise SystemExit("refcoco_cpt: --dp > 1 is not ported yet (ROADMAP.md "
-                         "Queue 1 item 9 (parallelism))")
+    refuse_dp(args, "refcoco_cpt")
     device = torch.device(args.device)
     tokenizer = BertTokenizer(args.vocab if args.vocab else toy_vocab())
     cfg = model_config(args)

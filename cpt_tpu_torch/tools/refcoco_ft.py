@@ -38,7 +38,7 @@ from cpt_tpu_torch.models.bert.heads import REC_FT
 from cpt_tpu_torch.structures.boxes import xywh_iou
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, dtype_of,
-                                         load_or_init, model_config,
+                                         load_or_init, model_config, on_device,
                                          optim_overrides, refuse_multi_process)
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
 
@@ -122,11 +122,6 @@ class RefcocoFTData:
         return ids, segs, attn, feats, box_mask, targets, keys, boxes_list
 
 
-def _on(device, arrays) -> Tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in arrays)
-
-
 def build_model(args, cfg, device) -> REC_FT:
     """``REC_FT`` on ``device``: the encoder from ``--checkpoint`` or random
     Oscar-layout weights from ``--seed``, the scorer fresh from ``--seed``."""
@@ -165,7 +160,7 @@ def train(model: REC_FT, data: RefcocoFTData, args, device,
         order = list(range(len(data)))
         order_rng.shuffle(order)
         for start in range(0, len(order), bsz):
-            ids, segs, attn, feats, box_mask, targets = _on(
+            ids, segs, attn, feats, box_mask, targets = on_device(
                 device, data.batch(order[start:start + bsz], pad_to=bsz)[:6])
             loss, _, _ = model(ids, segs, attn, img_feats=feats,
                                box_mask=box_mask, target_idx=targets,
@@ -195,9 +190,9 @@ def evaluate(model: REC_FT, data: RefcocoFTData, batch_size: int
     for start in range(0, len(data), batch_size):
         idxs = list(range(start, min(start + batch_size, len(data))))
         b = data.batch(idxs, pad_to=batch_size)
-        _, scores, pred = model(*_on(device, b[:3]),
-                                img_feats=_on(device, b[3:4])[0],
-                                box_mask=_on(device, b[4:5])[0])
+        _, scores, pred = model(*on_device(device, b[:3]),
+                                img_feats=on_device(device, b[3:4])[0],
+                                box_mask=on_device(device, b[4:5])[0])
         scores, pred = scores.float().cpu().numpy(), pred.cpu().numpy()
         for j in range(len(idxs)):
             key, boxes = b[6][j], b[7][j]

@@ -523,14 +523,19 @@ def _code(path: Path, names=None) -> str:
     ("data/coco_json.py", None), ("models/detector/yacs_bridge.py", None),
     ("tools/convert_dataset.py", None), ("engine/solver.py", {"SolverConfig"}),
     ("config/core.py", {"merge_dict", "replace_path", "apply_overrides",
-                        "from_yaml", "to_dict", "dumps"})])
+                        "from_yaml", "to_dict", "dumps"}),
+    ("data/vqa.py", None), ("data/nlvr.py", None), ("data/retrieval.py", None),
+    ("data/tensorize.py", {"truncate_seq_pair", "tensorize_pair",
+                           "pad_img_feats"})])
 def test_jax_free_copies_keep_the_originals_code(module, names):
     """The port's copies of the JAX package's jax-free modules (or of the
     named definitions) are the originals' code but for docstrings and the
     package name: ``config/core``'s front end, ``SolverConfig``, the yacs
     bridge and its tables, the detection evaluators and the detection
-    datasets (their behaviour against the originals' is held in
-    ``test_torch_config_front_end.py`` and ``test_torch_detector_tools.py``)."""
+    datasets, the Oscar runners' datasets and the pair tensorizer (their
+    behaviour against the originals' is held in
+    ``test_torch_config_front_end.py``, ``test_torch_detector_tools.py`` and
+    ``test_torch_oscar_data.py``)."""
     got = _code(REPO / "cpt_tpu_torch" / module, names)
     want = _code(REPO / "cpt_tpu" / module, names)
     assert len(want) > 500 and got == want
