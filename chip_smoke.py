@@ -200,6 +200,27 @@ Phases (any failure raises and the script exits non-zero):
    (``--max_steps``, ``--save_every``) and ``--resume``d, bit-equal to its
    uninterrupted twin (or, should an op prove nondeterministic, no farther
    from it than a second uninterrupted run).
+14. Oscar captioning at full width (Oscar-base with an untied decoder from
+   one random reference-layout checkpoint, seed 0; the MLM head fresh from
+   seed 0; vocab 30522, S = 70 + 50) on phase 13's fixture (8 captioned
+   images of 50 2054-d regions): K4 at the decode's ``[600,768]`` and K6
+   at ``[5,12,120,64]`` with five seq2seq biases ``[5,1,120,120]`` against
+   their plain versions, and at a greedy step's 120 rows and ``[1,12,120,64]``
+   and CBS's 2,400 rows (K6's named faults: the bias read key-only, row 0
+   broadcast, and transposed). ``run_captioning.main``: 4 XE steps of batch
+   16 (drop-worst from step 2; dropout on: no kernel), ``--eval_every 2``
+   on 2 images (greedy), 2 SCST steps of 5 rollouts (peak device memory
+   read), beam 5 keeping 2 over the 8 images; the XE run cut at step 2 and
+   ``--resume``d, its step-4 train state bit-equal to the first run's,
+   with a greedy decode; on the first run's state, 4 images and
+   ``--max_gen_length 20``, sampling (top-k 20, 2 draws an image) under
+   ``"flash"`` and CBS over 2 od labels: every decode launches K4 12 a
+   step (39 steps; 19 at 20 tokens) and K3 none, under ``"flash"`` K6 12
+   a step too, an SCST step three decodes' worth; the
+   beam decode's best captions' teacher-forced per-step log-probs in bf16
+   within CAPTION_TOL of the f32 einsum path, ``CAPTION_FAULTS`` missing
+   it; host ms per decode and SCST step, one beam decode's device time by
+   kernel family.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -213,6 +234,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import json
 import os
@@ -4346,8 +4368,7 @@ def config_changed(model, **changes):
     ``changes`` (the attention backend, the loss type) meanwhile."""
     mods = [m for m in model.modules() if hasattr(m, "config")]
     old = [m.config for m in mods]
-    for m in mods:
-        m.config = dataclasses.replace(m.config, **changes)
+    set_config(model, **changes)
     try:
         yield
     finally:
@@ -4567,7 +4588,8 @@ class Driven:
             result = real(model, *a, **kw)
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-            self.calls.append({"model": model, "args": a, "kw": kw,
+            self.calls.append({"name": real.__name__, "model": model,
+                               "args": a, "kw": kw,
                                "result": result, "launches": self.launches(),
                                "ms": (time.perf_counter() - t0) * 1e3})
             zero_counts(self.counters)
@@ -5765,6 +5787,443 @@ def run_oscar_runners(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
     return out
 
 
+# Phase 14: Oscar captioning (``tools/run_captioning``) at full width. The
+# caption forward carries a [B, S, S] seq2seq mask, so each deterministic
+# forward launches K4 in every layer and never K3 (whose gate takes a
+# key-only bias), or K6 with the [B, 1, S, S] bias under "flash"; a decode
+# runs one forward a step over the fixed canvas, ``CAPTION_STEPS`` steps.
+CAPTION_STEPS = 39                # --max_seq_a_length 40: steps 1 .. 39
+# Named faults of the teacher-forced log-probs, each on the f32 oracle: the
+# 2-D key-only mask (every query sees every valid key, future caption
+# tokens included), no [MASK] written at step t (the target visible), the
+# logits read at t + 1, and the tied embedding table in place of the
+# untied decoder that the run's model carries.
+CAPTION_FAULTS = ("mask_2d", "no_mask_token", "read_t_plus_1", "tied_table")
+# The bf16 per-step log-probs (nats) of the beam decode's best captions
+# under "auto" against the f32 einsum path on the same weights rounded to
+# bf16, as the largest |Δ| over the 312 live steps of 8 captions. Set from
+# the calibration run (H100 80GB HBM3, 700 W; phase 14 alone) as phases
+# 11 and 13 set theirs: the geometric mean of the largest sound gap and the
+# smallest fault's, where below 3× the gap. The gap read 3.894e-2 (the
+# plain bf16 path 2.360e-2), the faults: the 2-D mask 0.1960, no [MASK]
+# 0.3252, read at t + 1 0.3873, the tied table 3.281; sqrt(3.894e-2 ·
+# 0.1960) = 8.7e-2, 2.24× either way.
+CAPTION_TOL = 8.7e-2
+
+
+# The fresh head's bias, 0 in flax's init, is drawn for the phase so that
+# the random model's captions use the words of the fixture's captions (the
+# toy vocabulary, every other id biased down): without it every decode is
+# [UNK]s, every CIDEr-D reward 0, and so every SCST advantage and gradient.
+CAPTION_OTHER_BIAS = -10.0
+
+
+def caption_head_bias(model) -> None:
+    """``model``'s MLM bias: N(0, 1) (seed 0) on the toy vocabulary's
+    words, CAPTION_OTHER_BIAS on every other id."""
+    import torch
+
+    from cpt_tpu_torch.utils.tokenization import toy_vocab
+
+    words = sorted(i for i in toy_vocab().values() if i >= 104)
+    bias = torch.full(model.mlm_head.bias.shape, CAPTION_OTHER_BIAS)
+    bias[words] = torch.randn(len(words), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.mlm_head.bias.copy_(bias)
+
+
+def set_config(model, **changes) -> None:
+    """Every module of ``model`` that carries the BERT config gets it with
+    ``changes`` for good (``config_changed`` does it for a while)."""
+    for m in model.modules():
+        if hasattr(m, "config"):
+            m.config = dataclasses.replace(m.config, **changes)
+
+
+def caption_step_logprobs(model, tokens, ctx, fault=None):
+    """Teacher-forced per-step log-probs [n, La − 1] (f32) of ``tokens``
+    [n, La] under ``model`` on the decode canvas (``ctx`` = segment_ids,
+    attn, img_feats, base_ids): at step t [MASK] at t, the logits read at
+    t, log_softmax at the token. ``fault`` one of CAPTION_FAULTS."""
+    import torch
+
+    segs, attn, feats, base = ctx
+    if fault == "mask_2d":
+        attn = attn.amax(dim=1)
+    n, la = tokens.shape
+    out = []
+    with torch.no_grad():
+        for t in range(1, la):
+            canvas = base.long().clone()
+            canvas[:, :la] = tokens
+            if fault != "no_mask_token":
+                canvas[:, t] = 103
+            pos = torch.full((n, 1), t + (fault == "read_t_plus_1"),
+                             dtype=torch.long, device=tokens.device)
+            logits = model(canvas, attn, segs, img_feats=feats,
+                           masked_pos=pos)[1][:, 0].float()
+            logp = torch.log_softmax(logits, -1)
+            out.append(torch.gather(logp, 1, tokens[:, t:t + 1].long())[:, 0])
+    return torch.stack(out, 1)
+
+
+def check_flash_seq2seq(rows: list, b: int) -> None:
+    """K6 at a decode's shape [b, 12, 120, 64] (b 5: beams; 1: greedy) with
+    the caption model's bias, ``(1 − mask)·−10000`` of seq2seq masks
+    (``caption_attention_mask``: canvas 40, 30 od slots, 50 regions; od
+    labels 3-30, regions 10-50 valid, one training-like caption of 12 whose
+    dead rows see nothing), against its plain version in f32. Named
+    faults: the bias read as a key-only bias (row 0 broadcast to every
+    query), the bias transposed, and K6's own (uniform attention, the bias
+    dropped, the scale dropped)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.models.bert.captioning import caption_attention_mask
+    from cpt_tpu_torch.models.bert.model import extend_attention_mask
+    from cpt_tpu_torch.ops.attention import flash_mha, reference_flash_mha
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(14)
+    h, s_len = 12, 120
+    masks = np.stack([caption_attention_mask(40, 30, 50, a, o, r) for a, o, r in
+                      ((40, 3, 50), (40, 12, 10), (40, 7, 33), (12, 5, 50),
+                       (40, 30, 50))[:b]])
+    bias = extend_attention_mask(torch.from_numpy(masks).to(dev), torch.bfloat16)
+    q, k, v = (torch.randn(b, h, s_len, 64, generator=g, device=dev)
+               for _ in range(3))
+    q, k, v = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16()
+    qf, kf, vf, bf = q.float(), k.float(), v.float(), bias.float()
+    scale = 0.125
+
+    def plain(qq, kk, vv, bb, sc=scale):
+        return lambda: reference_flash_mha(qq, kk, vv, bb, sm_scale=sc)
+
+    faults = {"key_only": plain(qf, kf, vf, bf[:, :, :1, :]),
+              "transposed": plain(qf, kf, vf, bf.transpose(-1, -2)),
+              "uniform": plain(qf * 0, kf, vf, bf),
+              "no_bias": plain(qf, kf, vf, None),
+              "no_scale": plain(qf, kf, vf, bf, 1.0)}
+    mask = (bias * scale).bfloat16()
+    compare("K6", f"q=[{b},{h},{s_len},64] bias=[{b},1,{s_len},{s_len}] seq2seq",
+            lambda: flash_mha(q, k, v, bias, sm_scale=scale),
+            plain(q, k, v, bias), plain(qf, kf, vf, bf), rows, faults,
+            work=(nbytes(q, k, v, bias) + nbytes(q),
+                  4 * b * h * s_len * s_len * 64, BF16_OPS_S),
+            library=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, scale=scale),
+            device="flash_attention_kernel")
+
+
+def run_captioning_phase(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
+    """Phase 14 (see the module docstring): ``run_captioning.main`` at the
+    width of ``bcfg`` (Oscar-base on the card; the untied decoder) from one
+    random Oscar-layout checkpoint (seed 0), its MLM head fresh (seed 0),
+    on phase 13's fixture (8 captioned images of 50 2054-d regions).
+    Gathers every reading, prints it, then raises on the first check that
+    failed."""
+    import shutil
+
+    import torch
+
+    from cpt_tpu_torch.tools import run_captioning as rc
+    from cpt_tpu_torch.utils import convert as cv
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    # the kernels at the decode's shapes: K4 over 5 beams of S 120 (the
+    # SCST rollouts' [5, 120] too), one greedy row and CBS's 4 states × 5
+    # beams; K6 with the seq2seq bias over 5 beams and one greedy row
+    if dev.type == "cuda":
+        for m in (600, 120, 2400):
+            check_k4(rows, m)
+        for b in (5, 1):
+            check_flash_seq2seq(rows, b)
+
+    flags = ["--device", dev.type, "--dtype",
+             "bfloat16" if dt == torch.bfloat16 else "float32", "--hidden_size",
+             str(bcfg.hidden_size), "--num_hidden_layers",
+             str(bcfg.num_hidden_layers), "--img_feature_dim",
+             str(bcfg.img_feature_dim), "--seed", "0", "--no_tie_weights"]
+    per_decode = CAPTION_STEPS * bcfg.num_hidden_layers
+    evals = ("greedy_or_sample", "beam_search", "constrained_beam_search",
+             "scst_step")
+    out, peaks = {}, []
+
+    def want(k4, k6=0):
+        w = {k: 0 for k in counters}
+        w.update({"K4": k4, "K6": k6})
+        return w
+
+    def calls_ok(rec, name, n, launches):
+        calls = [c for c in rec.calls if c["name"] == name]
+        return (len(calls) == n and all(c["launches"] == launches
+                                        for c in calls)), calls
+
+    def drive(argv, build=caption_head_bias):
+        """``main(argv + flags)`` driven (the calls of ``evals`` recorded),
+        each SCST step's peak of allocated device memory read."""
+        real_scst = rc.scst_step
+
+        @functools.wraps(real_scst)
+        def scst_step(*a, **kw):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            result = real_scst(*a, **kw)
+            if dev.type == "cuda":
+                peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            return result
+
+        rc.scst_step = scst_step
+        try:
+            with Driven(rc, evals, counters, build=build) as drv:
+                result = rc.main(argv + flags)
+        finally:
+            rc.scst_step = real_scst
+        for call in drv.calls:
+            if call["name"] == "scst_step":
+                # the rewards only: the gradients are not kept past the run
+                call["result"] = (None,) + tuple(call["result"][1:])
+        return result, drv
+
+    def timings(calls):
+        return float(np.mean([c["ms"] for c in calls])) if calls else None
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        fx = oscar_fixture(root, bcfg.img_feature_dim)
+        ckpt = f"{root}/oscar.pth"
+        enc = rc.model_config(rc.build_args().parse_args(flags))
+        torch.save({k: torch.from_numpy(v) for k, v in cv.random_oscar_state_dict(
+            enc, seed=0).items()}, ckpt)
+        data = ["--feat_file", fx["feat_file"], "--captions", fx["captions"],
+                "--checkpoint", ckpt]
+        # the decode-only runs caption the first 4 images
+        with open(fx["captions"]) as f:
+            four = dict(sorted(json.load(f).items())[:4])
+        with open(f"{root}/captions4.json", "w") as f:
+            json.dump(four, f)
+        xe = ["--train_steps", "4", "--per_gpu_train_batch_size", "16",
+              "--drop_worst_ratio", "0.2", "--drop_worst_after", "2"]
+        setup_s = time.perf_counter() - t0
+
+        # --- (a) 4 XE steps (dropout 0.1: no kernel), --eval_every 2 on 2
+        # images (greedy), 2 SCST steps of 5 rollouts (greedy baseline),
+        # then beam 5 keeping 2 over the 8 images; the step-4 state saved
+        d1 = f"{root}/run"
+        (cider, outputs), rec = drive(data + xe + [
+            "--save_every", "4",
+            "--eval_every", "2", "--eval_subset", "2", "--output_dir", d1,
+            "--scst_steps", "2", "--sc_train_sample_n", "5", "--num_beams",
+            "5", "--num_keep_best", "2", "--output", f"{root}/beam.pk"])
+        model = rec.model
+        check(len(rec.steps) == 4 and all(np.isfinite(s["loss"]) and not any(
+            s["launches"].values()) for s in rec.steps),
+              f"caption XE steps {[(s['loss'], s['launches']) for s in rec.steps]}")
+        ok, evals_ = calls_ok(rec, "greedy_or_sample", 4, want(per_decode))
+        check(ok, f"caption eval decodes {[c['launches'] for c in evals_]}")
+        ok, scst = calls_ok(rec, "scst_step", 2, want(3 * per_decode))
+        check(ok and all(np.isfinite(c["result"][1]) for c in scst),
+              f"caption SCST steps {[(c['launches'], c['result'][1:]) for c in scst]}")
+        ok, beams = calls_ok(rec, "beam_search", 8, want(per_decode))
+        check(ok, f"caption beam decodes {[c['launches'] for c in beams]}")
+        with open(f"{d1}/eval_logs.json") as f:
+            logs = json.load(f)
+        with open(f"{root}/beam.pk", "rb") as f:
+            saved = pickle.load(f)
+        check([e["step"] for e in logs] == [2, 4] and np.isfinite(cider)
+              and len(outputs) == 8 and all(len(v) == 2 for v in outputs.values())
+              and all(np.isfinite(m) for m in saved["metrics"].values()),
+              f"caption beam run: logs {logs}, CIDEr {cider}, metrics "
+              f"{saved['metrics']}, outputs {list(outputs.values())[:1]}")
+        out["caption_xe"] = {"launches": rec.train_launches,
+                             "losses": [s["loss"] for s in rec.steps],
+                             "step_ms": [s["ms"] for s in rec.steps],
+                             "ms_per_step": rec.ms_per_step()}
+        out["caption_eval"] = {"launches": {k: sum(c["launches"][k] for c in evals_)
+                                            for k in counters},
+                               "ms_per_decode": timings(evals_)}
+        out["caption_scst"] = {"launches": {k: sum(c["launches"][k] for c in scst)
+                                            for k in counters},
+                               "ms_per_step": timings(scst),
+                               "rewards": [c["result"][1:] for c in scst],
+                               "peak_gib": max(peaks) if peaks else None}
+        out["caption_beam"] = {"launches": {k: sum(c["launches"][k] for c in beams)
+                                            for k in counters},
+                               "ms_per_decode": timings(beams),
+                               "metrics": saved["metrics"]}
+
+        # bf16 teacher-forced log-probs of the beam decode's best captions
+        # against the f32 einsum oracle on the same weights, and the faults
+        toks = torch.stack([c["result"][0][0, 0] for c in beams])
+        ctx = [torch.cat(x) for x in zip(*[
+            (c["args"][1], c["args"][2], c["args"][3], c["kw"]["base_ids"])
+            for c in beams])]
+        live = toks[:, 1:] != 0
+        got = caption_step_logprobs(model, toks, ctx)
+        oracle = ft_oracle(model)
+        want_lp = caption_step_logprobs(oracle, toks, ctx)
+        with config_changed(model, attention_impl="einsum", ffn_impl="dense"):
+            plain = caption_step_logprobs(model, toks, ctx)
+
+        def gap(x):
+            return float((x - want_lp).abs()[live].max())
+
+        faults = {}
+        for fault in CAPTION_FAULTS:
+            if fault == "tied_table":
+                with torch.no_grad():
+                    kept = oracle.mlm_head.decoder.clone()
+                    oracle.mlm_head.decoder.copy_(
+                        oracle.bert.embeddings.word_embeddings)
+                faults[fault] = gap(caption_step_logprobs(oracle, toks, ctx))
+                with torch.no_grad():
+                    oracle.mlm_head.decoder.copy_(kept)
+            else:
+                faults[fault] = gap(caption_step_logprobs(oracle, toks, ctx, fault))
+        lp = {"gap": gap(got), "plain_gap": gap(plain),
+              "mean_gap": float((got - want_lp).abs()[live].mean()),
+              "fault_gaps": faults, "tol": CAPTION_TOL,
+              "live_steps": int(live.sum()),
+              "mean_logprob": float(want_lp[live].mean())}
+        check(lp["gap"] <= CAPTION_TOL and torch.isfinite(got).all(),
+              f"caption log-probs: gap to f32 {lp['gap']} (tol {CAPTION_TOL})")
+        check(all(e > CAPTION_TOL for e in faults.values()),
+              f"caption log-probs: a fault passes {faults} (tol {CAPTION_TOL})")
+        out["caption_beam"]["logprobs"] = lp
+        del oracle
+
+        # device time of one beam decode by kernel family
+        if dev.type == "cuda":
+            c0 = beams[0]
+            out["caption_beam"]["profile"] = profiled(
+                lambda: rc.beam_search(model, *c0["args"], **c0["kw"]),
+                "one beam decode (5 beams, 39 steps)")
+
+        # --- (b) --resume: the XE run cut at step 2 (a 1-step decode), then
+        # resumed to 4 with a greedy decode; its step-4 train state against
+        # run (a)'s, which took the same steps
+        d2 = f"{root}/cut"
+        drive(data + xe + ["--output_dir", d2, "--max_steps", "2",
+                           "--save_every", "2", "--num_beams", "1",
+                           "--max_gen_length", "2"])
+        (_, greedy_out), rec_g = drive(data + xe + [
+            "--output_dir", d2, "--save_every", "2", "--resume",
+            "--num_beams", "1"])
+        ok, greedy = calls_ok(rec_g, "greedy_or_sample", 8, want(per_decode))
+        check(ok and len(rec_g.steps) == 2 and len(greedy_out) == 8,
+              f"caption greedy decodes {[c['launches'] for c in greedy]}, "
+              f"resumed steps {len(rec_g.steps)}")
+
+        def state(d):
+            return torch.load(f"{d}/state/step4/state.pt", weights_only=True)
+
+        def tensors(x):
+            if isinstance(x, torch.Tensor):
+                return [x]
+            items = (x[k] for k in sorted(x)) if isinstance(x, dict) else (
+                x if isinstance(x, (list, tuple)) else ())
+            return [t for v in items for t in tensors(v)]
+
+        a, b = tensors(state(d1)), tensors(state(d2))
+        resume = {"bit_equal": len(a) == len(b) > 0 and all(
+            torch.equal(x, y) for x, y in zip(a, b))}
+        resume["gap"] = max(float((x.float() - y.float()).abs().max())
+                            for x, y in zip(a, b))
+        if not resume["bit_equal"]:
+            # a nondeterministic op: hold the pair to two uninterrupted runs
+            d3 = f"{root}/twin"
+            drive(data + xe + ["--output_dir", d3, "--save_every", "4",
+                               "--num_beams", "1", "--max_gen_length", "2"])
+            resume["twin_gap"] = max(float((x.float() - y.float()).abs().max())
+                                     for x, y in zip(a, tensors(state(d3))))
+        check(resume["bit_equal"] or resume["gap"] <= resume["twin_gap"],
+              f"caption --resume against its uninterrupted twin: {resume}")
+        out["caption_greedy"] = {"launches": {k: sum(c["launches"][k] for c in greedy)
+                                              for k in counters},
+                                 "ms_per_decode": timings(greedy),
+                                 "resume": resume}
+        shutil.rmtree(d2, ignore_errors=True)
+
+        # --- (c) on run (a)'s step-4 state (--resume, no step left), 4
+        # images and the reference's 20-token generation (--max_gen_length
+        # 20: 19 steps over the full canvas): sampling (top-k 20, 2 draws
+        # an image) under "flash" (K6 and K4 12 a step, K3 none), and CBS
+        # over 2 od labels
+        resumed = ["--feat_file", fx["feat_file"], "--captions",
+                   f"{root}/captions4.json", "--checkpoint", ckpt] + xe + [
+            "--output_dir", d1, "--resume", "--max_gen_length", "20"]
+        per_short = 19 * bcfg.num_hidden_layers
+        (_, samples), rec_s = drive(resumed + [
+            "--do_sample", "--top_k", "20", "--num_return_sequences", "2"],
+            build=lambda m: (caption_head_bias(m),
+                             set_config(m, attention_impl="flash")))
+        ok, sampled = calls_ok(rec_s, "greedy_or_sample", 8,
+                               want(per_short, per_short))
+        check(ok and len(samples) == 4
+              and all(len(v) == 2 for v in samples.values()),
+              f"caption flash sampling decodes {[c['launches'] for c in sampled]}")
+        out["caption_flash"] = {"launches": {k: sum(c["launches"][k] for c in sampled)
+                                             for k in counters},
+                                "ms_per_decode": timings(sampled)}
+        (_, cbs_out), rec_c = drive(resumed + ["--use_cbs", "--num_constraints",
+                                               "2", "--num_beams", "5"])
+        ok, cbs = calls_ok(rec_c, "constrained_beam_search", 4, want(per_short))
+        # the constraints are each image's first two od-label words, as the
+        # tool's toy tokenizer splits them ("[UNK]" for a word it lacks):
+        # every caption holds one (at least 1 of 2 to satisfy)
+        src = rc.load_sources(rc.build_args().parse_args(data))
+        tokenizer = rc.build_tokenizer(rc.build_args().parse_args(data))
+
+        def holds(words, pieces):
+            return any(pieces[i:i + len(words)] == words
+                       for i in range(len(pieces)))
+
+        met = sum(any(holds(tokenizer.tokenize(w), text.split()) for w in list(
+            dict.fromkeys(src.get_feats(k)[1].split()))[:2])
+            for k, text in cbs_out.items())
+        check(ok and len(cbs_out) == 4 and met == 4,
+              f"caption CBS decodes {[c['launches'] for c in cbs]}, "
+              f"{met} of 4 captions hold a constraint")
+        out["caption_cbs"] = {"launches": {k: sum(c["launches"][k] for c in cbs)
+                                           for k in counters},
+                              "ms_per_decode": timings(cbs),
+                              "captions_with_a_constraint": met}
+        del model
+    phase_s = time.perf_counter() - t_phase
+    lp = out["caption_beam"]["logprobs"]
+    print(f"phase 14 captioning ({smi}) in {phase_s:.1f} s (fixture and "
+          f"checkpoint {setup_s:.1f} s): XE {out['caption_xe']['ms_per_step']:.1f} "
+          f"host ms/step (each {out['caption_xe']['step_ms']}, saves and "
+          f"evals included; losses {out['caption_xe']['losses']}); SCST "
+          f"{out['caption_scst']['ms_per_step']:.1f} host ms/step, peak "
+          f"{out['caption_scst']['peak_gib']} GiB, rewards "
+          f"{out['caption_scst']['rewards']}; host ms per decode: "
+          + ", ".join(f"{k[8:]} {out[k]['ms_per_decode']:.1f}" for k in (
+              "caption_eval", "caption_beam", "caption_greedy", "caption_flash",
+              "caption_cbs"))
+          + " (the last two 19 steps, the others 39)"
+          + f"; beam metrics {out['caption_beam']['metrics']}; bf16 log-probs: "
+          f"gap to f32 {lp['gap']:.4e} (mean {lp['mean_gap']:.4e}, tol "
+          f"{lp['tol']}; plain bf16 path {lp['plain_gap']:.4e}; mean log-prob "
+          f"{lp['mean_logprob']:.3f} over {lp['live_steps']} steps), faults "
+          + ", ".join(f"{f} {e:.4e} ({e / lp['tol']:.1f}x tol, "
+                      f"{e / max(lp['gap'], 1e-30):.1f}x gap)"
+                      for f, e in lp["fault_gaps"].items())
+          + f"; resume {out['caption_greedy']['resume']}; CBS captions with a "
+          f"constraint {out['caption_cbs']['captions_with_a_constraint']}/4",
+          flush=True)
+    if failed:
+        raise AssertionError(f"phase 14: {failed}")
+    out["seconds"] = phase_s
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -5849,6 +6308,9 @@ def main(argv=None) -> int:
     oscar = run_oscar_runners(counters, smi, rows, dev, dt, bcfg)
     phase13_s = oscar.pop("seconds")
     e2e.update(oscar)
+    caption = run_captioning_phase(counters, smi, rows, dev, dt, bcfg)
+    phase14_s = caption.pop("seconds")
+    e2e.update(caption)
     per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
                   for k in KERNELS}
 
@@ -5867,7 +6329,9 @@ def main(argv=None) -> int:
              "rec_ft_train", "rec_ft", "gqa_ft_train", "gqa_ft", "vcr_ft_train",
              "vcr_ft", "test_detector", "attr_eval", "image_dir", "oscar_vqa",
              "oscar_gqa", "oscar_nlvr_pair", "oscar_nlvr_concat",
-             "oscar_retrieval", "oscar_retrieval_rerank", "oscar_retrieval_cl")
+             "oscar_retrieval", "oscar_retrieval_rerank", "oscar_retrieval_cl",
+             "caption_xe", "caption_eval", "caption_scst", "caption_beam",
+             "caption_greedy", "caption_flash", "caption_cbs")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -5882,8 +6346,9 @@ def main(argv=None) -> int:
                         "library_ms": r.get("library_device_ms",
                                             r["library_ms"])})
     print(f"phase 10 took {phase10_s:.1f} s, phase 11 {phase11_s:.1f} s, "
-          f"phase 12 {phase12_s:.1f} s, phase 13 {phase13_s:.1f} s; the whole "
-          f"run {time.perf_counter() - t_start:.1f} s", flush=True)
+          f"phase 12 {phase12_s:.1f} s, phase 13 {phase13_s:.1f} s, phase 14 "
+          f"{phase14_s:.1f} s; the whole run {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "build_s": build.LIBRARY.build_seconds,

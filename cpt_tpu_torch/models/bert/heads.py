@@ -51,17 +51,26 @@ class BertPredictionHeadTransform(nn.Module):
 
 
 class BertLMPredictionHead(nn.Module):
-    """MLM head; decoder weight tied to the embedding table (passed in)."""
+    """MLM head; decoder weight tied to the embedding table (passed in).
 
-    def __init__(self, config: BertConfig, dtype: torch.dtype):
+    ``tied=False`` gives the head its own ``decoder [V, H]`` table: the
+    reference captioning model's ``config.tie_weights=False``, where a
+    finetuned checkpoint's decoder has diverged from the embeddings
+    (``modeling_bert.py:616-625``). The CPT heads always tie."""
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype, tied: bool = True):
         super().__init__()
+        self.tied = tied
         self.transform = BertPredictionHeadTransform(config, dtype)
+        if not tied:
+            self.decoder = _param(config.vocab_size, config.hidden_size)
         self.bias = _param(config.vocab_size)
 
     def forward(self, hidden: torch.Tensor, word_embedding_table: torch.Tensor
                 ) -> torch.Tensor:
         x = self.transform(hidden)
-        logits = x @ word_embedding_table.to(x.dtype).T
+        table = word_embedding_table if self.tied else self.decoder
+        logits = x @ table.to(x.dtype).T
         return logits + self.bias.to(x.dtype)
 
 
@@ -181,15 +190,17 @@ _TRUNC_STD = 0.87962566103423978
 
 
 class _FreshHeads:
-    """The full-finetune models' classifiers start fresh: :meth:`init_heads`
-    draws every parameter outside ``bert`` as flax's defaults do."""
+    """The full-finetune models' classifiers, and the caption model's MLM
+    head, start fresh: :meth:`init_heads` draws every parameter outside
+    ``bert`` as flax's defaults do."""
 
     @torch.no_grad()
     def init_heads(self, generator: torch.Generator) -> None:
         """Dense kernels from lecun_normal (a normal of variance 1/fan_in
-        truncated at two standard deviations), biases 0, LayerNorm scales
-        1, drawn on the CPU from ``generator`` (a CPU generator) in the
-        order of ``named_parameters``, then copied to the parameters'
+        truncated at two standard deviations), an untied MLM ``decoder``
+        from a normal of std ``initializer_range``, biases 0, LayerNorm
+        scales 1, drawn on the CPU from ``generator`` (a CPU generator) in
+        the order of ``named_parameters``, then copied to the parameters'
         device."""
         for name, p in self.named_parameters():
             if name.startswith("bert."):
@@ -201,6 +212,9 @@ class _FreshHeads:
                 nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                       generator=generator)
                 p.copy_(w)
+            elif leaf == "decoder":
+                p.copy_(torch.randn(p.shape, generator=generator)
+                        * self.config.initializer_range)
             elif leaf == "scale":
                 p.fill_(1.0)
             else:

@@ -164,11 +164,13 @@ def load_or_init(model, args, cfg: BertConfig, task: str = "bert_only",
     else:
         sd = cv.random_oscar_state_dict(cfg, seed=seed)
         print("WARNING: random init (no --checkpoint)")
+    # the tied-decoder warning is about a checkpoint's decoder
+    warn = bool(args.checkpoint)
     if task == "bert_only":
         model.init_heads(torch.Generator().manual_seed(seed))
-        cv.load_bert_only(model, sd)
+        cv.load_bert_only(model, sd, warn)
     else:
-        model.load_state_dict(cv.state_from_reference(sd, cfg, task))
+        model.load_state_dict(cv.state_from_reference(sd, cfg, task, warn))
     return model
 
 

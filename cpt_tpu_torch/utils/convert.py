@@ -3,7 +3,9 @@
 parameter layout (its ``TASK``), as ``params_for_task`` does for the CPT
 models: ``"rec_mlm_cpt"`` (``REC_MLM_CPT``, the MLM head), ``"nsp_cpt"``
 (``NSPCPT``, the NSP head) or ``"vcr_qar_nsp_cpt"`` (``VCRQAR_NSPCPT``, twin
-copies of the NSP head); the full-finetune baselines ``"rec_ft"``,
+copies of the NSP head); ``"caption"`` (``BertForImageCaptioning``, the MLM
+head, with its own decoder table when ``config.tie_weights`` is False);
+the full-finetune baselines ``"rec_ft"``,
 ``"nsp_ft"``, ``"vcr_qar_nsp_ft"``, ``"vg_ft"``, ``"seq_classification"``
 and ``"multiple_choice"`` take only the encoder from a checkpoint
 (``"bert_only"``, :func:`load_bert_only`) and keep their fresh heads.
@@ -13,8 +15,9 @@ and ``"multiple_choice"`` take only the encoder from a checkpoint
   loaded natively: the three ``(out, in)`` Q/K/V linears pack into one
   ``wqkv [H, 3H]`` (columns ``[q|k|v]``), linears become ``[in, out]``
   kernels, the tied ``cls.predictions.decoder.weight`` is dropped (the
-  head reads the embedding table), as ``convert_bert_state_dict`` +
-  ``params_for_task`` do.
+  head reads the embedding table; a warning says so where it differs from
+  that table) and an untied caption decoder is kept, as
+  ``convert_bert_state_dict`` + ``params_for_task`` do.
 * :func:`params_from_jax` — the JAX task model's parameter tree, by
   :func:`jax_paths` (each port parameter's path in that tree).
 
@@ -46,7 +49,9 @@ def _tensors(d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in d.items()}
 
 
-CPT_TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt")
+CPT_TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt", "caption")
+# the models with the MLM head
+MLM_TASKS = ("rec_mlm_cpt", "caption")
 FT_TASKS = ("rec_ft", "nsp_ft", "vcr_qar_nsp_ft", "vg_ft",
             "seq_classification", "multiple_choice")
 TASKS = CPT_TASKS + FT_TASKS + ("bert_only",)
@@ -83,11 +88,37 @@ def _check_task(task: str) -> None:
         raise ValueError(f"unknown task {task!r}; one of {TASKS}")
 
 
+def untied_decoder(config: BertConfig, task: str) -> bool:
+    """Whether the ``task`` model's MLM head owns its decoder table: the
+    caption model's, under ``config.tie_weights`` False."""
+    return task == "caption" and not config.tie_weights
+
+
+def warn_dropped_decoder(sd: Mapping[str, np.ndarray], config: BertConfig) -> None:
+    """The JAX converter's warning (``cpt_tpu/utils/convert.py:134-162``):
+    a tied ``config`` drops a ``cls.predictions.decoder.weight`` that
+    differs from the embedding table."""
+    if ("cls.predictions.transform.dense.weight" not in sd
+            or "cls.predictions.decoder.weight" not in sd or not config.tie_weights):
+        return
+    emb = sd.get("bert.embeddings.word_embeddings.weight")
+    dec = sd["cls.predictions.decoder.weight"]
+    if emb is not None and (emb.shape != dec.shape or not np.allclose(emb, dec)):
+        print("WARNING: checkpoint has an untied "
+              "cls.predictions.decoder.weight that differs "
+              "from the embedding table, but tie_weights=True "
+              "drops it — pass --no_tie_weights to keep the "
+              "finetuned decoder")
+
+
 def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
-                         task: str = "rec_mlm_cpt") -> Dict[str, torch.Tensor]:
+                         task: str = "rec_mlm_cpt", warn: bool = True
+                         ) -> Dict[str, torch.Tensor]:
     """``BertImgForPreTraining`` state dict → the port's state dict of the
-    ``task`` model: a CPT task, or ``"bert_only"`` (the encoder alone, what
-    a full-finetune model takes from a checkpoint)."""
+    ``task`` model: a CPT task or the caption model, or ``"bert_only"``
+    (the encoder alone, what a full-finetune model takes from a
+    checkpoint). ``warn``: print :func:`warn_dropped_decoder`'s warning
+    (a checkpoint's; random weights drawn in the layout do not warn)."""
     _check_task(task)
     if task in FT_TASKS:
         raise ValueError(f"a {task} model takes the encoder alone from a "
@@ -100,6 +131,8 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
     if "bert.embeddings.word_embeddings.weight" not in sd:
         raise KeyError("expected the Oscar pytorch_model.bin layout "
                        "(bert.* and cls.predictions.* keys)")
+    if warn:
+        warn_dropped_decoder(sd, config)
     c = config
     out: Dict[str, np.ndarray] = {
         "bert.embeddings.word_embeddings": sd["bert.embeddings.word_embeddings.weight"],
@@ -114,7 +147,7 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
         "bert.pooler.dense.kernel": sd["bert.pooler.dense.weight"].T,
         "bert.pooler.dense.bias": sd["bert.pooler.dense.bias"],
     }
-    if task == "rec_mlm_cpt":
+    if task in MLM_TASKS:
         out.update({
             "mlm_head.transform.dense.kernel":
                 sd["cls.predictions.transform.dense.weight"].T,
@@ -126,6 +159,8 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
                 sd["cls.predictions.transform.LayerNorm.bias"],
             "mlm_head.bias": sd["cls.predictions.bias"],
         })
+    if untied_decoder(c, task):
+        out["mlm_head.decoder"] = sd["cls.predictions.decoder.weight"]
     for head in NSP_HEADS.get(task, ()):
         out[f"{head}.dense.kernel"] = sd["cls.seq_relationship.weight"].T
         out[f"{head}.dense.bias"] = sd["cls.seq_relationship.bias"]
@@ -178,11 +213,13 @@ def jax_paths(config: BertConfig, task: str = "rec_mlm_cpt"
         "bert.pooler.dense.kernel": ("bert", "pooler", "dense", "kernel"),
         "bert.pooler.dense.bias": ("bert", "pooler", "dense", "bias"),
     }
-    if task == "rec_mlm_cpt":
+    if task in MLM_TASKS:
         for name in ("transform.dense.kernel", "transform.dense.bias",
                      "transform.LayerNorm.scale", "transform.LayerNorm.bias",
                      "bias"):
             paths[f"mlm_head.{name}"] = ("mlm_head",) + tuple(name.split("."))
+    if untied_decoder(c, task):
+        paths["mlm_head.decoder"] = ("mlm_head", "decoder")
     for head in NSP_HEADS.get(task, ()):
         for leaf in ("kernel", "bias"):
             paths[f"{head}.dense.{leaf}"] = (head, "dense", leaf)
@@ -225,7 +262,8 @@ def params_from_jax(tree: Mapping[str, Any], config: BertConfig,
     return _tensors(out)
 
 
-def load_bert_only(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+def load_bert_only(model: torch.nn.Module, sd: Mapping[str, Any],
+                   warn: bool = True) -> None:
     """Load the encoder of a reference-layout state dict ``sd`` into a
     full-finetune ``model`` and leave its fresh head as it is (JAX's
     ``params_for_task(..., "bert_only")`` merged into the init). Raises
@@ -233,7 +271,7 @@ def load_bert_only(model: torch.nn.Module, sd: Mapping[str, Any]) -> None:
     cfg = model.config
     head = set(jax_paths(cfg, model.TASK)) - set(jax_paths(cfg, "bert_only"))
     missing, unexpected = model.load_state_dict(
-        state_from_reference(sd, cfg, "bert_only"), strict=False)
+        state_from_reference(sd, cfg, "bert_only", warn), strict=False)
     if set(missing) != head or unexpected:
         raise KeyError(f"bert_only load into {model.TASK}: missing "
                        f"{sorted(missing)}, unexpected {sorted(unexpected)}; "

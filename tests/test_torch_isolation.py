@@ -526,16 +526,29 @@ def _code(path: Path, names=None) -> str:
                         "from_yaml", "to_dict", "dumps"}),
     ("data/vqa.py", None), ("data/nlvr.py", None), ("data/retrieval.py", None),
     ("data/tensorize.py", {"truncate_seq_pair", "tensorize_pair",
-                           "pad_img_feats"})])
+                           "pad_img_feats"}),
+    ("utils/ptb_tokenizer.py", None), ("utils/cider.py", None),
+    ("utils/meteor.py", None), ("utils/spice_lite.py", None),
+    ("engine/caption_eval.py", None), ("utils/cbs.py", {"build_fsm"}),
+    ("engine/scst.py", {"scst_advantages"}),
+    ("models/bert/captioning.py", {"caption_attention_mask",
+                                   "CaptionTensorizer"}),
+    ("engine/generation.py", {"GenerationConfig", "decode_caption"}),
+    ("tools/run_captioning.py", {"build_args", "load_feats",
+                                 "CaptionYamlData"})])
 def test_jax_free_copies_keep_the_originals_code(module, names):
     """The port's copies of the JAX package's jax-free modules (or of the
     named definitions) are the originals' code but for docstrings and the
     package name: ``config/core``'s front end, ``SolverConfig``, the yacs
     bridge and its tables, the detection evaluators and the detection
-    datasets, the Oscar runners' datasets and the pair tensorizer (their
-    behaviour against the originals' is held in
-    ``test_torch_config_front_end.py``, ``test_torch_detector_tools.py`` and
-    ``test_torch_oscar_data.py``)."""
+    datasets, the Oscar runners' datasets and the pair tensorizer, the
+    caption evaluators (PTB tokenizer, CIDEr-D, METEOR, SPICE-lite, the
+    coco-caption protocol), the CBS state machine, SCST's advantages, the
+    caption tensorizer and mask, the generation config and
+    ``run_captioning``'s flags and data readers (their behaviour against
+    the originals' is held in ``test_torch_config_front_end.py``,
+    ``test_torch_detector_tools.py``, ``test_torch_oscar_data.py``,
+    ``test_torch_captioning.py`` and the caption metrics' case below)."""
     got = _code(REPO / "cpt_tpu_torch" / module, names)
     want = _code(REPO / "cpt_tpu" / module, names)
     assert len(want) > 500 and got == want
@@ -548,3 +561,40 @@ def test_solver_config_copy():
     assert dataclasses.asdict(SolverConfig()) == dataclasses.asdict(JSolver())
     assert ([(f.name, f.type) for f in dataclasses.fields(SolverConfig)]
             == [(f.name, f.type) for f in dataclasses.fields(JSolver)])
+
+
+def test_caption_metrics_match_the_originals():
+    """A small corpus through both packages' ``CiderD``, ``corpus_bleu``,
+    ``meteor``, ``rouge_l``, ``spice_lite_corpus`` and the PTB tokenizer:
+    the same numbers, bit for bit."""
+    from cpt_tpu.engine import caption_eval as jeval
+    from cpt_tpu.utils import cider as jcider
+    from cpt_tpu.utils import meteor as jmeteor
+    from cpt_tpu.utils import ptb_tokenizer as jptb
+    from cpt_tpu.utils import spice_lite as jspice
+    from cpt_tpu_torch.engine import caption_eval
+    from cpt_tpu_torch.utils import cider, meteor, ptb_tokenizer, spice_lite
+
+    refs = {"a": ["a man riding a red horse on the beach",
+                  "the man rides a horse near the sea"],
+            "b": ["two dogs are playing in the grass", "dogs play outside"],
+            "c": ["a woman holding an umbrella in the rain",
+                  "a person with an umbrella walks down a wet street"]}
+    hyps = {"a": "a man is riding a horse", "b": "two dogs playing on grass",
+            "c": "a woman walking with umbrellas"}
+    for text in list(hyps.values()) + CAPTIONS:
+        assert ptb_tokenizer.ptb_tokenize(text) == jptb.ptb_tokenize(text)
+    ref_w = {k: [r.split() for r in v] for k, v in refs.items()}
+    hyp_w = {k: v.split() for k, v in hyps.items()}
+    assert (cider.CiderD(ref_w).corpus_score(hyp_w)
+            == jcider.CiderD(ref_w).corpus_score(hyp_w) > 0)
+    assert (caption_eval.corpus_bleu(hyp_w, ref_w)
+            == jeval.corpus_bleu(hyp_w, ref_w))
+    for k in hyps:
+        assert (meteor.meteor(hyp_w[k], ref_w[k])
+                == jmeteor.meteor(hyp_w[k], ref_w[k]) > 0)
+        assert (caption_eval.rouge_l(hyp_w[k], ref_w[k])
+                == jeval.rouge_l(hyp_w[k], ref_w[k]) > 0)
+        assert cider.bleu4(hyp_w[k], ref_w[k]) == jcider.bleu4(hyp_w[k], ref_w[k])
+    assert (spice_lite.spice_lite_corpus(hyps, refs)
+            == jspice.spice_lite_corpus(hyps, refs) > 0)
