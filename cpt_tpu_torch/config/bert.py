@@ -9,9 +9,9 @@ by ``BertImgModel`` (reference ``Oscar/oscar/modeling/modeling_bert.py:150-198``
 ``img_feature_type`` and optional image-embedding LayerNorm.
 
 ``img_feature_type`` also names the reference's discrete-code
-("dis_code*") variants, which the port's ``BertImgModel`` does not take
-yet; the plain linear-projection path ("faster_r-cnn") is the one every
-CPT task uses.
+("dis_code*") variants: VQ-VAE code ids through an embedding table
+(``code_voc`` × ``code_dim``) before the image projection; the plain
+linear-projection path ("faster_r-cnn") is the one every CPT task uses.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Colorful-prompt text for RefCOCO grounding, VG relations, GQA and VCR
-(the port's copy of ``cpt_tpu/data/prompts.py`` without the soft prompt).
+(the port's copy of ``cpt_tpu/data/prompts.py``).
 
 Candidate regions are marked with semi-transparent colors and the task is
 reformulated as color-word prediction: the few-shot template
@@ -39,6 +39,20 @@ VG_PAIR_COLOR_NAMES: Tuple[str, str] = ("red", "blue")
 
 def refcoco_fsl_prompt(caption: str) -> str:
     return caption.replace(".", "").strip() + " is in [MASK] color."
+
+
+def refcoco_soft_prompt(caption: str, n_pre: int = 2,
+                        n_post: int = 2) -> str:
+    """Continuous-template prompt: the FSL template's words replaced by
+    learnable ``[unusedN]`` slots around [MASK] (the reference's
+    sgd_to_explore_template.py TemplateEmbedding substitutes trainable
+    vectors at token ids 1-20; slot ids here are those same [unusedN]
+    vocab rows). The tokenizer must register the slots via
+    ``add_special_tokens`` so they stay whole."""
+    pre = " ".join(f"[unused{i}]" for i in range(1, n_pre + 1))
+    post = " ".join(f"[unused{i}]"
+                    for i in range(n_pre + 1, n_pre + n_post + 1))
+    return f"{caption.replace('.', '').strip()} {pre} [MASK] {post}".strip()
 
 
 def refcoco_od_labels_with_color(od_labels: Sequence[str], colored_idx: int,

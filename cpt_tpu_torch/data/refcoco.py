@@ -55,7 +55,8 @@ class RefcocoCPTData:
     def __init__(self, data_file: str, ann_file: str, det_file: str,
                  tokenizer: BertTokenizer, txt_seq_len: int = 70,
                  img_seq_len: int = 50, img_feat_dim: int = 2054,
-                 zsl_template: Optional[int] = None):
+                 zsl_template: Optional[int] = None,
+                 soft_slots: Optional[Tuple[int, int]] = None):
         self.tsv = TSVFile(data_file)
         self.tokenizer = tokenizer
         self.txt_seq_len = txt_seq_len
@@ -64,6 +65,13 @@ class RefcocoCPTData:
         # zero-shot template variant 1-6 (reference
         # refcoco_zsl_cpt_dataset.py); None = the few-shot template
         self.zsl_template = zsl_template
+        # (n_pre, n_post) learnable [unusedN] slots around [MASK] — the
+        # continuous-template probe (sgd_to_explore_template.py)
+        self.soft_slots = soft_slots
+        if soft_slots is not None:
+            k = soft_slots[0] + soft_slots[1]
+            tokenizer.add_special_tokens(
+                [f"[unused{i}]" for i in range(1, k + 1)])
         with open(ann_file) as f:
             self.anns: Dict[str, dict] = {str(d["id"]): d for d in json.load(f)}
         with open(det_file) as f:
@@ -85,7 +93,9 @@ class RefcocoCPTData:
     def example(self, idx: int) -> RefcocoExample:
         img_name, _, feats, caption, colors, rect_lists = self.decode_row(idx)
         od_labels = self.det_dic[str(img_name)]
-        if self.zsl_template is not None:
+        if self.soft_slots is not None:
+            prompt = prompts.refcoco_soft_prompt(caption, *self.soft_slots)
+        elif self.zsl_template is not None:
             ann0 = self.anns.get(str(img_name), {})
             posi = ann0.get("tokens_positive", [[len(caption)]])[-1]
             prompt = prompts.refcoco_zsl_prompt(caption, posi, self.zsl_template)

@@ -4,7 +4,8 @@ head and ``REC_MLM_CPT`` (RefCOCO color-word scoring), the NSP head with
 the full-finetune baselines ``REC_FT``, ``NSPFT``, ``VCR_QAR_NSPFT``,
 ``VGFT``, ``ImageBertForSequenceClassification`` and
 ``ImageBertForMultipleChoice``, whose classifiers start fresh
-(:meth:`init_heads`, flax's default initializers). Each model's ``TASK``
+(:meth:`init_heads`, flax's default initializers), and the pretraining
+model ``BertImgForPreTraining`` (MLM and NSP heads, fresh in pretraining). Each model's ``TASK``
 names its parameter layout in ``utils/convert.py``; each attribute carries
 the name of its parameters in the JAX tree.
 
@@ -450,3 +451,36 @@ class ImageBertForMultipleChoice(_FreshHeads, nn.Module):
         if labels is None:
             return None, logits
         return cross_entropy_ignore_index(logits, labels), logits
+
+
+class BertImgForPreTraining(_FreshHeads, nn.Module):
+    """Oscar+ pretraining model (``cpt_tpu/models/bert/heads.py:102-135``):
+    ``BertImgModel``, the tied MLM head over every position and an NSP head
+    of ``config.num_contrast_classes`` (2, or 3 with wrong-caption triplets)
+    on the pooled [CLS] state. The pretraining tool loads the encoder alone
+    and draws both heads fresh (:meth:`init_heads`), as the JAX tool does."""
+
+    TASK = "pretraining"
+
+    def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = config
+        self.dtype = dtype
+        self.bert = BertImgModel(config, dtype)
+        self.mlm_head = BertLMPredictionHead(config, dtype)
+        self.nsp_head = SeqRelationshipHead(config, dtype)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None,
+                img_feats=None, masked_lm_labels=None,
+                generator: Optional[torch.Generator] = None):
+        """→ (loss, mlm_logits [B, S, vocab], nsp_logits [B, classes]); the
+        loss is the masked-LM cross entropy against ``masked_lm_labels``
+        (−1 ignored) or None without labels (the reference leaves the NSP
+        loss out of it, ``modeling_bert.py:1013-1017``)."""
+        seq, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                                img_feats=img_feats, generator=generator)
+        mlm_logits = self.mlm_head(seq, self.bert.embeddings.word_embeddings)
+        nsp_logits = self.nsp_head(pooled)
+        loss = (None if masked_lm_labels is None
+                else cross_entropy_ignore_index(mlm_logits, masked_lm_labels))
+        return loss, mlm_logits, nsp_logits

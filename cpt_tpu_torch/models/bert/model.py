@@ -269,21 +269,40 @@ class BertPooler(nn.Module):
         return torch.tanh(self.dense(sequence_output[:, 0]))
 
 
+IMG_FEATURE_TYPES = ("faster_r-cnn", "dis_code", "dis_code_t")
+
+
+def img_embedding_in(config: BertConfig) -> int:
+    """The input width of ``img_embedding``: the region-feature width, or
+    for the discrete codes the code embedding's width (``dis_code``) or,
+    transposed, the code length per image (``dis_code_t``, ``code_size``)."""
+    c = config
+    return {"dis_code": c.code_dim,
+            "dis_code_t": c.code_size}.get(c.img_feature_type, c.img_feature_dim)
+
+
 class BertImgModel(nn.Module):
-    """Text ⊕ image-region joint encoder (reference ``BertImgModel``), for
-    the region-feature input every CPT task uses (``img_feature_type``
-    "faster_r-cnn"; the discrete-code variants are not ported yet)."""
+    """Text ⊕ image-region joint encoder (reference ``BertImgModel``).
+    ``img_feature_type`` "faster_r-cnn" projects float region features
+    (LayerNorm and dropout after, where configured); "dis_code" looks integer
+    VQ-VAE code ids up in ``code_embeddings [code_voc, code_dim]`` and
+    projects each code's row, "dis_code_t" projects each embedding dimension's
+    column over the codes; neither code branch has the image LayerNorm or
+    dropout (``cpt_tpu/models/bert/model.py:367-371``)."""
 
     def __init__(self, config: BertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = config
-        if c.img_feature_type != "faster_r-cnn":
-            raise NotImplementedError(
-                f"img_feature_type {c.img_feature_type!r} is not ported yet")
+        if c.img_feature_type not in IMG_FEATURE_TYPES:
+            raise ValueError(f"img_feature_type {c.img_feature_type!r}: one "
+                             f"of {IMG_FEATURE_TYPES}")
         self.config = c
         self.dtype = dtype
         self.embeddings = BertEmbeddings(c, dtype)
-        self.img_embedding = Dense(c.img_feature_dim, c.hidden_size, dtype)
+        self.code_embeddings = (_param(c.code_voc, c.code_dim)
+                                if c.img_feature_type.startswith("dis_code")
+                                else None)
+        self.img_embedding = Dense(img_embedding_in(c), c.hidden_size, dtype)
         self.img_LayerNorm = (LayerNorm(c.hidden_size, c.img_layer_norm_eps)
                               if c.use_img_layernorm else None)
         self.img_dropout = Dropout(c.hidden_dropout_prob)
@@ -306,10 +325,17 @@ class BertImgModel(nn.Module):
         emb = self.embeddings(input_ids, token_type_ids, position_ids,
                               generator)
         if img_feats is not None:
-            img_emb = self.img_embedding(img_feats)
-            if self.img_LayerNorm is not None:
-                img_emb = self.img_LayerNorm(img_emb)
-            emb = torch.cat([emb, self.img_dropout(img_emb, generator)], dim=1)
+            if self.code_embeddings is not None:
+                code = self.code_embeddings.to(self.dtype)[img_feats.long()]
+                if self.config.img_feature_type == "dis_code_t":
+                    code = code.transpose(1, 2)
+                emb = torch.cat([emb, self.img_embedding(code)], dim=1)
+            else:
+                img_emb = self.img_embedding(img_feats)
+                if self.img_LayerNorm is not None:
+                    img_emb = self.img_LayerNorm(img_emb)
+                emb = torch.cat([emb, self.img_dropout(img_emb, generator)],
+                                dim=1)
         return emb, attn_bias
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,

@@ -12,6 +12,9 @@ Two modes, as in the JAX package:
   box is pooled from every copy with K2 and run through the stage-5 head
   and the predictor, in chunks of ``roi_heads.head_chunk`` RoI slots (the
   pooled [C, M, 14, 14, C4] tensor is the peak-memory hog).
+
+:class:`AttrRCNNTrainer` is the training forward on the same modules and
+parameters: the RPN, box and attribute losses of one image.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Dict, Sequence, Union
 import torch
 from torch import nn
 
+from cpt_tpu_torch.models.detector import losses as L
 from cpt_tpu_torch.models.detector.config import DetectorConfig
 from cpt_tpu_torch.models.detector.heads import (AttributePredictor,
                                                  BoxFeatureExtractor,
@@ -31,6 +35,7 @@ from cpt_tpu_torch.models.detector.heads import (AttributePredictor,
 from cpt_tpu_torch.models.detector.resnet import ResNetC4
 from cpt_tpu_torch.models.detector.rpn import RPNHead, select_proposals
 from cpt_tpu_torch.ops.roi_align_pallas import batched_roi_align
+from cpt_tpu_torch.structures.boxes import box_iou
 
 
 class AttrRCNN(nn.Module):
@@ -125,6 +130,75 @@ class AttrRCNN(nn.Module):
         if with_attributes:
             out["attr_logits"] = merged[2]
         return out
+
+
+def _gather_top(mask: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of up to ``k`` True entries of ``mask``, in index order,
+    padded with the False ones (JAX's stable ``argsort(~mask)``)."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)[:k]
+
+
+class AttrRCNNTrainer(AttrRCNN):
+    """Training-mode forward producing the reference loss dict
+    (``engine/trainer.py:92-114`` sums these; port of
+    ``cpt_tpu/models/detector/attr_rcnn.py:201-271``): loss_objectness /
+    loss_rpn_box_reg (``rpn/loss.py``), loss_classifier / loss_box_reg
+    (``box_head/loss.py``) and loss_attribute (``attribute_head/loss.py``).
+    The modules, and so the state dict, are ``AttrRCNN``'s.
+
+    As in JAX the proposals stay differentiable in the RPN's deltas (through
+    the box-regression targets); the pooling (K2) passes no gradient to the
+    RoIs, as the JAX kernel's custom VJP passes none. The JAX trainer pools
+    through XLA's RoIAlign, whose gradient does reach the RoIs (ROADMAP,
+    "Known and kept on purpose")."""
+
+    def forward(self, image: torch.Tensor, image_hw, gt_boxes: torch.Tensor,
+                gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                gt_attributes: torch.Tensor, anchors: torch.Tensor,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """image [H, W, 3] (the padded canvas) · image_hw (true h, w) ·
+        gt_boxes [G, 4] / gt_labels [G] / gt_valid [G] / gt_attributes
+        [G, K] · anchors [h*w*A, 4]; the RPN's and the box head's samples
+        are drawn from ``generator``. → the five losses."""
+        c = self.config
+        feat = self.backbone(image[None].to(self.dtype))[0]
+        logits, deltas = self.rpn(feat[None])
+        loss_obj, loss_rpn_box = L.rpn_loss(
+            logits[0].reshape(-1), deltas[0].reshape(-1, 4), anchors,
+            gt_boxes, gt_valid, generator, fg_iou=c.rpn.fg_iou_threshold,
+            bg_iou=c.rpn.bg_iou_threshold,
+            batch_size_per_image=c.rpn.batch_size_per_image,
+            positive_fraction=c.rpn.positive_fraction)
+
+        proposals, _scores, prop_valid = select_proposals(
+            c.rpn, logits[0], deltas[0], anchors, image_hw, is_train=True)
+        # the gt boxes join the proposal pool (reference add_gt_proposals)
+        proposals = torch.cat([proposals, gt_boxes], dim=0)
+        prop_valid = torch.cat([prop_valid, gt_valid], dim=0)
+        labels, reg_targets, pos, sampled = L.subsample_proposals(
+            proposals, prop_valid, gt_boxes, gt_labels, gt_valid, generator,
+            batch_size_per_image=c.roi_heads.batch_size_per_image,
+            positive_fraction=c.roi_heads.positive_fraction)
+
+        idx = _gather_top(sampled, c.roi_heads.batch_size_per_image)
+        rois = proposals[idx]
+        pos_s, sampled_s, labels_s = pos[idx] & sampled[idx], sampled[idx], labels[idx]
+        cls_logits, box_deltas, _ = self.box_predictor(
+            self.box_extractor(feat, rois))
+        loss_cls, loss_box = L.fast_rcnn_loss(
+            cls_logits, box_deltas, labels_s, reg_targets[idx], pos_s,
+            sampled_s, num_classes=c.roi_heads.num_classes)
+
+        # the attribute head trains on the positive samples, each with the
+        # attributes of its best-overlapping gt
+        iou = box_iou(gt_boxes, rois.detach())
+        matched = torch.where(gt_valid[:, None], iou, -1.0).argmax(dim=0)
+        attr_logits, _ = self.attr_predictor(self.attr_extractor(feat, rois),
+                                             labels_s)
+        return {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_rpn_box,
+                "loss_classifier": loss_cls, "loss_box_reg": loss_box,
+                "loss_attribute": L.attribute_loss(
+                    attr_logits, gt_attributes[matched], valid=pos_s)}
 
 
 def geometry_features(boxes: torch.Tensor,

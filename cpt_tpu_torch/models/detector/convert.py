@@ -14,6 +14,7 @@ Two sources:
 * :func:`params_from_jax` — the JAX package's detector parameter tree
   (numpy leaves), for holding the two packages against each other.
 
+:func:`jax_path` names each port leaf's path in the JAX tree.
 :func:`random_vinvl_state_dict` draws random weights in the reference
 layout from a seed (the serving path without a checkpoint).
 :func:`load_vinvl_checkpoint` loads every checkpoint the JAX package loads:
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import pickle
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -157,6 +158,23 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
             out[f"attr_predictor.{name}.bias"] = _np(attr[name]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}
+
+
+def jax_path(name: str) -> Tuple[str, ...]:
+    """The path in the JAX ``AttrRCNN`` tree of the leaf that the port's
+    state-dict entry ``name`` holds (the map :func:`params_from_jax` reads
+    by; the solver's bias groups and the trainer's freeze mask are decided
+    on it): ``backbone.layer1.block_0.conv1.weight`` →
+    ``("backbone", "layer1", "block_0", "conv1", "kernel")``,
+    ``rpn.conv_weight`` → ``("rpn", "conv", "kernel")``, a linear's
+    ``weight`` → its ``kernel``, the class embedding's → ``embedding``."""
+    parts = name.split(".")
+    if parts[0] == "rpn":
+        layer, leaf = parts[1].rsplit("_", 1)
+        return ("rpn", layer, "kernel" if leaf == "weight" else leaf)
+    if parts[-1] == "weight":
+        parts[-1] = "embedding" if parts[-2] == "cls_embedding" else "kernel"
+    return tuple(parts)
 
 
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:

@@ -92,16 +92,21 @@ class RPNHead(nn.Module):
 
 def select_proposals(cfg: RPNConfig, objectness: torch.Tensor,
                      deltas: torch.Tensor, anchors: torch.Tensor,
-                     image_hw: Sequence[int]
+                     image_hw: Sequence[int], *, is_train: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One image's test-time proposal selection with static shapes.
+    """One image's proposal selection with static shapes: the test-time
+    sizes (``pre/post_nms_top_n_test``), or under ``is_train`` the training
+    ones (``pre/post_nms_top_n_train``, 12000 → 2000 for VinVL).
 
     objectness [h, w, A] · deltas [h, w, 4A] · anchors [h*w*A, 4] ·
     image_hw (true h, w) → (boxes [post_n, 4], scores [post_n],
-    valid [post_n])."""
+    valid [post_n]). As in JAX the boxes stay differentiable in ``deltas``
+    (the reference detaches its proposals)."""
+    pre_n = cfg.pre_nms_top_n_train if is_train else cfg.pre_nms_top_n_test
+    post_n = cfg.post_nms_top_n_train if is_train else cfg.post_nms_top_n_test
     scores_flat = torch.sigmoid(objectness.float()).reshape(-1)
     deltas_flat = deltas.float().reshape(-1, 4)
-    k = min(cfg.pre_nms_top_n_test, scores_flat.shape[0])
+    k = min(pre_n, scores_flat.shape[0])
     # jax.lax.top_k puts the lower index first among equal scores (common:
     # sigmoid saturates at 1.0); torch.topk promises no order, a stable
     # descending sort does
@@ -116,6 +121,6 @@ def select_proposals(cfg: RPNConfig, objectness: torch.Tensor,
     y2 = torch.clamp(boxes[:, 3], 0, h - 1)
     boxes = torch.stack([x1, y1, x2, y2], dim=-1)
     valid = ((x2 - x1 + 1 >= cfg.min_size) & (y2 - y1 + 1 >= cfg.min_size))
-    idx, keep = nms_pallas(boxes, top_scores, valid, cfg.nms_thresh,
-                           cfg.post_nms_top_n_test)
+    idx, keep = nms_pallas(boxes.detach(), top_scores.detach(), valid,
+                           cfg.nms_thresh, post_n)
     return boxes[idx], top_scores[idx], keep

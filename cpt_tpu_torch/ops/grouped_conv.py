@@ -22,6 +22,14 @@ rule, :func:`conv_path` (the int8 tensor-core implicit GEMM on
 ``y·scale + bias`` as two roundings, so they agree bit for bit.
 
 Layouts are the JAX package's: x NHWC, weights HWIO ``[3, 3, C//G, C]``.
+
+Under autograd (an input that requires grad, grad mode on) K1 is a
+``torch.autograd.Function`` whose forward is the same dispatch and whose
+backward is the plain version's VJP (dx, dw, and dscale / dbias where the
+affine is fused), as the JAX kernel's custom VJP is its XLA formulation's
+(``cpt_tpu/ops/grouped_conv.py:130,523-540``): on the card the kernel runs
+forward and cuDNN's grouped conv the backward. Without it a CUDA result
+would carry no ``grad_fn`` and cut the backbone's gradient.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 
 from cpt_tpu_torch.kernels.build import (aligned16, check, lib, require,
                                          stream, uses_kernel)
+from cpt_tpu_torch.ops.fused_attention import plain_vjp
 
 
 def reference_grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
@@ -73,6 +82,39 @@ def grouped_conv3x3(x: torch.Tensor, w33: torch.Tensor,
                     stride: int = 1, relu: bool = False) -> torch.Tensor:
     """Grouped 3×3 conv, pad 1, stride 1 or 2, NHWC (+ optional fused affine
     and ReLU). x [N, H, W, C], w33 [3, 3, C//groups, C], scale/bias [C]."""
+    args = [t for t in (x, w33, scale, bias) if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _GroupedConv.apply(groups, stride, relu, x, w33, scale, bias)
+    return _conv_forward(x, w33, scale, bias, groups, stride, relu)
+
+
+class _GroupedConv(torch.autograd.Function):
+    """K1 under autograd: the dispatch forward, the plain version's VJP
+    backward (None for an absent affine)."""
+
+    @staticmethod
+    def forward(ctx, groups, stride, relu, x, w33, scale, bias):
+        ctx.conv = (groups, stride, relu)
+        ctx.affine = scale is not None
+        ctx.save_for_backward(*[t for t in (x, w33, scale, bias)
+                                if t is not None])
+        return _conv_forward(x, w33, scale, bias, groups, stride, relu)
+
+    @staticmethod
+    def backward(ctx, g):
+        groups, stride, relu = ctx.conv
+
+        def plain(x, w33, scale=None, bias=None):
+            return reference_grouped_conv3x3(x, w33, scale, bias, groups,
+                                             stride, relu)
+
+        n = 4 if ctx.affine else 2
+        grads = plain_vjp(plain, ctx.saved_tensors, ctx.needs_input_grad[3:3 + n],
+                          g)
+        return (None, None, None) + grads + (None,) * (4 - n)
+
+
+def _conv_forward(x, w33, scale, bias, groups, stride, relu) -> torch.Tensor:
     if not uses_kernel(x):
         return reference_grouped_conv3x3(x, w33, scale, bias, groups, stride,
                                          relu)

@@ -10,6 +10,13 @@ separable version, :func:`batched_roi_align_plain`.
 The kernel accumulates in f32 straight through, while the plain version
 rounds its intermediate to the feature dtype (as the JAX path does), so the
 two agree to bf16 tolerance in bf16.
+
+Under autograd (``feats`` requires grad, grad mode on) K2 is a
+``torch.autograd.Function``: the same dispatch forward, and the plain
+version's VJP for ``feats`` backward; the RoIs get a zero gradient, as the
+JAX kernel's custom VJP gives them (``cpt_tpu/ops/roi_align_pallas.py:
+134-187``). Without it a CUDA result would carry no ``grad_fn`` and cut the
+gradient into the C4 map.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 
 from cpt_tpu_torch.kernels.build import (aligned16, check, lib, require,
                                          stream, uses_kernel)
+from cpt_tpu_torch.ops.fused_attention import plain_vjp
 from cpt_tpu_torch.ops.roi_align import interp_matrices, separable_pool
 
 
@@ -41,6 +49,39 @@ def batched_roi_align(feats: torch.Tensor, rois: torch.Tensor,
 
     ``sampling=0`` is the adaptive grid (``ceil(bin)`` capped at
     ``max_sampling``); ``sampling>0`` a fixed grid."""
+    if torch.is_grad_enabled() and (feats.requires_grad or rois.requires_grad):
+        return _BatchedRoIAlign.apply(feats, rois, spatial_scale, pooled,
+                                      sampling, max_sampling)
+    return _pool_forward(feats, rois, spatial_scale, pooled, sampling,
+                         max_sampling)
+
+
+class _BatchedRoIAlign(torch.autograd.Function):
+    """K2 under autograd: the dispatch forward; backward, the plain
+    version's VJP to ``feats`` and zeros to the RoIs."""
+
+    @staticmethod
+    def forward(ctx, feats, rois, spatial_scale, pooled, sampling,
+                max_sampling):
+        ctx.pool = (spatial_scale, pooled, sampling, max_sampling)
+        ctx.save_for_backward(feats, rois)
+        return _pool_forward(feats, rois, spatial_scale, pooled, sampling,
+                             max_sampling)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, rois = ctx.saved_tensors
+
+        def plain(f):
+            return batched_roi_align_plain(f, rois, *ctx.pool)
+
+        (dfeats,) = plain_vjp(plain, (feats,), ctx.needs_input_grad[:1], g)
+        drois = torch.zeros_like(rois) if ctx.needs_input_grad[1] else None
+        return (dfeats, drois) + (None,) * 4
+
+
+def _pool_forward(feats, rois, spatial_scale, pooled, sampling,
+                  max_sampling) -> torch.Tensor:
     if not uses_kernel(feats):
         return batched_roi_align_plain(feats, rois, spatial_scale, pooled,
                                        sampling, max_sampling)

@@ -1,6 +1,7 @@
 """Box helpers (port of the host functions and ``decode_boxes`` of
 ``cpt_tpu/structures/boxes.py``): the scalar IoU of the eval rules, the
-pairwise IoU of VG's pair enumeration, box decoding and padding.
+pairwise IoU of VG's pair enumeration (numpy) and of the detector's
+training matcher (torch), box encoding, decoding and padding.
 
 Boxes are inclusive pixel xyxy with ``TO_REMOVE = 1`` (widths are
 ``x2 - x1 + 1``), exactly the reference's convention.
@@ -40,6 +41,43 @@ def box_iou_np(a, b) -> np.ndarray:
     inter = wh[..., 0] * wh[..., 1]
     return inter / np.maximum(area(a)[:, None] + area(b)[None, :] - inter,
                               1e-10)
+
+
+def box_area(xyxy: torch.Tensor) -> torch.Tensor:
+    """Area with the reference's +1 convention (``bounding_box.py:66-70``)."""
+    w = torch.clamp(xyxy[..., 2] - xyxy[..., 0] + TO_REMOVE, min=0.0)
+    h = torch.clamp(xyxy[..., 3] - xyxy[..., 1] + TO_REMOVE, min=0.0)
+    return w * h
+
+
+def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of ``a [N, 4]`` and ``b [M, 4]`` → ``[N, M]`` (reference
+    ``boxlist_ops.boxlist_iou:52-91``, inclusive +1 widths)."""
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
+    wh = torch.clamp(rb - lt + TO_REMOVE, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter
+    return inter / torch.clamp(union, min=1e-10)
+
+
+def encode_boxes(ref: torch.Tensor, proposals: torch.Tensor,
+                 weights: Tuple[float, float, float, float]) -> torch.Tensor:
+    """Faster-RCNN box encoding (reference ``modeling/box_coder.py:35-65``):
+    the deltas that take ``proposals`` to ``ref``."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = ref[..., 2] - ref[..., 0] + TO_REMOVE
+    gt_h = ref[..., 3] - ref[..., 1] + TO_REMOVE
+    gt_cx = ref[..., 0] + 0.5 * gt_w
+    gt_cy = ref[..., 1] + 0.5 * gt_h
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w,
+                        wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w),
+                        wh * torch.log(gt_h / ex_h)], dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,

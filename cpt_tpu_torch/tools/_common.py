@@ -63,8 +63,10 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="LR schedule after warmup (reference --scheduler)")
     p.add_argument("--img_feature_type", default="faster_r-cnn",
                    choices=["faster_r-cnn", "dis_code", "dis_code_t"],
-                   help="image-feature variant; the discrete-code ones "
-                        "(dis_code[_t]) are not ported yet")
+                   help="image-feature variant: faster_r-cnn = float "
+                        "region features; dis_code[_t] = VQ-VAE discrete "
+                        "code ids through an embedding table (reference "
+                        "modeling_bert.py:167-176)")
     p.add_argument("--code_voc", type=int, default=512,
                    help="dis_code vocabulary size")
     p.add_argument("--code_dim", type=int, default=512,
@@ -111,13 +113,14 @@ def optim_overrides(args, betas=None) -> dict:
 
 
 def check_img_feature_type(args, runner: str) -> None:
-    """Refuse ``--img_feature_type dis_code[_t]``: the port's
-    ``BertImgModel`` takes region features only, and the discrete-code
-    variants wait for the Oscar runners (ROADMAP.md Queue 1 item 6)."""
-    kind = getattr(args, "img_feature_type", "faster_r-cnn")
-    if kind != "faster_r-cnn":
-        raise SystemExit(f"{runner}: --img_feature_type {kind} is not ported "
-                         f"yet (ROADMAP.md Queue 1 item 6)")
+    """Refuse ``--img_feature_type dis_code[_t]`` in a tool whose data
+    loader emits float region features only: the discrete codes flow through
+    the VQA / GQA qla loaders alone, which read integer arrays from the
+    ``.pt`` feature dict (the JAX package's refusal, word for word)."""
+    if getattr(args, "img_feature_type", "faster_r-cnn") != "faster_r-cnn":
+        raise SystemExit(
+            f"--img_feature_type {args.img_feature_type} is supported by "
+            f"run_vqa / run_gqa (qla feature loader) only, not {runner}")
 
 
 def model_config(args, **extra) -> BertConfig:
@@ -151,13 +154,17 @@ def build_tokenizer(args) -> BertTokenizer:
 
 
 def load_or_init(model, args, cfg: BertConfig, task: str = "bert_only",
-                 seed=None):
+                 seed=None, info: Optional[dict] = None):
     """Fill ``model`` (built on its device) from ``--checkpoint`` (an Oscar
     ``pytorch_model.bin``) or, without one, from random Oscar-layout
     weights drawn from ``seed`` (``--seed`` by default). ``task``
     "bert_only" loads the encoder alone and draws the model's fresh head
     from a CPU generator seeded with ``seed`` (a full-finetune model);
-    a CPT task loads its whole layout. → ``model``."""
+    a CPT task loads its whole layout. A discrete-code model's code table
+    comes from the checkpoint where it has one, else from flax's ``nn.Embed``
+    init (a normal of std 1/√code_dim) drawn after the head. ``info``, where
+    given, gets ``"ckpt_has_code"``: whether ``--checkpoint`` supplied the
+    code table. → ``model``."""
     seed = args.seed if seed is None else seed
     if args.checkpoint:
         sd = load_torch_file(args.checkpoint)
@@ -166,11 +173,20 @@ def load_or_init(model, args, cfg: BertConfig, task: str = "bert_only",
         print("WARNING: random init (no --checkpoint)")
     # the tied-decoder warning is about a checkpoint's decoder
     warn = bool(args.checkpoint)
+    has_code = False
     if task == "bert_only":
-        model.init_heads(torch.Generator().manual_seed(seed))
-        cv.load_bert_only(model, sd, warn)
+        gen = torch.Generator().manual_seed(seed)
+        model.init_heads(gen)
+        has_code = cv.load_bert_only(model, sd, warn)
+        table = model.bert.code_embeddings
+        if table is not None and not has_code:
+            with torch.no_grad():
+                table.copy_(torch.randn(table.shape, generator=gen)
+                            / cfg.code_dim ** 0.5)
     else:
         model.load_state_dict(cv.state_from_reference(sd, cfg, task, warn))
+    if info is not None:
+        info["ckpt_has_code"] = bool(args.checkpoint) and has_code
     return model
 
 

@@ -18,8 +18,15 @@ or ``--qla_data_dir`` with the reference's own files. Without
 ``--checkpoint`` the encoder is random, drawn from ``--seed`` in the Oscar
 layout; the classifier starts fresh either way. On a CUDA device the kernels
 need bf16 (the default ``--dtype``); ``--device cpu --dtype float32`` runs
-their plain versions. ``--dp`` above 1, a multi-process launch and the
-discrete-code features (``--img_feature_type dis_code[_t]``) are refused.
+their plain versions. ``--dp`` above 1 and a multi-process launch are
+refused.
+
+``--img_feature_type dis_code[_t]`` reads integer VQ-VAE code ids from the
+qla ``.pt`` feature dict. Where ``{qla_data_dir}/vqvae/`` holds a codebook
+(``train.pt``, else ``{split}.pt``), ``--code_level top|bottom|both`` picks
+the codes, the code geometry comes from the codebook, and for ``top`` /
+``bottom`` the code embedding starts from the codebook, unless the
+checkpoint has its own (reference ``run_vqa.py:1103-1125,1188``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from cpt_tpu_torch.data.vqa import QlaVQAData, VQAData, load_vqa_examples
 from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
 from cpt_tpu_torch.models.bert.model import Dropout
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
-                                         check_img_feature_type, dtype_of,
+                                         dtype_of,
                                          load_or_init, model_config, on_device,
                                          refuse_dp, refuse_multi_process,
                                          train_epochs)
@@ -107,15 +114,49 @@ def build_args():
     return add_common_args(p)
 
 
-def load_data(args, tokenizer, cfg) -> Tuple[VQAData, VQAData]:
+def load_codebook(args) -> Optional[dict]:
+    """The VQ-VAE codebook file under ``{qla_data_dir}/vqvae`` of a
+    discrete-code run, or None. Sets ``args.code_dim`` / ``code_voc`` /
+    ``code_size`` from it for ``--code_level`` (``both``: the two levels'
+    dims concatenated, and no codebook init), as the JAX runner does."""
+    if args.img_feature_type == "faster_r-cnn" or not args.qla_data_dir:
+        return None
+    vqdir = os.path.join(args.qla_data_dir, "vqvae")
+    if not os.path.isdir(vqdir):
+        return None
+    # the reference hardcodes vqvae/train.pt; vqvae/{split}.pt is the
+    # fallback for other split names
+    path = os.path.join(vqdir, "train.pt")
+    if not os.path.exists(path):
+        path = os.path.join(vqdir, f"{args.split}.pt")
+    vq = torch.load(path, weights_only=False)
+    if args.code_level in ("top", "bottom"):
+        tag = "t" if args.code_level == "top" else "b"
+        emb = np.asarray(vq[f"embeddings_{tag}"])
+        args.code_dim, args.code_voc = emb.shape
+        args.code_size = len(next(iter(vq[f"feats_{args.code_level}"].values())))
+    else:
+        args.code_dim = (np.asarray(vq["embeddings_t"]).shape[0]
+                         + np.asarray(vq["embeddings_b"]).shape[0])
+        args.code_size = len(next(iter(vq["feats_both"].values())))
+    return vq
+
+
+def load_data(args, tokenizer, cfg, vq: Optional[dict] = None
+              ) -> Tuple[VQAData, VQAData]:
     """(train, val) from ``--qla_data_dir`` or ``--feat_file`` +
-    ``--examples``; val is train without a val split."""
+    ``--examples``; val is train without a val split. With a codebook
+    ``vq`` the features are its ``--code_level`` codes; a discrete-code
+    run needs integer features (``dis_code_t`` pads them to ``code_size``),
+    and a region-feature run refuses them."""
     if args.qla_data_dir:
+        level = args.code_level if vq is not None else None
+
         def qla(split, feat_split=None):
             return QlaVQAData(args.qla_data_dir, split, args.num_labels,
                               tokenizer, args.max_seq_length,
                               args.max_img_seq_length, cfg.img_feature_dim,
-                              feat_split=feat_split)
+                              feat_split=feat_split, vqvae_level=level)
 
         data = qla(args.split, args.feat_split)
         val = qla(args.val_split) if args.val_split else data
@@ -131,20 +172,43 @@ def load_data(args, tokenizer, cfg) -> Tuple[VQAData, VQAData]:
 
         data = tsv(args.examples)
         val = tsv(args.val_examples) if args.val_examples else data
-    if data.code_mode or val.code_mode:
+    if args.img_feature_type != "faster_r-cnn":
+        if not data.code_mode:
+            raise SystemExit(
+                "--img_feature_type dis_code[_t] needs integer code-id "
+                "arrays in the feature file (qla .pt loader)")
+        if args.img_feature_type == "dis_code_t":
+            for d in {id(data): data, id(val): val}.values():
+                d.enable_code_t(args.code_size, args.code_dim)
+    elif data.code_mode or val.code_mode:
         raise SystemExit("run_vqa: integer code-id features need "
-                         "--img_feature_type dis_code, which is not ported "
-                         "yet (ROADMAP.md Queue 1 item 6)")
+                         "--img_feature_type dis_code or dis_code_t")
     return data, val
 
 
-def build_model(args, cfg, device) -> ImageBertForSequenceClassification:
+def build_model(args, cfg, device, vq: Optional[dict] = None
+                ) -> ImageBertForSequenceClassification:
     """The classifier on ``device``: the encoder from ``--checkpoint`` or
     random Oscar-layout weights from ``--seed``, the head fresh from
-    ``--seed``."""
+    ``--seed``. With a codebook ``vq`` and ``--code_level top|bottom`` the
+    code embedding starts from the codebook, transposed to
+    ``[code_voc, code_dim]``, unless the checkpoint supplied one: a
+    fine-tuned code embedding is not clobbered by the raw codebook."""
     with torch.device(device):
         model = ImageBertForSequenceClassification(cfg, dtype=dtype_of(args))
-    return load_or_init(model, args, cfg).eval()
+    info = {}
+    load_or_init(model, args, cfg, info=info)
+    if (vq is not None and args.code_level in ("top", "bottom")
+            and not info["ckpt_has_code"]):
+        tag = "t" if args.code_level == "top" else "b"
+        emb = torch.as_tensor(np.asarray(vq[f"embeddings_{tag}"]).T)
+        table = model.bert.code_embeddings
+        assert table.shape == emb.shape, (tuple(table.shape), tuple(emb.shape))
+        with torch.no_grad():
+            table.copy_(emb)
+        print(f"initialized code embedding from the {args.code_level} "
+              f"codebook {tuple(emb.shape)}")
+    return model.eval()
 
 
 def reconfigure(model, cfg, hidden_dropout: float, loss_type: str) -> None:
@@ -278,13 +342,13 @@ def main(argv=None):
     refuse_multi_process("run_vqa")
     args = build_args().parse_args(argv)
     refuse_dp(args, "run_vqa")
-    check_img_feature_type(args, "run_vqa")
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)
+    vq = load_codebook(args)
     cfg = model_config(args, num_labels=args.num_labels,
                        loss_type=args.loss_type)
-    data, val = load_data(args, tokenizer, cfg)
-    model = build_model(args, cfg, device)
+    data, val = load_data(args, tokenizer, cfg, vq)
+    model = build_model(args, cfg, device, vq)
     if args.num_train_epochs > 0:
         train(model, data, args, device, val=val)
     acc, results, _ = evaluate(model, val, args.per_gpu_eval_batch_size)

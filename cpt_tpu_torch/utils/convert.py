@@ -5,6 +5,9 @@ models: ``"rec_mlm_cpt"`` (``REC_MLM_CPT``, the MLM head), ``"nsp_cpt"``
 (``NSPCPT``, the NSP head) or ``"vcr_qar_nsp_cpt"`` (``VCRQAR_NSPCPT``, twin
 copies of the NSP head); ``"caption"`` (``BertForImageCaptioning``, the MLM
 head, with its own decoder table when ``config.tie_weights`` is False);
+``"pretraining"`` (``BertImgForPreTraining``: the MLM head and an NSP head of
+``num_contrast_classes``, which its pretraining tool draws fresh, as the JAX
+tool loads only the encoder);
 the full-finetune baselines ``"rec_ft"``,
 ``"nsp_ft"``, ``"vcr_qar_nsp_ft"``, ``"vg_ft"``, ``"seq_classification"``
 and ``"multiple_choice"`` take only the encoder from a checkpoint
@@ -49,16 +52,18 @@ def _tensors(d: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in d.items()}
 
 
-CPT_TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt", "caption")
+CPT_TASKS = ("rec_mlm_cpt", "nsp_cpt", "vcr_qar_nsp_cpt", "caption",
+             "pretraining")
 # the models with the MLM head
-MLM_TASKS = ("rec_mlm_cpt", "caption")
+MLM_TASKS = ("rec_mlm_cpt", "caption", "pretraining")
 FT_TASKS = ("rec_ft", "nsp_ft", "vcr_qar_nsp_ft", "vg_ft",
             "seq_classification", "multiple_choice")
 TASKS = CPT_TASKS + FT_TASKS + ("bert_only",)
 # the task models' NSP heads: the one head of NSPCPT, the twin heads of
 # VCRQAR_NSPCPT (both copies of the pretrained ``cls.seq_relationship``)
 NSP_HEADS = {"rec_mlm_cpt": (), "nsp_cpt": ("nsp_head",),
-             "vcr_qar_nsp_cpt": ("cls_ans", "cls_rat")}
+             "vcr_qar_nsp_cpt": ("cls_ans", "cls_rat"),
+             "pretraining": ("nsp_head",)}
 _DENSE, _LN = ("kernel", "bias"), ("scale", "bias")
 
 
@@ -147,6 +152,11 @@ def state_from_reference(sd: Mapping[str, Any], config: BertConfig,
         "bert.pooler.dense.kernel": sd["bert.pooler.dense.weight"].T,
         "bert.pooler.dense.bias": sd["bert.pooler.dense.bias"],
     }
+    code = sd.get("bert.code_embeddings.weight")
+    if c.img_feature_type.startswith("dis_code") and code is not None:
+        # a checkpoint without it leaves the table to the caller, as JAX's
+        # merge into the initialized tree does (cpt_tpu/utils/convert.py:99-100)
+        out["bert.code_embeddings"] = code
     if task in MLM_TASKS:
         out.update({
             "mlm_head.transform.dense.kernel":
@@ -213,6 +223,8 @@ def jax_paths(config: BertConfig, task: str = "rec_mlm_cpt"
         "bert.pooler.dense.kernel": ("bert", "pooler", "dense", "kernel"),
         "bert.pooler.dense.bias": ("bert", "pooler", "dense", "bias"),
     }
+    if c.img_feature_type.startswith("dis_code"):
+        paths["bert.code_embeddings"] = ("bert", "code_embeddings", "embedding")
     if task in MLM_TASKS:
         for name in ("transform.dense.kernel", "transform.dense.bias",
                      "transform.LayerNorm.scale", "transform.LayerNorm.bias",
@@ -249,13 +261,18 @@ def params_from_jax(tree: Mapping[str, Any], config: BertConfig,
     """The JAX ``task`` model's params (``{"params": ...}`` or the inner
     tree), or any tree of that structure (gradients, optimizer moments) →
     port state dict. The attention's ``[H, 3, heads, D]`` / ``[heads, D, H]``
-    kernels and ``[3, heads, D]`` bias flatten to the port's 2-D / 1-D."""
+    kernels and ``[3, heads, D]`` bias flatten to the port's 2-D / 1-D. A
+    text-only model's tree has no image projection (its init saw no image
+    features): those two entries are left out."""
     t = tree.get("params", tree)
     h = config.hidden_size
     flat = {"attention.wqkv": (h, 3 * h), "attention.bqkv": (3 * h,),
             "attention.wo": (h, h)}
     out: Dict[str, np.ndarray] = {}
     for name, path in jax_paths(config, task).items():
+        if (name.startswith("bert.img_embedding.")
+                and "img_embedding" not in t["bert"]):
+            continue
         a = _np(functools.reduce(operator.getitem, path, t))
         shape = flat.get(name.split(".", 4)[-1])
         out[name] = a.reshape(shape) if shape else a
@@ -263,19 +280,25 @@ def params_from_jax(tree: Mapping[str, Any], config: BertConfig,
 
 
 def load_bert_only(model: torch.nn.Module, sd: Mapping[str, Any],
-                   warn: bool = True) -> None:
+                   warn: bool = True) -> bool:
     """Load the encoder of a reference-layout state dict ``sd`` into a
     full-finetune ``model`` and leave its fresh head as it is (JAX's
     ``params_for_task(..., "bert_only")`` merged into the init). Raises
-    unless the parameters left unloaded are exactly the head's."""
+    unless the parameters left unloaded are exactly the head's, and a
+    discrete-code model's code table where ``sd`` has none. → whether
+    ``sd`` supplied the code table (False without one)."""
     cfg = model.config
     head = set(jax_paths(cfg, model.TASK)) - set(jax_paths(cfg, "bert_only"))
-    missing, unexpected = model.load_state_dict(
-        state_from_reference(sd, cfg, "bert_only", warn), strict=False)
+    state = state_from_reference(sd, cfg, "bert_only", warn)
+    has_code = "bert.code_embeddings" in state
+    if cfg.img_feature_type.startswith("dis_code") and not has_code:
+        head.add("bert.code_embeddings")
+    missing, unexpected = model.load_state_dict(state, strict=False)
     if set(missing) != head or unexpected:
         raise KeyError(f"bert_only load into {model.TASK}: missing "
                        f"{sorted(missing)}, unexpected {sorted(unexpected)}; "
                        f"the fresh head is {sorted(head)}")
+    return has_code
 
 
 def random_oscar_state_dict(config: BertConfig, seed: int = 0
@@ -287,6 +310,8 @@ def random_oscar_state_dict(config: BertConfig, seed: int = 0
     rng = np.random.RandomState(seed)
     c = config
     h, im, vs = c.hidden_size, c.intermediate_size, c.vocab_size
+    img_in = {"dis_code": c.code_dim,
+              "dis_code_t": c.code_size}.get(c.img_feature_type, c.img_feature_dim)
 
     def r(*shape):
         return (rng.randn(*shape) * 0.02).astype(np.float32)
@@ -301,7 +326,7 @@ def random_oscar_state_dict(config: BertConfig, seed: int = 0
         "bert.embeddings.LayerNorm.bias": r(h),
         "bert.pooler.dense.weight": r(h, h),
         "bert.pooler.dense.bias": r(h),
-        "bert.img_embedding.weight": r(h, c.img_feature_dim),
+        "bert.img_embedding.weight": r(h, img_in),
         "bert.img_embedding.bias": r(h),
         "cls.predictions.transform.dense.weight": r(h, h),
         "cls.predictions.transform.dense.bias": r(h),
@@ -327,6 +352,10 @@ def random_oscar_state_dict(config: BertConfig, seed: int = 0
         sd[pre + "output.dense.bias"] = r(h)
         sd[pre + "output.LayerNorm.weight"] = np.ones(h, np.float32)
         sd[pre + "output.LayerNorm.bias"] = r(h)
+    if c.img_feature_type.startswith("dis_code"):
+        # drawn last, so the region-feature layout's draws stay the JAX
+        # package's
+        sd["bert.code_embeddings.weight"] = r(c.code_voc, c.code_dim)
     return sd
 
 

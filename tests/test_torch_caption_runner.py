@@ -329,7 +329,7 @@ def test_multi_process_launch_refused(monkeypatch):
     with pytest.raises(SystemExit, match="item 9"):
         rc.main(["--dataset_yaml", "missing.yaml", "--device", "cpu"])
     monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="supported by run_vqa / run_gqa"):
         rc.main(["--dataset_yaml", "missing.yaml", "--device", "cpu",
                  "--img_feature_type", "dis_code"])
 

@@ -644,10 +644,11 @@ def test_vcr_ft_tool_trains(monkeypatch):
 
 
 def test_ft_tools_refuse_what_waits_for_later_items(monkeypatch, tmp_path):
-    """The discrete-code image features refuse, naming Queue 1 item 6; a
-    multi-process launch of ``refcoco_ft`` or ``sweep`` refuses, naming
-    item 9, before it reads anything."""
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 6"):
+    """The discrete-code image features refuse (they are for run_vqa /
+    run_gqa only, as in the JAX package); a multi-process launch of
+    ``refcoco_ft`` or ``sweep`` refuses, naming item 9, before it reads
+    anything."""
+    with pytest.raises(SystemExit, match="supported by run_vqa / run_gqa"):
         refcoco_ft.main(_rec_ft_args("plain") + ["--img_feature_type",
                                                  "dis_code"])
     monkeypatch.setenv("WORLD_SIZE", "2")

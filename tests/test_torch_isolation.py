@@ -60,6 +60,33 @@ print(len(names), "OK")
     assert ok == "OK" and int(count) >= 30
 
 
+SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore",
+                 "models.detector.losses", "data.detector_transforms",
+                 "engine.detector_train", "tools.train_detector",
+                 "engine.solver", "models.detector.attr_rcnn")
+
+
+@pytest.mark.parametrize("name", SLICE_MODULES)
+def test_training_slice_modules_import_without_jax(name):
+    """The pretraining, explore and detector-training modules import, each
+    in a fresh process with ``jax``, ``flax`` and ``cpt_tpu`` blocked, and
+    load none of them."""
+    script = f"""
+import sys
+for name in ("jax", "flax", "cpt_tpu"):
+    sys.modules[name] = None
+import importlib
+importlib.import_module("cpt_tpu_torch.{name}")
+assert not [k for k, v in sys.modules.items() if v is not None
+            and k.split(".")[0] in ("jax", "flax", "cpt_tpu")]
+print("OK")
+"""
+    proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                          text=True, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr[-3000:]
+
+
 def _foreign_imports(path: Path):
     """(line, module) for every import of jax, flax or cpt_tpu (not
     cpt_tpu_torch) in one source file."""
@@ -535,7 +562,8 @@ def _code(path: Path, names=None) -> str:
                                    "CaptionTensorizer"}),
     ("engine/generation.py", {"GenerationConfig", "decode_caption"}),
     ("tools/run_captioning.py", {"build_args", "load_feats",
-                                 "CaptionYamlData"})])
+                                 "CaptionYamlData"}),
+    ("data/pretrain.py", None), ("data/detector_transforms.py", None)])
 def test_jax_free_copies_keep_the_originals_code(module, names):
     """The port's copies of the JAX package's jax-free modules (or of the
     named definitions) are the originals' code but for docstrings and the
@@ -545,7 +573,8 @@ def test_jax_free_copies_keep_the_originals_code(module, names):
     caption evaluators (PTB tokenizer, CIDEr-D, METEOR, SPICE-lite, the
     coco-caption protocol), the CBS state machine, SCST's advantages, the
     caption tensorizer and mask, the generation config and
-    ``run_captioning``'s flags and data readers (their behaviour against
+    ``run_captioning``'s flags and data readers, the pretraining datasets
+    and the detector's training augmentations (their behaviour against
     the originals' is held in ``test_torch_config_front_end.py``,
     ``test_torch_detector_tools.py``, ``test_torch_oscar_data.py``,
     ``test_torch_captioning.py`` and the caption metrics' case below)."""

@@ -335,7 +335,9 @@ RUNNERS = {"run_vqa": run_vqa, "run_gqa": run_gqa, "run_nlvr": run_nlvr,
 @pytest.mark.parametrize("ask", ["dp", "world_size", "dis_code"])
 def test_runner_refusals(name, ask, monkeypatch):
     """``--dp 2`` and a two-process environment name ROADMAP item 9 (the
-    parallel port); the discrete-code features name item 6."""
+    parallel port); the discrete-code features over region features are
+    refused as the JAX runners refuse them (run_vqa / run_gqa: no integer
+    code ids in the features; the others: codes are for those two only)."""
     argv = runner_args(name)
     if ask == "dp":
         argv += ["--dp", "2"]
@@ -344,20 +346,25 @@ def test_runner_refusals(name, ask, monkeypatch):
         monkeypatch.setenv("MASTER_ADDR", "localhost")
     else:
         argv += ["--img_feature_type", "dis_code"]
-    item = "item 6" if ask == "dis_code" else "item 9"
-    with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+    if ask != "dis_code":
+        match = "ROADMAP.md Queue 1 item 9"
+    elif name in ("run_vqa", "run_gqa"):
+        match = "needs integer code-id arrays"
+    else:
+        match = "supported by run_vqa / run_gqa"
+    with pytest.raises(SystemExit, match=match):
         RUNNERS[name].main(argv)
 
 
 def test_vqa_integer_features_refused(tmp_path):
     """A qla feature file of integer code ids (the dis_code layout) under
-    region features is refused, naming item 6."""
+    region features is refused, naming the code variants."""
     p = fixture_paths()
     torch.save({f"im{i}": torch.arange(4) for i in range(N_IMG)},
                tmp_path / "train2014_img_frcnn_feats.pt")
     with open(os.path.join(p["root"], "train2014_qla.json")) as f:
         (tmp_path / "train2014_qla.json").write_text(f.read())
-    with pytest.raises(SystemExit, match="item 6"):
+    with pytest.raises(SystemExit, match="need --img_feature_type dis_code"):
         run_vqa.main(["--qla_data_dir", str(tmp_path), "--num_labels", "5"]
                      + TINY)
 
