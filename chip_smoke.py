@@ -255,6 +255,28 @@ Phases (any failure raises and the script exits non-zero):
    gradients of ``DET_GRAD_LEAVES`` within DET_GRAD_TOL, ``DET_FAULTS``
    (K1's dx or K2's dfeats cut) missing it; the step's K1 and K2 backward
    timed beside their bounds; one step's device time by kernel family.
+17. scene graphs at full width (VinVL X152-C4 from phase 16's seed-0
+   weights, the 1024×1024 canvas, bf16; phase 3 holds K1 at the union
+   shapes ``K1_UNION_SHAPES`` and K2 on 240 union boxes,
+   ``sg_union_rois``): K1's backward at ``[240,14,14,2048]`` stride 2 as
+   in phase 16; on a seeded 2-image VG-TSV with relations (``sg_tsv``,
+   npy bytes), ``test_detector.main --sg --max_rel_dets 16`` (RelDN, the
+   relation head at its init from a seed): the ``sg_<protocol>_<k>``
+   recalls finite, each SceneParser image K1 53, K2 2, K5 2
+   (``SG_IMAGE_LAUNCHES``: one backbone pass), host ms, one image under
+   ``torch.profiler``; one SceneParser forward for each of the five
+   algorithms (the same launches) whose ``rel_logits`` on the image's
+   detections lie within SG_TOL of an f32 twin's on the plain path, with
+   ``SG_FAULTS`` (the union as the intersection, subject and object
+   swapped, RelDN's frequency prior dropped, the motif LSTMs' i/f gates
+   swapped) missing it; ``train_detector.main --sg`` for SG_STEPS steps
+   (K1 53, K2 2 a step, ``SG_STEP_LAUNCHES``; host ms, peak memory), then
+   one step's loss and ``SG_GRAD_LEAVES`` gradients against the f32 twin
+   (SG_LOSS_TOL, SG_GRAD_TOL; K1's dx cut missing it) and one step under
+   ``torch.profiler``; ``test_detector --synthetic 2 --bbox_aug`` (hflip:
+   the card has no Pillow for rescales): K1 100, K2 2, K5 5 an image,
+   each merge's K5 launch equal to ``nms_padded`` on its own inputs, and
+   K5 at the first merge's K in phase 3's manner.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -1155,6 +1177,24 @@ def check_kernels(rows: list) -> None:
                 device="roi_align")
         del feats
         torch.cuda.empty_cache()
+
+    # the scene-graph path's new launch shapes: the relation head's stage 5
+    # over 240 union boxes (every ordered pair of 16 detections) and their
+    # pooling from the 1024×1024 canvas's C4 map (one copy)
+    check_k1(rows, K1_UNION_SHAPES, g)
+    feats = randn(1, 64, 64, 1024)
+    rois = sg_union_rois()
+    rois_t = torch.from_numpy(rois).to(dev)
+    compare("K2", f"scene-graph union boxes: feats=[1,64,64,1024] rois={len(rois)}",
+            lambda: batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            lambda: batched_roi_align_plain(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            lambda: batched_roi_align_plain(feats.float(), rois_t, 1 / 16.0, 14,
+                                            0, 8), rows,
+            k2_faults(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            work=k2_work(tuple(feats.shape), rois, 1 / 16.0) + (F32_OPS_S,),
+            device="roi_align")
+    del feats
+    torch.cuda.empty_cache()
 
     # K3 at the scoring shape: 16 sequences of 70 text + 50 region slots,
     # and S = 128
@@ -7147,6 +7187,518 @@ def run_detector_training(counters, smi: str, rows: list, dev) -> dict:
     return out
 
 
+# Phase 17: the scene-graph path at full width. SceneParser's relation head
+# runs over the top SG_REL_DETS detections, every ordered pair of them: 240
+# union boxes pooled by K2 from the C4 map and run through a stage-5 head
+# (K1 at [240,14,14,2048] stride 2, then [240,7,7,2048]).
+SG_IMAGES = 2
+SG_STEPS = 5
+# train_detector --sg's rate for phase 17's steps: at the default 0.01 the
+# random relation head over the random detector's features diverged
+# (losses 0.73 → 64.5 in 5 steps, the calibration run)
+SG_BASE_LR = 1e-3
+SG_REL_DETS = 16
+SG_PREDICATES = ("on", "near", "has", "wearing", "behind")
+K1_UNION_SHAPES = [(240, 14, 14, 2048, 2), (240, 7, 7, 2048, 1)]
+# a SceneParser image: the backbone once (47), the box head's and the
+# relation head's stage 5 (3 each); the box head's and the union boxes'
+# pooling; the RPN's and the post-processor's NMS. A training step: the
+# backbone, both stage 5s, both poolings, no NMS (forced boxes).
+SG_IMAGE_LAUNCHES = {"K1": 53, "K2": 2, "K5": 2}
+SG_STEP_LAUNCHES = {"K1": 53, "K2": 2}
+# rel_logits of the bf16 kernel path against the f32 plain path on the same
+# detections (the detector's bf16 map and outputs, cast), as the largest
+# |Δ| over the largest |logit|, per algorithm. The calibration run (H100
+# 80GB HBM3, 700 W; PERF.md §6) read 8.697e-3 (RelDN), 1.049e-2 (IMP),
+# 1.683e-2 (MSDN), 7.687e-3 (GRCNN) and 2.582e-2 (motif: bf16 LSTMs); each
+# tolerance is about 2× its gap and below its faults' smallest (IMP's
+# subject/object swap 2.760e-2, MSDN's and GRCNN's intersection 6.281e-2
+# and 2.313e-2).
+SG_TOL = {"sg_reldn": 2.5e-2, "sg_imp": 2e-2, "sg_msdn": 3.5e-2,
+          "sg_grcnn": 1.5e-2, "sg_nm": 6e-2}
+# One step's relation loss (nats) and the SG_GRAD_LEAVES gradients (largest
+# |Δ| over largest |g|) at the relation head's init, bf16 against f32. The
+# calibration run: loss 3.862e-4 from f32; gradients 3.448e-2 to 1.230e-1
+# (``rel_embedding_0``'s: bf16 and f32 put some LeakyReLU inputs on
+# opposite sides of 0, as phase 16's ReLUs), K1's dx cut 1.0: about 5× the
+# loss gap, 2× the largest gradient gap and 4× under the fault.
+SG_LOSS_TOL = 2e-3
+SG_GRAD_TOL = 2.5e-1
+# Named faults of the relation path on the f32 path, each of which must
+# move rel_logits beyond its algorithm's SG_TOL (a NaN counts as moved):
+# the union box taken as the intersection, subject and object swapped,
+# RelDN's frequency prior dropped, the motif LSTMs' input and forget gates
+# swapped. Each where it shows above the bf16 gap: MSDN's swap moved the
+# calibration run's logits by 2.884e-3 (its union features are symmetric in
+# the pair and its gates nearly so at init), the motif's intersection by
+# 2.187e-2, under their gaps.
+SG_FAULTS = {"sg_reldn": ("union_as_intersection", "subject_object_swapped",
+                          "freq_prior_dropped"),
+             "sg_imp": ("union_as_intersection", "subject_object_swapped"),
+             "sg_msdn": ("union_as_intersection",),
+             "sg_grcnn": ("union_as_intersection", "subject_object_swapped"),
+             "sg_nm": ("subject_object_swapped", "lstm_if_swapped")}
+SG_GRAD_LEAVES = ("relation.pred_feature_extractor.layer4.block_0.conv1.weight",
+                  "relation.pred_feature_extractor.layer4.block_0.conv2.weight",
+                  "relation.pred_feature_extractor.layer4.block_2.conv3.weight",
+                  "relation.rel_embedding_0.kernel",
+                  "relation.spatial_0.kernel")
+SG_LABELMAP = dict(DETECTOR_LABELMAP, predicate_to_idx={
+    p: i + 1 for i, p in enumerate(SG_PREDICATES)})
+
+
+def sg_union_rois(n_dets: int = SG_REL_DETS, size: int = 1024) -> np.ndarray:
+    """The union boxes of every ordered pair of ``n_dets`` detection-like
+    boxes on the ``size`` canvas ([n(n-1), 4] f32), the K2 launch of the
+    relation head: union boxes span much of the image, so the adaptive grid
+    takes up to 5 samples a bin axis. The first is replaced by one reaching
+    past the canvas, as ``k2_shapes``' 32-RoI launch has, so that
+    ``clamp_not_skip`` and ``count_in_range`` show."""
+    rng = np.random.RandomState(17)
+    xy = rng.uniform(0, size * 0.85, (n_dets, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 300, (n_dets, 2)),
+                                           size - 1)], 1)
+    i, j = np.nonzero(~np.eye(n_dets, dtype=bool))
+    rois = np.concatenate([np.minimum(boxes[i, :2], boxes[j, :2]),
+                           np.maximum(boxes[i, 2:], boxes[j, 2:])], 1).astype(
+        np.float32)
+    rois[0] = [-300.0, -200.0, 1500.0, 1000.0]
+    return rois
+
+
+def sg_tsv(root: str, size: int, n: int = SG_IMAGES) -> str:
+    """A VG-TSV of ``n`` random ``size × size`` images with 6-10 objects of
+    SG_LABELMAP's classes and 4-8 relations each (``write_detection_tsv``;
+    under :func:`npy_pillow` on the card) → its yaml."""
+    from cpt_tpu_torch.data.vg_tsv import write_detection_tsv
+
+    rng = np.random.RandomState(17)
+    names = list(SG_LABELMAP["label_to_idx"])
+    images, labels = {}, {}
+    for i in range(n):
+        images[f"img{i}"] = rng.randint(0, 256, (size, size, 3)).astype(np.uint8)
+        n_obj = rng.randint(6, 11)
+        objects = []
+        for _ in range(n_obj):
+            xy = rng.uniform(0, size * 0.7, 2)
+            wh = rng.uniform(size * 0.05, size * 0.3, 2)
+            objects.append({"rect": [float(v) for v in np.concatenate([xy, xy + wh])],
+                            "class": names[rng.randint(len(names))],
+                            "attributes": []})
+        pairs = [(s, o) for s in range(n_obj) for o in range(n_obj) if s != o]
+        pick = rng.choice(len(pairs), rng.randint(4, 9), replace=False)
+        labels[f"img{i}"] = {"objects": objects, "relations": [
+            {"subj_id": int(pairs[p][0]), "obj_id": int(pairs[p][1]),
+             "class": SG_PREDICATES[rng.randint(len(SG_PREDICATES))]}
+            for p in pick]}
+    return write_detection_tsv(root, "rel", images, labels, SG_LABELMAP)
+
+
+@contextlib.contextmanager
+def sg_fault(fault: str, model):
+    """One of SG_FAULTS on ``model`` (a SceneParser) meanwhile."""
+    import torch
+
+    from cpt_tpu_torch.models.detector import relation_head, scene_parser
+
+    if fault == "union_as_intersection":
+        real, mod, name = relation_head.boxes_union, relation_head, "boxes_union"
+
+        def patched(a, b):
+            return torch.stack([torch.maximum(a[..., 0], b[..., 0]),
+                                torch.maximum(a[..., 1], b[..., 1]),
+                                torch.minimum(a[..., 2], b[..., 2]),
+                                torch.minimum(a[..., 3], b[..., 3])], dim=-1)
+    elif fault == "subject_object_swapped":
+        real, mod, name = scene_parser.all_pairs, scene_parser, "all_pairs"
+
+        def patched(*a, **kw):
+            return real(*a, **kw).flip(1)
+    elif fault == "lstm_if_swapped":
+        cells = [m for m in model.modules() if isinstance(m, torch.nn.LSTMCell)]
+        saved = [{k: v.clone() for k, v in c.state_dict().items()} for c in cells]
+        with torch.no_grad():
+            for c in cells:
+                h = c.hidden_size
+                for t in (c.weight_ih, c.weight_hh, c.bias_hh):
+                    t.copy_(torch.cat([t[h:2 * h], t[:h], t[2 * h:]]))
+        try:
+            yield
+        finally:
+            for c, sd in zip(cells, saved):
+                c.load_state_dict(sd)
+        return
+    elif fault == "freq_prior_dropped":
+        yield                            # the caller passes no prior
+        return
+    else:
+        raise ValueError(f"unknown scene-graph fault {fault!r}")
+    setattr(mod, name, patched)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def f32_relation_twin(model):
+    """A SceneParser on ``model``'s detector (shared) whose relation head is
+    an f32 copy of ``model``'s: the plain path's oracle."""
+    import torch
+
+    from cpt_tpu_torch.models.detector.scene_parser import SceneParser
+
+    dev = next(model.parameters()).device
+    with torch.device(dev):
+        twin = SceneParser(model.config, model.num_rel_classes,
+                           model.max_rel_dets, model.algorithm, torch.float32,
+                           detector=model.detector)
+    twin.load_state_dict({k: v.detach().float() for k, v in
+                          model.relation_parameters().items()}, strict=False)
+    return twin.eval()
+
+
+def floated(d: dict) -> dict:
+    return {k: v.float() if v.is_floating_point() else v for k, v in d.items()}
+
+
+def sg_rel_gaps(model, feat, det, hw, freq) -> dict:
+    """rel_logits of ``model`` (bf16, kernels) on one image's detector map
+    ``feat`` and outputs ``det`` against its f32 twin's on the plain path,
+    and each of its SG_FAULTS on the twin: {"gap", "faults", "scale"}."""
+    import torch
+
+    twin = f32_relation_twin(model)
+    prior = freq if model.algorithm == "sg_reldn" else None
+    with torch.no_grad():
+        got = model.relation_outputs(feat, det, hw, prior)["rel_logits"].float()
+        f_feat, f_det = feat.float(), floated(det)
+        with plain_ops():
+            want = twin.relation_outputs(f_feat, f_det, hw, prior)["rel_logits"]
+            faults = {}
+            for fault in SG_FAULTS[model.algorithm]:
+                with sg_fault(fault, twin):
+                    p = None if fault == "freq_prior_dropped" else prior
+                    faults[fault] = twin.relation_outputs(
+                        f_feat, f_det, hw, p)["rel_logits"]
+    scale = float(want.abs().max())
+    rel = {f: float((v - want).abs().max()) / scale for f, v in faults.items()}
+    del twin
+    return {"gap": float((got - want).abs().max()) / scale, "faults": rel,
+            "scale": scale, "finite": bool(torch.isfinite(got).all())}
+
+
+def sg_step_check(model, batch, freq) -> dict:
+    """One relation-loss step of ``model`` (bf16, kernels) on ``batch``
+    against its f32 twin on the plain path, the detector's outputs shared:
+    the loss gap (nats) and the SG_GRAD_LEAVES gradients' gaps, with K1's
+    dx cut (``det_fault``) missing SG_GRAD_TOL."""
+    import torch
+
+    image, hw, boxes, labels, valid, rels, rel_valid = batch
+    with torch.no_grad():
+        feat, det = model.detector_outputs(image, boxes, valid)
+
+    def run(m, frozen):
+        params = m.relation_parameters()
+        for n in SG_GRAD_LEAVES:
+            params[n].requires_grad_(True)
+        loss = m.relation_train_loss(image, hw, boxes, labels, valid, rels,
+                                     boxes, rel_valid, freq, frozen=frozen)
+        grads = torch.autograd.grad(loss, [params[n] for n in SG_GRAD_LEAVES])
+        return float(loss.detach()), {n: g.float() for n, g in
+                                      zip(SG_GRAD_LEAVES, grads)}
+
+    loss, grads = run(model, (feat, det))
+    with det_fault("k1_dx_cut"):
+        _, cut = run(model, (feat, det))
+    twin = f32_relation_twin(model)
+    with plain_ops():
+        ref_loss, ref = run(twin, (feat.float(), floated(det)))
+    del twin
+
+    def gaps(gr):
+        return {n: float((gr[n] - ref[n]).abs().max() / ref[n].abs().max())
+                for n in SG_GRAD_LEAVES}
+
+    return {"loss": loss, "f32": ref_loss, "loss_gap": abs(loss - ref_loss),
+            "grad_gaps": gaps(grads), "fault_gap": max(gaps(cut).values()),
+            "grad_scale": {n: float(ref[n].abs().max()) for n in SG_GRAD_LEAVES}}
+
+
+def run_scene_graph(counters, smi: str, rows: list, dev, tiny: bool = False) -> dict:
+    """Phase 17 (see the module docstring). ``tiny``: the tiny detector in
+    f32 on ``dev`` (a dry run of the code paths on the CPU; the launch and
+    kernel checks fail there). Gathers every reading, prints it, then
+    raises on the first check that failed."""
+    import torch
+
+    from cpt_tpu_torch.data.vg_tsv import VGTSVDataset
+    from cpt_tpu_torch.engine import bbox_aug
+    from cpt_tpu_torch.models.detector import scene_parser as sp
+    from cpt_tpu_torch.ops.nms import nms_padded
+    from cpt_tpu_torch.tools import test_detector as tdet
+    from cpt_tpu_torch.tools import train_detector as td
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    out = {}
+    on_card = dev.type == "cuda"
+    flags = (["--tiny", "--dtype", "float32"] if tiny
+             else ["--dtype", "bfloat16"]) + ["--device", dev.type]
+    cfg = td.tiny_detector_config() if tiny else td.VINVL_X152C4
+    size = cfg.input.pad_h
+    rel_dets = 4 if tiny else SG_REL_DETS
+    g = torch.Generator(device=dev).manual_seed(17)
+    if on_card:
+        out["k1_union_backward"] = check_conv_backward(K1_UNION_SHAPES[:1], g)
+    real_random = td.dconv.random_vinvl_state_dict
+    td.dconv.random_vinvl_state_dict = (
+        lambda c, seed=0: trainable_weights(real_random(c, seed)))
+    real_forward = sp.SceneParser.forward
+    try:
+        with tempfile.TemporaryDirectory() as root, npy_pillow():
+            yaml_path = sg_tsv(f"{root}/sg", size)
+            ds = VGTSVDataset(yaml_path, attribute_on=False, relation_on=True)
+            freq = torch.from_numpy(ds.compute_freq_prior()).to(dev)
+
+            # --- test_detector --sg: each SceneParser image's launches and
+            # host ms; the parser kept for the checks below
+            images, built = [], []
+
+            def forward(self, image, image_hw, anchors, freq_prior=None):
+                zero_counts(counters)
+                t = time.perf_counter()
+                o = real_forward(self, image, image_hw, anchors, freq_prior)
+                if on_card:
+                    torch.cuda.synchronize()
+                images.append({"ms": (time.perf_counter() - t) * 1e3,
+                               "launches": {k: c.launches for k, c in counters.items()},
+                               "args": (image, tuple(image_hw), anchors)})
+                return o
+
+            real_build = tdet.build_scene_parser
+            sp.SceneParser.forward = forward
+            tdet.build_scene_parser = lambda *a: built.append(real_build(*a)) or built[-1]
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                results, ok = tdet.main(flags + ["--tsv", yaml_path, "--sg",
+                                                 "--max_rel_dets", str(rel_dets)])
+            finally:
+                sp.SceneParser.forward = real_forward
+                tdet.build_scene_parser = real_build
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+            sg_keys = {k: v for k, v in results.items() if k.startswith("sg_")}
+            check(ok and len(sg_keys) == 6 and all(np.isfinite(v) for v in sg_keys.values()),
+                  f"test_detector --sg results {results}")
+            check(len(images) == SG_IMAGES and all(
+                im["launches"] == {k: SG_IMAGE_LAUNCHES.get(k, 0) for k in counters}
+                for im in images), f"SG image launches {[im['launches'] for im in images]}")
+            model = built[0]
+            image, hw, anchors = images[0]["args"]
+            profile = (profiled(lambda: real_forward(model, image, hw, anchors),
+                                "one SceneParser image (sg_reldn, X152, 1024x1024)")
+                       if on_card else {})
+            out["sg_infer"] = {
+                "results": sg_keys, "ms_per_image": [im["ms"] for im in images],
+                "launches": {k: sum(im["launches"][k] for im in images)
+                             for k in counters},
+                "image_launches": images[-1]["launches"], "peak_gib": peak,
+                "profile": profile}
+            print(f"test_detector --sg over {SG_IMAGES} images: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sorted(sg_keys.items()))
+                  + "; SceneParser host ms per image "
+                  + ", ".join(f"{im['ms']:.2f}" for im in images)
+                  + f"; launches per image {images[-1]['launches']}; peak "
+                  f"{peak:.2f} GiB", flush=True)
+
+            # --- each algorithm: one forward (launches), rel_logits against
+            # the f32 plain path on the same detections, the named faults.
+            # RelDN's prior is indexed by the detector's labels, so it spans
+            # the detector's classes (the dataset's prior spans its own 6):
+            # one drawn from a seed, normalised over the predicates
+            n_cls = cfg.roi_heads.num_classes
+            det_freq = torch.rand(n_cls, n_cls, model.num_rel_classes,
+                                  generator=g, device=dev)
+            det_freq /= det_freq.sum(-1, keepdim=True)
+            with torch.no_grad():
+                feat = model.detector.features(image.to(model.dtype))
+                det = model.detector.detect_from_feats(feat, hw, anchors, False)
+            heads = {}
+            for alg in sp.ALGORITHMS:
+                with torch.device(dev):
+                    m = sp.SceneParser(cfg, model.num_rel_classes, rel_dets,
+                                       alg, model.dtype, detector=model.detector)
+                m.init_relation(torch.Generator().manual_seed(17))
+                m.eval()
+                zero_counts(counters)
+                t = time.perf_counter()
+                with torch.no_grad():
+                    o = m(image, hw, anchors, det_freq)
+                if on_card:
+                    torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                ran = {k: c.launches for k, c in counters.items()}
+                r = sg_rel_gaps(m, feat, det, hw, det_freq)
+                r.update({"ms": ms, "launches": ran,
+                          "valid_pairs": int(o["pair_valid"].sum())})
+                heads[alg] = r
+                tol = SG_TOL[alg]
+                check(r["finite"] and r["gap"] <= tol,
+                      f"{alg} rel_logits against f32: {r['gap']} (tol {tol})")
+                check(not any(e <= tol for e in r["faults"].values()),
+                      f"{alg}: a fault passes {r['faults']} (tol {tol})")
+                check(ran == {k: SG_IMAGE_LAUNCHES.get(k, 0) for k in counters},
+                      f"{alg} forward launches {ran}")
+                print(f"SceneParser {alg}: rel_logits gap to f32 {r['gap']:.3e} "
+                      f"of scale {r['scale']:.3e} (tol {tol}); faults "
+                      + ", ".join(f"{f} {e:.3e}" for f, e in r["faults"].items())
+                      + f"; {ms:.2f} host ms, launches {ran}, valid pairs "
+                      f"{r['valid_pairs']}", flush=True)
+                del m
+            out["sg_heads"] = heads
+            del feat, det, model, built
+            if on_card:
+                torch.cuda.empty_cache()
+
+            # --- train_detector --sg: every step's launches, host ms, loss;
+            # the peak of allocated memory; one step against f32
+            steps, parsers = [], []
+            real_train, real_parser = td.train_scene_graph, td.build_scene_parser
+            mark = [time.perf_counter()]
+
+            def on_step(i, loss):
+                loss = float(loss)
+                steps.append({"step": i, "loss": loss,
+                              "launches": {k: c.launches for k, c in counters.items()},
+                              "ms": (time.perf_counter() - mark[0]) * 1e3})
+                zero_counts(counters)
+                mark[0] = time.perf_counter()
+
+            def train(*a, **kw):
+                zero_counts(counters)
+                mark[0] = time.perf_counter()
+                return real_train(*a, on_step=on_step, **kw)
+
+            # one step at the relation head's init against f32, on the run's
+            # first batch, before its optimizer exists
+            args = td.build_args().parse_args(flags + ["--tsv", yaml_path, "--sg",
+                                                       "--max_rel_dets", str(rel_dets)])
+            batch = next(td.sg_samples(args, cfg, ds, dev))
+            step_check, real_make = {}, td.make_sg_train_step
+
+            def make(parser, solver, prior):
+                step_check.update(sg_step_check(parser, batch, prior))
+                zero_counts(counters)
+                mark[0] = time.perf_counter()
+                return real_make(parser, solver, prior)
+
+            td.train_scene_graph, td.make_sg_train_step = train, make
+            td.build_scene_parser = lambda *a: parsers.append(real_parser(*a)) or parsers[-1]
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                parser, losses = td.main(flags + [
+                    "--tsv", yaml_path, "--sg", "--max_iter", str(SG_STEPS),
+                    "--base_lr", str(SG_BASE_LR), "--max_rel_dets",
+                    str(rel_dets), "--output_dir", ""])
+            finally:
+                td.train_scene_graph, td.build_scene_parser = real_train, real_parser
+                td.make_sg_train_step = real_make
+            run_s = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+            per_step = {k: SG_STEP_LAUNCHES.get(k, 0) for k in counters}
+            check(len(steps) == SG_STEPS and all(
+                np.isfinite(s["loss"]) and s["launches"] == per_step for s in steps),
+                f"SG training steps (loss, launches) {[(s['loss'], s['launches']) for s in steps]}")
+            check(step_check["loss_gap"] <= SG_LOSS_TOL
+                  and max(step_check["grad_gaps"].values()) <= SG_GRAD_TOL,
+                  f"SG step against f32: {step_check}")
+            check(step_check["fault_gap"] > SG_GRAD_TOL,
+                  f"SG step: K1's dx cut passes {step_check['fault_gap']}")
+            step_fn = td.make_sg_train_step(parser, td.sg_solver(args, None), freq)
+            step_fn(batch)
+            # torch.profiler drops launches from some traces late in a long
+            # process (ROADMAP, Queue 3): two traces, the fuller one kept
+            profile = (max((profiled(lambda: step_fn(batch),
+                                     "one SG training step (sg_reldn, X152, "
+                                     "1024x1024, bf16)") for _ in range(2)),
+                           key=lambda p: p["device_ms"]) if on_card else {})
+            out["sg_train"] = {
+                "launches": {k: sum(s["launches"][k] for s in steps) for k in counters},
+                "losses": [s["loss"] for s in steps],
+                "step_ms": [s["ms"] for s in steps],
+                "ms_per_step": float(np.mean([s["ms"] for s in steps[1:]])),
+                "peak_gib": peak, "run_s": run_s, "step_check": step_check,
+                "profile": profile}
+            del parser, parsers, step_fn
+            if on_card:
+                torch.cuda.empty_cache()
+            sc = step_check
+            print(f"train_detector --sg: {SG_STEPS} steps in {run_s:.1f} s, "
+                  f"host ms/step {[round(s['ms'], 1) for s in steps]}, peak "
+                  f"{peak:.2f} GiB, launches a step {steps[-1]['launches']}; "
+                  f"losses {[round(s['loss'], 4) for s in steps]}; one step "
+                  f"against f32: loss {sc['loss']:.5f} vs {sc['f32']:.5f} (gap "
+                  f"{sc['loss_gap']:.3e}, tol {SG_LOSS_TOL}), gradient gaps "
+                  + ", ".join(f"{n.split('.')[-2]}.{n.split('.')[-1]} {e:.3e}"
+                              for n, e in sc["grad_gaps"].items())
+                  + f" (tol {SG_GRAD_TOL}), K1 dx cut {sc['fault_gap']:.3e}",
+                  flush=True)
+
+        # --- test_detector --bbox_aug (hflip; no Pillow on the card): the
+        # merge's K5 launch against plain nms_padded on its own inputs
+        merges = []
+        real_nms = bbox_aug.nms_pallas
+
+        def nms(boxes, scores, valid, thr, max_out):
+            idx, keep = real_nms(boxes, scores, valid, thr, max_out)
+            merges.append((boxes, scores, valid, thr, max_out, idx, keep))
+            return idx, keep
+
+        bbox_aug.nms_pallas = nms
+        zero_counts(counters)
+        t = time.perf_counter()
+        try:
+            aug, ok = tdet.main(flags + ["--synthetic", str(SG_IMAGES), "--bbox_aug"])
+        finally:
+            bbox_aug.nms_pallas = real_nms
+        aug_s = time.perf_counter() - t
+        ran = {k: c.launches for k, c in counters.items()}
+        exact = []
+        for boxes, scores, valid, thr, max_out, idx, keep in merges:
+            want_idx, want_keep = nms_padded(boxes, scores, valid, thr, max_out)
+            exact.append(bool(torch.equal(keep, want_keep)
+                              and torch.equal(idx[keep], want_idx[want_keep])))
+        ks = [int(m[0].shape[0]) for m in merges]
+        check(ok and np.isfinite(aug["mAP"]) and len(merges) == SG_IMAGES
+              and all(exact), f"--bbox_aug: mAP {aug}, merges K {ks} exact {exact}")
+        check(ran["K5"] == SG_IMAGES * 5 and ran["K1"] == SG_IMAGES * 100
+              and ran["K2"] == SG_IMAGES * 2, f"--bbox_aug launches {ran}")
+        if on_card and ks:
+            check_nms(rows, [(1, ks[0], 100, 0.5, 0.0, False)])
+        out["bbox_aug"] = {"mAP": aug["mAP"], "merge_k": ks, "exact": exact,
+                           "seconds": aug_s, "launches": ran}
+        print(f"test_detector --bbox_aug (hflip) over {SG_IMAGES} images: mAP "
+              f"{aug['mAP']:.4f} in {aug_s:.2f} s; merge K {ks}, K5 equal to "
+              f"nms_padded {exact}; launches {ran}", flush=True)
+    finally:
+        td.dconv.random_vinvl_state_dict = real_random
+        sp.SceneParser.forward = real_forward
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 17 scene graphs ({smi}) in {phase_s:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"phase 17: {failed}")
+    out["seconds"] = phase_s
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -7242,6 +7794,9 @@ def main(argv=None) -> int:
     det_train = run_detector_training(counters, smi, rows, dev)
     phase16_s = det_train.pop("seconds")
     e2e.update(det_train)
+    scene_graph = run_scene_graph(counters, smi, rows, dev)
+    phase17_s = scene_graph.pop("seconds")
+    e2e.update(scene_graph)
     weights.close()
     per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
                   for k in KERNELS}
@@ -7265,7 +7820,7 @@ def main(argv=None) -> int:
              "caption_xe", "caption_eval", "caption_scst", "caption_beam",
              "caption_greedy", "caption_flash", "caption_cbs", "pretrain",
              "pretrain_k4", "dis_code_vqa", "explore_templates", "explore_soft",
-             "detector_train")
+             "detector_train", "sg_infer", "sg_train", "bbox_aug")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -7282,7 +7837,8 @@ def main(argv=None) -> int:
     print(f"phase 10 took {phase10_s:.1f} s, phase 11 {phase11_s:.1f} s, "
           f"phase 12 {phase12_s:.1f} s, phase 13 {phase13_s:.1f} s, phase 14 "
           f"{phase14_s:.1f} s, phase 15 {phase15_s:.1f} s, phase 16 "
-          f"{phase16_s:.1f} s; the whole run {time.perf_counter() - t_start:.1f} s",
+          f"{phase16_s:.1f} s, phase 17 {phase17_s:.1f} s; the whole run "
+          f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     if args.json:
         with open(args.json, "w") as f:

@@ -63,8 +63,15 @@ class AttrRCNN(nn.Module):
         image [H, W, 3] preprocessed pixels (the padded canvas) · image_hw
         the true (h, w) · anchors [h*w*A, 4] (``rpn.grid_anchors`` of the
         C4 grid) → dict of ``detections_per_img`` slots with ``valid``."""
+        return self.detect_from_feats(self.backbone(image[None])[0],
+                                      image_hw, anchors, with_attributes)
+
+    def detect_from_feats(self, feat: torch.Tensor, image_hw: Sequence[int],
+                          anchors: torch.Tensor, with_attributes: bool = True
+                          ) -> Dict[str, torch.Tensor]:
+        """:meth:`forward` from the C4 map ``feat`` [h, w, C4] on: the RPN,
+        the box head, the post-processor (and the attribute head)."""
         c = self.config
-        feat = self.backbone(image[None])[0]                # [h, w, C4]
         logits, deltas = self.rpn(feat[None])
         proposals, _scores, prop_valid = select_proposals(
             c.rpn, logits[0], deltas[0], anchors, image_hw)
@@ -79,6 +86,18 @@ class AttrRCNN(nn.Module):
             attr_logits, _ = self.attr_predictor(ax, out["labels"])
             out["attr_logits"] = attr_logits.float()
         return out
+
+    def force_from_feats(self, feat: torch.Tensor, force_boxes: torch.Tensor,
+                         force_valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Force-boxes mode on one image's C4 map ``feat`` [h, w, C4] (the
+        JAX ``AttrRCNN.__call__`` with ``force_boxes``, without attributes):
+        the box head on the given boxes (pooling on K2, stage 5 on K1), then
+        ``postprocess_force_boxes`` → boxes, scores, labels, box_features,
+        scores_all, valid."""
+        cls_logits, _deltas, pooled = self.box_predictor(
+            self.box_extractor(feat, force_boxes))
+        return postprocess_force_boxes(cls_logits, pooled, force_boxes,
+                                       force_valid)
 
     def forward_batch_force(self, images: torch.Tensor, image_hw,
                             force_boxes: torch.Tensor,

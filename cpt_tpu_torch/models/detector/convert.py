@@ -106,22 +106,94 @@ def state_from_reference(sd: Mapping[str, Any], cfg: DetectorConfig
             for k, v in out.items()}
 
 
+def _conv(kernel) -> np.ndarray:
+    """A dense conv kernel, HWIO → OIHW."""
+    return np.transpose(_np(kernel), (3, 2, 0, 1))
+
+
+def _stage_params(port: str, node: Mapping[str, Any],
+                  out: Dict[str, np.ndarray]) -> None:
+    """One ResNet stage's JAX blocks → the port's entries under ``port``
+    (the grouped 3×3 stays HWIO, kernel K1's layout)."""
+    for bname, blk in node.items():
+        p = f"{port}.{bname}"
+        for conv_name in ("conv1", "conv3", "downsample_conv"):
+            if conv_name in blk:
+                out[f"{p}.{conv_name}.weight"] = _conv(blk[conv_name]["kernel"])
+        out[f"{p}.conv2.weight"] = _np(blk["conv2"]["kernel"])
+        for bn_name in ("bn1", "bn2", "bn3", "downsample_bn"):
+            if bn_name in blk:
+                for k in ("scale", "bias"):
+                    out[f"{p}.{bn_name}.{k}"] = _np(blk[bn_name][k])
+
+
+# flax's recurrent cells: their gate Denses in torch's stacking order
+_CELL_GATES = {"ii": "ifgo", "ir": "rzn"}
+
+
+def _cell_params(port: str, node: Mapping[str, Any],
+                 out: Dict[str, np.ndarray]) -> None:
+    """A flax ``nn.LSTMCell`` / ``nn.GRUCell`` → a ``torch.nn.LSTMCell`` /
+    ``GRUCell`` under ``port``. ``weight_ih`` / ``weight_hh`` stack the
+    gates' kernels (transposed) as torch orders them: LSTM [i, f, g, o], GRU
+    [r, z, n]. flax's LSTM has no input biases and hidden ones; its GRU has
+    input biases, no hidden ones for r and z, and one for n: so the LSTM's
+    ``bias_ih`` is 0 and ``bias_hh`` its hidden biases, the GRU's ``bias_ih``
+    its input biases and ``bias_hh`` [0, 0, b_hn]."""
+    gates = _CELL_GATES["ii" if "ii" in node else "ir"]
+    hidden = _np(node["h" + gates[0]]["kernel"]).shape[1]
+    zeros = np.zeros(hidden, np.float32)
+
+    def bias(name):
+        return _np(node[name]["bias"]) if "bias" in node[name] else zeros
+
+    for side in ("i", "h"):
+        out[f"{port}.weight_{side}h"] = np.concatenate(
+            [_np(node[side + g]["kernel"]).T for g in gates])
+        out[f"{port}.bias_{side}h"] = np.concatenate(
+            [bias(side + g) for g in gates])
+
+
+def _relation_params(port: str, node: Mapping[str, Any], cfg: DetectorConfig,
+                     out: Dict[str, np.ndarray]) -> None:
+    """A SceneParser subtree outside the detector (the relation head, the
+    shared ``pred_feature_extractor``): stage-5 heads as the detector's,
+    recurrent cells by :func:`_cell_params`, every other leaf (Dense
+    ``kernel`` [in, out] / ``bias``, LayerNorm, embedding tables) as it is."""
+    head = f"layer{len(cfg.backbone.stage_blocks) + 1}"
+    for key, child in node.items():
+        name = f"{port}.{key}" if port else key
+        if not isinstance(child, Mapping):
+            out[name] = _np(child)
+        elif key == head:
+            _stage_params(name, child, out)
+        elif "ii" in child or "ir" in child:
+            _cell_params(name, child, out)
+        else:
+            _relation_params(name, child, cfg, out)
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
                     ) -> Dict[str, torch.Tensor]:
-    """JAX ``AttrRCNN`` params (``{"params": ...}`` or the inner tree, numpy
-    or jax leaves) → port state dict."""
+    """JAX ``AttrRCNN`` params, a whole ``SceneParser`` tree (its
+    ``detector``, ``relation`` and, for the four non-RelDN heads, the
+    top-level ``pred_feature_extractor``) or a relation module's own tree
+    (a head, a cell), as ``{"params": ...}`` or the inner tree, numpy or
+    jax leaves → port state dict."""
     t = tree.get("params", tree)
-
-    def conv(kernel):      # HWIO → OIHW
-        return np.transpose(_np(kernel), (3, 2, 0, 1))
-
-    def bn(dst, node):
-        dst["scale"] = _np(node["scale"])
-        dst["bias"] = _np(node["bias"])
-
+    if "backbone" not in t:
+        out = ({f"detector.{k}": v for k, v in
+                params_from_jax(t["detector"], cfg).items()}
+               if "detector" in t else {})
+        rest: Dict[str, np.ndarray] = {}
+        _relation_params("", {k: v for k, v in t.items() if k != "detector"},
+                         cfg, rest)
+        out.update({k: torch.from_numpy(np.array(v, np.float32))
+                    for k, v in rest.items()})
+        return out
     out: Dict[str, np.ndarray] = {}
     bb = t["backbone"]
-    out["backbone.stem.conv1.weight"] = conv(bb["stem"]["conv1"]["kernel"])
+    out["backbone.stem.conv1.weight"] = _conv(bb["stem"]["conv1"]["kernel"])
     out["backbone.stem.bn1.scale"] = _np(bb["stem"]["bn1"]["scale"])
     out["backbone.stem.bn1.bias"] = _np(bb["stem"]["bn1"]["bias"])
     n = len(cfg.backbone.stage_blocks)
@@ -131,19 +203,10 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
         if name in t:
             stages.append((f"{name}.head.{head}", t[name]["head"][head]))
     for port, node in stages:
-        for bname, blk in node.items():
-            p = f"{port}.{bname}"
-            for conv_name in ("conv1", "conv3", "downsample_conv"):
-                if conv_name in blk:
-                    out[f"{p}.{conv_name}.weight"] = conv(blk[conv_name]["kernel"])
-            out[f"{p}.conv2.weight"] = _np(blk["conv2"]["kernel"])
-            for bn_name in ("bn1", "bn2", "bn3", "downsample_bn"):
-                if bn_name in blk:
-                    for k in ("scale", "bias"):
-                        out[f"{p}.{bn_name}.{k}"] = _np(blk[bn_name][k])
+        _stage_params(port, node, out)
     rpn = t["rpn"]
     for name in ("conv", "cls_logits", "bbox_pred"):
-        out[f"rpn.{name}_weight"] = conv(rpn[name]["kernel"])
+        out[f"rpn.{name}_weight"] = _conv(rpn[name]["kernel"])
         out[f"rpn.{name}_bias"] = _np(rpn[name]["bias"])
     pred = t["box_predictor"]
     for name in ("cls_score", "bbox_pred"):
@@ -160,6 +223,11 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
             for k, v in out.items()}
 
 
+# a torch cell's tensors → (the flax gate Denses they stack, their leaf)
+_CELL_LEAVES = {"weight_ih": ("i*", "kernel"), "weight_hh": ("h*", "kernel"),
+                "bias_ih": ("i*", "bias"), "bias_hh": ("h*", "bias")}
+
+
 def jax_path(name: str) -> Tuple[str, ...]:
     """The path in the JAX ``AttrRCNN`` tree of the leaf that the port's
     state-dict entry ``name`` holds (the map :func:`params_from_jax` reads
@@ -167,8 +235,16 @@ def jax_path(name: str) -> Tuple[str, ...]:
     on it): ``backbone.layer1.block_0.conv1.weight`` →
     ``("backbone", "layer1", "block_0", "conv1", "kernel")``,
     ``rpn.conv_weight`` → ``("rpn", "conv", "kernel")``, a linear's
-    ``weight`` → its ``kernel``, the class embedding's → ``embedding``."""
+    ``weight`` → its ``kernel``, the class embedding's → ``embedding``. A
+    ``SceneParser``'s names map the same way under ``detector.``; a
+    recurrent cell's ``weight_ih`` → ``(..., "i*", "kernel")`` (it stacks
+    the input gates' kernels), ``bias_hh`` → ``(..., "h*", "bias")``."""
     parts = name.split(".")
+    if parts[0] == "detector":
+        return ("detector",) + jax_path(name[len("detector."):])
+    if parts[-1] in _CELL_LEAVES:
+        side, leaf = _CELL_LEAVES[parts[-1]]
+        return tuple(parts[:-1]) + (side, leaf)
     if parts[0] == "rpn":
         layer, leaf = parts[1].rsplit("_", 1)
         return ("rpn", layer, "kernel" if leaf == "weight" else leaf)

@@ -64,7 +64,8 @@ class Linear(nn.Module):
         return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-def _c5(config: DetectorConfig) -> int:
+def c5_channels(config: DetectorConfig) -> int:
+    """The stage-5 head's output channels (the pooled box feature's width)."""
     return config.backbone.res2_out_channels * 2 ** len(config.backbone.stage_blocks)
 
 
@@ -72,9 +73,9 @@ class FastRCNNPredictor(nn.Module):
     def __init__(self, config: DetectorConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         rh = config.roi_heads
-        self.cls_score = Linear(_c5(config), rh.num_classes, dtype)
+        self.cls_score = Linear(c5_channels(config), rh.num_classes, dtype)
         n_reg = 2 if rh.cls_agnostic_bbox_reg else rh.num_classes
-        self.bbox_pred = Linear(_c5(config), n_reg * 4, dtype)
+        self.bbox_pred = Linear(c5_channels(config), n_reg * 4, dtype)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -92,7 +93,7 @@ class AttributePredictor(nn.Module):
         self.cls_embedding = nn.Embedding(config.roi_heads.num_classes,
                                           a.cls_emd_dim, dtype=dtype)
         self.cls_embedding.weight.requires_grad_(False)
-        self.fc_attr = Linear(_c5(config) + a.cls_emd_dim, a.attr_emd_dim, dtype)
+        self.fc_attr = Linear(c5_channels(config) + a.cls_emd_dim, a.attr_emd_dim, dtype)
         self.attr_score = Linear(a.attr_emd_dim, a.num_attributes, dtype)
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor

@@ -29,9 +29,22 @@ overrides (``tools/_common.apply_reference_config``): the detector config
 comes from the yaml, ``TEST.EXPECTED_RESULTS`` gives
 ``--expected_results`` and ``MODEL.WEIGHT`` ``--checkpoint``; explicit flags
 win. Without ``--checkpoint`` the weights are random, drawn from ``--seed``
-in the reference layout. Test-time box augmentation (``--bbox_aug``) and
-scene-graph evaluation (``--sg``, which a relation yaml sets) are not
-ported yet and refuse, naming their ROADMAP.md item.
+in the reference layout.
+
+``--bbox_aug`` pools each image's detections over its horizontal flip and
+the ``--bbox_aug_scales`` rescales (Pillow, only when scales are given) and
+merges them with one NMS on kernel K5 (``engine/bbox_aug.py``). ``--sg`` (a
+relation yaml sets it) also evaluates scene graphs over the ``--tsv``'s
+relations: a ``SceneParser`` (``--rel_algorithm``, ``--max_rel_dets``) on
+this detector, its relation head at its initialization drawn from
+``--seed`` (the JAX tool loads no scene-parser checkpoint here either),
+both recall protocols as ``sg_<protocol>_<k>`` results
+(``engine/sg_infer.py``):
+
+  python -m cpt_tpu_torch.tools.test_detector --tsv vg_rel.yaml --sg \
+      --rel_algorithm sg_reldn --max_rel_dets 16 [--checkpoint det.pth]
+  python -m cpt_tpu_torch.tools.test_detector --tsv vg_test.yaml \
+      --bbox_aug [--bbox_aug_scales 0.75,1.25]
 """
 from __future__ import annotations
 
@@ -48,21 +61,17 @@ from cpt_tpu_torch.engine.detection_eval import (check_expected_results,
                                                  eval_detection_coco,
                                                  eval_detection_voc)
 from cpt_tpu_torch.engine.extract import make_detect_fn
+from cpt_tpu_torch.engine.bbox_aug import im_detect_bbox_aug
+from cpt_tpu_torch.engine.sg_infer import evaluate_scene_graphs
 from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
+from cpt_tpu_torch.models.detector.scene_parser import ALGORITHMS, SceneParser
 from cpt_tpu_torch.ops.render import to_detector_input
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
                                          apply_reference_config,
                                          refuse_multi_process)
 from cpt_tpu_torch.tools.demo import canvas_anchors, detector_canvas
 from cpt_tpu_torch.tools.extract_features import build_detector, load_image
-
-# flags of the JAX tool this port does not run yet → their ROADMAP.md item
-_UNPORTED = {
-    "--bbox_aug": "Queue 1 item 7 (detector training and the wider zoo)",
-    "--sg": "Queue 1 item 7 (detector training and the wider zoo)",
-}
-
 
 def build_args():
     p = argparse.ArgumentParser(
@@ -98,22 +107,22 @@ def build_args():
                         "(vg_eval.py, the default)")
     p.add_argument("--coco_eval", action="store_true",
                    help="also report COCO-protocol AP/AP50/AP75")
-    # the JAX tool's flags that are not ported: each refuses with its item
-    p.add_argument("--bbox_aug", action="store_true")
-    p.add_argument("--bbox_aug_scales", default="")
-    p.add_argument("--sg", action="store_true")
-    p.add_argument("--rel_algorithm", default="sg_reldn",
-                   choices=["sg_reldn", "sg_imp", "sg_msdn", "sg_grcnn",
-                            "sg_nm"])
+    p.add_argument("--bbox_aug", action="store_true",
+                   help="test-time bbox augmentation (reference "
+                        "TEST.BBOX_AUG / engine/bbox_aug.py): pool "
+                        "detections over hflip + --bbox_aug_scales and "
+                        "merge with NMS")
+    p.add_argument("--bbox_aug_scales", default="",
+                   help="comma-separated rescale factors, e.g. 0.75,1.25 "
+                        "(needs Pillow)")
+    p.add_argument("--sg", action="store_true",
+                   help="scene-graph relation eval over a VG-TSV (--tsv "
+                        "with relations): SceneParser inference + both SG "
+                        "recall protocols (reference test_sg_net.py + "
+                        "evaluation/sg)")
+    p.add_argument("--rel_algorithm", default="sg_reldn", choices=ALGORITHMS)
     p.add_argument("--max_rel_dets", type=int, default=16)
     return add_detector_config_args(p)
-
-
-def check_ported(args) -> None:
-    for flag in _UNPORTED:
-        if getattr(args, flag[2:]):
-            raise SystemExit(f"test_detector: {flag} is not ported yet "
-                             f"(ROADMAP.md {_UNPORTED[flag]})")
 
 
 def samples(args, cfg):
@@ -203,6 +212,36 @@ def attr_eval(args, model, cfg) -> dict:
     return results
 
 
+def build_scene_parser(cfg, num_rel_classes: int, args, detector) -> SceneParser:
+    """A ``SceneParser`` on ``detector`` (its weights reused, on its device
+    and in its dtype), the relation head drawn from ``--seed``."""
+    device = next(detector.parameters()).device
+    with torch.device(device):
+        parser = SceneParser(cfg, num_rel_classes, args.max_rel_dets,
+                             args.rel_algorithm, detector.dtype,
+                             detector=detector)
+    parser.init_relation(torch.Generator().manual_seed(args.seed))
+    return parser.eval()
+
+
+def scene_graph_eval(args, cfg, detector, anchors) -> dict:
+    """``--sg``: the SceneParser over the ``--tsv``'s images with relations
+    → {``sg_<protocol>_<k>``: recall}."""
+    if not args.tsv:
+        raise SystemExit("test_detector: --sg requires --tsv (a VG-TSV with "
+                         "relations)")
+    from cpt_tpu_torch.data.vg_tsv import VGTSVDataset
+
+    ds = VGTSVDataset(args.tsv, attribute_on=False, relation_on=True)
+    parser = build_scene_parser(cfg, len(ds.relation_to_ind), args, detector)
+    h = w = cfg.input.pad_h
+    sg = evaluate_scene_graphs(parser, ds, anchors, (h, w))
+    for proto, metric in sg.items():
+        print(f"{proto}: " + " ".join(f"{k}={v:.4f}"
+                                      for k, v in sorted(metric.items())))
+    return {f"sg_{p}_{k}": v for p, m in sg.items() for k, v in m.items()}
+
+
 def main(argv=None):
     """Detect and evaluate → (results, ok: every ``--expected_results``
     entry within its tolerance); with ``--attr_eval`` the attribute
@@ -211,32 +250,40 @@ def main(argv=None):
     parser = build_args()
     ref = apply_reference_config(parser, argv)
     args = parser.parse_args(argv)
-    check_ported(args)
     if ref is not None:
         cfg = ref.detector
     else:
         cfg = tiny_detector_config() if args.tiny else VINVL_X152C4
     model = build_detector(cfg, args)
     if args.attr_eval:
-        if args.coco_eval or args.expected_results:
+        if args.coco_eval or args.expected_results or args.bbox_aug:
             raise SystemExit(
                 "--attr_eval is a standalone force-box attribute "
                 "evaluation and cannot combine with --coco_eval/"
-                "--expected_results")
+                "--expected_results/--bbox_aug")
         return attr_eval(args, model, cfg)
 
     device = next(model.parameters()).device
     anchors = canvas_anchors(cfg, device)
     fn = make_detect_fn(model, cfg, with_attributes=False)
+    aug_scales = [float(s) for s in args.bbox_aug_scales.split(",") if s]
+
+    def detect_one(img, hw):
+        _, boxes, labels, scores, valid, _ = fn(
+            torch.from_numpy(np.ascontiguousarray(img)).to(device), anchors, hw)
+        return {"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
+                "labels": labels.cpu().numpy(), "valid": valid.cpu().numpy()}
+
     preds, gts = [], []
     t0 = time.time()
     for _key, img, hw, gt in samples(args, cfg):
-        _, boxes, labels, scores, valid, _ = fn(
-            torch.from_numpy(img).to(device), anchors, hw)
-        v = valid.cpu().numpy()
-        preds.append({"boxes": boxes.cpu().numpy()[v],
-                      "labels": labels.cpu().numpy()[v],
-                      "scores": scores.cpu().numpy()[v]})
+        if args.bbox_aug:
+            out = im_detect_bbox_aug(detect_one, img, hw, scales=aug_scales,
+                                     device=device)
+        else:
+            out = detect_one(img, hw)
+        v = out["valid"]
+        preds.append({k: out[k][v] for k in ("boxes", "labels", "scores")})
         gts.append(gt)
     dt = time.time() - t0
     n = len(preds)
@@ -250,6 +297,8 @@ def main(argv=None):
         results.update({f"coco_{k}": v for k, v in coco.items()})
         print(f"COCO AP: {coco['AP']:.4f}  AP50: {coco['AP50']:.4f}  "
               f"AP75: {coco['AP75']:.4f}")
+    if args.sg:
+        results.update(scene_graph_eval(args, cfg, model, anchors))
     ok = True
     if args.expected_results:
         expected = [tuple(e) for e in json.loads(args.expected_results)]

@@ -475,14 +475,50 @@ def test_test_detector_attr_eval_matches_jax():
 
 @pytest.mark.parametrize("flags", [["--bbox_aug"], ["--sg"], ["relation"]])
 def test_test_detector_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
-    """--bbox_aug and --sg (which a relation yaml sets) name ROADMAP.md Queue
-    1 item 7; a multi-process launch names item 9."""
+    """--bbox_aug, --sg and a relation yaml (which sets --sg and
+    --rel_algorithm) refused, naming ROADMAP.md Queue 1 item 7, until the
+    scene-graph slice ported them: now each runs and returns its results
+    (the augmented detections' mAP; the ``sg_<protocol>_<k>`` recalls over
+    the relations of tests/test_vg_tsv.py's fixture). A multi-process
+    launch still names item 9."""
+    import dataclasses
+
+    from cpt_tpu_torch.models.detector import yacs_bridge
+    from cpt_tpu_torch.models.detector.config import \
+        tiny_detector_config as port_tiny
+
+    argv = ["--tiny", "--device", "cpu", "--dtype", "float32", "--checkpoint",
+            checkpoint()]
+    if flags == ["--bbox_aug"]:
+        argv += ["--synthetic", "1", "--bbox_aug"]
+    else:
+        argv += ["--tsv", _vg_fixture(vg_tsv, tmp_path), "--max_rel_dets", "4"]
     if flags == ["relation"]:
-        (tmp_path / "rel.yaml").write_text("MODEL:\n  RELATION_ON: True\n")
-        flags = ["--config_file", str(tmp_path / "rel.yaml")]
-    argv = ["--tiny", "--synthetic", "1", "--device", "cpu"] + flags
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 7"):
-        tool.main(argv)
+        (tmp_path / "rel.yaml").write_text(
+            "MODEL:\n  RELATION_ON: True\n  ROI_RELATION_HEAD:\n"
+            "    ALGORITHM: sg_imp\n")
+        real = yacs_bridge.load_reference_yaml
+        # the yaml's detector is X152; the case runs it at the tiny size
+        monkeypatch.setattr(yacs_bridge, "load_reference_yaml", lambda *a, **kw:
+                            dataclasses.replace(real(*a, **kw), detector=port_tiny()))
+        argv += ["--config_file", str(tmp_path / "rel.yaml")]
+    else:
+        argv += flags
+    built = []
+    real_build = tool.build_scene_parser
+    monkeypatch.setattr(tool, "build_scene_parser",
+                        lambda *a: built.append(real_build(*a)) or built[-1])
+    results, ok = tool.main(argv)
+    assert ok and 0.0 <= results["mAP"] <= 1.0
+    sg = {k: v for k, v in results.items() if k.startswith("sg_")}
+    if flags == ["--bbox_aug"]:
+        assert not sg and not built
+    else:
+        assert [p.algorithm for p in built] == [
+            "sg_imp" if flags == ["relation"] else "sg_reldn"]
+        assert sorted(sg) == sorted(f"sg_{p}_metric_sgdet{k}" for p in
+                                    ("rowan", "danfei") for k in (20, 50, 100))
+        assert all(0.0 <= v <= 1.0 for v in sg.values())
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("MASTER_ADDR", "localhost")
     with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):

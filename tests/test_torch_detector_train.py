@@ -568,11 +568,31 @@ def test_train_detector_resume_equals_uninterrupted(monkeypatch, tmp_path):
         assert torch.equal(a, b)
 
 
-def test_train_detector_refusals(monkeypatch):
-    """``--sg`` (the SceneParser) names item 7; a multi-process launch and
-    the sharded batched step name item 9."""
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 7"):
-        train_detector.main(TOOL + ["--sg", "--device", "cpu"])
+def test_train_detector_refusals(monkeypatch, tmp_path):
+    """``--sg`` (the SceneParser) named item 7 until the scene-graph slice
+    ported it: now it trains the relation head over a VG-TSV with
+    relations (2 steps, finite losses, the detector's leaves unchanged;
+    ``tests/test_torch_scene_graph.py`` holds it to JAX) and still asks
+    for ``--tsv``. A multi-process launch and the sharded batched step
+    name item 9."""
+    from cpt_tpu_torch.data import vg_tsv
+
+    yaml_path = vg_tsv.write_detection_tsv(
+        str(tmp_path), "rel", {"im0": np.full((64, 64, 3), 90, np.uint8)},
+        {"im0": {"objects": [{"rect": [4, 4, 30, 30], "class": "cat"},
+                             {"rect": [20, 24, 60, 60], "class": "dog"}],
+                 "relations": [{"subj_id": 0, "obj_id": 1, "class": "on"}]}},
+        {"label_to_idx": {"cat": 1, "dog": 2}, "predicate_to_idx": {"on": 1}})
+    sg = ["--tiny", "--dtype", "float32", "--device", "cpu", "--sg",
+          "--max_rel_dets", "4", "--max_iter", "2", "--output_dir", "",
+          "--checkpoint", detector_checkpoint()]
+    parser, losses = train_detector.main(sg + ["--tsv", yaml_path])
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    start = dconv.load_vinvl_checkpoint(detector_checkpoint(), tiny_detector_config())
+    got = parser.detector.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in start.items())
+    with pytest.raises(SystemExit, match="--sg requires --tsv"):
+        train_detector.main(sg)
     with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
         dt.make_detector_train_step_batched(None, None, {}, mesh=object())
     monkeypatch.setenv("WORLD_SIZE", "2")

@@ -63,14 +63,20 @@ print(len(names), "OK")
 SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore",
                  "models.detector.losses", "data.detector_transforms",
                  "engine.detector_train", "tools.train_detector",
-                 "engine.solver", "models.detector.attr_rcnn")
+                 "engine.solver", "models.detector.attr_rcnn",
+                 # the scene-graph slice
+                 "models.detector.scene_parser", "models.detector.relation_head",
+                 "models.detector.relation_variants", "models.detector.motif",
+                 "engine.sg_infer", "engine.sg_eval", "engine.bbox_aug",
+                 "engine.cityscapes_eval", "tools.cityscapes_eval",
+                 "tools.test_detector")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
-    """The pretraining, explore and detector-training modules import, each
-    in a fresh process with ``jax``, ``flax`` and ``cpt_tpu`` blocked, and
-    load none of them."""
+    """The pretraining, explore, detector-training and scene-graph modules
+    import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
+    blocked, and load none of them."""
     script = f"""
 import sys
 for name in ("jax", "flax", "cpt_tpu"):
@@ -563,7 +569,8 @@ def _code(path: Path, names=None) -> str:
     ("engine/generation.py", {"GenerationConfig", "decode_caption"}),
     ("tools/run_captioning.py", {"build_args", "load_feats",
                                  "CaptionYamlData"}),
-    ("data/pretrain.py", None), ("data/detector_transforms.py", None)])
+    ("data/pretrain.py", None), ("data/detector_transforms.py", None),
+    ("engine/sg_eval.py", None), ("engine/cityscapes_eval.py", None)])
 def test_jax_free_copies_keep_the_originals_code(module, names):
     """The port's copies of the JAX package's jax-free modules (or of the
     named definitions) are the originals' code but for docstrings and the
@@ -573,11 +580,13 @@ def test_jax_free_copies_keep_the_originals_code(module, names):
     caption evaluators (PTB tokenizer, CIDEr-D, METEOR, SPICE-lite, the
     coco-caption protocol), the CBS state machine, SCST's advantages, the
     caption tensorizer and mask, the generation config and
-    ``run_captioning``'s flags and data readers, the pretraining datasets
-    and the detector's training augmentations (their behaviour against
-    the originals' is held in ``test_torch_config_front_end.py``,
-    ``test_torch_detector_tools.py``, ``test_torch_oscar_data.py``,
-    ``test_torch_captioning.py`` and the caption metrics' case below)."""
+    ``run_captioning``'s flags and data readers, the pretraining datasets,
+    the detector's training augmentations and the scene-graph and
+    Cityscapes evaluators (their behaviour against the originals' is held
+    in ``test_torch_config_front_end.py``, ``test_torch_detector_tools.py``,
+    ``test_torch_oscar_data.py``, ``test_torch_captioning.py``,
+    ``test_torch_detector_eval_extras.py`` and the caption metrics' case
+    below)."""
     got = _code(REPO / "cpt_tpu_torch" / module, names)
     want = _code(REPO / "cpt_tpu" / module, names)
     assert len(want) > 500 and got == want
