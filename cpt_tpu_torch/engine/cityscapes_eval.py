@@ -44,9 +44,8 @@ Inputs are plain per-image dicts (the same contract as
 
 Masks, when given, are full-canvas binary arrays at the evaluation
 resolution (the reference pastes its 28x28 RoI masks onto the canvas via
-`Masker` first — the JAX package's equivalent is
-`cpt_tpu/models/detector/extra_heads.py::paste_masks`, not ported yet:
-ROADMAP.md Queue 1 item 7(b)).
+`Masker` first — the port's equivalent is
+`cpt_tpu_torch/models/detector/extra_heads.py::paste_masks`).
 """
 from __future__ import annotations
 

@@ -93,8 +93,8 @@ def make_detector_train_step_batched(trainer_model, tx: DetectorOptimizer,
     axis, ``cpt_tpu/engine/detector_train.py:160-176``) is refused."""
     if mesh is not None:
         raise SystemExit("make_detector_train_step_batched: a sharded step "
-                         "is not ported yet (ROADMAP.md Queue 1 item 9 "
-                         "(parallelism))")
+                         "is not ported yet (ROADMAP.md Queue 1 item 9(b) "
+                         "(device meshes))")
     return make_detector_train_step(_Batched(trainer_model), tx, trainable)
 
 

@@ -88,9 +88,18 @@ def refcoco_collect_scores(at_mask: np.ndarray, batch: FlatBatch,
 
 def refcoco_evaluate(model, data: RefcocoCPTData, tokenizer: BertTokenizer,
                      batch_size: int = 128,
-                     indices: Optional[List[int]] = None
+                     indices: Optional[List[int]] = None,
+                     host_sharded: bool = False
                      ) -> Tuple[float, Dict[str, List[float]]]:
-    """Zero-shot RefCOCO grounding eval → (accuracy·100, {query: box})."""
+    """Zero-shot RefCOCO grounding eval → (accuracy·100, {query: box}).
+    With ``host_sharded`` under a multi-process launch each process
+    evaluates its ``host_shard`` of the queries and the counts are summed
+    across the processes (the reference's DDP eval, ``refcoco_cpt.py:
+    516-522`` + DistributedSampler); the predictions are this process's."""
+    if host_sharded and indices is None:
+        from cpt_tpu_torch.parallel.distributed import host_shard
+
+        indices = host_shard(range(len(data)))
     fn = make_mlm_at_mask_fn(model)
     predictions: Dict[str, List[float]] = {}
     n_correct, n_total = 0, 0
@@ -106,6 +115,10 @@ def refcoco_evaluate(model, data: RefcocoCPTData, tokenizer: BertTokenizer,
                              pred[3] - pred[1] + 1]
                 n_correct += xywh_iou(pred_xywh, ex.gt_bbox) > 0.5
                 n_total += 1
+    if host_sharded:
+        from cpt_tpu_torch.parallel.distributed import allreduce_sum
+
+        n_correct, n_total = allreduce_sum(float(n_correct), float(n_total))
     return 100.0 * n_correct / max(n_total, 1), predictions
 
 

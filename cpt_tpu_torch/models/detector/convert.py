@@ -12,7 +12,9 @@ Two sources:
   embedding is copied. The attribute head maps when the checkpoint has it
   (as in the JAX converter).
 * :func:`params_from_jax` — the JAX package's detector parameter tree
-  (numpy leaves), for holding the two packages against each other.
+  (numpy leaves), for holding the two packages against each other;
+  :func:`module_params_from_jax` the same for the library modules (FPN,
+  the mask / keypoint / RetinaNet heads, FBNet, MsViT, DFConv2d).
 
 :func:`jax_path` names each port leaf's path in the JAX tree.
 :func:`random_vinvl_state_dict` draws random weights in the reference
@@ -221,6 +223,41 @@ def params_from_jax(tree: Mapping[str, Any], cfg: DetectorConfig
             out[f"attr_predictor.{name}.bias"] = _np(attr[name]["bias"])
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
             for k, v in out.items()}
+
+
+def module_params_from_jax(tree: Mapping[str, Any], model: torch.nn.Module
+                           ) -> Dict[str, torch.Tensor]:
+    """The flax tree of one of the library modules (``fpn``, ``extra_heads``,
+    ``fbnet``, ``msvit``, ``ops/deform_conv``) → ``model``'s state dict,
+    read by the model's own names (they are the flax tree's paths): a
+    ``Conv`` / ``Conv2d`` kernel HWIO → the OIHW ``weight``; a
+    ``ConvTranspose`` kernel ``(kh, kw, in, out)`` flipped in space →
+    ``[in, out, kh, kw]`` (flax does not flip it, torch's transposed conv
+    does); the grouped 3×3 kept HWIO (kernel K1's layout); every other leaf
+    as it is (Dense ``kernel`` [in, out] and ``bias``, LayerNorm and
+    FrozenBN ``scale`` / ``bias``, the ``*_scale`` / ``*_bias`` pairs, the
+    ``ape`` / ``glo`` / relative-bias tables, ``DFConv2d.kernel``)."""
+    from cpt_tpu_torch.models.detector.extra_heads import ConvTranspose
+    from cpt_tpu_torch.models.detector.resnet import Conv, Conv2d
+
+    t = tree.get("params", tree)
+    out = {}
+    for name in model.state_dict():
+        *path, leaf = name.split(".")
+        node = t
+        for key in path:
+            node = node[key]
+        mod = model.get_submodule(".".join(path))
+        if leaf == "weight" and isinstance(mod, ConvTranspose):
+            v = np.transpose(_np(node["kernel"])[::-1, ::-1], (2, 3, 0, 1))
+        elif leaf == "weight" and isinstance(mod, (Conv, Conv2d)):
+            v = _conv(node["kernel"])
+        elif leaf == "weight":
+            v = _np(node["kernel"])
+        else:
+            v = _np(node[leaf])
+        out[name] = torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return out
 
 
 # a torch cell's tensors → (the flax gate Denses they stack, their leaf)

@@ -119,6 +119,42 @@ class Conv2d(_Quantized):
                          bn.scale, bn.bias, relu, out_dtype)
 
 
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NHWC activations: an f32 OIHW ``weight`` and, with
+    ``bias``, an f32 ``bias``, both cast to ``dtype`` at use, as the input is.
+    ``padding`` is an int (each side) or ``"SAME"`` (flax's default: the
+    output is ``ceil(size / stride)``, the lower side taking the smaller
+    half of the padding). The library modules' convs (FPN, the extra
+    heads, FBNet, MsViT) are these; the VinVL body keeps :class:`Conv2d`."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 padding="SAME", dilation: int = 1, groups: int = 1,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel,
+                                               kernel))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.dilation, self.groups, self.dtype = dilation, groups, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        pad = self.padding
+        if pad == "SAME":
+            k = self.dilation * (self.kernel - 1) + 1
+            sides = []
+            for size in (x.shape[3], x.shape[2]):
+                total = max((-(-size // self.stride) - 1) * self.stride + k
+                            - size, 0)
+                sides += [total // 2, total - total // 2]
+            x, pad = F.pad(x, sides), 0
+        y = F.conv2d(x, self.weight.to(dt),
+                     None if self.bias is None else self.bias.to(dt),
+                     self.stride, pad, self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
 class GroupedConv3x3(_Quantized):
     """Grouped 3×3 weight in HWIO ``[3, 3, C//groups, C]`` (no forward of its
     own: the bottleneck calls K1, or K1q on its int8 copy, with it and the

@@ -194,24 +194,11 @@ def dtype_of(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
 
-def refuse_multi_process(tool: str) -> None:
-    """Raise where the environment asks for the multi-process run that the
-    JAX package's ``initialize_from_env`` would start (the variables it
-    reads: ``CPT_NUM_PROCESSES`` or ``WORLD_SIZE`` above 1 with a
-    coordinator, or ``CPT_MULTIHOST``); a single process goes on."""
-    env = os.environ
-    num = int(env.get("CPT_NUM_PROCESSES", env.get("WORLD_SIZE", "1")))
-    coord = env.get("CPT_COORDINATOR") or env.get("MASTER_ADDR")
-    if (num > 1 and coord) or env.get("CPT_MULTIHOST"):
-        raise SystemExit(f"{tool}: multi-process runs are not ported yet "
-                         f"(ROADMAP.md Queue 1 item 9 (parallelism))")
-
-
 def refuse_dp(args, tool: str) -> None:
     """Raise on ``--dp`` above 1 (the JAX tools' data-parallel mesh)."""
     if getattr(args, "dp", 1) > 1:
         raise SystemExit(f"{tool}: --dp > 1 is not ported yet (ROADMAP.md "
-                         f"Queue 1 item 9 (parallelism))")
+                         f"Queue 1 item 9(b) (device meshes))")
 
 
 def step_generator(device, seed: int, step: int) -> torch.Generator:

@@ -70,7 +70,9 @@ grouped 3x3 on kernel K1q). Its activation scales are per tensor over a
 whole chunk of copies, padding copies included, so a copy's int8 features
 depend on the copies batched with it (in the JAX package too): fix
 ``--copies_per_chunk`` to compare runs. ``--total_step/--cur_step`` slice
-the annotations as the reference's resumable shard loop does,
+the annotations as the reference's resumable shard loop does (under a
+multi-process launch, ``--shard_by_process`` sets them from the process
+group and writes one ``.shard<i>`` output a process),
 ``--n_shot/--rand_seed`` sample its few-shot subset. Without
 ``--checkpoint`` the weights are random, drawn from ``--seed`` in the
 reference layout; ``--synthetic N`` extracts N random queries instead of
@@ -101,16 +103,13 @@ from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
 from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
 from cpt_tpu_torch.models.detector.rpn import grid_anchors
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
-                                         apply_reference_config,
-                                         refuse_multi_process)
+                                         apply_reference_config)
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
 # flags of the JAX tool this port does not run yet → their ROADMAP.md item
-_UNPORTED = {
-    "--dp > 1": "Queue 1 item 9 (parallelism)",
-    "--shard_by_process": "Queue 1 item 9 (parallelism)",
-}
+_UNPORTED = {"--dp > 1": "Queue 1 item 9(b) (device meshes)"}
 
 
 def build_args():
@@ -197,9 +196,12 @@ def build_args():
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without --checkpoint")
-    # the JAX tool's flags that are not ported: each refuses with its item
+    # --dp > 1 (a device mesh) is not ported: it refuses naming its item
     p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--shard_by_process", action="store_true")
+    p.add_argument("--shard_by_process", action="store_true",
+                   help="under a multi-process launch (parallel/"
+                        "distributed.py) each process extracts its own "
+                        "--cur_step slice into <output>.shard<i>.tsv")
     return add_detector_config_args(p)
 
 
@@ -254,10 +256,8 @@ def refuse(what: str) -> SystemExit:
 
 
 def check_ported(args) -> None:
-    for flag, asked in (("--dp > 1", args.dp > 1),
-                        ("--shard_by_process", args.shard_by_process)):
-        if asked:
-            raise refuse(flag)
+    if args.dp > 1:
+        raise refuse("--dp > 1")
 
 
 def shard(items, args):
@@ -638,7 +638,7 @@ def main(argv=None) -> dict:
     "route_copies" (copies per window of the ladder and "full")}; with
     ``--image_dir`` {"output", "images", "seconds"}; {} when the output
     exists."""
-    refuse_multi_process("extract_features")
+    distributed.initialize_from_env()
     parser = build_args()
     ref = apply_reference_config(parser, argv)
     args = parser.parse_args(argv)
@@ -652,6 +652,13 @@ def main(argv=None) -> dict:
                      "OUTPUT_DIR)")
     if args.yaml and args.synthetic is None:
         apply_yaml(args)
+    if args.shard_by_process:
+        # one contiguous slice and one output a process; .tsv stays the
+        # last extension (the .lineidx sidecar's path is derived from it)
+        args.total_step = distributed.process_count()
+        args.cur_step = distributed.process_index()
+        base, ext = os.path.splitext(args.output)
+        args.output = f"{base}.shard{args.cur_step}{ext}"
     if os.path.dirname(args.output):
         os.makedirs(os.path.dirname(args.output), exist_ok=True)
     if os.path.exists(args.output) and not args.overwrite:

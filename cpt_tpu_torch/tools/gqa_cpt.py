@@ -47,9 +47,10 @@ from cpt_tpu_torch.data.gqa import GQACPTData, load_gqa_examples
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import gqa_answer_scores, make_mlm_at_mask_fn
 from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_clip_arg, build_tokenizer,
                                          clip_of, dtype_of, load_or_init,
-                                         model_config, refuse_multi_process)
+                                         model_config)
 from cpt_tpu_torch.tools.refcoco_cpt import load_model
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -224,7 +225,7 @@ def train(model, data: GQACPTData, args, device,
 
 
 def main(argv=None):
-    refuse_multi_process("gqa_cpt")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)

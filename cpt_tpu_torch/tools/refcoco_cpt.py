@@ -32,8 +32,8 @@ from cpt_tpu_torch.data.refcoco import RefcocoCPTData, iter_train_batches
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import refcoco_evaluate
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
-from cpt_tpu_torch.tools._common import (load_or_init, refuse_dp,
-                                         refuse_multi_process)
+from cpt_tpu_torch.parallel import distributed as dist
+from cpt_tpu_torch.tools._common import load_or_init, refuse_dp
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 
@@ -146,7 +146,7 @@ def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
 
 
 def main(argv=None):
-    refuse_multi_process("refcoco_cpt")
+    dist.initialize_from_env()
     args = build_args().parse_args(argv)
     refuse_dp(args, "refcoco_cpt")
     device = torch.device(args.device)
@@ -166,13 +166,18 @@ def main(argv=None):
 
     t0 = time.time()
     acc, preds = refcoco_evaluate(model, data, tokenizer,
-                                  batch_size=args.per_gpu_eval_batch_size)
+                                  batch_size=args.per_gpu_eval_batch_size,
+                                  host_sharded=dist.process_count() > 1)
     dt = time.time() - t0
-    print(f"miou: {acc:.2f}")
-    print(f"eval wall-clock: {dt:.1f}s "
-          f"({len(data) / max(dt, 1e-9):.1f} queries/s)")
+    if dist.is_main_process():
+        print(f"miou: {acc:.2f}")
+        print(f"eval wall-clock: {dt:.1f}s "
+              f"({len(data) / max(dt, 1e-9):.1f} queries/s)")
     if args.output:
-        with open(args.output, "w") as f:
+        out = args.output
+        if dist.process_count() > 1:
+            out = f"{out}.shard{dist.process_index()}"
+        with open(out, "w") as f:
             json.dump({"accuracy": acc, "predictions": preds}, f)
     return acc
 

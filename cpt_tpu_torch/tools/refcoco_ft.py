@@ -36,10 +36,11 @@ from cpt_tpu_torch.data.tensorize import pad_img_feats, tensorize_pair
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.models.bert.heads import REC_FT
 from cpt_tpu_torch.structures.boxes import xywh_iou
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, dtype_of,
                                          load_or_init, model_config, on_device,
-                                         optim_overrides, refuse_multi_process)
+                                         optim_overrides)
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
 
 
@@ -208,7 +209,7 @@ def evaluate(model: REC_FT, data: RefcocoFTData, batch_size: int
 
 
 def main(argv=None):
-    refuse_multi_process("refcoco_ft")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     check_img_feature_type(args, "refcoco_ft")
     device = torch.device(args.device)

@@ -47,11 +47,11 @@ from cpt_tpu_torch.engine.generation import (GenerationConfig, beam_search,
 from cpt_tpu_torch.engine.scst import scst_step
 from cpt_tpu_torch.models.bert.captioning import (BertForImageCaptioning,
                                                   CaptionTensorizer)
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, clip_of,
                                          dtype_of, load_or_init, model_config,
                                          on_device, optim_overrides,
-                                         refuse_multi_process,
                                          restore_train_state, step_generator)
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 from cpt_tpu_torch.utils.cbs import build_fsm, constrained_beam_search
@@ -574,7 +574,7 @@ def caption_metrics(hyps: Dict[str, List[str]], refs: Dict[str, List[List[str]]]
 
 
 def main(argv=None):
-    refuse_multi_process("run_captioning")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     check_img_feature_type(args, "run_captioning")
     device = torch.device(args.device)

@@ -32,11 +32,11 @@ import torch
 from cpt_tpu_torch.data.nlvr import NLVRData, Nlvr2JsonData, load_nlvr_examples
 from cpt_tpu_torch.models.bert.heads import (ImageBertForMultipleChoice,
                                              ImageBertForSequenceClassification)
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, dtype_of,
                                          load_or_init, model_config, on_device,
-                                         refuse_dp, refuse_multi_process,
-                                         train_epochs)
+                                         refuse_dp, train_epochs)
 
 
 def build_args():
@@ -168,7 +168,7 @@ def evaluate(model, data: NLVRData, batch_size: int
 
 
 def main(argv=None):
-    refuse_multi_process("run_nlvr")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     refuse_dp(args, "run_nlvr")
     check_img_feature_type(args, "run_nlvr")

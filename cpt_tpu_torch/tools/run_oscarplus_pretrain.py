@@ -38,11 +38,11 @@ from cpt_tpu_torch.data.pretrain import (MultiCorpusPretrainData,
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.models.bert.heads import (BertImgForPreTraining,
                                              cross_entropy_ignore_index)
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, dtype_of,
-                                         last_step, load_or_init,
-                                         model_config, on_device,
-                                         optim_overrides, refuse_multi_process,
+                                         last_step, load_or_init, model_config,
+                                         on_device, optim_overrides,
                                          restore_train_state, step_generator)
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 
@@ -248,7 +248,7 @@ def train(model, data, extra, args, device,
 
 
 def main(argv=None):
-    refuse_multi_process("run_oscarplus_pretrain")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     check_img_feature_type(args, "run_oscarplus_pretrain")
     device = torch.device(args.device)

@@ -40,11 +40,11 @@ import torch
 from cpt_tpu_torch.data.retrieval import (CocoIRRetrievalData, RetrievalData,
                                           rank_rerank, rank_scores)
 from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
                                          check_img_feature_type, dtype_of,
                                          load_or_init, model_config, on_device,
-                                         refuse_dp, refuse_multi_process,
-                                         train_steps)
+                                         refuse_dp, train_steps)
 
 
 def build_args():
@@ -252,7 +252,7 @@ def evaluate(model, data: RetrievalData, args
 
 
 def main(argv=None):
-    refuse_multi_process("run_retrieval")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     refuse_dp(args, "run_retrieval")
     check_img_feature_type(args, "run_retrieval")

@@ -43,11 +43,10 @@ import torch
 from cpt_tpu_torch.data.vqa import QlaVQAData, VQAData, load_vqa_examples
 from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
 from cpt_tpu_torch.models.bert.model import Dropout
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
-                                         dtype_of,
-                                         load_or_init, model_config, on_device,
-                                         refuse_dp, refuse_multi_process,
-                                         train_epochs)
+                                         dtype_of, load_or_init, model_config,
+                                         on_device, refuse_dp, train_epochs)
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 
 
@@ -339,7 +338,7 @@ def write_submission(results, label2ans, out_path, fmt: str):
 
 
 def main(argv=None):
-    refuse_multi_process("run_vqa")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     refuse_dp(args, "run_vqa")
     device = torch.device(args.device)

@@ -36,7 +36,7 @@ import os
 import pickle
 
 from cpt_tpu_torch.engine.evaluate import seed_sweep_report
-from cpt_tpu_torch.tools._common import refuse_multi_process
+from cpt_tpu_torch.parallel import distributed
 
 TASKS = ("refcoco", "gqa", "vcr", "vg")
 
@@ -132,7 +132,7 @@ def run_sweep(args, extract_tpl, stage2_tpl):
 def main(argv=None):
     import sys
 
-    refuse_multi_process("sweep")
+    distributed.initialize_from_env()
     argv = list(sys.argv[1:] if argv is None else argv)
     own, extract_tpl, stage2_tpl = _split_templates(argv)
     args = build_args().parse_args(own)

@@ -67,9 +67,9 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
 from cpt_tpu_torch.models.detector.scene_parser import ALGORITHMS, SceneParser
 from cpt_tpu_torch.ops.render import to_detector_input
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
-                                         apply_reference_config,
-                                         refuse_multi_process)
+                                         apply_reference_config)
 from cpt_tpu_torch.tools.demo import canvas_anchors, detector_canvas
 from cpt_tpu_torch.tools.extract_features import build_detector, load_image
 
@@ -246,7 +246,7 @@ def main(argv=None):
     """Detect and evaluate → (results, ok: every ``--expected_results``
     entry within its tolerance); with ``--attr_eval`` the attribute
     results alone, as the JAX tool returns them."""
-    refuse_multi_process("test_detector")
+    distributed.initialize_from_env()
     parser = build_args()
     ref = apply_reference_config(parser, argv)
     args = parser.parse_args(argv)

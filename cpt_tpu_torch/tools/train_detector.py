@@ -53,9 +53,9 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
 from cpt_tpu_torch.models.detector.rpn import grid_anchors
 from cpt_tpu_torch.models.detector.scene_parser import ALGORITHMS, SceneParser
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
-                                         apply_reference_config,
-                                         refuse_multi_process)
+                                         apply_reference_config)
 
 MAX_ATTR = 16
 
@@ -320,7 +320,7 @@ def train_scene_graph(args, cfg, ref, device, on_step=None):
 
 
 def main(argv=None):
-    refuse_multi_process("train_detector")
+    distributed.initialize_from_env()
     parser = build_args()
     ref = apply_reference_config(parser, argv)
     args = parser.parse_args(argv)

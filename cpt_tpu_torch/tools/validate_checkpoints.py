@@ -33,7 +33,7 @@ import os
 import numpy as np
 
 from cpt_tpu_torch.data.refcoco import det_json_for_stage2
-from cpt_tpu_torch.tools._common import refuse_multi_process
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
 
 
@@ -161,7 +161,7 @@ def tsv_feature_drift(exact_tsv: str, approx_tsv: str) -> dict:
 
 
 def main(argv=None) -> dict:
-    refuse_multi_process("validate_checkpoints")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     os.makedirs(args.workdir, exist_ok=True)
 

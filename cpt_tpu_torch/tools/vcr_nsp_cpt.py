@@ -40,9 +40,10 @@ from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import make_nsp_score_fn
 from cpt_tpu_torch.models.bert.heads import (NSPCPT, NSPFT, VCR_QAR_NSPFT,
                                              VCRQAR_NSPCPT)
+from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_clip_arg, build_tokenizer,
                                          clip_of, dtype_of, load_or_init,
-                                         model_config, refuse_multi_process)
+                                         model_config)
 
 
 def build_args():
@@ -185,7 +186,7 @@ def train(model, data: VCRCPTData, args, device,
 
 
 def main(argv=None):
-    refuse_multi_process("vcr_nsp_cpt")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)

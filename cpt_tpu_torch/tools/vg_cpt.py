@@ -38,8 +38,8 @@ from cpt_tpu_torch.data.vg import (VGCPTData, reverse_imkey,
                                    vg_predicate_scores)
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.evaluate import vg_recall_eval
-from cpt_tpu_torch.tools._common import (build_tokenizer, dtype_of,
-                                         model_config, refuse_multi_process)
+from cpt_tpu_torch.parallel import distributed
+from cpt_tpu_torch.tools._common import build_tokenizer, dtype_of, model_config
 from cpt_tpu_torch.tools.refcoco_cpt import load_model
 
 
@@ -173,7 +173,7 @@ def train(model, data: VGCPTData, args, device,
 
 
 def main(argv=None):
-    refuse_multi_process("vg_cpt")
+    distributed.initialize_from_env()
     args = build_args().parse_args(argv)
     device = torch.device(args.device)
     tokenizer = build_tokenizer(args)

@@ -4,8 +4,9 @@ apply_overrides), ``models/detector/yacs_bridge.load_reference_yaml``,
 ``tools/_common.apply_reference_config`` and
 ``tools/extract_features.apply_ref_to_extract_args``, on yamls and opts
 lists written here (the reference tree is not in the repository), and the
-multi-process refusals of the tools whose JAX ``main`` starts a distributed
-runtime."""
+tools whose JAX ``main`` starts a distributed runtime running under a
+multi-process launch's environment (they refused it before the process
+runtime was ported)."""
 import argparse
 import dataclasses
 import json
@@ -25,6 +26,7 @@ from cpt_tpu_torch.models.detector import yacs_bridge as bridge
 from cpt_tpu_torch.models.detector.config import VINVL_X152C4
 from cpt_tpu_torch.tools import _common as common
 from cpt_tpu_torch.tools import extract_features, test_detector
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(120)
@@ -364,37 +366,52 @@ def test_extract_features_output_from_the_config(tmp_path):
     assert extract_features.main(["--config_file", path]) == {}
 
 
-# --- the multi-process refusals ---------------------------------------------
+# --- the former multi-process refusals ----------------------------------------
 
 @pytest.mark.parametrize("tool", ["extract_features", "refcoco_cpt",
                                   "validate_checkpoints", "test_detector"])
 def test_tool_refuses_a_multi_process_launch(tmp_path, monkeypatch, tool):
-    """Under a torchrun-style environment the tools whose JAX ``main``
-    starts a distributed runtime refuse, naming ROADMAP.md Queue 1 item 9,
-    before they read or write anything."""
+    """Under a torchrun-style environment these tools refused, naming
+    ROADMAP.md Queue 1 item 9, until the process runtime was ported: now
+    each calls ``parallel/distributed.initialize_from_env`` first, where
+    its JAX ``main`` does, and runs to its end (the runtime's start is
+    recorded, not made: ``test_torch_distributed.multi_process_env``; that
+    file runs two real processes)."""
     import importlib
+
+    from cpt_tpu.data.synthetic import generate_refcoco_fixture
 
     mod = importlib.import_module(f"cpt_tpu_torch.tools.{tool}")
     out = tmp_path / "o.tsv"
-    argv = {"extract_features": ["--tiny", "--synthetic", "1", "--device",
-                                 "cpu", "--output", str(out)],
-            "refcoco_cpt": ["--data_file", "d", "--ann_file", "a",
-                            "--det_file", "t", "--output", str(out)],
-            "validate_checkpoints": ["--dryrun", "--workdir",
-                                     str(tmp_path / "w")],
-            "test_detector": ["--tiny", "--synthetic", "1", "--device", "cpu",
-                              "--output", str(out)]}[tool]
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-        mod.main(argv)
-    assert not out.exists() and not (tmp_path / "w").exists()
+    cpu = ["--device", "cpu", "--dtype", "float32"]
+    if tool == "refcoco_cpt":
+        p = generate_refcoco_fixture(str(tmp_path / "fx"), n_queries=3,
+                                     n_copies=3, n_objects=4, feat_dim=134)
+        argv = ["--data_file", p["data_file"], "--ann_file", p["ann_file"],
+                "--det_file", p["det_file"], "--img_feature_dim", "134",
+                "--hidden_size", "32", "--num_hidden_layers", "2",
+                "--txt_seq_len", "24", "--img_seq_len", "6",
+                "--output", str(out)] + cpu
+    else:
+        argv = {"extract_features": ["--tiny", "--synthetic", "1",
+                                     "--output", str(out)] + cpu,
+                "validate_checkpoints": ["--dryrun", "--workdir",
+                                         str(tmp_path / "w"), "--n_images",
+                                         "2"] + cpu,
+                "test_detector": ["--tiny", "--synthetic", "1", "--output",
+                                  str(out)] + cpu}[tool]
+    calls = multi_process_env(monkeypatch)
+    mod.main(argv)
+    # the dry run calls extract_features' and refcoco_cpt's mains in turn
+    assert calls == [True] * (3 if tool == "validate_checkpoints" else 1)
+    assert (tmp_path / "w").exists() if tool == "validate_checkpoints" \
+        else out.exists()
 
 
 def test_refcoco_cpt_refuses_data_parallel():
     from cpt_tpu_torch.tools import refcoco_cpt
 
     with pytest.raises(SystemExit,
-                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9"):
+                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9\(b\)"):
         refcoco_cpt.main(["--data_file", "d", "--ann_file", "a",
                           "--det_file", "t", "--dp", "2"])

@@ -36,6 +36,7 @@ from cpt_tpu_torch.engine import detection_eval
 from cpt_tpu_torch.tools import convert_dataset, demo, extract_features
 from cpt_tpu_torch.tools import test_detector as tool
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(300)
@@ -480,7 +481,9 @@ def test_test_detector_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
     scene-graph slice ported them: now each runs and returns its results
     (the augmented detections' mAP; the ``sg_<protocol>_<k>`` recalls over
     the relations of tests/test_vg_tsv.py's fixture). A multi-process
-    launch still names item 9."""
+    launch named item 9 until the process runtime was ported: the case now
+    runs under one (``test_torch_distributed.multi_process_env``), the
+    tool calling ``initialize_from_env`` first."""
     import dataclasses
 
     from cpt_tpu_torch.models.detector import yacs_bridge
@@ -508,7 +511,9 @@ def test_test_detector_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
     real_build = tool.build_scene_parser
     monkeypatch.setattr(tool, "build_scene_parser",
                         lambda *a: built.append(real_build(*a)) or built[-1])
+    calls = multi_process_env(monkeypatch)
     results, ok = tool.main(argv)
+    assert calls == [True]
     assert ok and 0.0 <= results["mAP"] <= 1.0
     sg = {k: v for k, v in results.items() if k.startswith("sg_")}
     if flags == ["--bbox_aug"]:
@@ -519,10 +524,6 @@ def test_test_detector_refuses_what_is_not_ported(tmp_path, monkeypatch, flags):
         assert sorted(sg) == sorted(f"sg_{p}_metric_sgdet{k}" for p in
                                     ("rowan", "danfei") for k in (20, 50, 100))
         assert all(0.0 <= v <= 1.0 for v in sg.values())
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-        tool.main(argv)
 
 
 # --- tools/extract_features --image_dir ------------------------------------------

@@ -35,6 +35,7 @@ from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils import tokenization as tok
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(300)
@@ -645,18 +646,29 @@ def test_vcr_ft_tool_trains(monkeypatch):
 
 def test_ft_tools_refuse_what_waits_for_later_items(monkeypatch, tmp_path):
     """The discrete-code image features refuse (they are for run_vqa /
-    run_gqa only, as in the JAX package); a multi-process launch of
-    ``refcoco_ft`` or ``sweep`` refuses, naming item 9, before it reads
-    anything."""
+    run_gqa only, as in the JAX package). A multi-process launch of
+    ``refcoco_ft`` or ``sweep`` refused, naming item 9, until the process
+    runtime was ported: now each runs under one
+    (``test_torch_distributed.multi_process_env``), the sweep's stage-2
+    driver too, each calling ``initialize_from_env`` first."""
+    from cpt_tpu.data.synthetic import generate_refcoco_fixture
+    from cpt_tpu_torch.tools import sweep
+
     with pytest.raises(SystemExit, match="supported by run_vqa / run_gqa"):
         refcoco_ft.main(_rec_ft_args("plain") + ["--img_feature_type",
                                                  "dis_code"])
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-        refcoco_ft.main(_rec_ft_args("plain"))
-    from cpt_tpu_torch.tools import sweep
-
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-        sweep.main(["--results_dir", str(tmp_path / "r"), "--stage2", "--"])
-    assert not (tmp_path / "r").exists()
+    calls = multi_process_env(monkeypatch)
+    acc = refcoco_ft.main(_rec_ft_args("plain") + ["--device", "cpu",
+                                                   "--num_train_epochs", "0"])
+    assert calls == [True] and 0.0 <= acc <= 100.0
+    p = generate_refcoco_fixture(str(tmp_path / "fx"), n_queries=3,
+                                 n_copies=3, n_objects=4, feat_dim=134)
+    results = sweep.main([
+        "--shots", "1", "--seeds", "0", "--results_dir", str(tmp_path / "r"),
+        "--stage2", "--", "--data_file", p["data_file"], "--ann_file",
+        p["ann_file"], "--det_file", p["det_file"], "--img_feature_dim",
+        "134", "--hidden_size", "32", "--num_hidden_layers", "2",
+        "--txt_seq_len", "24", "--img_seq_len", "6", "--device", "cpu",
+        "--dtype", "float32"])
+    assert calls == [True] * 3 and list(results) == [1]
+    assert (tmp_path / "r" / "refcoco_shot1_seed0.pk").exists()

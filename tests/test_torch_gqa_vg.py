@@ -45,6 +45,7 @@ from cpt_tpu_torch.tools import extract_features, gqa_cpt, vg_cpt
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils import tokenization as tok
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(300)
@@ -539,19 +540,19 @@ def test_gqa_tool_refuses_what_is_not_ported(flags, item, monkeypatch,
                                              tmp_path):
     """The flags Queue 1 ``item`` ported (the finetune baseline and
     ``--save_dir``; tests/test_torch_ft.py holds them to JAX) now run; a
-    multi-process launch still refuses, naming item 9."""
+    multi-process launch refused, naming item 9, until the process runtime
+    was ported: both tools now run under one
+    (``test_torch_distributed.multi_process_env``)."""
     flags = [str(tmp_path / f) if f == "d" else f for f in flags]
+    calls = multi_process_env(monkeypatch)
     acc = gqa_cpt.main(_gqa_args() + flags + ["--device", "cpu",
                                               "--num_train_epochs", "0"])
     assert 0.0 <= acc <= 100.0
     if "--save_dir" in flags:
         assert (tmp_path / "d" / "config.json").exists()
         assert (tmp_path / "d" / "last_checkpoint").read_text() == "model"
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    for tool, args in ((gqa_cpt, _gqa_args()), (vg_cpt, _vg_args())):
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-            tool.main(args)
+    pred, rec = vg_cpt.main(_vg_args() + ["--device", "cpu"])
+    assert calls == [True, True] and len(pred) == 12 and rec
 
 
 def test_extract_features_refuses_the_config_front_end(tmp_path):

@@ -69,13 +69,18 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  "models.detector.relation_variants", "models.detector.motif",
                  "engine.sg_infer", "engine.sg_eval", "engine.bbox_aug",
                  "engine.cityscapes_eval", "tools.cityscapes_eval",
-                 "tools.test_detector")
+                 "tools.test_detector",
+                 # the detector library modules and the process runtime
+                 "ops.focal_loss", "ops.roi_pool", "ops.deform_conv",
+                 "models.detector.fpn", "models.detector.extra_heads",
+                 "models.detector.fbnet", "models.detector.msvit",
+                 "parallel.distributed")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
-    """The pretraining, explore, detector-training and scene-graph modules
-    import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
+    """The pretraining, explore, detector-training and scene-graph modules,
+    the detector library modules and the process runtime import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
     blocked, and load none of them."""
     script = f"""
 import sys

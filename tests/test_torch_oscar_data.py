@@ -29,6 +29,7 @@ from cpt_tpu_torch.models.bert.model import Dropout
 from cpt_tpu_torch.tools import run_gqa, run_nlvr, run_retrieval, run_vqa
 from cpt_tpu_torch.utils import tokenization as tok
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(150)
@@ -334,20 +335,25 @@ RUNNERS = {"run_vqa": run_vqa, "run_gqa": run_gqa, "run_nlvr": run_nlvr,
 @pytest.mark.parametrize("name", sorted(RUNNERS))
 @pytest.mark.parametrize("ask", ["dp", "world_size", "dis_code"])
 def test_runner_refusals(name, ask, monkeypatch):
-    """``--dp 2`` and a two-process environment name ROADMAP item 9 (the
-    parallel port); the discrete-code features over region features are
-    refused as the JAX runners refuse them (run_vqa / run_gqa: no integer
-    code ids in the features; the others: codes are for those two only)."""
+    """``--dp 2`` names ROADMAP item 9(b) (the device meshes); a
+    two-process environment named item 9 until the process runtime was
+    ported: the runner now calls ``initialize_from_env`` first and runs
+    under one (``test_torch_distributed.multi_process_env``); the
+    discrete-code features over region features are refused as the JAX
+    runners refuse them (run_vqa / run_gqa: no integer code ids in the
+    features; the others: codes are for those two only)."""
     argv = runner_args(name)
+    if ask == "world_size":
+        calls = multi_process_env(monkeypatch)
+        RUNNERS[name].main(argv + ["--num_train_epochs", "0"])
+        assert calls == [True]
+        return
     if ask == "dp":
         argv += ["--dp", "2"]
-    elif ask == "world_size":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        monkeypatch.setenv("MASTER_ADDR", "localhost")
     else:
         argv += ["--img_feature_type", "dis_code"]
     if ask != "dis_code":
-        match = "ROADMAP.md Queue 1 item 9"
+        match = r"ROADMAP.md Queue 1 item 9\(b\)"
     elif name in ("run_vqa", "run_gqa"):
         match = "needs integer code-id arrays"
     else:

@@ -404,8 +404,9 @@ def test_extract_features_int8_matches_jax_tool(tmp_path):
     (["--config_file", "c.yaml"], "item 3"),
     (["--opts"], "item 3"), (["--image_dir", "d"], "item 5")])
 def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
-    """The multi-device flags refuse, naming Queue 1 item 9. The flags of
-    items 3 and 5 are ported and run: --config_file reads its yaml (a
+    """``--dp 2`` refuses, naming Queue 1 item 9(b); ``--shard_by_process``
+    (item 9(a)) runs: in one process its one shard, ``o.shard0.tsv``, is
+    the whole extraction. The flags of items 3 and 5 are ported and run: --config_file reads its yaml (a
     missing one raises as in JAX), --opts without it changes nothing, and
     --image_dir over a folder without .jpg files writes an empty TSV."""
     from cpt_tpu_torch.tools import extract_features as tool
@@ -413,8 +414,16 @@ def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
     out = tmp_path / "o.tsv"
     argv = ["--output", str(out)] + [
         str(tmp_path / f) if f == "d" else f for f in flags]
-    if item == "item 9":
-        with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+    tiny = ["--tiny", "--synthetic", "1", "--device", "cpu", "--dtype",
+            "float32", "--copies_per_chunk", "4"]
+    if flags == ["--shard_by_process"]:
+        tool.main(argv + tiny)
+        tool.main(["--output", str(tmp_path / "plain.tsv")] + tiny)
+        assert not out.exists()
+        assert (tmp_path / "o.shard0.tsv").read_bytes() == (
+            tmp_path / "plain.tsv").read_bytes()
+    elif item == "item 9":
+        with pytest.raises(SystemExit, match=r"ROADMAP.md Queue 1 item 9\(b\)"):
             tool.main(argv)
         assert not out.exists()
     elif "--config_file" in flags:
@@ -422,8 +431,6 @@ def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
             tool.main(argv)
         assert not out.exists()
     elif item == "item 3":
-        tiny = ["--tiny", "--synthetic", "1", "--device", "cpu", "--dtype",
-                "float32", "--copies_per_chunk", "4"]
         got = tool.main(argv + tiny)
         assert got["copies"] == 3
         tool.main(["--output", str(tmp_path / "plain.tsv")] + tiny)

@@ -379,7 +379,7 @@ def test_tool_trains_then_evaluates(fixture_paths, monkeypatch):
     assert 0.0 <= acc <= 100.0
     assert len(losses) == 9 and all(np.isfinite(losses))
     with pytest.raises(SystemExit,
-                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9"):
+                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9\(b\)"):
         refcoco_cpt.main(_tool_args(fixture_paths) + ["--dp", "2"])
 
 

@@ -40,6 +40,7 @@ from cpt_tpu_torch.tools import extract_features, vcr_nsp_cpt
 from cpt_tpu_torch.utils import convert as bconv
 from cpt_tpu_torch.utils import tokenization as tok
 from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+from test_torch_distributed import multi_process_env
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(300)
@@ -440,12 +441,10 @@ def test_tool_trains_then_evaluates(task, monkeypatch):
 
 def test_tool_refuses_what_is_not_ported(monkeypatch):
     """``--model_variant ft`` (Queue 1 item 4) now runs (NSPFT;
-    tests/test_torch_ft.py holds it to JAX); a multi-process launch still
-    refuses, naming item 9."""
+    tests/test_torch_ft.py holds it to JAX); a multi-process launch
+    refused, naming item 9, until the process runtime was ported: the tool
+    now runs under one (``test_torch_distributed.multi_process_env``)."""
+    calls = multi_process_env(monkeypatch)
     acc = vcr_nsp_cpt.main(_tool_args("qa") + ["--model_variant", "ft",
                                                "--device", "cpu"])
-    assert 0.0 <= acc <= 100.0
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    monkeypatch.setenv("MASTER_ADDR", "localhost")
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 9"):
-        vcr_nsp_cpt.main(_tool_args("qa"))
+    assert calls == [True] and 0.0 <= acc <= 100.0
