@@ -200,9 +200,10 @@ Phases (any failure raises and the script exits non-zero):
    (``--max_steps``, ``--save_every``) and ``--resume``d, bit-equal to its
    uninterrupted twin (or, should an op prove nondeterministic, no farther
    from it than a second uninterrupted run).
-14. Oscar captioning at full width (Oscar-base with an untied decoder from
-   one random reference-layout checkpoint, seed 0; the MLM head fresh from
-   seed 0; vocab 30522, S = 70 + 50) on phase 13's fixture (8 captioned
+14. Oscar captioning at full width, cut to ``CAPTION_LAYERS`` (6) of
+   Oscar-base's 12 layers (an untied decoder, from one random
+   reference-layout checkpoint, seed 0; the MLM head fresh from seed 0;
+   vocab 30522, S = 70 + 50) on phase 13's fixture (8 captioned
    images of 50 2054-d regions): K4 at the decode's ``[600,768]`` and K6
    at ``[5,12,120,64]`` with five seq2seq biases ``[5,1,120,120]`` against
    their plain versions, and at a greedy step's 120 rows and ``[1,12,120,64]``
@@ -214,9 +215,9 @@ Phases (any failure raises and the script exits non-zero):
    ``--resume``d, its step-4 train state bit-equal to the first run's,
    with a greedy decode; on the first run's state, 4 images and
    ``--max_gen_length 20``, sampling (top-k 20, 2 draws an image) under
-   ``"flash"`` and CBS over 2 od labels: every decode launches K4 12 a
-   step (39 steps; 19 at 20 tokens) and K3 none, under ``"flash"`` K6 12
-   a step too, an SCST step three decodes' worth; the
+   ``"flash"`` and CBS over 2 od labels: every decode launches K4 one a
+   layer a step (39 steps; 19 at 20 tokens) and K3 none, under ``"flash"``
+   K6 one a layer a step too, an SCST step three decodes' worth; the
    beam decode's best captions' teacher-forced per-step log-probs in bf16
    within CAPTION_TOL of the f32 einsum path, ``CAPTION_FAULTS`` missing
    it; host ms per decode and SCST step, one beam decode's device time by
@@ -295,13 +296,35 @@ Phases (any failure raises and the script exits non-zero):
    ``DEFAULT_ARCH`` and a DCN-v2 ``DFConv2d`` at ``[1,40,64,1024]``: counts
    zeroed just before each path and read just after (``LIB_LAUNCHES``),
    shapes and finite values, host ms.
-19. the process runtime: two processes (``SHARD_WORKER``, each under
-   ``timeout``) of ``extract_features --synthetic 4 --shard_by_process`` on
+19. the process runtime: two processes (``RankProcesses``, each under
+   ``timeout``; they go on with phase 20) of ``extract_features
+   --synthetic 4 --shard_by_process`` on
    the one card in a gloo group on localhost, at full X152 width
    (K1 and K2 in each), ``allreduce_sum`` and ``sync`` across them, the
    shards merged by ``merge_shards``; the merged TSV equals this process's
    one-process extraction of the same queries byte for byte (keys, boxes,
    features).
+20. the device meshes and the pipeline: two ranks of one gloo group on the
+   one card (``MESH_WORKER`` → ``mesh_rank``, each under ``timeout``), at
+   full width: (a) ``extract_features --synthetic 4 --dp 2`` (each chunk's
+   4 copies split 2 and 2; K1 and K2 in each rank), its TSV against phase
+   19's one-process TSV (byte for byte, else within WINDOW_TOL with the
+   first module whose rows differ named: ``first_divergent_module``); (b)
+   ``refcoco_cpt --dp 2`` at Oscar-base, dropout off, 2 prompt-tuning
+   steps of batch 8 on ``data/synthetic.generate_refcoco_fixture`` against
+   one process's: losses within MESH_LOSS_TOL, the first update's
+   gradients within MESH_GRAD_TOL, ``MESH_DP_FAULTS`` (the gradient summed
+   over the ranks; each rank on its own share, no all-reduce) missing it;
+   (c) pipelined scoring, pp 2 × 2 micro-batches of the grounding batch
+   ``[16,120]``, all 12 layers, bit-equal to sequential scoring (K3 and K4
+   12 a rank), the stages swapped and the last stage's result not
+   broadcast missing it; (d) one sharded detector step (one 1024×1024
+   image a rank) against the one-process batched step (DET_LOSS_TOL,
+   MESH_DET_GRAD_TOL; ``MESH_DP_FAULTS`` missing it; K1 53, K2 2, K5 1 a
+   rank); (e) ``tools/dryrun_multichip``'s ranks at dp 1 × tp 2
+   (FSDP placement, two accumulated steps, extraction, pp 2 scoring with
+   gradients) on CUDA tensors through gloo. Then K1, K2, K3 and K4 at the
+   ranks' new launch shapes (``check_mesh_kernels``).
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -5934,6 +5957,14 @@ def run_oscar_runners(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
 # key-only bias), or K6 with the [B, 1, S, S] bias under "flash"; a decode
 # runs one forward a step over the fixed canvas, ``CAPTION_STEPS`` steps.
 CAPTION_STEPS = 39                # --max_seq_a_length 40: steps 1 .. 39
+# phase 14 runs the captioning model at this depth (of Oscar-base's 12, at
+# full width and vocab): phase 20 pushed the whole script past 480 s (496.0
+# s with phase 14 at 12 layers, 70.4-82.7 s of it), and a decode step's
+# host time grows with the layers it runs. Phase 14 alone on the H100
+# 80GB HBM3 at 700 W (PR 22): 51.9 s at 6 layers, the 2-D mask fault
+# 2.0x CAPTION_TOL (2.24x in the 12-layer calibration); at 4 layers 37.9 s
+# but that fault 1.1x, at 8 76.1 s (PERF.md)
+CAPTION_LAYERS = 6
 # Named faults of the teacher-forced log-probs, each on the f32 oracle: the
 # 2-D key-only mask (every query sees every valid key, future caption
 # tokens included), no [MASK] written at step t (the target visible), the
@@ -6086,12 +6117,13 @@ def run_captioning_phase(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
         for b in (5, 1):
             check_flash_seq2seq(rows, b)
 
+    layers = min(CAPTION_LAYERS, bcfg.num_hidden_layers)
     flags = ["--device", dev.type, "--dtype",
              "bfloat16" if dt == torch.bfloat16 else "float32", "--hidden_size",
              str(bcfg.hidden_size), "--num_hidden_layers",
-             str(bcfg.num_hidden_layers), "--img_feature_dim",
+             str(layers), "--img_feature_dim",
              str(bcfg.img_feature_dim), "--seed", "0", "--no_tie_weights"]
-    per_decode = CAPTION_STEPS * bcfg.num_hidden_layers
+    per_decode = CAPTION_STEPS * layers
     evals = ("greedy_or_sample", "beam_search", "constrained_beam_search",
              "scst_step")
     out, peaks = {}, []
@@ -6294,12 +6326,12 @@ def run_captioning_phase(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
         # --- (c) on run (a)'s step-4 state (--resume, no step left), 4
         # images and the reference's 20-token generation (--max_gen_length
         # 20: 19 steps over the full canvas): sampling (top-k 20, 2 draws
-        # an image) under "flash" (K6 and K4 12 a step, K3 none), and CBS
+        # an image) under "flash" (K6 and K4 one a layer a step, K3 none), and CBS
         # over 2 od labels
         resumed = ["--feat_file", fx["feat_file"], "--captions",
                    f"{root}/captions4.json", "--checkpoint", ckpt] + xe + [
             "--output_dir", d1, "--resume", "--max_gen_length", "20"]
-        per_short = 19 * bcfg.num_hidden_layers
+        per_short = 19 * layers
         (_, samples), rec_s = drive(resumed + [
             "--do_sample", "--top_k", "20", "--num_return_sequences", "2"],
             build=lambda m: (caption_head_bias(m),
@@ -8140,94 +8172,110 @@ def run_library_modules(counters, smi: str, rows: list, dev,
 
 
 # Phase 19: two processes of ``extract_features --shard_by_process`` on the
-# one card, a gloo group over localhost, at full X152 width.
+# one card, a gloo group over localhost, at full X152 width: the first
+# section of the two rank processes that phase 20 goes on with
+# (``RankProcesses``, ``shard_section``).
 SHARD_QUERIES = 4
-SHARD_TIMEOUT_S = 240
-SHARD_WORKER = r'''
-import json, sys, time
-import torch
-from cpt_tpu_torch.ops.grouped_conv import grouped_conv3x3
-from cpt_tpu_torch.ops.nms_pallas import nms_pallas
-from cpt_tpu_torch.ops.roi_align_pallas import batched_roi_align
-from cpt_tpu_torch.parallel import distributed as D
-from cpt_tpu_torch.tools import extract_features, merge_shards
-
-t0 = time.perf_counter()
-assert D.initialize_from_env()
-pid = D.process_index()
-info = extract_features.main(["--synthetic", "{queries}", "--copies_per_chunk",
-                              "4", "--shard_by_process", "--output", "pred.tsv"])
-torch.cuda.synchronize()
-launches = {{"K1": grouped_conv3x3.launches, "K2": batched_roi_align.launches,
-             "K5": nms_pallas.launches}}
-total = D.allreduce_sum(float(info["copies"]), 1.0)
-D.sync("extracted")
-if D.is_main_process():
-    merge_shards.main(["--shards", "pred.shard*.tsv", "--output", "merged.tsv"])
-D.sync("merged")
-print(json.dumps({{"pid": pid, "count": D.process_count(),
-                  "device": torch.cuda.current_device(),
-                  "copies": info["copies"], "total": total,
-                  "launches": launches, "extract_s": info["seconds"],
-                  "seconds": time.perf_counter() - t0}}), flush=True)
-'''
 
 
-def free_port() -> int:
-    import socket
+class RankProcesses:
+    """Phases 19-20's two rank processes of one gloo group on the card
+    (``MESH_WORKER``, each under ``timeout``), started once: each prints
+    one JSON line after phase 19's section and one at its end;
+    :meth:`record` reads a rank's next line, :meth:`finish` waits for both
+    and raises on a failed one; :meth:`close` stops what is left."""
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    def __init__(self, root: str):
+        from cpt_tpu_torch.parallel.distributed import free_port
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        worker = os.path.join(root, "worker.py")
+        with open(worker, "w") as f:
+            f.write(MESH_WORKER.format(repo=repo, root=root))
+        env = dict(os.environ, PYTHONPATH=repo,
+                   CPT_COORDINATOR=f"127.0.0.1:{free_port()}",
+                   CPT_NUM_PROCESSES="2")
+        self.errs = [os.path.join(root, f"rank{i}.err") for i in range(2)]
+        self.procs = []
+        for i in range(2):
+            with open(self.errs[i], "w") as err:
+                self.procs.append(subprocess.Popen(
+                    ["timeout", "-k", "10", str(MESH_TIMEOUT_S), sys.executable,
+                     worker], cwd=root, env=dict(env, CPT_PROCESS_ID=str(i)),
+                    text=True, stdout=subprocess.PIPE, stderr=err))
+
+    def _fail(self, i: int, what: str):
+        self.procs[i].wait()
+        with open(self.errs[i]) as f:
+            raise AssertionError(f"rank {i} {what} (exit "
+                                 f"{self.procs[i].returncode}): {f.read()[-3000:]}")
+
+    def record(self, i: int) -> dict:
+        for line in self.procs[i].stdout:
+            if line.startswith("{"):
+                return json.loads(line)
+        self._fail(i, "ended before its record")
+
+    def finish(self) -> list:
+        out = [self.record(i) for i in range(2)]
+        for i, p in enumerate(self.procs):
+            if p.wait(timeout=MESH_TIMEOUT_S + 30) != 0:
+                self._fail(i, "failed")
+        return sorted(out, key=lambda r: r["pid"])
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
-def run_process_runtime(counters, smi: str) -> dict:
-    """Phase 19 (see the module docstring): two workers, each under
-    ``timeout``, then one process's extraction of the same queries here;
-    the merged shards must equal it byte for byte."""
+def shard_section(counters) -> dict:
+    """Phase 19's section of a rank: ``extract_features --synthetic 4
+    --shard_by_process`` into ``pred.shard<i>.tsv``, ``allreduce_sum`` of
+    the copies, ``sync``, the shards merged by rank 0 into ``merged.tsv``."""
+    import torch
+
+    from cpt_tpu_torch.parallel import distributed as D
+    from cpt_tpu_torch.tools import extract_features, merge_shards
+
+    zero_counts(counters)
+    info = extract_features.main(["--synthetic", str(SHARD_QUERIES),
+                                  "--copies_per_chunk", "4", "--shard_by_process",
+                                  "--output", "pred.tsv"])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    total = D.allreduce_sum(float(info["copies"]), 1.0)
+    D.sync("extracted")
+    if D.is_main_process():
+        merge_shards.main(["--shards", "pred.shard*.tsv", "--output", "merged.tsv"])
+    D.sync("merged")
+    return {"copies": info["copies"], "total": total, "launches": launches,
+            "extract_s": info["seconds"]}
+
+
+def run_process_runtime(counters, smi: str, ranks: RankProcesses,
+                        root: str) -> dict:
+    """Phase 19 (see the module docstring): the ranks' first records (their
+    shard section), then one process's extraction of the same queries
+    here; the merged shards must equal it byte for byte."""
     from cpt_tpu_torch.tools import extract_features
 
     t_phase = time.perf_counter()
-    repo = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as root:
-        worker = os.path.join(root, "worker.py")
-        with open(worker, "w") as f:
-            f.write(SHARD_WORKER.format(queries=SHARD_QUERIES))
-        port = free_port()
-        env = dict(os.environ, PYTHONPATH=repo,
-                   CPT_COORDINATOR=f"127.0.0.1:{port}", CPT_NUM_PROCESSES="2")
-        procs = [subprocess.Popen(
-            ["timeout", "-k", "10", str(SHARD_TIMEOUT_S), sys.executable, worker],
-            cwd=root, env=dict(env, CPT_PROCESS_ID=str(i)), text=True,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE) for i in range(2)]
-        workers = []
-        try:
-            for p in procs:
-                o, e = p.communicate(timeout=SHARD_TIMEOUT_S + 30)
-                if p.returncode != 0:
-                    raise AssertionError(f"phase 19 worker exited {p.returncode}: "
-                                         f"{e[-3000:]}")
-                workers.append(json.loads([ln for ln in o.splitlines()
-                                           if ln.startswith("{")][-1]))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        workers.sort(key=lambda r: r["pid"])
-        zero_counts(counters)
-        single = extract_features.main(["--synthetic", str(SHARD_QUERIES),
-                                        "--copies_per_chunk", "4", "--output",
-                                        f"{root}/single.tsv"])
-        single_launches = {k: c.launches for k, c in counters.items()}
-        with open(f"{root}/merged.tsv") as f:
-            merged = f.read()
-        with open(f"{root}/single.tsv") as f:
-            one = f.read()
-        shard_rows = []
-        for i in range(2):
-            with open(f"{root}/pred.shard{i}.tsv") as f:
-                shard_rows.append(f.read().count("\n"))
+    zero_counts(counters)
+    single = extract_features.main(["--synthetic", str(SHARD_QUERIES),
+                                    "--copies_per_chunk", "4", "--output",
+                                    f"{root}/single.tsv"])
+    single_launches = {k: c.launches for k, c in counters.items()}
+    workers = sorted((ranks.record(i) for i in range(2)), key=lambda r: r["pid"])
+    with open(f"{root}/merged.tsv") as f:
+        merged = f.read()
+    with open(f"{root}/single.tsv") as f:
+        one = f.read()
+    shard_rows = []
+    for i in range(2):
+        with open(f"{root}/pred.shard{i}.tsv") as f:
+            shard_rows.append(f.read().count("\n"))
     identical = merged == one
     rows_m = [ln.split("\t") for ln in merged.splitlines()]
     rows_1 = [ln.split("\t") for ln in one.splitlines()]
@@ -8247,14 +8295,624 @@ def run_process_runtime(counters, smi: str) -> dict:
           f"{[round(r['seconds'], 1) for r in workers]} (extraction "
           f"{[round(r['extract_s'], 2) for r in workers]}), launches {launches}; "
           f"merged shards equal one process's TSV byte for byte: {identical} "
-          f"(keys equal {same_keys}; one process: launches {single_launches}); "
-          f"in {phase_s:.1f} s", flush=True)
+          f"(keys equal {same_keys}; one process: launches {single_launches}, "
+          f"extracted meanwhile); in {phase_s:.1f} s", flush=True)
     if not ok:
         raise AssertionError(f"phase 19: workers {workers}, identical "
                              f"{identical}, shard rows {shard_rows}")
     return {"workers": workers, "identical": identical, "shard_rows": shard_rows,
             "launches": launches, "single_launches": single_launches,
-            "seconds": phase_s}
+            "single_tsv": one, "seconds": phase_s}
+
+
+# Phase 20: the device meshes and the pipeline (``parallel/mesh.py``,
+# ``parallel/pipeline.py``): phase 19's two rank processes go on, one rank
+# each (``MESH_WORKER`` → ``mesh_rank``), at full width.
+MESH_TIMEOUT_S = 360
+MESH_WORKER = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+chip_smoke.mesh_rank({root!r})
+"""
+# (b): the RefCOCO fixture and prompt tuning of ``refcoco_cpt --dp 2``
+MESH_QUERIES, MESH_COPIES = 8, 4
+MESH_TRAIN_BATCH, MESH_EVAL_BATCH = 8, 16
+# (c): pp 2, 2 micro-batches over the grounding batch [16, 70 + 50]
+MESH_PP, MESH_MICRO, MESH_SCORE_BATCH = 2, 2, 16
+MESH_PP_FAULTS = ("stages_swapped", "not_broadcast")
+# (b) and (d) hold bf16 over dp 2 against bf16 in one process, so their
+# limits come from those readings (H100 80GB HBM3, 700 W, three whole runs
+# reading the same): (b)'s losses 2.456e-3 nats apart and its first
+# update's gradients 8.272e-3 apart (largest per-tensor ‖Δg‖ / ‖g‖), (d)'s
+# gradients 2.0e-3-3.5e-3 apart (largest per-leaf max |Δg| / max |g|).
+# Each limit is 3-4x its reading; a gradient summed over the ranks reads
+# 1.0 in both.
+MESH_LOSS_TOL = 1e-2
+MESH_GRAD_TOL = 2.5e-2
+MESH_DET_GRAD_TOL = 1.5e-2
+# (b) and (d)'s named faults: the averaged gradient summed over the ranks
+# (× dp); and ``dp_mean`` handing each rank its own tensors back (no
+# all-reduce, so each rank steps on its own share of the batch), planted
+# in a run of its own (``no_all_reduce``)
+MESH_DP_FAULTS = ("summed", "no_all_reduce")
+# the per-rank launch shapes phase 20 gives the kernels: K1 and K2 on half
+# of phase 19's chunk of 4 copies (640×1024), K3 on a micro-batch [8, 120]
+# and on a rank's half of a training batch [4, 120], K4 on its 480 rows
+K1_MESH_SHAPES = [(2, 160, 256, 256, 1), (2, 80, 128, 512, 1),
+                  (2, 40, 64, 1024, 1)]
+
+
+def _grad_norm_gaps(got: dict, want: dict) -> dict:
+    """Per tensor ‖got − want‖ / ‖want‖ (tensors with a nonzero want)."""
+    return {n: float((got[n] - want[n]).norm() / want[n].norm())
+            for n in want if float(want[n].norm()) > 0}
+
+
+def first_divergent_module(model, args: tuple) -> dict:
+    """Run ``model.forward_batch_force`` on the 2 copies of ``args`` and on
+    them twice over (4 copies), each module's output of the first run
+    against the matching rows of the second's, in call order → the first
+    module whose rows differ (None: none), how many were compared and
+    whether the pooled features agree."""
+    import torch
+
+    x, rest = args[0], args[1:]
+    half, order = {}, []
+
+    def keep(name):
+        def hook(_m, _i, out):
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            if torch.is_tensor(out) and out.dim() and out.shape[0] % 2 == 0:
+                half[name] = out[:out.shape[0] // 2].clone()
+        return hook
+
+    def check(name):
+        def hook(_m, _i, out):
+            out = out[0] if isinstance(out, (tuple, list)) else out
+            want = half.pop(name, None)
+            if want is not None and torch.is_tensor(out) and out.shape == want.shape:
+                order.append((name, bool(torch.equal(out, want))))
+        return hook
+
+    mods = [(n, m) for n, m in model.named_modules() if n]
+    with torch.inference_mode():
+        hooks = [m.register_forward_hook(keep(n)) for n, m in mods]
+        try:
+            four = model.forward_batch_force(torch.cat([x, x]), *rest)
+        finally:
+            for h in hooks:
+                h.remove()
+        hooks = [m.register_forward_hook(check(n)) for n, m in mods]
+        try:
+            two = model.forward_batch_force(x, *rest)
+        finally:
+            for h in hooks:
+                h.remove()
+    k = two["box_features"].shape[0]
+    first = next((n for n, same in order if not same), None)
+    return {"first_divergent": first, "compared": len(order),
+            "features_equal": bool(torch.equal(four["box_features"][:k],
+                                               two["box_features"]))}
+
+
+@contextlib.contextmanager
+def no_all_reduce():
+    """The named fault ``no_all_reduce``: ``parallel/mesh.dp_mean`` returns
+    each rank's own tensors, as DDP without its all-reduce would."""
+    from cpt_tpu_torch.parallel import mesh as meshlib
+
+    real = meshlib.dp_mean
+    meshlib.dp_mean = lambda tensors, mesh: list(tensors)
+    try:
+        yield
+    finally:
+        meshlib.dp_mean = real
+
+
+def mesh_extract(counters, root: str) -> dict:
+    """(a) ``extract_features --synthetic 4 --copies_per_chunk 4 --dp 2``:
+    each rank extracts 2 of every chunk's 4 copies, rank 0 writes
+    ``dp.tsv``; then rank 0 holds a chunk of 2 copies against the same 2
+    copies inside a chunk of 4, module by module."""
+    import torch
+
+    from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNN
+    from cpt_tpu_torch.parallel import distributed as D
+    from cpt_tpu_torch.tools import extract_features as ef
+
+    built, first = [], []
+    real_build, real_force = ef.build_detector, AttrRCNN.forward_batch_force
+
+    def force(self, *a, **kw):
+        if not first:
+            first.append(a)
+        return real_force(self, *a, **kw)
+
+    ef.build_detector = lambda cfg, args: built.append(real_build(cfg, args)) or built[-1]
+    AttrRCNN.forward_batch_force = force
+    zero_counts(counters)
+    try:
+        info = ef.main(["--synthetic", str(SHARD_QUERIES), "--copies_per_chunk",
+                        "4", "--dp", "2", "--output", f"{root}/dp.tsv"])
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        ef.build_detector, AttrRCNN.forward_batch_force = real_build, real_force
+    out = {"copies": info["copies"], "launches": launches,
+           "k1_paths": k1_paths(counters, launches, "phase 20 (a)"),
+           "extract_s": info["seconds"]}
+    if D.is_main_process():
+        out["divergence"] = first_divergent_module(built[-1], first[0])
+    del built, first
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_refcoco(counters, root: str) -> dict:
+    """(b) ``refcoco_cpt --dp 2`` at Oscar-base on
+    ``data/synthetic.generate_refcoco_fixture`` (dropout off): 2 prompt-
+    tuning steps of batch 8 (4 a rank), eval batches of 16 split over the
+    ranks; then on rank 0 the same 2 steps over the same mesh under
+    ``no_all_reduce`` and in one process. The losses and the first
+    update's gradients (what the optimizer is handed) against one
+    process's, and the faults' gradients."""
+    import torch
+
+    from cpt_tpu_torch.data.refcoco import iter_train_batches
+    from cpt_tpu_torch.data.synthetic import generate_refcoco_fixture
+    from cpt_tpu_torch.engine import train as train_lib
+    from cpt_tpu_torch.parallel import distributed as D
+    from cpt_tpu_torch.parallel.mesh import make_mesh
+    from cpt_tpu_torch.tools import refcoco_cpt
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    paths = generate_refcoco_fixture(f"{root}/refcoco{D.process_index()}",
+                                     n_queries=MESH_QUERIES,
+                                     n_copies=MESH_COPIES, feat_dim=2054)
+    argv = ["--data_file", paths["data_file"], "--ann_file", paths["ann_file"],
+            "--det_file", paths["det_file"], "--train_data_file",
+            paths["data_file"], "--num_train_epochs", "1",
+            "--per_gpu_train_batch_size", str(MESH_TRAIN_BATCH),
+            "--per_gpu_eval_batch_size", str(MESH_EVAL_BATCH), "--seed", "0"]
+    real_step, real_train, real_load, real_tx = (
+        train_lib.make_mlm_train_step, refcoco_cpt.train, refcoco_cpt.load_model,
+        train_lib.build_optimizer)
+    losses, calls, first_grads = [], [], []
+
+    def build_optimizer(model, cfg, *a, **kw):
+        # the tool's optimizer, recording the gradients of its first update
+        tx = real_tx(model, cfg, *a, **kw)
+        update = tx.update
+        names = [n for n, _ in model.named_parameters()]
+
+        def record(grads, st, params):
+            if not mine:
+                mine.update({n: g.float().clone() for n, g in
+                             zip(names, grads) if g is not None})
+            return update(grads, st, params)
+
+        mine = {}
+        tx.update = record
+        first_grads.append(mine)
+        return tx
+
+    train_lib.make_mlm_train_step = functools.partial(real_step, dropout=False)
+    train_lib.build_optimizer = build_optimizer
+    refcoco_cpt.train = lambda *a, **kw: (calls.append((a, kw))
+                                          or losses.extend(real_train(*a, **kw)))
+    zero_counts(counters)
+    try:
+        t0 = time.perf_counter()
+        acc = refcoco_cpt.main(argv + ["--dp", "2"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        out = {"acc": acc, "losses": losses, "launches": launches,
+               "run_s": run_s}
+        if D.is_main_process():
+            (_, train_data, args, _), kw = calls[-1]
+            cfg = refcoco_cpt.model_config(args)
+            with no_all_reduce():   # no collective left: rank 0 runs alone
+                real_train(real_load(cfg, args, dev, torch.bfloat16).eval(),
+                           train_data, args, dev, mesh=kw["mesh"])
+            one = real_load(cfg, args, dev, torch.bfloat16).eval()
+            t0 = time.perf_counter()
+            one_losses = real_train(one, train_data, args, dev)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            dp_grads, skipped, one_grads = first_grads[-3:]
+            gaps = _grad_norm_gaps(dp_grads, one_grads)
+            faults = {
+                "summed": _grad_norm_gaps({n: 2 * g for n, g in dp_grads.items()},
+                                          one_grads),
+                "no_all_reduce": _grad_norm_gaps(skipped, one_grads)}
+            out.update({"one_losses": one_losses, "one_s": one_s,
+                        "grad_gap": max(gaps.values()),
+                        "grad_gap_at": max(gaps, key=gaps.get),
+                        "fault_gaps": {f: [min(g.values()), max(g.values())]
+                                       for f, g in faults.items()}})
+    finally:
+        train_lib.make_mlm_train_step, train_lib.build_optimizer = real_step, real_tx
+        refcoco_cpt.train = real_train
+    del calls, first_grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pipeline(counters) -> dict:
+    """(c) pipelined scoring at Oscar-base (12 layers, bf16, random weights
+    from seed 0): pp 2 × n_micro 2 over the grounding batch [16, 70 + 50]
+    (K3 and K4 6 × 2 a rank), against the same model's sequential scoring
+    on this rank, with MESH_PP_FAULTS."""
+    import torch
+
+    from cpt_tpu_torch.config.bert import OSCAR_BASE
+    from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
+    from cpt_tpu_torch.parallel import mesh as meshlib
+    from cpt_tpu_torch.parallel import pipeline
+    from cpt_tpu_torch.utils import convert as cv
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = OSCAR_BASE
+    with torch.device(dev):
+        model = REC_MLM_CPT(cfg, torch.bfloat16).eval()
+    model.load_state_dict(cv.state_from_reference(
+        cv.random_oscar_state_dict(cfg, seed=0), cfg))
+    rng = np.random.RandomState(20)
+    b, txt, img = MESH_SCORE_BATCH, 70, 50
+    ids = rng.randint(1000, cfg.vocab_size, (b, txt))
+    ids[:, 5] = 103
+    mask = np.ones((b, txt + img), np.int64)
+    mask[b // 2:, 40:txt] = 0
+    arrays = [torch.from_numpy(a).to(dev) for a in (
+        ids, np.zeros((b, txt), np.int64), mask,
+        rng.randn(b, img, cfg.img_feature_dim).astype(np.float32),
+        np.full((b,), 5, np.int64))]
+    mesh = pipeline.make_pp_mesh(1, MESH_PP)
+    stage = pipeline.pipelined_stage(model, mesh)
+    s = meshlib.axis_index(mesh, "pp")
+    stacked = pipeline.stack_layer_params(model.bert.encoder,
+                                          cfg.num_hidden_layers)
+    k = cfg.num_hidden_layers // MESH_PP
+    other = {n: t[(1 - s) * k:(2 - s) * k] for n, t in stacked.items()}
+    fn = pipeline.make_pp_scoring_fn(cfg, mesh, MESH_MICRO, torch.bfloat16)
+    with torch.inference_mode():
+        want = model(*arrays[:3], img_feats=arrays[3], mask_pos=arrays[4])[1].float()
+        fn(model, stage, *arrays)     # warm-up
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        got = fn(model, stage, *arrays)
+        torch.cuda.synchronize()
+        pp_ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: c.launches for k, c in counters.items()}
+        t0 = time.perf_counter()
+        model(*arrays[:3], img_feats=arrays[3], mask_pos=arrays[4])
+        torch.cuda.synchronize()
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        faults = {"stages_swapped": float((fn(model, other, *arrays) - want)
+                                          .abs().max())}
+        real_bc = meshlib.broadcast
+        meshlib.broadcast = lambda x, src, group: x
+        try:
+            faults["not_broadcast"] = float((fn(model, stage, *arrays) - want)
+                                            .abs().max())
+        finally:
+            meshlib.broadcast = real_bc
+    out = {"stage": s, "gap": float((got - want).abs().max()),
+           "scale": float(want.abs().max()), "shape": list(got.shape),
+           "finite": bool(torch.isfinite(got).all()), "fault_gaps": faults,
+           "launches": launches, "pp_ms": pp_ms, "seq_ms": seq_ms}
+    del model, stage, stacked, other
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_detector(counters) -> dict:
+    """(d) one sharded detector step at full width (X152-C4, phase 16's
+    seed-0 trainable weights, bf16, the 1024×1024 canvas): 2 synthetic
+    images of ``train_detector``'s stream, one a rank; then on rank 0 its
+    image's step over the same mesh under ``no_all_reduce`` and the
+    one-process batched step on both. Each step's loss dict and its
+    averaged gradients of DET_GRAD_LEAVES (what the optimizer is handed)."""
+    import itertools
+
+    import torch
+
+    from cpt_tpu_torch.engine import detector_train as dt
+    from cpt_tpu_torch.parallel import distributed as D
+    from cpt_tpu_torch.parallel.mesh import make_mesh
+    from cpt_tpu_torch.tools import train_detector as td
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    args = td.build_args().parse_args(["--synthetic", "2", "--device", "cuda",
+                                       "--dtype", "bfloat16"])
+    cfg = td.VINVL_X152C4
+    anchors = torch.from_numpy(td.grid_anchors(cfg.rpn, cfg.input.pad_h // 16,
+                                               cfg.input.pad_w // 16)).to(dev)
+    two = list(itertools.islice(td.batches(args, cfg, dev, anchors), 2))
+    batch = [torch.stack([a, b]) for a, b in zip(two[0][:6], two[1][:6])]
+    batch.append(anchors)
+    real_random = td.dconv.random_vinvl_state_dict
+    td.dconv.random_vinvl_state_dict = (
+        lambda c, seed=0: trainable_weights(real_random(c, seed)))
+
+    def step(mesh):
+        model = td.build_trainer(args, cfg, dev)
+        names, leaves = dt.detector_leaves(model)
+        tx = dt.build_detector_optimizer([dt.jax_path(n) for n in names],
+                                         dt.SolverConfig())
+        grads = {}
+        tx.update = lambda gs, st, ps: grads.update(
+            {n: g.float().clone() for n, g in zip(names, gs)
+             if n in DET_GRAD_LEAVES and g is not None})
+        st = dt.TrainState(params=leaves, opt_state=tx.init(leaves))
+        fn = dt.make_detector_train_step_batched(model, tx,
+                                                 dt.freeze_mask(names), mesh)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        _, total, losses = fn(st, batch, torch.Generator(device=dev).manual_seed(20))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ran = {k: c.launches for k, c in counters.items()}
+        del model, st, fn
+        return (float(total), {k: float(v) for k, v in losses.items()}, grads,
+                ran, ms)
+
+    try:
+        mesh = make_mesh(dp=2)
+        total, losses, grads, launches, ms = step(mesh)
+        out = {"total": total, "losses": losses, "launches": launches,
+               "step_ms": ms, "finite": bool(np.isfinite(total))}
+        if D.is_main_process():
+            with no_all_reduce():   # no collective left: rank 0 runs alone
+                skipped = step(mesh)[2]
+            one_total, one_losses, one_grads, _, one_ms = step(None)
+
+            def gaps(gr):
+                return {n: float((gr[n] - one_grads[n]).abs().max()
+                                 / one_grads[n].abs().max()) for n in one_grads}
+
+            faults = {"summed": gaps({n: 2 * g for n, g in grads.items()}),
+                      "no_all_reduce": gaps(skipped)}
+            out.update({"one_total": one_total, "one_losses": one_losses,
+                        "one_step_ms": one_ms, "grad_gaps": gaps(grads),
+                        "fault_gaps": {f: [min(g.values()), max(g.values())]
+                                       for f, g in faults.items()}})
+    finally:
+        td.dconv.random_vinvl_state_dict = real_random
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dryrun(counters) -> dict:
+    """(e) ``tools/dryrun_multichip``'s rank body on this world of 2: a dp
+    1 × tp 2 FSDP mesh (two accumulated steps), extraction over dp, pp 2
+    scoring with its gradients."""
+    import torch
+
+    from cpt_tpu_torch.tools import dryrun_multichip
+
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    line = dryrun_multichip.run(dryrun_multichip.build_args().parse_args(["2"]))
+    torch.cuda.synchronize()
+    return {"line": line, "launches": {k: c.launches for k, c in counters.items()},
+            "seconds": time.perf_counter() - t0}
+
+
+def mesh_rank(root: str) -> None:
+    """One rank of phases 19-20 (``MESH_WORKER``): phase 19's section, its
+    record printed as a JSON line, then phase 20's sections (a)-(e) in
+    turn, each with its kernel counts zeroed just before and read just
+    after, and their record."""
+    import torch
+
+    from cpt_tpu_torch.parallel import distributed as D
+
+    t0 = time.perf_counter()
+    assert D.initialize_from_env()
+    counters = kernel_counters()
+    rank = {"pid": D.process_index(), "count": D.process_count(),
+            "device": torch.cuda.current_device()}
+    with cached_random_weights():
+        shard = shard_section(counters)
+        print(json.dumps(dict(rank, seconds=time.perf_counter() - t0, **shard)),
+              flush=True)
+        t0 = time.perf_counter()
+        out = dict(rank)
+        out["extract"] = mesh_extract(counters, root)
+        out["refcoco"] = mesh_refcoco(counters, root)
+        out["pipeline"] = mesh_pipeline(counters)
+        out["detector"] = mesh_detector(counters)
+        out["dryrun"] = mesh_dryrun(counters)
+    D.sync("phase 20")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def tsv_feature_gap(got: str, want: str) -> tuple:
+    """Two extraction TSVs' texts → (keys and boxes equal, max |Δ feature| /
+    max |feature|)."""
+    def rows(text):
+        return [ln.split("\t") for ln in text.splitlines()]
+
+    same, gap, scale = True, 0.0, 0.0
+    g_rows, w_rows = rows(got), rows(want)
+    same &= [r[0] for r in g_rows] == [r[0] for r in w_rows]
+    for g, w in zip(g_rows, w_rows):
+        go, wo = json.loads(g[1])["objects"][0], json.loads(w[1])["objects"][0]
+        for gc, wc in zip(go, wo):
+            for gb, wb in zip(gc, wc):
+                same &= gb["rect"] == wb["rect"]
+                gf = np.frombuffer(base64.b64decode(gb["feature"]), np.float32)
+                wf = np.frombuffer(base64.b64decode(wb["feature"]), np.float32)
+                gap = max(gap, float(np.abs(gf - wf).max()))
+                scale = max(scale, float(np.abs(wf).max()))
+    return same, gap / max(scale, 1e-12)
+
+
+def check_mesh_kernels(rows: list, g) -> None:
+    """Phase 20's per-rank launch shapes (``K1_MESH_SHAPES``, K2 on 2
+    copies, K3 at [8,120] and [4,120], K4 at 480 rows) against their plain
+    versions and named faults, by device time."""
+    import torch
+
+    from cpt_tpu_torch.ops.roi_align_pallas import (batched_roi_align,
+                                                    batched_roi_align_plain)
+
+    check_k1(rows, K1_MESH_SHAPES, g, device=("grouped_conv3x3_mma",))
+    _, _, rois = k2_shapes()[0]
+    shape = (2, 40, 64, 1024)
+    feats = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    rois_t = torch.from_numpy(rois).cuda()
+    compare("K2", f"a rank's half chunk (dp 2): feats={list(shape)} "
+            f"rois={len(rois)}",
+            lambda: batched_roi_align(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            lambda: batched_roi_align_plain(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            lambda: batched_roi_align_plain(feats.float(), rois_t, 1 / 16.0,
+                                            14, 0, 8), rows,
+            k2_faults(feats, rois_t, 1 / 16.0, 14, 0, 8),
+            work=k2_work(shape, rois, 1 / 16.0) + (F32_OPS_S,),
+            device="roi_align")
+    check_k3(rows, MESH_SCORE_BATCH // MESH_MICRO, 120)
+    check_k3(rows, MESH_TRAIN_BATCH // 2, 120)
+    check_k4(rows, MESH_TRAIN_BATCH // 2 * 120)
+
+
+def run_mesh_phase(counters, smi: str, rows: list, single_tsv: str,
+                   procs: RankProcesses, root: str) -> dict:
+    """Phase 20 (see the module docstring): the ranks' last records, the
+    checks here against phase 19's one-process TSV and each rank's own
+    references, then the per-rank launch shapes' kernel rows. Gathers
+    every reading, prints it, then raises on the first check that
+    failed."""
+    import torch
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    ranks = procs.finish()
+    with open(f"{root}/dp.tsv") as f:
+        dp_tsv = f.read()
+    r0 = ranks[0]
+    sections = ("extract", "refcoco", "pipeline", "detector", "dryrun")
+    launches = {sec: {k: sum(r[sec]["launches"][k] for r in ranks)
+                      for k in counters} for sec in sections}
+    per_rank = {sec: [r[sec]["launches"] for r in ranks] for sec in sections}
+    check([r["count"] for r in ranks] == [2, 2], "world of 2")
+
+    # (a) extraction over dp against phase 19's one-process TSV
+    identical = dp_tsv == single_tsv
+    same_boxes, feat_gap = tsv_feature_gap(dp_tsv, single_tsv)
+    ex = [r["extract"] for r in ranks]
+    check(same_boxes and (identical or feat_gap <= WINDOW_TOL),
+          f"(a) --dp 2 TSV against one process: identical {identical}, "
+          f"keys/boxes {same_boxes}, feature gap {feat_gap} (tol {WINDOW_TOL})")
+    check(all(e["copies"] == 4 * 3 for e in ex)
+          and all(lr["K1"] > 0 and lr["K2"] > 0 for lr in per_rank["extract"]),
+          f"(a) copies {[e['copies'] for e in ex]}, launches "
+          f"{per_rank['extract']}")
+
+    # (b) refcoco_cpt --dp 2
+    rc = [r["refcoco"] for r in ranks]
+    loss_gap = max(abs(a - b) for a, b in zip(rc[0]["losses"],
+                                             rc[0]["one_losses"]))
+    check(len(rc[0]["losses"]) == 2 == len(rc[0]["one_losses"])
+          and rc[0]["losses"] == rc[1]["losses"] and loss_gap <= MESH_LOSS_TOL,
+          f"(b) losses {[r['losses'] for r in rc]} against one process "
+          f"{rc[0]['one_losses']} (gap {loss_gap}, tol {MESH_LOSS_TOL})")
+    check(rc[0]["grad_gap"] <= MESH_GRAD_TOL,
+          f"(b) gradient gap {rc[0]['grad_gap']} (at {rc[0]['grad_gap_at']}, "
+          f"tol {MESH_GRAD_TOL})")
+    check(all(rc[0]["fault_gaps"][f][1] > MESH_GRAD_TOL for f in MESH_DP_FAULTS),
+          f"(b) a fault passes: {rc[0]['fault_gaps']} (min, max)")
+    check(all(lr["K3"] > 0 and lr["K4"] > 0 for lr in per_rank["refcoco"]),
+          f"(b) launches {per_rank['refcoco']}")
+
+    # (c) pipelined scoring
+    pl = [r["pipeline"] for r in ranks]
+    want_pp = MESH_MICRO * 12 // MESH_PP
+    # the same kernels on the same rows in the same order: bit for bit
+    check(all(p["gap"] == 0.0 and p["finite"] for p in pl),
+          f"(c) pipelined logits against sequential: gaps "
+          f"{[p['gap'] for p in pl]} (bit-equal wanted)")
+    check(all(max(p["fault_gaps"][f] for p in pl) > 0.0
+              for f in MESH_PP_FAULTS),
+          f"(c) a fault passes: {[p['fault_gaps'] for p in pl]}")
+    check(all(lr["K3"] == lr["K4"] == want_pp for lr in per_rank["pipeline"]),
+          f"(c) launches {per_rank['pipeline']} (K3 and K4 {want_pp} a rank)")
+
+    # (d) the sharded detector step
+    dt_ = [r["detector"] for r in ranks]
+    det_loss_gap = max(abs(dt_[0]["losses"][k] - dt_[0]["one_losses"][k])
+                       for k in dt_[0]["one_losses"])
+    check(all(d["finite"] for d in dt_) and dt_[0]["losses"] == dt_[1]["losses"]
+          and det_loss_gap <= DET_LOSS_TOL
+          and max(dt_[0]["grad_gaps"].values()) <= MESH_DET_GRAD_TOL,
+          f"(d) losses {dt_[0]['losses']} / one process {dt_[0]['one_losses']} "
+          f"(gap {det_loss_gap}), gradient gaps {dt_[0]['grad_gaps']} (tol "
+          f"{MESH_DET_GRAD_TOL})")
+    check(all(dt_[0]["fault_gaps"][f][1] > MESH_DET_GRAD_TOL
+              for f in MESH_DP_FAULTS),
+          f"(d) a fault passes: {dt_[0]['fault_gaps']} (min, max)")
+    check(all(lr["K1"] == DET_STEP_LAUNCHES["K1"] and lr["K2"] == DET_STEP_LAUNCHES["K2"]
+              and lr["K5"] == DET_STEP_LAUNCHES["K5"] for lr in per_rank["detector"]),
+          f"(d) launches {per_rank['detector']} (one image a rank: "
+          f"{DET_STEP_LAUNCHES})")
+
+    # (e) the dry run
+    dr = [r["dryrun"] for r in ranks]
+    check(all(d["line"].startswith("dryrun_multichip ok: mesh={'dp': 1, 'tp': 2}")
+              and "pp ok" in d["line"] for d in dr)
+          and all(lr["K1"] > 0 and lr["K2"] > 0 and lr["K3"] > 0 and lr["K4"] > 0
+                  for lr in per_rank["dryrun"]),
+          f"(e) {[d['line'] for d in dr]}, launches {per_rank['dryrun']}")
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    n_rows = len(rows)
+    try:
+        check_mesh_kernels(rows, g)
+    except AssertionError as e:
+        failed.append(f"per-rank kernel shapes: {e}")
+    phase_s = time.perf_counter() - t_phase
+    div = r0["extract"]["divergence"]
+    print(f"phase 20 meshes and pipeline ({smi}): 2 gloo processes on one card "
+          f"(devices {[r['device'] for r in ranks]}), rank seconds "
+          f"{[round(r['seconds'], 1) for r in ranks]}; (a) extract_features "
+          f"--synthetic {SHARD_QUERIES} --dp 2: {[e['copies'] for e in ex]} copies, "
+          f"TSV equal to one process's byte for byte: {identical} (feature gap "
+          f"{feat_gap:.3e}; a chunk of 2 copies against the same 2 in a chunk "
+          f"of 4: {div}), extraction s {[round(e['extract_s'], 2) for e in ex]}, "
+          f"launches a rank {per_rank['extract']}; (b) refcoco_cpt --dp 2: "
+          f"losses {rc[0]['losses']} / one process {rc[0]['one_losses']} "
+          f"(gap {loss_gap:.3e}), first update's gradient gap "
+          f"{rc[0]['grad_gap']:.3e} at {rc[0]['grad_gap_at']}, faults (min, "
+          f"max over tensors) {rc[0]['fault_gaps']}, acc "
+          f"{[r['acc'] for r in rc]}, run s {[round(r['run_s'], 1) for r in rc]} "
+          f"/ one process's training {rc[0]['one_s']:.1f}, "
+          f"launches a rank {per_rank['refcoco']}; (c) pp {MESH_PP} × n_micro "
+          f"{MESH_MICRO} [{MESH_SCORE_BATCH},120]: gaps {[p['gap'] for p in pl]} "
+          f"(scale {pl[0]['scale']:.3f}), faults {[p['fault_gaps'] for p in pl]}, "
+          f"host ms pp {[round(p['pp_ms'], 1) for p in pl]} / sequential "
+          f"{[round(p['seq_ms'], 1) for p in pl]}, launches a rank "
+          f"{per_rank['pipeline']}; (d) detector step dp 2: losses "
+          f"{dt_[0]['losses']} / one process {dt_[0]['one_losses']}, gradient "
+          f"gaps {dt_[0]['grad_gaps']}, faults {dt_[0]['fault_gaps']}, host "
+          f"ms {[round(d['step_ms'], 1) for d in dt_]} / one process "
+          f"{dt_[0]['one_step_ms']:.1f}, launches a rank {per_rank['detector']}; "
+          f"(e) {dr[0]['line']} in {[round(d['seconds'], 1) for d in dr]} s, "
+          f"launches a rank {per_rank['dryrun']}; kernel rows "
+          f"{len(rows) - n_rows}; in {phase_s:.1f} s after phase 19", flush=True)
+    if failed:
+        raise AssertionError(f"phase 20: {failed}")
+    return {"ranks": ranks, "identical": identical, "feature_gap": feat_gap,
+            "launches": launches, "per_rank": per_rank, "seconds": phase_s}
 
 
 def kernel_counters() -> dict:
@@ -8357,9 +9015,23 @@ def main(argv=None) -> int:
     e2e.update(scene_graph)
     e2e["library"] = run_library_modules(counters, smi, rows, dev)
     phase18_s = e2e["library"].pop("seconds")
-    e2e["shard_extract"] = run_process_runtime(counters, smi)
-    phase19_s = e2e["shard_extract"].pop("seconds")
+    # phases 19-20 share two rank processes: started here, stopped below
+    mesh_root = weights.enter_context(tempfile.TemporaryDirectory())
+    procs = RankProcesses(mesh_root)
+    try:
+        e2e["shard_extract"] = run_process_runtime(counters, smi, procs,
+                                                   mesh_root)
+        phase19_s = e2e["shard_extract"].pop("seconds")
+        mesh = run_mesh_phase(counters, smi, rows,
+                              e2e["shard_extract"].pop("single_tsv"), procs,
+                              mesh_root)
+    finally:
+        procs.close()
     weights.close()
+    phase20_s = mesh.pop("seconds")
+    for sec, ran in mesh.pop("launches").items():
+        e2e[f"mesh_{sec}"] = {"launches": ran}
+    e2e["mesh"] = mesh
     per_kernel = {k: [r for r in rows if r["kernel"].split()[0] == k]
                   for k in KERNELS}
 
@@ -8383,7 +9055,8 @@ def main(argv=None) -> int:
              "caption_greedy", "caption_flash", "caption_cbs", "pretrain",
              "pretrain_k4", "dis_code_vqa", "explore_templates", "explore_soft",
              "detector_train", "sg_infer", "sg_train", "bbox_aug", "library",
-             "shard_extract")
+             "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
+             "mesh_detector", "mesh_dryrun")
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -8401,7 +9074,8 @@ def main(argv=None) -> int:
           f"phase 12 {phase12_s:.1f} s, phase 13 {phase13_s:.1f} s, phase 14 "
           f"{phase14_s:.1f} s, phase 15 {phase15_s:.1f} s, phase 16 "
           f"{phase16_s:.1f} s, phase 17 {phase17_s:.1f} s, phase 18 "
-          f"{phase18_s:.1f} s, phase 19 {phase19_s:.1f} s; the whole run "
+          f"{phase18_s:.1f} s, phase 19 {phase19_s:.1f} s, phase 20 "
+          f"{phase20_s:.1f} s; the whole run "
           f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     if args.json:

@@ -59,11 +59,13 @@ def set_trainable(model: torch.nn.Module, trainable: Dict[str, bool]) -> None:
 
 
 def make_detector_train_step(trainer_model, tx: DetectorOptimizer,
-                             trainable: Dict[str, bool]) -> Callable:
+                             trainable: Dict[str, bool], mesh=None) -> Callable:
     """``step(state, batch, generator)`` → (state, total, losses): the
     summed loss dict of ``trainer_model(*batch, generator)``, its gradients
     for the trainable leaves (zero for the frozen ones), one optimizer
-    update of ``state.params`` in place."""
+    update of ``state.params`` in place. With ``mesh`` the gradients and
+    the losses are averaged over its ``dp`` axis (DDP) before the update;
+    each rank's ``trainer_model`` takes its own share of the batch."""
     set_trainable(trainer_model, trainable)
     names = list(trainer_model.state_dict())
     params = dict(trainer_model.named_parameters())
@@ -73,7 +75,10 @@ def make_detector_train_step(trainer_model, tx: DetectorOptimizer,
         trainer_model.train()
         losses = trainer_model(*batch, generator)
         total = sum(losses.values())
-        got = iter(torch.autograd.grad(total, wanted, allow_unused=True))
+        got = list(torch.autograd.grad(total, wanted, allow_unused=True))
+        if mesh is not None:
+            got, total, losses = _dp_mean(mesh, got, wanted, total, losses)
+        got = iter(got)
         grads = [next(got) if n in params and trainable[n] else None
                  for n in names]
         tx.update(grads, state.opt_state, state.params)
@@ -83,27 +88,50 @@ def make_detector_train_step(trainer_model, tx: DetectorOptimizer,
     return step
 
 
+def _dp_mean(mesh, grads, wanted, total, losses):
+    """Gradients (None → zero), total and loss dict averaged over ``dp``
+    in one all-reduce."""
+    from cpt_tpu_torch.parallel.mesh import dp_mean
+
+    keys = sorted(losses)
+    *grads, total, stacked = dp_mean(
+        [torch.zeros_like(p) if g is None else g for g, p in zip(grads, wanted)]
+        + [total.detach().float(),
+           torch.stack([losses[k].detach().float() for k in keys])], mesh)
+    return grads, total, dict(zip(keys, stacked))
+
+
+def image_generator(generator: torch.Generator, index: int) -> torch.Generator:
+    """The generator of image ``index`` of a batched step, seeded from the
+    step's generator's seed (``do_train``'s (seed, step)) and the index, as
+    JAX splits the step's key per image: an image draws the same samples
+    whichever rank of a mesh runs it."""
+    seed = (generator.initial_seed() * 1_000_003 + index) % (1 << 63)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 def make_detector_train_step_batched(trainer_model, tx: DetectorOptimizer,
                                      trainable: Dict[str, bool],
                                      mesh=None) -> Callable:
     """Image-batched step (the reference's ``IMS_PER_BATCH``): every batch
     leaf but the anchors carries a leading image axis; the total and each
-    loss are means over the images, their samples drawn from the one
-    generator in turn. A ``mesh`` (the JAX step sharded over a data-parallel
-    axis, ``cpt_tpu/engine/detector_train.py:160-176``) is refused."""
-    if mesh is not None:
-        raise SystemExit("make_detector_train_step_batched: a sharded step "
-                         "is not ported yet (ROADMAP.md Queue 1 item 9(b) "
-                         "(device meshes))")
-    return make_detector_train_step(_Batched(trainer_model), tx, trainable)
+    loss are means over the images, image ``i`` drawing its samples from
+    :func:`image_generator` ``(generator, i)``. With ``mesh``
+    (``cpt_tpu/engine/detector_train.py:121-176``) the images are split
+    over its ``dp`` axis, each rank running its slice, and the gradients
+    and losses averaged (DDP); the image count must divide by dp."""
+    return make_detector_train_step(_Batched(trainer_model, mesh), tx,
+                                    trainable, mesh)
 
 
 class _Batched:
-    """A trainer over a batch of images: the mean of the per-image loss
-    dicts; its leaves are the wrapped trainer's."""
+    """A trainer over a batch of images (this rank's slice of them over a
+    mesh): the mean of the per-image loss dicts; its leaves are the
+    wrapped trainer's."""
 
-    def __init__(self, trainer_model):
+    def __init__(self, trainer_model, mesh=None):
         self.inner = trainer_model
+        self.mesh = mesh
 
     def state_dict(self, *args, **kwargs):
         return self.inner.state_dict(*args, **kwargs)
@@ -116,8 +144,17 @@ class _Batched:
 
     def __call__(self, image, image_hw, gt_boxes, gt_labels, gt_valid,
                  gt_attributes, anchors, generator):
-        out = [self.inner(*one, anchors, generator) for one in zip(
-            image, image_hw, gt_boxes, gt_labels, gt_valid, gt_attributes)]
+        per_image = (image, image_hw, gt_boxes, gt_labels, gt_valid,
+                     gt_attributes)
+        first = 0
+        if self.mesh is not None:
+            from cpt_tpu_torch.parallel import mesh as meshlib
+
+            first = (meshlib.axis_index(self.mesh, "dp") * image.shape[0]
+                     // meshlib.num_dp(self.mesh))
+            per_image = [meshlib.dp_split(x, self.mesh) for x in per_image]
+        out = [self.inner(*one, anchors, image_generator(generator, first + i))
+               for i, one in enumerate(zip(*per_image))]
         return {k: sum(o[k] for o in out) / len(out) for k in out[0]}
 
 

@@ -1,7 +1,7 @@
 """Stage-1 feature extraction: image → colored copies → detector →
-``predictions.tsv`` (port of the single-device paths of
-``cpt_tpu/engine/extract.py``: the full path and the windowed one), and
-RPN-mode detection (:func:`make_detect_fn`).
+``predictions.tsv`` (port of ``cpt_tpu/engine/extract.py``: the full path
+and the windowed one, each on one card or split over a mesh's ``dp`` axis),
+and RPN-mode detection (:func:`make_detect_fn`).
 
 The base image is uploaded once per query; all candidate-region copies are
 rendered on the device (``ops/render``) and run through the detector in
@@ -94,6 +94,29 @@ def make_extract_fn(model: AttrRCNN, cfg: DetectorConfig):
     return fn
 
 
+def make_sharded_extract_fn(model: AttrRCNN, cfg: DetectorConfig, mesh):
+    """Extraction over a mesh's ``dp`` axis
+    (``cpt_tpu/engine/extract.py:687-720``): each rank renders and runs its
+    slice of the chunk's copies with its replica of the weights; the
+    outputs come back in copy order, the whole chunk's on every rank. No
+    collective is on the path but that gather. The signature is
+    :func:`make_extract_fn`'s; the chunk must be a multiple of dp."""
+    from cpt_tpu_torch.parallel.mesh import dp_call
+
+    base = make_extract_fn(model, cfg)
+
+    def fn(image_u8, rects, rect_valid, colors, copy_valid, dets, det_valid,
+           hw, masks=None, mask_colors=None, inclusive=False):
+        def local(r, rv, c, cv, m, mc):
+            return base(image_u8, r, rv, c, cv, dets, det_valid, hw, m, mc,
+                        inclusive=inclusive)
+
+        return dp_call(local, mesh, rects, rect_valid, colors, copy_valid,
+                       masks, mask_colors)
+
+    return fn
+
+
 def make_detect_fn(model: AttrRCNN, cfg: DetectorConfig, *,
                    with_attributes: bool = True):
     """RPN-mode detection + region features on one canvas (the reference's
@@ -131,7 +154,7 @@ class Extractor:
                  copies_per_chunk: Optional[int] = 4,
                  windowed: bool = False, window=(512, 640), halo: int = 160,
                  allow_approximate: bool = False,
-                 labelmap: Optional[Dict[int, str]] = None):
+                 labelmap: Optional[Dict[int, str]] = None, mesh=None):
         """``copies_per_chunk=None`` → the largest power-of-two chunk whose
         canvas pixels fit ``AUTO_CHUNK_PIXEL_BUDGET``. Class names in the
         TSV are ``labelmap``'s names of the label ids, or the ids where it
@@ -146,13 +169,26 @@ class Extractor:
         the first two stages (both exact); below both the extractor keeps
         the full path with a warning, unless ``allow_approximate``, which
         runs one-level anyway and measures ``feature_drift`` against the
-        full path on the first windowed task (``last_drift``)."""
+        full path on the first windowed task (``last_drift``).
+
+        ``mesh`` (``parallel/mesh.make_mesh``): each chunk's copies are
+        split over its ``dp`` axis (:func:`make_sharded_extract_fn`,
+        ``windowed.make_sharded_windowed_fn``), every rank running the
+        same tasks and getting every output; a chunk holds at least dp
+        copies and a multiple of dp (padding copies are dropped)."""
         self.model = model
+        self.mesh = mesh
+        self.dp = 1
+        if mesh is not None:
+            from cpt_tpu_torch.parallel.mesh import num_dp
+
+            self.dp = num_dp(mesh)
         self.cfg = cfg
         self.device = next(model.parameters()).device
         self.chunk = copies_per_chunk
         self.labelmap = labelmap or {}
-        self.fn = make_extract_fn(model, cfg)
+        self.fn = (make_extract_fn(model, cfg) if mesh is None
+                   else make_sharded_extract_fn(model, cfg, mesh))
         self.windowed = windowed
         self.windowed_mode = None
         self._windowed_approx = False
@@ -166,8 +202,13 @@ class Extractor:
             two = self.windowed_mode == "two_level"
             self.base_fn = (wnd.make_base_early_fn(model, cfg) if two
                             else wnd.make_base_features_fn(model, cfg))
-            make = (wnd.make_two_level_extract_fn if two
-                    else wnd.make_windowed_extract_fn)
+            if mesh is not None:
+                def make(model, cfg, **kw):
+                    return wnd.make_sharded_windowed_fn(model, cfg, mesh,
+                                                        two_level=two, **kw)
+            else:
+                make = (wnd.make_two_level_extract_fn if two
+                        else wnd.make_windowed_extract_fn)
             self.wfns = [make(model, cfg, window=win, halo=halo)
                          for win in self.windows]
             # copies per route over the extractor's life: "HxW" per window,
@@ -215,15 +256,17 @@ class Extractor:
                   ) -> int:
         """Fixed chunk if configured, else the largest power of two fitting
         the pixel budget (1..128), shrunk to the next power of two ≥
-        ``remaining``."""
+        ``remaining``; over a mesh at least dp copies, rounded up to a
+        multiple of dp."""
         if self.chunk is not None:
-            return self.chunk
-        c = self.budget_copies(h, w)
-        c = 1 << (c.bit_length() - 1)
-        if remaining is not None and remaining > 0:
-            need = 1 << max(remaining - 1, 0).bit_length()
-            c = min(c, max(need, 1))
-        return c
+            c = self.chunk
+        else:
+            c = self.budget_copies(h, w)
+            c = 1 << (c.bit_length() - 1)
+            if remaining is not None and remaining > 0:
+                need = 1 << max(remaining - 1, 0).bit_length()
+                c = min(c, max(need, 1))
+        return -(-max(c, self.dp) // self.dp) * self.dp
 
     def budget_copies(self, h: int, w: int) -> int:
         """Copies of an (h, w) canvas that fit the pixel budget (1..128)."""
@@ -413,16 +456,21 @@ class Extractor:
                 chunk = min(self.chunk or self.budget_copies(*win),
                             len(idx) - at)
                 sel = idx[at:at + chunk]
-                args = (self._dev(rects_all[sel]), self._dev(rv_all[sel]),
-                        self._dev(colors_all[sel]),
-                        self._dev(np.ones(chunk, bool)), dets_d, det_valid_d,
-                        hw, *self._masks(task, sel, chunk, (h, w)))
+                # over a mesh, repeats of the last copy (not valid) fill
+                # the chunk to a multiple of dp
+                pad = np.concatenate([sel, np.repeat(sel[-1:],
+                                                     -len(sel) % self.dp)])
+                valid = np.arange(len(pad)) < len(sel)
+                args = (self._dev(rects_all[pad]), self._dev(rv_all[pad]),
+                        self._dev(colors_all[pad]), self._dev(valid), dets_d,
+                        det_valid_d, hw,
+                        *self._masks(task, pad, len(pad), (h, w)))
                 if wi < n_win:
-                    out = self.wfns[wi](image, base, origins_per[wi][sel],
+                    out = self.wfns[wi](image, base, origins_per[wi][pad],
                                         *args, inclusive=task.inclusive_paint)
                 else:
                     out = self.fn(image, *args, inclusive=task.inclusive_paint)
-                parts.append((sel, out))
+                parts.append((sel, tuple(o[:len(sel)] for o in out)))
                 at += chunk
         # the device outputs are read once all chunks are queued
         feats = np.zeros((n, m, parts[0][1][0].shape[2]), np.float32)
@@ -491,7 +539,16 @@ class Extractor:
                         yield [task.key, json.dumps(payload_fn(task, objs))]
                         at += n
 
-        tsv_writer(rows(), out_tsv)
+        if self.mesh is None:
+            tsv_writer(rows(), out_tsv)
+            return
+        from cpt_tpu_torch.parallel.distributed import is_main_process
+
+        if is_main_process():
+            tsv_writer(rows(), out_tsv)
+        else:   # the other ranks run the same chunks and write nothing
+            for _ in rows():
+                pass
 
 
 def refcoco_payload(task: ExtractTask, objs) -> dict:

@@ -1,5 +1,4 @@
-"""Color-word and NSP scoring (port of ``cpt_tpu/engine/scoring.py``
-without its multi-device paths).
+"""Color-word and NSP scoring (port of ``cpt_tpu/engine/scoring.py``).
 
 Device side: one forward returning the MLM logits at each sequence's
 [MASK], or the NSP score of each sequence. Host side: the reference
@@ -23,21 +22,32 @@ from cpt_tpu_torch.structures.boxes import xywh_iou
 from cpt_tpu_torch.utils.tokenization import BertTokenizer
 
 
-def make_mlm_at_mask_fn(model) -> Callable:
+def make_mlm_at_mask_fn(model, mesh=None) -> Callable:
     """fn(input_ids, segment_ids, attention_mask, img_feats, mask_pos), numpy
     in → float32 [N, vocab] numpy logits at each sequence's mask position.
-    The vocab projection runs only at the gathered positions."""
+    The vocab projection runs only at the gathered positions.
+
+    With ``mesh`` (``parallel/mesh.make_mesh``; every rank passes the same
+    batch) each rank scores its ``dp`` slice with its replica of the
+    weights and the logits are gathered back in rank order (the
+    reference's DistributedSampler + all_gather eval); N must divide by
+    dp."""
     device = next(model.parameters()).device
+
+    def scores(*arrays):
+        _, at_mask = model(*arrays[:3], img_feats=arrays[3], mask_pos=arrays[4])
+        return at_mask.float()
 
     @torch.inference_mode()
     def fn(input_ids, segment_ids, attention_mask, img_feats, mask_pos):
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        arrays = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in (input_ids, segment_ids, attention_mask, img_feats,
+                            mask_pos)]
+        if mesh is None:
+            return scores(*arrays).cpu().numpy()
+        from cpt_tpu_torch.parallel.mesh import dp_call
 
-        _, at_mask = model(dev(input_ids), dev(segment_ids),
-                           dev(attention_mask), img_feats=dev(img_feats),
-                           mask_pos=dev(mask_pos))
-        return at_mask.float().cpu().numpy()
+        return dp_call(scores, mesh, *arrays).cpu().numpy()
 
     return fn
 
@@ -89,10 +99,12 @@ def refcoco_collect_scores(at_mask: np.ndarray, batch: FlatBatch,
 def refcoco_evaluate(model, data: RefcocoCPTData, tokenizer: BertTokenizer,
                      batch_size: int = 128,
                      indices: Optional[List[int]] = None,
-                     host_sharded: bool = False
+                     host_sharded: bool = False, mesh=None
                      ) -> Tuple[float, Dict[str, List[float]]]:
     """Zero-shot RefCOCO grounding eval → (accuracy·100, {query: box}).
-    With ``host_sharded`` under a multi-process launch each process
+    With ``mesh`` each batch is split over its ``dp`` axis
+    (:func:`make_mlm_at_mask_fn`; ``batch_size`` must divide by dp, as in
+    JAX). With ``host_sharded`` under a multi-process launch each process
     evaluates its ``host_shard`` of the queries and the counts are summed
     across the processes (the reference's DDP eval, ``refcoco_cpt.py:
     516-522`` + DistributedSampler); the predictions are this process's."""
@@ -100,7 +112,13 @@ def refcoco_evaluate(model, data: RefcocoCPTData, tokenizer: BertTokenizer,
         from cpt_tpu_torch.parallel.distributed import host_shard
 
         indices = host_shard(range(len(data)))
-    fn = make_mlm_at_mask_fn(model)
+    if mesh is not None:
+        from cpt_tpu_torch.parallel.mesh import num_dp
+
+        if batch_size % num_dp(mesh):
+            raise ValueError(f"batch_size {batch_size} does not divide by "
+                             f"dp {num_dp(mesh)}")
+    fn = make_mlm_at_mask_fn(model, mesh)
     predictions: Dict[str, List[float]] = {}
     n_correct, n_total = 0, 0
     for batch, examples in iter_eval_batches(data, batch_size, indices):

@@ -129,7 +129,12 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Sequence[Optional[torch.Tensor]], state: OptState,
-               params: Sequence[torch.Tensor]) -> None:
+               params: Sequence[torch.Tensor],
+               sum_squares: Callable[[List[torch.Tensor]], torch.Tensor] = (
+                   lambda g: sum(gi.square().sum() for gi in g))) -> None:
+        """``sum_squares``: Σ g² over every leaf, for the global-norm clip;
+        a placed state's pieces sum across the ranks
+        (``parallel/mesh.Placed.sum_squares``)."""
         cfg = self.cfg
         g = [torch.zeros_like(p, dtype=torch.float32) if gi is None
              else gi.float() for gi, p in zip(grads, params)]
@@ -141,7 +146,7 @@ class Optimizer:
                 return
             g, state.acc = state.acc, [torch.zeros_like(a) for a in state.acc]
         if cfg.max_grad_norm is not None:
-            norm = torch.sqrt(sum(gi.square().sum() for gi in g))
+            norm = torch.sqrt(sum_squares(g))
             if not norm < cfg.max_grad_norm:
                 g = [gi / norm * cfg.max_grad_norm for gi in g]
         b1, b2 = cfg.betas
@@ -197,8 +202,11 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
-    params = list(model.parameters())
+def create_train_state(model: nn.Module, tx: Optimizer, placed=None) -> TrainState:
+    """The model's parameters and fresh moments; with ``placed`` (a
+    ``parallel/mesh.Placed`` of the model's parameters) the state holds
+    this rank's pieces, and so do its moments."""
+    params = list(model.parameters()) if placed is None else placed.locals
     return TrainState(params=params, opt_state=tx.init(params))
 
 
@@ -214,7 +222,68 @@ def scatter_mlm_labels(labels: torch.Tensor, mask_pos: torch.Tensor,
     return torch.where(labels[:, None] >= 0, scattered, full)
 
 
-def make_mlm_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True):
+def _labelled(labels: torch.Tensor) -> torch.Tensor:
+    return (labels >= 0).sum()
+
+
+def _classifier_items(labels: torch.Tensor) -> torch.Tensor:
+    """What a classifier loss averages over: the labelled rows of hard
+    labels (xe, −1 ignored), every row of soft ones (kl, bce)."""
+    if labels.dim() == 1:
+        return _labelled(labels)
+    return torch.tensor(labels.shape[0], device=labels.device)
+
+
+def loss_and_grads(model: nn.Module, state: TrainState, batch: tuple,
+                   loss_of: Callable[[tuple], torch.Tensor],
+                   count_of: Callable[[torch.Tensor], torch.Tensor],
+                   mesh=None, placed=None
+                   ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """One step's loss and the gradients of ``state.params``.
+
+    With ``mesh`` (``parallel/mesh.make_mesh``) each rank takes its ``dp``
+    slice of ``batch`` (the whole batch, the same on every rank) and the
+    gradients are averaged over ``dp``, DDP's rule. Each rank's loss is
+    first weighted by dp × its share of the items ``count_of(labels)``
+    counts (the labelled slots of a mean loss), so that the average is the
+    whole batch's gradient when the shares differ too; the loss returned
+    is the whole batch's. With ``placed`` the parameters are gathered
+    into the model first (the fused kernels take whole weights), the
+    gradients are taken of the whole parameters and each is cut to this
+    rank's piece."""
+    if mesh is None:
+        loss = loss_of(batch)
+        return loss.detach(), list(torch.autograd.grad(
+            loss, state.params, allow_unused=True))
+    from cpt_tpu_torch.parallel import mesh as meshlib
+
+    params = state.params
+    if placed is not None:
+        params = list(model.parameters())
+        load_placed(model, placed)
+    n = meshlib.num_dp(mesh)
+    local = meshlib.shard_batch(batch, mesh)
+    weight = n * count_of(local[-1]).float() / count_of(batch[-1]).clamp(min=1)
+    loss = loss_of(local) * weight
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    *grads, loss = meshlib.dp_mean(
+        [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        + [loss.detach()], mesh)
+    if placed is not None:
+        grads = [placed.shard(name, g) for name, g in zip(placed.names, grads)]
+    return loss, grads
+
+
+def load_placed(model: nn.Module, placed) -> None:
+    """Copy the gathered whole parameters of ``placed`` into ``model``."""
+    with torch.no_grad():
+        whole = placed.gather()
+        for name, p in model.named_parameters():
+            p.copy_(whole[name])
+
+
+def make_mlm_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True,
+                        mesh=None, placed=None):
     """MLM prompt-tuning step for ``REC_MLM_CPT``: ``step(state, batch,
     generator)`` → (state, loss). With ``dropout`` the model runs in training
     mode and draws its dropout masks from ``generator``; without it the
@@ -222,20 +291,28 @@ def make_mlm_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True
     the layers take K3 and K4, whose backward is the plain VJP. The loss is
     the cross entropy at the gathered [MASK] positions (the vocab
     projection runs only there), the same math as full-sequence MLM CE with
-    ignore index −1."""
+    ignore index −1. ``mesh`` / ``placed``: data parallel over the mesh's
+    ``dp`` axis and placed parameters (:func:`loss_and_grads`); each rank
+    draws its own dropout masks from its ``generator``."""
 
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, torch.Tensor]:
-        input_ids, segment_ids, attention_mask, img_feats, mask_pos, labels = batch
+        def loss_of(batch):
+            input_ids, segment_ids, attention_mask, img_feats, mask_pos, labels = batch
+            _, at_mask = model(input_ids, segment_ids, attention_mask,
+                               img_feats=img_feats, mask_pos=mask_pos,
+                               generator=generator if dropout else None)
+            return cross_entropy_ignore_index(at_mask, labels)
+
         model.train(dropout)
-        _, at_mask = model(input_ids, segment_ids, attention_mask,
-                           img_feats=img_feats, mask_pos=mask_pos,
-                           generator=generator if dropout else None)
-        loss = cross_entropy_ignore_index(at_mask, labels)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        tx.update(grads, state.opt_state, state.params)
+        loss, grads = loss_and_grads(model, state, batch, loss_of, _labelled,
+                                     mesh, placed)
+        if placed is None:
+            tx.update(grads, state.opt_state, state.params)
+        else:
+            tx.update(grads, state.opt_state, state.params, placed.sum_squares)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step
 
@@ -264,25 +341,30 @@ def make_nsp_train_step(model: nn.Module, tx: Optimizer, *,
     return step
 
 
-def make_cls_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True):
+def make_cls_train_step(model: nn.Module, tx: Optimizer, *, dropout: bool = True,
+                        mesh=None):
     """Classifier step for ``ImageBertForSequenceClassification`` (the
     full-finetune baselines train so): ``step(state, batch, generator)`` →
     (state, loss), ``batch`` = (input_ids, segment_ids, attention_mask,
     img_feats, labels); the model computes its own loss from ``labels``
-    (xe, kl or bce by its config); dropout as in
-    :func:`make_mlm_train_step`."""
-
+    (xe, kl or bce by its config, a mean over the rows); dropout as in
+    :func:`make_mlm_train_step`. ``mesh``: data parallel over its ``dp``
+    axis (:func:`loss_and_grads`)."""
     def step(state: TrainState, batch, generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, torch.Tensor]:
-        input_ids, segment_ids, attention_mask, img_feats, labels = batch
+        def loss_of(batch):
+            input_ids, segment_ids, attention_mask, img_feats, labels = batch
+            loss, _ = model(input_ids, segment_ids, attention_mask,
+                            img_feats=img_feats, labels=labels,
+                            generator=generator if dropout else None)
+            return loss
+
         model.train(dropout)
-        loss, _ = model(input_ids, segment_ids, attention_mask,
-                        img_feats=img_feats, labels=labels,
-                        generator=generator if dropout else None)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+        loss, grads = loss_and_grads(model, state, batch, loss_of,
+                                     _classifier_items, mesh)
         tx.update(grads, state.opt_state, state.params)
         state.step += 1
-        return state, loss.detach()
+        return state, loss
 
     return step
 

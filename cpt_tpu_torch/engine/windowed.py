@@ -353,6 +353,32 @@ def make_two_level_extract_fn(model: AttrRCNN, cfg: DetectorConfig, *,
     return fn
 
 
+def make_sharded_windowed_fn(model: AttrRCNN, cfg: DetectorConfig, mesh,
+                             two_level: bool = False, **kw):
+    """Windowed extraction over a mesh's ``dp`` axis
+    (``cpt_tpu/engine/windowed.py:431-457``): each rank runs its slice of
+    the copies (and their windows) over the shared base map, the outputs
+    come back in copy order, the whole chunk's on every rank.
+    ``two_level=True`` shards the exact two-level path; the signature is
+    :func:`make_windowed_extract_fn`'s, the chunk a multiple of dp."""
+    from cpt_tpu_torch.parallel.mesh import dp_call
+
+    base = (make_two_level_extract_fn(model, cfg, **kw) if two_level
+            else make_windowed_extract_fn(model, cfg, **kw))
+
+    def fn(image_u8, base_feat, origins, rects, rect_valid, colors,
+           copy_valid, dets, det_valid, hw, masks=None, mask_colors=None,
+           inclusive=False):
+        def local(o, r, rv, c, cv, m, mc):
+            return base(image_u8, base_feat, o, r, rv, c, cv, dets, det_valid,
+                        hw, m, mc, inclusive=inclusive)
+
+        return dp_call(local, mesh, origins, rects, rect_valid, colors,
+                       copy_valid, masks, mask_colors)
+
+    return fn
+
+
 def ladder(windows: Sequence) -> list:
     """One window (h, w) or a sequence of them → the windows sorted by
     area, smallest first."""

@@ -27,6 +27,7 @@ from __future__ import annotations
 import os
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -60,9 +61,35 @@ def initialize_from_env() -> bool:
         dist.init_process_group("gloo", init_method="env://")
     else:
         return False
+    close_at_exit()
     if torch.cuda.is_available():
         torch.cuda.set_device(local_device())
     return True
+
+
+def close_at_exit() -> None:
+    """At the interpreter's exit, wait for every process (a barrier), then
+    destroy the process group: a gloo group left to the interpreter's
+    teardown while a peer was still at work ended a process with SIGABRT
+    ("terminate called without an active exception") now and then, after
+    its work was done."""
+    import atexit
+
+    def close():
+        if dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
+
+    atexit.register(close)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost (for a group that the caller starts)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def local_device() -> torch.device:
@@ -106,10 +133,30 @@ def host_shard(items: Sequence, index: Optional[int] = None,
 
 
 def global_batch(local_batch: Any, mesh: Any, axis: str = "dp") -> Any:
-    """Forms a batch sharded over a device mesh: the meshes are not ported
-    yet."""
-    raise SystemExit("global_batch: device meshes are not ported yet "
-                     "(ROADMAP.md Queue 1 item 9(b))")
+    """This process's slice of a batch → one DTensor a leaf, sharded on its
+    leading dimension over ``axis`` of ``mesh`` (``parallel/mesh.make_mesh``)
+    and replicated over the other axes, as ``jax.make_array_from_process_local_data``
+    forms a global array (``cpt_tpu/parallel/distributed.py:113-126``). Each
+    process passes its own slice; a leaf without dimensions is replicated.
+    The slices live on the mesh's device type (the current card for a
+    CUDA mesh)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+
+    def put(x):
+        t = torch.as_tensor(np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                            ).to(device)
+        place = [Shard(0) if name == axis and t.dim() >= 1 else Replicate()
+                 for name in mesh.mesh_dim_names]
+        return DTensor.from_local(t, mesh, place, run_check=False)
+
+    if isinstance(local_batch, dict):
+        return {k: put(v) for k, v in local_batch.items()}
+    if isinstance(local_batch, (list, tuple)):
+        return type(local_batch)(put(v) for v in local_batch)
+    return put(local_batch)
 
 
 def allreduce_sum(*scalars: float) -> tuple:

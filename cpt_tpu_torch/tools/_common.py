@@ -194,11 +194,43 @@ def dtype_of(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
 
-def refuse_dp(args, tool: str) -> None:
-    """Raise on ``--dp`` above 1 (the JAX tools' data-parallel mesh)."""
-    if getattr(args, "dp", 1) > 1:
-        raise SystemExit(f"{tool}: --dp > 1 is not ported yet (ROADMAP.md "
-                         f"Queue 1 item 9(b) (device meshes))")
+def dp_mesh(args, device, *batch_sizes: int):
+    """The data-parallel mesh of ``--dp`` (None for 1): a world of
+    ``--dp`` processes, one a card (``parallel/mesh.make_mesh`` raises
+    ``SystemExit`` with the launch recipe otherwise); each of
+    ``batch_sizes`` must divide by it, as the JAX tools assert."""
+    dp = getattr(args, "dp", 1)
+    if dp <= 1:
+        return None
+    from cpt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=dp, device=device)
+    for b in batch_sizes:
+        if b % dp:
+            raise SystemExit(f"--dp {dp}: batch size {b} does not divide by it")
+    return mesh
+
+
+def writes(mesh) -> bool:
+    """Whether this process writes a tool's files: always without a mesh;
+    rank 0 of one (every rank holds the same results)."""
+    from cpt_tpu_torch.parallel.distributed import is_main_process
+
+    return mesh is None or is_main_process()
+
+
+def dp_forward(model, mesh, *arrays):
+    """``model(ids, segs, attn, img_feats=feats)``'s logits (f32) on
+    ``arrays``; with a mesh each rank runs its dp slice and the logits come
+    back in rank order."""
+    def logits(ids, segs, attn, feats):
+        return model(ids, segs, attn, img_feats=feats)[1].float()
+
+    if mesh is None:
+        return logits(*arrays)
+    from cpt_tpu_torch.parallel.mesh import dp_call
+
+    return dp_call(logits, mesh, *arrays)
 
 
 def step_generator(device, seed: int, step: int) -> torch.Generator:
@@ -237,8 +269,8 @@ def last_step(args, n_steps: int) -> int:
 
 def train_steps(model, args, device, n_steps: int,
                 batch_for: Callable[[int], tuple],
-                on_step: Optional[Callable[[int, float], None]] = None
-                ) -> List[float]:
+                on_step: Optional[Callable[[int, float], None]] = None,
+                mesh=None) -> List[float]:
     """The JAX runners' step loop on ``make_cls_train_step``: ``--optim``
     (AdamW unless the tool has the flag) with the stock betas (0.9, 0.999),
     the clip of ``--max_grad_norm`` and ``--scheduler`` over ``n_steps``
@@ -247,7 +279,9 @@ def train_steps(model, args, device, n_steps: int,
     not the schedule; ``--save_every`` / ``--resume`` keep and restore the
     train state under ``{output_dir}/state``, so a resumed run goes on as
     an uninterrupted one. → this run's losses; ``on_step(step, loss)``
-    after each step (and its save)."""
+    after each step (and its save). ``mesh`` (``--dp``): each rank takes
+    its slice of every batch, the gradients are averaged (DDP), each rank
+    draws its own dropout masks and rank 0 saves."""
     ocfg = train_lib.OptimConfig(
         learning_rate=args.learning_rate, weight_decay=args.weight_decay,
         warmup_steps=int(n_steps * args.warmup_ratio), num_train_steps=n_steps,
@@ -255,7 +289,7 @@ def train_steps(model, args, device, n_steps: int,
         **optim_overrides(args, betas=(0.9, 0.999)))
     tx = train_lib.build_optimizer(model, ocfg)
     state = train_lib.create_train_state(model, tx)
-    step = train_lib.make_cls_train_step(model, tx)
+    step = train_lib.make_cls_train_step(model, tx, mesh=mesh)
     state_dir = os.path.join(args.output_dir or "", "state")
     if args.resume and args.output_dir and restore_train_state(state_dir, state):
         print(f"resumed at step {state.step}")
@@ -264,7 +298,7 @@ def train_steps(model, args, device, n_steps: int,
         state, loss = step(state, batch_for(it),
                            step_generator(device, args.seed, it))
         losses.append(float(loss))
-        if (args.save_every and args.output_dir
+        if (args.save_every and args.output_dir and writes(mesh)
                 and state.step % args.save_every == 0):
             ckpt_lib.save_checkpoint(state_dir, f"step{state.step}", state)
         if on_step is not None:
@@ -277,15 +311,16 @@ def train_epochs(model, args, device, n_examples: int,
                  batch_fn: Callable[[List[int], int], tuple],
                  on_step: Optional[Callable[[int, float], None]] = None,
                  begin_epoch: Optional[Callable[[int], None]] = None,
-                 end_epoch: Optional[Callable[[int, List[float]], None]] = None
-                 ) -> List[float]:
+                 end_epoch: Optional[Callable[[int, List[float]], None]] = None,
+                 mesh=None) -> List[float]:
     """The epoch loop of the JAX runners (run_vqa, run_nlvr) on
     ``train_steps``, over (examples // batch) × epochs steps: each epoch in
     the order a ``random.Random`` seeded from (``--seed``, epoch) shuffles
     it, a step on ``batch_fn(indices, epoch)``. ``begin_epoch(epoch)`` runs
     before an epoch's first step in this run, ``end_epoch(epoch, losses)``
     after its last (or after the step ``--max_steps`` stops at). → this
-    run's losses; ``on_step(step, loss)`` after each step."""
+    run's losses; ``on_step(step, loss)`` after each step. ``mesh``: as
+    :func:`train_steps`."""
     bsz = args.per_gpu_train_batch_size
     per_epoch = max(1, n_examples // bsz)
     n_steps = per_epoch * args.num_train_epochs
@@ -309,7 +344,7 @@ def train_epochs(model, args, device, n_examples: int,
         if end_epoch is not None and (step % per_epoch == 0 or step == stop_at):
             end_epoch((step - 1) // per_epoch, losses)
 
-    train_steps(model, args, device, n_steps, batch_for, after)
+    train_steps(model, args, device, n_steps, batch_for, after, mesh)
     return losses
 
 

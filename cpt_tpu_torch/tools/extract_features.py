@@ -105,12 +105,8 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
 from cpt_tpu_torch.models.detector.rpn import grid_anchors
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
-                                         apply_reference_config)
+                                         apply_reference_config, dp_mesh)
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
-
-# flags of the JAX tool this port does not run yet → their ROADMAP.md item
-_UNPORTED = {"--dp > 1": "Queue 1 item 9(b) (device meshes)"}
-
 
 def build_args():
     p = argparse.ArgumentParser(
@@ -196,8 +192,11 @@ def build_args():
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used without --checkpoint")
-    # --dp > 1 (a device mesh) is not ported: it refuses naming its item
-    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel processes, one a card (the launch "
+                        "needs a world of this many; parallel/mesh.py): each "
+                        "chunk's copies are split over them and rank 0 "
+                        "writes the TSV")
     p.add_argument("--shard_by_process", action="store_true",
                    help="under a multi-process launch (parallel/"
                         "distributed.py) each process extracts its own "
@@ -248,16 +247,6 @@ def apply_ref_to_extract_args(args, ref):
     if args.color_rgb is None and raw.get("COLOR_RGB") is not None:
         args.color_rgb = str(raw["COLOR_RGB"])
     return args
-
-
-def refuse(what: str) -> SystemExit:
-    return SystemExit(f"extract_features: {what} is not ported yet "
-                      f"(ROADMAP.md {_UNPORTED[what]})")
-
-
-def check_ported(args) -> None:
-    if args.dp > 1:
-        raise refuse("--dp > 1")
 
 
 def shard(items, args):
@@ -642,7 +631,9 @@ def main(argv=None) -> dict:
     parser = build_args()
     ref = apply_reference_config(parser, argv)
     args = parser.parse_args(argv)
-    check_ported(args)
+    if args.dp > 1 and args.shard_by_process:
+        parser.error("--dp splits each chunk over the processes; "
+                     "--shard_by_process gives each its own queries: one of them")
     if ref is not None:
         args = apply_ref_to_extract_args(args, ref)
     if args.task is None:
@@ -659,6 +650,7 @@ def main(argv=None) -> dict:
         args.cur_step = distributed.process_index()
         base, ext = os.path.splitext(args.output)
         args.output = f"{base}.shard{args.cur_step}{ext}"
+    mesh = dp_mesh(args, args.device)
     if os.path.dirname(args.output):
         os.makedirs(os.path.dirname(args.output), exist_ok=True)
     if os.path.exists(args.output) and not args.overwrite:
@@ -668,6 +660,8 @@ def main(argv=None) -> dict:
     model = build_detector(cfg, args)
     labelmap = load_labelmap(args.labelmap) if args.labelmap else None
     if args.image_dir:
+        if mesh is not None and not distributed.is_main_process():
+            return {}   # one card writes the plain detection, as in JAX
         import glob
 
         files = shard_and_sample(
@@ -689,7 +683,7 @@ def main(argv=None) -> dict:
                           copies_per_chunk=args.copies_per_chunk,
                           windowed=args.windowed, window=windows,
                           allow_approximate=args.allow_approximate,
-                          labelmap=labelmap)
+                          labelmap=labelmap, mesh=mesh)
     payload = {"refcoco": refcoco_payload, "gqa": gqa_payload,
                "vcr": vcr_payload, "vg": vg_payload,
                "plain": plain_payload}[args.task]

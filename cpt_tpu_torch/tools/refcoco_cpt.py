@@ -33,7 +33,7 @@ from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import refcoco_evaluate
 from cpt_tpu_torch.models.bert.heads import REC_MLM_CPT
 from cpt_tpu_torch.parallel import distributed as dist
-from cpt_tpu_torch.tools._common import load_or_init, refuse_dp
+from cpt_tpu_torch.tools._common import dp_mesh, load_or_init
 from cpt_tpu_torch.utils.tokenization import BertTokenizer, toy_vocab
 
 
@@ -57,8 +57,9 @@ def build_args():
     p.add_argument("--img_seq_len", type=int, default=50)
     p.add_argument("--per_gpu_eval_batch_size", type=int, default=128)
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel devices (only 1 until the parallel "
-                        "port)")
+                   help="data-parallel processes, one a card (the launch needs a "
+                        "world of this many; parallel/mesh.py): each batch "
+                        "is split over them")
     p.add_argument("--per_gpu_train_batch_size", type=int, default=32)
     p.add_argument("--num_train_epochs", type=int, default=20)
     p.add_argument("--learning_rate", type=float, default=2.5e-5)
@@ -102,11 +103,14 @@ def load_model(cfg: BertConfig, args, device, dtype, seed=None) -> REC_MLM_CPT:
 
 
 def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
-          on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
+          on_step: Optional[Callable[[int, float], None]] = None,
+          mesh=None) -> List[float]:
     """Few-shot prompt tuning (the reference's train loop): AdamW with the
     warmup-linear schedule sized like the reference (iterations per epoch ×
     epochs), dropout from a generator seeded with ``--seed``. Returns each
-    step's loss; ``on_step(step, loss)`` is called after each step.
+    step's loss; ``on_step(step, loss)`` is called after each step. With
+    ``mesh`` (``--dp``) each rank takes its slice of every batch and the
+    gradients are averaged (DDP); each rank draws its own dropout masks.
 
     A batch that raises ``RuntimeError`` is skipped, as the reference skips
     it (``refcoco_cpt.py:244-253``). A kernel fault (``KernelError``, not a
@@ -120,7 +124,7 @@ def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
         num_train_steps=approx_steps, lr_mul=args.lr_mul)
     tx = train_lib.build_optimizer(model, ocfg)
     state = train_lib.create_train_state(model, tx)
-    step_fn = train_lib.make_mlm_train_step(model, tx)
+    step_fn = train_lib.make_mlm_train_step(model, tx, mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     losses: List[float] = []
     t0 = time.time()
@@ -148,8 +152,10 @@ def train(model: REC_MLM_CPT, train_data: RefcocoCPTData, args, device,
 def main(argv=None):
     dist.initialize_from_env()
     args = build_args().parse_args(argv)
-    refuse_dp(args, "refcoco_cpt")
     device = torch.device(args.device)
+    mesh = dp_mesh(args, device, args.per_gpu_eval_batch_size,
+                   *([args.per_gpu_train_batch_size] if args.train_data_file
+                     else []))
     tokenizer = BertTokenizer(args.vocab if args.vocab else toy_vocab())
     cfg = model_config(args)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -162,20 +168,22 @@ def main(argv=None):
             args.train_data_file, args.train_ann_file or args.ann_file,
             args.train_det_file or args.det_file, tokenizer,
             args.txt_seq_len, args.img_seq_len, cfg.img_feature_dim)
-        train(model, train_data, args, device)
+        train(model, train_data, args, device, mesh=mesh)
 
     t0 = time.time()
     acc, preds = refcoco_evaluate(model, data, tokenizer,
                                   batch_size=args.per_gpu_eval_batch_size,
-                                  host_sharded=dist.process_count() > 1)
+                                  host_sharded=(mesh is None
+                                                and dist.process_count() > 1),
+                                  mesh=mesh)
     dt = time.time() - t0
     if dist.is_main_process():
         print(f"miou: {acc:.2f}")
         print(f"eval wall-clock: {dt:.1f}s "
               f"({len(data) / max(dt, 1e-9):.1f} queries/s)")
-    if args.output:
+    if args.output and (mesh is None or dist.is_main_process()):
         out = args.output
-        if dist.process_count() > 1:
+        if mesh is None and dist.process_count() > 1:
             out = f"{out}.shard{dist.process_index()}"
         with open(out, "w") as f:
             json.dump({"accuracy": acc, "predictions": preds}, f)

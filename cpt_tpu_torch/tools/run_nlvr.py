@@ -34,9 +34,10 @@ from cpt_tpu_torch.models.bert.heads import (ImageBertForMultipleChoice,
                                              ImageBertForSequenceClassification)
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
-                                         check_img_feature_type, dtype_of,
-                                         load_or_init, model_config, on_device,
-                                         refuse_dp, train_epochs)
+                                         check_img_feature_type, dp_forward,
+                                         dp_mesh, dtype_of, load_or_init,
+                                         model_config, on_device, train_epochs,
+                                         writes)
 
 
 def build_args():
@@ -72,7 +73,9 @@ def build_args():
                         "--use_label_seq off, run_nlvr.py:713; the "
                         "published recipe keeps labels on, our default)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel chips (not ported yet: only 1)")
+                   help="data-parallel processes, one a card (the launch needs a "
+                        "world of this many; parallel/mesh.py): each batch "
+                        "is split over them")
     p.add_argument("--max_steps", type=int, default=0,
                    help="cap total optimizer steps; the LR schedule keeps "
                         "the full epoch horizon (exact-resume kill point)")
@@ -124,12 +127,14 @@ def build_model(args, cfg, device):
 
 
 def train(model, data: NLVRData, args, device,
-          on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
+          on_step: Optional[Callable[[int, float], None]] = None,
+          mesh=None) -> List[float]:
     """The JAX runner's loop (``_common.train_epochs``: ``--optim`` AdamW or
     Adamax, the seeded per-epoch shuffle and per-step dropout,
     ``--max_steps``, ``--save_every`` / ``--resume``), the last batch of
     an epoch padded (label −1). → each step's loss; ``on_step(step,
-    loss)`` after each."""
+    loss)`` after each. ``mesh`` (``--dp``): each batch split over its dp
+    axis (``train_steps``)."""
     def batch(indices, epoch):
         return on_device(device, data.batch(
             indices, pad_to=args.per_gpu_train_batch_size))
@@ -139,23 +144,25 @@ def train(model, data: NLVRData, args, device,
             print(f"epoch {epoch + 1}: loss {losses[-1]:.4f}")
 
     return train_epochs(model, args, device, len(data), batch, on_step,
-                        end_epoch=end_epoch)
+                        end_epoch=end_epoch, mesh=mesh)
 
 
 @torch.inference_mode()
-def evaluate(model, data: NLVRData, batch_size: int
+def evaluate(model, data: NLVRData, batch_size: int, mesh=None
              ) -> Tuple[float, Dict[str, int], np.ndarray]:
     """→ (accuracy·100 over the labeled examples, {ex_id: predicted label},
     f32 logits [len(data), 2]); batches of ``batch_size`` examples (2 ×
-    ``batch_size`` sequences in pair mode)."""
+    ``batch_size`` sequences in pair mode). With ``mesh`` each batch,
+    padded to ``batch_size``, is split over its dp axis."""
     device = next(model.parameters()).device
     model.eval()
     n_correct, n_total, results, out = 0, 0, {}, []
     for start in range(0, len(data), batch_size):
         idxs = list(range(start, min(start + batch_size, len(data))))
-        ids, segs, attn, feats, labels = data.batch(idxs)
-        ids, segs, attn, feats = on_device(device, (ids, segs, attn, feats))
-        logits = model(ids, segs, attn, img_feats=feats)[1].float().cpu().numpy()
+        ids, segs, attn, feats, labels = data.batch(
+            idxs, pad_to=batch_size if mesh else None)
+        logits = dp_forward(model, mesh, *on_device(
+            device, (ids, segs, attn, feats)))[:len(idxs)].cpu().numpy()
         pred = logits.argmax(-1)
         for j, idx in enumerate(idxs):
             results[data.examples[idx].ex_id] = int(pred[j])
@@ -170,9 +177,10 @@ def evaluate(model, data: NLVRData, batch_size: int
 def main(argv=None):
     distributed.initialize_from_env()
     args = build_args().parse_args(argv)
-    refuse_dp(args, "run_nlvr")
     check_img_feature_type(args, "run_nlvr")
     device = torch.device(args.device)
+    mesh = dp_mesh(args, device, args.per_gpu_train_batch_size,
+                   args.per_gpu_eval_batch_size)
     tokenizer = build_tokenizer(args)
     # the reference's NLVR recipe: an mlp classifier, 2 labels; concat mode
     # classifies one sequence with cross entropy
@@ -182,10 +190,10 @@ def main(argv=None):
     data, val = load_data(args, tokenizer, cfg)
     model = build_model(args, cfg, device)
     if args.num_train_epochs > 0:
-        train(model, data, args, device)
-    acc, results, _ = evaluate(model, val, args.per_gpu_eval_batch_size)
+        train(model, data, args, device, mesh=mesh)
+    acc, results, _ = evaluate(model, val, args.per_gpu_eval_batch_size, mesh)
     print(f"nlvr2 accuracy: {acc:.2f}")
-    if args.output:
+    if args.output and writes(mesh):
         with open(args.output, "wb") as f:
             pickle.dump({"accuracy": acc, "results": results}, f)
     return acc

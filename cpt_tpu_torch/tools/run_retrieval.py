@@ -42,9 +42,10 @@ from cpt_tpu_torch.data.retrieval import (CocoIRRetrievalData, RetrievalData,
 from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
-                                         check_img_feature_type, dtype_of,
-                                         load_or_init, model_config, on_device,
-                                         refuse_dp, train_steps)
+                                         check_img_feature_type, dp_forward,
+                                         dp_mesh, dtype_of, load_or_init,
+                                         model_config, on_device, train_steps,
+                                         writes)
 
 
 def build_args():
@@ -108,7 +109,9 @@ def build_args():
                         "off; the published recipes keep it on, our "
                         "default)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel chips (not ported yet: only 1)")
+                   help="data-parallel processes, one a card (the launch needs a "
+                        "world of this many; parallel/mesh.py): each batch "
+                        "is split over them")
     return add_common_args(p)
 
 
@@ -164,13 +167,15 @@ def build_model(args, cfg, device) -> ImageBertForSequenceClassification:
 
 
 def train(model, data: RetrievalData, args, device,
-          on_step: Optional[Callable[[int, float], None]] = None) -> List[float]:
+          on_step: Optional[Callable[[int, float], None]] = None,
+          mesh=None) -> List[float]:
     """The JAX runner's loop (``_common.train_steps``: AdamW, the per-step
     dropout, ``--max_steps``, ``--save_every`` / ``--resume``) over
     ``--train_steps`` steps, step ``it`` on the balanced pairs
     ``data.train_batch`` draws from ``random.Random(seed · 1000003 + it)``
     (``--hard_negative_training``: negatives from the caption candidates).
-    → each step's loss; ``on_step(step, loss)`` after each."""
+    → each step's loss; ``on_step(step, loss)`` after each. ``mesh``
+    (``--dp``): each batch split over its dp axis (``train_steps``)."""
     t0 = time.time()
 
     def batch_for(it):
@@ -185,21 +190,25 @@ def train(model, data: RetrievalData, args, device,
         if step % 20 == 0:
             print(f"step {step}: loss {loss:.4f} ({time.time() - t0:.1f}s)")
 
-    return train_steps(model, args, device, args.train_steps, batch_for, after)
+    return train_steps(model, args, device, args.train_steps, batch_for, after,
+                       mesh)
 
 
 @torch.inference_mode()
 def pair_logits(model, data: RetrievalData,
-                pairs: Sequence[Tuple[str, str]], batch_size: int) -> np.ndarray:
+                pairs: Sequence[Tuple[str, str]], batch_size: int,
+                mesh=None) -> np.ndarray:
     """f32 logits [len(pairs), 2] of [(caption, img_key)], tensorized by
-    ``data`` (its attention-mask type), in batches of ``batch_size``."""
+    ``data`` (its attention-mask type), in batches of ``batch_size``; with
+    ``mesh`` each batch, padded to ``batch_size``, split over its dp
+    axis."""
     device = next(model.parameters()).device
     model.eval()
     t, r, d = data.max_seq_len, data.img_seq_len, data.img_feat_dim
     out = []
     for start in range(0, len(pairs), batch_size):
         chunk = pairs[start:start + batch_size]
-        n = len(chunk)
+        n = batch_size if mesh else len(chunk)
         ids = np.zeros((n, t), np.int32)
         segs = np.zeros((n, t), np.int32)
         attn = np.zeros((n, *data.attn_shape), np.int32)
@@ -208,8 +217,9 @@ def pair_logits(model, data: RetrievalData,
             seq, f = data.tensorize(cap, ik)
             ids[k], segs[k], attn[k], feats[k] = (
                 seq.input_ids, seq.segment_ids, seq.attention_mask, f)
-        ids, segs, attn, feats = on_device(device, (ids, segs, attn, feats))
-        out.append(model(ids, segs, attn, img_feats=feats)[1].float().cpu().numpy())
+        logits = dp_forward(model, mesh, *on_device(device, (ids, segs, attn,
+                                                              feats)))
+        out.append(logits[:len(chunk)].cpu().numpy())
     return np.concatenate(out) if out else np.zeros((0, 2), np.float32)
 
 
@@ -218,13 +228,14 @@ def match_scores(logits: np.ndarray) -> np.ndarray:
     return torch.softmax(torch.from_numpy(logits).float(), -1)[:, 1].numpy()
 
 
-def evaluate(model, data: RetrievalData, args
+def evaluate(model, data: RetrievalData, args, mesh=None
              ) -> Tuple[Dict[str, float], np.ndarray]:
     """→ (R@K metrics, scores): with caption candidates the re-rank (each
     image against its first ``--num_captions_per_img_val`` candidates,
     scores flat in (image, candidate) order), else every caption × image
     pair (scores [captions, images], the caption pool capped from the
-    full pool at ``--num_captions_per_img_val``)."""
+    full pool at ``--num_captions_per_img_val``). ``mesh``: as
+    :func:`pair_logits`."""
     ebsz = args.per_gpu_eval_batch_size
     if data.caption_indexs is not None:
         entries = data.rerank_entries(args.num_captions_per_img_val)
@@ -232,7 +243,7 @@ def evaluate(model, data: RetrievalData, args
         # a candidate's cap_idx indexes the full caption pool
         scores = match_scores(pair_logits(
             model, data, [(data.full_captions[ik][ci], key)
-                          for key, ik, ci, _ in entries], ebsz))
+                          for key, ik, ci, _ in entries], ebsz, mesh))
         labels = np.asarray([lab for *_, lab in entries])
         return rank_rerank(scores, labels, n_cand), scores
     if args.num_captions_per_img_val is not None:
@@ -246,7 +257,7 @@ def evaluate(model, data: RetrievalData, args
     n_img = len(data.img_keys)
     scores = match_scores(pair_logits(
         model, data, [(cap, ik) for cap in captions_flat
-                      for ik in data.img_keys], ebsz)).reshape(
+                      for ik in data.img_keys], ebsz, mesh)).reshape(
         len(captions_flat), n_img)
     return rank_scores(scores, owners, n_img), scores
 
@@ -254,17 +265,18 @@ def evaluate(model, data: RetrievalData, args
 def main(argv=None):
     distributed.initialize_from_env()
     args = build_args().parse_args(argv)
-    refuse_dp(args, "run_retrieval")
     check_img_feature_type(args, "run_retrieval")
     device = torch.device(args.device)
+    mesh = dp_mesh(args, device, args.per_gpu_train_batch_size,
+                   args.per_gpu_eval_batch_size)
     cfg = model_config(args, num_labels=2, loss_type="xe")
     data = load_data(args, build_tokenizer(args), cfg)
     model = build_model(args, cfg, device)
     if args.train_steps > 0:
-        train(model, data, args, device)
-    metrics, scores = evaluate(model, data, args)
+        train(model, data, args, device, mesh=mesh)
+    metrics, scores = evaluate(model, data, args, mesh)
     print("  ".join(f"{k}: {v:.2f}" for k, v in metrics.items()))
-    if args.output:
+    if args.output and writes(mesh):
         with open(args.output, "wb") as f:
             pickle.dump({"metrics": metrics, "scores": scores}, f)
     return metrics

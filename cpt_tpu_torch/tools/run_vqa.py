@@ -45,8 +45,9 @@ from cpt_tpu_torch.models.bert.heads import ImageBertForSequenceClassification
 from cpt_tpu_torch.models.bert.model import Dropout
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_common_args, build_tokenizer,
-                                         dtype_of, load_or_init, model_config,
-                                         on_device, refuse_dp, train_epochs)
+                                         dp_forward, dp_mesh, dtype_of,
+                                         load_or_init, model_config,
+                                         on_device, train_epochs, writes)
 from cpt_tpu_torch.utils import checkpoint as ckpt_lib
 
 
@@ -97,7 +98,9 @@ def build_args():
                    help="eval val every N epochs and keep the best params "
                         "(0 = only at the end)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel chips (not ported yet: only 1)")
+                   help="data-parallel processes, one a card (the launch needs a "
+                        "world of this many; parallel/mesh.py): each batch "
+                        "is split over them")
     p.add_argument("--max_steps", type=int, default=0,
                    help="cap total optimizer steps (reference run_vqa.py "
                         "t_total/max_steps); 0 = run all epochs")
@@ -226,7 +229,7 @@ def reconfigure(model, cfg, hidden_dropout: float, loss_type: str) -> None:
 
 def train(model, data: VQAData, args, device,
           on_step: Optional[Callable[[int, float], None]] = None,
-          val: Optional[VQAData] = None) -> List[float]:
+          val: Optional[VQAData] = None, mesh=None) -> List[float]:
     """The JAX runner's loop (``_common.train_epochs``: AdamW, the seeded
     per-epoch shuffle and per-step dropout, ``--max_steps``,
     ``--save_every`` / ``--resume``), the last batch of an epoch padded
@@ -235,7 +238,8 @@ def train(model, data: VQAData, args, device,
     and optimizer state. With ``--eval_every`` the model ends on the
     parameters of its best val score, each evaluated epoch saved as
     ``checkpoint-{epoch}`` under ``--output_dir``. → each step's loss;
-    ``on_step(step, loss)`` after each."""
+    ``on_step(step, loss)`` after each. ``mesh`` (``--dp``): each batch
+    split over its dp axis (``train_steps``), the evaluations too."""
     cfg = model.config
     best = {"acc": -1.0, "state": None, "epoch": 0}
 
@@ -262,18 +266,18 @@ def train(model, data: VQAData, args, device,
         if (epoch + 1) % 5 == 0 and losses:
             print(f"epoch {epoch + 1}: loss {losses[-1]:.4f}")
         if args.eval_every and (epoch + 1) % args.eval_every == 0:
-            acc = evaluate(model, val, args.per_gpu_eval_batch_size)[0]
+            acc = evaluate(model, val, args.per_gpu_eval_batch_size, mesh)[0]
             print(f"epoch {epoch + 1}: val {acc:.2f}")
             if acc > best["acc"]:
                 best = {"acc": acc, "epoch": epoch + 1, "state": {
                     k: v.detach().clone() for k, v in model.state_dict().items()}}
-            if args.output_dir:
+            if args.output_dir and writes(mesh):
                 ckpt_lib.save_model(os.path.join(
                     args.output_dir, f"checkpoint-{epoch + 1}"),
                     model.state_dict())
 
     losses = train_epochs(model, args, device, len(data), batch, on_step,
-                          begin_epoch, end_epoch)
+                          begin_epoch, end_epoch, mesh)
     if best["state"] is not None:
         model.load_state_dict(best["state"])
         print(f"best val {best['acc']:.2f} at epoch {best['epoch']}")
@@ -281,20 +285,22 @@ def train(model, data: VQAData, args, device,
 
 
 @torch.inference_mode()
-def evaluate(model, data: VQAData, batch_size: int
+def evaluate(model, data: VQAData, batch_size: int, mesh=None
              ) -> Tuple[float, Dict[str, int], np.ndarray]:
     """→ (VQA score·100: the mean over labeled questions of the gt score of
     the argmax answer, {q_id: predicted label}, f32 logits [len(data),
-    num_labels]); batches of ``batch_size`` questions."""
+    num_labels]); batches of ``batch_size`` questions. With ``mesh`` each
+    batch, padded to ``batch_size``, is split over its dp axis and the
+    logits gathered back (``cpt_tpu/tools/run_vqa.py:96-111``)."""
     device = next(model.parameters()).device
     model.eval()
     total_score, n, results, out = 0.0, 0, {}, []
     for start in range(0, len(data), batch_size):
         idxs = list(range(start, min(start + batch_size, len(data))))
-        b, soft, _ = data.batch(idxs)
-        ids, segs, attn, feats = on_device(device, (
+        b, soft, _ = data.batch(idxs, pad_to=batch_size if mesh else None)
+        logits = dp_forward(model, mesh, *on_device(device, (
             b.input_ids, b.segment_ids, b.attention_mask, b.img_feats))
-        logits = model(ids, segs, attn, img_feats=feats)[1].float().cpu().numpy()
+        )[:len(idxs)].cpu().numpy()
         pred = logits.argmax(-1)
         for j, idx in enumerate(idxs):
             ex = data.examples[idx]
@@ -340,8 +346,9 @@ def write_submission(results, label2ans, out_path, fmt: str):
 def main(argv=None):
     distributed.initialize_from_env()
     args = build_args().parse_args(argv)
-    refuse_dp(args, "run_vqa")
     device = torch.device(args.device)
+    mesh = dp_mesh(args, device, args.per_gpu_train_batch_size,
+                   args.per_gpu_eval_batch_size)
     tokenizer = build_tokenizer(args)
     vq = load_codebook(args)
     cfg = model_config(args, num_labels=args.num_labels,
@@ -349,17 +356,20 @@ def main(argv=None):
     data, val = load_data(args, tokenizer, cfg, vq)
     model = build_model(args, cfg, device, vq)
     if args.num_train_epochs > 0:
-        train(model, data, args, device, val=val)
-    acc, results, _ = evaluate(model, val, args.per_gpu_eval_batch_size)
+        train(model, data, args, device, val=val, mesh=mesh)
+    acc, results, _ = evaluate(model, val, args.per_gpu_eval_batch_size, mesh)
     print(f"vqa score: {acc:.2f}")
-    if args.output:
+    if args.output and writes(mesh):
         with open(args.output, "wb") as f:
             pickle.dump({"accuracy": acc, "results": results}, f)
     if args.test_examples:
         test = VQAData(args.feat_file, load_vqa_examples(args.test_examples),
                        args.num_labels, tokenizer, args.max_seq_length,
                        args.max_img_seq_length, cfg.img_feature_dim)
-        test_results = evaluate(model, test, args.per_gpu_eval_batch_size)[1]
+        test_results = evaluate(model, test, args.per_gpu_eval_batch_size,
+                                mesh)[1]
+        if not writes(mesh):
+            return acc
         out_dir = args.output_dir or "."
         os.makedirs(out_dir, exist_ok=True)
         write_submission(

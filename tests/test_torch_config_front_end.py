@@ -409,9 +409,13 @@ def test_tool_refuses_a_multi_process_launch(tmp_path, monkeypatch, tool):
 
 
 def test_refcoco_cpt_refuses_data_parallel():
+    """``--dp 2`` named ROADMAP item 9(b) until the meshes were ported; in
+    a world of one process it now raises with the launch recipe of a
+    world of two (one process a card; it runs there,
+    ``test_torch_train.test_tool_data_parallel_matches_jax``)."""
     from cpt_tpu_torch.tools import refcoco_cpt
 
     with pytest.raises(SystemExit,
-                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9\(b\)"):
+                       match=r"dp 2 × tp 1 needs 2 processes.*CPT_NUM_PROCESSES=2"):
         refcoco_cpt.main(["--data_file", "d", "--ann_file", "a",
-                          "--det_file", "t", "--dp", "2"])
+                          "--det_file", "t", "--dp", "2", "--device", "cpu"])

@@ -574,10 +574,11 @@ def test_train_detector_refusals(monkeypatch, tmp_path):
     ported it: now it trains the relation head over a VG-TSV with
     relations (2 steps, finite losses, the detector's leaves unchanged;
     ``tests/test_torch_scene_graph.py`` holds it to JAX) and still asks
-    for ``--tsv``. The sharded batched step names item 9(b); a
-    multi-process launch named item 9 until the process runtime was
-    ported: the run now goes on under one
-    (``test_torch_distributed.multi_process_env``)."""
+    for ``--tsv``. A multi-process launch named item 9 until the process
+    runtime was ported: the run now goes on under one
+    (``test_torch_distributed.multi_process_env``). The sharded batched
+    step named item 9(b) until the meshes were ported: it now runs
+    (``test_sharded_batched_step_matches_one_process``)."""
     from cpt_tpu_torch.data import vg_tsv
 
     yaml_path = vg_tsv.write_detection_tsv(
@@ -598,13 +599,85 @@ def test_train_detector_refusals(monkeypatch, tmp_path):
     assert all(torch.equal(got[k], v) for k, v in start.items())
     with pytest.raises(SystemExit, match="--sg requires --tsv"):
         train_detector.main(sg)
-    with pytest.raises(SystemExit, match=r"ROADMAP.md Queue 1 item 9\(b\)"):
-        dt.make_detector_train_step_batched(None, None, {}, mesh=object())
+
+
+SHARDED_STEP = r'''
+import json
+import numpy as np
+import torch
+from cpt_tpu_torch.engine import detector_train as dt, solver
+from cpt_tpu_torch.models.detector import convert as dconv
+from cpt_tpu_torch.models.detector.attr_rcnn import AttrRCNNTrainer
+from cpt_tpu_torch.models.detector.config import tiny_detector_config
+from cpt_tpu_torch.parallel import distributed as D, mesh as M
+
+assert D.initialize_from_env()
+pid = D.process_index()
+data = dict(np.load("batch.npz"))
+batch = [torch.from_numpy(data[k]) for k in
+         ("image", "hw", "boxes", "labels", "valid", "attrs", "anchors")]
+
+
+def run(mesh):
+    model = AttrRCNNTrainer(tiny_detector_config())
+    model.load_state_dict(torch.load("sd.pt"))
+    names, leaves = dt.detector_leaves(model)
+    tx = solver.build_detector_optimizer([dconv.jax_path(n) for n in names],
+                                         solver.SolverConfig(warmup_iters=0))
+    state = dt.TrainState(params=leaves, opt_state=tx.init(leaves))
+    step = dt.make_detector_train_step_batched(model, tx, dt.freeze_mask(names),
+                                               mesh)
+    totals = []
+    for it in range(2):
+        state, total, losses = step(state, batch,
+                                    torch.Generator().manual_seed(it))
+        totals.append(float(total))
+    return totals, {k: float(v) for k, v in losses.items()}, dict(
+        zip(names, [t.numpy() for t in state.params]))
+
+
+totals, losses, params = run(M.make_mesh(dp=2, device="cpu"))
+if pid == 0:
+    one = run(None)
+    gap = max(float(np.abs(params[k] - one[2][k]).max()
+                    / max(np.abs(one[2][k]).max(), 1e-12)) for k in params)
+    print(json.dumps({"pid": pid, "totals": totals, "losses": losses,
+                      "one_totals": one[0], "one_losses": one[1],
+                      "gap": gap}), flush=True)
+else:
+    print(json.dumps({"pid": pid, "totals": totals, "losses": losses}),
+          flush=True)
+'''
+
+
+def test_sharded_batched_step_matches_one_process(tmp_path):
+    """``make_detector_train_step_batched(..., mesh)`` over two images on a
+    dp 2 mesh (one image a rank; each draws from its image generator, as
+    in one process), two steps: both ranks' totals and loss dicts equal
+    the one-process batched step's, and so do the updated leaves."""
+    from test_torch_distributed import run_pair
+
+    (b0, b1) = (trainer_batch(s) for s in (0, 1))
+    np.savez(tmp_path / "batch.npz", **dict(zip(
+        ("image", "hw", "boxes", "labels", "valid", "attrs"),
+        [np.stack([a, b]) for a, b in zip(b0[:6], b1[:6])]),
+        anchors=b0[6]))
+    torch.save(dconv.state_from_reference(detector_sd(), tiny_detector_config()),
+               tmp_path / "sd.pt")
+    ranks = run_pair(SHARDED_STEP, tmp_path, timeout=240)
+    one = ranks[0]
+    assert ranks[1]["totals"] == pytest.approx(ranks[0]["totals"], rel=1e-6)
+    for r in ranks:
+        assert r["totals"] == pytest.approx(one["one_totals"], rel=1e-5)
+        for k, v in one["one_losses"].items():
+            assert r["losses"][k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
+    assert one["gap"] <= 1e-5
 
 
 def test_batched_step_is_the_mean_of_single_steps(deterministic):
     """``make_detector_train_step_batched`` over two images: the loss dict
-    is the mean of each image's, and the update that of the mean
+    is the mean of each image's (image ``i`` drawing from
+    ``image_generator(generator, i)``), and the update that of the mean
     gradient."""
     model, names, leaves = port_leaves()
     cfg = dataclasses.replace(solver.SolverConfig(), warmup_iters=0)
@@ -612,12 +685,13 @@ def test_batched_step_is_the_mean_of_single_steps(deterministic):
     b0, b1 = (trainer_batch(s) for s in (0, 1))
     batch = [torch.from_numpy(np.stack([a, b])) for a, b in zip(b0[:6], b1[:6])]
     batch.append(torch.from_numpy(b0[6]))
+    gen = torch.Generator().manual_seed(0)
     singles = [model(*[torch.from_numpy(np.asarray(a)) for a in b],
-                     torch.Generator().manual_seed(0)) for b in (b0, b1)]
+                     dt.image_generator(gen, i)) for i, b in enumerate((b0, b1))]
     tx = solver.build_detector_optimizer([dconv.jax_path(n) for n in names], cfg)
     state = dt.TrainState(params=leaves, opt_state=tx.init(leaves))
     step = dt.make_detector_train_step_batched(model, tx, mask)
-    state, total, losses = step(state, batch, torch.Generator().manual_seed(0))
+    state, total, losses = step(state, batch, gen)
     for k, v in losses.items():
         want = (singles[0][k] + singles[1][k]) / 2
         assert abs(float(v) - float(want)) <= 1e-5 * max(1.0, abs(float(want))), k

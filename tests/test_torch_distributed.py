@@ -52,6 +52,12 @@ def run_pair(script: str, cwd: Path, timeout: int = WORKER_TIMEOUT_S) -> list:
     """``script`` in two processes of one gloo group (``CPT_COORDINATOR``
     on a free localhost port), each under ``timeout``; → the last JSON line
     each printed, by process id."""
+    return run_group(script, cwd, 2, timeout)
+
+
+def run_group(script: str, cwd: Path, n: int, timeout: int = WORKER_TIMEOUT_S
+              ) -> list:
+    """``script`` in ``n`` processes of one gloo group, as :func:`run_pair`."""
     path = cwd / "worker.py"
     path.write_text(script)
     port = free_port()
@@ -59,8 +65,8 @@ def run_pair(script: str, cwd: Path, timeout: int = WORKER_TIMEOUT_S) -> list:
         [sys.executable, str(path)], cwd=str(cwd), text=True,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2",
-                 CPT_COORDINATOR=f"127.0.0.1:{port}", CPT_NUM_PROCESSES="2",
-                 CPT_PROCESS_ID=str(i))) for i in range(2)]
+                 CPT_COORDINATOR=f"127.0.0.1:{port}", CPT_NUM_PROCESSES=str(n),
+                 CPT_PROCESS_ID=str(i))) for i in range(n)]
     outs = []
     try:
         for p in procs:
@@ -91,8 +97,16 @@ def test_single_process_identities(monkeypatch):
     # WORLD_SIZE above 1 without a coordinator is one process, as in JAX
     monkeypatch.setenv("WORLD_SIZE", "2")
     assert distributed.initialize_from_env() is jdist.initialize_from_env() is False
-    with pytest.raises(SystemExit, match=r"ROADMAP.md Queue 1 item 9\(b\)"):
-        distributed.global_batch({"x": [1]}, mesh=None)
+    # global_batch named ROADMAP item 9(b) until the meshes were ported: in
+    # a world of one, over a mesh of one, the local batch is the global one
+    from cpt_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        g = distributed.global_batch({"x": [1, 2]}, make_mesh(dp=1, device="cpu"))
+        assert g["x"].full_tensor().tolist() == [1, 2]
+        assert distributed.process_count() == 1
+    finally:
+        distributed.dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("n,count", [(10, 3), (7, 2), (2, 4), (0, 2), (5, 1)])

@@ -74,13 +74,17 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  "ops.focal_loss", "ops.roi_pool", "ops.deform_conv",
                  "models.detector.fpn", "models.detector.extra_heads",
                  "models.detector.fbnet", "models.detector.msvit",
-                 "parallel.distributed")
+                 "parallel.distributed",
+                 # the meshes, the pipeline and the synthetic fixtures
+                 "parallel.mesh", "parallel.pipeline", "data.synthetic",
+                 "tools.dryrun_multichip")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
     """The pretraining, explore, detector-training and scene-graph modules,
-    the detector library modules and the process runtime import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
+    the detector library modules, the process runtime, the meshes and the
+    pipeline import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
     blocked, and load none of them."""
     script = f"""
 import sys

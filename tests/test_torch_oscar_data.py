@@ -332,15 +332,39 @@ RUNNERS = {"run_vqa": run_vqa, "run_gqa": run_gqa, "run_nlvr": run_nlvr,
            "run_retrieval": run_retrieval}
 
 
+# ``--dp 2`` of each runner in two processes: its argv (batches divide by 2)
+DP_ARGV = {
+    "run_vqa": lambda p: ["--feat_file", p["feat_file"], "--examples", p["vqa"],
+                          "--num_labels", "5", "--max_seq_length", "16",
+                          "--max_img_seq_length", "6", "--loss_type", "bce",
+                          "--num_train_epochs", "2",
+                          "--per_gpu_train_batch_size", "4",
+                          "--per_gpu_eval_batch_size", "4"],
+    "run_nlvr": lambda p: ["--feat_file", p["feat_file"], "--examples", p["nlvr"],
+                           "--max_seq_length", "12", "--max_img_seq_length",
+                           "6", "--pair_mode", "pair", "--num_train_epochs",
+                           "2", "--per_gpu_train_batch_size", "4",
+                           "--per_gpu_eval_batch_size", "8"],
+    "run_retrieval": lambda p: ["--feat_file", p["feat_file"], "--captions",
+                                p["captions"], "--max_seq_length", "14",
+                                "--max_img_seq_length", "6", "--train_steps",
+                                "3", "--per_gpu_train_batch_size", "8",
+                                "--per_gpu_eval_batch_size", "16"]}
+DP_ARGV["run_gqa"] = DP_ARGV["run_vqa"]
+
+
 @pytest.mark.parametrize("name", sorted(RUNNERS))
 @pytest.mark.parametrize("ask", ["dp", "world_size", "dis_code"])
-def test_runner_refusals(name, ask, monkeypatch):
-    """``--dp 2`` names ROADMAP item 9(b) (the device meshes); a
-    two-process environment named item 9 until the process runtime was
-    ported: the runner now calls ``initialize_from_env`` first and runs
-    under one (``test_torch_distributed.multi_process_env``); the
-    discrete-code features over region features are refused as the JAX
-    runners refuse them (run_vqa / run_gqa: no integer code ids in the
+def test_runner_refusals(name, ask, monkeypatch, tmp_path):
+    """``--dp 2`` named ROADMAP item 9(b) until the meshes were ported: it
+    now runs in two processes, one rank each, against the JAX runner's
+    ``--dp 2`` (``test_torch_oscar_runners.run_both_dp``: the same score
+    and pickled results, trained parameters within PARAM_ATOL on each
+    rank). A two-process environment named item 9 until the process
+    runtime was ported: the runner now calls ``initialize_from_env``
+    first and runs under one (``test_torch_distributed.multi_process_env``);
+    the discrete-code features over region features are refused as the
+    JAX runners refuse them (run_vqa / run_gqa: no integer code ids in the
     features; the others: codes are for those two only)."""
     argv = runner_args(name)
     if ask == "world_size":
@@ -349,12 +373,19 @@ def test_runner_refusals(name, ask, monkeypatch):
         assert calls == [True]
         return
     if ask == "dp":
-        argv += ["--dp", "2"]
-    else:
-        argv += ["--img_feature_type", "dis_code"]
-    if ask != "dis_code":
-        match = r"ROADMAP.md Queue 1 item 9\(b\)"
-    elif name in ("run_vqa", "run_gqa"):
+        from test_torch_oscar_runners import LOGIT_TOL, PARAM_ATOL, run_both_dp
+
+        out = run_both_dp(name[len("run_"):], DP_ARGV[name](fixture_paths()),
+                          tmp_path, monkeypatch)
+        assert out["port"] == [out["jax"]] * 2
+        got, want = out["port_pickle"], out["jax_pickle"]
+        if "scores" in want:   # retrieval's match scores, in [0, 1]
+            assert np.abs(got.pop("scores") - want.pop("scores")).max() <= LOGIT_TOL
+        assert got == want
+        assert max(out["gaps"]) <= PARAM_ATOL
+        return
+    argv += ["--img_feature_type", "dis_code"]
+    if name in ("run_vqa", "run_gqa"):
         match = "needs integer code-id arrays"
     else:
         match = "supported by run_vqa / run_gqa"

@@ -136,6 +136,85 @@ def run_both(name, argv, tmp_path, monkeypatch) -> dict:
     return out
 
 
+DP_WORKER = r'''
+import dataclasses
+import json
+import pickle
+
+import numpy as np
+import torch
+from cpt_tpu_torch.parallel import distributed as D
+from cpt_tpu_torch.tools import run_gqa, run_nlvr, run_retrieval, run_vqa
+from cpt_tpu_torch.utils import convert as bconv
+
+case = json.load(open("case.json"))
+mods = {"run_vqa": run_vqa, "run_gqa": run_gqa, "run_nlvr": run_nlvr,
+        "run_retrieval": run_retrieval}
+entry, mod = mods[case["entry"]], mods[case["module"]]
+with open("trees.pkl", "rb") as f:
+    init_tree, final_tree = pickle.load(f)
+real_config, real_build = mod.model_config, mod.build_model
+mod.model_config = lambda args, **kw: dataclasses.replace(
+    real_config(args, **kw), hidden_dropout_prob=0.0,
+    attention_probs_dropout_prob=0.0)
+built = []
+
+
+def build(*a):
+    model = real_build(*a)
+    model.load_state_dict(bconv.params_from_jax(init_tree, model.config,
+                                                model.TASK))
+    built.append(model)
+    return model
+
+
+mod.build_model = build
+result = entry.main(case["argv"])
+model = built[-1]
+want = bconv.params_from_jax(final_tree, model.config, model.TASK)
+gap = max(float((t - torch.as_tensor(want[k])).abs().max())
+          for k, t in model.state_dict().items())
+print(json.dumps({"pid": D.process_index(), "result": result, "gap": gap},
+                 default=float),
+      flush=True)
+'''
+
+
+def run_both_dp(name, argv, tmp_path, monkeypatch) -> dict:
+    """``argv`` with ``--dp 2`` into the JAX runner (a dp 2 mesh of this
+    process's devices) and into the port's, two gloo processes one rank
+    each, the JAX initialized tree carried into the port and dropout off,
+    as :func:`run_both`. → both results and pickles (rank 0 writes the
+    port's), and each rank's largest gap to the JAX trained parameters."""
+    from test_torch_distributed import run_pair
+
+    jentry, pentry, jmod, pmod = RUNNERS[name]
+    monkeypatch.setattr(jmod, "model_config", no_dropout(jmod.model_config))
+    trees = []
+    real_init = jmod.load_or_init
+    monkeypatch.setattr(jmod, "load_or_init", lambda *a, **kw: trees.append(
+        real_init(*a, **kw)) or trees[-1])
+    spy = JitSpy()
+    monkeypatch.setattr(jmod, "jax", spy)
+    argv = argv + TINY + ["--checkpoint", oscar_checkpoint(), "--dp", "2"]
+    out = {"jax": jentry.main(argv + ["--output", str(tmp_path / "jax.pk")])}
+    with open(tmp_path / "trees.pkl", "wb") as f:
+        pickle.dump(jax.tree_util.tree_map(np.asarray, (trees[-1],
+                                                        spy.params[-1])), f)
+    (tmp_path / "case.json").write_text(json.dumps({
+        "entry": pentry.__name__.split(".")[-1],
+        "module": pmod.__name__.split(".")[-1],
+        "argv": argv + ["--device", "cpu", "--output",
+                        str(tmp_path / "port.pk")]}))
+    ranks = run_pair(DP_WORKER, tmp_path, timeout=300)
+    out["port"] = [r["result"] for r in ranks]
+    out["gaps"] = [r["gap"] for r in ranks]
+    for pkg in ("jax", "port"):
+        with open(tmp_path / f"{pkg}.pk", "rb") as f:
+            out[pkg + "_pickle"] = pickle.load(f)
+    return out
+
+
 def assert_params_close(model, jax_params):
     want = bconv.params_from_jax(jax_params, model.config, model.TASK)
     got = model.state_dict()

@@ -383,7 +383,14 @@ def test_extract_features_int8_matches_jax_tool(tmp_path):
     out = tool.main(common + ["--device", "cpu", "--output",
                               str(tmp_path / "port.tsv")])
     assert out["copies"] == 6
-    want, got = _rows(tmp_path / "jax.tsv"), _rows(tmp_path / "port.tsv")
+    assert_rows_match(tmp_path / "port.tsv", tmp_path / "jax.tsv")
+
+
+def assert_rows_match(got_tsv, want_tsv):
+    """Two extraction TSVs of the synthetic queries ``syn0``, ``syn1``: the
+    same keys, payloads, rects and classes; features and confidences within
+    1e-5 of their scale."""
+    want, got = _rows(want_tsv), _rows(got_tsv)
     assert [k for k, _ in got] == [k for k, _ in want] == ["syn0", "syn1"]
     for (_, g), (_, w) in zip(got, want):
         assert g[1:] == w[1:]                       # caption, colors, rects
@@ -404,8 +411,9 @@ def test_extract_features_int8_matches_jax_tool(tmp_path):
     (["--config_file", "c.yaml"], "item 3"),
     (["--opts"], "item 3"), (["--image_dir", "d"], "item 5")])
 def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
-    """``--dp 2`` refuses, naming Queue 1 item 9(b); ``--shard_by_process``
-    (item 9(a)) runs: in one process its one shard, ``o.shard0.tsv``, is
+    """``--dp 2`` named Queue 1 item 9(b) until the meshes were ported: it
+    now runs in two processes against the JAX tool's ``--dp 2``
+    (:func:`run_dp2_against_jax`); ``--shard_by_process`` (item 9(a)) runs: in one process its one shard, ``o.shard0.tsv``, is
     the whole extraction. The flags of items 3 and 5 are ported and run: --config_file reads its yaml (a
     missing one raises as in JAX), --opts without it changes nothing, and
     --image_dir over a folder without .jpg files writes an empty TSV."""
@@ -423,9 +431,7 @@ def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
         assert (tmp_path / "o.shard0.tsv").read_bytes() == (
             tmp_path / "plain.tsv").read_bytes()
     elif item == "item 9":
-        with pytest.raises(SystemExit, match=r"ROADMAP.md Queue 1 item 9\(b\)"):
-            tool.main(argv)
-        assert not out.exists()
+        run_dp2_against_jax(tmp_path)
     elif "--config_file" in flags:
         with pytest.raises(FileNotFoundError, match="c.yaml"):
             tool.main(argv)
@@ -439,6 +445,37 @@ def test_extract_features_refuses_what_is_not_ported(tmp_path, flags, item):
         (tmp_path / "d").mkdir()
         got = tool.main(argv + ["--tiny", "--device", "cpu"])
         assert got["images"] == 0 and out.read_text() == ""
+
+
+DP_EXTRACT = r'''
+import json
+from cpt_tpu_torch.parallel import distributed as D
+from cpt_tpu_torch.tools import extract_features
+
+out = extract_features.main(json.load(open("argv.json")))
+print(json.dumps({"pid": D.process_index(), "copies": out["copies"]}),
+      flush=True)
+'''
+
+
+def run_dp2_against_jax(tmp_path):
+    """``extract_features --tiny --synthetic 2 --dp 2`` in two processes
+    (each chunk of 4 copies split 2 and 2, rank 0 writing the TSV) against
+    the JAX tool's ``--dp 2`` on the same checkpoint."""
+    from cpt_tpu.tools import extract_features as jtool
+    from test_torch_distributed import run_pair
+
+    sd = random_vinvl_state_dict(jdet_cfg.tiny_detector_config(), seed=8)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, tmp_path / "det.pth")
+    common = ["--tiny", "--synthetic", "2", "--copies_per_chunk", "4",
+              "--dtype", "float32", "--checkpoint", str(tmp_path / "det.pth"),
+              "--dp", "2"]
+    jtool.main(common + ["--output", str(tmp_path / "jax.tsv")])
+    (tmp_path / "argv.json").write_text(json.dumps(
+        common + ["--device", "cpu", "--output", str(tmp_path / "port.tsv")]))
+    ranks = run_pair(DP_EXTRACT, tmp_path)
+    assert [r["copies"] for r in ranks] == [6, 6]
+    assert_rows_match(tmp_path / "port.tsv", tmp_path / "jax.tsv")
 
 
 def test_int8_gap_tool_runs_tiny():

@@ -5,6 +5,7 @@ mode), ``REC_MLM_CPT`` loss and gradients under ``"einsum"`` and
 variant against optax, the train batches, dropout, and the
 ``refcoco_cpt`` tool (training, zero-shot parity, the batch skip)."""
 import dataclasses
+import functools
 import json
 
 import jax
@@ -378,9 +379,65 @@ def test_tool_trains_then_evaluates(fixture_paths, monkeypatch):
         "--num_train_epochs", "3", "--per_gpu_train_batch_size", "4"])
     assert 0.0 <= acc <= 100.0
     assert len(losses) == 9 and all(np.isfinite(losses))
-    with pytest.raises(SystemExit,
-                       match=r"--dp > 1 .*ROADMAP.md Queue 1 item 9\(b\)"):
-        refcoco_cpt.main(_tool_args(fixture_paths) + ["--dp", "2"])
+
+
+DP_TOOL = r'''
+import functools
+import json
+import sys
+from cpt_tpu_torch.engine import train as train_lib
+from cpt_tpu_torch.parallel import distributed as D
+from cpt_tpu_torch.tools import refcoco_cpt
+
+train_lib.make_mlm_train_step = functools.partial(train_lib.make_mlm_train_step,
+                                                  dropout=False)
+losses = []
+real_train = refcoco_cpt.train
+refcoco_cpt.train = lambda *a, **kw: losses.extend(real_train(*a, **kw))
+acc = refcoco_cpt.main(json.load(open("argv.json")))
+print(json.dumps({"pid": D.process_index(), "acc": acc, "losses": losses}),
+      flush=True)
+'''
+
+
+def test_tool_data_parallel_matches_jax(fixture_paths, tmp_path, monkeypatch):
+    """``--dp 2`` named ROADMAP item 9(b) until the meshes were ported: two
+    processes, one rank each, now train 3 epochs of batch 4 (2 a rank,
+    gradients averaged, dropout off) and evaluate batches of 8 split over
+    them, against the JAX tool's ``--dp 2`` on the same checkpoint: the
+    same accuracy and predicted boxes (rank 0 writes them); both ranks
+    report the whole batches' losses, those of the one-process run."""
+    from test_torch_distributed import run_pair
+
+    jcfg = jtool.model_config(jtool.build_args().parse_args(
+        _tool_args(fixture_paths, False)))
+    ckpt = tmp_path / "pytorch_model.bin"
+    torch.save({k: torch.from_numpy(v) for k, v in
+                jconv.random_oscar_state_dict(jcfg, seed=5).items()}, ckpt)
+    common = ["--checkpoint", str(ckpt), "--train_data_file",
+              fixture_paths["data_file"], "--num_train_epochs", "3",
+              "--per_gpu_train_batch_size", "4", "--learning_rate", "1e-3"]
+    monkeypatch.setattr(jtrain, "make_mlm_train_step", functools.partial(
+        jtrain.make_mlm_train_step, dropout=False))
+    want = jtool.main(_tool_args(fixture_paths, False) + common
+                      + ["--dp", "2", "--output", str(tmp_path / "jax.json")])
+    (tmp_path / "argv.json").write_text(json.dumps(
+        _tool_args(fixture_paths) + common
+        + ["--dp", "2", "--output", str(tmp_path / "port.json")]))
+    ranks = run_pair(DP_TOOL, tmp_path)
+    assert [r["acc"] for r in ranks] == [want] * 2
+    with open(tmp_path / "jax.json") as f, open(tmp_path / "port.json") as g:
+        assert json.load(f)["predictions"] == json.load(g)["predictions"]
+    losses = []
+    real_train = refcoco_cpt.train
+    monkeypatch.setattr(train, "make_mlm_train_step", functools.partial(
+        train.make_mlm_train_step, dropout=False))
+    monkeypatch.setattr(refcoco_cpt, "train", lambda *a, **kw: losses.extend(
+        real_train(*a, **kw)))
+    refcoco_cpt.main(_tool_args(fixture_paths) + common)
+    assert len(losses) == 9
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("fault", [RuntimeError, KernelError, "bias_grad"])
