@@ -82,12 +82,20 @@ Phases (any failure raises and the script exits non-zero):
    batched by 8 and one a query against the full path (each warmed up,
    then timed once); and one cascaded
    two-level call against the plain one;
-8. the grounding server (``tools/serve.py``, built through its own
+8. the Pillow-free pixel operations (``utils/image_ops``) on the host:
+   ``RESIZE_DIGESTS`` (Pillow 12.1's output on seeded inputs) reproduced,
+   each of ``IMAGE_OP_FAULTS`` changing one, host ms per call; then the
+   grounding server (``tools/serve.py``, built through its own
    ``build_args`` / ``CPTService`` at full width, random weights from seed
    0): an 8- and a 16-candidate request on 600×800 arrays (no resize)
    against ``cpt_predict.predict`` on the same weights (same box, scores
    within SCORE_TOL; K1 50 and K2 1 a request, K3 and K4 12 a scoring
-   batch), HTTP on 127.0.0.1 (``/healthz`` reports "cuda", 129 dets → 400,
+   batch), two 8-candidate requests that take the resize rule
+   (``RESIZED_REQUESTS``: 480×640 ×1.25 and 1200×1600 ×0.5, to 600×800)
+   against ``cpt_predict.predict`` on the image resized by image_ops and
+   the dets scaled (the same pick, scores within SCORE_TOL, K1 50, K2 1,
+   K3 12, K4 12 each; host ms, and host and device ms under
+   ``torch.profiler`` beside an 8-candidate 600×800 request's), HTTP on 127.0.0.1 (``/healthz`` reports "cuda", 129 dets → 400,
    an unknown path → 404, a predict round trip with the image decoded by
    ``npy_pillow``; during it every output of both models an inference
    tensor and no parameter with a gradient; allocated bytes within 1% after
@@ -100,7 +108,12 @@ Phases (any failure raises and the script exits non-zero):
    K6 / K6b / K6c at ``[16,12,140,64]`` against their plain versions and
    named faults; 4 questions painted from numpy masks in 3 colors
    (``stage1_tasks.vcr_color_task_from_masks``, two members on one box)
-   and extracted by phase 4's detector (K1 50 and K2 1 a question); q->a,
+   and extracted by phase 4's detector (K1 50 and K2 1 a question);
+   ``extract_features --task vcr`` over ``vcr_polygon_fixture`` (2
+   questions on multi-part polygons with an empty and a one-point part, a
+   member without a polygon), its TSV byte-equal to the same run fed
+   ``image_ops.fill_polygon``'s masks through ``vcr_color_task_from_masks``
+   (K1 50 and K2 1 a question); q->a,
    qa->r and q->ar (twin heads, the "rat" head moved off the "ans" one)
    scored by ``vcr_nsp_cpt.run_eval`` under ``"auto"`` (K3 and K4 12 a
    batch), each candidate within VCR_SCORE_TOL of an f32 einsum NSPCPT
@@ -174,7 +187,10 @@ Phases (any failure raises and the script exits non-zero):
    mAP finite); ``extract_features --image_dir`` over the 4 images as
    ``.jpg`` files of npy bytes (``npy_pillow``), each row's rects equal to
    ``test_detector``'s detections on that image and its 2054-d features
-   finite.
+   finite; ``extract_features --task refcoco --resize`` over 2 480×640
+   images whose 3 dets carry RLE masks (``seg_resize_extract``; image and
+   masks rescaled ×1.25 by image_ops): 2 rows of 3 copies, finite
+   features, K1 50 and K2 1 an image.
 13. the Oscar classification runners at full width (Oscar-base from one
    random reference-layout checkpoint, seed 0; heads fresh from seed 0,
    their biases drawn from N(0, OSCAR_BIAS_STD²)) on synthetic 2054-d
@@ -274,10 +290,12 @@ Phases (any failure raises and the script exits non-zero):
    (K1 53, K2 2 a step, ``SG_STEP_LAUNCHES``; host ms, peak memory), then
    one step's loss and ``SG_GRAD_LEAVES`` gradients against the f32 twin
    (SG_LOSS_TOL, SG_GRAD_TOL; K1's dx cut missing it) and one step under
-   ``torch.profiler``; ``test_detector --synthetic 2 --bbox_aug`` (hflip:
-   the card has no Pillow for rescales): K1 100, K2 2, K5 5 an image,
-   each merge's K5 launch equal to ``nms_padded`` on its own inputs, and
-   K5 at the first merge's K in phase 3's manner.
+   ``torch.profiler``; ``test_detector --synthetic 2 --bbox_aug`` (hflip):
+   K1 100, K2 2, K5 5 an image, then with ``--bbox_aug_scales 0.75,1.25``
+   (4 passes, the rescales by ``utils/image_ops``): K1 200, K2 4, K5 9 an
+   image; in both each merge's K5 launch equal to ``nms_padded`` on its
+   own inputs, mAP finite, and K5 at the largest merge's K in phase 3's
+   manner.
 18. the detector library modules at full width (random weights from a
    seed, bf16, one 640×1024 canvas): K1 at the fourth stage's
    ``K1_FPN_SHAPES`` (``[1,40,64,2048]`` stride 2, ``[1,20,32,2048]``) beside
@@ -3148,18 +3166,189 @@ def run_windowed(res, counters, smi: str, rows: list) -> dict:
     return out
 
 
-# Phase 8: the grounding server. Requests are 600x800 arrays (the shorter
-# side is MIN_SIZE_TEST, so the server resizes nothing and needs no Pillow)
-# with candidate boxes drawn as run_requests draws them.
+# Phase 8: the grounding server. Most requests are 600x800 arrays (the
+# shorter side is MIN_SIZE_TEST, so the server resizes nothing) with
+# candidate boxes drawn as run_requests draws them; two take the resize rule
+# (RESIZED_REQUESTS: 480x640 scaled up ×1.25, 1200x1600 down ×0.5, both to
+# 600x800).
 SERVE_CAPTION = "the person on the left"
+RESIZED_REQUESTS = {"up": (2031, 480, 640, 400), "down": (2032, 1200, 1600, 1000)}
 
 
-def serve_request(rng, n_dets: int, h: int = 600, w: int = 800) -> tuple:
+def serve_request(rng, n_dets: int, h: int = 600, w: int = 800,
+                  span: float = 500) -> tuple:
     img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
-    xy = rng.uniform(0, 500, (n_dets, 2))
+    xy = rng.uniform(0, span, (n_dets, 2))
     wh = rng.uniform(24, 300, (n_dets, 2))
     boxes = np.concatenate([xy, np.minimum(xy + wh, [w - 1, h - 1])], 1)
     return img, np.round(boxes).tolist()
+
+
+def resized_request(name: str) -> tuple:
+    """One of RESIZED_REQUESTS: (image, 8 candidate boxes)."""
+    seed, h, w, span = RESIZED_REQUESTS[name]
+    return serve_request(np.random.RandomState(seed), 8, h, w, span)
+
+
+# The Pillow-free pixel operations (utils/image_ops) on the card's host:
+# SHA-256 of Pillow 12.1's output on seeded inputs (resize_digest_inputs),
+# computed with Pillow on a CPU (tests/test_torch_image_ops.py holds them to
+# Pillow). image_ops must reproduce each; each of IMAGE_OP_FAULTS must
+# change one: nearest indices multiplied instead of accumulated, the
+# bilinear support not widened when downscaling (no antialias), the
+# vertical pass first, and the polygon's span ends rounded to the nearest
+# integer (halves to even) instead of Pillow's ROUND_UP / ROUND_DOWN.
+RESIZE_DIGESTS = {
+    "serve_up":
+        "056794c9f1bd6edb8cd9116e9798e3acb83a345f4d0b4be3aecebddfaf8297df",
+    "serve_down":
+        "6f9d35826738fab89596f6f759e8d87fef2602359ad0cd108246919aed26198f",
+    "bbox_aug_0.75":
+        "de398a1b8e7229aa5416b8a059e865b5d921697eeeca3e5e29ca0c38bac265dc",
+    "bbox_aug_1.25":
+        "d1dda1e794c7f09aeb3be4ebd0c0a63a663186eab88701d2d6d2c6c76a677190",
+    "mask_nearest":
+        "29de12c1d1a3670ea55d8e47232543713ec091a1a79a8c4963d58c86c0669329",
+    "polygons":
+        "962bd90636103d30a193c8cd5f1971407a3b5a8e0bf03b88493354a7d32429f7",
+}
+IMAGE_OP_FAULTS = ("nearest_multiplied", "narrow_support", "vertical_first",
+                   "span_ends_plain")
+SG_SYNTHETIC_SIZE = 1024         # test_detector --synthetic's canvas, phase 17
+
+
+def vcr_polygon_fixture(h: int = 600, w: int = 800) -> dict:
+    """Phase 9's VCR questions from polygons: one image, 6 entities with
+    multi-part polygons (a part may be empty, or a single point), entity 5
+    without one; two questions in the ``img_key`` layout of
+    ``extract_features --task vcr``."""
+    rng = np.random.RandomState(2029)
+    polys = {}
+    for i in range(5):
+        cx, cy = rng.uniform(80, w - 80), rng.uniform(80, h - 80)
+        parts = []
+        for _ in range(1 + i % 3):
+            n = rng.randint(3, 9)
+            ang = rng.uniform(0, 2 * np.pi, n)
+            r = rng.uniform(10, 90, n)
+            parts.append(np.round(np.stack([cx + r * np.cos(ang),
+                                            cy + r * np.sin(ang)], 1), 1).tolist())
+        if i == 2:
+            parts.append([])
+        if i == 3:
+            parts.append([[float(cx), float(cy)]])
+        polys[i] = parts
+    boxes = []
+    for i in range(6):
+        pts = np.asarray([p for part in polys.get(i, [[[40.0, 40.0],
+                                                        [200.0, 160.0]]])
+                          for p in part], np.float32).reshape(-1, 2)
+        x1, y1 = np.maximum(pts.min(0), 0)
+        x2, y2 = np.minimum(pts.max(0), [w - 1, h - 1])
+        boxes.append([float(x1), float(y1), float(x2), float(y2)])
+    names = ["person", "person", "dog", "cat", "man", "woman"]
+    questions = [{"img_key": f"vcrpoly{q}", "img_path": "vcr.jpg",
+                  "entity_ids": [[q], [1 + q, 5], [3 + q]]} for q in range(2)]
+    return {"image": rng.randint(0, 256, (h, w, 3)).astype(np.uint8),
+            "polygons": polys, "boxes": boxes, "names": names,
+            "questions": questions}
+
+
+def resize_digest_inputs() -> dict:
+    """name → (image_ops function name, its arguments) of RESIZE_DIGESTS."""
+    up, down = resized_request("up")[0], resized_request("down")[0]
+    sg = np.random.RandomState(0).randint(
+        0, 256, (SG_SYNTHETIC_SIZE, SG_SYNTHETIC_SIZE, 3)).astype(np.uint8)
+    mask = (np.random.RandomState(2030).rand(480, 640) < 0.5).astype(np.uint8)
+    fx = vcr_polygon_fixture()
+    polys = [part for i in sorted(fx["polygons"]) for part in fx["polygons"][i]]
+    s75, s125 = (int(round(SG_SYNTHETIC_SIZE * s)) for s in (0.75, 1.25))
+    return {"serve_up": ("resize_bilinear", (up, (800, 600))),
+            "serve_down": ("resize_bilinear", (down, (800, 600))),
+            "bbox_aug_0.75": ("resize_bilinear", (sg, (s75, s75))),
+            "bbox_aug_1.25": ("resize_bilinear", (sg, (s125, s125))),
+            "mask_nearest": ("resize_nearest", (mask, (800, 600))),
+            "polygons": ("fill_polygon", (polys, 600, 800))}
+
+
+def image_op_digests(inputs: dict) -> tuple:
+    """(name → SHA-256 of ``utils/image_ops``' output, name → host ms)."""
+    import hashlib
+
+    from cpt_tpu_torch.utils import image_ops
+
+    digests, ms = {}, {}
+    for name, (fn, args) in inputs.items():
+        t = time.perf_counter()
+        out = np.ascontiguousarray(getattr(image_ops, fn)(*args), np.uint8)
+        ms[name] = (time.perf_counter() - t) * 1e3
+        digests[name] = hashlib.sha256(out.tobytes()).hexdigest()
+    return digests, ms
+
+
+@contextlib.contextmanager
+def image_op_fault(fault: str):
+    """``utils/image_ops`` with one of IMAGE_OP_FAULTS."""
+    from cpt_tpu_torch.utils import image_ops as io
+
+    def narrow_taps(n_in, n_out):
+        scale = n_in / n_out
+        center = (np.arange(n_out) + 0.5) * scale
+        lo = np.maximum((center - 1.0 + 0.5).astype(np.int64), 0)
+        hi = np.minimum((center + 1.0 + 0.5).astype(np.int64), n_in)
+        j = lo[:, None] + np.arange(3)[None, :]
+        inside = j < hi[:, None]
+        wts = np.where(inside, np.maximum(1.0 - np.abs(j - center[:, None] + 0.5),
+                                          0.0), 0.0)
+        wts = wts / wts.sum(1, keepdims=True)
+        return np.where(inside, j, 0), (0.5 + wts * (1 << 22)).astype(np.int64)
+
+    def vertical_first(img, size):
+        out = np.asarray(img, np.uint8)
+        if size[1] != out.shape[0]:
+            out = io._bilinear_pass(out, size[1], 0)
+        if size[0] != out.shape[1]:
+            out = io._bilinear_pass(out, size[0], 1)
+        return out
+
+    def rint(v):
+        return np.rint(v).astype(np.int64)
+
+    patches = {
+        "nearest_multiplied": {"_nearest_index": lambda n_in, n_out: (
+            (np.arange(n_out) + 0.5) * (n_in / n_out)).astype(np.int64)},
+        "narrow_support": {"_bilinear_taps": narrow_taps},
+        "vertical_first": {"resize_bilinear": vertical_first},
+        "span_ends_plain": {"_round_up": rint, "_round_down": rint},
+    }[fault]
+    saved = {k: getattr(io, k) for k in patches}
+    for k, v in patches.items():
+        setattr(io, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(io, k, v)
+
+
+def check_resize_digests() -> dict:
+    """RESIZE_DIGESTS against ``utils/image_ops`` here, and each of
+    IMAGE_OP_FAULTS changing one → readings; raises on a miss."""
+    inputs = resize_digest_inputs()
+    got, ms = image_op_digests(inputs)
+    faults = {}
+    for fault in IMAGE_OP_FAULTS:
+        with image_op_fault(fault):
+            changed = image_op_digests(inputs)[0]
+        faults[fault] = sorted(k for k in changed if changed[k] != RESIZE_DIGESTS[k])
+    matched = {k: got[k] == RESIZE_DIGESTS[k] for k in RESIZE_DIGESTS}
+    print(f"image_ops digests against Pillow 12.1's: {matched}; host ms per "
+          f"call {({k: round(v, 2) for k, v in ms.items()})}; digests each "
+          f"named fault changes {faults}", flush=True)
+    if not all(matched.values()) or not all(faults.values()):
+        raise AssertionError(f"image_ops digests: matched {matched}, "
+                             f"faults {faults}")
+    return {"matched": matched, "host_ms": ms, "faults": faults}
 
 
 @contextlib.contextmanager
@@ -3169,8 +3358,10 @@ def npy_pillow():
     them (``.convert("RGB")``, ``.size``, ``np.asarray``), and
     ``PIL.Image.fromarray(a).save(f, ...)`` writes them, whatever format is
     asked for. The card's machine has no Pillow; with it serve's handler
-    (phase 8) and the detector tools' readers and ``write_detection_tsv``
-    (phase 12) run as they are."""
+    (phase 8), ``extract_features``' ``load_image`` (phases 9 and 12) and
+    the detector tools' readers and ``write_detection_tsv`` (phase 12) run
+    as they are. It has no resize and no drawing: ``utils/image_ops`` does
+    the port's."""
     import types
 
     pil, image = types.ModuleType("PIL"), types.ModuleType("PIL.Image")
@@ -3261,6 +3452,7 @@ def run_serve(counters, smi: str, rows: list) -> dict:
         if not ok:
             failed.append(what)
 
+    digests = check_resize_digests()
     t0 = time.perf_counter()
     svc = serve.CPTService(serve.build_args().parse_args(
         ["--device", "cuda", "--no_warmup"]))
@@ -3295,6 +3487,37 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                                                 dets)
                   and gap <= SCORE_TOL and len(got_scores) == n,
                   f"serve vs cpt_predict ({n} candidates): {vs_predict[n]}")
+
+    # the two requests that take the resize rule (RESIZED_REQUESTS), each
+    # against cpt_predict on the image as image_ops resizes it and the dets
+    # scaled, as the server prepares them; K1 50, K2 1, K3 and K4 12 each
+    resized, resized_launches = {}, {k: 0 for k in counters}
+    for name in RESIZED_REQUESTS:
+        img, dets = resized_request(name)
+        zero_counts(counters)
+        got_box, got_scores = svc.predict(img, SERVE_CAPTION, dets)
+        ran = {k: fn.launches for k, fn in counters.items()}
+        resized_launches = {k: resized_launches[k] + n for k, n in ran.items()}
+        small, scale = svc._resize(img)
+        sdets = (np.asarray(dets, np.float32) * scale).tolist()
+        with tempfile.TemporaryDirectory() as wd:
+            box = cp.predict(svc.res, small, SERVE_CAPTION, sdets, workdir=wd)
+            want_scores = cp.candidate_scores(svc.res, wd)
+        pick = int(np.abs(np.asarray(dets) - got_box).sum(1).argmin())
+        want_pick = int(np.abs(np.asarray(sdets) - box).sum(1).argmin())
+        gap = float(np.abs(np.subtract(got_scores, want_scores)).max())
+        resized[name] = {"shape": list(img.shape[:2]), "scale": scale,
+                         "resized": list(small.shape[:2]), "pick": pick,
+                         "predict_pick": want_pick, "score_gap": gap,
+                         "launches": ran}
+        want = {"K1": 50, "K2": 1, "K3": 12, "K4": 12}
+        check(same_pick(pick, want_pick, want_scores, list(range(len(dets))))
+              and gap <= SCORE_TOL and len(got_scores) == len(dets)
+              and small.shape[:2] == (600, 800),
+              f"resized serve request {name} vs cpt_predict: {resized[name]}")
+        check(all(ran[k] == n for k, n in want.items())
+              and sum(ran.values()) == sum(want.values()),
+              f"resized serve request {name} launches {ran}, want {want}")
 
     # HTTP on 127.0.0.1, on the server's handler threads
     httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
@@ -3369,13 +3592,20 @@ def run_serve(counters, smi: str, rows: list) -> dict:
     check_k3(rows, 8, 78)
 
     host_ms = {}
-    for n, (img, dets) in reqs.items():
+    timed = dict(reqs, **{name: resized_request(name) for name in RESIZED_REQUESTS})
+    for n, (img, dets) in timed.items():
         ms = []
         for _ in range(5):
             t = time.perf_counter()
             svc.predict(img, SERVE_CAPTION, dets)
             ms.append((time.perf_counter() - t) * 1e3)
         host_ms[n] = ms
+    # device time of an 8-candidate request at 600x800 and of the two
+    # resized ones (the resize is host work)
+    resized_profiles = {n: profiled(
+        lambda n=n: svc.predict(timed[n][0], SERVE_CAPTION, timed[n][1]),
+        f"serve request {n} ({timed[n][0].shape[0]}x{timed[n][0].shape[1]})")
+        for n in (8, *RESIZED_REQUESTS)}
     before = {k: counters[k].launches for k in ("K3", "K4")}
     img16, dets16 = reqs[16]
     prof = profiled(lambda: svc.predict(img16, SERVE_CAPTION, dets16),
@@ -3443,7 +3673,17 @@ def run_serve(counters, smi: str, rows: list) -> dict:
           f"thread {grad_mode}; allocated bytes after 1 and 10 "
           f"HTTP requests {mem}; host ms per request, warm: 8 candidates "
           f"{[round(x, 2) for x in host_ms[8]]}, 16 candidates "
-          f"{[round(x, 2) for x in host_ms[16]]}; windowed --base_batch 4: "
+          f"{[round(x, 2) for x in host_ms[16]]}; resized requests "
+          + ", ".join(f"{n} {v['shape'][0]}x{v['shape'][1]} -> "
+                      f"{v['resized'][0]}x{v['resized'][1]} (scale {v['scale']}): "
+                      f"pick {v['pick']} (predict {v['predict_pick']}), score "
+                      f"gap {v['score_gap']:.3e}, launches {v['launches']}, host "
+                      f"ms {[round(x, 2) for x in host_ms[n]]}"
+                      for n, v in resized.items())
+          + "; profiled host / device ms: "
+          + ", ".join(f"{n} {p['ms']:.2f} / {p['device_ms']:.2f}"
+                      for n, p in resized_profiles.items())
+          + f"; windowed --base_batch 4: "
           f"drains {stats['drains']}, 4 requests in {batched_s * 1e3:.1f} ms "
           f"of base + finish batched ({4 / batched_s:.2f} requests/s) against "
           f"{serial_s * 1e3:.1f} ms serial ({4 / serial_s:.2f} requests/s); "
@@ -3452,7 +3692,9 @@ def run_serve(counters, smi: str, rows: list) -> dict:
         raise AssertionError(f"phase 8: {failed}")
     return {"build_s": build_s, "launches": launches, "k1_paths": paths,
             "vs_predict": vs_predict, "health": health[1], "memory": mem,
-            "grad_mode": grad_mode,
+            "grad_mode": grad_mode, "digests": digests,
+            "resized": resized, "resized_launches": resized_launches,
+            "resized_profiles": resized_profiles,
             "host_ms": host_ms, "profile": prof,
             "base_batch": {"drains": stats["drains"], "serial_s": serial_s,
                            "batched_s": batched_s,
@@ -3563,6 +3805,73 @@ def split_qkv(grads: dict) -> dict:
     return out
 
 
+def run_vcr_polygons(counters, device: str, dtype: str,
+                     tiny: bool = False) -> dict:
+    """``extract_features --task vcr`` over ``vcr_polygon_fixture`` (the
+    ``img_key`` layout, its image as .npy bytes through ``npy_pillow``),
+    then the same run with each question's masks drawn by
+    ``image_ops.fill_polygon`` and painted through
+    ``vcr_color_task_from_masks`` → readings: whether the two TSVs are
+    equal byte for byte, the polygon run's launches and rows. ``tiny``:
+    the tiny detector (a dry run on the CPU)."""
+    from cpt_tpu_torch.data import stage1_tasks
+    from cpt_tpu_torch.tools import extract_features
+    from cpt_tpu_torch.utils.image_ops import fill_polygon
+    from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+
+    fx = vcr_polygon_fixture()
+    real = stage1_tasks.vcr_color_task
+
+    def from_masks(q_id, image_rgb, image_hw, det_boxes, entity_ids,
+                   entity_polygons, entity_names, color_d=6, *a, **kw):
+        h, w = image_rgb.shape[:2]
+        masks = {i: fill_polygon(entity_polygons.get(i, []), h, w)
+                 for ids in entity_ids for i in ids}
+        return stage1_tasks.vcr_color_task_from_masks(
+            q_id, image_rgb, image_hw, det_boxes, entity_ids, masks,
+            entity_names, color_d, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as root:
+        with open(f"{root}/vcr.jpg", "wb") as f:
+            np.save(f, fx["image"])
+        anns = [dict(q, entity_polygons={str(i): p for i, p in fx["polygons"].items()},
+                     entity_names={str(i): n for i, n in enumerate(fx["names"])})
+                for q in fx["questions"]]
+        dets = {q["img_key"]: [{"box": [x1, y1, x2 - x1 + 1, y2 - y1 + 1]}
+                               for x1, y1, x2, y2 in fx["boxes"]]
+                for q in fx["questions"]}
+        for name, obj in (("ann", anns), ("det", dets)):
+            with open(f"{root}/{name}.json", "w") as f:
+                json.dump(obj, f)
+        flags = ["--task", "vcr", "--ann_file", f"{root}/ann.json",
+                 "--det_file", f"{root}/det.json", "--image_root", root,
+                 "--color_d", "3", "--device", device, "--dtype", dtype]
+        flags += ["--tiny"] if tiny else []
+        zero_counts(counters)
+        t = time.perf_counter()
+        with npy_pillow():
+            extract_features.main(flags + ["--output", f"{root}/polygons.tsv"])
+        seconds = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters.items()}
+        stage1_tasks.vcr_color_task = from_masks
+        try:
+            with npy_pillow():
+                extract_features.main(flags + ["--output", f"{root}/masks.tsv"])
+        finally:
+            stage1_tasks.vcr_color_task = real
+        with open(f"{root}/polygons.tsv", "rb") as a, open(f"{root}/masks.tsv",
+                                                           "rb") as b:
+            equal = a.read() == b.read()
+        tsv = TSVFile(f"{root}/polygons.tsv")
+        rows = [json.loads(tsv.seek(i)[1])["objects"] for i in range(len(tsv))]
+        tsv.close()
+    feats = [decode_feature(b["feature"]) for objs, _meta in rows for b in objs]
+    return {"equal": equal, "rows": len(rows), "seconds": seconds,
+            "colored": [meta[0] for _objs, meta in rows],
+            "finite": bool(feats) and all(np.isfinite(f).all() for f in feats),
+            "launches": launches}
+
+
 def run_vcr(res, counters, smi: str, rows: list) -> dict:
     """Phase 9 (see the module docstring) on phase 4's detector. Gathers
     every reading, prints it, then raises on the first check that failed."""
@@ -3609,6 +3918,17 @@ def run_vcr(res, counters, smi: str, rows: list) -> dict:
                   for m in meta) and all(len(set(m["obj_colors"].values())) <= 3
                                          for m in meta),
               f"stage-1 colors {meta}")
+
+        # the same stage 1 from polygons, through extract_features --task vcr
+        poly = run_vcr_polygons(counters, dev.type, "bfloat16")
+        n_q = len(vcr_polygon_fixture()["questions"])
+        check(poly["equal"] and poly["rows"] == n_q and poly["finite"]
+              and all(poly["colored"]),
+              f"extract_features --task vcr from polygons: {poly}")
+        check(poly["launches"]["K1"] == 50 * n_q and poly["launches"]["K2"] == n_q,
+              f"extract_features --task vcr from polygons: launches "
+              f"{poly['launches']}")
+        out["polygons"] = poly
 
         # zero-shot: NSPCPT (q->a, qa->r) and VCRQAR_NSPCPT (q->ar) from one
         # seeded Oscar-layout state dict; the twin's "rat" kernel is drawn
@@ -3752,7 +4072,11 @@ def run_vcr(res, counters, smi: str, rows: list) -> dict:
     del flash, plain16, ref
 
     print(f"phase 9 VCR ({smi}): stage 1, {len(tasks)} questions on a 600x800 "
-          f"image in {extract_s * 1e3:.1f} ms, launches {stage1}; zero-shot "
+          f"image in {extract_s * 1e3:.1f} ms, launches {stage1}; "
+          f"extract_features --task vcr from polygons ({out['polygons']['rows']} "
+          f"questions, {out['polygons']['seconds']:.2f} s with set-up): TSV equal "
+          f"to the from-masks path byte for byte: {out['polygons']['equal']}, "
+          f"launches {out['polygons']['launches']}; zero-shot "
           + "; ".join(f"{k}: gap to f32 {v['gap']:.3e}, faults "
                       + ", ".join(f"{f} {e:.3e} ({e / VCR_SCORE_TOL:.1f}x tol)"
                                   for f, e in v["fault_gaps"].items())
@@ -5348,6 +5672,59 @@ def timed_detect_steps(module, counters, steps: list):
         module.make_detect_fn = real
 
 
+SEG_RESIZE_IMAGES = 2
+SEG_RESIZE_DETS = 3
+
+
+def seg_resize_extract(root: str, flags: list, counters, tiny: bool) -> dict:
+    """``extract_features --resize`` over SEG_RESIZE_IMAGES RefCOCO images
+    whose SEG_RESIZE_DETS dets carry RLE ellipse masks (``"height"`` given,
+    so the masks rescale with the image) → readings."""
+    from cpt_tpu_torch.tools import extract_features
+    from cpt_tpu_torch.utils import rle
+    from cpt_tpu_torch.utils.tsv import TSVFile, decode_feature
+
+    h, w = (48, 64) if tiny else (480, 640)
+    os.makedirs(root)
+    rng = np.random.RandomState(2034)
+    anns, dets = [], {}
+    for q in range(SEG_RESIZE_IMAGES):
+        name = f"COCO_val2014_{q + 1:012d}.jpg"
+        with open(f"{root}/{name}", "wb") as f:
+            np.save(f, rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+        anns.append({"id": f"seg{q}", "caption": "the red thing",
+                     "file_name": name, "height": h})
+        xy = rng.uniform(0, 0.6, (SEG_RESIZE_DETS, 2)) * [w, h]
+        wh = rng.uniform(0.1, 0.4, (SEG_RESIZE_DETS, 2)) * [w, h]
+        boxes = np.round(np.concatenate([xy, xy + wh], 1))
+        dets[str(q + 1)] = [
+            {"box": [float(b[0]), float(b[1]), float(b[2] - b[0] + 1),
+                     float(b[3] - b[1] + 1)], "rle": rle.encode(m)}
+            for b, m in zip(boxes, ellipse_masks(boxes, (h, w)))]
+    for name, obj in (("ann", anns), ("det", dets)):
+        with open(f"{root}/{name}.json", "w") as f:
+            json.dump(obj, f)
+    zero_counts(counters)
+    t = time.perf_counter()
+    with npy_pillow():
+        extract_features.main(flags + [
+            "--task", "refcoco", "--ann_file", f"{root}/ann.json",
+            "--det_file", f"{root}/det.json",
+            "--image_root", root, "--resize", "--copies_per_chunk", "4",
+            "--output", f"{root}/seg.tsv"])
+    seconds = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    tsv = TSVFile(f"{root}/seg.tsv")
+    rows = [json.loads(tsv.seek(i)[1])["objects"] for i in range(len(tsv))]
+    tsv.close()
+    feats = [decode_feature(b["feature"]) for objs, *_ in rows
+             for copy in objs for b in copy]
+    return {"shape": [h, w], "rows": len(rows),
+            "copies": [len(objs) for objs, *_ in rows], "seconds": seconds,
+            "finite": bool(feats) and all(np.isfinite(f).all() for f in feats),
+            "launches": launches}
+
+
 def run_detector_tools(res, counters, detect_launches: list,
                        tiny: bool = False) -> dict:
     """Phase 12 (see the module docstring) through the detector tools'
@@ -5510,6 +5887,26 @@ def run_detector_tools(res, counters, detect_launches: list,
               f"{ext.get('images')} rows in {ext.get('seconds', 0):.2f} s; "
               f"rects against test_detector's detections, largest gap "
               f"per image {gaps}; launches {ext_l}", flush=True)
+
+        # extract_features --resize over RefCOCO SEG images (.jpg files of
+        # npy bytes; 480x640, or 48x64 at the tiny size) whose dets carry
+        # RLE masks: the image (bilinear) and the masks (nearest) rescale by
+        # the 600/1000 rule through utils/image_ops; K1 50 and K2 1 an image
+        out["resize_extract"] = seg_resize_extract(
+            f"{root}/seg", (["--tiny"] if tiny else []) + common, counters, tiny)
+        r = out["resize_extract"]
+        check(r["rows"] == SEG_RESIZE_IMAGES and r["finite"]
+              and r["copies"] == [SEG_RESIZE_DETS] * SEG_RESIZE_IMAGES,
+              f"extract_features --resize with SEG masks: {r}")
+        check(r["launches"]["K1"] == 50 * SEG_RESIZE_IMAGES
+              and r["launches"]["K2"] == SEG_RESIZE_IMAGES
+              and r["launches"]["K5"] == 0,
+              f"extract_features --resize launches {r['launches']}")
+        print(f"extract_features --resize over {SEG_RESIZE_IMAGES} SEG images "
+              f"({r['shape'][0]}x{r['shape'][1]}, {SEG_RESIZE_DETS} RLE masks "
+              f"each): {r['rows']} rows, copies {r['copies']}, finite "
+              f"{r['finite']}, in {r['seconds']:.2f} s (set-up included); "
+              f"launches {r['launches']}", flush=True)
     phase_s = time.perf_counter() - t_phase
     print(f"phase 12 took {phase_s:.1f} s", flush=True)
     if failed:
@@ -7768,42 +8165,53 @@ def run_scene_graph(counters, smi: str, rows: list, dev, tiny: bool = False) -> 
                   + f" (tol {SG_GRAD_TOL}), K1 dx cut {sc['fault_gap']:.3e}",
                   flush=True)
 
-        # --- test_detector --bbox_aug (hflip; no Pillow on the card): the
-        # merge's K5 launch against plain nms_padded on its own inputs
-        merges = []
+        # --- test_detector --bbox_aug, hflip alone, then with
+        # --bbox_aug_scales 0.75,1.25 (rescaled by utils/image_ops): each
+        # merge's K5 launch against plain nms_padded on its own inputs; K1 50,
+        # K2 1, K5 2 a pass and K5 1 a merge
         real_nms = bbox_aug.nms_pallas
+        for key, extra, passes in (("bbox_aug", [], 2),
+                                   ("bbox_aug_scales",
+                                    ["--bbox_aug_scales", "0.75,1.25"], 4)):
+            merges = []
 
-        def nms(boxes, scores, valid, thr, max_out):
-            idx, keep = real_nms(boxes, scores, valid, thr, max_out)
-            merges.append((boxes, scores, valid, thr, max_out, idx, keep))
-            return idx, keep
+            def nms(boxes, scores, valid, thr, max_out):
+                idx, keep = real_nms(boxes, scores, valid, thr, max_out)
+                merges.append((boxes, scores, valid, thr, max_out, idx, keep))
+                return idx, keep
 
-        bbox_aug.nms_pallas = nms
-        zero_counts(counters)
-        t = time.perf_counter()
-        try:
-            aug, ok = tdet.main(flags + ["--synthetic", str(SG_IMAGES), "--bbox_aug"])
-        finally:
-            bbox_aug.nms_pallas = real_nms
-        aug_s = time.perf_counter() - t
-        ran = {k: c.launches for k, c in counters.items()}
-        exact = []
-        for boxes, scores, valid, thr, max_out, idx, keep in merges:
-            want_idx, want_keep = nms_padded(boxes, scores, valid, thr, max_out)
-            exact.append(bool(torch.equal(keep, want_keep)
-                              and torch.equal(idx[keep], want_idx[want_keep])))
-        ks = [int(m[0].shape[0]) for m in merges]
-        check(ok and np.isfinite(aug["mAP"]) and len(merges) == SG_IMAGES
-              and all(exact), f"--bbox_aug: mAP {aug}, merges K {ks} exact {exact}")
-        check(ran["K5"] == SG_IMAGES * 5 and ran["K1"] == SG_IMAGES * 100
-              and ran["K2"] == SG_IMAGES * 2, f"--bbox_aug launches {ran}")
-        if on_card and ks:
-            check_nms(rows, [(1, ks[0], 100, 0.5, 0.0, False)])
-        out["bbox_aug"] = {"mAP": aug["mAP"], "merge_k": ks, "exact": exact,
-                           "seconds": aug_s, "launches": ran}
-        print(f"test_detector --bbox_aug (hflip) over {SG_IMAGES} images: mAP "
-              f"{aug['mAP']:.4f} in {aug_s:.2f} s; merge K {ks}, K5 equal to "
-              f"nms_padded {exact}; launches {ran}", flush=True)
+            bbox_aug.nms_pallas = nms
+            zero_counts(counters)
+            t = time.perf_counter()
+            try:
+                aug, ok = tdet.main(flags + ["--synthetic", str(SG_IMAGES),
+                                             "--bbox_aug", *extra])
+            finally:
+                bbox_aug.nms_pallas = real_nms
+            aug_s = time.perf_counter() - t
+            ran = {k: c.launches for k, c in counters.items()}
+            exact = []
+            for boxes, scores, valid, thr, max_out, idx, keep in merges:
+                want_idx, want_keep = nms_padded(boxes, scores, valid, thr,
+                                                 max_out)
+                exact.append(bool(torch.equal(keep, want_keep) and torch.equal(
+                    idx[keep], want_idx[want_keep])))
+            ks = [int(m[0].shape[0]) for m in merges]
+            label = " ".join(["--bbox_aug", *extra])
+            check(ok and np.isfinite(aug["mAP"]) and len(merges) == SG_IMAGES
+                  and all(exact),
+                  f"{label}: mAP {aug}, merges K {ks} exact {exact}")
+            check(ran["K5"] == SG_IMAGES * (2 * passes + 1)
+                  and ran["K1"] == SG_IMAGES * 50 * passes
+                  and ran["K2"] == SG_IMAGES * passes, f"{label} launches {ran}")
+            if on_card and ks:
+                check_nms(rows, [(1, max(ks), 100, 0.5, 0.0, False)])
+            out[key] = {"mAP": aug["mAP"], "merge_k": ks, "exact": exact,
+                        "seconds": aug_s, "launches": ran}
+            print(f"test_detector {label} ({passes} passes an image) over "
+                  f"{SG_IMAGES} images: mAP {aug['mAP']:.4f} in {aug_s:.2f} s; "
+                  f"merge K {ks}, K5 equal to nms_padded {exact}; launches "
+                  f"{ran}", flush=True)
     finally:
         td.dconv.random_vinvl_state_dict = real_random
         sp.SceneParser.forward = real_forward
@@ -8985,8 +9393,10 @@ def main(argv=None) -> int:
     e2e.update(run_int8_extraction(counters))
     e2e["windowed"] = run_windowed(res, counters, smi, rows)
     e2e["serve"] = run_serve(counters, smi, rows)
+    e2e["serve_resized"] = {"launches": e2e["serve"]["resized_launches"]}
     e2e["vcr"] = run_vcr(res, counters, smi, rows)
     e2e["vcr_train"] = e2e["vcr"]["train"]
+    e2e["vcr_polygons"] = e2e["vcr"]["polygons"]
     e2e.update(run_other_tasks(res, counters, smi, rows))
     phase10_s = e2e.pop("seconds")
     ft = run_ft_baselines(res, counters, smi, rows)
@@ -9054,7 +9464,9 @@ def main(argv=None) -> int:
              "caption_xe", "caption_eval", "caption_scst", "caption_beam",
              "caption_greedy", "caption_flash", "caption_cbs", "pretrain",
              "pretrain_k4", "dis_code_vqa", "explore_templates", "explore_soft",
-             "detector_train", "sg_infer", "sg_train", "bbox_aug", "library",
+             "detector_train", "sg_infer", "sg_train", "bbox_aug",
+             "bbox_aug_scales", "serve_resized", "vcr_polygons",
+             "resize_extract", "library",
              "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
              "mesh_detector", "mesh_dryrun")
     summary = []

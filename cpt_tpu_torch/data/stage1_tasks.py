@@ -17,10 +17,11 @@ VCR: ``vcr_color_task`` paints the segmentation masks of the entities a VCR
 question refers to with up to ``color_d`` palette colors, and its meta
 carries the obj_colors / obj_names dicts keyed by sorted entity lists
 (``vcrdataset.py:120-288``). It is two steps: :func:`rasterize_polygon`
-turns each member's polygon into a mask (with Pillow, as the reference
-draws it), then :func:`vcr_color_task_from_masks` assigns the colors,
-names the groups and composites the paint on the host. The second step
-needs no Pillow, so a caller that already holds masks calls it directly.
+turns each member's polygon into a mask (by Pillow's fill rule, as the
+reference draws it, through ``utils/image_ops`` without Pillow), then
+:func:`vcr_color_task_from_masks` assigns the colors, names the groups and
+composites the paint on the host. A caller that already holds masks calls
+the second step directly.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import numpy as np
 from cpt_tpu_torch.data.prompts import (CROSS_TASK_COLORS, VG_PAIR_COLORS,
                                         VG_PAIR_COLOR_NAMES, vcr_entity_key)
 from cpt_tpu_torch.engine.extract import ExtractTask
+from cpt_tpu_torch.utils.image_ops import fill_polygon
 
 
 def gqa_mark_task(q_id: str, image_rgb: np.ndarray, image_hw, det_boxes,
@@ -133,26 +135,11 @@ def parse_gqa_marks(question: str, det_boxes: Sequence[Sequence[float]],
 
 def rasterize_polygon(polygon, h: int, w: int) -> np.ndarray:
     """Polygon(s) → binary mask [h, w]. Accepts one part [[x, y], ...] or
-    a list of parts (the reference's multi-part segms). Fill-only Pillow
-    rasterization, as the reference draws ``polygon(..., fill=color)`` with
-    no outline (vcrdataset.py:277-283): Pillow's rule for float vertices is
-    its own, so no other rasterizer gives the same pixels."""
-    from PIL import Image, ImageDraw
-
-    img = Image.new("L", (w, h), 0)
-    draw = ImageDraw.Draw(img)
-    if len(polygon) and (not len(polygon[0])
-                         or hasattr(polygon[0][0], "__len__")):
-        parts = polygon          # list of parts (possibly with empty members)
-    else:
-        parts = [polygon] if len(polygon) else []
-    for part in parts:
-        if not len(part):
-            continue
-        if len(part) < 2:
-            part = list(part) + [part[0]]
-        draw.polygon([(float(x), float(y)) for x, y in part], fill=1)
-    return np.asarray(img, np.uint8)
+    a list of parts (the reference's multi-part segms). Fill-only, as the
+    reference draws ``polygon(..., fill=color)`` with no outline
+    (vcrdataset.py:277-283), by Pillow's rule for float vertices
+    (``utils/image_ops.fill_polygon``, without Pillow)."""
+    return fill_polygon(polygon, h, w)
 
 
 def vcr_entity_groups(ann: dict) -> Tuple[List[List[int]], List[List[int]]]:

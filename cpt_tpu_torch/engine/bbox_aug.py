@@ -7,8 +7,8 @@ one class-agnostic NMS to ``max_dets`` slots: kernel K5
 ``nms_padded``) on a CUDA ``device``, at a K that depends on the data (the
 count of pooled boxes, ≤ ``max_dets`` × passes).
 
-Rescaling resizes with Pillow, imported only when ``scales`` are given (the
-hflip-only path needs no Pillow).
+Rescaling resizes bilinear as Pillow does (``utils/image_ops``), without
+Pillow.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from cpt_tpu_torch.ops.nms_pallas import nms_pallas
+from cpt_tpu_torch.utils.image_ops import resize_bilinear
 
 
 def hflip_boxes(boxes: np.ndarray, width: float) -> np.ndarray:
@@ -30,11 +31,12 @@ def hflip_boxes(boxes: np.ndarray, width: float) -> np.ndarray:
 def im_detect_bbox_aug(detect_fn: Callable, image_u8: np.ndarray, image_hw, *,
                        scales: Sequence[float] = (), hflip: bool = True,
                        nms_thresh: float = 0.5, max_dets: int = 100,
-                       device="cpu") -> Dict[str, np.ndarray]:
+                       device) -> Dict[str, np.ndarray]:
     """``detect_fn(image_u8, (h, w)) -> {boxes, scores, labels, valid}``
     (numpy) runs one detection pass; the passes over the augmentations are
-    pooled and merged on ``device``. → merged {boxes, scores, labels,
-    valid} (numpy, the image's coordinates)."""
+    pooled and merged on ``device`` (K5 on a CUDA device, its plain version
+    on the CPU). → merged {boxes, scores, labels, valid} (numpy, the
+    image's coordinates)."""
     h, w = int(image_hw[0]), int(image_hw[1])
     pooled_boxes: List[np.ndarray] = []
     pooled_scores: List[np.ndarray] = []
@@ -54,12 +56,9 @@ def im_detect_bbox_aug(detect_fn: Callable, image_u8: np.ndarray, image_hw, *,
         flipped = np.ascontiguousarray(np.asarray(image_u8)[:, ::-1])
         add(detect_fn(flipped, (h, w)), unmap=lambda b: hflip_boxes(b, w))
     for s in scales:
-        from PIL import Image
-
         sh, sw = int(round(h * s)), int(round(w * s))
-        img = Image.fromarray(np.asarray(image_u8)[:h, :w])
         scaled = np.zeros_like(np.asarray(image_u8))
-        arr = np.asarray(img.resize((sw, sh), Image.BILINEAR))
+        arr = resize_bilinear(np.asarray(image_u8)[:h, :w], (sw, sh))
         ch = min(sh, scaled.shape[0])
         cw = min(sw, scaled.shape[1])
         scaled[:ch, :cw] = arr[:ch, :cw]

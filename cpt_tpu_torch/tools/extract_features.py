@@ -106,6 +106,7 @@ from cpt_tpu_torch.models.detector.rpn import grid_anchors
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
                                          apply_reference_config, dp_mesh)
+from cpt_tpu_torch.utils.image_ops import resize_bilinear, resize_nearest
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
 def build_args():
@@ -306,19 +307,20 @@ def load_labelmap(path: str) -> dict:
 
 
 def load_image(path, pad_h, pad_w, resize_min=None, resize_max=None):
-    """RGB array, optionally resized by the min/max-size rule, clipped to
-    the largest canvas → (array, (h, w)). Needs Pillow."""
+    """RGB array, optionally resized by the min/max-size rule (bilinear, as
+    Pillow resizes: ``utils/image_ops``), clipped to the largest canvas →
+    (array, (h, w)). Pillow decodes the file."""
     from PIL import Image
 
-    img = Image.open(path).convert("RGB")
-    w, h = img.size
+    arr = np.asarray(Image.open(path).convert("RGB"))
+    h, w = arr.shape[:2]
     if resize_min:
         scale = resize_min / min(h, w)
         if resize_max and scale * max(h, w) > resize_max:
             scale = resize_max / max(h, w)
-        w, h = int(round(w * scale)), int(round(h * scale))
-        img = img.resize((w, h), Image.BILINEAR)
-    arr = np.asarray(img)[:pad_h, :pad_w]
+        arr = resize_bilinear(arr, (int(round(w * scale)),
+                                    int(round(h * scale))))
+    arr = arr[:pad_h, :pad_w]
     return arr, arr.shape[:2]
 
 
@@ -387,16 +389,13 @@ def build_detector(cfg, args) -> AttrRCNN:
 
 
 def scale_mask(mask, sc):
-    """--resize scaling of a decoded binary mask (nearest, so it keeps hard
-    edges as the resized paint rects do). Needs Pillow where sc ≠ 1."""
+    """--resize scaling of a decoded binary mask (nearest, as Pillow
+    resizes: ``utils/image_ops``, so it keeps hard edges as the resized
+    paint rects do)."""
     if sc == 1.0:
         return mask
-    from PIL import Image
-
     h, w = mask.shape
-    out = Image.fromarray(mask.astype(np.uint8)).resize(
-        (int(round(w * sc)), int(round(h * sc))), Image.NEAREST)
-    return np.asarray(out)
+    return resize_nearest(mask, (int(round(w * sc)), int(round(h * sc))))
 
 
 def tasks(args, cfg, color, det_dic: dict):

@@ -61,6 +61,7 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.tools._common import dtype_of
+from cpt_tpu_torch.utils.image_ops import resize_bilinear
 from cpt_tpu_torch.utils.tsv import tsv_writer
 
 # production region budget per scored sequence (RefcocoCPTData's
@@ -169,8 +170,8 @@ class CPTService:
     def _resize(self, img: np.ndarray):
         """The reference MIN/MAX_SIZE_TEST rule (extract_features.load_image)
         in memory → (the image resized, clipped to the largest canvas, and
-        the scale). At scale 1.0 Pillow would return the same pixels, so the
-        image is kept as it is (Pillow is imported only to resize)."""
+        the scale). Bilinear as Pillow resizes (``utils/image_ops``); at
+        scale 1.0 that returns the same pixels, so the image is kept."""
         c = self.dcfg.input
         h, w = img.shape[:2]
         scale = 1.0
@@ -179,10 +180,8 @@ class CPTService:
             if c.max_size_test and scale * max(h, w) > c.max_size_test:
                 scale = c.max_size_test / max(h, w)
         if scale != 1.0:
-            from PIL import Image
-
-            img = np.asarray(Image.fromarray(img).resize(
-                (int(round(w * scale)), int(round(h * scale))), Image.BILINEAR))
+            img = resize_bilinear(img, (int(round(w * scale)),
+                                        int(round(h * scale))))
         return np.ascontiguousarray(img[: c.pad_h, : c.pad_w]), scale
 
     def score_shape(self, n_copies: int, n_dets: int):

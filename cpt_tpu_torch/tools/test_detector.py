@@ -32,7 +32,7 @@ win. Without ``--checkpoint`` the weights are random, drawn from ``--seed``
 in the reference layout.
 
 ``--bbox_aug`` pools each image's detections over its horizontal flip and
-the ``--bbox_aug_scales`` rescales (Pillow, only when scales are given) and
+the ``--bbox_aug_scales`` rescales (``utils/image_ops``, no Pillow) and
 merges them with one NMS on kernel K5 (``engine/bbox_aug.py``). ``--sg`` (a
 relation yaml sets it) also evaluates scene graphs over the ``--tsv``'s
 relations: a ``SceneParser`` (``--rel_algorithm``, ``--max_rel_dets``) on
@@ -113,8 +113,7 @@ def build_args():
                         "detections over hflip + --bbox_aug_scales and "
                         "merge with NMS")
     p.add_argument("--bbox_aug_scales", default="",
-                   help="comma-separated rescale factors, e.g. 0.75,1.25 "
-                        "(needs Pillow)")
+                   help="comma-separated rescale factors, e.g. 0.75,1.25")
     p.add_argument("--sg", action="store_true",
                    help="scene-graph relation eval over a VG-TSV (--tsv "
                         "with relations): SceneParser inference + both SG "

@@ -253,7 +253,8 @@ def test_bbox_aug_matches_jax():
     det, calls = fake_detector(5)
     jdet, jcalls = fake_detector(5)
     before = nms_pallas.nms_pallas.launches
-    got = bbox_aug.im_detect_bbox_aug(det, image, (60, 72), scales=(0.5, 1.5))
+    got = bbox_aug.im_detect_bbox_aug(det, image, (60, 72), scales=(0.5, 1.5),
+                                      device="cpu")
     want = jaug.im_detect_bbox_aug(jdet, image, (60, 72), scales=(0.5, 1.5))
     assert nms_pallas.nms_pallas.launches == before   # the CPU: the plain version
     assert len(calls) == len(jcalls) == 4

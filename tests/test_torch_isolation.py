@@ -77,15 +77,17 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  "parallel.distributed",
                  # the meshes, the pipeline and the synthetic fixtures
                  "parallel.mesh", "parallel.pipeline", "data.synthetic",
-                 "tools.dryrun_multichip")
+                 "tools.dryrun_multichip",
+                 # the Pillow-free pixel operations
+                 "utils.image_ops")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
     """The pretraining, explore, detector-training and scene-graph modules,
-    the detector library modules, the process runtime, the meshes and the
-    pipeline import, each in a fresh process with ``jax``, ``flax`` and ``cpt_tpu``
-    blocked, and load none of them."""
+    the detector library modules, the process runtime, the meshes, the
+    pipeline and the pixel operations import, each in a fresh process with
+    ``jax``, ``flax`` and ``cpt_tpu`` blocked, and load none of them."""
     script = f"""
 import sys
 for name in ("jax", "flax", "cpt_tpu"):

@@ -212,8 +212,9 @@ def _canvas(module, n):
 def test_resize_at_scale_one_is_pillows(monkeypatch):
     """An image whose shorter side is MIN_SIZE_TEST (600) resizes at scale
     1.0: the port keeps it as it is, which is what Pillow's resize returns,
-    and the JAX service's ``_resize`` gives the same array; the port needs
-    no Pillow for it."""
+    and the JAX service's ``_resize`` gives the same array. The port needs
+    no Pillow for it, nor at scale 2.0, where it equals the JAX service's
+    Pillow resize too."""
     from PIL import Image
 
     svc = serve.CPTService.__new__(serve.CPTService)
@@ -222,13 +223,16 @@ def test_resize_at_scale_one_is_pillows(monkeypatch):
     img = _image(2, 600, 800)
     want = np.asarray(Image.fromarray(img).resize((800, 600), Image.BILINEAR))
     jgot, jscale = jsvc._resize(img)
+    small = _image(2, 300, 400)
+    jsmall, jsmall_scale = jsvc._resize(small)
     monkeypatch.setitem(sys.modules, "PIL", None)
     got, scale = svc._resize(img)
     assert scale == jscale == 1.0
     np.testing.assert_array_equal(want[:512, :512], jgot)
     np.testing.assert_array_equal(got, jgot)
-    with pytest.raises(ImportError):
-        svc._resize(_image(2, 300, 400))      # scale 2.0 needs Pillow
+    got, scale = svc._resize(small)           # scale 2.0, no Pillow
+    assert scale == jsmall_scale == 2.0
+    np.testing.assert_array_equal(got, jsmall)
 
 
 def test_handler_thread_builds_no_autograd_state():
