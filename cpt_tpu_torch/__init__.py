@@ -30,4 +30,13 @@ Public functions keep the JAX package's layouts: NHWC feature maps,
 [B, S, H] hidden states, inclusive xyxy boxes.
 """
 
+import torch
+
 __version__ = "0.1.0"
+
+# PyTorch lets cuBLAS reduce a bf16 GEMM's split-K partial sums in bf16, so
+# a bf16 result moved with the batch's shape (a scoring batch of 16 × 50
+# region slots against 8 × 8: the image embedding's [M, 2054] projection).
+# The JAX reference accumulates in f32 and rounds once; with this off, so
+# does every cuBLAS GEMM of the port (PERF.md, PR 24).
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -27,7 +27,6 @@ import os
 import xml.etree.ElementTree as ET
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 
 PASCAL_CLASSES = (
     "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
@@ -95,17 +94,14 @@ def coco_to_tsv(ann_file: str, img_dir: str, out_root: str,
     """COCO instances json + image dir → vg-TSV dataset directory
     (yaml returned); consumable by ``train_detector/test_detector --tsv``.
     """
-    from PIL import Image
-
     from cpt_tpu_torch.data.vg_tsv import write_detection_tsv
+    from cpt_tpu_torch.utils.image_codec import read_image
 
     images, targets, labelmap = load_coco_json(ann_file)
     arrays, labels = {}, {}
     for im in images:
         key = str(im["id"])
-        arr = np.asarray(
-            Image.open(os.path.join(img_dir, im["file_name"])).convert("RGB"))
-        arrays[key] = arr
+        arrays[key] = read_image(os.path.join(img_dir, im["file_name"]))
         labels[key] = targets[im["id"]]
     # insertion order = sorted numeric image ids (string sort would put
     # "11" before "3")
@@ -138,9 +134,8 @@ def voc_to_tsv(voc_root: str, split: str, out_root: str,
                name: Optional[str] = None) -> str:
     """A PASCAL-VOC year directory (Annotations/ JPEGImages/
     ImageSets/Main/{split}.txt) → vg-TSV dataset directory."""
-    from PIL import Image
-
     from cpt_tpu_torch.data.vg_tsv import write_detection_tsv
+    from cpt_tpu_torch.utils.image_codec import read_image
 
     name = name or f"voc_{split}"
     with open(os.path.join(voc_root, "ImageSets", "Main",
@@ -148,8 +143,8 @@ def voc_to_tsv(voc_root: str, split: str, out_root: str,
         ids = [line.strip() for line in f if line.strip()]
     arrays, labels = {}, {}
     for k in ids:
-        arrays[k] = np.asarray(Image.open(
-            os.path.join(voc_root, "JPEGImages", f"{k}.jpg")).convert("RGB"))
+        arrays[k] = read_image(
+            os.path.join(voc_root, "JPEGImages", f"{k}.jpg"))
         labels[k] = {"objects": load_voc_xml(
             os.path.join(voc_root, "Annotations", f"{k}.xml"))}
     labelmap = {"label_to_idx": {c: i + 1

@@ -24,7 +24,6 @@ Also ships the VG relation frequency-prior computation
 from __future__ import annotations
 
 import base64
-import io
 import json
 import os
 from typing import Dict, List, Optional, Sequence
@@ -39,11 +38,11 @@ MAX_ATTRIBUTES = 16  # label_loader.py:69 ("maximal number of attributes")
 def img_from_base64(b64: str) -> np.ndarray:
     """Base64 jpg/png → RGB uint8 array (reference uses cv2 BGR; the
     port's input pipeline is RGB end-to-end, conversion handled by
-    ``ops.render.to_detector_input``)."""
-    from PIL import Image
+    ``ops.render.to_detector_input``). Decoded by ``utils/image_codec``
+    (Pillow's pixels, without Pillow)."""
+    from cpt_tpu_torch.utils.image_codec import decode
 
-    data = base64.b64decode(b64)
-    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    return decode(base64.b64decode(b64))
 
 
 def load_linelist_file(path: Optional[str]) -> Optional[List[int]]:
@@ -269,18 +268,17 @@ def write_detection_tsv(root: str, name: str, images: Dict[str, np.ndarray],
                         sort_keys: bool = True) -> str:
     """Author a complete od/vg-TSV dataset directory (images b64-encoded,
     label/hw TSVs, labelmap jsondict, yaml descriptor) — the writer side of
-    the format, used for fixtures and data prep."""
-    from PIL import Image
-
+    the format, used for fixtures and data prep. Images are JPEG at
+    quality 95 (Pillow's bytes, through ``utils/image_codec``)."""
+    from cpt_tpu_torch.utils.image_codec import encode_jpeg
     from cpt_tpu_torch.utils.tsv import tsv_writer
 
     os.makedirs(root, exist_ok=True)
     keys = sorted(images) if sort_keys else list(images)
     img_rows, label_rows, hw_rows = [], [], []
     for k in keys:
-        buf = io.BytesIO()
-        Image.fromarray(images[k]).save(buf, format="JPEG", quality=95)
-        img_rows.append([k, base64.b64encode(buf.getvalue()).decode()])
+        jpeg = encode_jpeg(images[k], quality=95)
+        img_rows.append([k, base64.b64encode(jpeg).decode()])
         label_rows.append([k, json.dumps(labels[k])])
         hw_rows.append([k, json.dumps([{"height": images[k].shape[0],
                                         "width": images[k].shape[1]}])])

@@ -21,6 +21,11 @@ There is no fallback from a failed build or launch: each raises
 :class:`KernelError`, which is not a ``RuntimeError``, so a caller that skips
 a batch on ``RuntimeError`` (as ``tools/refcoco_cpt.train`` does) does not
 swallow it.
+
+Host code (``cpt_tpu_torch/csrc/*.cpp``: the image codec) is built the same
+way by :func:`build_host`, with the host C++ compiler (``$CXX``, else
+``c++``) as ``-O2 -shared -fPIC`` into ``libcpt_host-<hash>.so`` beside the
+kernel library; it needs no CUDA toolkit, so the CPU runs it too.
 """
 from __future__ import annotations
 
@@ -148,18 +153,72 @@ def build() -> Path:
     return out
 
 
-class _Library:
-    def __init__(self):
+HOST_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+
+def host_sources() -> list:
+    return sorted(CSRC.glob("*.cpp"))
+
+
+def host_compiler() -> str:
+    return os.environ.get("CXX") or "c++"
+
+
+def host_library_path() -> Path:
+    """The library's path, named by a hash of the sources, the flags and
+    the compiler's ``--version`` (so that a checkout copied to another
+    machine never loads a library built by another compiler)."""
+    try:
+        version = subprocess.run([host_compiler(), "--version"],
+                                 capture_output=True, text=True).stdout
+    except OSError as e:
+        raise KernelError(f"host compiler {host_compiler()!r} did not run: "
+                          f"{e}")
+    digest = hashlib.sha256(" ".join((host_compiler(), version) + HOST_FLAGS)
+                            .encode())
+    for src in host_sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libcpt_host-{digest.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile the host sources unless a build of them exists: one compiler
+    call into a file of this process's own, then ``os.replace``, so that
+    processes building at once never load a half-written library."""
+    out = host_library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [host_compiler(), *HOST_FLAGS, *map(str, host_sources()),
+           "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                          f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+class Library:
+    """A shared library built (``build_fn``) and loaded at first use, with
+    the ctypes signatures ``signatures`` (name → (argtypes, restype))."""
+
+    def __init__(self, build_fn, signatures: dict):
         self._lock = threading.Lock()
         self._lib: Optional[ctypes.CDLL] = None
+        self._build = build_fn
+        self._signatures = signatures
         self.build_seconds: Optional[float] = None
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
                 t0 = time.perf_counter()
-                lib = ctypes.CDLL(str(build()))
-                for name, (argtypes, restype) in SIGNATURES.items():
+                lib = ctypes.CDLL(str(self._build()))
+                for name, (argtypes, restype) in self._signatures.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = restype
@@ -168,7 +227,7 @@ class _Library:
             return self._lib
 
 
-LIBRARY = _Library()
+LIBRARY = Library(build, SIGNATURES)
 
 
 def lib() -> ctypes.CDLL:

@@ -1,7 +1,9 @@
 """Launchers for the shared tensor-core GEMM (``csrc/gemm.cu``) and the
 attention core (``csrc/attention.cu``) that K3 and K4 chain together.
 
-These take CUDA tensors only; the public wrappers with their plain
+These take CUDA tensors only, and raise ``KernelError`` at a width their
+kernels do not take (K3's core: head_dim 64; the row-LayerNorm GEMM: N a
+multiple of 128 up to 1024); the public wrappers with their plain
 versions and launch counters are ``ops/fused_ffn.py`` and
 ``ops/fused_attention.py``.
 """
@@ -9,15 +11,16 @@ from __future__ import annotations
 
 import torch
 
-from cpt_tpu_torch.kernels.build import aligned16, check, lib, require, stream
+from cpt_tpu_torch.kernels.build import (KernelError, aligned16, check, lib,
+                                         require, stream)
 
 ACTS = {"none": 0, "gelu": 1, "gelu_new": 2}
 
 
 def _rows(x: torch.Tensor, k: int, name: str) -> torch.Tensor:
     if x.shape[-1] != k or k % 8:
-        raise ValueError(f"{name}: last dim {x.shape[-1]} must be {k} and a "
-                         f"multiple of 8")
+        raise KernelError(f"{name}: last dim {x.shape[-1]} must be {k} and a "
+                          f"multiple of 8")
     return aligned16(require(x, name, torch.bfloat16))
 
 
@@ -42,8 +45,8 @@ def gemm_bias_residual_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     → [M, N] bf16, with N a multiple of 128 up to 1024."""
     k, n = w.shape
     if n % 128 or n > 1024:
-        raise ValueError(f"row LayerNorm GEMM takes N = 128..1024 in steps "
-                         f"of 128, got {n}")
+        raise KernelError(f"row LayerNorm GEMM takes N = 128..1024 in steps "
+                          f"of 128, got {n}")
     a = _rows(a, k, "a")
     w = _rows(w, n, "w")
     residual = require(residual, "residual", torch.bfloat16, (a.shape[0], n))
@@ -65,8 +68,8 @@ def attention_core(qkv: torch.Tensor, key_bias: torch.Tensor, num_heads: int,
     b, s, h3 = qkv.shape
     h = h3 // 3
     if h != num_heads * 64:
-        raise ValueError(f"attention kernel takes head_dim 64; got hidden "
-                         f"{h} over {num_heads} heads")
+        raise KernelError(f"attention kernel takes head_dim 64; got hidden "
+                          f"{h} over {num_heads} heads")
     qkv = aligned16(require(qkv, "qkv", torch.bfloat16))
     key_bias = require(key_bias, "key_bias", torch.float32, (b, s))
     ctx = torch.empty((b, s, h), dtype=torch.bfloat16, device=qkv.device)

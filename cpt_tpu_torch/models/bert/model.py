@@ -197,6 +197,23 @@ class BertSelfAttention(nn.Module):
         return ctx @ wo + self.bo.to(dt)
 
 
+def auto_fuses_attention(c: BertConfig) -> bool:
+    """``attention_impl="auto"``'s width rule, the JAX gate's
+    (``cpt_tpu/models/bert/model.py``: ``hidden_size % 128``); the TPU's
+    ``S % 128`` rule is not kept (K3's core takes any S). K3 itself takes
+    head_dim 64 and a hidden size up to 1024: at a width this rule passes
+    and K3 does not take, it raises ``KernelError`` on the card, as it
+    does under ``"fused"`` at any width it does not take."""
+    return c.hidden_size % 128 == 0
+
+
+def auto_fuses_ffn(c: BertConfig) -> bool:
+    """``ffn_impl="auto"``'s width rule, the JAX gate's (``hidden_size``
+    and ``intermediate_size`` multiples of 128). K4 takes a hidden size up
+    to 1024 and raises ``KernelError`` on the card past it."""
+    return c.hidden_size % 128 == 0 and c.intermediate_size % 128 == 0
+
+
 class BertLayer(nn.Module):
     def __init__(self, config: BertConfig, dtype: torch.dtype):
         super().__init__()
@@ -219,9 +236,10 @@ class BertLayer(nn.Module):
         key_bias_only = attn_bias.dim() == 4 and attn_bias.shape[2] == 1
         attn = self.attention
         ln_a = self.attention_out_LayerNorm
-        if (c.attention_impl in ("auto", "fused") and history_state is None
-                and head_mask is None and not dropout_h and not dropout_a
-                and key_bias_only):
+        if ((c.attention_impl == "fused"
+             or (c.attention_impl == "auto" and auto_fuses_attention(c)))
+                and history_state is None and head_mask is None
+                and not dropout_h and not dropout_a and key_bias_only):
             hidden = fused_attention_block(
                 hidden, attn.wqkv, attn.bqkv, attn.wo, attn.bo, ln_a.scale,
                 ln_a.bias, attn_bias[:, 0, 0, :].float(),
@@ -233,8 +251,9 @@ class BertLayer(nn.Module):
                                      c.layer_norm_eps)
 
         ln = self.output_LayerNorm
-        if (c.ffn_impl in ("auto", "fused") and not dropout_h
-                and c.hidden_act in ("gelu", "gelu_new")):
+        if ((c.ffn_impl == "fused"
+             or (c.ffn_impl == "auto" and auto_fuses_ffn(c)))
+                and not dropout_h and c.hidden_act in ("gelu", "gelu_new")):
             return fused_ffn(hidden, self.intermediate.kernel,
                              self.intermediate.bias, self.output.kernel,
                              self.output.bias, ln.scale, ln.bias,

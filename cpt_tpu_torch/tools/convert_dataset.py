@@ -1,6 +1,7 @@
 """Convert standard detection datasets (COCO instances json, PASCAL VOC)
 to the od/vg-TSV format the detector tools consume (port of
-``cpt_tpu/tools/convert_dataset.py``; needs Pillow).
+``cpt_tpu/tools/convert_dataset.py``; images read and written through
+``utils/image_codec``, without Pillow).
 
 Usage:
   python -m cpt_tpu_torch.tools.convert_dataset coco --ann instances.json \\

@@ -278,11 +278,11 @@ def build_resident(device, dtype=torch.bfloat16, tiny: bool = False,
 
 def main(argv=None) -> List[float]:
     args = build_args().parse_args(argv)
-    from PIL import Image
+    from cpt_tpu_torch.utils.image_codec import read_image, write_image
 
     if not (args.detect or args.dets):
         raise SystemExit("--dets or --detect required")
-    img = np.asarray(Image.open(args.image).convert("RGB"))
+    img = read_image(args.image)
     res = build_resident(
         args.device, torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         args.tiny, args.checkpoint, args.oscar_checkpoint, args.vocab,
@@ -294,8 +294,7 @@ def main(argv=None) -> List[float]:
     print(json.dumps({"caption": args.caption, "pred_box": pred,
                       "candidates": len(dets)}))
     if args.out:
-        Image.fromarray(draw_box_outline(img.copy(), pred, (0, 255, 0))).save(
-            args.out)
+        write_image(args.out, draw_box_outline(img.copy(), pred, (0, 255, 0)))
         print(f"wrote {args.out}")
     return pred
 

@@ -8,8 +8,9 @@ K1, K2 and K5; ``compute_prediction`` + ``select_top_predictions``,
 ``predictor.py:224-280``), keep the detections above ``--conf``, and overlay
 per-class-colored boxes with class names and scores
 (``predictor.py:261-411``), written as PNGs. ``--webcam`` runs the same
-over a capture device (``webcam.py``; cv2). Reading and writing images
-needs Pillow.
+over a capture device (``webcam.py``; cv2). Images are read and written
+through ``utils/image_codec``; only the detection captions
+(:func:`overlay_detections`) need Pillow.
 
 Usage:
   # prompt painting
@@ -230,16 +231,16 @@ def main(argv=None):
         return run_webcam(args, build_detect(args))
     if not args.image:
         raise SystemExit("demo: --image is required (or --webcam)")
-    from PIL import Image
+    from cpt_tpu_torch.utils.image_codec import read_image, write_image
 
-    img = np.asarray(Image.open(args.image).convert("RGB"))
+    img = read_image(args.image)
     if args.detect:
         from cpt_tpu_torch.tools.extract_features import load_labelmap
 
         boxes, labels, scores = build_detect(args)(img)
         names = load_labelmap(args.labelmap) if args.labelmap else None
         arr = overlay_detections(img.copy(), boxes, labels, scores, names)
-        Image.fromarray(arr).save(args.out)
+        write_image(args.out, arr)
         print(f"wrote {args.out} ({len(boxes)} detections > {args.conf})")
         return
     if not args.boxes:
@@ -251,7 +252,7 @@ def main(argv=None):
                                    (0, 255, 0))
         out_path = (args.out if len(outputs) == 1
                     else args.out.replace(".png", f"_{tag}.png"))
-        Image.fromarray(arr).save(out_path)
+        write_image(out_path, arr)
         print(f"wrote {out_path}")
 
 

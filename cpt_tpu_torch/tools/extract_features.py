@@ -106,6 +106,7 @@ from cpt_tpu_torch.models.detector.rpn import grid_anchors
 from cpt_tpu_torch.parallel import distributed
 from cpt_tpu_torch.tools._common import (add_detector_config_args,
                                          apply_reference_config, dp_mesh)
+from cpt_tpu_torch.utils.image_codec import read_image
 from cpt_tpu_torch.utils.image_ops import resize_bilinear, resize_nearest
 from cpt_tpu_torch.utils.tsv import encode_feature, tsv_writer
 
@@ -309,10 +310,8 @@ def load_labelmap(path: str) -> dict:
 def load_image(path, pad_h, pad_w, resize_min=None, resize_max=None):
     """RGB array, optionally resized by the min/max-size rule (bilinear, as
     Pillow resizes: ``utils/image_ops``), clipped to the largest canvas →
-    (array, (h, w)). Pillow decodes the file."""
-    from PIL import Image
-
-    arr = np.asarray(Image.open(path).convert("RGB"))
+    (array, (h, w)). ``utils/image_codec`` decodes the file."""
+    arr = read_image(path)
     h, w = arr.shape[:2]
     if resize_min:
         scale = resize_min / min(h, w)

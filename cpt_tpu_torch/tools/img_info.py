@@ -1,6 +1,7 @@
 """Image-info / shard-count / small data-prep+analysis utilities (port of
-``cpt_tpu/tools/img_info.py``; the image scan and the color probes need
-Pillow, so they run on a machine that has it).
+``cpt_tpu/tools/img_info.py``; the image scan reads sizes from the file
+headers and the color probes write JPEGs through ``utils/image_codec``,
+without Pillow).
 
 Parity with the reference's one-off helper scripts:
 
@@ -30,13 +31,12 @@ from typing import List, Optional
 
 def create_img_info(image_dir: str, output: Optional[str] = None,
                     exts: tuple = ("*.jpg", "*.jpeg", "*.png")) -> dict:
-    from PIL import Image
+    from cpt_tpu_torch.utils.image_codec import image_size
 
     infos = {}
     for pat in exts:
         for fname in sorted(glob.glob(os.path.join(image_dir, pat))):
-            with Image.open(fname) as img:
-                w, h = img.size
+            w, h = image_size(fname)
             infos[os.path.basename(fname)] = {"width": w, "height": h}
     if output is None:
         output = os.path.join(os.path.dirname(image_dir.rstrip("/")),
@@ -79,7 +79,8 @@ def create_all_color_imgs(out_dir: str, step: int = 5,
     """``other/create_all_color_imgs.py``: one solid-color ``size``×``size``
     jpg per RGB on a ``step`` grid, plus a full-image ``bbox.pk``."""
     import numpy as np
-    from PIL import Image
+
+    from cpt_tpu_torch.utils.image_codec import write_image
 
     os.makedirs(out_dir, exist_ok=True)
     bbox = {}
@@ -89,7 +90,7 @@ def create_all_color_imgs(out_dir: str, step: int = 5,
                 im = np.empty((size, size, 3), np.uint8)
                 im[..., 0], im[..., 1], im[..., 2] = r, g, b
                 name = f"{r}_{g}_{b}.jpg"
-                Image.fromarray(im).save(os.path.join(out_dir, name))
+                write_image(os.path.join(out_dir, name), im)
                 bbox[name] = np.asarray([[0., 0, size, size]], np.float32)
     with open(os.path.join(out_dir, "bbox.pk"), "wb") as f:
         pickle.dump(bbox, f)

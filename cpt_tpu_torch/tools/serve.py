@@ -39,7 +39,6 @@ import argparse
 import base64
 import collections
 import dataclasses
-import io
 import json
 import os
 import queue
@@ -61,6 +60,7 @@ from cpt_tpu_torch.models.detector.config import (VINVL_X152C4,
                                                   tiny_detector_config)
 from cpt_tpu_torch.tools import cpt_predict
 from cpt_tpu_torch.tools._common import dtype_of
+from cpt_tpu_torch.utils import image_codec
 from cpt_tpu_torch.utils.image_ops import resize_bilinear
 from cpt_tpu_torch.utils.tsv import tsv_writer
 
@@ -350,10 +350,7 @@ def make_handler(svc: CPTService):
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n))
-                from PIL import Image
-
-                img = np.asarray(Image.open(io.BytesIO(
-                    base64.b64decode(req["image_b64"]))).convert("RGB"))
+                img = image_codec.decode(base64.b64decode(req["image_b64"]))
                 t0 = time.perf_counter()
                 pred, scores = svc.predict(img, req["caption"], req["dets"])
                 self._send(200, {

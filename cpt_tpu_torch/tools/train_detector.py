@@ -11,8 +11,9 @@ resume from the last one.
 Data: an od / VG TSV yaml (``--tsv``; several, comma-separated, train over
 their concatenation), a json list ``[{img, boxes [[x, y, w, h], ...],
 labels [...], attributes [[...], ...]}]`` with ``--image_root``
-(``--ann_file``; Pillow), or ``--synthetic N`` (random canvases with two
-fixed boxes). Images go onto the ``input.pad_h`` × ``pad_w`` canvas as
+(``--ann_file``; JPEG / PNG through ``utils/image_codec``), or
+``--synthetic N`` (random canvases with two fixed boxes). Images go onto
+the ``input.pad_h`` × ``pad_w`` canvas as
 they are, as in the JAX tool. Without ``--checkpoint`` the weights are
 random, drawn from seed 0 in the VinVL layout. ``--config_file`` /
 ``--opts`` read a reference yacs yaml (the detector and the full solver;

@@ -20,7 +20,8 @@ formats ``tools/extract_features.py`` reads.
 dicts in the real ``.pth`` / ``.bin`` key layouts are saved with
 ``torch.save``, a synthetic fixture is written, and both stages run on
 tiny configs, so the save → load → convert → forward chain is proven and
-only the weights themselves remain. The fixture's jpgs need Pillow;
+only the weights themselves remain. The fixture's jpgs are written by
+``utils/image_codec`` (Pillow's bytes, without Pillow);
 ``--device`` defaults to cuda (``--device cpu --dtype float32`` runs the
 plain versions of the kernels).
 """
@@ -64,8 +65,8 @@ def make_synthetic_fixture(root: str, n_images: int, canvas=(384, 512),
                            seed: int = 0) -> None:
     """A synthetic RefCOCO-format fixture: jpg images and the ann / det
     jsons in the reference layouts (``finetune_refcoco.json`` rows; the
-    ``test_refcoco_net.py`` det dict). Needs Pillow."""
-    from PIL import Image
+    ``test_refcoco_net.py`` det dict), the jpgs at quality 92."""
+    from cpt_tpu_torch.utils.image_codec import write_image
 
     rng = np.random.RandomState(seed)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
@@ -74,8 +75,7 @@ def make_synthetic_fixture(root: str, n_images: int, canvas=(384, 512),
     for i in range(n_images):
         name = f"img_{i:06d}.jpg"
         img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
-        Image.fromarray(img).save(os.path.join(root, "images", name),
-                                  quality=92)
+        write_image(os.path.join(root, "images", name), img, quality=92)
         boxes = []
         for b in range(4):
             x1 = float(rng.randint(0, w - 80))

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
 
 import numpy as np
 
@@ -46,15 +45,6 @@ def pillow_call(fn: str, args: tuple):
     return fill
 
 
-def median_ms(fn, reps: int) -> float:
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t) * 1e3)
-    return float(np.median(times))
-
-
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--reps", type=int, default=5)
@@ -66,8 +56,8 @@ def main(argv=None) -> dict:
         out[name] = {
             "shape": list(np.shape(fargs[0])) if fn != "fill_polygon"
             else [fargs[1], fargs[2]],
-            "image_ops_ms": median_ms(lambda: ours(*fargs), args.reps),
-            "pillow_ms": median_ms(pil, args.reps) if pil else None,
+            "image_ops_ms": chip_smoke.median_ms(lambda: ours(*fargs), args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil, args.reps) if pil else None,
             "equal": bool(np.array_equal(ours(*fargs), pil())) if pil else None}
     print(json.dumps(out))
     return out

@@ -253,7 +253,7 @@ def test_vcr_color_task_from_polygons_matches_jax():
 # --- the five port functions with Pillow blocked ------------------------------
 
 NO_PILLOW = r"""
-import sys, types, json
+import sys, json
 import numpy as np
 sys.modules["PIL"] = None
 from cpt_tpu_torch.data import stage1_tasks
@@ -277,19 +277,7 @@ def detect(img, hw):
 bbox_aug.im_detect_bbox_aug(detect, inp["aug"], inp["aug"].shape[:2],
                             scales=(0.75, 1.25), device="cpu")
 out["aug_075"], out["aug_125"] = seen[2], seen[3]
-
-# load_image: a stand-in Pillow that decodes .npy bytes and does nothing else
-pil, image = types.ModuleType("PIL"), types.ModuleType("PIL.Image")
-class Npy:
-    def __init__(self, a):
-        self.a = a
-    def convert(self, mode):
-        return self
-    def __array__(self, dtype=None, copy=None):
-        return self.a
-image.open = lambda f: Npy(np.load(f))
-pil.Image = image
-sys.modules.update({"PIL": pil, "PIL.Image": image})
+# load_image: the file decoded by utils/image_codec, Pillow still blocked
 out["load"] = extract_features.load_image(sys.argv[2], 640, 1024, 600, 1000)[0]
 np.savez(sys.argv[3], **out)
 print("OK")
@@ -297,9 +285,9 @@ print("OK")
 
 
 def test_port_functions_run_without_pillow(tmp_path):
-    """In a process where ``import PIL`` fails (and, for ``load_image``, a
-    stand-in decodes .npy files and offers nothing else), the five sites
-    give the arrays the JAX package's Pillow calls give."""
+    """In a process where ``import PIL`` fails, the five sites give the
+    arrays the JAX package's Pillow calls give (``load_image`` reads a PNG
+    through ``utils/image_codec``)."""
     rng = np.random.RandomState(43)
     serve_img, _ = cs.resized_request("up")
     mask = (rng.rand(480, 640) < 0.4).astype(np.uint8)
@@ -309,11 +297,10 @@ def test_port_functions_run_without_pillow(tmp_path):
     photo = rng.randint(0, 256, (480, 640, 3)).astype(np.uint8)
     np.savez(tmp_path / "in.npz", serve=serve_img, mask=mask, aug=aug,
              polygon=np.asarray(json.dumps(polygon)))
-    with open(tmp_path / "photo.npy", "wb") as f:
-        np.save(f, photo)
+    Image.fromarray(photo).save(tmp_path / "photo.png")
     proc = subprocess.run(
         [sys.executable, "-c", NO_PILLOW, str(tmp_path / "in.npz"),
-         str(tmp_path / "photo.npy"), str(tmp_path / "out.npz")],
+         str(tmp_path / "photo.png"), str(tmp_path / "out.npz")],
         capture_output=True, text=True, timeout=100,
         env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert proc.returncode == 0 and proc.stdout.strip() == "OK", proc.stderr[-3000:]
@@ -335,7 +322,6 @@ def test_port_functions_run_without_pillow(tmp_path):
     jaug.im_detect_bbox_aug(detect, aug, aug.shape[:2], scales=(0.75, 1.25))
     np.testing.assert_array_equal(got["aug_075"], seen[2])
     np.testing.assert_array_equal(got["aug_125"], seen[3])
-    Image.fromarray(photo).save(tmp_path / "photo.png")
     np.testing.assert_array_equal(got["load"], jextract.load_image(
         str(tmp_path / "photo.png"), 640, 1024, 600, 1000)[0])
 

@@ -78,16 +78,17 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  # the meshes, the pipeline and the synthetic fixtures
                  "parallel.mesh", "parallel.pipeline", "data.synthetic",
                  "tools.dryrun_multichip",
-                 # the Pillow-free pixel operations
-                 "utils.image_ops")
+                 # the Pillow-free pixel operations and image codec
+                 "utils.image_ops", "utils.image_codec")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
     """The pretraining, explore, detector-training and scene-graph modules,
     the detector library modules, the process runtime, the meshes, the
-    pipeline and the pixel operations import, each in a fresh process with
-    ``jax``, ``flax`` and ``cpt_tpu`` blocked, and load none of them."""
+    pipeline, the pixel operations and the image codec import, each in a
+    fresh process with ``jax``, ``flax`` and ``cpt_tpu`` blocked, and load
+    none of them."""
     script = f"""
 import sys
 for name in ("jax", "flax", "cpt_tpu"):
@@ -534,15 +535,23 @@ def test_merge_tsv_shards_and_box_iou_copies(tmp_path):
     assert got.dtype == np.float32 and got.shape == (7, 4)
 
 
-def _code(path: Path, names=None) -> str:
+def _code(path: Path, names=None, skip=()) -> str:
     """The module's code without its docstrings, with the port's package
     name read as the JAX package's: what a copy must keep of its original
-    (``names``: only these top-level definitions)."""
+    (``names``: only these top-level definitions; ``skip``: without these
+    top-level definitions and imported names)."""
     tree = ast.parse(path.read_text())
     body = []
     for node in tree.body:
         if names is not None and getattr(node, "name", None) not in names:
             continue
+        if getattr(node, "name", None) in skip:
+            continue
+        if isinstance(node, ast.Import):
+            node.names = [a for a in node.names
+                          if (a.asname or a.name) not in skip]
+            if not node.names:
+                continue
         body.append(node)
     for node in ast.walk(ast.Module(body=body, type_ignores=[])):
         if isinstance(node, (ast.FunctionDef, ast.ClassDef, ast.Module)):
@@ -560,6 +569,14 @@ def _code(path: Path, names=None) -> str:
     body = [n for n in body if not (isinstance(n, ast.Expr) and isinstance(
         getattr(n, "value", None), ast.Constant))]
     return ast.dump(ast.Module(body=body, type_ignores=[]))
+
+
+# The definitions of the AST-held copies that read or write image files,
+# and the imports only they used: the port's call utils/image_codec.
+IMAGE_IO_SITES = {
+    "data/vg_tsv.py": {"img_from_base64", "write_detection_tsv", "io"},
+    "data/coco_json.py": {"coco_to_tsv", "voc_to_tsv", "np"},
+}
 
 
 @pytest.mark.parametrize("module,names", [
@@ -597,10 +614,21 @@ def test_jax_free_copies_keep_the_originals_code(module, names):
     in ``test_torch_config_front_end.py``, ``test_torch_detector_tools.py``,
     ``test_torch_oscar_data.py``, ``test_torch_captioning.py``,
     ``test_torch_detector_eval_extras.py`` and the caption metrics' case
-    below)."""
-    got = _code(REPO / "cpt_tpu_torch" / module, names)
-    want = _code(REPO / "cpt_tpu" / module, names)
+    below). The detection datasets' image readers and writers
+    (``IMAGE_IO_SITES``) call ``utils/image_codec`` where the originals call
+    Pillow: they are held apart, to the codec here and to the originals'
+    output in ``test_torch_image_codec.py``."""
+    skip = IMAGE_IO_SITES.get(module, set())
+    got = _code(REPO / "cpt_tpu_torch" / module, names, skip)
+    want = _code(REPO / "cpt_tpu" / module, names, skip)
     assert len(want) > 500 and got == want
+    if skip:
+        port = (REPO / "cpt_tpu_torch" / module).read_text()
+        tree = ast.parse(port)
+        for node in tree.body:
+            if getattr(node, "name", None) in skip:
+                src = ast.get_source_segment(port, node)
+                assert "image_codec" in src and "PIL" not in src, node.name
 
 
 def test_solver_config_copy():
@@ -647,3 +675,134 @@ def test_caption_metrics_match_the_originals():
         assert cider.bleu4(hyp_w[k], ref_w[k]) == jcider.bleu4(hyp_w[k], ref_w[k])
     assert (spice_lite.spice_lite_corpus(hyps, refs)
             == jspice.spice_lite_corpus(hyps, refs) > 0)
+
+
+# --- the routed image sites with Pillow blocked ---------------------------------
+
+NO_PILLOW = r"""
+import base64, io, json, sys, threading, types, urllib.request
+from http.server import ThreadingHTTPServer
+from pathlib import Path
+for name in ("PIL", "jax", "flax", "cpt_tpu"):
+    sys.modules[name] = None
+import numpy as np
+from cpt_tpu_torch.data import coco_json, vg_tsv
+from cpt_tpu_torch.tools import (cpt_predict, demo, extract_features,
+                                 img_info, serve, validate_checkpoints)
+
+src, out = Path(sys.argv[1]), Path(sys.argv[2])
+arrays, res = {}, {}
+arrays["load_jpg"] = extract_features.load_image(
+    str(src / "photo.jpg"), 640, 1024, 600, 1000)[0]
+arrays["load_png"] = extract_features.load_image(str(src / "photo.png"), 640, 1024)[0]
+arrays["b64"] = vg_tsv.img_from_base64(
+    base64.b64encode((src / "photo.jpg").read_bytes()).decode())
+vg_tsv.write_detection_tsv(str(out / "tsv"), "t", {"a": arrays["load_png"][:40, :50]},
+                           {"a": {"objects": []}}, {"label_to_idx": {}})
+coco_json.coco_to_tsv(str(src / "coco" / "instances.json"),
+                      str(src / "coco" / "images"), str(out / "coco"))
+res["img_info"] = img_info.create_img_info(str(src / "info"), str(out / "info.json"))
+img_info.create_all_color_imgs(str(out / "colors"), 128, size=16)
+validate_checkpoints.make_synthetic_fixture(str(out / "fixture"), 3, (96, 128))
+res["pred"] = cpt_predict.main([
+    "--image", str(src / "photo.jpg"), "--caption", "the dog", "--dets",
+    "[[2,2,20,30],[22,4,50,36]]", "--tiny", "--device", "cpu", "--dtype",
+    "float32", "--hidden_size", "32", "--num_hidden_layers", "2", "--out",
+    str(out / "pred.png")])
+demo.main(["--image", str(src / "photo.png"), "--boxes", "[[2,2,20,30]]",
+           "--out", str(out / "demo.png"), "--device", "cpu"])
+seen = []
+svc = types.SimpleNamespace(
+    device=types.SimpleNamespace(type="cpu"), n_requests=0,
+    predict=lambda img, caption, dets: seen.append(img) or ([0.0] * 4, [1.0]))
+httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+body = json.dumps({"image_b64": base64.b64encode(
+    (src / "photo.jpg").read_bytes()).decode(), "caption": "x",
+    "dets": [[0, 0, 1, 1]]}).encode()
+opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+req = urllib.request.Request(
+    f"http://127.0.0.1:{httpd.server_address[1]}/predict", data=body)
+with opener.open(req, timeout=60) as r:
+    res["serve_status"] = r.status
+httpd.shutdown()
+arrays["served"] = seen[0]
+np.savez(out / "arrays.npz", **arrays)
+(out / "res.json").write_text(json.dumps(res))
+assert "PIL" not in [k.split(".")[0] for k, v in sys.modules.items() if v is not None]
+print("OK")
+"""
+
+
+def _tree(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_routed_image_sites_run_without_pillow(tmp_path):
+    """In a process where ``import PIL`` (and jax, and cpt_tpu) fails, every
+    site that read or wrote image files through Pillow reads and writes
+    them through ``utils/image_codec``: ``extract_features.load_image``,
+    ``vg_tsv.img_from_base64`` and ``write_detection_tsv``,
+    ``coco_json.coco_to_tsv``, ``img_info``'s size scan and colour probes,
+    ``validate_checkpoints``' fixture, ``cpt_predict --image/--out``,
+    ``demo --image/--out`` and serve's HTTP handler. Each output equals the
+    JAX package's Pillow call's on the same files (arrays, file bytes), or,
+    for the tools without a JAX counterpart run here, Pillow's reading of
+    the written file."""
+    import chip_smoke as cs
+    from PIL import Image
+
+    from cpt_tpu.data import coco_json as jcoco
+    from cpt_tpu.data import vg_tsv as jvg_tsv
+    from cpt_tpu.tools import extract_features as jextract
+    from cpt_tpu.tools import img_info as jimg_info
+    from cpt_tpu.tools import validate_checkpoints as jvalidate
+    from cpt_tpu_torch.tools import demo
+    from cpt_tpu_torch.tools.cpt_predict import draw_box_outline
+
+    src, out, ref = tmp_path / "src", tmp_path / "out", tmp_path / "ref"
+    for d in (src, out, ref, src / "info"):
+        d.mkdir()
+    photo = cs.codec_photo(60, 96, 128)
+    Image.fromarray(photo).save(src / "photo.jpg", quality=90)
+    Image.fromarray(photo).save(src / "photo.png")
+    cs.coco_fixture(str(src / "coco"))
+    for name, (h, w) in cs.INFO_SIZES.items():
+        Image.fromarray(cs.codec_photo(61, h, w)).save(src / "info" / name)
+    proc = subprocess.run([sys.executable, "-c", NO_PILLOW, str(src), str(out)],
+                          capture_output=True, text=True, timeout=150,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("OK"), \
+        proc.stderr[-3000:]
+    got = np.load(out / "arrays.npz")
+    res = json.loads((out / "res.json").read_text())
+
+    decoded = np.asarray(Image.open(src / "photo.jpg").convert("RGB"))
+    np.testing.assert_array_equal(got["load_jpg"], jextract.load_image(
+        str(src / "photo.jpg"), 640, 1024, 600, 1000)[0])
+    np.testing.assert_array_equal(got["load_png"], jextract.load_image(
+        str(src / "photo.png"), 640, 1024)[0])
+    np.testing.assert_array_equal(got["b64"], decoded)
+    np.testing.assert_array_equal(got["served"], decoded)
+    assert res["serve_status"] == 200
+    jvg_tsv.write_detection_tsv(str(ref / "tsv"), "t", {"a": photo[:40, :50]},
+                                {"a": {"objects": []}}, {"label_to_idx": {}})
+    jcoco.coco_to_tsv(str(src / "coco" / "instances.json"),
+                      str(src / "coco" / "images"), str(ref / "coco"))
+    jimg_info.create_all_color_imgs(str(ref / "colors"), 128, size=16)
+    jvalidate.make_synthetic_fixture(str(ref / "fixture"), 3, (96, 128))
+    for sub in ("tsv", "coco", "colors", "fixture"):
+        mine, theirs = _tree(out / sub), _tree(ref / sub)
+        assert mine.keys() == theirs.keys() and mine, sub
+        for k in mine:
+            assert mine[k] == theirs[k].replace(str(ref).encode(),
+                                                str(out).encode()), (sub, k)
+    assert res["img_info"] == jimg_info.create_img_info(
+        str(src / "info"), str(ref / "info.json"))
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(out / "pred.png")),
+        draw_box_outline(decoded.copy(), res["pred"], (0, 255, 0)))
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(out / "demo.png")),
+        demo.paint(photo, [[2, 2, 20, 30]], False, "cpu")[0][1])

@@ -184,7 +184,11 @@ def test_bert_img_model_auto_long_sequence_matches(bert_case, monkeypatch):
     tokens + 806 regions (S = 820), text and region keys masked. The port's
     gate sends every layer to ``fused_attention_block`` (its plain version
     here); the JAX package's gate runs its einsum path at this S (not a
-    multiple of 128). ``BertImgModel`` against the JAX module in f32."""
+    multiple of 128). ``BertImgModel`` against the JAX module in f32. The
+    case's width (tiny) is off ``"auto"``'s width rule (the JAX gate's
+    ``hidden_size % 128``), so that rule (``auto_fuses_attention`` /
+    ``auto_fuses_ffn``) is held open here: what is checked is that the
+    sequence length gates nothing."""
     from cpt_tpu.models.bert.model import BertImgModel as JaxBert
     from cpt_tpu_torch.models.bert import model as port_model
 
@@ -210,6 +214,8 @@ def test_bert_img_model_auto_long_sequence_matches(bert_case, monkeypatch):
         return real(*args, **kwargs)
 
     monkeypatch.setattr(port_model, "fused_attention_block", spy)
+    monkeypatch.setattr(port_model, "auto_fuses_attention", lambda c: True)
+    monkeypatch.setattr(port_model, "auto_fuses_ffn", lambda c: True)
     cfg = dataclasses.replace(cfg, attention_impl="auto", ffn_impl="auto")
     model = port_model.BertImgModel(cfg, torch.float32).eval()
     state = bconv.state_from_reference(sd, cfg)
