@@ -196,8 +196,9 @@ Phases (any failure raises and the script exits non-zero):
    images whose 3 dets carry RLE masks (``seg_resize_extract``; image and
    masks rescaled ×1.25 by image_ops): 2 rows of 3 copies, finite
    features, K1 50 and K2 1 an image.
-13. the Oscar classification runners at full width (Oscar-base from one
-   random reference-layout checkpoint, seed 0; heads fresh from seed 0,
+13. the Oscar classification runners at full width, cut to
+   ``OSCAR_LAYERS`` (6) of Oscar-base's 12 layers (from one random
+   reference-layout checkpoint, seed 0; heads fresh from seed 0,
    their biases drawn from N(0, OSCAR_BIAS_STD²)) on synthetic 2054-d
    region features (``oscar_fixture``): K3 (block and core; the core on
    its streamed branch at S 178, ragged at 50, where an unrescaled running
@@ -215,13 +216,13 @@ Phases (any failure raises and the script exits non-zero):
    each runner's eval within its ``OSCAR_TOL`` of an f32 einsum model on
    the trained weights (the plain bf16 path's gap read beside it), its
    ``OSCAR_FAULTS`` missing it and farther than ``OSCAR_FAULT_MARGIN`` ×
-   the run's own gap; K3 and K4 12 a
+   the run's own gap; K3 and K4 one a layer a
    64-row eval batch, K3 none under the CL mask; scores and R@K finite;
    host ms per step and per eval batch; a retrieval run cut at step 2
    (``--max_steps``, ``--save_every``) and ``--resume``d, bit-equal to its
    uninterrupted twin (or, should an op prove nondeterministic, no farther
    from it than a second uninterrupted run).
-14. Oscar captioning at full width, cut to ``CAPTION_LAYERS`` (6) of
+14. Oscar captioning at full width, cut to ``CAPTION_LAYERS`` (3) of
    Oscar-base's 12 layers (an untied decoder, from one random
    reference-layout checkpoint, seed 0; the MLM head fresh from seed 0;
    vocab 30522, S = 70 + 50) on phase 13's fixture (8 captioned
@@ -320,7 +321,8 @@ Phases (any failure raises and the script exits non-zero):
    zeroed just before each path and read just after (``LIB_LAUNCHES``),
    shapes and finite values, host ms.
 19. the process runtime: two processes (``RankProcesses``, each under
-   ``timeout``; they go on with phase 20) of ``extract_features
+   ``timeout``; started before phase 10, they draw their random weights
+   meanwhile, wait for this phase and go on with phase 20) of ``extract_features
    --synthetic 4 --shard_by_process`` on
    the one card in a gloo group on localhost, at full X152 width
    (K1 and K2 in each), ``allreduce_sum`` and ``sync`` across them, the
@@ -362,6 +364,24 @@ Phases (any failure raises and the script exits non-zero):
    ones) and its colour probes, and ``validate_checkpoints --dryrun
    --device cuda`` (its fixture's JPEG bytes equal to Pillow's, the report
    finite).
+22. VinVL_L (``--model_size large``: 24 × 1024, 16 heads, FFN 4096; random
+   weights from seed 0) and the widths the JAX gates send to their Pallas
+   kernels: (b) K3 and K4 at VinVL_L's eval batch ``[64,178,1024]``, K3's
+   core at head_dim 24 (the zero-padded tile), 32, 80, 128, 256 and 512 (the
+   CUDA-core kernel) beside SDPA, the row-LayerNorm GEMM at N 1024 (the
+   cluster), 1280, 2048 and 4096 (the split path) beside ``torch.addmm``, K6 / K6b / K6c at head_dim 80, 256, 40 (padded)
+   and 36 (CUDA-core), each against its plain version in f32 with named
+   faults (``pad_not_zeroed``, ``tile_stats_dropped``, ``rank0_sums``
+   among them), by device time; (a) ``run_vqa.main --model_size large`` (2
+   steps, dropout on: no kernel; eval on 64 questions, K3 and K4 24 a
+   batch), its logits within ``VINVL_TOL`` of an f32 einsum model on the
+   same weights with the bias dropped and K4's LayerNorm per slice missing
+   it, one deterministic ``"flash"`` step (K6, K6b, K6c and K4 24 each),
+   ``refcoco_cpt.main --model_size large`` scoring one batch of 32
+   sequences (K3 and K4 24) within ``VINVL_TOL`` of f32; (c) ``run_vqa``
+   eval at ``WIDTH_RUNS`` (hidden 384 over 24 heads, 1280 over 16, 1536 over
+   12) within ``VINVL_TOL`` of f32; launches per code path of K3's core,
+   the LN GEMM and K6 / K6b / K6c, each path launched.
 
 The last two lines of standard output are a JSON summary of the kernels
 and ``{"ok": true, "device": {...}}``. ``chip_e2e.py`` times two commits'
@@ -385,6 +405,7 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -1039,6 +1060,7 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
     are also timed by device time (:func:`device_ms`)."""
     import torch
 
+    t_check = time.perf_counter()
     got = kernel()
     want = exact()
     torch.cuda.synchronize()
@@ -1069,10 +1091,12 @@ def compare(name: str, label: str, kernel, plain, exact, rows: list,
     faults_txt = "".join(f" {f}={e:.3e} ({e / tol:.1f}x tol)"
                          for f, e in fault_errs.items())
     lib_txt = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+    rows[-1]["wall_s"] = time.perf_counter() - t_check
     print(f"{name} {label}: max_abs_err={err:.3e} tol={tol:.3e} "
           f"({tol / max(err, 1e-30):.1f}x err) ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f}{lib_txt} bound_ms={bound_ms:.4f} "
-          f"({bound_by}){dev_txt}{faults_txt}", flush=True)
+          f"({bound_by}){dev_txt}{faults_txt}; the check "
+          f"{rows[-1]['wall_s']:.1f} s", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name} {label}: max_abs_err {err} > {tol}")
     caught = [f for f, e in fault_errs.items() if not e > tol]
@@ -1116,8 +1140,10 @@ def check_k1(rows: list, shapes, g, device=None) -> None:
         rows[-1]["path"] = path
 
 
-def check_k3(rows: list, b: int, s_len: int) -> None:
-    """K3's block at [b, s_len, 768] (12 heads) and its attention core alone,
+def check_k3(rows: list, b: int, s_len: int, hdim: int = 768,
+             heads: int = 12) -> None:
+    """K3's block at [b, s_len, hdim] (``heads`` heads; Oscar-base's 768 and
+    12 by default) and its attention core alone,
     each against its plain version in f32, by device time. The projections
     are scaled so the scores spread (std ≈ 2): softmax is far from uniform,
     so uniform attention or a dropped mask misses the tolerance, and so does
@@ -1137,8 +1163,8 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(s_len)
-    hdim, heads = 768, 12
-    scale = 1.0 / (hdim // heads) ** 0.5
+    hd = hdim // heads
+    scale = 1.0 / hd ** 0.5
     args = on_card(k3_inputs(b, s_len, hdim, seed=s_len), dev)
     x, kb = args[0], args[7]
 
@@ -1157,7 +1183,7 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
     faults = {"uniform": block_ref(no_q), "no_mask": block_ref(no_mask)}
     faults.update({f: block_ref(f32(args), f) for f in GEMM_FAULTS})
     tokens = b * s_len
-    compare("K3", f"x=[{b},{s_len},768] heads=12",
+    compare("K3", f"x=[{b},{s_len},{hdim}] heads={heads}",
             lambda: fused_attention_block(*args, heads, 1e-12),
             lambda: reference_attention_block(*args, num_heads=heads,
                                               eps=1e-12),
@@ -1175,7 +1201,7 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
     def core_ref(q, bias, sc):
         return lambda: reference_attention_core(q, bias, heads, sc)
 
-    qh, kh, vh = qkv.view(b, s_len, 3, heads, 64).unbind(2)
+    qh, kh, vh = qkv.view(b, s_len, 3, heads, hd).unbind(2)
     kb_mask = kb[:, None, None, :].to(bf)
     core_faults = {"uniform": core_ref(qkv_no_q, kb, scale),
                    "no_mask": core_ref(qkv, torch.zeros_like(kb), scale),
@@ -1186,7 +1212,7 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
     if s_len > 128:
         core_faults["no_rescale"] = lambda: core_no_rescale(qkv, kb, heads,
                                                             scale)
-    compare("K3 core", f"qkv=[{b},{s_len},2304] heads=12",
+    compare("K3 core", f"qkv=[{b},{s_len},{3 * hdim}] heads={heads}",
             lambda: attention_core(qkv, kb, heads, scale),
             core_ref(qkv, kb, scale), core_ref(qkv, kb, scale), rows,
             core_faults,
@@ -1198,28 +1224,30 @@ def check_k3(rows: list, b: int, s_len: int) -> None:
             device="attention_kernel")
 
 
-def check_k4(rows: list, m: int, approx: bool = False) -> None:
-    """K4 at [m, 768], F 3072 (``k4_inputs``), against its plain version in
-    f32 with each of ``GEMM_FAULTS``, by device time."""
+def check_k4(rows: list, m: int, approx: bool = False, hdim: int = 768,
+             f: int = 3072) -> None:
+    """K4 at [m, hdim], FFN width f (Oscar-base's 768 and 3072 by default;
+    ``k4_inputs``), against its plain version in f32 with each of
+    ``GEMM_FAULTS``, by device time (the split LayerNorm path's row kernel
+    too, past a hidden size of 1024)."""
     import torch
 
     from cpt_tpu_torch.ops.fused_ffn import fused_ffn, reference_ffn
 
-    hdim = 768
-    args = on_card(k4_inputs(m, hdim, 3072, seed=m), torch.device("cuda"))
+    args = on_card(k4_inputs(m, hdim, f, seed=m), torch.device("cuda"))
     fargs = [a.float() for a in args]
 
     def ffn_ref(a, fault=None):
         return lambda: ffn_with_fault(*a, 1e-12, approx, fault)
 
-    compare("K4", f"x=[{m},768] F=3072 gelu={'tanh' if approx else 'erf'}",
+    compare("K4", f"x=[{m},{hdim}] F={f} gelu={'tanh' if approx else 'erf'}",
             lambda: fused_ffn(*args, approximate=approx),
             lambda: reference_ffn(*args, 1e-12, approx),
             lambda: reference_ffn(*fargs, 1e-12, approx), rows,
-            {f: ffn_ref(fargs, f) for f in GEMM_FAULTS},
-            work=(nbytes(*args) + nbytes(args[0]), 4 * m * hdim * 3072,
+            {fault: ffn_ref(fargs, fault) for fault in GEMM_FAULTS},
+            work=(nbytes(*args) + nbytes(args[0]), 4 * m * hdim * f,
                   BF16_OPS_S),
-            device=("wgmma_",))
+            device=("wgmma_", "residual_ln_rows"))
 
 
 def check_kernels(rows: list) -> None:
@@ -1494,8 +1522,9 @@ def check_nms_on(rows: list, label: str, arrays: tuple, thr: float,
     ms = cuda_ms(lambda: nms_pallas(*args, thr, max_out, off))
     dev_ms, how = device_ms(lambda: nms_pallas(*args, thr, max_out, off),
                             "nms_")
+    # the plain version takes up to ~2 s a call: one call after one warmup
     plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out, off),
-                       reps=3, warmup=1)
+                       reps=1, warmup=1)
     kept = int(want_keep.sum())
     # each kept box is scored against all K boxes of its problem: an
     # IoU is ~12 f32 operations (areas, intersection, union, divide)
@@ -1519,6 +1548,7 @@ def check_nms_on(rows: list, label: str, arrays: tuple, thr: float,
 
 # K6's and K6b/K6c's shapes on phase 3's paths: serving (the backward at
 # the training batch), a finite 3-D bias, long context; (b, heads, S, bias)
+# at head_dim 64, or (b, heads, S, bias, head_dim)
 FLASH_SHAPES = [(16, 12, 120, "key"), (4, 12, 512, "3d"), (2, 12, 2048, "key")]
 FLASH_BWD_SHAPES = [(32, 12, 120, "key"), (4, 12, 512, "3d"),
                     (2, 12, 2048, "key")]
@@ -1541,8 +1571,9 @@ def check_flash(rows: list, shapes=FLASH_SHAPES) -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
-    for b, h, s_len, bias in shapes:
-        q, k, v = (torch.randn(b, h, s_len, 64, generator=g, device=dev)
+    for b, h, s_len, bias, *dim in shapes:
+        d = dim[0] if dim else 64
+        q, k, v = (torch.randn(b, h, s_len, d, generator=g, device=dev)
                    for _ in range(3))
         q, k, v = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16()
         if bias == "key":
@@ -1551,7 +1582,7 @@ def check_flash(rows: list, shapes=FLASH_SHAPES) -> None:
             kb[-1] = -10000.0
         else:
             kb = torch.randn(b, 1, s_len, s_len, generator=g, device=dev) * 4
-        scale = 0.125
+        scale = 1.0 / d ** 0.5
         qf, kf, vf = q.float(), k.float(), v.float()
 
         def plain(qq, kk, vv, bb, sc=scale):
@@ -1568,11 +1599,11 @@ def check_flash(rows: list, shapes=FLASH_SHAPES) -> None:
         if s_len >= 2048:
             faults["no_rescale"] = lambda: flash_no_rescale(qf, kf, vf, kb, scale)
         mask = (kb * scale).bfloat16()
-        compare("K6", f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}",
+        compare("K6", f"q=[{b},{h},{s_len},{d}] bias={list(kb.shape)}",
                 lambda: flash_mha(q, k, v, kb, sm_scale=scale),
                 plain(q, k, v, kb), plain(qf, kf, vf, kb), rows, faults,
                 work=(nbytes(q, k, v, kb) + nbytes(q),
-                      4 * b * h * s_len * s_len * 64, BF16_OPS_S),
+                      4 * b * h * s_len * s_len * d, BF16_OPS_S),
                 library=lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, scale=scale),
                 device="flash_attention_kernel")
@@ -1631,8 +1662,9 @@ def check_flash_bwd(rows: list, shapes=FLASH_BWD_SHAPES) -> None:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(8)
-    for b, h, s_len, bias in shapes:
-        q, k, v, do = (torch.randn(b, h, s_len, 64, generator=g, device=dev)
+    for b, h, s_len, bias, *dim in shapes:
+        d = dim[0] if dim else 64
+        q, k, v, do = (torch.randn(b, h, s_len, d, generator=g, device=dev)
                        for _ in range(4))
         q, k, v, do = (q * 2).bfloat16(), k.bfloat16(), v.bfloat16(), do.bfloat16()
         if bias == "key":
@@ -1641,7 +1673,7 @@ def check_flash_bwd(rows: list, shapes=FLASH_BWD_SHAPES) -> None:
             kb[-1] = -10000.0
         else:
             kb = torch.randn(b, 1, s_len, s_len, generator=g, device=dev) * 4
-        scale = 0.125
+        scale = 1.0 / d ** 0.5
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got = torch.autograd.grad(flash_mha(*leaves, kb, sm_scale=scale),
                                   leaves, do)
@@ -1679,8 +1711,8 @@ def check_flash_bwd(rows: list, shapes=FLASH_BWD_SHAPES) -> None:
         library_dev, library_how = device_ms(sdpa_bwd, stream=sdpa_stream)
         # device_ms's fallback, taken every run so that it is known to work
         library_graph = graph_ms(sdpa_bwd, stream=sdpa_stream)
-        label = f"q=[{b},{h},{s_len},64] bias={list(kb.shape)}"
-        sq = b * h * s_len * s_len * 64
+        label = f"q=[{b},{h},{s_len},{d}] bias={list(kb.shape)}"
+        sq = b * h * s_len * s_len * d
         in_bytes = nbytes(q, k, v, do, m, l, di, kb)
         whole_ms, whole_by = bound(in_bytes + nbytes(o) + 3 * nbytes(q),
                                    10 * sq, BF16_OPS_S)
@@ -2559,6 +2591,7 @@ REQUEST_GROUPS = (("K1", ("grouped_conv3x3_mma", "grouped_conv3x3_kernel")),
                   ("K6", ("flash_attention_kernel",)),
                   ("K3 core", ("attention_kernel",)),
                   (GEMM_GROUP, ("wgmma_bias_act", "wgmma_residual_ln",
+                                "wgmma_residual_stats", "residual_ln_rows",
                                 "gemm_bias_act_kernel", "gemm_residual_ln_kernel")),
                   ("GEMM / conv (cuBLAS, cuDNN)", ("gemm", "nvjet", "cutlass", "xmma",
                                                    "sm90", "conv", "implicit",
@@ -2836,8 +2869,9 @@ def check_gemm_sass(build) -> dict:
     """Counts of the Hopper instructions in the shared GEMM's kernels
     (``csrc/gemm.cu``, the functions named "wgmma_") in the built library's
     SASS (``cuobjdump -sass``): ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
-    loads); raises unless each kernel issues both, and the row-LayerNorm
-    kernel its cluster barrier (``UCGABAR``)."""
+    loads); raises unless each kernel issues both (the split LayerNorm
+    path's first kernel, "wgmma_residual_stats", too), and the row-LayerNorm
+    cluster kernel its cluster barrier (``UCGABAR``)."""
     from pathlib import Path
 
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
@@ -2847,15 +2881,15 @@ def check_gemm_sass(build) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split(":", 1)[1].strip()
-            fn = next((k for k in ("wgmma_bias_act", "wgmma_residual_ln")
-                       if k in fn), None)
+            fn = next((k for k in ("wgmma_bias_act", "wgmma_residual_ln",
+                                   "wgmma_residual_stats") if k in fn), None)
             if fn:
                 counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0, "UCGABAR": 0})
         elif fn:
             for op in counts[fn]:
                 counts[fn][op] += op in line
     print(f"GEMM kernels' SASS (cuobjdump): {counts}", flush=True)
-    if (len(counts) != 2 or any(not c["HGMMA"] or not c["UTMALDG"]
+    if (len(counts) != 3 or any(not c["HGMMA"] or not c["UTMALDG"]
                                 for c in counts.values())
             or not counts["wgmma_residual_ln"]["UCGABAR"]):
         raise AssertionError(f"the GEMM kernels issue no wgmma / TMA / "
@@ -5867,56 +5901,89 @@ def detector_tsv(root: str, size: int, n: int = DETECTOR_IMAGES) -> str:
     return write_detection_tsv(root, "attr", images, labels, DETECTOR_LABELMAP)
 
 
-@contextlib.contextmanager
-def cached_detector_weights():
-    """Within the block, the detector tools draw their random reference-
-    layout weights once per (config, seed) instead of at every ``main``
-    (the numpy draw of X152-C4's weights dominates a tool's set-up)."""
-    from cpt_tpu_torch.models.detector import convert as dconv
+# The fields each random draw reads: a draw is shared by every config that
+# agrees on them (a precision, a test-time setting, a task head, dropout
+# and the heads' count are not read).
+DETECTOR_DRAW_FIELDS = (
+    lambda c: c.backbone.stage_blocks, lambda c: c.backbone.head_blocks,
+    lambda c: c.backbone.num_groups, lambda c: c.backbone.width_per_group,
+    lambda c: c.backbone.stem_out_channels,
+    lambda c: c.backbone.res2_out_channels, lambda c: c.rpn.num_anchors,
+    lambda c: c.roi_heads.num_classes, lambda c: c.attributes.cls_emd_dim,
+    lambda c: c.attributes.attr_emd_dim, lambda c: c.attributes.num_attributes)
+OSCAR_DRAW_FIELDS = ("hidden_size", "intermediate_size", "vocab_size",
+                     "max_position_embeddings", "type_vocab_size",
+                     "img_feature_type", "img_feature_dim", "code_voc",
+                     "code_dim", "code_size")
 
-    real, cache = dconv.random_vinvl_state_dict, {}
 
-    def cached(cfg, seed=0):
-        if (cfg, seed) not in cache:
-            cache[cfg, seed] = real(cfg, seed)
-        return cache[cfg, seed]
-
-    dconv.random_vinvl_state_dict = cached
-    try:
-        yield
-    finally:
-        dconv.random_vinvl_state_dict = real
+def first_layers(sd: dict, n: int) -> dict:
+    """An Oscar-layout state dict cut to its first ``n`` encoder layers."""
+    return {k: v for k, v in sd.items()
+            if not (k.startswith("bert.encoder.layer.")
+                    and int(k.split(".")[3]) >= n)}
 
 
 @contextlib.contextmanager
 def cached_random_weights():
     """Within the block, every tool draws its random reference-layout
-    weights (X152-C4's and Oscar's) once per (config, seed): the numpy draw
-    takes seconds and most phases build several models on the same seed.
-    Each call gets its own dict of the shared arrays."""
+    weights (X152-C4's and Oscar's) once per geometry and seed: the numpy
+    draw takes seconds and most phases build several models on the same
+    seed. A geometry is the fields the draw reads (``DETECTOR_DRAW_FIELDS``,
+    ``OSCAR_DRAW_FIELDS``), and an Oscar draw of fewer layers is the first
+    layers of a deeper one (``random_oscar_state_dict`` draws the layers in
+    order after every other tensor, a discrete-code table excepted). Each
+    call gets its own dict of the shared arrays. A draw in flight on another
+    thread (``predraw_weights``) is awaited, not repeated. Yields the log of
+    the draws made: (thread name, which, seconds)."""
     from cpt_tpu_torch.models.detector import convert as dconv
     from cpt_tpu_torch.utils import convert as cv
 
-    builders = ((dconv, "random_vinvl_state_dict"),
-                (cv, "random_oscar_state_dict"))
-    real = [getattr(m, name) for m, name in builders]
+    real_vinvl = dconv.random_vinvl_state_dict
+    real_oscar = cv.random_oscar_state_dict
+    lock, drawn, log = threading.Lock(), {}, []
 
-    def cached(draw):
-        cache = {}
+    def draw_once(draw, key, layers, shallower, cfg, seed, what):
+        """``draw(cfg, seed)`` unless a draw under ``key`` of ``layers``
+        (or, where ``shallower``, of more layers) is cached or in flight."""
+        with lock:
+            entries = drawn.setdefault(key, [])
+            done = next((f for n, f in entries if n == layers
+                         or (shallower and n >= layers)), None)
+            owner = done is None
+            if owner:
+                done = concurrent.futures.Future()
+                entries.append((layers, done))
+        if owner:
+            t0 = time.perf_counter()
+            try:
+                done.set_result(draw(cfg, seed))
+            except BaseException as e:
+                done.set_exception(e)
+                raise
+            log.append((threading.current_thread().name, what,
+                        time.perf_counter() - t0))
+        sd = done.result()
+        return dict(sd) if layers is None else first_layers(sd, layers)
 
-        def draw_once(cfg, seed=0):
-            if (cfg, seed) not in cache:
-                cache[cfg, seed] = draw(cfg, seed)
-            return dict(cache[cfg, seed])
-        return draw_once
+    def vinvl(cfg, seed=0):
+        key = ("vinvl", seed, tuple(f(cfg) for f in DETECTOR_DRAW_FIELDS))
+        return draw_once(real_vinvl, key, None, False, cfg, seed,
+                         f"X152 classes {cfg.roi_heads.num_classes} seed {seed}")
 
-    for (m, name), draw in zip(builders, real):
-        setattr(m, name, cached(draw))
+    def oscar(cfg, seed=0):
+        key = ("oscar", seed, tuple(getattr(cfg, f) for f in OSCAR_DRAW_FIELDS))
+        return draw_once(real_oscar, key, cfg.num_hidden_layers,
+                         not cfg.img_feature_type.startswith("dis_code"), cfg,
+                         seed, f"Oscar {cfg.num_hidden_layers}x{cfg.hidden_size} "
+                         f"{cfg.img_feature_type} {cfg.img_feature_dim} seed {seed}")
+
+    dconv.random_vinvl_state_dict, cv.random_oscar_state_dict = vinvl, oscar
     try:
-        yield
+        yield log
     finally:
-        for (m, name), draw in zip(builders, real):
-            setattr(m, name, draw)
+        dconv.random_vinvl_state_dict = real_vinvl
+        cv.random_oscar_state_dict = real_oscar
 
 
 @contextlib.contextmanager
@@ -6031,7 +6098,7 @@ def run_detector_tools(res, counters, detect_launches: list,
     common = ["--device", dev, "--dtype",
               "bfloat16" if res.detector.dtype == torch.bfloat16 else "float32"]
     out = {}
-    with tempfile.TemporaryDirectory() as root, cached_detector_weights():
+    with tempfile.TemporaryDirectory() as root, cached_random_weights():
         yaml_path = f"{root}/vinvl_x152c4.yaml"
         with open(yaml_path, "w") as f:
             f.write(VINVL_YAML)
@@ -6236,6 +6303,16 @@ OSCAR_TOL = {"vqa": 1.8e-2, "gqa": 1.8e-2, "nlvr": 4.8e-2, "retrieval": 2.7e-3}
 # mask's 2-D fault (4.009e-3 in the calibration) clears 2.7e-3 by 1.48×
 # only, against CL's own gap of 2.187e-4 (18×).
 OSCAR_FAULT_MARGIN = 5.0
+# phase 13 runs the runners at this depth of Oscar-base's 12 (full width):
+# phase 22 pushed the whole script past 480 s (523.1 s with phase 13 at 12
+# layers, 39.2-40.5 s of it). Phase 13 alone (H100 80GB HBM3, 700 W): 51.1
+# s at 12 layers, 32.4 s at 6. The tolerances above, set at 12 layers,
+# hold at 6 (whole runs of the script, same card): sound gaps VQA 5.804e-3,
+# GQA 5.985e-3, NLVR2 pair 1.253e-2 and concat 8.609e-3, retrieval
+# 7.293e-4, re-rank 1.316e-4, CL 1.578e-4 (each ≤ 1/3 of its tolerance);
+# the thinnest faults retrieval CL's 2-D mask 4.303e-3 (1.6x) and NLVR2's
+# swapped choices 9.715e-2 (2.0x), against 1.48x and 2.2x at 12 layers.
+OSCAR_LAYERS = 6
 OSCAR_WORDS = ("man", "woman", "dog", "cat", "person", "car", "tree", "shirt",
                "table", "chair", "horse", "bus")
 
@@ -6399,12 +6476,14 @@ def run_oscar_runners(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
             result = entry.main(argv + flags)
         return result, drv, drv.total()
 
-    def per_batch(call, n_rows, k3=12):
-        """The eval call's launches fit one batch of 64 rows: K3 ``k3`` and
-        K4 12 a batch, no other kernel."""
+    layers = bcfg.num_hidden_layers
+
+    def per_batch(call, n_rows, k3=True):
+        """The eval call's launches fit one batch of 64 rows: K3 (unless
+        ``k3`` is False) and K4 one a layer a batch, no other kernel."""
         n = -(-n_rows // 64)
         want = {k: 0 for k in counters}
-        want.update({"K3": k3 * n, "K4": 12 * n})
+        want.update({"K3": layers * n * k3, "K4": layers * n})
         return call["launches"] == want
 
     def steps_ok(rec, n_steps):
@@ -6572,8 +6651,7 @@ def run_oscar_runners(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
             check(steps_ok(rec, int(extra[1])),
                   f"{name} training: steps {step_text(rec)}")
             check(len(rec.calls) == 1 and len(pairs) == 64
-                  and per_batch(final, 64, k3=0 if name == "retrieval_cl"
-                                else 12)
+                  and per_batch(final, 64, k3=name != "retrieval_cl")
                   and all(np.isfinite(v) for v in metrics.values()),
                   f"{name} eval launches {final['launches']}, metrics "
                   f"{metrics}, {len(pairs)} pairs")
@@ -6646,8 +6724,11 @@ CAPTION_STEPS = 39                # --max_seq_a_length 40: steps 1 .. 39
 # host time grows with the layers it runs. Phase 14 alone on the H100
 # 80GB HBM3 at 700 W (PR 22): 51.9 s at 6 layers, the 2-D mask fault
 # 2.0x CAPTION_TOL (2.24x in the 12-layer calibration); at 4 layers 37.9 s
-# but that fault 1.1x, at 8 76.1 s (PERF.md)
-CAPTION_LAYERS = 6
+# but that fault 1.1x, at 8 76.1 s (PERF.md). Phase 22 pushed the script
+# past 480 s again (523.1 s): phase 14 alone took 47.1 s at 6
+# layers (the 2-D mask 2.1x, the gap 3.342e-2) and 33.7 s at 3 (1.8x, the
+# gap 2.696e-2), every check passing.
+CAPTION_LAYERS = 3
 # Named faults of the teacher-forced log-probs, each on the f32 oracle: the
 # 2-D key-only mask (every query sees every valid key, future caption
 # tokens included), no [MASK] written at step t (the target visible), the
@@ -8889,10 +8970,12 @@ SHARD_QUERIES = 4
 
 class RankProcesses:
     """Phases 19-20's two rank processes of one gloo group on the card
-    (``MESH_WORKER``, each under ``timeout``), started once: each prints
-    one JSON line after phase 19's section and one at its end;
-    :meth:`record` reads a rank's next line, :meth:`finish` waits for both
-    and raises on a failed one; :meth:`close` stops what is left."""
+    (``MESH_WORKER``, each under ``timeout``), started before phase 10:
+    each draws its random weights on the host, waits for :meth:`go` (phase
+    19), then prints one JSON line after phase 19's section and one at its
+    end; :meth:`record` reads a rank's next line, :meth:`finish` waits for
+    both and raises on a failed one; :meth:`close` stops what is left (a
+    rank whose stdin closes before :meth:`go` ends)."""
 
     def __init__(self, root: str):
         from cpt_tpu_torch.parallel.distributed import free_port
@@ -8911,7 +8994,13 @@ class RankProcesses:
                 self.procs.append(subprocess.Popen(
                     ["timeout", "-k", "10", str(MESH_TIMEOUT_S), sys.executable,
                      worker], cwd=root, env=dict(env, CPT_PROCESS_ID=str(i)),
-                    text=True, stdout=subprocess.PIPE, stderr=err))
+                    text=True, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                    stderr=err))
+
+    def go(self) -> None:
+        for p in self.procs:
+            p.stdin.write("go\n")
+            p.stdin.close()
 
     def _fail(self, i: int, what: str):
         self.procs[i].wait()
@@ -9016,8 +9105,9 @@ def run_process_runtime(counters, smi: str, ranks: RankProcesses,
 
 # Phase 20: the device meshes and the pipeline (``parallel/mesh.py``,
 # ``parallel/pipeline.py``): phase 19's two rank processes go on, one rank
-# each (``MESH_WORKER`` → ``mesh_rank``), at full width.
-MESH_TIMEOUT_S = 360
+# each (``MESH_WORKER`` → ``mesh_rank``), at full width. The ranks start
+# before phase 10 and wait for phase 19: their limit covers phases 10-20.
+MESH_TIMEOUT_S = 600
 MESH_WORKER = r"""
 import json, sys
 sys.path.insert(0, {repo!r})
@@ -9412,7 +9502,9 @@ def mesh_dryrun(counters) -> dict:
 
 
 def mesh_rank(root: str) -> None:
-    """One rank of phases 19-20 (``MESH_WORKER``): phase 19's section, its
+    """One rank of phases 19-20 (``MESH_WORKER``): its random weights
+    drawn (``predraw_weights(ranks=True)``) while ``main`` runs phases
+    10-18; on ``main``'s word (a line on stdin) phase 19's section, its
     record printed as a JSON line, then phase 20's sections (a)-(e) in
     turn, each with its kernel counts zeroed just before and read just
     after, and their record."""
@@ -9420,12 +9512,15 @@ def mesh_rank(root: str) -> None:
 
     from cpt_tpu_torch.parallel import distributed as D
 
-    t0 = time.perf_counter()
-    assert D.initialize_from_env()
-    counters = kernel_counters()
-    rank = {"pid": D.process_index(), "count": D.process_count(),
-            "device": torch.cuda.current_device()}
     with cached_random_weights():
+        predraw_weights(ranks=True)
+        if sys.stdin.readline() != "go\n":
+            return
+        t0 = time.perf_counter()
+        assert D.initialize_from_env()
+        counters = kernel_counters()
+        rank = {"pid": D.process_index(), "count": D.process_count(),
+                "device": torch.cuda.current_device()}
         shard = shard_section(counters)
         print(json.dumps(dict(rank, seconds=time.perf_counter() - t0, **shard)),
               flush=True)
@@ -9686,7 +9781,7 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
     out = {"codec": check_codec_digests()}
     dev = "cpu" if tiny else "cuda"
     common = ["--device", dev, "--dtype", "float32" if tiny else "bfloat16"]
-    with tempfile.TemporaryDirectory() as root, cached_detector_weights():
+    with tempfile.TemporaryDirectory() as root, cached_random_weights():
         # cpt_predict --image x.jpg --out y.png at full width
         img, dets = serve_request(np.random.RandomState(2035), IMAGE_FILE_DETS)
         image_codec.write_image(f"{root}/x.jpg", img, quality=95)
@@ -9807,6 +9902,556 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
     return out
 
 
+# Phase 22: VinVL_L (``--model_size large``: OSCAR_LARGE, 24 × 1024, 16
+# heads, FFN 4096) and the widths the JAX gates send to their Pallas kernels.
+# (b) checks each new kernel code path against its plain version: K3's core
+# at these (head_dim, heads) (24: the zero-padded tile; 512: the CUDA-core
+# kernel) on VQA's eval batch,
+K3_CORE_WIDTHS = ((24, 16), (32, 4), (80, 16), (128, 12), (256, 8), (512, 1))
+# the row-LayerNorm GEMM at these N on the same 64 × 178 rows (the out
+# projection's K = N) on the path ln_gemm_path names (a cluster at 1024, the
+# split path past it),
+LN_GEMM_WIDTHS = (1024, 1280, 2048, 4096)
+# and K6 / K6b / K6c at (b, heads, S, bias, head_dim): 80 and 256 on the
+# tile, 40 on the zero-padded tile, 36 on the CUDA-core kernels.
+FLASH_WIDTH_SHAPES = [(8, 16, 178, "key", 80), (4, 8, 178, "key", 256),
+                      (4, 8, 178, "3d", 40), (4, 4, 178, "key", 36)]
+TOL["K4 LN GEMM"] = 1e-2
+# Named faults of the new paths, as plain emulations: the zero-padded tile's
+# pad chunk loaded from memory (``pad_not_zeroed``: q's and k's slices read
+# the 8 columns past the head into Q·Kᵀ); the split LN path's merge with the
+# last 128-column tile's statistics dropped (``tile_stats_dropped``); the
+# cluster path's exchange reading rank 0's partial sums for every rank
+# (``rank0_sums``: each row normalised by its first slice's statistics).
+LN_PATH_FAULTS = {"cluster": ("rank0_sums",), "split": ("tile_stats_dropped",)}
+# (a), (c) the paths' tolerances, bf16 on the card under "auto" against
+# the f32 einsum path on the same weights rounded to bf16, as the largest
+# |Δ| over the largest |logit| (VQA's logits; refcoco_cpt's at-mask MLM
+# logits over the vocabulary), set as phase 13's were: 3× the sound gap of
+# the calibration run (H100 80GB HBM3, 700 W; phase 22 alone), or the
+# geometric mean of that gap and the smallest named fault's where lower.
+# VQA at VinVL_L: bf16 5.678e-3 (the plain bf16 path 7.085e-3), the faults
+# 0.1197 (K4's LN per slice) and 0.7446 (the bias): 1.7e-2 (3×). refcoco_cpt:
+# 9.165e-3, the fault 0.2437: 2.7e-2 (3×). The widths: 7.799e-3 (384, 12
+# layers), 7.880e-3 (1280), 6.056e-3 (1536), the smallest fault 4.802e-2
+# (K4's LN per slice at 384: 3 slices): 1.9e-2, the geometric mean of it
+# and the largest gap (3× would be 2.36e-2).
+VINVL_TOL = {"vqa": 1.7e-2, "refcoco": 2.7e-2, "widths": 1.9e-2}
+# Named faults: the classifier's bias dropped (VQA and the widths; its
+# biases drawn as in phase 13) and K4's row LayerNorm taking each 128-column
+# slice's statistics (``k4_ln_slice_stats``: the exchange of a cluster, or
+# the split path's merge, skipped) in every layer.
+# (c) the Oscar runner's widths that take the new paths under "auto": head_dim
+# 16 (hidden 384 over 24 heads; 12 layers), 80 and the split LN path (hidden
+# 1280, VinVL_L's 16 heads), 128 and the split path (hidden 1536, 12 heads)
+WIDTH_RUNS = {"width_384": ["--hidden_size", "384"],
+              "width_1280": ["--model_size", "large", "--hidden_size", "1280",
+                             "--num_hidden_layers", "2"],
+              "width_1536": ["--hidden_size", "1536", "--num_hidden_layers",
+                             "2"]}
+
+
+def predraw_weights(ranks: bool = False) -> float:
+    """Draw the random reference-layout weights the full-width phases take
+    into the cache of ``cached_random_weights``, which the caller has
+    entered, in the order the phases ask for them: X152-C4 and Oscar-base
+    at seed 0 (the resident models and the runners, and cut to their first
+    layers phases 13 and 14 and the sweep's seed 0), Oscar-base at the seeds
+    phase 11's tools draw their encoders from (88, ``gqa_cpt``'s
+    ``--random_seed``; 7, the FT heads; 1, and the sweep's second seed),
+    phase 15's discrete-code encoder (``code_vqa_fixture``'s 512 × 512
+    codebook, 50 codes an image), then VinVL_L and ``WIDTH_RUNS`` for phase
+    22 at seed 0. ``main`` runs it on a thread of its own beside phase 3 (numpy fills
+    its arrays with the interpreter lock released). ``ranks``: only the
+    rank processes' (X152-C4 and Oscar-base at seed 0). → seconds."""
+    from cpt_tpu_torch.models.detector import convert as dconv
+    from cpt_tpu_torch.models.detector.config import VINVL_X152C4
+    from cpt_tpu_torch.tools import cpt_predict as cp
+    from cpt_tpu_torch.tools import run_vqa
+    from cpt_tpu_torch.utils import convert as cv
+
+    t0 = time.perf_counter()
+    dconv.random_vinvl_state_dict(VINVL_X152C4, seed=0)
+    base = cp.bert_config()
+    draws = [(base, 0)]
+    if not ranks:
+        draws += [(base, 88), (base, 7), (base, 1), (dataclasses.replace(
+            base, img_feature_type="dis_code", code_voc=512, code_dim=512,
+            code_size=50), 0)]
+        draws += [(run_vqa.model_config(run_vqa.build_args().parse_args(f)), 0)
+                  for f in (["--model_size", "large"], *WIDTH_RUNS.values())]
+    for cfg, seed in draws:
+        cv.random_oscar_state_dict(cfg, seed=seed)
+    return time.perf_counter() - t0
+
+
+def path_counters() -> dict:
+    """The launchers that count their launches per code path: K3's core and
+    the row-LayerNorm GEMM (under K3 and K4), K6, K6b and K6c."""
+    from cpt_tpu_torch.kernels.gemm import attention_core, gemm_bias_residual_ln
+    from cpt_tpu_torch.ops.attention import (flash_mha, flash_mha_bwd_dkv,
+                                             flash_mha_bwd_dq)
+
+    return {"K3 core": attention_core, "LN GEMM": gemm_bias_residual_ln,
+            "K6": flash_mha, "K6b": flash_mha_bwd_dkv, "K6c": flash_mha_bwd_dq}
+
+
+def path_launches(zero: bool = False) -> dict:
+    """Each launcher's launches by path since the last zeroing (then zeroed
+    again if ``zero``)."""
+    out = {}
+    for name, fn in path_counters().items():
+        out[name] = dict(fn.path_launches)
+        if zero:
+            for path in fn.path_launches:
+                fn.path_launches[path] = 0
+    return out
+
+
+def core_pad_not_zeroed(qkv, kb, heads: int, scale: float):
+    """K3's core on the zero-padded tile (head_dim a multiple of 8, not of
+    16) with the pad chunk read from memory: each head's q and k slices
+    carry the 8 columns that follow them in the packed row into Q·Kᵀ."""
+    import torch
+
+    b, s, h3 = qkv.shape
+    d = h3 // 3 // heads
+    flat = torch.cat([qkv.float(), qkv.new_zeros(b, s, 8).float()], -1)
+    cols = (torch.arange(heads, device=qkv.device)[:, None] * d
+            + torch.arange(d + 8, device=qkv.device)[None, :])
+    q, k = flat[:, :, cols], flat[:, :, h3 // 3 + cols]
+    v = qkv.float().reshape(b, s, 3, heads, d)[:, :, 2]
+    sc = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+          + kb.float()[:, None, None, :])
+    p = torch.softmax(sc, -1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, s, h3 // 3)
+
+
+def ln_tile_merge(y, gamma, beta, eps: float, dropped: int = 0):
+    """The split path's LayerNorm in f32 as its row kernel forms it: each
+    128-column tile's sum and centred sum of squares merged by Chan's
+    formula, divided by the whole width; with ``dropped`` > 0 the last
+    tiles' statistics are left out of the merge (a fault)."""
+    n = y.shape[-1]
+    ys = y.unflatten(-1, (-1, 128))
+    ys = ys[..., :ys.shape[-2] - dropped, :]
+    mu_t = ys.mean(-1)
+    m2_t = (ys - mu_t[..., None]).square().sum(-1)
+    mu = (128 * mu_t).sum(-1, keepdim=True) / n
+    var = (m2_t.sum(-1, keepdim=True)
+           + 128 * (mu_t - mu).square().sum(-1, keepdim=True)) / n
+    return (y - mu) * (var + eps).rsqrt() * gamma + beta
+
+
+def ln_tile_stats_dropped(y, gamma, beta, eps: float):
+    """The split path with the last tile's statistics dropped from the
+    merge."""
+    return ln_tile_merge(y, gamma, beta, eps, dropped=1)
+
+
+def ln_rank0_sums(y, gamma, beta, eps: float):
+    """The cluster path's LayerNorm with every block reading rank 0's
+    partial sums: each row normalised by its first 128-column slice's mean
+    and variance."""
+    y0 = y[..., :128]
+    mu = y0.mean(-1, keepdim=True)
+    var = (y0 - mu).square().mean(-1, keepdim=True)
+    return (y - mu) * (var + eps).rsqrt() * gamma + beta
+
+
+def check_core_widths(rows: list, b: int = 64, s_len: int = 178) -> None:
+    """K3's core at each of ``K3_CORE_WIDTHS`` on the path its rule names,
+    on a packed projection of std 1.5, against its plain version in f32 and
+    beside SDPA, by device time, the last sequence's keys all masked; named
+    faults: uniform attention, a dropped mask, a dropped scale, the ragged
+    edge unmasked, pass 1's running sum unrescaled and, on the zero-padded
+    tile, ``pad_not_zeroed``."""
+    import torch
+    import torch.nn.functional as F
+
+    from cpt_tpu_torch.kernels.gemm import attention_core, attention_path
+    from cpt_tpu_torch.ops.fused_attention import reference_attention_core
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(22)
+    for hd, heads in K3_CORE_WIDTHS:
+        hdim, tokens = hd * heads, b * s_len
+        scale = 1.0 / hd ** 0.5
+        qkv = (torch.randn(b, s_len, 3 * hdim, generator=g, device=dev)
+               * 1.5).to(bf)
+        kb = torch.where(torch.rand(b, s_len, generator=g, device=dev) > 0.3,
+                         0.0, -10000.0)
+        kb[-1] = -10000.0     # every key masked: the ragged edge must stay out
+        qkv_no_q = qkv.clone()
+        qkv_no_q[..., :hdim] = 0
+
+        def ref(q, bias, sc=scale, heads=heads):
+            return lambda: reference_attention_core(q, bias, heads, sc)
+
+        faults = {"uniform": ref(qkv_no_q, kb), "no_mask": ref(qkv, kb * 0),
+                  "no_scale": ref(qkv, kb, 1.0),
+                  "edge_unmasked": lambda: core_edge_unmasked(qkv, kb, heads,
+                                                              scale),
+                  "no_rescale": lambda: core_no_rescale(qkv, kb, heads, scale)}
+        if hd % 16 == 8:
+            faults["pad_not_zeroed"] = lambda: core_pad_not_zeroed(
+                qkv, kb, heads, scale)
+        qh, kh, vh = qkv.view(b, s_len, 3, heads, hd).unbind(2)
+        mask = kb[:, None, None, :].to(bf)
+        path = attention_path(hd)
+        compare("K3 core", f"qkv=[{b},{s_len},{3 * hdim}] heads={heads} "
+                f"head_dim={hd} path={path}",
+                lambda: attention_core(qkv, kb, heads, scale), ref(qkv, kb),
+                ref(qkv, kb), rows, faults,
+                work=(nbytes(qkv, kb) + tokens * hdim * 2,
+                      4 * tokens * s_len * hdim, BF16_OPS_S),
+                library=lambda: F.scaled_dot_product_attention(
+                    qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                    attn_mask=mask, scale=scale),
+                device="attention_kernel")
+        rows[-1]["path"] = path
+
+
+def check_ln_gemm(rows: list, m: int, n: int) -> None:
+    """The row-LayerNorm GEMM alone (K3's out projection, K = N) on the path
+    ``ln_gemm_path`` names against its plain version in f32, beside
+    ``torch.addmm`` for the product alone, by device time; named faults: the statistics per 128-column slice, the last k tile
+    dropped, the residual or the bias dropped, and the path's own
+    (``LN_PATH_FAULTS``). The bias's 128-column slices have different means
+    (``slice_offsets``), so each statistics fault moves the output."""
+    import torch
+
+    from cpt_tpu_torch.kernels.gemm import gemm_bias_residual_ln, ln_gemm_path
+    from cpt_tpu_torch.ops.fused_attention import layer_norm_f32
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(n)
+    k = n
+    # drawn on the card: numpy took seconds for these rows
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    a = (randn(m, k) * 0.5).to(bf)
+    w = (randn(k, n) / k ** 0.5).to(bf)
+    bias = randn(n) * 0.1 + torch.from_numpy(slice_offsets(
+        np.random.RandomState(n), n)).float().to(dev)
+    res = (randn(m, n) * 0.5).to(bf)
+    gamma = torch.rand(n, generator=g, device=dev) + 0.5
+    beta = randn(n) * 0.1
+    af, wf, resf = a.float(), w.float(), res.float()
+    rule = ln_gemm_path(n)
+
+    def exact(w_=wf, b_=bias, r_=resf, norm=layer_norm_f32):
+        return lambda: norm(af @ w_ + b_ + r_, gamma, beta, 1e-12)
+
+    norms = {"rank0_sums": ln_rank0_sums,
+             "tile_stats_dropped": ln_tile_stats_dropped}
+    faults = {"ln_slice_stats": exact(norm=ln_slice_stats),
+              "k_tail_dropped": exact(w_=k_tail_dropped(wf)),
+              "no_residual": exact(r_=0.0), "no_bias": exact(b_=0.0)}
+    faults.update({f: exact(norm=norms[f]) for f in LN_PATH_FAULTS[rule]})
+    b_bf = bias.to(bf)
+    compare("K4 LN GEMM", f"a=[{m},{k}] w=[{k},{n}] epilogue (c) path={rule}",
+            lambda: gemm_bias_residual_ln(a, w, bias, res, gamma, beta, 1e-12),
+            lambda: layer_norm_f32((a @ w + b_bf + res).float(), gamma, beta,
+                                   1e-12).to(bf),
+            exact(), rows, faults,
+            work=(nbytes(a, w, bias, res, gamma, beta) + m * n * 2,
+                  2 * m * k * n, BF16_OPS_S),
+            library=lambda: torch.addmm(b_bf, a, w),
+            device=("wgmma_residual", "residual_ln_rows"))
+    rows[-1]["path"] = rule
+
+
+@contextlib.contextmanager
+def k4_ln_slice_stats():
+    """Every ``BertLayer``'s K4 computed with the row LayerNorm's
+    statistics per 128-column slice (``ffn_with_fault``), in the
+    activations' dtype."""
+    from cpt_tpu_torch.models.bert import model as port_model
+
+    real = port_model.fused_ffn
+
+    def faulty(x, w1, b1, w2, b2, gamma, beta, eps=1e-12, approximate=False):
+        return ffn_with_fault(x, w1, b1, w2, b2, gamma, beta, eps, approximate,
+                              "ln_slice_stats")
+
+    port_model.fused_ffn = faulty
+    try:
+        yield
+    finally:
+        port_model.fused_ffn = real
+
+
+def run_vinvl_large(counters, smi: str, rows: list, dev,
+                    tiny: bool = False) -> dict:
+    """Phase 22 (see the module docstring): (b) the new kernel paths, K3 and
+    K4 at VinVL_L's eval batch; (a) ``run_vqa.main --model_size large`` (2
+    steps, dropout on: no kernel; eval on 64 questions), one deterministic
+    ``"flash"`` step of ``run_vqa.train`` on its model, ``refcoco_cpt.main
+    --model_size large`` scoring one eval batch of 32 sequences; (c)
+    ``run_vqa.main`` eval-only at ``WIDTH_RUNS``. Launch counts zeroed just
+    before each path and read just after, per kernel and per code path.
+    Gathers every reading, prints it, then raises on the first check that
+    failed. ``tiny`` (a dry run of the code paths on the CPU in f32, where
+    the launch checks fail): no kernel checks, hidden 512 over 2 layers,
+    24-d features, 16 text and 6 region slots, the widths at 1 layer and a
+    hidden size of at most 512."""
+    import torch
+
+    from cpt_tpu_torch.engine import scoring
+    from cpt_tpu_torch.tools import refcoco_cpt, run_vqa
+
+    failed = []
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            failed.append(what)
+
+    t_phase = time.perf_counter()
+    path_launches(zero=True)
+    if not tiny:
+        check_k3(rows, 64, 178, 1024, 16)
+        check_k4(rows, 64 * 178, hdim=1024, f=4096)
+        check_core_widths(rows)
+        for n in LN_GEMM_WIDTHS:
+            check_ln_gemm(rows, 64 * 178, n)
+        check_flash(rows, FLASH_WIDTH_SHAPES)
+        check_flash_bwd(rows, FLASH_WIDTH_SHAPES)
+    out = {"check_paths": path_launches(zero=True)}
+    checks_s = time.perf_counter() - t_phase
+
+    def gaps(name, logits, want, fault_logits):
+        """The run's gap and each fault's to the f32 logits, over the
+        largest |logit|, checked against VINVL_TOL[name]."""
+        scale = float(np.abs(want).max())
+        gap = float(np.abs(logits - want).max()) / scale
+        faults = {f: float(np.abs(v - want).max()) / scale
+                  for f, v in fault_logits.items()}
+        tol = VINVL_TOL[name.split("_")[0]]
+        check(logits.shape == want.shape and np.isfinite(logits).all()
+              and gap <= tol, f"{name}: gap to f32 {gap} (tol {tol}), shapes "
+              f"{logits.shape} {want.shape}")
+        check(all(e > tol for e in faults.values()),
+              f"{name}: a fault passes {faults} (tol {tol}, gap {gap})")
+        return {"gap": gap, "fault_gaps": faults, "tol": tol, "scale": scale}
+
+    def eval_launches(call, layers, n_batches=1):
+        want = {k: 0 for k in counters}
+        want.update({"K3": layers * n_batches, "K4": layers * n_batches})
+        return call["launches"] == want
+
+    dim = 24 if tiny else 2054
+    flags = ["--device", dev.type, "--dtype", "float32" if tiny else "bfloat16",
+             "--seed", "0"]
+    small = ["--hidden_size", "512", "--num_hidden_layers", "2",
+             "--img_feature_dim", str(dim)] if tiny else []
+    short = ["--max_seq_length", "16", "--max_img_seq_length", "6"] if tiny else []
+    layers = 2 if tiny else 24
+    with tempfile.TemporaryDirectory() as root:
+        fx = oscar_fixture(root, dim)
+        vqa = ["--feat_file", fx["feat_file"], "--examples", fx["vqa_train"],
+               "--val_examples", fx["vqa_val"], "--label2ans", fx["label2ans"],
+               "--per_gpu_train_batch_size", "8"] + short
+        # --- (a) run_vqa at VinVL_L: 2 steps, eval on the 64 val questions
+        argv = vqa + ["--model_size", "large", "--num_train_epochs", "1",
+                      "--output_dir", f"{root}/vqa_large"] + small + flags
+        with Driven(run_vqa, ("evaluate",), counters, build=draw_biases) as rec:
+            score = run_vqa.main(argv)
+        model, final = rec.model, rec.calls[-1]
+        data = final["args"][0]
+        out["vqa_paths"] = path_launches(zero=True)
+        c = model.config
+        check(tiny or (c.hidden_size, c.num_hidden_layers,
+                       c.num_attention_heads, c.intermediate_size)
+              == (1024, 24, 16, 4096), f"vinvl_vqa config {c}")
+        check(len(rec.steps) == 2 and all(np.isfinite(st["loss"])
+                                          and not any(st["launches"].values())
+                                          for st in rec.steps),
+              f"vinvl_vqa steps {[(st['loss'], st['launches']) for st in rec.steps]}")
+        check(len(rec.calls) == 1 and len(data) == 64
+              and eval_launches(final, layers),
+              f"vinvl_vqa eval launches {[x['launches'] for x in rec.calls]}")
+        logits = final["result"][2]
+
+        def vqa_logits(m):
+            return run_vqa.evaluate(m, data, 64)[2]
+
+        want = vqa_logits(ft_oracle(model))
+        with config_changed(model, attention_impl="einsum", ffn_impl="dense"):
+            plain = vqa_logits(model)
+        with k4_ln_slice_stats():
+            faulty = vqa_logits(model)
+        bias = model.cls_out.bias.detach().float().cpu().numpy()
+        vqa_out = gaps("vqa", logits, want, {"cls_bias_dropped": logits - bias,
+                                             "k4_ln_slice_stats": faulty})
+        vqa_out.update(score=float(score), plain_gap=float(
+            np.abs(plain - want).max()) / vqa_out["scale"],
+            launches=rec.total(), losses=[st["loss"] for st in rec.steps],
+            ms_per_step=float(np.mean([st["ms"] for st in rec.steps])),
+            eval_ms_per_batch=final["ms"])
+        out["vinvl_vqa"] = vqa_out
+        path_launches(zero=True)
+
+        # one deterministic step under "flash": K6, K6b, K6c (16 heads) and
+        # K4's forward 24 each, K3 none
+        args = run_vqa.build_args().parse_args(argv + ["--max_steps", "1"])
+        steps = []
+        with config_changed(model, attention_impl="flash",
+                            hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0):
+            zero_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_vqa.train(model, data, args, dev,
+                          on_step=lambda step, loss: steps.append(loss))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        ran = {k: fn.launches for k, fn in counters.items()}
+        want_ran = {k: 0 for k in counters}
+        want_ran.update({"K4": layers, "K6": layers, "K6b": layers,
+                         "K6c": layers})
+        check(len(steps) == 1 and np.isfinite(steps[0]) and ran == want_ran,
+              f"vinvl flash step: losses {steps}, launches {ran}")
+        out["vinvl_flash_step"] = {"launches": ran, "loss": steps,
+                                   "ms": step_ms,
+                                   "paths": path_launches(zero=True)}
+        del model, rec, final
+
+        # --- refcoco_cpt at VinVL_L: one eval batch of 8 queries × 4 copies
+        rfx = refcoco_fixture(root, dim)
+        batches, built = [], []
+        real_run, real_load = scoring.run_mlm_batch, refcoco_cpt.load_model
+
+        def run_mlm_batch(fn, batch):
+            at_mask = real_run(fn, batch)
+            batches.append((batch, at_mask))
+            return at_mask
+
+        def load_model(*a, **kw):
+            built.append(real_load(*a, **kw))
+            return built[-1]
+
+        scoring.run_mlm_batch, refcoco_cpt.load_model = run_mlm_batch, load_model
+        try:
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            acc = refcoco_cpt.main(
+                ["--data_file", rfx["data_file"], "--ann_file", rfx["ann_file"],
+                 "--det_file", rfx["det_file"], "--model_size", "large",
+                 "--per_gpu_eval_batch_size", "32"] + small + flags)
+            torch.cuda.synchronize()
+            main_ms = (time.perf_counter() - t0) * 1e3
+            ran = {k: fn.launches for k, fn in counters.items()}
+            rec_paths = path_launches(zero=True)
+        finally:
+            scoring.run_mlm_batch, refcoco_cpt.load_model = real_run, real_load
+        model = built[-1]
+        check(len(batches) == 1 and ran == dict(want_ran, K4=layers,
+                                                 K3=layers, K6=0, K6b=0, K6c=0),
+              f"vinvl_refcoco: {len(batches)} batches, launches {ran}")
+        batch, at_mask = batches[0]
+        fn = scoring.make_mlm_at_mask_fn(ft_oracle(model))
+        want = scoring.run_mlm_batch(fn, batch)
+        with k4_ln_slice_stats():
+            faulty = scoring.run_mlm_batch(scoring.make_mlm_at_mask_fn(model),
+                                           batch)
+        rec_out = gaps("refcoco", at_mask, want, {"k4_ln_slice_stats": faulty})
+        rec_out.update(accuracy=float(acc), launches=ran, main_ms=main_ms,
+                       sequences=int(at_mask.shape[0]), paths=rec_paths)
+        path_launches(zero=True)
+        out["vinvl_refcoco"] = rec_out
+        del model, built, batches
+
+        # --- (c) the widths, eval only under "auto"
+        for name, extra in WIDTH_RUNS.items():
+            with Driven(run_vqa, ("evaluate",), counters,
+                        build=draw_biases) as rec:
+                run_vqa.main(vqa + extra + ["--num_train_epochs", "0"] + flags
+                             + (["--img_feature_dim", str(dim),
+                                 "--num_hidden_layers", "1", "--hidden_size",
+                                 str(min(int(extra[extra.index(
+                                     "--hidden_size") + 1]), 512))]
+                                if tiny else []))
+            width_paths = path_launches(zero=True)
+            final = rec.calls[-1]
+            model = final["model"]
+            c = model.config
+            logits = final["result"][2]
+            wdata = final["args"][0]
+            want = run_vqa.evaluate(ft_oracle(model), wdata, 64)[2]
+            with k4_ln_slice_stats():
+                faulty = run_vqa.evaluate(model, wdata, 64)[2]
+            bias = model.cls_out.bias.detach().float().cpu().numpy()
+            res = gaps("widths", logits, want, {
+                "cls_bias_dropped": logits - bias, "k4_ln_slice_stats": faulty})
+            path_launches(zero=True)
+            res.update(launches=rec.total(), eval_ms_per_batch=final["ms"],
+                       paths=width_paths,
+                       geometry=(c.hidden_size, c.num_attention_heads,
+                                 c.head_dim, c.intermediate_size,
+                                 c.num_hidden_layers))
+            check(len(rec.calls) == 1
+                  and eval_launches(final, c.num_hidden_layers),
+                  f"{name}: eval launches {final['launches']}")
+            out[name] = res
+            del model, rec, final
+
+    main_paths = {}
+    for key in ("vqa_paths", "refcoco") + tuple(WIDTH_RUNS):
+        src = out[key] if key == "vqa_paths" else out[
+            "vinvl_refcoco" if key == "refcoco" else key]["paths"]
+        for kern, counts in src.items():
+            for path, n in counts.items():
+                main_paths.setdefault(kern, {}).setdefault(path, 0)
+                main_paths[kern][path] += n
+    for kern, counts in out["vinvl_flash_step"]["paths"].items():
+        for path, n in counts.items():
+            main_paths[kern][path] += n
+    out["main_paths"] = main_paths
+    every = {kern: {path: n + out["check_paths"][kern][path]
+                    for path, n in counts.items()}
+             for kern, counts in main_paths.items()}
+    check(tiny or all(n > 0 for counts in every.values()
+                      for n in counts.values()),
+          f"a code path never launched in phase 22: {every}")
+    phase_s = time.perf_counter() - t_phase
+    v, r = out["vinvl_vqa"], out["vinvl_refcoco"]
+    print(f"phase 22 VinVL_L and the widths ({smi}) in {phase_s:.1f} s "
+          f"(kernel checks {checks_s:.1f} s): run_vqa --model_size large "
+          f"{len(v['losses'])} steps at {v['ms_per_step']:.1f} host ms/step "
+          f"(losses {v['losses']}), eval [64,178,1024] × 24 layers "
+          f"{v['eval_ms_per_batch']:.1f} host ms/batch, logits gap to f32 "
+          f"{v['gap']:.3e} (tol {v['tol']}; plain bf16 path "
+          f"{v['plain_gap']:.3e}), faults "
+          + ", ".join(f"{f} {e:.3e} ({e / v['tol']:.1f}x tol)"
+                      for f, e in v["fault_gaps"].items())
+          + f", score {v['score']:.2f}, launches {v['launches']}; flash step "
+          f"{out['vinvl_flash_step']['ms']:.1f} host ms (loss "
+          f"{out['vinvl_flash_step']['loss']}), launches "
+          f"{out['vinvl_flash_step']['launches']}; refcoco_cpt --model_size "
+          f"large {r['sequences']} sequences in {r['main_ms']:.1f} host ms, "
+          f"at-mask logits gap {r['gap']:.3e} (tol {r['tol']}), faults "
+          + ", ".join(f"{f} {e:.3e} ({e / r['tol']:.1f}x tol)"
+                      for f, e in r["fault_gaps"].items())
+          + f", accuracy {r['accuracy']:.2f}, launches {r['launches']}; "
+          + "; ".join(f"{k} {out[k]['geometry']} (hidden, heads, head_dim, "
+                      f"FFN, layers): gap {out[k]['gap']:.3e} (tol "
+                      f"{out[k]['tol']}), faults "
+                      + ", ".join(f"{f} {e:.3e} ({e / out[k]['tol']:.1f}x tol)"
+                                  for f, e in out[k]["fault_gaps"].items())
+                      + f", eval "
+                      f"{out[k]['eval_ms_per_batch']:.1f} host ms, paths "
+                      f"{out[k]['paths']}" for k in WIDTH_RUNS)
+          + f"; launches by path on the main paths {main_paths}, in the "
+          f"kernel checks {out['check_paths']}", flush=True)
+    if failed:
+        raise AssertionError(f"phase 22: {failed}")
+    out["seconds"] = phase_s
+    return out
+
+
 def kernel_counters() -> dict:
     """Each kernel's wrapper by its name in KERNELS: each carries the
     ``launches`` count it adds one to where it launches its kernel."""
@@ -9849,22 +10494,30 @@ def main(argv=None) -> int:
     from cpt_tpu_torch.kernels import build
     from cpt_tpu_torch.utils import image_codec
 
-    # the host codec (c++) builds while nvcc builds the kernels
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host = pool.submit(image_codec.LIBRARY.get)
-        build.lib()
-        host.result()
+    weights = contextlib.ExitStack()
+    draws = weights.enter_context(cached_random_weights())
+    # the host codec (c++) builds while nvcc builds the kernels; then the
+    # SASS check (cuobjdump) and the full-width phases' random weights run
+    # on threads of their own beside phase 3. The first torch.profiler
+    # trace (CUPTI's loading, ~10 s) stays after the kernels' library is
+    # loaded: started before it, later traces missed launches
+    background = concurrent.futures.ThreadPoolExecutor(2)
+    host = background.submit(image_codec.LIBRARY.get)
+    build.lib()
+    host.result()
     print(f"kernels built and loaded in {build.LIBRARY.build_seconds:.1f} s "
           f"({build.library_path().name}); the host codec in "
           f"{image_codec.LIBRARY.build_seconds:.1f} s "
           f"({build.host_library_path().name})", flush=True)
-    gemm_sass = check_gemm_sass(build)
+    gemm_sass = background.submit(check_gemm_sass, build)
+    predraw = background.submit(predraw_weights)
 
     counters = kernel_counters()
     rows: list = []
-    weights = contextlib.ExitStack()
-    weights.enter_context(cached_random_weights())
+    marks = [("build", time.perf_counter())]
     check_kernels(rows)
+    marks.append(("3 kernels", time.perf_counter()))
+    gemm_sass = gemm_sass.result()
     res, setup_s = build_resident()
     e2e = {"setup_s": setup_s,
            "ground": run_requests(res, counters, profile=True),
@@ -9879,15 +10532,25 @@ def main(argv=None) -> int:
     check_flash_requests(e2e["ground"], e2e["flash_ground"])
     e2e["long_context"] = run_long_context(flash, oracle, res)
     del flash, oracle
+    marks.append(("4 requests", time.perf_counter()))
     e2e.update(run_training(res, counters))
+    marks.append(("5 training", time.perf_counter()))
     e2e["ffn_study"] = run_ffn_study(counters)
     e2e.update(run_int8_extraction(counters))
+    marks.append(("6 int8", time.perf_counter()))
     e2e["windowed"] = run_windowed(res, counters, smi, rows)
+    marks.append(("7 windowed", time.perf_counter()))
     e2e["serve"] = run_serve(counters, smi, rows)
     e2e["serve_resized"] = {"launches": e2e["serve"]["resized_launches"]}
+    marks.append(("8 serve", time.perf_counter()))
     e2e["vcr"] = run_vcr(res, counters, smi, rows)
     e2e["vcr_train"] = e2e["vcr"]["train"]
     e2e["vcr_polygons"] = e2e["vcr"]["polygons"]
+    marks.append(("9 vcr", time.perf_counter()))
+    # phases 19-20's two rank processes draw their weights meanwhile
+    mesh_root = weights.enter_context(tempfile.TemporaryDirectory())
+    procs = RankProcesses(mesh_root)
+    weights.callback(procs.close)
     e2e.update(run_other_tasks(res, counters, smi, rows))
     phase10_s = e2e.pop("seconds")
     ft = run_ft_baselines(res, counters, smi, rows)
@@ -9899,7 +10562,8 @@ def main(argv=None) -> int:
     e2e.update(tools)
     dev, dt, bcfg = res.device, res.oscar.dtype, res.bert_cfg
     del res
-    oscar = run_oscar_runners(counters, smi, rows, dev, dt, bcfg)
+    oscar = run_oscar_runners(counters, smi, rows, dev, dt, dataclasses.replace(
+        bcfg, num_hidden_layers=OSCAR_LAYERS))
     phase13_s = oscar.pop("seconds")
     e2e.update(oscar)
     caption = run_captioning_phase(counters, smi, rows, dev, dt, bcfg)
@@ -9916,9 +10580,8 @@ def main(argv=None) -> int:
     e2e.update(scene_graph)
     e2e["library"] = run_library_modules(counters, smi, rows, dev)
     phase18_s = e2e["library"].pop("seconds")
-    # phases 19-20 share two rank processes: started here, stopped below
-    mesh_root = weights.enter_context(tempfile.TemporaryDirectory())
-    procs = RankProcesses(mesh_root)
+    # phases 19-20 share the two rank processes started above
+    procs.go()
     try:
         e2e["shard_extract"] = run_process_runtime(counters, smi, procs,
                                                    mesh_root)
@@ -9929,6 +10592,16 @@ def main(argv=None) -> int:
     finally:
         procs.close()
     files = run_image_files(counters, smi)
+    vinvl = run_vinvl_large(counters, smi, rows, dev)
+    phase22_s = vinvl.pop("seconds")
+    marks.append(("10-22", time.perf_counter()))
+    in_phases = [(what, round(sec, 1)) for thread, what, sec in draws
+                 if thread == threading.main_thread().name]
+    print(f"the random weights drawn beside phase 3 in "
+          f"{predraw.result():.1f} s; drawn in the phases: {in_phases}",
+          flush=True)
+    background.shutdown()
+    e2e.update(vinvl)
     weights.close()
     phase20_s = mesh.pop("seconds")
     phase21_s = files.pop("seconds")
@@ -9965,7 +10638,8 @@ def main(argv=None) -> int:
              "resize_extract", "library",
              "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
              "mesh_detector", "mesh_dryrun", "predict_image", "coco_tsv",
-             "validate")
+             "validate", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
+             *WIDTH_RUNS)
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():
         r = per_kernel[k][headline[k]]
@@ -9984,7 +10658,12 @@ def main(argv=None) -> int:
           f"{phase14_s:.1f} s, phase 15 {phase15_s:.1f} s, phase 16 "
           f"{phase16_s:.1f} s, phase 17 {phase17_s:.1f} s, phase 18 "
           f"{phase18_s:.1f} s, phase 19 {phase19_s:.1f} s, phase 20 "
-          f"{phase20_s:.1f} s, phase 21 {phase21_s:.1f} s; the whole run "
+          f"{phase20_s:.1f} s, phase 21 {phase21_s:.1f} s, phase 22 "
+          f"{phase22_s:.1f} s; by wall clock: build and SASS "
+          f"{marks[0][1] - t_start:.1f} s, "
+          + ", ".join(f"phase {n} {t - t0:.1f} s" for (_, t0), (n, t) in
+                      zip(marks, marks[1:]))
+          + f"; the whole run "
           f"{time.perf_counter() - t_start:.1f} s",
           flush=True)
     if args.json:

@@ -22,28 +22,37 @@
 // (pass 1: Q.K^T for the row stats; pass 2: Q.K^T again, p, P.V), one extra
 // Q.K^T a tile.
 //
+// Head dims: the tile at every multiple of 8 up to 256 (mma_attention.cuh's
+// with_tile_dim; a multiple of 8 but not of 16 zero-pads its slice to the
+// next 16 in shared memory), the CUDA-core kernel of simt_attention.cuh at
+// any other (not a multiple of 8, or over 256), as the TPU kernel takes any
+// hidden / num_heads. The wrapper's rule (kernels/gemm.attention_path) picks
+// the path; `simt` forces the CUDA-core one.
+//
 // What bounds it: at the serving shape ([16, 12, 120, 64]) latency (each
 // block loads 40 KB and scores two key tiles; 384 blocks make one wave); the
 // bytes (8.8 MB of qkv in, 2.9 MB of context out) take 3.5 us at 3.35 TB/s.
-#include "mma_attention.cuh"
+#include "attention_kernels.cuh"
+#include "simt_attention.cuh"
 
 namespace {
 
 namespace ma = cpt::mma_attn;
+namespace sa = cpt::simt_attn;
 
-template <int D>
-__global__ void __launch_bounds__(ma::kThreads, ma::min_blocks<D>())
-    attention_kernel(const ma::Args a) {
-  ma::attention_tile<D, ma::kCore>(a);
+__global__ void __launch_bounds__(sa::kThreads) attention_kernel_simt(const ma::Args a) {
+  sa::attention_row<ma::kCore>(a);
 }
 
 }  // namespace
 
-// qkv [B*S, 3H] bf16, key_bias [B, S] f32 additive, ctx [B*S, H] bf16.
-// Head dim H / num_heads must be 64 (every Oscar configuration).
+// qkv [B*S, 3H] bf16, key_bias [B, S] f32 additive, ctx [B*S, H] bf16, head
+// dim d = H / num_heads: on the tensor-core tile where d is a multiple of 8
+// up to 256 and simt is 0 (qkv 16-byte aligned), else on the CUDA cores.
 CPT_EXPORT int cpt_attention(const void* qkv, const void* key_bias, void* ctx, int B, int S,
-                             int H, int num_heads, float scale, void* stream) {
-  if (H != num_heads * 64) return static_cast<int>(cudaErrorInvalidValue);
+                             int H, int num_heads, float scale, int simt, void* stream) {
+  if (num_heads <= 0 || H % num_heads != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int d = H / num_heads;
   const cpt::bf16* base = static_cast<const cpt::bf16*>(qkv);
   const long long row = 3LL * H, seq = row * S;
   ma::Args a{};
@@ -55,16 +64,23 @@ CPT_EXPORT int cpt_attention(const void* qkv, const void* key_bias, void* ctx, i
   long long* qkv_strides[3] = {a.sq, a.sk, a.sv};
   for (long long* st : qkv_strides) {
     st[0] = seq;
-    st[1] = 64;
+    st[1] = d;
     st[2] = row;
   }
   a.so[0] = static_cast<long long>(S) * H;
-  a.so[1] = 64;
+  a.so[1] = d;
   a.so[2] = H;
   a.sbias[0] = S;  // key_bias [B, S]: per sequence and key
   a.sbias[3] = 1;
   a.H = num_heads;
   a.S = S;
+  a.d = d;
   a.scale = scale;
-  return ma::launch<64>(attention_kernel<64>, a, B, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (simt) return sa::launch(attention_kernel_simt, a, B, sa::smem_bytes(d), s);
+  if (d > ma::kSplitD) return ma::launch_core_wide(a, B, s);
+  return ma::with_tile_dim<16, ma::kSplitD>(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return ma::launch<D>(attention_kernel<D>, a, B, s);
+  });
 }

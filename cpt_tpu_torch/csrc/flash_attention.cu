@@ -20,22 +20,26 @@
 // a block of 4 warps per (batch, head, 64 query rows), Q.K^T and P.V on
 // mma.sync m16n8k16, K and V in 64-key tiles through a two-stage cp.async
 // ring, P in registers; one softmax over both tiles up to S = 128, an online
-// softmax over the streamed tiles beyond; D 32, 64 or 128.
+// softmax over the streamed tiles beyond; at every head dim that is a
+// multiple of 8 up to 256 (a multiple of 8 but not of 16 zero-padded to the
+// next 16 in shared memory). Any other head dim takes the CUDA-core kernel
+// of simt_attention.cuh, with the same numerics (K3's core takes the same
+// rule: kernels/gemm.attention_path).
 //
 // What bounds it: at the serving shape ([16, 12, 120, 64]) latency (two key
 // tiles a block, one wave of 384 blocks); at long context ([2, 12, 2048, 64])
 // the mma.sync rate and the f32 softmax between the products (the bound at
 // the card's bf16 peak is 26 us for its 25.8 GFLOP).
-#include "mma_attention.cuh"
+#include "attention_kernels.cuh"
+#include "simt_attention.cuh"
 
 namespace {
 
 namespace ma = cpt::mma_attn;
+namespace sa = cpt::simt_attn;
 
-template <int D>
-__global__ void __launch_bounds__(ma::kThreads, ma::min_blocks<D>())
-    flash_attention_kernel(const ma::Args a) {
-  ma::attention_tile<D, ma::kFlash>(a);
+__global__ void __launch_bounds__(sa::kThreads) flash_attention_kernel_simt(const ma::Args a) {
+  sa::attention_row<ma::kFlash>(a);
 }
 
 }  // namespace
@@ -45,11 +49,13 @@ __global__ void __launch_bounds__(ma::kThreads, ma::min_blocks<D>())
 // aligned); bias bf16 broadcast to [B, H, S, S] by its four
 // strides, or null. m_out, l_out: contiguous f32 [B, H, S] for the row max
 // (0 where every score is -inf) and row sum, both null on the serving path.
-// strides: q[3], k[3], v[3], out[3], bias[4]. D must be 32, 64 or 128.
+// strides: q[3], k[3], v[3], out[3], bias[4]. The tensor-core tile where D is
+// a multiple of 8 up to 256 and simt is 0 (rows 16-byte aligned), else the
+// CUDA-core kernel (any D and strides).
 CPT_EXPORT int cpt_flash_attention(const void* q, const void* k, const void* v, const void* bias,
                                    void* out, void* m_out, void* l_out,
                                    const long long* strides, int B, int H, int S, int D,
-                                   float scale, void* stream) {
+                                   float scale, int simt, void* stream) {
   ma::Args a{};
   a.q = static_cast<const cpt::bf16*>(q);
   a.k = static_cast<const cpt::bf16*>(k);
@@ -67,12 +73,13 @@ CPT_EXPORT int cpt_flash_attention(const void* q, const void* k, const void* v, 
   for (int i = 0; i < 4; ++i) a.sbias[i] = strides[12 + i];
   a.H = H;
   a.S = S;
+  a.d = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return ma::launch<32>(flash_attention_kernel<32>, a, B, s);
-    case 64: return ma::launch<64>(flash_attention_kernel<64>, a, B, s);
-    case 128: return ma::launch<128>(flash_attention_kernel<128>, a, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (simt) return sa::launch(flash_attention_kernel_simt, a, B, sa::smem_bytes(D), s);
+  if (D > ma::kSplitD) return ma::launch_flash_wide(a, B, s);
+  return ma::with_tile_dim<16, ma::kSplitD>(D, [&](auto dim) {
+    constexpr int DT = decltype(dim)::value;
+    return ma::launch<DT>(flash_attention_kernel<DT>, a, B, s);
+  });
 }

@@ -47,6 +47,18 @@
 //     rank order, so every block forms the same mean); the same again for
 //     sum((y - mean)^2), which keeps E[(y - mean)^2] exactly. A last cluster
 //     barrier keeps every block alive until its peers have read it.
+//   * (c) past N = 1024, the split LN-GEMM: the portable cluster ends at 8
+//     blocks, so the row's statistics cross device memory instead. Blocks
+//     of the same 64 rows x 128 columns, no cluster, write the pre-LN rows
+//     (bias and residual added) in f32 through shared memory, 16 bytes a
+//     thread, and each tile's row sum and centred sum of squares
+//     sum((y - mean_t)^2) about its own 128-column mean; then a row kernel
+//     (a warp a row) merges the tiles' statistics by Chan's formula,
+//     M2 = sum_t M2_t + 128 sum_t (mean_t - mean)^2, which is exactly
+//     N E[(y - mean)^2] (the fused kernels' variance), and normalises. The
+//     f32 rows make one round trip (12 bytes an element more than the
+//     cluster path); the wrapper (kernels/gemm.ln_gemm_path) takes it for
+//     every N over 1024 that is a multiple of 128, and can force it at any.
 // Tensor maps are encoded per call on the host (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so the library links no -lcuda)
 // and passed as __grid_constant__ parameters; the PTX pieces are in
@@ -230,8 +242,52 @@ __global__ void __launch_bounds__(Ring<2, kActStages>::kThreads, kActMinBlocks)
   store_tile(tile, C, m0 + wg * kWgRows, n0, M, N);
 }
 
-// ---- epilogue (c): the LN-GEMM on a cluster of N / 128 blocks ---------------
+// ---- epilogue (c): the LN-GEMM ---------------------------------------------
 
+// A consumer thread's share of the LN-GEMM's mainloop: acc = its fragment of
+// rows m0.. x columns n0..n0+127 of a . b, plus bias and residual in f32;
+// s0, s1 = the sums of rows r and r + 8 over the block's 128 columns.
+template <int STAGES>
+__device__ __forceinline__ void residual_rows(float (&acc)[64], float& s0, float& s1,
+                                              unsigned base, int nk, int m0, int n0, int M,
+                                              int N, const float* __restrict__ bias,
+                                              const cpt::bf16* __restrict__ residual) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = warp * 16 + lane / 4;
+  // the residual of this thread's fragment, loaded before the mainloop
+  unsigned res[2][kBN / 8];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int gr = m0 + r + 8 * h, gc = n0 + 8 * j + 2 * (lane % 4);
+      res[h][j] = gr < M ? *reinterpret_cast<const unsigned*>(
+                               residual + static_cast<size_t>(gr) * N + gc)
+                         : 0u;
+    }
+  consume<1, STAGES>(acc, base, nk, 0);
+  s0 = 0.f;
+  s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = n0 + 8 * j + 2 * (lane % 4);
+    const float b0 = bias[c], b1 = bias[c + 1];
+    const float2 x0 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&res[0][j]));
+    const float2 x1 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&res[1][j]));
+    acc[4 * j] += b0 + x0.x;
+    acc[4 * j + 1] += b1 + x0.y;
+    acc[4 * j + 2] += b0 + x1.x;
+    acc[4 * j + 3] += b1 + x1.y;
+    s0 += acc[4 * j] + acc[4 * j + 1];
+    s1 += acc[4 * j + 2] + acc[4 * j + 3];
+  }
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+}
+
+// The cluster path: a cluster of N / 128 blocks owns the same 64 rows.
 __global__ void __launch_bounds__(Ring<1, kLnStages>::kThreads, kLnMinBlocks)
     wgmma_residual_ln_kernel(const __grid_constant__ CUtensorMap map_a,
                              const __grid_constant__ CUtensorMap map_b,
@@ -256,36 +312,8 @@ __global__ void __launch_bounds__(Ring<1, kLnStages>::kThreads, kLnMinBlocks)
   const int r = warp * 16 + lane / 4;   // this thread's rows r and r + 8 (consumers)
   float acc[64];
   if (consumer) {
-    // the residual of this thread's fragment, loaded before the mainloop
-    unsigned res[2][kBN / 8];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int gr = m0 + r + 8 * h, gc = n0 + 8 * j + 2 * (lane % 4);
-        res[h][j] = gr < M ? *reinterpret_cast<const unsigned*>(
-                                 residual + static_cast<size_t>(gr) * N + gc)
-                           : 0u;
-      }
-    consume<1, STAGES>(acc, base, nk, 0);
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int c = n0 + 8 * j + 2 * (lane % 4);
-      const float b0 = bias[c], b1 = bias[c + 1];
-      const float2 x0 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&res[0][j]));
-      const float2 x1 = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&res[1][j]));
-      acc[4 * j] += b0 + x0.x;
-      acc[4 * j + 1] += b1 + x0.y;
-      acc[4 * j + 2] += b0 + x1.x;
-      acc[4 * j + 3] += b1 + x1.y;
-      s0 += acc[4 * j] + acc[4 * j + 1];
-      s1 += acc[4 * j + 2] + acc[4 * j + 3];
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    float s0, s1;
+    residual_rows<STAGES>(acc, s0, s1, base, nk, m0, n0, M, N, bias, residual);
     if (lane % 4 == 0) {
       sums[r] = s0;
       sums[r + 8] = s1;
@@ -353,6 +381,110 @@ __global__ void __launch_bounds__(Ring<1, kLnStages>::kThreads, kLnMinBlocks)
   cluster_wait();
 }
 
+// The split path, first kernel: the same blocks without a cluster. Each
+// writes its 64 x 128 tile of y = a . b + bias + residual to y [M, N] f32
+// and, for each row, stats [M, N / 128] of (sum, sum((y - mean_t)^2)) over
+// its 128 columns.
+constexpr int kYPitch = kBN + 4;   // f32 staging pitch: 528 bytes
+__global__ void __launch_bounds__(Ring<1, kLnStages>::kThreads, kLnMinBlocks)
+    wgmma_residual_stats_kernel(const __grid_constant__ CUtensorMap map_a,
+                                const __grid_constant__ CUtensorMap map_b,
+                                const float* __restrict__ bias,
+                                const cpt::bf16* __restrict__ residual, float* __restrict__ y,
+                                float2* __restrict__ stats, int M, int N, int K) {
+  constexpr int STAGES = kLnStages;
+  static_assert(kWgRows * kYPitch * 4 <= STAGES * Ring<1, STAGES>::kStageBytes,
+                "the f32 tile fits in the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const unsigned base = cpt::smem_u32(smem);
+  const int nk = (K + kBK - 1) / kBK;
+  const int m0 = blockIdx.y * kWgRows, n0 = blockIdx.x * kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_ring<1, STAGES>(base);
+  if (warp == 4) {
+    if (lane == 0) produce<1, STAGES>(&map_a, &map_b, base, nk, m0, n0);
+    return;
+  }
+  const int r = warp * 16 + lane / 4;
+  float acc[64], s0, s1;
+  residual_rows<STAGES>(acc, s0, s1, base, nk, m0, n0, M, N, bias, residual);
+  const float mu0 = s0 * (1.f / kBN), mu1 = s1 * (1.f / kBN);
+  float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const float d0 = acc[4 * j] - mu0, d1 = acc[4 * j + 1] - mu0;
+    const float d2 = acc[4 * j + 2] - mu1, d3 = acc[4 * j + 3] - mu1;
+    q0 += d0 * d0 + d1 * d1;
+    q1 += d2 * d2 + d3 * d3;
+  }
+  q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+  q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+  q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+  q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+  const int tiles = N / kBN;
+  if (lane % 4 == 0) {
+    if (m0 + r < M) stats[static_cast<size_t>(m0 + r) * tiles + blockIdx.x] = make_float2(s0, q0);
+    if (m0 + r + 8 < M)
+      stats[static_cast<size_t>(m0 + r + 8) * tiles + blockIdx.x] = make_float2(s1, q1);
+  }
+  named_barrier(1, 128);   // every consumer is done reading the ring
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    *reinterpret_cast<float2*>(tile + r * kYPitch + c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(tile + (r + 8) * kYPitch + c) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  named_barrier(1, 128);
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < kWgRows * kBN / 4 / 128; ++i) {
+    const int idx = t + 128 * i;
+    const int rr = idx / (kBN / 4), c = (idx % (kBN / 4)) * 4;
+    if (m0 + rr < M)
+      *reinterpret_cast<float4*>(y + static_cast<size_t>(m0 + rr) * N + n0 + c) =
+          *reinterpret_cast<const float4*>(tile + rr * kYPitch + c);
+  }
+}
+
+// The split path, second kernel: a warp a row merges the row's tile
+// statistics (Chan's formula, in tile order, so every lane forms the same
+// mean and variance) and writes LayerNorm(y) * gamma + beta in bf16.
+constexpr int kRowWarps = 8;
+__global__ void __launch_bounds__(kRowWarps * 32)
+    residual_ln_rows_kernel(const float* __restrict__ y, const float2* __restrict__ stats,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            cpt::bf16* __restrict__ out, int M, int N, float eps) {
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const int tiles = N / kBN;
+  const float2* st = stats + static_cast<size_t>(row) * tiles;
+  float s = 0.f;
+  for (int t = lane; t < tiles; t += 32) s += st[t].x;
+  const float mu = cpt::warp_sum(s) / static_cast<float>(N);
+  float m2 = 0.f;
+  for (int t = lane; t < tiles; t += 32) {
+    const float dm = st[t].x * (1.f / kBN) - mu;
+    m2 += st[t].y + kBN * dm * dm;
+  }
+  const float rstd = rsqrtf(cpt::warp_sum(m2) / static_cast<float>(N) + eps);
+  const float4* yr = reinterpret_cast<const float4*>(y + static_cast<size_t>(row) * N);
+  const float4* g4 = reinterpret_cast<const float4*>(gamma);
+  const float4* b4 = reinterpret_cast<const float4*>(beta);
+  uint2* o = reinterpret_cast<uint2*>(out + static_cast<size_t>(row) * N);
+  for (int c = lane; c < N / 4; c += 32) {
+    const float4 v = yr[c], g = g4[c], b = b4[c];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn((v.x - mu) * rstd * g.x + b.x,
+                                                    (v.y - mu) * rstd * g.y + b.y);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn((v.z - mu) * rstd * g.z + b.z,
+                                                    (v.w - mu) * rstd * g.w + b.w);
+    o[c] = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                      *reinterpret_cast<const unsigned*>(&hi));
+  }
+}
+
 }  // namespace
 
 // Epilogues (a)/(b): act 0 = none, 1 = erf-gelu, 2 = tanh-gelu.
@@ -412,5 +544,38 @@ CPT_EXPORT int cpt_gemm_bias_residual_ln(const void* a, const void* b, const voi
                          static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<cpt::bf16*>(out), M, N, K, eps);
   if (e != cudaSuccess) return static_cast<int>(e);
+  return cpt::launch_status();
+}
+
+// Epilogue (c) on the split path, at any N = 128 * nf: the same arguments,
+// and the scratch y [M, N] f32 and stats [M, N / 128] of float2 (16-byte
+// aligned), which the two kernels fill and read in turn on the stream.
+CPT_EXPORT int cpt_gemm_bias_residual_ln_split(const void* a, const void* b, const void* bias,
+                                               const void* residual, const void* gamma,
+                                               const void* beta, void* out, void* y,
+                                               void* stats, int M, int N, int K, float eps,
+                                               void* stream) {
+  typedef Ring<1, kLnStages> R;
+  if (N % kBN != 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0) return 0;
+  CUtensorMap map_a, map_b;
+  int err = encode_map(&map_a, a, M, K, kWgRows);
+  if (err == 0) err = encode_map(&map_b, b, K, N, kBK);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(wgmma_residual_stats_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       R::kSmemBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  wgmma_residual_stats_kernel<<<dim3(N / kBN, (M + kWgRows - 1) / kWgRows), R::kThreads,
+                                R::kSmemBytes, s>>>(
+      map_a, map_b, static_cast<const float*>(bias), static_cast<const cpt::bf16*>(residual),
+      static_cast<float*>(y), static_cast<float2*>(stats), M, N, K);
+  err = cpt::launch_status();
+  if (err != 0) return err;
+  residual_ln_rows_kernel<<<(M + kRowWarps - 1) / kRowWarps, kRowWarps * 32, 0, s>>>(
+      static_cast<const float*>(y), static_cast<const float2*>(stats),
+      static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<cpt::bf16*>(out), M, N, eps);
   return cpt::launch_status();
 }

@@ -38,6 +38,19 @@
 // K6b and K6c (flash_attention_bwd.cu) are built from the same pieces
 // (chunk_at, load_tile, pack_bf16, store_rows, launch).
 //
+// Head dims. The tile is instantiated at every D that is a multiple of 16 up
+// to 256 (with_tile_dim). A head dim d that is a multiple of 8 but not of 16
+// runs on the tile of D = d + 8: its slices load into the first d / 8
+// 16-byte chunks of each tile row and the last chunk is zero-filled, so it
+// adds nothing to Q.K^T, and its columns of P.V are never stored
+// (Args::d, load_tile's and store_rows' chunk counts). Rows of D / 8 chunks
+// a power of two are XOR-swizzled; the others (D = 48, 80, 96, ...) lie at
+// an odd pitch of D / 8 + 1 chunks, which spreads the 8 rows an ldmatrix
+// phase reads over 8 bank groups just as well. Up to D = 128 a warp holds
+// Q's fragments in registers; above, it reads them from the Q tile each time
+// (their 64 registers would spill). Any other head dim (not a multiple of 8,
+// or over 256) takes the CUDA-core kernel of simt_attention.cuh.
+//
 // What bounds it: at the serving shape ([16, 12, 120, 64]) latency (a block
 // loads 40 KB and runs two key tiles; 384 blocks make one wave of 132 SMs at
 // 3 blocks an SM); at long context ([2, 12, 2048, 64]) the issue rate of the
@@ -51,6 +64,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 namespace cpt {
 namespace mma_attn {
 
@@ -60,6 +75,8 @@ constexpr int kWarps = kBQ / 16;      // one m16 row tile per warp
 constexpr int kThreads = kWarps * 32;
 
 enum Mode { kFlash = 0, kCore = 1 };
+
+constexpr int kMaxD = 256;           // the largest tile; larger head dims go to the CUDA cores
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -76,35 +93,57 @@ struct Args {
   long long sq[3], sk[3], sv[3], so[3];  // element strides of batch, head, row
   long long sbias[4];                    // batch, head, query, key (0 = broadcast)
   int H, S;
+  int d;             // head dim: D, or D - 8 on the tile of D (its last chunk zero)
   float scale;
 };
 
+__host__ __device__ constexpr bool is_pow2(int x) { return (x & (x - 1)) == 0; }
+
+// 16-byte chunks a tile row of D bf16 takes in shared memory: D / 8, one
+// more where that is not a power of two (an odd pitch, see chunk_at)
+template <int D>
+__host__ __device__ constexpr int row_chunks() {
+  return is_pow2(D / 8) ? D / 8 : D / 8 + 1;
+}
+
+// Bytes of a 64-row tile
+template <int D>
+__host__ __device__ constexpr unsigned tile_bytes() {
+  return kBK * row_chunks<D>() * 16u;
+}
+
 template <int D>
 __host__ __device__ constexpr int smem_bytes() {
-  return (kBQ + 2 * 2 * kBK) * D * 2;  // Q tile + two stages of K and V tiles
+  return 5 * tile_bytes<D>();  // Q tile + two stages of K and V tiles
 }
 
-// Byte offset of 16-byte chunk c of row r in a tile of D bf16 a row: the
-// chunk's low bits are XORed with the row so that the 8 rows one ldmatrix
-// phase reads fall in 8 distinct 16-byte bank groups.
+// Byte offset of 16-byte chunk c of row r in a tile of D bf16 a row, so that
+// the 8 consecutive rows one ldmatrix phase reads fall in 8 distinct 16-byte
+// bank groups: for D / 8 a power of two the chunk's low bits are XORed with
+// the row; otherwise rows lie at an odd pitch of D / 8 + 1 chunks.
 template <int D>
 __device__ __forceinline__ unsigned chunk_at(int r, int c) {
-  constexpr int kCPR = D / 8;  // chunks a row: 4, 8 or 16
-  const int sw = kCPR >= 8 ? (r & 7) : ((r >> 1) & 3);
-  return static_cast<unsigned>(r * kCPR + (c ^ sw)) * 16u;
+  constexpr int kCPR = D / 8;  // chunks a row: 2 .. 32
+  if constexpr (!is_pow2(kCPR)) {
+    return static_cast<unsigned>(r * (kCPR + 1) + c) * 16u;
+  } else {
+    const int sw = kCPR >= 8 ? (r & 7) : kCPR == 4 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+    return static_cast<unsigned>(r * kCPR + (c ^ sw)) * 16u;
+  }
 }
 
-// Rows [row0, row0 + 64) of one (batch, head) slice into a swizzled tile at
-// shared address dst; rows at or past S are zero-filled.
+// Rows [row0, row0 + 64) of one (batch, head) slice into a tile at shared
+// address dst, the first `chunks` 16-byte chunks of each row from memory;
+// rows at or past S and the chunks past `chunks` are zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile(unsigned dst, const bf16* __restrict__ base,
-                                          long long row_stride, int row0, int S) {
+                                          long long row_stride, int row0, int S, int chunks) {
   constexpr int kCPR = D / 8;
 #pragma unroll
   for (int i = threadIdx.x; i < kBK * kCPR; i += kThreads) {
     const int r = i / kCPR, c = i % kCPR;
-    const bool valid = row0 + r < S;
-    const bf16* src = base + (valid ? (row0 + r) * row_stride : 0) + c * 8;
+    const bool valid = row0 + r < S && c < chunks;
+    const bf16* src = base + (valid ? (row0 + r) * row_stride + c * 8 : 0);
     cp_async16(dst + chunk_at<D>(r, c), src, valid);
   }
 }
@@ -155,11 +194,11 @@ __device__ __forceinline__ float quad_sum(float x) {
 // the fragments lay them out), row i of the lane times mul[i], rounded to
 // bf16 through the warp's own 16 rows of the swizzled tile at stage (which
 // no other warp reads), then stored as 16-byte row pieces to out: tile row r
-// goes to out row row0 + r, for rows below S.
+// goes to out row row0 + r, for rows below S, its first `chunks` chunks.
 template <int D>
 __device__ __forceinline__ void store_rows(unsigned char* stage, const float (&acc)[D / 8][4],
                                            const float (&mul)[2], bf16* __restrict__ out,
-                                           long long row_stride, int row0, int S) {
+                                           long long row_stride, int row0, int S, int chunks) {
   constexpr int kCPR = D / 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16 + lane / 4, col = 2 * (lane % 4);
@@ -173,7 +212,7 @@ __device__ __forceinline__ void store_rows(unsigned char* stage, const float (&a
 #pragma unroll
   for (int j = lane; j < 16 * kCPR; j += 32) {
     const int r = warp * 16 + j / kCPR, c = j % kCPR;
-    if (row0 + r < S)
+    if (row0 + r < S && c < chunks)
       *reinterpret_cast<uint4*>(out + (row0 + r) * row_stride + c * 8) =
           *reinterpret_cast<const uint4*>(stage + chunk_at<D>(r, c));
   }
@@ -185,11 +224,13 @@ __device__ __forceinline__ void store_rows(unsigned char* stage, const float (&a
 // tile columns 2 (l % 4) and 2 (l % 4) + 1.
 template <int D, int MODE>
 __device__ __forceinline__ void attention_tile(const Args& a) {
-  static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
-  constexpr unsigned kTileBytes = kBK * D * 2;
+  static_assert(D % 16 == 0 && D >= 16 && D <= kMaxD, "tile dims 16, 32, .., 256");
+  constexpr unsigned kTileBytes = tile_bytes<D>();
+  constexpr bool kHoldQ = D <= 128;  // Q's A fragments in registers
   extern __shared__ __align__(128) unsigned char smem[];
   const unsigned q_s = smem_u32(smem);
-  const unsigned ring = q_s + kBQ * D * 2;  // stage i: K at ring + 2i tiles, V after it
+  const unsigned ring = q_s + kTileBytes;  // stage i: K at ring + 2i tiles, V after it
+  const int chunks = a.d / 8;
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int S = a.S;
@@ -236,11 +277,11 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
   auto issue = [&](int step) {
     const int k0 = (step % n_kt) * kBK;
     const unsigned st = ring + (step & 1) * 2 * kTileBytes;
-    load_tile<D>(st, kb, a.sk[2], k0, S);
+    load_tile<D>(st, kb, a.sk[2], k0, S, chunks);
     if (MODE == kFlash || step >= n_kt || resident)
-      load_tile<D>(st + kTileBytes, vb, a.sv[2], k0, S);
+      load_tile<D>(st + kTileBytes, vb, a.sv[2], k0, S, chunks);
   };
-  load_tile<D>(q_s, qb, a.sq[2], q0, S);
+  load_tile<D>(q_s, qb, a.sq[2], q0, S, chunks);
   issue(0);
   cp_async_commit();
   if (resident && n_kt == 2) {  // tile 1 loads while tile 0 computes
@@ -248,7 +289,7 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
     cp_async_commit();
   }
 
-  unsigned qf[D / 16][4];  // Q's A fragments, one per k16 step over d
+  unsigned qf[kHoldQ ? D / 16 : 1][4];  // Q's A fragments, one per k16 step over d
   float o[D / 8][4];       // P.V accumulators, one per n8 tile over d
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -258,10 +299,15 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
   float row_l[2] = {0.f, 0.f};  // this lane's share of the row sum (its columns)
   float row_il[2] = {0.f, 0.f}; // kCore: 1 / l of the whole row
 
+  // Q's A fragment of k16 step kk from the Q tile
+  auto q_frag = [&](int kk, unsigned (&r)[4]) {
+    ldsm_x4(q_s + chunk_at<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), r);
+  };
   auto load_q = [&]() {
+    if constexpr (kHoldQ) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldsm_x4(q_s + chunk_at<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)), qf[kk]);
+      for (int kk = 0; kk < D / 16; ++kk) q_frag(kk, qf[kk]);
+    }
   };
 
   // s = the scores of the key tile at k0, staged at k_s: Q.K^T on the tensor
@@ -292,14 +338,21 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      unsigned qa[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) qa[j] = qf[kk][j];
+      } else {
+        q_frag(kk, qa);
+      }
 #pragma unroll
       for (int np = 0; np < kBK / 16; ++np) {
         unsigned r[4];
         ldsm_x4(k_s + chunk_at<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                   2 * kk + ((lane >> 3) & 1)),
                 r);
-        mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
+        mma_bf16(s[2 * np], qa, r[0], r[1]);
+        mma_bf16(s[2 * np + 1], qa, r[2], r[3]);
       }
     }
 #pragma unroll
@@ -467,15 +520,37 @@ __device__ __forceinline__ void attention_tile(const Args& a) {
   }
   // o to bf16 through this warp's own 16 rows of the Q tile (which only this
   // warp read, into its fragments)
-  store_rows<D>(smem, o, inv, a.out + b * a.so[0] + h * a.so[1], a.so[2], q0, S);
+  store_rows<D>(smem, o, inv, a.out + b * a.so[0] + h * a.so[1], a.so[2], q0, S, chunks);
 }
 
 // Blocks an SM should hold: 3 up to D = 64 (at most 170 registers a thread:
-// a cap of 128 for 4 blocks spills), 2 at D = 128 (~200 registers). The
+// a cap of 128 for 4 blocks spills), 2 up to D = 128 (~200 registers). The
 // serving shape's 384 blocks then make one wave of 132 SMs, S = 2048's 768
-// blocks two.
+// blocks two. Above D = 128 one (255 registers; the P.V accumulators alone
+// take D / 2, and K6b's two D-wide accumulators spill at D = 256).
 template <int D>
-constexpr int min_blocks() { return D <= 64 ? 3 : 2; }
+constexpr int min_blocks() { return D <= 64 ? 3 : D <= 128 ? 2 : 1; }
+
+// The tile dims up to kSplitD are compiled with each kernel's entry point,
+// the larger ones in a *_wide.cu source of their own, so that nvcc builds
+// the two halves of the instantiations in parallel (the larger dims unroll
+// the most). chip_smoke.py builds every kernel inside its time budget:
+// flash_attention.cu alone, all 16 dims in one unit, takes 37-40 s on an
+// H100 host's 8 cores against 26-35 s for the whole build split this way.
+constexpr int kSplitD = 128;
+
+// f(std::integral_constant<int, D>{}) for the tile dim D in [D0, kMax] that
+// takes head dim d: d rounded up to a multiple of 16 (d a multiple of 8);
+// cudaErrorInvalidValue for any other d.
+template <int D = 16, int kMax = kMaxD, class F>
+int with_tile_dim(int d, F&& f) {
+  if constexpr (D > kMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (d % 8 == 0 && d > D - 16 && d <= D) return f(std::integral_constant<int, D>{});
+    return with_tile_dim<D + 16, kMax>(d, f);
+  }
+}
 
 // Launch kernel (a __global__ wrapper of attention_tile<D, MODE>, or one of
 // the backward's, with their own argument struct A and shared memory) over

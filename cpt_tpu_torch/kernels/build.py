@@ -72,22 +72,24 @@ SIGNATURES = {
     "cpt_gemm_bias_act": ([_P] * 4 + [_I] * 4 + [_P], _I),
     # a, b, bias, residual, gamma, beta, out, M, N, K, eps, stream
     "cpt_gemm_bias_residual_ln": ([_P] * 7 + [_I] * 3 + [_F, _P], _I),
-    # qkv, key_bias, ctx, B, S, H, num_heads, scale, stream
-    "cpt_attention": ([_P] * 3 + [_I] * 4 + [_F, _P], _I),
+    # the same with the scratch y and stats after out
+    "cpt_gemm_bias_residual_ln_split": ([_P] * 9 + [_I] * 3 + [_F, _P], _I),
+    # qkv, key_bias, ctx, B, S, H, num_heads, scale, simt, stream
+    "cpt_attention": ([_P] * 3 + [_I] * 4 + [_F, _I, _P], _I),
     # boxes, scores, valid, out_idx, out_keep, scratch, B, K, max_out,
     # one_block, iou_threshold, iou_offset, stream
     "cpt_nms": ([_P] * 6 + [_I] * 4 + [_F, _F, _P], _I),
     # B, K
     "cpt_nms_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     # q, k, v, bias (or NULL), out, m_out, l_out (or NULL), strides[16],
-    # B, H, S, D, scale, stream
-    "cpt_flash_attention": ([_P] * 7 + [_LL] + [_I] * 4 + [_F, _P], _I),
+    # B, H, S, D, scale, simt, stream
+    "cpt_flash_attention": ([_P] * 7 + [_LL] + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, bias (or NULL), dout, m, l, di, dk, dv, strides[25],
-    # B, H, S, D, scale, stream
-    "cpt_flash_attention_bwd_dkv": ([_P] * 10 + [_LL] + [_I] * 4 + [_F, _P], _I),
+    # B, H, S, D, scale, simt, stream
+    "cpt_flash_attention_bwd_dkv": ([_P] * 10 + [_LL] + [_I] * 4 + [_F, _I, _P], _I),
     # q, k, v, bias (or NULL), dout, m, l, di, dq, strides[25],
-    # B, H, S, D, scale, stream
-    "cpt_flash_attention_bwd_dq": ([_P] * 9 + [_LL] + [_I] * 4 + [_F, _P], _I),
+    # B, H, S, D, scale, simt, stream
+    "cpt_flash_attention_bwd_dq": ([_P] * 9 + [_LL] + [_I] * 4 + [_F, _I, _P], _I),
 }
 
 

@@ -200,17 +200,21 @@ class BertSelfAttention(nn.Module):
 def auto_fuses_attention(c: BertConfig) -> bool:
     """``attention_impl="auto"``'s width rule, the JAX gate's
     (``cpt_tpu/models/bert/model.py``: ``hidden_size % 128``); the TPU's
-    ``S % 128`` rule is not kept (K3's core takes any S). K3 itself takes
-    head_dim 64 and a hidden size up to 1024: at a width this rule passes
-    and K3 does not take, it raises ``KernelError`` on the card, as it
-    does under ``"fused"`` at any width it does not take."""
+    ``S % 128`` rule is not kept (K3's core takes any S). K3 runs at every
+    width this rule passes, with any head count: its core at every head_dim
+    (``kernels/gemm.attention_path``: the tensor-core tile up to 256, its
+    CUDA-core kernel past it), its output projection's row LayerNorm at
+    every hidden size (``ln_gemm_path``: a cluster up to 1024, the split
+    path past it). Under ``"fused"`` at a hidden size off 128 the
+    LayerNorm GEMM raises ``KernelError`` on the card."""
     return c.hidden_size % 128 == 0
 
 
 def auto_fuses_ffn(c: BertConfig) -> bool:
     """``ffn_impl="auto"``'s width rule, the JAX gate's (``hidden_size``
-    and ``intermediate_size`` multiples of 128). K4 takes a hidden size up
-    to 1024 and raises ``KernelError`` on the card past it."""
+    and ``intermediate_size`` multiples of 128). K4 runs at every width it
+    passes (the row-LayerNorm GEMM's split path past a hidden size of
+    1024)."""
     return c.hidden_size % 128 == 0 and c.intermediate_size % 128 == 0
 
 

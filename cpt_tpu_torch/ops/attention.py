@@ -14,9 +14,12 @@ On a Hopper card it launches ``csrc/flash_attention.cu``, the tensor-core
 tile of ``csrc/mma_attention.cuh`` (Q·Kᵀ and P·V on ``mma.sync``, online
 softmax over 64-key tiles streamed through a ``cp.async`` ring, P in
 registers, the ragged edge masked by index, the bias read through its
-strides); on the CPU it runs the plain version. The output is a
-``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so the model's
-transpose back to ``[B, S, H·D]`` is free.
+strides); on the CPU it runs the plain version. Every head_dim runs on the
+card, on the path ``kernels/gemm.attention_path`` names, as K3's core does:
+the tile at a multiple of 8 up to 256, the CUDA-core kernels of
+``csrc/simt_attention.cuh`` and ``flash_attention_bwd.cu`` at any other.
+The output is a ``[B, H, S, D]`` view of a ``[B, S, H, D]`` buffer, so the
+model's transpose back to ``[B, S, H·D]`` is free.
 
 Where q, k or v require a gradient, ``flash_mha`` is a
 ``torch.autograd.Function``, as the library's ``_flash_attention`` is a
@@ -41,8 +44,7 @@ import torch
 
 from cpt_tpu_torch.kernels.build import (KernelError, check, lib, require,
                                          stream, uses_kernel)
-
-HEAD_DIMS = (32, 64, 128)
+from cpt_tpu_torch.kernels.gemm import ATTENTION_PATHS, attention_path
 
 
 def _flash_forward_plain(q, k, v, bias, sm_scale):
@@ -132,25 +134,28 @@ def einsum_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def _rows16(t: torch.Tensor, name: str) -> torch.Tensor:
-    """``t`` where the kernel's 16-byte row loads can read it in place
-    (last dim contiguous, other strides multiples of 8, base aligned),
-    else a fresh contiguous copy."""
+def _rows16(t: torch.Tensor, name: str, path: str) -> torch.Tensor:
+    """``t`` where the kernel can read it in place, else a fresh contiguous
+    copy: the tile's 16-byte row loads need the last dim contiguous, the
+    other strides multiples of 8 and the base aligned; the CUDA-core
+    kernel's element loads only the last dim contiguous."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: kernel takes torch.bfloat16, got {t.dtype}")
-    if (t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:-1])
-            and t.data_ptr() % 16 == 0):
+    if t.stride(-1) == 1 and (path == "simt" or (
+            all(st % 8 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)):
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _check_qkv(q, k, v, *more) -> None:
+def _check_qkv(q, k, v, *more) -> str:
+    """The kernels' path for q's head_dim (``attention_path``); raises
+    ``KernelError`` unless q, k, v (and do) share one shape."""
     if any(t.shape != q.shape for t in (k, v, *more)):
-        raise ValueError(f"q, k, v (and do) must share one [B, H, S, D] shape; "
-                         f"got {[tuple(t.shape) for t in (q, k, v, *more)]}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got "
-                         f"{q.shape[-1]}")
+        raise KernelError(f"q, k, v (and do) must share one [B, H, S, D] "
+                          f"shape; got "
+                          f"{[tuple(t.shape) for t in (q, k, v, *more)]}")
+    return attention_path(q.shape[-1])
 
 
 def _bias_arg(bias, q):
@@ -181,9 +186,9 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``stats`` (the serving path writes none)."""
     if not uses_kernel(q):
         return _flash_forward_plain(q, k, v, bias, sm_scale)
-    _check_qkv(q, k, v)
+    path = _check_qkv(q, k, v)
     b, h, s, d = q.shape
-    q, k, v = (_rows16(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    q, k, v = (_rows16(t, n, path) for t, n in ((q, "q"), (k, "k"), (v, "v")))
     out = _bhsd_out(q)
     m = l = None
     if stats:
@@ -198,17 +203,19 @@ def flash_mha_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
             out.data_ptr(), None if m is None else m.data_ptr(),
             None if l is None else l.data_ptr(), strides, b, h, s, d,
-            float(sm_scale), stream(q)), "cpt_flash_attention")
+            float(sm_scale), int(path == "simt"), stream(q)),
+            "cpt_flash_attention")
         flash_mha.launches += 1
+        flash_mha.path_launches[path] += 1
     return out, m, l
 
 
 def _bwd_args(q, k, v, bias, do, m, l, di, dq=None, dk=None, dv=None):
-    """Validated kernel arguments and the strides array shared by K6b and
-    K6c (q, k, v, do, dq, dk, dv, bias)."""
-    _check_qkv(q, k, v, do)
+    """The path, the validated kernel arguments and the strides array
+    shared by K6b and K6c (q, k, v, do, dq, dk, dv, bias)."""
+    path = _check_qkv(q, k, v, do)
     b, h, s, _ = q.shape
-    q, k, v, do = (_rows16(t, n) for t, n in
+    q, k, v, do = (_rows16(t, n, path) for t, n in
                    ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
     m, l, di = (require(t, n, torch.float32, (b, h, s))
                 for t, n in ((m, "m"), (l, "l"), (di, "di")))
@@ -216,7 +223,7 @@ def _bwd_args(q, k, v, bias, do, m, l, di, dq=None, dk=None, dv=None):
     strides = [st for t in (q, k, v, do, dq, dk, dv)
                for st in (t.stride()[:3] if t is not None else (0, 0, 0))]
     strides = (ctypes.c_longlong * 25)(*strides, *bias_strides)
-    return (q, k, v, bias, do, m, l, di), bias_ptr, strides
+    return path, (q, k, v, bias, do, m, l, di), bias_ptr, strides
 
 
 def flash_mha_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -228,16 +235,18 @@ def flash_mha_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not uses_kernel(q):
         return flash_mha_bwd_dkv_plain(q, k, v, bias, do, m, l, di, sm_scale)
     dk, dv = _bhsd_out(q), _bhsd_out(q)
-    keep, bias_ptr, strides = _bwd_args(q, k, v, bias, do, m, l, di, dk=dk, dv=dv)
+    path, keep, bias_ptr, strides = _bwd_args(q, k, v, bias, do, m, l, di,
+                                              dk=dk, dv=dv)
     q, k, v, _, do, m, l, di = keep
     b, h, s, d = q.shape
     if b and h and s:
         check(lib().cpt_flash_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
             m.data_ptr(), l.data_ptr(), di.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), strides, b, h, s, d, float(sm_scale), stream(q)),
-            "cpt_flash_attention_bwd_dkv")
+            dv.data_ptr(), strides, b, h, s, d, float(sm_scale),
+            int(path == "simt"), stream(q)), "cpt_flash_attention_bwd_dkv")
         flash_mha_bwd_dkv.launches += 1
+        flash_mha_bwd_dkv.path_launches[path] += 1
     return dk, dv
 
 
@@ -249,15 +258,18 @@ def flash_mha_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not uses_kernel(q):
         return flash_mha_bwd_dq_plain(q, k, v, bias, do, m, l, di, sm_scale)
     dq = _bhsd_out(q)
-    keep, bias_ptr, strides = _bwd_args(q, k, v, bias, do, m, l, di, dq=dq)
+    path, keep, bias_ptr, strides = _bwd_args(q, k, v, bias, do, m, l, di,
+                                              dq=dq)
     q, k, v, _, do, m, l, di = keep
     b, h, s, d = q.shape
     if b and h and s:
         check(lib().cpt_flash_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, do.data_ptr(),
             m.data_ptr(), l.data_ptr(), di.data_ptr(), dq.data_ptr(), strides,
-            b, h, s, d, float(sm_scale), stream(q)), "cpt_flash_attention_bwd_dq")
+            b, h, s, d, float(sm_scale), int(path == "simt"), stream(q)),
+            "cpt_flash_attention_bwd_dq")
         flash_mha_bwd_dq.launches += 1
+        flash_mha_bwd_dq.path_launches[path] += 1
     return dq
 
 
@@ -303,3 +315,6 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_mha.launches = 0
 flash_mha_bwd_dkv.launches = 0
 flash_mha_bwd_dq.launches = 0
+# launches per path (``attention_path``), within ``launches``
+for _fn in (flash_mha, flash_mha_bwd_dkv, flash_mha_bwd_dq):
+    _fn.path_launches = dict.fromkeys(ATTENTION_PATHS, 0)

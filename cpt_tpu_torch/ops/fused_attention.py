@@ -7,9 +7,12 @@ the QKV projection, the attention core (``csrc/attention.cu``: the
 tensor-core tile of ``csrc/mma_attention.cuh`` with f32 scores and f32
 softmax, any S with the ragged edge masked), and the GEMM with the
 bias + residual + row-LayerNorm epilogue, on a thread-block cluster that
-owns whole rows, for the output projection. These
-replace the TPU's single ``_attn_kernel``; the [B·S, 3H] QKV and [B·S, H]
-context make one bf16 round trip through device memory each.
+owns whole rows (past a hidden size of 1024, the split path: f32 rows and
+per-tile statistics merged by a row kernel), for the output projection.
+These replace the TPU's single ``_attn_kernel``; the [B·S, 3H] QKV and
+[B·S, H] context make one bf16 round trip through device memory each. Like
+the TPU kernel, it takes any head count: the core runs every head_dim, on
+the tile or its CUDA-core kernel (``kernels/gemm.attention_path``).
 
 On the CPU it runs :func:`reference_attention_block`, the JAX reference's
 semantics: params cast to the input dtype, scores in that dtype, f32

@@ -4,7 +4,9 @@ Computes ``LayerNorm(x + gelu(x·W1 + b1)·W2 + b2)`` (erf gelu, or tanh for
 ``gelu_new``). On a Hopper card ``fused_ffn`` chains two launches of the
 hand-written GEMM (``csrc/gemm.cu``: TMA-fed ``wgmma``): epilogue (b)
 bias + gelu into a bf16 [M, F] intermediate, then epilogue (c) bias +
-residual + row LayerNorm on a thread-block cluster that owns whole rows.
+residual + row LayerNorm on a thread-block cluster that owns whole rows
+(hidden up to 1024; past it the split path of ``kernels/gemm.ln_gemm_path``,
+so every hidden size that is a multiple of 128 runs, as on the TPU).
 These replace the TPU's ``_ffn_kernel``, which kept the [M, F]
 intermediate in VMEM; here it makes one round trip through device memory
 (at the scoring batch 11.8 MB, ~7 µs at HBM rate), because keeping it on

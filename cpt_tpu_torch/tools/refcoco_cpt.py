@@ -14,7 +14,9 @@ Usage:
       [--num_train_epochs 20] [--learning_rate 2.5e-5] [--device cuda]
 
 Without ``--checkpoint`` the weights are random, drawn from ``--seed`` in
-the Oscar layout. On a CUDA device the kernels need bf16 (the default
+the Oscar layout. ``--model_size large`` builds the VinVL_L encoder (24 ×
+1024, 16 heads), as the Oscar runners' flag of the same name does; the JAX
+tool builds Oscar-base only. On a CUDA device the kernels need bf16 (the default
 ``--dtype``); ``--device cpu --dtype float32`` runs the plain versions.
 """
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from cpt_tpu_torch.config.bert import OSCAR_BASE, BertConfig
+from cpt_tpu_torch.config.bert import OSCAR_BASE, OSCAR_LARGE, BertConfig
 from cpt_tpu_torch.data.refcoco import RefcocoCPTData, iter_train_batches
 from cpt_tpu_torch.engine import train as train_lib
 from cpt_tpu_torch.engine.scoring import refcoco_evaluate
@@ -72,6 +74,9 @@ def build_args():
                         "refcoco_zsl_cpt_dataset.py); default = fsl template")
     p.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda")
+    p.add_argument("--model_size", default="base", choices=["base", "large"],
+                   help="Oscar encoder geometry: base (VinVL_B) or large "
+                        "(VinVL_L, Oscar/README.md:30)")
     # tiny-config escape hatch for smoke runs without a checkpoint
     p.add_argument("--hidden_size", type=int, default=None)
     p.add_argument("--num_hidden_layers", type=int, default=None)
@@ -90,7 +95,8 @@ def model_config(args) -> BertConfig:
                              max(1, args.hidden_size // 16))
         overrides.setdefault("intermediate_size", args.hidden_size * 4)
         overrides.setdefault("vocab_size", 30522)
-    return dataclasses.replace(OSCAR_BASE, **overrides)
+    base = OSCAR_LARGE if args.model_size == "large" else OSCAR_BASE
+    return dataclasses.replace(base, **overrides)
 
 
 def load_model(cfg: BertConfig, args, device, dtype, seed=None) -> REC_MLM_CPT:

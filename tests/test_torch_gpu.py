@@ -252,6 +252,38 @@ def test_attention_core_kernel(dev, s_len):
     assert _attn_faults_missed(want, faults, 1e-2) == []
 
 
+@pytest.mark.parametrize("d,heads", [(16, 4), (24, 4), (40, 2), (80, 2),
+                                     (200, 1), (256, 2), (512, 1), (36, 2),
+                                     (12, 8)])
+def test_attention_core_kernel_at_every_kind_of_head_dim(dev, d, heads):
+    """K3's core at the head dims of each code path (``attention_path``):
+    the tile (16, 80, 256), the zero-padded tile (24, 40, 200), the
+    CUDA-core kernel (512, 36, 12), at S 130, against its plain version;
+    uniform attention and, on the padded tile, the pad read from memory
+    (``pad_not_zeroed``) miss."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.kernels.gemm import attention_path
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    b, s_len, h = 2, 130, d * heads
+    scale = d ** -0.5
+    qkv = (torch.randn(b, s_len, 3 * h, generator=g, device=dev) * 1.5).bfloat16()
+    kb = torch.where(torch.rand(b, s_len, generator=g, device=dev) > 0.3,
+                     0.0, -10000.0)
+    path = attention_path(d)
+    before = dict(attention_core.path_launches)
+    got = attention_core(qkv, kb, heads, scale)
+    assert attention_core.path_launches[path] == before[path] + 1
+    want = reference_attention_core(qkv, kb, heads, scale)
+    _close(got, want, 1e-2)
+    no_q = qkv.clone()
+    no_q[..., :h] = 0
+    faults = {"uniform": reference_attention_core(no_q, kb, heads, scale)}
+    if path == "mma" and d % 16:
+        faults["pad_not_zeroed"] = cs.core_pad_not_zeroed(qkv, kb, heads, scale)
+    assert _attn_faults_missed(want, faults, 1e-2) == []
+
+
 @pytest.mark.parametrize("approximate", [False, True])
 def test_ffn_kernel(dev, approximate):
     """K4 on chip_smoke's kind of inputs (``k4_inputs``), H = 256 (a
@@ -349,9 +381,10 @@ def test_gemm_bias_residual_ln_kernel(dev, nf, m, k):
 
 
 def test_gemm_refused_launch_raises(dev):
-    """The LN-GEMM's entry point returns an error for a row it cannot hold
-    on one cluster (N = 9·128: 9 blocks, over the portable 8), and the
-    wrapper's check turns it into a KernelError."""
+    """The LN-GEMM's cluster entry point returns an error for a row it
+    cannot hold on one cluster (N = 9·128: 9 blocks, over the portable 8),
+    and the wrapper's check turns it into a KernelError; the wrapper takes
+    the split path there (``ln_gemm_path``) and refuses a width off 128."""
     from cpt_tpu_torch.kernels.build import check, lib
 
     m, k, n = 64, 64, 9 * 128
@@ -365,8 +398,52 @@ def test_gemm_refused_launch_raises(dev):
         torch.cuda.current_stream().cuda_stream)
     with pytest.raises(KernelError):
         check(status, "cpt_gemm_bias_residual_ln")
-    with pytest.raises(ValueError):
-        gemm_bias_residual_ln(a, w, vec, res, vec, vec, 1e-12)
+    with pytest.raises(KernelError, match="multiple of 128"):
+        gemm_bias_residual_ln(a[:, :64], w[:64, :1000], vec[:1000],
+                              res[:, :1000], vec[:1000], vec[:1000], 1e-12)
+    before = dict(gemm_bias_residual_ln.path_launches)
+    assert gemm_bias_residual_ln(a, w, vec, res, vec, vec, 1e-12).shape == (m, n)
+    assert gemm_bias_residual_ln.path_launches["split"] == before["split"] + 1
+
+
+@pytest.mark.parametrize("nf", [9, 10, 12, 16, 24, 32])
+def test_gemm_bias_residual_ln_split_path(dev, nf):
+    """Epilogue (c) on the split path (f32 rows and per-tile statistics,
+    merged by the row kernel): N = 128·nf past the cluster's 1024, where
+    ``ln_gemm_path`` sends it; the statistics per slice, the last tile's
+    statistics dropped from the merge, the last k tile and the residual
+    dropped miss the tolerance."""
+    import chip_smoke as cs
+    from cpt_tpu_torch.kernels.gemm import gemm_bias_residual_ln as ln_gemm
+    from cpt_tpu_torch.ops.fused_attention import layer_norm_f32
+
+    n, m, k = 128 * nf, 200, 320
+    a, w, g = _gemm_inputs(dev, m, k, n, seed=nf)
+    b = (torch.randn(n, generator=g, device=dev) * 0.1
+         + torch.from_numpy(cs.slice_offsets(np.random.RandomState(nf), n)).float().to(dev))
+    res = (torch.randn(m, n, generator=g, device=dev) * 0.5).bfloat16()
+    gamma = torch.rand(n, generator=g, device=dev) + 0.5
+    beta = torch.randn(n, generator=g, device=dev) * 0.1
+    before = dict(ln_gemm.path_launches)
+    got = ln_gemm(a, w, b, res, gamma, beta, 1e-12)
+    assert ln_gemm.path_launches["split"] == before["split"] + 1
+
+    def plain(wt, residual=True, norm=layer_norm_f32):
+        y = a.float() @ wt.float() + b + (res.float() if residual else 0.0)
+        return norm(y, gamma, beta, 1e-12)
+
+    want = plain(w)
+    _close(got, want, 2e-2)
+    faults = {"k_tail_dropped": plain(cs.k_tail_dropped(w.float())),
+              "no_residual": plain(w, residual=False)}
+    if nf > 1:
+        faults["ln_slice_stats"] = plain(w, norm=cs.ln_slice_stats)
+    if 1 < nf <= 16:
+        # one tile of nf carries ~1/nf of the statistics: at 32 tiles these
+        # inputs' slices do not spread enough for it to show (chip_smoke's
+        # phase 22 holds it at N 4096 on its own inputs)
+        faults["tile_stats_dropped"] = plain(w, norm=cs.ln_tile_stats_dropped)
+    assert _attn_faults_missed(want, faults, 2e-2) == []
 
 
 def _conv_case(dev, n, h, w, c, cpg, seed=0):
@@ -681,7 +758,9 @@ def _flash_inputs(dev, b, h, s, d, bias, seed):
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (16, 12, 120, 64, "key"), (4, 12, 512, 64, "3d"), (2, 12, 2048, 64, "key"),
     (16, 12, 140, 64, "key"), (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"),
-    (1, 2, 200, 128, None), (16, 12, 90, 64, "key"), (24, 12, 120, 64, "key")])
+    (1, 2, 200, 128, None), (16, 12, 90, 64, "key"), (24, 12, 120, 64, "key"),
+    (2, 4, 130, 24, "key"), (2, 4, 178, 80, "3d"), (2, 2, 100, 256, "key"),
+    (2, 2, 70, 36, "key"), (1, 1, 90, 512, "3d")])
 def test_flash_kernel(dev, b, h, s, d, bias):
     """K6 in bf16 against its plain version in f32 on the same inputs: the
     three main-path shapes and ragged S at head_dim 32/64/128. Uniform
@@ -756,12 +835,17 @@ def test_flash_kernel_takes_strided_views(dev, s, d):
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(dev):
+    """f32 input and q, k, v of different shapes are refused; every head
+    dim runs (48 on the tile, 36 on the CUDA-core kernel)."""
     q = torch.zeros(1, 2, 16, 64, device=dev)
     with pytest.raises(TypeError):
         flash_mha(q, q, q, sm_scale=0.125)
     q = torch.zeros(1, 2, 16, 48, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_mha(q, q, q, sm_scale=0.125)
+    with pytest.raises(KernelError, match="share one"):
+        flash_mha(q, q, q[..., :32], sm_scale=0.125)
+    for d in (48, 36):
+        q = torch.zeros(1, 2, 16, d, device=dev, dtype=torch.bfloat16)
+        assert flash_mha(q, q, q, sm_scale=0.125).shape == q.shape
 
 
 def test_flash_launch_counter_counts(dev):
@@ -774,7 +858,9 @@ def test_flash_launch_counter_counts(dev):
 @pytest.mark.parametrize("b,h,s,d,bias", [
     (3, 2, 37, 64, "key"), (2, 3, 130, 32, "3d"), (1, 2, 200, 128, None),
     (2, 3, 300, 64, "3d"), (16, 12, 140, 64, "key"), (16, 12, 90, 64, "key"),
-    (24, 12, 120, 64, "key"), (16, 12, 120, 64, "key")])
+    (24, 12, 120, 64, "key"), (16, 12, 120, 64, "key"), (2, 4, 130, 24, "key"),
+    (2, 4, 178, 80, "3d"), (2, 2, 100, 256, "key"), (2, 2, 70, 36, "key"),
+    (1, 1, 90, 512, "3d")])
 def test_flash_backward_kernels(dev, b, h, s, d, bias):
     """K6b (dK, dV) and K6c (dQ) through ``flash_mha``'s autograd in bf16
     against the plain backward in f32 on the same inputs, within 2e-2 of

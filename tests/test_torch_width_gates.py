@@ -3,10 +3,12 @@
 Under ``"auto"`` the port takes the JAX gate's width rule (a hidden size,
 and for the FFN an intermediate size, that is a multiple of 128); the
 TPU's ``S % 128`` rule and its backend test are not kept. Under
-``"fused"`` the layer calls the blocks at any width. K3 takes head_dim 64
-and K4 and K3 a hidden size up to 1024: at other widths their launchers
-raise ``KernelError`` on the card (ROADMAP lists those widths as kernel
-gaps), and nothing falls back to the plain path there."""
+``"fused"`` the layer calls the blocks at any width. K3 and K4 run at
+every width the rule passes: K3's core at any head_dim
+(``kernels/gemm.attention_path``), the row-LayerNorm GEMM at any hidden
+size that is a multiple of 128 (``ln_gemm_path``); their launchers raise
+``KernelError`` only at a width the JAX gate refuses too, and nothing
+falls back to the plain path on the card."""
 import dataclasses
 
 import jax
@@ -25,10 +27,10 @@ guard_module, guard_case = guards(120)
 WIDTHS = [(32, 2, 128, False, False),        # validate_checkpoints --dryrun
           (64, 2, 256, False, False),        # the tests' tiny Oscar
           (128, 2, 512, True, True),
-          (128, 4, 512, True, True),         # head_dim 32: a K3 gap
+          (128, 4, 512, True, True),         # head_dim 32
           (768, 12, 3072, True, True),       # Oscar-base
-          (1024, 16, 4096, True, True),      # BERT-large
-          (1280, 20, 5120, True, True),      # past the LN GEMM's 1024: a gap
+          (1024, 16, 4096, True, True),      # VinVL_L (OSCAR_LARGE)
+          (1280, 20, 5120, True, True),      # the LN GEMM's split path
           (768, 12, 3000, True, False)]      # an intermediate size off 128
 S = 128                            # a length the JAX gate takes
 
@@ -136,16 +138,31 @@ def test_fused_routes_at_every_width(hidden, heads, inter, monkeypatch):
 
 
 def test_launchers_refuse_widths_the_kernels_do_not_take():
-    """The refusals come before any launch, as ``KernelError`` (not a
-    ``RuntimeError``, which the trainer would skip as a bad batch)."""
-    from cpt_tpu_torch.kernels.gemm import attention_core, gemm_bias_residual_ln
+    """The width checks pass where the kernels used to stop (head_dim 32,
+    N 1280); what is still refused (a LayerNorm width off 128, a hidden
+    size the heads do not divide, no heads, q / k / v of different shapes)
+    comes before any launch, as ``KernelError`` (not a ``RuntimeError``,
+    which the trainer would skip as a bad batch)."""
+    from cpt_tpu_torch.kernels.gemm import (attention_core, attention_path,
+                                            gemm_bias_residual_ln, ln_gemm_path)
+    from cpt_tpu_torch.ops.attention import _check_qkv
 
+    assert attention_path(128 // 4) == "mma"
+    assert ln_gemm_path(1280) == "split" and ln_gemm_path(1024) == "cluster"
     qkv = torch.zeros(1, 4, 3 * 128, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="head_dim 64"):
-        attention_core(qkv, torch.zeros(1, 4), 4, 0.125)
-    a = torch.zeros(4, 1280, dtype=torch.bfloat16)
-    with pytest.raises(KernelError, match="up to 1024|128..1024"):
-        gemm_bias_residual_ln(a, torch.zeros(1280, 1280, dtype=torch.bfloat16),
-                              torch.zeros(1280), a, torch.ones(1280),
-                              torch.zeros(1280), 1e-12)
+    with pytest.raises(KernelError, match="hidden 128 over 3 heads"):
+        attention_core(qkv, torch.zeros(1, 4), 3, 0.125)
+    with pytest.raises(KernelError, match="hidden 128 over 0 heads"):
+        attention_core(qkv, torch.zeros(1, 4), 0, 0.125)
+    a = torch.zeros(4, 1000, dtype=torch.bfloat16)
+    with pytest.raises(KernelError, match="multiple of 128, got 1000"):
+        gemm_bias_residual_ln(a, torch.zeros(1000, 1000, dtype=torch.bfloat16),
+                              torch.zeros(1000), a, torch.ones(1000),
+                              torch.zeros(1000), 1e-12)
+    with pytest.raises(KernelError, match="multiple of 128, got 0"):
+        ln_gemm_path(0)
+    q = torch.zeros(1, 2, 8, 32, dtype=torch.bfloat16)
+    assert _check_qkv(q, q, q) == "mma"
+    with pytest.raises(KernelError, match="share one"):
+        _check_qkv(q, q, q[..., :16])
     assert not issubclass(KernelError, RuntimeError)
