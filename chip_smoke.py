@@ -361,9 +361,14 @@ Phases (any failure raises and the script exits non-zero):
    ``convert_dataset coco`` over a directory of JPEGs and ``test_detector
    --tsv`` on its yaml (K1, K2 and K5; VOC and COCO metrics finite),
    ``img_info`` over ``.jpg`` and ``.png`` files (sizes equal to the written
-   ones) and its colour probes, and ``validate_checkpoints --dryrun
+   ones) and its colour probes, ``validate_checkpoints --dryrun
    --device cuda`` (its fixture's JPEG bytes equal to Pillow's, the report
-   finite).
+   finite), and ``demo --image ycck_q75.jpg --detect --out det.png`` (the
+   detect step's K1, K2 and K5 and no other kernel; the PNG read back equal
+   to ``overlay_detections`` of the returned detections under non-ASCII
+   class names). The fixtures include CMYK and YCCK JPEG, 16-bit PNG, GIF
+   and BMP, and a caption case (``caption_case``) drawn by ``utils/text``
+   whose digest is the JAX demo's (Pillow's ``ImageDraw.text``).
 22. VinVL_L (``--model_size large``: 24 × 1024, 16 heads, FFN 4096; random
    weights from seed 0) and the widths the JAX gates send to their Pallas
    kernels: (b) K3 and K4 at VinVL_L's eval batch ``[64,178,1024]``, K3's
@@ -3408,18 +3413,27 @@ def check_resize_digests() -> dict:
 
 # The image codec (utils/image_codec, phase 21) on the card's host: SHA-256
 # of Pillow 12.1.0's pixels for each committed fixture (tests/data/codec,
-# written by its make_fixtures.py) in RGB and L, of Pillow's JPEG bytes for
-# each seeded array of codec_encode_inputs, and of the JPEG bytes of the
-# fixture that validate_checkpoints --dryrun writes (Pillow at quality 92)
-# and of img_info's colour probes at a step of COLOR_STEP (Pillow's default
-# quality), and of Pillow's decode of phase 8's quality-95 JPEG uploads, all
+# written by its make_fixtures.py: JPEG with CMYK and YCCK, PNG with 16-bit,
+# GIF, BMP) in RGB and L, of Pillow's JPEG bytes for each seeded array of
+# codec_encode_inputs, and of the JPEG bytes of the fixture that
+# validate_checkpoints --dryrun writes (Pillow at quality 92) and of
+# img_info's colour probes at a step of COLOR_STEP (Pillow's default
+# quality), of Pillow's decode of phase 8's quality-95 JPEG uploads, and of
+# the JAX demo's caption drawing (ImageDraw.text) of caption_case, all
 # computed with Pillow on a CPU (tests/test_torch_image_codec.py holds them
 # to Pillow). Each of CODEC_FAULTS must change one: box replication in
 # place of fancy upsampling, a float IDCT in place of islow, progressive AC
 # refinement without its correction bits, YCbCr -> RGB in float arithmetic,
-# the quality scaling of q + 1, and PNG Paeth ties to the later predictor.
+# the quality scaling of q + 1, PNG Paeth ties to the later predictor,
+# Adobe CMYK taken as stored (not inverted), YCCK taken as CMYK, 16-bit grey
+# scaled by >> 8 (not clipped), GIF's LZW code size grown one code late, a
+# bottom-up BMP read top-down, and caption glyphs' overlaps combined by max.
 CODEC_DIR = Path(__file__).resolve().parent / "tests" / "data" / "codec"
 CODEC_DIGESTS = {
+    "1.bmp:RGB":
+        "577effce725e397e4ba5573ad05f1b486eafdf8ea42c8f0999a6d7d1aff67071",
+    "1.bmp:L":
+        "c81be6122e27bccb8086c3487bb9f96612492a78d660e72c5fa00695c7b4bded",
     "adam7_rgb.png:RGB":
         "fab58a19b0a52204485c42bdf3dccc0fb81e9a5e590af634d674d463b85cce58",
     "adam7_rgb.png:L":
@@ -3448,18 +3462,58 @@ CODEC_DIGESTS = {
         "5c61832a81af57a81c3639523ddd851e242540710de83bc6f954ab1590dca4ef",
     "baseline_444_q75.jpg:L":
         "d6a4d05242a103e882d1327b6cc01d7c2adf1b1e5e0592f51a62c737858d9201",
+    "bitfields555.bmp:RGB":
+        "f961e2339447def9c5c46fe2eb5eda1f7668f8a17cd5d368c27db7e6aa9f4061",
+    "bitfields555.bmp:L":
+        "67ac885a5bc067e9c10bf890050c5c22aa1a697170f670e3f545c79ee0b5d30f",
+    "bitfields565.bmp:RGB":
+        "6ee5c92981e8e205b075e98df42dc651a215a9b4105473bd3c254e04e7fed9e4",
+    "bitfields565.bmp:L":
+        "0bc8a60f0e350776838b8d335c4093bf85e83869c90e643fbe6a5c63d6acddf1",
+    "cmyk_progressive_q75.jpg:RGB":
+        "a2372865b55ae23f0425c89594911b2a9c976be0bb7f7797662e6ea6ff0c8c92",
+    "cmyk_progressive_q75.jpg:L":
+        "b2f76aa342163accc64d7dc1dcf4817f37342de149f91acd5cf64b8017341a70",
+    "cmyk_q75.jpg:RGB":
+        "a2372865b55ae23f0425c89594911b2a9c976be0bb7f7797662e6ea6ff0c8c92",
+    "cmyk_q75.jpg:L":
+        "b2f76aa342163accc64d7dc1dcf4817f37342de149f91acd5cf64b8017341a70",
+    "core4.bmp:RGB":
+        "bd9355a14d9d6223a0dcc88c461aa3f9eb381655ccbc1a9198d33f74da3c2e67",
+    "core4.bmp:L":
+        "a42a235bc6ddd5a112f3f9df47e5d5c07ba7534402445df73b7912b1dd3470bc",
     "gray_q75.jpg:RGB":
         "7b9450f6b05b2d2552abba1831fc9feed3e61c2cda6cc02e895da220286f1bc8",
     "gray_q75.jpg:L":
         "e021dc4d9701ff8da47138ff8869f339d436996321f2180f0585f6deae83a3fa",
+    "i16.png:RGB":
+        "9ccb463790aeaff6ec70e986ad29019ca06454597e99cf80b40a4d06e0399293",
+    "i16.png:L":
+        "8e551ef554607e5bf1a025932b3adf1e70c0c5dcfc4194c628d4a28e9d9f5a63",
+    "l.bmp:RGB":
+        "662c31ce0f888c4d65342f84c42095a53b23468f05640c5d11167142693506c4",
+    "l.bmp:L":
+        "ea330951310620cc84f879d83e355ba819342f7777123cb9a7bd749c5ec20a90",
+    "l.gif:RGB":
+        "5ad6c05301b358fcd5eaf76fab9be524c3cd9c334dd671e06b99fcbd8d72edcb",
+    "l.gif:L":
+        "0acfc4b74fcddcb3c7d9042f80c8e7ccfdf7d718c4c50e2321c49bc9d99fa027",
     "l.png:RGB":
         "b1f85c74c18feadc66546ceb0f454a75f6114e9167e53535d92861bf546e8559",
     "l.png:L":
         "08b913934f2e174c2e5090f8370fdd1661fee92dacce532f47e56e3b82a482d4",
+    "l_interlaced.gif:RGB":
+        "5ad6c05301b358fcd5eaf76fab9be524c3cd9c334dd671e06b99fcbd8d72edcb",
+    "l_interlaced.gif:L":
+        "0acfc4b74fcddcb3c7d9042f80c8e7ccfdf7d718c4c50e2321c49bc9d99fa027",
     "la.png:RGB":
         "b1f85c74c18feadc66546ceb0f454a75f6114e9167e53535d92861bf546e8559",
     "la.png:L":
         "08b913934f2e174c2e5090f8370fdd1661fee92dacce532f47e56e3b82a482d4",
+    "la16.png:RGB":
+        "fb2dd50b7ed085fce8c5356160fbce5bc140da00abe9237be561997da78f5c5c",
+    "la16.png:L":
+        "c74283d4d97e6c4fe3734728af44c77d10bd510cab405b8ccb727abd4bbd664b",
     "odd_481x641_q90.jpg:RGB":
         "5aa103248bb6a034668c720a4844f0f0c1bcda8744dea1a2f6f9c47c29d63bb5",
     "odd_481x641_q90.jpg:L":
@@ -3468,6 +3522,14 @@ CODEC_DIGESTS = {
         "aafa46d526d013c41515e531a0ccc17e53e8eaa98ac10854cfa075b14a025cf4",
     "optimize_q75.jpg:L":
         "7217b6014809988f82c6ed6677d01601966b7fe7528df764c676a5995aebc09a",
+    "p.bmp:RGB":
+        "b8a242439a00832a2fcc6990a9b3aa3ebe7c8cd2dc774cbe098000b621f45d94",
+    "p.bmp:L":
+        "ad12e3386a6c4cce9c39109c47c3ca29e770c6a240802e7162fdbc8f24a6fb87",
+    "p.gif:RGB":
+        "6bc14af1c19fef28c0243ec70bd0cfabee69773ce8ef9517829dc61dffc4963b",
+    "p.gif:L":
+        "9d38424531690f44b739f35b87701965ea925874f226fc49998467e55d74a1a9",
     "p1.png:RGB":
         "b7f3d0f9859d34635e15c0192f93782d5409c7bffc16e517ef355ab7b780a1bf",
     "p1.png:L":
@@ -3484,6 +3546,10 @@ CODEC_DIGESTS = {
         "0fedd27ab110c96b9916bf0ef593244e7bf81d95fed1f67545563eb23c1f8f9c",
     "p8.png:L":
         "3146c218c42c4c5df09d44a21853087b5ce7502408fc8ff8a5c848d3f9a814be",
+    "p_interlaced.gif:RGB":
+        "6bc14af1c19fef28c0243ec70bd0cfabee69773ce8ef9517829dc61dffc4963b",
+    "p_interlaced.gif:L":
+        "9d38424531690f44b739f35b87701965ea925874f226fc49998467e55d74a1a9",
     "progressive_q75.jpg:RGB":
         "b159396361c914ec696d1a34b1578f7b7e20c55da6c9a8a7d654cb5c4d4a7ffd",
     "progressive_q75.jpg:L":
@@ -3492,14 +3558,50 @@ CODEC_DIGESTS = {
         "aafa46d526d013c41515e531a0ccc17e53e8eaa98ac10854cfa075b14a025cf4",
     "restart_q75.jpg:L":
         "7217b6014809988f82c6ed6677d01601966b7fe7528df764c676a5995aebc09a",
+    "rgb.bmp:RGB":
+        "1c2b9e0813dc2c05764ba565b772de87cfeec6449f93dbd00488d26a583ecb77",
+    "rgb.bmp:L":
+        "ea330951310620cc84f879d83e355ba819342f7777123cb9a7bd749c5ec20a90",
     "rgb.png:RGB":
         "68a3b0b3a82269c97b9c73f339da855487f202ba4eb567eb25970c715776230f",
     "rgb.png:L":
         "08b913934f2e174c2e5090f8370fdd1661fee92dacce532f47e56e3b82a482d4",
+    "rgb48.png:RGB":
+        "6469aa362ea56f5a10554427a041a7b1bfefc19110e1d785e986d266162b7e0b",
+    "rgb48.png:L":
+        "554871fa929c1daf7cf0efa6af821c61de7bc46bd0c160f333e51cbe6bbbeee3",
+    "rgba.bmp:RGB":
+        "1c2b9e0813dc2c05764ba565b772de87cfeec6449f93dbd00488d26a583ecb77",
+    "rgba.bmp:L":
+        "ea330951310620cc84f879d83e355ba819342f7777123cb9a7bd749c5ec20a90",
     "rgba.png:RGB":
         "68a3b0b3a82269c97b9c73f339da855487f202ba4eb567eb25970c715776230f",
     "rgba.png:L":
         "08b913934f2e174c2e5090f8370fdd1661fee92dacce532f47e56e3b82a482d4",
+    "rgba64_adam7.png:RGB":
+        "6469aa362ea56f5a10554427a041a7b1bfefc19110e1d785e986d266162b7e0b",
+    "rgba64_adam7.png:L":
+        "554871fa929c1daf7cf0efa6af821c61de7bc46bd0c160f333e51cbe6bbbeee3",
+    "rle4.bmp:RGB":
+        "afc1e161b5bf8e15246dbc9cf2f0f5c45634586cd605b82ba5261cc9a1d5a15c",
+    "rle4.bmp:L":
+        "75af752e51037aada9e6de050218f8552796e7eca2d9c9f34002ac079c1a4a58",
+    "rle8.bmp:RGB":
+        "3d571d2e5841f20dca3a44c9591141ba51217144d619ee82499299b257981555",
+    "rle8.bmp:L":
+        "ca074f482bfc02973a7e6f85271c48f228818d2c30c354fa665e7b12639d799d",
+    "short_palette.gif:RGB":
+        "f915b15aa581dacf687f300c860c53e8ea9a65c40d57d3225d7aad01cbf564e5",
+    "short_palette.gif:L":
+        "bc7ce1d5e5b5d3a6540a680304ccbb98a1c8eb43916e314c4f5ef3179139069d",
+    "top_down.bmp:RGB":
+        "d2c28dddc802a113dedaf4c2a28a446c8b38d9c0b7c294176ad2590e2849379e",
+    "top_down.bmp:L":
+        "2211d3a6c817ee02ae13c092f2803a413aa2b7703d7787f4b3f8ca5aab0a4d1f",
+    "ycck_q75.jpg:RGB":
+        "041810a2ecb7bf6a1251b424f5ee71b3e23d20258ecbdaa40b3c2eb2002268bd",
+    "ycck_q75.jpg:L":
+        "2deb17979de87d8ebeda46d9c7f2fba61e25e611666372b2d8c212ca9562bc74",
     "encode:photo_q75":
         "c834338477581840d666dbb566fff640fb7b5a293340c1675c0d5d3f28c9daec",
     "encode:photo_q92":
@@ -3518,9 +3620,13 @@ CODEC_DIGESTS = {
         "3716360b0f0f8126dd03ead206225ad0fbdf4389c83006ed97087f8cfc443984",
     "validate:fixture":
         "a5c86d16c04f033acac534e3edfa7fed17ad23f8c5cdb8657bac7d9176460f94",
+    "caption:overlay":
+        "eebae697a02692b7940c5c001ecf3dac0f97b7c15cd145f3eeff78db5d46fb9a",
 }
 CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
-                "float_ycc", "quality_off_by_one", "paeth_ties")
+                "float_ycc", "quality_off_by_one", "paeth_ties",
+                "cmyk_not_inverted", "ycck_as_cmyk", "sixteen_bit_shift",
+                "gif_late_growth", "bmp_top_down", "caption_max")
 # Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3), the median of 20 calls of
 # ``python3 image_codec_timing.py`` on an 8-core Intel Xeon host with no
 # card: decode of the 480x640 quality-95 fixture, encode of the 480x640
@@ -3557,25 +3663,57 @@ def codec_encode_inputs() -> dict:
 
 def codec_fixture_files() -> list:
     return sorted(p for p in CODEC_DIR.iterdir()
-                  if p.suffix in (".jpg", ".png"))
+                  if p.suffix in (".jpg", ".png", ".gif", ".bmp"))
+
+
+def caption_case() -> tuple:
+    """(image, boxes, labels, scores, class names) of CODEC_DIGESTS'
+    "caption:overlay": ``demo.overlay_detections`` on a seeded photo with
+    boxes at and past its edges, long and non-ASCII class names (some
+    characters outside the font: ``.notdef``) and a label without a name."""
+    img = codec_photo(80, 96, 160)
+    boxes = np.array([[0, 0, 40, 30], [100, 2, 159, 60], [-6, 50, 30, 95],
+                      [30, 10, 150, 90], [150, 80, 170, 100], [60, 95, 90, 95]],
+                     np.float32)
+    labels = np.array([1, 7, 42, 1593, 3, 9])
+    scores = np.array([0.91, 0.5, 0.123, 0.05, 0.999, 0.5049], np.float32)
+    names = {1: "person", 7: "a very long class name that runs off the image",
+             42: "café crème – naïve", 1593: "中文 € ünïcødé", 3: "x,y;z"}
+    return img, boxes, labels, scores, names
 
 
 def codec_digests(fault: str | None = None) -> tuple:
     """(key → SHA-256 of the codec's output, key → host ms) for the decodes
-    and encodes of CODEC_DIGESTS, under one of CODEC_FAULTS if named."""
+    and encodes of CODEC_DIGESTS and the caption case, under one of
+    CODEC_FAULTS if named."""
+    import functools
     import hashlib
+    from unittest import mock
 
-    from cpt_tpu_torch.utils import image_codec
+    from cpt_tpu_torch.tools import demo
+    from cpt_tpu_torch.utils import image_codec, text
 
-    bit = image_codec.FAULTS[fault] if fault else 0
-    digests, ms = {}, {}
+    bit = image_codec.FAULTS.get(fault, 0) if fault else 0
+    draw = functools.partial(text._draw_text,
+                             fault=text.FAULTS.get(fault, 0) if fault else 0)
+    with mock.patch.object(text, "draw_text", draw):
+        t = time.perf_counter()
+        caption = demo.overlay_detections(*caption_case())
+        caption_ms = (time.perf_counter() - t) * 1e3
+    digests = {"caption:overlay": hashlib.sha256(caption.tobytes()).hexdigest()}
+    ms = {"caption:overlay": caption_ms}
     for path in codec_fixture_files():
         data = path.read_bytes()
         for mode in ("RGB", "L"):
+            key = f"{path.name}:{mode}"
             t = time.perf_counter()
-            out = image_codec._decode(data, mode, bit)
-            ms[f"{path.name}:{mode}"] = (time.perf_counter() - t) * 1e3
-            digests[f"{path.name}:{mode}"] = hashlib.sha256(
+            try:      # a refusal is a digest that matches none
+                out = image_codec._decode(data, mode, bit)
+            except image_codec.ImageCodecError as e:
+                digests[key] = f"refused: {e}"
+                continue
+            ms[key] = (time.perf_counter() - t) * 1e3
+            digests[key] = hashlib.sha256(
                 np.ascontiguousarray(out).tobytes()).hexdigest()
     for name, (arr, quality) in codec_encode_inputs().items():
         t = time.perf_counter()
@@ -3614,6 +3752,7 @@ def check_codec_digests() -> dict:
     codec's host ms beside Pillow's → readings; raises on a miss."""
     from cpt_tpu_torch.kernels import build
 
+    t = time.perf_counter()
     got, ms = codec_digests()
     want = {k: v for k, v in CODEC_DIGESTS.items() if k in got}
     matched = {k: got.get(k) == v for k, v in want.items()}
@@ -3621,10 +3760,12 @@ def check_codec_digests() -> dict:
     for fault in CODEC_FAULTS:
         changed = codec_digests(fault)[0]
         faults[fault] = sorted(k for k in want if changed[k] != want[k])
+    check_s = time.perf_counter() - t
     timing = codec_timing()
     print(f"image codec ({build.host_library_path().name}): "
           f"{sum(matched.values())} of {len(matched)} "
-          f"digests equal Pillow 12.1's; digests each named fault changes "
+          f"digests equal Pillow 12.1's, in {check_s:.2f} s with the "
+          f"{len(CODEC_FAULTS)} faulted runs; digests each named fault changes "
           f"{({k: len(v) for k, v in faults.items()})}; host ms here: decode "
           f"480x640 q95 {timing['decode_480x640_q95']:.2f}, encode 480x640 "
           f"q95 {timing['encode_480x640_q95']:.2f}; Pillow's on the CPU of "
@@ -3637,7 +3778,7 @@ def check_codec_digests() -> dict:
                              f"{[k for k, v in matched.items() if not v]}, "
                              f"faults {faults}")
     return {"matched": matched, "host_ms": ms, "faults": faults,
-            "timing": timing}
+            "timing": timing, "seconds": check_s}
 
 
 def jpeg_upload(img: np.ndarray) -> tuple:
@@ -9894,12 +10035,61 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
               f"{out['validate']['fixture_equal']}, zero-shot accuracy "
               f"{report['zero_shot_accuracy']}, {validate_s:.2f} s; launches "
               f"{ran}", flush=True)
+
+        # demo --detect on a YCCK JPEG: the detect step (K1, K2, K5), its
+        # captions (utils/text) under non-ASCII class names
+        out["demo_detect"] = run_demo_detect(counters, root, common, tiny)
+        check(out["demo_detect"]["ok"], f"demo --detect: {out['demo_detect']}")
     phase_s = time.perf_counter() - t_phase
     print(f"phase 21 ({smi}) took {phase_s:.1f} s", flush=True)
     if failed:
         raise AssertionError(f"phase 21: {failed}")
     out["seconds"] = phase_s
     return out
+
+
+DEMO_IMAGE = "ycck_q75.jpg"      # demo --detect's input (Adobe transform 2)
+
+
+def run_demo_detect(counters, root: str, common: list, tiny: bool) -> dict:
+    """``demo.main --image <DEMO_IMAGE> --detect --conf 0 --labelmap ...
+    --out det.png`` (X152-C4 at full width, its random weights; ``tiny``:
+    the tiny detector on the CPU): the launches of its detect step, and
+    the written PNG read back against ``overlay_detections`` of the
+    detections it returned on the codec's decode of the file (whose digest
+    is Pillow's, CODEC_DIGESTS) → readings with ``ok``."""
+    import hashlib
+
+    from cpt_tpu_torch.tools import demo
+    from cpt_tpu_torch.utils import image_codec
+
+    names = {i: f"clâsse {i} – {'ü' * (i % 3)}€ 中" for i in range(1, 1600)}
+    with open(f"{root}/labelmap.json", "w") as f:
+        json.dump({"idx_to_label": names}, f)
+    path = str(CODEC_DIR / DEMO_IMAGE)
+    zero_counts(counters)
+    t = time.perf_counter()
+    boxes, labels, scores = demo.main(
+        ["--image", path, "--detect", "--conf", "0", "--labelmap",
+         f"{root}/labelmap.json", "--out", f"{root}/det.png"] + common
+        + (["--tiny"] if tiny else []))
+    seconds = time.perf_counter() - t
+    ran = {k: c.launches for k, c in counters.items()}
+    img = image_codec.read_image(path)
+    decoded = hashlib.sha256(img.tobytes()).hexdigest() == CODEC_DIGESTS[
+        f"{DEMO_IMAGE}:RGB"]
+    drawn = demo.overlay_detections(img.copy(), boxes, labels, scores, names)
+    written = image_codec.read_image(f"{root}/det.png")
+    equal = bool(np.array_equal(written, drawn))
+    idle = [k for k in ran if k not in ("K1", "K2", "K5") and ran[k]]
+    ok = (decoded and equal and len(boxes) > 0 and not idle
+          and all(ran[k] > 0 for k in ("K1", "K2", "K5")))
+    print(f"demo --image {DEMO_IMAGE} (YCCK, decode equal to Pillow's "
+          f"{decoded}) --detect --out det.png: {len(boxes)} detections in "
+          f"{seconds:.2f} s (set-up included); the PNG read back equal to "
+          f"overlay_detections of them {equal}; launches {ran}", flush=True)
+    return {"ok": ok, "detections": len(boxes), "seconds": seconds,
+            "decode_equal": decoded, "out_equal": equal, "launches": ran}
 
 
 # Phase 22: VinVL_L (``--model_size large``: OSCAR_LARGE, 24 × 1024, 16
@@ -10606,7 +10796,7 @@ def main(argv=None) -> int:
     phase20_s = mesh.pop("seconds")
     phase21_s = files.pop("seconds")
     e2e["image_files"] = files
-    for name in ("predict_image", "coco_tsv", "validate"):
+    for name in ("predict_image", "coco_tsv", "validate", "demo_detect"):
         e2e[name] = files[name]
     for sec, ran in mesh.pop("launches").items():
         e2e[f"mesh_{sec}"] = {"launches": ran}
@@ -10638,7 +10828,7 @@ def main(argv=None) -> int:
              "resize_extract", "library",
              "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
              "mesh_detector", "mesh_dryrun", "predict_image", "coco_tsv",
-             "validate", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
+             "validate", "demo_detect", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
              *WIDTH_RUNS)
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():

@@ -9,10 +9,13 @@
 // upsampling (h2v1, h1v2, h2v2; replication for other factors and for
 // components no wider than 2 samples), ycc_rgb_convert with libjpeg's fixed
 // point tables, colour space by libjpeg's default rule (JFIF, Adobe
-// transform, component ids). Arithmetic coding, lossless and 12-bit frames,
-// 4-component files, and progressive files whose scans leave coefficients
-// unrefined (libjpeg smooths those blocks) raise; so does data that ends
-// before its terminating marker.
+// transform, component ids). A 4-component file is CMYK, or YCCK under
+// Adobe transform 2 (ycck_cmyk_convert on the same tables); its samples are
+// then inverted, as Pillow unpacks every CMYK JPEG ("CMYK;I", Adobe's
+// polarity), and turned into RGB by Pillow's cmyk2rgb. Arithmetic coding,
+// lossless and 12-bit frames, and progressive files whose scans leave
+// coefficients unrefined (libjpeg smooths those blocks) raise; so does data
+// that ends before its terminating marker.
 //
 // JPEG encode reproduces jpeg_set_defaults + jpeg_set_quality(q, TRUE) as
 // Pillow's save(format="JPEG", quality=q) drives it: JFIF header, 4:2:0
@@ -20,6 +23,10 @@
 // islow forward DCT, reciprocal quantisation, the standard Huffman tables.
 //
 // PNG: the per-row filters only (zlib is Python's).
+//
+// GIF: the LZW expansion of one frame's image data (the container is
+// Python's). BMP: the RLE8 / RLE4 expansion, as Pillow's BmpRleDecoder
+// reads it.
 //
 // Every entry point returns 0 on success and a negative status with a
 // message in ``err`` on failure; the ``fault`` arguments select the named
@@ -43,6 +50,9 @@ enum Fault {
   kFloatYcc = 8,            // YCbCr -> RGB in float arithmetic
   kQualityOffByOne = 16,    // quality scaling of q + 1
   kPaethTies = 32,          // Paeth ties resolved to the later predictor
+  kCmykNotInverted = 64,    // Adobe CMYK samples taken as stored
+  kYcckAsCmyk = 128,        // YCCK samples taken as CMYK
+  kGifLateGrowth = 256,     // LZW code size grown one code late
 };
 
 // Pillow refuses a file declaring more than twice Image.MAX_IMAGE_PIXELS
@@ -421,8 +431,7 @@ struct Decoder {
                     (long long)width * height, kMaxPixels);
       fail(buf);
     }
-    if (ncomp == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (ncomp != 1 && ncomp != 3) {
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
       char buf[80];
       std::snprintf(buf, sizeof buf, "%d-component JPEG is not supported", ncomp);
       fail(buf);
@@ -484,6 +493,11 @@ struct Decoder {
       found->ac_tbl = tbl & 15;
       if (found->dc_tbl > 3 || found->ac_tbl > 3) fail("bogus Huffman table index");
       scan_comp[i] = found;
+    }
+    if (ns > 1) {  // libjpeg's D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; i++) blocks += scan_comp[i]->h * scan_comp[i]->v;
+      if (blocks > 10) fail("JPEG sampling factors too large for an interleaved scan");
     }
     Ss = u8();
     Se = u8();
@@ -1047,10 +1061,11 @@ struct YccTables {
 };
 const YccTables kYcc;
 
-enum ColorSpace { kGray, kYCbCr, kRGB };
+enum ColorSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 
 ColorSpace color_space(const Decoder& dec) {
   if (dec.ncomp == 1) return kGray;
+  if (dec.ncomp == 4) return dec.adobe && dec.adobe_transform != 0 ? kYCCK : kCMYK;
   if (dec.jfif) return kYCbCr;
   if (dec.adobe) return dec.adobe_transform == 0 ? kRGB : kYCbCr;
   int a = dec.comps[0].id, b = dec.comps[1].id, c = dec.comps[2].id;
@@ -1078,6 +1093,28 @@ void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, int fault) {
   const uint8_t* y = full[0].data();
   const uint8_t* cb = full[1].data();
   const uint8_t* cr = full[2].data();
+  const uint8_t* rl = kRange.simple + 256;
+  if (cs == kCMYK || cs == kYCCK) {
+    const uint8_t* k = full[3].data();
+    bool ycck = cs == kYCCK && !(fault & kYcckAsCmyk);
+    uint8_t flip = (fault & kCmykNotInverted) ? 0 : 255;
+    for (size_t i = 0; i < npix; i++) {
+      int cmyk[4] = {y[i], cb[i], cr[i], k[i]};
+      if (ycck) {  // ycck_cmyk_convert
+        int Y = y[i], B = cb[i], R = cr[i];
+        cmyk[0] = rl[255 - (Y + kYcc.cr_r[R])];
+        cmyk[1] = rl[255 - (Y + (int)((kYcc.cb_g[B] + kYcc.cr_g[R]) >> 16))];
+        cmyk[2] = rl[255 - (Y + kYcc.cb_b[B])];
+      }
+      for (int& v : cmyk) v ^= flip;  // Pillow's "CMYK;I" unpacker
+      int nk = 255 - cmyk[3];
+      for (int c = 0; c < 3; c++) {  // Pillow's cmyk2rgb
+        int t = cmyk[c] * nk + 128;
+        out[3 * i + c] = rl[nk - (((t >> 8) + t) >> 8)];
+      }
+    }
+    return;
+  }
   if (cs == kRGB) {
     for (size_t i = 0; i < npix; i++) {
       out[3 * i] = y[i];
@@ -1086,7 +1123,6 @@ void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, int fault) {
     }
     return;
   }
-  const uint8_t* rl = kRange.simple + 256;
   if (fault & kFloatYcc) {
     for (size_t i = 0; i < npix; i++) {
       double Y = y[i], B = cb[i] - 128.0, R = cr[i] - 128.0;
@@ -1642,6 +1678,128 @@ void png_filter(const uint8_t* px, long rows, long rowbytes, int bpp, uint8_t* o
   }
 }
 
+// ---------------------------------------------------------------- GIF LZW
+
+// Expand one frame's LZW codes (the data sub-blocks joined) into at most
+// ``npix`` palette indices; returns the count written. Codes are read LSB
+// first; a clear code resets the table, the end code or the end of the data
+// stops, the code size grows when the next free code reaches 1 << size (up
+// to 12 bits, after which the table stays full until a clear).
+long gif_lzw(const uint8_t* in, long n, int min_bits, uint8_t* out, long npix, int fault) {
+  if (min_bits < 1 || min_bits > 11) fail("GIF image data with a bad LZW code size");
+  const int clear = 1 << min_bits, end = clear + 1;
+  const int late = (fault & kGifLateGrowth) ? 1 : 0;
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096), stack(4097);
+  for (int c = 0; c < clear; c++) {
+    suffix[c] = first[c] = (uint8_t)c;
+  }
+  int bits = min_bits + 1, next = clear + 2, prev = -1;
+  long pos = 0, written = 0;
+  uint32_t acc = 0;
+  int nacc = 0;
+  while (written < npix) {
+    while (nacc < bits && pos < n) {
+      acc |= (uint32_t)in[pos++] << nacc;
+      nacc += 8;
+    }
+    if (nacc < bits) break;  // the data ends without an end code
+    int code = (int)(acc & ((1u << bits) - 1));
+    acc >>= bits;
+    nacc -= bits;
+    if (code == clear) {
+      bits = min_bits + 1;
+      next = clear + 2;
+      prev = -1;
+      continue;
+    }
+    if (code == end) break;
+    int top = 0, c = code;
+    if (prev < 0) {
+      if (code >= clear) fail("broken GIF image data (bad first LZW code)");
+    } else if (code > next || (code == next && next >= 4096)) {
+      fail("broken GIF image data (LZW code past the table)");
+    } else if (code == next) {  // KwKwK: the previous string and its first
+      stack[top++] = first[prev];
+      c = prev;
+    }
+    for (; c >= clear; c = prefix[c]) stack[top++] = suffix[c];
+    stack[top++] = (uint8_t)c;
+    if (prev >= 0 && next < 4096) {
+      prefix[next] = (uint16_t)prev;
+      suffix[next] = (uint8_t)c;
+      first[next] = first[prev];
+      next++;
+      if (next == (1 << bits) + late && bits < 12) bits++;
+    }
+    while (top && written < npix) out[written++] = stack[--top];
+    prev = code;
+  }
+  return written;
+}
+
+// ---------------------------------------------------------------- BMP RLE
+
+// Pillow's BmpRleDecoder (BmpImagePlugin.py) over ``in`` from ``start``:
+// the row-major indices it gathers (``xsize`` a row, zeros for end-of-line
+// and delta skips), stopping once ``xsize * ysize`` are there or the data
+// ends; returns the count (up to ``cap``, which holds one step past the
+// image). Its quirks are kept: a delta reads two bytes and then its two
+// offsets; an RLE4 absolute run reads count / 2 bytes; runs align to an
+// even offset of the file.
+long bmp_rle(const uint8_t* in, long n, long start, int rle4, long xsize, long ysize, uint8_t* out,
+             long cap) {
+  const long dest = xsize * ysize;
+  long pos = start, len = 0, x = 0;
+  auto put = [&](uint8_t v, long count) {
+    if (len + count > cap) fail("BMP RLE data past the image");
+    std::memset(out + len, v, (size_t)count);
+    len += count;
+  };
+  while (len < dest) {
+    if (pos + 2 > n) break;
+    int count = in[pos], byte = in[pos + 1];
+    pos += 2;
+    if (count) {  // encoded run
+      if (x + count > xsize) count = (int)std::max(0L, xsize - x);
+      if (rle4) {
+        for (int i = 0; i < count; i++) put((uint8_t)(i % 2 ? byte & 15 : byte >> 4), 1);
+      } else {
+        put((uint8_t)byte, count);
+      }
+      x += count;
+    } else if (byte == 0) {  // end of line
+      if (len % xsize) put(0, xsize - len % xsize);
+      x = 0;
+    } else if (byte == 1) {  // end of bitmap
+      break;
+    } else if (byte == 2) {  // delta
+      if (pos + 2 > n) break;
+      pos += 2;
+      if (pos + 2 > n) fail("truncated BMP file (data ends inside an RLE delta)");
+      int right = in[pos], up = in[pos + 1];
+      pos += 2;
+      put(0, right + (long)up * xsize);
+      x = len % xsize;
+    } else {  // absolute run
+      long want = rle4 ? byte / 2 : byte, got = std::min(want, n - pos);
+      for (long i = 0; i < got; i++) {
+        if (rle4) {
+          put((uint8_t)(in[pos + i] >> 4), 1);
+          put((uint8_t)(in[pos + i] & 15), 1);
+        } else {
+          put(in[pos + i], 1);
+        }
+      }
+      pos += got;
+      if (got < want) break;
+      x += byte;
+      if (pos % 2) pos++;
+    }
+  }
+  return len;
+}
+
 int report(const std::exception& e, char* err, int errlen) {
   if (err && errlen > 0) {
     std::snprintf(err, (size_t)errlen, "%s", e.what());
@@ -1670,8 +1828,8 @@ int cpt_jpeg_header(const uint8_t* data, long n, int* width, int* height, int* n
   }
 }
 
-// Decode into ``out`` (height x width x ncomp bytes, 1 or 3 channels: gray
-// or RGB).
+// Decode into ``out``: height x width bytes (one component, gray) or
+// height x width x 3 (RGB; a CMYK or YCCK file converted as Pillow does).
 int cpt_jpeg_decode(const uint8_t* data, long n, uint8_t* out, int fault, char* err,
                     int errlen) {
   try {
@@ -1713,6 +1871,28 @@ int cpt_png_filter(const uint8_t* px, long rows, long rowbytes, int bpp, uint8_t
   try {
     png_filter(px, rows, rowbytes, bpp, out);
     return 0;
+  } catch (const std::exception& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Expand a GIF frame's LZW data into at most ``npix`` indices: the count
+// written, or -1.
+long cpt_gif_lzw(const uint8_t* data, long n, int min_bits, uint8_t* out, long npix, int fault,
+                 char* err, int errlen) {
+  try {
+    return gif_lzw(data, n, min_bits, out, npix, fault);
+  } catch (const std::exception& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Expand a BMP's RLE8 / RLE4 data from ``start`` of the file: the count of
+// indices written to ``out`` (at most ``cap``), or -1.
+long cpt_bmp_rle(const uint8_t* data, long n, long start, int rle4, long xsize, long ysize,
+                 uint8_t* out, long cap, char* err, int errlen) {
+  try {
+    return bmp_rle(data, n, start, rle4, xsize, ysize, out, cap);
   } catch (const std::exception& e) {
     return report(e, err, errlen);
   }

@@ -9,8 +9,10 @@ K1, K2 and K5; ``compute_prediction`` + ``select_top_predictions``,
 per-class-colored boxes with class names and scores
 (``predictor.py:261-411``), written as PNGs. ``--webcam`` runs the same
 over a capture device (``webcam.py``; cv2). Images are read and written
-through ``utils/image_codec``; only the detection captions
-(:func:`overlay_detections`) need Pillow.
+through ``utils/image_codec`` (JPEG, PNG, GIF and BMP in; ``--out`` as
+.png, .jpg or .bmp); the detection captions (:func:`overlay_detections`)
+are drawn by ``utils/text`` in Pillow's default font, pixel for pixel.
+Nothing here needs Pillow.
 
 Usage:
   # prompt painting
@@ -39,6 +41,7 @@ from cpt_tpu_torch.data.prompts import CROSS_TASK_COLORS, REFCOCO_COLORS
 from cpt_tpu_torch.models.detector.config import DetectorConfig
 from cpt_tpu_torch.models.detector.rpn import grid_anchors
 from cpt_tpu_torch.ops.render import paste_rect
+from cpt_tpu_torch.utils import text
 
 
 def draw_box_outline(img: np.ndarray, box, color, thickness: int = 3
@@ -71,20 +74,18 @@ def colors_for_labels(labels: np.ndarray) -> np.ndarray:
 def overlay_detections(img: np.ndarray, boxes, labels, scores,
                        class_names=None) -> np.ndarray:
     """Box outlines in per-class colors + "name: score" captions
-    (predictor.py:290-311 overlay_boxes + :384-411 overlay_class_names)."""
-    from PIL import Image, ImageDraw
-
+    (predictor.py:290-311 overlay_boxes + :384-411 overlay_class_names),
+    the captions as Pillow's ``ImageDraw.text`` draws them."""
     colors = colors_for_labels(labels)
     for box, color in zip(boxes, colors):
         img = draw_box_outline(img, box, color, thickness=2)
-    pil = Image.fromarray(img)
-    draw = ImageDraw.Draw(pil)
     for box, label, score, color in zip(boxes, labels, scores, colors):
         name = (class_names.get(int(label), str(int(label)))
                 if class_names else str(int(label)))
-        draw.text((int(box[0]) + 2, max(int(box[1]) - 11, 0)),
-                  f"{name}: {score:.2f}", fill=tuple(int(c) for c in color))
-    return np.asarray(pil)
+        img = text.draw_text(img, (int(box[0]) + 2, max(int(box[1]) - 11, 0)),
+                             f"{name}: {score:.2f}",
+                             tuple(int(c) for c in color))
+    return img
 
 
 def detector_canvas(img: np.ndarray, cfg: DetectorConfig
@@ -242,7 +243,7 @@ def main(argv=None):
         arr = overlay_detections(img.copy(), boxes, labels, scores, names)
         write_image(args.out, arr)
         print(f"wrote {args.out} ({len(boxes)} detections > {args.conf})")
-        return
+        return boxes, labels, scores
     if not args.boxes:
         raise SystemExit("demo: --boxes is required unless --detect")
     outputs = paint(img, json.loads(args.boxes), args.multi_color, args.device)

@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Host time of the port's JPEG / PNG codec (``cpt_tpu_torch/utils/
+"""Host time of the port's image codec (``cpt_tpu_torch/utils/
 image_codec``) beside Pillow's on the same inputs: every fixture of
-``chip_smoke.CODEC_DIGESTS`` decoded to RGB, and every seeded array of
-``chip_smoke.codec_encode_inputs`` encoded to JPEG. Prints one JSON line:
-for each input, the median of ``--reps`` calls in ms of the codec and of
-Pillow (null where Pillow is absent), and whether the two outputs are
-equal. ``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the
-480x640 quality-95 decode and encode from a run of this script.
+``chip_smoke.CODEC_DIGESTS`` decoded to RGB; a 480x640 photo in each kind
+the codec reads besides YCbCr JPEG (CMYK JPEG, baseline and progressive;
+YCCK JPEG; 16-bit grey, 48-bit and 64-bit PNG; GIF, plain and interlaced;
+BMP at 24 bits, 8 bits RLE and 16 bits 565) decoded to RGB (``big:``
+entries; written with Pillow and the fixture script's writers, so they
+need Pillow); every seeded array of ``chip_smoke.codec_encode_inputs``
+encoded to JPEG, and the 480x640 photo encoded to BMP. Prints one JSON
+line: for each input, the median of ``--reps`` calls in ms of the codec
+and of Pillow (null where Pillow is absent), and whether the two outputs
+are equal. The times are of the host this runs on (no card is used).
+``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the 480x640
+quality-95 decode and encode from a run of this script.
 
     python3 image_codec_timing.py [--reps 20]
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import io
 import json
 
@@ -28,6 +35,41 @@ def pillow():
     except ImportError:
         return None
     return Image
+
+
+def big_inputs(Image) -> dict:
+    """name → file bytes of the 480x640 photo in each new kind."""
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", chip_smoke.CODEC_DIR / "make_fixtures.py")
+    mf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mf)
+    photo = chip_smoke.codec_photo(11, 480, 640)
+    k = chip_smoke.codec_photo(12, 480, 640)[..., 1]
+    wide = photo.astype(np.uint16) * 257 + k[..., None]
+
+    def pil(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, **kw)
+        return buf.getvalue()
+
+    rgb = Image.fromarray(photo)
+    blocky = np.kron(photo[::8, ::8, 0] // 16, np.ones((8, 8), np.uint8))
+    return {
+        "cmyk_q95.jpg": pil(rgb.convert("CMYK"), format="JPEG", quality=95),
+        "cmyk_progressive_q95.jpg": pil(rgb.convert("CMYK"), format="JPEG",
+                                        quality=95, progressive=True),
+        "ycck_q95.jpg": mf.ycck_jpeg(mf.ycck_planes(photo, k), 95),
+        "i16.png": pil(Image.fromarray(wide[..., 0]), format="PNG"),
+        "rgb48.png": mf.png16(wide, 2),
+        "rgba64.png": mf.png16(np.concatenate([wide, wide[..., :1]], 2), 6),
+        "p.gif": pil(rgb.quantize(256), format="GIF", interlace=0),
+        "p_interlaced.gif": pil(rgb.quantize(256), format="GIF"),
+        "rgb.bmp": pil(rgb, format="BMP"),
+        "rle8.bmp": mf.bmp_file(blocky, 8, np.arange(768).reshape(256, 3) % 256,
+                                compression=1),
+        "bitfields565.bmp": mf.bmp_file(photo, 16, compression=3,
+                                        masks=(0xF800, 0x7E0, 0x1F)),
+    }
 
 
 def main(argv=None) -> dict:
@@ -47,6 +89,28 @@ def main(argv=None) -> dict:
             "pillow_ms": chip_smoke.median_ms(pil, args.reps) if pil else None,
             "equal": bool(np.array_equal(image_codec.decode(data), pil()))
             if pil else None}
+    for name, data in (big_inputs(Image) if Image else {}).items():
+        def pil_decode(data=data):
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        out[f"big:{name}"] = {
+            "bytes": len(data),
+            "codec_ms": chip_smoke.median_ms(
+                lambda: image_codec.decode(data), args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil_decode, args.reps),
+            "equal": bool(np.array_equal(image_codec.decode(data),
+                                         pil_decode()))}
+    photo = chip_smoke.codec_encode_inputs()["photo_q95"][0]
+
+    def pil_bmp():
+        buf = io.BytesIO()
+        Image.fromarray(photo).save(buf, format="BMP")
+        return buf.getvalue()
+    out["encode:photo_bmp"] = {
+        "shape": list(photo.shape),
+        "codec_ms": chip_smoke.median_ms(lambda: image_codec.encode_bmp(photo),
+                                         args.reps),
+        "pillow_ms": chip_smoke.median_ms(pil_bmp, args.reps) if Image else None,
+        "equal": image_codec.encode_bmp(photo) == pil_bmp() if Image else None}
     for name, (arr, quality) in chip_smoke.codec_encode_inputs().items():
         def pil_encode(arr=arr, quality=quality):
             buf = io.BytesIO()

@@ -610,10 +610,24 @@ def test_demo_drawing_matches_jax():
             demo.draw_box_outline(img, box, (0, 255, 0), thick),
             jdemo.draw_box_outline(img, box, (0, 255, 0), thick))
     scores = np.array([0.91, 0.5, 0.123, 0.05], np.float32)
-    for names in (None, {1: "person", 7: "dog"}):
+    long_names = {1: "a class name far longer than the image is wide",
+                  7: "café – naïve ünïcødé", 42: "中文 €\tß", 1593: "x,y;j"}
+    for names in (None, {1: "person", 7: "dog"}, long_names):
         np.testing.assert_array_equal(
             demo.overlay_detections(img.copy(), boxes, labels, scores, names),
             jdemo.overlay_detections(img.copy(), boxes, labels, scores, names))
+    # boxes at every edge (captions clipped at the top, left, right and
+    # bottom), and chip_smoke's fixed caption case
+    edges = np.array([[0, 0, 20, 10], [50, 0, 63, 47], [-3, 30, 10, 47],
+                      [10, 46, 60, 47], [63, 47, 70, 50]], np.float32)
+    labels = np.array([1, 7, 42, 1593, 2])
+    scores = np.array([0.999, 0.5049, 0.5, 0.0, 1.0], np.float32)
+    np.testing.assert_array_equal(
+        demo.overlay_detections(img.copy(), edges, labels, scores, long_names),
+        jdemo.overlay_detections(img.copy(), edges, labels, scores, long_names))
+    case = cs.caption_case()
+    np.testing.assert_array_equal(demo.overlay_detections(*case),
+                                  jdemo.overlay_detections(*case))
 
 
 @pytest.mark.parametrize("mode", [[], ["--multi_color"]])

@@ -1,15 +1,19 @@
-"""The port's JPEG / PNG codec (``cpt_tpu_torch/utils/image_codec``, host
-C++ in ``csrc/image_codec.cpp``) against Pillow 12.1.0 (libjpeg-turbo
-3.1.3), the version its rules were recovered against: decoded pixels equal
-on seeded JPEG and PNG cases, encoded JPEG bytes equal, PNG round trips;
-the named errors; ``chip_smoke``'s CODEC_DIGESTS and CODEC_FAULTS; and the
-call sites routed through the codec against the JAX package's Pillow calls
-on the same files."""
+"""The port's image codec (``cpt_tpu_torch/utils/image_codec``, host C++
+in ``csrc/image_codec.cpp``) against Pillow 12.1.0 (libjpeg-turbo 3.1.3),
+the version its rules were recovered against: decoded pixels equal on the
+committed fixtures and on seeded JPEG (CMYK and YCCK among them), PNG (16
+bits among them), GIF and BMP cases, encoded JPEG and BMP bytes equal, PNG
+round trips; the named errors; ``chip_smoke``'s CODEC_DIGESTS and
+CODEC_FAULTS; and the call sites routed through the codec against the JAX
+package's Pillow calls on the same files. The seeded GIF, BMP, YCCK and
+16-bit PNG files come from the fixture script's writers
+(``tests/data/codec/make_fixtures.py``)."""
 from __future__ import annotations
 
 import base64
 import functools
 import hashlib
+import importlib.util
 import io
 import json
 import struct
@@ -30,6 +34,7 @@ from cpt_tpu.data import coco_json as jcoco
 from cpt_tpu.data import vg_tsv as jvg_tsv
 from cpt_tpu.models.detector.convert import (convert_detector_state_dict,
                                              random_vinvl_state_dict)
+from cpt_tpu.tools import demo as jdemo
 from cpt_tpu.tools import extract_features as jextract
 from cpt_tpu.tools import img_info as jimg_info
 from cpt_tpu.tools import serve as jserve
@@ -39,9 +44,21 @@ from cpt_tpu_torch.data import coco_json, vg_tsv
 from cpt_tpu_torch.kernels import build
 from cpt_tpu_torch.tools import extract_features, img_info, validate_checkpoints
 from cpt_tpu_torch.utils import image_codec as ic
+from cpt_tpu_torch.utils import text
 from test_torch_watchdog import guards
 
 guard_module, guard_case = guards(180)
+
+
+def _fixture_script():
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", cs.CODEC_DIR / "make_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+mf = _fixture_script()
 
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
@@ -158,6 +175,8 @@ def packed(samples: np.ndarray, depth: int) -> np.ndarray:
     """[h, n] samples of ``depth`` bits → [h, ceil(n·depth/8)] bytes."""
     if depth == 8:
         return samples.astype(np.uint8)
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8)
     h, n = samples.shape
     per = 8 // depth
     s = np.concatenate([samples, np.zeros((h, (-n) % per), samples.dtype)], 1)
@@ -173,6 +192,7 @@ def make_png(samples: np.ndarray, color: int, depth: int, interlace: int,
     h, w, ch = samples.shape
     bpp = max(1, ch * depth // 8)
     raw = b""
+    samples = np.ascontiguousarray(samples)
     for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
         sub = samples[y0::dy, x0::dx]
         if sub.size:
@@ -186,7 +206,7 @@ def make_png(samples: np.ndarray, color: int, depth: int, interlace: int,
 
 
 PNG_KINDS = [(0, 1), (0, 2), (0, 4), (0, 8), (2, 8), (3, 1), (3, 2), (3, 4),
-             (3, 8), (4, 8), (6, 8)]
+             (3, 8), (4, 8), (6, 8), (0, 16), (2, 16), (4, 16), (6, 16)]
 
 
 @pytest.mark.parametrize("color,depth", PNG_KINDS)
@@ -195,19 +215,23 @@ def test_png_decode_is_pillows(color, depth, interlace):
     """Every colour type and bit depth the codec reads, plain and Adam7
     (bytes built here with zlib, rows under random filters; palettes
     shorter than the bit depth allows, so that some indices fall past
-    them): ``decode`` equals Pillow's ``convert("RGB")`` and
-    ``convert("L")``."""
+    them; 16-bit samples, grey ones also under 256; 1×1 images):
+    ``decode`` equals Pillow's ``convert("RGB")`` and ``convert("L")``,
+    and ``image_size`` Pillow's size."""
     rng = np.random.RandomState(3000 + 10 * color + depth + 100 * interlace)
     channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
-    for _ in range(4):
-        h, w = (int(v) for v in rng.randint(1, 40, 2))
+    for i in range(4):
+        h, w = (int(v) for v in rng.randint(1, 40, 2)) if i else (1, 1)
         samples = rng.randint(0, 2 ** depth, (h, w, channels))
+        if depth == 16 and i % 2:        # grey 16-bit values under 256 too
+            samples >>= int(rng.randint(0, 9))
         palette = (rng.randint(0, 256, (int(rng.randint(1, 2 ** depth + 1)), 3))
                    .astype(np.uint8) if color == 3 else None)
         data = make_png(samples, color, depth, interlace, rng, palette)
         for mode in ("RGB", "L"):
             np.testing.assert_array_equal(ic.decode(data, mode),
                                           pillow_decode(data, mode))
+        assert ic.image_size(data) == (w, h)
 
 
 @pytest.mark.parametrize("mode,bits", [("L", None), ("LA", None),
@@ -238,6 +262,230 @@ def test_png_round_trip(shape):
         ic.decode(data, "L" if arr.ndim == 2 else "RGB"), arr)
 
 
+# --- CMYK / YCCK JPEG, GIF, BMP ---------------------------------------------------
+
+def cmyk_cases(chunk: int, n: int = 10):
+    """Seeded CMYK JPEGs as Pillow writes them (subsampling 0-2,
+    progressive, quality 1-100) and YCCK ones from the fixture script's
+    encoder (sampling 1x1, Y and K 2x2, all 2x2), sizes 1-120 (odd ones
+    and 1×1 included)."""
+    rng = np.random.RandomState(5000 + chunk)
+    for i in range(n):
+        h, w = ((1, 1) if i == 0 else
+                tuple(int(v) for v in rng.randint(1, 121 if i % 4 == 1 else 40, 2)))
+        img = seeded_image(rng, h, w, 3)
+        if i % 2:
+            buf = io.BytesIO()
+            kw = {"quality": int(rng.randint(1, 101)),
+                  "subsampling": int(rng.randint(0, 3))}
+            if rng.rand() < 0.4:
+                kw["progressive"] = True
+            Image.fromarray(img).convert("CMYK").save(buf, format="JPEG", **kw)
+            yield buf.getvalue()
+        else:
+            k = seeded_image(rng, h, w, 1)
+            sampling = [(1, 1, 1, 1), (2, 1, 1, 2), (2, 1, 1, 1)][i // 2 % 3]
+            yield mf.ycck_jpeg(mf.ycck_planes(img, k),
+                               int(rng.randint(5, 101)), sampling)
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_cmyk_and_ycck_jpeg_decode_is_pillows(chunk):
+    """4-component JPEGs: ``decode`` equals Pillow's ``convert("RGB")`` and
+    ``convert("L")`` (its "CMYK;I" unpacking, then cmyk2rgb), and
+    ``image_size`` its size."""
+    for data in cmyk_cases(chunk):
+        for mode in ("RGB", "L"):
+            np.testing.assert_array_equal(ic.decode(data, mode),
+                                          pillow_decode(data, mode))
+        assert ic.image_size(data) == Image.open(io.BytesIO(data)).size
+
+
+def gif_cases(chunk: int, n: int = 12):
+    """Seeded GIFs: Pillow's writer (P and L, interlaced or not) and the
+    fixture script's (global and / or local palettes of 2-256 entries,
+    some shorter than the code size reaches; grey-identity palettes, read
+    as mode L; no palette; LZW code sizes 2-8, a clear every few codes or
+    a full table left without one; interlace; a transparent index; a
+    frame off the screen's origin, or past its edge; more frames after
+    the first), sizes 1-200 and 1×1."""
+    rng = np.random.RandomState(6000 + chunk)
+    for i in range(n):
+        h, w = ((1, 1) if i == 0 else
+                tuple(int(v) for v in rng.randint(1, 201 if i % 5 == 1 else 45, 2)))
+        if i % 3 == 2:
+            img = seeded_image(rng, h, w, 3)
+            im = Image.fromarray(img)
+            im = (im.convert("L") if rng.rand() < 0.5
+                  else im.quantize(int(rng.randint(2, 257))))
+            buf = io.BytesIO()
+            im.save(buf, format="GIF", interlace=int(rng.randint(0, 2)),
+                    optimize=bool(rng.rand() < 0.5))
+            yield buf.getvalue()
+            continue
+        min_bits = int(rng.randint(2, 9))
+        frame = rng.randint(0, 1 << min_bits, (h, w)).astype(np.uint8)
+        if rng.rand() < 0.5:                      # long runs: the table fills
+            frame = np.repeat(frame[:, :-(-w // 8)], 8, 1)[:, :w].copy()
+
+        def palette():
+            size = 1 << int(rng.randint(1, 9))
+            if rng.rand() < 0.15:
+                return np.repeat(np.arange(size, dtype=np.uint8)[:, None], 3, 1)
+            return rng.randint(0, 256, (size, 3)).astype(np.uint8)
+
+        kw = {"min_bits": min_bits, "interlace": bool(rng.rand() < 0.5),
+              "global_pal": palette() if rng.rand() < 0.7 else None,
+              "local_pal": palette() if rng.rand() < 0.4 else None,
+              "transparency": (int(rng.randint(0, 1 << min_bits))
+                               if rng.rand() < 0.4 else None),
+              "frames_after": int(rng.randint(0, 2)),
+              "clear_when_full": bool(rng.rand() < 0.5),
+              "clear_every": int(rng.choice([0, 0, 7, 300]))}
+        if rng.rand() < 0.4:
+            kw["offset"] = tuple(int(v) for v in rng.randint(0, 6, 2))
+            kw["screen"] = tuple(int(v) for v in rng.randint(1, 60, 2))
+        yield mf.gif_file(frame, **kw)
+
+
+@pytest.mark.parametrize("chunk", range(6))
+def test_gif_decode_is_pillows(chunk):
+    """GIF's first frame: ``decode`` equals Pillow's ``convert("RGB")`` and
+    ``convert("L")``, and ``image_size`` its (grown) size."""
+    for data in gif_cases(chunk):
+        for mode in ("RGB", "L"):
+            np.testing.assert_array_equal(ic.decode(data, mode),
+                                          pillow_decode(data, mode))
+        assert ic.image_size(data) == Image.open(io.BytesIO(data)).size
+
+
+BMP_KINDS = {
+    # name: bmp_file keywords (pixels drawn per kind)
+    "1": {"bits": 1}, "4": {"bits": 4}, "8": {"bits": 8},
+    "4_core": {"bits": 4, "header": 12}, "8_v5": {"bits": 8, "header": 124},
+    "16_555": {"bits": 16}, "24": {"bits": 24}, "32": {"bits": 32},
+    "24_top_down": {"bits": 24, "top_down": True},
+    "8_top_down_v4": {"bits": 8, "top_down": True, "header": 108},
+    "565_info": {"bits": 16, "compression": 3, "masks": (0xF800, 0x7E0, 0x1F)},
+    "555_v4": {"bits": 16, "compression": 3, "header": 108,
+               "masks": (0x7C00, 0x3E0, 0x1F)},
+    "565_v5": {"bits": 16, "compression": 3, "header": 124,
+               "masks": (0xF800, 0x7E0, 0x1F)},
+    "32_xbgr": {"bits": 32, "compression": 3, "masks": (0xFF000000, 0xFF0000, 0xFF00)},
+    "32_rgba_v5": {"bits": 32, "compression": 3, "header": 124,
+                   "masks": (0xFF, 0xFF00, 0xFF0000, 0xFF000000)},
+    "32_bgar_v5": {"bits": 32, "compression": 3, "header": 124,
+                   "masks": (0xFF000000, 0xFF00, 0xFF, 0xFF0000)},
+    "rle8": {"bits": 8, "compression": 1},
+    "rle4": {"bits": 4, "compression": 2},
+    "rle8_top_down": {"bits": 8, "compression": 1, "top_down": True},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BMP_KINDS))
+def test_bmp_decode_is_pillows(kind):
+    """Every BMP kind the codec reads (headers, depths, bit fields, RLE,
+    either row order), at widths that pad the rows to 4 bytes in every way
+    and 1×1, with palettes shorter than the depth allows (so that some
+    indices fall past them) and grey ones (read as mode L, or 1):
+    ``decode`` equals Pillow's ``convert("RGB")`` and ``convert("L")``, and
+    ``image_size`` its size."""
+    kw = dict(BMP_KINDS[kind])
+    bits = kw.pop("bits")
+    rng = np.random.RandomState(7000 + sorted(BMP_KINDS).index(kind))
+    for i in range(8):
+        h, w = (1, 1) if i == 0 else (int(rng.randint(1, 30)), 1 + i + 4 * int(rng.randint(0, 8)))
+        palette = None
+        if bits <= 8:
+            top = 1 << bits
+            if i == 1 and bits != 4:              # grey: mode L, or 1
+                palette = np.repeat((np.arange(top) * (255 // (top - 1)))[:, None],
+                                    3, 1)
+            else:
+                palette = rng.randint(0, 256, (int(rng.randint(2, top + 1)), 3))
+            px = rng.randint(0, top, (h, w)).astype(np.uint8)
+            if kw.get("compression") in (1, 2) and rng.rand() < 0.6:
+                px = np.repeat(px[:, :-(-w // 5)], 5, 1)[:, :w].copy()
+        else:
+            px = seeded_image(rng, h, w, 3)
+        if kw.get("compression") in (1, 2) and i == 1:
+            continue                              # Pillow refuses RLE in mode 1
+        data = mf.bmp_file(px, bits, palette, **kw)
+        for mode in ("RGB", "L"):
+            np.testing.assert_array_equal(ic.decode(data, mode),
+                                          pillow_decode(data, mode))
+        assert ic.image_size(data) == (w, h)
+
+
+def rle_bmp(body: bytes, w: int, h: int, rle4: bool) -> bytes:
+    """A BMP of hand-made RLE data (palette of 16 or 256 seeded entries)."""
+    n = 16 if rle4 else 256
+    pal = np.random.RandomState(71).randint(0, 256, (n, 3)).astype(np.uint8)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 4 if rle4 else 8,
+                       2 if rle4 else 1, len(body), 0, 0, n, 0)
+    pal = np.concatenate([pal[:, ::-1], np.zeros((n, 1), np.uint8)], 1).tobytes()
+    offset = 14 + 40 + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(body), 0, 0, offset)
+            + info + pal + body)
+
+
+RLE_QUIRKS = {
+    # Pillow's BmpRleDecoder: a delta reads two bytes, then its offsets
+    "delta": (b"\x03\x07\x00\x02\x09\x09\x02\x01\x04\x05\x00\x00" * 4
+              + b"\x00\x01", 9, 6, False),
+    # an encoded run past the row is cut at its end
+    "long_run": (b"\x20\x11\x02\x22\x00\x00\x05\x33\x00\x00" * 3 + b"\x00\x01",
+                 7, 5, False),
+    # an absolute run past the row is not; odd runs align to the file
+    "absolute": (b"\x00\x05\x01\x02\x03\x04\x05\x00\x00\x03\x07\x08\x09\x00"
+                 b"\x02\x06" * 6 + b"\x00\x01", 6, 6, False),
+    # an RLE4 absolute run of odd count reads count // 2 bytes
+    "rle4_odd_absolute": (b"\x00\x05\x12\x34\x56\x00\x04\x78\x00\x00" * 4
+                          + b"\x00\x01", 8, 4, True),
+    # the image full without an end of line or of bitmap; what follows is
+    # not read
+    "full_without_end": (b"\x08\x05\x00\x00" * 3 + b"\x08\x07\xff\x01",
+                         8, 4, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RLE_QUIRKS))
+def test_bmp_rle_follows_pillows_decoder(case):
+    """Hand-made RLE streams that take the odd paths of Pillow's
+    BmpRleDecoder: ``decode`` gives its pixels."""
+    data = rle_bmp(*RLE_QUIRKS[case])
+    for mode in ("RGB", "L"):
+        np.testing.assert_array_equal(ic.decode(data, mode),
+                                      pillow_decode(data, mode))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 1, 3), (5, 1), (7, 2, 3),
+                                   (9, 3), (4, 5, 3), (13, 17), (20, 31, 3)])
+def test_bmp_encode_is_pillows(shape, tmp_path):
+    """``encode_bmp`` (and ``write_image(".bmp")``) give the bytes of
+    Pillow's ``save(format="BMP")`` for L and RGB, every row padding; the
+    codec reads them back."""
+    arr = np.random.RandomState(72).randint(0, 256, shape).astype(np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="BMP")
+    assert ic.encode_bmp(arr) == buf.getvalue()
+    ic.write_image(tmp_path / "x.bmp", arr)
+    assert (tmp_path / "x.bmp").read_bytes() == buf.getvalue()
+    np.testing.assert_array_equal(
+        ic.decode(buf.getvalue(), "L" if arr.ndim == 2 else "RGB"), arr)
+
+
+@pytest.mark.parametrize("name", ["cmyk", "sixteen_bit_png", "gif"])
+def test_formerly_refused_kinds_decode_is_pillows(name):
+    """The kinds the codec once refused (a CMYK JPEG, a 16-bit PNG, a
+    GIF) decode as Pillow reads them."""
+    data = {"cmyk": cmyk_jpeg, "sixteen_bit_png": sixteen_bit_png,
+            "gif": small_gif}[name]()
+    for mode in ("RGB", "L"):
+        np.testing.assert_array_equal(ic.decode(data, mode),
+                                      pillow_decode(data, mode))
+
+
 def cmyk_jpeg() -> bytes:
     buf = io.BytesIO()
     Image.fromarray(cs.codec_photo(44, 24, 32)).convert("CMYK").save(
@@ -259,6 +507,31 @@ def sixteen_bit_png() -> bytes:
     return buf.getvalue()
 
 
+def small_gif() -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(cs.codec_photo(54, 24, 32)).quantize(32).save(
+        buf, format="GIF")
+    return buf.getvalue()
+
+
+def lossless_header() -> bytes:
+    data = bytearray(pillow_jpeg(cs.codec_photo(55, 24, 32)))
+    i = data.find(b"\xff\xc0")
+    data[i + 1] = 0xC3                       # SOF0 → SOF3, lossless
+    return bytes(data)
+
+
+def mcu_too_large() -> bytes:
+    """A YCCK file whose four components are all sampled 2x2: 16 blocks an
+    MCU, past libjpeg's 10."""
+    img = cs.codec_photo(57, 24, 32)
+    return mf.ycck_jpeg(mf.ycck_planes(img, img[..., 0]), 75, (2, 2, 2, 2))
+
+
+def tiff_header() -> bytes:
+    return b"II*\x00" + struct.pack("<I", 8) + bytes(32)
+
+
 ERROR_CASES = {
     "truncated_jpeg_half": (lambda: (lambda d: d[:len(d) // 2])(
         pillow_jpeg(cs.codec_photo(46, 64, 80))), "truncated"),
@@ -266,18 +539,25 @@ ERROR_CASES = {
         cs.codec_photo(47, 64, 80), progressive=True)[:-2], "truncated"),
     "truncated_png": (lambda: ic.encode_png(cs.codec_photo(48, 30, 30))[:-30],
                       "truncated"),
+    "truncated_gif": (lambda: small_gif()[:len(small_gif()) // 2],
+                      "truncated"),
+    "truncated_bmp": (lambda: ic.encode_bmp(cs.codec_photo(56, 20, 30))[:-200],
+                      "truncated"),
     "arithmetic": (arithmetic_header, "arithmetic"),
-    "cmyk": (cmyk_jpeg, "CMYK"),
-    "sixteen_bit_png": (sixteen_bit_png, "16-bit"),
-    "gif": (lambda: b"GIF89a" + bytes(20), "GIF"),
+    "lossless": (lossless_header, "lossless"),
+    "mcu_too_large": (mcu_too_large, "too large"),
+    "webp": (lambda: b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22),
+             "WEBP"),
+    "tiff": (tiff_header, "TIFF"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
 def test_unsupported_and_truncated_files_raise(case):
-    """A truncated file, an arithmetic-coded header, a CMYK JPEG, a 16-bit
-    PNG and another format raise ``ImageCodecError`` naming the problem;
-    no partial image comes back. Pillow raises on the truncated files too."""
+    """A truncated file (JPEG, PNG, GIF, BMP), an arithmetic-coded or a
+    lossless JPEG header and the formats still refused (WEBP, TIFF) raise
+    ``ImageCodecError`` naming the problem; no partial image comes back.
+    Pillow raises on the truncated files too."""
     make, word = ERROR_CASES[case]
     data = make()
     with pytest.raises(ic.ImageCodecError, match=word):
@@ -382,12 +662,16 @@ def pillow_digests() -> dict:
         jimg_info.create_all_color_imgs(f"{root}/colors", cs.COLOR_STEP)
         out["img_info:colors"] = digest(b"".join(
             p.read_bytes() for p in sorted(Path(root, "colors").glob("*.jpg"))))
+    img, boxes, labels, scores, names = cs.caption_case()
+    out["caption:overlay"] = digest(jdemo.overlay_detections(
+        img.copy(), boxes, labels, scores, names))
     return out
 
 
 def test_codec_digests_are_pillows():
-    """Each of CODEC_DIGESTS is Pillow's (pixels, or JPEG bytes), and the
-    codec reproduces the decodes and encodes here."""
+    """Each of CODEC_DIGESTS is Pillow's (pixels, JPEG bytes, or the JAX
+    demo's caption drawing), and the codec and ``utils/text`` reproduce the
+    decodes, encodes and captions here."""
     assert pillow_digests() == cs.CODEC_DIGESTS
     got, _ = cs.codec_digests()
     assert got == {k: v for k, v in cs.CODEC_DIGESTS.items() if k in got}
@@ -399,8 +683,9 @@ def test_codec_digests_are_pillows():
 
 @pytest.mark.parametrize("fault", cs.CODEC_FAULTS)
 def test_named_faults_change_a_digest(fault):
-    """Each of CODEC_FAULTS changes at least one digest."""
-    assert set(cs.CODEC_FAULTS) == set(ic.FAULTS)
+    """Each of CODEC_FAULTS (the codec's and the captions') changes at
+    least one digest."""
+    assert set(cs.CODEC_FAULTS) == set(ic.FAULTS) | set(text.FAULTS)
     changed, _ = cs.codec_digests(fault)
     assert [k for k in changed if changed[k] != cs.CODEC_DIGESTS[k]]
 
@@ -410,11 +695,46 @@ def test_check_codec_digests_passes_here():
     assert all(r["matched"].values()) and all(r["faults"].values())
 
 
+def test_phase21_dry_run():
+    """``chip_smoke.run_image_files`` at the tiny size on the CPU: every
+    reading is taken (the digests, the tools, ``demo --detect`` on the YCCK
+    fixture with its PNG equal to ``overlay_detections`` of its
+    detections) and only the kernel-launch checks fail (no card)."""
+    import ast
+
+    with pytest.raises(AssertionError) as e:
+        cs.run_image_files(cs.kernel_counters(), "cpu", tiny=True)
+    failures = ast.literal_eval(e.value.args[0][len("phase 21: "):])
+    assert failures and all("launches" in f for f in failures), failures
+    demo_failure = [f for f in failures if f.startswith("demo --detect")]
+    assert len(demo_failure) == 1
+    reading = ast.literal_eval(demo_failure[0][len("demo --detect: "):])
+    assert (reading["decode_equal"] and reading["out_equal"]
+            and reading["detections"] > 0)
+
+
 # --- the routed call sites against the JAX package's ---------------------------
+
+@pytest.mark.parametrize("name", [p.name for p in cs.codec_fixture_files()])
+def test_fixture_decode_is_pillows(name):
+    """Every committed fixture: ``decode`` equals Pillow's ``convert("RGB")``
+    and ``convert("L")``, ``read_image`` the same from the path, and
+    ``image_size`` Pillow's size."""
+    path = cs.CODEC_DIR / name
+    data = path.read_bytes()
+    for mode in ("RGB", "L"):
+        want = pillow_decode(data, mode)
+        np.testing.assert_array_equal(ic.decode(data, mode), want)
+        np.testing.assert_array_equal(ic.read_image(path, mode), want)
+    assert ic.image_size(path) == Image.open(path).size
+
 
 @pytest.mark.parametrize("name", ["baseline_420_q95_480x640.jpg",
                                   "progressive_q75.jpg", "p4.png",
-                                  "adam7_rgb.png"])
+                                  "adam7_rgb.png", "ycck_q75.jpg",
+                                  "cmyk_progressive_q75.jpg", "rgba64_adam7.png",
+                                  "i16.png", "short_palette.gif", "l.gif",
+                                  "rle4.bmp", "top_down.bmp"])
 def test_load_image_matches_jax(name):
     """``extract_features.load_image`` (with the 600/1000 resize rule and
     without) equals the JAX tool's on the same file."""
@@ -427,9 +747,10 @@ def test_load_image_matches_jax(name):
 
 
 def test_vg_tsv_decode_matches_jax():
-    """``vg_tsv.img_from_base64`` equals the JAX reader's on base64 JPEG
-    and PNG bytes."""
-    for name in ("baseline_422_q75.jpg", "gray_q75.jpg", "rgba.png", "p1.png"):
+    """``vg_tsv.img_from_base64`` equals the JAX reader's on base64 JPEG,
+    PNG, GIF and BMP bytes."""
+    for name in ("baseline_422_q75.jpg", "gray_q75.jpg", "rgba.png", "p1.png",
+                 "cmyk_q75.jpg", "la16.png", "p_interlaced.gif", "rgba.bmp"):
         b64 = base64.b64encode((cs.CODEC_DIR / name).read_bytes()).decode()
         np.testing.assert_array_equal(vg_tsv.img_from_base64(b64),
                                       jvg_tsv.img_from_base64(b64))

@@ -1,7 +1,7 @@
 """The port stands alone: every module of ``cpt_tpu_torch`` imports with
-``jax`` and ``cpt_tpu`` blocked, no source of the port (nor
-``chip_smoke.py``) imports either, and the port's copies of the JAX
-package's jax-free modules (configs, tokenizer, TSV codec, prompts,
+``jax``, ``cpt_tpu`` and Pillow (``PIL``) blocked, no source of the port
+(nor ``chip_smoke.py``) imports any of them, and the port's copies of the
+JAX package's jax-free modules (configs, tokenizer, TSV codec, prompts,
 tensorization, random reference-layout weights) behave as the originals."""
 import ast
 import dataclasses
@@ -39,9 +39,11 @@ CAPTIONS = ["The woman on the left.", "a dog, and a cat?", "what's RED",
 
 
 def test_every_module_imports_without_jax_or_cpt_tpu():
+    """Every module of the port imports with jax, flax, cpt_tpu and PIL
+    blocked, and loads none of them."""
     script = """
 import sys
-for name in ("jax", "flax", "cpt_tpu"):
+for name in ("jax", "flax", "cpt_tpu", "PIL"):
     sys.modules[name] = None
 import importlib, pkgutil, cpt_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(cpt_tpu_torch.__path__,
@@ -49,7 +51,8 @@ names = [m.name for m in pkgutil.walk_packages(cpt_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 loaded = [k for k, v in sys.modules.items() if v is not None]
-assert not [k for k in loaded if k.split(".")[0] in ("jax", "flax", "cpt_tpu")]
+assert not [k for k in loaded
+            if k.split(".")[0] in ("jax", "flax", "cpt_tpu", "PIL")]
 print(len(names), "OK")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -78,25 +81,27 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  # the meshes, the pipeline and the synthetic fixtures
                  "parallel.mesh", "parallel.pipeline", "data.synthetic",
                  "tools.dryrun_multichip",
-                 # the Pillow-free pixel operations and image codec
-                 "utils.image_ops", "utils.image_codec")
+                 # the Pillow-free pixel operations, image codec and
+                 # captions, and the demo that draws them
+                 "utils.image_ops", "utils.image_codec", "utils.text",
+                 "tools.demo")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
 def test_training_slice_modules_import_without_jax(name):
     """The pretraining, explore, detector-training and scene-graph modules,
     the detector library modules, the process runtime, the meshes, the
-    pipeline, the pixel operations and the image codec import, each in a
-    fresh process with ``jax``, ``flax`` and ``cpt_tpu`` blocked, and load
-    none of them."""
+    pipeline, the pixel operations, the image codec, the captions and the
+    demo import, each in a fresh process with ``jax``, ``flax``,
+    ``cpt_tpu`` and ``PIL`` blocked, and load none of them."""
     script = f"""
 import sys
-for name in ("jax", "flax", "cpt_tpu"):
+for name in ("jax", "flax", "cpt_tpu", "PIL"):
     sys.modules[name] = None
 import importlib
 importlib.import_module("cpt_tpu_torch.{name}")
 assert not [k for k, v in sys.modules.items() if v is not None
-            and k.split(".")[0] in ("jax", "flax", "cpt_tpu")]
+            and k.split(".")[0] in ("jax", "flax", "cpt_tpu", "PIL")]
 print("OK")
 """
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -106,8 +111,8 @@ print("OK")
 
 
 def _foreign_imports(path: Path):
-    """(line, module) for every import of jax, flax or cpt_tpu (not
-    cpt_tpu_torch) in one source file."""
+    """(line, module) for every import of jax, flax, cpt_tpu (not
+    cpt_tpu_torch) or PIL in one source file."""
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
@@ -116,7 +121,7 @@ def _foreign_imports(path: Path):
         else:
             continue
         for name in names:
-            if name.split(".")[0] in ("jax", "flax", "cpt_tpu"):
+            if name.split(".")[0] in ("jax", "flax", "cpt_tpu", "PIL"):
                 yield node.lineno, name
 
 
@@ -129,9 +134,10 @@ def test_no_source_of_the_port_imports_jax_or_cpt_tpu(tmp_path):
     # the scan does see such imports
     probe = tmp_path / "probe.py"
     probe.write_text("import os\nfrom cpt_tpu.utils import tsv\n"
-                     "def f():\n    import jax.numpy\n")
+                     "def f():\n    import jax.numpy\n"
+                     "    from PIL import ImageDraw\n")
     assert list(_foreign_imports(probe)) == [(2, "cpt_tpu.utils"),
-                                             (4, "jax.numpy")]
+                                             (4, "jax.numpy"), (5, "PIL")]
 
 
 @pytest.mark.parametrize("name", ["OSCAR_BASE", "OSCAR_LARGE", "tiny"])
@@ -711,6 +717,14 @@ res["pred"] = cpt_predict.main([
     str(out / "pred.png")])
 demo.main(["--image", str(src / "photo.png"), "--boxes", "[[2,2,20,30]]",
            "--out", str(out / "demo.png"), "--device", "cpu"])
+for kind in ("gif", "cmyk"):
+    dets = demo.main([
+        "--image", str(src / f"photo_{kind}.{'gif' if kind == 'gif' else 'jpg'}"),
+        "--detect", "--tiny", "--conf", "0", "--device", "cpu", "--dtype",
+        "float32", "--labelmap", str(src / "labelmap.json"), "--out",
+        str(out / f"detect_{kind}.png")])
+    for name, value in zip(("boxes", "labels", "scores"), dets):
+        arrays[f"detect_{kind}_{name}"] = value
 seen = []
 svc = types.SimpleNamespace(
     device=types.SimpleNamespace(type="cpu"), n_requests=0,
@@ -739,22 +753,26 @@ def _tree(root: Path) -> dict:
             for p in sorted(root.rglob("*")) if p.is_file()}
 
 
-def test_routed_image_sites_run_without_pillow(tmp_path):
+def test_routed_image_sites_run_without_pillow(tmp_path, monkeypatch):
     """In a process where ``import PIL`` (and jax, and cpt_tpu) fails, every
     site that read or wrote image files through Pillow reads and writes
     them through ``utils/image_codec``: ``extract_features.load_image``,
     ``vg_tsv.img_from_base64`` and ``write_detection_tsv``,
     ``coco_json.coco_to_tsv``, ``img_info``'s size scan and colour probes,
     ``validate_checkpoints``' fixture, ``cpt_predict --image/--out``,
-    ``demo --image/--out`` and serve's HTTP handler. Each output equals the
-    JAX package's Pillow call's on the same files (arrays, file bytes), or,
-    for the tools without a JAX counterpart run here, Pillow's reading of
-    the written file."""
+    ``demo --image/--out``, ``demo --tiny --detect`` on a GIF and on a CMYK
+    JPEG (its captions drawn by ``utils/text``, non-ASCII class names
+    among them) and serve's HTTP handler. Each output equals the JAX
+    package's Pillow call's on the same files (arrays, file bytes; for
+    ``demo --detect`` the JAX tool's PNG for the same detections), or, for
+    the tools without a JAX counterpart run here, Pillow's reading of the
+    written file."""
     import chip_smoke as cs
     from PIL import Image
 
     from cpt_tpu.data import coco_json as jcoco
     from cpt_tpu.data import vg_tsv as jvg_tsv
+    from cpt_tpu.tools import demo as jdemo
     from cpt_tpu.tools import extract_features as jextract
     from cpt_tpu.tools import img_info as jimg_info
     from cpt_tpu.tools import validate_checkpoints as jvalidate
@@ -767,6 +785,11 @@ def test_routed_image_sites_run_without_pillow(tmp_path):
     photo = cs.codec_photo(60, 96, 128)
     Image.fromarray(photo).save(src / "photo.jpg", quality=90)
     Image.fromarray(photo).save(src / "photo.png")
+    Image.fromarray(photo).quantize(64).save(src / "photo_gif.gif")
+    Image.fromarray(photo).convert("CMYK").save(src / "photo_cmyk.jpg")
+    labelmap = {"idx_to_label": {str(i): f"clâsse {i} – {'ü' * (i % 4)}€"
+                                 for i in range(2000)}}
+    (src / "labelmap.json").write_text(json.dumps(labelmap))
     cs.coco_fixture(str(src / "coco"))
     for name, (h, w) in cs.INFO_SIZES.items():
         Image.fromarray(cs.codec_photo(61, h, w)).save(src / "info" / name)
@@ -806,3 +829,14 @@ def test_routed_image_sites_run_without_pillow(tmp_path):
     np.testing.assert_array_equal(
         np.asarray(Image.open(out / "demo.png")),
         demo.paint(photo, [[2, 2, 20, 30]], False, "cpu")[0][1])
+    for kind, image in (("gif", "photo_gif.gif"), ("cmyk", "photo_cmyk.jpg")):
+        dets = tuple(got[f"detect_{kind}_{n}"]
+                     for n in ("boxes", "labels", "scores"))
+        assert len(dets[0]) > 0
+        monkeypatch.setattr(jdemo, "run_detector", lambda args, img: dets)
+        jdemo.main(["--image", str(src / image), "--detect", "--tiny",
+                    "--labelmap", str(src / "labelmap.json"), "--out",
+                    str(ref / f"detect_{kind}.png")])
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(out / f"detect_{kind}.png")),
+            np.asarray(Image.open(ref / f"detect_{kind}.png")))
