@@ -34,8 +34,9 @@ Phases (any failure raises and the script exits non-zero):
    2 a shifted grid), and once at a shape only its CUDA-core kernel takes;
 4. at full width (VinVL X152-C4 + Oscar-base, random weights from a seed in
    the reference layouts) answer 3 grounding requests through
-   ``cpt_predict.predict`` with given candidates, then 3 ``--detect``
-   requests whose candidates the detector proposes, then the 3 grounding
+   ``cpt_predict.predict`` with given candidates, then one ``--detect``
+   request (``DETECT_REQUESTS``, cold) whose candidates the detector
+   proposes, then the 3 grounding
    requests again with an Oscar-base built with ``attention_impl="flash"``
    beside the same detector (same boxes, scores within SCORE_TOL of the
    "auto" path's and of the f32 path's, two named faults missing it, K6 12
@@ -48,7 +49,8 @@ Phases (any failure raises and the script exits non-zero):
 5. few-shot prompt tuning at full width: extract stage-1 features of 16
    grounding queries with the resident detector, then train Oscar-base
    under ``attention_impl="flash"`` (attention dropout 0, hidden dropout
-   0.1) through ``refcoco_cpt.train`` for 20 steps of batch 32 (K6, K6b and
+   0.1) through ``refcoco_cpt.train`` for ``TRAIN_STEPS`` (10) steps of
+   batch 32 (K6, K6b and
    K6c 12 launches a step, K3 and K4 none); hold one step's gradients and a
    10-step loss curve (dropout off) against the f32 einsum path; then 3
    deterministic steps under ``"auto"`` (K3 and K4 12 a step, their
@@ -104,7 +106,10 @@ Phases (any failure raises and the script exits non-zero):
    it (``CODEC_DIGESTS``), answered exactly as the direct call on the
    decoded image, K1 50, K2 1, K3 12, K4 12, held to ``cpt_predict`` on
    the decoded image as the raw-array requests are, and its scores and
-   ``cpt_predict``'s each within SCORE_TOL of the f32 einsum path), K3 at
+   ``cpt_predict``'s each within SCORE_TOL of the f32 einsum path; one
+   lossy-with-alpha WEBP upload, ``WEBP_UPLOAD``, decoded as Pillow
+   decodes it and answered exactly as the direct call on the decoded
+   image, K1 50, K2 1, K3 12, K4 12), K3 at
    its smallest bucket ``[8,78,768]`` with the ragged-edge fault, host ms
    per request and one request's profile; then ``--windowed --base_batch
    4``: 4 queued requests drain as one batched base pass and answer as the
@@ -232,7 +237,7 @@ Phases (any failure raises and the script exits non-zero):
    and CBS's 2,400 rows (K6's named faults: the bias read key-only, row 0
    broadcast, and transposed). ``run_captioning.main``: 4 XE steps of batch
    16 (drop-worst from step 2; dropout on: no kernel), ``--eval_every 2``
-   on 2 images (greedy), 2 SCST steps of 5 rollouts (peak device memory
+   on 2 images (greedy), ``SCST_STEPS`` (1) SCST step of 5 rollouts (peak device memory
    read), beam 5 keeping 2 over the 8 images; the XE run cut at step 2 and
    ``--resume``d, its step-4 train state bit-equal to the first run's,
    with a greedy decode; on the first run's state, 4 images and
@@ -350,14 +355,17 @@ Phases (any failure raises and the script exits non-zero):
    (FSDP placement, two accumulated steps, extraction, pp 2 scoring with
    gradients) on CUDA tensors through gloo. Then K1, K2, K3 and K4 at the
    ranks' new launch shapes (``check_mesh_kernels``).
-21. real image files (``utils/image_codec``, the host JPEG / PNG codec built
+21. real image files (``utils/image_codec``, the host image codec built
    by the host C++ compiler): the committed fixtures (``tests/data/codec``)
    decoded in RGB and L and seeded arrays encoded at quality 75, 92 and
    95, each digest equal to Pillow 12.1's (``CODEC_DIGESTS``), each of
-   ``CODEC_FAULTS`` changing one, decode and encode host ms beside
+   ``CODEC_FAULTS`` changing one over its own format's fixtures
+   (``CODEC_FAULT_FILES``), decode and encode host ms beside
    Pillow's (``CODEC_PILLOW_MS``); then, at full width, ``cpt_predict.main
-   --image x.jpg --out y.png`` (K1 50, K2 1, K3 12, K4 12; the written PNG
-   read back equal to the decoded image with the box drawn),
+   --image x.jpg --out y.png`` and ``--image <WEBP_IMAGE>`` (a 480×640
+   lossy WEBP with alpha) ``--out w.png`` (K1 50, K2 1, K3 12, K4 12 each;
+   the written PNG read back equal to the decoded image with the box
+   drawn; the WEBP's decode Pillow's),
    ``convert_dataset coco`` over a directory of JPEGs and ``test_detector
    --tsv`` on its yaml (K1, K2 and K5; VOC and COCO metrics finite),
    ``img_info`` over ``.jpg`` and ``.png`` files (sizes equal to the written
@@ -366,8 +374,10 @@ Phases (any failure raises and the script exits non-zero):
    finite), and ``demo --image ycck_q75.jpg --detect --out det.png`` (the
    detect step's K1, K2 and K5 and no other kernel; the PNG read back equal
    to ``overlay_detections`` of the returned detections under non-ASCII
-   class names). The fixtures include CMYK and YCCK JPEG, 16-bit PNG, GIF
-   and BMP, and a caption case (``caption_case``) drawn by ``utils/text``
+   class names). The fixtures include CMYK and YCCK JPEG, 16-bit PNG, GIF,
+   BMP and WEBP (lossy VP8 with its filters, partitions and segments,
+   lossless VP8L, ALPH planes, animations), and a caption case
+   (``caption_case``) drawn by ``utils/text``
    whose digest is the JAX demo's (Pillow's ``ImageDraw.text``).
 22. VinVL_L (``--model_size large``: 24 × 1024, 16 heads, FFN 4096; random
    weights from seed 0) and the widths the JAX gates send to their Pallas
@@ -1527,9 +1537,10 @@ def check_nms_on(rows: list, label: str, arrays: tuple, thr: float,
     ms = cuda_ms(lambda: nms_pallas(*args, thr, max_out, off))
     dev_ms, how = device_ms(lambda: nms_pallas(*args, thr, max_out, off),
                             "nms_")
-    # the plain version takes up to ~2 s a call: one call after one warmup
+    # the plain version, a host-bound loop, takes up to ~2 s a call: one
+    # call, no warm-up
     plain_ms = cuda_ms(lambda: nms_padded(*args, thr, max_out, off),
-                       reps=1, warmup=1)
+                       reps=1, warmup=0)
     kept = int(want_keep.sum())
     # each kept box is scored against all K boxes of its problem: an
     # IoU is ~12 f32 operations (areas, intersection, union, divide)
@@ -2444,12 +2455,18 @@ def run_long_context(flash_res, oracle, auto_res) -> dict:
     return out
 
 
+# phase 4's --detect requests: each grounds ~100 candidates (5-12 s on the
+# card's host), so one, cold: a warm-up request read no faster than the
+# first request after it
+DETECT_REQUESTS = 1
+
+
 def run_detect_requests(res, counters) -> dict:
-    """Full-width ``--detect`` requests: ``cpt_predict.predict`` without
-    dets, so the detector proposes the candidates (RPN → K5 → box head on
-    K2/K1 → ``NMS_FILTER`` 2 on K5 → ``conf`` 0), then grounds them. The
-    detect step is timed and its launches counted by wrapping
-    ``Resident.detect``."""
+    """Full-width ``--detect`` requests (DETECT_REQUESTS): ``cpt_predict.
+    predict`` without dets, so the detector proposes the candidates (RPN →
+    K5 → box head on K2/K1 → ``NMS_FILTER`` 2 on K5 → ``conf`` 0), then
+    grounds them. The detect step is timed and its launches counted by
+    wrapping ``Resident.detect``."""
     import torch
 
     from cpt_tpu_torch.data.refcoco import tsv_region_features
@@ -2483,11 +2500,9 @@ def run_detect_requests(res, counters) -> dict:
 
     try:
         with tempfile.TemporaryDirectory() as wd:
-            _, cold_s = answer(image(), wd)
-            print(f"warm-up detect request: {cold_s * 1e3:.1f} ms", flush=True)
             zero_counts(counters)
             reqs = []
-            for _ in range(3):
+            for _ in range(DETECT_REQUESTS):
                 before = {k: fn.launches for k, fn in counters.items()}
                 box, sec = answer(image(), wd)
                 n_k5 = counters["K5"].launches - before["K5"]
@@ -2510,7 +2525,7 @@ def run_detect_requests(res, counters) -> dict:
                              "detect_launches": det_l, "k5_launches": n_k5,
                              "box": box})
                 print(f"detect request {len(reqs)} (480x640 image, 1024x1024 "
-                      f"detect canvas, conf 0): {sec * 1e3:.1f} ms = detect "
+                      f"detect canvas, conf 0; cold): {sec * 1e3:.1f} ms = detect "
                       f"{step['ms']:.1f} + ground {sec * 1e3 - step['ms']:.1f}"
                       f"; {n_cand} candidates; detect-step launches K1 "
                       f"{det_l['K1']} K2 {det_l['K2']} K5 {det_l['K5']}",
@@ -2521,14 +2536,14 @@ def run_detect_requests(res, counters) -> dict:
             breakdown = profiled(lambda: detect(img, 0.0), "detect step")
     finally:
         res.detect = detect
-    print(f"launches over the 3 detect requests: {launches}; K1 by path "
+    print(f"launches over the {len(reqs)} detect requests: {launches}; K1 by path "
           f"{paths}", flush=True)
     idle = ("K6", "K6b", "K6c", "K1q", "K7")
     missing = [k for k, n in launches.items() if n <= 0 and k not in idle]
     if missing or any(launches[k] for k in idle):
         raise AssertionError(f"kernels not launched on the detect path: "
                              f"{missing}, or {idle} launched: {launches}")
-    return {"warmup_ms": cold_s * 1e3, "requests": reqs, "launches": launches,
+    return {"requests": reqs, "launches": launches,
             "k1_paths": paths, "profile": breakdown}
 
 
@@ -2720,10 +2735,15 @@ def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
             "device_ms": busy, "groups": groups, "top": top}
 
 
+# phase 5's prompt-tuning steps (epochs of the 16 queries' 32 sampled
+# copies: one step each), cut from the tool's default 20 for time
+TRAIN_STEPS = 10
+
+
 def run_training(res, counters) -> dict:
     """Phase 5. Prompt tuning through ``refcoco_cpt.train`` (the tool's
-    defaults: batch 32, AdamW lr 2.5e-5, weight decay 0.05, warmup 10%,
-    20 epochs of the 16 queries' 32 sampled copies = 20 steps) of
+    defaults: batch 32, AdamW lr 2.5e-5, weight decay 0.05, warmup 10%;
+    TRAIN_STEPS epochs of the 16 queries' 32 sampled copies, a step each) of
     Oscar-base under "flash" with attention dropout 0 in bf16, counting
     each step's launches and profiling a step; then, on the same initial
     weights and ``grad_gap``'s synthetic batches (those the tolerances were
@@ -2744,7 +2764,8 @@ def run_training(res, counters) -> dict:
         print(f"phase 5: stage-1 features of {len(data)} queries extracted in "
               f"{extract_s * 1e3:.1f} ms", flush=True)
         args = refcoco_cpt.build_args().parse_args(
-            ["--train_data_file", paths["data_file"]]
+            ["--train_data_file", paths["data_file"], "--num_train_epochs",
+             str(TRAIN_STEPS)]
             + [x for k, v in paths.items() for x in (f"--{k}", v)])
         model = grad_gap.build(init, cfg, torch.bfloat16, dev, **grad_gap.FLASH)
         steps = []
@@ -2775,7 +2796,7 @@ def run_training(res, counters) -> dict:
           f"{launches}", flush=True)
     want = {"K6": 12, "K6b": 12, "K6c": 12, "K3": 0, "K4": 0}
     bad = [st for st in steps if any(st["launches"][k] != n for k, n in want.items())]
-    if len(losses) < 20 or not np.isfinite(losses).all() or bad:
+    if len(losses) < TRAIN_STEPS or not np.isfinite(losses).all() or bad:
         raise AssertionError(f"phase 5 training: {len(losses)} losses "
                              f"{losses}; steps off their launch counts: {bad[:2]}")
     breakdown = profile_train_step(model, batches[0], dev)
@@ -3427,7 +3448,12 @@ def check_resize_digests() -> dict:
 # the quality scaling of q + 1, PNG Paeth ties to the later predictor,
 # Adobe CMYK taken as stored (not inverted), YCCK taken as CMYK, 16-bit grey
 # scaled by >> 8 (not clipped), GIF's LZW code size grown one code late, a
-# bottom-up BMP read top-down, and caption glyphs' overlaps combined by max.
+# bottom-up BMP read top-down, caption glyphs' overlaps combined by max, and
+# in the WEBP decoders the VP8 loop filter skipped, chroma replicated or
+# upsampled with libjpeg's (9, 3, 3, 1) / 16 rounding (bias 7 at odd
+# columns; libwebp's two averages are one rounding with bias 8), YUV -> RGB in float
+# arithmetic, a 4x4 block's top-right pixels taken from its own macroblock,
+# and VP8L's Select predictor taking the other neighbour.
 CODEC_DIR = Path(__file__).resolve().parent / "tests" / "data" / "codec"
 CODEC_DIGESTS = {
     "1.bmp:RGB":
@@ -3602,6 +3628,98 @@ CODEC_DIGESTS = {
         "041810a2ecb7bf6a1251b424f5ee71b3e23d20258ecbdaa40b3c2eb2002268bd",
     "ycck_q75.jpg:L":
         "2deb17979de87d8ebeda46d9c7f2fba61e25e611666372b2d8c212ca9562bc74",
+    "lossy_q10.webp:RGB":
+        "57d7a34da840ad51b9e19db7666ad5f2df6ba2482a038d5cdd41498540dacae0",
+    "lossy_q10.webp:L":
+        "349456383831421d61e62c6cd4e9a6ff09295ee4b4aa56e443c09cfa1e54bcd1",
+    "lossy_q75.webp:RGB":
+        "3757c214066643f04eb448bf2beb9371a1f53f51aa5c7619c83ed43eab8e0aa9",
+    "lossy_q75.webp:L":
+        "f1fa8292ac26af900e33c5dd13fc7fc54c2b325ae0463703ade35e288995cb23",
+    "lossy_q95_m6.webp:RGB":
+        "8e137d0a88e97fd8b8c630e20f631d7daab9074f6347d47b921f8b8b24856257",
+    "lossy_q95_m6.webp:L":
+        "66260f06d1c805e12a33a86cfca78de311f563319fd82642f504733fd0d0d085",
+    "lossy_q75_m0.webp:RGB":
+        "faeca76f5acb15dd09bf21b4807385dbdf1762e705f99c7ab69a31358af13746",
+    "lossy_q75_m0.webp:L":
+        "855e626bfbb9629e11d0daae3a9249b7cb7f3b867385388e731745de048efd18",
+    "lossy_alpha_q75.webp:RGB":
+        "5f636fe5b47458300b9769b5b32572f854446ccb7299f1dfc1d8a3a8eeb10de6",
+    "lossy_alpha_q75.webp:L":
+        "c69e44eecbdfa0e2511f74c249fc7df7397256c494b7f71b000c68ac6a62f5c2",
+    "lossless_rgb.webp:RGB":
+        "c1035264ad623339376757cc62d149bab41e24f2444d7b1e886505d3ebb10580",
+    "lossless_rgb.webp:L":
+        "84ccdce75b34aeb00ec8f77e7c8486aa1e37d3a3b299e27f454a449129ff8651",
+    "lossless_rgba.webp:RGB":
+        "633f7b945b0e739688f4e3982454f9c1d7d6175c928afec5d8e262a21dab75d5",
+    "lossless_rgba.webp:L":
+        "568fa3422b5427526278b732e60bbef7cc58430300c4dffcd938da0e7a541b85",
+    "odd_481x641_q80.webp:RGB":
+        "1f53d27ea5416ef28245be8e2e3c6878d9792051ae5dce9aca069289401af572",
+    "odd_481x641_q80.webp:L":
+        "0214f04b71dc2dad9890ef555622eb2555e26e1242f6cc05e55aa9b33824ff28",
+    "one_pixel.webp:RGB":
+        "d82089511d3225bb61991a968cf9d457588a7f46094bf8e361e7c3846d74fa1f",
+    "one_pixel.webp:L":
+        "383e5d7d58caa41ce723cf16af471b38f6ee9065c032d07fa6bef1678cb72f1d",
+    "palette4_lossless.webp:RGB":
+        "b9e12b059607bf6c62c11af191f9142f4490fb36342730be822d6649e3a97334",
+    "palette4_lossless.webp:L":
+        "5f3c1b1d50539bbaf9fb27f71475471f5e28e0af375d9a445112d407eb6d6684",
+    "anim_2frames.webp:RGB":
+        "91bbc20cd644e8b5b79e688797f0d1d5567f4887032078a764aef6fd82fb9d84",
+    "anim_2frames.webp:L":
+        "40e056c2c2b00f518a7a242c0d63a9c44cab73bf12dfc23579d60bd17fc8bd7d",
+    "simple_filter.webp:RGB":
+        "3a0e49c367fc0c91d9196422661128b1933aa48834c96c4c4fcd2d20baa45d46",
+    "simple_filter.webp:L":
+        "31ef0070973e67232a5f937dc70e5341ca33aa118b8d3e3738323e4161a38ebb",
+    "partitions4.webp:RGB":
+        "3757c214066643f04eb448bf2beb9371a1f53f51aa5c7619c83ed43eab8e0aa9",
+    "partitions4.webp:L":
+        "f1fa8292ac26af900e33c5dd13fc7fc54c2b325ae0463703ade35e288995cb23",
+    "partitions8.webp:RGB":
+        "c39c13411b9c576d0877ec1939620dbcaab34133ac02781f18c721c66754056a",
+    "partitions8.webp:L":
+        "05a8dd99a0f206684b919d6963436700a281c872d83d3b695b65ba66b456e35b",
+    "one_segment.webp:RGB":
+        "fd6bc019b992bb4bd58c4c4f86550761c6839e041fc041f9379d4c47e373941d",
+    "one_segment.webp:L":
+        "c21c2597f68fde350fc304e516417ffdd9bb636fe17174108a9826469b54adb6",
+    "sharpness7.webp:RGB":
+        "7dd15bb2b510b34390499ec23c750b64ee47d308cc720ce842f4028d65885dfa",
+    "sharpness7.webp:L":
+        "ffa84efbed3ed70a1143702cd49d71346657473f34002a648ab2eaf23713a501",
+    "alpha_raw.webp:RGB":
+        "5f636fe5b47458300b9769b5b32572f854446ccb7299f1dfc1d8a3a8eeb10de6",
+    "alpha_raw.webp:L":
+        "c69e44eecbdfa0e2511f74c249fc7df7397256c494b7f71b000c68ac6a62f5c2",
+    "alpha_filtered.webp:RGB":
+        "5f636fe5b47458300b9769b5b32572f854446ccb7299f1dfc1d8a3a8eeb10de6",
+    "alpha_filtered.webp:L":
+        "c69e44eecbdfa0e2511f74c249fc7df7397256c494b7f71b000c68ac6a62f5c2",
+    "anim_offset.webp:RGB":
+        "a72913c2587d08374b45d8efe93757460e9c10cc499fcfa710657192457dc19c",
+    "anim_offset.webp:L":
+        "7c977b6d066d0f8bc3c77cc9cad78335a33e7d3d35f30237b4041ef559df0236",
+    "photo_480x640_q75.webp:RGB":
+        "63d1d77665dcd7ac0b3bfcffac10b76e9c8683d94ddfb04e658f6ee358446bf9",
+    "photo_480x640_q75.webp:L":
+        "80c54ab677677cf2c4bcfe4f1f49f62fd8008ba2520c4ffc9bf47844b130a6b1",
+    "photo_480x640_q95.webp:RGB":
+        "fad1dea401907971259cede734050ee4c6fb9ac636b34b03be4fd2c8c5bead81",
+    "photo_480x640_q95.webp:L":
+        "afcca466a07afeb233c6184f37c908c12dda95852c05550748d4cfcbba654ff6",
+    "alpha_480x640_q75.webp:RGB":
+        "4174d907ebb8c9deeeafaebb42d2e6ef73a716dc158923b776de00842649bd66",
+    "alpha_480x640_q75.webp:L":
+        "0cbb59a6694f2ec3667aaca36e0b0291822089d65aaa9113f55a9187c4fcca99",
+    "lossless_480x640.webp:RGB":
+        "28ccc8bbae73cdc25c990c46c378666b649f50495459e238d9c6f491f2e6c7d0",
+    "lossless_480x640.webp:L":
+        "52f836a911ace7535e0392d8f3e582e4e6a148ff90f9d15d788f29388ab22cdc",
     "encode:photo_q75":
         "c834338477581840d666dbb566fff640fb7b5a293340c1675c0d5d3f28c9daec",
     "encode:photo_q92":
@@ -3626,14 +3744,34 @@ CODEC_DIGESTS = {
 CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "float_ycc", "quality_off_by_one", "paeth_ties",
                 "cmyk_not_inverted", "ycck_as_cmyk", "sixteen_bit_shift",
-                "gif_late_growth", "bmp_top_down", "caption_max")
-# Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3), the median of 20 calls of
-# ``python3 image_codec_timing.py`` on an 8-core Intel Xeon host with no
-# card: decode of the 480x640 quality-95 fixture, encode of the 480x640
-# photo at quality 95. The card's host has no Pillow; phase 21 prints the
-# codec's ms there beside these.
+                "gif_late_growth", "bmp_top_down", "caption_max",
+                "webp_no_loop_filter", "webp_box_upsample",
+                "webp_single_round_upsample", "webp_float_yuv",
+                "vp8_top_right", "vp8l_select_swapped")
+# the fixtures each fault runs over (its own format's; "" none): a faulted
+# run decodes only those, and encodes only for a JPEG fault
+CODEC_FAULT_FILES = dict(
+    {f: ".jpg" for f in ("replicate_upsample", "float_idct",
+                         "refine_no_correction", "float_ycc",
+                         "quality_off_by_one", "cmyk_not_inverted",
+                         "ycck_as_cmyk")},
+    paeth_ties=".png", sixteen_bit_shift=".png", gif_late_growth=".gif",
+    bmp_top_down=".bmp", caption_max="",
+    **{f: ".webp" for f in CODEC_FAULTS if "webp" in f or "vp8" in f})
+# Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3, libwebp 1.6.0), the median
+# of 20 calls of ``python3 image_codec_timing.py`` on an 8-core Intel Xeon
+# host with no card: decode of the 480x640 quality-95 fixture, encode of the
+# 480x640 photo at quality 95, decodes of CODEC_WEBP_TIMED.
+# The card's host has no Pillow; phase 21 prints the codec's ms there
+# beside these.
 CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
-                   "encode_480x640_q95": 2.5981564995163353}
+                   "encode_480x640_q95": 2.5981564995163353,
+                   "photo_480x640_q75.webp": 7.487,
+                   "photo_480x640_q95.webp": 15.767,
+                   "alpha_480x640_q75.webp": 11.16,
+                   "lossless_480x640.webp": 6.945}
+CODEC_WEBP_TIMED = ("photo_480x640_q75.webp", "photo_480x640_q95.webp",
+                    "alpha_480x640_q75.webp", "lossless_480x640.webp")
 VALIDATE_FIXTURE = {"n_images": 20, "canvas": (128, 128)}   # --dryrun's
 
 
@@ -3663,7 +3801,7 @@ def codec_encode_inputs() -> dict:
 
 def codec_fixture_files() -> list:
     return sorted(p for p in CODEC_DIR.iterdir()
-                  if p.suffix in (".jpg", ".png", ".gif", ".bmp"))
+                  if p.suffix in (".jpg", ".png", ".gif", ".bmp", ".webp"))
 
 
 def caption_case() -> tuple:
@@ -3685,7 +3823,7 @@ def caption_case() -> tuple:
 def codec_digests(fault: str | None = None) -> tuple:
     """(key → SHA-256 of the codec's output, key → host ms) for the decodes
     and encodes of CODEC_DIGESTS and the caption case, under one of
-    CODEC_FAULTS if named."""
+    CODEC_FAULTS if named (then only its format's: CODEC_FAULT_FILES)."""
     import functools
     import hashlib
     from unittest import mock
@@ -3702,7 +3840,10 @@ def codec_digests(fault: str | None = None) -> tuple:
         caption_ms = (time.perf_counter() - t) * 1e3
     digests = {"caption:overlay": hashlib.sha256(caption.tobytes()).hexdigest()}
     ms = {"caption:overlay": caption_ms}
+    suffix = CODEC_FAULT_FILES[fault] if fault else None
     for path in codec_fixture_files():
+        if suffix is not None and path.suffix != suffix:
+            continue
         data = path.read_bytes()
         for mode in ("RGB", "L"):
             key = f"{path.name}:{mode}"
@@ -3716,6 +3857,8 @@ def codec_digests(fault: str | None = None) -> tuple:
             digests[key] = hashlib.sha256(
                 np.ascontiguousarray(out).tobytes()).hexdigest()
     for name, (arr, quality) in codec_encode_inputs().items():
+        if suffix not in (None, ".jpg"):
+            break
         t = time.perf_counter()
         out = image_codec._encode_jpeg(arr, quality, bit)
         ms[f"encode:{name}"] = (time.perf_counter() - t) * 1e3
@@ -3739,10 +3882,14 @@ def codec_timing(reps: int = 20) -> dict:
 
     data = (CODEC_DIR / "baseline_420_q95_480x640.jpg").read_bytes()
     photo, q = codec_encode_inputs()["photo_q95"]
-    return {"decode_480x640_q95": median_ms(
-                lambda: image_codec.decode(data), reps),
-            "encode_480x640_q95": median_ms(
-                lambda: image_codec.encode_jpeg(photo, q), reps)}
+    out = {"decode_480x640_q95": median_ms(
+               lambda: image_codec.decode(data), reps),
+           "encode_480x640_q95": median_ms(
+               lambda: image_codec.encode_jpeg(photo, q), reps)}
+    for name in CODEC_WEBP_TIMED:
+        webp = (CODEC_DIR / name).read_bytes()
+        out[name] = median_ms(lambda: image_codec.decode(webp), reps)
+    return out
 
 
 def check_codec_digests() -> dict:
@@ -3759,7 +3906,8 @@ def check_codec_digests() -> dict:
     faults = {}
     for fault in CODEC_FAULTS:
         changed = codec_digests(fault)[0]
-        faults[fault] = sorted(k for k in want if changed[k] != want[k])
+        faults[fault] = sorted(k for k in want if k in changed
+                               and changed[k] != want[k])
     check_s = time.perf_counter() - t
     timing = codec_timing()
     print(f"image codec ({build.host_library_path().name}): "
@@ -3770,7 +3918,10 @@ def check_codec_digests() -> dict:
           f"480x640 q95 {timing['decode_480x640_q95']:.2f}, encode 480x640 "
           f"q95 {timing['encode_480x640_q95']:.2f}; Pillow's on the CPU of "
           f"CODEC_PILLOW_MS {CODEC_PILLOW_MS['decode_480x640_q95']:.2f} and "
-          f"{CODEC_PILLOW_MS['encode_480x640_q95']:.2f}", flush=True)
+          f"{CODEC_PILLOW_MS['encode_480x640_q95']:.2f}; WEBP decodes at "
+          f"480x640, here / Pillow's on that CPU: "
+          + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
+                      for n in CODEC_WEBP_TIMED), flush=True)
     if (set(got) != set(want) or not all(matched.values())
             or not all(faults.values())):
         raise AssertionError(f"image codec digests: missing "
@@ -3825,6 +3976,7 @@ def run_serve(counters, smi: str, rows: list) -> dict:
 
     from cpt_tpu_torch.tools import cpt_predict as cp
     from cpt_tpu_torch.tools import serve
+    from cpt_tpu_torch.utils import image_codec
 
     failed = []
 
@@ -3969,6 +4121,35 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                   f"JPEG upload {name} launches {ran}, want {want}")
 
         del oracle
+        # one lossy-with-alpha WEBP upload (WEBP_UPLOAD, a committed fixture:
+        # the card's host has no WEBP writer): its decode is Pillow's
+        # (CODEC_DIGESTS), the served answer the direct call's on it exactly,
+        # K1 50, K2 1, K3 and K4 12 (it takes the resize rule)
+        wdata = (CODEC_DIR / WEBP_UPLOAD).read_bytes()
+        wdecoded = image_codec.decode(wdata)
+        wdets = serve_request(np.random.RandomState(2038), 8,
+                              *wdecoded.shape[:2], 300)[1]
+        zero_counts(counters)
+        status, answer = http(port, "/predict", json.dumps({
+            "image_b64": base64.b64encode(wdata).decode(),
+            "caption": SERVE_CAPTION, "dets": wdets}).encode())
+        ran = {k: fn.launches for k, fn in counters.items()}
+        resized_launches = {k: resized_launches[k] + n for k, n in ran.items()}
+        direct = svc.predict(wdecoded, SERVE_CAPTION, wdets)
+        webp_upload = {
+            "status": status, "pick": answer.get("pred_box"),
+            "direct_equal": (answer.get("pred_box") == direct[0]
+                             and answer.get("scores") == direct[1]),
+            "decoded_is_pillows": hashlib.sha256(wdecoded.tobytes()).hexdigest()
+            == CODEC_DIGESTS[f"{WEBP_UPLOAD}:RGB"], "launches": ran}
+        want = {"K1": 50, "K2": 1, "K3": 12, "K4": 12}
+        check(status == 200 and webp_upload["direct_equal"]
+              and webp_upload["decoded_is_pillows"] and direct[0] in wdets,
+              f"WEBP upload: {webp_upload}")
+        check(all(ran[k] == n for k, n in want.items())
+              and sum(ran.values()) == sum(want.values()),
+              f"WEBP upload launches {ran}, want {want}")
+
         img8, dets8 = reqs[8]
         b64_8, decoded8 = jpeg_upload(img8)
         direct8 = svc.predict(decoded8, SERVE_CAPTION, dets8)
@@ -4134,6 +4315,10 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                       f"{v['predict_f32_gap']:.3e} cpt_predict, to each other "
                       f"{v['predict_gap']:.3e}, launches {v['launches']}"
                       for n, v in uploads.items())
+          + f"; WEBP upload {WEBP_UPLOAD}: decoded as Pillow "
+          f"{webp_upload['decoded_is_pillows']}, answer equal to the direct "
+          f"call's {webp_upload['direct_equal']}, launches "
+          f"{webp_upload['launches']}"
           + "; profiled host / device ms: "
           + ", ".join(f"{n} {p['ms']:.2f} / {p['device_ms']:.2f}"
                       for n, p in resized_profiles.items())
@@ -4148,7 +4333,7 @@ def run_serve(counters, smi: str, rows: list) -> dict:
             "vs_predict": vs_predict, "health": health[1], "memory": mem,
             "grad_mode": grad_mode, "digests": digests,
             "resized": resized, "resized_launches": resized_launches,
-            "uploads": uploads,
+            "uploads": uploads, "webp_upload": webp_upload,
             "resized_profiles": resized_profiles,
             "host_ms": host_ms, "profile": prof,
             "base_batch": {"drains": stats["drains"], "serial_s": serial_s,
@@ -6870,6 +7055,8 @@ CAPTION_STEPS = 39                # --max_seq_a_length 40: steps 1 .. 39
 # layers (the 2-D mask 2.1x, the gap 3.342e-2) and 33.7 s at 3 (1.8x, the
 # gap 2.696e-2), every check passing.
 CAPTION_LAYERS = 3
+# phase 14's SCST steps of 5 rollouts (each ~1.3-2.4 s)
+SCST_STEPS = 1
 # Named faults of the teacher-forced log-probs, each on the f32 oracle: the
 # 2-D key-only mask (every query sees every valid key, future caption
 # tokens included), no [MASK] written at step t (the target visible), the
@@ -7091,13 +7278,13 @@ def run_captioning_phase(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
         setup_s = time.perf_counter() - t0
 
         # --- (a) 4 XE steps (dropout 0.1: no kernel), --eval_every 2 on 2
-        # images (greedy), 2 SCST steps of 5 rollouts (greedy baseline),
+        # images (greedy), SCST_STEPS SCST steps of 5 rollouts (greedy baseline),
         # then beam 5 keeping 2 over the 8 images; the step-4 state saved
         d1 = f"{root}/run"
         (cider, outputs), rec = drive(data + xe + [
             "--save_every", "4",
             "--eval_every", "2", "--eval_subset", "2", "--output_dir", d1,
-            "--scst_steps", "2", "--sc_train_sample_n", "5", "--num_beams",
+            "--scst_steps", str(SCST_STEPS), "--sc_train_sample_n", "5", "--num_beams",
             "5", "--num_keep_best", "2", "--output", f"{root}/beam.pk"])
         model = rec.model
         check(len(rec.steps) == 4 and all(np.isfinite(s["loss"]) and not any(
@@ -7105,7 +7292,7 @@ def run_captioning_phase(counters, smi: str, rows: list, dev, dt, bcfg) -> dict:
               f"caption XE steps {[(s['loss'], s['launches']) for s in rec.steps]}")
         ok, evals_ = calls_ok(rec, "greedy_or_sample", 4, want(per_decode))
         check(ok, f"caption eval decodes {[c['launches'] for c in evals_]}")
-        ok, scst = calls_ok(rec, "scst_step", 2, want(3 * per_decode))
+        ok, scst = calls_ok(rec, "scst_step", SCST_STEPS, want(3 * per_decode))
         check(ok and all(np.isfinite(c["result"][1]) for c in scst),
               f"caption SCST steps {[(c['launches'], c['result'][1:]) for c in scst]}")
         ok, beams = calls_ok(rec, "beam_search", 8, want(per_decode))
@@ -9862,6 +10049,8 @@ def run_mesh_phase(counters, smi: str, rows: list, single_tsv: str,
 
 # Phase 21: real image files through the tools (utils/image_codec).
 IMAGE_FILE_DETS = 8              # cpt_predict --image's candidates
+WEBP_IMAGE = "alpha_480x640_q75.webp"    # cpt_predict --image x.webp's
+WEBP_UPLOAD = "alpha_480x640_q75.webp"   # phase 8's WEBP upload
 COCO_IMAGES = ((480, 640), (427, 640))   # convert_dataset coco's JPEGs
 INFO_SIZES = {"a.jpg": (333, 517), "b.jpeg": (64, 48), "c.png": (97, 131)}
 COLOR_STEP = 128                 # img_info --all_color_imgs: 2^3 probes
@@ -9951,6 +10140,44 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
               f"box {pred} of {len(dets)} candidates in {predict_s:.2f} s "
               f"(set-up included); the PNG read back equal to the drawn "
               f"decode {out['predict_image']['out_equal']}; launches {ran}",
+              flush=True)
+
+        # cpt_predict --image x.webp --out y.png at full width on a committed
+        # lossy-with-alpha WEBP (WEBP_IMAGE; the card's host has no WEBP
+        # writer), its decode Pillow's (CODEC_DIGESTS)
+        webp = str(CODEC_DIR / WEBP_IMAGE)
+        wimg = image_codec.read_image(webp)
+        wdets = serve_request(np.random.RandomState(2037), IMAGE_FILE_DETS,
+                              *wimg.shape[:2], 300)[1]
+        wflags = ["--image", webp, "--caption", SERVE_CAPTION, "--dets",
+                  json.dumps(wdets), "--out", f"{root}/w.png", "--workdir",
+                  f"{root}/wwd"] + common
+        wflags += (["--tiny", "--hidden_size", "64", "--num_hidden_layers", "2"]
+                   if tiny else [])
+        zero_counts(counters)
+        t = time.perf_counter()
+        wpred = cpt_predict.main(wflags)
+        wpredict_s = time.perf_counter() - t
+        ran = counts()
+        drawn = cpt_predict.draw_box_outline(wimg.copy(), wpred, (0, 255, 0))
+        out["predict_webp"] = {
+            "pred_box": wpred, "seconds": wpredict_s,
+            "decode_equal": hashlib.sha256(wimg.tobytes()).hexdigest()
+            == CODEC_DIGESTS[f"{WEBP_IMAGE}:RGB"],
+            "out_equal": bool(np.array_equal(
+                image_codec.read_image(f"{root}/w.png"), drawn)),
+            "launches": ran}
+        check(list(wpred) in wdets and out["predict_webp"]["out_equal"]
+              and out["predict_webp"]["decode_equal"],
+              f"cpt_predict --image x.webp/--out: {out['predict_webp']}")
+        check(ran == want, f"cpt_predict --image x.webp launches {ran}, "
+                           f"want {want}")
+        print(f"cpt_predict --image {WEBP_IMAGE} ({wimg.shape[0]}x"
+              f"{wimg.shape[1]}, lossy with alpha; decode equal to Pillow's "
+              f"{out['predict_webp']['decode_equal']}) --out w.png: box "
+              f"{wpred} of {len(wdets)} candidates in {wpredict_s:.2f} s "
+              f"(set-up included); the PNG read back equal to the drawn "
+              f"decode {out['predict_webp']['out_equal']}; launches {ran}",
               flush=True)
 
         # convert_dataset coco over a directory of JPEGs, then
@@ -10796,7 +11023,8 @@ def main(argv=None) -> int:
     phase20_s = mesh.pop("seconds")
     phase21_s = files.pop("seconds")
     e2e["image_files"] = files
-    for name in ("predict_image", "coco_tsv", "validate", "demo_detect"):
+    for name in ("predict_image", "predict_webp", "coco_tsv", "validate",
+                 "demo_detect"):
         e2e[name] = files[name]
     for sec, ran in mesh.pop("launches").items():
         e2e[f"mesh_{sec}"] = {"launches": ran}
@@ -10827,7 +11055,8 @@ def main(argv=None) -> int:
              "bbox_aug_scales", "serve_resized", "vcr_polygons",
              "resize_extract", "library",
              "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
-             "mesh_detector", "mesh_dryrun", "predict_image", "coco_tsv",
+             "mesh_detector", "mesh_dryrun", "predict_image", "predict_webp",
+             "coco_tsv",
              "validate", "demo_detect", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
              *WIDTH_RUNS)
     summary = []

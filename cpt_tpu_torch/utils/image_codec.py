@@ -1,5 +1,5 @@
-"""Reading and writing JPEG, PNG, GIF and BMP files without Pillow (the
-port's counterpart of the ``Image.open(...).convert(...)`` and
+"""Reading and writing JPEG, PNG, GIF, BMP and WEBP files without Pillow
+(the port's counterpart of the ``Image.open(...).convert(...)`` and
 ``Image.save`` calls the JAX package makes).
 
 ``decode`` gives Pillow 12.1's pixels bit for bit, converted to ``"RGB"``
@@ -11,21 +11,27 @@ samples: a grey one clipped at 255, colour ones cut to their high byte),
 for a GIF its first frame as ``Image.open`` gives it (mode ``P`` or ``L``,
 a short palette padded with black, the transparent index left as it is),
 for a BMP those of Pillow's BmpImagePlugin (core, info, V4 and V5 headers;
-1, 4, 8, 16, 24 and 32 bits; RLE8, RLE4 and the bit fields it takes).
+1, 4, 8, 16, 24 and 32 bits; RLE8, RLE4 and the bit fields it takes), for
+a WEBP its first frame as libwebp 1.6.0's animation decoder gives it to
+Pillow (lossy VP8 with its loop filter, fancy upsampling and fixed-point
+YUV conversion; lossless VP8L; an ALPH alpha plane; an ANMF frame on a
+transparent black canvas).
 ``encode_jpeg`` writes the bytes of Pillow's ``save(format="JPEG",
 quality=q)`` with default options, ``encode_bmp`` those of
 ``save(format="BMP")``; ``encode_png`` writes a lossless PNG (its bytes
 differ from Pillow's, whose zlib differs from Python's).
 
-The JPEG codec, the PNG row filters, GIF's LZW and BMP's RLE are host C++
-(``cpt_tpu_torch/csrc/image_codec.cpp``), built by ``kernels/build.py`` with
-the host C++ compiler at first use and called through ``ctypes``; zlib is
-Python's. A failed build raises ``KernelError``; a file this module cannot
-read (WEBP, TIFF, arithmetic / lossless / 12-bit JPEG, other formats,
-truncated data) raises :class:`ImageCodecError` naming its kind, and so
-does a file whose header declares more than twice ``MAX_IMAGE_PIXELS``
-(Pillow's decompression-bomb limit), before anything is allocated for it.
-Nothing falls back to Pillow or returns a partial image.
+The JPEG codec, the PNG row filters, GIF's LZW, BMP's RLE
+(``cpt_tpu_torch/csrc/image_codec.cpp``) and the WEBP decoders
+(``csrc/webp_vp8.cpp``, ``csrc/webp_vp8l.cpp``) are host C++, built by
+``kernels/build.py`` with the host C++ compiler at first use and called
+through ``ctypes``; zlib and the RIFF container are Python's. A failed build
+raises ``KernelError``; a file this module cannot read (TIFF, arithmetic /
+lossless / 12-bit JPEG, other formats, truncated or damaged data) raises
+:class:`ImageCodecError` naming its kind, and so does a file whose header
+declares more than twice ``MAX_IMAGE_PIXELS`` (Pillow's decompression-bomb
+limit), before anything is allocated for it. Nothing falls back to Pillow
+or returns a partial image.
 """
 from __future__ import annotations
 
@@ -55,6 +61,13 @@ FAULTS = {
     # the Python readers' own
     "sixteen_bit_shift": 512,    # 16-bit grey scaled by >> 8, not clipped
     "bmp_top_down": 1024,        # bottom-up BMP rows read top-down
+    # the WEBP decoders' (csrc/webp_vp8.cpp, csrc/webp_vp8l.cpp)
+    "webp_no_loop_filter": 2048,           # the VP8 loop filter skipped
+    "webp_box_upsample": 4096,             # chroma replicated
+    "webp_single_round_upsample": 8192,    # libjpeg's rounding (bias 8 / 7)
+    "webp_float_yuv": 16384,               # YUV -> RGB in float arithmetic
+    "vp8_top_right": 32768,                # 4x4 top-right from the current MB
+    "vp8l_select_swapped": 65536,          # Select takes the other neighbour
 }
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -88,6 +101,10 @@ SIGNATURES = {
     "cpt_gif_lzw": ([_P, _L, _I, _P, _L, _I, _P, _I], _L),
     # data, n, start, rle4, xsize, ysize, out, cap, err, errlen
     "cpt_bmp_rle": ([_P, _L, _L, _I, _L, _L, _P, _L, _P, _I], _L),
+    # data, n, width, height, fault, out, err, errlen
+    "cpt_webp_lossy": ([_P, _L, _I, _I, _I, _P, _P, _I], _I),
+    # data, n, alpha, width, height, fault, out, err, errlen
+    "cpt_webp_lossless": ([_P, _L, _I, _I, _I, _I, _P, _P, _I], _I),
 }
 LIBRARY = build.Library(build.build_host, SIGNATURES)
 
@@ -669,9 +686,218 @@ def encode_bmp(arr: np.ndarray) -> bytes:
             + palette + rows[::-1].tobytes())
 
 
+# ------------------------------------------------------------------ WEBP
+
+# libwebp's container constants (src/demux/demux.c, src/webp/format_constants.h)
+_WEBP_MAX_PAYLOAD = 0xFFFFFFFF - 8 - 1
+_WEBP_ALPHA_FLAG, _WEBP_ANIM_FLAG, _WEBP_VALID_FLAGS = 0x10, 0x02, 0x3E
+_WEBP_CHUNKS = (b"VP8 ", b"VP8X", b"VP8L")
+
+
+def _webp_broken(why: str):
+    raise ImageCodecError(f"broken WEBP file ({why})")
+
+
+def _webp_features(data: bytes, at: int, avail: int) -> Tuple[int, int, bool]:
+    """(width, height, has_alpha) of the VP8 / VP8L chunk at ``at`` with
+    ``avail`` payload bytes, as libwebp's WebPGetFeatures checks it."""
+    kind, size = data[at:at + 4], struct.unpack_from("<I", data, at + 4)[0]
+    d = data[at + 8:at + 8 + avail]
+    if kind == b"VP8 ":
+        if len(d) < 10:
+            _webp_broken("VP8 frame header too short")
+        bits = d[0] | d[1] << 8 | d[2] << 16
+        w, h = (d[7] << 8 | d[6]) & 0x3FFF, (d[9] << 8 | d[8]) & 0x3FFF
+        if (d[3:6] != b"\x9d\x01\x2a" or bits & 1 or (bits >> 1) & 7 > 3
+                or not (bits >> 4) & 1 or bits >> 5 >= size or not w or not h):
+            _webp_broken("bad VP8 frame header")
+        return w, h, False
+    if len(d) < 5 or d[0] != 0x2F or d[4] >> 5:
+        _webp_broken("bad VP8L header")
+    bits = int.from_bytes(d[1:5], "little")
+    return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1, bool(bits >> 28 & 1)
+
+
+def _webp_store_frame(data: bytes, pos: int, min_size: int, frame: dict,
+                      number: int) -> int:
+    """libwebp's StoreFrame: an ALPH chunk and a VP8 / VP8L chunk from
+    ``pos`` into ``frame``; returns the position after them."""
+    end = len(data)
+    if end - pos < 8 or end - pos < min_size:
+        _webp_broken("data ends inside a frame")
+    while True:
+        start = pos
+        kind = data[pos:pos + 4]
+        size = struct.unpack_from("<I", data, pos + 4)[0]
+        pos += 8
+        padded = size + (size & 1)
+        if size > _WEBP_MAX_PAYLOAD or padded > end - pos:
+            _webp_broken(f"{kind!r} chunk larger than the file")
+        if kind == b"ALPH" and "alpha" not in frame:
+            frame.update(alpha=(pos, size), number=number)
+        elif kind in (b"VP8 ", b"VP8L") and "image" not in frame:
+            if kind == b"VP8L" and "alpha" in frame:
+                _webp_broken("ALPH chunk before a lossless frame")
+            w, h, alpha = _webp_features(data, start, padded)
+            frame.update(image=(pos, padded), lossless=kind == b"VP8L",
+                         width=w, height=h, number=number,
+                         has_alpha=frame.get("has_alpha", "alpha" in frame) or alpha)
+        else:
+            return start
+        pos += padded
+        if pos == end:
+            return pos
+        if end - pos < 8:
+            _webp_broken("data ends inside a chunk header")
+
+
+def _webp_header(data: bytes) -> dict:
+    """libwebp's demuxer as Pillow's WebPAnimDecoder opens a file: the
+    canvas size (the VP8X canvas where there is one), whether Pillow's mode
+    is RGBA, and the first frame (its offset on the canvas, size, VP8 or
+    VP8L payload and ALPH payload). Raises where the demuxer fails, then
+    where the size is a decompression bomb."""
+    if len(data) < 20:
+        raise ImageCodecError("truncated WEBP file (no chunk header)")
+    riff_size = struct.unpack_from("<I", data, 4)[0]
+    if riff_size < 8 or riff_size > _WEBP_MAX_PAYLOAD:
+        _webp_broken(f"RIFF size {riff_size}")
+    if len(data) < riff_size + 8:
+        raise ImageCodecError("truncated WEBP file (data ends before its RIFF "
+                              "size)")
+    data = data[:riff_size + 8]
+    frames, flags, canvas = [], 0, None
+
+    def single_image(pos: int, ext: bool) -> int:
+        nonlocal flags, canvas
+        if frames or len(data) - pos < 8:
+            _webp_broken("a second image, or no image chunk")
+        frame = {"offset": (0, 0)}
+        pos = _webp_store_frame(data, pos, 0, frame, 1)
+        if not flags & _WEBP_ALPHA_FLAG and "alpha" in frame:
+            del frame["alpha"]             # ignored without the alpha flag
+            frame["has_alpha"] = False
+        if not ext and frame.get("width"):
+            canvas = (frame["width"], frame["height"])
+            flags |= _WEBP_ALPHA_FLAG if frame["has_alpha"] else 0
+        frames.append(frame)
+        return pos
+
+    kind = data[12:16]
+    if kind in (b"VP8 ", b"VP8L"):
+        single_image(12, False)
+    elif kind == b"VP8X":
+        size = struct.unpack_from("<I", data, 16)[0]
+        padded = size + (size & 1)
+        if size > _WEBP_MAX_PAYLOAD or size < 10 or padded > len(data) - 20:
+            _webp_broken(f"VP8X chunk of {size} bytes")
+        flags = data[20]
+        canvas = (1 + int.from_bytes(data[24:27], "little"),
+                  1 + int.from_bytes(data[27:30], "little"))
+        if canvas[0] * canvas[1] >= 1 << 32:
+            _webp_broken("canvas too large")
+        pos = 20 + padded
+        anim, animation = False, bool(flags & _WEBP_ANIM_FLAG)
+        while True:
+            if len(data) - pos < 8:
+                _webp_broken("data ends inside a chunk header")
+            start = pos
+            kind = data[pos:pos + 4]
+            size = struct.unpack_from("<I", data, pos + 4)[0]
+            padded = size + (size & 1)
+            pos += 8
+            if size > _WEBP_MAX_PAYLOAD or padded > len(data) - pos:
+                _webp_broken(f"{kind!r} chunk larger than the file")
+            if kind == b"VP8X":
+                _webp_broken("a second VP8X chunk")
+            elif kind in (b"ALPH", b"VP8 ", b"VP8L"):
+                if anim or animation:
+                    _webp_broken("an image outside the animation's frames")
+                pos = single_image(start, True)
+            elif kind == b"ANIM":
+                if padded < 6:
+                    _webp_broken("ANIM chunk too short")
+                anim = True
+                pos += padded
+            elif kind == b"ANMF":
+                if not anim or padded < 16:
+                    _webp_broken("ANMF chunk before ANIM, or too short")
+                x0, y0, w1, h1 = (int.from_bytes(data[pos + i:pos + i + 3],
+                                                 "little") for i in (0, 3, 6, 9))
+                if (w1 + 1) * (h1 + 1) >= 1 << 32:
+                    _webp_broken("frame too large")
+                frame = {"offset": (2 * x0, 2 * y0)}
+                after = _webp_store_frame(data, pos + 16, padded - 16, frame,
+                                          len(frames) + 1)
+                if after - (pos + 16) > padded - 16:
+                    _webp_broken("frame larger than its ANMF chunk")
+                if animation and "number" in frame:
+                    if frames and "image" not in frames[-1]:
+                        _webp_broken("a frame after an incomplete one")
+                    frames.append(frame)
+                pos = after
+            else:
+                pos += padded
+            if pos == len(data):
+                break
+    else:
+        raise ImageCodecError(f"cannot identify image file ({_READS})")
+    # IsValidSimpleFormat / IsValidExtendedFormat
+    if not canvas or not frames or flags & ~_WEBP_VALID_FLAGS & 0xFF:
+        _webp_broken("no frame, or unknown VP8X flags")
+    exact = not flags & _WEBP_ANIM_FLAG
+    for frame in frames:
+        if "image" not in frame:
+            _webp_broken("a frame without an image")
+        if "alpha" in frame and frame["alpha"][0] > frame["image"][0]:
+            _webp_broken("ALPH chunk after its image")
+        (x0, y0), w, h = frame["offset"], frame["width"], frame["height"]
+        if (exact and (x0, y0, w, h) != (0, 0) + canvas) or (
+                x0 + w > canvas[0] or y0 + h > canvas[1]):
+            _webp_broken("frame outside the canvas")
+    _check_size(*canvas)
+    return {"size": canvas, "alpha": bool(flags & _WEBP_ALPHA_FLAG),
+            "frame": frames[0]}
+
+
+def _decode_webp(data: bytes, fault: int) -> Tuple[np.ndarray, str, object]:
+    """The first frame → ([H, W, 4] RGBA or [H, W, 3] RGB, Pillow's mode,
+    None): decoded into its rectangle of a transparent black canvas, as
+    WebPAnimDecoder gives it (a lossy frame's ALPH plane decoded too, so
+    that a broken one raises as it does there)."""
+    hdr = _webp_header(data)
+    (cw, ch), frame = hdr["size"], hdr["frame"]
+    w, h = frame["width"], frame["height"]
+    src = np.frombuffer(data, np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    rgba = np.empty((h, w, 4), np.uint8)
+    at, n = frame["image"]
+    lib = _lib()
+    if frame["lossless"]:
+        _check(lib.cpt_webp_lossless(_ptr(src) + at, n, 0, w, h, fault,
+                                     _ptr(rgba), err, _ERR_LEN), err)
+    else:
+        _check(lib.cpt_webp_lossy(_ptr(src) + at, n, w, h, fault, _ptr(rgba),
+                                  err, _ERR_LEN), err)
+        if "alpha" in frame:
+            at, n = frame["alpha"]
+            alpha = np.empty((h, w), np.uint8)
+            _check(lib.cpt_webp_lossless(_ptr(src) + at, n, 1, w, h, fault,
+                                         _ptr(alpha), err, _ERR_LEN), err)
+            rgba[:, :, 3] = alpha
+    if (cw, ch) != (w, h):
+        canvas = np.zeros((ch, cw, 4), np.uint8)
+        x0, y0 = frame["offset"]
+        canvas[y0:y0 + h, x0:x0 + w] = rgba
+        rgba = canvas
+    if hdr["alpha"]:
+        return rgba, "RGBA", None
+    return np.ascontiguousarray(rgba[:, :, :3]), "RGB", None
+
+
 # ------------------------------------------------------------------- API
 
-_READS = "JPEG, PNG, GIF and BMP are"
+_READS = "JPEG, PNG, GIF, BMP and WEBP are"
 
 
 def _format_of(data: bytes) -> str:
@@ -683,8 +909,10 @@ def _format_of(data: bytes) -> str:
         return "GIF"
     if data.startswith(b"BM"):
         return "BMP"
-    for magic, name in ((b"RIFF", "WEBP"), (b"II*\x00", "TIFF"),
-                        (b"MM\x00*", "TIFF")):
+    if (data.startswith(b"RIFF") and data[8:12] == b"WEBP"
+            and data[12:16] in _WEBP_CHUNKS):
+        return "WEBP"
+    for magic, name in ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")):
         if data.startswith(magic):
             raise ImageCodecError(f"{name} images are not supported "
                                   f"({_READS})")
@@ -693,7 +921,7 @@ def _format_of(data: bytes) -> str:
 
 def decode(data: bytes, mode: str = "RGB") -> np.ndarray:
     """``np.asarray(Image.open(io.BytesIO(data)).convert(mode))`` for a
-    JPEG, PNG, GIF or BMP: uint8 ``[H, W, 3]`` for ``"RGB"``, ``[H, W]`` for
+    JPEG, PNG, GIF, BMP or WEBP: uint8 ``[H, W, 3]`` for ``"RGB"``, ``[H, W]`` for
     ``"L"``."""
     return _decode(data, mode, 0)
 
@@ -705,7 +933,8 @@ def _decode(data: bytes, mode: str, fault: int) -> np.ndarray:
     if fmt == "JPEG":
         arr = _decode_jpeg(data, fault)
         return _convert(arr, "RGB" if arr.ndim == 3 else "L", mode)
-    reader = {"PNG": _decode_png, "GIF": _decode_gif, "BMP": _decode_bmp}[fmt]
+    reader = {"PNG": _decode_png, "GIF": _decode_gif, "BMP": _decode_bmp,
+              "WEBP": _decode_webp}[fmt]
     arr, src, palette = reader(data, fault)
     return _convert(arr, src, mode, palette)
 
@@ -728,6 +957,8 @@ def image_size(data_or_path) -> Tuple[int, int]:
         return _gif_header(data)["size"]
     if fmt == "BMP":
         return _bmp_header(data)["size"]
+    if fmt == "WEBP":
+        return _webp_header(data)["size"]
     hdr = _png_header(data)
     return hdr["width"], hdr["height"]
 

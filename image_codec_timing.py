@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Host time of the port's image codec (``cpt_tpu_torch/utils/
 image_codec``) beside Pillow's on the same inputs: every fixture of
-``chip_smoke.CODEC_DIGESTS`` decoded to RGB; a 480x640 photo in each kind
+``chip_smoke.CODEC_DIGESTS`` decoded to RGB (among them the four 480x640
+WEBP files: lossy at quality 75 and 95, lossy with alpha, lossless;
+committed, so the card's host, which has no Pillow, times them too); a
+480x640 photo in each kind
 the codec reads besides YCbCr JPEG (CMYK JPEG, baseline and progressive;
 YCCK JPEG; 16-bit grey, 48-bit and 64-bit PNG; GIF, plain and interlaced;
 BMP at 24 bits, 8 bits RLE and 16 bits 565) decoded to RGB (``big:``
@@ -12,7 +15,8 @@ line: for each input, the median of ``--reps`` calls in ms of the codec
 and of Pillow (null where Pillow is absent), and whether the two outputs
 are equal. The times are of the host this runs on (no card is used).
 ``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the 480x640
-quality-95 decode and encode from a run of this script.
+quality-95 JPEG decode and encode and the 480x640 WEBP decodes from a run
+of this script.
 
     python3 image_codec_timing.py [--reps 20]
 """

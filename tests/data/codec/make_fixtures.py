@@ -21,15 +21,30 @@ with a local palette shorter than its LZW code size reaches, a
 transparent index and a frame smaller than the screen. BMP: 1, L, P, RGB
 and RGBA (Pillow's writer: BITMAPINFOHEADER, bottom-up) and, written here
 by :func:`bmp_file`, RLE8, RLE4, BITFIELDS 565 and 555 (V4 and V5
-headers), a top-down 24-bit file and a BITMAPCOREHEADER 4-bit one.
+headers), a top-down 24-bit file and a BITMAPCOREHEADER 4-bit one. WEBP:
+lossy at quality 10, 75 and 95, methods 0 and 6, with alpha, odd-sized
+(481x641) and 1x1; lossless RGB, RGBA and a 4-colour image (colour
+indexing, four pixels a byte); a 2-frame animation (Pillow's writer); and,
+from libwebp's own encoder through ``ctypes`` (:func:`libwebp_encode`,
+the library Pillow bundles), what Pillow's ``save`` cannot set: the simple
+loop filter, 4 and 8 token partitions, one segment, sharpness 7, raw and
+filtered alpha planes; and an animation whose first frame lies off the
+canvas origin (:func:`webp_animation`). Four 480x640 WEBP files (lossy
+quality 75 and 95, lossy with alpha, lossless) are the timing inputs of
+``image_codec_timing.py``.
 
-The writers are also the CPU tests' source of seeded GIF, BMP, YCCK and
-16-bit PNG files (``tests/test_torch_image_codec.py`` imports them).
+The writers are also the CPU tests' source of seeded GIF, BMP, YCCK,
+16-bit PNG and WEBP files (``tests/test_torch_image_codec.py`` and
+``tests/test_torch_webp.py`` import them).
 """
 from __future__ import annotations
 
+import ctypes
+import glob
 import hashlib
 import io
+import os
+import re
 import struct
 import zlib
 from pathlib import Path
@@ -42,8 +57,9 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def photo(seed: int, h: int, w: int) -> np.ndarray:
-    """A photo-like RGB image: gradients, a few flat discs, mild noise."""
+def photo(seed: int, h: int, w: int, noise: float = 6.0) -> np.ndarray:
+    """A photo-like RGB image: gradients, a few flat discs, mild noise
+    (``noise``: its standard deviation)."""
     rng = np.random.RandomState(seed)
     y, x = np.mgrid[0:h, 0:w].astype(np.float64)
     img = np.stack([255 * x / max(w - 1, 1), 255 * y / max(h - 1, 1),
@@ -51,7 +67,7 @@ def photo(seed: int, h: int, w: int) -> np.ndarray:
     for _ in range(6):
         cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(8, 60)
         img[(y - cy) ** 2 + (x - cx) ** 2 < r * r] = rng.randint(0, 256, 3)
-    img += rng.normal(0, 6, img.shape)
+    img += rng.normal(0, noise, img.shape)
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
 
 
@@ -499,6 +515,476 @@ def bmp_file(pixels: np.ndarray, bits: int, palette=None, compression: int = 0,
             + info + extra + pal + data)
 
 
+# --- WEBP ---------------------------------------------------------------
+
+def webp(img: np.ndarray, **kw) -> bytes:
+    """Pillow's ``save(format="WEBP", **kw)`` of an RGB or RGBA array."""
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="WEBP", **kw)
+    return buf.getvalue()
+
+
+_CONFIG_FIELDS = (
+    "lossless", "quality", "method", "image_hint", "target_size",
+    "target_PSNR", "segments", "sns_strength", "filter_strength",
+    "filter_sharpness", "filter_type", "autofilter", "alpha_compression",
+    "alpha_filtering", "alpha_quality", "pass_", "show_compressed",
+    "preprocessing", "partitions", "partition_limit", "emulate_jpeg_size",
+    "thread_level", "low_memory", "near_lossless", "exact",
+    "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")
+
+
+class _WebPConfig(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR")
+                 else ctypes.c_int) for n in _CONFIG_FIELDS] + [
+        ("spare", ctypes.c_uint32 * 16)]
+
+
+_P, _I, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+
+
+class _WebPPicture(ctypes.Structure):
+    _fields_ = [("use_argb", _I), ("colorspace", _I), ("width", _I),
+                ("height", _I), ("y", _P), ("u", _P), ("v", _P),
+                ("y_stride", _I), ("uv_stride", _I), ("a", _P),
+                ("a_stride", _I), ("pad1", _U32 * 2), ("argb", _P),
+                ("argb_stride", _I), ("pad2", _U32 * 3), ("writer", _P),
+                ("custom_ptr", _P), ("extra_info_type", _I),
+                ("extra_info", _P), ("stats", _P), ("error_code", _I),
+                ("progress_hook", _P), ("user_data", _P), ("pad3", _U32 * 3),
+                ("pad4", _P), ("pad5", _P), ("pad6", _U32 * 8),
+                ("memory_", _P), ("memory_argb_", _P), ("pad7", _P * 2),
+                ("spare", _U32 * 32)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", _P), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", _U32 * 8)]
+
+
+_ABI = 0x0209   # the encoder ABI's major version (2) is what libwebp checks
+
+
+def libwebp():
+    """Pillow's bundled libwebp through ``ctypes`` (libsharpyuv, which it
+    needs, loaded first into the global namespace)."""
+    import PIL
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    ctypes.CDLL(glob.glob(os.path.join(libs, "libsharpyuv-*.so*"))[0],
+                mode=ctypes.RTLD_GLOBAL)
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libwebp-*.so*"))[0])
+    lib.WebPConfigInitInternal.argtypes = [_P, _I, ctypes.c_float, _I]
+    for name in ("WebPValidateConfig", "WebPEncode"):
+        getattr(lib, name).argtypes = [_P] * (2 if name == "WebPEncode" else 1)
+    lib.WebPPictureInitInternal.argtypes = [_P, _I]
+    lib.WebPPictureImportRGBA.argtypes = [_P, _P, _I]
+    lib.WebPPictureImportRGB.argtypes = [_P, _P, _I]
+    lib.WebPMemoryWriterInit.argtypes = [_P]
+    lib.WebPMemoryWriterClear.argtypes = [_P]
+    lib.WebPPictureFree.argtypes = [_P]
+    return lib
+
+
+def libwebp_encode(img: np.ndarray, **fields) -> bytes:
+    """A WEBP file of an RGB or RGBA array from libwebp's WebPEncode, its
+    WebPConfig the default preset at quality 75 with ``fields`` set (e.g.
+    ``filter_type=0``, ``partitions=3``, ``segments=1``,
+    ``filter_sharpness=7``, ``alpha_compression=0``)."""
+    lib = libwebp()
+    config = _WebPConfig()
+    assert lib.WebPConfigInitInternal(ctypes.byref(config), 0,
+                                      float(fields.get("quality", 75.0)), _ABI)
+    for k, v in fields.items():
+        setattr(config, k, v)
+    assert lib.WebPValidateConfig(ctypes.byref(config)), fields
+    pic = _WebPPicture()
+    assert lib.WebPPictureInitInternal(ctypes.byref(pic), _ABI)
+    h, w, c = img.shape
+    pic.width, pic.height, pic.use_argb = w, h, int(config.lossless)
+    px = np.ascontiguousarray(img, np.uint8)
+    importer = lib.WebPPictureImportRGBA if c == 4 else lib.WebPPictureImportRGB
+    assert importer(ctypes.byref(pic), px.ctypes.data, w * c)
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, _P).value
+    pic.custom_ptr = ctypes.addressof(writer)
+    try:
+        assert lib.WebPEncode(ctypes.byref(config), ctypes.byref(pic)), \
+            pic.error_code
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPPictureFree(ctypes.byref(pic))
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
+
+def riff_chunks(data: bytes) -> list:
+    """[(fourcc, payload)] of a WEBP file's top-level chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        kind, size = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((kind, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def webp_chunk(kind: bytes, payload: bytes) -> bytes:
+    return (kind + struct.pack("<I", len(payload)) + payload
+            + b"\x00" * (len(payload) & 1))
+
+
+def riff(body: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def vp8x(flags: int, width: int, height: int) -> bytes:
+    """A VP8X chunk (ALPHA 0x10, ANIMATION 0x02) for a width x height
+    canvas."""
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0])
+                      + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little"))
+
+
+def alpha_filter(alpha: np.ndarray, method: int) -> np.ndarray:
+    """libwebp's alpha prediction filters (1 horizontal, 2 vertical, 3
+    gradient; 0 none), the encoder's side: residuals mod 256."""
+    a = alpha.astype(np.int64)
+    out = a.copy()
+    if method == 0:
+        return alpha.copy()
+    out[0, 1:] = a[0, 1:] - a[0, :-1]
+    if method == 1:
+        out[1:, 0] = a[1:, 0] - a[:-1, 0]
+        out[1:, 1:] = a[1:, 1:] - a[1:, :-1]
+    elif method == 2:
+        out[1:] = a[1:] - a[:-1]
+    else:
+        out[1:, 0] = a[1:, 0] - a[:-1, 0]
+        grad = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+        out[1:, 1:] = a[1:, 1:] - grad
+    return (out % 256).astype(np.uint8)
+
+
+def raw_alpha_webp(rgb: np.ndarray, alpha: np.ndarray, method: int,
+                   quality: int = 75) -> bytes:
+    """A lossy WEBP whose ALPH chunk is stored raw under one of the alpha
+    filters (libwebp's encoder chooses its own filter)."""
+    vp8 = [c for c in riff_chunks(webp(rgb, quality=quality)) if c[0] == b"VP8 "]
+    h, w = alpha.shape
+    alph = bytes([method << 2]) + alpha_filter(alpha, method).tobytes()
+    return riff(vp8x(0x10, w, h) + webp_chunk(b"ALPH", alph)
+                + webp_chunk(*vp8[0]))
+
+
+def webp_animation(canvas, frames, loop: int = 0) -> bytes:
+    """An animated WEBP: ``frames`` of (x, y, WEBP file) placed at even
+    offsets on a ``canvas`` (width, height) of transparent black; each
+    frame keeps its file's ALPH and VP8 / VP8L chunks."""
+    body = vp8x(0x12, *canvas) + webp_chunk(
+        b"ANIM", struct.pack("<IH", 0, loop))
+    for x, y, data in frames:
+        chunks = [c for c in riff_chunks(data) if c[0] in (b"ALPH", b"VP8 ", b"VP8L")]
+        kinds = {k: p for k, p in chunks}
+        if b"VP8 " in kinds:
+            bits = kinds[b"VP8 "]
+            w, h = (bits[6] | bits[7] << 8) & 0x3FFF, (bits[8] | bits[9] << 8) & 0x3FFF
+        else:
+            v = int.from_bytes(kinds[b"VP8L"][1:5], "little")
+            w, h = (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+        payload = b"".join(x.to_bytes(3, "little") for x in
+                           (x // 2, y // 2, w - 1, h - 1, 100)) + b"\x00"
+        payload += b"".join(webp_chunk(k, p) for k, p in chunks)
+        body += webp_chunk(b"ANMF", payload)
+    return riff(body)
+
+
+# libwebp 1.6.0's encoder ignores WebPConfig.partitions (its frames always
+# hold one token partition), so frames of 2, 4 or 8 partitions are made here:
+# every boolean decision of a frame is read back with its probability and
+# coded again, each macroblock row's tokens into partition (row mod n).
+_BANDS = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+_CATS = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+         (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+_BMODE_TREE = (0, 1, -1, 2, -2, 3, 4, 6, -3, 5, -4, -5, -6, 7, -7, 8, -8, -9)
+
+
+def vp8_tables() -> tuple:
+    """(CoeffsProba0, CoeffsUpdateProba, BModesProba) as the port's decoder
+    (``cpt_tpu_torch/csrc/webp_vp8.cpp``) holds them."""
+    src = (HERE.parents[2] / "cpt_tpu_torch" / "csrc" / "webp_vp8.cpp").read_text()
+
+    def table(name, shape):
+        body = re.search(name + r"\[[^=]*=\s*\{(.*?)\};", src, re.S).group(1)
+        return np.array(re.findall(r"\d+", body), int).reshape(shape)
+
+    return (table("kCoeffsProba0", (4, 8, 3, 11)),
+            table("kCoeffsUpdateProba", (4, 8, 3, 11)),
+            table("kBModesProba", (10, 10, 9)))
+
+
+class _BoolTrace:
+    """RFC 6386's boolean decoder, keeping each (probability, bit)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 2
+        self.value, self.range, self.count = (data[0] << 8) | data[1], 255, 0
+        self.trace = []
+
+    def bit(self, prob: int) -> int:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if self.value >= split << 8:
+            bit, self.range, self.value = 1, self.range - split, self.value - (split << 8)
+        else:
+            bit, self.range = 0, split
+        while self.range < 128:
+            self.value, self.range, self.count = self.value << 1, self.range << 1, self.count + 1
+            if self.count == 8:
+                self.count = 0
+                self.value |= self.data[self.pos] if self.pos < len(self.data) else 0
+                self.pos += 1
+        self.trace.append((prob, bit))
+        return bit
+
+    def lit(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bit(128)
+        return v
+
+    def signed(self, n: int) -> int:
+        v = self.lit(n)
+        return -v if self.lit(1) else v
+
+
+def bool_encode(trace) -> bytes:
+    """RFC 6386's boolean encoder over (probability, bit) pairs, flushed."""
+    out, bottom, rng, count = bytearray(), 0, 255, 24
+
+    def carry():
+        i = len(out) - 1
+        while i >= 0 and out[i] == 255:
+            out[i] = 0
+            i -= 1
+        out[i] += 1
+
+    for prob, bit in trace:
+        split = 1 + (((rng - 1) * prob) >> 8)
+        if bit:
+            bottom, rng = bottom + split, rng - split
+        else:
+            rng = split
+        while rng < 128:
+            rng <<= 1
+            if bottom & (1 << 31):
+                carry()
+            bottom = (bottom << 1) & 0xFFFFFFFF
+            count -= 1
+            if not count:
+                out.append(bottom >> 24)
+                bottom &= (1 << 24) - 1
+                count = 8
+    c, v = count, bottom
+    if v & (1 << (32 - c)):
+        carry()
+    v = (v << (c & 7)) & 0xFFFFFFFF
+    for _ in range(c >> 3):
+        v = (v << 8) & 0xFFFFFFFF
+    for _ in range(4):
+        out.append((v >> 24) & 0xFF)
+        v = (v << 8) & 0xFFFFFFFF
+    return bytes(out)
+
+
+def _vp8_coeffs(d, proba, t: int, ctx: int, n: int) -> int:
+    p = proba[t][_BANDS[n]][ctx]
+    while n < 16:
+        if not d.bit(p[0]):
+            return n
+        while not d.bit(p[1]):
+            n += 1
+            if n == 16:
+                return 16
+            p = proba[t][_BANDS[n]][0]
+        if not d.bit(p[2]):
+            nxt = 1
+        else:
+            nxt = 2
+            if not d.bit(p[3]):
+                if d.bit(p[4]):
+                    d.bit(p[5])
+            elif not d.bit(p[6]):
+                if not d.bit(p[7]):
+                    d.bit(159)
+                else:
+                    d.bit(165)
+                    d.bit(145)
+            else:
+                b1 = d.bit(p[8])
+                for prob in _CATS[2 * b1 + d.bit(p[9 + b1])]:
+                    d.bit(prob)
+        d.bit(128)                                   # the sign
+        n += 1
+        p = proba[t][_BANDS[n]][nxt]
+    return 16
+
+
+def repartition(vp8: bytes, log2_parts: int) -> bytes:
+    """A VP8 key frame (a "VP8 " chunk's payload) coded again into
+    ``1 << log2_parts`` token partitions; its pixels do not change."""
+    proba0, update, bmodes = vp8_tables()
+    tag = vp8[0] | vp8[1] << 8 | vp8[2] << 16
+    first = tag >> 5
+    d = _BoolTrace(vp8[10:10 + first])
+    d.lit(2)                                         # colour space, clamping
+    update_map = use_segment = d.lit(1)
+    if use_segment:
+        update_map = d.lit(1)
+        if d.lit(1):
+            d.lit(1)
+            for n in (7, 7, 7, 7, 6, 6, 6, 6):
+                if d.lit(1):
+                    d.signed(n)
+        seg_p = [d.lit(8) if update_map and d.lit(1) else 255 for _ in range(3)] \
+            if update_map else [255] * 3
+    d.lit(10)                                        # filter type, level, sharpness
+    if d.lit(1) and d.lit(1):
+        for _ in range(8):
+            if d.lit(1):
+                d.signed(6)
+    at = len(d.trace)
+    parts = 1 << d.lit(2)
+    d.lit(7)
+    for _ in range(5):
+        if d.lit(1):
+            d.signed(4)
+    d.lit(1)
+    proba = proba0.copy()
+    for idx in np.ndindex(4, 8, 3, 11):
+        if d.bit(int(update[idx])):
+            proba[idx] = d.lit(8)
+    use_skip = d.lit(1)
+    skip_p = d.lit(8) if use_skip else 0
+    w, h = (vp8[6] | vp8[7] << 8) & 0x3FFF, (vp8[8] | vp8[9] << 8) & 0x3FFF
+    mb_w, mb_h = (w + 15) >> 4, (h + 15) >> 4
+    assert parts == 1, "the frame has token partitions already"
+    tokens = _BoolTrace(vp8[10 + first:])
+    top_modes, top_nz = np.zeros((mb_w, 4), int), np.zeros((mb_w, 9), int)
+    rows = []
+    for _ in range(mb_h):
+        left_modes, left_nz = [0] * 4, np.zeros(9, int)
+        start = len(tokens.trace)
+        for x in range(mb_w):
+            if update_map:
+                if d.bit(seg_p[0]):
+                    d.bit(seg_p[2])
+                else:
+                    d.bit(seg_p[1])
+            skip = d.bit(skip_p) if use_skip else 0
+            i4x4 = not d.bit(145)
+            if not i4x4:
+                mode = (1 if d.bit(128) else 3) if d.bit(156) else (2 if d.bit(163) else 0)
+                top_modes[x] = mode
+                left_modes = [mode] * 4
+            else:
+                for y in range(4):
+                    mode = left_modes[y]
+                    for i in range(4):
+                        prob = bmodes[top_modes[x][i]][mode]
+                        j = _BMODE_TREE[d.bit(int(prob[0]))]
+                        while j > 0:
+                            j = _BMODE_TREE[2 * j + d.bit(int(prob[j]))]
+                        mode = top_modes[x][i] = -j
+                    left_modes[y] = mode
+            if d.bit(142) and d.bit(114):
+                d.bit(183)
+            top, left = top_nz[x], left_nz
+            if skip:
+                top[:8] = left[:8] = 0
+                if not i4x4:
+                    top[8] = left[8] = 0
+                continue
+            first_coeff, t = 0, 3
+            if not i4x4:
+                nz = _vp8_coeffs(tokens, proba, 1, top[8] + left[8], 0)
+                top[8] = left[8] = int(nz > 0)
+                first_coeff, t = 1, 0
+            for y in range(4):
+                for i in range(4):
+                    nz = _vp8_coeffs(tokens, proba, t, top[i] + left[y], first_coeff)
+                    top[i] = left[y] = int(nz > first_coeff)
+            for ch in (4, 6):
+                for y in range(2):
+                    for i in range(2):
+                        nz = _vp8_coeffs(tokens, proba, 2, top[ch + i] + left[ch + y], 0)
+                        top[ch + i] = left[ch + y] = int(nz > 0)
+        rows.append(tokens.trace[start:])
+    head = list(d.trace)
+    head[at:at + 2] = [(128, (log2_parts >> 1) & 1), (128, log2_parts & 1)]
+    part0 = bool_encode(head)
+    n = 1 << log2_parts
+    coded = [bool_encode([pb for r in rows[k::n] for pb in r]) for k in range(n)]
+    tag = (tag & 0x1F) | len(part0) << 5
+    return (tag.to_bytes(3, "little") + vp8[3:10] + part0
+            + b"".join(len(c).to_bytes(3, "little") for c in coded[:-1])
+            + b"".join(coded))
+
+
+def webp_partitions(data: bytes, log2_parts: int) -> bytes:
+    """A WEBP file with its VP8 chunk re-coded by :func:`repartition`."""
+    return riff(b"".join(webp_chunk(k, repartition(p, log2_parts)
+                                    if k == b"VP8 " else p)
+                         for k, p in riff_chunks(data)))
+
+
+def webp_fixtures() -> dict:
+    """{file name: bytes} of the WEBP fixtures."""
+    out = {}
+    small = photo(90, 96, 128)
+    disc = np.hypot(*np.mgrid[-48:48, -64:64]) < 40
+    alpha = np.where(disc, 255, photo(91, 96, 128)[..., 0] // 2).astype(np.uint8)
+    rgba = np.dstack([small, alpha])
+    out["lossy_q10.webp"] = webp(small, quality=10)
+    out["lossy_q75.webp"] = webp(small, quality=75)
+    out["lossy_q95_m6.webp"] = webp(small, quality=95, method=6)
+    out["lossy_q75_m0.webp"] = webp(small, quality=75, method=0)
+    out["lossy_alpha_q75.webp"] = webp(rgba, quality=75)
+    out["lossless_rgb.webp"] = webp(photo(92, 64, 80), lossless=True)
+    out["lossless_rgba.webp"] = webp(rgba, lossless=True)
+    out["odd_481x641_q80.webp"] = webp(photo(93, 481, 641), quality=80)
+    out["one_pixel.webp"] = webp(photo(94, 1, 1), quality=75)
+    colours = np.random.RandomState(95).randint(0, 256, (4, 3)).astype(np.uint8)
+    blobs = np.kron(np.random.RandomState(96).randint(0, 4, (12, 15)),
+                    np.ones((5, 5), int))[:57, :71]
+    out["palette4_lossless.webp"] = webp(colours[blobs], lossless=True)
+    frames = [Image.fromarray(photo(97 + i, 48, 64)) for i in range(2)]
+    buf = io.BytesIO()
+    frames[0].save(buf, format="WEBP", save_all=True, append_images=frames[1:],
+                   duration=100, quality=75)
+    out["anim_2frames.webp"] = buf.getvalue()
+    out["simple_filter.webp"] = libwebp_encode(small, filter_type=0,
+                                               filter_strength=80)
+    out["partitions4.webp"] = webp_partitions(webp(small, quality=75), 2)
+    out["partitions8.webp"] = webp_partitions(webp(photo(99, 160, 96),
+                                                   quality=75), 3)
+    out["one_segment.webp"] = libwebp_encode(small, segments=1)
+    out["sharpness7.webp"] = libwebp_encode(small, filter_sharpness=7,
+                                            filter_strength=100)
+    out["alpha_raw.webp"] = libwebp_encode(rgba, alpha_compression=0)
+    out["alpha_filtered.webp"] = libwebp_encode(rgba, alpha_filtering=2,
+                                                alpha_quality=90)
+    out["anim_offset.webp"] = webp_animation(
+        (90, 70), [(6, 4, webp(rgba[:40, :56], quality=60)),
+                   (0, 0, webp(small[:70, :90], quality=60))])
+    big = photo(100, 480, 640)
+    ring = np.hypot(*np.mgrid[-240:240, -320:320])
+    out["photo_480x640_q75.webp"] = webp(big, quality=75)
+    out["photo_480x640_q95.webp"] = webp(big, quality=95)
+    out["alpha_480x640_q75.webp"] = webp(np.dstack(
+        [big, np.clip(400 - ring, 0, 255).astype(np.uint8)]), quality=75)
+    out["lossless_480x640.webp"] = webp(photo(101, 480, 640, noise=0),
+                                        lossless=True)
+    return out
+
+
 def fixtures() -> dict:
     """{file name: bytes}."""
     out = {}
@@ -601,6 +1087,7 @@ def fixtures() -> dict:
     out["top_down.bmp"] = bmp_file(photo(72, 19, 27), 24, top_down=True)
     out["core4.bmp"] = bmp_file(blocky[:17, :23].astype(np.uint8), 4, pal16,
                                 header=12)
+    out.update(webp_fixtures())
     return out
 
 

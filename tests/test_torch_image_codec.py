@@ -1,5 +1,6 @@
 """The port's image codec (``cpt_tpu_torch/utils/image_codec``, host C++
-in ``csrc/image_codec.cpp``) against Pillow 12.1.0 (libjpeg-turbo 3.1.3),
+in ``csrc/image_codec.cpp``; its WEBP decoders have their own file,
+``test_torch_webp.py``) against Pillow 12.1.0 (libjpeg-turbo 3.1.3),
 the version its rules were recovered against: decoded pixels equal on the
 committed fixtures and on seeded JPEG (CMYK and YCCK among them), PNG (16
 bits among them), GIF and BMP cases, encoded JPEG and BMP bytes equal, PNG
@@ -546,6 +547,7 @@ ERROR_CASES = {
     "arithmetic": (arithmetic_header, "arithmetic"),
     "lossless": (lossless_header, "lossless"),
     "mcu_too_large": (mcu_too_large, "too large"),
+    # a WEBP whose VP8 chunk is empty (size 0): broken, as Pillow finds it
     "webp": (lambda: b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22),
              "WEBP"),
     "tiff": (tiff_header, "TIFF"),
@@ -555,14 +557,14 @@ ERROR_CASES = {
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
 def test_unsupported_and_truncated_files_raise(case):
     """A truncated file (JPEG, PNG, GIF, BMP), an arithmetic-coded or a
-    lossless JPEG header and the formats still refused (WEBP, TIFF) raise
-    ``ImageCodecError`` naming the problem; no partial image comes back.
-    Pillow raises on the truncated files too."""
+    lossless JPEG header, a broken WEBP and the format still refused (TIFF)
+    raise ``ImageCodecError`` naming the problem; no partial image comes
+    back. Pillow raises on the truncated files and the broken WEBP too."""
     make, word = ERROR_CASES[case]
     data = make()
     with pytest.raises(ic.ImageCodecError, match=word):
         ic.decode(data)
-    if case.startswith("truncated"):
+    if case.startswith("truncated") or case == "webp":
         with pytest.raises(OSError):
             pillow_decode(data, "RGB")
 
