@@ -107,9 +107,10 @@ Phases (any failure raises and the script exits non-zero):
    decoded image, K1 50, K2 1, K3 12, K4 12, held to ``cpt_predict`` on
    the decoded image as the raw-array requests are, and its scores and
    ``cpt_predict``'s each within SCORE_TOL of the f32 einsum path; one
-   lossy-with-alpha WEBP upload, ``WEBP_UPLOAD``, decoded as Pillow
-   decodes it and answered exactly as the direct call on the decoded
-   image, K1 50, K2 1, K3 12, K4 12), K3 at
+   lossy-with-alpha WEBP upload, ``WEBP_UPLOAD``, and one YCbCr-JPEG TIFF
+   upload, ``TIFF_UPLOAD``, each decoded as Pillow decodes it and answered
+   exactly as the direct call on the decoded image, K1 50, K2 1, K3 12, K4
+   12), K3 at
    its smallest bucket ``[8,78,768]`` with the ragged-edge fault, host ms
    per request and one request's profile; then ``--windowed --base_batch
    4``: 4 queued requests drain as one batched base pass and answer as the
@@ -128,7 +129,7 @@ Phases (any failure raises and the script exits non-zero):
    scored by ``vcr_nsp_cpt.run_eval`` under ``"auto"`` (K3 and K4 12 a
    batch), each candidate within VCR_SCORE_TOL of an f32 einsum NSPCPT
    carrying the head it should use, with ``VCR_FAULTS`` (and, for the twin,
-   the other head) missing it; 10 prompt-tuning
+   the other head) missing it; TUNING_STEPS prompt-tuning
    steps of ``vcr_nsp_cpt.train`` under ``"flash"`` (K6, K6b, K6c 12 a
    step; K3 and K4 none); one step's NSP gradients on a synthetic
    VCR-shaped batch within GRAD_TOL of f32 einsum per q / k / v block,
@@ -144,7 +145,8 @@ Phases (any failure raises and the script exits non-zero):
    ``[x1, x2)`` miss), scored by ``gqa_cpt.evaluate`` at batch 128 (K3 and
    K4 12) within GQA_SCORE_TOL (mean) and GQA_SCORE_MAX_TOL (largest) of
    an f32 einsum REC_MLM_CPT, with GQA_FAULTS missing the first and
-   GQA_ROW_FAULTS the second, then 10 optimizer steps of ``gqa_cpt.train`` under ``"flash"`` (32
+   GQA_ROW_FAULTS the second, then TUNING_STEPS optimizer steps of
+   ``gqa_cpt.train`` under ``"flash"`` (32
    questions drawn with replacement, batch 16, so 2 calls a step; K6, K6b,
    K6c 12 a call). VG: every overlapping pair of 8 boxes (16) painted
    subject red, object blue (``vg_pair_task``; K1 50, K2 1), the features
@@ -162,19 +164,19 @@ Phases (any failure raises and the script exits non-zero):
    encoders: K3 (block and core) at REC_FT's eval batch ``[64,120,768]``,
    K4 at 7,680 rows and K6b / K6c at its training batch ``[16,12,120,64]``
    against their plain versions and named faults. REC_FT through
-   ``refcoco_ft.main`` on phase 5's 16 stage-1 queries: 10 steps of batch
-   16 under ``"flash"`` (attention dropout 0, hidden dropout 0.1; K6, K6b,
+   ``refcoco_ft.main`` on phase 5's 16 stage-1 queries: TUNING_STEPS steps
+   of batch 16 under ``"flash"`` (attention dropout 0, hidden dropout 0.1; K6, K6b,
    K6c 12 a step, K3 and K4 none), eval at batch 64 under ``"auto"`` (K3
    and K4 12), every slot's score within REC_FT_SCORE_TOL of an f32 einsum
    REC_FT on the trained weights, ``REC_FT_FAULTS`` missing it, and one
    step's gradients per q / k / v block within REC_FT_GRAD_TOL of f32 (K6b's
    dK zeroed missing it). GQA FT through ``gqa_cpt.main --model_variant ft``
-   (8 questions on plain features, 10 optimizer steps of 2 calls under
-   ``"flash"``, eval at ``[128,90]``, logits within GQA_FT_LOGIT_TOL of
+   (8 questions on plain features, TUNING_STEPS optimizer steps of 2 calls
+   under ``"flash"``, eval at ``[128,90]``, logits within GQA_FT_LOGIT_TOL of
    f32, ``GQA_FT_FAULTS`` missing it), then ``--save_dir`` loaded into a
    fresh model whose logits are bit-equal. VCR FT through
-   ``vcr_nsp_cpt.main --model_variant ft``: q->a trains 10 steps under
-   ``"flash"``, q->a and q->ar (twin classifiers) score within
+   ``vcr_nsp_cpt.main --model_variant ft``: q->a trains TUNING_STEPS steps
+   under ``"flash"``, q->a and q->ar (twin classifiers) score within
    VCR_FT_SCORE_TOL of f32, ``VCR_FT_FAULTS`` and the other classifier
    missing it. One forward of VGFT, the sequence classifier (mlp; kl and
    bce) and the multiple-choice model (2 choices, ``use_img_layernorm``)
@@ -362,10 +364,12 @@ Phases (any failure raises and the script exits non-zero):
    ``CODEC_FAULTS`` changing one over its own format's fixtures
    (``CODEC_FAULT_FILES``), decode and encode host ms beside
    Pillow's (``CODEC_PILLOW_MS``); then, at full width, ``cpt_predict.main
-   --image x.jpg --out y.png`` and ``--image <WEBP_IMAGE>`` (a 480×640
-   lossy WEBP with alpha) ``--out w.png`` (K1 50, K2 1, K3 12, K4 12 each;
-   the written PNG read back equal to the decoded image with the box
-   drawn; the WEBP's decode Pillow's),
+   --image x.jpg --out y.png``, ``--image <WEBP_IMAGE>`` (a 480×640
+   lossy WEBP with alpha) ``--out w.png`` and ``--image <TIFF_IMAGE>`` (a
+   480×640 TIFF of YCbCr JPEG strips, 2×2 subsampled) ``--out t.tif``
+   (K1 50, K2 1, K3 12, K4 12 each; the written file read back equal to
+   the decoded image with the box drawn; the WEBP's and TIFF's decodes
+   Pillow's),
    ``convert_dataset coco`` over a directory of JPEGs and ``test_detector
    --tsv`` on its yaml (K1, K2 and K5; VOC and COCO metrics finite),
    ``img_info`` over ``.jpg`` and ``.png`` files (sizes equal to the written
@@ -375,8 +379,11 @@ Phases (any failure raises and the script exits non-zero):
    detect step's K1, K2 and K5 and no other kernel; the PNG read back equal
    to ``overlay_detections`` of the returned detections under non-ASCII
    class names). The fixtures include CMYK and YCCK JPEG, 16-bit PNG, GIF,
-   BMP and WEBP (lossy VP8 with its filters, partitions and segments,
-   lossless VP8L, ALPH planes, animations), and a caption case
+   BMP, WEBP (lossy VP8 with its filters, partitions and segments,
+   lossless VP8L, ALPH planes, animations) and TIFF (raw, LZW with and
+   without the predictor, PackBits, Deflate and JPEG; strips, tiles and
+   planes; both byte orders, BigTIFF; grey, palette, RGB(A) at 8 and 16
+   bits, CMYK, YCbCr), and a caption case
    (``caption_case``) drawn by ``utils/text``
    whose digest is the JAX demo's (Pillow's ``ImageDraw.text``).
 22. VinVL_L (``--model_size large``: 24 × 1024, 16 heads, FFN 4096; random
@@ -2738,6 +2745,11 @@ def profile_train_step(model, batch, dev, reps: int = 3) -> dict:
 # phase 5's prompt-tuning steps (epochs of the 16 queries' 32 sampled
 # copies: one step each), cut from the tool's default 20 for time
 TRAIN_STEPS = 10
+# the training runs of phases 9-11 (VCR and GQA prompt tuning, the REC,
+# GQA and VCR full-finetune baselines): a first step and one steady one,
+# what their checks read (every step's launches, finite losses, the steady
+# steps' time); GQA's take two calls a step (grad_accum_steps 2)
+TUNING_STEPS = 2
 
 
 def run_training(res, counters) -> dict:
@@ -3453,7 +3465,12 @@ def check_resize_digests() -> dict:
 # upsampled with libjpeg's (9, 3, 3, 1) / 16 rounding (bias 7 at odd
 # columns; libwebp's two averages are one rounding with bias 8), YUV -> RGB in float
 # arithmetic, a 4x4 block's top-right pixels taken from its own macroblock,
-# and VP8L's Select predictor taking the other neighbour.
+# and VP8L's Select predictor taking the other neighbour; in the TIFF reader
+# LZW's code width grown one code late (GIF's rule), the horizontal predictor
+# ignored, JPEG-in-TIFF chroma replicated (libjpeg's other upsampler), a
+# ColorMap cut to its low bytes (Pillow keeps the high ones) and edge tiles
+# read at their cropped width. The encodes include Pillow's TIFF bytes for
+# codec_tiff_encode_inputs.
 CODEC_DIR = Path(__file__).resolve().parent / "tests" / "data" / "codec"
 CODEC_DIGESTS = {
     "1.bmp:RGB":
@@ -3740,6 +3757,206 @@ CODEC_DIGESTS = {
         "a5c86d16c04f033acac534e3edfa7fed17ad23f8c5cdb8657bac7d9176460f94",
     "caption:overlay":
         "eebae697a02692b7940c5c001ecf3dac0f97b7c15cd145f3eeff78db5d46fb9a",
+    "rgb_raw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgb_raw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "l_raw.tif:RGB":
+        "c91a08a5dca3a366ce1bde5e411bb74208a989f3197f04dcf204ad988a0e4e00",
+    "l_raw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "bilevel_raw.tif:RGB":
+        "0d7e980577b7b55091d22d185b1873267f07caef612f68511da98f2da38d2be5",
+    "bilevel_raw.tif:L":
+        "a4302f07f88088e33d788a2c6aade5126997249d561feef49f2a23e185803697",
+    "p_raw.tif:RGB":
+        "657060ab6c2212b5e08ba04ae3153834a6d64663f5eface12e12e15c430f005e",
+    "p_raw.tif:L":
+        "e86168a6dcac0f977b848da7cf8fff53a843fecc1551578ca055ec51ac09817a",
+    "rgba_raw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgba_raw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "la_raw.tif:RGB":
+        "c91a08a5dca3a366ce1bde5e411bb74208a989f3197f04dcf204ad988a0e4e00",
+    "la_raw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "cmyk_raw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "cmyk_raw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "i16_raw.tif:RGB":
+        "28b1f0c642a34dfcf5206859ced058646b115c908d0b05b5ef6201f796180c21",
+    "i16_raw.tif:L":
+        "7c8f7f9146c074be43c4d324de56bcd53a322fbbe1ad1fa230c586eb02a1cb91",
+    "mm_i16_raw.tif:RGB":
+        "28b1f0c642a34dfcf5206859ced058646b115c908d0b05b5ef6201f796180c21",
+    "mm_i16_raw.tif:L":
+        "7c8f7f9146c074be43c4d324de56bcd53a322fbbe1ad1fa230c586eb02a1cb91",
+    "bigtiff_raw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "bigtiff_raw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "rgb_packbits.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgb_packbits.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "bilevel_packbits.tif:RGB":
+        "0d7e980577b7b55091d22d185b1873267f07caef612f68511da98f2da38d2be5",
+    "bilevel_packbits.tif:L":
+        "a4302f07f88088e33d788a2c6aade5126997249d561feef49f2a23e185803697",
+    "rgb_lzw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgb_lzw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "rgb_lzw_pred.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgb_lzw_pred.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "l_deflate_pred.tif:RGB":
+        "c91a08a5dca3a366ce1bde5e411bb74208a989f3197f04dcf204ad988a0e4e00",
+    "l_deflate_pred.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "rgb_deflate.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgb_deflate.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "rgba_lzw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "rgba_lzw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "la_deflate.tif:RGB":
+        "c91a08a5dca3a366ce1bde5e411bb74208a989f3197f04dcf204ad988a0e4e00",
+    "la_deflate.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "cmyk_lzw.tif:RGB":
+        "15419be5b4e33ed06e9dfe1e4f1aea7b58265926b1988c77f627d229b5742d30",
+    "cmyk_lzw.tif:L":
+        "337f802a20d7eb0cb5af95ed8523197276b6f3f1f2314abefd5aa6048c0f619e",
+    "p_lzw.tif:RGB":
+        "657060ab6c2212b5e08ba04ae3153834a6d64663f5eface12e12e15c430f005e",
+    "p_lzw.tif:L":
+        "e86168a6dcac0f977b848da7cf8fff53a843fecc1551578ca055ec51ac09817a",
+    "i16_lzw.tif:RGB":
+        "28b1f0c642a34dfcf5206859ced058646b115c908d0b05b5ef6201f796180c21",
+    "i16_lzw.tif:L":
+        "7c8f7f9146c074be43c4d324de56bcd53a322fbbe1ad1fa230c586eb02a1cb91",
+    "bigtiff_lzw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "bigtiff_lzw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "ycbcr_lzw.tif:RGB":
+        "a427f3cd46cc360fe0540cb919eeef266ad2332b37f0391651c632911ca71adb",
+    "ycbcr_lzw.tif:L":
+        "c2962c3d9837c0cab5224bdd0e9cb081cce87439da219e9f26d077245140157f",
+    "ycbcr_jpeg_11.tif:RGB":
+        "32a1302d4424d0be767ead0c596e31cb835a8ff5c5d5de21c7f2301a03999abc",
+    "ycbcr_jpeg_11.tif:L":
+        "6d79225902bf093c72b5a06706979fc8bb6958dcd9c26e720c4cbb7cd8d2df10",
+    "rgb_jpeg.tif:RGB":
+        "072279a5f65a8ff267c5bccce11c13699dd22b14074fe9d16621f71235a845ce",
+    "rgb_jpeg.tif:L":
+        "5aafa53458620e4d70c8d1ffe46fa89a70d91cfa60e56a74b3e2dd2d8df5e8a6",
+    "l_jpeg.tif:RGB":
+        "e35cdeef13602a5e34c913f8660871198799f800f9a7e91f6484ce919ccb8098",
+    "l_jpeg.tif:L":
+        "bc71b43977d00e5532e5fd96a758803e4c690a86e2cd8a419078a710435b6a19",
+    "ycbcr_jpeg_22.tif:RGB":
+        "cd1aae7f8163a6ba834b74d78d16000574436a8c99f3a5ab9f673075f78c2524",
+    "ycbcr_jpeg_22.tif:L":
+        "716d211485be9ff312a3a1e12271dd365c0a6d07c292c9973f30cb98ed70b4fd",
+    "ycbcr_jpeg_21.tif:RGB":
+        "077e69a0add07f68adc56e421a7a928d10b4eeedf7d539c001a589cdbc1c9b28",
+    "ycbcr_jpeg_21.tif:L":
+        "716d211485be9ff312a3a1e12271dd365c0a6d07c292c9973f30cb98ed70b4fd",
+    "ycbcr_jpeg_22_tiles.tif:RGB":
+        "5a9dbd3b560fb4a0bb1d2b208d4cc38f4999cc38c570ffa9132976f637f43f3b",
+    "ycbcr_jpeg_22_tiles.tif:L":
+        "e3e718b876f433fc67df5f5e767c03b997e3c0637636476b6fd36b4caeb5525c",
+    "ycbcr_lzw_22.tif:RGB":
+        "b2ad6987433ab6a24160b6bcae29217e508c784916c3c6e7216a55152981774c",
+    "ycbcr_lzw_22.tif:L":
+        "c7995a55e4ff311bd6481609e7ff0aa7687ee01ebe78dbe4844143ca1bee44ff",
+    "ycbcr_deflate_42.tif:RGB":
+        "6b8ef3c5c0593de735bb31521b74e3e477284aef9f8d43ae439550b3fc6eb950",
+    "ycbcr_deflate_42.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "tiles_lzw_pred.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "tiles_lzw_pred.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "tiles_deflate_l.tif:RGB":
+        "867bb9810a7333cd250ee4ce4138bcd9c61ef40ffc2475dd6bbe116e8f2cfed9",
+    "tiles_deflate_l.tif:L":
+        "923469e2771758a94b36b50220f920ba0a86f432efa1822f28b6582c157c6a32",
+    "tiles_packbits.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "tiles_packbits.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "tiles_raw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "tiles_raw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "planar_lzw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "planar_lzw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "planar_deflate_rgba.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "planar_deflate_rgba.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "planar_raw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "planar_raw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "mm_lzw_pred.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "mm_lzw_pred.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "mm_rgb16_lzw_pred.tif:RGB":
+        "83360eb07ce80fd92de4dcc4c9a01b6e759a0aa4a8b5e0d752b2d33b2cbe46a0",
+    "mm_rgb16_lzw_pred.tif:L":
+        "8b3245f2f04ebedde525a63c532753da329623854a77fb60736443025874f012",
+    "rgb16_deflate.tif:RGB":
+        "83360eb07ce80fd92de4dcc4c9a01b6e759a0aa4a8b5e0d752b2d33b2cbe46a0",
+    "rgb16_deflate.tif:L":
+        "8b3245f2f04ebedde525a63c532753da329623854a77fb60736443025874f012",
+    "rgba_assoc_lzw.tif:RGB":
+        "8d285d3267ce95fcb2d7ed3debd0e31bdc729aa0a1a22cb8a5632c9964994d64",
+    "rgba_assoc_lzw.tif:L":
+        "31ff3871d9aafc59cbfe5a682c60822545d7b28f5940b413fa309f2bfa5bf6cc",
+    "rgba_assoc_planar.tif:RGB":
+        "681ad842ea3a20c675143e0e77aa3d4819c4a329a7c6051b5ec9832b41f364fc",
+    "rgba_assoc_planar.tif:L":
+        "1fdd9de1b31117e717691bfa1615c820b2374b4726a45388f4695e7843175c05",
+    "palette4_lzw.tif:RGB":
+        "5f837ab8cd1514d4cd41c40f0a7e3856e4629f6758f3858182ee670308f88baf",
+    "palette4_lzw.tif:L":
+        "d8a25a240514e2161c56cf7d010b5b2f0768861b8666b5a47d2cb634183b8cd3",
+    "grey2_packbits.tif:RGB":
+        "40502dfe539566d200100ccc27a7eca99bfef6f556cb9dd266ff20807bbc49bb",
+    "grey2_packbits.tif:L":
+        "29fab8db45f58e09d2169190e49ecb152c770c04df3d249d276e939cc117269c",
+    "palette8_raw.tif:RGB":
+        "84b0996656af24e07d8aede2db006713669f9be7c4161812c5bf747f35ff0356",
+    "palette8_raw.tif:L":
+        "c1d01bf49e4cb71f449bde7a7effd5d8629501cfdad24bf9c296ab2b96cf2dbb",
+    "fill2_lzw.tif:RGB":
+        "014fbd45235760e6af5477a2829ba9f4d1d7c7c1fcffb73f2972e52e71eb1f34",
+    "fill2_lzw.tif:L":
+        "e6e275e56fdd607224fbc19e6f678af2a1f68e0974621c560b1c4b4fc7fccf90",
+    "whiteiszero_raw.tif:RGB":
+        "e1b295586723d29c23cb30133fb506108a10fb4be147517d4364069b300e2b61",
+    "whiteiszero_raw.tif:L":
+        "07e9f0c7c578e1622764de59778720d35c488cbfd288e1e64c7b6b545c772cd4",
+    "ycbcr_jpeg_22_480x640.tif:RGB":
+        "3467227c2843b801ad359a4b89fc111ba67c933ef81c243c1a1d056a401bb44d",
+    "ycbcr_jpeg_22_480x640.tif:L":
+        "b5be574ba6fbd36d357895764582dc9982420414ab3cce02c582bc57c9fa1804",
+    "encode_tiff:photo_rgb":
+        "b1f3fff743416a523d8d34d44ede0110d2dd6fe4137cfa9416dbdeefee22e9bf",
+    "encode_tiff:gray_odd":
+        "3b1b0c2ac9c90027a2c5183f9ef94dc1793223f8d77a6cdc91c697d00941300d",
 }
 CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "float_ycc", "quality_off_by_one", "paeth_ties",
@@ -3747,7 +3964,10 @@ CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "gif_late_growth", "bmp_top_down", "caption_max",
                 "webp_no_loop_filter", "webp_box_upsample",
                 "webp_single_round_upsample", "webp_float_yuv",
-                "vp8_top_right", "vp8l_select_swapped")
+                "vp8_top_right", "vp8l_select_swapped",
+                "tiff_lzw_late_growth", "tiff_no_predictor",
+                "tiff_jpeg_replicate", "tiff_colormap_low_byte",
+                "tiff_edge_tile_stride")
 # the fixtures each fault runs over (its own format's; "" none): a faulted
 # run decodes only those, and encodes only for a JPEG fault
 CODEC_FAULT_FILES = dict(
@@ -3757,11 +3977,14 @@ CODEC_FAULT_FILES = dict(
                          "ycck_as_cmyk")},
     paeth_ties=".png", sixteen_bit_shift=".png", gif_late_growth=".gif",
     bmp_top_down=".bmp", caption_max="",
-    **{f: ".webp" for f in CODEC_FAULTS if "webp" in f or "vp8" in f})
-# Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3, libwebp 1.6.0), the median
-# of 20 calls of ``python3 image_codec_timing.py`` on an 8-core Intel Xeon
-# host with no card: decode of the 480x640 quality-95 fixture, encode of the
-# 480x640 photo at quality 95, decodes of CODEC_WEBP_TIMED.
+    **{f: ".webp" for f in CODEC_FAULTS if "webp" in f or "vp8" in f},
+    **{f: ".tif" for f in CODEC_FAULTS if f.startswith("tiff_")})
+# Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3, libwebp 1.6.0, libtiff
+# 4.7.1), the median of 20 calls of ``python3 image_codec_timing.py`` on an
+# 8-core Intel Xeon host with no card: decode of the 480x640 quality-95
+# fixture, encode of the 480x640 photo at quality 95, decodes of
+# CODEC_WEBP_TIMED and CODEC_TIFF_TIMED, the TIFF encode of the 480x640
+# photo of codec_tiff_encode_inputs.
 # The card's host has no Pillow; phase 21 prints the codec's ms there
 # beside these.
 CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
@@ -3769,9 +3992,12 @@ CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
                    "photo_480x640_q75.webp": 7.487,
                    "photo_480x640_q95.webp": 15.767,
                    "alpha_480x640_q75.webp": 11.16,
-                   "lossless_480x640.webp": 6.945}
+                   "lossless_480x640.webp": 6.945,
+                   "ycbcr_jpeg_22_480x640.tif": 3.294545499556989,
+                   "encode_tiff_480x640": 0.8357690003322205}
 CODEC_WEBP_TIMED = ("photo_480x640_q75.webp", "photo_480x640_q95.webp",
                     "alpha_480x640_q75.webp", "lossless_480x640.webp")
+CODEC_TIFF_TIMED = ("ycbcr_jpeg_22_480x640.tif",)
 VALIDATE_FIXTURE = {"n_images": 20, "canvas": (128, 128)}   # --dryrun's
 
 
@@ -3799,9 +4025,16 @@ def codec_encode_inputs() -> dict:
             "gray_odd_q75": (codec_photo(13, 241, 321)[:, :, 1], 75)}
 
 
+def codec_tiff_encode_inputs() -> dict:
+    """name → uint8 array of CODEC_DIGESTS' TIFF encodes ("encode_tiff:")
+    (Pillow's save(format="TIFF") of each)."""
+    return {"photo_rgb": codec_photo(11, 480, 640),
+            "gray_odd": codec_photo(13, 241, 321)[:, :, 1]}
+
+
 def codec_fixture_files() -> list:
     return sorted(p for p in CODEC_DIR.iterdir()
-                  if p.suffix in (".jpg", ".png", ".gif", ".bmp", ".webp"))
+                  if p.suffix in (".jpg", ".png", ".gif", ".bmp", ".webp", ".tif"))
 
 
 def caption_case() -> tuple:
@@ -3823,7 +4056,8 @@ def caption_case() -> tuple:
 def codec_digests(fault: str | None = None) -> tuple:
     """(key → SHA-256 of the codec's output, key → host ms) for the decodes
     and encodes of CODEC_DIGESTS and the caption case, under one of
-    CODEC_FAULTS if named (then only its format's: CODEC_FAULT_FILES)."""
+    CODEC_FAULTS if named (then only its format's: CODEC_FAULT_FILES; the
+    caption case, ~0.2 s, only under a caption fault)."""
     import functools
     import hashlib
     from unittest import mock
@@ -3832,15 +4066,16 @@ def codec_digests(fault: str | None = None) -> tuple:
     from cpt_tpu_torch.utils import image_codec, text
 
     bit = image_codec.FAULTS.get(fault, 0) if fault else 0
-    draw = functools.partial(text._draw_text,
-                             fault=text.FAULTS.get(fault, 0) if fault else 0)
-    with mock.patch.object(text, "draw_text", draw):
-        t = time.perf_counter()
-        caption = demo.overlay_detections(*caption_case())
-        caption_ms = (time.perf_counter() - t) * 1e3
-    digests = {"caption:overlay": hashlib.sha256(caption.tobytes()).hexdigest()}
-    ms = {"caption:overlay": caption_ms}
     suffix = CODEC_FAULT_FILES[fault] if fault else None
+    digests, ms = {}, {}
+    if suffix in (None, ""):
+        draw = functools.partial(text._draw_text,
+                                 fault=text.FAULTS.get(fault, 0) if fault else 0)
+        with mock.patch.object(text, "draw_text", draw):
+            t = time.perf_counter()
+            caption = demo.overlay_detections(*caption_case())
+            ms["caption:overlay"] = (time.perf_counter() - t) * 1e3
+        digests["caption:overlay"] = hashlib.sha256(caption.tobytes()).hexdigest()
     for path in codec_fixture_files():
         if suffix is not None and path.suffix != suffix:
             continue
@@ -3856,13 +4091,19 @@ def codec_digests(fault: str | None = None) -> tuple:
             ms[key] = (time.perf_counter() - t) * 1e3
             digests[key] = hashlib.sha256(
                 np.ascontiguousarray(out).tobytes()).hexdigest()
-    for name, (arr, quality) in codec_encode_inputs().items():
-        if suffix not in (None, ".jpg"):
-            break
+    # the encodes' inputs are drawn only for the runs that encode (~0.1 s
+    # each: most faulted runs skip them)
+    for name, (arr, quality) in (codec_encode_inputs().items()
+                                 if suffix in (None, ".jpg") else ()):
         t = time.perf_counter()
         out = image_codec._encode_jpeg(arr, quality, bit)
         ms[f"encode:{name}"] = (time.perf_counter() - t) * 1e3
         digests[f"encode:{name}"] = hashlib.sha256(out).hexdigest()
+    for name, arr in codec_tiff_encode_inputs().items() if suffix is None else ():
+        t = time.perf_counter()
+        out = image_codec.encode_tiff(arr)
+        ms[f"encode_tiff:{name}"] = (time.perf_counter() - t) * 1e3
+        digests[f"encode_tiff:{name}"] = hashlib.sha256(out).hexdigest()
     return digests, ms
 
 
@@ -3886,9 +4127,12 @@ def codec_timing(reps: int = 20) -> dict:
                lambda: image_codec.decode(data), reps),
            "encode_480x640_q95": median_ms(
                lambda: image_codec.encode_jpeg(photo, q), reps)}
-    for name in CODEC_WEBP_TIMED:
-        webp = (CODEC_DIR / name).read_bytes()
-        out[name] = median_ms(lambda: image_codec.decode(webp), reps)
+    for name in CODEC_WEBP_TIMED + CODEC_TIFF_TIMED:
+        data = (CODEC_DIR / name).read_bytes()
+        out[name] = median_ms(lambda: image_codec.decode(data), reps)
+    photo = codec_tiff_encode_inputs()["photo_rgb"]
+    out["encode_tiff_480x640"] = median_ms(lambda: image_codec.encode_tiff(photo),
+                                           reps)
     return out
 
 
@@ -3921,7 +4165,11 @@ def check_codec_digests() -> dict:
           f"{CODEC_PILLOW_MS['encode_480x640_q95']:.2f}; WEBP decodes at "
           f"480x640, here / Pillow's on that CPU: "
           + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
-                      for n in CODEC_WEBP_TIMED), flush=True)
+                      for n in CODEC_WEBP_TIMED)
+          + "; TIFF, here / Pillow's: "
+          + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
+                      for n in CODEC_TIFF_TIMED + ("encode_tiff_480x640",)),
+          flush=True)
     if (set(got) != set(want) or not all(matched.values())
             or not all(faults.values())):
         raise AssertionError(f"image codec digests: missing "
@@ -4121,34 +4369,38 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                   f"JPEG upload {name} launches {ran}, want {want}")
 
         del oracle
-        # one lossy-with-alpha WEBP upload (WEBP_UPLOAD, a committed fixture:
-        # the card's host has no WEBP writer): its decode is Pillow's
-        # (CODEC_DIGESTS), the served answer the direct call's on it exactly,
-        # K1 50, K2 1, K3 and K4 12 (it takes the resize rule)
-        wdata = (CODEC_DIR / WEBP_UPLOAD).read_bytes()
-        wdecoded = image_codec.decode(wdata)
-        wdets = serve_request(np.random.RandomState(2038), 8,
-                              *wdecoded.shape[:2], 300)[1]
-        zero_counts(counters)
-        status, answer = http(port, "/predict", json.dumps({
-            "image_b64": base64.b64encode(wdata).decode(),
-            "caption": SERVE_CAPTION, "dets": wdets}).encode())
-        ran = {k: fn.launches for k, fn in counters.items()}
-        resized_launches = {k: resized_launches[k] + n for k, n in ran.items()}
-        direct = svc.predict(wdecoded, SERVE_CAPTION, wdets)
-        webp_upload = {
-            "status": status, "pick": answer.get("pred_box"),
-            "direct_equal": (answer.get("pred_box") == direct[0]
-                             and answer.get("scores") == direct[1]),
-            "decoded_is_pillows": hashlib.sha256(wdecoded.tobytes()).hexdigest()
-            == CODEC_DIGESTS[f"{WEBP_UPLOAD}:RGB"], "launches": ran}
-        want = {"K1": 50, "K2": 1, "K3": 12, "K4": 12}
-        check(status == 200 and webp_upload["direct_equal"]
-              and webp_upload["decoded_is_pillows"] and direct[0] in wdets,
-              f"WEBP upload: {webp_upload}")
-        check(all(ran[k] == n for k, n in want.items())
-              and sum(ran.values()) == sum(want.values()),
-              f"WEBP upload launches {ran}, want {want}")
+        # one lossy-with-alpha WEBP upload (WEBP_UPLOAD) and one YCbCr-JPEG
+        # TIFF upload (TIFF_UPLOAD), committed fixtures (the card's host has
+        # no writer of either): each decode is Pillow's (CODEC_DIGESTS), the
+        # served answer the direct call's on it exactly, K1 50, K2 1, K3 and
+        # K4 12 (each takes the resize rule)
+        file_uploads = {}
+        for kind, name, seed in (("WEBP", WEBP_UPLOAD, 2038),
+                                 ("TIFF", TIFF_UPLOAD, 2039)):
+            fdata = (CODEC_DIR / name).read_bytes()
+            fdecoded = image_codec.decode(fdata)
+            fdets = serve_request(np.random.RandomState(seed), 8,
+                                  *fdecoded.shape[:2], 300)[1]
+            zero_counts(counters)
+            status, answer = http(port, "/predict", json.dumps({
+                "image_b64": base64.b64encode(fdata).decode(),
+                "caption": SERVE_CAPTION, "dets": fdets}).encode())
+            ran = {k: fn.launches for k, fn in counters.items()}
+            resized_launches = {k: resized_launches[k] + n for k, n in ran.items()}
+            direct = svc.predict(fdecoded, SERVE_CAPTION, fdets)
+            up = file_uploads[kind] = {
+                "file": name, "status": status, "pick": answer.get("pred_box"),
+                "direct_equal": (answer.get("pred_box") == direct[0]
+                                 and answer.get("scores") == direct[1]),
+                "decoded_is_pillows": hashlib.sha256(fdecoded.tobytes()).hexdigest()
+                == CODEC_DIGESTS[f"{name}:RGB"], "launches": ran}
+            want = {"K1": 50, "K2": 1, "K3": 12, "K4": 12}
+            check(status == 200 and up["direct_equal"]
+                  and up["decoded_is_pillows"] and direct[0] in fdets,
+                  f"{kind} upload: {up}")
+            check(all(ran[k] == n for k, n in want.items())
+                  and sum(ran.values()) == sum(want.values()),
+                  f"{kind} upload launches {ran}, want {want}")
 
         img8, dets8 = reqs[8]
         b64_8, decoded8 = jpeg_upload(img8)
@@ -4315,10 +4567,10 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                       f"{v['predict_f32_gap']:.3e} cpt_predict, to each other "
                       f"{v['predict_gap']:.3e}, launches {v['launches']}"
                       for n, v in uploads.items())
-          + f"; WEBP upload {WEBP_UPLOAD}: decoded as Pillow "
-          f"{webp_upload['decoded_is_pillows']}, answer equal to the direct "
-          f"call's {webp_upload['direct_equal']}, launches "
-          f"{webp_upload['launches']}"
+          + "".join(f"; {k} upload {v['file']}: decoded as Pillow "
+                    f"{v['decoded_is_pillows']}, answer equal to the direct "
+                    f"call's {v['direct_equal']}, launches {v['launches']}"
+                    for k, v in file_uploads.items())
           + "; profiled host / device ms: "
           + ", ".join(f"{n} {p['ms']:.2f} / {p['device_ms']:.2f}"
                       for n, p in resized_profiles.items())
@@ -4333,7 +4585,7 @@ def run_serve(counters, smi: str, rows: list) -> dict:
             "vs_predict": vs_predict, "health": health[1], "memory": mem,
             "grad_mode": grad_mode, "digests": digests,
             "resized": resized, "resized_launches": resized_launches,
-            "uploads": uploads, "webp_upload": webp_upload,
+            "uploads": uploads, "file_uploads": file_uploads,
             "resized_profiles": resized_profiles,
             "host_ms": host_ms, "profile": prof,
             "base_batch": {"drains": stats["drains"], "serial_s": serial_s,
@@ -4658,11 +4910,11 @@ def run_vcr(res, counters, smi: str, rows: list) -> dict:
         out["zero_shot"] = zs
         out["launches"] = launches
 
-        # prompt tuning under "flash" (attention dropout 0): 10 steps of
-        # 4 questions x 4 candidates through the tool's loop
+        # prompt tuning under "flash" (attention dropout 0): TUNING_STEPS
+        # steps of 4 questions x 4 candidates through the tool's loop
         args = tool.build_args().parse_args(
             ["--feat_file", tsv, "--examples", ex_path, "--num_train_epochs",
-             "10", "--per_gpu_train_batch_size", "4", "--seed", "0",
+             str(TUNING_STEPS), "--per_gpu_train_batch_size", "4", "--seed", "0",
              "--img_feature_dim", str(dim)])
         data = VCRCPTData(tsv, load_vcr_examples(ex_path), res.tokenizer,
                           80, 60, dim)
@@ -4686,7 +4938,7 @@ def run_vcr(res, counters, smi: str, rows: list) -> dict:
     want_step = {"K6": 12, "K6b": 12, "K6c": 12, "K3": 0, "K4": 0}
     bad = [st for st in steps
            if any(st["launches"][k] != n for k, n in want_step.items())]
-    check(len(losses) == 10 and np.isfinite(losses).all() and not bad,
+    check(len(losses) == TUNING_STEPS and np.isfinite(losses).all() and not bad,
           f"VCR training: losses {losses}, steps off their counts {bad[:2]}")
 
     # one step's gradients against the f32 einsum path, dropout off, on a
@@ -5162,18 +5414,19 @@ def run_other_tasks(res, counters, smi: str, rows: list) -> dict:
                                    for k in gqa_stage1}}
 
         # GQA prompt tuning under "flash": 32 questions drawn with
-        # replacement, batch 16, so grad_accum_steps 2; 10 optimizer steps
+        # replacement, batch 16, so grad_accum_steps 2; TUNING_STEPS
+        # optimizer steps
         args = gqa_cpt.build_args().parse_args(
             ["--img_feat_file", f"{root}/plain.tsv", "--questions",
              f"{root}/questions.json", "--ans2label", f"{root}/ans2label.json",
              "--n_sample", "32", "--per_gpu_train_batch_size", "16",
-             "--num_train_epochs", "10", "--random_seed", "0"])
+             "--num_train_epochs", str(TUNING_STEPS), "--random_seed", "0"])
         model = grad_gap.build(state, res.bert_cfg, bf, dev, **grad_gap.FLASH)
         losses, steps, bad = steps_of(gqa_cpt.train, model, data, args,
                                       want_step)
         gqa_train = launches()
-        check(len(losses) == 20 and np.isfinite(losses).all() and not bad
-              and idle(gqa_train, ("K6", "K6b", "K6c")),
+        check(len(losses) == 2 * TUNING_STEPS and np.isfinite(losses).all()
+              and not bad and idle(gqa_train, ("K6", "K6b", "K6c")),
               f"GQA training: losses {losses}, launches {gqa_train}, calls off "
               f"their counts {bad[:2]}")
         out["gqa_train"] = {"losses": losses, "steps": steps,
@@ -5761,13 +6014,13 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as root:
         # --- (b) REC_FT on phase 5's 16 stage-1 queries (4 candidates
-        # each): 10 steps of batch 16 under "flash", then eval at 64
+        # each): TUNING_STEPS steps of batch 16 under "flash", then eval at 64
         data5, paths, _ = training_data(res, root)
         data5.tsv.close()
         with Driven(refcoco_ft, ("evaluate",), counters, flash) as rec:
             rec_acc = refcoco_ft.main(
                 ["--data_file", paths["data_file"], "--ann_file",
-                 paths["ann_file"], "--num_train_epochs", "10",
+                 paths["ann_file"], "--num_train_epochs", str(TUNING_STEPS),
                  "--per_gpu_train_batch_size", "16",
                  "--per_gpu_eval_batch_size", "64", "--seed", "0",
                  "--output", f"{root}/rec_ft.pk"] + flags())
@@ -5788,7 +6041,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
                                            box_mask, dt)
         same = all(np.array_equal(scores[k], got[i, :len(scores[k])])
                    for i, k in enumerate(keys))
-        check(train_ok(rec, 10),
+        check(train_ok(rec, TUNING_STEPS),
               f"REC_FT training: losses {rec.losses}, launches "
               f"{rec.train_launches}, steps off their counts "
               f"{rec.bad_steps(want_step)[:2]}")
@@ -5853,7 +6106,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
         with Driven(gqa_cpt, ("evaluate",), counters, flash) as gq:
             gqa_acc = gqa_cpt.main(gqa_data + flags() + [
                 "--n_sample", "32", "--per_gpu_train_batch_size", "16",
-                "--num_train_epochs", "10", "--random_seed", "0",
+                "--num_train_epochs", str(TUNING_STEPS), "--random_seed", "0",
                 "--save_dir", f"{root}/gqa_ft"])
         call = gq.calls[-1]
         model, data = call["model"], call["args"][0]
@@ -5882,7 +6135,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
         bit_equal = bool(np.array_equal(reloaded, got))
         with open(f"{root}/gqa_ft/config.json") as f:
             saved_cfg = json.load(f)
-        check(train_ok(gq, 20),
+        check(train_ok(gq, 2 * TUNING_STEPS),
               f"GQA FT training: losses {gq.losses}, launches "
               f"{gq.train_launches}, calls off their counts "
               f"{gq.bad_steps(want_step)[:2]}")
@@ -5905,7 +6158,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
         del model, oracle, fresh
 
         # --- (d) VCR FT: 4 questions painted and extracted as in phase 9;
-        # q->a trains 10 steps under "flash", then q->a and q->ar (the twin
+        # q->a trains TUNING_STEPS steps under "flash", then q->a and q->ar (the twin
         # classifiers) score under "auto"
         tasks, examples = vcr_questions(np.random.RandomState(2032))
         res.extractor.run(tasks, f"{root}/vcr.tsv", payload_fn=vcr_payload)
@@ -5917,7 +6170,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
                                for s in results[q]["scores"]])
 
         vcr = {}
-        for task, epochs in (("qa", "10"), ("qar", "0")):
+        for task, epochs in (("qa", str(TUNING_STEPS)), ("qar", "0")):
             with Driven(vcr_nsp_cpt, ("run_eval",), counters, flash) as vc:
                 vcr_acc = vcr_nsp_cpt.main(
                     ["--feat_file", f"{root}/vcr.tsv", "--examples",
@@ -5926,7 +6179,7 @@ def run_ft_baselines(res, counters, smi: str, rows: list) -> dict:
                      "4", "--per_gpu_eval_batch_size", "8", "--seed", "0"]
                     + flags())
             if task == "qa":
-                check(train_ok(vc, 10),
+                check(train_ok(vc, TUNING_STEPS),
                       f"VCR FT training: losses {vc.losses}, launches "
                       f"{vc.train_launches}, steps off their counts "
                       f"{vc.bad_steps(want_step)[:2]}")
@@ -10051,6 +10304,8 @@ def run_mesh_phase(counters, smi: str, rows: list, single_tsv: str,
 IMAGE_FILE_DETS = 8              # cpt_predict --image's candidates
 WEBP_IMAGE = "alpha_480x640_q75.webp"    # cpt_predict --image x.webp's
 WEBP_UPLOAD = "alpha_480x640_q75.webp"   # phase 8's WEBP upload
+TIFF_IMAGE = "ycbcr_jpeg_22_480x640.tif"  # cpt_predict --image x.tif's
+TIFF_UPLOAD = "ycbcr_jpeg_22_480x640.tif"  # phase 8's TIFF upload
 COCO_IMAGES = ((480, 640), (427, 640))   # convert_dataset coco's JPEGs
 INFO_SIZES = {"a.jpg": (333, 517), "b.jpeg": (64, 48), "c.png": (97, 131)}
 COLOR_STEP = 128                 # img_info --all_color_imgs: 2^3 probes
@@ -10142,43 +10397,49 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
               f"decode {out['predict_image']['out_equal']}; launches {ran}",
               flush=True)
 
-        # cpt_predict --image x.webp --out y.png at full width on a committed
-        # lossy-with-alpha WEBP (WEBP_IMAGE; the card's host has no WEBP
-        # writer), its decode Pillow's (CODEC_DIGESTS)
-        webp = str(CODEC_DIR / WEBP_IMAGE)
-        wimg = image_codec.read_image(webp)
-        wdets = serve_request(np.random.RandomState(2037), IMAGE_FILE_DETS,
-                              *wimg.shape[:2], 300)[1]
-        wflags = ["--image", webp, "--caption", SERVE_CAPTION, "--dets",
-                  json.dumps(wdets), "--out", f"{root}/w.png", "--workdir",
-                  f"{root}/wwd"] + common
-        wflags += (["--tiny", "--hidden_size", "64", "--num_hidden_layers", "2"]
-                   if tiny else [])
-        zero_counts(counters)
-        t = time.perf_counter()
-        wpred = cpt_predict.main(wflags)
-        wpredict_s = time.perf_counter() - t
-        ran = counts()
-        drawn = cpt_predict.draw_box_outline(wimg.copy(), wpred, (0, 255, 0))
-        out["predict_webp"] = {
-            "pred_box": wpred, "seconds": wpredict_s,
-            "decode_equal": hashlib.sha256(wimg.tobytes()).hexdigest()
-            == CODEC_DIGESTS[f"{WEBP_IMAGE}:RGB"],
-            "out_equal": bool(np.array_equal(
-                image_codec.read_image(f"{root}/w.png"), drawn)),
-            "launches": ran}
-        check(list(wpred) in wdets and out["predict_webp"]["out_equal"]
-              and out["predict_webp"]["decode_equal"],
-              f"cpt_predict --image x.webp/--out: {out['predict_webp']}")
-        check(ran == want, f"cpt_predict --image x.webp launches {ran}, "
-                           f"want {want}")
-        print(f"cpt_predict --image {WEBP_IMAGE} ({wimg.shape[0]}x"
-              f"{wimg.shape[1]}, lossy with alpha; decode equal to Pillow's "
-              f"{out['predict_webp']['decode_equal']}) --out w.png: box "
-              f"{wpred} of {len(wdets)} candidates in {wpredict_s:.2f} s "
-              f"(set-up included); the PNG read back equal to the drawn "
-              f"decode {out['predict_webp']['out_equal']}; launches {ran}",
-              flush=True)
+        # cpt_predict --image <file> at full width on two committed fixtures
+        # (the card's host has no writer of either): a lossy-with-alpha WEBP
+        # (WEBP_IMAGE) --out w.png and a TIFF of YCbCr JPEG strips
+        # (TIFF_IMAGE) --out t.tif (Pillow's layout, encode_tiff); each
+        # decode Pillow's (CODEC_DIGESTS)
+        for key, name, out_name, seed, what in (
+                ("predict_webp", WEBP_IMAGE, "w.png", 2037, "lossy with alpha"),
+                ("predict_tiff", TIFF_IMAGE, "t.tif", 2040, "YCbCr JPEG strips")):
+            path, out_path = str(CODEC_DIR / name), f"{root}/{out_name}"
+            fimg = image_codec.read_image(path)
+            fdets = serve_request(np.random.RandomState(seed), IMAGE_FILE_DETS,
+                                  *fimg.shape[:2], 300)[1]
+            fflags = ["--image", path, "--caption", SERVE_CAPTION, "--dets",
+                      json.dumps(fdets), "--out", out_path, "--workdir",
+                      f"{root}/{key}"] + common
+            fflags += (["--tiny", "--hidden_size", "64", "--num_hidden_layers",
+                        "2"] if tiny else [])
+            zero_counts(counters)
+            t = time.perf_counter()
+            fpred = cpt_predict.main(fflags)
+            fpredict_s = time.perf_counter() - t
+            ran = counts()
+            drawn = cpt_predict.draw_box_outline(fimg.copy(), fpred, (0, 255, 0))
+            got = out[key] = {
+                "pred_box": fpred, "seconds": fpredict_s,
+                "decode_equal": hashlib.sha256(fimg.tobytes()).hexdigest()
+                == CODEC_DIGESTS[f"{name}:RGB"],
+                "out_equal": bool(np.array_equal(
+                    image_codec.read_image(out_path), drawn)),
+                "launches": ran}
+            if out_name.endswith(".tif"):
+                got["out_equal"] &= (Path(out_path).read_bytes()
+                                     == image_codec.encode_tiff(drawn))
+            check(list(fpred) in fdets and got["out_equal"] and got["decode_equal"],
+                  f"cpt_predict --image {name}/--out: {got}")
+            check(ran == want, f"cpt_predict --image {name} launches {ran}, "
+                               f"want {want}")
+            print(f"cpt_predict --image {name} ({fimg.shape[0]}x"
+                  f"{fimg.shape[1]}, {what}; decode equal to Pillow's "
+                  f"{got['decode_equal']}) --out {out_name}: box {fpred} of "
+                  f"{len(fdets)} candidates in {fpredict_s:.2f} s (set-up "
+                  f"included); the file read back equal to the drawn decode "
+                  f"{got['out_equal']}; launches {ran}", flush=True)
 
         # convert_dataset coco over a directory of JPEGs, then
         # test_detector --tsv on its yaml
@@ -11023,8 +11284,8 @@ def main(argv=None) -> int:
     phase20_s = mesh.pop("seconds")
     phase21_s = files.pop("seconds")
     e2e["image_files"] = files
-    for name in ("predict_image", "predict_webp", "coco_tsv", "validate",
-                 "demo_detect"):
+    for name in ("predict_image", "predict_webp", "predict_tiff", "coco_tsv",
+                 "validate", "demo_detect"):
         e2e[name] = files[name]
     for sec, ran in mesh.pop("launches").items():
         e2e[f"mesh_{sec}"] = {"launches": ran}
@@ -11056,8 +11317,7 @@ def main(argv=None) -> int:
              "resize_extract", "library",
              "shard_extract", "mesh_extract", "mesh_refcoco", "mesh_pipeline",
              "mesh_detector", "mesh_dryrun", "predict_image", "predict_webp",
-             "coco_tsv",
-             "validate", "demo_detect", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
+             "predict_tiff", "coco_tsv", "validate", "demo_detect", "vinvl_vqa", "vinvl_flash_step", "vinvl_refcoco",
              *WIDTH_RUNS)
     summary = []
     for k, (fn_name, src, replaces) in KERNELS.items():

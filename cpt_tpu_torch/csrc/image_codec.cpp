@@ -15,7 +15,12 @@
 // polarity), and turned into RGB by Pillow's cmyk2rgb. Arithmetic coding,
 // lossless and 12-bit frames, and progressive files whose scans leave
 // coefficients unrefined (libjpeg smooths those blocks) raise; so does data
-// that ends before its terminating marker.
+// that ends before its terminating marker. A Huffman table 0 or 1 that a scan
+// uses undefined is the standard one (libjpeg-turbo's jpeg_std_huff_table).
+// A TIFF's JPEG strip or tile (cpt_jpeg_decode_tiff) decodes as libtiff 4.7.1
+// asks libjpeg to: its JPEGTables read first, the end of the data read as an
+// EOI (libtiff's source manager), YCbCr -> RGB for a contiguous YCbCr TIFF
+// and no colour transform otherwise, up to 10 components.
 //
 // JPEG encode reproduces jpeg_set_defaults + jpeg_set_quality(q, TRUE) as
 // Pillow's save(format="JPEG", quality=q) drives it: JFIF header, 4:2:0
@@ -73,6 +78,38 @@ const int kNatural[80] = {
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+// The standard Huffman tables (JPEG Annex K.3): the encoder's, and the
+// decoder's for a table a scan uses undefined.
+const uint8_t kBitsDcLum[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kValDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kBitsDcChrom[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kBitsAcLum[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kValAcLum[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
+    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
+    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
+    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
+    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
+    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
+    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
+    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
+    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kBitsAcChrom[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kValAcChrom[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
+    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
+    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
+    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
+    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 // ---------------------------------------------------------------- decoder
 
@@ -144,18 +181,26 @@ struct BitReader {
   int nbits = 0;
   int marker = 0;
   bool insufficient = false;
+  bool eof_eoi = false;  // the end of the data reads as an EOI marker (TIFF)
+
+  bool at_end() {
+    if (pos < n) return false;
+    if (!eof_eoi) fail("truncated JPEG file (data ends inside a scan)");
+    marker = 0xD9;
+    return true;
+  }
 
   void fill() {
     while (nbits < 57) {
       if (marker) {
         return;
       }
-      if (pos >= n) fail("truncated JPEG file (data ends inside a scan)");
+      if (at_end()) return;
       int c = d[pos++];
       if (c == 0xFF) {
         int c2;
         do {
-          if (pos >= n) fail("truncated JPEG file (data ends inside a scan)");
+          if (at_end()) return;
           c2 = d[pos++];
         } while (c2 == 0xFF);
         if (c2 != 0) {
@@ -256,6 +301,9 @@ struct Decoder {
   std::vector<Component> comps;
   int scans = 0;
   int unread_marker = 0;  // the marker that ended a scan's data
+  // A strip or tile of a TIFF file, as libtiff hands it to libjpeg: the
+  // end of the data reads as an EOI marker.
+  bool tiff = false;
 
   int u8() {
     if (pos >= n) fail("truncated JPEG file (data ends inside a marker)");
@@ -274,10 +322,60 @@ struct Decoder {
       return m;
     }
     for (;;) {
+      if (tiff && pos >= n) return 0xD9;
       int c = u8();
-      while (c != 0xFF) c = u8();
-      do {
+      while (c != 0xFF) {
+        if (tiff && pos >= n) return 0xD9;
         c = u8();
+      }
+      do {
+        if (tiff && pos >= n) return 0xD9;
+        c = u8();
+      } while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+
+  // Tables-only data (TIFF's JPEGTables) read before the stream, as
+  // jpeg_read_header(FALSE) reads it: SOI, then table and other marker
+  // segments up to EOI or the end.
+  void load_tables(const uint8_t* tables, size_t tn) {
+    const uint8_t* sd = d;
+    size_t sn = n;
+    d = tables;
+    n = tn;
+    pos = 0;
+    if (n < 2 || d[0] != 0xFF || d[1] != 0xD8) fail("not a JPEG file (JPEGTables)");
+    pos = 2;
+    for (;;) {
+      int m = next_marker();
+      if ((m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) || m == 0xDA)
+        fail("bogus JPEGTables field");
+      if (handle_marker(m, true)) break;
+    }
+    d = sd;
+    n = sn;
+    pos = 0;
+    restart_interval = 0;  // reset by the stream's SOI, as libjpeg does
+    jfif = adobe = false;
+  }
+
+  // The next marker from ``p`` in the entropy-coded data (libjpeg's
+  // next_marker); the end of the data is a truncated file, or EOI in TIFF.
+  int scan_marker(size_t& p) {
+    for (;;) {
+      if (p >= n) {
+        if (tiff) return 0xD9;
+        fail("truncated JPEG file (data ends inside a scan)");
+      }
+      int c = d[p++];
+      if (c != 0xFF) continue;
+      do {
+        if (p >= n) {
+          if (tiff) return 0xD9;
+          fail("truncated JPEG file (data ends inside a scan)");
+        }
+        c = d[p++];
       } while (c == 0xFF);
       if (c != 0) return c;
     }
@@ -431,7 +529,9 @@ struct Decoder {
                     (long long)width * height, kMaxPixels);
       fail(buf);
     }
-    if (ncomp != 1 && ncomp != 3 && ncomp != 4) {
+    // a TIFF strip holds as many components as its samples (libjpeg takes
+    // up to 10); a JPEG file one, three or four
+    if (tiff ? (ncomp < 1 || ncomp > 10) : (ncomp != 1 && ncomp != 3 && ncomp != 4)) {
       char buf[80];
       std::snprintf(buf, sizeof buf, "%d-component JPEG is not supported", ncomp);
       fail(buf);
@@ -532,15 +632,34 @@ struct Decoder {
       Component* c = scan_comp[i];
       bool need_dc = !progressive || (Ss == 0 && Ah == 0);
       bool need_ac = !progressive || Ss != 0;
-      if (need_dc) derive(dc_spec[c->dc_tbl], true, &dc_d[i]);
-      if (need_ac) derive(ac_spec[c->ac_tbl], false, &ac_d[i]);
+      if (need_dc) derive(huff(dc_spec, c->dc_tbl, true), true, &dc_d[i]);
+      if (need_ac) derive(huff(ac_spec, c->ac_tbl, false), false, &ac_d[i]);
     }
     scans++;
     decode_scan();
   }
 
+  // libjpeg-turbo's jpeg_std_huff_table: a table 0 or 1 that a scan uses
+  // undefined is the standard one (motion-JPEG frames rely on it).
+  const HuffSpec& huff(HuffSpec* specs, int index, bool dc) {
+    HuffSpec& s = specs[index];
+    if (!s.defined && index < 2) {
+      const uint8_t* bits = dc ? (index ? kBitsDcChrom : kBitsDcLum)
+                               : (index ? kBitsAcChrom : kBitsAcLum);
+      const uint8_t* vals = dc ? kValDc : (index ? kValAcChrom : kValAcLum);
+      std::memcpy(s.bits, bits, 17);
+      int count = 0;
+      for (int l = 1; l <= 16; l++) count += bits[l];
+      std::memset(s.vals, 0, sizeof s.vals);
+      std::memcpy(s.vals, vals, (size_t)count);
+      s.defined = true;
+    }
+    return s;
+  }
+
   void decode_scan() {
     BitReader br{d, n, pos};
+    br.eof_eoi = tiff;
     for (int i = 0; i < scan_n; i++) scan_comp[i]->pred = 0;
     eobrun = 0;
     int restarts_to_go = restart_interval;
@@ -589,19 +708,7 @@ struct Decoder {
     if (!m) {
       // next_marker from the reader's position
       size_t p = br.pos;
-      for (;;) {
-        if (p >= n) fail("truncated JPEG file (data ends inside a scan)");
-        int c = d[p++];
-        if (c != 0xFF) continue;
-        do {
-          if (p >= n) fail("truncated JPEG file (data ends inside a scan)");
-          c = d[p++];
-        } while (c == 0xFF);
-        if (c != 0) {
-          m = c;
-          break;
-        }
-      }
+      m = scan_marker(p);
       br.pos = p;
     }
     br.marker = 0;
@@ -623,19 +730,8 @@ struct Decoder {
         }
         // scan to the next marker
         size_t p = br.pos;
-        int c;
-        for (;;) {
-          if (p >= n) fail("truncated JPEG file (data ends inside a scan)");
-          c = d[p++];
-          if (c != 0xFF) continue;
-          do {
-            if (p >= n) fail("truncated JPEG file (data ends inside a scan)");
-            c = d[p++];
-          } while (c == 0xFF);
-          if (c != 0) break;
-        }
+        m = scan_marker(p);
         br.pos = p;
-        m = c;
       }
     }
     for (int i = 0; i < scan_n; i++) scan_comp[i]->pred = 0;
@@ -764,7 +860,9 @@ struct Decoder {
       int m = next_marker();
       if (m == 0xDA) {
         read_sos_and_scan();
-        if (!progressive && scans == 1 && scan_n == ncomp) return;  // single-scan file
+        // a single sequential scan holds the whole image: what follows is
+        // not read (Pillow) or its errors are ignored (libtiff's JPEGDecode)
+        if (!progressive && scans == 1 && scan_n == ncomp) return;
         continue;
       }
       if (handle_marker(m, false)) break;
@@ -1073,6 +1171,16 @@ ColorSpace color_space(const Decoder& dec) {
   return kYCbCr;
 }
 
+// Pillow's cmyk2rgb.
+inline void cmyk2rgb(const int* cmyk, uint8_t* rgb) {
+  const uint8_t* rl = kRange.simple + 256;
+  int nk = 255 - cmyk[3];
+  for (int c = 0; c < 3; c++) {
+    int t = cmyk[c] * nk + 128;
+    rgb[c] = rl[nk - (((t >> 8) + t) >> 8)];
+  }
+}
+
 void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, int fault) {
   Decoder dec(data, n);
   dec.fault = fault;
@@ -1107,11 +1215,7 @@ void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, int fault) {
         cmyk[2] = rl[255 - (Y + kYcc.cb_b[B])];
       }
       for (int& v : cmyk) v ^= flip;  // Pillow's "CMYK;I" unpacker
-      int nk = 255 - cmyk[3];
-      for (int c = 0; c < 3; c++) {  // Pillow's cmyk2rgb
-        int t = cmyk[c] * nk + 128;
-        out[3 * i + c] = rl[nk - (((t >> 8) + t) >> 8)];
-      }
+      cmyk2rgb(cmyk, out + 3 * i);
     }
     return;
   }
@@ -1140,6 +1244,38 @@ void decode_jpeg(const uint8_t* data, size_t n, uint8_t* out, int fault) {
   }
 }
 
+// A strip or tile of a TIFF file's JPEG data (compression 7) after its
+// JPEGTables (``tn`` 0: none), decoded as libtiff asks libjpeg to: YCbCr
+// converted to RGB when ``to_rgb`` (JPEGCOLORMODE_RGB), else the components
+// as stored (JCS_UNKNOWN), interleaved: height x width x ncomp bytes.
+void decode_jpeg_tiff(const uint8_t* tables, size_t tn, const uint8_t* data, size_t n,
+                      bool to_rgb, uint8_t* out, int fault) {
+  Decoder dec(data, n);
+  dec.fault = fault;
+  dec.tiff = true;
+  if (tn) dec.load_tables(tables, tn);
+  dec.run();
+  dec.check_no_smoothing();
+  const int nc = dec.ncomp;
+  const size_t npix = (size_t)dec.width * dec.height;
+  std::vector<std::vector<uint8_t>> full(nc);
+  for (int ci = 0; ci < nc; ci++)
+    full[ci] = upsample(dec, dec.comps[ci], reconstruct(dec.comps[ci], fault), fault);
+  if (to_rgb) {
+    if (nc != 3) fail("JPEG YCbCr data without three components");
+    const uint8_t* rl = kRange.simple + 256;
+    for (size_t i = 0; i < npix; i++) {
+      int Y = full[0][i], B = full[1][i], R = full[2][i];
+      out[3 * i] = rl[Y + kYcc.cr_r[R]];
+      out[3 * i + 1] = rl[Y + (int)((kYcc.cb_g[B] + kYcc.cr_g[R]) >> 16)];
+      out[3 * i + 2] = rl[Y + kYcc.cb_b[B]];
+    }
+    return;
+  }
+  for (size_t i = 0; i < npix; i++)
+    for (int ci = 0; ci < nc; ci++) out[i * nc + ci] = full[ci][i];
+}
+
 // ---------------------------------------------------------------- encoder
 
 const uint8_t kStdLumQ[64] = {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,
@@ -1152,36 +1288,6 @@ const uint8_t kStdChromQ[64] = {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 
                                 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
                                 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
                                 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
-
-const uint8_t kBitsDcLum[17] = {0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
-const uint8_t kValDc[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
-const uint8_t kBitsDcChrom[17] = {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
-const uint8_t kBitsAcLum[17] = {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
-const uint8_t kValAcLum[162] = {
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61,
-    0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52,
-    0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25,
-    0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64,
-    0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83,
-    0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99,
-    0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3,
-    0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8,
-    0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
-const uint8_t kBitsAcChrom[17] = {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
-const uint8_t kValAcChrom[162] = {
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
-    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33,
-    0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18,
-    0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
-    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63,
-    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a,
-    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
-    0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
-    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca,
-    0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
-    0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 struct HuffEnc {
   uint32_t code[256];
@@ -1834,6 +1940,52 @@ int cpt_jpeg_decode(const uint8_t* data, long n, uint8_t* out, int fault, char* 
                     int errlen) {
   try {
     decode_jpeg(data, (size_t)n, out, fault);
+    return 0;
+  } catch (const std::exception& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Pillow's cmyk2rgb over ``n`` CMYK pixels (a TIFF's) into RGB.
+long cpt_cmyk_to_rgb(const uint8_t* cmyk, long n, uint8_t* out) {
+  for (long i = 0; i < n; i++) {
+    int px[4] = {cmyk[4 * i], cmyk[4 * i + 1], cmyk[4 * i + 2], cmyk[4 * i + 3]};
+    cmyk2rgb(px, out + 3 * i);
+  }
+  return n;
+}
+
+// Frame of a TIFF strip's or tile's JPEG data after its JPEGTables:
+// ``info`` = width, height, component count, then each component's
+// horizontal and vertical sampling factors.
+int cpt_jpeg_frame_tiff(const uint8_t* tables, long tn, const uint8_t* data, long n, int* info,
+                        char* err, int errlen) {
+  try {
+    Decoder dec(data, (size_t)n);
+    dec.tiff = true;
+    if (tn) dec.load_tables(tables, (size_t)tn);
+    bool has_frame;
+    dec.read_header_only(&has_frame);
+    if (!has_frame) fail("JPEG data has no frame header");
+    info[0] = dec.width;
+    info[1] = dec.height;
+    info[2] = dec.ncomp;
+    for (int ci = 0; ci < dec.ncomp; ci++) {
+      info[3 + 2 * ci] = dec.comps[ci].h;
+      info[4 + 2 * ci] = dec.comps[ci].v;
+    }
+    return 0;
+  } catch (const std::exception& e) {
+    return report(e, err, errlen);
+  }
+}
+
+// Decode a TIFF strip's or tile's JPEG data (decode_jpeg_tiff) into
+// ``out``.
+int cpt_jpeg_decode_tiff(const uint8_t* tables, long tn, const uint8_t* data, long n,
+                         int to_rgb, uint8_t* out, int fault, char* err, int errlen) {
+  try {
+    decode_jpeg_tiff(tables, (size_t)tn, data, (size_t)n, to_rgb != 0, out, fault);
     return 0;
   } catch (const std::exception& e) {
     return report(e, err, errlen);

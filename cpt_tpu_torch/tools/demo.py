@@ -9,9 +9,10 @@ K1, K2 and K5; ``compute_prediction`` + ``select_top_predictions``,
 per-class-colored boxes with class names and scores
 (``predictor.py:261-411``), written as PNGs. ``--webcam`` runs the same
 over a capture device (``webcam.py``; cv2). Images are read and written
-through ``utils/image_codec`` (JPEG, PNG, GIF and BMP in; ``--out`` as
-.png, .jpg or .bmp); the detection captions (:func:`overlay_detections`)
-are drawn by ``utils/text`` in Pillow's default font, pixel for pixel.
+through ``utils/image_codec`` (JPEG, PNG, GIF, BMP, WEBP and TIFF in;
+``--out`` as .png, .jpg, .bmp or .tif); the detection captions
+(:func:`overlay_detections`) are drawn by ``utils/text`` in Pillow's
+default font, pixel for pixel.
 Nothing here needs Pillow.
 
 Usage:

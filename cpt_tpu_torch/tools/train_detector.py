@@ -11,7 +11,8 @@ resume from the last one.
 Data: an od / VG TSV yaml (``--tsv``; several, comma-separated, train over
 their concatenation), a json list ``[{img, boxes [[x, y, w, h], ...],
 labels [...], attributes [[...], ...]}]`` with ``--image_root``
-(``--ann_file``; JPEG, PNG, GIF or BMP through ``utils/image_codec``), or
+(``--ann_file``; JPEG, PNG, GIF, BMP, WEBP or TIFF through
+``utils/image_codec``), or
 ``--synthetic N`` (random canvases with two fixed boxes). Images go onto
 the ``input.pad_h`` × ``pad_w`` canvas as
 they are, as in the JAX tool. Without ``--checkpoint`` the weights are

@@ -1,5 +1,5 @@
-"""Reading and writing JPEG, PNG, GIF, BMP and WEBP files without Pillow
-(the port's counterpart of the ``Image.open(...).convert(...)`` and
+"""Reading and writing JPEG, PNG, GIF, BMP, WEBP and TIFF files without
+Pillow (the port's counterpart of the ``Image.open(...).convert(...)`` and
 ``Image.save`` calls the JAX package makes).
 
 ``decode`` gives Pillow 12.1's pixels bit for bit, converted to ``"RGB"``
@@ -15,19 +15,29 @@ for a BMP those of Pillow's BmpImagePlugin (core, info, V4 and V5 headers;
 a WEBP its first frame as libwebp 1.6.0's animation decoder gives it to
 Pillow (lossy VP8 with its loop filter, fancy upsampling and fixed-point
 YUV conversion; lossless VP8L; an ALPH alpha plane; an ANMF frame on a
-transparent black canvas).
+transparent black canvas), for a TIFF its first image as TiffImagePlugin
+opens it: classic and BigTIFF, either byte order; Pillow's own reader for
+uncompressed strips and tiles, libtiff 4.7.1 as Pillow drives it for LZW,
+PackBits, Deflate and JPEG (with the horizontal predictor, FillOrder 2,
+tiles, separate planes, YCbCr through TIFFRGBAImage or libjpeg-turbo);
+1-bit, 2-, 4- and 8-bit grey and palette, 16-bit grey, LA, RGB and RGBA
+(associated alpha too) at 8 and 16 bits, CMYK and YCbCr.
 ``encode_jpeg`` writes the bytes of Pillow's ``save(format="JPEG",
 quality=q)`` with default options, ``encode_bmp`` those of
-``save(format="BMP")``; ``encode_png`` writes a lossless PNG (its bytes
-differ from Pillow's, whose zlib differs from Python's).
+``save(format="BMP")`` and ``encode_tiff`` those of ``save(format="TIFF")``;
+``encode_png`` writes a lossless PNG (its bytes differ from Pillow's, whose
+zlib differs from Python's).
 
 The JPEG codec, the PNG row filters, GIF's LZW, BMP's RLE
-(``cpt_tpu_torch/csrc/image_codec.cpp``) and the WEBP decoders
-(``csrc/webp_vp8.cpp``, ``csrc/webp_vp8l.cpp``) are host C++, built by
+(``cpt_tpu_torch/csrc/image_codec.cpp``), the WEBP decoders
+(``csrc/webp_vp8.cpp``, ``csrc/webp_vp8l.cpp``) and TIFF's LZW, PackBits,
+predictor and YCbCr conversion (``csrc/tiff.cpp``) are host C++, built by
 ``kernels/build.py`` with the host C++ compiler at first use and called
-through ``ctypes``; zlib and the RIFF container are Python's. A failed build
-raises ``KernelError``; a file this module cannot read (TIFF, arithmetic /
-lossless / 12-bit JPEG, other formats, truncated or damaged data) raises
+through ``ctypes``; zlib, the RIFF container and the TIFF directories are
+Python's. A failed build raises ``KernelError``; a file this module cannot
+read (arithmetic / lossless / 12-bit JPEG, TIFF of floating-point, signed
+or 12- and 32-bit samples, CIELab, CCITT, old-style JPEG or LZW and other
+compressions, other formats, truncated or damaged data) raises
 :class:`ImageCodecError` naming its kind, and so does a file whose header
 declares more than twice ``MAX_IMAGE_PIXELS`` (Pillow's decompression-bomb
 limit), before anything is allocated for it. Nothing falls back to Pillow
@@ -38,7 +48,9 @@ from __future__ import annotations
 import ctypes
 import os
 import struct
+import sys
 import zlib
+from fractions import Fraction
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -68,6 +80,12 @@ FAULTS = {
     "webp_float_yuv": 16384,               # YUV -> RGB in float arithmetic
     "vp8_top_right": 32768,                # 4x4 top-right from the current MB
     "vp8l_select_swapped": 65536,          # Select takes the other neighbour
+    # the TIFF reader's (csrc/tiff.cpp and the Python container)
+    "tiff_lzw_late_growth": 131072,        # LZW code width grown one code late
+    "tiff_no_predictor": 262144,           # horizontal predictor 2 ignored
+    "tiff_jpeg_replicate": 524288,         # JPEG-in-TIFF chroma replicated
+    "tiff_colormap_low_byte": 1048576,     # ColorMap entries cut to the low byte
+    "tiff_edge_tile_stride": 2097152,      # edge tiles read at their cropped width
 }
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -105,6 +123,22 @@ SIGNATURES = {
     "cpt_webp_lossy": ([_P, _L, _I, _I, _I, _P, _P, _I], _I),
     # data, n, alpha, width, height, fault, out, err, errlen
     "cpt_webp_lossless": ([_P, _L, _I, _I, _I, _I, _P, _P, _I], _I),
+    # tables, ntables, data, n, info, err, errlen
+    "cpt_jpeg_frame_tiff": ([_P, _L, _P, _L, _IP, _P, _I], _I),
+    # tables, ntables, data, n, to_rgb, out, fault, err, errlen
+    "cpt_jpeg_decode_tiff": ([_P, _L, _P, _L, _I, _P, _I, _P, _I], _I),
+    # cmyk, n, out
+    "cpt_cmyk_to_rgb": ([_P, _L, _P], _L),
+    # data, n, out, occ, fault, err, errlen
+    "cpt_tiff_lzw": ([_P, _L, _P, _L, _I, _P, _I], _L),
+    # data, n, out, occ, err, errlen
+    "cpt_tiff_packbits": ([_P, _L, _P, _L, _P, _I], _L),
+    # buf, rows, rowbytes, stride, bytes, swap, err, errlen
+    "cpt_tiff_unpredict": ([_P, _L, _L, _I, _I, _I, _P, _I], _L),
+    # buf, n
+    "cpt_tiff_reverse_bits": ([_P, _L], _L),
+    # packed, blocks_per_row, hs, vs, width, rows, coeffs, rbw, out, err, errlen
+    "cpt_tiff_ycbcr": ([_P, _L, _I, _I, _L, _L, _P, _P, _P, _P, _I], _L),
 }
 LIBRARY = build.Library(build.build_host, SIGNATURES)
 
@@ -895,9 +929,1262 @@ def _decode_webp(data: bytes, fault: int) -> Tuple[np.ndarray, str, object]:
     return np.ascontiguousarray(rgba[:, :, :3]), "RGB", None
 
 
+# ------------------------------------------------------------------ TIFF
+
+# TiffImagePlugin's header prefixes (the two invalid ones are read as TIFF)
+_TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+                  b"MM\x00\x2b", b"II\x2b\x00")
+# TiffImagePlugin's value loaders: type -> (bytes a value, struct code)
+_TIFF_LOADERS = {1: (1, "byte"), 2: (1, "ascii"), 3: (2, "H"), 4: (4, "L"),
+                 5: (8, "rational"), 6: (1, "b"), 7: (1, "undefined"),
+                 8: (2, "h"), 9: (4, "l"), 10: (8, "srational"), 11: (4, "f"),
+                 12: (8, "d"), 13: (4, "L"), 16: (8, "Q")}
+# TiffTags' spec'd value counts of the tags _setup reads (1: one value,
+# stored as a scalar; 0: any number, stored as a tuple)
+_TIFF_TAG_LENGTH = {256: 1, 257: 1, 258: 0, 259: 1, 262: 1, 266: 1, 273: 0,
+                    274: 1, 277: 1, 278: 1, 284: 1, 320: 0, 322: 1, 323: 1,
+                    324: 0, 338: 0, 339: 0}
+_TIFF_COMPRESSION = {1: "raw", 2: "tiff_ccitt", 3: "group3", 4: "group4",
+                     5: "tiff_lzw", 6: "tiff_jpeg", 7: "jpeg",
+                     8: "tiff_adobe_deflate", 32771: "tiff_raw_16",
+                     32773: "packbits", 32809: "tiff_thunderscan",
+                     32946: "tiff_deflate", 34676: "tiff_sgilog",
+                     34677: "tiff_sgilog24", 34925: "lzma", 50000: "zstd",
+                     50001: "webp"}
+_TIFF_READ = ("raw", "tiff_lzw", "jpeg", "tiff_adobe_deflate", "packbits",
+              "tiff_deflate")
+_TIFF_MAX_SAMPLES = 6
+
+
+def _tiff_open_info() -> dict:
+    """TiffImagePlugin's OPEN_INFO, the rows of the kinds read here:
+    (byte order, photometric, sample format, fill order, bits, extra
+    samples) -> (Pillow's mode, raw mode)."""
+    rows = {}
+    for order in (b"II", b"MM"):
+        def put(photo, fmt, fill, bits, extra, mode, raw):
+            rows[(order, photo, fmt, fill, bits, extra)] = (mode, raw)
+
+        for photo, inv in ((0, "I"), (1, "")):
+            for fill, rev in ((1, ""), (2, "R")):
+                put(photo, (1,), fill, (1,), (), "1", "1" + (";" + inv + rev if inv + rev else ""))
+                for b in (2, 4):
+                    put(photo, (1,), fill, (b,), (), "L", f"L;{b}{inv}{rev}")
+                put(photo, (1,), fill, (8,), (), "L",
+                    "L" + (";" + inv + rev if inv + rev else ""))
+        put(1, (2,), 1, (8,), (), "L", "L")
+        put(6, (1,), 1, (8,), (), "L", "L")
+        put(1, (1,), 1, (8, 8), (2,), "LA", "LA")
+        for fill, raw in ((1, "RGB"), (2, "RGB;R")):
+            put(2, (1,), fill, (8, 8, 8), (), "RGB", raw)
+        put(2, (1,), 1, (8, 8, 8, 8), (), "RGBA", "RGBA")
+        for n in range(1, 4):
+            for first, mode, raw in ((0, "RGB", "RGB"), (1, "RGBA", "RGBa"),
+                                     (2, "RGBA", "RGBA")):
+                put(2, (1,), 1, (8,) * (3 + n), (first,) + (0,) * (n - 1), mode,
+                    raw + "X" * (n - 1 + (first == 0)))
+        put(2, (1,), 1, (8, 8, 8, 8), (999,), "RGBA", "RGBA")
+        e = "L" if order == b"II" else "B"
+        put(2, (1,), 1, (16, 16, 16), (), "RGB", f"RGB;16{e}")
+        for extra, mode, raw in (((), "RGBA", "RGBA"), ((0,), "RGB", "RGBX"),
+                                 ((1,), "RGBA", "RGBa"), ((2,), "RGBA", "RGBA")):
+            put(2, (1,), 1, (16,) * 4, extra, mode, f"{raw};16{e}")
+        for fill, rev in ((1, ""), (2, "R")):
+            for b in (1, 2, 4):
+                put(3, (1,), fill, (b,), (), "P", f"P;{b}{rev}")
+            put(3, (1,), fill, (8,), (), "P", "P;R" if rev else "P")
+        put(3, (1,), 1, (8, 8), (0,), "P", "PX")
+        put(3, (1,), 1, (8, 8), (2,), "PA", "PA")
+        put(5, (1,), 1, (8,) * 4, (), "CMYK", "CMYK")
+        put(5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX")
+        put(5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX")
+        put(5, (1,), 1, (16,) * 4, (), "CMYK", f"CMYK;16{e}")
+        put(6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX")
+    rows[(b"II", 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    rows[(b"II", 0, (1,), 1, (16,), ())] = ("I;16", "I;16")
+    rows[(b"MM", 1, (1,), 1, (16,), ())] = ("I;16B", "I;16B")
+    return rows
+
+
+_TIFF_OPEN_INFO = _tiff_open_info()
+
+
+# The rest of OPEN_INFO: kinds Pillow reads that this codec refuses
+_TIFF_LEFT_OUT = {}
+for _order in (b"II", b"MM"):
+    _TIFF_LEFT_OUT.update({
+        (_order, 8, (1,), 1, (8, 8, 8), ()): "CIELab colour",
+        (_order, 0, (3,), 1, (32,), ()): "32-bit floating-point samples",
+        (_order, 1, (3,), 1, (32,), ()): "32-bit floating-point samples",
+        (_order, 1, (2,), 1, (16,), ()): "16-bit signed samples",
+        (_order, 1, (2,), 1, (32,), ()): "32-bit signed samples"})
+_TIFF_LEFT_OUT.update({
+    (b"II", 1, (1,), 1, (12,), ()): "12-bit samples",
+    (b"II", 1, (1,), 2, (16,), ()): "16-bit samples in fill order 2",
+    (b"II", 1, (1,), 1, (32,), ()): "32-bit integer samples"})
+
+
+def _tiff_broken(why: str):
+    raise ImageCodecError(f"broken TIFF file ({why})")
+
+
+class _TiffFile:
+    """A TIFF file's first image as Pillow 12.1 opens it (TiffImagePlugin:
+    the header, the first IFD's tags by Pillow's own parser, ``_setup``'s
+    mode, raw mode, size and tiles); raises where ``Image.open`` raises.
+    libtiff's reading of the same directory is :class:`_LibtiffDir`."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        ifh = data[:8]
+        if ifh[2:3] == b"+":
+            ifh += data[8:16]
+        if not ifh.startswith(_TIFF_PREFIXES):
+            raise ImageCodecError(f"cannot identify image file ({_READS})")
+        self.prefix = ifh[:2]
+        self.e = ">" if self.prefix == b"MM" else "<"
+        self.big = ifh[2] == 43
+        if len(ifh) < (16 if self.big else 8):
+            _tiff_broken("no header")
+        first = struct.unpack(self.e + ("Q" if self.big else "L"),
+                              ifh[8:16] if self.big else ifh[4:8])[0]
+        if not first:
+            _tiff_broken("no image in it")
+        if first >= 2 ** 63:
+            _tiff_broken("IFD offset out of range")
+        self.ifd_offset = first
+        self.tagdata, self.tagtype = self._pillow_ifd(first)
+        self.values = {}
+        try:
+            self._setup()
+        except ImageCodecError:
+            raise
+        except (ArithmeticError, LookupError, TypeError, ValueError,
+                AttributeError, struct.error) as e:
+            _tiff_broken(f"{type(e).__name__}: {e}")
+
+    # -- Pillow's IFD parser (ImageFileDirectory_v2.load)
+
+    def _pillow_ifd(self, at: int):
+        data, e, big = self.data, self.e, self.big
+        tags, types = {}, {}
+        pos = at
+
+        def read(n):
+            nonlocal pos
+            chunk = data[pos:pos + n] if pos < len(data) else b""
+            pos += n
+            if len(chunk) != n:
+                raise EOFError
+            return chunk
+
+        try:
+            count = struct.unpack(e + ("Q" if big else "H"), read(8 if big else 2))[0]
+            for _ in range(count):
+                tag, typ, cnt, value = struct.unpack(
+                    e + ("HHQ8s" if big else "HHL4s"), read(20 if big else 12))
+                if typ not in _TIFF_LOADERS:
+                    continue
+                size = cnt * _TIFF_LOADERS[typ][0]
+                if size > (8 if big else 4):
+                    off = struct.unpack(e + ("Q" if big else "L"), value)[0]
+                    value = data[off:off + size]
+                    if len(value) < size:
+                        raise EOFError      # _safe_read: "Truncated File Read"
+                else:
+                    value = value[:size]
+                if not value:
+                    continue
+                tags[tag], types[tag] = value, typ
+        except EOFError:
+            pass                            # Pillow warns and keeps what it read
+        return tags, types
+
+    def get(self, tag: int, default=None):
+        """``tag_v2.get(tag)``: the value as ImageFileDirectory_v2 converts
+        it (a scalar for one-value tags, else a tuple; rationals as
+        fractions, a zero denominator NaN)."""
+        if tag not in self.tagdata:
+            return default
+        if tag not in self.values:
+            data, typ = self.tagdata[tag], self.tagtype[tag]
+            size, code = _TIFF_LOADERS[typ]
+            if code in ("byte", "undefined"):
+                vals = [data]
+            elif code == "ascii":
+                vals = [(data[:-1] if data.endswith(b"\0") else data).decode(
+                    "latin-1", "replace")]
+            elif code in ("rational", "srational"):
+                fmt = "L" if code == "rational" else "l"
+                raw = struct.unpack(f"{self.e}{len(data) // 4}{fmt}", data)
+                vals = [Fraction(a, b) if b else float("nan")
+                        for a, b in zip(raw[::2], raw[1::2])]
+            else:
+                vals = list(struct.unpack(f"{self.e}{len(data) // size}{code}", data))
+            length = _TIFF_TAG_LENGTH.get(tag)
+            if length == 1 or typ == 1 or (length is None and len(vals) == 1):
+                self.values[tag] = vals[0]
+            else:
+                self.values[tag] = tuple(vals)
+        return self.values[tag]
+
+    # -- TiffImagePlugin._setup
+
+    def _setup(self) -> None:
+        if 0xBC01 in self.tagdata:
+            _tiff_broken("Windows Media Photo")
+        compression = _TIFF_COMPRESSION[self.get(259, 1)]
+        planar = self.get(284, 1)
+        photo = self.get(262, 0)
+        if compression == "tiff_jpeg":
+            photo = 6
+        fill = self.get(266, 1)
+        if 256 not in self.tagdata or 257 not in self.tagdata:
+            _tiff_broken("missing dimensions")
+        xsize, ysize = self.get(256), self.get(257)
+        if not isinstance(xsize, int) or not isinstance(ysize, int):
+            _tiff_broken("invalid dimensions")
+        orientation = self.get(274)
+        self.tile_size = (xsize, ysize)
+        self.size = (ysize, xsize) if orientation in (5, 6, 7, 8) else (xsize, ysize)
+        fmt = self.get(339, (1,))
+        if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+            fmt = (1,)
+        bps = self.get(258, (1,))
+        extra = self.get(338, ())
+        count = 3 if photo in (2, 6, 8) else 4 if photo == 5 else 1
+        count += len(extra)
+        spp = self.get(277, 3 if compression == "tiff_jpeg" and photo in (2, 6) else 1)
+        if spp > _TIFF_MAX_SAMPLES:
+            _tiff_broken("invalid value for samples per pixel")
+        if spp < len(bps):
+            bps = bps[:spp]
+        elif spp > len(bps) and len(bps) == 1:
+            bps = bps * spp
+        if len(bps) != spp:
+            _tiff_broken("unknown data organization")
+        key = (self.prefix, photo, fmt, fill, bps, extra)
+        if key in _TIFF_LEFT_OUT:
+            raise ImageCodecError(f"TIFF of {_TIFF_LEFT_OUT[key]} is not "
+                                  f"supported")
+        if key not in _TIFF_OPEN_INFO:
+            _tiff_broken("unknown pixel mode")
+        mode, raw = _TIFF_OPEN_INFO[key]
+        if compression not in _TIFF_READ:
+            raise ImageCodecError(f"TIFF of {compression} compression is not "
+                                  f"supported")
+        self.compression, self.photo, self.planar = compression, photo, planar
+        self.bps, self.extra, self.count = bps, extra, count
+        self.orientation = orientation
+        tiles = []
+        if compression != "raw":
+            if fill == 2:
+                mode, raw = _TIFF_OPEN_INFO[key[:3] + (1,) + key[4:]]
+            if photo == 6 and compression == "jpeg" and planar == 1:
+                raw = "RGB"
+            elif raw == "I;16":
+                raw = "I;16N"
+            elif raw.endswith((";16B", ";16L")):
+                raw = raw[:-1] + "N"
+        elif 273 in self.tagdata or 324 in self.tagdata:
+            if 273 in self.tagdata:
+                offsets, h, w = self.get(273), self.get(278, ysize), xsize
+            else:
+                offsets, w, h = self.get(324), self.get(322), self.get(323)
+                if not isinstance(w, int) or not isinstance(h, int):
+                    _tiff_broken("invalid tile dimensions")
+            if w == xsize and h == ysize and planar != 2:
+                offsets = offsets[-1:]
+            x = y = layer = 0
+            for offset in offsets:
+                stride = w * sum(bps) / 8 if x + w > xsize else 0
+                tile_raw = raw
+                if planar == 2:
+                    tile_raw = raw[layer]
+                    stride /= count
+                tiles.append(((x, y, min(x + w, xsize), min(y + h, ysize)),
+                              offset, tile_raw, int(stride)))
+                x += w
+                if x >= xsize:
+                    x, y = 0, y + h
+                    if y >= ysize:
+                        y = 0
+                        layer += 1
+        else:
+            _tiff_broken("unknown data organization")
+        self.mode, self.raw, self.tiles = mode, raw, tiles
+        self.palette = None
+        if mode in ("P", "PA"):
+            cmap = self.get(320)
+            if cmap is None:
+                _tiff_broken("palette image without a ColorMap")
+            self.palette = b"".join(struct.pack("B", b // 256) for b in cmap)
+
+
+# libtiff's type widths (0: a type it does not know) and its integer types
+_LT_WIDTH = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8,
+             11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+_LT_INT = {1: "B", 6: "b", 3: "H", 8: "h", 4: "L", 9: "l", 13: "L", 16: "Q",
+           17: "q", 18: "Q"}
+_LT_SHORT_TYPES = (1, 6, 3, 8, 4, 9, 16, 17)
+_LT_LONG_TYPES = _LT_SHORT_TYPES + (13,)
+_LT_LONG8_TYPES = _LT_LONG_TYPES + (18,)
+_LT_NUMBER_TYPES = _LT_SHORT_TYPES + (5, 10, 11, 12)
+# tags libtiff knows (tif_dirinfo.c) among those a damaged file may name;
+# other tags are anonymous fields, read and ignored
+_LT_FIRST_PASS = (256, 257, 32997, 322, 323, 32998, 284, 278, 338)
+_LT_PER_SAMPLE = (258, 339, 280, 281, 32996)
+
+
+class _LibtiffError(Exception):
+    """libtiff fails to read the directory, or a strip or tile."""
+
+
+def _lt_fail(why: str):
+    raise _LibtiffError(why)
+
+
+class _LibtiffDir:
+    """The directory as libtiff 4.7.1's TIFFClientOpen + TIFFReadDirectory
+    read it for Pillow's libtiff decoder (the first IFD; a duplicated tag
+    taken at its first entry; each tag's own type and range rules, its
+    errors fatal or ignored as libtiff treats them)."""
+
+    def __init__(self, f: _TiffFile):
+        self.data, self.e, self.big = f.data, f.e, f.big
+        data, e = self.data, self.e
+        version = struct.unpack(e + "H", data[2:4])[0]
+        if version not in (42, 43) or (version == 43) != self.big:
+            _lt_fail("bad TIFF version")
+        if self.big and struct.unpack(e + "HH", data[4:8]) != (8, 0):
+            _lt_fail("bad BigTIFF header")
+        at, head, size = f.ifd_offset, (8 if self.big else 2), (20 if self.big else 12)
+        if at + head > len(data):
+            _lt_fail("cannot read the directory count")
+        count = struct.unpack(e + ("Q" if self.big else "H"), data[at:at + head])[0]
+        if count > 4096:
+            _lt_fail("directory count fails its sanity check")
+        if count == 0:
+            _lt_fail("zero tag directories are not supported")
+        at += head
+        if at + count * size > len(data):
+            _lt_fail("cannot read the directory")
+        self.entries, seen = [], set()
+        for i in range(count):
+            tag, typ, cnt, value = struct.unpack(
+                e + ("HHQ8s" if self.big else "HHL4s"),
+                data[at + i * size:at + (i + 1) * size])
+            if tag not in seen:
+                seen.add(tag)
+                self.entries.append((tag, typ, cnt, value))
+        self.read()
+
+    # -- TIFFReadDirEntry*
+
+    def _values(self, ent, limit=None) -> list:
+        tag, typ, cnt, value = ent
+        width = _LT_WIDTH.get(typ, 0)
+        if not width:
+            raise _LibtiffError("type")
+        n = cnt if limit is None else min(cnt, limit)
+        size = n * width
+        if size > len(self.data):
+            raise _LibtiffError("io")
+        # inline or not by the entry's own count (up to 10 values)
+        if min(cnt, 10) * width <= (8 if self.big else 4):
+            raw = value[:size]
+        else:
+            off = struct.unpack(self.e + ("Q" if self.big else "L"),
+                                value[:8 if self.big else 4])[0]
+            if off + size > len(self.data):
+                raise _LibtiffError("io")
+            raw = self.data[off:off + size]
+        if typ in _LT_INT:
+            return list(struct.unpack(f"{self.e}{n}{_LT_INT[typ]}", raw))
+        if typ in (5, 10):
+            v = struct.unpack(f"{self.e}{2 * n}{'L' if typ == 5 else 'l'}", raw)
+            return [a / b if b else 0.0 for a, b in zip(v[::2], v[1::2])]
+        if typ in (11, 12):
+            return list(struct.unpack(f"{self.e}{n}{'f' if typ == 11 else 'd'}", raw))
+        return list(raw)                   # ASCII, UNDEFINED
+
+    def _ints(self, ent, types, hi, limit=None) -> list:
+        if ent[1] not in types:
+            raise _LibtiffError("type")
+        vals = self._values(ent, limit)
+        if any(v < 0 or v > hi for v in vals):
+            raise _LibtiffError("range")
+        return vals
+
+    def short(self, ent) -> int:
+        if ent[2] != 1:
+            raise _LibtiffError("count")
+        return self._ints(ent, _LT_SHORT_TYPES, 0xFFFF)[0]
+
+    def long(self, ent) -> int:
+        if ent[2] != 1:
+            raise _LibtiffError("count")
+        return self._ints(ent, _LT_LONG_TYPES, 0xFFFFFFFF)[0]
+
+    def per_sample_short(self, ent) -> int:
+        try:
+            return self.short(ent)
+        except _LibtiffError as err:
+            if str(err) != "count":
+                raise
+        if ent[2] < self.spp:
+            raise _LibtiffError("count")
+        vals = self._ints(ent, _LT_SHORT_TYPES, 0xFFFF)
+        if any(v != vals[0] for v in vals[:self.spp]):
+            raise _LibtiffError("different values per sample")
+        return vals[0]
+
+    def floats(self, ent, count: int) -> list:
+        if ent[2] != count or ent[1] not in _LT_NUMBER_TYPES:
+            raise _LibtiffError("count or type")
+        return self._values(ent)
+
+    # -- TIFFReadDirectory
+
+    def find(self, tag: int):
+        for ent in self.entries:
+            if ent[0] == tag:
+                return ent
+        return None
+
+    def read(self) -> None:
+        self.spp, self.extrasamples = 1, []
+        ent = self.find(277)
+        if ent:
+            try:
+                self.spp = self.short(ent)
+            except _LibtiffError:
+                _lt_fail("bad SamplesPerPixel")
+            if self.spp == 0:
+                _lt_fail("SamplesPerPixel 0")
+        ent = self.find(259)
+        self.compression = 1
+        if ent:
+            try:
+                self.compression = self.per_sample_short(ent)
+            except _LibtiffError:
+                _lt_fail("bad Compression")
+        self.width = self.length = 0
+        self.planar, self.rowsperstrip, self.tilewidth, self.tilelength = 1, None, None, None
+        fields = set()
+        codec_tags = {317: (5, 8, 32946), 347: (7,)}
+        for tag, typ, cnt, value in self.entries:
+            ent = (tag, typ, cnt, value)
+            if tag in (277, 259):
+                continue
+            if tag in (273, 279, 324, 325):
+                fields.add(tag)
+            elif tag in _LT_FIRST_PASS:
+                try:
+                    if tag == 338:
+                        vals = self._ints(ent, _LT_SHORT_TYPES, 0xFFFF)
+                        if len(vals) > self.spp or any(v > 2 for v in vals):
+                            raise _LibtiffError("value")
+                        self.extrasamples = vals
+                    elif tag == 284:
+                        self.planar = self.short(ent)
+                        if self.planar not in (1, 2):
+                            raise _LibtiffError("value")
+                    else:
+                        v = self.long(ent)
+                        if tag == 278 and v == 0:
+                            raise _LibtiffError("value")
+                        if tag in (32997, 32998):
+                            continue
+                        setattr(self, {256: "width", 257: "length", 278: "rowsperstrip",
+                                       322: "tilewidth", 323: "tilelength"}[tag], v)
+                except _LibtiffError:
+                    _lt_fail(f"bad tag {tag}")
+                fields.add(tag)
+        if not {256, 257} & fields:
+            _lt_fail("missing ImageLength")
+        tiled = bool({322, 323} & fields)
+        rps = 0xFFFFFFFF if self.rowsperstrip is None else self.rowsperstrip
+        if not tiled:
+            nstrips = 1 if rps == 0xFFFFFFFF else _howmany(self.length, rps)
+            self.tilewidth, self.tilelength = self.width, rps
+        else:
+            tw = self.width if self.tilewidth in (None, 0xFFFFFFFF) else self.tilewidth
+            th = self.length if self.tilelength in (None, 0xFFFFFFFF) else self.tilelength
+            self.tilewidth = 0 if self.tilewidth is None else self.tilewidth
+            self.tilelength = 0 if self.tilelength is None else self.tilelength
+            nstrips = (0 if not tw or not th
+                       else _howmany(self.width, tw) * _howmany(self.length, th))
+        if self.planar == 2:
+            nstrips *= self.spp
+        if nstrips == 0 or nstrips >= 1 << 32:
+            _lt_fail("zero strips or tiles")
+        self.tiled, self.nstrips, self.rowsperstrip_ = tiled, nstrips, rps
+        self.stripsperimage = nstrips // self.spp if self.planar == 2 else nstrips
+        off_tag, cnt_tag = (324, 325) if tiled else (273, 279)
+        if off_tag not in fields:
+            _lt_fail("missing strip offsets")
+        # second pass
+        self.bps, self.sampleformat, self.photometric = 1, 1, None
+        self.fillorder, self.predictor = 1, 1
+        self.subsampling, self.refbw, self.coeffs = None, None, None
+        self.jpegtables, self.colormap = None, None
+        bps_read = False
+        for tag, typ, cnt, value in self.entries:
+            ent = (tag, typ, cnt, value)
+            if tag in (277, 259) or tag in _LT_FIRST_PASS:
+                continue
+            if tag in codec_tags and self.compression not in codec_tags[tag]:
+                continue
+            if tag in _LT_PER_SAMPLE:
+                try:
+                    v = self.per_sample_short(ent)
+                except _LibtiffError:
+                    _lt_fail(f"bad tag {tag}")
+                if tag == 258:
+                    self.bps, bps_read = v, True
+                elif tag == 339:
+                    if not 1 <= v <= 6:
+                        _lt_fail("bad SampleFormat")
+                    self.sampleformat = v
+                continue
+            try:
+                if tag == 320:
+                    if not bps_read or self.bps > 24:
+                        continue
+                    if cnt != 3 << self.bps:
+                        continue
+                    self.colormap = self._ints(ent, _LT_SHORT_TYPES, 0xFFFF)
+                elif tag == 262:
+                    self.photometric = self.short(ent)
+                elif tag == 266:
+                    v = self.short(ent)
+                    if v in (1, 2):
+                        self.fillorder = v
+                elif tag == 317:
+                    self.predictor = self.short(ent)
+                elif tag == 530:
+                    if cnt == 2:
+                        self.subsampling = tuple(self._ints(ent, _LT_SHORT_TYPES, 0xFFFF))
+                elif tag == 532:
+                    self.refbw = self.floats(ent, 6)
+                elif tag == 529:
+                    self.coeffs = self.floats(ent, 3)
+                elif tag == 347:
+                    if typ not in (1, 2, 7) + _LT_SHORT_TYPES:
+                        continue
+                    vals = self._values(ent)
+                    if cnt and all(0 <= v <= 255 for v in vals):
+                        self.jpegtables = bytes(vals)
+            except _LibtiffError:
+                pass                          # recovered: the tag is ignored
+        if self.photometric is None:
+            self.photometric = 0
+        if self.photometric == 3 and self.colormap is None:
+            if self.bps >= 8:
+                self.photometric = 2 if self.spp == 3 else 1
+            else:
+                _lt_fail("missing Colormap")
+        try:
+            self.offsets = self._ints(self.find(off_tag), _LT_LONG8_TYPES,
+                                      2 ** 63 - 1, self.nstrips)
+            counts = self.find(cnt_tag)
+            self.bytecounts = (None if counts is None else
+                               self._ints(counts, _LT_LONG8_TYPES, 2 ** 63 - 1,
+                                          self.nstrips))
+        except _LibtiffError:
+            _lt_fail("bad strip offsets or byte counts")
+        self.offsets += [0] * (self.nstrips - len(self.offsets))
+        if self.bytecounts is None:
+            if (self.planar == 1 and nstrips > 1) or (self.planar == 2 and nstrips != self.spp):
+                _lt_fail("missing StripByteCounts")
+            self._estimate_bytecounts()
+        else:
+            self.bytecounts += [0] * (self.nstrips - len(self.bytecounts))
+            if (nstrips == 1 and not tiled and self.offsets[0] != 0
+                    and self.bytecounts[0] == 0):
+                self._estimate_bytecounts()
+        if (self.compression == 7 and self.photometric == 6 and self.planar == 1
+                and self.spp == 3 and self.subsampling is None):
+            self._jpeg_subsampling()
+        if self.subsampling is None:
+            self.subsampling = (2, 2)
+        if self.scanline_size() == 0:
+            _lt_fail("zero scanline size")
+        if (self.tile_size() if tiled else self.strip_size(min(rps, self.length))) == 0:
+            _lt_fail("zero strip or tile size")
+
+    def _estimate_bytecounts(self) -> None:
+        """EstimateStripByteCounts for compressed data: the file's size less
+        the header, the directory and its out-of-line values."""
+        space = ((16 + 8 + len(self.entries) * 20 + 8) if self.big
+                 else (8 + 2 + len(self.entries) * 12 + 4))
+        for tag, typ, cnt, value in self.entries:
+            width = _LT_WIDTH.get(typ, 0)
+            if not width:
+                _lt_fail("unknown tag type")
+            size = width * cnt
+            space += 0 if size <= (8 if self.big else 4) else size
+        filesize = len(self.data)
+        space = filesize if filesize < space else filesize - space
+        if self.planar == 2:
+            space //= self.spp
+        self.bytecounts = [space] * self.nstrips
+        last = self.offsets[-1]
+        if last + space > filesize:
+            self.bytecounts[-1] = 0 if last >= filesize else filesize - last
+        if self.rowsperstrip is None:
+            self.rowsperstrip_ = self.length
+            if not self.tiled:
+                self.tilelength = self.length
+
+    def _jpeg_subsampling(self) -> None:
+        """JPEGFixupTagsSubsampling: a YCbCr JPEG file without
+        YCbCrSubsampling takes its first strip's luma sampling."""
+        off, n = self.offsets[0], self.bytecounts[0]
+        if not n or off >= len(self.data):
+            return
+        info = (ctypes.c_int * 23)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        strip = self.data[off:off + n]
+        if _lib().cpt_jpeg_frame_tiff(None, 0, strip, len(strip), info, err,
+                                      _ERR_LEN) < 0 or info[2] != 3:
+            return
+        h, v = info[3], info[4]
+        if h in (1, 2, 4) and v in (1, 2, 4) and all(
+                info[3 + 2 * c] == 1 and info[4 + 2 * c] == 1 for c in (1, 2)):
+            self.subsampling = (h, v)
+
+    # -- sizes (tif_strip.c, tif_tile.c)
+
+    def _ycbcr_packed(self, upsampled: bool) -> bool:
+        return (self.planar == 1 and self.photometric == 6 and self.spp == 3
+                and not upsampled)
+
+    def _subsampling_ok(self) -> bool:
+        hs, vs = self.subsampling
+        return hs in (1, 2, 4) and vs in (1, 2, 4)
+
+    def scanline_size(self, upsampled: bool = False) -> int:
+        if self._ycbcr_packed(upsampled):
+            if not self._subsampling_ok():
+                return 0
+            hs, vs = self.subsampling
+            row = _howmany(self.width, hs) * (hs * vs + 2)
+            return (row * self.bps + 7) // 8 // vs
+        samples = self.width * (self.spp if self.planar == 1 else 1)
+        return (samples * self.bps + 7) // 8
+
+    def strip_size(self, rows: int, upsampled: bool = False) -> int:
+        if self._ycbcr_packed(upsampled):
+            if not self._subsampling_ok():
+                return 0
+            hs, vs = self.subsampling
+            row = (_howmany(self.width, hs) * (hs * vs + 2) * self.bps + 7) // 8
+            return row * _howmany(rows, vs)
+        return rows * self.scanline_size(upsampled)
+
+    def tile_row_size(self) -> int:
+        if not self.tilelength or not self.tilewidth:
+            return 0
+        bits = self.bps * self.tilewidth * (self.spp if self.planar == 1 else 1)
+        return (bits + 7) // 8
+
+    def tile_size(self, upsampled: bool = False) -> int:
+        if not self.tilelength or not self.tilewidth:
+            return 0
+        if self._ycbcr_packed(upsampled):
+            if not self._subsampling_ok():
+                return 0
+            hs, vs = self.subsampling
+            row = (_howmany(self.tilewidth, hs) * (hs * vs + 2) * self.bps + 7) // 8
+            return row * _howmany(self.tilelength, vs)
+        return self.tilelength * self.tile_row_size()
+
+
+def _howmany(x: int, y: int) -> int:
+    """TIFFhowmany_32: ceil(x / y), 0 where it would overflow 32 bits."""
+    return (x + y - 1) // y if x < 0xFFFFFFFF - (y - 1) else 0
+
+
+# -- Pillow's unpackers for the TIFF raw modes (Unpack.c)
+
+_TIFF_BANDS = {"1": "1", "L": "L", "P": "P", "I;16": "I", "I;16B": "I",
+               "LA": "LA", "PA": "PA", "RGB": "RGB", "RGBA": "RGBA",
+               "CMYK": "CMYK"}
+
+
+def _tiff_raw_bits(raw: str) -> int:
+    """Bits a pixel of Pillow's unpacker for ``raw``."""
+    if len(raw) == 1:
+        return 1 if raw == "1" else 8
+    base, _, suffix = raw.partition(";")
+    if suffix[:1].isdigit():
+        bits = int(suffix[:2] if suffix[:2].isdigit() else suffix[0])
+        return bits * (len(base) if base in ("RGB", "RGBA", "RGBa", "RGBX", "CMYK") else 1)
+    if base == "1":
+        return 1
+    return 8 * len(base)
+
+
+def _reverse_bits(buf: np.ndarray) -> np.ndarray:
+    out = np.ascontiguousarray(buf, np.uint8).copy()
+    _lib().cpt_tiff_reverse_bits(_ptr(out), out.size)
+    return out
+
+
+def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """Pillow's "RGBa" unpacker: colour * 255 // alpha, clipped."""
+    a = rgba[..., 3:4].astype(np.int32)
+    c = rgba[..., :3].astype(np.int32)
+    out = np.where(a == 0, 0, np.where(a == 255, c, np.minimum(
+        c * 255 // np.maximum(a, 1), 255)))
+    return np.concatenate([out, a], -1).astype(np.uint8)
+
+
+def _tiff_unpack(rows: np.ndarray, raw: str, w: int) -> np.ndarray:
+    """Rows of raw bytes [h, n] -> pixels by Pillow's unpacker for
+    ``raw``: [h, w] ("1", "L", "P", 16-bit grey), else [h, w, bands]."""
+    h = len(rows)
+    base, _, suffix = raw.partition(";")
+    if suffix.endswith("R") and not suffix.startswith("16"):
+        rows = _reverse_bits(rows)
+        suffix = suffix[:-1]
+    invert = suffix.endswith("I")
+    if invert:
+        suffix = suffix[:-1]
+    if base in ("1", "L", "P") and suffix in ("", "1", "2", "4"):
+        bits = 1 if base == "1" else int(suffix or 8)
+        if bits == 8:
+            v = rows[:, :w]
+        else:
+            v = np.unpackbits(rows, axis=1)[:, :w * bits].reshape(h, w, bits)
+            v = (v * (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)).sum(
+                2, dtype=np.uint8)
+            if base != "P":
+                v = v * np.uint8({1: 255, 2: 85, 4: 17}[bits])
+        return (~v if invert else v).astype(np.uint8)
+    if base == "I":                                   # 16-bit grey
+        order = {"16": "<", "16B": ">", "16N": "="}[suffix]
+        return rows[:, :2 * w].reshape(h, -1).view(order + "u2")[:, :w]
+    if suffix.startswith("16"):
+        n = {"RGB": 3}.get(base, 4)
+        px = rows[:, :2 * n * w].reshape(h, w, n, 2)
+        high = 0 if suffix == "16B" or (suffix == "16N" and sys.byteorder == "big") else 1
+        px = px[..., high]
+        if base == "RGBX":
+            return np.ascontiguousarray(px[..., :3])
+        return _unpremultiply(px) if base == "RGBa" else np.ascontiguousarray(px)
+    n = len(base)
+    px = rows[:, :n * w].reshape(h, w, n)
+    if base in ("LA", "PA"):
+        return np.ascontiguousarray(px)
+    if base in ("PX",):
+        return np.ascontiguousarray(px[..., 0])
+    if base.startswith("RGBa"):
+        return _unpremultiply(px[..., :4])
+    if base.startswith(("RGBA", "CMYK")):
+        return np.ascontiguousarray(px[..., :4])
+    return np.ascontiguousarray(px[..., :3])          # RGB, RGBX, RGBXX, RGBXXX
+
+
+def _tiff_canvas(mode: str, w: int, h: int) -> np.ndarray:
+    bands = len(_TIFF_BANDS[mode])
+    dtype = np.uint16 if mode.startswith("I;16") else np.uint8
+    return np.zeros((h, w) if bands == 1 else (h, w, bands), dtype)
+
+
+def _tiff_raw_image(f: _TiffFile, fault: int) -> np.ndarray:
+    """ImageFile.load over the raw tiles: sorted by offset, consecutive
+    duplicates kept last, each read from its offset to its last row (the
+    file ends first: truncated), unpacked into its box."""
+    w, h = f.tile_size
+    img = _tiff_canvas(f.mode, w, h)
+    bands = _TIFF_BANDS[f.mode]
+    tiles = sorted(f.tiles, key=lambda t: t[1])
+    kept = []
+    for t in tiles:
+        if kept and (kept[-1][0], kept[-1][2:]) == (t[0], t[2:]):
+            kept[-1] = t
+        else:
+            kept.append(t)
+    for (x0, y0, x1, y1), offset, raw, stride in kept:
+        if not all(isinstance(v, int) for v in (x0, y0, x1, y1, offset)):
+            _tiff_broken("non-integer tile")
+        tw, th = x1 - x0, y1 - y0
+        if tw <= 0 or th <= 0 or x1 > w or y1 > h:
+            _tiff_broken("tile cannot extend outside image")
+        if offset < 0:
+            _tiff_broken("negative seek value")
+        band = raw not in _TIFF_RAW_MODES     # a plane's band unpacker
+        if band and (len(raw) != 1 or raw not in bands):
+            _tiff_broken(f"unknown raw mode {raw!r}")
+        line = (tw * _tiff_raw_bits(raw) + 7) // 8
+        skip = stride - line if stride else 0
+        if skip < 0:
+            _tiff_broken("tile rows wider than their stride")
+        pitch = line + skip
+        if offset + (th - 1) * pitch + line > len(f.data):
+            raise ImageCodecError("truncated TIFF file (image data too short)")
+        buf = np.frombuffer(f.data, np.uint8, count=(th - 1) * pitch + line,
+                            offset=offset)
+        rows = np.lib.stride_tricks.as_strided(buf, (th, line), (pitch, 1))
+        if band:
+            img[y0:y1, x0:x1, bands.index(raw)] = rows[:, :tw]
+        else:
+            img[y0:y1, x0:x1] = _tiff_unpack(np.ascontiguousarray(rows), raw, tw)
+    return img
+
+
+_TIFF_RAW_MODES = {raw for _, raw in _TIFF_OPEN_INFO.values()}
+# Pillow's unpackers for the libtiff decoder's raw modes: OPEN_INFO's pairs,
+# 16-bit ones in native order, YCbCr JPEG as "RGB"
+_TIFF_UNPACKERS = set(_TIFF_OPEN_INFO.values()) | {
+    (mode, raw[:-1] + "N") for mode, raw in _TIFF_OPEN_INFO.values()
+    if raw.endswith(("16B", "16L"))} | {("I;16", "I;16N")}
+
+
+# -- libtiff's strip and tile reading, as Pillow's libtiff decoder drives it
+
+_INT_MAX = 2 ** 31 - 1
+
+
+def _inflate(src: bytes, occ: int, partial: bool) -> Tuple[bytes, bool]:
+    """ZIPDecode: (the bytes inflated into a buffer of ``occ``, whether it
+    filled without a zlib error); after an error, the bytes inflated before
+    it only if ``partial`` (else none)."""
+    d = zlib.decompressobj()
+    try:
+        out = d.decompress(src, occ)
+        return out, len(out) == occ
+    except zlib.error:
+        if not partial:
+            return b"", False
+    d, parts = zlib.decompressobj(), []   # the output before the error
+    try:
+        for i in range(len(src)):
+            parts.append(d.decompress(src[i:i + 1], occ - sum(map(len, parts))))
+    except zlib.error:
+        pass
+    return b"".join(parts)[:occ], False
+
+
+class _LibtiffReader:
+    """TIFFReadEncodedStrip / TIFFReadEncodedTile over the directory
+    libtiff read: each returns (buffer, ok), the buffer holding what libtiff
+    leaves in it when the decode fails."""
+
+    def __init__(self, f: _TiffFile, lt: _LibtiffDir, upsampled: bool, fault: int,
+                 partial: bool = False):
+        """``partial``: a strip that fails to decode is used as far as it
+        decoded (TIFFRGBAImage), not refused."""
+        self.f, self.lt, self.up, self.fault = f, lt, upsampled, fault
+        self.partial = partial
+        self.swab = (f.e == ">") != (sys.byteorder == "big")
+        self.setup_error = None
+        if lt.compression in (5, 8, 32946):
+            if lt.predictor == 2 and lt.bps not in (8, 16, 32, 64):
+                self.setup_error = "predictor with samples of that size"
+            elif lt.predictor == 3 and lt.sampleformat != 3:
+                self.setup_error = "floating-point predictor on integers"
+            elif lt.predictor not in (1, 2, 3):
+                self.setup_error = f"predictor {lt.predictor}"
+            elif lt.predictor != 1 and lt.bps not in (8, 16):
+                raise ImageCodecError(f"TIFF of a predictor on {lt.bps}-bit "
+                                      f"samples is not supported")
+        if lt.compression == 7:
+            self.tables = lt.jpegtables or b""
+            if self.tables and (len(self.tables) < 2 or self.tables[:2] != b"\xff\xd8"):
+                self.setup_error = "bogus JPEGTables field"
+
+    def _fill(self, index: int, size: int) -> bytes:
+        """TIFFFillStrip / TIFFFillTile: the strip's bytes, bit-reversed
+        under FillOrder 2."""
+        lt = self.lt
+        count, off = lt.bytecounts[index], lt.offsets[index]
+        if count == 0 or count > 2 ** 63 - 1:
+            raise _LibtiffError(f"invalid byte count {count}")
+        if count > 1 << 20 and size and (count - 4096) // 10 > size:
+            count = size * 10 + 4096
+        if count > len(self.f.data) or off > len(self.f.data) - count:
+            raise _LibtiffError("read error on a strip")
+        raw = self.f.data[off:off + count]
+        if lt.fillorder == 2:
+            raw = _reverse_bits(np.frombuffer(raw, np.uint8)).tobytes()
+        if self.setup_error:
+            raise _LibtiffError(self.setup_error)
+        return raw
+
+    def read(self, index: int, size: int, rowsize: int, segment: tuple,
+             buf: Optional[np.ndarray] = None):
+        """Decode strip or tile ``index`` (``size`` bytes in rows of
+        ``rowsize``; ``segment`` = its width, height and whether it is the
+        image's last strip) into ``buf`` (a new zeroed buffer when None):
+        (buf, ok). Raises _LibtiffError where it cannot be filled."""
+        lt = self.lt
+        raw = self._fill(index, size)
+        out = np.zeros(size, np.uint8) if buf is None else buf
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        src = np.frombuffer(raw, np.uint8)
+        if lt.compression == 5:
+            if len(raw) >= 2 and raw[0] == 0 and raw[1] & 1:
+                raise ImageCodecError("TIFF of old-style LZW codes is not "
+                                      "supported")
+            ok = _lib().cpt_tiff_lzw(_ptr(src), src.size, _ptr(out), size,
+                                     self.fault, err, _ERR_LEN) >= 0
+        elif lt.compression == 32773:
+            ok = _lib().cpt_tiff_packbits(_ptr(src), src.size, _ptr(out), size,
+                                          err, _ERR_LEN) >= 0
+        elif lt.compression in (8, 32946):
+            got, ok = _inflate(raw, size, self.partial)
+            out[:len(got)] = np.frombuffer(got, np.uint8)
+        else:
+            self._jpeg(raw, out, size, rowsize, segment)
+            return out, True
+        if not ok:
+            return out, False
+        if lt.compression != 32773 and lt.predictor == 2:
+            if size % rowsize:
+                return out, False
+            if not self.fault & FAULTS["tiff_no_predictor"]:
+                _check(_lib().cpt_tiff_unpredict(
+                    _ptr(out), size // rowsize, rowsize,
+                    lt.spp if lt.planar == 1 else 1, lt.bps // 8,
+                    int(self.swab), err, _ERR_LEN), err)
+            return out, True
+        if lt.bps == 16 and self.swab:
+            out[:size & ~1] = out[:size & ~1].view(np.uint16).byteswap().view(np.uint8)
+        return out, True
+
+    def _jpeg(self, raw: bytes, out: np.ndarray, size: int, rowsize: int,
+              segment: tuple) -> None:
+        """JPEGPreDecode's checks, then JPEGDecode of the strip or tile
+        (raises _LibtiffError where libtiff or libjpeg fails)."""
+        lt = self.lt
+        sw, sh, last = segment
+        info = (ctypes.c_int * 23)()
+        err = ctypes.create_string_buffer(_ERR_LEN)
+        tables = self.tables
+        if _lib().cpt_jpeg_frame_tiff(tables or None, len(tables), raw, len(raw),
+                                      info, err, _ERR_LEN) < 0:
+            raise _LibtiffError(err.value.decode(errors="replace"))
+        jw, jh, nc = info[0], info[1], info[2]
+        if not (jw == sw and jh > sh and last) and (jw > sw or jh > sh):
+            raise _LibtiffError("JPEG strip or tile larger than expected")
+        if nc != (lt.spp if lt.planar == 1 else 1):
+            raise _LibtiffError("improper JPEG component count")
+        ycbcr = lt.planar == 1 and lt.photometric == 6
+        if (info[3], info[4]) != (lt.subsampling if ycbcr else (1, 1)) or any(
+                (info[3 + 2 * c], info[4 + 2 * c]) != (1, 1) for c in range(1, nc)):
+            raise _LibtiffError("improper JPEG sampling factors")
+        if jw < sw or jh < sh:
+            raise ImageCodecError("TIFF of JPEG strips or tiles smaller than "
+                                  "their space is not supported")
+        fault = (FAULTS["replicate_upsample"]
+                 if self.fault & FAULTS["tiff_jpeg_replicate"] else 0)
+        px = np.empty(jw * jh * (3 if ycbcr else nc), np.uint8)
+        if _lib().cpt_jpeg_decode_tiff(tables or None, len(tables), raw, len(raw),
+                                       int(ycbcr), _ptr(px), fault, err,
+                                       _ERR_LEN) < 0:
+            raise _LibtiffError(err.value.decode(errors="replace"))
+        n = min(size // rowsize, jh) * rowsize
+        out[:n] = px[:n]
+
+
+def _tiff_color_channels(photometric: int) -> int:
+    """_TIFFGetMaxColorChannels."""
+    return {0: 1, 1: 1, 3: 1, 4: 1, 32844: 1, 2: 3, 6: 3, 8: 3, 9: 3, 10: 3,
+            32845: 3, 5: 4}.get(photometric, 0)
+
+
+def _tiff_plane(rows: np.ndarray, plane: int, bits: int, w: int) -> np.ndarray:
+    """_pickUnpackers' plane unpacker: "R" / "G" / "B" ("R;16N" ... at 16
+    bits: the high byte) for planes 0-2, "A" (8 bits) for plane 3."""
+    if bits == 16 and plane < 3:
+        return (rows[:, :2 * w].view("=u2") >> 8).astype(np.uint8)
+    return rows[:, :w]
+
+
+def _tiff_libtiff_image(f: _TiffFile, fault: int) -> np.ndarray:
+    """Pillow's ImagingLibTiffDecode: the directory as libtiff reads it,
+    then the strips or tiles (or, for YCbCr not in JPEG, TIFFRGBAImage)
+    unpacked by Pillow's unpacker for the file's raw mode."""
+    w, h = f.tile_size
+    if (f.mode, f.raw) not in _TIFF_UNPACKERS:
+        _tiff_broken(f"unknown raw mode {f.raw!r} for mode {f.mode!r}")
+    try:
+        lt = _LibtiffDir(f)
+    except _LibtiffError as e:
+        _tiff_broken(f"libtiff: {e}")
+    if (lt.width, lt.length) != (w, h):
+        _tiff_broken("libtiff reads another size")
+    extras = list(lt.extrasamples)
+    colors = _tiff_color_channels(lt.photometric)
+    if colors and lt.spp - len(extras) > colors:
+        extras += [0] * (lt.spp - colors - len(extras))
+    try:
+        if lt.photometric == 6 and not (lt.compression == 7 and lt.planar == 1):
+            return _tiff_rgba(f, lt, fault)
+        return _tiff_planes(f, lt, fault, extras)
+    except _LibtiffError as e:
+        _tiff_broken(f"libtiff: {e}")
+
+
+def _tiff_planes(f: _TiffFile, lt: _LibtiffDir, fault: int, extras: list) -> np.ndarray:
+    """_decodeStrip / _decodeTile."""
+    w, h = f.tile_size
+    up = lt.photometric == 6
+    reader = _LibtiffReader(f, lt, up, fault)
+    img = _tiff_canvas(f.mode, w, h)
+    bits = _tiff_raw_bits(f.raw)
+    bands = len(_TIFF_BANDS[f.mode])
+    planes = 1
+    if lt.planar == 2 and bands > 1:
+        if lt.bps not in (8, 16):
+            _tiff_broken("bits per sample of a separate plane")
+        planes = bands
+
+    def paste(rows: np.ndarray, plane: int, y: int, x: int, n: int) -> None:
+        if planes == 1:
+            img[y:y + len(rows), x:x + n] = _tiff_unpack(rows, f.raw, n)
+        elif plane < bands and not (bands == 2 and plane == 1):
+            img[y:y + len(rows), x:x + n, plane] = _tiff_plane(rows, plane, lt.bps, n)
+
+    if not lt.tiled:
+        row_bytes = lt.scanline_size(up)
+        if row_bytes <= 0 or row_bytes != (w * bits // planes + 7) // 8:
+            _tiff_broken("scanline size differs from its pixels'")
+        rps = h if lt.rowsperstrip in (None, 0xFFFFFFFF) else lt.rowsperstrip
+        if _INT_MAX // row_bytes < rps:
+            _tiff_broken("strip too large")
+        rps_lt = min(lt.rowsperstrip_, lt.length)
+        per_plane = _howmany(lt.length, rps_lt)
+        for y in range(0, h, rps):
+            for plane in range(planes):
+                strip = y // lt.rowsperstrip_ + (plane * lt.stripsperimage
+                                                 if lt.planar == 2 else 0)
+                if strip >= lt.nstrips:
+                    _tiff_broken("strip out of range")
+                first = (strip % per_plane) * rps_lt
+                rows = min(lt.length - first, rps_lt)
+                size = min(lt.strip_size(rows, up), row_bytes * rps)
+                if size <= 0:
+                    _tiff_broken("zero strip size")
+                top = (strip % lt.stripsperimage) * lt.rowsperstrip_
+                seg_h = min(lt.length - top, lt.rowsperstrip_)
+                buf, ok = reader.read(strip, size, row_bytes,
+                                      (lt.width, seg_h, top + seg_h == lt.length))
+                if not ok:
+                    _tiff_broken("libtiff fails to decode a strip")
+                n = min(rps, h - y)
+                paste(buf[:n * row_bytes].reshape(n, row_bytes), plane, y, 0, w)
+    else:
+        tw, th = lt.tilewidth, lt.tilelength
+        row_bytes = lt.tile_row_size()
+        if (tw <= 0 or th <= 0 or row_bytes <= 0
+                or row_bytes != (tw * bits // planes + 7) // 8):
+            _tiff_broken("tile row size differs from its pixels'")
+        if _INT_MAX // row_bytes < th:
+            _tiff_broken("tile too large")
+        size = lt.tile_size(up)
+        across, down = _howmany(lt.width, tw), _howmany(lt.length, th)
+        pixel = bits // planes // 8 or 1
+        for y in range(0, h, th):
+            for plane in range(planes):
+                for x in range(0, w, tw):
+                    if lt.planar == 2 and plane >= lt.spp:
+                        _tiff_broken("sample out of range")
+                    tile = (across * (y // th) + x // tw
+                            + (across * down * plane if lt.planar == 2 else 0))
+                    if tile >= lt.nstrips:
+                        _tiff_broken("tile out of range")
+                    buf, ok = reader.read(tile, size, row_bytes, (tw, th, False))
+                    if not ok:
+                        _tiff_broken("libtiff fails to decode a tile")
+                    cw, ch = min(tw, w - x), min(th, h - y)
+                    pitch = row_bytes
+                    if cw < tw and fault & FAULTS["tiff_edge_tile_stride"]:
+                        pitch = cw * pixel
+                    rows = np.lib.stride_tricks.as_strided(
+                        buf, (ch, row_bytes), (pitch, 1))
+                    paste(np.ascontiguousarray(rows), plane, y, x, cw)
+    if planes > 3 and f.mode == "RGBA" and extras[:1] in ([0], [1]):
+        img = _unpremultiply(img)
+    return img
+
+
+_TIFF_YCBCR_SAMPLING = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _tiff_rgba(f: _TiffFile, lt: _LibtiffDir, fault: int) -> np.ndarray:
+    """_decodeAsRGBA for YCbCr that is not in JPEG: TIFFRGBAImageGet a strip
+    (or a row of tiles) at a time into an RGBA raster (the put routines'
+    replicated chroma; a strip that fails to decode used as far as libtiff
+    left it), its rows then read by Pillow's unpacker for the raw mode."""
+    w, h = f.tile_size
+    if lt.planar != 1:
+        raise ImageCodecError("TIFF of YCbCr in separate planes is not "
+                              "supported")
+    if lt.bps != 8 or lt.spp != 3 or lt.subsampling not in _TIFF_YCBCR_SAMPLING:
+        _tiff_broken("libtiff cannot handle this YCbCr format")
+    coeffs = np.array(lt.coeffs or (0.299, 0.587, 0.114), np.float32)
+    rbw = np.array(lt.refbw or (0, 255, 128, 255, 128, 255), np.float32)
+    if np.isnan(coeffs).any() or coeffs[1] == 0:
+        _tiff_broken("invalid YCbCrCoefficients")
+    if not ((rbw > np.float32(-0x7FFFFFFF + 128)) & (rbw < np.float32(0x7FFFFFFF))).all():
+        _tiff_broken("invalid ReferenceBlackWhite")
+    hs, vs = lt.subsampling
+    block = hs * vs + 2
+    reader = _LibtiffReader(f, lt, False, fault, partial=True)
+    out = np.zeros((h, w, 4), np.uint8)
+    out[..., 3] = 255
+    err = ctypes.create_string_buffer(_ERR_LEN)
+
+    def put(buf: np.ndarray, rows: int, width: int, per_row: int) -> np.ndarray:
+        rgb = np.empty((rows, width, 3), np.uint8)
+        need = _howmany(rows, vs) * per_row * block
+        src = buf if buf.size >= need else np.concatenate(
+            [buf, np.zeros(need - buf.size, np.uint8)])
+        _check(_lib().cpt_tiff_ycbcr(_ptr(src), per_row, hs, vs, width, rows,
+                                     _ptr(coeffs), _ptr(rbw), _ptr(rgb), err,
+                                     _ERR_LEN), err)
+        return rgb
+
+    if not lt.tiled:
+        step = h if lt.rowsperstrip_ == 0xFFFFFFFF else lt.rowsperstrip_
+        rps_lt = min(lt.rowsperstrip_, lt.length)
+        scan = lt.scanline_size()
+        for y in range(0, h, step):
+            n = min(step, h - y)
+            strip = y // lt.rowsperstrip_
+            if strip >= lt.nstrips:
+                _tiff_broken("strip out of range")
+            first = strip * rps_lt
+            this = lt.strip_size(min(lt.length - first, rps_lt))
+            size = min(this, _howmany(n, vs) * vs * scan)
+            buf = np.zeros(lt.strip_size(rps_lt), np.uint8)
+            reader.read(strip, size, scan, (lt.width, n, False), buf)
+            out[y:y + n, :, :3] = put(buf, n, w, _howmany(w, hs))
+    else:
+        tw, th = lt.tilewidth, lt.tilelength
+        size = lt.tile_size()
+        across = _howmany(lt.width, tw)
+        for y in range(0, h, th):
+            n = min(th, h - y)
+            buf, row = None, np.zeros((n, w, 3), np.uint8)
+            for x in range(0, w, tw):
+                tile = across * (y // th) + x // tw
+                if tile >= lt.nstrips and buf is None:
+                    _tiff_broken("tile out of range")
+                if tile < lt.nstrips:   # out of range: the buffer as it was
+                    try:
+                        buf, _ = reader.read(tile, size, lt.tile_row_size(),
+                                             (tw, th, False), buf)
+                    except _LibtiffError:
+                        if buf is None:
+                            raise
+                        buf[:] = 0      # TIFFReadEncodedTile zeroes it
+                cw = min(tw, w - x)
+                # the put routines skip (tw - cw) // hs blocks a row after a
+                # cropped tile's ceil(cw / hs): a row of blocks unless tw is
+                # odd (as libtiff counts it)
+                row[:, x:x + cw] = put(buf, n, cw, _howmany(cw, hs) + (tw - cw) // hs)
+            out[y:y + n, :, :3] = row
+    # the RGBA raster's rows through Pillow's unpacker for the file's raw mode
+    return _tiff_unpack(out.reshape(h, 4 * w), f.raw, w)
+
+
+# Pillow's ImageOps.exif_transpose, by the Orientation tag's value
+_TIFF_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
+                   4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
+                   6: lambda a: a.swapaxes(0, 1)[:, ::-1],
+                   7: lambda a: a.swapaxes(0, 1)[::-1, ::-1],
+                   8: lambda a: a.swapaxes(0, 1)[::-1]}
+
+
+def _tiff_header(data: bytes) -> _TiffFile:
+    """The first image as Image.open finds it (raises where it raises; a
+    size over twice MAX_IMAGE_PIXELS raises, as Pillow's bomb check does)."""
+    f = _TiffFile(data)
+    w, h = f.size
+    _check_size(max(1, w), max(1, h))
+    return f
+
+
+def _decode_tiff(data: bytes, fault: int) -> Tuple[np.ndarray, str, object]:
+    """The first image → (pixels, mode, palette table or None) in a mode
+    ``_convert`` takes: 16-bit grey clipped to L, CMYK through Pillow's
+    cmyk2rgb, a palette's alpha dropped; Pillow's exif_transpose applied."""
+    f = _tiff_header(data)
+    w, h = f.tile_size
+    if w <= 0 or h <= 0:
+        _tiff_broken("empty image")
+    if f.compression == "raw":
+        img = _tiff_raw_image(f, fault)
+    else:
+        img = _tiff_libtiff_image(f, fault)
+    mode, table = f.mode, None
+    if mode in ("P", "PA"):
+        n = len(f.palette) // 3
+        if n > 256:
+            _tiff_broken("invalid palette size")
+        table = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+        pal = np.frombuffer(f.palette, np.uint8)
+        table[:n] = pal[:3 * n].reshape(3, n).T
+        if fault & FAULTS["tiff_colormap_low_byte"]:
+            low = np.array([v & 0xFF for v in f.get(320)][:3 * n], np.uint8)
+            table[:n] = low.reshape(3, n).T
+        if mode == "PA":
+            img, mode = np.ascontiguousarray(img[..., 0]), "P"
+    elif mode.startswith("I;16"):
+        img, mode = np.minimum(img, 255).astype(np.uint8), "L"
+    elif mode == "CMYK":
+        rgb = np.empty(img.shape[:2] + (3,), np.uint8)
+        _lib().cpt_cmyk_to_rgb(_ptr(np.ascontiguousarray(img)), img.shape[0] * img.shape[1],
+                               _ptr(rgb))
+        img, mode = rgb, "RGB"
+    transpose = _TIFF_TRANSPOSE.get(f.orientation)
+    if transpose is not None:
+        img = np.ascontiguousarray(transpose(img))
+    return img, mode, table
+
+
+def encode_tiff(arr: np.ndarray) -> bytes:
+    """The bytes of ``Image.fromarray(arr).save(f, format="TIFF")`` for a
+    uint8 ``[H, W]`` (L) or ``[H, W, 3]`` (RGB) array: Pillow's own writer
+    (no libtiff), little-endian, uncompressed, one strip; its tags in
+    ascending order, BitsPerSample out of line for RGB."""
+    px = np.ascontiguousarray(arr, np.uint8)
+    if px.ndim == 3 and px.shape[2] == 1:
+        px = px[:, :, 0]
+    if px.ndim not in (2, 3) or (px.ndim == 3 and px.shape[2] != 3) or not px.size:
+        raise ImageCodecError(f"TIFF encoder takes non-empty [H, W] or [H, W, "
+                              f"3] arrays, got shape {tuple(np.shape(arr))}")
+    h, w = px.shape[:2]
+    spp = 1 if px.ndim == 2 else 3
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp), (259, 3, [1]),
+            (262, 3, [1 if spp == 1 else 2]), (273, 4, [0])]
+    tags += [(277, 3, [3])] if spp == 3 else []
+    tags += [(278, 4, [h]), (279, 4, [w * spp * h]), (284, 3, [1])]
+    aux_at = 8 + 2 + 12 * len(tags) + 4
+    entries, aux = b"", b""
+    for tag, typ, vals in tags:
+        body = struct.pack(f"<{len(vals)}{'H' if typ == 3 else 'L'}", *vals)
+        if len(body) > 4:
+            entries += struct.pack("<HHLL", tag, typ, len(vals), aux_at + len(aux))
+            aux += body + b"\0" * (len(body) & 1)
+        else:
+            entries += struct.pack("<HHL", tag, typ, len(vals)) + body.ljust(4, b"\0")
+    at = entries.index(struct.pack("<HHL", 273, 4, 1)) + 8
+    data_at = aux_at + len(aux)
+    entries = entries[:at] + struct.pack("<L", data_at) + entries[at + 4:]
+    return (b"II*\0" + struct.pack("<LH", 8, len(tags)) + entries
+            + struct.pack("<L", 0) + aux + px.tobytes())
+
+
 # ------------------------------------------------------------------- API
 
-_READS = "JPEG, PNG, GIF, BMP and WEBP are"
+_READS = "JPEG, PNG, GIF, BMP, WEBP and TIFF are"
 
 
 def _format_of(data: bytes) -> str:
@@ -912,17 +2199,15 @@ def _format_of(data: bytes) -> str:
     if (data.startswith(b"RIFF") and data[8:12] == b"WEBP"
             and data[12:16] in _WEBP_CHUNKS):
         return "WEBP"
-    for magic, name in ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF")):
-        if data.startswith(magic):
-            raise ImageCodecError(f"{name} images are not supported "
-                                  f"({_READS})")
+    if data.startswith(_TIFF_PREFIXES):
+        return "TIFF"
     raise ImageCodecError(f"cannot identify image file ({_READS})")
 
 
 def decode(data: bytes, mode: str = "RGB") -> np.ndarray:
     """``np.asarray(Image.open(io.BytesIO(data)).convert(mode))`` for a
-    JPEG, PNG, GIF, BMP or WEBP: uint8 ``[H, W, 3]`` for ``"RGB"``, ``[H, W]`` for
-    ``"L"``."""
+    JPEG, PNG, GIF, BMP, WEBP or TIFF: uint8 ``[H, W, 3]`` for ``"RGB"``,
+    ``[H, W]`` for ``"L"``."""
     return _decode(data, mode, 0)
 
 
@@ -934,7 +2219,7 @@ def _decode(data: bytes, mode: str, fault: int) -> np.ndarray:
         arr = _decode_jpeg(data, fault)
         return _convert(arr, "RGB" if arr.ndim == 3 else "L", mode)
     reader = {"PNG": _decode_png, "GIF": _decode_gif, "BMP": _decode_bmp,
-              "WEBP": _decode_webp}[fmt]
+              "WEBP": _decode_webp, "TIFF": _decode_tiff}[fmt]
     arr, src, palette = reader(data, fault)
     return _convert(arr, src, mode, palette)
 
@@ -959,6 +2244,8 @@ def image_size(data_or_path) -> Tuple[int, int]:
         return _bmp_header(data)["size"]
     if fmt == "WEBP":
         return _webp_header(data)["size"]
+    if fmt == "TIFF":
+        return _tiff_header(data).size
     hdr = _png_header(data)
     return hdr["width"], hdr["height"]
 
@@ -971,8 +2258,8 @@ def read_image(path, mode: str = "RGB") -> np.ndarray:
 def write_image(path_or_file, arr: np.ndarray, format: Optional[str] = None,
                 quality: Optional[int] = None) -> None:
     """``Image.fromarray(arr).save(path_or_file, format, quality=...)`` for
-    JPEG, PNG and BMP: the format from ``format`` or the file's extension,
-    JPEG at ``quality`` (75 when None, Pillow's default)."""
+    JPEG, PNG, BMP and TIFF: the format from ``format`` or the file's
+    extension, JPEG at ``quality`` (75 when None, Pillow's default)."""
     fmt = (format or "").upper()
     if not fmt:
         name = (os.fspath(path_or_file)
@@ -980,19 +2267,22 @@ def write_image(path_or_file, arr: np.ndarray, format: Optional[str] = None,
                 else getattr(path_or_file, "name", ""))
         ext = Path(str(name)).suffix.lower()
         fmt = {".jpg": "JPEG", ".jpeg": "JPEG", ".png": "PNG",
-               ".bmp": "BMP"}.get(ext, "")
+               ".bmp": "BMP", ".tif": "TIFF", ".tiff": "TIFF"}.get(ext, "")
         if not fmt:
             raise ImageCodecError(f"cannot tell the image format of "
-                                  f"{name!r} (use .jpg, .jpeg, .png or .bmp)")
+                                  f"{name!r} (use .jpg, .jpeg, .png, .bmp, "
+                                  f".tif or .tiff)")
     if fmt in ("JPEG", "JPG"):
         data = encode_jpeg(arr, JPEG_QUALITY if quality is None else quality)
     elif fmt == "PNG":
         data = encode_png(arr)
     elif fmt == "BMP":
         data = encode_bmp(arr)
+    elif fmt in ("TIFF", "TIF"):
+        data = encode_tiff(arr)
     else:
         raise ImageCodecError(f"writing {fmt} images is not supported (JPEG, "
-                              "PNG and BMP are)")
+                              "PNG, BMP and TIFF are)")
     if hasattr(path_or_file, "write"):
         path_or_file.write(data)
     else:

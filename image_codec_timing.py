@@ -9,14 +9,20 @@ the codec reads besides YCbCr JPEG (CMYK JPEG, baseline and progressive;
 YCCK JPEG; 16-bit grey, 48-bit and 64-bit PNG; GIF, plain and interlaced;
 BMP at 24 bits, 8 bits RLE and 16 bits 565) decoded to RGB (``big:``
 entries; written with Pillow and the fixture script's writers, so they
-need Pillow); every seeded array of ``chip_smoke.codec_encode_inputs``
-encoded to JPEG, and the 480x640 photo encoded to BMP. Prints one JSON
+need Pillow); the 480x640 photo as a TIFF, raw (Pillow's layout), LZW
+under the horizontal predictor, Deflate and PackBits in strips of 34 rows
+(``tiff:`` entries; written by the fixture script's plain TIFF writer, so
+the card's host makes them too; the YCbCr JPEG TIFF is a committed
+fixture); every seeded array of ``chip_smoke.codec_encode_inputs`` encoded
+to JPEG, the 480x640 photo encoded to BMP, and the arrays of
+``chip_smoke.codec_tiff_encode_inputs`` to TIFF. Prints one JSON
 line: for each input, the median of ``--reps`` calls in ms of the codec
 and of Pillow (null where Pillow is absent), and whether the two outputs
 are equal. The times are of the host this runs on (no card is used).
 ``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the 480x640
-quality-95 JPEG decode and encode and the 480x640 WEBP decodes from a run
-of this script.
+quality-95 JPEG decode and encode, the 480x640 WEBP decodes, the 480x640
+YCbCr JPEG TIFF decode and the 480x640 TIFF encode from a run of this
+script.
 
     python3 image_codec_timing.py [--reps 20]
 """
@@ -41,12 +47,29 @@ def pillow():
     return Image
 
 
-def big_inputs(Image) -> dict:
-    """name → file bytes of the 480x640 photo in each new kind."""
+def fixture_script():
+    """tests/data/codec/make_fixtures.py (its TIFF writer needs no Pillow)."""
     spec = importlib.util.spec_from_file_location(
         "make_fixtures", chip_smoke.CODEC_DIR / "make_fixtures.py")
     mf = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mf)
+    return mf
+
+
+def tiff_inputs() -> dict:
+    """name → TIFF bytes of the 480x640 photo: raw (encode_tiff, Pillow's
+    layout), LZW under the horizontal predictor, Deflate and PackBits."""
+    mf = fixture_script()
+    photo = chip_smoke.codec_tiff_encode_inputs()["photo_rgb"]
+    return {"raw_480x640.tif": image_codec.encode_tiff(photo),
+            "lzw_pred_480x640.tif": mf.tiff_file(photo, 5, 2, rows=34),
+            "deflate_480x640.tif": mf.tiff_file(photo, 8, rows=34),
+            "packbits_480x640.tif": mf.tiff_file(photo, 32773, rows=34)}
+
+
+def big_inputs(Image) -> dict:
+    """name → file bytes of the 480x640 photo in each new kind."""
+    mf = fixture_script()
     photo = chip_smoke.codec_photo(11, 480, 640)
     k = chip_smoke.codec_photo(12, 480, 640)[..., 1]
     wide = photo.astype(np.uint16) * 257 + k[..., None]
@@ -103,6 +126,17 @@ def main(argv=None) -> dict:
             "pillow_ms": chip_smoke.median_ms(pil_decode, args.reps),
             "equal": bool(np.array_equal(image_codec.decode(data),
                                          pil_decode()))}
+    for name, data in tiff_inputs().items():
+        def pil_decode(data=data):
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        out[f"tiff:{name}"] = {
+            "bytes": len(data),
+            "codec_ms": chip_smoke.median_ms(
+                lambda: image_codec.decode(data), args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil_decode, args.reps)
+            if Image else None,
+            "equal": bool(np.array_equal(image_codec.decode(data),
+                                         pil_decode())) if Image else None}
     photo = chip_smoke.codec_encode_inputs()["photo_q95"][0]
 
     def pil_bmp():
@@ -128,6 +162,18 @@ def main(argv=None) -> dict:
             if Image else None,
             "equal": image_codec.encode_jpeg(arr, quality) == pil_encode()
             if Image else None}
+    for name, arr in chip_smoke.codec_tiff_encode_inputs().items():
+        def pil_tiff(arr=arr):
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format="TIFF")
+            return buf.getvalue()
+        out[f"encode_tiff:{name}"] = {
+            "shape": list(arr.shape),
+            "codec_ms": chip_smoke.median_ms(
+                lambda: image_codec.encode_tiff(arr), args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil_tiff, args.reps)
+            if Image else None,
+            "equal": image_codec.encode_tiff(arr) == pil_tiff() if Image else None}
     print(json.dumps(out))
     return out
 

@@ -50,7 +50,11 @@ import zlib
 from pathlib import Path
 
 import numpy as np
-from PIL import Image
+
+try:
+    from PIL import Image
+except ImportError:    # a host without Pillow: the plain TIFF writer still runs
+    Image = None
 
 HERE = Path(__file__).resolve().parent
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
@@ -985,6 +989,380 @@ def webp_fixtures() -> dict:
     return out
 
 
+# ------------------------------------------------------------------ TIFF
+
+_PILLOW_TIFF = r"""
+import io, pickle, sys
+from PIL import Image
+out = []
+for arr, mode, kw in pickle.load(sys.stdin.buffer):
+    im = Image.fromarray(arr)
+    if mode == "P":
+        im = im.quantize(kw.pop("colors", 64))
+    elif mode:
+        im = im.convert(mode)
+    buf = io.BytesIO()
+    im.save(buf, format="TIFF", **kw)
+    out.append(buf.getvalue())
+pickle.dump(out, sys.stdout.buffer)
+"""
+
+
+def pillow_tiff(jobs: list) -> list:
+    """Pillow's ``save(format="TIFF", **kw)`` of each (array, mode to convert
+    to or None, kw) in a subprocess: Pillow's libtiff writer aborts the
+    process on some kinds (JPEG of P, 1, I;16 or F; group4 of 8-bit data),
+    so a batch holds the kinds it writes."""
+    import pickle
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "-c", _PILLOW_TIFF],
+                       input=pickle.dumps(jobs), capture_output=True,
+                       timeout=300, check=True)
+    return pickle.loads(r.stdout)
+
+
+def libtiff():
+    """Pillow's bundled libtiff through ``ctypes``."""
+    import PIL
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libtiff-*.so*"))[0])
+    lib.TIFFOpen.restype = _P
+    lib.TIFFOpen.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.TIFFClose.argtypes = [_P]
+    for name in ("TIFFWriteEncodedStrip", "TIFFWriteEncodedTile"):
+        getattr(lib, name).argtypes = [_P, ctypes.c_uint32, _P, ctypes.c_ssize_t]
+        getattr(lib, name).restype = ctypes.c_ssize_t
+    return lib
+
+
+def libtiff_write(arr: np.ndarray, compression: int = 1, photometric=None,
+                  planar: int = 1, tile=None, rows=None, predictor=None,
+                  order: str = "<", bigtiff: bool = False, extra=(),
+                  colormap=None, subsampling=None, quality: int = 75,
+                  fill_order=None, refbw=None, packed=None, bits=None,
+                  orientation=None, coeffs=None, sampleformat=None) -> bytes:
+    """A TIFF file from libtiff's own writer (TIFFWriteEncodedStrip / Tile):
+    ``arr`` [h, w, samples] (uint8 or uint16) in strips of ``rows`` or tiles
+    of ``tile`` = (height, width), contiguous or in planes (``planar`` 2);
+    YCbCr JPEG from RGB input (JPEGCOLORMODE_RGB) with ``subsampling``;
+    ``packed``: already packed YCbCr strips or tiles (a list of bytes) for
+    a file that is not JPEG; ``bits`` 1, 2 or 4: one sample a pixel packed MSB
+    first, rows padded to a byte; ``orientation``, ``coeffs``
+    (YCbCrCoefficients) and ``sampleformat``: those tags."""
+    import tempfile
+    lib = libtiff()
+    arr = np.asarray(arr)
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
+    h, w, spp = arr.shape
+    if photometric is None:
+        photometric = 1 if spp - len(extra) == 1 else 2
+    U, I = ctypes.c_uint, ctypes.c_int
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "f.tif").encode()
+        mode = b"w" + (b"b" if order == ">" else b"l") + (b"8" if bigtiff else b"")
+        t = lib.TIFFOpen(path, mode)
+        assert t
+
+        def put(tag, *v):
+            assert lib.TIFFSetField(ctypes.c_void_p(t), U(tag), *v), tag
+
+        put(256, U(w))
+        put(257, U(h))
+        put(258, I(bits or arr.dtype.itemsize * 8))
+        put(277, I(spp))
+        put(259, I(compression))
+        put(262, I(photometric))
+        put(284, I(planar))
+        if extra:
+            put(338, I(len(extra)), (ctypes.c_uint16 * len(extra))(*extra))
+        if colormap is not None:
+            put(320, *[(ctypes.c_uint16 * len(c))(*c) for c in colormap])
+        if predictor:
+            put(317, I(predictor))
+        if fill_order:
+            put(266, I(fill_order))
+        if orientation:
+            put(274, I(orientation))
+        if subsampling:
+            put(530, I(subsampling[0]), I(subsampling[1]))
+        if refbw is not None:
+            put(532, (ctypes.c_float * 6)(*refbw))
+        if coeffs is not None:
+            put(529, (ctypes.c_float * 3)(*coeffs))
+        if sampleformat:
+            put(339, I(sampleformat))
+        if compression == 7:
+            put(65537, I(quality))
+            if photometric == 6:
+                put(65538, I(1))                  # JPEGCOLORMODE_RGB
+        if tile:
+            put(322, U(tile[1]))
+            put(323, U(tile[0]))
+        else:
+            put(278, U(rows or h))
+        n = 0
+        if bits:
+            rows_ = rows or h
+            v = np.unpackbits(arr[..., 0][..., None], axis=2)[..., 8 - bits:]
+            packed = [np.packbits(v[y:y + rows_].reshape(len(v[y:y + rows_]), -1),
+                                  axis=1).tobytes() for y in range(0, h, rows_)]
+        if packed is not None:
+            write = lib.TIFFWriteEncodedTile if tile else lib.TIFFWriteEncodedStrip
+            for strip in packed:
+                buf = np.frombuffer(strip, np.uint8)
+                assert write(t, n, buf.ctypes.data, buf.size) >= 0
+                n += 1
+        planes = [arr] if planar == 1 else [arr[:, :, i:i + 1] for i in range(spp)]
+        for p in ([] if packed is not None else planes):
+            p = p.astype(p.dtype.newbyteorder("="))
+            if tile:
+                th, tw = tile
+                for y in range(0, h, th):
+                    for x in range(0, w, tw):
+                        buf = np.zeros((th, tw, p.shape[2]), p.dtype)
+                        blk = p[y:y + th, x:x + tw]
+                        buf[:blk.shape[0], :blk.shape[1]] = blk
+                        assert lib.TIFFWriteEncodedTile(t, n, buf.ctypes.data,
+                                                        buf.nbytes) >= 0
+                        n += 1
+            else:
+                for y in range(0, h, rows or h):
+                    buf = np.ascontiguousarray(p[y:y + (rows or h)])
+                    assert lib.TIFFWriteEncodedStrip(t, n, buf.ctypes.data,
+                                                     buf.nbytes) >= 0
+                    n += 1
+        lib.TIFFClose(t)
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def ycbcr_packed(img: np.ndarray, hs: int, vs: int, rows: int) -> list:
+    """Strips of packed YCbCr (TIFF's subsampled layout: each hs x vs block's
+    Y samples in raster order, then its Cb and Cr, the block means) of an RGB
+    image, ``rows`` rows a strip (a multiple of vs), the edge blocks padded
+    by replication."""
+    x = img.astype(np.float64)
+    y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    cb = 128 + (x[..., 2] - y) / 1.772
+    cr = 128 + (x[..., 0] - y) / 1.402
+    h, w = y.shape
+    ph, pw = -h % vs, -w % hs
+    planes = [np.pad(p, ((0, ph), (0, pw)), mode="edge") for p in (y, cb, cr)]
+    strips = []
+    for top in range(0, h, rows):
+        out = []
+        for by in range(top, min(top + rows, h), vs):
+            for bx in range(0, w, hs):
+                blk = [p[by:by + vs, bx:bx + hs] for p in planes]
+                out += list(blk[0].ravel()) + [blk[1].mean(), blk[2].mean()]
+        strips.append(np.clip(np.round(out), 0, 255).astype(np.uint8).tobytes())
+    return strips
+
+
+def ycbcr_packed_tiles(img: np.ndarray, hs: int, vs: int, tile: tuple) -> list:
+    """:func:`ycbcr_packed` for tiles of ``tile`` = (height, width), the
+    image padded by replication to whole tiles."""
+    th, tw = tile
+    h, w = img.shape[:2]
+    full = np.pad(img, ((0, -h % th), (0, -w % tw), (0, 0)), mode="edge")
+    return [ycbcr_packed(full[y:y + th, x:x + tw], hs, vs, th)[0]
+            for y in range(0, h, th) for x in range(0, w, tw)]
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (libtiff's encoder: MSB-first codes from 9 bits, one code
+    early, a clear code at the start and when the table reaches 4094)."""
+    codes, nbits, free, table = [(256, 9)], 9, 258, {}
+    if data:
+        ent = data[0]
+        for c in data[1:]:
+            nxt = table.get((ent, c))
+            if nxt is not None:
+                ent = nxt
+                continue
+            codes.append((ent, nbits))
+            ent = c
+            table[(codes[-1][0], c)] = free
+            free += 1
+            if free == 4094:
+                codes.append((256, nbits))
+                table, free, nbits = {}, 258, 9
+            elif free > (1 << nbits) - 1:
+                nbits += 1
+        codes.append((ent, nbits))
+        free += 1
+        if free == 4094:
+            codes.append((256, nbits))
+            nbits = 9
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+    codes.append((257, nbits))
+    acc, n = 0, 0
+    for code, bits in codes:
+        acc = (acc << bits) | code
+        n += bits
+    acc <<= -n % 8
+    return acc.to_bytes((n + 7) // 8, "big")
+
+
+def packbits(row: bytes) -> bytes:
+    """PackBits of one row: runs of 3 or more repeated, the rest literal."""
+    out, i = bytearray(), 0
+    while i < len(row):
+        j = i
+        while j < len(row) and j - i < 128 and row[j] == row[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), row[i]])
+            i = j
+            continue
+        j = i
+        while j < len(row) and j - i < 128 and not (
+                j + 2 < len(row) and row[j] == row[j + 1] == row[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + row[i:j]
+        i = j
+    return bytes(out)
+
+
+def tiff_file(arr: np.ndarray, compression: int = 1, predictor: int = 1,
+              rows=None) -> bytes:
+    """A little-endian TIFF of a uint8 [h, w] or [h, w, 3] array in strips of
+    ``rows`` rows, raw (1), LZW (5), Deflate (8, zlib level 6) or PackBits
+    (32773), LZW and Deflate optionally under the horizontal predictor;
+    written here without Pillow (the timing inputs of
+    ``image_codec_timing.py`` on a host that has none)."""
+    px = np.ascontiguousarray(arr, np.uint8)
+    h, w = px.shape[:2]
+    spp = 1 if px.ndim == 2 else px.shape[2]
+    rows = rows or h
+    strips = []
+    for top in range(0, h, rows):
+        block = px[top:top + rows].reshape(-1, w * spp).astype(np.int16)
+        if predictor == 2:
+            diff = block.copy()
+            diff[:, spp:] = block[:, spp:] - block[:, :-spp]
+            block = diff % 256
+        raw = block.astype(np.uint8)
+        if compression == 5:
+            strips.append(tiff_lzw(raw.tobytes()))
+        elif compression == 8:
+            strips.append(zlib.compress(raw.tobytes(), 6))
+        elif compression == 32773:
+            strips.append(b"".join(packbits(r.tobytes()) for r in raw))
+        else:
+            strips.append(raw.tobytes())
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8] * spp),
+            (259, 3, [compression]), (262, 3, [1 if spp == 1 else 2]),
+            (273, 4, [0] * len(strips)), (277, 3, [spp]), (278, 4, [rows]),
+            (279, 4, [len(s) for s in strips]), (284, 3, [1])]
+    if predictor != 1:
+        tags.append((317, 3, [predictor]))
+    end = 8 + 2 + 12 * len(tags) + 4
+    aux = {t: len(v) * (2 if typ == 3 else 4) for t, typ, v in tags}
+    data_at = end + sum(n + n % 2 for n in aux.values() if n > 4)
+    offsets = np.cumsum([data_at] + [len(s) for s in strips[:-1]]).tolist()
+    tags[5] = (273, 4, offsets)
+    ifd, extra = struct.pack("<H", len(tags)), b""
+    for tag, typ, vals in tags:
+        body = struct.pack(f"<{len(vals)}{'H' if typ == 3 else 'L'}", *vals)
+        if len(body) <= 4:
+            ifd += struct.pack("<HHL", tag, typ, len(vals)) + body.ljust(4, b"\0")
+        else:
+            ifd += struct.pack("<HHLL", tag, typ, len(vals), end + len(extra))
+            extra += body + b"\0" * (len(body) % 2)
+    return b"II*\0" + struct.pack("<L", 8) + ifd + struct.pack("<L", 0) + extra + b"".join(strips)
+
+
+def colormap(rng, bits: int) -> list:
+    """A ColorMap of 2**bits entries a channel, 16-bit values that are not
+    multiples of 257 (so the reduction to 8 bits shows)."""
+    n = 1 << bits
+    return [[int(v) for v in rng.randint(0, 65536, n)] for _ in range(3)]
+
+
+def tiff_fixtures() -> dict:
+    """{file name: bytes} of the TIFF fixtures."""
+    out = {}
+    img = photo(110, 40, 52)
+    rgba = np.dstack([img, photo(111, 40, 52)[..., 0]])
+    odd = photo(112, 37, 45)
+    jobs = {
+        "rgb_raw.tif": (img, None, {}),
+        "l_raw.tif": (img, "L", {}),
+        "bilevel_raw.tif": (img, "1", {}),
+        "p_raw.tif": (img, "P", {}),
+        "rgba_raw.tif": (rgba, None, {}),
+        "la_raw.tif": (rgba, "LA", {}),
+        "cmyk_raw.tif": (img, "CMYK", {}),
+        "i16_raw.tif": ((img[..., 1].astype(np.uint16) * 181), None, {}),
+        "mm_i16_raw.tif": ((img[..., 2].astype(np.uint16) * 131), "I;16B", {}),
+        "bigtiff_raw.tif": (odd, None, {"big_tiff": True}),
+        "rgb_packbits.tif": (img, None, {"compression": "packbits"}),
+        "bilevel_packbits.tif": (img, "1", {"compression": "packbits"}),
+        "rgb_lzw.tif": (img, None, {"compression": "tiff_lzw"}),
+        "rgb_lzw_pred.tif": (img, None, {"compression": "tiff_lzw",
+                                         "tiffinfo": {317: 2}}),
+        "l_deflate_pred.tif": (img, "L", {"compression": "tiff_adobe_deflate",
+                                          "tiffinfo": {317: 2}}),
+        "rgb_deflate.tif": (img, None, {"compression": "tiff_adobe_deflate"}),
+        "rgba_lzw.tif": (rgba, None, {"compression": "tiff_lzw"}),
+        "la_deflate.tif": (rgba, "LA", {"compression": "tiff_adobe_deflate"}),
+        "cmyk_lzw.tif": (img, "CMYK", {"compression": "tiff_lzw"}),
+        "p_lzw.tif": (img, "P", {"compression": "tiff_lzw"}),
+        "i16_lzw.tif": ((img[..., 0].astype(np.uint16) * 257), None,
+                        {"compression": "tiff_lzw"}),
+        "bigtiff_lzw.tif": (odd, None, {"compression": "tiff_lzw",
+                                        "big_tiff": True}),
+        "ycbcr_lzw.tif": (img, "YCbCr", {"compression": "tiff_lzw"}),
+        "ycbcr_jpeg_11.tif": (img, "YCbCr", {"compression": "jpeg"}),
+        "rgb_jpeg.tif": (img, None, {"compression": "jpeg"}),
+        "l_jpeg.tif": (img, "L", {"compression": "jpeg"}),
+    }
+    out.update(zip(jobs, pillow_tiff(list(jobs.values()))))
+    # what Pillow's writer cannot write: libtiff's own
+    rng = np.random.RandomState(113)
+    rgb16 = odd.astype(np.uint16) * 257 + rng.randint(0, 257, odd.shape).astype(np.uint16)
+    idx4 = (photo(114, 37, 45)[..., 0] // 16).astype(np.uint8)
+    out["ycbcr_jpeg_22.tif"] = libtiff_write(odd, 7, 6, subsampling=(2, 2), rows=16)
+    out["ycbcr_jpeg_21.tif"] = libtiff_write(odd, 7, 6, subsampling=(2, 1), rows=8)
+    out["ycbcr_jpeg_22_tiles.tif"] = libtiff_write(odd, 7, 6, subsampling=(2, 2),
+                                                   tile=(16, 32))
+    out["ycbcr_lzw_22.tif"] = libtiff_write(
+        odd, 5, 6, subsampling=(2, 2), rows=8,
+        packed=ycbcr_packed(odd, 2, 2, 8), refbw=(16, 235, 128, 240, 128, 240))
+    out["ycbcr_deflate_42.tif"] = libtiff_write(
+        odd, 8, 6, subsampling=(4, 2), rows=10, packed=ycbcr_packed(odd, 4, 2, 10))
+    out["tiles_lzw_pred.tif"] = libtiff_write(odd, 5, tile=(16, 16), predictor=2)
+    out["tiles_deflate_l.tif"] = libtiff_write(odd[..., 1], 8, tile=(32, 16))
+    out["tiles_packbits.tif"] = libtiff_write(odd, 32773, tile=(16, 32))
+    out["tiles_raw.tif"] = libtiff_write(odd, 1, tile=(16, 16))
+    out["planar_lzw.tif"] = libtiff_write(odd, 5, planar=2, rows=8, predictor=2)
+    out["planar_deflate_rgba.tif"] = libtiff_write(
+        np.dstack([odd, idx4 * 16]), 8, planar=2, rows=12, extra=(2,))
+    out["planar_raw.tif"] = libtiff_write(odd, 1, planar=2, rows=10)
+    out["mm_lzw_pred.tif"] = libtiff_write(odd, 5, order=">", predictor=2, rows=9)
+    out["mm_rgb16_lzw_pred.tif"] = libtiff_write(rgb16, 5, order=">", predictor=2,
+                                                 rows=12)
+    out["rgb16_deflate.tif"] = libtiff_write(rgb16, 8, rows=20)
+    out["rgba_assoc_lzw.tif"] = libtiff_write(
+        np.dstack([odd // 2, np.full(odd.shape[:2], 128, np.uint8)]), 5, extra=(1,))
+    out["rgba_assoc_planar.tif"] = libtiff_write(
+        np.dstack([odd // 3, (idx4 * 17)[..., None]]), 5, planar=2, extra=(1,))
+    out["palette4_lzw.tif"] = libtiff_write(idx4, 5, 3, colormap=colormap(rng, 4),
+                                            bits=4)
+    out["grey2_packbits.tif"] = libtiff_write(idx4 // 4, 32773, 1, bits=2, rows=9)
+    out["palette8_raw.tif"] = libtiff_write(odd[..., 0], 1, 3, colormap=colormap(rng, 8),
+                                            rows=7)
+    out["fill2_lzw.tif"] = libtiff_write(odd, 5, fill_order=2, rows=16)
+    out["whiteiszero_raw.tif"] = libtiff_write(odd[..., 2], 1, 0)
+    out["ycbcr_jpeg_22_480x640.tif"] = libtiff_write(photo(115, 480, 640), 7, 6,
+                                                     subsampling=(2, 2), rows=16)
+    return out
+
+
 def fixtures() -> dict:
     """{file name: bytes}."""
     out = {}
@@ -1088,6 +1466,7 @@ def fixtures() -> dict:
     out["core4.bmp"] = bmp_file(blocky[:17, :23].astype(np.uint8), 4, pal16,
                                 header=12)
     out.update(webp_fixtures())
+    out.update(tiff_fixtures())
     return out
 
 

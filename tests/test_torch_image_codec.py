@@ -1,6 +1,7 @@
 """The port's image codec (``cpt_tpu_torch/utils/image_codec``, host C++
-in ``csrc/image_codec.cpp``; its WEBP decoders have their own file,
-``test_torch_webp.py``) against Pillow 12.1.0 (libjpeg-turbo 3.1.3),
+in ``csrc/image_codec.cpp``; its WEBP decoders and its TIFF reader have
+files of their own, ``test_torch_webp.py`` and ``test_torch_tiff.py``)
+against Pillow 12.1.0 (libjpeg-turbo 3.1.3),
 the version its rules were recovered against: decoded pixels equal on the
 committed fixtures and on seeded JPEG (CMYK and YCCK among them), PNG (16
 bits among them), GIF and BMP cases, encoded JPEG and BMP bytes equal, PNG
@@ -530,6 +531,8 @@ def mcu_too_large() -> bytes:
 
 
 def tiff_header() -> bytes:
+    """A TIFF header whose first directory holds no entry (a broken TIFF
+    file to Pillow and the codec alike)."""
     return b"II*\x00" + struct.pack("<I", 8) + bytes(32)
 
 
@@ -557,16 +560,43 @@ ERROR_CASES = {
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
 def test_unsupported_and_truncated_files_raise(case):
     """A truncated file (JPEG, PNG, GIF, BMP), an arithmetic-coded or a
-    lossless JPEG header, a broken WEBP and the format still refused (TIFF)
-    raise ``ImageCodecError`` naming the problem; no partial image comes
-    back. Pillow raises on the truncated files and the broken WEBP too."""
+    lossless JPEG header, a broken WEBP and a TIFF whose first directory
+    holds no entry raise ``ImageCodecError`` naming the problem; no partial
+    image comes back. Pillow raises on the truncated files, the broken WEBP
+    and the empty TIFF directory too."""
     make, word = ERROR_CASES[case]
     data = make()
     with pytest.raises(ic.ImageCodecError, match=word):
         ic.decode(data)
-    if case.startswith("truncated") or case == "webp":
+    if case.startswith("truncated") or case in ("webp", "tiff"):
         with pytest.raises(OSError):
             pillow_decode(data, "RGB")
+
+
+def strip_dht(data: bytes) -> bytes:
+    """A JPEG with its DHT segments removed (a motion-JPEG frame's form)."""
+    out, i = bytearray(data[:2]), 2
+    while data[i + 1] != 0xDA:
+        n = struct.unpack(">H", data[i + 2:i + 4])[0]
+        if data[i + 1] != 0xC4:
+            out += data[i:i + 2 + n]
+        i += 2 + n
+    return bytes(out + data[i:])
+
+
+@pytest.mark.parametrize("kind", ["rgb", "gray", "restart"])
+def test_jpeg_without_huffman_tables_takes_the_standard_ones(kind):
+    """A scan whose Huffman tables 0 and 1 are undefined decodes with the
+    standard tables, as libjpeg-turbo's jpeg_std_huff_table gives Pillow
+    (the tables Pillow's baseline writer uses unless it optimizes them)."""
+    img = cs.codec_photo(58, 40, 56)
+    data = strip_dht(pillow_jpeg(img[..., 0] if kind == "gray" else img,
+                                 **({"restart_marker_blocks": 2}
+                                    if kind == "restart" else {})))
+    assert b"\xff\xc4" not in data[:data.index(b"\xff\xda")]
+    for mode in ("RGB", "L"):
+        np.testing.assert_array_equal(ic.decode(data, mode),
+                                      pillow_decode(data, mode))
 
 
 def bomb_jpeg() -> bytes:
@@ -653,6 +683,10 @@ def pillow_digests() -> dict:
                                                               mode))
     for name, (arr, q) in cs.codec_encode_inputs().items():
         out[f"encode:{name}"] = digest(pillow_jpeg(arr, quality=q))
+    for name, arr in cs.codec_tiff_encode_inputs().items():
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format="TIFF")
+        out[f"encode_tiff:{name}"] = digest(buf.getvalue())
     for name in cs.RESIZED_REQUESTS:
         out[f"upload:{name}"] = digest(pillow_decode(pillow_jpeg(
             cs.resized_request(name)[0], quality=95), "RGB"))

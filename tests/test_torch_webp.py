@@ -368,9 +368,10 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_other_riff_and_refused_kinds_raise(case):
-    """TIFF stays refused, naming its kind; a RIFF that is not WEBP, or a
-    WEBP whose first chunk is no VP8 chunk, cannot be identified; an empty
-    lossless chunk is a broken WEBP. Pillow raises on each too."""
+    """A TIFF whose first directory holds no entry is a broken TIFF file
+    (the message names TIFF); a RIFF that is not WEBP, or a WEBP whose first
+    chunk is no VP8 chunk, cannot be identified; an empty lossless chunk is
+    a broken WEBP. Pillow raises on each too."""
     make, word = REFUSED[case]
     data = make()
     with pytest.raises(ic.ImageCodecError, match=word):
