@@ -360,16 +360,18 @@ Phases (any failure raises and the script exits non-zero):
 21. real image files (``utils/image_codec``, the host image codec built
    by the host C++ compiler): the committed fixtures (``tests/data/codec``)
    decoded in RGB and L and seeded arrays encoded at quality 75, 92 and
-   95, each digest equal to Pillow 12.1's (``CODEC_DIGESTS``), each of
+   95, each digest equal to Pillow 12.1's (``CODEC_DIGESTS``; among them
+   one digest a damaged JPEG corpus, ``JPEG_DAMAGE_SOURCES``), each of
    ``CODEC_FAULTS`` changing one over its own format's fixtures
    (``CODEC_FAULT_FILES``), decode and encode host ms beside
    Pillow's (``CODEC_PILLOW_MS``); then, at full width, ``cpt_predict.main
    --image x.jpg --out y.png``, ``--image <WEBP_IMAGE>`` (a 480×640
-   lossy WEBP with alpha) ``--out w.png`` and ``--image <TIFF_IMAGE>`` (a
-   480×640 TIFF of YCbCr JPEG strips, 2×2 subsampled) ``--out t.tif``
-   (K1 50, K2 1, K3 12, K4 12 each; the written file read back equal to
-   the decoded image with the box drawn; the WEBP's and TIFF's decodes
-   Pillow's),
+   lossy WEBP with alpha) ``--out w.png``, ``--image <TIFF_IMAGE>`` (a
+   480×640 TIFF of YCbCr JPEG strips, 2×2 subsampled) ``--out t.tif`` and
+   ``--image <ARITH_IMAGE>`` (a 480×640 arithmetic-coded progressive JPEG)
+   ``--out a.png`` (K1 50, K2 1, K3 12, K4 12 each; the written file read
+   back equal to the decoded image with the box drawn; the WEBP's, TIFF's
+   and arithmetic JPEG's decodes Pillow's),
    ``convert_dataset coco`` over a directory of JPEGs and ``test_detector
    --tsv`` on its yaml (K1, K2 and K5; VOC and COCO metrics finite),
    ``img_info`` over ``.jpg`` and ``.png`` files (sizes equal to the written
@@ -3469,8 +3471,14 @@ def check_resize_digests() -> dict:
 # LZW's code width grown one code late (GIF's rule), the horizontal predictor
 # ignored, JPEG-in-TIFF chroma replicated (libjpeg's other upsampler), a
 # ColorMap cut to its low bytes (Pillow keeps the high ones) and edge tiles
-# read at their cropped width. The encodes include Pillow's TIFF bytes for
-# codec_tiff_encode_inputs.
+# read at their cropped width; in the JPEG decoder jidctint.c's C
+# arithmetic in place of the SSE2 / AVX2 islow's (Pillow's on x86-64: they
+# part on damaged data only), arithmetic decoding without the DAC
+# conditioning, every lossless sample predicted from the left, and block
+# smoothing skipped. The encodes include Pillow's TIFF bytes for
+# codec_tiff_encode_inputs. "damaged:<source>" is the SHA-256 over the
+# outcomes of jpeg_damaged(<source>) in turn (b"raise", or the SHA-256 of
+# the RGB pixels), as Pillow gives them.
 CODEC_DIR = Path(__file__).resolve().parent / "tests" / "data" / "codec"
 CODEC_DIGESTS = {
     "1.bmp:RGB":
@@ -3957,6 +3965,146 @@ CODEC_DIGESTS = {
         "b1f3fff743416a523d8d34d44ede0110d2dd6fe4137cfa9416dbdeefee22e9bf",
     "encode_tiff:gray_odd":
         "3b1b0c2ac9c90027a2c5183f9ef94dc1793223f8d77a6cdc91c697d00941300d",
+    "damage_baseline_420.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "damage_baseline_420.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "damage_baseline_444.jpg:RGB":
+        "bdbc2a3269d2083ea22f5bc728b9b6245a4661c562b2144dfe43aa8b9babf228",
+    "damage_baseline_444.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "damage_restart.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "damage_restart.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "damage_optimize.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "damage_optimize.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "damage_progressive.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "damage_progressive.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "damage_gray.jpg:RGB":
+        "f57cc4d9e6de804d491617f92c9be098cce3263db24e6e2d6cbb474d7ec87436",
+    "damage_gray.jpg:L":
+        "977b43f49d6b26f77c24eaee7b7ec17a16fbcd47edec5d8ac182044ddbe6cb1d",
+    "damage_cmyk.jpg:RGB":
+        "368d87a127c78abbf58e1fe51c7ab471465ba47512ee897b12bb76bd4f3af3ff",
+    "damage_cmyk.jpg:L":
+        "b83c105a1b68cae2e5302950b1e2cac4ea7dbd0ef48801dbc3085fd330d3a988",
+    "arith_420_q75.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "arith_420_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_444_q75.jpg:RGB":
+        "bdbc2a3269d2083ea22f5bc728b9b6245a4661c562b2144dfe43aa8b9babf228",
+    "arith_444_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_gray_q75.jpg:RGB":
+        "f57cc4d9e6de804d491617f92c9be098cce3263db24e6e2d6cbb474d7ec87436",
+    "arith_gray_q75.jpg:L":
+        "977b43f49d6b26f77c24eaee7b7ec17a16fbcd47edec5d8ac182044ddbe6cb1d",
+    "arith_no_dac_q75.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "arith_no_dac_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_dac_q75.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "arith_dac_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_restart_q75.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "arith_restart_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_progressive_q75.jpg:RGB":
+        "b18adafbe735213c0c1f6dd958d89607b4c78bb0dcd49781669cf1b5ec84d72b",
+    "arith_progressive_q75.jpg:L":
+        "6df27ef5594af5396de5ea1ce14203eada5da4c93a3d075b970bb342764e3043",
+    "arith_cmyk_q75.jpg:RGB":
+        "72642567c6d5dfe031174a2690df4f0be1501921e353d923c934ca7f10e07d79",
+    "arith_cmyk_q75.jpg:L":
+        "fe2f74a1e0b16a66452888eb4d734bc455cf1304481bb495d59afa8cf9cae93b",
+    "lossless_gray_p1.jpg:RGB":
+        "78f63a822cd654b30847b1d6c1b548b94f6d8c81612a41d384973f5641c18e2f",
+    "lossless_gray_p1.jpg:L":
+        "549e28b8f35d5c8c7f2601e43c9e98f863e86397880344116c2da2b2cc7615f4",
+    "lossless_rgb_p1.jpg:RGB":
+        "e2ab5e9f567c6257e83e822ce1526fde882c8dc14543741cb682a66eddc2e5cb",
+    "lossless_rgb_p1.jpg:L":
+        "7f72544b54f40ca85d1ab59bcc491b0369ba184dac7e795915cdb9e63074cc5e",
+    "lossless_gray_p4.jpg:RGB":
+        "78f63a822cd654b30847b1d6c1b548b94f6d8c81612a41d384973f5641c18e2f",
+    "lossless_gray_p4.jpg:L":
+        "549e28b8f35d5c8c7f2601e43c9e98f863e86397880344116c2da2b2cc7615f4",
+    "lossless_rgb_p4.jpg:RGB":
+        "e2ab5e9f567c6257e83e822ce1526fde882c8dc14543741cb682a66eddc2e5cb",
+    "lossless_rgb_p4.jpg:L":
+        "7f72544b54f40ca85d1ab59bcc491b0369ba184dac7e795915cdb9e63074cc5e",
+    "lossless_gray_p7.jpg:RGB":
+        "78f63a822cd654b30847b1d6c1b548b94f6d8c81612a41d384973f5641c18e2f",
+    "lossless_gray_p7.jpg:L":
+        "549e28b8f35d5c8c7f2601e43c9e98f863e86397880344116c2da2b2cc7615f4",
+    "lossless_rgb_p7.jpg:RGB":
+        "61d3c8f9036aeb319b727946ba7234297219e26f7baafff236bc923eb6b0fb87",
+    "lossless_rgb_p7.jpg:L":
+        "952b30e62fd7284aad3e382f901917ff11d0961c57b95ac5e39c8e574d72e1fa",
+    "lossless_420.jpg:RGB":
+        "13331723dcaedb12aa7c69692cdad0e3e7aecfefbf508e61a4f44ce7d3d42669",
+    "lossless_420.jpg:L":
+        "d21a7dbbac6947b19f68d70976423cae4376c01180379b5af6aa3f0162212344",
+    "lossless_ids123.jpg:RGB":
+        "3a22a6061aaa2fddeb20aa58b24ee3bb33c55f05419caac127f5cf33235b8562",
+    "lossless_ids123.jpg:L":
+        "371ea8d92dacb329caf27069ad78a9f9846a5fca3999a85dab3d1a0023a507c9",
+    "smooth_drop1.jpg:RGB":
+        "3ca5ba47fd7bdb8357fda29f1fed487c73a5ccc96e3d0c951814a440f99ab8ae",
+    "smooth_drop1.jpg:L":
+        "42007210938fee7d0f8d6f9b159be01b5c00d86d538369d8e63f9ec49f8b3a87",
+    "smooth_drop2.jpg:RGB":
+        "fd35a99336e4358559dba8d1842df6730750c9e62a7e1352ecd217c46578df9e",
+    "smooth_drop2.jpg:L":
+        "6440e30f745880fc27a0dc38415b3105f2c241fe62049599588b5efc29593f39",
+    "smooth_drop4.jpg:RGB":
+        "7b6c862739a4bf350bcbdcea9b0c9e39cebdd8a771ac65c9e2d4e19e8a2d8c40",
+    "smooth_drop4.jpg:L":
+        "ec47b022a4c720551c1cf78f62ea5d08788305102b88a502381fffb2d299d084",
+    "smooth_drop6.jpg:RGB":
+        "341deaf857802dfa40b5b64122953a1826a7456e2389bf8b35b0b0474116cbf3",
+    "smooth_drop6.jpg:L":
+        "208ff5ed5410b43b455001f38c4083866416da987ab18f798ba3172ca6adf77e",
+    "arith_progressive_q50_480x640.jpg:RGB":
+        "acb1cd310dceccfad97d8ae6be108a3b000ae6c38f2e68532f212cc36ccd540a",
+    "arith_progressive_q50_480x640.jpg:L":
+        "117ce282e32ca8e7779fc6ad1be24763eab9ce6c4d6dbeb1492a17ce98bb08c4",
+    "smooth_480x640.jpg:RGB":
+        "03a2408e6a7787db5c4b7ca94d71526006656a37f4a500a1ce0894271ebd6661",
+    "smooth_480x640.jpg:L":
+        "1006969c1e326f9a3df7fa07f26608468ed54735498d3dc3785386a4859bfe42",
+    "lossless_gray_480x640.jpg:RGB":
+        "ceb87381775d45cb8888589677f346f46cea7591fe79e2c0c76149d2cc9dcd03",
+    "lossless_gray_480x640.jpg:L":
+        "5ef58d3f0558948fd6b0f737f9d68ef5e2f12de23a92191343ea5ff8d9a76bfe",
+    "damaged:damage_baseline_420.jpg":
+        "d6a8b15b5bd886ca3af176309caf635c7a6421f329643e73dda79c6e396e25bc",
+    "damaged:damage_baseline_444.jpg":
+        "6eff99df2f7b498e520dc7ef541b8cfb80c003448c8f7385c5de3ae9b32963de",
+    "damaged:damage_gray.jpg":
+        "53a6996e5c2549b183b4e1955eb89a4706beedd93035071c9b36f21408c5d3e0",
+    "damaged:damage_restart.jpg":
+        "78b7614f6a9195476ba4f0a0729f37457a9677f2eb9495cdb65e9bd0bc9d739b",
+    "damaged:damage_optimize.jpg":
+        "e7f295d4d3326043127b5684c4abb0f242e70d093b95621697225f1f3425460c",
+    "damaged:damage_progressive.jpg":
+        "c85edb6c57f4efbf01dc579d1c1979919092d5b63426e4e736a79b59515d7a55",
+    "damaged:damage_cmyk.jpg":
+        "3edb457f447fddd86315be620241660607070077097551701f4408c1a61a6d06",
+    "damaged:arith_420_q75.jpg":
+        "51467c839285da5224ba1962367d2742d587cb8b53e335832231e0d25e62a06a",
+    "damaged:arith_progressive_q75.jpg":
+        "4aeb43f8f4f3be1e0dc031e7e328c4d790b826db6ca8cc83b3eafd360b83ec6e",
+    "damaged:lossless_rgb_p4.jpg":
+        "296b1348b144962f1e17e6aa05104663c127239b1fa6035609528f35478dc3b8",
 }
 CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "float_ycc", "quality_off_by_one", "paeth_ties",
@@ -3967,14 +4115,16 @@ CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "vp8_top_right", "vp8l_select_swapped",
                 "tiff_lzw_late_growth", "tiff_no_predictor",
                 "tiff_jpeg_replicate", "tiff_colormap_low_byte",
-                "tiff_edge_tile_stride")
+                "tiff_edge_tile_stride", "c_idct", "arith_default_conditioning",
+                "lossless_left_predictor", "no_block_smoothing")
 # the fixtures each fault runs over (its own format's; "" none): a faulted
 # run decodes only those, and encodes only for a JPEG fault
 CODEC_FAULT_FILES = dict(
     {f: ".jpg" for f in ("replicate_upsample", "float_idct",
                          "refine_no_correction", "float_ycc",
                          "quality_off_by_one", "cmyk_not_inverted",
-                         "ycck_as_cmyk")},
+                         "ycck_as_cmyk", "c_idct", "arith_default_conditioning",
+                         "lossless_left_predictor", "no_block_smoothing")},
     paeth_ties=".png", sixteen_bit_shift=".png", gif_late_growth=".gif",
     bmp_top_down=".bmp", caption_max="",
     **{f: ".webp" for f in CODEC_FAULTS if "webp" in f or "vp8" in f},
@@ -3984,7 +4134,8 @@ CODEC_FAULT_FILES = dict(
 # 8-core Intel Xeon host with no card: decode of the 480x640 quality-95
 # fixture, encode of the 480x640 photo at quality 95, decodes of
 # CODEC_WEBP_TIMED and CODEC_TIFF_TIMED, the TIFF encode of the 480x640
-# photo of codec_tiff_encode_inputs.
+# photo of codec_tiff_encode_inputs; and, from a later run on such a host,
+# the decodes of CODEC_JPEG_TIMED.
 # The card's host has no Pillow; phase 21 prints the codec's ms there
 # beside these.
 CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
@@ -3994,7 +4145,23 @@ CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
                    "alpha_480x640_q75.webp": 11.16,
                    "lossless_480x640.webp": 6.945,
                    "ycbcr_jpeg_22_480x640.tif": 3.294545499556989,
+                   "arith_progressive_q50_480x640.jpg": 4.1986649998762005,
+                   "lossless_gray_480x640.jpg": 2.3588909998579766,
+                   "smooth_480x640.jpg": 3.2537100000809005,
                    "encode_tiff_480x640": 0.8357690003322205}
+# the damaged JPEG corpora's sources (24x30; make_fixtures.jpeg_fixtures):
+# Pillow's baseline 4:2:0 and 4:4:4, grey, restart, optimized, progressive
+# and CMYK files, libjpeg-turbo's arithmetic sequential and progressive and
+# lossless ones. Their "damaged:" digests cost ~1 s, so of the faulted runs
+# only CODEC_DAMAGE_FAULTS' take them.
+JPEG_DAMAGE_SOURCES = ("damage_baseline_420.jpg", "damage_baseline_444.jpg",
+                       "damage_gray.jpg", "damage_restart.jpg",
+                       "damage_optimize.jpg", "damage_progressive.jpg",
+                       "damage_cmyk.jpg", "arith_420_q75.jpg",
+                       "arith_progressive_q75.jpg", "lossless_rgb_p4.jpg")
+CODEC_DAMAGE_FAULTS = ("c_idct",)
+CODEC_JPEG_TIMED = ("arith_progressive_q50_480x640.jpg", "lossless_gray_480x640.jpg",
+                    "smooth_480x640.jpg")
 CODEC_WEBP_TIMED = ("photo_480x640_q75.webp", "photo_480x640_q95.webp",
                     "alpha_480x640_q75.webp", "lossless_480x640.webp")
 CODEC_TIFF_TIMED = ("ycbcr_jpeg_22_480x640.tif",)
@@ -4035,6 +4202,32 @@ def codec_tiff_encode_inputs() -> dict:
 def codec_fixture_files() -> list:
     return sorted(p for p in CODEC_DIR.iterdir()
                   if p.suffix in (".jpg", ".png", ".gif", ".bmp", ".webp", ".tif"))
+
+
+def jpeg_damaged(data: bytes, seed: int):
+    """The damaged files of one JPEG_DAMAGE_SOURCES source: every 20th
+    truncation point, then each 3rd byte flipped by xor 1, 0x80, 0xff and a
+    value drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    for n in range(0, len(data), max(1, len(data) // 20)):
+        yield data[:n]
+    for i in range(0, len(data), 3):
+        for x in (1, 0x80, 0xFF, int(rng.randint(1, 256))):
+            b = bytearray(data)
+            b[i] ^= x
+            yield bytes(b)
+
+
+def damage_digest(outcomes) -> str:
+    """SHA-256 over decode outcomes in turn: None (the decoder raised) as
+    b"raise", an array as the SHA-256 of its bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for px in outcomes:
+        h.update(b"raise" if px is None else hashlib.sha256(
+            np.ascontiguousarray(px).tobytes()).digest())
+    return h.hexdigest()
 
 
 def caption_case() -> tuple:
@@ -4091,6 +4284,19 @@ def codec_digests(fault: str | None = None) -> tuple:
             ms[key] = (time.perf_counter() - t) * 1e3
             digests[key] = hashlib.sha256(
                 np.ascontiguousarray(out).tobytes()).hexdigest()
+    if fault is None or fault in CODEC_DAMAGE_FAULTS:
+        def decode(d):
+            try:
+                return image_codec._decode(d, "RGB", bit)
+            except image_codec.ImageCodecError:
+                return None
+
+        t = time.perf_counter()
+        for seed, name in enumerate(JPEG_DAMAGE_SOURCES):
+            data = (CODEC_DIR / name).read_bytes()
+            digests[f"damaged:{name}"] = damage_digest(
+                decode(d) for d in jpeg_damaged(data, seed))
+        ms["damaged"] = (time.perf_counter() - t) * 1e3
     # the encodes' inputs are drawn only for the runs that encode (~0.1 s
     # each: most faulted runs skip them)
     for name, (arr, quality) in (codec_encode_inputs().items()
@@ -4127,7 +4333,7 @@ def codec_timing(reps: int = 20) -> dict:
                lambda: image_codec.decode(data), reps),
            "encode_480x640_q95": median_ms(
                lambda: image_codec.encode_jpeg(photo, q), reps)}
-    for name in CODEC_WEBP_TIMED + CODEC_TIFF_TIMED:
+    for name in CODEC_JPEG_TIMED + CODEC_WEBP_TIMED + CODEC_TIFF_TIMED:
         data = (CODEC_DIR / name).read_bytes()
         out[name] = median_ms(lambda: image_codec.decode(data), reps)
     photo = codec_tiff_encode_inputs()["photo_rgb"]
@@ -4162,7 +4368,13 @@ def check_codec_digests() -> dict:
           f"480x640 q95 {timing['decode_480x640_q95']:.2f}, encode 480x640 "
           f"q95 {timing['encode_480x640_q95']:.2f}; Pillow's on the CPU of "
           f"CODEC_PILLOW_MS {CODEC_PILLOW_MS['decode_480x640_q95']:.2f} and "
-          f"{CODEC_PILLOW_MS['encode_480x640_q95']:.2f}; WEBP decodes at "
+          f"{CODEC_PILLOW_MS['encode_480x640_q95']:.2f}; JPEG decodes at "
+          f"480x640 (arithmetic progressive, lossless grey, smoothed), here / "
+          f"Pillow's on that CPU: "
+          + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
+                      for n in CODEC_JPEG_TIMED)
+          + f"; the damaged JPEG corpora's {len(JPEG_DAMAGE_SOURCES)} digests "
+          f"in {ms['damaged'] / 1e3:.2f} s; WEBP decodes at "
           f"480x640, here / Pillow's on that CPU: "
           + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
                       for n in CODEC_WEBP_TIMED)
@@ -10306,6 +10518,7 @@ WEBP_IMAGE = "alpha_480x640_q75.webp"    # cpt_predict --image x.webp's
 WEBP_UPLOAD = "alpha_480x640_q75.webp"   # phase 8's WEBP upload
 TIFF_IMAGE = "ycbcr_jpeg_22_480x640.tif"  # cpt_predict --image x.tif's
 TIFF_UPLOAD = "ycbcr_jpeg_22_480x640.tif"  # phase 8's TIFF upload
+ARITH_IMAGE = "arith_progressive_q50_480x640.jpg"  # cpt_predict --image's
 COCO_IMAGES = ((480, 640), (427, 640))   # convert_dataset coco's JPEGs
 INFO_SIZES = {"a.jpg": (333, 517), "b.jpeg": (64, 48), "c.png": (97, 131)}
 COLOR_STEP = 128                 # img_info --all_color_imgs: 2^3 probes
@@ -10397,14 +10610,17 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
               f"decode {out['predict_image']['out_equal']}; launches {ran}",
               flush=True)
 
-        # cpt_predict --image <file> at full width on two committed fixtures
-        # (the card's host has no writer of either): a lossy-with-alpha WEBP
-        # (WEBP_IMAGE) --out w.png and a TIFF of YCbCr JPEG strips
-        # (TIFF_IMAGE) --out t.tif (Pillow's layout, encode_tiff); each
+        # cpt_predict --image <file> at full width on three committed
+        # fixtures (the card's host has no writer of any): a lossy-with-alpha
+        # WEBP (WEBP_IMAGE) --out w.png, a TIFF of YCbCr JPEG strips
+        # (TIFF_IMAGE) --out t.tif (Pillow's layout, encode_tiff) and an
+        # arithmetic-coded progressive JPEG (ARITH_IMAGE) --out a.png; each
         # decode Pillow's (CODEC_DIGESTS)
         for key, name, out_name, seed, what in (
                 ("predict_webp", WEBP_IMAGE, "w.png", 2037, "lossy with alpha"),
-                ("predict_tiff", TIFF_IMAGE, "t.tif", 2040, "YCbCr JPEG strips")):
+                ("predict_tiff", TIFF_IMAGE, "t.tif", 2040, "YCbCr JPEG strips"),
+                ("predict_arith", ARITH_IMAGE, "a.png", 2043,
+                 "arithmetic-coded progressive JPEG")):
             path, out_path = str(CODEC_DIR / name), f"{root}/{out_name}"
             fimg = image_codec.read_image(path)
             fdets = serve_request(np.random.RandomState(seed), IMAGE_FILE_DETS,

@@ -3,10 +3,13 @@ Pillow (the port's counterpart of the ``Image.open(...).convert(...)`` and
 ``Image.save`` calls the JAX package makes).
 
 ``decode`` gives Pillow 12.1's pixels bit for bit, converted to ``"RGB"``
-or ``"L"`` by Pillow's rules: for a JPEG the pixels of libjpeg-turbo's
-default decompression (islow IDCT, fancy upsampling, its fixed-point YCbCr
+or ``"L"`` by Pillow's rules: for a JPEG the pixels of libjpeg-turbo
+3.1.3's default decompression on x86-64 (Huffman, arithmetic and lossless
+coding; the islow IDCT in its SIMD arithmetic; block smoothing of
+progressive files left unrefined; fancy upsampling, its fixed-point YCbCr
 and YCCK conversions; a CMYK or YCCK file inverted as Pillow unpacks it,
-then through its cmyk2rgb), for a PNG those of Pillow's reader (16-bit
+then through its cmyk2rgb; damaged data decoding, or failing, as there),
+for a PNG those of Pillow's reader (16-bit
 samples: a grey one clipped at 255, colour ones cut to their high byte),
 for a GIF its first frame as ``Image.open`` gives it (mode ``P`` or ``L``,
 a short palette padded with black, the transparent index left as it is),
@@ -33,9 +36,12 @@ The JPEG codec, the PNG row filters, GIF's LZW, BMP's RLE
 (``csrc/webp_vp8.cpp``, ``csrc/webp_vp8l.cpp``) and TIFF's LZW, PackBits,
 predictor and YCbCr conversion (``csrc/tiff.cpp``) are host C++, built by
 ``kernels/build.py`` with the host C++ compiler at first use and called
-through ``ctypes``; zlib, the RIFF container and the TIFF directories are
+through ``ctypes``; zlib, the RIFF container, the TIFF directories and
+the walk over a JPEG's markers that Pillow's ``Image.open`` makes are
 Python's. A failed build raises ``KernelError``; a file this module cannot
-read (arithmetic / lossless / 12-bit JPEG, TIFF of floating-point, signed
+read (JPEG that Pillow refuses too: hierarchical, precisions other than 8,
+arithmetic lossless, MCUs past 10 blocks, arithmetic-coded data past the
+65536 bytes Pillow feeds libjpeg at once; TIFF of floating-point, signed
 or 12- and 32-bit samples, CIELab, CCITT, old-style JPEG or LZW and other
 compressions, other formats, truncated or damaged data) raises
 :class:`ImageCodecError` naming its kind, and so does a file whose header
@@ -86,6 +92,11 @@ FAULTS = {
     "tiff_jpeg_replicate": 524288,         # JPEG-in-TIFF chroma replicated
     "tiff_colormap_low_byte": 1048576,     # ColorMap entries cut to the low byte
     "tiff_edge_tile_stride": 2097152,      # edge tiles read at their cropped width
+    # the JPEG decoder's damaged-data, arithmetic, lossless and smoothing paths
+    "c_idct": 4194304,                     # islow in jidctint.c's C arithmetic
+    "arith_default_conditioning": 8388608,   # DAC conditioning ignored
+    "lossless_left_predictor": 16777216,   # every sample predicted from the left
+    "no_block_smoothing": 33554432,        # unrefined progressive blocks not smoothed
 }
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -105,10 +116,8 @@ class ImageCodecError(OSError):
 
 
 SIGNATURES = {
-    # data, n, &width, &height, &ncomp, err, errlen
-    "cpt_jpeg_header": ([_P, _L, _IP, _IP, _IP, _P, _I], _I),
-    # data, n, out, fault, err, errlen
-    "cpt_jpeg_decode": ([_P, _L, _P, _I, _P, _I], _I),
+    # data, n, width, height, ncomp, out, fault, err, errlen
+    "cpt_jpeg_decode": ([_P, _L, _I, _I, _I, _P, _I, _P, _I], _I),
     # pixels, width, height, ncomp, quality, fault, out, cap, err, errlen
     "cpt_jpeg_encode": ([_P, _I, _I, _I, _I, _I, _P, _L, _P, _I], _L),
     # filtered, rows, rowbytes, bpp, fault, out, err, errlen
@@ -169,22 +178,143 @@ def _check_size(w: int, h: int) -> None:
 
 # ------------------------------------------------------------------ JPEG
 
-def _jpeg_header(data: bytes) -> Tuple[int, int, int]:
-    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = ctypes.create_string_buffer(_ERR_LEN)
-    _check(_lib().cpt_jpeg_header(_ptr(data), len(data), ctypes.byref(w),
-                                  ctypes.byref(h), ctypes.byref(c), err,
-                                  _ERR_LEN), err)
-    return w.value, h.value, c.value
+_SOF_MARKERS = frozenset((0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA,
+                          0xCB, 0xCD, 0xCE, 0xCF, 0xDE))
+_SKIPPED_MARKERS = frozenset((0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF))
+_BARE_MARKERS = frozenset((0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE)))
+
+
+def _jpeg_open(data: bytes) -> Tuple[int, int, int]:
+    """(width, height, layers) as ``Image.open`` reads a JPEG: Pillow 12.1's
+    JpegImagePlugin walks the markers up to the first SOS itself (a marker
+    it does not know, a short segment, a quantisation table cut short, a
+    frame header of other than 8 bits or 1, 3 or 4 layers, a short JFIF,
+    Adobe or Photoshop segment or ICC_PROFILE chunk raise), keeps its last
+    frame header, and refuses an empty size or a decompression bomb. Raises
+    where ``Image.open`` raises; EXIF and MPF contents, which Pillow parses
+    further, are not read."""
+    def broken(why: str):
+        raise ImageCodecError(f"cannot identify image file (JPEG: {why})")
+
+    pos = 3
+    size, layers, icc = None, 0, []
+
+    def read(k: int) -> bytes:
+        nonlocal pos
+        out = data[pos:pos + k]
+        pos += len(out)
+        return out
+
+    def i16(b: bytes, at: int = 0) -> int:
+        if len(b) < at + 2:
+            broken("a marker segment is cut short")
+        return (b[at] << 8) | b[at + 1]
+
+    def i32(b: bytes, at: int) -> int:
+        return struct.unpack_from(">I", b, at)[0]
+
+    def segment() -> bytes:
+        n = i16(read(2)) - 2
+        if n <= 0:
+            return b""
+        out = read(n)
+        if len(out) < n:
+            broken("Truncated File Read")
+        return out
+
+    s = b"\xff"
+    while True:
+        if not s:
+            broken("the data ends before a scan")
+        if s[0] != 0xFF:
+            s = read(1)
+            continue
+        s = s + read(1)
+        i = i16(s)
+        marker = i & 0xFF
+        if i >> 8 != 0xFF or i == 0xFFFF:
+            s = b"\xff"
+            continue
+        if marker in _SOF_MARKERS:
+            body = segment()
+            if len(body) < 5:
+                broken("a frame header is cut short")
+            size = (i16(body, 3), i16(body, 1))
+            if body[0] != 8:
+                broken(f"cannot handle {body[0]}-bit layers")
+            if len(body) < 6:
+                broken("a frame header is cut short")
+            layers = body[5]
+            if layers not in (1, 3, 4):
+                broken(f"cannot handle {layers}-layer images")
+            if icc:
+                icc.sort()
+                if len(icc[0]) < 14:
+                    broken("an ICC_PROFILE chunk is cut short")
+                icc = []
+            if (len(body) - 6) % 3:
+                broken("a frame header's last component is cut short")
+        elif marker in _SKIPPED_MARKERS:
+            segment()
+            if marker == 0xDA:
+                break
+        elif marker == 0xDB:
+            body = segment()
+            while body:
+                length = 1 + (64 if body[0] < 16 else 128)
+                if len(body) < length:
+                    broken("bad quantization table marker")
+                body = body[length:]
+        elif 0xE0 <= marker <= 0xEF:
+            body = segment()
+            if marker == 0xE0 and body.startswith(b"JFIF"):
+                i16(body, 5)
+            elif marker == 0xEE and body.startswith(b"Adobe"):
+                i16(body, 5)
+            elif marker == 0xE2 and body.startswith(b"ICC_PROFILE\0"):
+                icc.append(body)
+            elif marker == 0xED and body.startswith(b"Photoshop 3.0\x00"):
+                at = 14
+                try:
+                    while body[at:at + 4] == b"8BIM":
+                        at += 4
+                        code = struct.unpack_from(">H", body, at)[0]
+                        at += 2
+                        if at >= len(body):
+                            broken("a Photoshop resource is cut short")
+                        at += 1 + body[at]
+                        at += at & 1
+                        n = i32(body, at)
+                        at += 4
+                        block = body[at:at + n]
+                        if code == 0x03ED:
+                            struct.unpack_from(">IHHIH", block)
+                        at += n + ((at + n) & 1)
+                except struct.error:
+                    pass
+        elif marker == 0xFE:
+            segment()
+        elif marker in _BARE_MARKERS:
+            pass
+        elif marker == 0:
+            s = read(1)
+            continue
+        else:
+            broken("no marker found")
+        s = read(1)
+    if size is None or size[0] <= 0 or size[1] <= 0:
+        broken("no frame header before the scan")
+    _check_size(*size)
+    return size[0], size[1], layers
 
 
 def _decode_jpeg(data: bytes, fault: int) -> np.ndarray:
     """[H, W] (one component) or [H, W, 3] RGB (three; four, CMYK or YCCK,
     converted as Pillow's ``convert("RGB")`` does)."""
-    w, h, c = _jpeg_header(data)
+    w, h, c = _jpeg_open(data)
     out = np.empty((h, w) if c == 1 else (h, w, 3), np.uint8)
     err = ctypes.create_string_buffer(_ERR_LEN)
-    _check(_lib().cpt_jpeg_decode(_ptr(data), len(data), _ptr(out), fault,
+    _check(_lib().cpt_jpeg_decode(_ptr(data), len(data), w, h, c, _ptr(out), fault,
                                   err, _ERR_LEN), err)
     return out
 
@@ -2236,7 +2366,7 @@ def image_size(data_or_path) -> Tuple[int, int]:
     data = _read(data_or_path)
     fmt = _format_of(data)
     if fmt == "JPEG":
-        w, h, _ = _jpeg_header(data)
+        w, h, _ = _jpeg_open(data)
         return w, h
     if fmt == "GIF":
         return _gif_header(data)["size"]

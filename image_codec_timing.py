@@ -2,8 +2,10 @@
 """Host time of the port's image codec (``cpt_tpu_torch/utils/
 image_codec``) beside Pillow's on the same inputs: every fixture of
 ``chip_smoke.CODEC_DIGESTS`` decoded to RGB (among them the four 480x640
-WEBP files: lossy at quality 75 and 95, lossy with alpha, lossless;
-committed, so the card's host, which has no Pillow, times them too); a
+WEBP files: lossy at quality 75 and 95, lossy with alpha, lossless; and
+three 480x640 JPEG files: arithmetic-coded progressive, lossless grey and
+progressive left unrefined (block smoothing); committed, so the card's
+host, which has no Pillow, times them too); a
 480x640 photo in each kind
 the codec reads besides YCbCr JPEG (CMYK JPEG, baseline and progressive;
 YCCK JPEG; 16-bit grey, 48-bit and 64-bit PNG; GIF, plain and interlaced;
@@ -20,9 +22,9 @@ line: for each input, the median of ``--reps`` calls in ms of the codec
 and of Pillow (null where Pillow is absent), and whether the two outputs
 are equal. The times are of the host this runs on (no card is used).
 ``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the 480x640
-quality-95 JPEG decode and encode, the 480x640 WEBP decodes, the 480x640
-YCbCr JPEG TIFF decode and the 480x640 TIFF encode from a run of this
-script.
+quality-95 JPEG decode and encode, the arithmetic, lossless and smoothed
+480x640 JPEG decodes, the 480x640 WEBP decodes, the 480x640 YCbCr JPEG
+TIFF decode and the 480x640 TIFF encode from runs of this script.
 
     python3 image_codec_timing.py [--reps 20]
 """

@@ -12,7 +12,12 @@ Huffman tables; progressive; restart markers; grayscale; an odd size
 progressive (Pillow's writer: Adobe transform 0, inverted samples); YCCK
 (Adobe transform 2, Y and K at 2x2; written here by :func:`ycck_jpeg`, a
 small baseline encoder with the standard Huffman tables, as Pillow writes
-no YCCK). PNG: L, LA, RGB, RGBA, P at 1, 2, 4 and 8 bits and I;16
+no YCCK); and :func:`jpeg_fixtures`' kinds Pillow's writer has not:
+arithmetic-coded and lossless files from libjpeg-turbo's own compressor
+through ``ctypes`` (:func:`libjpeg_write`, the library Pillow bundles) and
+from :func:`lossless_jpeg` (a subsampled lossless file, which that
+compressor does not write), progressive files with scans dropped
+(:func:`drop_scans`), and the 24x30 sources of the damaged JPEG corpora. PNG: L, LA, RGB, RGBA, P at 1, 2, 4 and 8 bits and I;16
 (Pillow's writer); one Adam7-interlaced RGB file whose rows all take the
 Paeth filter, 48-bit RGB, 64-bit RGBA (one interlaced) and 16-bit LA
 (built here with zlib: Pillow writes none of them). GIF: P and L, plain
@@ -291,6 +296,304 @@ def ycck_planes(img: np.ndarray, k: np.ndarray) -> list:
     cr = 128 + 0.5 * r - 0.418688 * g - 0.081312 * b
     return [np.clip(np.round(p), 0, 255).astype(np.uint8) for p in (y, cb, cr)
             ] + [k]
+
+
+# -------------------------------------- arithmetic, lossless, smoothed JPEG
+
+# jpeg_compress_struct of libjpeg's v6.2 ABI (the one Pillow's bundled
+# libjpeg-turbo 3.1.3 exports), x86-64: its size and the offsets of the
+# fields set here; jpeg_component_info's size, and its sampling factors'
+# offsets (8, 12).
+_CINFO_SIZE, _JERR_SIZE, _COMP_SIZE = 520, 168, 96
+_CINFO = {"image_width": 48, "image_height": 52, "input_components": 56,
+          "in_color_space": 60, "comp_info": 88, "arith_dc_L": 192,
+          "arith_dc_U": 208, "arith_ac_K": 224, "num_scans": 240,
+          "scan_info": 248, "arith_code": 260, "restart_interval": 280,
+          "restart_in_rows": 284}
+
+
+class _ScanInfo(ctypes.Structure):
+    _fields_ = [("comps_in_scan", ctypes.c_int), ("component_index", ctypes.c_int * 4),
+                ("Ss", ctypes.c_int), ("Se", ctypes.c_int), ("Ah", ctypes.c_int),
+                ("Al", ctypes.c_int)]
+
+
+def libjpeg():
+    """Pillow's bundled libjpeg-turbo through ``ctypes`` (its compressor:
+    Pillow's ``save`` writes neither arithmetic nor lossless JPEG)."""
+    import PIL
+    libs = os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libjpeg-*.so*"))[0])
+    lib.jpeg_std_error.restype = _P
+    for name, args in (("jpeg_std_error", [_P]),
+                       ("jpeg_CreateCompress", [_P, _I, ctypes.c_size_t]),
+                       ("jpeg_mem_dest", [_P, _P, _P]), ("jpeg_set_defaults", [_P]),
+                       ("jpeg_set_quality", [_P, _I, _I]),
+                       ("jpeg_simple_progression", [_P]),
+                       ("jpeg_enable_lossless", [_P, _I, _I]),
+                       ("jpeg_start_compress", [_P, _I]),
+                       ("jpeg_write_scanlines", [_P, _P, ctypes.c_uint]),
+                       ("jpeg_finish_compress", [_P]), ("jpeg_destroy_compress", [_P])):
+        getattr(lib, name).argtypes = args
+    return lib
+
+
+def libjpeg_write(img: np.ndarray, quality: int = 75, arith=False,
+                  progressive=False, lossless=None, restart_interval=0,
+                  restart_rows=0, sampling=None, dac=None, scans=None) -> bytes:
+    """A JPEG of an L, RGB or CMYK array from libjpeg-turbo's compressor:
+    jpeg_set_defaults (an RGB array YCbCr, or RGB when lossless), then
+    ``lossless`` = (predictor, point transform) (jpeg_enable_lossless)
+    or quality ``quality``, ``sampling`` ((h, v) a component), arithmetic
+    coding with ``dac`` ((L, U, K) for tables 0, 1, ...), progressive
+    (jpeg_simple_progression), a restart interval in MCUs or MCU rows,
+    ``scans`` a scan script ((component indices, Ss, Se, Ah, Al) a scan)."""
+    lib = libjpeg()
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    nc = 1 if img.ndim == 2 else img.shape[2]
+    cinfo = ctypes.create_string_buffer(_CINFO_SIZE)
+    err = ctypes.create_string_buffer(_JERR_SIZE)
+    base = ctypes.addressof(cinfo)
+
+    def put(field, value, ctype=ctypes.c_int, index=0):
+        at = base + _CINFO[field] + index * ctypes.sizeof(ctype)
+        ctype.from_address(at).value = value
+
+    _P.from_address(base).value = lib.jpeg_std_error(err)
+    lib.jpeg_CreateCompress(cinfo, 62, _CINFO_SIZE)
+    outbuf, outsize = _P(), ctypes.c_ulong()
+    lib.jpeg_mem_dest(cinfo, ctypes.byref(outbuf), ctypes.byref(outsize))
+    put("image_width", w, ctypes.c_uint)
+    put("image_height", h, ctypes.c_uint)
+    put("input_components", nc)
+    put("in_color_space", {1: 1, 3: 2, 4: 4}[nc])   # JCS_GRAYSCALE, _RGB, _CMYK
+    lib.jpeg_set_defaults(cinfo)
+    if lossless:
+        lib.jpeg_enable_lossless(cinfo, *lossless)
+    else:
+        lib.jpeg_set_quality(cinfo, quality, 1)
+    if sampling:
+        comps = _P.from_address(base + _CINFO["comp_info"]).value
+        for i, (hs, vs) in enumerate(sampling):
+            ctypes.c_int.from_address(comps + i * _COMP_SIZE + 8).value = hs
+            ctypes.c_int.from_address(comps + i * _COMP_SIZE + 12).value = vs
+    if arith:
+        put("arith_code", 1)
+    for t, (lo, up, k) in enumerate(dac or ()):
+        put("arith_dc_L", lo, ctypes.c_uint8, t)
+        put("arith_dc_U", up, ctypes.c_uint8, t)
+        put("arith_ac_K", k, ctypes.c_uint8, t)
+    if progressive:
+        lib.jpeg_simple_progression(cinfo)
+    script = (_ScanInfo * len(scans or ()))()
+    for info, (comps, ss, se, ah, al) in zip(script, scans or ()):
+        info.comps_in_scan = len(comps)
+        info.component_index[:len(comps)] = comps
+        info.Ss, info.Se, info.Ah, info.Al = ss, se, ah, al
+    if scans:
+        put("num_scans", len(scans))
+        _P.from_address(base + _CINFO["scan_info"]).value = ctypes.addressof(script)
+    put("restart_interval", restart_interval, ctypes.c_uint)
+    put("restart_in_rows", restart_rows)
+    lib.jpeg_start_compress(cinfo, 1)
+    rows = (_P * h)(*[img.ctypes.data + y * w * nc for y in range(h)])
+    lib.jpeg_write_scanlines(cinfo, rows, h)
+    lib.jpeg_finish_compress(cinfo)
+    try:
+        return ctypes.string_at(outbuf, outsize.value)
+    finally:
+        lib.jpeg_destroy_compress(cinfo)
+        ctypes.CDLL(None).free(outbuf)
+
+
+def jpeg_segments(data: bytes) -> list:
+    """[(offset, marker)] of a JPEG's marker segments up to EOI (the
+    entropy-coded data between them skipped)."""
+    out, i = [], 2
+    while i < len(data) - 1:
+        m = data[i + 1]
+        if data[i] != 0xFF or m in (0, 0xFF) or 0xD0 <= m <= 0xD7:
+            i += 1
+            continue
+        out.append((i, m))
+        if m == 0xD9:
+            break
+        i += 2 + struct.unpack(">H", data[i + 2:i + 4])[0]
+    return out
+
+
+def lossless_jpeg(planes: list, size: tuple, sampling: list, psv: int = 1,
+                  pt: int = 0, restart_rows: int = 0, app: bytes = b"") -> bytes:
+    """A lossless (SOF3, Huffman) JPEG of uint8 component ``planes``, each
+    at its own size as ``sampling`` ((h, v) a component) gives it for an
+    image of ``size`` (height, width), in one interleaved scan: predictor
+    ``psv``, point transform ``pt``, a restart every ``restart_rows`` MCU
+    rows, the standard luminance DC table, the marker segments ``app``
+    after SOI. libjpeg-turbo's compressor subsamples no lossless component;
+    this writer does."""
+    h_img, w_img = size
+    mh, mv = max(f[0] for f in sampling), max(f[1] for f in sampling)
+    mcux, mcuy = -(-w_img // mh), -(-h_img // mv)
+    diffs = []
+    for plane, (hs, vs) in zip(planes, sampling):
+        x = plane.astype(np.int64) >> pt
+        ch, cw = x.shape
+        assert (ch, cw) == (-(-h_img * vs // mv), -(-w_img * hs // mh))
+        d = np.zeros((mcuy * vs, mcux * hs), np.int64)
+        for y in range(ch):
+            first = y % vs == 0 and (y // vs) % max(restart_rows, 1) == 0 and (
+                y == 0 or restart_rows)
+            for i in range(cw):
+                if first:
+                    pred = (1 << (7 - pt)) if i == 0 else x[y, i - 1]
+                elif i == 0:
+                    pred = x[y - 1, 0]
+                else:
+                    ra, rb, rc = x[y, i - 1], x[y - 1, i], x[y - 1, i - 1]
+                    pred = (ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1),
+                            rb + ((ra - rc) >> 1), (ra + rb) >> 1)[psv - 1]
+                d[y, i] = x[y, i] - pred
+        diffs.append(d)
+    out = bytearray(b"\xff\xd8" + app)
+
+    def seg(marker: int, body: bytes) -> None:
+        out.extend(struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body)
+
+    seg(0xC3, struct.pack(">BHHB", 8, h_img, w_img, len(planes)) + b"".join(
+        bytes([i + 1, hs * 16 + vs, 0]) for i, (hs, vs) in enumerate(sampling)))
+    seg(0xC4, bytes([0]) + bytes(DC_LUMA[0]) + bytes(DC_LUMA[1]))
+    if restart_rows:
+        seg(0xDD, struct.pack(">H", restart_rows * mcux))
+    seg(0xDA, bytes([len(planes)]) + b"".join(bytes([i + 1, 0])
+                                             for i in range(len(planes)))
+        + bytes([psv, 0, pt]))
+    codes = huffman_codes(DC_LUMA)
+    acc, nacc = 0, 0
+
+    def put(code: int, length: int) -> None:
+        nonlocal acc, nacc
+        acc, nacc = (acc << length) | code, nacc + length
+        while nacc >= 8:
+            byte = (acc >> (nacc - 8)) & 255
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+            nacc -= 8
+
+    for my in range(mcuy):
+        if restart_rows and my and my % restart_rows == 0:
+            if nacc:
+                put((1 << (8 - nacc)) - 1, 8 - nacc)
+            out.extend(bytes([0xFF, 0xD0 + (my // restart_rows - 1) % 8]))
+        for mx in range(mcux):
+            for d, (hs, vs) in zip(diffs, sampling):
+                for yy in range(vs):
+                    for xx in range(hs):
+                        v = int(d[my * vs + yy, mx * hs + xx])
+                        n = abs(v).bit_length()
+                        put(*codes[n])
+                        if n:
+                            put(v if v >= 0 else v + (1 << n) - 1, n)
+    if nacc:
+        put((1 << (8 - nacc)) - 1, 8 - nacc)
+    out += b"\xff\xd9"
+    return bytes(out)
+
+
+def without_segments(data: bytes, marker: int) -> bytes:
+    """The JPEG with its ``marker`` segments taken out."""
+    out, last = bytearray(), 0
+    for at, m in jpeg_segments(data):
+        if m == marker:
+            out += data[last:at]
+            last = at + 2 + struct.unpack(">H", data[at + 2:at + 4])[0]
+    return bytes(out + data[last:])
+
+
+def drop_scans(data: bytes, k: int) -> bytes:
+    """A progressive JPEG without its last ``k`` scans (and the table
+    segments right before them), then EOI: coefficients left unrefined,
+    which libjpeg's block smoothing estimates."""
+    segs = jpeg_segments(data)
+    starts, table_start = [], None
+    for at, m in segs:
+        if m in (0xC4, 0xCC):
+            table_start = at if table_start is None else table_start
+        elif m == 0xDA:
+            starts.append(at if table_start is None else table_start)
+            table_start = None
+        else:
+            table_start = None
+    return data[:starts[-k]] + b"\xff\xd9"
+
+
+def pillow_jpeg(img: np.ndarray, mode=None, **kw) -> bytes:
+    """Pillow's ``save(format="JPEG", **kw)`` of ``img`` (converted to
+    ``mode`` first when given)."""
+    im = Image.fromarray(img)
+    buf = io.BytesIO()
+    (im.convert(mode) if mode else im).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+def jpeg_fixtures() -> dict:
+    """The JPEG kinds Pillow reads through libjpeg-turbo beyond its own
+    writer's: arithmetic-coded (sequential 4:2:0, 4:4:4, grey and CMYK,
+    progressive, restart markers, DAC conditioning other than the default
+    and none at all), lossless (predictors 1, 4 and 7, grey and RGB, a point
+    transform, restart markers, 4:2:0, component ids 1-3 without a marker)
+    and progressive files left unrefined (1, 2, 4 and 6 scans dropped).
+    The 24x30 ones and damage_*.jpg are the damaged corpora's sources
+    (chip_smoke.JPEG_DAMAGE_SOURCES); the 480x640 ones the card's
+    timing and ``cpt_predict --image`` inputs."""
+    out = {}
+    src = photo(9950, 24, 30)
+    for name, kw in (("baseline_420", {}), ("baseline_444", {"subsampling": 0}),
+                     ("restart", {"restart_marker_blocks": 1}),
+                     ("optimize", {"optimize": True}),
+                     ("progressive", {"progressive": True})):
+        out[f"damage_{name}.jpg"] = pillow_jpeg(src, quality=75, **kw)
+    out["damage_gray.jpg"] = pillow_jpeg(src[..., 1], quality=75)
+    out["damage_cmyk.jpg"] = pillow_jpeg(src, "CMYK", quality=75)
+    out["arith_420_q75.jpg"] = libjpeg_write(src, arith=True)
+    out["arith_444_q75.jpg"] = libjpeg_write(src, arith=True, sampling=((1, 1),) * 3)
+    out["arith_gray_q75.jpg"] = libjpeg_write(src[..., 1], arith=True)
+    # libjpeg writes a DAC for every scan, default values too
+    out["arith_no_dac_q75.jpg"] = without_segments(libjpeg_write(src, arith=True), 0xCC)
+    out["arith_dac_q75.jpg"] = libjpeg_write(src, arith=True,
+                                             dac=((2, 5, 20), (1, 3, 7)))
+    out["arith_restart_q75.jpg"] = libjpeg_write(src, arith=True, restart_interval=2)
+    out["arith_progressive_q75.jpg"] = libjpeg_write(src, arith=True, progressive=True)
+    cmyk = np.asarray(Image.fromarray(src).convert("CMYK"))
+    out["arith_cmyk_q75.jpg"] = libjpeg_write(cmyk, arith=True)
+    for p in (1, 4, 7):
+        out[f"lossless_gray_p{p}.jpg"] = libjpeg_write(
+            src[..., 1], lossless=(p, 0), restart_rows=2 if p == 7 else 0)
+        out[f"lossless_rgb_p{p}.jpg"] = libjpeg_write(
+            src, lossless=(p, 2 if p == 7 else 0))
+    half = src.reshape(12, 2, 15, 2, 3).mean((1, 3)).round().astype(np.uint8)
+    adobe_rgb = b"\xff\xee\x00\x0eAdobe" + struct.pack(">HHHB", 100, 0, 0, 0)
+    out["lossless_420.jpg"] = lossless_jpeg(
+        [src[..., 0], half[..., 1], half[..., 2]], (24, 30),
+        [(2, 2), (1, 1), (1, 1)], psv=4, restart_rows=3, app=adobe_rgb)
+    # libjpeg's RGB without its Adobe marker, the component ids 1, 2, 3:
+    # RGB all the same for a lossless file
+    ids = bytearray(without_segments(libjpeg_write(src, lossless=(6, 1)), 0xEE))
+    sof = ids.index(b"\xff\xc3")
+    ids[sof + 10:sof + 19:3] = b"\x01\x02\x03"
+    sos = ids.index(b"\xff\xda")
+    ids[sos + 5:sos + 11:2] = b"\x01\x02\x03"
+    out["lossless_ids123.jpg"] = bytes(ids)
+    prog = pillow_jpeg(photo(9951, 48, 64), quality=75, progressive=True)
+    for k in (1, 2, 4, 6):
+        out[f"smooth_drop{k}.jpg"] = drop_scans(prog, k)
+    big = libjpeg_write(photo(9952, 480, 640), quality=50, arith=True, progressive=True)
+    out["arith_progressive_q50_480x640.jpg"] = big
+    out["smooth_480x640.jpg"] = drop_scans(big, 2)
+    out["lossless_gray_480x640.jpg"] = libjpeg_write(
+        photo(9953, 480, 640, noise=0.0)[..., 1], lossless=(4, 5))
+    return out
 
 
 # ------------------------------------------------------------------------ GIF
@@ -1467,6 +1770,7 @@ def fixtures() -> dict:
                                 header=12)
     out.update(webp_fixtures())
     out.update(tiff_fixtures())
+    out.update(jpeg_fixtures())
     return out
 
 

@@ -21,6 +21,7 @@ import json
 import struct
 import tempfile
 import threading
+import warnings
 import zlib
 from http.server import ThreadingHTTPServer
 from pathlib import Path
@@ -495,10 +496,26 @@ def cmyk_jpeg() -> bytes:
     return buf.getvalue()
 
 
-def arithmetic_header() -> bytes:
+def hierarchical_header() -> bytes:
     data = bytearray(pillow_jpeg(cs.codec_photo(45, 24, 32)))
     i = data.find(b"\xff\xc0")
-    data[i + 1] = 0xC9                       # SOF0 → SOF9, arithmetic
+    data[i + 1] = 0xC5                       # SOF0 → SOF5, hierarchical
+    return bytes(data)
+
+
+def twelve_bit_header() -> bytes:
+    data = bytearray(pillow_jpeg(cs.codec_photo(45, 24, 32)))
+    i = data.find(b"\xff\xc0")
+    data[i + 4] = 12                         # a 12-bit frame
+    return bytes(data)
+
+
+def arithmetic_lossless() -> bytes:
+    """A lossless file relabelled SOF11, arithmetic lossless: libjpeg-turbo
+    implements no arithmetic lossless decoding (nor encoding)."""
+    data = bytearray(mf.libjpeg_write(cs.codec_photo(45, 24, 32), lossless=(1, 0)))
+    i = data.find(b"\xff\xc3")
+    data[i + 1] = 0xCB
     return bytes(data)
 
 
@@ -514,13 +531,6 @@ def small_gif() -> bytes:
     Image.fromarray(cs.codec_photo(54, 24, 32)).quantize(32).save(
         buf, format="GIF")
     return buf.getvalue()
-
-
-def lossless_header() -> bytes:
-    data = bytearray(pillow_jpeg(cs.codec_photo(55, 24, 32)))
-    i = data.find(b"\xff\xc0")
-    data[i + 1] = 0xC3                       # SOF0 → SOF3, lossless
-    return bytes(data)
 
 
 def mcu_too_large() -> bytes:
@@ -547,8 +557,9 @@ ERROR_CASES = {
                       "truncated"),
     "truncated_bmp": (lambda: ic.encode_bmp(cs.codec_photo(56, 20, 30))[:-200],
                       "truncated"),
-    "arithmetic": (arithmetic_header, "arithmetic"),
-    "lossless": (lossless_header, "lossless"),
+    "hierarchical": (hierarchical_header, "hierarchical"),
+    "twelve_bit": (twelve_bit_header, "12-bit"),
+    "lossless_arithmetic": (arithmetic_lossless, "arithmetic-coded lossless"),
     "mcu_too_large": (mcu_too_large, "too large"),
     # a WEBP whose VP8 chunk is empty (size 0): broken, as Pillow finds it
     "webp": (lambda: b"RIFF" + struct.pack("<I", 30) + b"WEBPVP8 " + bytes(22),
@@ -559,18 +570,18 @@ ERROR_CASES = {
 
 @pytest.mark.parametrize("case", sorted(ERROR_CASES))
 def test_unsupported_and_truncated_files_raise(case):
-    """A truncated file (JPEG, PNG, GIF, BMP), an arithmetic-coded or a
-    lossless JPEG header, a broken WEBP and a TIFF whose first directory
-    holds no entry raise ``ImageCodecError`` naming the problem; no partial
-    image comes back. Pillow raises on the truncated files, the broken WEBP
-    and the empty TIFF directory too."""
+    """A truncated file (JPEG, PNG, GIF, BMP), a hierarchical, 12-bit or
+    arithmetic-coded lossless JPEG, an MCU past 10 blocks, a broken WEBP and
+    a TIFF whose first directory holds no entry raise ``ImageCodecError``
+    naming the problem; no partial image comes back. Pillow raises on each
+    of them too. (The arithmetic and lossless frames relabelled from a
+    baseline file are in test_torch_jpeg.py, which holds them to Pillow.)"""
     make, word = ERROR_CASES[case]
     data = make()
     with pytest.raises(ic.ImageCodecError, match=word):
         ic.decode(data)
-    if case.startswith("truncated") or case in ("webp", "tiff"):
-        with pytest.raises(OSError):
-            pillow_decode(data, "RGB")
+    with pytest.raises(OSError):
+        pillow_decode(data, "RGB")
 
 
 def strip_dht(data: bytes) -> bytes:
@@ -701,7 +712,21 @@ def pillow_digests() -> dict:
     img, boxes, labels, scores, names = cs.caption_case()
     out["caption:overlay"] = digest(jdemo.overlay_detections(
         img.copy(), boxes, labels, scores, names))
+    for seed, name in enumerate(cs.JPEG_DAMAGE_SOURCES):
+        data = (cs.CODEC_DIR / name).read_bytes()
+        out[f"damaged:{name}"] = cs.damage_digest(
+            pillow_or_none(d) for d in cs.jpeg_damaged(data, seed))
     return out
+
+
+def pillow_or_none(data: bytes):
+    """Pillow's RGB decode, or None where it raises (a damaged file)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            return pillow_decode(data, "RGB")
+        except Exception:      # noqa: BLE001 - any raise is a refusal
+            return None
 
 
 def test_codec_digests_are_pillows():
