@@ -107,10 +107,10 @@ Phases (any failure raises and the script exits non-zero):
    decoded image, K1 50, K2 1, K3 12, K4 12, held to ``cpt_predict`` on
    the decoded image as the raw-array requests are, and its scores and
    ``cpt_predict``'s each within SCORE_TOL of the f32 einsum path; one
-   lossy-with-alpha WEBP upload, ``WEBP_UPLOAD``, and one YCbCr-JPEG TIFF
-   upload, ``TIFF_UPLOAD``, each decoded as Pillow decodes it and answered
-   exactly as the direct call on the decoded image, K1 50, K2 1, K3 12, K4
-   12), K3 at
+   lossy-with-alpha WEBP upload, ``WEBP_UPLOAD``, one YCbCr-JPEG TIFF
+   upload, ``TIFF_UPLOAD``, and one colour-mapped RLE Targa upload,
+   ``TGA_UPLOAD``, each decoded as Pillow decodes it and answered exactly
+   as the direct call on the decoded image, K1 50, K2 1, K3 12, K4 12), K3 at
    its smallest bucket ``[8,78,768]`` with the ragged-edge fault, host ms
    per request and one request's profile; then ``--windowed --base_batch
    4``: 4 queued requests drain as one batched base pass and answer as the
@@ -359,8 +359,11 @@ Phases (any failure raises and the script exits non-zero):
    ranks' new launch shapes (``check_mesh_kernels``).
 21. real image files (``utils/image_codec``, the host image codec built
    by the host C++ compiler): the committed fixtures (``tests/data/codec``)
-   decoded in RGB and L and seeded arrays encoded at quality 75, 92 and
-   95, each digest equal to Pillow 12.1's (``CODEC_DIGESTS``; among them
+   decoded in RGB and L (JPEG, PNG, GIF, BMP, WEBP, TIFF, netpbm, DIB,
+   TGA, PSD, ICO, CUR, SGI, PCX, DCX, QOI, Sun raster, IM, MSP, XBM and
+   XPM) and seeded arrays encoded at quality 75, 92 and
+   95 and written as PPM, DIB, TGA, SGI, PCX and QOI, each digest equal
+   to Pillow 12.1's (``CODEC_DIGESTS``; among them
    one digest a damaged JPEG corpus, ``JPEG_DAMAGE_SOURCES``), each of
    ``CODEC_FAULTS`` changing one over its own format's fixtures
    (``CODEC_FAULT_FILES``), decode and encode host ms beside
@@ -369,9 +372,11 @@ Phases (any failure raises and the script exits non-zero):
    lossy WEBP with alpha) ``--out w.png``, ``--image <TIFF_IMAGE>`` (a
    480×640 TIFF of YCbCr JPEG strips, 2×2 subsampled) ``--out t.tif`` and
    ``--image <ARITH_IMAGE>`` (a 480×640 arithmetic-coded progressive JPEG)
-   ``--out a.png`` (K1 50, K2 1, K3 12, K4 12 each; the written file read
-   back equal to the decoded image with the box drawn; the WEBP's, TIFF's
-   and arithmetic JPEG's decodes Pillow's),
+   ``--out a.png`` and ``--image x.tga`` (the 600×800 request image as the
+   codec writes a Targa) ``--out y.ppm`` (K1 50, K2 1, K3 12, K4 12 each;
+   the written file read back equal to the decoded image with the box
+   drawn; the WEBP's, TIFF's and arithmetic JPEG's decodes Pillow's, the
+   Targa's the array written),
    ``convert_dataset coco`` over a directory of JPEGs and ``test_detector
    --tsv`` on its yaml (K1, K2 and K5; VOC and COCO metrics finite),
    ``img_info`` over ``.jpg`` and ``.png`` files (sizes equal to the written
@@ -426,6 +431,7 @@ import io
 import json
 import os
 import pickle
+import struct
 import subprocess
 import sys
 import tempfile
@@ -4105,6 +4111,272 @@ CODEC_DIGESTS = {
         "4aeb43f8f4f3be1e0dc031e7e328c4d790b826db6ca8cc83b3eafd360b83ec6e",
     "damaged:lossless_rgb_p4.jpg":
         "296b1348b144962f1e17e6aa05104663c127239b1fa6035609528f35478dc3b8",
+    "bgr.ras:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "bgr.ras:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "bilevel.pcx:RGB":
+        "a973b8bab3981a2e163ab9f45610a5b6f746d0d1738a3a21ce80f23aaf27e1a3",
+    "bilevel.pcx:L":
+        "4652682901653f292935f99f1ea6ba6161e6755bdaf90d6d4d46eda75ad64a59",
+    "bilevel.ras:RGB":
+        "060c028eebb4a295e374c6228be6b056d98b8e0c5e925b74b71ca55d5c82d562",
+    "bilevel.ras:L":
+        "753cb697d8fafd5ae4f8b99b0f38c7ea70c6a7372d3835886cbc91245aed6e3e",
+    "bilevel.tga:RGB":
+        "a973b8bab3981a2e163ab9f45610a5b6f746d0d1738a3a21ce80f23aaf27e1a3",
+    "bilevel.tga:L":
+        "4652682901653f292935f99f1ea6ba6161e6755bdaf90d6d4d46eda75ad64a59",
+    "bitmap.psd:RGB":
+        "1c10e2a658cc9186eaf732c0a44f9aab14c72e5ab3c43860b0084f39a24b39ea",
+    "bitmap.psd:L":
+        "5e3699bd473cfd142dee46a3574c063252a297e829f8e6da12ba498d555b2dbf",
+    "bmp.ico:RGB":
+        "cecf602f063ce5eb543fd0e6d1a5d546799910bc9e36253993f48cdd4609b40c",
+    "bmp.ico:L":
+        "f88302344a3cd2e89caf834f56f7a9d5e26f8a65712124a5c6a45ed6802cdabb",
+    "cmap16.tga:RGB":
+        "97361c047f9906a0591a752cf4795658174190b3ade3aa38784fde0cc5483137",
+    "cmap16.tga:L":
+        "62373a26ca77e5365d14ec653030d88447ce7ed7f367937124d67c0fa744fbc0",
+    "cmap24_mirrored.tga:RGB":
+        "b587e9edf4b7bef5201e5ccbd0310c7b07d1e92fc5cfe2eb5d8b05256f639785",
+    "cmap24_mirrored.tga:L":
+        "495ff66e9b889534e70a8e0074c384a2769f5e2ff4e20310f234ab9438851621",
+    "cmap_rle_240x320.tga:RGB":
+        "5798c7cbcb2028be28202f91a0c12c7ba6f0261f228fc26d536423d6f992a970",
+    "cmap_rle_240x320.tga:L":
+        "1332ba008097329bd9c80134efcbf248f24df57a61fa7e629df22334b23ea14b",
+    "cmyk_rle.psd:RGB":
+        "b99a71ce57021357ccfef1ef2ec757258db91646114b11b0df3b2f73836e3f7c",
+    "cmyk_rle.psd:L":
+        "261c176121e4be445980df63352e53b0076daba3f1c5aea05de994e8332f0ce2",
+    "f.im:RGB":
+        "1b1a226183789e277ccb9bb5ca84c29a98ec0e1b7ba5591f040d75ba08aa2872",
+    "f.im:L":
+        "14144e43a73eba6d174a1004cf6552b2f1040a7e761296b9c7cd853525c347dc",
+    "grey4.ras:RGB":
+        "ba0f1735f3f2f4ba052aea5e86995186e5ca205fdf719b2219ec45d09e7fdd0e",
+    "grey4.ras:L":
+        "c16699e5446a161ef4c263338783d678039c8a163b9e3dffd37b7c3aca277ed9",
+    "i16.im:RGB":
+        "8403da09e01a4aa039905e64affca5a3befa6fc3f947ef689e711480f168f472",
+    "i16.im:L":
+        "562454f8e744c8e229112abc278da8567300ac0400119c1a1413f215744e65c0",
+    "l.im:RGB":
+        "7b846754495aa83efab1d649a88cf5b41a96d2b4affc81bb2e1b17d2ccdc507c",
+    "l.im:L":
+        "ef5e1297a51204c5b97b32f5e88f3484f9fc0844a804aa0c79779b75db558efd",
+    "l16.sgi:RGB":
+        "7b846754495aa83efab1d649a88cf5b41a96d2b4affc81bb2e1b17d2ccdc507c",
+    "l16.sgi:L":
+        "ef5e1297a51204c5b97b32f5e88f3484f9fc0844a804aa0c79779b75db558efd",
+    "l_odd.pcx:RGB":
+        "7b846754495aa83efab1d649a88cf5b41a96d2b4affc81bb2e1b17d2ccdc507c",
+    "l_odd.pcx:L":
+        "ef5e1297a51204c5b97b32f5e88f3484f9fc0844a804aa0c79779b75db558efd",
+    "l_rle.psd:RGB":
+        "8560b9c884fbc3f16692ceb8b61d068d746833b506aa1f013fb91758768ffff4",
+    "l_rle.psd:L":
+        "4119cdaa839f485cea2407ca46d142da2cd1c2382301d706de7475d23783b2a7",
+    "l_rle.tga:RGB":
+        "7b846754495aa83efab1d649a88cf5b41a96d2b4affc81bb2e1b17d2ccdc507c",
+    "l_rle.tga:L":
+        "ef5e1297a51204c5b97b32f5e88f3484f9fc0844a804aa0c79779b75db558efd",
+    "l_rle16.sgi:RGB":
+        "0836f838ee4e0fc6af448afc0dc99c8a86dad7086c4234d3a18e8e87a90a5fba",
+    "l_rle16.sgi:L":
+        "ceb96109e0378b71951abdf8e16311d234e6ab2843a0fa0d155bcc8b702e437e",
+    "odd.xbm:RGB":
+        "a973b8bab3981a2e163ab9f45610a5b6f746d0d1738a3a21ce80f23aaf27e1a3",
+    "odd.xbm:L":
+        "4652682901653f292935f99f1ea6ba6161e6755bdaf90d6d4d46eda75ad64a59",
+    "one_char.xpm:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "one_char.xpm:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p.ico:RGB":
+        "f89f918927aa2dd1fe11c2f7247438246e2bb7a07f1eb3eb6d3f076464e891e5",
+    "p.ico:L":
+        "c1459b1f578d5c6fd56d1bc55a2627c53a633103778177b117387fde739a5725",
+    "p.im:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p.im:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p.pcx:RGB":
+        "14e546b30765db9f17d00c1aeaea35fa57b8a87bd94220c392510ce4a5836123",
+    "p.pcx:L":
+        "ca68ef04cb98221b5473085ea702568c5fa988890f7b2cb2459e3e26df0778ed",
+    "p1_plain.pbm:RGB":
+        "060c028eebb4a295e374c6228be6b056d98b8e0c5e925b74b71ca55d5c82d562",
+    "p1_plain.pbm:L":
+        "753cb697d8fafd5ae4f8b99b0f38c7ea70c6a7372d3835886cbc91245aed6e3e",
+    "p2_plain_max10.pgm:RGB":
+        "8aca636d1d89fd8c41ce1a832ef06b434845e845851e84cab22d9f78ac7147d3",
+    "p2_plain_max10.pgm:L":
+        "08d79120b5b23710d98f75e36b8c5a8231736cc96e8b37cba9630eb6a259a1cf",
+    "p3_plain.ppm:RGB":
+        "5341293a93e41040757c757f3f17831bd0ad1eb28bf50ad6697363f0a641b81f",
+    "p3_plain.ppm:L":
+        "95212855df1956ce624c8c366b3b37d435a0018394ede2dcc5bcc2bbf298e639",
+    "p4.dib:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p4.dib:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p4.pbm:RGB":
+        "a973b8bab3981a2e163ab9f45610a5b6f746d0d1738a3a21ce80f23aaf27e1a3",
+    "p4.pbm:L":
+        "4652682901653f292935f99f1ea6ba6161e6755bdaf90d6d4d46eda75ad64a59",
+    "p4_planes.pcx:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p4_planes.pcx:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p5.pgm:RGB":
+        "7b846754495aa83efab1d649a88cf5b41a96d2b4affc81bb2e1b17d2ccdc507c",
+    "p5.pgm:L":
+        "ef5e1297a51204c5b97b32f5e88f3484f9fc0844a804aa0c79779b75db558efd",
+    "p5_16bit.pgm:RGB":
+        "8403da09e01a4aa039905e64affca5a3befa6fc3f947ef689e711480f168f472",
+    "p5_16bit.pgm:L":
+        "562454f8e744c8e229112abc278da8567300ac0400119c1a1413f215744e65c0",
+    "p5_max1000.pgm:RGB":
+        "8403da09e01a4aa039905e64affca5a3befa6fc3f947ef689e711480f168f472",
+    "p5_max1000.pgm:L":
+        "562454f8e744c8e229112abc278da8567300ac0400119c1a1413f215744e65c0",
+    "p6.ppm:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "p6.ppm:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "p6_max4095.ppm:RGB":
+        "d3383ef138725d7129c5039a9d684148797ec1d592460e514ad9fd3981c5392a",
+    "p6_max4095.ppm:L":
+        "801c0731c4b47e8e4afebee5abdeb114e860c0b4e1b85a0e85877dddae1e9b60",
+    "p8_rle.ras:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p8_rle.ras:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p_raw.psd:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p_raw.psd:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "p_rle.tga:RGB":
+        "aa1d0761c607b507a585d86805e465cf1586cf779359d0cf2869f6ff190ff76f",
+    "p_rle.tga:L":
+        "de637922539f9fda71d7a71a02c604f927e65941b1937cadf8738e38c0ee528d",
+    "pf_be.pfm:RGB":
+        "f7bb1c6a60811409ad061097349e6a3205e8f399c8884f839737339d9dd331c7",
+    "pf_be.pfm:L":
+        "e6b3fb22c4b9289833d981c604ae371d9ea055ec85c98851ef1478c546368f4c",
+    "pf_le.pfm:RGB":
+        "d1fc135d25e45c8cbfd7be4e0ed2ab28f2654b2131543c738fa5c9b6364a1b5f",
+    "pf_le.pfm:L":
+        "3bc28e57314a62e35f86e602601d8ecdb399c269c08dbdace8567cf1786431b4",
+    "png.ico:RGB":
+        "cecf602f063ce5eb543fd0e6d1a5d546799910bc9e36253993f48cdd4609b40c",
+    "png.ico:L":
+        "f88302344a3cd2e89caf834f56f7a9d5e26f8a65712124a5c6a45ed6802cdabb",
+    "rgb.dib:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb.dib:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb.im:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb.im:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb.pcx:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb.pcx:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb.qoi:RGB":
+        "f538c78ea21c1c858294f86519a534217362de68d2c5d0f13dab7cb6813f3a22",
+    "rgb.qoi:L":
+        "da35137f09d07fc432c9c375b79780f43f357d962065dd6d90e9cf2c5ffec45a",
+    "rgb.sgi:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb.sgi:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb.tga:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb.tga:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb16.tga:RGB":
+        "eada5f713f1c211156a880ed72b23470da767cc9cec4f3bdc14be04409412008",
+    "rgb16.tga:L":
+        "1fbdc5f5181a540cf30aea5dd9a645a406831c11d2516d5f573286c334bb861e",
+    "rgb_raw.psd:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb_raw.psd:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgb_rle.psd:RGB":
+        "700ec31a5a941381512c4675874dbbe23ecdded55ac6190ec2421d68a7b66293",
+    "rgb_rle.psd:L":
+        "9bf6aca86e26a087d0e6157afe47006eacda327962003fdb54ceae7fe398ec23",
+    "rgb_rle_top.tga:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgb_rle_top.tga:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgba.qoi:RGB":
+        "00fa28fb992aa607e55f8b4099c4a0ccf3d506c55de89381c35736299febcb52",
+    "rgba.qoi:L":
+        "deff78b0ecfd0602a92bf14f4d10ed032c409336efe56c3de55826f5055155a0",
+    "rgba32_rle.tga:RGB":
+        "3f9229a5f185b52eb5d1ee704350d7248dd8a913c2129f7c92e6325847eff180",
+    "rgba32_rle.tga:L":
+        "3b9144edffef08919c2025ae62cdb44abbfad94f122a322570184843f80f4f34",
+    "rgba_rle.psd:RGB":
+        "f34c0b607e35adda4ef8e4f0ed7c1d4f5e470ebaf0e322257f5bf599a632d313",
+    "rgba_rle.psd:L":
+        "aba79af6f52304b43fa6303c821cf04aa0589dccc224e947d88648bff6c42fab",
+    "rgba_rle.sgi:RGB":
+        "f34c0b607e35adda4ef8e4f0ed7c1d4f5e470ebaf0e322257f5bf599a632d313",
+    "rgba_rle.sgi:L":
+        "aba79af6f52304b43fa6303c821cf04aa0589dccc224e947d88648bff6c42fab",
+    "rgbx_rle.ras:RGB":
+        "a3dd8ea26f99a9e74d66ae73fd34a6e5d99c6cd0e511389a16dee7cf055945b2",
+    "rgbx_rle.ras:L":
+        "62a6c9521c6285d06e8da36d265b0fa2fc5e3bf1344472301acf2d1a56aba428",
+    "two.cur:RGB":
+        "4fab563e6551f73bf83b6505c03c90257e2657aad742ead072c4d8bedf926785",
+    "two.cur:L":
+        "498145715541348e6bd27917b64cfcb9360b6f094716b4b14e117b077bd5e13d",
+    "two_chars.xpm:RGB":
+        "a9b00c5d34a751fe30685f5b4d94d33d977af2d50d2555282e948b19e341a34a",
+    "two_chars.xpm:L":
+        "98c6fd859e7b1a442edcb5b0957c2844b27e9ebd7cf58e93acec8818c8a473e4",
+    "two_pages.dcx:RGB":
+        "2d533c08a19065b58c302306eb7960859ff1142ecbfed835b0ab97ff149a6d08",
+    "two_pages.dcx:L":
+        "e4ede3d126a5eb095600169460ce914df03d9080fef824de6ad7d19f22725b43",
+    "v1.msp:RGB":
+        "a973b8bab3981a2e163ab9f45610a5b6f746d0d1738a3a21ce80f23aaf27e1a3",
+    "v1.msp:L":
+        "4652682901653f292935f99f1ea6ba6161e6755bdaf90d6d4d46eda75ad64a59",
+    "v2.msp:RGB":
+        "45205da72d27030a1671f61612c7e01c3f12a8df1c96446f929a32d8bf0a2cf5",
+    "v2.msp:L":
+        "b08af99e847a080a0242cf694780c0a97fc2039a9df57ecc01bc2c6b506bce17",
+    "write_ppm:photo_rgb":
+        "f98ff8cbb5b418985557c77f1381a447c628b7b5827b60754b179514a03e5fc7",
+    "write_ppm:gray_odd":
+        "954368e9f9fd09d75da691c78f3e8d9b2c125805184f34e0fa8847afff3ce63b",
+    "write_dib:photo_rgb":
+        "fe26f39a0388fed9d5ceb1acad226ab187805d9950782daf5ca903d4f0420ad0",
+    "write_dib:gray_odd":
+        "5916dd25949696f45bbd2b3f5d3c38e9943af9881cec8d10da72d6e992504ff1",
+    "write_tga:photo_rgb":
+        "b19c88c7f43e1080c400522071f935809c1074c67c9a05c9631e937677e1bb08",
+    "write_tga:gray_odd":
+        "03ddcf6b12d3216d113095846c3bd4c066aa62616f684bcfacaafacc650057fc",
+    "write_sgi:photo_rgb":
+        "fa955c9fd8fd606d882e10f909d341356310fbf6aba22ffd34da466f01bb8192",
+    "write_sgi:gray_odd":
+        "f7ffd536cfd0c8fb1d072409afa1ffc5a0b59c250216bdf077758c29f8954c9d",
+    "write_pcx:photo_rgb":
+        "7fd0e78a6f152abfde6401c7b1920fe405e963ff40ebf4d8f2b9ebb5ef50d036",
+    "write_pcx:gray_odd":
+        "153e8835528dd36a3283eec2fd9670127e488b076141d2a093fbf653d9db77e9",
+    "write_qoi:photo_rgb":
+        "d8d7ee38d2b3e70da51f082e04b31326240db2a183a674f631e93fe7cd7b747e",
 }
 CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "float_ycc", "quality_off_by_one", "paeth_ties",
@@ -4116,7 +4388,12 @@ CODEC_FAULTS = ("replicate_upsample", "float_idct", "refine_no_correction",
                 "tiff_lzw_late_growth", "tiff_no_predictor",
                 "tiff_jpeg_replicate", "tiff_colormap_low_byte",
                 "tiff_edge_tile_stride", "c_idct", "arith_default_conditioning",
-                "lossless_left_predictor", "no_block_smoothing")
+                "lossless_left_predictor", "no_block_smoothing",
+                "dib_palette_ignored", "netpbm_truncated_scaling", "tga_origin_ignored",
+                "psd_packbits_short_run", "ico_first_entry", "cur_first_entry",
+                "sgi_rle_table_swapped", "pcx_planes_interleaved", "dcx_second_page",
+                "qoi_hash_prime", "sun_run_exact", "im_top_down", "msp_blank_rows_black",
+                "xbm_msb_first", "xpm_keys_sorted")
 # the fixtures each fault runs over (its own format's; "" none): a faulted
 # run decodes only those, and encodes only for a JPEG fault
 CODEC_FAULT_FILES = dict(
@@ -4128,14 +4405,21 @@ CODEC_FAULT_FILES = dict(
     paeth_ties=".png", sixteen_bit_shift=".png", gif_late_growth=".gif",
     bmp_top_down=".bmp", caption_max="",
     **{f: ".webp" for f in CODEC_FAULTS if "webp" in f or "vp8" in f},
-    **{f: ".tif" for f in CODEC_FAULTS if f.startswith("tiff_")})
+    **{f: ".tif" for f in CODEC_FAULTS if f.startswith("tiff_")},
+    dib_palette_ignored=".dib", netpbm_truncated_scaling=".pgm", tga_origin_ignored=".tga",
+    psd_packbits_short_run=".psd", ico_first_entry=".ico", cur_first_entry=".cur",
+    sgi_rle_table_swapped=".sgi", pcx_planes_interleaved=".pcx", dcx_second_page=".dcx",
+    qoi_hash_prime=".qoi", sun_run_exact=".ras", im_top_down=".im",
+    msp_blank_rows_black=".msp", xbm_msb_first=".xbm", xpm_keys_sorted=".xpm")
 # Pillow 12.1.0's host ms (libjpeg-turbo 3.1.3, libwebp 1.6.0, libtiff
 # 4.7.1), the median of 20 calls of ``python3 image_codec_timing.py`` on an
 # 8-core Intel Xeon host with no card: decode of the 480x640 quality-95
 # fixture, encode of the 480x640 photo at quality 95, decodes of
 # CODEC_WEBP_TIMED and CODEC_TIFF_TIMED, the TIFF encode of the 480x640
 # photo of codec_tiff_encode_inputs; and, from a later run on such a host,
-# the decodes of CODEC_JPEG_TIMED.
+# the decodes of CODEC_JPEG_TIMED; and, from a run on such a host, the
+# decodes of raster_timing_inputs ("raster:") and the writes of the 480x640
+# photo in RASTER_WRITES' formats ("write_<format>_480x640").
 # The card's host has no Pillow; phase 21 prints the codec's ms there
 # beside these.
 CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
@@ -4148,7 +4432,34 @@ CODEC_PILLOW_MS = {"decode_480x640_q95": 4.6502935019816505,
                    "arith_progressive_q50_480x640.jpg": 4.1986649998762005,
                    "lossless_gray_480x640.jpg": 2.3588909998579766,
                    "smooth_480x640.jpg": 3.2537100000809005,
-                   "encode_tiff_480x640": 0.8357690003322205}
+                   "encode_tiff_480x640": 0.8357690003322205,
+                   "raster:p6.ppm": 1.0835985012818128,
+                   "raster:p5_16bit.pgm": 1.3013844982197043,
+                   "raster:p2_plain.pgm": 354.4343335015583,
+                   "raster:pf.pfm": 1.6046970013121609,
+                   "raster:rgb.dib": 1.2382955028442666,
+                   "raster:rgb.tga": 1.336022003670223,
+                   "raster:rgb_rle.tga": 1.3682839999091811,
+                   "raster:rgb_raw.psd": 1.4756965028936975,
+                   "raster:rgb_rle.psd": 5.18071499755024,
+                   "raster:rgb.ico": 3.1762030012032483,
+                   "raster:rgb.cur": 1.3338554999791086,
+                   "raster:rgb.sgi": 1.5129775056266226,
+                   "raster:rgb_rle.sgi": 1.8922494964499492,
+                   "raster:rgb.pcx": 4.881254000792978,
+                   "raster:two.dcx": 1.7114324982685503,
+                   "raster:rgb.qoi": 623.9352919983503,
+                   "raster:bgr_rle.ras": 3.673786501167342,
+                   "raster:rgb.im": 1.50118150486378,
+                   "raster:v2.msp": 1.7401859986421186,
+                   "raster:x.xbm": 1.815461499063531,
+                   "raster:x.xpm": 258.1207675029873,
+                   "write_ppm_480x640": 0.5511470008059405,
+                   "write_dib_480x640": 0.7080530012899544,
+                   "write_tga_480x640": 0.789498499216279,
+                   "write_sgi_480x640": 0.6914570003573317,
+                   "write_pcx_480x640": 4.595782502292423,
+                   "write_qoi_480x640": 1032.7348209975753}
 # the damaged JPEG corpora's sources (24x30; make_fixtures.jpeg_fixtures):
 # Pillow's baseline 4:2:0 and 4:4:4, grey, restart, optimized, progressive
 # and CMYK files, libjpeg-turbo's arithmetic sequential and progressive and
@@ -4199,9 +4510,120 @@ def codec_tiff_encode_inputs() -> dict:
             "gray_odd": codec_photo(13, 241, 321)[:, :, 1]}
 
 
+CODEC_SUFFIXES = (".jpg", ".png", ".gif", ".bmp", ".webp", ".tif", ".pbm", ".pgm", ".ppm",
+                  ".pfm", ".dib", ".tga", ".psd", ".ico", ".cur", ".sgi", ".pcx", ".dcx",
+                  ".qoi", ".ras", ".im", ".msp", ".xbm", ".xpm")
+
+
+# the writers of Pillow's other raster formats that CODEC_DIGESTS hold to
+# Pillow's bytes ("write_<format>:<name>" of codec_raster_encode_inputs)
+RASTER_WRITES = ("PPM", "DIB", "TGA", "SGI", "PCX", "QOI")
+
+
+def codec_raster_encode_inputs() -> dict:
+    """name → uint8 array of CODEC_DIGESTS' writes in RASTER_WRITES'
+    formats (Pillow's ``save(f, format=...)`` to a file object; QOI the RGB
+    array only: Pillow's writer refuses L)."""
+    return {"photo_rgb": codec_photo(14, 48, 64),
+            "gray_odd": codec_photo(15, 37, 53)[:, :, 1]}
+
+
+def fixture_script():
+    """tests/data/codec/make_fixtures.py (its writers of PSD, Sun raster,
+    TIFF and the rest need no Pillow)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_fixtures",
+                                                  CODEC_DIR / "make_fixtures.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def raster_timing_inputs() -> dict:
+    """name → the 480x640 photo as a file of each reader of Pillow's other
+    raster formats, written here without Pillow (the card's host has none):
+    the codec's writers, the fixture script's, and run-length files of
+    literal packets (a photo has few runs) built with numpy."""
+    from cpt_tpu_torch.utils import image_codec
+
+    mf = fixture_script()
+    photo = codec_photo(16, 480, 640)
+    grey = photo[:, :, 1]
+    h, w = grey.shape
+
+    def write(arr, fmt):
+        buf = io.BytesIO()
+        image_codec.write_image(buf, arr, format=fmt)
+        return buf.getvalue()
+
+    def literal_rows(rows, n, head):
+        """Each row cut into packets of ``n`` bytes, each after ``head``."""
+        r = rows.reshape(len(rows), -1, n)
+        return np.concatenate([np.full(r.shape[:2] + (1,), head, np.uint8), r], 2)
+
+    def sgi_rle(planes):
+        rows = literal_rows(planes[:, ::-1].reshape(-1, w), 64, 0x80 | 64)
+        rows = np.concatenate([rows.reshape(len(rows), -1),
+                               np.zeros((len(rows), 1), np.uint8)], 1)
+        n = rows.shape[1]
+        starts = 512 + 8 * len(rows) + n * np.arange(len(rows))
+        head = struct.pack(">hBBHHHHll4s79ss", 474, 1, 1, 3, w, h, len(planes), 0, 255, b"",
+                           b"", b"") + struct.pack(">l404s", 0, b"")
+        return (head + starts.astype(">u4").tobytes()
+                + np.full(len(rows), n, ">u4").tobytes() + rows.tobytes())
+
+    planes = photo.transpose(2, 0, 1)
+    psd_rows = literal_rows(planes.reshape(-1, w), 128, 127)
+    psd_rle = (mf.psd_file([p for p in planes], 8, 3, 0)[:-3 * h * w - 2]
+               + struct.pack(">H", 1) + np.full(3 * h, psd_rows.shape[1] * 129,
+                                                ">u2").tobytes() + psd_rows.tobytes())
+    sun = np.where(photo == 0x80, 0x81, photo)[:, :, ::-1]
+    bits = np.packbits(grey > 128, axis=1)
+    hexes = [b"0x%02x" % int("{:08b}".format(v)[::-1], 2) for v in range(256)]
+    xpm_keys = bytes(range(64, 128))
+    levels = (photo // 64).astype(np.int64)
+    codes = levels[..., 0] * 16 + levels[..., 1] * 4 + levels[..., 2]
+    pal = np.stack([(np.arange(64) // 16) * 85, (np.arange(64) // 4 % 4) * 85,
+                    (np.arange(64) % 4) * 85], -1)
+    xpm = [b"/* XPM */", b"static char *x[] = {", b'"%d %d 64 1",' % (w, h)]
+    xpm += [b'"%c c #%02x%02x%02x",' % (xpm_keys[i], *pal[i]) for i in range(64)]
+    xpm += [b'"' + np.asarray(bytearray(xpm_keys))[row].tobytes() + b'",' for row in codes]
+    im_head = b"Image type: RGB image\r\nImage size (x*y): %d*%d\r\n" % (w, h)
+    return {
+        "p6.ppm": write(photo, "PPM"),
+        "p5_16bit.pgm": b"P5\n%d %d\n65535\n" % (w, h) + (grey.astype(">u2") * 257).tobytes(),
+        "p2_plain.pgm": b"P2\n%d %d\n255\n" % (w, h) + b"\n".join(
+            b" ".join(b"%d" % v for v in row) for row in grey.tolist()) + b"\n",
+        "pf.pfm": mf.pfm(grey.astype(np.float32) / 255, -1.0),
+        "rgb.dib": write(photo, "DIB"),
+        "rgb.tga": write(photo, "TGA"),
+        "rgb_rle.tga": struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w, h, 24, 0)
+        + literal_rows(photo[::-1, :, ::-1].reshape(h, -1), 3 * 128, 127).tobytes(),
+        "rgb_raw.psd": mf.psd_file([p for p in planes], 8, 3, 0),
+        "rgb_rle.psd": psd_rle,
+        "rgb.ico": mf.cur_file([photo], (1, 24), b"\0\0\1\0"),
+        "rgb.cur": mf.cur_file([photo]),
+        "rgb.sgi": write(photo, "SGI"),
+        "rgb_rle.sgi": sgi_rle(planes),
+        "rgb.pcx": write(photo, "PCX"),
+        "two.dcx": mf.dcx_file([write(grey, "PCX"), write(photo, "PCX")]),
+        "rgb.qoi": write(photo, "QOI"),
+        "bgr_rle.ras": struct.pack(">8I", 0x59A66A95, w, h, 24, sun.size, 2, 0, 0)
+        + sun.tobytes(),
+        "rgb.im": im_head + b"\0" * (511 - len(im_head)) + b"\x1a"
+        + photo[::-1].transpose(0, 2, 1).tobytes(),
+        "v2.msp": struct.pack("<16H", *[0x694C, 0x536E, w, h, 1, 1, 1, 1, w, h, 0, 0,
+                                        0x694C ^ 0x536E ^ 1 ^ 1 ^ 1 ^ 1, 0, 0, 0])
+        + np.full(h, 81, "<u2").tobytes() + literal_rows(bits, 80, 80).tobytes(),
+        "x.xbm": b"#define x_width %d\n#define x_height %d\nstatic char x_bits[] = {\n"
+        % (w, h) + b",".join(hexes[v] for v in bits.reshape(-1).tolist()) + b"};\n",
+        "x.xpm": b"\n".join(xpm) + b"\n};\n",
+    }
+
+
 def codec_fixture_files() -> list:
-    return sorted(p for p in CODEC_DIR.iterdir()
-                  if p.suffix in (".jpg", ".png", ".gif", ".bmp", ".webp", ".tif"))
+    return sorted(p for p in CODEC_DIR.iterdir() if p.suffix in CODEC_SUFFIXES)
 
 
 def jpeg_damaged(data: bytes, seed: int):
@@ -4310,6 +4732,16 @@ def codec_digests(fault: str | None = None) -> tuple:
         out = image_codec.encode_tiff(arr)
         ms[f"encode_tiff:{name}"] = (time.perf_counter() - t) * 1e3
         digests[f"encode_tiff:{name}"] = hashlib.sha256(out).hexdigest()
+    for fmt in RASTER_WRITES if suffix is None else ():
+        for name, arr in codec_raster_encode_inputs().items():
+            if fmt == "QOI" and arr.ndim == 2:
+                continue
+            buf = io.BytesIO()
+            t = time.perf_counter()
+            image_codec.write_image(buf, arr, format=fmt)
+            ms[f"write_{fmt.lower()}:{name}"] = (time.perf_counter() - t) * 1e3
+            digests[f"write_{fmt.lower()}:{name}"] = hashlib.sha256(
+                buf.getvalue()).hexdigest()
     return digests, ms
 
 
@@ -4339,6 +4771,11 @@ def codec_timing(reps: int = 20) -> dict:
     photo = codec_tiff_encode_inputs()["photo_rgb"]
     out["encode_tiff_480x640"] = median_ms(lambda: image_codec.encode_tiff(photo),
                                            reps)
+    for name, data in raster_timing_inputs().items():
+        out[f"raster:{name}"] = median_ms(lambda: image_codec.decode(data), reps // 2)
+    for fmt in RASTER_WRITES:
+        out[f"write_{fmt.lower()}_480x640"] = median_ms(
+            lambda: image_codec.write_image(io.BytesIO(), photo, format=fmt), reps // 2)
     return out
 
 
@@ -4380,7 +4817,11 @@ def check_codec_digests() -> dict:
                       for n in CODEC_WEBP_TIMED)
           + "; TIFF, here / Pillow's: "
           + ", ".join(f"{n} {timing[n]:.2f} / {CODEC_PILLOW_MS[n]:.2f}"
-                      for n in CODEC_TIFF_TIMED + ("encode_tiff_480x640",)),
+                      for n in CODEC_TIFF_TIMED + ("encode_tiff_480x640",))
+          + "; Pillow's other raster formats at 480x640, here / Pillow's: "
+          + ", ".join(f"{n.split(':')[-1]} {v:.2f} / {CODEC_PILLOW_MS.get(n, float('nan')):.2f}"
+                      for n, v in timing.items()
+                      if n.startswith(("raster:", "write_"))),
           flush=True)
     if (set(got) != set(want) or not all(matched.values())
             or not all(faults.values())):
@@ -4581,18 +5022,20 @@ def run_serve(counters, smi: str, rows: list) -> dict:
                   f"JPEG upload {name} launches {ran}, want {want}")
 
         del oracle
-        # one lossy-with-alpha WEBP upload (WEBP_UPLOAD) and one YCbCr-JPEG
-        # TIFF upload (TIFF_UPLOAD), committed fixtures (the card's host has
-        # no writer of either): each decode is Pillow's (CODEC_DIGESTS), the
+        # one lossy-with-alpha WEBP upload (WEBP_UPLOAD), one YCbCr-JPEG
+        # TIFF upload (TIFF_UPLOAD) and one colour-mapped RLE Targa upload
+        # (TGA_UPLOAD), committed fixtures (the card's host has no writer of
+        # any): each decode is Pillow's (CODEC_DIGESTS), the
         # served answer the direct call's on it exactly, K1 50, K2 1, K3 and
         # K4 12 (each takes the resize rule)
         file_uploads = {}
         for kind, name, seed in (("WEBP", WEBP_UPLOAD, 2038),
-                                 ("TIFF", TIFF_UPLOAD, 2039)):
+                                 ("TIFF", TIFF_UPLOAD, 2039),
+                                 ("TGA", TGA_UPLOAD, 2044)):
             fdata = (CODEC_DIR / name).read_bytes()
             fdecoded = image_codec.decode(fdata)
-            fdets = serve_request(np.random.RandomState(seed), 8,
-                                  *fdecoded.shape[:2], 300)[1]
+            fdets = serve_request(np.random.RandomState(seed), 8, *fdecoded.shape[:2],
+                                  min(300, min(fdecoded.shape[:2]) - 40))[1]
             zero_counts(counters)
             status, answer = http(port, "/predict", json.dumps({
                 "image_b64": base64.b64encode(fdata).decode(),
@@ -10518,6 +10961,7 @@ WEBP_IMAGE = "alpha_480x640_q75.webp"    # cpt_predict --image x.webp's
 WEBP_UPLOAD = "alpha_480x640_q75.webp"   # phase 8's WEBP upload
 TIFF_IMAGE = "ycbcr_jpeg_22_480x640.tif"  # cpt_predict --image x.tif's
 TIFF_UPLOAD = "ycbcr_jpeg_22_480x640.tif"  # phase 8's TIFF upload
+TGA_UPLOAD = "cmap_rle_240x320.tga"       # phase 8's colour-mapped RLE Targa upload
 ARITH_IMAGE = "arith_progressive_q50_480x640.jpg"  # cpt_predict --image's
 COCO_IMAGES = ((480, 640), (427, 640))   # convert_dataset coco's JPEGs
 INFO_SIZES = {"a.jpg": (333, 517), "b.jpeg": (64, 48), "c.png": (97, 131)}
@@ -10656,6 +11100,41 @@ def run_image_files(counters, smi: str, tiny: bool = False) -> dict:
                   f"{len(fdets)} candidates in {fpredict_s:.2f} s (set-up "
                   f"included); the file read back equal to the drawn decode "
                   f"{got['out_equal']}; launches {ran}", flush=True)
+
+        # cpt_predict --image x.tga --out y.ppm at full width: the 600x800
+        # request image as the codec's TGA writer writes it (Pillow's bytes:
+        # CODEC_DIGESTS "write_tga:"), read back through the TGA reader, the
+        # box drawn into a PPM
+        tga_path, ppm_path = f"{root}/x.tga", f"{root}/y.ppm"
+        image_codec.write_image(tga_path, img)
+        tflags = ["--image", tga_path, "--caption", SERVE_CAPTION, "--dets",
+                  json.dumps(dets), "--out", ppm_path, "--workdir",
+                  f"{root}/tga"] + common
+        tflags += (["--tiny", "--hidden_size", "64", "--num_hidden_layers", "2"]
+                   if tiny else [])
+        zero_counts(counters)
+        t = time.perf_counter()
+        tpred = cpt_predict.main(tflags)
+        tpredict_s = time.perf_counter() - t
+        ran = counts()
+        timg = image_codec.read_image(tga_path)
+        got = out["predict_tga"] = {
+            "pred_box": tpred, "seconds": tpredict_s,
+            "decode_equal": bool(np.array_equal(timg, img)),
+            "same_pick": list(tpred) == list(pred),
+            "out_equal": bool(np.array_equal(image_codec.read_image(ppm_path),
+                                              cpt_predict.draw_box_outline(
+                                                  timg.copy(), tpred, (0, 255, 0)))),
+            "launches": ran}
+        check(list(tpred) in dets and got["decode_equal"] and got["out_equal"],
+              f"cpt_predict --image x.tga/--out y.ppm: {got}")
+        check(ran == want, f"cpt_predict --image x.tga launches {ran}, want {want}")
+        print(f"cpt_predict --image x.tga (600x800, the codec's Targa) --out "
+              f"y.ppm: box {tpred} of {len(dets)} candidates in {tpredict_s:.2f} s "
+              f"(set-up included); decode equal to the array written "
+              f"{got['decode_equal']}, the JPEG run's box {got['same_pick']}; "
+              f"the PPM read back equal to the drawn decode {got['out_equal']}; "
+              f"launches {ran}", flush=True)
 
         # convert_dataset coco over a directory of JPEGs, then
         # test_detector --tsv on its yaml

@@ -1,6 +1,12 @@
-"""Reading and writing JPEG, PNG, GIF, BMP, WEBP and TIFF files without
-Pillow (the port's counterpart of the ``Image.open(...).convert(...)`` and
-``Image.save`` calls the JAX package makes).
+"""Reading and writing image files without Pillow (the port's counterpart
+of the ``Image.open(...).convert(...)`` and ``Image.save`` calls the JAX
+package makes): JPEG, PNG, GIF, BMP, WEBP and TIFF here, Pillow's other
+raster formats (netpbm, DIB, TGA, PSD, ICO, CUR, SGI, PCX, DCX, QOI, Sun
+raster, IM, MSP, XBM, XPM) in :mod:`cpt_tpu_torch.utils.raster_formats`.
+A file is identified as ``Image.open`` identifies it: Pillow 12.1's 43
+formats in its order (:func:`_formats`), each format's prefix test and,
+for the formats tried on every file, the header checks of its ``_open``;
+a format this codec does not read raises, naming it.
 
 ``decode`` gives Pillow 12.1's pixels bit for bit, converted to ``"RGB"``
 or ``"L"`` by Pillow's rules: for a JPEG the pixels of libjpeg-turbo
@@ -27,7 +33,8 @@ tiles, separate planes, YCbCr through TIFFRGBAImage or libjpeg-turbo);
 (associated alpha too) at 8 and 16 bits, CMYK and YCbCr.
 ``encode_jpeg`` writes the bytes of Pillow's ``save(format="JPEG",
 quality=q)`` with default options, ``encode_bmp`` those of
-``save(format="BMP")`` and ``encode_tiff`` those of ``save(format="TIFF")``;
+``save(format="BMP")`` and ``encode_tiff`` those of ``save(format="TIFF")``
+(``write_image`` those of the PPM, DIB, TGA, SGI, PCX and QOI writers too);
 ``encode_png`` writes a lossless PNG (its bytes differ from Pillow's, whose
 zlib differs from Python's).
 
@@ -52,6 +59,7 @@ or returns a partial image.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import struct
 import sys
@@ -97,6 +105,22 @@ FAULTS = {
     "arith_default_conditioning": 8388608,   # DAC conditioning ignored
     "lossless_left_predictor": 16777216,   # every sample predicted from the left
     "no_block_smoothing": 33554432,        # unrefined progressive blocks not smoothed
+    # the readers of Pillow's other raster formats (utils/raster_formats)
+    "psd_packbits_short_run": 1 << 32,    # PackBits runs one byte short
+    "sgi_rle_table_swapped": 1 << 33,     # the RLE offset table read channel by channel
+    "qoi_hash_prime": 1 << 34,            # the index hash's green prime 6, not 5
+    "sun_run_exact": 1 << 35,             # a Sun RLE run of n, not n + 1
+    "xbm_msb_first": 1 << 36,             # XBM's bits taken MSB first
+    "netpbm_truncated_scaling": 1 << 37,  # maxval scaling truncated, not rounded
+    "tga_origin_ignored": 1 << 38,        # Targa's origin bits ignored
+    "pcx_planes_interleaved": 1 << 39,    # PCX's colour planes read as RGB triples
+    "ico_first_entry": 1 << 40,           # ICO's first entry, not Pillow's pick
+    "cur_first_entry": 1 << 41,           # CUR's first entry, not its largest
+    "dcx_second_page": 1 << 42,           # DCX's second page, not its first
+    "im_top_down": 1 << 43,               # IM's rows read top-down
+    "msp_blank_rows_black": 1 << 44,      # an empty MSP row black, not white
+    "xpm_keys_sorted": 1 << 45,           # XPM palette indices in sorted key order
+    "dib_palette_ignored": 1 << 46,       # DIB pixels read right after its header
 }
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -486,7 +510,8 @@ def _decode_png(data: bytes, fault: int) -> Tuple[np.ndarray, str, object]:
 def _palette_table(palette: np.ndarray) -> np.ndarray:
     """Pillow's 256-entry palette: the file's entries, then black."""
     table = np.zeros((256, 3), np.uint8)
-    table[:min(256, len(palette))] = palette[:256]
+    if palette is not None:
+        table[:min(256, len(palette))] = palette[:256]
     return table
 
 
@@ -499,16 +524,33 @@ def _rgb_to_l(rgb: np.ndarray) -> np.ndarray:
 def _convert(arr: np.ndarray, src: str, mode: str,
              palette=None) -> np.ndarray:
     """``Image.convert(mode)`` for the modes the readers produce ("L;P":
-    a GIF's mode L image holding a palette, see :func:`_gif_header`)."""
+    a GIF's mode L image holding a palette, see :func:`_gif_header`): a
+    palette image through its palette (entries past the file's black),
+    ``1`` as 0 / 255, 32-bit integers (``I``) clipped to 0 .. 255, floats
+    (``F``) truncated and clipped (NaN 0), CMYK through Pillow's cmyk2rgb,
+    alpha and padding bands dropped."""
     if src == "L;P":
         if mode == "L":
             return arr
         src = "P"
+    if src == "PA":
+        arr, src = arr[..., 0], "P"
     if src == "P":
         arr, src = _palette_table(palette)[arr], "RGB"
     if src == "1":
         src = "L"
-    if src in ("LA", "RGBA"):
+    if src == "I":
+        arr, src = np.clip(arr, 0, 255).astype(np.uint8), "L"
+    if src == "F":
+        with np.errstate(invalid="ignore"):
+            arr = np.where(np.isnan(arr), 0, np.clip(arr, 0, 255)).astype(np.uint8)
+        src = "L"
+    if src == "CMYK":
+        rgb = np.empty(arr.shape[:2] + (3,), np.uint8)
+        _lib().cpt_cmyk_to_rgb(_ptr(np.ascontiguousarray(arr)),
+                               arr.shape[0] * arr.shape[1], _ptr(rgb))
+        arr, src = rgb, "RGB"
+    if src in ("LA", "RGBA", "RGBX"):
         arr, src = arr[..., :-1], src[:-1]
         if src == "L":
             arr = arr[..., 0]
@@ -679,35 +721,41 @@ _BMP_BITS = {"P;1": 1, "1": 1, "P;4": 4, "P": 8, "L": 8, "BGR;15": 16,
              "BGR;16": 16, "BGR": 24}
 
 
-def _bmp_header(data: bytes) -> dict:
-    """BmpImagePlugin's ``_bitmap``: the size, Pillow's mode and raw mode,
-    the palette, the row stride and direction, the compression and the
-    offset of the pixels."""
+def _bmp_header(data: bytes, at: int = 14, offset: Optional[int] = None) -> dict:
+    """BmpImagePlugin's ``_bitmap`` of the header at ``at`` (14: a BMP file,
+    whose file header gives the pixels' offset; else, with ``offset`` 0, a
+    DIB, an icon's or a cursor's bitmap, its pixels right after the header,
+    bit fields and palette): the size, Pillow's mode and raw mode, the
+    palette, the row stride and direction, the compression and the offset
+    of the pixels."""
     def u32(at: int) -> int:
         return struct.unpack_from("<I", data, at)[0]
 
     def u16(at: int) -> int:
         return struct.unpack_from("<H", data, at)[0]
 
-    if len(data) < 18:
+    if len(data) < at + 4:
         raise ImageCodecError("truncated BMP file (no header)")
-    offset, size = u32(10), u32(14)
-    if len(data) < 14 + size:
+    if offset is None:
+        offset = u32(10)
+    size = u32(at)
+    if len(data) < at + size:
         raise ImageCodecError("truncated BMP file (data ends inside its "
                               "header)")
-    pos = 14 + size
+    pos = at + size
     colors = 0
     if size == 12:
-        w, h, bits, compression, pad, direction = (u16(18), u16(20), u16(24),
-                                                   0, 3, -1)
+        w, h, bits, compression, pad, direction = (u16(at + 4), u16(at + 6),
+                                                   u16(at + 10), 0, 3, -1)
     elif size in (40, 52, 56, 64, 108, 124):
-        flip = data[25] == 0xFF
-        w, h = u32(18), (2 ** 32 - u32(22) if flip else u32(22))
-        bits, compression, colors = u16(28), u32(30), u32(46)
+        flip = data[at + 11] == 0xFF
+        w, h = u32(at + 4), (2 ** 32 - u32(at + 8) if flip else u32(at + 8))
+        bits, compression, colors = u16(at + 14), u32(at + 16), u32(at + 32)
         pad, direction = 4, (1 if flip else -1)
         if compression == 3:
             if size >= 52:
-                masks = [u32(54 + 4 * i) for i in range(4 if size >= 56 else 3)]
+                masks = [u32(at + 40 + 4 * i)
+                         for i in range(4 if size >= 56 else 3)]
             else:
                 if len(data) < pos + 12:
                     raise ImageCodecError("truncated BMP file (no bit "
@@ -722,6 +770,7 @@ def _bmp_header(data: bytes) -> dict:
     colors = colors or (1 << bits)
     if offset == 14 + size and bits <= 8:
         offset += 4 * colors
+    after = pos
     if bits not in _BMP_RAW:
         raise ImageCodecError(f"BMP of unsupported pixel depth ({bits})")
     mode, raw = ("P" if bits <= 8 else "RGB"), _BMP_RAW[bits]
@@ -739,6 +788,7 @@ def _bmp_header(data: bytes) -> dict:
             raise ImageCodecError(f"BMP with an unsupported palette size "
                                   f"({colors})")
         table = data[pos:pos + pad * colors]
+        after = pos + len(table)
         grey = (0, 255) if colors == 2 else range(colors)
         if all(table[i * pad:i * pad + 3] == bytes([v & 255]) * 3
                for i, v in enumerate(grey)):
@@ -750,7 +800,7 @@ def _bmp_header(data: bytes) -> dict:
                                     ).reshape(-1, pad)[:, 2::-1]
     return {"size": (w, h), "mode": mode, "raw": raw, "palette": palette,
             "stride": ((w * bits + 31) >> 3) & ~3, "direction": direction,
-            "compression": compression, "offset": offset}
+            "compression": compression, "offset": offset or after}
 
 
 def _bmp_pixels(rows: np.ndarray, raw: str, w: int) -> np.ndarray:
@@ -778,10 +828,12 @@ def _bmp_pixels(rows: np.ndarray, raw: str, w: int) -> np.ndarray:
     return px[..., list(_BMP_RGB_BYTES[raw])]
 
 
-def _decode_bmp(data: bytes, fault: int) -> Tuple[np.ndarray, str, object]:
+def _decode_bmp(data: bytes, fault: int,
+                hdr: Optional[dict] = None) -> Tuple[np.ndarray, str, object]:
     """→ (pixels, Pillow's mode, palette or None), as Image.open reads a
-    BMP (rows bottom-up unless the height is negative)."""
-    hdr = _bmp_header(data)
+    BMP (rows bottom-up unless the height is negative), or the bitmap of
+    ``hdr`` (a DIB's, an icon's or a cursor's)."""
+    hdr = hdr or _bmp_header(data)
     (w, h), raw, start = hdr["size"], hdr["raw"], hdr["offset"]
     if hdr["compression"] in (1, 2):
         if raw not in ("P", "L", "P;1", "P;4"):
@@ -2314,29 +2366,118 @@ def encode_tiff(arr: np.ndarray) -> bytes:
 
 # ------------------------------------------------------------------- API
 
-_READS = "JPEG, PNG, GIF, BMP, WEBP and TIFF are"
+_READS = ("JPEG, PNG, GIF, BMP, DIB, WEBP, TIFF, PPM (netpbm), TGA, PSD, ICO, "
+          "CUR, SGI, PCX, DCX, QOI, SUN, IM, MSP, XBM and XPM are")
 
 
-def _format_of(data: bytes) -> str:
-    if data[:3] == b"\xff\xd8\xff":
-        return "JPEG"
-    if data.startswith(PNG_SIGNATURE):
-        return "PNG"
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return "GIF"
-    if data.startswith(b"BM"):
-        return "BMP"
-    if (data.startswith(b"RIFF") and data[8:12] == b"WEBP"
-            and data[12:16] in _WEBP_CHUNKS):
-        return "WEBP"
-    if data.startswith(_TIFF_PREFIXES):
-        return "TIFF"
+def _prefix(*magics: bytes):
+    return lambda p: p.startswith(magics)
+
+
+def _taken(data: bytes):
+    """A reader that parses its own header: the format is taken on its
+    prefix, as it was before the ordered table (its header errors fail)."""
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _formats() -> tuple:
+    """Pillow 12.1's Image.open order: (format, its ``_accept`` on the first
+    16 bytes or None (tried on every file), the opener (its ``_open``:
+    NotThis to go on to the next format), the reader or None when this
+    codec does not read the format). First the plugins Image.preinit
+    loads, then Image._plugins' in turn."""
+    rf = _rf
+    jpeg2k = _prefix(b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")
+    return (
+        ("BMP", _prefix(b"BM"), _taken, _decode_bmp),
+        ("DIB", rf.dib_accept, rf.dib_open, rf.dib_decode),
+        ("GIF", _prefix(b"GIF87a", b"GIF89a"), _taken, _decode_gif),
+        ("JPEG", _prefix(b"\xff\xd8\xff"), _taken, None),
+        ("PPM", rf.ppm_accept, rf.ppm_open, rf.ppm_decode),
+        ("PNG", _prefix(PNG_SIGNATURE), _taken, _decode_png),
+        ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (
+            b"avif", b"avis", b"mif1", b"msf1"), None, None),
+        ("BLP", _prefix(b"BLP1", b"BLP2"), None, None),
+        ("BUFR", _prefix(b"BUFR", b"ZCZC"), None, None),
+        ("CUR", _prefix(b"\0\0\2\0"), rf.cur_open, rf.cur_decode),
+        ("PCX", rf.pcx_accept, rf.pcx_open, rf.pcx_decode),
+        ("DCX", rf.dcx_accept, rf.dcx_open, rf.dcx_decode),
+        ("DDS", _prefix(b"DDS "), None, None),
+        ("EPS", lambda p: p.startswith(b"%!PS") or p[:4] == b"\xc5\xd0\xd3\xc6",
+         None, None),
+        ("FITS", _prefix(b"SIMPLE"), None, None),
+        ("FLI", lambda p: (len(p) >= 16 and struct.unpack_from("<H", p, 4)[0]
+                           in (0xAF11, 0xAF12)
+                           and struct.unpack_from("<H", p, 14)[0] in (0, 3)),
+         rf.fli_probe, None),
+        ("FTEX", _prefix(b"FTEX"), None, None),
+        ("GBR", lambda p: (len(p) >= 8 and struct.unpack_from(">I", p)[0] >= 20
+                           and struct.unpack_from(">I", p, 4)[0] in (1, 2)),
+         rf.gbr_probe, None),
+        ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1,
+         None, None),
+        ("HDF5", _prefix(b"\x89HDF\r\n\x1a\n"), None, None),
+        ("JPEG2000", jpeg2k, None, None),
+        ("ICNS", _prefix(b"icns"), None, None),
+        ("ICO", rf.ico_accept, rf.ico_open, rf.ico_decode),
+        ("IM", None, rf.im_open, rf.im_decode),
+        ("IMT", None, rf.imt_probe, None),
+        ("IPTC", None, rf.iptc_probe, None),
+        ("MCIDAS", _prefix(b"\x00\x00\x00\x00\x00\x00\x00\x04"), None, None),
+        ("MPEG", _prefix(b"\x00\x00\x01\xb3"), None, None),
+        ("TIFF", _prefix(*_TIFF_PREFIXES), _taken, _decode_tiff),
+        ("MSP", rf.msp_accept, rf.msp_open, rf.msp_decode),
+        ("PCD", None, rf.pcd_probe, None),
+        ("PIXAR", _prefix(b"\200\350\000\000"), None, None),
+        ("PSD", rf.psd_accept, rf.psd_open, rf.psd_decode),
+        ("QOI", rf.qoi_accept, rf.qoi_open, rf.qoi_decode),
+        ("SGI", rf.sgi_accept, rf.sgi_open, rf.sgi_decode),
+        ("SPIDER", None, rf.spider_probe, None),
+        ("SUN", rf.sun_accept, rf.sun_open, rf.sun_decode),
+        ("TGA", None, rf.tga_open, rf.tga_decode),
+        ("WEBP", lambda p: (p.startswith(b"RIFF") and p[8:12] == b"WEBP"
+                            and p[12:16] in _WEBP_CHUNKS), _taken, _decode_webp),
+        ("WMF", _prefix(b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), None, None),
+        ("XBM", rf.xbm_accept, rf.xbm_open, rf.xbm_decode),
+        ("XPM", rf.xpm_accept, rf.xpm_open, rf.xpm_decode),
+        ("XVTHUMB", _prefix(b"P7 332"), None, None),
+    )
+
+
+def _identify(data: bytes) -> Tuple[str, object]:
+    """(format, header) as ``Image.open`` identifies the file: each format
+    in Pillow's order whose prefix test passes, until one's ``_open``
+    takes the file (its size positive, then the decompression-bomb check).
+    A format this codec does not read raises, naming it."""
+    prefix = data[:16]
+    for name, accept, opener, reader in _formats():
+        if accept is not None and not accept(prefix):
+            continue
+        if opener is None:
+            raise ImageCodecError(f"{name} images are not supported ({_READS})")
+        try:
+            hdr = opener(data)
+        except _rf.NotThis:
+            continue
+        if opener is _taken:
+            return name, None
+        if reader is None:
+            raise ImageCodecError(f"{name} images are not supported ({_READS})")
+        try:     # ImageFile's check: a mode, a positive size (a TypeError
+            w, h = hdr["size"][0], hdr["size"][1]    # goes on too)
+        except TypeError:
+            continue
+        if not hdr["mode"] or w <= 0 or h <= 0:
+            continue
+        _check_size(w, h)
+        return name, hdr
     raise ImageCodecError(f"cannot identify image file ({_READS})")
 
 
 def decode(data: bytes, mode: str = "RGB") -> np.ndarray:
-    """``np.asarray(Image.open(io.BytesIO(data)).convert(mode))`` for a
-    JPEG, PNG, GIF, BMP, WEBP or TIFF: uint8 ``[H, W, 3]`` for ``"RGB"``,
+    """``np.asarray(Image.open(io.BytesIO(data)).convert(mode))`` for any
+    of the formats of ``_READS``: uint8 ``[H, W, 3]`` for ``"RGB"``,
     ``[H, W]`` for ``"L"``."""
     return _decode(data, mode, 0)
 
@@ -2344,13 +2485,15 @@ def decode(data: bytes, mode: str = "RGB") -> np.ndarray:
 def _decode(data: bytes, mode: str, fault: int) -> np.ndarray:
     """:func:`decode` with ``fault`` (bits of FAULTS) set."""
     data = bytes(data)
-    fmt = _format_of(data)
+    fmt, hdr = _identify(data)
     if fmt == "JPEG":
         arr = _decode_jpeg(data, fault)
         return _convert(arr, "RGB" if arr.ndim == 3 else "L", mode)
-    reader = {"PNG": _decode_png, "GIF": _decode_gif, "BMP": _decode_bmp,
-              "WEBP": _decode_webp, "TIFF": _decode_tiff}[fmt]
-    arr, src, palette = reader(data, fault)
+    reader = {name: r for name, _, _, r in _formats()}[fmt]
+    if hdr is None:
+        arr, src, palette = reader(data, fault)
+    else:
+        arr, src, palette = reader(data, hdr, fault)
     return _convert(arr, src, mode, palette)
 
 
@@ -2362,9 +2505,15 @@ def _read(data_or_path) -> bytes:
 
 
 def image_size(data_or_path) -> Tuple[int, int]:
-    """(width, height) from the file's header alone (``Image.open(f).size``)."""
+    """(width, height) from the file's header alone (``Image.open(f).size``;
+    an icon, which Image.open loads, from its pixels)."""
     data = _read(data_or_path)
-    fmt = _format_of(data)
+    fmt, hdr = _identify(data)
+    if hdr is not None:
+        size = hdr["size"]
+        if not (len(size) == 2 and all(isinstance(v, int) for v in size)):
+            raise ImageCodecError(f"{fmt} image of size {size!r}")
+        return size
     if fmt == "JPEG":
         w, h, _ = _jpeg_open(data)
         return w, h
@@ -2385,23 +2534,34 @@ def read_image(path, mode: str = "RGB") -> np.ndarray:
     return decode(_read(path), mode)
 
 
+# the extensions Pillow's registered_extensions() maps to the formats
+# written here (or, for MSP and XBM, whose writers refuse an RGB or L image)
+_WRITE_EXTENSIONS = {
+    ".jpg": "JPEG", ".jpeg": "JPEG", ".jpe": "JPEG", ".jfif": "JPEG", ".png": "PNG",
+    ".bmp": "BMP", ".dib": "DIB", ".tif": "TIFF", ".tiff": "TIFF",
+    ".pbm": "PPM", ".pgm": "PPM", ".ppm": "PPM", ".pnm": "PPM", ".pfm": "PPM",
+    ".tga": "TGA", ".icb": "TGA", ".vda": "TGA", ".vst": "TGA",
+    ".bw": "SGI", ".rgb": "SGI", ".rgba": "SGI", ".sgi": "SGI",
+    ".pcx": "PCX", ".qoi": "QOI", ".msp": "MSP", ".xbm": "XBM"}
+
+
 def write_image(path_or_file, arr: np.ndarray, format: Optional[str] = None,
                 quality: Optional[int] = None) -> None:
     """``Image.fromarray(arr).save(path_or_file, format, quality=...)`` for
-    JPEG, PNG, BMP and TIFF: the format from ``format`` or the file's
-    extension, JPEG at ``quality`` (75 when None, Pillow's default)."""
+    JPEG, PNG, BMP, DIB, TIFF, PPM, TGA, SGI, PCX and QOI: the format from
+    ``format`` or the file's extension as Pillow maps it, JPEG at
+    ``quality`` (75 when None, Pillow's default). MSP and XBM refuse an RGB
+    or L array, as Pillow's writers do."""
     fmt = (format or "").upper()
+    name = (os.fspath(path_or_file) if isinstance(path_or_file, (str, os.PathLike))
+            else getattr(path_or_file, "name", ""))
+    name = name if isinstance(name, str) else ""
     if not fmt:
-        name = (os.fspath(path_or_file)
-                if isinstance(path_or_file, (str, os.PathLike))
-                else getattr(path_or_file, "name", ""))
-        ext = Path(str(name)).suffix.lower()
-        fmt = {".jpg": "JPEG", ".jpeg": "JPEG", ".png": "PNG",
-               ".bmp": "BMP", ".tif": "TIFF", ".tiff": "TIFF"}.get(ext, "")
+        ext = Path(name).suffix.lower()
+        fmt = _WRITE_EXTENSIONS.get(ext, "")
         if not fmt:
-            raise ImageCodecError(f"cannot tell the image format of "
-                                  f"{name!r} (use .jpg, .jpeg, .png, .bmp, "
-                                  f".tif or .tiff)")
+            raise ImageCodecError(f"cannot tell the image format of {name!r} (use "
+                                  f"{', '.join(sorted(_WRITE_EXTENSIONS))})")
     if fmt in ("JPEG", "JPG"):
         data = encode_jpeg(arr, JPEG_QUALITY if quality is None else quality)
     elif fmt == "PNG":
@@ -2410,11 +2570,21 @@ def write_image(path_or_file, arr: np.ndarray, format: Optional[str] = None,
         data = encode_bmp(arr)
     elif fmt in ("TIFF", "TIF"):
         data = encode_tiff(arr)
+    elif fmt in ("MSP", "XBM"):
+        raise ImageCodecError(f"cannot write mode {'L' if np.ndim(arr) == 2 else 'RGB'} "
+                              f"as {fmt}")
+    elif fmt in ("DIB", "PPM", "TGA", "PCX", "QOI", "SGI"):
+        encode = {"DIB": _rf.encode_dib, "PPM": _rf.encode_ppm, "TGA": _rf.encode_tga,
+                  "PCX": _rf.encode_pcx, "QOI": _rf.encode_qoi}.get(fmt)
+        data = _rf.encode_sgi(arr, name) if fmt == "SGI" else encode(arr)
     else:
-        raise ImageCodecError(f"writing {fmt} images is not supported (JPEG, "
-                              "PNG, BMP and TIFF are)")
+        raise ImageCodecError(f"writing {fmt} images is not supported (JPEG, PNG, BMP, "
+                              "DIB, TIFF, PPM, TGA, SGI, PCX and QOI are)")
     if hasattr(path_or_file, "write"):
         path_or_file.write(data)
     else:
         with open(path_or_file, "wb") as f:
             f.write(data)
+
+
+from cpt_tpu_torch.utils import raster_formats as _rf  # noqa: E402  (it uses this module's readers)

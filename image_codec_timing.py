@@ -24,14 +24,14 @@ are equal. The times are of the host this runs on (no card is used).
 ``chip_smoke.CODEC_PILLOW_MS`` holds Pillow's figures for the 480x640
 quality-95 JPEG decode and encode, the arithmetic, lossless and smoothed
 480x640 JPEG decodes, the 480x640 WEBP decodes, the 480x640 YCbCr JPEG
-TIFF decode and the 480x640 TIFF encode from runs of this script.
+TIFF decode, the 480x640 TIFF encode, and the ``raster:`` decodes and
+``write:`` writes, from runs of this script.
 
     python3 image_codec_timing.py [--reps 20]
 """
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import io
 import json
 
@@ -49,19 +49,10 @@ def pillow():
     return Image
 
 
-def fixture_script():
-    """tests/data/codec/make_fixtures.py (its TIFF writer needs no Pillow)."""
-    spec = importlib.util.spec_from_file_location(
-        "make_fixtures", chip_smoke.CODEC_DIR / "make_fixtures.py")
-    mf = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mf)
-    return mf
-
-
 def tiff_inputs() -> dict:
     """name → TIFF bytes of the 480x640 photo: raw (encode_tiff, Pillow's
     layout), LZW under the horizontal predictor, Deflate and PackBits."""
-    mf = fixture_script()
+    mf = chip_smoke.fixture_script()
     photo = chip_smoke.codec_tiff_encode_inputs()["photo_rgb"]
     return {"raw_480x640.tif": image_codec.encode_tiff(photo),
             "lzw_pred_480x640.tif": mf.tiff_file(photo, 5, 2, rows=34),
@@ -71,7 +62,7 @@ def tiff_inputs() -> dict:
 
 def big_inputs(Image) -> dict:
     """name → file bytes of the 480x640 photo in each new kind."""
-    mf = fixture_script()
+    mf = chip_smoke.fixture_script()
     photo = chip_smoke.codec_photo(11, 480, 640)
     k = chip_smoke.codec_photo(12, 480, 640)[..., 1]
     wide = photo.astype(np.uint16) * 257 + k[..., None]
@@ -139,6 +130,33 @@ def main(argv=None) -> dict:
             if Image else None,
             "equal": bool(np.array_equal(image_codec.decode(data),
                                          pil_decode())) if Image else None}
+    for name, data in chip_smoke.raster_timing_inputs().items():
+        def pil_decode(data=data):
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        out[f"raster:{name}"] = {
+            "bytes": len(data),
+            "codec_ms": chip_smoke.median_ms(
+                lambda: image_codec.decode(data), args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil_decode, args.reps)
+            if Image else None,
+            "equal": bool(np.array_equal(image_codec.decode(data),
+                                         pil_decode())) if Image else None}
+    photo = chip_smoke.codec_tiff_encode_inputs()["photo_rgb"]
+    for fmt in chip_smoke.RASTER_WRITES:
+        def port_write(fmt=fmt):
+            buf = io.BytesIO()
+            image_codec.write_image(buf, photo, format=fmt)
+            return buf.getvalue()
+
+        def pil_write(fmt=fmt):
+            buf = io.BytesIO()
+            Image.fromarray(photo).save(buf, format=fmt)
+            return buf.getvalue()
+        out[f"write:{fmt.lower()}_480x640"] = {
+            "shape": list(photo.shape),
+            "codec_ms": chip_smoke.median_ms(port_write, args.reps),
+            "pillow_ms": chip_smoke.median_ms(pil_write, args.reps) if Image else None,
+            "equal": port_write() == pil_write() if Image else None}
     photo = chip_smoke.codec_encode_inputs()["photo_q95"][0]
 
     def pil_bmp():

@@ -1666,6 +1666,443 @@ def tiff_fixtures() -> dict:
     return out
 
 
+# ------------------------------------------------- Pillow's other raster formats
+
+def pillow_save(arr_or_im, fmt: str, mode=None, **kw) -> bytes:
+    """Pillow's ``save(format=fmt, **kw)`` of an array (in ``mode``) or an
+    image."""
+    im = arr_or_im if hasattr(arr_or_im, "save") else Image.fromarray(arr_or_im, mode)
+    buf = io.BytesIO()
+    im.save(buf, format=fmt, **kw)
+    return buf.getvalue()
+
+
+def ppm_plain(arr: np.ndarray, maxval: int = 255, comments: bool = True) -> bytes:
+    """A plain (ASCII) netpbm file: P1 for a bool array (True black), P2 for
+    [h, w], P3 for [h, w, 3] samples up to ``maxval``; comments in the
+    header and among the samples, rows of varied length."""
+    h, w = arr.shape[:2]
+    if arr.dtype == bool:
+        head = b"P1\n"
+    else:
+        head = b"P2\n" if arr.ndim == 2 else b"P3\n"
+    if comments:
+        head += b"# written by make_fixtures\n"
+    head += b"%d %d\n" % (w, h)
+    if arr.dtype != bool:
+        head += b"%d\n" % maxval
+    lines = []
+    for y in range(h):
+        vals = arr[y].astype(np.int64).reshape(-1)
+        if arr.dtype == bool:
+            lines.append("".join("1" if v else "0" for v in vals).encode())
+        else:
+            lines.append(b" ".join(b"%d" % v for v in vals))
+        if comments and y % 3 == 1:
+            lines.append(b"# a comment among the samples")
+    return head + b"\n".join(lines) + b"\n"
+
+
+def pfm(arr: np.ndarray, scale: float = 1.0) -> bytes:
+    """A grey PFM ("Pf"): the scale's sign gives the byte order (negative:
+    little-endian), rows bottom-up."""
+    h, w = arr.shape
+    order = "<f4" if scale < 0 else ">f4"
+    return (b"Pf\n%d %d\n%s\n" % (w, h, repr(float(scale)).encode())
+            + arr[::-1].astype(order).tobytes())
+
+
+def tga_file(pixels: np.ndarray, kind: int, depth: int, palette=None, map_depth: int = 24,
+             map_start: int = 0, origin: int = 0, id_field: bytes = b"",
+             rle: bool = False) -> bytes:
+    """A Targa file: ``pixels`` are the stored samples ([h, w] indices or
+    grey, or [h, w, bytes] for 16-, 24- and 32-bit pixels, top row first);
+    ``origin`` is the flags' 0x30 bits; RLE packets within rows."""
+    h, w = pixels.shape[:2]
+    cmap = palette is not None
+    entries = 0 if palette is None else len(palette)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), int(cmap), kind | (8 if rle else 0),
+                       map_start, entries, map_depth if cmap else 0, 0, 0, w, h, depth,
+                       origin)
+    body = head + id_field
+    if cmap:
+        body += np.asarray(palette, np.uint8).tobytes()
+    rows = pixels if origin & 0x20 else pixels[::-1]
+    if origin & 0x10:
+        rows = rows[:, ::-1]
+    k = max(1, depth // 8)
+    if depth == 1:
+        data = np.packbits(rows.astype(bool), axis=1).tobytes()
+    elif not rle:
+        data = np.ascontiguousarray(rows).tobytes()
+    else:
+        out = bytearray()
+        for row in rows.reshape(h, w, k):
+            x = 0
+            while x < w:
+                n = 1
+                while x + n < w and n < 128 and (row[x + n] == row[x]).all():
+                    n += 1
+                if n >= 2:
+                    out += bytes([0x80 | (n - 1)]) + row[x].tobytes()
+                else:
+                    n = 1
+                    while (x + n < w and n < 128
+                           and not (row[x + n] == row[x + n - 1]).all()):
+                        n += 1
+                    out += bytes([n - 1]) + row[x:x + n].tobytes()
+                x += n
+        data = bytes(out)
+    return body + data
+
+
+def psd_file(channels: list, bits: int, mode: int, compression: int, palette=None,
+             resources: bytes = b"", layers: bytes = b"") -> bytes:
+    """A Photoshop file: ``channels`` are [h, w] planes (1-bit: rows of
+    packed bits), ``mode`` PSD's colour mode (0 bitmap, 1 grey, 2 indexed,
+    3 RGB, 4 CMYK), the composite image raw (0) or PackBits (1) by row."""
+    h, w = channels[0].shape
+    w *= 8 if bits == 1 else 1
+    head = (b"8BPS" + struct.pack(">H6xHIIHH", 1, len(channels), h, w, bits, mode))
+    cmd = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    body = head + struct.pack(">I", len(cmd)) + cmd
+    body += struct.pack(">I", len(resources)) + resources
+    body += struct.pack(">I", len(layers)) + layers
+    body += struct.pack(">H", compression)
+    if compression == 0:
+        body += b"".join(np.ascontiguousarray(c).tobytes() for c in channels)
+    else:
+        rows = [packbits(r.tobytes()) for c in channels for r in c]
+        body += b"".join(struct.pack(">H", len(r)) for r in rows) + b"".join(rows)
+    return body
+
+
+def psd_resource(ident: int, name: bytes, data: bytes) -> bytes:
+    """An image resource block (8BIM, its id, a padded Pascal name, data)."""
+    pname = bytes([len(name)]) + name
+    pname += b"\0" * (len(pname) & 1)
+    return b"8BIM" + struct.pack(">H", ident) + pname + struct.pack(">I", len(data)) + data \
+        + b"\0" * (len(data) & 1)
+
+
+def dib_bytes(pixels: np.ndarray, bits: int, palette=None) -> bytes:
+    """A BITMAPINFOHEADER bitmap (no file header) of ``pixels`` ([h, w]
+    indices or [h, w, 3] RGB), bottom-up."""
+    return bmp_file(pixels, bits, palette)[14:]
+
+
+def cur_file(images: list, hotspot=(1, 2), magic: bytes = b"\0\0\2\0") -> bytes:
+    """A Windows cursor (an icon, with ``magic`` b"\0\0\1\0" and ``hotspot``
+    the planes and bits: (1, 24)) of 24-bit bitmaps (each [h, w, 3] with its
+    AND mask), in the order given."""
+    n = len(images)
+    entries, blobs, at = b"", b"", 6 + 16 * n
+    for img in images:
+        h, w = img.shape[:2]
+        mask = np.zeros((h, ((w + 31) // 32) * 4), np.uint8)
+        dib = dib_bytes(img, 24)
+        blob = dib[:8] + struct.pack("<i", 2 * h) + dib[12:] + mask.tobytes()
+        entries += struct.pack("<BBBBHHII", w % 256, h % 256, 0, 0, *hotspot, len(blob),
+                               at + len(blobs))
+        blobs += blob
+    return magic + struct.pack("<H", n) + entries + blobs
+
+
+def dcx_file(pages: list) -> bytes:
+    """A DCX of PCX pages."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return (struct.pack("<I", 0x3ADE68B1) + b"".join(struct.pack("<I", o) for o in offsets)
+            + b"\0\0\0\0" + b"".join(pages))
+
+
+def pcx_planes(indices: np.ndarray, planes: int, palette: np.ndarray) -> bytes:
+    """A PCX of 1-bit planes (2 or 4), a 16-colour header palette, rows of
+    planes padded to even lengths, PCX RLE."""
+    h, w = indices.shape
+    stride = (w + 7) // 8
+    stride += stride % 2
+    head = (struct.pack("<BBBBHHHHHH", 10, 5, 1, 1, 0, 0, w - 1, h - 1, 72, 72)
+            + np.asarray(palette, np.uint8)[:16].tobytes().ljust(48, b"\0") + b"\0"
+            + struct.pack("<BHHHH", planes, stride, 1, w, h) + b"\0" * 54)
+    out = bytearray()
+    for row in indices:
+        line = b"".join(np.packbits(((row >> i) & 1).astype(np.uint8)).tobytes().ljust(
+            stride, b"\0") for i in range(planes))
+        for b in line:
+            out += bytes([0xC1, b]) if b >= 0xC0 else bytes([b])
+    return head + bytes(out)
+
+
+def msp2_file(bits: np.ndarray) -> bytes:
+    """A Windows Paint version 2 ("LinS") file of a bool array (True white):
+    per row, runs of equal bytes (0, count, value) and literal bytes."""
+    h, w = bits.shape
+    rows = np.packbits(bits, axis=1)
+    data, lens = b"", []
+    for i, row in enumerate(rows):
+        if i % 7 == 3 and bits[i].all():
+            lens.append(0)
+            continue
+        out, x = bytearray(), 0
+        while x < len(row):
+            n = 1
+            while x + n < len(row) and row[x + n] == row[x] and n < 255:
+                n += 1
+            if n >= 3:
+                out += bytes([0, n, row[x]])
+            else:
+                out += bytes([n]) + row[x:x + n].tobytes()
+            x += n
+        lens.append(len(out))
+        data += bytes(out)
+    header = [0x694C, 0x536E, w, h, 1, 1, 1, 1, w, h, 0, 0, 0, 0, 0, 0]
+    check = 0
+    for v in header:
+        check ^= v
+    header[12] = check
+    return (struct.pack("<16H", *header) + struct.pack(f"<{h}H", *lens) + data)
+
+
+def sgi_rle_file(arr: np.ndarray, bpc: int = 1) -> bytes:
+    """An RLE SGI file ([h, w] or [h, w, c] samples; 2 bytes a sample at
+    ``bpc`` 2, the high byte the sample, the low byte 0x5A): rows bottom-up,
+    the offset and length tables channel by channel, runs and literals of
+    at most 127 and a zero terminator a row."""
+    a = arr if arr.ndim == 3 else arr[:, :, None]
+    h, w, z = a.shape
+    head = struct.pack(">hBBHHHHll4s79ss", 474, 1, bpc, 3 if z > 1 else 2, w, h, z, 0, 255,
+                       b"", b"rle", b"") + struct.pack(">l404s", 0, b"")
+    starts, lens, blobs = [], [], b""
+    at = 512 + 8 * h * z
+
+    def sample(v):
+        return bytes([v]) if bpc == 1 else bytes([v, 0x5A])
+
+    def packet(n):           # a packet's count: the low byte of a 16-bit one
+        return bytes([n]) if bpc == 1 else bytes([0, n])
+    for c in range(z):
+        for y in range(h - 1, -1, -1):
+            row = a[y, :, c]
+            out, x = bytearray(), 0
+            while x < w:
+                n = 1
+                while x + n < w and row[x + n] == row[x] and n < 127:
+                    n += 1
+                if n >= 3:
+                    out += packet(n) + sample(row[x])
+                else:
+                    n = 1
+                    while x + n < w and n < 127 and not (
+                            x + n + 2 < w and row[x + n] == row[x + n + 1] == row[x + n + 2]):
+                        n += 1
+                    out += packet(0x80 | n) + b"".join(sample(v) for v in row[x:x + n])
+                x += n
+            out += packet(0)
+            starts.append(at + len(blobs))
+            lens.append(len(out))
+            blobs += bytes(out)
+    return (head + struct.pack(f">{h * z}I", *starts) + struct.pack(f">{h * z}I", *lens)
+            + blobs)
+
+
+def sun_file(pixels: np.ndarray, depth: int, kind: int = 1, palette=None) -> bytes:
+    """A Sun raster file: ``pixels`` the stored samples ([h, w] or [h, w, 3]
+    / [h, w, 4] in the file's byte order; 1-bit as 0 / 1), rows padded to
+    16 bits when raw; ``kind`` 2 RLE-encodes the unpadded rows (as Pillow
+    reads them): runs of 3 or more (or any 0x80 byte) as 0x80, n - 1, v."""
+    h, w = pixels.shape[:2]
+    if depth == 1:
+        rows = np.packbits(pixels.astype(bool), axis=1)
+    elif depth == 4:
+        p = np.zeros((h, w + w % 2), np.uint8)
+        p[:, :w] = pixels
+        rows = (p[:, 0::2] << 4 | p[:, 1::2]).astype(np.uint8)
+    else:
+        rows = pixels.reshape(h, -1).astype(np.uint8)
+    stride = ((w * depth + 15) // 16) * 2
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    if kind == 2:
+        flat = rows.reshape(-1).tobytes()
+        out, i = bytearray(), 0
+        while i < len(flat):
+            n = 1
+            while i + n < len(flat) and flat[i + n] == flat[i] and n < 256:
+                n += 1
+            if n >= 3 or flat[i] == 0x80:
+                if n == 1:
+                    out += b"\x80\x00"
+                else:
+                    out += bytes([0x80, n - 1, flat[i]])
+            else:
+                out += bytes([flat[i]])
+                n = 1
+            i += n
+        data = bytes(out)
+    else:
+        padded = np.zeros((h, stride), np.uint8)
+        padded[:, :rows.shape[1]] = rows
+        data = padded.tobytes()
+    return (struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), kind, 1 if pal else 0,
+                        len(pal)) + pal + data)
+
+
+def xpm_file(indices: np.ndarray, palette: np.ndarray, chars: int = 1,
+             transparent: bool = False) -> bytes:
+    """An X11 pixmap of ``indices`` into ``palette`` (``c #rrggbb`` entries,
+    ``chars`` characters a pixel; one more entry ``c None`` when
+    ``transparent``, unused)."""
+    alphabet = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789+@"
+    n = len(palette) + int(transparent)
+    keys = [bytes(alphabet[(i // len(alphabet) ** j) % len(alphabet)] for j in range(chars))
+            for i in range(n)]
+    h, w = indices.shape
+    lines = [b"/* XPM */", b"static char *image[] = {",
+             b'"%d %d %d %d",' % (w, h, n, chars)]
+    for k, rgb in zip(keys, palette):
+        lines.append(b'"%s c #%02x%02x%02x",' % ((k,) + tuple(int(v) for v in rgb)))
+    if transparent:
+        lines.append(b'"%s c None",' % keys[-1])
+    lines.append(b"/* pixels */")
+    for row in indices:
+        lines.append(b'"' + b"".join(keys[i] for i in row) + b'",')
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def tga_rle_runs(indices: np.ndarray, palette: np.ndarray, run: int = 16) -> bytes:
+    """A colour-mapped RLE Targa (type 9, 24-bit map, bottom-up) of
+    ``indices`` whose rows are runs of ``run`` equal pixels: one run packet
+    each (phase 8's 240x320 upload, small enough to commit)."""
+    h, w = indices.shape
+    runs = indices[::-1, ::run]
+    packets = np.stack([np.full(runs.shape, 0x80 | (run - 1), np.uint8), runs], -1)
+    head = struct.pack("<BBBHHBHHHHBB", 0, 1, 9, 0, len(palette), 24, 0, 0, w, h, 8, 0)
+    return head + np.asarray(palette, np.uint8)[:, ::-1].tobytes() + packets.tobytes()
+
+
+def raster_fixtures() -> dict:
+    """The fixtures of Pillow's other raster formats (netpbm, DIB, TGA,
+    PSD, ICO, CUR, SGI, PCX, DCX, QOI, SUN, IM, MSP, XBM, XPM)."""
+    out = {}
+    rng = np.random.RandomState(90)
+    rgb = photo(91, 16, 21)
+    grey = photo(92, 17, 23)[:, :, 1]
+    bits = photo(93, 19, 29)[:, :, 0] > 128
+    pal = rng.randint(0, 256, (16, 3)).astype(np.uint8)
+    idx = (photo(94, 15, 18)[:, :, 2] // 16).astype(np.uint8)
+    pal256 = rng.randint(0, 256, (256, 3)).astype(np.uint8)
+    # netpbm
+    out["p1_plain.pbm"] = ppm_plain(bits)
+    out["p2_plain_max10.pgm"] = ppm_plain(np.arange(grey.size).reshape(grey.shape) % 11,
+                                          maxval=10)
+    out["p3_plain.ppm"] = ppm_plain(rgb[:9, :11])
+    out["p4.pbm"] = pillow_save(Image.fromarray(bits), "PPM")
+    out["p5.pgm"] = pillow_save(grey, "PPM")
+    out["p5_16bit.pgm"] = pillow_save((grey.astype(np.int32) * 257 // 2), "PPM", "I")
+    out["p5_max1000.pgm"] = (b"P5\n%d %d\n1000\n" % grey.shape[::-1]
+                             + (grey.astype(">u2") * 3).tobytes())
+    out["p6.ppm"] = pillow_save(rgb, "PPM")
+    out["p6_max4095.ppm"] = (b"P6\n# 12-bit samples\n%d %d\n4095\n" % rgb.shape[1::-1]
+                             + (rgb.astype(">u2") * 16 + 7).tobytes())
+    out["pf_le.pfm"] = pillow_save(Image.fromarray(grey.astype(np.float32) * 0.9 - 10), "PPM")
+    out["pf_be.pfm"] = pfm(grey.astype(np.float32) * 1.3 + 0.5, scale=2.5)
+    # DIB
+    out["rgb.dib"] = pillow_save(rgb, "DIB")
+    out["p4.dib"] = dib_bytes(idx, 4, pal)
+    # Targa
+    out["rgb.tga"] = pillow_save(rgb, "TGA")
+    out["rgb_rle_top.tga"] = pillow_save(rgb, "TGA", rle=True, orientation=1)
+    out["l_rle.tga"] = pillow_save(grey, "TGA", rle=True)
+    out["p_rle.tga"] = tga_file(idx, 1, 8, palette=pal[:, ::-1], rle=True,
+                                id_field=b"make_fixtures")
+    out["cmap16.tga"] = tga_file(idx, 1, 8, rng.randint(0, 256, (16, 2)), map_depth=16,
+                                 map_start=2, origin=0x20)
+    out["cmap24_mirrored.tga"] = tga_file(idx, 1, 8, rng.randint(0, 256, (16, 3)),
+                                          map_depth=24, origin=0x10)
+    out["rgb16.tga"] = tga_file(rng.randint(0, 256, (13, 17, 2)).astype(np.uint8), 2, 16)
+    out["rgba32_rle.tga"] = tga_file(np.repeat(rgb[:, :, None, :1], 4, 2).reshape(
+        rgb.shape[0], rgb.shape[1], 4) // 32 * 32, 2, 32, rle=True, origin=0x30)
+    out["bilevel.tga"] = tga_file(bits, 3, 1)
+    photo240 = photo(98, 240, 320)
+    blocks = (photo240[::16, ::16] // 64).astype(np.int64)
+    codes = blocks[..., 0] * 16 + blocks[..., 1] * 4 + blocks[..., 2]
+    levels = np.array([32, 96, 160, 224], np.uint8)
+    pal64 = np.stack([levels[np.arange(64) // 16], levels[np.arange(64) // 4 % 4],
+                      levels[np.arange(64) % 4]], -1)
+    out["cmap_rle_240x320.tga"] = tga_rle_runs(
+        np.kron(codes, np.ones((16, 16), np.int64)).astype(np.uint8), pal64)
+    # PSD
+    res = psd_resource(1005, b"", bytes(16)) + psd_resource(1039, b"icc", b"\1\2\3")
+    planes = [rgb[:, :, i] for i in range(3)]
+    out["rgb_raw.psd"] = psd_file(planes, 8, 3, 0, resources=res)
+    out["rgb_rle.psd"] = psd_file([p // 8 * 8 for p in planes], 8, 3, 1,
+                                  layers=struct.pack(">I", 0) + bytes(8))
+    out["rgba_rle.psd"] = psd_file([p // 16 * 16 for p in planes] + [grey[:16, :21]], 8, 3, 1)
+    out["l_rle.psd"] = psd_file([grey // 4 * 4], 8, 1, 1)
+    out["p_raw.psd"] = psd_file([idx], 8, 2, 0, palette=np.concatenate([pal, pal256[16:]]))
+    out["cmyk_rle.psd"] = psd_file([p // 16 * 16 for p in planes] + [grey[:16, :21] // 32],
+                                   8, 4, 1)
+    out["bitmap.psd"] = psd_file([np.packbits(bits[:, :24], axis=1)], 1, 0, 1)
+    # ICO and CUR
+    big = photo(95, 24, 24)
+    ico = Image.fromarray(big)
+    out["png.ico"] = pillow_save(ico, "ICO", sizes=[(16, 16), (24, 24)])
+    out["bmp.ico"] = pillow_save(ico, "ICO", sizes=[(16, 16), (24, 24)], bitmap_format="bmp")
+    out["p.ico"] = pillow_save(Image.fromarray(big).convert("P", palette=Image.Palette.ADAPTIVE,
+                                                            colors=16), "ICO",
+                               sizes=[(24, 24)], bitmap_format="bmp")
+    out["two.cur"] = cur_file([photo(96, 9, 8), photo(97, 15, 13)])
+    # SGI
+    out["rgb.sgi"] = pillow_save(rgb, "SGI")
+    out["l16.sgi"] = pillow_save(grey, "SGI", bpc=2)
+    out["rgba_rle.sgi"] = sgi_rle_file(np.concatenate([rgb // 16 * 16, grey[:16, :21, None]],
+                                                      2))
+    out["l_rle16.sgi"] = sgi_rle_file(grey // 8 * 8, bpc=2)
+    # PCX and DCX
+    out["rgb.pcx"] = pillow_save(rgb, "PCX")
+    out["l_odd.pcx"] = pillow_save(grey, "PCX")
+    out["p.pcx"] = pillow_save(Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                                            colors=40), "PCX")
+    out["bilevel.pcx"] = pillow_save(Image.fromarray(bits), "PCX")
+    out["p4_planes.pcx"] = pcx_planes(idx, 4, pal)
+    out["two_pages.dcx"] = dcx_file([pillow_save(rgb[:, :20], "PCX"),
+                                     pillow_save(grey[:, :17], "PCX")])
+    # QOI
+    out["rgb.qoi"] = pillow_save(rgb // 4 * 4, "QOI")
+    out["rgba.qoi"] = pillow_save(np.concatenate([rgb, grey[:16, :21, None] // 64 * 64], 2),
+                                  "QOI", "RGBA")
+    # Sun raster
+    out["bgr.ras"] = sun_file(rgb[:, :, ::-1], 24)
+    out["rgbx_rle.ras"] = sun_file(np.concatenate([rgb // 32 * 32, rgb[:, :, :1]], 2), 32, 3)
+    out["p8_rle.ras"] = sun_file(idx, 8, 2, palette=pal)
+    out["bilevel.ras"] = sun_file(bits, 1)
+    out["grey4.ras"] = sun_file(idx, 4)
+    # IM
+    out["rgb.im"] = pillow_save(rgb, "IM")
+    out["l.im"] = pillow_save(grey, "IM")
+    out["p.im"] = pillow_save(_with_palette(Image.fromarray(idx, "L"), pal), "IM")
+    out["f.im"] = pillow_save(Image.fromarray(grey.astype(np.float32) * 1.5 - 30), "IM")
+    out["i16.im"] = pillow_save(Image.fromarray(grey.astype(np.uint16) * 3), "IM")
+    # MSP, XBM, XPM
+    out["v1.msp"] = pillow_save(Image.fromarray(bits), "MSP")
+    rows = bits.copy()
+    rows[3] = True
+    out["v2.msp"] = msp2_file(rows)
+    out["odd.xbm"] = pillow_save(Image.fromarray(bits), "XBM")
+    out["one_char.xpm"] = xpm_file(idx, pal, transparent=True)
+    out["two_chars.xpm"] = xpm_file(idx * 5 % 70, pal256[:70], chars=2)
+    return out
+
+
+def _with_palette(im, palette):
+    im = im.convert("P")
+    im.putpalette(np.asarray(palette, np.uint8).tobytes())
+    return im
+
+
 def fixtures() -> dict:
     """{file name: bytes}."""
     out = {}
@@ -1771,6 +2208,7 @@ def fixtures() -> dict:
     out.update(webp_fixtures())
     out.update(tiff_fixtures())
     out.update(jpeg_fixtures())
+    out.update(raster_fixtures())
     return out
 
 

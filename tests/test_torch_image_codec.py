@@ -698,6 +698,13 @@ def pillow_digests() -> dict:
         buf = io.BytesIO()
         Image.fromarray(arr).save(buf, format="TIFF")
         out[f"encode_tiff:{name}"] = digest(buf.getvalue())
+    for fmt in cs.RASTER_WRITES:
+        for name, arr in cs.codec_raster_encode_inputs().items():
+            if fmt == "QOI" and arr.ndim == 2:      # Pillow's writer refuses L
+                continue
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, format=fmt)
+            out[f"write_{fmt.lower()}:{name}"] = digest(buf.getvalue())
     for name in cs.RESIZED_REQUESTS:
         out[f"upload:{name}"] = digest(pillow_decode(pillow_jpeg(
             cs.resized_request(name)[0], quality=95), "RGB"))

@@ -81,10 +81,11 @@ SLICE_MODULES = ("data.pretrain", "tools.run_oscarplus_pretrain", "tools.explore
                  # the meshes, the pipeline and the synthetic fixtures
                  "parallel.mesh", "parallel.pipeline", "data.synthetic",
                  "tools.dryrun_multichip",
-                 # the Pillow-free pixel operations, image codec and
-                 # captions, and the demo that draws them
-                 "utils.image_ops", "utils.image_codec", "utils.text",
-                 "tools.demo")
+                 # the Pillow-free pixel operations, image codec (its
+                 # other raster formats' readers among them) and captions,
+                 # and the demo that draws them
+                 "utils.image_ops", "utils.image_codec", "utils.raster_formats",
+                 "utils.text", "tools.demo")
 
 
 @pytest.mark.parametrize("name", SLICE_MODULES)
